@@ -57,17 +57,17 @@ def _inputs(device, kinds, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kinds", [1, 4])
-def test_fused_attn_block_kernel(cuda, kinds):
+@pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, 0), (4, WS // 2)])
+def test_fused_attn_block_kernel(cuda, kinds, shift):
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
     p = _inputs(cuda, kinds)
     args = [p[k] for k in ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "s")]
     n0 = fb.fused_attn_block.launches
-    got = fb.fused_attn_block(*args, NH, HD, WS)
+    got = fb.fused_attn_block(*args, NH, HD, WS, shift=shift)
     torch.cuda.synchronize()
     assert fb.fused_attn_block.launches == n0 + 1
-    want = fb.fused_attn_block_reference(*args, NH, HD, WS)
+    want = fb.fused_attn_block_reference(*args, NH, HD, WS, shift=shift)
     assert (got - want).abs().max().item() <= TOL
 
 

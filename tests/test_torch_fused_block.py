@@ -51,6 +51,24 @@ def test_fused_attn_block_matches_jax(shifted):
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=3e-5)
 
 
+def test_fused_attn_block_shift_argument_matches_jax_rolls():
+    """shift=s in the port equals the JAX contract: roll x by -s, run the
+    kernel, roll z back by s."""
+    p = _params(np.random.default_rng(6))
+    s = WS // 2
+    bias = np.ascontiguousarray(
+        p["rel"][None] + shift_mask_kinds(WS, s)[:, None], dtype=np.float32
+    )
+    rest = [p[k] for k in ("g", "be", "wq", "bq", "wp", "bp")] + [bias, S]
+    rolled = jnp.roll(jnp.asarray(p["x"]), (-s, -s), axis=(1, 2))
+    z = jfb.fused_attn_block(rolled, *map(jnp.asarray, rest), NH, HD, WS, 1e-5, True)
+    want = np.asarray(jnp.roll(z, (s, s), axis=(1, 2)))
+    got = tfb.fused_attn_block(
+        torch.from_numpy(p["x"]), *map(torch.from_numpy, rest), NH, HD, WS, 1e-5, shift=s
+    )
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=3e-5)
+
+
 def test_fused_ln_mlp_matches_jax():
     p = _params(np.random.default_rng(5))
     args = [p[k] for k in ("x", "g", "be", "w1", "b1", "w2", "b2")] + [S]

@@ -116,6 +116,30 @@ def test_swinir_upsamplers_match_jax(upsampler, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+def test_cached_kernel_operands_follow_weight_updates(monkeypatch):
+    """At eval the fused branch keeps its (in, out) weights and kind table;
+    an in-place weight update (as load_state_dict makes) refreshes them."""
+    from trainner_redux_tpu_torch.archs.swinir_arch import SwinBlock
+
+    for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN"):
+        monkeypatch.delenv(k, raising=False)
+    blk = SwinBlock(24, 3, 8, shift_size=4).eval()
+    x = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((1, 16, 16, 24)).astype(np.float32)
+    )
+    with torch.no_grad():
+        blk(x)
+        cached = blk._operands
+        blk(x)
+        assert blk._operands is cached
+        blk.attn.qkv.weight.mul_(1.5)
+        fused = blk(x)
+        assert blk._operands is not cached
+        monkeypatch.setenv("TRAINNER_FUSED_ATTN", "0")
+        plain = blk(x)
+    np.testing.assert_allclose(fused.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+
+
 def test_patch_norm_eps_follows_jax():
     """patch_embed.norm uses flax's default eps 1e-6 (upstream SwinIR: 1e-5)."""
     net = SwinIR(upscale=4, **TINY)

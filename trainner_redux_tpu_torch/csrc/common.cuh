@@ -97,11 +97,9 @@ __device__ __forceinline__ void gemm_weights(const float* At, int K,
       for (int i = 0; i < PER; ++i) bs[threadIdx.x + i * kThreads] = reg[i];
       __syncthreads();
       if (k0 + kKChunk < K) fetch(k0 + kKChunk);
-      const int kn = min(kKChunk, K - k0);
       const float* a_col = At + (size_t)k0 * kTLd + rg * 4;
       const float* b_row = bs + cl * CT;
-#pragma unroll 4
-      for (int kc = 0; kc < kn; ++kc) {
+      auto step = [&](int kc) {
         const float4 a = ld4(a_col + kc * kTLd);
         float b[CT];
 #pragma unroll
@@ -117,6 +115,12 @@ __device__ __forceinline__ void gemm_weights(const float* At, int K,
           acc[2][j] = fmaf(a.z, b[j], acc[2][j]);
           acc[3][j] = fmaf(a.w, b[j], acc[3][j]);
         }
+      };
+      if (K - k0 >= kKChunk) {  // a full chunk: a fixed trip count the compiler pipelines
+#pragma unroll
+        for (int kc = 0; kc < kKChunk; ++kc) step(kc);
+      } else {
+        for (int kc = 0; kc < K - k0; ++kc) step(kc);
       }
       buf ^= 1;
     }
@@ -245,9 +249,16 @@ __device__ __forceinline__ void attention_head(const float* qT, const float* kT,
   }
 }
 
-// Index (into the B*H*W tokens) of token r of the 8x8 window (b, wi, wj).
-__device__ __forceinline__ long long window_token(int b, int wi, int wj, int r, int H, int W) {
-  return ((long long)b * H + wi * 8 + r / 8) * W + wj * 8 + r % 8;
+// Index (into the B*H*W tokens) of token r of the 8x8 window (b, wi, wj)
+// of the map cyclically rolled by (-shift, -shift): the token at rolled
+// (y, x) is the one at ((y + shift) mod H, (x + shift) mod W). With
+// 0 <= shift < min(H, W) the sum wraps at most once.
+__device__ __forceinline__ long long window_token(int b, int wi, int wj, int r, int H, int W,
+                                                  int shift) {
+  int y = wi * 8 + r / 8 + shift, x = wj * 8 + r % 8 + shift;
+  if (y >= H) y -= H;
+  if (x >= W) x -= W;
+  return ((long long)b * H + y) * W + x;
 }
 
 __device__ __forceinline__ int window_kind(int kinds, int wi, int wj, int nwh, int nww) {

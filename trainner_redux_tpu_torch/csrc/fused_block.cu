@@ -39,13 +39,14 @@ __host__ __device__ inline int ln_mlp_smem_floats(int C, int hidden) {
   return C * kTLd + hidden * kTLd + kStageFloats + 2 * kTile;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// one block per SM (shared memory allows no more): all 255 registers are free
+__global__ void __launch_bounds__(kThreads, 1)
     attn_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                           const float* __restrict__ be, const float* __restrict__ wq,
                           const float* __restrict__ bq, const float* __restrict__ wp,
                           const float* __restrict__ bp, const float* __restrict__ bias,
                           const float* __restrict__ s, float* __restrict__ z, int H, int W,
-                          int C, int nh, int kinds, float eps, float scale) {
+                          int C, int nh, int kinds, int shift, float eps, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh;
   const int nww = W / 8, nwh = H / 8;
@@ -59,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
   float* Bs = S + kTile * kTLd;     // weight stage
   float* stats = Bs + kStageFloats;
 
-  auto token = [&](int r) { return window_token(b, wi, wj, r, H, W); };
+  auto token = [&](int r) { return window_token(b, wi, wj, r, H, W, shift); };
   layernorm_t([&](int r) { return x + token(r) * C; }, kTile, C, g, be, eps, attT, stats, yT);
 
   const int kind = window_kind(kinds, wi, wj, nwh, nww);
@@ -98,7 +99,8 @@ __global__ void __launch_bounds__(kThreads)
                });
 }
 
-__global__ void __launch_bounds__(kThreads)
+// one block per SM (shared memory allows no more): all 255 registers are free
+__global__ void __launch_bounds__(kThreads, 1)
     ln_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ be, const float* __restrict__ w1,
                       const float* __restrict__ b1, const float* __restrict__ w2,
@@ -152,18 +154,19 @@ size_t trr_ln_mlp_smem_bytes(int C, int hidden) {
 
 // x, z: (B, H, W, C); wq (C, 3C), bq (3C), wp (C, C), bp (C), g/be (C),
 // bias (kinds, nh, 64, 64), s (B). Windows are 8x8; H and W are multiples
-// of 8; C / nh <= 32.
+// of 8; C / nh <= 32. The windows are those of x rolled by (-shift, -shift)
+// and z comes back unrolled, so the caller rolls nothing.
 int trr_attn_block_fwd(const float* x, const float* g, const float* be, const float* wq,
                        const float* bq, const float* wp, const float* bp, const float* bias,
                        const float* s, float* z, int B, int H, int W, int C, int nh, int kinds,
-                       float eps, float scale, cudaStream_t stream) {
+                       int shift, float eps, float scale, cudaStream_t stream) {
   const size_t smem = trr_attn_block_smem_bytes(C, nh);
   const cudaError_t err = cudaFuncSetAttribute(
       trr::attn_block_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H / 8) * (W / 8), B);
   trr::attn_block_fwd_kernel<<<grid, trr::kThreads, smem, stream>>>(
-      x, g, be, wq, bq, wp, bp, bias, s, z, H, W, C, nh, kinds, eps, scale);
+      x, g, be, wq, bq, wp, bp, bias, s, z, H, W, C, nh, kinds, shift, eps, scale);
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < 3 * kTile * hd; e += kThreads) {
     const int part = e / (kTile * hd), rem = e % (kTile * hd);
     const int r = rem / hd, d = rem % hd;
-    const float val = __ldg(qkv + window_token(b, wi, wj, r, H, W) * 3 * C + part * C + h * hd + d);
+    const float val = __ldg(qkv + window_token(b, wi, wj, r, H, W, 0) * 3 * C + part * C + h * hd + d);
     if (part == 2) {
       v[r * kVLd + d] = val;
     } else {
@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(kThreads)
                  [&](int r0, int d, const float* o) {
 #pragma unroll
                    for (int i = 0; i < 4; ++i)
-                     out[window_token(b, wi, wj, r0 + i, H, W) * C + h * hd + d] = o[i];
+                     out[window_token(b, wi, wj, r0 + i, H, W, 0) * C + h * hd + d] = o[i];
                  });
 }
 

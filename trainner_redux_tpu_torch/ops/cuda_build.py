@@ -41,7 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> (argtypes, restype)
 SIGNATURES = {
     "fused_block": {
-        "trr_attn_block_fwd": ([_P] * 10 + [_I] * 6 + [_F, _F, _P], _I),
+        "trr_attn_block_fwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _P], _I),
         "trr_ln_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
         "trr_attn_block_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_ln_mlp_smem_bytes": ([_I, _I], ctypes.c_size_t),

@@ -10,9 +10,10 @@ Port of the forward of the JAX package's ops/pallas/fused_block.py:
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
 (K, nh, n, n). The kernels take 8x8 windows (n = 64) and heads of at most
-32 channels, in fp32. Cyclic shifts stay outside: the caller rolls x and unrolls
-z (both halves are per-token outside attention, so they commute with the
-roll).
+32 channels, in fp32. The cyclic shift of a shifted block is either done by
+the caller (roll x, unroll z; the JAX package's contract) or, with
+`fused_attn_block(..., shift=s)`, by the kernel's indexing. The MLP half is
+per-token and needs no roll.
 
 For a CUDA tensor each wrapper launches its kernel in
 `csrc/fused_block.cu`; for a CPU tensor it runs its plain version
@@ -98,8 +99,13 @@ def fused_ln_mlp_reference(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
 
 
 def fused_attn_block_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
-                               window_size, eps=1e-5):
+                               window_size, eps=1e-5, shift=0):
     """The attention-half kernel's spec, in fp32 (row softmax)."""
+    if shift:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+        z = fused_attn_block_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                                       window_size, eps)
+        return torch.roll(z, (shift, shift), dims=(1, 2))
     b, hh, ww, c = x.shape
     t = x.reshape(-1, c).float()
     y = F.layer_norm(t, (c,), g.float(), be.float(), eps)
@@ -156,21 +162,25 @@ fused_ln_mlp.launches = 0
 
 
 def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
-                     eps=1e-5):
+                     eps=1e-5, shift=0):
     """z (B,H,W,C) = x + s[b] * proj(window-MHSA(qkv(LN(x)), bias)).
 
     wq (C, 3C), bq (3C,), wp (C, C), bp (C,), bias (K, nh, n, n) fp32 kind
     table (relative-position bias + shift mask, see
-    window_attention.shift_mask_kinds), s (B,) DropPath keep scale. Pass x
-    already rolled and unroll z."""
+    window_attention.shift_mask_kinds), s (B,) DropPath keep scale. With
+    shift=0, as in the JAX package, the caller passes x already rolled and
+    unrolls z; with shift > 0 the kernel takes the windows of x rolled by
+    (-shift, -shift) and returns z unrolled, in x's frame."""
     if x.device.type == "cpu":
         return fused_attn_block_reference(
-            x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps
+            x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps, shift
         )
     b, hh, ww, c = x.shape
     ws, n, kinds = window_size, window_size * window_size, bias.shape[0]
     if c != num_heads * head_dim or kinds not in (1, 4):
         raise ValueError(f"x {tuple(x.shape)} / bias {tuple(bias.shape)} do not match")
+    if not 0 <= shift < min(hh, ww):
+        raise ValueError(f"fused_attn_block: shift {shift} outside [0, {min(hh, ww)})")
     if not attn_block_fits(hh, ww, ws, c, num_heads):
         raise ValueError(
             f"fused_attn_block: H={hh}, W={ww}, C={c}, heads={num_heads}, ws={ws} "
@@ -190,7 +200,7 @@ def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, win
         "trr_attn_block_fwd", x.device,
         x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(),
         wp.data_ptr(), bp.data_ptr(), bias.data_ptr(), s.data_ptr(), z.data_ptr(),
-        b, hh, ww, c, num_heads, kinds, eps, head_dim**-0.5,
+        b, hh, ww, c, num_heads, kinds, shift, eps, head_dim**-0.5,
     )
     return z
 
