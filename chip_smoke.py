@@ -370,7 +370,8 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
     pngs = sorted((Path(opt.path.visualization) / "smoke").glob("*.png"))
     metrics = getattr(model, "metric_results", {})
     say(f"[path] {name} {env or ''}: {secs:.2f} s, {len(pngs)} PNGs, "
-        f"psnr {metrics.get('psnr', float('nan')):.4f} ssim {metrics.get('ssim', float('nan')):.4f}, "
+        f"psnr {metrics.get('psnr', float('nan')):.4f} "
+        f"ssim {metrics.get('ssim', float('nan')):.4f}, "
         f"launches {counts}")
     if len(pngs) != N_IMAGES:
         fail(f"{name}: {len(pngs)} PNGs written, expected {N_IMAGES}")

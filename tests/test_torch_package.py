@@ -49,7 +49,8 @@ def test_imports_without_optional_host_packages():
         "    sys.modules[m] = None\n"
         "import trainner_redux_tpu_torch.test, trainner_redux_tpu_torch.models.sr_model\n"
         "import trainner_redux_tpu_torch.data, trainner_redux_tpu_torch.metrics\n"
-        "import trainner_redux_tpu_torch.utils.torch_compat, trainner_redux_tpu_torch.utils.options\n"
+        "import trainner_redux_tpu_torch.utils.torch_compat\n"
+        "import trainner_redux_tpu_torch.utils.options\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -94,7 +95,8 @@ def test_swinir_test_templates_build(preset):
     from trainner_redux_tpu_torch.archs import build_network
     from trainner_redux_tpu_torch.utils.options import yaml_load
 
-    opt, _ = yaml_load(str(REPO / "configs" / "_templates" / "test" / "SwinIR" / f"{preset}_test.yml"))
+    templates = REPO / "configs" / "_templates" / "test" / "SwinIR"
+    opt, _ = yaml_load(str(templates / f"{preset}_test.yml"))
     net = build_network({**opt.network_g, "scale": opt.scale})
     assert net.upscale == opt.scale == 4
     assert sum(p.numel() for p in net.parameters()) > 0

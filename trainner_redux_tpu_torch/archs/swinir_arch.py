@@ -209,8 +209,9 @@ class SwinBlock(nn.Module):
             # the kernel reads the rolled windows and writes z unrolled
             wq, bq, wp, w1, w2, bias = self._kernel_operands(shift)
             z = fused_attn_block(
-                x.contiguous(), self.norm1.weight, self.norm1.bias, wq, bq, wp, self.attn.proj.bias, bias,
-                s1, self.num_heads, self.attn.head_dim, ws, 1e-5, shift=shift,
+                x.contiguous(), self.norm1.weight, self.norm1.bias, wq, bq, wp,
+                self.attn.proj.bias, bias, s1, self.num_heads, self.attn.head_dim, ws, 1e-5,
+                shift=shift,
             )
             return fused_ln_mlp(
                 z, self.norm2.weight, self.norm2.bias, w1, self.mlp.fc1.bias, w2,

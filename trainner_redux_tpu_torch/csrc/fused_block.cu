@@ -76,7 +76,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int i = 0; i < 4; ++i) v[(r0 + i) * kVLd + d] = o[i] + bb;
           } else {
             float* dst = (part == 0 ? qT : kT) + d * kTLd + r0;
-            *reinterpret_cast<float4*>(dst) = make_float4(o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb);
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb);
           }
         });
     __syncthreads();
@@ -125,7 +126,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const float t = o[i] + bb;
                    u[i] = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
                  }
-                 *reinterpret_cast<float4*>(hT + c * kTLd + r0) = make_float4(u[0], u[1], u[2], u[3]);
+                 *reinterpret_cast<float4*>(hT + c * kTLd + r0) =
+                     make_float4(u[0], u[1], u[2], u[3]);
                });
   gemm_weights(hT, hidden, w2, C, C, [](int c) { return c; }, Bs,
                [&](int r0, int c, const float* o) {

@@ -42,7 +42,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < 3 * kTile * hd; e += kThreads) {
     const int part = e / (kTile * hd), rem = e % (kTile * hd);
     const int r = rem / hd, d = rem % hd;
-    const float val = __ldg(qkv + window_token(b, wi, wj, r, H, W, 0) * 3 * C + part * C + h * hd + d);
+    const long long t = window_token(b, wi, wj, r, H, W, 0);
+    const float val = __ldg(qkv + t * 3 * C + part * C + h * hd + d);
     if (part == 2) {
       v[r * kVLd + d] = val;
     } else {
