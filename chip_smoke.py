@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: SwinIR-M 4x serving.
 
-    python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py [--seed N]     # one card
 
-Phases, each printing its lines and ending the run with exit 1 on failure:
+Phases, all run, each printing its lines and ending the run with exit 1 on
+failure:
 
 1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
              versions; no card is a failure.
 2. build   - compile the CUDA kernels from `trainner_redux_tpu_torch/csrc`.
 3. kernels - each kernel against its plain PyTorch version at SwinIR-M
-             shapes (B=1, 128x128 LR, C=180, 6 heads, ws 8; K=1 and K=4),
-             with kernel, plain and library times and the card's bound.
+             shapes (B=1, 128x128 LR, C=180, 6 heads, ws 8), as the path
+             calls them: K=1 unshifted and K=4 with the shift of 4 that
+             fused_attn_block indexes itself; kernel, plain and library
+             times and the card's bound.
 4. path    - `trainner_redux_tpu_torch.test.run` on a seeded SwinIR-M 4x
              (.pth) and 4 seeded images (three 128x128 LR, one 100x120),
              counting kernel launches; then the same through the unfused
@@ -194,13 +196,15 @@ def phase_kernels() -> dict:
     res: dict[str, dict] = {}
     for kinds in (1, 4):
         x, p, bias, qkv = block_inputs(gen, kinds, dev)
+        # SwinBlock passes the K=4 table together with the shift of ws/2
+        shift = WS // 2 if kinds == 4 else 0
         cases = {
             "fused_attn_block": (
                 lambda: fb.fused_attn_block(x, p["g"], p["be"], p["wq"], p["bq"], p["wp"],
-                                            p["bp"], bias, p["s"], NH, HD, WS),
+                                            p["bp"], bias, p["s"], NH, HD, WS, shift=shift),
                 lambda: fb.fused_attn_block_reference(x, p["g"], p["be"], p["wq"], p["bq"],
                                                       p["wp"], p["bp"], bias, p["s"], NH, HD,
-                                                      WS),
+                                                      WS, shift=shift),
                 None,
                 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C,
                 nbytes(x, x, p["g"], p["be"], p["wq"], p["bq"], p["wp"], p["bp"], bias, p["s"]),
@@ -255,7 +259,7 @@ def phase_kernels() -> dict:
                 fail(f"{name} K={kinds} disagrees with its plain version: {err:.3g}")
             rec = res.setdefault(name, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            # the shifted (K=4) shapes are the ones reported in the JSON line
+            # the times reported in the JSON line are the shifted (K=4) calls'
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
     return res
 
@@ -495,30 +499,25 @@ def phase_profile(seed: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,path,branches,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    phases = set(args.phases.split(","))
 
     info = phase_device()
-    if "build" in phases:
-        phase_build()
-    kernels = phase_kernels() if "kernels" in phases else {}
-    launches = phase_path(args.seed) if "path" in phases else {}
-    if "branches" in phases:
-        phase_branches(args.seed)
-    if "profile" in phases:
-        phase_profile(args.seed)
+    phase_build()
+    kernels = phase_kernels()
+    launches = phase_path(args.seed)
+    phase_branches(args.seed)
+    phase_profile(args.seed)
 
     records = []
     for name in ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa"):
-        rec = kernels.get(name, {})
+        rec = kernels[name]
         records.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches.get(name), "max_abs_err": rec.get("max_abs_err"),
-            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
-            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
-            "library_ms": rec.get("library_ms"),
+            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

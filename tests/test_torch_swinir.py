@@ -116,9 +116,11 @@ def test_swinir_upsamplers_match_jax(upsampler, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-def test_cached_kernel_operands_follow_weight_updates(monkeypatch):
-    """At eval the fused branch keeps its (in, out) weights and kind table;
-    an in-place weight update (as load_state_dict makes) refreshes them."""
+@pytest.mark.parametrize("update", ["in_place", "load_assign"])
+def test_fused_branch_follows_weight_updates(update, monkeypatch):
+    """The fused branch reads the block's current weights at every forward:
+    after an in-place update, or after load_state_dict(assign=True) swaps
+    the parameter tensors, it agrees with the plain branch."""
     from trainner_redux_tpu_torch.archs.swinir_arch import SwinBlock
 
     for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN"):
@@ -128,15 +130,17 @@ def test_cached_kernel_operands_follow_weight_updates(monkeypatch):
         np.random.default_rng(3).standard_normal((1, 16, 16, 24)).astype(np.float32)
     )
     with torch.no_grad():
-        blk(x)
-        cached = blk._operands
-        blk(x)
-        assert blk._operands is cached
-        blk.attn.qkv.weight.mul_(1.5)
+        before = blk(x)
+        if update == "in_place":
+            blk.attn.qkv.weight.mul_(1.5)
+            blk.mlp.fc1.weight.mul_(0.5)
+        else:
+            sd = {k: v * 1.5 for k, v in blk.state_dict().items()}
+            blk.load_state_dict(sd, assign=True)
         fused = blk(x)
-        assert blk._operands is not cached
         monkeypatch.setenv("TRAINNER_FUSED_ATTN", "0")
         plain = blk(x)
+    assert (fused - before).abs().max() > 1e-3
     np.testing.assert_allclose(fused.numpy(), plain.numpy(), atol=1e-5, rtol=0)
 
 

@@ -168,8 +168,6 @@ class SwinBlock(nn.Module):
         self.register_buffer(
             "mask_kinds", None if kinds is None else torch.from_numpy(kinds), persistent=False
         )
-        self._operands: tuple | None = None
-        self._operands_key: tuple | None = None
 
     def bias_kinds(self, shift: int) -> torch.Tensor:
         """(K, nh, n, n) kind table: K=4 with the shift masks, else K=1."""
@@ -177,24 +175,6 @@ class SwinBlock(nn.Module):
         if shift > 0:
             return (bias[None] + self.mask_kinds[:, None]).contiguous()
         return bias[None].contiguous()
-
-    def _kernel_operands(self, shift: int) -> tuple:
-        """The fused kernels' operands: the (in, out) weights, the qkv bias
-        and the kind table. Without autograd (serving) they are kept until a
-        parameter changes (its version counter moves) or moves."""
-        deps = (self.attn.qkv.weight, self.attn.qkv.bias, self.attn.proj.weight,
-                self.mlp.fc1.weight, self.mlp.fc2.weight, self.attn.relative_position_bias_table)
-        key = (shift, *((t.data_ptr(), t._version) for t in deps if t is not None))
-        if torch.is_grad_enabled() or key != self._operands_key:
-            operands = (
-                self.attn.qkv.weight.t().contiguous(), _bias_or_zeros(self.attn.qkv),
-                self.attn.proj.weight.t().contiguous(), self.mlp.fc1.weight.t().contiguous(),
-                self.mlp.fc2.weight.t().contiguous(), self.bias_kinds(shift),
-            )
-            if torch.is_grad_enabled():
-                return operands
-            self._operands, self._operands_key = operands, key
-        return self._operands
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, H, W, C) contiguous; H, W multiples of window_size
@@ -206,16 +186,19 @@ class SwinBlock(nn.Module):
         s2 = droppath_scale(self.drop_path, self.training, b, x.device)
 
         if self.qk_scale is None and fused_block_supported(h, w, ws, c, self.num_heads, hidden):
-            # the kernel reads the rolled windows and writes z unrolled
-            wq, bq, wp, w1, w2, bias = self._kernel_operands(shift)
+            # the kernels take (in, out) weights; the attention kernel reads
+            # the rolled windows and writes z unrolled
             z = fused_attn_block(
-                x.contiguous(), self.norm1.weight, self.norm1.bias, wq, bq, wp,
-                self.attn.proj.bias, bias, s1, self.num_heads, self.attn.head_dim, ws, 1e-5,
+                x.contiguous(), self.norm1.weight, self.norm1.bias,
+                self.attn.qkv.weight.t().contiguous(), _bias_or_zeros(self.attn.qkv),
+                self.attn.proj.weight.t().contiguous(), self.attn.proj.bias,
+                self.bias_kinds(shift), s1, self.num_heads, self.attn.head_dim, ws, 1e-5,
                 shift=shift,
             )
             return fused_ln_mlp(
-                z, self.norm2.weight, self.norm2.bias, w1, self.mlp.fc1.bias, w2,
-                self.mlp.fc2.bias, s2, ws, 1e-5,
+                z, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight.t().contiguous(),
+                self.mlp.fc1.bias, self.mlp.fc2.weight.t().contiguous(), self.mlp.fc2.bias,
+                s2, ws, 1e-5,
             )
 
         shortcut = x
