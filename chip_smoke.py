@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x serving.
+"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x serving and
+training.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -9,9 +10,9 @@ failure:
 1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
              versions; no card is a failure.
 2. build   - compile the CUDA kernels from `trainner_redux_tpu_torch/csrc`.
-3. kernels - each kernel against its plain PyTorch version at SwinIR-M
-             shapes (B=1, 128x128 LR, C=180, 6 heads, ws 8), as the path
-             calls them: K=1 unshifted and K=4 with the shift of 4 that
+3. kernels - each serving kernel against its plain PyTorch version at
+             SwinIR-M shapes (B=1, 128x128 LR, C=180, 6 heads, ws 8), as the
+             path calls them: K=1 unshifted and K=4 with the shift of 4 that
              fused_attn_block indexes itself; kernel, plain and library
              times and the card's bound.
 4. path    - `trainner_redux_tpu_torch.test.run` on a seeded SwinIR-M 4x
@@ -22,6 +23,20 @@ failure:
              (TRAINNER_FUSED_ATTN=0) branches, each timed; the outputs
              must agree.
 6. profile - device time by kernel of the fused-branch forward.
+7. train kernels - the training block's forward (#4: out, P, att, z) and
+             saved-P backward (#5: dx and 13 parameter gradients) against
+             their plain versions at the SwinIR-M training block (B=8, 64x64
+             LR, DropPath scales holding 0 and 1/0.9), K=1 unshifted and K=4
+             shifted by 4; times and the card's bound.
+8. train   - `trainner_redux_tpu_torch.train.run` on SwinIR-M 4x at full
+             width and depth: 16 seeded 512x512 HR images, batch 8 of 64x64
+             LR crops, L1, AdamW 2e-4, EMA 0.999, fp32, 30 steps and a
+             checkpoint, counting launches; the EMA checkpoint then serves
+             through `test.run` with the strict load.
+9. train branches - one forward and backward from equal weights and batch
+             through the kernel branch and the plain branch; losses and
+             gradients must agree.
+10. train profile - device time by kernel of one training step.
 
 Then one JSON line of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -32,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -45,33 +61,53 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
-# SwinIR-M block shapes at B=1 and a 128x128 LR image
+# SwinIR-M block shapes at B=1 and a 128x128 LR image (serving), and at the
+# training batch: 8 crops of 64x64 LR (bench.py's SwinIR-M workload)
 B, H, W, C, NH, WS, HIDDEN = 1, 128, 128, 180, 6, 8, 360
+TB, TH, TW = 8, 64, 64
 HD, N = C // NH, WS * WS
 KERNEL_TOL = 1e-4  # unit-scale fp32 inputs; the kernels sum in another order
+GRAD_TOL = 1e-4  # of each gradient tensor's largest magnitude
 PATH_TOL = 1e-3  # [0, 1] outputs of 36 blocks, kernel vs plain branches
+BRANCH_LOSS_TOL = 1e-4  # relative, one training loss, kernel vs plain branch
+BRANCH_GRAD_TOL = 1e-3  # of each gradient tensor's largest, after 36 blocks back
 N_IMAGES = 4
 BLOCKS = 36
+TRAIN_STEPS = 30
+TRAIN_WARMUP = 5  # steps left out of the per-step median
 
 REPLACES = {
     "fused_attn_block": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
     "fused_ln_mlp": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
     "fused_window_mhsa": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_swin_block_train": "trainner_redux_tpu/ops/pallas/fused_block.py:1374",
+    "fused_swin_block_train_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:1441",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
     "fused_ln_mlp": "trainner_redux_tpu_torch/csrc/fused_block.cu",
     "fused_window_mhsa": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_swin_block_train": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_swin_block_train_backward": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
+KERNELS = tuple(SOURCES)
+# operands of the training block, in fused_swin_block_train's order
+TRAIN_OPS = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",
+             "b2")
 
 
 def fail(msg: str) -> None:
-    print(f"FAIL: {msg}", flush=True)
+    say(f"FAIL: {msg}")
     sys.exit(1)
 
 
 def say(msg: str) -> None:
+    """Print a result line, and keep it in chip_smoke/summary.txt (the
+    entry points' own logs fill the console around it)."""
     print(msg, flush=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    with open(OUT / "summary.txt", "a") as f:
+        f.write(msg + "\n")
 
 
 # ---------------------------------------------------------------------------
@@ -155,8 +191,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def block_inputs(gen, kinds: int, device):
-    """Seeded unit-scale inputs of one SwinIR-M block at B=1, 128x128."""
+def block_inputs(gen, kinds: int, device, shape=(B, H, W)):
+    """Seeded unit-scale inputs of one SwinIR-M block, at B=1, 128x128 unless
+    `shape` gives (B, H, W)."""
     import torch
 
     from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
@@ -164,14 +201,15 @@ def block_inputs(gen, kinds: int, device):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
 
-    x = randn(B, H, W, C)
+    b, h, w = shape
+    x = randn(b, h, w, C)
     p = {
         "g": 1.0 + randn(C, scale=0.1), "be": randn(C, scale=0.1),
         "wq": randn(C, 3 * C, scale=C**-0.5), "bq": randn(3 * C, scale=0.1),
         "wp": randn(C, C, scale=C**-0.5), "bp": randn(C, scale=0.1),
         "w1": randn(C, HIDDEN, scale=C**-0.5), "b1": randn(HIDDEN, scale=0.1),
         "w2": randn(HIDDEN, C, scale=HIDDEN**-0.5), "b2": randn(C, scale=0.1),
-        "s": torch.ones(B, device=device),
+        "s": torch.ones(b, device=device),
     }
     rel = randn(NH, N, N, scale=0.5)
     if kinds == 4:
@@ -179,7 +217,8 @@ def block_inputs(gen, kinds: int, device):
         bias = (rel[None] + masks[:, None]).contiguous()
     else:
         bias = rel[None].contiguous()
-    qkv = randn(B, H, W, 3 * C)
+    qkv = randn(b, h, w, 3 * C)
+    p["g2"], p["be2"] = 1.0 + randn(C, scale=0.1), randn(C, scale=0.1)
     return x, p, bias, qkv
 
 
@@ -269,28 +308,32 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def reset_counts() -> None:
-    from trainner_redux_tpu_torch.ops import fused_block as fb
-    from trainner_redux_tpu_torch.ops import window_attention as wa
-
-    fb.fused_attn_block.launches = 0
-    fb.fused_ln_mlp.launches = 0
-    wa.fused_window_mhsa.launches = 0
-
-
-def read_counts() -> dict[str, int]:
+def _wrappers() -> dict:
     from trainner_redux_tpu_torch.ops import fused_block as fb
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     return {
-        "fused_attn_block": fb.fused_attn_block.launches,
-        "fused_ln_mlp": fb.fused_ln_mlp.launches,
-        "fused_window_mhsa": wa.fused_window_mhsa.launches,
+        "fused_attn_block": fb.fused_attn_block,
+        "fused_ln_mlp": fb.fused_ln_mlp,
+        "fused_window_mhsa": wa.fused_window_mhsa,
+        "fused_swin_block_train": fb.fused_swin_block_train,
+        "fused_swin_block_train_backward": fb.fused_swin_block_train_backward,
     }
 
 
-def make_dataset(root: Path, seed: int) -> tuple[Path, Path]:
-    """Seeded smooth HR images and their 4x4 box-average LR, as PNGs."""
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def make_dataset(root: Path, seed: int,
+                 sizes=((128, 128),) * 3 + ((100, 120),)) -> tuple[Path, Path]:
+    """Seeded smooth HR images and their 4x4 box-average LR, as PNGs; one
+    image for each LR (height, width) of `sizes`."""
     import numpy as np
 
     from trainner_redux_tpu_torch.utils.img_util import imwrite
@@ -299,7 +342,6 @@ def make_dataset(root: Path, seed: int) -> tuple[Path, Path]:
     hr_dir, lr_dir = root / "hr", root / "lr"
     hr_dir.mkdir(parents=True, exist_ok=True)
     lr_dir.mkdir(parents=True, exist_ok=True)
-    sizes = [(128, 128)] * 3 + [(100, 120)]
     for i, (lh, lw) in enumerate(sizes):
         hh, hw = 4 * lh, 4 * lw
         yy, xx = np.mgrid[0:hh, 0:hw] / 64.0
@@ -384,6 +426,15 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
     return {"counts": counts, "metrics": metrics}
 
 
+def check_serving_counts(what: str, c: dict[str, int]) -> None:
+    want = BLOCKS * N_IMAGES
+    if (c["fused_attn_block"], c["fused_ln_mlp"]) != (want, want) or any(
+            c[k] for k in ("fused_window_mhsa", "fused_swin_block_train",
+                           "fused_swin_block_train_backward")):
+        fail(f"{what} launches {c}, expected {want} + {want} serving block kernels and "
+             "no others")
+
+
 def phase_path(seed: int) -> dict[str, int]:
     import torch
 
@@ -398,19 +449,19 @@ def phase_path(seed: int) -> dict[str, int]:
 
     fused = serve("swinir_m_x4_fused", weights, hr_dir, lr_dir, seed, {})
     c = fused["counts"]
+    check_serving_counts("fused path", c)
     want = BLOCKS * N_IMAGES
-    if c["fused_attn_block"] != want or c["fused_ln_mlp"] != want or c["fused_window_mhsa"]:
-        fail(f"fused path launches {c}, expected {want} + {want} block kernels and no "
-             "window-MHSA")
     unfused = serve("swinir_m_x4_unfused", weights, hr_dir, lr_dir, seed,
                     {"TRAINNER_FUSED_BLOCK": "0"})
     u = unfused["counts"]
-    if u["fused_window_mhsa"] != want or u["fused_attn_block"] or u["fused_ln_mlp"]:
+    if u["fused_window_mhsa"] != want or any(
+            u[k] for k in KERNELS if k != "fused_window_mhsa"):
         fail(f"unfused path launches {u}, expected {want} window-MHSA and no block kernels")
     for k in ("psnr", "ssim"):
         d = abs(fused["metrics"][k] - unfused["metrics"][k])
         if d > 1e-3:
             fail(f"{k} differs by {d:.3g} between the fused and unfused paths")
+    weights.unlink()  # 48 MB: chiprun_out/ comes back only under 64 MiB
     return {**c, "fused_window_mhsa": u["fused_window_mhsa"]}
 
 
@@ -495,6 +546,331 @@ def phase_profile(seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 7. train kernels
+# ---------------------------------------------------------------------------
+
+
+def train_flops(tokens: int) -> tuple[float, float]:
+    """Operations of one block's forward (#4) and saved-P backward (#5).
+    Forward: qkv, S and P v, proj, fc1 and fc2. Backward: the MLP side
+    recomputes fc1 and takes dw2, dh, dw1, dy2 (5 products of T x C x
+    hidden); the attention side recomputes qkv and takes datt, dwp, dwq, dy
+    (11 products of T x C x C) and dv, dP, dq, dk (4 of T x n x C)."""
+    t = tokens
+    fwd = 2 * t * C * 3 * C + 4 * t * N * C + 2 * t * C * C + 4 * t * C * HIDDEN
+    bwd = 10 * t * C * HIDDEN + 22 * t * C * C + 8 * t * N * C
+    return fwd, bwd
+
+
+def phase_train_kernels() -> dict:
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    T = TB * TH * TW
+    keep = 1.0 / 0.9  # DropPath at rate 0.1: a sample keeps 1/0.9 or drops to 0
+    s1 = torch.full((TB,), keep, device=dev)
+    s1[1] = 0.0
+    s2 = torch.full((TB,), keep, device=dev)
+    s2[4] = 0.0
+    fwd_flops, bwd_flops = train_flops(T)
+    res: dict[str, dict] = {}
+    for kinds in (1, 4):
+        shift = WS // 2 if kinds == 4 else 0
+        x, p, bias, _ = block_inputs(gen, kinds, dev, shape=(TB, TH, TW))
+        ops = [x if k == "x" else bias if k == "bias" else p[k] for k in TRAIN_OPS]
+        meta = (NH, HD, WS, 1e-5, shift)
+        saved = [t for k, t in zip(TRAIN_OPS, ops) if k != "bias"]
+        dout = torch.randn(TB, TH, TW, C, generator=gen).to(dev)
+
+        def fwd():
+            return fb._swin_block_train_fwd_cuda(*ops, s1, s2, *meta)
+
+        def fwd_plain():
+            return fb.fused_swin_block_train_reference(*ops, s1, s2, *meta)
+
+        try:
+            got = fwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"fused_swin_block_train K={kinds}: {e}")
+        want = fwd_plain()
+        errs = {name: (g - w).abs().max().item() for name, g, w in
+                zip(("out", "P", "att", "z"), got, want)}
+        fwd_err = max(errs.values())
+        if not fwd_err <= KERNEL_TOL or not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"fused_swin_block_train K={kinds} disagrees with its plain version: {errs}")
+
+        def bwd():
+            return fb.fused_swin_block_train_backward(*saved, s1, s2, *want[1:], dout, kinds,
+                                                      *meta)
+
+        def bwd_plain():
+            return fb.fused_swin_block_train_bwd_reference(*saved, s1, s2, *want[1:], dout,
+                                                           kinds, *meta)
+
+        try:
+            grads = bwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"fused_swin_block_train_backward K={kinds}: {e}")
+        plain = bwd_plain()
+        names = ("dx", "dg1", "dbe1", "dwq", "dbq", "dwp", "dbp", "dbias", "dg2", "dbe2", "dw1",
+                 "db1", "dw2", "db2")
+        bwd_err, worst = 0.0, 0.0
+        for name, g, w in zip(names, grads, plain):
+            err, top = (g - w).abs().max().item(), w.abs().max().item()
+            bwd_err, worst = max(bwd_err, err), max(worst, err / top)
+            if g.shape != w.shape or not err <= GRAD_TOL * top:
+                fail(f"fused_swin_block_train_backward K={kinds}: {name} differs by {err:.3g} "
+                     f"(max |g| {top:.3g})")
+        fwd_bytes = nbytes(*ops, s1, s2, *got)
+        bwd_bytes = nbytes(*saved, s1, s2, *want[1:], dout, *grads)
+        cases = {
+            "fused_swin_block_train": (fwd, fwd_plain, fwd_err, fwd_flops, fwd_bytes, ""),
+            "fused_swin_block_train_backward": (
+                bwd, bwd_plain, bwd_err, bwd_flops, bwd_bytes,
+                f", largest error {worst:.3g} of its tensor's max |g|"),
+        }
+        for name, (kern, plain_fn, err, flops, nb, note) in cases.items():
+            ms, plain_ms = time_ms(kern, iters=10, warmup=2), time_ms(plain_fn, iters=5, warmup=1)
+            bms, by = bound(flops, nb)
+            say(f"[train kernels] {name} K={kinds} shift {shift}: max_abs_err {err:.3g}{note} "
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library n/a "
+                f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB)")
+            rec = res.setdefault(name, {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            # the times reported in the JSON line are the shifted (K=4) calls'
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 8. train
+# ---------------------------------------------------------------------------
+
+
+def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int):
+    from trainner_redux_tpu_torch.utils.options import resolve_options
+    from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
+    from trainner_redux_tpu_torch.utils.schema import decode
+
+    raw = {
+        "name": name, "scale": 4, "num_gpu": 1, "manual_seed": seed,
+        "compute_dtype": "float32",
+        "network_g": {"type": "swinir_m"},
+        "path": {},
+        "datasets": {"train": {
+            "name": "smoke_train", "type": "PairedImageDataset",
+            "dataroot_gt": str(hr_dir), "dataroot_lq": str(lr_dir),
+            "io_backend": {"type": "disk"}, "lq_size": TH, "batch_size_per_gpu": TB,
+            "num_worker_per_gpu": 4,
+        }},
+        "train": {
+            "total_iter": TRAIN_STEPS, "ema_decay": 0.999,
+            "optim_g": {"type": "AdamW", "lr": 2e-4, "betas": [0.9, 0.99]},
+            "losses": [{"type": "l1loss", "loss_weight": 1.0}],
+        },
+        "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False},
+    }
+    return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
+
+
+def phase_train(seed: int) -> dict[str, int]:
+    """The training entry point; returns the launch counts of its run."""
+    import math
+    import statistics
+
+    import torch
+
+    from trainner_redux_tpu_torch import train as port_train
+    from trainner_redux_tpu_torch.models.sr_model import SRModel
+
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    opt = train_options("swinir_m_x4_train", hr_dir, lr_dir, seed)
+    ends, losses = [], []
+    original = SRModel.optimize_parameters
+
+    def timed(self, current_iter):
+        original(self, current_iter)
+        losses.append(float(self.log_dict["l_g_total"]))  # waits for the step
+        ends.append(time.perf_counter())
+
+    SRModel.optimize_parameters = timed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_counts()
+        model = port_train.run(opt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        secs = time.perf_counter() - t0
+    finally:
+        SRModel.optimize_parameters = original
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(ends)
+    per_step = [b - a for a, b in zip(ends[TRAIN_WARMUP:], ends[TRAIN_WARMUP + 1:])]
+    med = statistics.median(per_step)
+    q = statistics.quantiles(per_step, n=4)
+    say(f"[train] SwinIR-M 4x, batch {TB} of {TH}x{TW} LR, {steps} steps in {secs:.2f} s "
+        f"(model build and data included): median {med * 1e3:.2f} ms per step "
+        f"(quartiles {q[0] * 1e3:.2f} / {q[2] * 1e3:.2f} ms, steps {TRAIN_WARMUP + 1}-{steps}), "
+        f"{TB / med:.2f} images/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"[train] l_g_total per step: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+        f"launches {counts}")
+    if steps != TRAIN_STEPS or model.step != TRAIN_STEPS:
+        fail(f"train ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"a training loss is not finite: {losses}")
+    want = BLOCKS * TRAIN_STEPS
+    if (counts["fused_swin_block_train"], counts["fused_swin_block_train_backward"]) != (
+            want, want) or any(counts[k] for k in KERNELS[:3]):
+        fail(f"train launches {counts}, expected {BLOCKS} + {BLOCKS} training block kernels "
+             "per step and no serving kernels")
+    ema = Path(opt.path.models) / f"net_g_ema_{TRAIN_STEPS}.safetensors"
+    if not ema.exists():
+        fail(f"no EMA checkpoint at {ema}")
+    state = Path(opt.path.training_states) / f"{TRAIN_STEPS}.state"
+    if not (state.exists() and Path(f"{state}.meta.json").exists()):
+        fail(f"no training state at {state}")
+    eval_hr, eval_lr = make_dataset(OUT / "data", seed)
+    served = serve("swinir_m_x4_trained", ema, eval_hr, eval_lr, seed, {})
+    check_serving_counts("serving the trained checkpoint", served["counts"])
+    # checkpoints, states and the 512x512 PNGs: too large to bring back
+    shutil.rmtree(opt.path.models)
+    shutil.rmtree(opt.path.training_states)
+    shutil.rmtree(OUT / "train_data")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 9. train branches
+# ---------------------------------------------------------------------------
+
+
+def phase_train_branches(seed: int) -> None:
+    """One forward and backward of SwinIR-M in train mode (DropPath on, from
+    equal generators) through the kernel branch and the plain branch."""
+    import copy
+
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.models.sr_model import fp32_math
+
+    net = build_network({"type": "swinir_m", "scale": 4})
+    net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
+    nets = {"kernel": net, "plain": copy.deepcopy(net)}
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.rand(TB, 3, TH, TW, generator=gen).cuda()
+    gt = torch.rand(TB, 3, 4 * TH, 4 * TW, generator=gen).cuda()
+    losses, grads, counts = {}, {}, {}
+    for branch, env in (("kernel", {}), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
+        m = nets[branch]
+        m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
+        saved = {k: os.environ.get(k) for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN")}
+        for k in saved:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        try:
+            with fp32_math():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reset_counts()
+                loss = (m(x) - gt).abs().mean()
+                loss.backward()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts[branch] = read_counts()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        losses[branch] = loss.item()
+        grads[branch] = {k: p.grad for k, p in m.named_parameters()}
+        say(f"[train branches] {branch}: loss {losses[branch]:.6f}, forward and backward "
+            f"{secs * 1e3:.1f} ms (first call), launches {counts[branch]}")
+    if (counts["kernel"]["fused_swin_block_train"],
+            counts["kernel"]["fused_swin_block_train_backward"]) != (BLOCKS, BLOCKS):
+        fail(f"kernel branch launches {counts['kernel']}, expected {BLOCKS} + {BLOCKS}")
+    if any(counts["plain"].values()):
+        fail(f"plain branch launched kernels: {counts['plain']}")
+    rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    if not rel <= BRANCH_LOSS_TOL:
+        fail(f"training loss differs by {rel:.3g} (relative) between the branches")
+
+    def block_of(name: str) -> str:
+        """`layers.i.residual_group.blocks.j` of a block parameter, else the name."""
+        head, sep, tail = name.partition(".blocks.")
+        return head + sep + tail.split(".")[0] if sep else name
+
+    block_max: dict[str, float] = {}
+    for k, g in grads["plain"].items():
+        block_max[block_of(k)] = max(block_max.get(block_of(k), 0.0), g.abs().max().item())
+    worst = (0.0, "")
+    for k, w in grads["plain"].items():
+        g = grads["kernel"][k]
+        if g is None or w is None:
+            fail(f"{k}: no gradient in one branch")
+        ref = w.abs().max().item() or block_max[block_of(k)]  # a zero true gradient
+        err = (g - w).abs().max().item()
+        worst = max(worst, (err / ref, k))
+        if not err <= BRANCH_GRAD_TOL * ref:
+            fail(f"gradient of {k} differs by {err:.3g} between the branches (ref {ref:.3g})")
+    say(f"[train branches] loss rel diff {rel:.3g} (tol {BRANCH_LOSS_TOL}); largest gradient "
+        f"diff {worst[0]:.3g} of its tensor's max, at {worst[1]} (tol {BRANCH_GRAD_TOL})")
+
+
+# ---------------------------------------------------------------------------
+# 10. train profile
+# ---------------------------------------------------------------------------
+
+
+def phase_train_profile(seed: int) -> None:
+    """Device time by kernel of one SwinIR-M training step (batch 8, 64x64),
+    after two warm-up steps; the table goes to chip_smoke/profile_train.txt."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    opt = train_options("swinir_m_x4_profile", OUT, OUT, seed)
+    model = build_model(opt, device="cuda")
+    rng = np.random.default_rng(seed)
+    batch = {"lq": rng.integers(0, 256, (TB, TH, TW, 3), dtype=np.uint8),
+             "gt": rng.integers(0, 256, (TB, 4 * TH, 4 * TW, 3), dtype=np.uint8)}
+    for i in range(2):
+        model.feed_data(batch)
+        model.optimize_parameters(i + 1)
+    torch.cuda.synchronize()
+    model.feed_data(batch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.optimize_parameters(3)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+    if total == 0:
+        say("[train profile] the profiler recorded no device time")
+        return
+    OUT.mkdir(parents=True, exist_ok=True)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50)
+    (OUT / "profile_train.txt").write_text(table)
+    say(f"[train profile] device time per step {total / 1e3:.3f} ms over "
+        f"{sum(e.count for e in events)} kernel launches; step wall time under the "
+        f"profiler {wall * 1e3:.1f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        say(f"[train profile]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+            f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -502,15 +878,21 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    (OUT / "summary.txt").unlink(missing_ok=True)
     info = phase_device()
     phase_build()
     kernels = phase_kernels()
     launches = phase_path(args.seed)
     phase_branches(args.seed)
     phase_profile(args.seed)
+    kernels.update(phase_train_kernels())
+    train_counts = phase_train(args.seed)
+    launches.update({k: train_counts[k] for k in KERNELS[3:]})
+    phase_train_branches(args.seed)
+    phase_train_profile(args.seed)
 
     records = []
-    for name in ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa"):
+    for name in KERNELS:
         rec = kernels[name]
         records.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -9,7 +9,8 @@ one (here on the CPU they skip). On the card:
 
 Shapes are SwinIR-M's (C=180, 6 heads of 30, window 8, hidden 360) at a
 64x96 map and batch 2, unit-scale fp32 inputs, tolerance 1e-4 (the kernels
-sum in another order than cuBLAS).
+sum in another order than cuBLAS); the training kernels' gradients within
+1e-4 of each tensor's largest magnitude.
 """
 
 import numpy as np
@@ -46,6 +47,8 @@ def _inputs(device, kinds, seed=0):
         "w1": randn(C, HIDDEN, scale=C**-0.5), "b1": randn(HIDDEN, scale=0.1),
         "w2": randn(HIDDEN, C, scale=HIDDEN**-0.5), "b2": randn(C, scale=0.1),
         "s": torch.tensor([1.0, 0.8], device=device),
+        "g2": 1.0 + randn(C, scale=0.1), "be2": randn(C, scale=0.1),
+        "s2": torch.tensor([0.0, 1.0 / 0.9], device=device),
     }
     rel = randn(NH, N, N, scale=0.5)
     if kinds == 4:
@@ -126,11 +129,87 @@ def test_shared_memory_plans_match_the_sources(cuda):
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     lib_fb = cuda_build.library("fused_block")
+    lib_tr = cuda_build.library("fused_block_train")
     lib_wa = cuda_build.library("window_attention")
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
         assert lib_fb.trr_attn_block_smem_bytes(c, nh) == fb.attn_block_smem_bytes(c, nh)
         assert lib_fb.trr_ln_mlp_smem_bytes(c, hidden) == fb.ln_mlp_smem_bytes(c, hidden)
         assert lib_wa.trr_window_mhsa_smem_bytes(c, nh) == wa.window_mhsa_smem_bytes(c, nh)
+        assert lib_tr.trr_bwd_tokens_smem_bytes(c, hidden) == fb.bwd_tokens_smem_bytes(c, hidden)
+        assert lib_tr.trr_bwd_attn_smem_bytes(c, nh) == fb.bwd_attn_smem_bytes(c, nh)
+        assert lib_tr.trr_bwd_ln1_smem_bytes(c) == fb.bwd_ln1_smem_bytes(c)
+
+
+TRAIN_NAMES = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",
+               "b2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, WS // 2)])
+def test_swin_block_train_kernels(cuda, kinds, shift):
+    """#4 (out, P, att, z) and #5 (dx and the 13 parameter gradients)
+    against their plain versions."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, kinds)
+    ops = [p[k] for k in TRAIN_NAMES]
+    meta = (NH, HD, WS, 1e-5, shift)
+    got = fb._swin_block_train_fwd_cuda(*ops, p["s"], p["s2"], *meta)
+    want = fb.fused_swin_block_train_reference(*ops, p["s"], p["s2"], *meta)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "P", "att", "z"), got, want):
+        assert (g - w).abs().max().item() <= TOL, name
+    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    saved = [t for k, t in zip(TRAIN_NAMES, ops) if k != "bias"]
+    n0 = fb.fused_swin_block_train_backward.launches
+    grads = fb.fused_swin_block_train_backward(*saved, p["s"], p["s2"], *want[1:], dout, kinds,
+                                               *meta)
+    torch.cuda.synchronize()
+    assert fb.fused_swin_block_train_backward.launches == n0 + 1
+    plain = fb.fused_swin_block_train_bwd_reference(*saved, p["s"], p["s2"], *want[1:], dout,
+                                                    kinds, *meta)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        assert g.shape == w.shape, i
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), i
+
+
+@pytest.mark.cuda
+def test_swin_block_train_backward_is_deterministic(cuda):
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, 4)
+    ops = [p[k].clone().requires_grad_() for k in TRAIN_NAMES]
+    runs = []
+    for _ in range(2):
+        out = fb.fused_swin_block_train(*ops, p["s"], p["s2"], NH, HD, WS, 1e-5, shift=WS // 2)
+        runs.append(torch.autograd.grad(out.square().sum(), ops))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_autograd(cuda):
+    """#1-#3 have no CUDA backward yet: under autograd they raise instead of
+    returning a tensor that carries no gradient; under no_grad they run."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    p = _inputs(cuda, 1)
+    wq = p["wq"].clone().requires_grad_()
+    attn = [p[k] for k in ("x", "g", "be")] + [wq] + [p[k] for k in ("bq", "wp", "bp", "bias", "s")]
+    mlp = [p[k] for k in ("x", "g", "be")] + [p["w1"].clone().requires_grad_()] + [
+        p[k] for k in ("b1", "w2", "b2", "s")]
+    qkv = p["qkv"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="#6"):
+        fb.fused_attn_block(*attn, NH, HD, WS)
+    with pytest.raises(RuntimeError, match="#7"):
+        fb.fused_ln_mlp(*mlp, WS)
+    with pytest.raises(RuntimeError, match="#8"):
+        wa.fused_window_mhsa(qkv, p["bias"], NH, HD, WS)
+    with torch.no_grad():
+        fb.fused_attn_block(*attn, NH, HD, WS)
+        fb.fused_ln_mlp(*mlp, WS)
+        wa.fused_window_mhsa(qkv, p["bias"], NH, HD, WS)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Package-level rules of the torch port, checked on the CPU.
 
-- it imports no `jax`, `flax`, `optax` or `trainner_redux_tpu` module (nor
-  does `chip_smoke.py`), and imports without cv2, yaml or safetensors;
+- it imports no `jax`, `flax`, `optax`, `orbax` or `trainner_redux_tpu`
+  module (nor does `chip_smoke.py`), and imports without cv2, yaml or
+  safetensors;
 - its entry points run on CUDA unless the CPU is asked for, and raise when
   there is no card;
 - a kernel wrapper runs its plain version for a CPU tensor only, and never
@@ -22,7 +23,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "trainner_redux_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "trainner_redux_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "trainner_redux_tpu"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -48,6 +49,7 @@ def test_imports_without_optional_host_packages():
         "for m in ('cv2', 'yaml', 'safetensors', 'tqdm', 'rich', 'jax', 'flax'):\n"
         "    sys.modules[m] = None\n"
         "import trainner_redux_tpu_torch.test, trainner_redux_tpu_torch.models.sr_model\n"
+        "import trainner_redux_tpu_torch.train\n"
         "import trainner_redux_tpu_torch.data, trainner_redux_tpu_torch.metrics\n"
         "import trainner_redux_tpu_torch.utils.torch_compat\n"
         "import trainner_redux_tpu_torch.utils.options\n"

@@ -11,14 +11,21 @@ The network takes and returns NCHW images; the transformer body runs on
 NHWC tokens, the layout of the block kernels. SwinBlock has three branches,
 chosen as in the JAX package:
 
-- fused (default): `fused_attn_block` then `fused_ln_mlp`, two kernels;
+- fused (default): in training `fused_swin_block_train`, the whole block
+  as one autograd Function with kernels both ways; at eval
+  `fused_attn_block` then `fused_ln_mlp`, two forward-only kernels;
 - unfused (`TRAINNER_FUSED_BLOCK=0`): LayerNorms, Linears and MLP in
-  PyTorch around the `fused_window_mhsa` kernel;
+  PyTorch around the forward-only `fused_window_mhsa` kernel;
 - plain (`TRAINNER_FUSED_ATTN=0`): window partition and PyTorch attention
   with the per-window mask, no kernel at all.
 
 On the CPU the kernel wrappers run their plain versions, so all three
-branches run anywhere.
+branches run anywhere; on the card the forward-only kernels refuse autograd,
+so the unfused branch does not train there.
+
+DropPath draws its masks from the `generator` attribute of each SwinBlock,
+which the model sets (`set_dropout_generator`); torch's global generator is
+never read.
 
 Divergence from upstream SwinIR kept from the JAX package: `patch_embed.norm`
 uses eps 1e-6 (flax's LayerNorm default); every other LayerNorm uses 1e-5.
@@ -40,6 +47,7 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     fused_attn_block,
     fused_block_supported,
     fused_ln_mlp,
+    fused_swin_block_train,
 )
 from trainner_redux_tpu_torch.ops.window_attention import (
     fused_window_mhsa,
@@ -168,6 +176,7 @@ class SwinBlock(nn.Module):
         self.register_buffer(
             "mask_kinds", None if kinds is None else torch.from_numpy(kinds), persistent=False
         )
+        self.generator: torch.Generator | None = None  # DropPath masks; see the module doc
 
     def bias_kinds(self, shift: int) -> torch.Tensor:
         """(K, nh, n, n) kind table: K=4 with the shift masks, else K=1."""
@@ -182,12 +191,22 @@ class SwinBlock(nn.Module):
         ws = self.window_size
         shift = self.shift_size if min(h, w) > ws else 0
         hidden = self.mlp.fc1.out_features
-        s1 = droppath_scale(self.drop_path, self.training, b, x.device)
-        s2 = droppath_scale(self.drop_path, self.training, b, x.device)
+        s1 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
+        s2 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
 
         if self.qk_scale is None and fused_block_supported(h, w, ws, c, self.num_heads, hidden):
-            # the kernels take (in, out) weights; the attention kernel reads
-            # the rolled windows and writes z unrolled
+            # the kernels take (in, out) weights; the attention kernels read
+            # the rolled windows and write their outputs unrolled
+            if self.training:
+                return fused_swin_block_train(
+                    x.contiguous(), self.norm1.weight, self.norm1.bias,
+                    self.attn.qkv.weight.t().contiguous(), _bias_or_zeros(self.attn.qkv),
+                    self.attn.proj.weight.t().contiguous(), self.attn.proj.bias,
+                    self.bias_kinds(shift), self.norm2.weight, self.norm2.bias,
+                    self.mlp.fc1.weight.t().contiguous(), self.mlp.fc1.bias,
+                    self.mlp.fc2.weight.t().contiguous(), self.mlp.fc2.bias, s1, s2,
+                    self.num_heads, self.attn.head_dim, ws, 1e-5, shift=shift,
+                )
             z = fused_attn_block(
                 x.contiguous(), self.norm1.weight, self.norm1.bias,
                 self.attn.qkv.weight.t().contiguous(), _bias_or_zeros(self.attn.qkv),
@@ -349,6 +368,12 @@ class SwinIR(nn.Module):
             self.conv_last = Conv2d(64, out_ch, 3)
         else:  # '' — restoration (scale 1)
             self.conv_last = Conv2d(embed_dim, out_ch, 3)
+
+    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
+        """The generator every SwinBlock draws its DropPath masks from."""
+        for m in self.modules():
+            if isinstance(m, SwinBlock):
+                m.generator = generator
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> SwinIR:

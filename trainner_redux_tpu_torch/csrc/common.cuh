@@ -180,12 +180,13 @@ __device__ __forceinline__ void layernorm_t(Row row, int M, int C, const float* 
 // qT, kT (hd, kTLd) transposed, v (64, kVLd) row-major, S a (64, kTLd)
 // scratch tile, bias the (64, 64) table of this window's kind and head.
 //   S = q k^T * scale + bias;  P = row softmax(S);  out(r0, d, (P v)[r0..r0+3, d]).
+// When `P_out` is not null, P is also written there, (64, 64) row-major.
 // The caller synchronises before (q, k, v written) and after (S reused).
 template <class Out>
 __device__ __forceinline__ void attention_head(const float* qT, const float* kT, const float* v,
                                                int hd, float scale,
                                                const float* __restrict__ bias, float* S,
-                                               Out out) {
+                                               float* __restrict__ P_out, Out out) {
   const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
   {
     float acc[4][4];
@@ -223,6 +224,10 @@ __device__ __forceinline__ void attention_head(const float* qT, const float* kT,
     const float inv = 1.f / warp_sum(p0 + p1);
     s[lane] = p0 * inv;
     s[lane + 32] = p1 * inv;
+    if (P_out != nullptr) {
+      P_out[r * kTile + lane] = p0 * inv;
+      P_out[r * kTile + lane + 32] = p1 * inv;
+    }
   }
   __syncthreads();
   {

@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   attention_head(qT, kT, v, hd, scale, bias + ((size_t)kind * nh + h) * kTile * kTile, S,
-                 [&](int r0, int d, const float* o) {
+                 nullptr, [&](int r0, int d, const float* o) {
 #pragma unroll
                    for (int i = 0; i < 4; ++i)
                      out[window_token(b, wi, wj, r0 + i, H, W, 0) * C + h * hd + d] = o[i];

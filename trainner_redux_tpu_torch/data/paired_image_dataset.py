@@ -1,9 +1,12 @@
-"""Paired LR/HR image dataset, evaluation phases (parity: the JAX package's
+"""Paired LR/HR image dataset (parity: the JAX package's
 data/paired_image_dataset.py).
 
-Produces mod-cropped full images as float32 HWC numpy arrays. The training
-phase (random crops, augmentation, the decoded-image cache) comes with the
-training data path.
+Train phase: uint8 HWC crops of `lq_size` (and `scale` times that for GT),
+cut and flipped by a generator drawn from `worker_rng(seed, 0, index,
+epoch)`, so a sample depends only on the seed, its (virtual) index and the
+epoch; decoded images are kept in RAM (`cache_decoded`, by default for up
+to 2000 files) and the crops are views into them. Evaluation phases:
+mod-cropped full images as float32 HWC numpy arrays.
 """
 
 from __future__ import annotations
@@ -14,19 +17,19 @@ from trainner_redux_tpu_torch.data.data_util import (
     paired_paths_from_folders,
     paired_paths_from_meta_info_file,
 )
-from trainner_redux_tpu_torch.data.transforms import mod_crop
+from trainner_redux_tpu_torch.data.transforms import augment, mod_crop, paired_random_crop
 from trainner_redux_tpu_torch.utils.file_client import FileClient
 from trainner_redux_tpu_torch.utils.img_util import imfrombytes
 from trainner_redux_tpu_torch.utils.redux_options import DatasetOptions
 from trainner_redux_tpu_torch.utils.registry import DATASET_REGISTRY
+from trainner_redux_tpu_torch.utils.rng import worker_rng
 
 
 @DATASET_REGISTRY.register()
 class PairedImageDataset:
-    def __init__(self, opt: DatasetOptions) -> None:
+    def __init__(self, opt: DatasetOptions, seed: int = 0) -> None:
         self.opt = opt
-        if opt.phase == "train":
-            raise NotImplementedError("the training phase is not ported to torch yet")
+        self.seed = seed
         io = dict(opt.io_backend or {"type": "disk"})
         backend = io.pop("type", "disk")
         if backend != "disk":
@@ -49,18 +52,54 @@ class PairedImageDataset:
                 (lq_folders, gt_folders), ("lq", "gt"), filename_tmpl
             )
 
+        self._epoch = 0
+        cache_opt = opt.cache_decoded
+        self._cache_enabled = opt.phase == "train" and (
+            len(self.paths) <= 2000 if cache_opt is None else bool(cache_opt)
+        )
+        self._cache: dict[str, np.ndarray] = {}
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
     def __len__(self) -> int:
         return len(self.paths)
 
-    def _load(self, path: str) -> np.ndarray:
-        return imfrombytes(self.file_client.get(path), float32=True)
+    def _load_u8(self, path: str) -> np.ndarray:
+        """Decoded uint8 image, RAM-cached when enabled. Worker threads may
+        decode one path twice; both results are equal."""
+        img = self._cache.get(path) if self._cache_enabled else None
+        if img is None:
+            img = imfrombytes(self.file_client.get(path), float32=False)
+            if self._cache_enabled:
+                self._cache[path] = img
+        return img
 
     def __getitem__(self, index: int) -> dict:
         opt = self.opt
         scale = opt.scale or 1
-        entry = self.paths[index]
-        img_gt = self._load(entry["gt_path"])
-        img_lq = self._load(entry["lq_path"])
+        # `index` may be virtual (EnlargedSampler yields [0, len * ratio))
+        entry = self.paths[index % len(self.paths)]
+
+        if opt.phase == "train":
+            if opt.color or opt.mean is not None or opt.std is not None:
+                raise NotImplementedError(
+                    "color / mean / std of a train dataset are not ported to torch yet"
+                )
+            lq_size = opt.lq_size or ((opt.gt_size // scale) if opt.gt_size else None)
+            if lq_size is None:
+                raise ValueError("the train phase requires lq_size (or gt_size)")
+            rng = worker_rng(self.seed, 0, index, self._epoch)
+            img_gt, img_lq = paired_random_crop(
+                self._load_u8(entry["gt_path"]), self._load_u8(entry["lq_path"]), lq_size, scale,
+                rng,
+            )
+            img_gt, img_lq = augment([img_gt, img_lq], opt.use_hflip, opt.use_rot, rng=rng)
+            return {"lq": img_lq, "gt": img_gt, "lq_path": entry["lq_path"],
+                    "gt_path": entry["gt_path"]}
+
+        img_gt = imfrombytes(self.file_client.get(entry["gt_path"]), float32=True)
+        img_lq = imfrombytes(self.file_client.get(entry["lq_path"]), float32=True)
         # mod-crop GT so shapes divide the scale exactly
         img_gt = mod_crop(img_gt, scale)
         h, w = img_lq.shape[0], img_lq.shape[1]

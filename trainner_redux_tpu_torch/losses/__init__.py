@@ -1,0 +1,39 @@
+"""Loss registry: build_loss and the log keys (port of the JAX package's
+losses/__init__.py). Only the pixel losses of `basic_loss.py` are ported;
+any other type, and the iterative schedule parameters, raise."""
+
+from __future__ import annotations
+
+from typing import Any
+
+from trainner_redux_tpu_torch.losses import basic_loss  # noqa: F401 (registers)
+from trainner_redux_tpu_torch.utils.registry import LOSS_REGISTRY
+
+__all__ = ["build_loss", "loss_log_key", "LOSS_REGISTRY"]
+
+SCHEDULE_PARAMS = (
+    "start_iter", "target_iter", "target_weight", "disable_after", "schedule_type",
+    "warn_on_unused", "loss_decay", "loss_decay_inflection",
+)
+
+
+def build_loss(loss_opt: dict[str, Any]):
+    opt = dict(loss_opt)
+    loss_type = str(opt.pop("type"))
+    scheduled = sorted(p for p in SCHEDULE_PARAMS if p in opt)
+    if scheduled:
+        raise NotImplementedError(
+            f"loss schedule parameters {scheduled} are not ported to torch yet"
+        )
+    if loss_type not in LOSS_REGISTRY:
+        raise NotImplementedError(
+            f"loss '{loss_type}' is not ported to torch yet "
+            f"(ported: {', '.join(LOSS_REGISTRY.keys())})"
+        )
+    return LOSS_REGISTRY.get(loss_type)(**opt)
+
+
+def loss_log_key(loss, loss_type: str | None = None) -> str:
+    """Console key for a loss instance, e.g. 'l_g_l1'."""
+    name = (loss_type or type(loss).__name__).lower()
+    return f"l_g_{name.removesuffix('loss')}"

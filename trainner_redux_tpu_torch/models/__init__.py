@@ -1,5 +1,5 @@
 """Model selection (parity: the JAX package's models/__init__.py). Only
-SRModel's evaluation half is ported; the other models raise."""
+SRModel is ported; the other models raise."""
 
 from __future__ import annotations
 

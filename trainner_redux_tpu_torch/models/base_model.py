@@ -1,19 +1,27 @@
-"""BaseModel: device, weight flattening, best-metric bookkeeping, validation
-dispatch.
+"""BaseModel: device, weight flattening and saving, training-state files,
+best-metric bookkeeping, validation dispatch.
 
-Port of the evaluation half of the JAX package's models/base_model.py. The
-JAX model places a parameter pytree on a device mesh; here the network is an
-`nn.Module` on one explicit `torch.device`.
+Port of the JAX package's models/base_model.py. The JAX model places a
+parameter pytree on a device mesh; here the network is an `nn.Module` on one
+explicit `torch.device`. Network checkpoints are torch-layout safetensors
+(which the JAX package's `load_network` reads through its torch converter);
+the training state is a `torch.save` file `training_states/<iter>.state`
+with the JAX package's `<iter>.state.meta.json` sidecar, so the resume scan
+of both packages finds it.
 """
 
 from __future__ import annotations
 
+import json
+import os
+from os import path as osp
 from typing import Any
 
 import numpy as np
 import torch
 
 from trainner_redux_tpu_torch.utils.device import resolve_device
+from trainner_redux_tpu_torch.utils.dist_util import master_only
 from trainner_redux_tpu_torch.utils.logger import get_root_logger
 from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
 
@@ -37,6 +45,45 @@ class BaseModel:
             k: np.ascontiguousarray(v.detach().cpu().numpy())
             for k, v in module.state_dict().items()
         }
+
+    # --------------------------- checkpointing -----------------------------
+
+    @master_only
+    def save_network_safetensors(self, module: torch.nn.Module, save_path: str,
+                                 metadata: dict[str, str] | None = None) -> None:
+        """Save a module's state dict as torch-layout safetensors with string
+        metadata in the header; retried twice on an OSError, as the JAX
+        package does."""
+        from safetensors.numpy import save_file
+
+        os.makedirs(osp.dirname(save_path), exist_ok=True)
+        flat = self.flatten_params(module)
+        for attempt in range(3):
+            try:
+                save_file(flat, save_path, metadata=metadata or {})
+                return
+            except OSError as e:
+                if attempt == 2:
+                    raise
+                self.logger.warning(f"save retry {attempt + 1} after: {e}")
+
+    @master_only
+    def save_training_state(self, state: dict[str, Any], epoch: int, current_iter: int) -> None:
+        """`state` to training_states/<iter>.state, and the epoch and iteration
+        to its .meta.json sidecar."""
+        path = osp.join(osp.abspath(self.opt.path.training_states), f"{current_iter}.state")
+        torch.save(state, path)
+        with open(path + ".meta.json", "w") as f:
+            json.dump({"epoch": epoch, "iter": current_iter}, f)
+
+    def load_training_state(self, path: str) -> tuple[dict[str, Any], dict[str, int]]:
+        """(state, meta) written by save_training_state; tensors on the CPU."""
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        meta = {"epoch": 0, "iter": 0}
+        if osp.exists(path + ".meta.json"):
+            with open(path + ".meta.json") as f:
+                meta = json.load(f)
+        return state, meta
 
     # ------------------------------ metrics --------------------------------
 

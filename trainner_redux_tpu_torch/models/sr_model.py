@@ -1,34 +1,67 @@
-"""SRModel, evaluation half: the serving path of `test.py`.
+"""SRModel: single-image super-resolution, serving and training.
 
-Port of the JAX package's models/sr_model.py for `is_train: false`:
-`__init__` (network, seeded init, pretrained weights), `load_network` for
-the three checkpoint formats, `test` (reflect-pad to a multiple of 16, one
-forward, crop) and `nondist_validation` (per image: save PNG, PSNR/SSIM).
-Training, tiled inference and the mesh-sharded paths are not ported yet.
+Port of the JAX package's models/sr_model.py.
+
+- Evaluation (`is_train: false`, the `test.py` path): `__init__` (network,
+  seeded init, pretrained weights), `load_network` for the three checkpoint
+  formats, `test` (reflect-pad to a multiple of 16, one forward, crop) and
+  `nondist_validation` (per image: save PNG, PSNR/SSIM).
+- Training (the `train.py` path), in fp32 with TF32 off: pair losses, the
+  torch optimizer with optax's semantics and a step -> lr schedule,
+  `accum_iter` micro-batches with averaged gradients, the logged global
+  gradient norm, optional clipping, EMA with the warm-up power decay and
+  `ema_switch_iter`, checkpoints and resume. Validation runs the EMA
+  weights when there are any.
+
+DropPath draws from one `torch.Generator` on the model's device, seeded from
+`manual_seed`, that the model hands to the network.
+
+Not ported yet, and refused where configured: bf16 compute (`compute_dtype:
+bfloat16`, `use_amp`), `steps_per_dispatch > 1`, `remat`, discriminators and
+GAN losses, MoA, dynamic loss scheduling, training automations, tiled
+inference and the mesh-sharded paths.
 """
 
 from __future__ import annotations
 
+import copy
+import math
 from contextlib import contextmanager
 from os import path as osp
+from typing import Any
 
 import numpy as np
 import torch
 
 from trainner_redux_tpu_torch.archs import build_network
+from trainner_redux_tpu_torch.losses import build_loss, loss_log_key
 from trainner_redux_tpu_torch.metrics import calculate_metric
 from trainner_redux_tpu_torch.models.base_model import BaseModel
+from trainner_redux_tpu_torch.optimizers import build_optimizer, clip_by_global_norm, set_lr
 from trainner_redux_tpu_torch.utils.img_util import imwrite, tensor2img
 from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
 from trainner_redux_tpu_torch.utils.registry import MODEL_REGISTRY
 
 _PAD_MULT = 16
+_NOT_PORTED = "is not ported to torch yet (ROADMAP.md, section 1)"
+
+# legacy per-loss option keys and the type each defaults to (None: the dict
+# must name its type), as the JAX package reads them
+_LEGACY_LOSSES = {
+    "pixel_opt": None, "mssim_opt": "mssimloss", "perceptual_opt": "perceptualloss",
+    "dists_opt": "distsloss", "ldl_opt": "ldlloss", "hsluv_opt": "hsluvloss",
+    "gan_opt": "ganloss", "color_opt": "colorloss", "luma_opt": "lumaloss",
+    "avg_opt": "averageloss", "bicubic_opt": "bicubicloss",
+    "ms_ssim_l1_opt": "msssiml1loss", "contextual_opt": "contextualloss",
+    "hr_inversion_opt": None, "dinov2_opt": "dinoperceptualloss",
+    "topiq_opt": None, "pd_opt": None, "fd_opt": None,
+}
 
 
 @contextmanager
 def fp32_math():
     """Full fp32 matmuls and convolutions (TF32 off), as the JAX package's
-    fp32 evaluation twin computes."""
+    fp32 twin computes."""
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -38,17 +71,22 @@ def fp32_math():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+def _nchw_float(x: torch.Tensor) -> torch.Tensor:
+    """NHWC uint8 [0, 255] or float [0, 1] -> NCHW float32 [0, 1]."""
+    x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    return x.permute(0, 3, 1, 2)
+
+
 @MODEL_REGISTRY.register()
 class SRModel(BaseModel):
     def __init__(self, opt: ReduxOptions, device: str | torch.device | None = None) -> None:
         super().__init__(opt, device)
-        assert opt.network_g is not None, "network_g is required"
-        if self.is_train:
-            raise NotImplementedError("training is not ported to torch yet")
+        if opt.network_g is None:
+            raise ValueError("network_g is required")
         if opt.input_pixel_format != "rgb" or opt.output_pixel_format != "rgb":
-            raise NotImplementedError("only rgb pixel formats are ported to torch yet")
+            raise NotImplementedError(f"non-rgb pixel formats: this {_NOT_PORTED}")
         if opt.val and opt.val.tile_size:
-            raise NotImplementedError("tiled inference is not ported to torch yet")
+            raise NotImplementedError(f"tiled inference {_NOT_PORTED}")
         self.scale = opt.scale
         net = build_network({**opt.network_g, "scale": opt.scale})
         generator = torch.Generator().manual_seed(opt.manual_seed or 0)
@@ -59,12 +97,181 @@ class SRModel(BaseModel):
         )
         if opt.path.pretrain_network_g:
             self.load_network(net, opt.path.pretrain_network_g, strict=opt.path.strict_load_g)
-        self.net_g = net.to(self.device).eval()
+        self.net_g = net.to(self.device)
+        self.net_g_ema: torch.nn.Module | None = None
         self.output = None
+        self.lq = self.gt = None
+        if self.is_train:
+            self._init_training()
+        else:
+            self.net_g.eval()
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def _init_training(self) -> None:
+        opt = self.opt
+        train_opt = opt.train
+        if train_opt is None:
+            raise ValueError("training needs a `train` section")
+        self._refuse_unported()
+
+        self.ema_decay = float(train_opt.ema_decay or 0.0)
+        self.ema_update_after_step = int(train_opt.ema_update_after_step or 0)
+        self.ema_power = float(train_opt.ema_power or 10)
+        self.ema_switch_iter = int(train_opt.ema_switch_iter or 0)
+        self.grad_clip = bool(train_opt.grad_clip)
+        train_ds = next((d for k, d in opt.datasets.items() if k.split("_")[0] == "train"), None)
+        self.accum_iter = int(train_ds.accum_iter) if train_ds else 1
+
+        loss_opts = list(train_opt.losses or [])
+        for attr, default_type in _LEGACY_LOSSES.items():
+            lo = getattr(train_opt, attr, None)
+            if lo:
+                lo = dict(lo)
+                if "type" not in lo:
+                    if default_type is None and attr != "pixel_opt":
+                        raise ValueError(f"legacy loss option {attr!r} must define 'type'")
+                    lo["type"] = default_type or "l1loss"
+                loss_opts.append(lo)
+        self.losses: list[tuple[str, Any]] = []
+        for lo in loss_opts:
+            loss = build_loss(lo)
+            if loss.loss_weight < 0:
+                raise NotImplementedError(f"negative loss weights (bicubic targets) {_NOT_PORTED}")
+            self.losses.append((loss_log_key(loss, str(lo["type"]).lower()), loss))
+
+        self.net_g.train()
+        self.optimizer_g, self.schedule_g = build_optimizer(
+            self.net_g.parameters(), train_opt.optim_g or {"type": "Adam", "lr": 1e-4},
+            int(train_opt.total_iter), train_opt.scheduler, train_opt.warmup_iter,
+        )
+        if self.ema_decay > 0:
+            self.net_g_ema = copy.deepcopy(self.net_g).eval().requires_grad_(False)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+            opt.manual_seed or 0
+        )
+        if hasattr(self.net_g, "set_dropout_generator"):
+            self.net_g.set_dropout_generator(self.dropout_generator)
+        self.step = 0
+        self.log_dict: dict[str, torch.Tensor] = {}
+
+    def _refuse_unported(self) -> None:
+        opt, train_opt = self.opt, self.opt.train
+        if opt.compute_dtype == "bfloat16" or opt.use_amp:
+            raise NotImplementedError(
+                f"bf16 training (compute_dtype: bfloat16 / use_amp) {_NOT_PORTED}; "
+                "set compute_dtype: float32"
+            )
+        refused = {
+            "steps_per_dispatch > 1": (opt.steps_per_dispatch or 1) > 1,
+            "remat": bool(opt.remat),
+            "network_d (GAN training)": opt.network_d is not None,
+            "use_moa": bool(train_opt.use_moa),
+            "dynamic_loss_scheduling": bool(
+                (train_opt.dynamic_loss_scheduling or {}).get("enabled", False)),
+            "training_automations": bool(
+                (train_opt.training_automations or {}).get("enabled", False)),
+        }
+        for what, on in refused.items():
+            if on:
+                raise NotImplementedError(f"{what} {_NOT_PORTED}")
+
+    def _generator_losses(self, output: torch.Tensor, gt: torch.Tensor):
+        """(total, logs) of the pair losses on one micro-batch."""
+        logs: dict[str, torch.Tensor] = {}
+        total = torch.zeros((), device=output.device)
+        for log_key, loss in self.losses:
+            val = loss(output, gt).float()
+            logs[log_key] = val
+            total = total + val
+        logs["l_g_total"] = total
+        return total, logs
+
+    def feed_data(self, data: dict[str, Any]) -> None:
+        """Take a batch's lq and gt, NHWC numpy arrays or tensors (uint8 or
+        [0, 1] float), onto the model's device; converted in the step."""
+        def put(v):
+            return None if v is None else torch.as_tensor(v).to(self.device, non_blocking=True)
+
+        self.lq, self.gt = put(data["lq"]), put(data.get("gt"))
+
+    def ema_decay_at(self, step: int) -> float:
+        """decay_t = min(decay, 1 - (1 + t)^-power), t = step - after; 0 until
+        `ema_update_after_step`, so the first update copies the weights."""
+        if step <= self.ema_update_after_step:
+            return 0.0
+        t = step - self.ema_update_after_step
+        return min(self.ema_decay, 1.0 - (1.0 + t) ** (-self.ema_power))
+
+    def optimize_parameters(self, current_iter: int) -> None:
+        """One optimizer step on the fed batch, split into `accum_iter`
+        micro-batches whose gradients and logs are averaged."""
+        lq, gt = _nchw_float(self.lq), _nchw_float(self.gt)
+        accum = self.accum_iter
+        if lq.shape[0] % accum:
+            raise ValueError(f"batch {lq.shape[0]} does not split into {accum} micro-batches")
+        params = list(self.net_g.parameters())
+        self.optimizer_g.zero_grad(set_to_none=True)
+        logs: dict[str, torch.Tensor] = {}
+        with fp32_math():
+            for lq_mb, gt_mb in zip(lq.chunk(accum), gt.chunk(accum)):
+                total, mb_logs = self._generator_losses(self.net_g(lq_mb), gt_mb)
+                total.backward()
+                for k, v in mb_logs.items():
+                    logs[k] = logs[k] + v.detach() if k in logs else v.detach()
+        with torch.no_grad():
+            grads = []
+            for p in params:
+                if p.grad is None:  # optax updates every parameter, with a zero gradient
+                    p.grad = torch.zeros_like(p)
+                if accum > 1:
+                    p.grad.div_(accum)
+                grads.append(p.grad)
+            logs = {k: v / accum for k, v in logs.items()}
+            g_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            logs["grad_norm_g"] = g_norm
+            if self.grad_clip:
+                clip_by_global_norm(grads, g_norm)
+            lr = float(self.schedule_g(self.step))
+            set_lr(self.optimizer_g, lr)
+            self.optimizer_g.step()
+            if self.net_g_ema is not None:
+                d = self.ema_decay_at(self.step)
+                ema = list(self.net_g_ema.parameters())
+                for e, p in zip(ema, params):
+                    e.mul_(d).add_(p, alpha=1.0 - d)
+                if self.ema_switch_iter > 0 and (self.step + 1) % self.ema_switch_iter == 0:
+                    # the online weights become the EMA weights; the
+                    # optimizer moments stay, as upstream
+                    for e, p in zip(ema, params):
+                        p.copy_(e)
+        logs["lr_g"] = torch.tensor(lr)
+        self.step += 1
+        self.log_dict = logs
+
+    def get_current_log(self) -> dict[str, float]:
+        out = {k: float(v) for k, v in self.log_dict.items() if not k.startswith("lr_")}
+        nan_keys = [k for k, v in out.items() if not math.isfinite(v)]
+        if "l_g_total" in nan_keys:
+            raise RuntimeError(f"NaN/Inf detected in losses: {nan_keys}")
+        return out
+
+    def get_current_learning_rate(self) -> list[float]:
+        """The lr of the last step, or of the next one before any."""
+        if "lr_g" in self.log_dict:
+            return [float(self.log_dict["lr_g"])]
+        return [float(self.schedule_g(self.step))]
 
     # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
+
+    def _infer_net(self) -> torch.nn.Module:
+        """The EMA network when there is one, else the online one."""
+        return self.net_g_ema if self.net_g_ema is not None else self.net_g
 
     def test(self, lq: np.ndarray) -> np.ndarray:
         """Super-resolve NHWC [0,1] numpy images; returns NHWC numpy output."""
@@ -80,8 +287,14 @@ class SRModel(BaseModel):
         if ph or pw:
             lq = np.pad(lq, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="reflect")
         x = torch.from_numpy(np.ascontiguousarray(lq.transpose(0, 3, 1, 2))).to(self.device)
-        with torch.inference_mode(), fp32_math():
-            out = self.net_g(x)
+        net = self._infer_net()
+        was_training = net.training
+        net.eval()
+        try:
+            with torch.inference_mode(), fp32_math():
+                out = net(x)
+        finally:
+            net.train(was_training)
         out = out[:, :, : h * self.scale, : w * self.scale]
         self.output = out.permute(0, 2, 3, 1).cpu().numpy()
         return self.output
@@ -114,10 +327,15 @@ class SRModel(BaseModel):
             count += 1
 
             if save_img and opt.path.visualization:
-                suffix = val_opt.suffix if val_opt and val_opt.suffix else opt.name
-                save_path = osp.join(
-                    opt.path.visualization, dataset_name, f"{img_name}_{suffix}.png"
-                )
+                if opt.is_train:
+                    save_path = osp.join(
+                        opt.path.visualization, img_name, f"{img_name}_{current_iter}.png"
+                    )
+                else:
+                    suffix = val_opt.suffix if val_opt and val_opt.suffix else opt.name
+                    save_path = osp.join(
+                        opt.path.visualization, dataset_name, f"{img_name}_{suffix}.png"
+                    )
                 imwrite(sr_img, save_path)
 
             if with_metrics and gt is not None:
@@ -159,6 +377,46 @@ class SRModel(BaseModel):
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
+
+    def save(self, epoch: int, current_iter: int) -> None:
+        """net_g_ema_<iter> (or net_g_<iter>) under models/, the online
+        weights under models/resume_models/, and the training state."""
+        opt = self.opt
+        label = "latest" if current_iter == -1 else str(current_iter)
+        meta = {
+            "framework": "trainner_redux_tpu_torch",
+            "arch": opt.network_g.get("type", "?"),
+            "scale": str(opt.scale),
+        }
+        name = "net_g_ema" if self.net_g_ema is not None else "net_g"
+        self.save_network_safetensors(
+            self._infer_net(), osp.join(opt.path.models, f"{name}_{label}.safetensors"), meta
+        )
+        self.save_network_safetensors(
+            self.net_g, osp.join(opt.path.resume_models, f"net_g_{label}.safetensors"), meta
+        )
+        if current_iter != -1:
+            state = {
+                "step": self.step,
+                "net_g": self.net_g.state_dict(),
+                "optimizer_g": self.optimizer_g.state_dict(),
+                "dropout_generator": self.dropout_generator.get_state(),
+            }
+            if self.net_g_ema is not None:
+                state["net_g_ema"] = self.net_g_ema.state_dict()
+            self.save_training_state(state, epoch, current_iter)
+
+    def resume_training(self, resume_state_path: str) -> dict:
+        """Restore the weights, EMA, optimizer, generator and step saved by
+        `save`; returns the sidecar's {"epoch", "iter"}."""
+        state, meta = self.load_training_state(resume_state_path)
+        self.net_g.load_state_dict(state["net_g"])
+        if self.net_g_ema is not None:
+            self.net_g_ema.load_state_dict(state["net_g_ema"])
+        self.optimizer_g.load_state_dict(state["optimizer_g"])
+        self.dropout_generator.set_state(state["dropout_generator"])
+        self.step = int(state["step"])
+        return meta
 
     def load_network(self, net: torch.nn.Module, path: str, strict: bool = True) -> None:
         """Load weights into `net`: a JAX-framework safetensors (metadata

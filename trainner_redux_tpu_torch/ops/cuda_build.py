@@ -26,9 +26,10 @@ BUILD_ROOT = PACKAGE_DIR / "_build"
 # library name -> source file; every library includes every header
 SOURCES = {
     "fused_block": "fused_block.cu",
+    "fused_block_train": "fused_block_train.cu",
     "window_attention": "window_attention.cu",
 }
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "block_fwd.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +46,18 @@ SIGNATURES = {
         "trr_ln_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
         "trr_attn_block_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_ln_mlp_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    },
+    "fused_block_train": {
+        "trr_swin_block_fwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_block_bwd_tokens": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+        "trr_block_bwd_attn": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),
+        "trr_block_bwd_ln1": ([_P] * 8 + [_I] * 4 + [_P], _I),
+        "trr_weight_grad": ([_P] * 2 + [_I] * 4 + [_P, _P], _I),
+        "trr_sum_rows": ([_P, _I, _I, _P, _P], _I),
+        "trr_dbias": ([_P] + [_I] * 5 + [_P, _P], _I),
+        "trr_bwd_tokens_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_bwd_ln1_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "window_attention": {
         "trr_window_mhsa_fwd": ([_P] * 3 + [_I] * 6 + [_F, _P], _I),

@@ -1,10 +1,17 @@
-"""Fused pre-LN transformer block halves: the CUDA kernels' wrappers and
-their plain PyTorch versions.
+"""Fused pre-LN Swin blocks: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Port of the forward of the JAX package's ops/pallas/fused_block.py:
+Port of the JAX package's ops/pallas/fused_block.py:
 
   fused_attn_block : z   = x + s[b] * proj(window-MHSA(qkv(LN1(x))))
   fused_ln_mlp     : out = x + s[b] * fc2(gelu_erf(fc1(LN2(x))))
+  fused_swin_block_train : out = fused_ln_mlp(fused_attn_block(x)) with s1
+      and s2, a torch.autograd.Function whose forward saves P, the attention
+      output and z, and whose backward computes every gradient from them
+      (the saved-P backward).
+
+The first two are forward only (serving): on a CUDA tensor that autograd
+would record they raise, since their backward kernels are not ported.
 
 `s` is the per-sample DropPath keep scale (ones at eval). Layout contract
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
@@ -16,12 +23,13 @@ the caller (roll x, unroll z; the JAX package's contract) or, with
 per-token and needs no roll.
 
 For a CUDA tensor each wrapper launches its kernel in
-`csrc/fused_block.cu`; for a CPU tensor it runs its plain version
-(`*_reference`); anything else raises.
+`csrc/fused_block.cu` or `csrc/fused_block_train.cu`; for a CPU tensor it
+runs its plain version (`*_reference`); anything else raises.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -34,9 +42,12 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     _check_cuda,
     fused_window_mhsa_reference,
     heads_fit,
+    refuse_autograd,
+    window_kinds,
 )
 
 STAGE_FLOATS = 2 * 32 * 96  # double-buffered weight stage (kStageFloats)
+WEIGHT_GRAD_CHUNK = 512  # tokens per partial sum of the weight gradients
 
 
 def attn_block_smem_bytes(channels: int, num_heads: int) -> int:
@@ -116,10 +127,10 @@ def fused_attn_block_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads, hea
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _launch(fn_name: str, device, *args) -> None:
+def _launch(lib_name: str, fn_name: str, device, *args) -> None:
     from trainner_redux_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.library("fused_block")
+    lib = cuda_build.library(lib_name)
     with torch.cuda.device(device):
         status = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(status, fn_name)
@@ -129,9 +140,11 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
     """out (B,H,W,C) = x + s[b] * fc2(gelu(fc1(LN(x)))).
 
     g/be (C,) LayerNorm affine, w1 (C, hidden), b1 (hidden,), w2 (hidden, C),
-    b2 (C,), s (B,) per-sample DropPath keep scale (ones at eval)."""
+    b2 (C,), s (B,) per-sample DropPath keep scale (ones at eval).
+    Forward only: on a CUDA tensor that autograd would record, it raises."""
     if x.device.type == "cpu":
         return fused_ln_mlp_reference(x, g, be, w1, b1, w2, b2, s, window_size, eps)
+    refuse_autograd("fused_ln_mlp", "TPU kernel #7, fused_block.py:415", x, g, be, w1, b1, w2, b2)
     b, hh, ww, c = x.shape
     hidden = w1.shape[1]
     if not ln_mlp_fits(hh, window_size, c, hidden):
@@ -150,7 +163,7 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
         return out
     fused_ln_mlp.launches += 1
     _launch(
-        "trr_ln_mlp_fwd", x.device,
+        "fused_block", "trr_ln_mlp_fwd", x.device,
         x.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), s.data_ptr(), out.data_ptr(),
         b, hh, ww, c, hidden, eps,
@@ -170,11 +183,14 @@ def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, win
     window_attention.shift_mask_kinds), s (B,) DropPath keep scale. With
     shift=0, as in the JAX package, the caller passes x already rolled and
     unrolls z; with shift > 0 the kernel takes the windows of x rolled by
-    (-shift, -shift) and returns z unrolled, in x's frame."""
+    (-shift, -shift) and returns z unrolled, in x's frame.
+    Forward only: on a CUDA tensor that autograd would record, it raises."""
     if x.device.type == "cpu":
         return fused_attn_block_reference(
             x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps, shift
         )
+    refuse_autograd("fused_attn_block", "TPU kernel #6, fused_block.py:729",
+                    x, g, be, wq, bq, wp, bp, bias)
     b, hh, ww, c = x.shape
     ws, n, kinds = window_size, window_size * window_size, bias.shape[0]
     if c != num_heads * head_dim or kinds not in (1, 4):
@@ -197,7 +213,7 @@ def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, win
         return z
     fused_attn_block.launches += 1
     _launch(
-        "trr_attn_block_fwd", x.device,
+        "fused_block", "trr_attn_block_fwd", x.device,
         x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(),
         wp.data_ptr(), bp.data_ptr(), bias.data_ptr(), s.data_ptr(), z.data_ptr(),
         b, hh, ww, c, num_heads, kinds, shift, eps, head_dim**-0.5,
@@ -206,3 +222,345 @@ def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, win
 
 
 fused_attn_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training: the whole block, forward (TPU kernel #4) and saved-P backward
+# (TPU kernel #5), as one torch.autograd.Function.
+# ---------------------------------------------------------------------------
+
+
+def bwd_tokens_smem_bytes(channels: int, hidden: int) -> int:
+    """Shared memory of the backward's per-token kernel (csrc/fused_block_train.cu)."""
+    return 4 * ((2 * channels + hidden) * TILE_LD + STAGE_FLOATS + 4 * 64)
+
+
+def bwd_attn_smem_bytes(channels: int, num_heads: int) -> int:
+    """Shared memory of the backward's per-window kernel."""
+    hd = channels // num_heads
+    return 4 * (channels * TILE_LD + 4 * 64 * V_LD + 2 * hd * TILE_LD + 2 * 64 * TILE_LD
+                + STAGE_FLOATS)
+
+
+def bwd_ln1_smem_bytes(channels: int) -> int:
+    """Shared memory of the backward's LN1 kernel."""
+    return 4 * (4 * channels * TILE_LD + STAGE_FLOATS)
+
+
+def swin_block_train_fits(h, w, window_size, channels, num_heads, hidden) -> bool:
+    """The training kernels' limits: the forward halves' and the three
+    backward kernels' shared-memory plans within one thread block's."""
+    if not (attn_block_fits(h, w, window_size, channels, num_heads)
+            and ln_mlp_fits(h, window_size, channels, hidden)):
+        return False
+    return max(bwd_tokens_smem_bytes(channels, hidden),
+               bwd_attn_smem_bytes(channels, num_heads),
+               bwd_ln1_smem_bytes(channels)) <= SMEM_LIMIT
+
+
+def _roll(t, shift):
+    return torch.roll(t, (shift, shift), dims=(1, 2)) if shift else t
+
+
+def _to_windows(t, ws):
+    """(B, H, W, X) -> (B, H/ws, W/ws, ws*ws, X), tokens row-major in a window."""
+    b, hh, ww, x = t.shape
+    t = t.reshape(b, hh // ws, ws, ww // ws, ws, x).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(b, hh // ws, ww // ws, ws * ws, x)
+
+
+def _from_windows(t, ws):
+    b, nwh, nww, _, x = t.shape
+    t = t.reshape(b, nwh, nww, ws, ws, x).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(b, nwh * ws, nww * ws, x)
+
+
+def _heads(t, num_heads):
+    """(..., n, nh*hd) -> (..., nh, n, hd)."""
+    return t.unflatten(-1, (num_heads, -1)).transpose(-3, -2)
+
+
+def _merge_heads(t):
+    return t.transpose(-3, -2).flatten(-2)
+
+
+def _ln_parts(t, eps):
+    """(xn, 1/std) of a LayerNorm over the last axis (two-pass, as the kernels)."""
+    xc = t - t.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    return xc * inv, inv
+
+
+def _ln_backward(dy, xn, inv, g):
+    dxh = dy * g
+    return inv * (dxh - dxh.mean(-1, keepdim=True) - xn * (dxh * xn).mean(-1, keepdim=True))
+
+
+def _gelu_grad(h):
+    cdf = 0.5 * (1.0 + torch.erf(h * 2.0**-0.5))
+    return cdf + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
+
+
+def fused_swin_block_train_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2,
+                                     s1, s2, num_heads, head_dim, window_size, eps=1e-5,
+                                     shift=0):
+    """The train forward's spec, in fp32: (out, P, att, z).
+
+    x, out, att (the attention output) and z (the mid-block residual) are
+    (B, H, W, C) in x's frame; P (B, H/ws, W/ws, nh, n, n) is the row softmax
+    of every window and head of x rolled by (-shift, -shift)."""
+    b, hh, ww, c = x.shape
+    ws = window_size
+    xr = _roll(x.float(), -shift)
+    y = F.layer_norm(xr, (c,), g1.float(), be1.float(), eps)
+    qkv = _to_windows(y @ wq.float() + bq.float(), ws)
+    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=bias.device)
+    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
+    p = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1)
+    att = _from_windows(_merge_heads(p @ v), ws)
+    z = xr + s1.float()[:, None, None, None] * (att @ wp.float() + bp.float())
+    out = fused_ln_mlp_reference(z, g2, be2, w1, b1, w2, b2, s2, ws, eps)
+    return _roll(out, shift), p, _roll(att, shift), _roll(z, shift)
+
+
+def fused_swin_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2,
+                                         s1, s2, P, att, z, dout, kinds, num_heads, head_dim,
+                                         window_size, eps=1e-5, shift=0):
+    """The saved-P backward's spec, step by step, in fp32: returns dx and the
+    gradients of g1, be1, wq, bq, wp, bp, the (K, nh, n, n) kind table, g2,
+    be2, w1, b1, w2, b2, from the forward's saved P, att and z."""
+    b, hh, ww, c = x.shape
+    ws, nwh, nww = window_size, hh // window_size, ww // window_size
+    n = ws * ws
+
+    def rows(t):
+        return _roll(t.float(), -shift).reshape(b * hh * ww, -1)
+
+    t, att, z, do = rows(x), rows(att), rows(z), rows(dout)
+    s1 = s1.float().repeat_interleave(hh * ww)[:, None]
+    s2 = s2.float().repeat_interleave(hh * ww)[:, None]
+    # MLP half: recompute LN2, fc1 and the GELU from z
+    xn2, inv2 = _ln_parts(z, eps)
+    y2 = xn2 * g2 + be2
+    h = y2 @ w1 + b1
+    dm = do * s2
+    dw2, db2 = F.gelu(h, approximate="none").T @ dm, dm.sum(0)
+    dh = (dm @ w2.T) * _gelu_grad(h)
+    dw1, db1 = y2.T @ dh, dh.sum(0)
+    dy2 = dh @ w1.T
+    dg2, dbe2 = (dy2 * xn2).sum(0), dy2.sum(0)
+    dz = do + _ln_backward(dy2, xn2, inv2, g2)
+    # attention half: recompute LN1 and qkv, the softmax comes saved
+    xn, inv = _ln_parts(t, eps)
+    y = xn * g1 + be1
+    dzp = dz * s1
+    dwp, dbp = att.T @ dzp, dzp.sum(0)
+    datt = dzp @ wp.T
+    qkv = _to_windows((y @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
+    q, k, v = (_heads(u, num_heads) for u in qkv.chunk(3, dim=-1))
+    da = _heads(_to_windows(datt.reshape(b, hh, ww, c), ws), num_heads)
+    dv = P.transpose(-1, -2) @ da
+    dp = da @ v.transpose(-1, -2)
+    ds = P * (dp - (dp * P).sum(-1, keepdim=True))
+    scale = head_dim**-0.5
+    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
+    dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=x.device)
+    dbias.index_add_(0, window_kinds(nwh, nww, kinds, device=x.device),
+                     ds.sum(0).reshape(nwh * nww, num_heads, n, n))
+    dqkv = torch.cat([_merge_heads(u) for u in (dq, dk, dv)], dim=-1)
+    dqkv = _from_windows(dqkv, ws).reshape(b * hh * ww, 3 * c)
+    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
+    dy = dqkv @ wq.T
+    dg1, dbe1 = (dy * xn).sum(0), dy.sum(0)
+    dx = _roll((dz + _ln_backward(dy, xn, inv, g1)).reshape(b, hh, ww, c), shift)
+    return dx, dg1, dbe1, dwq, dbq, dwp, dbp, dbias, dg2, dbe2, dw1, db1, dw2, db2
+
+
+def _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, name):
+    b, hh, ww, c = x.shape
+    hidden = w1.shape[1]
+    if c != num_heads * head_dim or kinds not in (1, 4):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, {num_heads} heads of {head_dim}, "
+                         f"{kinds} bias kinds do not match")
+    if not 0 <= shift < min(hh, ww):
+        raise ValueError(f"{name}: shift {shift} outside [0, {min(hh, ww)})")
+    if not swin_block_train_fits(hh, ww, window_size, c, num_heads, hidden):
+        raise ValueError(
+            f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, hidden={hidden}, "
+            f"ws={window_size} is outside the kernels' limits; train with "
+            "TRAINNER_FUSED_ATTN=0 (the plain branch)"
+        )
+    if b * hh * ww * 3 * c >= 2**31:
+        raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
+
+
+def _param_shapes(c, hidden, kinds, num_heads, n):
+    return {
+        "g1": (c,), "be1": (c,), "wq": (c, 3 * c), "bq": (3 * c,), "wp": (c, c), "bp": (c,),
+        "bias": (kinds, num_heads, n, n), "g2": (c,), "be2": (c,), "w1": (c, hidden),
+        "b1": (hidden,), "w2": (hidden, c), "b2": (c,),
+    }
+
+
+def _swin_block_train_fwd_cuda(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1,
+                               s2, num_heads, head_dim, window_size, eps, shift):
+    name = "fused_swin_block_train"
+    _check_train_shapes(x, w1, bias.shape[0], num_heads, head_dim, window_size, shift, name)
+    b, hh, ww, c = x.shape
+    hidden, kinds, n = w1.shape[1], bias.shape[0], window_size**2
+    shapes = _param_shapes(c, hidden, kinds, num_heads, n)
+    ops = dict(g1=g1, be1=be1, wq=wq, bq=bq, wp=wp, bp=bp, bias=bias, g2=g2, be2=be2, w1=w1,
+               b1=b1, w2=w2, b2=b2)
+    _check_cuda("x", x, (b, hh, ww, c), x.device)
+    for k, t in ops.items():
+        _check_cuda(k, t, shapes[k], x.device)
+    _check_cuda("s1", s1, (b,), x.device)
+    _check_cuda("s2", s2, (b,), x.device)
+    out, att, z = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    p = torch.empty((b, hh // window_size, ww // window_size, num_heads, n, n),
+                    device=x.device, dtype=torch.float32)
+    if x.numel() == 0:
+        return out, p, att, z
+    fused_swin_block_train.launches += 1
+    _launch(
+        "fused_block_train", "trr_swin_block_fwd", x.device,
+        x.data_ptr(), *(t.data_ptr() for t in ops.values()), s1.data_ptr(), s2.data_ptr(),
+        out.data_ptr(), p.data_ptr(), att.data_ptr(), z.data_ptr(),
+        b, hh, ww, c, num_heads, hidden, kinds, shift, eps, head_dim**-0.5,
+    )
+    return out, p, att, z
+
+
+def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2,
+                                    P, att, z, dout, kinds, num_heads, head_dim, window_size,
+                                    eps=1e-5, shift=0):
+    """The saved-P backward (TPU kernel #5): dx and the 13 parameter
+    gradients, as `fused_swin_block_train_bwd_reference` returns them. On a
+    CUDA tensor it launches the kernels of `csrc/fused_block_train.cu` (one
+    counted call); on a CPU tensor it runs the plain version."""
+    if x.device.type == "cpu":
+        return fused_swin_block_train_bwd_reference(
+            x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2, P, att, z, dout, kinds,
+            num_heads, head_dim, window_size, eps, shift,
+        )
+    name = "fused_swin_block_train_backward"
+    _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, name)
+    b, hh, ww, c = x.shape
+    hidden, n, dev = w1.shape[1], window_size**2, x.device
+    nwh, nww = hh // window_size, ww // window_size
+    shapes = _param_shapes(c, hidden, kinds, num_heads, n)
+    ops = dict(g1=g1, be1=be1, wq=wq, bq=bq, wp=wp, bp=bp, g2=g2, be2=be2, w1=w1, b1=b1, w2=w2,
+               b2=b2)
+    for k, t in ops.items():
+        _check_cuda(k, t, shapes[k], dev)
+    for k, t in (("x", x), ("att", att), ("z", z), ("dout", dout)):
+        _check_cuda(k, t, (b, hh, ww, c), dev)
+    _check_cuda("P", P, (b, nwh, nww, num_heads, n, n), dev)
+    _check_cuda("s1", s1, (b,), dev)
+    _check_cuda("s2", s2, (b,), dev)
+    T = b * hh * ww
+    # the transposed weights of the products dX = dY W^T
+    wqt, wpt, w1t, w2t = (w.t().contiguous() for w in (wq, wp, w1, w2))
+
+    def new(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    y, y2, dm, dz, dzp, datt = (new(T, c) for _ in range(6))
+    hg, dh = new(T, hidden), new(T, hidden)
+    stats1, dqkv, ds, dx = new(T, 2), new(T, 3 * c), torch.empty_like(P), torch.empty_like(x)
+    nblk = math.ceil(T / 64)
+    ln2_part, ln1_part = new(nblk, 2 * c), new(nblk, 2 * c)
+    fused_swin_block_train_backward.launches += 1
+    lib = "fused_block_train"
+    _launch(
+        lib, "trr_block_bwd_tokens", dev,
+        x.data_ptr(), z.data_ptr(), dout.data_ptr(), g1.data_ptr(), be1.data_ptr(),
+        g2.data_ptr(), be2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(),
+        w2t.data_ptr(), wpt.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+        y.data_ptr(), stats1.data_ptr(), y2.data_ptr(), hg.data_ptr(), dm.data_ptr(),
+        dh.data_ptr(), dz.data_ptr(), dzp.data_ptr(), datt.data_ptr(), ln2_part.data_ptr(),
+        b, hh, ww, c, hidden, eps,
+    )
+    _launch(
+        lib, "trr_block_bwd_attn", dev,
+        y.data_ptr(), wq.data_ptr(), bq.data_ptr(), P.data_ptr(), datt.data_ptr(),
+        dqkv.data_ptr(), ds.data_ptr(), b, hh, ww, c, num_heads, shift, head_dim**-0.5,
+    )
+    _launch(
+        lib, "trr_block_bwd_ln1", dev,
+        dqkv.data_ptr(), wqt.data_ptr(), x.data_ptr(), stats1.data_ptr(), g1.data_ptr(),
+        dz.data_ptr(), dx.data_ptr(), ln1_part.data_ptr(), b, hh, ww, c,
+    )
+
+    def sum_rows(part):
+        out = new(part.shape[1])
+        _launch(lib, "trr_sum_rows", dev, part.data_ptr(), part.shape[0], part.shape[1],
+                out.data_ptr())
+        return out
+
+    def weight_grad(a, bmat):
+        """(A^T B, column sums of B) over all tokens."""
+        m, nn = a.shape[1], bmat.shape[1]
+        part = new(math.ceil(T / WEIGHT_GRAD_CHUNK), m * nn + nn)
+        _launch(lib, "trr_weight_grad", dev, a.data_ptr(), bmat.data_ptr(), T, m, nn,
+                WEIGHT_GRAD_CHUNK, part.data_ptr())
+        out = sum_rows(part)
+        return out[: m * nn].view(m, nn), out[m * nn :]
+
+    dw2, db2 = weight_grad(hg, dm)
+    dw1, db1 = weight_grad(y2, dh)
+    dwp, dbp = weight_grad(att.view(T, c), dzp)
+    dwq, dbq = weight_grad(y, dqkv)
+    dg2, dbe2 = sum_rows(ln2_part).split(c)
+    dg1, dbe1 = sum_rows(ln1_part).split(c)
+    dbias = new(kinds, num_heads, n, n)
+    _launch(lib, "trr_dbias", dev, ds.data_ptr(), b, nwh, nww, num_heads, kinds,
+            dbias.data_ptr())
+    return dx, dg1, dbe1, dwq, dbq, dwp, dbp, dbias, dg2, dbe2, dw1, db1, dw2, db2
+
+
+fused_swin_block_train_backward.launches = 0
+
+
+class _SwinBlockTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2,
+                num_heads, head_dim, window_size, eps, shift):
+        args = (x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2,
+                num_heads, head_dim, window_size, eps, shift)
+        if x.device.type == "cpu":
+            out, p, att, z = fused_swin_block_train_reference(*args)
+        else:
+            out, p, att, z = _swin_block_train_fwd_cuda(*args)
+        ctx.save_for_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2,
+                              p, att, z)
+        ctx.meta = (bias.shape[0], num_heads, head_dim, window_size, eps, shift)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = fused_swin_block_train_backward(*ctx.saved_tensors, dout.contiguous(),
+                                                *ctx.meta)
+        return (*grads, None, None, None, None, None, None, None)
+
+
+def fused_swin_block_train(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2,
+                           num_heads, head_dim, window_size, eps=1e-5, shift=0):
+    """out (B,H,W,C) = z + s2[b] * fc2(gelu(fc1(LN2 z))),
+    z = x + s1[b] * proj(window-MHSA(qkv(LN1 x), bias)): the whole pre-LN Swin
+    block for training, differentiable in x and the 13 parameters (not in
+    s1, s2, whose gradient is None).
+
+    Operands as `fused_attn_block` and `fused_ln_mlp` take them; the forward
+    saves P, the attention output and z, and the backward computes every
+    gradient from them (the saved-P backward). With shift > 0 the windows
+    are those of x rolled by (-shift, -shift) and out comes back in x's
+    frame, so the caller rolls nothing. On a CUDA tensor the forward
+    launches `csrc/fused_block_train.cu` (one counted call, two launches);
+    on a CPU tensor both directions run their plain versions."""
+    return _SwinBlockTrain.apply(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1,
+                                 s2, num_heads, head_dim, window_size, eps, shift)
+
+
+fused_swin_block_train.launches = 0

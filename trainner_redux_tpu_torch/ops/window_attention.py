@@ -145,10 +145,25 @@ def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) 
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
+def refuse_autograd(name: str, backward: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a call of a forward-only kernel: the
+    kernel's output would carry no gradient back to its inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: its backward ({backward}) is not ported to CUDA, so this kernel "
+            "would cut the gradient. Call it under torch.no_grad() or "
+            "torch.inference_mode(); to train, use fused_swin_block_train or the plain "
+            "branch (TRAINNER_FUSED_ATTN=0)."
+        )
+
+
 def fused_window_mhsa(qkv, bias, num_heads, head_dim, window_size):
-    """out (B,H,W,C) = window-MHSA(qkv (B,H,W,3C), bias (K,nh,n,n))."""
+    """out (B,H,W,C) = window-MHSA(qkv (B,H,W,3C), bias (K,nh,n,n)).
+
+    Forward only: on a CUDA tensor that autograd would record, it raises."""
     if qkv.device.type == "cpu":
         return fused_window_mhsa_reference(qkv, bias, num_heads, head_dim, window_size)
+    refuse_autograd("fused_window_mhsa", "TPU kernel #8, window_attention.py:371", qkv, bias)
     b, hh, ww, c3 = qkv.shape
     c, ws, n = num_heads * head_dim, window_size, window_size * window_size
     kinds = bias.shape[0]

@@ -1,16 +1,27 @@
 """Misc utilities: seeding, experiment dirs, resume scanning, formatting.
 
-Behavioral parity with the JAX package's utils/misc.py; seeding also seeds
-torch's global generator.
+Behavioral parity with the JAX package's utils/misc.py. Seeding covers the
+host's global generators (`random`, numpy); the port's own randomness uses
+explicit generators (data: `utils.rng.worker_rng`; DropPath: the model's
+torch.Generator), so torch's global generator is not seeded.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import time
 from os import path as osp
 
+import numpy as np
+
 from trainner_redux_tpu_torch.utils.dist_util import master_only
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed the host's global generators (`random`, numpy)."""
+    random.seed(seed)
+    np.random.seed(seed)
 
 
 def get_time_str() -> str:
@@ -70,3 +81,21 @@ def scandir(
                 yield from _scandir(entry.path, suffix, recursive)
 
     return _scandir(dir_path, suffix, recursive)
+
+
+def check_resume(opt, resume_iter: int) -> None:
+    """When resuming, point the pretrained-network paths at the
+    `resume_models/net_<g|d>_<iter>` checkpoints of that iteration, unless
+    the network is listed in `ignore_resume_networks`."""
+    if opt.path.resume_state is None or opt.path.resume_models is None:
+        return
+    ignore = set(opt.path.ignore_resume_networks or [])
+    for net_key, attr in (("network_g", "pretrain_network_g"),
+                          ("network_d", "pretrain_network_d")):
+        if getattr(opt, net_key, None) is None or net_key in ignore:
+            continue
+        for ext in (".safetensors", ".ckpt", ".pth"):
+            candidate = osp.join(opt.path.resume_models, f"net_{net_key[-1]}_{resume_iter}{ext}")
+            if osp.exists(candidate):
+                setattr(opt.path, attr, candidate)
+                break

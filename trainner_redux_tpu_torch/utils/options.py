@@ -11,10 +11,12 @@ from __future__ import annotations
 
 import argparse
 import random
+import sys
+import time
 from os import path as osp
 from typing import Any
 
-from trainner_redux_tpu_torch.utils.dist_util import get_dist_info, init_dist
+from trainner_redux_tpu_torch.utils.dist_util import get_dist_info, init_dist, master_only
 from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
 from trainner_redux_tpu_torch.utils.schema import StrictDecodeError, decode, encode_dict
 
@@ -212,3 +214,19 @@ def warn_inert_fields(opt: ReduxOptions) -> None:
             "inert in the reference framework as well (no consumer); they do "
             f"nothing here either: {', '.join(sorted(noisy))}"
         )
+
+
+@master_only
+def copy_opt_file(opt_file: str, experiments_root: str) -> None:
+    """Copy the config into the experiment dir with a generation banner."""
+    from shutil import copyfile
+
+    filename = osp.join(experiments_root, osp.basename(opt_file))
+    if osp.abspath(opt_file) == osp.abspath(filename):
+        return
+    copyfile(opt_file, filename)
+    with open(filename, "r+") as f:
+        lines = f.readlines()
+        lines.insert(0, f"# GENERATE TIME: {time.asctime()}\n# CMD:\n# {' '.join(sys.argv)}\n\n")
+        f.seek(0)
+        f.writelines(lines)

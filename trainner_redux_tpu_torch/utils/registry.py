@@ -94,3 +94,4 @@ DATASET_REGISTRY = Registry("dataset")
 ARCH_REGISTRY = Registry("arch")
 MODEL_REGISTRY = Registry("model")
 METRIC_REGISTRY = Registry("metric")
+LOSS_REGISTRY = Registry("loss")
