@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x serving and
-training.
+"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x and HAT-M 4x
+serving and training.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -37,6 +37,20 @@ failure:
              through the kernel branch and the plain branch; losses and
              gradients must agree.
 10. train profile - device time by kernel of one training step.
+11. hat kernels - HAT-M's kernels at its training block (B=8, 64x64 LR,
+             C=180, 6 heads, 16x16 windows, hidden 360): the ws-16 window
+             forward (#3) and its backward (#8: dqkv, dbias; also at ws 8,
+             SwinIR's unfused branch; two runs bit-identical), and the MLP
+             half's backward (#7), each against its plain version; times,
+             the card's bound and, for #3 and #8, SDPA with a float mask.
+12. hat path - `test.run` on a seeded HAT-M 4x and the 4 images, counting
+             launches (36 window-MHSA and 42 MLP kernels an image).
+13. hat train - `train.run` on HAT-M 4x as phase 8 (30 steps), counting
+             36 + 36 window-MHSA and 42 + 42 MLP launches a step.
+14. hat train branches - one forward and backward of HAT-M, and one of
+             SwinIR-M's unfused branch (TRAINNER_FUSED_BLOCK=0), each through
+             the kernels and the plain branch; losses and gradients must agree.
+15. hat train profile - device time by kernel of one HAT-M training step.
 
 Then one JSON line of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -76,12 +90,21 @@ BLOCKS = 36
 TRAIN_STEPS = 30
 TRAIN_WARMUP = 5  # steps left out of the per-step median
 
+# HAT-M's block: the same widths, 16x16 windows (n = 256), 42 MLP halves
+HWS = 16
+HN = HWS * HWS
+HAT_BLOCKS = 36  # HABs: window attention
+HAT_MLPS = 42  # HABs and OCABs: MLP halves
+
 REPLACES = {
     "fused_attn_block": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
     "fused_ln_mlp": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
     "fused_window_mhsa": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
     "fused_swin_block_train": "trainner_redux_tpu/ops/pallas/fused_block.py:1374",
     "fused_swin_block_train_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:1441",
+    "fused_window_mhsa_ws16": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_ln_mlp_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -89,8 +112,14 @@ SOURCES = {
     "fused_window_mhsa": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_swin_block_train": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_swin_block_train_backward": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_window_mhsa_ws16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_ln_mlp_backward": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
+# the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
+# window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs
 KERNELS = tuple(SOURCES)
+SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
 TRAIN_OPS = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",
              "b2")
@@ -318,7 +347,15 @@ def _wrappers() -> dict:
         "fused_window_mhsa": wa.fused_window_mhsa,
         "fused_swin_block_train": fb.fused_swin_block_train,
         "fused_swin_block_train_backward": fb.fused_swin_block_train_backward,
+        "fused_window_mhsa_backward": wa.fused_window_mhsa_backward,
+        "fused_ln_mlp_backward": fb.fused_ln_mlp_backward,
     }
+
+
+def check_counts(what: str, counts: dict[str, int], want: dict[str, int]) -> None:
+    """The wrappers in `want` launched that many times, every other none."""
+    if {k: v for k, v in counts.items() if v or k in want} != want:
+        fail(f"{what} launches {counts}, expected {want} and no others")
 
 
 def reset_counts() -> None:
@@ -358,7 +395,8 @@ def make_dataset(root: Path, seed: int,
     return hr_dir, lr_dir
 
 
-def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int):
+def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int,
+                  network: str = "swinir_m"):
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
@@ -369,7 +407,7 @@ def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: in
         "scale": 4,
         "num_gpu": 1,
         "manual_seed": seed,
-        "network_g": {"type": "swinir_m"},
+        "network_g": {"type": network},
         "path": {"pretrain_network_g": str(weights), "strict_load_g": True},
         "datasets": {
             "test_1": {
@@ -389,7 +427,8 @@ def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: in
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=False)
 
 
-def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: dict) -> dict:
+def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: dict,
+          network: str = "swinir_m") -> dict:
     """One run of the serving entry point with kernel counts read around it."""
     import math
 
@@ -397,7 +436,7 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
 
     from trainner_redux_tpu_torch import test as port_test
 
-    opt = smoke_options(name, weights, hr_dir, lr_dir, seed)
+    opt = smoke_options(name, weights, hr_dir, lr_dir, seed, network)
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -428,11 +467,7 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
 
 def check_serving_counts(what: str, c: dict[str, int]) -> None:
     want = BLOCKS * N_IMAGES
-    if (c["fused_attn_block"], c["fused_ln_mlp"]) != (want, want) or any(
-            c[k] for k in ("fused_window_mhsa", "fused_swin_block_train",
-                           "fused_swin_block_train_backward")):
-        fail(f"{what} launches {c}, expected {want} + {want} serving block kernels and "
-             "no others")
+    check_counts(what, c, {"fused_attn_block": want, "fused_ln_mlp": want})
 
 
 def phase_path(seed: int) -> dict[str, int]:
@@ -454,9 +489,7 @@ def phase_path(seed: int) -> dict[str, int]:
     unfused = serve("swinir_m_x4_unfused", weights, hr_dir, lr_dir, seed,
                     {"TRAINNER_FUSED_BLOCK": "0"})
     u = unfused["counts"]
-    if u["fused_window_mhsa"] != want or any(
-            u[k] for k in KERNELS if k != "fused_window_mhsa"):
-        fail(f"unfused path launches {u}, expected {want} window-MHSA and no block kernels")
+    check_counts("unfused path", u, {"fused_window_mhsa": want})
     for k in ("psnr", "ssim"):
         d = abs(fused["metrics"][k] - unfused["metrics"][k])
         if d > 1e-3:
@@ -512,6 +545,17 @@ def phase_branches(seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+def device_events(prof) -> list:
+    """The profile's device kernels and copies by name. The device-side
+    spans of `record_function` ranges (`Optimizer.step#AdamW.step`) are left
+    out: they lie over the kernels they enclose, and would count them twice."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def phase_profile(seed: int) -> None:
     """Device time by kernel over two fused-branch forwards of one 128x128
     image (torch.profiler, CUPTI); the table goes to chip_smoke/profile.txt."""
@@ -530,7 +574,7 @@ def phase_profile(seed: int) -> None:
             for _ in range(2):
                 net(x)
             torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     total = sum(e.self_device_time_total for e in events)
     if total == 0:
         say("[profile] the profiler recorded no device time")
@@ -648,11 +692,11 @@ def phase_train_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 8. train
+# 8. train (and 13. hat train)
 # ---------------------------------------------------------------------------
 
 
-def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int):
+def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str = "swinir_m"):
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
@@ -660,7 +704,7 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int):
     raw = {
         "name": name, "scale": 4, "num_gpu": 1, "manual_seed": seed,
         "compute_dtype": "float32",
-        "network_g": {"type": "swinir_m"},
+        "network_g": {"type": network},
         "path": {},
         "datasets": {"train": {
             "name": "smoke_train", "type": "PairedImageDataset",
@@ -678,8 +722,11 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int):
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
 
-def phase_train(seed: int) -> dict[str, int]:
-    """The training entry point; returns the launch counts of its run."""
+def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
+                tag: str = "train", per_step: dict[str, int] | None = None,
+                serve_want: dict[str, int] | None = None) -> dict[str, int]:
+    """The training entry point on `network`; returns the launch counts of
+    its run, which must be `per_step` times the steps."""
     import math
     import statistics
 
@@ -688,8 +735,12 @@ def phase_train(seed: int) -> dict[str, int]:
     from trainner_redux_tpu_torch import train as port_train
     from trainner_redux_tpu_torch.models.sr_model import SRModel
 
+    per_step = per_step or {"fused_swin_block_train": BLOCKS,
+                            "fused_swin_block_train_backward": BLOCKS}
+    serve_want = serve_want or {"fused_attn_block": BLOCKS * N_IMAGES,
+                                "fused_ln_mlp": BLOCKS * N_IMAGES}
     hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
-    opt = train_options("swinir_m_x4_train", hr_dir, lr_dir, seed)
+    opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network)
     ends, losses = [], []
     original = SRModel.optimize_parameters
 
@@ -711,24 +762,20 @@ def phase_train(seed: int) -> dict[str, int]:
         SRModel.optimize_parameters = original
     peak = torch.cuda.max_memory_allocated()
     steps = len(ends)
-    per_step = [b - a for a, b in zip(ends[TRAIN_WARMUP:], ends[TRAIN_WARMUP + 1:])]
-    med = statistics.median(per_step)
-    q = statistics.quantiles(per_step, n=4)
-    say(f"[train] SwinIR-M 4x, batch {TB} of {TH}x{TW} LR, {steps} steps in {secs:.2f} s "
+    per = [b - a for a, b in zip(ends[TRAIN_WARMUP:], ends[TRAIN_WARMUP + 1:])]
+    med = statistics.median(per)
+    q = statistics.quantiles(per, n=4)
+    say(f"[{tag}] {label} 4x, batch {TB} of {TH}x{TW} LR, {steps} steps in {secs:.2f} s "
         f"(model build and data included): median {med * 1e3:.2f} ms per step "
         f"(quartiles {q[0] * 1e3:.2f} / {q[2] * 1e3:.2f} ms, steps {TRAIN_WARMUP + 1}-{steps}), "
         f"{TB / med:.2f} images/s, max_memory_allocated {peak / 2**30:.2f} GiB")
-    say(f"[train] l_g_total per step: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+    say(f"[{tag}] l_g_total per step: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
         f"launches {counts}")
     if steps != TRAIN_STEPS or model.step != TRAIN_STEPS:
-        fail(f"train ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
+        fail(f"{tag} ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"a training loss is not finite: {losses}")
-    want = BLOCKS * TRAIN_STEPS
-    if (counts["fused_swin_block_train"], counts["fused_swin_block_train_backward"]) != (
-            want, want) or any(counts[k] for k in KERNELS[:3]):
-        fail(f"train launches {counts}, expected {BLOCKS} + {BLOCKS} training block kernels "
-             "per step and no serving kernels")
+    check_counts(f"{tag} ({label})", counts, {k: v * TRAIN_STEPS for k, v in per_step.items()})
     ema = Path(opt.path.models) / f"net_g_ema_{TRAIN_STEPS}.safetensors"
     if not ema.exists():
         fail(f"no EMA checkpoint at {ema}")
@@ -736,8 +783,8 @@ def phase_train(seed: int) -> dict[str, int]:
     if not (state.exists() and Path(f"{state}.meta.json").exists()):
         fail(f"no training state at {state}")
     eval_hr, eval_lr = make_dataset(OUT / "data", seed)
-    served = serve("swinir_m_x4_trained", ema, eval_hr, eval_lr, seed, {})
-    check_serving_counts("serving the trained checkpoint", served["counts"])
+    served = serve(f"{network}_x4_trained", ema, eval_hr, eval_lr, seed, {}, network)
+    check_counts(f"serving the trained {label} checkpoint", served["counts"], serve_want)
     # checkpoints, states and the 512x512 PNGs: too large to bring back
     shutil.rmtree(opt.path.models)
     shutil.rmtree(opt.path.training_states)
@@ -750,9 +797,11 @@ def phase_train(seed: int) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def phase_train_branches(seed: int) -> None:
-    """One forward and backward of SwinIR-M in train mode (DropPath on, from
-    equal generators) through the kernel branch and the plain branch."""
+def train_branches(seed: int, network: str, label: str, kernel_env: dict,
+                   expect: dict[str, int], tag: str) -> None:
+    """One forward and backward of `network` in train mode (DropPath on, from
+    equal generators) through the kernel branch (`kernel_env`) and the plain
+    branch (TRAINNER_FUSED_ATTN=0); the kernel branch launches `expect`."""
     import copy
 
     import torch
@@ -760,14 +809,14 @@ def phase_train_branches(seed: int) -> None:
     from trainner_redux_tpu_torch.archs import build_network
     from trainner_redux_tpu_torch.models.sr_model import fp32_math
 
-    net = build_network({"type": "swinir_m", "scale": 4})
+    net = build_network({"type": network, "scale": 4})
     net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
     nets = {"kernel": net, "plain": copy.deepcopy(net)}
     gen = torch.Generator().manual_seed(seed + 1)
     x = torch.rand(TB, 3, TH, TW, generator=gen).cuda()
     gt = torch.rand(TB, 3, 4 * TH, 4 * TW, generator=gen).cuda()
     losses, grads, counts = {}, {}, {}
-    for branch, env in (("kernel", {}), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
+    for branch, env in (("kernel", kernel_env), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
         m = nets[branch]
         m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
         saved = {k: os.environ.get(k) for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN")}
@@ -792,16 +841,13 @@ def phase_train_branches(seed: int) -> None:
                     os.environ[k] = v
         losses[branch] = loss.item()
         grads[branch] = {k: p.grad for k, p in m.named_parameters()}
-        say(f"[train branches] {branch}: loss {losses[branch]:.6f}, forward and backward "
-            f"{secs * 1e3:.1f} ms (first call), launches {counts[branch]}")
-    if (counts["kernel"]["fused_swin_block_train"],
-            counts["kernel"]["fused_swin_block_train_backward"]) != (BLOCKS, BLOCKS):
-        fail(f"kernel branch launches {counts['kernel']}, expected {BLOCKS} + {BLOCKS}")
-    if any(counts["plain"].values()):
-        fail(f"plain branch launched kernels: {counts['plain']}")
+        say(f"[{tag}] {label} {branch} {env or ''}: loss {losses[branch]:.6f}, forward and "
+            f"backward {secs * 1e3:.1f} ms (first call), launches {counts[branch]}")
+    check_counts(f"{label} kernel branch", counts["kernel"], expect)
+    check_counts(f"{label} plain branch", counts["plain"], {})
     rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
     if not rel <= BRANCH_LOSS_TOL:
-        fail(f"training loss differs by {rel:.3g} (relative) between the branches")
+        fail(f"{label}: training loss differs by {rel:.3g} (relative) between the branches")
 
     def block_of(name: str) -> str:
         """`layers.i.residual_group.blocks.j` of a block parameter, else the name."""
@@ -815,14 +861,21 @@ def phase_train_branches(seed: int) -> None:
     for k, w in grads["plain"].items():
         g = grads["kernel"][k]
         if g is None or w is None:
-            fail(f"{k}: no gradient in one branch")
+            fail(f"{label} {k}: no gradient in one branch")
         ref = w.abs().max().item() or block_max[block_of(k)]  # a zero true gradient
         err = (g - w).abs().max().item()
         worst = max(worst, (err / ref, k))
         if not err <= BRANCH_GRAD_TOL * ref:
-            fail(f"gradient of {k} differs by {err:.3g} between the branches (ref {ref:.3g})")
-    say(f"[train branches] loss rel diff {rel:.3g} (tol {BRANCH_LOSS_TOL}); largest gradient "
+            fail(f"{label}: gradient of {k} differs by {err:.3g} between the branches "
+                 f"(ref {ref:.3g})")
+    say(f"[{tag}] {label}: loss rel diff {rel:.3g} (tol {BRANCH_LOSS_TOL}); largest gradient "
         f"diff {worst[0]:.3g} of its tensor's max, at {worst[1]} (tol {BRANCH_GRAD_TOL})")
+
+
+def phase_train_branches(seed: int) -> None:
+    train_branches(seed, "swinir_m", "SwinIR-M", {},
+                   {"fused_swin_block_train": BLOCKS, "fused_swin_block_train_backward": BLOCKS},
+                   "train branches")
 
 
 # ---------------------------------------------------------------------------
@@ -830,16 +883,17 @@ def phase_train_branches(seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_train_profile(seed: int) -> None:
-    """Device time by kernel of one SwinIR-M training step (batch 8, 64x64),
-    after two warm-up steps; the table goes to chip_smoke/profile_train.txt."""
+def phase_train_profile(seed: int, network: str = "swinir_m", tag: str = "train profile",
+                        file: str = "profile_train.txt") -> None:
+    """Device time by kernel of one training step of `network` (batch 8,
+    64x64), after two warm-up steps; the table goes to chip_smoke/`file`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from trainner_redux_tpu_torch.models import build_model
 
-    opt = train_options("swinir_m_x4_profile", OUT, OUT, seed)
+    opt = train_options(f"{network}_x4_profile", OUT, OUT, seed, network)
     model = build_model(opt, device="cuda")
     rng = np.random.default_rng(seed)
     batch = {"lq": rng.integers(0, 256, (TB, TH, TW, 3), dtype=np.uint8),
@@ -854,20 +908,231 @@ def phase_train_profile(seed: int) -> None:
         model.optimize_parameters(3)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     total = sum(e.self_device_time_total for e in events)
     if total == 0:
-        say("[train profile] the profiler recorded no device time")
+        say(f"[{tag}] the profiler recorded no device time")
         return
     OUT.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50)
-    (OUT / "profile_train.txt").write_text(table)
-    say(f"[train profile] device time per step {total / 1e3:.3f} ms over "
+    (OUT / file).write_text(table)
+    say(f"[{tag}] device time per step {total / 1e3:.3f} ms over "
         f"{sum(e.count for e in events)} kernel launches; step wall time under the "
         f"profiler {wall * 1e3:.1f} ms")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
-        say(f"[train profile]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
+        say(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
             f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# 11. hat kernels
+# ---------------------------------------------------------------------------
+
+
+def window_inputs(gen, kinds: int, ws: int, device):
+    """Seeded unit-scale qkv, kind table and output gradient of one window
+    attention at the training block (B=8, 64x64, C=180, 6 heads)."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    n = ws * ws
+    qkv = torch.randn(TB, TH, TW, 3 * C, generator=gen).to(device)
+    rel = (torch.randn(NH, n, n, generator=gen) * 0.5).to(device)
+    if kinds == 4:
+        rel = rel[None] + torch.from_numpy(shift_mask_kinds(ws, ws // 2)).to(device)[:, None]
+    else:
+        rel = rel[None]
+    dout = torch.randn(TB, TH, TW, C, generator=gen).to(device)
+    return qkv, rel.contiguous(), dout
+
+
+def sdpa_windows(qkv, bias, ws: int, kinds: int):
+    """(q, k, v, mask) of the windows as SDPA takes them: (B*nW, nh, n, hd)
+    each, the per-window bias as a float mask (B*nW, nh, n, n)."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    b, h, w, _ = qkv.shape
+    n = ws * ws
+    win = qkv.reshape(b, h // ws, ws, w // ws, ws, 3, NH, HD)
+    win = win.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, NH, n, HD).contiguous()
+    mask = bias[wa.window_kinds(h // ws, w // ws, kinds, qkv.device)].repeat(b, 1, 1, 1)
+    return win[0], win[1], win[2], mask
+
+
+def from_windows(t, b: int, h: int, w: int, ws: int):
+    """(B*nW, nh, n, hd) -> (B, H, W, nh*hd)."""
+    t = t.reshape(b, h // ws, w // ws, NH, ws, ws, HD)
+    return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, NH * HD)
+
+
+def phase_hat_kernels() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    T = TB * TH * TW
+    res: dict[str, dict] = {}
+
+    def record(name, kern, plain, lib, flops, nb, err, note="", kinds=4):
+        ms = time_ms(kern, iters=10, warmup=2)
+        plain_ms = time_ms(plain, iters=5, warmup=1)
+        lib_ms = time_ms(lib, iters=10, warmup=2) if lib is not None else None
+        bms, by = bound(flops, nb)
+        say(f"[hat kernels] {name} K={kinds}: max_abs_err {err:.3g}{note} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+            f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB)")
+        rec = res.setdefault(name, {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        # the times reported in the JSON line are the shifted (K=4) calls'
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+    for ws, kinds in ((16, 1), (16, 4), (8, 4)):
+        n = ws * ws
+        qkv, bias, dout = window_inputs(gen, kinds, ws, dev)
+        q, k, v, mask = sdpa_windows(qkv, bias, ws, kinds)
+
+        def fwd():
+            return wa.fused_window_mhsa(qkv, bias, NH, HD, ws)
+
+        def fwd_plain():
+            return wa.fused_window_mhsa_reference(qkv, bias, NH, HD, ws)
+
+        def bwd():
+            return wa.fused_window_mhsa_backward(qkv, bias, dout, NH, HD, ws)
+
+        def bwd_plain():
+            return wa.fused_window_mhsa_bwd_reference(qkv, bias, dout, NH, HD, ws)
+
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        gwin = dout.reshape(TB, TH // ws, ws, TW // ws, ws, NH, HD)
+        gwin = gwin.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, NH, n, HD).contiguous()
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        def lib_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            return torch.autograd.grad(out, (qg, kg, vg), gwin)
+
+        try:
+            with torch.no_grad():
+                got = fwd()
+            grads = bwd()
+            again = bwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"window attention ws {ws} K={kinds}: {e}")
+        want = fwd_plain()
+        fwd_err = (got - want).abs().max().item()
+        lib_err = (from_windows(lib_fwd(), TB, TH, TW, ws) - want).abs().max().item()
+        if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"fused_window_mhsa ws {ws} K={kinds} disagrees with its plain version: "
+                 f"{fwd_err:.3g}")
+        if lib_err > KERNEL_TOL:
+            fail(f"ws {ws} K={kinds}: the SDPA yardstick differs by {lib_err:.3g}")
+        plain = bwd_plain()
+        bwd_err, worst = 0.0, 0.0
+        for name, g, w in zip(("dqkv", "dbias"), grads, plain):
+            err, top = (g - w).abs().max().item(), w.abs().max().item()
+            bwd_err, worst = max(bwd_err, err), max(worst, err / top)
+            if g.shape != w.shape or not err <= GRAD_TOL * top:
+                fail(f"fused_window_mhsa_backward ws {ws} K={kinds}: {name} differs by "
+                     f"{err:.3g} (max |g| {top:.3g})")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"fused_window_mhsa_backward ws {ws} K={kinds}: two runs differ")
+        say(f"[hat kernels] ws {ws} K={kinds}: forward max_abs_err {fwd_err:.3g}, backward "
+            f"{bwd_err:.3g} ({worst:.3g} of its tensor's max |g|), two backward runs "
+            "bit-identical")
+        if ws == 8:
+            continue  # SwinIR's unfused branch: checked here, timed at ws 16 only
+        fwd_nb = nbytes(qkv, bias, got)
+        bwd_nb = nbytes(qkv, bias, dout, *grads)
+        record("fused_window_mhsa_ws16", fwd, fwd_plain, lib_fwd, 4 * T * n * C, fwd_nb,
+               fwd_err, kinds=kinds)
+        record("fused_window_mhsa_backward", bwd, bwd_plain, lib_fwd_bwd, 10 * T * n * C,
+               bwd_nb, bwd_err, f", largest error {worst:.3g} of its tensor's max |g|", kinds)
+
+    # the MLP half's backward (#7), DropPath scales holding 0 and 1/0.9
+    x, p, _, _ = block_inputs(gen, 1, dev, shape=(TB, TH, TW))
+    s = torch.full((TB,), 1.0 / 0.9, device=dev)
+    s[3] = 0.0
+    params = [p[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    dout = torch.randn(TB, TH, TW, C, generator=gen).to(dev)
+
+    def mlp_bwd():
+        return fb.fused_ln_mlp_backward(x, *params, s, dout, HWS)
+
+    def mlp_bwd_plain():
+        return fb.fused_ln_mlp_bwd_reference(x, *params, s, dout, HWS)
+
+    def mlp_fwd():
+        with torch.no_grad():
+            return fb.fused_ln_mlp(x, *params, s, HWS)
+
+    try:
+        out = mlp_fwd()
+        grads = mlp_bwd()
+        again = mlp_bwd()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"fused_ln_mlp / fused_ln_mlp_backward at 16-row strips: {e}")
+    # the forward (#2) at HAT's training block, as HAB and OCAB call it
+    fwd_err = (out - fb.fused_ln_mlp_reference(x, *params, s, HWS)).abs().max().item()
+    if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(out).all()):
+        fail(f"fused_ln_mlp at 16-row strips disagrees with its plain version: {fwd_err:.3g}")
+    say(f"[hat kernels] fused_ln_mlp at HAT-M's training block: max_abs_err {fwd_err:.3g} "
+        f"(tol {KERNEL_TOL}) kernel {time_ms(mlp_fwd, iters=10, warmup=2):.4f} ms")
+    plain = mlp_bwd_plain()
+    err, worst = 0.0, 0.0
+    for name, g, w in zip(("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2"), grads, plain):
+        e, top = (g - w).abs().max().item(), w.abs().max().item()
+        err, worst = max(err, e), max(worst, e / top)
+        if g.shape != w.shape or not e <= GRAD_TOL * top:
+            fail(f"fused_ln_mlp_backward: {name} differs by {e:.3g} (max |g| {top:.3g})")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail("fused_ln_mlp_backward: two runs differ")
+    record("fused_ln_mlp_backward", mlp_bwd, mlp_bwd_plain, None, 10 * T * C * HIDDEN,
+           nbytes(x, *params, s, dout, *grads), err,
+           f", largest error {worst:.3g} of its tensor's max |g|, two runs bit-identical", 1)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 12. hat path
+# ---------------------------------------------------------------------------
+
+
+def hat_serving_counts() -> dict[str, int]:
+    return {"fused_window_mhsa": HAT_BLOCKS * N_IMAGES, "fused_ln_mlp": HAT_MLPS * N_IMAGES}
+
+
+def phase_hat_path(seed: int) -> None:
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+
+    net = build_network({"type": "hat_m", "scale": 4})
+    net.init_weights(torch.Generator().manual_seed(seed))
+    weights = OUT / "hat_m_x4_seeded.pth"
+    torch.save(net.state_dict(), weights)
+    hr_dir, lr_dir = make_dataset(OUT / "data", seed)
+    served = serve("hat_m_x4", weights, hr_dir, lr_dir, seed, {}, "hat_m")
+    check_counts("HAT-M serving path", served["counts"], hat_serving_counts())
+    weights.unlink()
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
+    net = net.cuda().eval()
+    with torch.inference_mode():
+        out = net(x)
+        fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+    if out.shape != (1, 3, 512, 512) or not torch.isfinite(out).all():
+        fail(f"HAT-M forward: bad output {tuple(out.shape)}")
+    say(f"[hat path] HAT-M 4x forward of one 128x128 image {fwd_ms:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -887,9 +1152,24 @@ def main() -> None:
     phase_profile(args.seed)
     kernels.update(phase_train_kernels())
     train_counts = phase_train(args.seed)
-    launches.update({k: train_counts[k] for k in KERNELS[3:]})
+    launches.update({k: train_counts[k] for k in ("fused_swin_block_train",
+                                                  "fused_swin_block_train_backward")})
     phase_train_branches(args.seed)
     phase_train_profile(args.seed)
+    kernels.update(phase_hat_kernels())
+    phase_hat_path(args.seed)
+    hat_step = {"fused_window_mhsa": HAT_BLOCKS, "fused_window_mhsa_backward": HAT_BLOCKS,
+                "fused_ln_mlp": HAT_MLPS, "fused_ln_mlp_backward": HAT_MLPS}
+    hat_counts = phase_train(args.seed, "hat_m", "HAT-M", "hat train", hat_step,
+                             hat_serving_counts())
+    launches.update(fused_window_mhsa_ws16=hat_counts["fused_window_mhsa"],
+                    fused_window_mhsa_backward=hat_counts["fused_window_mhsa_backward"],
+                    fused_ln_mlp_backward=hat_counts["fused_ln_mlp_backward"])
+    train_branches(args.seed, "hat_m", "HAT-M", {}, hat_step, "hat train branches")
+    train_branches(args.seed, "swinir_m", "SwinIR-M unfused", {"TRAINNER_FUSED_BLOCK": "0"},
+                   {"fused_window_mhsa": BLOCKS, "fused_window_mhsa_backward": BLOCKS},
+                   "hat train branches")
+    phase_train_profile(args.seed, "hat_m", "hat train profile", "profile_hat_train.txt")
 
     records = []
     for name in KERNELS:

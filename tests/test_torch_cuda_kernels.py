@@ -8,9 +8,10 @@ one (here on the CPU they skip). On the card:
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks.)
 
 Shapes are SwinIR-M's (C=180, 6 heads of 30, window 8, hidden 360) at a
-64x96 map and batch 2, unit-scale fp32 inputs, tolerance 1e-4 (the kernels
-sum in another order than cuBLAS); the training kernels' gradients within
-1e-4 of each tensor's largest magnitude.
+64x96 map and batch 2, and HAT-M's 16x16 windows at the same widths,
+unit-scale fp32 inputs, tolerance 1e-4 (the kernels sum in another order
+than cuBLAS); the training kernels' gradients within 1e-4 of each tensor's
+largest magnitude.
 """
 
 import numpy as np
@@ -31,10 +32,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, kinds, seed=0):
+def _inputs(device, kinds, seed=0, ws=WS):
     from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
 
     gen = torch.Generator().manual_seed(seed)
+    n = ws * ws
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
@@ -50,9 +52,9 @@ def _inputs(device, kinds, seed=0):
         "g2": 1.0 + randn(C, scale=0.1), "be2": randn(C, scale=0.1),
         "s2": torch.tensor([0.0, 1.0 / 0.9], device=device),
     }
-    rel = randn(NH, N, N, scale=0.5)
+    rel = randn(NH, n, n, scale=0.5)
     if kinds == 4:
-        rel = rel[None] + torch.from_numpy(shift_mask_kinds(WS, WS // 2)).to(device)[:, None]
+        rel = rel[None] + torch.from_numpy(shift_mask_kinds(ws, ws // 2)).to(device)[:, None]
     else:
         rel = rel[None]
     p["bias"] = rel.contiguous()
@@ -134,7 +136,11 @@ def test_shared_memory_plans_match_the_sources(cuda):
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
         assert lib_fb.trr_attn_block_smem_bytes(c, nh) == fb.attn_block_smem_bytes(c, nh)
         assert lib_fb.trr_ln_mlp_smem_bytes(c, hidden) == fb.ln_mlp_smem_bytes(c, hidden)
-        assert lib_wa.trr_window_mhsa_smem_bytes(c, nh) == wa.window_mhsa_smem_bytes(c, nh)
+        for ws in (8, 16):
+            assert lib_wa.trr_window_mhsa_smem_bytes(c, nh, ws) == wa.window_mhsa_smem_bytes(
+                c, nh, ws)
+            assert lib_wa.trr_window_mhsa_bwd_smem_bytes(c, nh, ws) == (
+                wa.window_mhsa_bwd_smem_bytes(c, nh, ws))
         assert lib_tr.trr_bwd_tokens_smem_bytes(c, hidden) == fb.bwd_tokens_smem_bytes(c, hidden)
         assert lib_tr.trr_bwd_attn_smem_bytes(c, nh) == fb.bwd_attn_smem_bytes(c, nh)
         assert lib_tr.trr_bwd_ln1_smem_bytes(c) == fb.bwd_ln1_smem_bytes(c)
@@ -189,27 +195,109 @@ def test_swin_block_train_backward_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_forward_only_kernels_refuse_autograd(cuda):
-    """#1-#3 have no CUDA backward yet: under autograd they raise instead of
-    returning a tensor that carries no gradient; under no_grad they run."""
+    """#1 has no CUDA backward yet (#6): under autograd it raises instead of
+    returning a tensor that carries no gradient; under no_grad it runs."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
-    from trainner_redux_tpu_torch.ops import window_attention as wa
 
     p = _inputs(cuda, 1)
     wq = p["wq"].clone().requires_grad_()
     attn = [p[k] for k in ("x", "g", "be")] + [wq] + [p[k] for k in ("bq", "wp", "bp", "bias", "s")]
-    mlp = [p[k] for k in ("x", "g", "be")] + [p["w1"].clone().requires_grad_()] + [
-        p[k] for k in ("b1", "w2", "b2", "s")]
-    qkv = p["qkv"].clone().requires_grad_()
     with pytest.raises(RuntimeError, match="#6"):
         fb.fused_attn_block(*attn, NH, HD, WS)
-    with pytest.raises(RuntimeError, match="#7"):
-        fb.fused_ln_mlp(*mlp, WS)
-    with pytest.raises(RuntimeError, match="#8"):
-        wa.fused_window_mhsa(qkv, p["bias"], NH, HD, WS)
     with torch.no_grad():
         fb.fused_attn_block(*attn, NH, HD, WS)
-        fb.fused_ln_mlp(*mlp, WS)
-        wa.fused_window_mhsa(qkv, p["bias"], NH, HD, WS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [1, 4])
+def test_fused_window_mhsa_ws16_kernel(cuda, kinds):
+    """#3 at HAT's 16x16 windows (n = 256)."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    p = _inputs(cuda, kinds, ws=16)
+    n0 = wa.fused_window_mhsa.launches
+    got = wa.fused_window_mhsa(p["qkv"], p["bias"], NH, HD, 16)
+    torch.cuda.synchronize()
+    assert wa.fused_window_mhsa.launches == n0 + 1
+    want = wa.fused_window_mhsa_reference(p["qkv"], p["bias"], NH, HD, 16)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("ws", "kinds"), [(8, 1), (8, 4), (16, 1), (16, 4)])
+def test_fused_window_mhsa_backward_kernel(cuda, ws, kinds):
+    """#8 (dqkv and dbias) against its plain version."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    p = _inputs(cuda, kinds, ws=ws)
+    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    n0 = wa.fused_window_mhsa_backward.launches
+    got = wa.fused_window_mhsa_backward(p["qkv"], p["bias"], dout, NH, HD, ws)
+    torch.cuda.synchronize()
+    assert wa.fused_window_mhsa_backward.launches == n0 + 1
+    want = wa.fused_window_mhsa_bwd_reference(p["qkv"], p["bias"], dout, NH, HD, ws)
+    for name, g, w in zip(("dqkv", "dbias"), got, want):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_fused_window_mhsa_backward_is_deterministic(cuda):
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    p = _inputs(cuda, 4, ws=16)
+    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    runs = [wa.fused_window_mhsa_backward(p["qkv"], p["bias"], dout, NH, HD, 16) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_ln_mlp_backward_kernel(cuda):
+    """#7 (dx and the six parameter gradients) against its plain version,
+    also on a ragged last tile of tokens."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, 1)
+    params = [p[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    gen = torch.Generator().manual_seed(8)
+    for x, s in ((p["x"], p["s2"]), (torch.randn(1, 8, 12, C, generator=gen).to(cuda),
+                                     torch.ones(1, device=cuda))):
+        dout = torch.randn(x.shape, generator=gen).to(cuda)
+        n0 = fb.fused_ln_mlp_backward.launches
+        got = fb.fused_ln_mlp_backward(x, *params, s, dout, WS)
+        torch.cuda.synchronize()
+        assert fb.fused_ln_mlp_backward.launches == n0 + 1
+        want = fb.fused_ln_mlp_bwd_reference(x, *params, s, dout, WS)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape, i
+            assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), i
+
+
+@pytest.mark.cuda
+def test_window_and_mlp_kernels_carry_gradients(cuda):
+    """fused_window_mhsa (ws 16) and fused_ln_mlp under autograd on the card:
+    the kernels both ways, the gradients those of the plain versions."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    p = _inputs(cuda, 4, ws=16)
+    cases = {
+        "window": (lambda q, t: wa.fused_window_mhsa(q, t, NH, HD, 16),
+                   lambda q, t: wa.fused_window_mhsa_reference(q, t, NH, HD, 16),
+                   [p["qkv"], p["bias"]]),
+        "mlp": (lambda *a: fb.fused_ln_mlp(*a, p["s2"], WS),
+                lambda *a: fb.fused_ln_mlp_reference(*a, p["s2"], WS),
+                [p[k] for k in ("x", "g", "be", "w1", "b1", "w2", "b2")]),
+    }
+    for name, (kern, plain, ops) in cases.items():
+        grads = []
+        for fn in (kern, plain):
+            leaves = [t.clone().requires_grad_() for t in ops]
+            out = fn(*leaves)
+            grads.append(torch.autograd.grad(out.square().sum(), leaves))
+        for i, (g, w) in enumerate(zip(*grads)):
+            assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), (name, i)
 
 
 @pytest.mark.cuda

@@ -4,9 +4,12 @@ versions.
 
 Same inputs from a numpy seed through both: B=2, 16x24, C=24 (3 heads of
 8), hidden 48, window 8, DropPath scales s = [1.0, 0.8]. Tolerance 3e-5,
-that of the JAX package's own fused-block tests.
+that of the JAX package's own fused-block tests. The MLP half's backward
+(TPU kernel #7) against `jax.vjp` of the JAX kernel, within 1e-4 of each
+gradient's largest magnitude.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,3 +108,37 @@ def test_shared_memory_plans_at_swinir_m():
     # SwinIR-L (C=240, 8 heads, hidden 480) fits too
     assert tfb.attn_block_smem_bytes(240, 8) <= tfb.SMEM_LIMIT
     assert tfb.ln_mlp_smem_bytes(240, 480) <= tfb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("scales", [[1.0, 0.8], [0.0, 1.0 / 0.9]])
+def test_fused_ln_mlp_backward_matches_jax_vjp(scales):
+    p = _params(np.random.default_rng(7))
+    s = np.asarray(scales, np.float32)
+    names = ("x", "g", "be", "w1", "b1", "w2", "b2")
+    dout = np.random.default_rng(8).standard_normal((B, HH, WW, C)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jfb.fused_ln_mlp(*a, jnp.asarray(s), WS, 1e-5, True),
+                     *(jnp.asarray(p[k]) for k in names))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    launches = tfb.fused_ln_mlp_backward.launches
+    direct = tfb.fused_ln_mlp_backward(*(torch.from_numpy(p[k]) for k in names),
+                                       torch.from_numpy(s), torch.from_numpy(dout), WS, 1e-5)
+    assert tfb.fused_ln_mlp_backward.launches == launches  # CPU: the plain version
+    ops = [torch.from_numpy(p[k]).requires_grad_() for k in names]
+    tfb.fused_ln_mlp(*ops, torch.from_numpy(s), WS, 1e-5).backward(torch.from_numpy(dout))
+    for got in (direct, [t.grad for t in ops]):
+        for name, g, w in zip(("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2"), got, want):
+            assert g.shape == w.shape, name
+            err = np.abs(g.detach().numpy() - w).max()
+            assert err <= 1e-4 * np.abs(w).max(), f"{name}: {err:.3g} of {np.abs(w).max():.3g}"
+
+
+def test_fused_mlp_gate(monkeypatch):
+    monkeypatch.delenv("TRAINNER_FUSED_BLOCK", raising=False)
+    monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+    assert tfb.fused_mlp_supported(64, 64, 16, 180, 360, train=True)  # HAT-M
+    assert tfb.fused_mlp_supported(64, 64, 8, 240, 480)  # SwinIR-L widths serve...
+    assert not tfb.fused_mlp_supported(64, 64, 8, 240, 480, train=True)  # ...not train
+    assert not tfb.fused_mlp_supported(60, 64, 16, 180, 360)  # H not a multiple of rows
+    monkeypatch.setenv("TRAINNER_FUSED_BLOCK", "0")
+    assert not tfb.fused_mlp_supported(64, 64, 16, 180, 360)

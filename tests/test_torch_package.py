@@ -104,6 +104,19 @@ def test_swinir_test_templates_build(preset):
     assert sum(p.numel() for p in net.parameters()) > 0
 
 
+@pytest.mark.parametrize("preset", ["hat", "hat_s", "hat_m", "hat_l"])
+def test_hat_test_templates_build(preset):
+    """The repo's HAT test templates decode strictly and build in the port."""
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.utils.options import yaml_load
+
+    templates = REPO / "configs" / "_templates" / "test" / "HAT"
+    opt, _ = yaml_load(str(templates / f"{preset}_test.yml"))
+    net = build_network({**opt.network_g, "scale": opt.scale})
+    assert net.upscale == opt.scale
+    assert sum(p.numel() for p in net.parameters()) > 0
+
+
 def _attn_args(device):
     rng = np.random.default_rng(0)
     b, h, w, nh, hd, ws = 1, 8, 8, 2, 8, 8

@@ -418,6 +418,43 @@ def test_train_mode_routes_to_the_train_block(monkeypatch):
     assert calls == {"train": 4, "attn": 4, "mlp": 4}
 
 
+def test_train_mode_takes_the_unfused_branch_when_the_train_kernels_do_not_fit(monkeypatch):
+    """A block too large for the training kernels (SwinIR-L's C 240, hidden
+    480 on the card) trains on the unfused branch, through the window
+    kernel's wrapper, instead of raising; eval keeps the serving kernels."""
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.archs import swinir_arch
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    monkeypatch.delenv("TRAINNER_FUSED_BLOCK", raising=False)
+    monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+    assert not fb.swin_block_train_fits(64, 64, 8, 240, 8, 480)  # SwinIR-L
+    calls = {"train": 0, "window": 0, "attn": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(swinir_arch, "swin_block_train_fits", lambda *a: False)
+    monkeypatch.setattr(swinir_arch, "fused_swin_block_train",
+                        counting("train", fb.fused_swin_block_train))
+    monkeypatch.setattr(swinir_arch, "fused_window_mhsa", counting("window", wa.fused_window_mhsa))
+    monkeypatch.setattr(swinir_arch, "fused_attn_block", counting("attn", fb.fused_attn_block))
+    net = build_network({**NET, "scale": 2}).init_weights(torch.Generator().manual_seed(0))
+    x = torch.rand(1, 3, 16, 16)
+    net.train()
+    net(x).mean().backward()
+    assert calls == {"train": 0, "window": 4, "attn": 0}
+    assert all(p.grad is not None for p in net.parameters())
+    net.eval()
+    with torch.no_grad():
+        net(x)
+    assert calls == {"train": 0, "window": 4, "attn": 4}
+
+
 def test_droppath_draws_from_the_model_generator_only(dataset, tmp_path):
     from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
     from trainner_redux_tpu_torch.models import build_model

@@ -1,13 +1,14 @@
 """Architectures of the port: registration + build_network.
 
 Parity: the JAX package's archs/__init__.py, without its directory scan:
-only the ported archs (SwinIR) are imported and registered.
+only the ported archs (SwinIR, HAT) are imported and registered.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from trainner_redux_tpu_torch.archs import hat_arch  # noqa: F401 (registers hat*)
 from trainner_redux_tpu_torch.archs import swinir_arch  # noqa: F401 (registers swinir_*)
 from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY
 

@@ -14,14 +14,14 @@ chosen as in the JAX package:
 - fused (default): in training `fused_swin_block_train`, the whole block
   as one autograd Function with kernels both ways; at eval
   `fused_attn_block` then `fused_ln_mlp`, two forward-only kernels;
-- unfused (`TRAINNER_FUSED_BLOCK=0`): LayerNorms, Linears and MLP in
-  PyTorch around the forward-only `fused_window_mhsa` kernel;
+- unfused (`TRAINNER_FUSED_BLOCK=0`, and in training any block too large
+  for the training kernels, as SwinIR-L's): LayerNorms, Linears and MLP in
+  PyTorch around `fused_window_mhsa`, whose kernels run both ways;
 - plain (`TRAINNER_FUSED_ATTN=0`): window partition and PyTorch attention
   with the per-window mask, no kernel at all.
 
 On the CPU the kernel wrappers run their plain versions, so all three
-branches run anywhere; on the card the forward-only kernels refuse autograd,
-so the unfused branch does not train there.
+branches run anywhere.
 
 DropPath draws its masks from the `generator` attribute of each SwinBlock,
 which the model sets (`set_dropout_generator`); torch's global generator is
@@ -48,6 +48,7 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     fused_block_supported,
     fused_ln_mlp,
     fused_swin_block_train,
+    swin_block_train_fits,
 )
 from trainner_redux_tpu_torch.ops.window_attention import (
     fused_window_mhsa,
@@ -147,6 +148,16 @@ class WindowAttention(nn.Module):
         return self.proj(out)
 
 
+def bias_kinds(attn: WindowAttention, mask_kinds: torch.Tensor | None,
+               shift: int) -> torch.Tensor:
+    """(K, nh, n, n) kind table of `attn`'s relative-position bias: K=4 with
+    the shift masks (kind, n, n) added, else K=1."""
+    bias = attn.position_bias()
+    if shift > 0:
+        return (bias[None] + mask_kinds[:, None]).contiguous()
+    return bias[None].contiguous()
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int) -> None:
         super().__init__()
@@ -178,13 +189,6 @@ class SwinBlock(nn.Module):
         )
         self.generator: torch.Generator | None = None  # DropPath masks; see the module doc
 
-    def bias_kinds(self, shift: int) -> torch.Tensor:
-        """(K, nh, n, n) kind table: K=4 with the shift masks, else K=1."""
-        bias = self.attn.position_bias()
-        if shift > 0:
-            return (bias[None] + self.mask_kinds[:, None]).contiguous()
-        return bias[None].contiguous()
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, H, W, C) contiguous; H, W multiples of window_size
         b, h, w, c = x.shape
@@ -194,15 +198,22 @@ class SwinBlock(nn.Module):
         s1 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
         s2 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
 
-        if self.qk_scale is None and fused_block_supported(h, w, ws, c, self.num_heads, hidden):
+        fused = self.qk_scale is None and fused_block_supported(
+            h, w, ws, c, self.num_heads, hidden)
+        if fused and self.training:
+            # a block too large for the training kernels trains on the
+            # unfused branch, which computes the same function
+            fused = swin_block_train_fits(h, w, ws, c, self.num_heads, hidden)
+        if fused:
             # the kernels take (in, out) weights; the attention kernels read
             # the rolled windows and write their outputs unrolled
+            bias = bias_kinds(self.attn, self.mask_kinds, shift)
             if self.training:
                 return fused_swin_block_train(
                     x.contiguous(), self.norm1.weight, self.norm1.bias,
                     self.attn.qkv.weight.t().contiguous(), _bias_or_zeros(self.attn.qkv),
                     self.attn.proj.weight.t().contiguous(), self.attn.proj.bias,
-                    self.bias_kinds(shift), self.norm2.weight, self.norm2.bias,
+                    bias, self.norm2.weight, self.norm2.bias,
                     self.mlp.fc1.weight.t().contiguous(), self.mlp.fc1.bias,
                     self.mlp.fc2.weight.t().contiguous(), self.mlp.fc2.bias, s1, s2,
                     self.num_heads, self.attn.head_dim, ws, 1e-5, shift=shift,
@@ -211,7 +222,7 @@ class SwinBlock(nn.Module):
                 x.contiguous(), self.norm1.weight, self.norm1.bias,
                 self.attn.qkv.weight.t().contiguous(), _bias_or_zeros(self.attn.qkv),
                 self.attn.proj.weight.t().contiguous(), self.attn.proj.bias,
-                self.bias_kinds(shift), s1, self.num_heads, self.attn.head_dim, ws, 1e-5,
+                bias, s1, self.num_heads, self.attn.head_dim, ws, 1e-5,
                 shift=shift,
             )
             return fused_ln_mlp(
@@ -226,9 +237,8 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
         if self.qk_scale is None and fused_window_mhsa_supported(h, w, ws, c, self.num_heads):
             qkv = self.attn.qkv(x).contiguous()
-            out = fused_window_mhsa(
-                qkv, self.bias_kinds(shift), self.num_heads, self.attn.head_dim, ws
-            )
+            out = fused_window_mhsa(qkv, bias_kinds(self.attn, self.mask_kinds, shift),
+                                    self.num_heads, self.attn.head_dim, ws)
             x = self.attn.proj(out)
         else:
             mask = _attn_mask(h, w, ws, shift)
@@ -298,9 +308,9 @@ class PatchEmbedNorm(nn.Module):
     """Holds upstream's `patch_embed.norm` (the patch embedding itself is a
     flatten, which NHWC tokens make free)."""
 
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, eps: float = 1e-6) -> None:
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.norm = nn.LayerNorm(dim, eps=eps)
 
 
 class SwinIR(nn.Module):
@@ -375,27 +385,8 @@ class SwinIR(nn.Module):
             if isinstance(m, SwinBlock):
                 m.generator = generator
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> SwinIR:
-        """Draw every parameter from `generator` with upstream SwinIR's
-        scheme (Linear weights and bias tables trunc-normal 0.02, zero Linear
-        biases, LayerNorm ones and zeros) and torch's default conv init."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.LayerNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.Conv2d):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
-            elif isinstance(m, WindowAttention):
-                nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
-                                      generator=generator)
-        return self
+        return init_transformer_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale)."""
@@ -439,6 +430,29 @@ class SwinIR(nn.Module):
         if out.shape[1] == 3:
             out = out / self.img_range + self.mean
         return out[:, :, : in_h * self.upscale, : in_w * self.upscale].float()
+
+
+@torch.no_grad()
+def init_transformer_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of `net` from `generator` with upstream SwinIR's
+    and HAT's scheme (Linear weights and relative-position bias tables
+    trunc-normal 0.02, zero Linear biases, LayerNorm ones and zeros) and
+    torch's default conv init; returns `net`."""
+    for m in net.modules():
+        if isinstance(m, nn.Linear):
+            nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+        if isinstance(getattr(m, "relative_position_bias_table", None), nn.Parameter):
+            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, generator=generator)
+    return net
 
 
 def _swinir_factory(**defaults):

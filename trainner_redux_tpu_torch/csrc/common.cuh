@@ -270,4 +270,34 @@ __device__ __forceinline__ int window_kind(int kinds, int wi, int wj, int nwh, i
   return kinds == 1 ? 0 : 2 * (wi == nwh - 1) + (wj == nww - 1);
 }
 
+// dbias[kind][h] = the sum of dS over the windows of that kind, windows in
+// order; dS (B, nwh, nww, nh, nn) with nn = n * n entries per window and
+// head. One thread per (head, entry): no atomics, the same sums every run.
+__global__ void __launch_bounds__(kThreads)
+    dbias_kernel(const float* __restrict__ dS, int B, int nwh, int nww, int nh, int kinds,
+                 int nn, float* __restrict__ dbias) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)nh * nn) return;
+  const int h = (int)(idx / nn), e = (int)(idx % nn);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int b = 0; b < B; ++b)
+    for (int wi = 0; wi < nwh; ++wi)
+      for (int wj = 0; wj < nww; ++wj) {
+        const float v = __ldg(dS + ((((size_t)b * nwh + wi) * nww + wj) * nh + h) * nn + e);
+        const int kind = window_kind(kinds, wi, wj, nwh, nww);
+        if (kind == 0) acc[0] += v;
+        else if (kind == 1) acc[1] += v;
+        else if (kind == 2) acc[2] += v;
+        else acc[3] += v;
+      }
+  for (int kind = 0; kind < kinds; ++kind) dbias[((size_t)kind * nh + h) * nn + e] = acc[kind];
+}
+
+inline cudaError_t launch_dbias(const float* dS, int B, int nwh, int nww, int nh, int kinds,
+                                int nn, float* dbias, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)(((long long)nh * nn + kThreads - 1) / kThreads);
+  dbias_kernel<<<blocks, kThreads, 0, stream>>>(dS, B, nwh, nww, nh, kinds, nn, dbias);
+  return cudaGetLastError();
+}
+
 }  // namespace trr

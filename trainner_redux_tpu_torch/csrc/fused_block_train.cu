@@ -9,7 +9,9 @@
 //       output) and z;
 //   backward (_swin_block_bwd_kernel, pallas_call at :1441): dx and the
 //       gradients of LN1, qkv, proj, the bias-kind table, LN2, fc1 and fc2
-//       from the saved P, att and z, recomputing LN1, qkv, LN2 and fc1.
+//       from the saved P, att and z, recomputing LN1, qkv, LN2 and fc1;
+// and the backward of fused_ln_mlp alone (_mlp_bwd_kernel, pallas_call at
+// :415): dx and the gradients of LN, fc1 and fc2, recomputing LN and fc1.
 //
 // The forward is the attention-half kernel of block_fwd.cuh told to write P
 // and att, then the MLP-half kernel: two launches, one call.
@@ -36,6 +38,10 @@
 //      partial sums that sum_rows_kernel adds in a fixed order; the LN
 //      parameter partials of 1 and 3 and the per-window dS reduce the same
 //      way. No atomics: two runs give the same gradients bit for bit.
+// fused_ln_mlp's backward is step 1's MLP half (mlp_bwd_tile, from x and
+// with dx = dout + LN'(dy)) in ln_mlp_bwd_tokens_kernel, then step 4 for
+// dw2 and dw1: 21 GFLOP at HAT-M's 32,768 training tokens, bound by fp32
+// arithmetic as the whole block's backward is.
 // Every product runs on the fp32 FMA units; the tensor cores are later work.
 #include "block_fwd.cuh"
 
@@ -60,38 +66,27 @@ __host__ __device__ inline int bwd_attn_smem_floats(int C, int nh) {
 }
 __host__ __device__ inline int bwd_ln1_smem_floats(int C) { return 4 * C * kTLd + kStageFloats; }
 
-// One block per 64 consecutive tokens. w1 (C, hidden) as in the forward;
-// w1t (hidden, C), w2t (C, hidden) and wpt (C, C) are the transposes of w1,
-// w2 and wp. Writes, per token: y = LN1(x), its mean and 1/std (stats1),
-// y2 = LN2(z), hg = gelu(h), dm = s2 dout, dh, dz, dzp = s1 dz, datt; and
-// per block the partial sums of dg2 (first C) and dbe2 (next C).
-__global__ void __launch_bounds__(kThreads, 1)
-    block_bwd_tokens_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                            const float* __restrict__ dout, const float* __restrict__ g1,
-                            const float* __restrict__ be1, const float* __restrict__ g2,
-                            const float* __restrict__ be2, const float* __restrict__ w1,
-                            const float* __restrict__ b1, const float* __restrict__ w1t,
-                            const float* __restrict__ w2t, const float* __restrict__ wpt,
-                            const float* __restrict__ s1, const float* __restrict__ s2,
-                            float* __restrict__ y, float* __restrict__ stats1,
-                            float* __restrict__ y2, float* __restrict__ hg,
-                            float* __restrict__ dm, float* __restrict__ dh,
-                            float* __restrict__ dz, float* __restrict__ dzp,
-                            float* __restrict__ datt, float* __restrict__ ln2_part,
-                            long long tokens, long long hw, int C, int hidden, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
+// The MLP half's backward on the M <= 64 tokens t0.. of one block, from
+// the half's input rows xin (T, C): recompute y2 = LN(xin), h = y2 w1 + b1
+// and gelu(h); then dm = s2[b] dout, dh = (dm w2^T) gelu'(h), dy2 = dh w1^T
+// and the LN backward dx = dout + LN'(dy2). w1t (hidden, C) and w2t
+// (C, hidden) are the transposes of w1 and w2. Writes, per token, y2, hg =
+// gelu(h), dm, dh and dx; per block the partial sums of dg (first C) and
+// dbe (next C) to ln_part. When dxs is not null, s1[b] dx goes to dxs and
+// to T1 as well, for the attention half's backward.
+// Tiles: T1, T3 (C, 64) and T2 (hidden, 64) transposed, Bs the weight
+// stage, st the LN stats (2 * 64).
+__device__ __forceinline__ void mlp_bwd_tile(
+    const float* __restrict__ xin, const float* __restrict__ dout, const float* __restrict__ g2,
+    const float* __restrict__ be2, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w1t, const float* __restrict__ w2t, const float* __restrict__ s2,
+    const float* __restrict__ s1, float* __restrict__ y2, float* __restrict__ hg,
+    float* __restrict__ dm, float* __restrict__ dh, float* __restrict__ dx,
+    float* __restrict__ dxs, float* __restrict__ ln_part, long long t0, int M, long long hw,
+    int C, int hidden, float eps, float* T1, float* T2, float* T3, float* Bs, float* st) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* T1 = smem;                  // (C, 64): y2, then s1 dz
-  float* T2 = T1 + C * kTLd;         // (hidden, 64): h, then dh, then xn2; LN scratch
-  float* T3 = T2 + hidden * kTLd;    // (C, 64): dm, then dy2, then y
-  float* Bs = T3 + C * kTLd;         // weight stage
-  float* st2 = Bs + kStageFloats;    // LN2 mean and 1/std of each row
-  float* st1 = st2 + 2 * kTile;      // LN1 mean and 1/std of each row
-
-  // y2 = LN2(z)
-  layernorm_t([&](int r) { return z + (t0 + r) * C; }, M, C, g2, be2, eps, T2, st2, T1);
+  // y2 = LN(xin)
+  layernorm_t([&](int r) { return xin + (t0 + r) * C; }, M, C, g2, be2, eps, T2, st, T1);
   __syncthreads();
   for (int e = threadIdx.x; e < M * C; e += kThreads) {
     const int r = e / C, c = e % C;
@@ -138,14 +133,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                      make_float4(o[0], o[1], o[2], o[3]);
                });
   __syncthreads();
-  // LN2 backward, one warp per row: dz = dout + inv (dy2 g2 - mean(dy2 g2)
-  // - xn2 mean(dy2 g2 xn2)); xn2 kept for the dg2 partials
+  // LN backward, one warp per row: dx = dout + inv (dy2 g2 - mean(dy2 g2)
+  // - xn2 mean(dy2 g2 xn2)); xn2 kept for the dg partials
   for (int r = warp; r < M; r += kWarps) {
     const long long t = t0 + r;
-    const float mean = st2[r], inv = st2[kTile + r];
+    const float mean = st[r], inv = st[kTile + r];
     float a = 0.f, bsum = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float xn = (__ldg(z + t * C + c) - mean) * inv;
+      const float xn = (__ldg(xin + t * C + c) - mean) * inv;
       T2[c * kTLd + r] = xn;
       const float dxh = T3[c * kTLd + r] * __ldg(g2 + c);
       a += dxh;
@@ -153,14 +148,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     a = warp_sum(a) / C;
     bsum = warp_sum(bsum) / C;
-    const float sb = __ldg(s1 + t / hw);
+    const float sb = dxs != nullptr ? __ldg(s1 + t / hw) : 0.f;
     for (int c = lane; c < C; c += 32) {
       const float xn = T2[c * kTLd + r];
       const float dxh = T3[c * kTLd + r] * __ldg(g2 + c);
       const float d = __ldg(dout + t * C + c) + inv * (dxh - a - xn * bsum);
-      dz[t * C + c] = d;
-      dzp[t * C + c] = sb * d;
-      T1[c * kTLd + r] = sb * d;
+      dx[t * C + c] = d;
+      if (dxs != nullptr) {
+        dxs[t * C + c] = sb * d;
+        T1[c * kTLd + r] = sb * d;
+      }
     }
   }
   __syncthreads();
@@ -171,9 +168,42 @@ __global__ void __launch_bounds__(kThreads, 1)
       dg = fmaf(d, T2[c * kTLd + r], dg);
       db += d;
     }
-    ln2_part[(size_t)blockIdx.x * 2 * C + c] = dg;
-    ln2_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
+    ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
+    ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
   }
+}
+
+// One block per 64 consecutive tokens. w1 (C, hidden) as in the forward;
+// w1t (hidden, C), w2t (C, hidden) and wpt (C, C) are the transposes of w1,
+// w2 and wp. Writes, per token: y = LN1(x), its mean and 1/std (stats1),
+// y2 = LN2(z), hg = gelu(h), dm = s2 dout, dh, dz, dzp = s1 dz, datt; and
+// per block the partial sums of dg2 (first C) and dbe2 (next C).
+__global__ void __launch_bounds__(kThreads, 1)
+    block_bwd_tokens_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                            const float* __restrict__ dout, const float* __restrict__ g1,
+                            const float* __restrict__ be1, const float* __restrict__ g2,
+                            const float* __restrict__ be2, const float* __restrict__ w1,
+                            const float* __restrict__ b1, const float* __restrict__ w1t,
+                            const float* __restrict__ w2t, const float* __restrict__ wpt,
+                            const float* __restrict__ s1, const float* __restrict__ s2,
+                            float* __restrict__ y, float* __restrict__ stats1,
+                            float* __restrict__ y2, float* __restrict__ hg,
+                            float* __restrict__ dm, float* __restrict__ dh,
+                            float* __restrict__ dz, float* __restrict__ dzp,
+                            float* __restrict__ datt, float* __restrict__ ln2_part,
+                            long long tokens, long long hw, int C, int hidden, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const int M = (int)min((long long)kTile, tokens - t0);
+  float* T1 = smem;                  // (C, 64): y2, then s1 dz
+  float* T2 = T1 + C * kTLd;         // (hidden, 64): h, then dh, then xn2; LN scratch
+  float* T3 = T2 + hidden * kTLd;    // (C, 64): dm, then dy2, then y
+  float* Bs = T3 + C * kTLd;         // weight stage
+  float* st2 = Bs + kStageFloats;    // LN2 mean and 1/std of each row
+  float* st1 = st2 + 2 * kTile;      // LN1 mean and 1/std of each row
+
+  mlp_bwd_tile(z, dout, g2, be2, w1, b1, w1t, w2t, s2, s1, y2, hg, dm, dh, dz, dzp, ln2_part,
+               t0, M, hw, C, hidden, eps, T1, T2, T3, Bs, st2);
   // datt = dzp wp^T
   gemm_weights(T1, C, wpt, C, C, [](int c) { return c; }, Bs,
                [&](int r0, int c, const float* o) {
@@ -192,6 +222,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     stats1[(t0 + r) * 2] = st1[r];
     stats1[(t0 + r) * 2 + 1] = st1[kTile + r];
   }
+}
+
+// The backward of fused_ln_mlp alone (TPU kernel #7), per 64 consecutive
+// tokens: the MLP half of block_bwd_tokens_kernel from x, with dx = dout +
+// LN'(dy). Writes y = LN(x), hg, dm, dh and dx per token and the dg / dbe
+// partial sums per block; the weight gradients come from weight_grad_kernel.
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_mlp_bwd_tokens_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+                             const float* __restrict__ g, const float* __restrict__ be,
+                             const float* __restrict__ w1, const float* __restrict__ b1,
+                             const float* __restrict__ w1t, const float* __restrict__ w2t,
+                             const float* __restrict__ s, float* __restrict__ y,
+                             float* __restrict__ hg, float* __restrict__ dm,
+                             float* __restrict__ dh, float* __restrict__ dx,
+                             float* __restrict__ ln_part, long long tokens, long long hw, int C,
+                             int hidden, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const int M = (int)min((long long)kTile, tokens - t0);
+  float* T1 = smem;
+  float* T2 = T1 + C * kTLd;
+  float* T3 = T2 + hidden * kTLd;
+  float* Bs = T3 + C * kTLd;
+  float* st = Bs + kStageFloats;
+  mlp_bwd_tile(x, dout, g, be, w1, b1, w1t, w2t, s, nullptr, y, hg, dm, dh, dx, nullptr, ln_part,
+               t0, M, hw, C, hidden, eps, T1, T2, T3, Bs, st);
 }
 
 // One block per 8x8 window of the map rolled by (-shift, -shift), as in the
@@ -485,29 +541,6 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = acc;
 }
 
-// dbias[kind][h] = the sum of dS over the windows of that kind, windows in
-// order; dS shaped as P (B, nwh, nww, nh, 64, 64).
-__global__ void __launch_bounds__(kThreads)
-    dbias_kernel(const float* __restrict__ dS, int B, int nwh, int nww, int nh, int kinds,
-                 float* __restrict__ dbias) {
-  constexpr int kN = kTile * kTile;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= nh * kN) return;
-  const int h = idx / kN, e = idx % kN;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b = 0; b < B; ++b)
-    for (int wi = 0; wi < nwh; ++wi)
-      for (int wj = 0; wj < nww; ++wj) {
-        const float v = __ldg(dS + ((((size_t)b * nwh + wi) * nww + wj) * nh + h) * kN + e);
-        const int kind = window_kind(kinds, wi, wj, nwh, nww);
-        if (kind == 0) acc[0] += v;
-        else if (kind == 1) acc[1] += v;
-        else if (kind == 2) acc[2] += v;
-        else acc[3] += v;
-      }
-  for (int kind = 0; kind < kinds; ++kind) dbias[((size_t)kind * nh + h) * kN + e] = acc[kind];
-}
-
 template <class Kernel>
 cudaError_t set_smem(Kernel kernel, int floats) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -561,6 +594,26 @@ int trr_block_bwd_tokens(const float* x, const float* z, const float* dout, cons
   return (int)cudaGetLastError();
 }
 
+// The backward of fused_ln_mlp: x, dout, dx (B, H, W, C); g, be (C);
+// w1 (C, hidden), b1 (hidden) and the transposes w1t (hidden, C), w2t
+// (C, hidden); s (B). Writes y, dm (T, C), hg, dh (T, hidden), dx and
+// ln_part (ceil(T / 64), 2C).
+int trr_ln_mlp_bwd_tokens(const float* x, const float* dout, const float* g, const float* be,
+                          const float* w1, const float* b1, const float* w1t, const float* w2t,
+                          const float* s, float* y, float* hg, float* dm, float* dh, float* dx,
+                          float* ln_part, int B, int H, int W, int C, int hidden, float eps,
+                          cudaStream_t stream) {
+  const int floats = trr::bwd_tokens_smem_floats(C, hidden);
+  const cudaError_t err = trr::set_smem(trr::ln_mlp_bwd_tokens_kernel, floats);
+  if (err != cudaSuccess) return (int)err;
+  const long long tokens = (long long)B * H * W;
+  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
+  trr::ln_mlp_bwd_tokens_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
+      x, dout, g, be, w1, b1, w1t, w2t, s, y, hg, dm, dh, dx, ln_part, tokens, (long long)H * W,
+      C, hidden, eps);
+  return (int)cudaGetLastError();
+}
+
 int trr_block_bwd_attn(const float* y, const float* wq, const float* bq, const float* P,
                        const float* datt, float* dqkv, float* dS, int B, int H, int W, int C,
                        int nh, int shift, float scale, cudaStream_t stream) {
@@ -603,10 +656,8 @@ int trr_sum_rows(const float* part, int S, int L, float* out, cudaStream_t strea
 
 int trr_dbias(const float* dS, int B, int nwh, int nww, int nh, int kinds, float* dbias,
               cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((nh * trr::kTile * trr::kTile + trr::kThreads - 1) /
-                                     trr::kThreads);
-  trr::dbias_kernel<<<blocks, trr::kThreads, 0, stream>>>(dS, B, nwh, nww, nh, kinds, dbias);
-  return (int)cudaGetLastError();
+  return (int)trr::launch_dbias(dS, B, nwh, nww, nh, kinds, trr::kTile * trr::kTile, dbias,
+                                stream);
 }
 
 }  // extern "C"

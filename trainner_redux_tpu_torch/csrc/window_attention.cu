@@ -1,28 +1,83 @@
-// Shifted-window multi-head self-attention from packed qkv, forward, fp32,
-// for sm_90a.
+// Shifted-window multi-head self-attention from packed qkv, forward and
+// backward, fp32, for sm_90a.
 //
-// Replaces the JAX package's Pallas TPU kernel fused_window_mhsa
-// (_fwd_kernel) in trainner_redux_tpu/ops/pallas/window_attention.py:
-//   out (B, H, W, C) = window-MHSA(qkv (B, H, W, 3C), bias kinds (K, nh, 64, 64))
-// with qkv's channels grouped [q | k | v] and heads contiguous in each.
+// Replaces the JAX package's Pallas TPU kernels of fused_window_mhsa in
+// trainner_redux_tpu/ops/pallas/window_attention.py:
+//   forward  (_fwd_kernel, pallas_call at :337):
+//       out (B, H, W, C) = window-MHSA(qkv (B, H, W, 3C), bias kinds (K, nh, n, n))
+//   backward (_bwd_kernel, pallas_call at :371): dqkv (B, H, W, 3C) and
+//       dbias (K, nh, n, n), the softmax recomputed from qkv and the bias
+// with qkv's channels grouped [q | k | v] and heads contiguous in each, and
+// n = ws * ws tokens per window: ws 8 (n 64, SwinIR) or ws 16 (n 256, HAT).
 //
-// What bounds it on the card: device memory. At SwinIR-M widths the
-// attention does 0.76 GFLOP at 16,384 tokens against 47 MB moved (qkv in,
-// out back), under the card's fp32 ridge point. The design reads each qkv
-// value once and writes each output once: one thread block per (8x8
-// window, head) stages that head's q, k (transposed) and v in shared
-// memory, builds the 64x64 scores with the bias of the window's kind there,
-// takes the row softmax and writes P v straight to the output. Nothing of
-// size 64x64 reaches device memory, the (K, nh, 64, 64) kind table stays in
-// L2, and a block needs 42 KB of shared memory, so several blocks share an
-// SM and hide each other's load latency.
+// What bounds them on the card. The ws-8 forward is bound by device memory:
+// at SwinIR-M widths it does 0.76 GFLOP at 16,384 tokens against 47 MB moved
+// (qkv in, out back). At ws 16 the work per token is four times larger and
+// the forward (6 GFLOP at 32,768 tokens against 100 MB) and the backward
+// (15 GFLOP against 180 MB) are bound by fp32 arithmetic. The designs read
+// each qkv value once and keep every n x n tile on chip, so device memory
+// sees nothing of that size but the backward's per-window dS, which the
+// bias-kind reduction needs:
+//   - window_mhsa_fwd_kernel (ws 8): one thread block per (8x8 window,
+//     head) stages that head's q, k (transposed) and v, builds the 64x64
+//     scores with the bias of the window's kind, takes the row softmax and
+//     writes P v straight to the output; 42 KB of shared memory.
+//   - window_mhsa_rows_fwd_kernel<N> (ws 16): one block per (window, head)
+//     stages k and v of the window's N = 256 tokens once and walks the
+//     queries in blocks of 64 rows: a 64 x 256 score tile (64 KB) does fit
+//     one block where the whole 256 x 256 tile (256 KB) does not. The row
+//     softmax is taken in registers and the rows go through shared memory
+//     to the P v product; 138 KB of shared memory.
+//   - window_mhsa_bwd_kernel<N> (ws 8 and 16): one block per (window,
+//     head), query rows in blocks of 64: recompute P, then dV += P^T dO,
+//     dP = dO v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k (written per
+//     row block) and dK += scale dS^T q. dK and dV of the window sum over
+//     every row block, so they stay in registers across the blocks (each
+//     thread owns 4 keys x N/32 channels of both). dS of each (window, head)
+//     goes to a buffer shaped as the windows' P, and dbias_kernel
+//     (common.cuh) adds it over the windows of each kind in window order:
+//     no atomics, two runs are bit-identical.
+// The kernels take no shift: the caller rolls qkv and the output, as the
+// JAX package's contract has it. Every product runs on the fp32 FMA units.
 #include "common.cuh"
 
 namespace trr {
 
+// Index (into the B*H*W tokens) of token r, row-major, of the ws x ws
+// window (wi, wj) of sample b.
+__device__ __forceinline__ long long win_token(int b, int wi, int wj, int r, int H, int W,
+                                               int ws) {
+  return ((long long)b * H + wi * ws + r / ws) * W + wj * ws + r % ws;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 __host__ __device__ inline int window_mhsa_smem_floats(int C, int nh) {
   const int hd = C / nh;
   return 2 * hd * kTLd + kTile * kVLd + kTile * kTLd;
+}
+
+// Shared memory of the ws-16 forward (N = 256): this row block's q (hd, 64)
+// transposed, k (hd, N) transposed, v (N, 32), the P rows (64, N + 4).
+__host__ __device__ inline int window_mhsa_rows_smem_floats(int N, int hd) {
+  return hd * kTLd + hd * N + N * kVLd + kTile * (N + 4);
+}
+
+// Shared memory of the backward: k (hd, N) transposed and (N, 32) row-major,
+// v (hd, N) transposed, this row block's q and dO each (hd, 64) transposed
+// and (64, 32) row-major, the P / dS rows (64, N + 4).
+__host__ __device__ inline int window_mhsa_bwd_smem_floats(int N, int hd) {
+  return 2 * hd * N + N * kVLd + 2 * hd * kTLd + 2 * kTile * kVLd + kTile * (N + 4);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -59,26 +114,378 @@ __global__ void __launch_bounds__(kThreads)
                  });
 }
 
+// P (64 x N) of one block of 64 query rows against the window's N keys,
+// left in registers: S = q k^T * scale + bias, then the row softmax.
+//   qT    (hd, kTLd) the block's q, transposed;
+//   kT    (hd, N) the window's k, transposed;
+//   bias  (64, N) rows of this window kind's and head's table (global / L2).
+// Thread (rg, cl) holds rows rg*4 + i and columns jj*64 + cl*4 + e in
+// p[i][jj*4 + e]; a row's 16 threads are one half-warp, which reduces it.
+template <int N>
+__device__ __forceinline__ void softmax_rows(const float* qT, const float* kT, int hd,
+                                             float scale, const float* __restrict__ bias,
+                                             float (&p)[4][N / 16]) {
+  constexpr int JJ = N / 64;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) p[i][j] = 0.f;
+  for (int d = 0; d < hd; ++d) {
+    const float4 a = ld4(qT + d * kTLd + rg * 4);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) {
+      const float4 bk = ld4(kT + d * N + jj * 64 + cl * 4);
+      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[i][jj * 4 + e] = fmaf(av[i], bv[e], p[i][jj * 4 + e]);
+    }
+  }
+  // per-row max and sum (the JAX kernels take one max per tile; a per-row
+  // max is the softmax of the plain reference and guards each row alone)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* brow = bias + (size_t)(rg * 4 + i) * N + cl * 4;
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) {
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(brow + jj * 64));
+      p[i][jj * 4 + 0] = p[i][jj * 4 + 0] * scale + bb.x;
+      p[i][jj * 4 + 1] = p[i][jj * 4 + 1] * scale + bb.y;
+      p[i][jj * 4 + 2] = p[i][jj * 4 + 2] * scale + bb.z;
+      p[i][jj * 4 + 3] = p[i][jj * 4 + 3] * scale + bb.w;
+    }
+    float m = p[i][0];
+#pragma unroll
+    for (int j = 1; j < N / 16; ++j) m = fmaxf(m, p[i][j]);
+    m = half_warp_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      p[i][j] = expf(p[i][j] - m);
+      sum += p[i][j];
+    }
+    const float inv = 1.f / half_warp_sum(sum);
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) p[i][j] *= inv;
+  }
+}
+
+// The rows p of softmax_rows into the (64, N + 4) tile T.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&p)[4][N / 16], float* T) {
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < N / 64; ++jj)
+      *reinterpret_cast<float4*>(T + (rg * 4 + i) * (N + 4) + jj * 64 + cl * 4) =
+          make_float4(p[i][jj * 4], p[i][jj * 4 + 1], p[i][jj * 4 + 2], p[i][jj * 4 + 3]);
+}
+
+// One block per (ws x ws window, head), N = ws * ws a multiple of 64; the
+// query rows in blocks of 64.
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_mhsa_rows_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                                float* __restrict__ out, int H, int W, int C, int nh, int kinds,
+                                int ws, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / ws, nwh = H / ws;
+  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+  float* qT = smem;                 // (hd, 64) this row block's q
+  float* kT = qT + hd * kTLd;       // (hd, N)
+  float* v = kT + hd * N;           // (N, 32)
+  float* P = v + N * kVLd;          // (64, N + 4)
+  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, ws); };
+  const int kind = window_kind(kinds, wi, wj, nwh, nww);
+  const float* table = bias + ((size_t)kind * nh + h) * N * N;
+
+  for (int e = threadIdx.x; e < N * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
+    const float* src = qkv + token(r) * C3 + h * hd + d;
+    kT[d * N + r] = __ldg(src + C);
+    v[r * kVLd + d] = __ldg(src + 2 * C);
+  }
+  for (int r0 = 0; r0 < N; r0 += kTile) {
+    for (int e = threadIdx.x; e < kTile * hd; e += kThreads) {
+      const int r = e / hd, d = e % hd;
+      qT[d * kTLd + r] = __ldg(qkv + token(r0 + r) * C3 + h * hd + d);
+    }
+    __syncthreads();  // q (and, the first time, k and v) staged
+    float p[4][N / 16];
+    softmax_rows<N>(qT, kT, hd, scale, table + (size_t)r0 * N, p);
+    store_rows<N>(p, P);
+    __syncthreads();
+    float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    const float* prow = P + rg * 4 * (N + 4);
+#pragma unroll 4
+    for (int j = 0; j < N; ++j) {
+      const float2 vv = *reinterpret_cast<const float2*>(v + j * kVLd + cl * 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = prow[i * (N + 4) + j];
+        acc[i][0] = fmaf(a, vv.x, acc[i][0]);
+        acc[i][1] = fmaf(a, vv.y, acc[i][1]);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int d = cl * 2 + jj;
+      if (d < hd) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[token(r0 + rg * 4 + i) * C + h * hd + d] = acc[i][jj];
+      }
+    }
+    __syncthreads();  // q and P are rewritten by the next row block
+  }
+}
+
+// One block per (ws x ws window, head), N = ws * ws (64 or 256); the query
+// rows in blocks of 64. dqkv (B, H, W, 3C) gets every token's dq | dk | dv
+// of this head; dS (B, H/ws, W/ws, nh, N, N) the window's dS for the
+// bias-kind reduction.
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_mhsa_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                           const float* __restrict__ dout, float* __restrict__ dqkv,
+                           float* __restrict__ dS, int H, int W, int C, int nh, int kinds,
+                           int ws, float scale) {
+  constexpr int kLd = N + 4;          // row stride of the P / dS tile
+  constexpr int kKL = 1024 / N;       // key-side lanes: threads sharing 4 keys
+  constexpr int kKC = kVLd / kKL;     // channels of dK and dV per thread
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / ws, nwh = H / ws;
+  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+  const int kg = threadIdx.x / kKL, kl = threadIdx.x % kKL;  // keys kg*4.., channels kl*kKC..
+  float* kT = smem;                  // (hd, N)
+  float* k = kT + hd * N;            // (N, 32)
+  float* vT = k + N * kVLd;          // (hd, N)
+  float* qT = vT + hd * N;           // (hd, 64) this row block's q
+  float* doT = qT + hd * kTLd;       // (hd, 64) this row block's dO
+  float* q = doT + hd * kTLd;        // (64, 32)
+  float* dO = q + kTile * kVLd;      // (64, 32)
+  float* T = dO + kTile * kVLd;      // (64, N + 4): P, then dS
+  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, ws); };
+  const int kind = window_kind(kinds, wi, wj, nwh, nww);
+  const float* table = bias + ((size_t)kind * nh + h) * N * N;
+  const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
+
+  for (int e = threadIdx.x; e < N * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
+    const float* src = qkv + token(r) * C3 + h * hd + d;
+    const float kv = __ldg(src + C);
+    kT[d * N + r] = kv;
+    k[r * kVLd + d] = kv;
+    vT[d * N + r] = __ldg(src + 2 * C);
+  }
+  float dk[4][kKC], dv[4][kKC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < kKC; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int r0 = 0; r0 < N; r0 += kTile) {
+    for (int e = threadIdx.x; e < kTile * hd; e += kThreads) {
+      const int r = e / hd, d = e % hd;
+      const long long t = token(r0 + r);
+      const float qv = __ldg(qkv + t * C3 + h * hd + d);
+      const float gv = __ldg(dout + t * C + h * hd + d);
+      qT[d * kTLd + r] = qv;
+      q[r * kVLd + d] = qv;
+      doT[d * kTLd + r] = gv;
+      dO[r * kVLd + d] = gv;
+    }
+    __syncthreads();  // q and dO (and, the first time, k and v) staged
+    {
+      float p[4][N / 16];
+      softmax_rows<N>(qT, kT, hd, scale, table + (size_t)r0 * N, p);
+      store_rows<N>(p, T);
+    }
+    __syncthreads();
+    // dV[j][d] += sum_r P[r][j] dO[r][d]
+    for (int r = 0; r < kTile; ++r) {
+      const float4 pv = ld4(T + r * kLd + kg * 4);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int e = 0; e < kKC; ++e) {
+        const float g = dO[r * kVLd + kl * kKC + e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i][e] = fmaf(pa[i], g, dv[i][e]);
+      }
+    }
+    __syncthreads();  // every thread is done reading P across the rows
+    {
+      // dP = dO v^T at this thread's (row, column) places of P, then
+      // dS = P (dP - rowsum(P dP)) in place of P, and to dS
+      constexpr int JJ = N / 64;
+      float dp[4][N / 16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < N / 16; ++j) dp[i][j] = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        const float4 a = ld4(doT + d * kTLd + rg * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int jj = 0; jj < JJ; ++jj) {
+          const float4 bv4 = ld4(vT + d * N + jj * 64 + cl * 4);
+          const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[i][jj * 4 + e] = fmaf(av[i], bv[e], dp[i][jj * 4 + e]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* trow = T + (rg * 4 + i) * kLd + cl * 4;
+        float delta = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < JJ; ++jj) {
+          const float4 pv = ld4(trow + jj * 64);
+          delta += pv.x * dp[i][jj * 4] + pv.y * dp[i][jj * 4 + 1] + pv.z * dp[i][jj * 4 + 2] +
+                   pv.w * dp[i][jj * 4 + 3];
+        }
+        delta = half_warp_sum(delta);
+        float* grow = dS + head + (size_t)(r0 + rg * 4 + i) * N + cl * 4;
+#pragma unroll
+        for (int jj = 0; jj < JJ; ++jj) {
+          const float4 pv = ld4(trow + jj * 64);
+          const float4 s = make_float4(pv.x * (dp[i][jj * 4] - delta),
+                                       pv.y * (dp[i][jj * 4 + 1] - delta),
+                                       pv.z * (dp[i][jj * 4 + 2] - delta),
+                                       pv.w * (dp[i][jj * 4 + 3] - delta));
+          *reinterpret_cast<float4*>(trow + jj * 64) = s;
+          *reinterpret_cast<float4*>(grow + jj * 64) = s;
+        }
+      }
+    }
+    __syncthreads();
+    {  // dQ[r][d] = scale sum_j dS[r][j] k[j][d]
+      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+      const float* srow = T + rg * 4 * kLd;
+#pragma unroll 4
+      for (int j = 0; j < N; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(k + j * kVLd + cl * 2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = srow[i * kLd + j];
+          acc[i][0] = fmaf(a, kv.x, acc[i][0]);
+          acc[i][1] = fmaf(a, kv.y, acc[i][1]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int d = cl * 2 + jj;
+        if (d < hd) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dqkv[token(r0 + rg * 4 + i) * C3 + h * hd + d] = scale * acc[i][jj];
+        }
+      }
+    }
+    // dK[j][d] += sum_r dS[r][j] q[r][d] (scaled once, at the end)
+    for (int r = 0; r < kTile; ++r) {
+      const float4 sv = ld4(T + r * kLd + kg * 4);
+      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int e = 0; e < kKC; ++e) {
+        const float qv = q[r * kVLd + kl * kKC + e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dk[i][e] = fmaf(sa[i], qv, dk[i][e]);
+      }
+    }
+    __syncthreads();  // q, dO and the tile are rewritten by the next row block
+  }
+#pragma unroll
+  for (int e = 0; e < kKC; ++e) {
+    const int d = kl * kKC + e;
+    if (d < hd) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long t = token(kg * 4 + i);
+        dqkv[t * C3 + C + h * hd + d] = scale * dk[i][e];
+        dqkv[t * C3 + 2 * C + h * hd + d] = dv[i][e];
+      }
+    }
+  }
+}
+
 }  // namespace trr
 
 extern "C" {
 
-size_t trr_window_mhsa_smem_bytes(int C, int nh) {
-  return (size_t)trr::window_mhsa_smem_floats(C, nh) * sizeof(float);
+size_t trr_window_mhsa_smem_bytes(int C, int nh, int ws) {
+  const int floats = ws == 8 ? trr::window_mhsa_smem_floats(C, nh)
+                             : trr::window_mhsa_rows_smem_floats(ws * ws, C / nh);
+  return (size_t)floats * sizeof(float);
 }
 
-// qkv (B, H, W, 3C), out (B, H, W, C), bias (kinds, nh, 64, 64). Windows
-// are 8x8; H and W are multiples of 8; C / nh <= 32.
+size_t trr_window_mhsa_bwd_smem_bytes(int C, int nh, int ws) {
+  return (size_t)trr::window_mhsa_bwd_smem_floats(ws * ws, C / nh) * sizeof(float);
+}
+
+// qkv (B, H, W, 3C), out (B, H, W, C), bias (kinds, nh, n, n), n = ws * ws.
+// Windows are 8x8 or 16x16; H and W are multiples of ws; C / nh <= 32.
 int trr_window_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, int H, int W,
-                        int C, int nh, int kinds, float scale, cudaStream_t stream) {
-  const size_t smem = trr_window_mhsa_smem_bytes(C, nh);
-  const cudaError_t err = cudaFuncSetAttribute(
-      trr::window_mhsa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H / 8) * (W / 8), B, nh);
-  trr::window_mhsa_fwd_kernel<<<grid, trr::kThreads, smem, stream>>>(qkv, bias, out, H, W, C,
-                                                                      nh, kinds, scale);
+                        int C, int nh, int kinds, int ws, float scale, cudaStream_t stream) {
+  const size_t smem = trr_window_mhsa_smem_bytes(C, nh, ws);
+  const dim3 grid((H / ws) * (W / ws), B, nh);
+  if (ws == 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        trr::window_mhsa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    trr::window_mhsa_fwd_kernel<<<grid, trr::kThreads, smem, stream>>>(qkv, bias, out, H, W, C,
+                                                                        nh, kinds, scale);
+  } else if (ws == 16) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(trr::window_mhsa_rows_fwd_kernel<256>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    trr::window_mhsa_rows_fwd_kernel<256><<<grid, trr::kThreads, smem, stream>>>(
+        qkv, bias, out, H, W, C, nh, kinds, ws, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+// The backward: qkv, bias as in the forward, dout (B, H, W, C); writes
+// dqkv (B, H, W, 3C), dS (B, H/ws, W/ws, nh, n, n) scratch and
+// dbias (kinds, nh, n, n).
+int trr_window_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
+                        float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
+                        int ws, float scale, cudaStream_t stream) {
+  const size_t smem = trr_window_mhsa_bwd_smem_bytes(C, nh, ws);
+  const dim3 grid((H / ws) * (W / ws), B, nh);
+  cudaError_t err;
+  if (ws == 8) {
+    err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<64>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    trr::window_mhsa_bwd_kernel<64><<<grid, trr::kThreads, smem, stream>>>(
+        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, ws, scale);
+  } else if (ws == 16) {
+    err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<256>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    trr::window_mhsa_bwd_kernel<256><<<grid, trr::kThreads, smem, stream>>>(
+        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, ws, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)trr::launch_dbias(dS, B, H / ws, W / ws, nh, kinds, ws * ws * ws * ws, dbias,
+                                stream);
 }
 
 }  // extern "C"

@@ -434,7 +434,7 @@ class SRModel(BaseModel):
                 sd = torch_compat.state_dict_from_jax(load_file(path), type(net).__name__)
                 self._merge_params(net, sd, strict, path)
                 return
-        flat = torch_compat.drop_swinir_buffers(torch_compat.load_torch_state_dict(path))
+        flat = torch_compat.drop_recomputed_buffers(torch_compat.load_torch_state_dict(path))
         sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in flat.items()}
         self._merge_params(net, sd, strict, path)
 

@@ -55,13 +55,16 @@ SIGNATURES = {
         "trr_weight_grad": ([_P] * 2 + [_I] * 4 + [_P, _P], _I),
         "trr_sum_rows": ([_P, _I, _I, _P, _P], _I),
         "trr_dbias": ([_P] + [_I] * 5 + [_P, _P], _I),
+        "trr_ln_mlp_bwd_tokens": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
         "trr_bwd_tokens_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_bwd_ln1_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "window_attention": {
-        "trr_window_mhsa_fwd": ([_P] * 3 + [_I] * 6 + [_F, _P], _I),
-        "trr_window_mhsa_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_window_mhsa_fwd": ([_P] * 3 + [_I] * 7 + [_F, _P], _I),
+        "trr_window_mhsa_bwd": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
+        "trr_window_mhsa_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "trr_window_mhsa_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
 }
 

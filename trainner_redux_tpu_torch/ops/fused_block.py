@@ -10,8 +10,10 @@ Port of the JAX package's ops/pallas/fused_block.py:
       output and z, and whose backward computes every gradient from them
       (the saved-P backward).
 
-The first two are forward only (serving): on a CUDA tensor that autograd
-would record they raise, since their backward kernels are not ported.
+`fused_ln_mlp` is a torch.autograd.Function too: its backward (TPU kernel
+#7) recomputes LN and fc1 from x. `fused_attn_block` is forward only
+(serving): on a CUDA tensor that autograd would record it raises, since its
+backward kernel (#6) is not ported.
 
 `s` is the per-sample DropPath keep scale (ones at eval). Layout contract
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
@@ -25,6 +27,8 @@ per-token and needs no roll.
 For a CUDA tensor each wrapper launches its kernel in
 `csrc/fused_block.cu` or `csrc/fused_block_train.cu`; for a CPU tensor it
 runs its plain version (`*_reference`); anything else raises.
+`fused_mlp_supported` gates `fused_ln_mlp` for archs whose attention half
+is their own (HAT's HAB and OCAB).
 """
 
 from __future__ import annotations
@@ -78,6 +82,27 @@ def ln_mlp_fits(h, window_size, channels, hidden) -> bool:
     return ln_mlp_smem_bytes(channels, hidden) <= SMEM_LIMIT
 
 
+def ln_mlp_bwd_fits(channels: int, hidden: int) -> bool:
+    """The MLP half's backward (the per-token kernel of
+    csrc/fused_block_train.cu) within one thread block's shared memory."""
+    return bwd_tokens_smem_bytes(channels, hidden) <= SMEM_LIMIT
+
+
+def fused_mlp_supported(h: int, w: int, rows: int, channels: int, hidden: int,
+                        train: bool = False) -> bool:
+    """Gate for fused_ln_mlp alone (archs whose attention half differs but
+    whose pre-LN MLP matches): `rows` divides H (archs pass their window
+    size), the forward kernel's plan fits and, in training, the backward's.
+    TRAINNER_FUSED_BLOCK=0 and TRAINNER_FUSED_ATTN=0 are the off switches."""
+    if os.environ.get("TRAINNER_FUSED_BLOCK", "1") == "0":
+        return False
+    if os.environ.get("TRAINNER_FUSED_ATTN", "1") == "0":
+        return False
+    if rows <= 0 or not ln_mlp_fits(h, rows, channels, hidden):
+        return False
+    return not train or ln_mlp_bwd_fits(channels, hidden)
+
+
 def fused_block_supported(
     h: int, w: int, window_size: int, channels: int, num_heads: int, hidden: int
 ) -> bool:
@@ -127,6 +152,26 @@ def fused_attn_block_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads, hea
     return out.reshape(x.shape).to(x.dtype)
 
 
+def _sum_rows(part):
+    """Column sums of part (S, L), the rows added in order."""
+    out = torch.empty(part.shape[1], device=part.device, dtype=torch.float32)
+    _launch("fused_block_train", "trr_sum_rows", part.device, part.data_ptr(), part.shape[0],
+            part.shape[1], out.data_ptr())
+    return out
+
+
+def _weight_grad(a, bmat):
+    """(A^T B, column sums of B) over the T rows of a (T, M) and bmat (T, N):
+    partial sums over WEIGHT_GRAD_CHUNK-token chunks, added in order."""
+    t, m, nn = a.shape[0], a.shape[1], bmat.shape[1]
+    part = torch.empty((math.ceil(t / WEIGHT_GRAD_CHUNK), m * nn + nn), device=a.device,
+                       dtype=torch.float32)
+    _launch("fused_block_train", "trr_weight_grad", a.device, a.data_ptr(), bmat.data_ptr(), t, m,
+            nn, WEIGHT_GRAD_CHUNK, part.data_ptr())
+    out = _sum_rows(part)
+    return out[: m * nn].view(m, nn), out[m * nn :]
+
+
 def _launch(lib_name: str, fn_name: str, device, *args) -> None:
     from trainner_redux_tpu_torch.ops import cuda_build
 
@@ -136,15 +181,7 @@ def _launch(lib_name: str, fn_name: str, device, *args) -> None:
     cuda_build.check(status, fn_name)
 
 
-def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
-    """out (B,H,W,C) = x + s[b] * fc2(gelu(fc1(LN(x)))).
-
-    g/be (C,) LayerNorm affine, w1 (C, hidden), b1 (hidden,), w2 (hidden, C),
-    b2 (C,), s (B,) per-sample DropPath keep scale (ones at eval).
-    Forward only: on a CUDA tensor that autograd would record, it raises."""
-    if x.device.type == "cpu":
-        return fused_ln_mlp_reference(x, g, be, w1, b1, w2, b2, s, window_size, eps)
-    refuse_autograd("fused_ln_mlp", "TPU kernel #7, fused_block.py:415", x, g, be, w1, b1, w2, b2)
+def _ln_mlp_fwd_cuda(x, g, be, w1, b1, w2, b2, s, window_size, eps):
     b, hh, ww, c = x.shape
     hidden = w1.shape[1]
     if not ln_mlp_fits(hh, window_size, c, hidden):
@@ -152,11 +189,7 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
             f"fused_ln_mlp: H={hh}, C={c}, hidden={hidden}, ws={window_size} "
             "is outside the kernel's limits"
         )
-    for name, t, shape in (
-        ("x", x, (b, hh, ww, c)), ("g", g, (c,)), ("be", be, (c,)),
-        ("w1", w1, (c, hidden)), ("b1", b1, (hidden,)), ("w2", w2, (hidden, c)),
-        ("b2", b2, (c,)), ("s", s, (b,)),
-    ):
+    for name, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
         _check_cuda(name, t, shape, x.device)
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -169,6 +202,108 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
         b, hh, ww, c, hidden, eps,
     )
     return out
+
+
+def _mlp_operands(x, g, be, w1, b1, w2, b2, s):
+    b, hh, ww, c = x.shape
+    hidden = w1.shape[1]
+    return (
+        ("x", x, (b, hh, ww, c)), ("g", g, (c,)), ("be", be, (c,)),
+        ("w1", w1, (c, hidden)), ("b1", b1, (hidden,)), ("w2", w2, (hidden, c)),
+        ("b2", b2, (c,)), ("s", s, (b,)),
+    )
+
+
+def fused_ln_mlp_bwd_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e-5):
+    """The MLP backward kernel's spec, step by step, in fp32: dx and the
+    gradients of g, be, w1, b1, w2, b2 (none for s, as in the JAX package),
+    recomputing LN and fc1 from x."""
+    b, hh, ww, c = x.shape
+    t, do = x.float().reshape(-1, c), dout.float().reshape(-1, c)
+    xn, inv = _ln_parts(t, eps)
+    y = xn * g + be
+    h = y @ w1 + b1
+    dm = do * _row_scale(s, b, hh * ww)
+    dw2, db2 = F.gelu(h, approximate="none").T @ dm, dm.sum(0)
+    dh = (dm @ w2.T) * _gelu_grad(h)
+    dw1, db1 = y.T @ dh, dh.sum(0)
+    dy = dh @ w1.T
+    dg, dbe = (dy * xn).sum(0), dy.sum(0)
+    dx = (do + _ln_backward(dy, xn, inv, g)).reshape(x.shape).to(x.dtype)
+    return dx, dg, dbe, dw1, db1, dw2, db2
+
+
+def fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e-5):
+    """The MLP backward (TPU kernel #7): dx, dg, dbe, dw1, db1, dw2, db2, as
+    `fused_ln_mlp_bwd_reference` returns them. On a CUDA tensor it launches
+    the per-token kernel and the weight-gradient kernels of
+    `csrc/fused_block_train.cu` (one counted call); on a CPU tensor it runs
+    the plain version."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_bwd_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps)
+    name = "fused_ln_mlp_backward"
+    b, hh, ww, c = x.shape
+    hidden, dev, T = w1.shape[1], x.device, b * hh * ww
+    if not (ln_mlp_fits(hh, window_size, c, hidden) and ln_mlp_bwd_fits(c, hidden)):
+        raise ValueError(f"{name}: H={hh}, C={c}, hidden={hidden}, ws={window_size} "
+                         "is outside the kernels' limits")
+    if T * hidden >= 2**31:
+        raise ValueError(f"{name}: {T} tokens are more than the kernels index")
+    for k, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
+        _check_cuda(k, t, shape, dev)
+    _check_cuda("dout", dout, tuple(x.shape), dev)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+
+    def new(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    y, dm, hg, dh = new(T, c), new(T, c), new(T, hidden), new(T, hidden)
+    dx, ln_part = torch.empty_like(x), new(math.ceil(T / 64), 2 * c)
+    fused_ln_mlp_backward.launches += 1
+    _launch(
+        "fused_block_train", "trr_ln_mlp_bwd_tokens", dev,
+        x.data_ptr(), dout.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), s.data_ptr(), y.data_ptr(),
+        hg.data_ptr(), dm.data_ptr(), dh.data_ptr(), dx.data_ptr(), ln_part.data_ptr(),
+        b, hh, ww, c, hidden, eps,
+    )
+    dw2, db2 = _weight_grad(hg, dm)
+    dw1, db1 = _weight_grad(y, dh)
+    dg, dbe = _sum_rows(ln_part).split(c)
+    return dx, dg, dbe, dw1, db1, dw2, db2
+
+
+fused_ln_mlp_backward.launches = 0
+
+
+class _LnMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, be, w1, b1, w2, b2, s, window_size, eps):
+        args = (x, g, be, w1, b1, w2, b2, s, window_size, eps)
+        if x.device.type == "cpu":
+            out = fused_ln_mlp_reference(*args)
+        else:
+            out = _ln_mlp_fwd_cuda(*args)
+        ctx.save_for_backward(x, g, be, w1, b1, w2, b2, s)
+        ctx.meta = (window_size, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, g, be, w1, b1, w2, b2, s = ctx.saved_tensors
+        grads = fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout.contiguous(), *ctx.meta)
+        return (*grads, None, None, None)
+
+
+def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
+    """out (B,H,W,C) = x + s[b] * fc2(gelu(fc1(LN(x)))), differentiable in
+    x and the six parameters (not in s).
+
+    g/be (C,) LayerNorm affine, w1 (C, hidden), b1 (hidden,), w2 (hidden, C),
+    b2 (C,), s (B,) per-sample DropPath keep scale (ones at eval). On a CUDA
+    tensor the forward launches TPU kernel #2's port and the backward #7's
+    (`fused_ln_mlp_backward`); on a CPU tensor both run their plain versions."""
+    return _LnMlp.apply(x, g, be, w1, b1, w2, b2, s, window_size, eps)
 
 
 fused_ln_mlp.launches = 0
@@ -388,8 +523,8 @@ def _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, n
     if not swin_block_train_fits(hh, ww, window_size, c, num_heads, hidden):
         raise ValueError(
             f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, hidden={hidden}, "
-            f"ws={window_size} is outside the kernels' limits; train with "
-            "TRAINNER_FUSED_ATTN=0 (the plain branch)"
+            f"ws={window_size} is outside the kernels' limits (SwinBlock takes its "
+            "unfused branch for such a block)"
         )
     if b * hh * ww * 3 * c >= 2**31:
         raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
@@ -493,27 +628,12 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
         dz.data_ptr(), dx.data_ptr(), ln1_part.data_ptr(), b, hh, ww, c,
     )
 
-    def sum_rows(part):
-        out = new(part.shape[1])
-        _launch(lib, "trr_sum_rows", dev, part.data_ptr(), part.shape[0], part.shape[1],
-                out.data_ptr())
-        return out
-
-    def weight_grad(a, bmat):
-        """(A^T B, column sums of B) over all tokens."""
-        m, nn = a.shape[1], bmat.shape[1]
-        part = new(math.ceil(T / WEIGHT_GRAD_CHUNK), m * nn + nn)
-        _launch(lib, "trr_weight_grad", dev, a.data_ptr(), bmat.data_ptr(), T, m, nn,
-                WEIGHT_GRAD_CHUNK, part.data_ptr())
-        out = sum_rows(part)
-        return out[: m * nn].view(m, nn), out[m * nn :]
-
-    dw2, db2 = weight_grad(hg, dm)
-    dw1, db1 = weight_grad(y2, dh)
-    dwp, dbp = weight_grad(att.view(T, c), dzp)
-    dwq, dbq = weight_grad(y, dqkv)
-    dg2, dbe2 = sum_rows(ln2_part).split(c)
-    dg1, dbe1 = sum_rows(ln1_part).split(c)
+    dw2, db2 = _weight_grad(hg, dm)
+    dw1, db1 = _weight_grad(y2, dh)
+    dwp, dbp = _weight_grad(att.view(T, c), dzp)
+    dwq, dbq = _weight_grad(y, dqkv)
+    dg2, dbe2 = _sum_rows(ln2_part).split(c)
+    dg1, dbe1 = _sum_rows(ln1_part).split(c)
     dbias = new(kinds, num_heads, n, n)
     _launch(lib, "trr_dbias", dev, ds.data_ptr(), b, nwh, nww, num_heads, kinds,
             dbias.data_ptr())

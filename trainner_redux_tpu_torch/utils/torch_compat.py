@@ -1,7 +1,7 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR part of the JAX package's utils/torch_compat.py:
+Port of the SwinIR and HAT parts of the JAX package's utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
   nesting and strip DDP's `module.` prefix (upstream's key canonicalization);
@@ -10,10 +10,12 @@ Port of the SwinIR part of the JAX package's utils/torch_compat.py:
 - `state_dict_from_jax`: the JAX package's flattened parameters
   (`.`-joined flax keys, as `BaseModel.flatten_params` gives them) as the
   port's state dict. For SwinIR it is the JAX `_export_swinir` mapping,
-  extended to the 3conv residual connection and every upsampler.
+  extended to the 3conv residual connection and every upsampler; for HAT
+  the JAX `_export_hat` mapping.
 
 Buffers that upstream checkpoints carry and the port recomputes
-(`relative_position_index`, `attn_mask`, `mean`) are dropped on load.
+(`relative_position_index` and HAT's `relative_position_index_SA` /
+`_OCA`, `attn_mask`, `mean`) are dropped on load.
 """
 
 from __future__ import annotations
@@ -66,12 +68,13 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
     return canonicalize_state_dict(raw)
 
 
-def drop_swinir_buffers(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Drop the buffers upstream SwinIR checkpoints carry and the port
-    recomputes."""
+def drop_recomputed_buffers(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Drop the buffers upstream SwinIR and HAT checkpoints carry and the
+    port recomputes."""
     return {
         k: v for k, v in sd.items()
-        if not k.endswith(("relative_position_index", "attn_mask"))
+        if not k.endswith(("relative_position_index", "relative_position_index_SA",
+                           "relative_position_index_OCA", "attn_mask"))
         and not k.startswith(("absolute_pos_embed", "mean"))
     }
 
@@ -115,14 +118,42 @@ def _swinir_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     raise KeyError(f"no torch counterpart for SwinIR key '{k}'")
 
 
+# HAT's CAB convs: flax name -> upstream Sequential index
+_CAB = {"conv0": "cab.0", "conv1": "cab.2", "att0": "cab.3.attention.1",
+        "att1": "cab.3.attention.3"}
+
+
+def _hat_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax HAT key -> (torch key, array in torch layout)."""
+    m = re.fullmatch(r"layers_(\d+)\.blocks_(\d+)\.conv_block\.(\w+)\.conv\.(kernel|bias)", k)
+    if m:
+        i, j, part, kind = m.groups()
+        key = f"layers.{i}.residual_group.blocks.{j}.conv_block.{_CAB[part]}"
+        return f"{key}.{_weight_or_bias(kind)}", conv_w_inv(v) if kind == "kernel" else v
+    m = re.fullmatch(r"layers_(\d+)\.(?:blocks_(\d+)|overlap_attn)\.(.+)", k)
+    if m:
+        i, j, rest = m.groups()
+        owner = f"layers.{i}.residual_group." + (f"blocks.{j}" if j else "overlap_attn")
+        if rest.endswith("relative_position_bias_table"):
+            return f"{owner}.{rest}", v
+        inner, kind = rest.replace("mlp_fc", "mlp.fc").rsplit(".", 1)
+        return f"{owner}.{inner}.{_weight_or_bias(kind)}", linear_w(v) if kind == "kernel" else v
+    # the rest (patch and final norms, the convs) is named as in SwinIR
+    return _swinir_key(k, v)
+
+
+_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key}
+
+
 def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> dict:
     """The JAX package's flattened params -> the port's state dict (tensors)."""
     import torch
 
-    if arch.lower() != "swinir":
+    key_map = _KEY_MAPS.get(arch.lower())
+    if key_map is None:
         raise NotImplementedError(f"no weight bridge for arch '{arch}' yet")
     out = {}
     for k, v in flat.items():
-        key, arr = _swinir_key(k, np.asarray(v))
+        key, arr = key_map(k, np.asarray(v))
         out[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
     return out
