@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x and HAT-M 4x
-serving and training.
+"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x and
+DAT 4x serving and training.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -51,6 +51,24 @@ failure:
              SwinIR-M's unfused branch (TRAINNER_FUSED_BLOCK=0), each through
              the kernels and the plain branch; losses and gradients must agree.
 15. hat train profile - device time by kernel of one HAT-M training step.
+16. dat kernels - the rect forms of #3 and #8 (`fused_rect_mhsa` and its
+             backward) at DAT's training block (B=8, the 48x48 LR crop's qkv
+             padded to 64x64, a 90-channel branch of 3 heads of 30): windows
+             8x32 and 32x8, K=1 and K=4 with their shifts, and dat_s's 8x16
+             shifted; each against its plain version, two backward runs
+             bit-identical; times, the card's bound and SDPA with a float
+             mask.
+17. dat path - `test.run` on a seeded DAT 4x and the 4 images, counting
+             launches (36 rect-window forwards an image); one 128x128
+             image's forward timed.
+18. dat train - `train.run` on DAT 4x as `dat_fidelity.yml` has it (batch
+             8 of 48x48 LR crops, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999) in
+             fp32, 30 steps, counting 36 + 36 rect launches a step; the EMA
+             checkpoint then serves with the strict load.
+19. dat train branches - one forward and backward of DAT 4x (48x48 LR)
+             through the kernels and the plain branch; losses and gradients
+             must agree.
+20. dat train profile - device time by kernel of one DAT training step.
 
 Then one JSON line of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -96,6 +114,17 @@ HN = HWS * HWS
 HAT_BLOCKS = 36  # HABs: window attention
 HAT_MLPS = 42  # HABs and OCABs: MLP halves
 
+# DAT 4x: 18 spatial blocks of two rect-window branches, each a 90-channel
+# half of 3 heads of 30; its training crop (dat_fidelity.yml) is 48x48 LR,
+# whose qkv each spatial block pads to 64x64
+DAT_RECT = 36  # rect-window attentions a forward
+DC, DNH = 90, 3
+DHD = DC // DNH
+DAT_LQ = 48
+# (h_sp, w_sp) -> the shift of a shifted block: dat's two orientations and
+# dat_s's first
+DAT_WINDOWS = {(8, 32): (4, 16), (32, 8): (16, 4), (8, 16): (4, 8)}
+
 REPLACES = {
     "fused_attn_block": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
     "fused_ln_mlp": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
@@ -105,6 +134,8 @@ REPLACES = {
     "fused_window_mhsa_ws16": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
     "fused_window_mhsa_backward": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
     "fused_ln_mlp_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
+    "fused_rect_mhsa": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_rect_mhsa_backward": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -115,6 +146,8 @@ SOURCES = {
     "fused_window_mhsa_ws16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_window_mhsa_backward": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_ln_mlp_backward": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_rect_mhsa": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_rect_mhsa_backward": "trainner_redux_tpu_torch/csrc/window_attention.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs
@@ -349,6 +382,8 @@ def _wrappers() -> dict:
         "fused_swin_block_train_backward": fb.fused_swin_block_train_backward,
         "fused_window_mhsa_backward": wa.fused_window_mhsa_backward,
         "fused_ln_mlp_backward": fb.fused_ln_mlp_backward,
+        "fused_rect_mhsa": wa.fused_rect_mhsa,
+        "fused_rect_mhsa_backward": wa.fused_rect_mhsa_backward,
     }
 
 
@@ -696,7 +731,8 @@ def phase_train_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str = "swinir_m"):
+def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str = "swinir_m",
+                  lq: int = TH, losses: tuple[str, ...] = ("l1loss",)):
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
@@ -709,13 +745,13 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str
         "datasets": {"train": {
             "name": "smoke_train", "type": "PairedImageDataset",
             "dataroot_gt": str(hr_dir), "dataroot_lq": str(lr_dir),
-            "io_backend": {"type": "disk"}, "lq_size": TH, "batch_size_per_gpu": TB,
+            "io_backend": {"type": "disk"}, "lq_size": lq, "batch_size_per_gpu": TB,
             "num_worker_per_gpu": 4,
         }},
         "train": {
             "total_iter": TRAIN_STEPS, "ema_decay": 0.999,
             "optim_g": {"type": "AdamW", "lr": 2e-4, "betas": [0.9, 0.99]},
-            "losses": [{"type": "l1loss", "loss_weight": 1.0}],
+            "losses": [{"type": t, "loss_weight": 1.0} for t in losses],
         },
         "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False},
     }
@@ -724,9 +760,11 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str
 
 def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
                 tag: str = "train", per_step: dict[str, int] | None = None,
-                serve_want: dict[str, int] | None = None) -> dict[str, int]:
-    """The training entry point on `network`; returns the launch counts of
-    its run, which must be `per_step` times the steps."""
+                serve_want: dict[str, int] | None = None, lq: int = TH,
+                losses: tuple[str, ...] = ("l1loss",)) -> dict[str, int]:
+    """The training entry point on `network` (batch 8 of lq x lq LR crops,
+    the pair `losses`); returns the launch counts of its run, which must be
+    `per_step` times the steps."""
     import math
     import statistics
 
@@ -740,13 +778,13 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     serve_want = serve_want or {"fused_attn_block": BLOCKS * N_IMAGES,
                                 "fused_ln_mlp": BLOCKS * N_IMAGES}
     hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
-    opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network)
-    ends, losses = [], []
+    opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network, lq, losses)
+    ends, totals = [], []
     original = SRModel.optimize_parameters
 
     def timed(self, current_iter):
         original(self, current_iter)
-        losses.append(float(self.log_dict["l_g_total"]))  # waits for the step
+        totals.append(float(self.log_dict["l_g_total"]))  # waits for the step
         ends.append(time.perf_counter())
 
     SRModel.optimize_parameters = timed
@@ -765,16 +803,17 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     per = [b - a for a, b in zip(ends[TRAIN_WARMUP:], ends[TRAIN_WARMUP + 1:])]
     med = statistics.median(per)
     q = statistics.quantiles(per, n=4)
-    say(f"[{tag}] {label} 4x, batch {TB} of {TH}x{TW} LR, {steps} steps in {secs:.2f} s "
+    say(f"[{tag}] {label} 4x, batch {TB} of {lq}x{lq} LR, {' + '.join(losses)}, {steps} "
+        f"steps in {secs:.2f} s "
         f"(model build and data included): median {med * 1e3:.2f} ms per step "
         f"(quartiles {q[0] * 1e3:.2f} / {q[2] * 1e3:.2f} ms, steps {TRAIN_WARMUP + 1}-{steps}), "
         f"{TB / med:.2f} images/s, max_memory_allocated {peak / 2**30:.2f} GiB")
-    say(f"[{tag}] l_g_total per step: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+    say(f"[{tag}] l_g_total per step: first {totals[0]:.5f}, last {totals[-1]:.5f}; "
         f"launches {counts}")
     if steps != TRAIN_STEPS or model.step != TRAIN_STEPS:
         fail(f"{tag} ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"a training loss is not finite: {losses}")
+    if not all(math.isfinite(v) for v in totals):
+        fail(f"a training loss is not finite: {totals}")
     check_counts(f"{tag} ({label})", counts, {k: v * TRAIN_STEPS for k, v in per_step.items()})
     ema = Path(opt.path.models) / f"net_g_ema_{TRAIN_STEPS}.safetensors"
     if not ema.exists():
@@ -798,10 +837,13 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
 
 
 def train_branches(seed: int, network: str, label: str, kernel_env: dict,
-                   expect: dict[str, int], tag: str) -> None:
+                   expect: dict[str, int], tag: str, lq: int = TH,
+                   zero_grad: tuple[str, ...] = ()) -> None:
     """One forward and backward of `network` in train mode (DropPath on, from
-    equal generators) through the kernel branch (`kernel_env`) and the plain
-    branch (TRAINNER_FUSED_ATTN=0); the kernel branch launches `expect`."""
+    equal generators) on batch 8 of lq x lq LR through the kernel branch
+    (`kernel_env`) and the plain branch (TRAINNER_FUSED_ATTN=0); the kernel
+    branch launches `expect`. Parameters named in `zero_grad` (a true
+    gradient of 0) are held against their block's largest gradient."""
     import copy
 
     import torch
@@ -813,8 +855,8 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
     net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
     nets = {"kernel": net, "plain": copy.deepcopy(net)}
     gen = torch.Generator().manual_seed(seed + 1)
-    x = torch.rand(TB, 3, TH, TW, generator=gen).cuda()
-    gt = torch.rand(TB, 3, 4 * TH, 4 * TW, generator=gen).cuda()
+    x = torch.rand(TB, 3, lq, lq, generator=gen).cuda()
+    gt = torch.rand(TB, 3, 4 * lq, 4 * lq, generator=gen).cuda()
     losses, grads, counts = {}, {}, {}
     for branch, env in (("kernel", kernel_env), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
         m = nets[branch]
@@ -840,7 +882,10 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
                 else:
                     os.environ[k] = v
         losses[branch] = loss.item()
-        grads[branch] = {k: p.grad for k, p in m.named_parameters()}
+        # a parameter the step does not reach (DAT's BatchNorm statistics in
+        # train mode) has a zero gradient, as SRModel hands it to AdamW
+        grads[branch] = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                         for k, p in m.named_parameters()}
         say(f"[{tag}] {label} {branch} {env or ''}: loss {losses[branch]:.6f}, forward and "
             f"backward {secs * 1e3:.1f} ms (first call), launches {counts[branch]}")
     check_counts(f"{label} kernel branch", counts["kernel"], expect)
@@ -860,9 +905,9 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
     worst = (0.0, "")
     for k, w in grads["plain"].items():
         g = grads["kernel"][k]
-        if g is None or w is None:
-            fail(f"{label} {k}: no gradient in one branch")
-        ref = w.abs().max().item() or block_max[block_of(k)]  # a zero true gradient
+        ref = w.abs().max().item()
+        if ref == 0 or k.endswith(zero_grad):  # a zero true gradient
+            ref = block_max[block_of(k)]
         err = (g - w).abs().max().item()
         worst = max(worst, (err / ref, k))
         if not err <= BRANCH_GRAD_TOL * ref:
@@ -884,20 +929,21 @@ def phase_train_branches(seed: int) -> None:
 
 
 def phase_train_profile(seed: int, network: str = "swinir_m", tag: str = "train profile",
-                        file: str = "profile_train.txt") -> None:
-    """Device time by kernel of one training step of `network` (batch 8,
-    64x64), after two warm-up steps; the table goes to chip_smoke/`file`."""
+                        file: str = "profile_train.txt", lq: int = TH,
+                        losses: tuple[str, ...] = ("l1loss",)) -> None:
+    """Device time by kernel of one training step of `network` (batch 8 of
+    lq x lq), after two warm-up steps; the table goes to chip_smoke/`file`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from trainner_redux_tpu_torch.models import build_model
 
-    opt = train_options(f"{network}_x4_profile", OUT, OUT, seed, network)
+    opt = train_options(f"{network}_x4_profile", OUT, OUT, seed, network, lq, losses)
     model = build_model(opt, device="cuda")
     rng = np.random.default_rng(seed)
-    batch = {"lq": rng.integers(0, 256, (TB, TH, TW, 3), dtype=np.uint8),
-             "gt": rng.integers(0, 256, (TB, 4 * TH, 4 * TW, 3), dtype=np.uint8)}
+    batch = {"lq": rng.integers(0, 256, (TB, lq, lq, 3), dtype=np.uint8),
+             "gt": rng.integers(0, 256, (TB, 4 * lq, 4 * lq, 3), dtype=np.uint8)}
     for i in range(2):
         model.feed_data(batch)
         model.optimize_parameters(i + 1)
@@ -947,28 +993,106 @@ def window_inputs(gen, kinds: int, ws: int, device):
     return qkv, rel.contiguous(), dout
 
 
-def sdpa_windows(qkv, bias, ws: int, kinds: int):
-    """(q, k, v, mask) of the windows as SDPA takes them: (B*nW, nh, n, hd)
-    each, the per-window bias as a float mask (B*nW, nh, n, n)."""
+def sdpa_windows(qkv, bias, wr: int, wc: int, kinds: int, nh: int = NH, hd: int = HD):
+    """(q, k, v, mask) of the wr x wc windows as SDPA takes them:
+    (B*nW, nh, n, hd) each, the per-window bias as a float mask
+    (B*nW, nh, n, n)."""
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     b, h, w, _ = qkv.shape
-    n = ws * ws
-    win = qkv.reshape(b, h // ws, ws, w // ws, ws, 3, NH, HD)
-    win = win.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, NH, n, HD).contiguous()
-    mask = bias[wa.window_kinds(h // ws, w // ws, kinds, qkv.device)].repeat(b, 1, 1, 1)
+    win = qkv.reshape(b, h // wr, wr, w // wc, wc, 3, nh, hd)
+    win = win.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, nh, wr * wc, hd).contiguous()
+    mask = bias[wa.window_kinds(h // wr, w // wc, kinds, qkv.device)].repeat(b, 1, 1, 1)
     return win[0], win[1], win[2], mask
 
 
-def from_windows(t, b: int, h: int, w: int, ws: int):
+def from_windows(t, b: int, h: int, w: int, wr: int, wc: int, nh: int = NH, hd: int = HD):
     """(B*nW, nh, n, hd) -> (B, H, W, nh*hd)."""
-    t = t.reshape(b, h // ws, w // ws, NH, ws, ws, HD)
-    return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, NH * HD)
+    t = t.reshape(b, h // wr, w // wc, nh, wr, wc, hd)
+    return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, nh * hd)
+
+
+def record_kernel(res: dict, tag: str, name: str, label: str, kern, plain, lib, flops: float,
+                  nb: float, err: float, note: str = "") -> None:
+    """Time a checked kernel, its plain version and its library call, print
+    them with the card's bound, and keep them in `res[name]` (the last call
+    recorded under a name is the one the JSON line reports)."""
+    ms = time_ms(kern, iters=10, warmup=2)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
+    lib_ms = time_ms(lib, iters=10, warmup=2) if lib is not None else None
+    bms, by = bound(flops, nb)
+    say(f"[{tag}] {name} {label}: max_abs_err {err:.3g}{note} kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+        f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB)")
+    rec = res.setdefault(name, {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+def window_attention_cases(tag: str, name: str, label: str, ops, inputs, wr: int, wc: int,
+                           kinds: int, nh: int, hd: int) -> dict:
+    """Run one window-attention wrapper pair on the card (`ops`: forward,
+    its plain version, backward, its plain version; `inputs`: qkv, the kind
+    table, the output gradient), check the forward and the SDPA yardstick
+    within KERNEL_TOL of the plain forward, both gradients within GRAD_TOL
+    of their largest and two backward runs bit-identical; return the timed
+    cases, name -> (kernel, plain, library, operations, bytes, error, note)."""
+    import torch
+    import torch.nn.functional as F
+
+    fwd, fwd_plain, bwd, bwd_plain = ops
+    qkv, bias, dout = inputs
+    b, h, w, _ = qkv.shape
+    n, tokens = wr * wc, b * h * w
+    q, k, v, mask = sdpa_windows(qkv, bias, wr, wc, kinds, nh, hd)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    gwin = dout.reshape(b, h // wr, wr, w // wc, wc, nh, hd)
+    gwin = gwin.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, nh, n, hd).contiguous()
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        return torch.autograd.grad(out, (qg, kg, vg), gwin)
+
+    try:
+        with torch.no_grad():
+            got = fwd()
+        grads = bwd()
+        again = bwd()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"{name} {label}: {e}")
+    want = fwd_plain()
+    fwd_err = (got - want).abs().max().item()
+    lib_err = (from_windows(lib_fwd(), b, h, w, wr, wc, nh, hd) - want).abs().max().item()
+    if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+        fail(f"{name} {label} disagrees with its plain version: {fwd_err:.3g}")
+    if lib_err > KERNEL_TOL:
+        fail(f"{name} {label}: the SDPA yardstick differs by {lib_err:.3g}")
+    plain = bwd_plain()
+    bwd_err, worst = 0.0, 0.0
+    for part, g, w_ in zip(("dqkv", "dbias"), grads, plain):
+        err, top = (g - w_).abs().max().item(), w_.abs().max().item()
+        bwd_err, worst = max(bwd_err, err), max(worst, err / top)
+        if g.shape != w_.shape or not err <= GRAD_TOL * top:
+            fail(f"{name}_backward {label}: {part} differs by {err:.3g} (max |g| {top:.3g})")
+    if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+        fail(f"{name}_backward {label}: two runs differ")
+    say(f"[{tag}] {label}: forward max_abs_err {fwd_err:.3g}, backward {bwd_err:.3g} "
+        f"({worst:.3g} of its tensor's max |g|), two backward runs bit-identical")
+    c = nh * hd
+    return {
+        name: (fwd, fwd_plain, lib_fwd, 4 * tokens * n * c, nbytes(qkv, bias, got), fwd_err, ""),
+        f"{name}_backward": (bwd, bwd_plain, lib_fwd_bwd, 10 * tokens * n * c,
+                             nbytes(qkv, bias, dout, *grads), bwd_err,
+                             f", largest error {worst:.3g} of its tensor's max |g|"),
+    }
 
 
 def phase_hat_kernels() -> dict:
     import torch
-    import torch.nn.functional as F
 
     from trainner_redux_tpu_torch.ops import fused_block as fb
     from trainner_redux_tpu_torch.ops import window_attention as wa
@@ -977,86 +1101,21 @@ def phase_hat_kernels() -> dict:
     gen = torch.Generator().manual_seed(2)
     T = TB * TH * TW
     res: dict[str, dict] = {}
-
-    def record(name, kern, plain, lib, flops, nb, err, note="", kinds=4):
-        ms = time_ms(kern, iters=10, warmup=2)
-        plain_ms = time_ms(plain, iters=5, warmup=1)
-        lib_ms = time_ms(lib, iters=10, warmup=2) if lib is not None else None
-        bms, by = bound(flops, nb)
-        say(f"[hat kernels] {name} K={kinds}: max_abs_err {err:.3g}{note} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-            f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB)")
-        rec = res.setdefault(name, {"max_abs_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        # the times reported in the JSON line are the shifted (K=4) calls'
-        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
-
-    for ws, kinds in ((16, 1), (16, 4), (8, 4)):
-        n = ws * ws
-        qkv, bias, dout = window_inputs(gen, kinds, ws, dev)
-        q, k, v, mask = sdpa_windows(qkv, bias, ws, kinds)
-
-        def fwd():
-            return wa.fused_window_mhsa(qkv, bias, NH, HD, ws)
-
-        def fwd_plain():
-            return wa.fused_window_mhsa_reference(qkv, bias, NH, HD, ws)
-
-        def bwd():
-            return wa.fused_window_mhsa_backward(qkv, bias, dout, NH, HD, ws)
-
-        def bwd_plain():
-            return wa.fused_window_mhsa_bwd_reference(qkv, bias, dout, NH, HD, ws)
-
-        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        gwin = dout.reshape(TB, TH // ws, ws, TW // ws, ws, NH, HD)
-        gwin = gwin.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, NH, n, HD).contiguous()
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
-        def lib_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-            return torch.autograd.grad(out, (qg, kg, vg), gwin)
-
-        try:
-            with torch.no_grad():
-                got = fwd()
-            grads = bwd()
-            again = bwd()
-            torch.cuda.synchronize()
-        except Exception as e:  # noqa: BLE001 - report and fail the phase
-            fail(f"window attention ws {ws} K={kinds}: {e}")
-        want = fwd_plain()
-        fwd_err = (got - want).abs().max().item()
-        lib_err = (from_windows(lib_fwd(), TB, TH, TW, ws) - want).abs().max().item()
-        if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
-            fail(f"fused_window_mhsa ws {ws} K={kinds} disagrees with its plain version: "
-                 f"{fwd_err:.3g}")
-        if lib_err > KERNEL_TOL:
-            fail(f"ws {ws} K={kinds}: the SDPA yardstick differs by {lib_err:.3g}")
-        plain = bwd_plain()
-        bwd_err, worst = 0.0, 0.0
-        for name, g, w in zip(("dqkv", "dbias"), grads, plain):
-            err, top = (g - w).abs().max().item(), w.abs().max().item()
-            bwd_err, worst = max(bwd_err, err), max(worst, err / top)
-            if g.shape != w.shape or not err <= GRAD_TOL * top:
-                fail(f"fused_window_mhsa_backward ws {ws} K={kinds}: {name} differs by "
-                     f"{err:.3g} (max |g| {top:.3g})")
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            fail(f"fused_window_mhsa_backward ws {ws} K={kinds}: two runs differ")
-        say(f"[hat kernels] ws {ws} K={kinds}: forward max_abs_err {fwd_err:.3g}, backward "
-            f"{bwd_err:.3g} ({worst:.3g} of its tensor's max |g|), two backward runs "
-            "bit-identical")
+    # the JSON line reports the last case of each name: ws 16, shifted (K=4)
+    for ws, kinds in ((8, 4), (16, 1), (16, 4)):
+        qkv, bias, dout = inputs = window_inputs(gen, kinds, ws, dev)
+        ops = (lambda: wa.fused_window_mhsa(qkv, bias, NH, HD, ws),
+               lambda: wa.fused_window_mhsa_reference(qkv, bias, NH, HD, ws),
+               lambda: wa.fused_window_mhsa_backward(qkv, bias, dout, NH, HD, ws),
+               lambda: wa.fused_window_mhsa_bwd_reference(qkv, bias, dout, NH, HD, ws))
+        cases = window_attention_cases("hat kernels", "fused_window_mhsa", f"ws {ws} K={kinds}",
+                                       ops, inputs, ws, ws, kinds, NH, HD)
         if ws == 8:
             continue  # SwinIR's unfused branch: checked here, timed at ws 16 only
-        fwd_nb = nbytes(qkv, bias, got)
-        bwd_nb = nbytes(qkv, bias, dout, *grads)
-        record("fused_window_mhsa_ws16", fwd, fwd_plain, lib_fwd, 4 * T * n * C, fwd_nb,
-               fwd_err, kinds=kinds)
-        record("fused_window_mhsa_backward", bwd, bwd_plain, lib_fwd_bwd, 10 * T * n * C,
-               bwd_nb, bwd_err, f", largest error {worst:.3g} of its tensor's max |g|", kinds)
+        for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
+            name = "fused_window_mhsa_ws16" if name == "fused_window_mhsa" else name
+            record_kernel(res, "hat kernels", name, f"K={kinds}", kern, plain, lib, flops, nb,
+                          err, note)
 
     # the MLP half's backward (#7), DropPath scales holding 0 and 1/0.9
     x, p, _, _ = block_inputs(gen, 1, dev, shape=(TB, TH, TW))
@@ -1097,9 +1156,9 @@ def phase_hat_kernels() -> dict:
             fail(f"fused_ln_mlp_backward: {name} differs by {e:.3g} (max |g| {top:.3g})")
     if not all(torch.equal(a, b) for a, b in zip(grads, again)):
         fail("fused_ln_mlp_backward: two runs differ")
-    record("fused_ln_mlp_backward", mlp_bwd, mlp_bwd_plain, None, 10 * T * C * HIDDEN,
-           nbytes(x, *params, s, dout, *grads), err,
-           f", largest error {worst:.3g} of its tensor's max |g|, two runs bit-identical", 1)
+    record_kernel(res, "hat kernels", "fused_ln_mlp_backward", "K=1", mlp_bwd, mlp_bwd_plain,
+                  None, 10 * T * C * HIDDEN, nbytes(x, *params, s, dout, *grads), err,
+                  f", largest error {worst:.3g} of its tensor's max |g|, two runs bit-identical")
     return res
 
 
@@ -1133,6 +1192,86 @@ def phase_hat_path(seed: int) -> None:
     if out.shape != (1, 3, 512, 512) or not torch.isfinite(out).all():
         fail(f"HAT-M forward: bad output {tuple(out.shape)}")
     say(f"[hat path] HAT-M 4x forward of one 128x128 image {fwd_ms:.3f} ms")
+
+
+# ---------------------------------------------------------------------------
+# 16. dat kernels
+# ---------------------------------------------------------------------------
+
+
+def rect_inputs(gen, window: tuple[int, int], kinds: int, device):
+    """Seeded unit-scale qkv, kind table and output gradient of one DAT
+    branch at the training block (B=8, qkv padded to 64x64, 3 heads of 30)."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops.window_attention import rect_shift_mask_kinds
+
+    n = window[0] * window[1]
+    qkv = torch.randn(TB, TH, TW, 3 * DC, generator=gen).to(device)
+    rel = (torch.randn(DNH, n, n, generator=gen) * 0.5).to(device)
+    if kinds == 4:
+        masks = rect_shift_mask_kinds(*window, *DAT_WINDOWS[window])
+        rel = rel[None] + torch.from_numpy(masks).to(device)[:, None]
+    else:
+        rel = rel[None]
+    dout = torch.randn(TB, TH, TW, DC, generator=gen).to(device)
+    return qkv, rel.contiguous(), dout
+
+
+def phase_dat_kernels() -> dict:
+    import torch
+
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    res: dict[str, dict] = {}
+    # the JSON line reports the last case: DAT's first branch of a shifted block
+    for (wr, wc), kinds in (((32, 8), 1), ((32, 8), 4), ((8, 16), 4), ((8, 32), 1),
+                            ((8, 32), 4)):
+        qkv, bias, dout = inputs = rect_inputs(gen, (wr, wc), kinds, dev)
+        ops = (lambda: wa.fused_rect_mhsa(qkv, bias, DNH, DHD, wr, wc),
+               lambda: wa.fused_rect_mhsa_reference(qkv, bias, DNH, DHD, wr, wc),
+               lambda: wa.fused_rect_mhsa_backward(qkv, bias, dout, DNH, DHD, wr, wc),
+               lambda: wa.fused_rect_mhsa_bwd_reference(qkv, bias, dout, DNH, DHD, wr, wc))
+        label = f"{wr}x{wc} K={kinds}"
+        cases = window_attention_cases("dat kernels", "fused_rect_mhsa", label, ops, inputs,
+                                       wr, wc, kinds, DNH, DHD)
+        for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
+            record_kernel(res, "dat kernels", name, label, kern, plain, lib, flops, nb, err, note)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 17. dat path
+# ---------------------------------------------------------------------------
+
+
+def dat_serving_counts() -> dict[str, int]:
+    return {"fused_rect_mhsa": DAT_RECT * N_IMAGES}
+
+
+def phase_dat_path(seed: int) -> None:
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+
+    net = build_network({"type": "dat", "scale": 4})
+    net.init_weights(torch.Generator().manual_seed(seed))
+    weights = OUT / "dat_x4_seeded.pth"
+    torch.save(net.state_dict(), weights)
+    hr_dir, lr_dir = make_dataset(OUT / "data", seed)
+    served = serve("dat_x4", weights, hr_dir, lr_dir, seed, {}, "dat")
+    check_counts("DAT serving path", served["counts"], dat_serving_counts())
+    weights.unlink()
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
+    net = net.cuda().eval()
+    with torch.inference_mode():
+        out = net(x)
+        fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+    if out.shape != (1, 3, 512, 512) or not torch.isfinite(out).all():
+        fail(f"DAT forward: bad output {tuple(out.shape)}")
+    say(f"[dat path] DAT 4x forward of one 128x128 image {fwd_ms:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1170,6 +1309,19 @@ def main() -> None:
                    {"fused_window_mhsa": BLOCKS, "fused_window_mhsa_backward": BLOCKS},
                    "hat train branches")
     phase_train_profile(args.seed, "hat_m", "hat train profile", "profile_hat_train.txt")
+    kernels.update(phase_dat_kernels())
+    phase_dat_path(args.seed)
+    dat_step = {"fused_rect_mhsa": DAT_RECT, "fused_rect_mhsa_backward": DAT_RECT}
+    dat_losses = ("l1loss", "mssimloss")
+    dat_counts = phase_train(args.seed, "dat", "DAT", "dat train", dat_step,
+                             dat_serving_counts(), DAT_LQ, dat_losses)
+    launches.update({k: dat_counts[k] for k in dat_step})
+    from trainner_redux_tpu_torch.archs.dat_arch import ZERO_GRAD_PARAMS
+
+    train_branches(args.seed, "dat", "DAT", {}, dat_step, "dat train branches", DAT_LQ,
+                   ZERO_GRAD_PARAMS)
+    phase_train_profile(args.seed, "dat", "dat train profile", "profile_dat_train.txt", DAT_LQ,
+                        dat_losses)
 
     records = []
     for name in KERNELS:

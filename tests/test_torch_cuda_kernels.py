@@ -8,10 +8,11 @@ one (here on the CPU they skip). On the card:
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks.)
 
 Shapes are SwinIR-M's (C=180, 6 heads of 30, window 8, hidden 360) at a
-64x96 map and batch 2, and HAT-M's 16x16 windows at the same widths,
-unit-scale fp32 inputs, tolerance 1e-4 (the kernels sum in another order
-than cuBLAS); the training kernels' gradients within 1e-4 of each tensor's
-largest magnitude.
+64x96 map and batch 2, HAT-M's 16x16 windows at the same widths, and DAT's
+rect windows (a 90-channel branch, 3 heads of 30: 8x32, 32x8, 8x16, 16x8)
+at batch 2 and a 64x64 map; unit-scale fp32 inputs, tolerance 1e-4 (the
+kernels sum in another order than cuBLAS); the training kernels' gradients
+within 1e-4 of each tensor's largest magnitude.
 """
 
 import numpy as np
@@ -319,3 +320,126 @@ def test_swinir_m_branches_agree_on_card(cuda, monkeypatch):
     assert outs["plain"].shape == (1, 3, 160, 224)
     for branch in ("fused", "unfused"):
         np.testing.assert_allclose(outs[branch], outs["plain"], atol=1e-3, rtol=0)
+
+
+# DAT's branches: (h_sp, w_sp) -> the shift of a shifted block
+RECT = {(8, 32): (4, 16), (32, 8): (16, 4), (8, 16): (4, 8), (16, 8): (8, 4)}
+RC, RNH = 90, 3
+
+
+def _rect_inputs(device, window, kinds, seed=0):
+    from trainner_redux_tpu_torch.ops.window_attention import rect_shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(seed)
+    n = window[0] * window[1]
+    qkv = torch.randn(B, 64, 64, 3 * RC, generator=gen).to(device)
+    rel = (torch.randn(RNH, n, n, generator=gen) * 0.5).to(device)
+    if kinds == 4:
+        masks = torch.from_numpy(rect_shift_mask_kinds(*window, *RECT[window])).to(device)
+        rel = rel[None] + masks[:, None]
+    else:
+        rel = rel[None]
+    dout = torch.randn(B, 64, 64, RC, generator=gen).to(device)
+    return qkv, rel.contiguous(), dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize("window", list(RECT))
+def test_fused_rect_mhsa_kernels(cuda, window, kinds):
+    """#3 and #8 in their rect forms against their plain versions."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _rect_inputs(cuda, window, kinds)
+    hd = RC // RNH
+    n0 = (wa.fused_rect_mhsa.launches, wa.fused_rect_mhsa_backward.launches)
+    with torch.no_grad():
+        got = wa.fused_rect_mhsa(qkv, bias, RNH, hd, *window)
+    grads = wa.fused_rect_mhsa_backward(qkv, bias, dout, RNH, hd, *window)
+    torch.cuda.synchronize()
+    assert (wa.fused_rect_mhsa.launches, wa.fused_rect_mhsa_backward.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want = wa.fused_rect_mhsa_reference(qkv, bias, RNH, hd, *window)
+    assert (got - want).abs().max().item() <= TOL
+    plain = wa.fused_rect_mhsa_bwd_reference(qkv, bias, dout, RNH, hd, *window)
+    for name, g, w in zip(("dqkv", "dbias"), grads, plain):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_fused_rect_mhsa_backward_is_deterministic(cuda):
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _rect_inputs(cuda, (32, 8), 4)
+    runs = [wa.fused_rect_mhsa_backward(qkv, bias, dout, RNH, RC // RNH, 32, 8)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_rect_mhsa_refuses_what_the_kernels_do_not_take(cuda):
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _rect_inputs(cuda, (8, 32), 1)
+    hd = RC // RNH
+    with pytest.raises(ValueError, match="limits"):  # H = 60 is not a multiple of 8
+        wa.fused_rect_mhsa(qkv[:, :60].contiguous(), bias, RNH, hd, 8, 32)
+    with pytest.raises(ValueError, match="limits"):  # n = 512
+        wa.fused_rect_mhsa(qkv, torch.zeros(1, RNH, 512, 512, device=cuda), RNH, hd, 16, 32)
+    with pytest.raises(TypeError, match="float32"):
+        wa.fused_rect_mhsa_backward(qkv.double(), bias, dout, RNH, hd, 8, 32)
+    with pytest.raises(ValueError, match="shape"):  # the table of 16x16 windows
+        wa.fused_rect_mhsa(qkv, torch.zeros(1, RNH, 128, 128, device=cuda), RNH, hd, 8, 32)
+
+
+@pytest.mark.cuda
+def test_rect_shared_memory_plans_match_the_source(cuda):
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    lib = cuda_build.library("window_attention")
+    for c, nh in ((90, 3), (30, 3), (180, 6)):
+        for window in list(RECT) + [(8, 8), (16, 16)]:
+            assert lib.trr_rect_mhsa_smem_bytes(c, nh, *window) == wa.rect_mhsa_smem_bytes(
+                c, nh, *window)
+            assert lib.trr_rect_mhsa_bwd_smem_bytes(c, nh, *window) == (
+                wa.rect_mhsa_bwd_smem_bytes(c, nh, *window))
+
+
+@pytest.mark.cuda
+def test_dat_branches_agree_on_card(cuda, monkeypatch):
+    """A DAT 4x (two groups of two blocks at DAT's widths) in train mode,
+    one forward and backward through the rect kernels and the plain
+    branch: the same loss and gradients."""
+    import copy
+
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.archs.dat_arch import ZERO_GRAD_PARAMS
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    net = build_network({"type": "dat", "scale": 4, "depth": [2, 2], "num_heads": [6, 6],
+                         "drop_path_rate": 0.0})
+    net = net.init_weights(torch.Generator().manual_seed(0)).to(cuda).train()
+    nets = {"kernel": net, "plain": copy.deepcopy(net)}
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(2, 3, 48, 40, generator=gen).to(cuda)  # qkv padded to 64x64
+    losses, grads = {}, {}
+    for branch, m in nets.items():
+        monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+        if branch == "plain":
+            monkeypatch.setenv("TRAINNER_FUSED_ATTN", "0")
+        n0 = wa.fused_rect_mhsa_backward.launches
+        loss = m(x).square().mean()
+        loss.backward()
+        assert wa.fused_rect_mhsa_backward.launches - n0 == (4 if branch == "kernel" else 0)
+        losses[branch] = loss.item()
+        grads[branch] = {k: p.grad for k, p in m.named_parameters() if p.grad is not None}
+    assert abs(losses["kernel"] - losses["plain"]) <= 1e-4 * abs(losses["plain"])
+    assert set(grads["kernel"]) == set(grads["plain"])
+    # a true gradient of 0 is held against the largest gradient of all
+    gmax = max(w.abs().max().item() for w in grads["plain"].values())
+    for k, w in grads["plain"].items():
+        ref = gmax if k.endswith(ZERO_GRAD_PARAMS) else w.abs().max().item()
+        assert (grads["kernel"][k] - w).abs().max().item() <= 1e-3 * ref, k

@@ -149,8 +149,13 @@ def test_cpu_tensors_route_to_plain_versions():
     torch.testing.assert_close(wa.fused_window_mhsa(qkv, bias, 2, 8, 8),
                                wa.fused_window_mhsa_reference(qkv, bias, 2, 8, 8),
                                rtol=0, atol=0)
+    qkv, bias = torch.randn(1, 8, 16, 48), torch.zeros(1, 2, 128, 128)
+    torch.testing.assert_close(wa.fused_rect_mhsa(qkv, bias, 2, 8, 8, 16),
+                               wa.fused_rect_mhsa_reference(qkv, bias, 2, 8, 8, 16),
+                               rtol=0, atol=0)
     assert counts == (fb.fused_attn_block.launches, fb.fused_ln_mlp.launches,
                       wa.fused_window_mhsa.launches)
+    assert wa.fused_rect_mhsa.launches == 0
 
 
 def test_other_devices_raise_not_fall_back():
@@ -165,6 +170,9 @@ def test_other_devices_raise_not_fall_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         wa.fused_window_mhsa(torch.empty(1, 8, 8, 48, device="meta"),
                              torch.empty(1, 2, 64, 64, device="meta"), 2, 8, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wa.fused_rect_mhsa(torch.empty(1, 8, 16, 48, device="meta"),
+                           torch.empty(1, 2, 128, 128, device="meta"), 2, 8, 8, 16)
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

@@ -205,8 +205,8 @@ def test_unported_losses_and_optimizers_raise():
     from trainner_redux_tpu_torch.losses import build_loss
     from trainner_redux_tpu_torch.optimizers import build_optimizer
 
-    with pytest.raises(NotImplementedError, match="mssimloss"):
-        build_loss({"type": "mssimloss"})
+    with pytest.raises(NotImplementedError, match="perceptualloss"):
+        build_loss({"type": "perceptualloss"})
     with pytest.raises(NotImplementedError, match="schedule"):
         build_loss({"type": "l1loss", "start_iter": 10})
     with pytest.raises(NotImplementedError, match="lion"):

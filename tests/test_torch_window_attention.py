@@ -6,7 +6,9 @@ window 8, unshifted (K=1) and shifted (K=4). Tolerance 3e-5, that of the
 JAX package's own kernel tests (fp32, other summation order). HAT's 16x16
 windows at B=1, 32x48, 2 heads of 8. The backward (TPU kernel #8: dqkv and
 dbias) against `jax.vjp` of the JAX kernel at both window sizes, K=1 and
-K=4, within 1e-4 of each gradient's largest magnitude.
+K=4, within 1e-4 of each gradient's largest magnitude. DAT's rectangles
+(`fused_rect_mhsa`, n = 128: 8x16 and 16x8) at B=2, 32x32, 2 heads of 8,
+K=1 and K=4: the forward within 1e-5, dqkv and dbias within 1e-4 of max |g|.
 """
 
 import jax
@@ -134,3 +136,94 @@ def test_window_mhsa_plans_at_hat_m():
         2 * 30 * 256 + 256 * 32 + 2 * 30 * 68 + 2 * 64 * 32 + 64 * 260)
     assert twa.window_mhsa_bwd_smem_bytes(180, 6, 16) <= twa.SMEM_LIMIT
     assert twa.window_mhsa_smem_bytes(180, 6) == 4 * (2 * 30 * 68 + 64 * 32 + 64 * 68)
+
+
+# DAT's rect windows: (h_sp, w_sp) -> the shift of a shifted block
+RECT = {(8, 16): (4, 8), (16, 8): (8, 4)}
+RB, RH, RW, RNH, RHD = 2, 32, 32, 2, 8
+
+
+def _rect_inputs(h_sp: int, w_sp: int, kinds: int):
+    rng = np.random.default_rng(h_sp + 10 * kinds)
+    n = h_sp * w_sp
+    qkv = rng.standard_normal((RB, RH, RW, 3 * RNH * RHD)).astype(np.float32)
+    rel = (rng.standard_normal((RNH, n, n)) * 0.1).astype(np.float32)
+    if kinds == 4:
+        bias = rel[None] + jwa.rect_shift_mask_kinds(h_sp, w_sp, *RECT[h_sp, w_sp])[:, None]
+    else:
+        bias = rel[None]
+    dout = rng.standard_normal((RB, RH, RW, RNH * RHD)).astype(np.float32)
+    return qkv, np.ascontiguousarray(bias, dtype=np.float32), dout
+
+
+@pytest.mark.parametrize(("h_sp", "w_sp", "sh", "sw"),
+                         [(8, 32, 4, 16), (32, 8, 16, 4), (8, 16, 4, 8), (2, 4, 1, 2)])
+def test_rect_shift_mask_kinds_equal(h_sp, w_sp, sh, sw):
+    np.testing.assert_array_equal(twa.rect_shift_mask_kinds(h_sp, w_sp, sh, sw),
+                                  jwa.rect_shift_mask_kinds(h_sp, w_sp, sh, sw))
+
+
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize("window", list(RECT))
+def test_fused_rect_mhsa_matches_jax(window, kinds):
+    """The forward (#3's rect form) and, through autograd and the direct
+    entry, the backward (#8's) against the JAX kernel and `jax.vjp`."""
+    h_sp, w_sp = window
+    qkv, bias, dout = _rect_inputs(h_sp, w_sp, kinds)
+    out, vjp = jax.vjp(lambda q, t: jwa.fused_rect_mhsa(q, t, RNH, RHD, h_sp, w_sp, True),
+                       jnp.asarray(qkv), jnp.asarray(bias))
+    want_g = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    launches = (twa.fused_rect_mhsa.launches, twa.fused_rect_mhsa_backward.launches)
+    q = torch.from_numpy(qkv).requires_grad_()
+    t = torch.from_numpy(bias).requires_grad_()
+    got = twa.fused_rect_mhsa(q, t, RNH, RHD, h_sp, w_sp)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-5, rtol=0)
+    got.backward(torch.from_numpy(dout))
+    direct = twa.fused_rect_mhsa_backward(torch.from_numpy(qkv), torch.from_numpy(bias),
+                                          torch.from_numpy(dout), RNH, RHD, h_sp, w_sp)
+    # CPU: the plain versions, no kernel
+    assert (twa.fused_rect_mhsa.launches, twa.fused_rect_mhsa_backward.launches) == launches
+    for grads in ((q.grad, t.grad), direct):
+        for name, g, w in zip(("dqkv", "dbias"), grads, want_g):
+            assert g.shape == w.shape, name
+            err = np.abs(g.detach().numpy() - w).max()
+            assert err <= 1e-4 * np.abs(w).max(), f"{name}: {err:.3g} of {np.abs(w).max():.3g}"
+
+
+def test_square_windows_are_the_rect_ones():
+    """The square entries' plain versions are the rect ones at wr = wc."""
+    qkv, bias = _inputs(True, 16)
+    _, _, _, nh, hd = SHAPES[16]
+    q, t = torch.from_numpy(qkv), torch.from_numpy(bias)
+    torch.testing.assert_close(twa.fused_window_mhsa_reference(q, t, nh, hd, 16),
+                               twa.fused_rect_mhsa_reference(q, t, nh, hd, 16, 16),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(twa.shift_mask_kinds(8, 4), jwa.shift_mask_kinds(8, 4))
+
+
+def test_rect_mhsa_gate(monkeypatch):
+    monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+    assert twa.fused_rect_mhsa_supported(64, 64, 8, 32, 90, 3)  # DAT's branches
+    assert twa.fused_rect_mhsa_supported(64, 64, 32, 8, 90, 3)
+    assert twa.fused_rect_mhsa_supported(128, 128, 16, 8, 90, 3)  # dat_s
+    assert twa.fused_rect_mhsa_supported(64, 64, 8, 32, 30, 3)  # dat_light: heads of 10
+    assert not twa.fused_rect_mhsa_supported(48, 64, 32, 8, 90, 3)  # H not a multiple of 32
+    assert not twa.fused_rect_mhsa_supported(64, 64, 2, 4, 8, 1)  # n = 8
+    assert not twa.fused_rect_mhsa_supported(64, 64, 8, 32, 120, 3)  # heads of 40
+    assert not twa.fused_rect_mhsa_supported(64, 64, 16, 32, 90, 3)  # n = 512
+    monkeypatch.setenv("TRAINNER_FUSED_ATTN", "0")
+    assert not twa.fused_rect_mhsa_supported(64, 64, 8, 32, 90, 3)
+
+
+def test_rect_mhsa_plans_at_dat():
+    """DAT's branch (90 channels, 3 heads of 30) at n = 256 takes the ws-16
+    plans (138 KB forward, 193 KB backward); dat_s's n = 128 less."""
+    for window in ((8, 32), (32, 8)):
+        assert twa.rect_mhsa_smem_bytes(90, 3, *window) == twa.window_mhsa_smem_bytes(180, 6, 16)
+        assert twa.rect_mhsa_bwd_smem_bytes(90, 3, *window) == (
+            twa.window_mhsa_bwd_smem_bytes(180, 6, 16))
+    assert twa.rect_mhsa_smem_bytes(90, 3, 8, 16) == 4 * (30 * 68 + 30 * 128 + 128 * 32
+                                                         + 64 * 132)
+    assert twa.rect_mhsa_bwd_smem_bytes(90, 3, 16, 8) == 4 * (
+        2 * 30 * 128 + 128 * 32 + 2 * 30 * 68 + 2 * 64 * 32 + 64 * 132)

@@ -1,18 +1,21 @@
 """Architectures of the port: registration + build_network.
 
 Parity: the JAX package's archs/__init__.py, without its directory scan:
-only the ported archs (SwinIR, HAT) are imported and registered.
+only the ported archs (SwinIR, HAT, DAT) are imported and registered, and
+`build_network` resolves a type in SPANDREL_REGISTRY, then ARCH_REGISTRY,
+as the JAX package does.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from trainner_redux_tpu_torch.archs import dat_arch  # noqa: F401 (registers dat*)
 from trainner_redux_tpu_torch.archs import hat_arch  # noqa: F401 (registers hat*)
 from trainner_redux_tpu_torch.archs import swinir_arch  # noqa: F401 (registers swinir_*)
-from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY
+from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY, SPANDREL_REGISTRY
 
-__all__ = ["build_network", "ARCH_REGISTRY"]
+__all__ = ["build_network", "ARCH_REGISTRY", "SPANDREL_REGISTRY"]
 
 
 def build_network(opt: dict[str, Any]):
@@ -20,10 +23,11 @@ def build_network(opt: dict[str, Any]):
     The model layer injects `scale`. Returns an nn.Module on the CPU."""
     opt = dict(opt)
     network_type = opt.pop("type")
-    factory = ARCH_REGISTRY.get_optional(network_type)
+    factory = SPANDREL_REGISTRY.get_optional(network_type) or ARCH_REGISTRY.get_optional(
+        network_type)
     if factory is None:
         raise KeyError(
             f"Network type '{network_type}' is not ported to torch. "
-            f"Known: {ARCH_REGISTRY.keys()}"
+            f"Known: {sorted(set(SPANDREL_REGISTRY.keys()) | set(ARCH_REGISTRY.keys()))}"
         )
     return factory(**opt)

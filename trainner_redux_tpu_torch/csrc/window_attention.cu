@@ -1,14 +1,16 @@
 // Shifted-window multi-head self-attention from packed qkv, forward and
 // backward, fp32, for sm_90a.
 //
-// Replaces the JAX package's Pallas TPU kernels of fused_window_mhsa in
-// trainner_redux_tpu/ops/pallas/window_attention.py:
+// Replaces the JAX package's Pallas TPU kernels of fused_window_mhsa and
+// fused_rect_mhsa in trainner_redux_tpu/ops/pallas/window_attention.py:
 //   forward  (_fwd_kernel, pallas_call at :337):
 //       out (B, H, W, C) = window-MHSA(qkv (B, H, W, 3C), bias kinds (K, nh, n, n))
 //   backward (_bwd_kernel, pallas_call at :371): dqkv (B, H, W, 3C) and
 //       dbias (K, nh, n, n), the softmax recomputed from qkv and the bias
 // with qkv's channels grouped [q | k | v] and heads contiguous in each, and
-// n = ws * ws tokens per window: ws 8 (n 64, SwinIR) or ws 16 (n 256, HAT).
+// n = wr * wc tokens per window of wr rows and wc columns: square 8x8 (n 64,
+// SwinIR) and 16x16 (n 256, HAT), or DAT's rectangles of n 256 (8x32,
+// 32x8) and n 128 (8x16, 16x8).
 //
 // What bounds them on the card. The ws-8 forward is bound by device memory:
 // at SwinIR-M widths it does 0.76 GFLOP at 16,384 tokens against 47 MB moved
@@ -22,13 +24,13 @@
 //     head) stages that head's q, k (transposed) and v, builds the 64x64
 //     scores with the bias of the window's kind, takes the row softmax and
 //     writes P v straight to the output; 42 KB of shared memory.
-//   - window_mhsa_rows_fwd_kernel<N> (ws 16): one block per (window, head)
-//     stages k and v of the window's N = 256 tokens once and walks the
+//   - window_mhsa_rows_fwd_kernel<N> (N 128 or 256): one block per (window,
+//     head) stages k and v of the window's N tokens once and walks the
 //     queries in blocks of 64 rows: a 64 x 256 score tile (64 KB) does fit
 //     one block where the whole 256 x 256 tile (256 KB) does not. The row
 //     softmax is taken in registers and the rows go through shared memory
-//     to the P v product; 138 KB of shared memory.
-//   - window_mhsa_bwd_kernel<N> (ws 8 and 16): one block per (window,
+//     to the P v product; 138 KB of shared memory at N 256 and head_dim 30.
+//   - window_mhsa_bwd_kernel<N> (N 64, 128, 256): one block per (window,
 //     head), query rows in blocks of 64: recompute P, then dV += P^T dO,
 //     dP = dO v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k (written per
 //     row block) and dK += scale dS^T q. dK and dV of the window sum over
@@ -43,11 +45,11 @@
 
 namespace trr {
 
-// Index (into the B*H*W tokens) of token r, row-major, of the ws x ws
+// Index (into the B*H*W tokens) of token r, row-major, of the wr x wc
 // window (wi, wj) of sample b.
 __device__ __forceinline__ long long win_token(int b, int wi, int wj, int r, int H, int W,
-                                               int ws) {
-  return ((long long)b * H + wi * ws + r / ws) * W + wj * ws + r % ws;
+                                               int wr, int wc) {
+  return ((long long)b * H + wi * wr + r / wc) * W + wj * wc + r % wc;
 }
 
 __device__ __forceinline__ float half_warp_sum(float v) {
@@ -67,7 +69,7 @@ __host__ __device__ inline int window_mhsa_smem_floats(int C, int nh) {
   return 2 * hd * kTLd + kTile * kVLd + kTile * kTLd;
 }
 
-// Shared memory of the ws-16 forward (N = 256): this row block's q (hd, 64)
+// Shared memory of the row-block forward (N = 128 or 256): this row block's q (hd, 64)
 // transposed, k (hd, N) transposed, v (N, 32), the P rows (64, N + 4).
 __host__ __device__ inline int window_mhsa_rows_smem_floats(int N, int hd) {
   return hd * kTLd + hd * N + N * kVLd + kTile * (N + 4);
@@ -185,23 +187,23 @@ __device__ __forceinline__ void store_rows(const float (&p)[4][N / 16], float* T
           make_float4(p[i][jj * 4], p[i][jj * 4 + 1], p[i][jj * 4 + 2], p[i][jj * 4 + 3]);
 }
 
-// One block per (ws x ws window, head), N = ws * ws a multiple of 64; the
+// One block per (wr x wc window, head), N = wr * wc a multiple of 64; the
 // query rows in blocks of 64.
 template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
     window_mhsa_rows_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                                 float* __restrict__ out, int H, int W, int C, int nh, int kinds,
-                                int ws, float scale) {
+                                int wr, int wc, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / ws, nwh = H / ws;
+  const int nww = W / wc, nwh = H / wr;
   const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
   const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
   float* qT = smem;                 // (hd, 64) this row block's q
   float* kT = qT + hd * kTLd;       // (hd, N)
   float* v = kT + hd * N;           // (N, 32)
   float* P = v + N * kVLd;          // (64, N + 4)
-  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, ws); };
+  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, wr, wc); };
   const int kind = window_kind(kinds, wi, wj, nwh, nww);
   const float* table = bias + ((size_t)kind * nh + h) * N * N;
 
@@ -245,22 +247,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// One block per (ws x ws window, head), N = ws * ws (64 or 256); the query
-// rows in blocks of 64. dqkv (B, H, W, 3C) gets every token's dq | dk | dv
-// of this head; dS (B, H/ws, W/ws, nh, N, N) the window's dS for the
+// One block per (wr x wc window, head), N = wr * wc (64, 128 or 256); the
+// query rows in blocks of 64. dqkv (B, H, W, 3C) gets every token's dq | dk |
+// dv of this head; dS (B, H/wr, W/wc, nh, N, N) the window's dS for the
 // bias-kind reduction.
 template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
     window_mhsa_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                            const float* __restrict__ dout, float* __restrict__ dqkv,
                            float* __restrict__ dS, int H, int W, int C, int nh, int kinds,
-                           int ws, float scale) {
+                           int wr, int wc, float scale) {
   constexpr int kLd = N + 4;          // row stride of the P / dS tile
   constexpr int kKL = 1024 / N;       // key-side lanes: threads sharing 4 keys
   constexpr int kKC = kVLd / kKL;     // channels of dK and dV per thread
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / ws, nwh = H / ws;
+  const int nww = W / wc, nwh = H / wr;
   const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
   const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
   const int kg = threadIdx.x / kKL, kl = threadIdx.x % kKL;  // keys kg*4.., channels kl*kKC..
@@ -272,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* q = doT + hd * kTLd;        // (64, 32)
   float* dO = q + kTile * kVLd;      // (64, 32)
   float* T = dO + kTile * kVLd;      // (64, N + 4): P, then dS
-  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, ws); };
+  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, wr, wc); };
   const int kind = window_kind(kinds, wi, wj, nwh, nww);
   const float* table = bias + ((size_t)kind * nh + h) * N * N;
   const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
@@ -423,69 +425,108 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
-size_t trr_window_mhsa_smem_bytes(int C, int nh, int ws) {
-  const int floats = ws == 8 ? trr::window_mhsa_smem_floats(C, nh)
-                             : trr::window_mhsa_rows_smem_floats(ws * ws, C / nh);
+size_t trr_rect_mhsa_smem_bytes(int C, int nh, int wr, int wc) {
+  const int floats = wr == 8 && wc == 8 ? trr::window_mhsa_smem_floats(C, nh)
+                                        : trr::window_mhsa_rows_smem_floats(wr * wc, C / nh);
   return (size_t)floats * sizeof(float);
 }
 
-size_t trr_window_mhsa_bwd_smem_bytes(int C, int nh, int ws) {
-  return (size_t)trr::window_mhsa_bwd_smem_floats(ws * ws, C / nh) * sizeof(float);
+size_t trr_rect_mhsa_bwd_smem_bytes(int C, int nh, int wr, int wc) {
+  return (size_t)trr::window_mhsa_bwd_smem_floats(wr * wc, C / nh) * sizeof(float);
 }
 
-// qkv (B, H, W, 3C), out (B, H, W, C), bias (kinds, nh, n, n), n = ws * ws.
-// Windows are 8x8 or 16x16; H and W are multiples of ws; C / nh <= 32.
-int trr_window_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, int H, int W,
-                        int C, int nh, int kinds, int ws, float scale, cudaStream_t stream) {
-  const size_t smem = trr_window_mhsa_smem_bytes(C, nh, ws);
-  const dim3 grid((H / ws) * (W / ws), B, nh);
-  if (ws == 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        trr::window_mhsa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+size_t trr_window_mhsa_smem_bytes(int C, int nh, int ws) {
+  return trr_rect_mhsa_smem_bytes(C, nh, ws, ws);
+}
+
+size_t trr_window_mhsa_bwd_smem_bytes(int C, int nh, int ws) {
+  return trr_rect_mhsa_bwd_smem_bytes(C, nh, ws, ws);
+}
+
+// qkv (B, H, W, 3C), out (B, H, W, C), bias (kinds, nh, n, n), windows of
+// wr rows and wc columns, n = wr * wc: 8x8, or any wr x wc with n 128 or
+// 256. H is a multiple of wr, W of wc; C / nh <= 32.
+int trr_rect_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, int H, int W,
+                      int C, int nh, int kinds, int wr, int wc, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = trr_rect_mhsa_smem_bytes(C, nh, wr, wc);
+  const dim3 grid((H / wr) * (W / wc), B, nh);
+  const int n = wr * wc;
+  cudaError_t err;
+  if (wr == 8 && wc == 8) {
+    err = cudaFuncSetAttribute(trr::window_mhsa_fwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     trr::window_mhsa_fwd_kernel<<<grid, trr::kThreads, smem, stream>>>(qkv, bias, out, H, W, C,
                                                                         nh, kinds, scale);
-  } else if (ws == 16) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(trr::window_mhsa_rows_fwd_kernel<256>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  } else if (n == 256) {
+    err = cudaFuncSetAttribute(trr::window_mhsa_rows_fwd_kernel<256>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     trr::window_mhsa_rows_fwd_kernel<256><<<grid, trr::kThreads, smem, stream>>>(
-        qkv, bias, out, H, W, C, nh, kinds, ws, scale);
+        qkv, bias, out, H, W, C, nh, kinds, wr, wc, scale);
+  } else if (n == 128) {
+    err = cudaFuncSetAttribute(trr::window_mhsa_rows_fwd_kernel<128>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    trr::window_mhsa_rows_fwd_kernel<128><<<grid, trr::kThreads, smem, stream>>>(
+        qkv, bias, out, H, W, C, nh, kinds, wr, wc, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// Square ws x ws windows: ws 8 or 16.
+int trr_window_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, int H, int W,
+                        int C, int nh, int kinds, int ws, float scale, cudaStream_t stream) {
+  if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
+  return trr_rect_mhsa_fwd(qkv, bias, out, B, H, W, C, nh, kinds, ws, ws, scale, stream);
+}
+
 // The backward: qkv, bias as in the forward, dout (B, H, W, C); writes
-// dqkv (B, H, W, 3C), dS (B, H/ws, W/ws, nh, n, n) scratch and
-// dbias (kinds, nh, n, n).
-int trr_window_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
-                        float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
-                        int ws, float scale, cudaStream_t stream) {
-  const size_t smem = trr_window_mhsa_bwd_smem_bytes(C, nh, ws);
-  const dim3 grid((H / ws) * (W / ws), B, nh);
+// dqkv (B, H, W, 3C), dS (B, H/wr, W/wc, nh, n, n) scratch and
+// dbias (kinds, nh, n, n). n = wr * wc is 64, 128 or 256.
+int trr_rect_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
+                      float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
+                      int wr, int wc, float scale, cudaStream_t stream) {
+  const size_t smem = trr_rect_mhsa_bwd_smem_bytes(C, nh, wr, wc);
+  const dim3 grid((H / wr) * (W / wc), B, nh);
+  const int n = wr * wc;
   cudaError_t err;
-  if (ws == 8) {
+  if (n == 64) {
     err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<64>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     trr::window_mhsa_bwd_kernel<64><<<grid, trr::kThreads, smem, stream>>>(
-        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, ws, scale);
-  } else if (ws == 16) {
+        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, wr, wc, scale);
+  } else if (n == 128) {
+    err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<128>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    trr::window_mhsa_bwd_kernel<128><<<grid, trr::kThreads, smem, stream>>>(
+        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, wr, wc, scale);
+  } else if (n == 256) {
     err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<256>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     trr::window_mhsa_bwd_kernel<256><<<grid, trr::kThreads, smem, stream>>>(
-        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, ws, scale);
+        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, wr, wc, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)trr::launch_dbias(dS, B, H / ws, W / ws, nh, kinds, ws * ws * ws * ws, dbias,
-                                stream);
+  return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);
+}
+
+// Square ws x ws windows: ws 8 or 16.
+int trr_window_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
+                        float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
+                        int ws, float scale, cudaStream_t stream) {
+  if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
+  return trr_rect_mhsa_bwd(qkv, bias, dout, dqkv, dS, dbias, B, H, W, C, nh, kinds, ws, ws,
+                           scale, stream);
 }
 
 }  // extern "C"

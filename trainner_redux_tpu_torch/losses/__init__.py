@@ -1,12 +1,13 @@
 """Loss registry: build_loss and the log keys (port of the JAX package's
-losses/__init__.py). Only the pixel losses of `basic_loss.py` are ported;
-any other type, and the iterative schedule parameters, raise."""
+losses/__init__.py). Ported: the pixel losses of `basic_loss.py` and the
+SSIM / MS-SSIM losses of `mssim_loss.py`; any other type, and the iterative
+schedule parameters, raise."""
 
 from __future__ import annotations
 
 from typing import Any
 
-from trainner_redux_tpu_torch.losses import basic_loss  # noqa: F401 (registers)
+from trainner_redux_tpu_torch.losses import basic_loss, mssim_loss  # noqa: F401 (registers)
 from trainner_redux_tpu_torch.utils.registry import LOSS_REGISTRY
 
 __all__ = ["build_loss", "loss_log_key", "LOSS_REGISTRY"]

@@ -65,6 +65,10 @@ SIGNATURES = {
         "trr_window_mhsa_bwd": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
         "trr_window_mhsa_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_window_mhsa_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "trr_rect_mhsa_fwd": ([_P] * 3 + [_I] * 8 + [_F, _P], _I),
+        "trr_rect_mhsa_bwd": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
+        "trr_rect_mhsa_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+        "trr_rect_mhsa_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     },
 }
 

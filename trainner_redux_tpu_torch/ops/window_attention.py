@@ -1,25 +1,33 @@
-"""Shifted-window multi-head self-attention: the CUDA kernels' wrapper, their
-plain PyTorch versions, and the bias-kind helpers.
+"""Shifted-window multi-head self-attention: the CUDA kernels' wrappers,
+their plain PyTorch versions, and the bias-kind helpers.
 
 Port of the JAX package's ops/pallas/window_attention.py. Layout contract
 (the same):
 
   qkv  (B, H, W, 3C): one Dense over NHWC, channel groups [q | k | v], each
        C = num_heads * head_dim with heads contiguous.
-  bias (K, nh, n, n) fp32, n = window_size**2: relative-position bias plus
-       the cyclic-shift mask. K = 1 (unshifted: every window is kind 0) or 4
-       (shifted: interior / right edge / bottom edge / corner); the kind of a
-       window is 2 * is_bottom_row + is_rightmost_column.
+  bias (K, nh, n, n) fp32, n = wr * wc tokens of a window of wr rows and wc
+       columns: relative-position bias plus the cyclic-shift mask. K = 1
+       (unshifted: every window is kind 0) or 4 (shifted: interior / right
+       edge / bottom edge / corner); the kind of a window is
+       2 * is_bottom_row + is_rightmost_column.
   out  (B, H, W, C)
 
-The kernels take 8x8 (n = 64, SwinIR) and 16x16 (n = 256, HAT) windows
-and heads of at most 32 channels, in fp32. `fused_window_mhsa` is a
-torch.autograd.Function: on a CUDA tensor its forward launches the forward
-kernel of `csrc/window_attention.cu` (TPU kernel #3) and its backward the
-backward kernel (#8), which recomputes the softmax from qkv and the bias and
+Two entries share the kernels of `csrc/window_attention.cu` (TPU kernel #3
+forward, #8 backward), each counted on its own:
+
+- `fused_window_mhsa(qkv, bias, nh, hd, window_size)`: square windows, 8x8
+  (n = 64, SwinIR) and 16x16 (n = 256, HAT);
+- `fused_rect_mhsa(qkv, bias, nh, hd, h_sp, w_sp)`: DAT's rectangles of
+  h_sp rows and w_sp columns, n = 128 (8x16, 16x8) or 256 (8x32, 32x8).
+
+Heads of at most 32 channels, fp32. Both are torch.autograd.Functions: on a
+CUDA tensor the forward launches the forward kernel and the backward the
+backward kernel, which recomputes the softmax from qkv and the bias and
 returns dqkv and dbias; on a CPU tensor both directions run their plain
-versions (`fused_window_mhsa_reference`, `fused_window_mhsa_bwd_reference`).
-Any other device, or a tensor the kernels do not take, raises.
+versions (`fused_rect_mhsa_reference`, `fused_rect_mhsa_bwd_reference`, and
+their square forms). Any other device, or a tensor the kernels do not take,
+raises.
 """
 
 from __future__ import annotations
@@ -32,27 +40,39 @@ import torch
 # shared memory one thread block may use on sm_90 (bytes)
 SMEM_LIMIT = 232_448
 # the kernels' tiles (csrc/common.cuh): 64 tokens (an 8x8 window, or 64
-# query rows of a 16x16 one), transposed tiles of row stride 68, v rows of 32
-# (so head_dim <= 32)
+# query rows of a larger one), transposed tiles of row stride 68, v rows of
+# 32 (so head_dim <= 32)
 WINDOW = 8
 WINDOWS = (8, 16)
+RECT_TOKENS = (128, 256)  # n of the row-block kernels, besides the 8x8 window
 TILE = 64
 TILE_LD = 68
 V_LD = 32
 
 
-def window_mhsa_smem_bytes(channels: int, num_heads: int, window_size: int = WINDOW) -> int:
-    """Shared memory of the forward kernel (csrc/window_attention.cu)."""
-    hd, n = channels // num_heads, window_size**2
-    if window_size == WINDOW:
+def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
+    """Shared memory of the forward kernel (csrc/window_attention.cu) for
+    windows of wr rows and wc columns."""
+    hd, n = channels // num_heads, wr * wc
+    if wr == wc == WINDOW:
         return 4 * (2 * hd * TILE_LD + TILE * V_LD + TILE * TILE_LD)
     return 4 * (hd * TILE_LD + hd * n + n * V_LD + TILE * (n + 4))
 
 
-def window_mhsa_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
+def rect_mhsa_bwd_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
     """Shared memory of the backward kernel (csrc/window_attention.cu)."""
-    hd, n = channels // num_heads, window_size**2
+    hd, n = channels // num_heads, wr * wc
     return 4 * (2 * hd * n + n * V_LD + 2 * hd * TILE_LD + 2 * TILE * V_LD + TILE * (n + 4))
+
+
+def window_mhsa_smem_bytes(channels: int, num_heads: int, window_size: int = WINDOW) -> int:
+    """Shared memory of the forward kernel at square windows."""
+    return rect_mhsa_smem_bytes(channels, num_heads, window_size, window_size)
+
+
+def window_mhsa_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
+    """Shared memory of the backward kernel at square windows."""
+    return rect_mhsa_bwd_smem_bytes(channels, num_heads, window_size, window_size)
 
 
 def heads_fit(window_size: int, channels: int, num_heads: int) -> bool:
@@ -64,16 +84,27 @@ def heads_fit(window_size: int, channels: int, num_heads: int) -> bool:
     )
 
 
-def window_mhsa_fits(h: int, w: int, window_size: int, channels: int, num_heads: int) -> bool:
-    """The window kernels' limits: window-aligned spatial dims, 8x8 or 16x16
-    windows, heads of at most 32 channels, and the forward's and backward's
-    shared-memory plans within one thread block's."""
-    if window_size not in WINDOWS or h % window_size or w % window_size:
+def rect_mhsa_fits(h: int, w: int, wr: int, wc: int, channels: int, num_heads: int) -> bool:
+    """The window kernels' limits: 8x8 windows or windows of 128 or 256
+    tokens, H a multiple of wr and W of wc, heads of at most 32 channels, and
+    the forward's and backward's shared-memory plans within one thread
+    block's."""
+    if not (wr == wc == WINDOW or wr * wc in RECT_TOKENS) or h % wr or w % wc:
         return False
     if channels % num_heads or channels // num_heads > V_LD:
         return False
-    return max(window_mhsa_smem_bytes(channels, num_heads, window_size),
-               window_mhsa_bwd_smem_bytes(channels, num_heads, window_size)) <= SMEM_LIMIT
+    return max(rect_mhsa_smem_bytes(channels, num_heads, wr, wc),
+               rect_mhsa_bwd_smem_bytes(channels, num_heads, wr, wc)) <= SMEM_LIMIT
+
+
+def window_mhsa_fits(h: int, w: int, window_size: int, channels: int, num_heads: int) -> bool:
+    """`rect_mhsa_fits` for square windows: 8x8 or 16x16."""
+    return window_size in WINDOWS and rect_mhsa_fits(h, w, window_size, window_size, channels,
+                                                     num_heads)
+
+
+def _attn_kernels_on() -> bool:
+    return os.environ.get("TRAINNER_FUSED_ATTN", "1") != "0"
 
 
 def fused_window_mhsa_supported(
@@ -82,38 +113,45 @@ def fused_window_mhsa_supported(
     """Whether a block's attention takes the kernels (SwinBlock's unfused
     branch, HAB): within their limits, unless TRAINNER_FUSED_ATTN=0 (the
     global off switch)."""
-    if os.environ.get("TRAINNER_FUSED_ATTN", "1") == "0":
-        return False
-    return window_mhsa_fits(h, w, window_size, channels, num_heads)
+    return _attn_kernels_on() and window_mhsa_fits(h, w, window_size, channels, num_heads)
+
+
+def fused_rect_mhsa_supported(
+    h: int, w: int, h_sp: int, w_sp: int, channels: int, num_heads: int
+) -> bool:
+    """Whether a DAT spatial-attention branch takes the kernels: within their
+    limits (`rect_mhsa_fits`), unless TRAINNER_FUSED_ATTN=0. The device is
+    not checked: on a CPU tensor the wrapper runs its plain versions."""
+    return _attn_kernels_on() and rect_mhsa_fits(h, w, h_sp, w_sp, channels, num_heads)
+
+
+def rect_shift_mask_kinds(h_sp: int, w_sp: int, sh: int, sw: int) -> np.ndarray:
+    """The 4 distinct cyclic-shift attention masks (kind, n, n) fp32 of
+    windows of h_sp rows and w_sp columns on a map rolled by (-sh, -sw):
+    0 interior, 1 right-edge column, 2 bottom-edge row, 3 bottom-right
+    corner. In an edge window the last sh rows (sw columns) wrapped around
+    from the opposite image edge; windows not touching the wrapped edge see
+    an all-zero mask. Masked pairs get -100 (not -inf), as upstream."""
+    n = h_sp * w_sp
+    row_edge = np.zeros((h_sp,), np.int32)
+    row_edge[h_sp - sh :] = 1
+    col_edge = np.zeros((w_sp,), np.int32)
+    col_edge[w_sp - sw :] = 1
+    row_int = np.zeros((h_sp,), np.int32)
+    col_int = np.zeros((w_sp,), np.int32)
+    masks = np.zeros((4, n, n), np.float32)
+    for kind, (rs, cs) in enumerate(
+        [(row_int, col_int), (row_int, col_edge), (row_edge, col_int), (row_edge, col_edge)]
+    ):
+        seg = (rs[:, None] * 2 + cs[None, :]).reshape(-1)  # (n,)
+        masks[kind] = np.where(seg[:, None] != seg[None, :], -100.0, 0.0)
+    return masks
 
 
 def shift_mask_kinds(window_size: int, shift: int) -> np.ndarray:
-    """The 4 distinct cyclic-shift attention masks (kind, n, n) fp32 for a
-    shifted window layer: 0 interior, 1 right-edge column, 2 bottom-edge row,
-    3 bottom-right corner. Equivalent to upstream SwinIR's calculate_mask
-    evaluated per window position; windows not touching the wrapped edge see
-    an all-zero mask. Masked pairs get -100 (not -inf), as upstream."""
-    ws, s = window_size, shift
-    n = ws * ws
-    # segment id along one axis after cyclic shift by -s, for an edge window:
-    # the last `s` positions wrapped around from the opposite image edge
-    edge_seg = np.zeros((ws,), np.int32)
-    edge_seg[ws - s :] = 1
-    interior_seg = np.zeros((ws,), np.int32)
-
-    masks = np.zeros((4, n, n), np.float32)
-    for kind, (row_seg, col_seg) in enumerate(
-        [
-            (interior_seg, interior_seg),
-            (interior_seg, edge_seg),
-            (edge_seg, interior_seg),
-            (edge_seg, edge_seg),
-        ]
-    ):
-        seg = (row_seg[:, None] * 2 + col_seg[None, :]).reshape(-1)  # (n,)
-        diff = seg[:, None] != seg[None, :]
-        masks[kind] = np.where(diff, -100.0, 0.0)
-    return masks
+    """The square windows' 4 shift masks (kind, n, n); equivalent to upstream
+    SwinIR's calculate_mask evaluated per window position."""
+    return rect_shift_mask_kinds(window_size, window_size, shift, shift)
 
 
 def window_kinds(nwh: int, nww: int, kinds: int, device=None) -> torch.Tensor:
@@ -125,31 +163,83 @@ def window_kinds(nwh: int, nww: int, kinds: int, device=None) -> torch.Tensor:
     return (2 * (i == nwh - 1) + (j == nww - 1)).reshape(-1).long()
 
 
-def reference_window_mhsa(qkv, bias_full, num_heads, head_dim, window_size):
-    """Plain PyTorch window MHSA with a per-window bias
-    bias_full (nWh * nWw, nh, n, n), already including any shift mask."""
-    b, hh, ww, _ = qkv.shape
-    c = num_heads * head_dim
-    ws = window_size
-    n = ws * ws
-    nwh, nww = hh // ws, ww // ws
-    x = qkv.reshape(b, nwh, ws, nww, ws, 3 * c)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, nwh * nww, n, 3, num_heads, head_dim)
+def rect_partition(t: torch.Tensor, wr: int, wc: int) -> torch.Tensor:
+    """(B, H, W, X) -> (B, nW, wr * wc, X), windows of wr rows and wc
+    columns, row-major."""
+    b, hh, ww, _ = t.shape
+    t = t.reshape(b, hh // wr, wr, ww // wc, wc, -1).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(b, (hh // wr) * (ww // wc), wr * wc, -1)
+
+
+def rect_reverse(t: torch.Tensor, hh: int, ww: int, wr: int, wc: int) -> torch.Tensor:
+    """(B, nW, wr * wc, X) -> (B, H, W, X), the inverse of `rect_partition`."""
+    b = t.shape[0]
+    t = t.reshape(b, hh // wr, ww // wc, wr, wc, -1).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(b, hh, ww, -1)
+
+
+def reference_rect_mhsa(qkv, bias_full, num_heads, head_dim, wr, wc,
+                        scale: float | None = None):
+    """Plain PyTorch window MHSA over windows of wr rows and wc columns with
+    a per-window bias bias_full (nW or 1, nh, n, n), already including any
+    shift mask; the scores scaled by `scale`, head_dim**-0.5 by default."""
+    _, hh, ww, _ = qkv.shape
+    x = rect_partition(qkv, wr, wc).unflatten(-1, (3, num_heads, head_dim))
     q, k, v = x.permute(3, 0, 1, 4, 2, 5).float()  # each (b, nw, nh, n, hd)
     s = torch.einsum("bwhnd,bwhmd->bwhnm", q, k)
-    s = s * (head_dim**-0.5) + bias_full[None].float()
+    s = s * (scale or head_dim**-0.5) + bias_full[None].float()
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bwhnm,bwhmd->bwhnd", p, v)
-    o = o.permute(0, 1, 3, 2, 4).reshape(b, nwh, nww, ws, ws, c)
-    return o.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, c).to(qkv.dtype)
+    return rect_reverse(o.transpose(2, 3).flatten(-2), hh, ww, wr, wc).to(qkv.dtype)
+
+
+def reference_window_mhsa(qkv, bias_full, num_heads, head_dim, window_size):
+    """`reference_rect_mhsa` at square windows."""
+    return reference_rect_mhsa(qkv, bias_full, num_heads, head_dim, window_size, window_size)
+
+
+def fused_rect_mhsa_reference(qkv, bias, num_heads, head_dim, h_sp, w_sp):
+    """The forward kernel's spec: window MHSA with the (K, nh, n, n) kind
+    table, windows of h_sp rows and w_sp columns."""
+    _, hh, ww, _ = qkv.shape
+    idx = window_kinds(hh // h_sp, ww // w_sp, bias.shape[0], device=bias.device)
+    return reference_rect_mhsa(qkv, bias[idx], num_heads, head_dim, h_sp, w_sp)
 
 
 def fused_window_mhsa_reference(qkv, bias, num_heads, head_dim, window_size):
-    """The kernel's spec: window MHSA with the (K, nh, n, n) kind table."""
+    """`fused_rect_mhsa_reference` at square windows."""
+    return fused_rect_mhsa_reference(qkv, bias, num_heads, head_dim, window_size, window_size)
+
+
+def fused_rect_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
+    """The backward kernel's spec, step by step, in fp32: (dqkv (B,H,W,3C),
+    dbias (K,nh,n,n)) of `fused_rect_mhsa_reference` for the output gradient
+    dout (B,H,W,C), the softmax recomputed from qkv and the bias."""
     _, hh, ww, _ = qkv.shape
-    ws = window_size
-    idx = window_kinds(hh // ws, ww // ws, bias.shape[0], device=bias.device)
-    return reference_window_mhsa(qkv, bias[idx], num_heads, head_dim, window_size)
+    n, kinds = h_sp * w_sp, bias.shape[0]
+
+    def heads(t):  # (B, nW, n, nh*hd) -> (B, nW, nh, n, hd)
+        return t.unflatten(-1, (num_heads, head_dim)).transpose(2, 3)
+
+    q, k, v = (heads(t) for t in rect_partition(qkv.float(), h_sp, w_sp).chunk(3, dim=-1))
+    do = heads(rect_partition(dout.float(), h_sp, w_sp))
+    kind = window_kinds(hh // h_sp, ww // w_sp, kinds, device=bias.device)
+    scale = head_dim**-0.5
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale + bias.float()[kind], dim=-1)
+    dv = p.transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
+    dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=qkv.device)
+    dbias.index_add_(0, kind, ds.sum(0))
+    dqkv = torch.cat([t.transpose(2, 3).flatten(-2) for t in (dq, dk, dv)], dim=-1)
+    return rect_reverse(dqkv, hh, ww, h_sp, w_sp).to(qkv.dtype), dbias.to(bias.dtype)
+
+
+def fused_window_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window_size):
+    """`fused_rect_mhsa_bwd_reference` at square windows."""
+    return fused_rect_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window_size,
+                                         window_size)
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -177,55 +267,25 @@ def refuse_autograd(name: str, backward: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def fused_window_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window_size):
-    """The backward kernel's spec, step by step, in fp32: (dqkv (B,H,W,3C),
-    dbias (K,nh,n,n)) of `fused_window_mhsa_reference` for the output
-    gradient dout (B,H,W,C), the softmax recomputed from qkv and the bias."""
-    b, hh, ww, _ = qkv.shape
-    ws, n, kinds = window_size, window_size**2, bias.shape[0]
-    nwh, nww = hh // ws, ww // ws
-
-    def windows(t):  # (B, H, W, X) -> (B, nW, n, X)
-        t = t.float().reshape(b, nwh, ws, nww, ws, -1).permute(0, 1, 3, 2, 4, 5)
-        return t.reshape(b, nwh * nww, n, -1)
-
-    def heads(t):  # (B, nW, n, nh*hd) -> (B, nW, nh, n, hd)
-        return t.unflatten(-1, (num_heads, head_dim)).transpose(2, 3)
-
-    q, k, v = (heads(t) for t in windows(qkv).chunk(3, dim=-1))
-    do = heads(windows(dout))
-    kind = window_kinds(nwh, nww, kinds, device=bias.device)
-    scale = head_dim**-0.5
-    p = torch.softmax(q @ k.transpose(-1, -2) * scale + bias.float()[kind], dim=-1)
-    dv = p.transpose(-1, -2) @ do
-    dp = do @ v.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
-    dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=qkv.device)
-    dbias.index_add_(0, kind, ds.sum(0))
-    dqkv = torch.cat([t.transpose(2, 3).flatten(-2) for t in (dq, dk, dv)], dim=-1)
-    dqkv = dqkv.reshape(b, nwh, nww, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
-    return dqkv.reshape(b, hh, ww, -1).to(qkv.dtype), dbias.to(bias.dtype)
-
-
-def _check_window_shapes(name, qkv, bias, num_heads, head_dim, window_size):
+def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc):
     b, hh, ww, c3 = qkv.shape
-    c, n, kinds = num_heads * head_dim, window_size**2, bias.shape[0]
+    c, n, kinds = num_heads * head_dim, wr * wc, bias.shape[0]
     if c3 != 3 * c or kinds not in (1, 4):
         raise ValueError(f"qkv {tuple(qkv.shape)} / bias {tuple(bias.shape)} do not match")
     _check_cuda("qkv", qkv, (b, hh, ww, 3 * c), qkv.device)
     _check_cuda("bias", bias, (kinds, num_heads, n, n), qkv.device)
-    if not window_mhsa_fits(hh, ww, window_size, c, num_heads):
+    if not rect_mhsa_fits(hh, ww, wr, wc, c, num_heads):
         raise ValueError(
-            f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, ws={window_size} "
+            f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, windows {wr}x{wc} "
             "is outside the kernels' limits"
         )
     if b * hh * ww * 3 * c >= 2**31:
         raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
 
 
-def _window_mhsa_fwd_cuda(qkv, bias, num_heads, head_dim, window_size):
-    _check_window_shapes("fused_window_mhsa", qkv, bias, num_heads, head_dim, window_size)
+def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc):
+    """Launch the forward kernel, one count on the wrapper `counted`."""
+    _check_window_shapes(counted.__name__, qkv, bias, num_heads, head_dim, wr, wc)
     b, hh, ww, _ = qkv.shape
     c = num_heads * head_dim
     out = torch.empty((b, hh, ww, c), device=qkv.device, dtype=qkv.dtype)
@@ -235,14 +295,43 @@ def _window_mhsa_fwd_cuda(qkv, bias, num_heads, head_dim, window_size):
 
     lib = cuda_build.library("window_attention")
     with torch.cuda.device(qkv.device):
-        fused_window_mhsa.launches += 1
-        status = lib.trr_window_mhsa_fwd(
+        counted.launches += 1
+        status = lib.trr_rect_mhsa_fwd(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, hh, ww, c, num_heads, bias.shape[0], window_size, head_dim**-0.5,
+            b, hh, ww, c, num_heads, bias.shape[0], wr, wc, head_dim**-0.5,
             torch.cuda.current_stream().cuda_stream,
         )
-    cuda_build.check(status, "fused_window_mhsa")
+    cuda_build.check(status, counted.__name__)
     return out
+
+
+def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc):
+    """Launch the backward kernel and the bias-kind reduction, one count on
+    the wrapper `counted`."""
+    name = counted.__name__
+    _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc)
+    b, hh, ww, _ = qkv.shape
+    c, n, kinds = num_heads * head_dim, wr * wc, bias.shape[0]
+    _check_cuda("dout", dout, (b, hh, ww, c), qkv.device)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias)
+    # dS of every window and head, which the bias-kind reduction sums
+    ds = torch.empty((b, hh // wr, ww // wc, num_heads, n, n), device=qkv.device,
+                     dtype=torch.float32)
+    if qkv.numel() == 0:
+        return dqkv, dbias.zero_()
+    from trainner_redux_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("window_attention")
+    with torch.cuda.device(qkv.device):
+        counted.launches += 1
+        status = lib.trr_rect_mhsa_bwd(
+            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
+            dbias.data_ptr(), b, hh, ww, c, num_heads, kinds, wr, wc, head_dim**-0.5,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(status, name)
+    return dqkv, dbias
 
 
 def fused_window_mhsa_backward(qkv, bias, dout, num_heads, head_dim, window_size):
@@ -252,33 +341,23 @@ def fused_window_mhsa_backward(qkv, bias, dout, num_heads, head_dim, window_size
     a CPU tensor it runs the plain version."""
     if qkv.device.type == "cpu":
         return fused_window_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window_size)
-    name = "fused_window_mhsa_backward"
-    _check_window_shapes(name, qkv, bias, num_heads, head_dim, window_size)
-    b, hh, ww, _ = qkv.shape
-    c, ws, n, kinds = num_heads * head_dim, window_size, window_size**2, bias.shape[0]
-    _check_cuda("dout", dout, (b, hh, ww, c), qkv.device)
-    dqkv = torch.empty_like(qkv)
-    dbias = torch.empty_like(bias)
-    # dS of every window and head, which the bias-kind reduction sums
-    ds = torch.empty((b, hh // ws, ww // ws, num_heads, n, n), device=qkv.device,
-                     dtype=torch.float32)
-    if qkv.numel() == 0:
-        return dqkv, dbias.zero_()
-    from trainner_redux_tpu_torch.ops import cuda_build
+    return _mhsa_bwd_cuda(fused_window_mhsa_backward, qkv, bias, dout, num_heads, head_dim,
+                          window_size, window_size)
 
-    lib = cuda_build.library("window_attention")
-    with torch.cuda.device(qkv.device):
-        fused_window_mhsa_backward.launches += 1
-        status = lib.trr_window_mhsa_bwd(
-            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
-            dbias.data_ptr(), b, hh, ww, c, num_heads, kinds, ws, head_dim**-0.5,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_build.check(status, name)
-    return dqkv, dbias
+
+def fused_rect_mhsa_backward(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
+    """(dqkv, dbias) of `fused_rect_mhsa` for the output gradient dout (TPU
+    kernel #8's rect form). On a CUDA tensor it launches the backward kernel
+    and the bias-kind reduction (one counted call); on a CPU tensor it runs
+    the plain version."""
+    if qkv.device.type == "cpu":
+        return fused_rect_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp)
+    return _mhsa_bwd_cuda(fused_rect_mhsa_backward, qkv, bias, dout, num_heads, head_dim,
+                          h_sp, w_sp)
 
 
 fused_window_mhsa_backward.launches = 0
+fused_rect_mhsa_backward.launches = 0
 
 
 class _WindowMhsa(torch.autograd.Function):
@@ -287,7 +366,8 @@ class _WindowMhsa(torch.autograd.Function):
         if qkv.device.type == "cpu":
             out = fused_window_mhsa_reference(qkv, bias, num_heads, head_dim, window_size)
         else:
-            out = _window_mhsa_fwd_cuda(qkv, bias, num_heads, head_dim, window_size)
+            out = _mhsa_fwd_cuda(fused_window_mhsa, qkv, bias, num_heads, head_dim,
+                                 window_size, window_size)
         ctx.save_for_backward(qkv, bias)
         ctx.meta = (num_heads, head_dim, window_size)
         return out
@@ -297,6 +377,24 @@ class _WindowMhsa(torch.autograd.Function):
         qkv, bias = ctx.saved_tensors
         dqkv, dbias = fused_window_mhsa_backward(qkv, bias, dout.contiguous(), *ctx.meta)
         return dqkv, dbias, None, None, None
+
+
+class _RectMhsa(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, head_dim, h_sp, w_sp):
+        if qkv.device.type == "cpu":
+            out = fused_rect_mhsa_reference(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+        else:
+            out = _mhsa_fwd_cuda(fused_rect_mhsa, qkv, bias, num_heads, head_dim, h_sp, w_sp)
+        ctx.save_for_backward(qkv, bias)
+        ctx.meta = (num_heads, head_dim, h_sp, w_sp)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias = ctx.saved_tensors
+        dqkv, dbias = fused_rect_mhsa_backward(qkv, bias, dout.contiguous(), *ctx.meta)
+        return dqkv, dbias, None, None, None, None
 
 
 def fused_window_mhsa(qkv, bias, num_heads, head_dim, window_size):
@@ -309,4 +407,16 @@ def fused_window_mhsa(qkv, bias, num_heads, head_dim, window_size):
     return _WindowMhsa.apply(qkv, bias, num_heads, head_dim, window_size)
 
 
+def fused_rect_mhsa(qkv, bias, num_heads, head_dim, h_sp, w_sp):
+    """out (B,H,W,C) = rect-window MHSA(qkv (B,H,W,3C), bias (K,nh,n,n)),
+    windows of h_sp rows and w_sp columns, n = h_sp * w_sp; differentiable in
+    qkv and bias.
+
+    On a CUDA tensor the forward launches the rect form of TPU kernel #3 and
+    the backward that of #8 (`fused_rect_mhsa_backward`); on a CPU tensor
+    both run their plain versions."""
+    return _RectMhsa.apply(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+
+
 fused_window_mhsa.launches = 0
+fused_rect_mhsa.launches = 0

@@ -87,11 +87,12 @@ class Registry:
         return f"Registry(name={self._name}, items={sorted(self._obj_map)})"
 
 
-# The component families of the ported serving path. ARCH_REGISTRY holds
-# the torch factories whose state dicts use the official torch key names
-# (the JAX package keeps those in SPANDREL_REGISTRY).
+# The component families of the port. Every ported arch's state dict uses
+# the official torch key names; each arch registers where the JAX package
+# registers it (SwinIR and HAT in ARCH_REGISTRY, DAT in SPANDREL_REGISTRY).
 DATASET_REGISTRY = Registry("dataset")
 ARCH_REGISTRY = Registry("arch")
+SPANDREL_REGISTRY = Registry("spandrel")
 MODEL_REGISTRY = Registry("model")
 METRIC_REGISTRY = Registry("metric")
 LOSS_REGISTRY = Registry("loss")

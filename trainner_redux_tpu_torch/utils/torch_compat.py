@@ -1,7 +1,8 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR and HAT parts of the JAX package's utils/torch_compat.py:
+Port of the SwinIR, HAT and DAT parts of the JAX package's
+utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
   nesting and strip DDP's `module.` prefix (upstream's key canonicalization);
@@ -11,11 +12,13 @@ Port of the SwinIR and HAT parts of the JAX package's utils/torch_compat.py:
   (`.`-joined flax keys, as `BaseModel.flatten_params` gives them) as the
   port's state dict. For SwinIR it is the JAX `_export_swinir` mapping,
   extended to the 3conv residual connection and every upsampler; for HAT
-  the JAX `_export_hat` mapping.
+  the JAX `_export_hat` mapping; for DAT the inverse of the JAX
+  `_convert_dat` (the JAX package has no DAT exporter).
 
 Buffers that upstream checkpoints carry and the port recomputes
-(`relative_position_index` and HAT's `relative_position_index_SA` /
-`_OCA`, `attn_mask`, `mean`) are dropped on load.
+(`relative_position_index`, HAT's `relative_position_index_SA` / `_OCA`,
+`attn_mask`, DAT's `rpe_biases`, `attn.attn_mask_*` and the BatchNorms'
+`num_batches_tracked`, `mean`) are dropped on load.
 """
 
 from __future__ import annotations
@@ -69,12 +72,14 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
 
 
 def drop_recomputed_buffers(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Drop the buffers upstream SwinIR and HAT checkpoints carry and the
-    port recomputes."""
+    """Drop the buffers upstream SwinIR, HAT and DAT checkpoints carry and
+    the port recomputes."""
     return {
         k: v for k, v in sd.items()
         if not k.endswith(("relative_position_index", "relative_position_index_SA",
-                           "relative_position_index_OCA", "attn_mask"))
+                           "relative_position_index_OCA", "attn_mask", "rpe_biases",
+                           "num_batches_tracked"))
+        and not re.fullmatch(r".*\.attn\.attn_mask_\d+", k)
         and not k.startswith(("absolute_pos_embed", "mean"))
     }
 
@@ -142,7 +147,76 @@ def _hat_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     return _swinir_key(k, v)
 
 
-_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key}
+# DAT's flax module names -> upstream's Sequential members
+_DAT_CONVS = {"dwconv": "dwconv.0", "ci_0": "channel_interaction.1",
+              "ci_1": "channel_interaction.4", "si_0": "spatial_interaction.0",
+              "si_1": "spatial_interaction.3"}
+_DAT_BNS = {"dw_bn": "dwconv.1", "ci_bn": "channel_interaction.2",
+            "si_bn": "spatial_interaction.1"}
+_BN_PARAMS = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _dat_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax DAT key -> (torch key, array in torch layout): the inverse of
+    the JAX `_convert_dat`."""
+    m = re.fullmatch(r"layers_(\d+)_blocks_(\d+)\.(.+)", k)
+    if m:
+        i, j, rest = m.groups()
+        pre = f"layers.{i}.blocks.{j}"
+        m = re.fullmatch(r"attn\.(\w+)\.(scale|bias|mean|var)", rest)
+        if m and m.group(1) in _DAT_BNS:
+            return f"{pre}.attn.{_DAT_BNS[m.group(1)]}.{_BN_PARAMS[m.group(2)]}", v
+        m = re.fullmatch(r"(attn|ffn)\.(\w+)\.conv\.(kernel|bias)", rest)
+        if m:
+            owner, name, kind = m.groups()
+            inner = _DAT_CONVS.get(name, "sg.conv" if name == "sg_conv" else None)
+            if inner is None:
+                raise KeyError(f"no torch counterpart for DAT key '{k}'")
+            return (f"{pre}.{owner}.{inner}.{_weight_or_bias(kind)}",
+                    conv_w_inv(v) if kind == "kernel" else v)
+        m = re.fullmatch(r"attn\.attns_(\d+)\.pos\.(\w+)\.(kernel|scale|bias)", rest)
+        if m:
+            b, name, kind = m.groups()
+            ppre = f"{pre}.attn.attns.{b}.pos"
+            if name.startswith("norm"):
+                return f"{ppre}.pos{name[4:]}.0.{_weight_or_bias(kind)}", v
+            inner = "pos_proj" if name == "pos_proj" else f"{name}.2"
+            return f"{ppre}.{inner}.{_weight_or_bias(kind)}", linear_w(v) if kind == "kernel" else v
+        if rest == "attn.temperature":
+            return f"{pre}.{rest}", v
+        inner, kind = rest.replace("sg_norm", "sg.norm").rsplit(".", 1)
+        if inner not in ("norm1", "norm2", "ffn.sg.norm", "attn.qkv", "attn.proj", "ffn.fc1",
+                         "ffn.fc2"):
+            raise KeyError(f"no torch counterpart for DAT key '{k}'")
+        return f"{pre}.{inner}.{_weight_or_bias(kind)}", linear_w(v) if kind == "kernel" else v
+    m = re.fullmatch(r"(before_RG|norm)\.(scale|bias)", k)
+    if m:
+        name = "before_RG.1" if m.group(1) == "before_RG" else "norm"
+        return f"{name}.{_weight_or_bias(m.group(2))}", v
+    # the convs are named as in SwinIR, but for DAT's own layers_i_conv and
+    # up_direct (the JAX `_convert_dat` writes `upsample_direct` for it)
+    k = re.sub(r"^layers_(\d+)_conv\.", r"layers_\1.conv.", k)
+    return _swinir_key(re.sub(r"^up_direct\.", "upsample_direct.", k), v)
+
+
+def _dat_zero_pos_layers(out: dict[str, np.ndarray]) -> None:
+    """Add the 0-element position-MLP layers upstream DAT keeps at tiny
+    widths (pos_dim 0), which the JAX package's bias-only form drops."""
+    for key in [k for k in out if k.endswith(".pos.pos3.2.weight")]:
+        if out[key].shape[1] != 0:
+            continue
+        pre = key.removesuffix("pos3.2.weight")
+        empty = np.zeros((0,), np.float32)
+        out[f"{pre}pos_proj.weight"] = np.zeros((0, 2), np.float32)
+        out[f"{pre}pos_proj.bias"] = empty
+        for p in ("pos1", "pos2", "pos3"):
+            out[f"{pre}{p}.0.weight"] = out[f"{pre}{p}.0.bias"] = empty
+        for p in ("pos1", "pos2"):
+            out[f"{pre}{p}.2.weight"] = np.zeros((0, 0), np.float32)
+            out[f"{pre}{p}.2.bias"] = empty
+
+
+_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key}
 
 
 def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> dict:
@@ -152,8 +226,8 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> di
     key_map = _KEY_MAPS.get(arch.lower())
     if key_map is None:
         raise NotImplementedError(f"no weight bridge for arch '{arch}' yet")
-    out = {}
-    for k, v in flat.items():
-        key, arr = key_map(k, np.asarray(v))
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-    return out
+    out = dict(key_map(k, np.asarray(v)) for k, v in flat.items())
+    if key_map is _dat_key:
+        _dat_zero_pos_layers(out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in out.items()}
