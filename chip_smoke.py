@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x and
-DAT 4x serving and training.
+"""Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x,
+DAT 4x and Swin2SR-M 4x serving and training.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -69,6 +69,28 @@ failure:
              through the kernels and the plain branch; losses and gradients
              must agree.
 20. dat train profile - device time by kernel of one DAT training step.
+21. swin2sr kernels - the post-norm SwinV2 halves at Swin2SR-M's training
+             block (B=8, 48x48 LR, C=180, 6 heads of 30, ws 8, hidden 360,
+             DropPath scales holding 0 and 1/0.9), K=1 and K=4 shifted by 4:
+             the cosine-attention half (#11) and its backward (#12), the MLP
+             half (#13) and its backward (#14), each against its plain
+             version, two backward runs bit-identical; times and the card's
+             bound; #11 and #13 also at B=1, 128x128 (serving).
+22. swin2sr path - `test.run` on a seeded Swin2SR-M 4x and the 4 images,
+             counting 36 #11 and 36 #13 launches an image; one 128x128
+             forward timed through the kernel branch and the unfused branch
+             (TRAINNER_FUSED_BLOCK=0), which must agree.
+23. swin2sr train - `train.run` on Swin2SR-M 4x as `swin2sr_m_fidelity.yml`
+             has it (batch 8 of 48x48 LR crops, L1 + MS-SSIM, AdamW 2e-4,
+             EMA 0.999) in fp32, 30 steps, counting 36 launches of each of
+             #11-#14 a step; the EMA checkpoint then serves with the strict
+             load.
+24. swin2sr train branches - one forward and backward of Swin2SR-M through
+             the kernels and the unfused branch: losses and gradients
+             (logit_scale and the CPB MLP included) must agree; then both
+             timed.
+25. swin2sr train profile - device time by kernel of one Swin2SR-M
+             training step.
 
 Then one JSON line of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -83,6 +105,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -125,6 +148,12 @@ DAT_LQ = 48
 # dat_s's first
 DAT_WINDOWS = {(8, 32): (4, 16), (32, 8): (16, 4), (8, 16): (4, 8)}
 
+# Swin2SR-M 4x: 36 post-norm blocks at SwinIR-M's widths; its training crop
+# (swin2sr_m_fidelity.yml) is 48x48 LR, with L1 + MS-SSIM
+SWIN2SR_BLOCKS = 36
+S2_LQ = 48
+S2_LOSSES = ("l1loss", "mssimloss")
+
 REPLACES = {
     "fused_attn_block": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
     "fused_ln_mlp": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
@@ -136,6 +165,10 @@ REPLACES = {
     "fused_ln_mlp_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
     "fused_rect_mhsa": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
     "fused_rect_mhsa_backward": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_cos_attn_block": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:338",
+    "fused_cos_attn_block_backward": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:373",
+    "fused_postnorm_mlp": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:529",
+    "fused_postnorm_mlp_backward": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:556",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -148,6 +181,10 @@ SOURCES = {
     "fused_ln_mlp_backward": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_rect_mhsa": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_rect_mhsa_backward": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_cos_attn_block": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_cos_attn_block_backward": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_postnorm_mlp": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_postnorm_mlp_backward": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs
@@ -156,6 +193,22 @@ SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
 TRAIN_OPS = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",
              "b2")
+
+
+@contextmanager
+def fused_env(env: dict):
+    """TRAINNER_FUSED_BLOCK and TRAINNER_FUSED_ATTN as `env` sets them (unset
+    otherwise) for the body, restored after."""
+    saved = {k: os.environ.pop(k, None) for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN")}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def fail(msg: str) -> None:
@@ -372,6 +425,7 @@ def phase_kernels() -> dict:
 
 def _wrappers() -> dict:
     from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     return {
@@ -384,6 +438,10 @@ def _wrappers() -> dict:
         "fused_ln_mlp_backward": fb.fused_ln_mlp_backward,
         "fused_rect_mhsa": wa.fused_rect_mhsa,
         "fused_rect_mhsa_backward": wa.fused_rect_mhsa_backward,
+        "fused_cos_attn_block": v2.fused_cos_attn_block,
+        "fused_cos_attn_block_backward": v2.fused_cos_attn_block_backward,
+        "fused_postnorm_mlp": v2.fused_postnorm_mlp,
+        "fused_postnorm_mlp_backward": v2.fused_postnorm_mlp_backward,
     }
 
 
@@ -472,21 +530,13 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
     from trainner_redux_tpu_torch import test as port_test
 
     opt = smoke_options(name, weights, hr_dir, lr_dir, seed, network)
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with fused_env(env):
         t0 = time.perf_counter()
         reset_counts()
         model = port_test.run(opt)
         torch.cuda.synchronize()
         counts = read_counts()
         secs = time.perf_counter() - t0
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     pngs = sorted((Path(opt.path.visualization) / "smoke").glob("*.png"))
     metrics = getattr(model, "metric_results", {})
     say(f"[path] {name} {env or ''}: {secs:.2f} s, {len(pngs)} PNGs, "
@@ -551,20 +601,9 @@ def phase_branches(seed: int) -> None:
         ("fused", {}), ("unfused", {"TRAINNER_FUSED_BLOCK": "0"}),
         ("plain", {"TRAINNER_FUSED_ATTN": "0"}),
     ):
-        saved = {k: os.environ.get(k) for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN")}
-        for k in saved:
-            os.environ.pop(k, None)
-        os.environ.update(env)
-        try:
-            with torch.inference_mode():
-                outs[branch] = net(x)
-                fwd_ms = time_ms(lambda: net(x), iters=5, warmup=1)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        with fused_env(env), torch.inference_mode():
+            outs[branch] = net(x)
+            fwd_ms = time_ms(lambda: net(x), iters=5, warmup=1)
         if outs[branch].shape != (1, 3, 512, 512) or not torch.isfinite(outs[branch]).all():
             fail(f"branch {branch}: bad output {tuple(outs[branch].shape)}")
         say(f"[branches] {branch}: SwinIR-M 4x forward of one 128x128 image {fwd_ms:.3f} ms")
@@ -695,16 +734,10 @@ def phase_train_kernels() -> dict:
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 - report and fail the phase
             fail(f"fused_swin_block_train_backward K={kinds}: {e}")
-        plain = bwd_plain()
         names = ("dx", "dg1", "dbe1", "dwq", "dbq", "dwp", "dbp", "dbias", "dg2", "dbe2", "dw1",
                  "db1", "dw2", "db2")
-        bwd_err, worst = 0.0, 0.0
-        for name, g, w in zip(names, grads, plain):
-            err, top = (g - w).abs().max().item(), w.abs().max().item()
-            bwd_err, worst = max(bwd_err, err), max(worst, err / top)
-            if g.shape != w.shape or not err <= GRAD_TOL * top:
-                fail(f"fused_swin_block_train_backward K={kinds}: {name} differs by {err:.3g} "
-                     f"(max |g| {top:.3g})")
+        bwd_err, worst = check_grads("fused_swin_block_train_backward", f"K={kinds}", grads,
+                                     bwd_plain(), names)
         fwd_bytes = nbytes(*ops, s1, s2, *got)
         bwd_bytes = nbytes(*saved, s1, s2, *want[1:], dout, *grads)
         cases = {
@@ -861,26 +894,15 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
     for branch, env in (("kernel", kernel_env), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
         m = nets[branch]
         m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
-        saved = {k: os.environ.get(k) for k in ("TRAINNER_FUSED_BLOCK", "TRAINNER_FUSED_ATTN")}
-        for k in saved:
-            os.environ.pop(k, None)
-        os.environ.update(env)
-        try:
-            with fp32_math():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                reset_counts()
-                loss = (m(x) - gt).abs().mean()
-                loss.backward()
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                counts[branch] = read_counts()
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        with fused_env(env), fp32_math():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reset_counts()
+            loss = (m(x) - gt).abs().mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts[branch] = read_counts()
         losses[branch] = loss.item()
         # a parameter the step does not reach (DAT's BatchNorm statistics in
         # train mode) has a zero gradient, as SRModel hands it to AdamW
@@ -1012,6 +1034,18 @@ def from_windows(t, b: int, h: int, w: int, wr: int, wc: int, nh: int = NH, hd: 
     return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, nh * hd)
 
 
+def check_grads(name: str, label: str, grads, plain, parts) -> tuple[float, float]:
+    """Each gradient within GRAD_TOL of its plain version's largest
+    magnitude; returns the largest error and the largest relative one."""
+    err, worst = 0.0, 0.0
+    for part, g, w in zip(parts, grads, plain):
+        e, top = (g - w).abs().max().item(), w.abs().max().item()
+        err, worst = max(err, e), max(worst, e / top)
+        if g.shape != w.shape or not e <= GRAD_TOL * top:
+            fail(f"{name} {label}: {part} differs by {e:.3g} (max |g| {top:.3g})")
+    return err, worst
+
+
 def record_kernel(res: dict, tag: str, name: str, label: str, kern, plain, lib, flops: float,
                   nb: float, err: float, note: str = "") -> None:
     """Time a checked kernel, its plain version and its library call, print
@@ -1071,13 +1105,7 @@ def window_attention_cases(tag: str, name: str, label: str, ops, inputs, wr: int
         fail(f"{name} {label} disagrees with its plain version: {fwd_err:.3g}")
     if lib_err > KERNEL_TOL:
         fail(f"{name} {label}: the SDPA yardstick differs by {lib_err:.3g}")
-    plain = bwd_plain()
-    bwd_err, worst = 0.0, 0.0
-    for part, g, w_ in zip(("dqkv", "dbias"), grads, plain):
-        err, top = (g - w_).abs().max().item(), w_.abs().max().item()
-        bwd_err, worst = max(bwd_err, err), max(worst, err / top)
-        if g.shape != w_.shape or not err <= GRAD_TOL * top:
-            fail(f"{name}_backward {label}: {part} differs by {err:.3g} (max |g| {top:.3g})")
+    bwd_err, worst = check_grads(f"{name}_backward", label, grads, bwd_plain(), ("dqkv", "dbias"))
     if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
         fail(f"{name}_backward {label}: two runs differ")
     say(f"[{tag}] {label}: forward max_abs_err {fwd_err:.3g}, backward {bwd_err:.3g} "
@@ -1147,13 +1175,8 @@ def phase_hat_kernels() -> dict:
         fail(f"fused_ln_mlp at 16-row strips disagrees with its plain version: {fwd_err:.3g}")
     say(f"[hat kernels] fused_ln_mlp at HAT-M's training block: max_abs_err {fwd_err:.3g} "
         f"(tol {KERNEL_TOL}) kernel {time_ms(mlp_fwd, iters=10, warmup=2):.4f} ms")
-    plain = mlp_bwd_plain()
-    err, worst = 0.0, 0.0
-    for name, g, w in zip(("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2"), grads, plain):
-        e, top = (g - w).abs().max().item(), w.abs().max().item()
-        err, worst = max(err, e), max(worst, e / top)
-        if g.shape != w.shape or not e <= GRAD_TOL * top:
-            fail(f"fused_ln_mlp_backward: {name} differs by {e:.3g} (max |g| {top:.3g})")
+    err, worst = check_grads("fused_ln_mlp_backward", "at 16-row strips", grads, mlp_bwd_plain(),
+                             ("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2"))
     if not all(torch.equal(a, b) for a, b in zip(grads, again)):
         fail("fused_ln_mlp_backward: two runs differ")
     record_kernel(res, "hat kernels", "fused_ln_mlp_backward", "K=1", mlp_bwd, mlp_bwd_plain,
@@ -1275,6 +1298,198 @@ def phase_dat_path(seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 21. swin2sr kernels
+# ---------------------------------------------------------------------------
+
+
+def v2_flops(tokens: int) -> dict[str, float]:
+    """Operations of the post-norm halves at 8x8 windows. #11: qkv, cos and
+    P v, proj. #12 recomputes them and takes datt, dwp, dv, dP, dq^, dk^,
+    dwq and dx (24 T C^2 + 12 T n C in all). #13: fc1 and fc2. #14
+    recomputes both and takes dhg, dx, dw2 and dw1."""
+    t = tokens
+    return {
+        "fused_cos_attn_block": 8 * t * C * C + 4 * t * N * C,
+        "fused_cos_attn_block_backward": 24 * t * C * C + 12 * t * N * C,
+        "fused_postnorm_mlp": 4 * t * C * HIDDEN,
+        "fused_postnorm_mlp_backward": 12 * t * C * HIDDEN,
+    }
+
+
+def v2_inputs(gen, kinds: int, device, shape):
+    """Seeded unit-scale operands of one Swin2SR-M block: `block_inputs`'
+    weights, temperatures exp(min(logit, log 100)) between 1 and 100, and a
+    kind table of 16 * sigmoid values (plus the shift masks at K=4)."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    x, p, _, _ = block_inputs(gen, 1, device, shape)
+    p["scale"] = torch.exp(torch.rand(NH, generator=gen) * 4.6).to(device)
+    bias = (16.0 * torch.sigmoid(torch.randn(NH, N, N, generator=gen))).to(device)[None]
+    if kinds == 4:
+        bias = bias + torch.from_numpy(shift_mask_kinds(WS, WS // 2)).to(device)[:, None]
+    return x, p, bias.contiguous()
+
+
+def phase_swin2sr_kernels() -> dict:
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    res: dict[str, dict] = {}
+    s = torch.full((TB,), 1.0 / 0.9, device=dev)  # DropPath at rate 0.1: keep or drop
+    s[2] = 0.0
+    flops = v2_flops(TB * S2_LQ * S2_LQ)
+    cos_parts = ("dx", "dwq", "dbq", "dscale", "dwp", "dbp", "dg", "dbe", "dbias")
+    mlp_parts = ("dx", "dw1", "db1", "dw2", "db2", "dg", "dbe")
+    # the JSON line reports the last case of each name: shifted (K=4)
+    for kinds in (1, 4):
+        shift = WS // 2 if kinds == 4 else 0
+        x, p, bias = v2_inputs(gen, kinds, dev, (TB, S2_LQ, S2_LQ))
+        dout = torch.randn(x.shape, generator=gen).to(dev)
+        cos = (x, p["wq"], p["bq"], p["scale"], p["wp"], p["bp"], p["g"], p["be"], bias)
+        mlp = (x, p["w1"], p["b1"], p["w2"], p["b2"], p["g2"], p["be2"])
+        meta = (NH, HD, WS, 1e-5, shift)
+        cases = (
+            ("fused_cos_attn_block", cos_parts, cos,
+             lambda: v2.fused_cos_attn_block(*cos, s, *meta),
+             lambda: v2.fused_cos_attn_block_reference(*cos, s, *meta),
+             lambda: v2.fused_cos_attn_block_backward(*cos, s, dout, *meta),
+             lambda: v2.fused_cos_attn_block_bwd_reference(*cos, s, dout, *meta)),
+            ("fused_postnorm_mlp", mlp_parts, mlp,
+             lambda: v2.fused_postnorm_mlp(*mlp, s, WS),
+             lambda: v2.fused_postnorm_mlp_reference(*mlp, s, WS),
+             lambda: v2.fused_postnorm_mlp_backward(*mlp, s, dout, WS),
+             lambda: v2.fused_postnorm_mlp_bwd_reference(*mlp, s, dout, WS)),
+        )
+        label = f"K={kinds} shift {shift}"
+        for name, parts, operands, fwd, fwd_plain, bwd, bwd_plain in cases:
+            try:
+                got = fwd()
+                grads = bwd()
+                again = bwd()
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 - report and fail the phase
+                fail(f"{name} {label}: {e}")
+            fwd_err = (got - fwd_plain()).abs().max().item()
+            if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+                fail(f"{name} {label} disagrees with its plain version: {fwd_err:.3g}")
+            bwd_err, worst = check_grads(f"{name}_backward", label, grads, bwd_plain(), parts)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                fail(f"{name}_backward {label}: two runs differ")
+            record_kernel(res, "swin2sr kernels", name, label, fwd, fwd_plain, None, flops[name],
+                          nbytes(*operands, s, got), fwd_err)
+            record_kernel(res, "swin2sr kernels", f"{name}_backward", label, bwd, bwd_plain, None,
+                          flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads), bwd_err,
+                          f", largest error {worst:.3g} of its tensor's max |g|, two runs "
+                          "bit-identical")
+
+    # the serving shapes: B=1, one 128x128 image, shifted
+    x, p, bias = v2_inputs(gen, 4, dev, (B, H, W))
+    s1 = torch.ones(B, device=dev)
+    cos = (x, p["wq"], p["bq"], p["scale"], p["wp"], p["bp"], p["g"], p["be"], bias)
+    mlp = (x, p["w1"], p["b1"], p["w2"], p["b2"], p["g2"], p["be2"])
+    flops = v2_flops(B * H * W)
+    for name, operands, kern, plain in (
+        ("fused_cos_attn_block", cos,
+         lambda: v2.fused_cos_attn_block(*cos, s1, NH, HD, WS, shift=WS // 2),
+         lambda: v2.fused_cos_attn_block_reference(*cos, s1, NH, HD, WS, shift=WS // 2)),
+        ("fused_postnorm_mlp", mlp, lambda: v2.fused_postnorm_mlp(*mlp, s1, WS),
+         lambda: v2.fused_postnorm_mlp_reference(*mlp, s1, WS)),
+    ):
+        got = kern()
+        err = (got - plain()).abs().max().item()
+        if not err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"{name} at B=1, 128x128 disagrees with its plain version: {err:.3g}")
+        bms, by = bound(flops[name], nbytes(*operands, s1, got))
+        say(f"[swin2sr kernels] {name} at B=1, 128x128 (serving) K=4: max_abs_err {err:.3g} "
+            f"kernel {time_ms(kern):.4f} ms plain {time_ms(plain):.4f} ms "
+            f"bound {bms:.4f} ms ({by}; {flops[name] / 1e9:.3f} GFLOP)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 22. swin2sr path
+# ---------------------------------------------------------------------------
+
+
+def swin2sr_serving_counts() -> dict[str, int]:
+    return {"fused_cos_attn_block": SWIN2SR_BLOCKS * N_IMAGES,
+            "fused_postnorm_mlp": SWIN2SR_BLOCKS * N_IMAGES}
+
+
+def phase_swin2sr_path(seed: int) -> None:
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+
+    net = build_network({"type": "swin2sr_m", "scale": 4})
+    net.init_weights(torch.Generator().manual_seed(seed))
+    weights = OUT / "swin2sr_m_x4_seeded.pth"
+    torch.save(net.state_dict(), weights)
+    hr_dir, lr_dir = make_dataset(OUT / "data", seed)
+    served = serve("swin2sr_m_x4", weights, hr_dir, lr_dir, seed, {}, "swin2sr_m")
+    check_counts("Swin2SR-M serving path", served["counts"], swin2sr_serving_counts())
+    weights.unlink()
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
+    net = net.cuda().eval()
+    outs = {}
+    for branch, env, want in (
+        ("kernel", {}, {"fused_cos_attn_block": SWIN2SR_BLOCKS,
+                        "fused_postnorm_mlp": SWIN2SR_BLOCKS}),
+        ("unfused", {"TRAINNER_FUSED_BLOCK": "0"}, {}),
+    ):
+        with fused_env(env), torch.inference_mode():
+            reset_counts()
+            outs[branch] = net(x)
+            check_counts(f"Swin2SR-M {branch} branch forward", read_counts(), want)
+            fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+        if outs[branch].shape != (1, 3, 512, 512) or not torch.isfinite(outs[branch]).all():
+            fail(f"Swin2SR-M {branch} forward: bad output {tuple(outs[branch].shape)}")
+        say(f"[swin2sr path] Swin2SR-M 4x {branch} branch {env or ''}: forward of one 128x128 "
+            f"image {fwd_ms:.3f} ms")
+    d = (outs["kernel"] - outs["unfused"]).abs().max().item()
+    say(f"[swin2sr path] kernel vs unfused branch: max_abs_diff {d:.3g} (tol {PATH_TOL})")
+    if d > PATH_TOL:
+        fail(f"Swin2SR-M: the kernel and unfused branches differ by {d:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# 24. swin2sr train branches
+# ---------------------------------------------------------------------------
+
+
+def phase_swin2sr_train_branches(seed: int, per_step: dict[str, int]) -> None:
+    """The kernel branch against the unfused one for one training forward
+    and backward (the check), then both timed from equal weights."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.models.sr_model import fp32_math
+
+    train_branches(seed, "swin2sr_m", "Swin2SR-M", {}, per_step, "swin2sr train branches", S2_LQ)
+    net = build_network({"type": "swin2sr_m", "scale": 4})
+    net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
+    net.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.rand(TB, 3, S2_LQ, S2_LQ, generator=gen).cuda()
+    gt = torch.rand(TB, 3, 4 * S2_LQ, 4 * S2_LQ, generator=gen).cuda()
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        (net(x) - gt).abs().mean().backward()
+
+    for branch, env in (("kernel", {}), ("unfused", {"TRAINNER_FUSED_BLOCK": "0"})):
+        with fused_env(env), fp32_math():
+            ms = time_ms(step, iters=5, warmup=2)
+        say(f"[swin2sr train branches] Swin2SR-M {branch} branch {env or ''}: forward and "
+            f"backward of batch {TB} of {S2_LQ}x{S2_LQ} {ms:.2f} ms")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1322,6 +1537,16 @@ def main() -> None:
                    ZERO_GRAD_PARAMS)
     phase_train_profile(args.seed, "dat", "dat train profile", "profile_dat_train.txt", DAT_LQ,
                         dat_losses)
+    kernels.update(phase_swin2sr_kernels())
+    phase_swin2sr_path(args.seed)
+    s2_step = {k: SWIN2SR_BLOCKS for k in ("fused_cos_attn_block", "fused_cos_attn_block_backward",
+                                           "fused_postnorm_mlp", "fused_postnorm_mlp_backward")}
+    s2_counts = phase_train(args.seed, "swin2sr_m", "Swin2SR-M", "swin2sr train", s2_step,
+                            swin2sr_serving_counts(), S2_LQ, S2_LOSSES)
+    launches.update({k: s2_counts[k] for k in s2_step})
+    phase_swin2sr_train_branches(args.seed, s2_step)
+    phase_train_profile(args.seed, "swin2sr_m", "swin2sr train profile",
+                        "profile_swin2sr_train.txt", S2_LQ, S2_LOSSES)
 
     records = []
     for name in KERNELS:

@@ -443,3 +443,156 @@ def test_dat_branches_agree_on_card(cuda, monkeypatch):
     for k, w in grads["plain"].items():
         ref = gmax if k.endswith(ZERO_GRAD_PARAMS) else w.abs().max().item()
         assert (grads["kernel"][k] - w).abs().max().item() <= 1e-3 * ref, k
+
+
+# Swin2SR's post-norm halves (#11-#14): the operand order of the wrappers
+COS_NAMES = ("x", "wq", "bq", "scale", "wp", "bp", "g", "be", "bias")
+PN_NAMES = ("x", "w1", "b1", "w2", "b2", "g2", "be2")
+
+
+def _v2_inputs(device, kinds, seed=0):
+    """SwinIR-M-wide inputs plus the temperatures exp(min(logit, log 100)),
+    between 1 and 100, that the cosine attention takes."""
+    p = _inputs(device, kinds, seed)
+    gen = torch.Generator().manual_seed(seed + 100)
+    p["scale"] = torch.exp(torch.rand(NH, generator=gen) * 4.6).to(device)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, 0), (4, WS // 2)])
+def test_fused_cos_attn_block_kernels(cuda, kinds, shift):
+    """#11 (z) and #12 (dx and the eight parameter gradients) against their
+    plain versions."""
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    p = _v2_inputs(cuda, kinds)
+    ops = [p[k] for k in COS_NAMES]
+    meta = (NH, HD, WS, 1e-5, shift)
+    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    n0 = (v2.fused_cos_attn_block.launches, v2.fused_cos_attn_block_backward.launches)
+    with torch.no_grad():
+        got = v2.fused_cos_attn_block(*ops, p["s2"], *meta)
+    grads = v2.fused_cos_attn_block_backward(*ops, p["s2"], dout, *meta)
+    torch.cuda.synchronize()
+    assert (v2.fused_cos_attn_block.launches, v2.fused_cos_attn_block_backward.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want = v2.fused_cos_attn_block_reference(*ops, p["s2"], *meta)
+    assert (got - want).abs().max().item() <= TOL
+    plain = v2.fused_cos_attn_block_bwd_reference(*ops, p["s2"], dout, *meta)
+    names = ("dx", "dwq", "dbq", "dscale", "dwp", "dbp", "dg", "dbe", "dbias")
+    for name, g, w in zip(names, grads, plain):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_fused_postnorm_mlp_kernels(cuda):
+    """#13 (out) and #14 (dx and the six parameter gradients) against their
+    plain versions, also on a ragged last tile of tokens."""
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    p = _v2_inputs(cuda, 1)
+    params = [p[k] for k in PN_NAMES[1:]]
+    gen = torch.Generator().manual_seed(8)
+    for x, s in ((p["x"], p["s2"]), (torch.randn(1, 8, 12, C, generator=gen).to(cuda),
+                                     torch.ones(1, device=cuda))):
+        dout = torch.randn(x.shape, generator=gen).to(cuda)
+        n0 = (v2.fused_postnorm_mlp.launches, v2.fused_postnorm_mlp_backward.launches)
+        with torch.no_grad():
+            got = v2.fused_postnorm_mlp(x, *params, s, WS)
+        grads = v2.fused_postnorm_mlp_backward(x, *params, s, dout, WS)
+        torch.cuda.synchronize()
+        assert (v2.fused_postnorm_mlp.launches, v2.fused_postnorm_mlp_backward.launches) == (
+            n0[0] + 1, n0[1] + 1)
+        assert (got - v2.fused_postnorm_mlp_reference(x, *params, s, WS)).abs().max() <= TOL
+        plain = v2.fused_postnorm_mlp_bwd_reference(x, *params, s, dout, WS)
+        for i, (g, w) in enumerate(zip(grads, plain)):
+            assert g.shape == w.shape, i
+            assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), i
+
+
+@pytest.mark.cuda
+def test_postnorm_backwards_are_deterministic(cuda):
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    p = _v2_inputs(cuda, 4)
+    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    cos = [p[k] for k in COS_NAMES]
+    mlp = [p[k] for k in PN_NAMES]
+    for fn in (lambda: v2.fused_cos_attn_block_backward(*cos, p["s2"], dout, NH, HD, WS,
+                                                        shift=WS // 2),
+               lambda: v2.fused_postnorm_mlp_backward(*mlp, p["s2"], dout, WS)):
+        runs = [fn() for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_postnorm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    p = _v2_inputs(cuda, 1)
+    cos = [p[k] for k in COS_NAMES]
+    with pytest.raises(TypeError, match="float32"):
+        v2.fused_cos_attn_block(cos[0].double(), *cos[1:], p["s"], NH, HD, WS)
+    with pytest.raises(ValueError, match="contiguous"):
+        v2.fused_cos_attn_block(cos[0].transpose(1, 2).contiguous().transpose(1, 2), *cos[1:],
+                                p["s"], NH, HD, WS)
+    with pytest.raises(ValueError, match="limits"):  # H = 60 is not a multiple of 8
+        v2.fused_cos_attn_block(cos[0][:, :60].contiguous(), *cos[1:], p["s"], NH, HD, WS)
+    with pytest.raises(ValueError, match="shape"):  # one temperature for 6 heads
+        v2.fused_cos_attn_block(*cos[:3], p["scale"][:1], *cos[4:], p["s"], NH, HD, WS)
+    with pytest.raises(ValueError, match="limits"):  # Swin2SR-L's MLP backward: no room
+        x = torch.zeros(1, 8, 8, 240, device=cuda)
+        w1, w2 = torch.zeros(240, 480, device=cuda), torch.zeros(480, 240, device=cuda)
+        v2.fused_postnorm_mlp_backward(x, w1, torch.zeros(480, device=cuda), w2,
+                                       *(torch.zeros(240, device=cuda) for _ in range(3)),
+                                       torch.ones(1, device=cuda), x, WS)
+
+
+@pytest.mark.cuda
+def test_postnorm_shared_memory_plans_match_the_source(cuda):
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    lib = cuda_build.library("fused_block_v2")
+    for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
+        assert lib.trr_cos_attn_fwd_smem_bytes(c, nh) == v2.cos_attn_fwd_smem_bytes(c, nh)
+        assert lib.trr_pn_mlp_fwd_smem_bytes(c, hidden) == v2.pn_mlp_fwd_smem_bytes(c, hidden)
+        assert lib.trr_postnorm_ln_bwd_smem_bytes(c) == v2.postnorm_ln_bwd_smem_bytes(c)
+        assert lib.trr_cos_attn_bwd_smem_bytes(c // nh) == v2.cos_attn_bwd_smem_bytes(c // nh)
+        assert lib.trr_qkv_dx_smem_bytes(c) == v2.qkv_dx_smem_bytes(c)
+        assert lib.trr_pn_mlp_bwd_smem_bytes(c, hidden) == v2.pn_mlp_bwd_smem_bytes(c, hidden)
+
+
+@pytest.mark.cuda
+def test_swin2sr_branches_agree_on_card(cuda, monkeypatch):
+    """A Swin2SR 4x (two groups of two blocks at Swin2SR-M's widths) in train
+    mode, one forward and backward through #11-#14 and the unfused branch:
+    the same loss and gradients, logit_scale and the CPB MLP included."""
+    import copy
+
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    net = build_network({"type": "swin2sr_m", "scale": 4, "depths": [2, 2], "num_heads": [6, 6],
+                         "drop_path_rate": 0.0})
+    net = net.init_weights(torch.Generator().manual_seed(0)).to(cuda).train()
+    nets = {"kernel": net, "plain": copy.deepcopy(net)}
+    x = torch.rand(2, 3, 40, 48, generator=torch.Generator().manual_seed(1)).to(cuda)
+    losses, grads = {}, {}
+    for branch, m in nets.items():
+        monkeypatch.delenv("TRAINNER_FUSED_BLOCK", raising=False)
+        if branch == "plain":
+            monkeypatch.setenv("TRAINNER_FUSED_BLOCK", "0")
+        n0 = (v2.fused_cos_attn_block_backward.launches, v2.fused_postnorm_mlp_backward.launches)
+        loss = m(x).square().mean()
+        loss.backward()
+        n1 = (v2.fused_cos_attn_block_backward.launches, v2.fused_postnorm_mlp_backward.launches)
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == ((4, 4) if branch == "kernel" else (0, 0))
+        losses[branch] = loss.item()
+        grads[branch] = {k: p.grad for k, p in m.named_parameters()}
+    assert abs(losses["kernel"] - losses["plain"]) <= 1e-4 * abs(losses["plain"])
+    for k, w in grads["plain"].items():
+        assert (grads["kernel"][k] - w).abs().max().item() <= 1e-3 * w.abs().max().item(), k

@@ -1,7 +1,7 @@
 """Architectures of the port: registration + build_network.
 
 Parity: the JAX package's archs/__init__.py, without its directory scan:
-only the ported archs (SwinIR, HAT, DAT) are imported and registered, and
+only the ported archs (SwinIR, HAT, DAT, Swin2SR) are imported and registered, and
 `build_network` resolves a type in SPANDREL_REGISTRY, then ARCH_REGISTRY,
 as the JAX package does.
 """
@@ -12,6 +12,7 @@ from typing import Any
 
 from trainner_redux_tpu_torch.archs import dat_arch  # noqa: F401 (registers dat*)
 from trainner_redux_tpu_torch.archs import hat_arch  # noqa: F401 (registers hat*)
+from trainner_redux_tpu_torch.archs import swin2sr_arch  # noqa: F401 (registers swin2sr_*)
 from trainner_redux_tpu_torch.archs import swinir_arch  # noqa: F401 (registers swinir_*)
 from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY, SPANDREL_REGISTRY
 

@@ -259,7 +259,9 @@ def _bias_or_zeros(linear: nn.Linear) -> torch.Tensor:
 
 
 class ResidualGroup(nn.Module):
-    def __init__(self, blocks: list[SwinBlock]) -> None:
+    """Blocks applied in order (SwinIR's SwinBlocks, Swin2SR's Swin2Blocks)."""
+
+    def __init__(self, blocks: list[nn.Module]) -> None:
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
 

@@ -27,10 +27,6 @@
 
 namespace trr {
 
-__device__ __forceinline__ float gelu_erf(float t) {
-  return 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
-}
-
 // Shared memory of the attention half, in floats: the LN tile and the
 // attention tile (C, 64) transposed, one head's q and k (hd, 64)
 // transposed and v (64, 32), the score tile, the weight stage, LN stats.

@@ -52,6 +52,22 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float gelu_erf(float t) {
+  return 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_erf_grad(float h) {
+  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+  return cdf + h * expf(-0.5f * h * h) * 0.39894228040143268f;
+}
+
+// Allow `kernel` `floats` floats of dynamic shared memory.
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, int floats) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              floats * (int)sizeof(float));
+}
+
 // C (64 x N) = A (64 x K) B[:, bcol(0..N-1)]:
 //   At  transposed A in shared memory, At[k * kTLd + r];
 //   B   (K x ldb) row-major in device memory, read through L2 and staged

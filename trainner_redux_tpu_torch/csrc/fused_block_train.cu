@@ -51,11 +51,6 @@ constexpr int kAtbTile = 64;            // output tile (rows and columns) of A^T
 constexpr int kAtbK = 32;               // tokens staged in shared memory per step
 constexpr int kAtbLd = kAtbTile + 4;
 
-__device__ __forceinline__ float gelu_erf_grad(float h) {
-  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-  return cdf + h * expf(-0.5f * h * h) * 0.39894228040143268f;
-}
-
 // Shared memory, in floats, of the three per-tile backward kernels.
 __host__ __device__ inline int bwd_tokens_smem_floats(int C, int hidden) {
   return 2 * C * kTLd + hidden * kTLd + kStageFloats + 4 * kTile;
@@ -539,12 +534,6 @@ __global__ void __launch_bounds__(kThreads)
   float acc = 0.f;
   for (int s = 0; s < S; ++s) acc += __ldg(part + (size_t)s * L + i);
   out[i] = acc;
-}
-
-template <class Kernel>
-cudaError_t set_smem(Kernel kernel, int floats) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              floats * (int)sizeof(float));
 }
 
 }  // namespace trr

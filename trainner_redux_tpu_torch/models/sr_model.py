@@ -421,7 +421,8 @@ class SRModel(BaseModel):
     def load_network(self, net: torch.nn.Module, path: str, strict: bool = True) -> None:
         """Load weights into `net`: a JAX-framework safetensors (metadata
         `framework: trainner_redux_tpu`, through the weight bridge), a
-        torch-layout safetensors, or a .pth/.pt pickle."""
+        torch-layout safetensors, or a .pth/.pt pickle (an upstream
+        Swin2SR's q_bias / v_bias packed into the port's qkv bias)."""
         from trainner_redux_tpu_torch.utils import torch_compat
 
         if path.endswith(".safetensors"):
@@ -435,6 +436,7 @@ class SRModel(BaseModel):
                 self._merge_params(net, sd, strict, path)
                 return
         flat = torch_compat.drop_recomputed_buffers(torch_compat.load_torch_state_dict(path))
+        flat = torch_compat.pack_qkv_bias(flat)
         sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in flat.items()}
         self._merge_params(net, sd, strict, path)
 

@@ -27,6 +27,7 @@ BUILD_ROOT = PACKAGE_DIR / "_build"
 SOURCES = {
     "fused_block": "fused_block.cu",
     "fused_block_train": "fused_block_train.cu",
+    "fused_block_v2": "fused_block_v2.cu",
     "window_attention": "window_attention.cu",
 }
 HEADERS = ("common.cuh", "block_fwd.cuh")
@@ -59,6 +60,18 @@ SIGNATURES = {
         "trr_bwd_tokens_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_bwd_ln1_smem_bytes": ([_I], ctypes.c_size_t),
+    },
+    "fused_block_v2": {
+        "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),
+        "trr_cos_attn_bwd": ([_P] * 16 + [_I] * 7 + [_F, _P], _I),
+        "trr_pn_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
+        "trr_pn_mlp_bwd": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
+        "trr_cos_attn_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_pn_mlp_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_postnorm_ln_bwd_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_cos_attn_bwd_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_qkv_dx_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_pn_mlp_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "window_attention": {
         "trr_window_mhsa_fwd": ([_P] * 3 + [_I] * 7 + [_F, _P], _I),

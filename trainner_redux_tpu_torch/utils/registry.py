@@ -89,7 +89,7 @@ class Registry:
 
 # The component families of the port. Every ported arch's state dict uses
 # the official torch key names; each arch registers where the JAX package
-# registers it (SwinIR and HAT in ARCH_REGISTRY, DAT in SPANDREL_REGISTRY).
+# registers it (SwinIR and HAT in ARCH_REGISTRY, DAT and Swin2SR in SPANDREL_REGISTRY).
 DATASET_REGISTRY = Registry("dataset")
 ARCH_REGISTRY = Registry("arch")
 SPANDREL_REGISTRY = Registry("spandrel")

@@ -1,7 +1,7 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR, HAT and DAT parts of the JAX package's
+Port of the SwinIR, HAT, DAT and Swin2SR parts of the JAX package's
 utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
@@ -12,13 +12,18 @@ utils/torch_compat.py:
   (`.`-joined flax keys, as `BaseModel.flatten_params` gives them) as the
   port's state dict. For SwinIR it is the JAX `_export_swinir` mapping,
   extended to the 3conv residual connection and every upsampler; for HAT
-  the JAX `_export_hat` mapping; for DAT the inverse of the JAX
-  `_convert_dat` (the JAX package has no DAT exporter).
+  the JAX `_export_hat` mapping; for DAT and Swin2SR the inverse of the
+  JAX `_convert_dat` and `_convert_swin2sr` (the JAX package has no
+  exporter for them);
+- `pack_qkv_bias`: upstream Swin2SR's `attn.q_bias` / `attn.v_bias` as the
+  port's one `attn.qkv.bias` = [q, 0, v], as the JAX `_convert_swin2sr`
+  packs them.
 
 Buffers that upstream checkpoints carry and the port recomputes
 (`relative_position_index`, HAT's `relative_position_index_SA` / `_OCA`,
 `attn_mask`, DAT's `rpe_biases`, `attn.attn_mask_*` and the BatchNorms'
-`num_batches_tracked`, `mean`) are dropped on load.
+`num_batches_tracked`, Swin2SR's `relative_coords_table`, `mean`) are
+dropped on load.
 """
 
 from __future__ import annotations
@@ -72,16 +77,28 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
 
 
 def drop_recomputed_buffers(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Drop the buffers upstream SwinIR, HAT and DAT checkpoints carry and
-    the port recomputes."""
+    """Drop the buffers upstream SwinIR, HAT, DAT and Swin2SR checkpoints
+    carry and the port recomputes."""
     return {
         k: v for k, v in sd.items()
         if not k.endswith(("relative_position_index", "relative_position_index_SA",
                            "relative_position_index_OCA", "attn_mask", "rpe_biases",
-                           "num_batches_tracked"))
+                           "num_batches_tracked", "relative_coords_table"))
         and not re.fullmatch(r".*\.attn\.attn_mask_\d+", k)
         and not k.startswith(("absolute_pos_embed", "mean"))
     }
+
+
+def pack_qkv_bias(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Each upstream SwinV2 `<attn>.q_bias` / `<attn>.v_bias` pair as
+    `<attn>.qkv.bias` = [q, 0, v] (the k bias is fixed at 0 upstream); a
+    state dict without such pairs comes back as it is."""
+    out = {k: v for k, v in sd.items() if not k.endswith((".q_bias", ".v_bias"))}
+    for k, q in sd.items():
+        if k.endswith(".q_bias"):
+            pre = k.removesuffix(".q_bias")
+            out[f"{pre}.qkv.bias"] = np.concatenate([q, np.zeros_like(q), sd[f"{pre}.v_bias"]])
+    return out
 
 
 def _weight_or_bias(kind: str) -> str:
@@ -216,7 +233,30 @@ def _dat_zero_pos_layers(out: dict[str, np.ndarray]) -> None:
             out[f"{pre}{p}.2.bias"] = empty
 
 
-_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key}
+# Swin2SR's attention parts: flax name -> upstream module
+_SWIN2SR_ATTN = {"qkv": "qkv", "proj": "proj", "cpb_fc1": "cpb_mlp.0", "cpb_fc2": "cpb_mlp.2"}
+
+
+def _swin2sr_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax Swin2SR key -> (torch key, array in torch layout): the
+    inverse of the JAX `_convert_swin2sr`."""
+    m = re.fullmatch(r"layers_(\d+)_blocks_(\d+)\.(.+)", k)
+    if m:
+        i, j, rest = m.groups()
+        pre = f"layers.{i}.residual_group.blocks.{j}"
+        if rest == "attn.logit_scale":
+            return f"{pre}.{rest}", v
+        m = re.fullmatch(r"(?:attn\.(\w+)|(norm[12]|fc[12]))\.(kernel|scale|bias)", rest)
+        if m and (m.group(2) or m.group(1) in _SWIN2SR_ATTN):
+            attn, own, kind = m.groups()
+            inner = f"attn.{_SWIN2SR_ATTN[attn]}" if attn else own.replace("fc", "mlp.fc")
+            return f"{pre}.{inner}.{_weight_or_bias(kind)}", linear_w(v) if kind == "kernel" else v
+        raise KeyError(f"no torch counterpart for Swin2SR key '{k}'")
+    # the norms and convs are named as in SwinIR, but for the groups' layers_i_conv
+    return _swinir_key(re.sub(r"^layers_(\d+)_conv\.", r"layers_\1.conv.", k), v)
+
+
+_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key}
 
 
 def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> dict:
