@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x,
-DAT 4x and Swin2SR-M 4x serving and training.
+DAT 4x and Swin2SR-M 4x serving and training, and SwinIR-M 4x training on
+pairs degraded on the fly (Real-ESRGAN OTF).
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -91,6 +92,28 @@ failure:
              timed.
 25. swin2sr train profile - device time by kernel of one Swin2SR-M
              training step.
+26. jpeg kernel - the DiffJPEG block transform (#15) against its plain
+             version at the OTF path's planes (batch 8 of gt_size 128: Y
+             8x36 and C 8x9 blocks, qualities across 45-95) and at 8 images
+             of 512x512 (8x4096 Y blocks): max abs error, blocks near a
+             rounding tie counted and left out, two runs bit-identical;
+             kernel and plain device times (CUDA graphs: at the path's
+             planes a call is shorter than its host time) and the bound.
+27. otf degrade - one seeded batch (8 GT crops of 160x160, the dataset's
+             kernels) through `_degrade` with every optics, sensor, ISP,
+             editing and recompression gate open, twice from the same
+             generator states: through #15 and through the plain core; the
+             LQs within 1/255, the values that differ counted, both timed.
+28. otf train - `train.run` on SwinIR-M 4x OTF as swinir_m_otf.yml has it
+             in fp32, without the GAN and the perceptual loss (batch 8 of
+             gt_size 128, queue 120, L1, AdamW 2e-4, EMA 0.999; the
+             template's MS-SSIM raises at gt_size 128 in both packages),
+             30 steps from 16 seeded 512x512 HR images, counting #15 (3 a
+             compression, recompressions included) and #4/#5 (36 + 36 a
+             step); the EMA checkpoint then serves with the strict load.
+29. otf train profile - device time by kernel of one OTF step, split into
+             the degradation (`feed_data`) and the optimizer step, with the
+             card's idle share; both also timed without the profiler.
 
 Then one JSON line of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -105,7 +128,7 @@ import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -126,6 +149,8 @@ GRAD_TOL = 1e-4  # of each gradient tensor's largest magnitude
 PATH_TOL = 1e-3  # [0, 1] outputs of 36 blocks, kernel vs plain branches
 BRANCH_LOSS_TOL = 1e-4  # relative, one training loss, kernel vs plain branch
 BRANCH_GRAD_TOL = 1e-3  # of each gradient tensor's largest, after 36 blocks back
+# #15's outputs are spatial values in [-128, 127]; the JAX kernel test's tolerance
+JPEG_TOL = 1e-3
 N_IMAGES = 4
 BLOCKS = 36
 TRAIN_STEPS = 30
@@ -169,6 +194,7 @@ REPLACES = {
     "fused_cos_attn_block_backward": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:373",
     "fused_postnorm_mlp": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:529",
     "fused_postnorm_mlp_backward": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:556",
+    "jpeg_block_transform": "trainner_redux_tpu/ops/pallas/jpeg_kernel.py:62",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -185,6 +211,7 @@ SOURCES = {
     "fused_cos_attn_block_backward": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
     "fused_postnorm_mlp": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
     "fused_postnorm_mlp_backward": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "jpeg_block_transform": "trainner_redux_tpu_torch/csrc/jpeg_block.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs
@@ -295,6 +322,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
+    """Device time of one `fn` call: `iters` calls captured in a CUDA graph,
+    replayed `replays` times between CUDA events. For a call too short for
+    `time_ms`, which then measures how fast the host launches it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -426,6 +480,7 @@ def phase_kernels() -> dict:
 def _wrappers() -> dict:
     from trainner_redux_tpu_torch.ops import fused_block as fb
     from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+    from trainner_redux_tpu_torch.ops import jpeg_kernel as jk
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     return {
@@ -442,6 +497,7 @@ def _wrappers() -> dict:
         "fused_cos_attn_block_backward": v2.fused_cos_attn_block_backward,
         "fused_postnorm_mlp": v2.fused_postnorm_mlp,
         "fused_postnorm_mlp_backward": v2.fused_postnorm_mlp_backward,
+        "jpeg_block_transform": jk.jpeg_block_transform,
     }
 
 
@@ -794,10 +850,12 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str
 def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
                 tag: str = "train", per_step: dict[str, int] | None = None,
                 serve_want: dict[str, int] | None = None, lq: int = TH,
-                losses: tuple[str, ...] = ("l1loss",)) -> dict[str, int]:
+                losses: tuple[str, ...] = ("l1loss",), opt=None,
+                more_launches=None) -> dict[str, int]:
     """The training entry point on `network` (batch 8 of lq x lq LR crops,
-    the pair `losses`); returns the launch counts of its run, which must be
-    `per_step` times the steps."""
+    the pair `losses`; `opt`, when given, are the run's options); returns
+    the launch counts of its run, which must be `per_step` times the steps
+    and what `more_launches()` returns after the run."""
     import math
     import statistics
 
@@ -810,8 +868,9 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
                             "fused_swin_block_train_backward": BLOCKS}
     serve_want = serve_want or {"fused_attn_block": BLOCKS * N_IMAGES,
                                 "fused_ln_mlp": BLOCKS * N_IMAGES}
-    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
-    opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network, lq, losses)
+    if opt is None:
+        hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+        opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network, lq, losses)
     ends, totals = [], []
     original = SRModel.optimize_parameters
 
@@ -847,7 +906,9 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
         fail(f"{tag} ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
     if not all(math.isfinite(v) for v in totals):
         fail(f"a training loss is not finite: {totals}")
-    check_counts(f"{tag} ({label})", counts, {k: v * TRAIN_STEPS for k, v in per_step.items()})
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want.update(more_launches() if more_launches else {})
+    check_counts(f"{tag} ({label})", counts, want)
     ema = Path(opt.path.models) / f"net_g_ema_{TRAIN_STEPS}.safetensors"
     if not ema.exists():
         fail(f"no EMA checkpoint at {ema}")
@@ -860,7 +921,7 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     # checkpoints, states and the 512x512 PNGs: too large to bring back
     shutil.rmtree(opt.path.models)
     shutil.rmtree(opt.path.training_states)
-    shutil.rmtree(OUT / "train_data")
+    shutil.rmtree(OUT / "train_data", ignore_errors=True)
     return counts
 
 
@@ -1047,12 +1108,13 @@ def check_grads(name: str, label: str, grads, plain, parts) -> tuple[float, floa
 
 
 def record_kernel(res: dict, tag: str, name: str, label: str, kern, plain, lib, flops: float,
-                  nb: float, err: float, note: str = "") -> None:
-    """Time a checked kernel, its plain version and its library call, print
-    them with the card's bound, and keep them in `res[name]` (the last call
-    recorded under a name is the one the JSON line reports)."""
-    ms = time_ms(kern, iters=10, warmup=2)
-    plain_ms = time_ms(plain, iters=5, warmup=1)
+                  nb: float, err: float, note: str = "", timer=None) -> None:
+    """Time a checked kernel, its plain version and its library call (with
+    `timer`, when given, for the first two), print them with the card's
+    bound, and keep them in `res[name]` (the last call recorded under a
+    name is the one the JSON line reports)."""
+    ms = timer(kern) if timer else time_ms(kern, iters=10, warmup=2)
+    plain_ms = timer(plain) if timer else time_ms(plain, iters=5, warmup=1)
     lib_ms = time_ms(lib, iters=10, warmup=2) if lib is not None else None
     bms, by = bound(flops, nb)
     say(f"[{tag}] {name} {label}: max_abs_err {err:.3g}{note} kernel {ms:.4f} ms "
@@ -1490,6 +1552,308 @@ def phase_swin2sr_train_branches(seed: int, per_step: dict[str, int]) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 26. jpeg kernel
+# ---------------------------------------------------------------------------
+
+
+def jpeg_planes(seed: int, b: int, size: int, device) -> dict[str, tuple]:
+    """The level-shifted 8x8 blocks of the Y and Cb planes of `b` seeded
+    smooth size x size images, and their tables at qualities across 45-95,
+    as DiffJPEG hands them to kernel #15."""
+    import torch
+
+    from trainner_redux_tpu_torch.utils import diffjpeg as dj
+
+    gen = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(size) / 16.0, torch.arange(size) / 16.0, indexing="ij")
+    img = torch.full((b, size, size, 3), 0.5)
+    for _ in range(6):
+        f = torch.rand(b, 1, 1, 3, generator=gen) * 1.8 + 0.2
+        ph = torch.rand(b, 1, 1, 3, generator=gen) * 6.3
+        img += 0.12 * torch.sin(f * (yy + 0.7 * xx)[None, ..., None] + ph)
+    img = (img + 0.03 * torch.randn(img.shape, generator=gen)).clamp(0, 1).to(device)
+    factor = dj.quality_to_factor(torch.linspace(45, 95, b)).to(device)[:, None]
+    ycc = dj._rgb_to_ycbcr(img * 255.0)
+    cb = ycc[..., 1].reshape(b, size // 2, 2, size // 2, 2).mean(dim=(2, 4))
+    out = {}
+    for plane, x, table in (("Y", ycc[..., 0], dj.Y_TABLE), ("C", cb, dj.C_TABLE)):
+        qt = torch.clamp(torch.from_numpy(table.reshape(-1)).to(device)[None] * factor, 1.0, 255.0)
+        out[plane] = (dj._to_blocks(x - 128.0).contiguous(), qt.contiguous())
+    return out
+
+
+def phase_jpeg_kernel() -> dict:
+    """#15 against its plain version at the OTF path's planes (batch 8 of
+    gt_size 128: the 40x40 LQ padded to 48x48, 36 Y and 9 C blocks an
+    image) and at 8 images of 512x512 (4096 Y blocks an image). Blocks with
+    a coefficient within 1e-4 of a rounding tie are counted and left out of
+    the comparison."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import jpeg_kernel as jk
+
+    dev = torch.device("cuda")
+    res: dict[str, dict] = {}
+    big, path = jpeg_planes(512, TB, 512, dev), jpeg_planes(48, TB, 48, dev)
+    # the JSON line reports the last call recorded: the path's Y plane
+    cases = [("Y", *big["Y"]), ("C", *path["C"]), ("Y", *path["Y"])]
+    for plane, blocks, qt in cases:
+        label = f"{plane} {TB}x{blocks.shape[1]} blocks"
+        n = blocks.shape[1]
+        try:
+            got = jk.jpeg_block_transform(blocks, qt)
+            again = jk.jpeg_block_transform(blocks, qt)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"jpeg_block_transform {label}: {e}")
+        want = jk.jpeg_block_transform_reference(blocks, qt)
+        tied = jk.ties(blocks, qt)
+        clear = ~tied.any(dim=-1)
+        err = (got - want)[clear].abs().max().item()
+        if not (err <= JPEG_TOL and torch.equal(got, again) and bool(torch.isfinite(got).all())):
+            fail(f"jpeg_block_transform {label}: max_abs_err {err:.3g} (tol {JPEG_TOL}), "
+                 f"bit-identical {torch.equal(got, again)}")
+        flops = TB * n * (4 * 64 * 64 + 6 * 64)  # two 64x64 products and the quantisation
+        events_ms = time_ms(lambda: jk.jpeg_block_transform(blocks, qt))
+        note = (f", {int(tied.sum())} coefficients within 1e-4 of a tie "
+                f"({int((~clear).sum())} of {TB * n} blocks left out), two runs bit-identical; "
+                f"back-to-back calls {events_ms:.4f} ms each (CUDA events); times below from "
+                f"CUDA graphs")
+        record_kernel(res, "jpeg kernel", "jpeg_block_transform", label,
+                      lambda: jk.jpeg_block_transform(blocks, qt),
+                      lambda: jk.jpeg_block_transform_reference(blocks, qt), None, flops,
+                      nbytes(blocks, qt, got), err, note, timer=graph_ms)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 27. otf degrade
+# ---------------------------------------------------------------------------
+
+# what configs/_templates/train/SwinIR/swinir_m_otf.yml sets beyond the
+# network, the GAN and the perceptual loss
+OTF_TEMPLATE = {"blur_prob": 0.8, "gaussian_noise_prob": 0.5, "noise_range": [1, 20],
+                "jpeg_prob": 1.0, "compression_jpeg_range": [45, 95], "recompression_prob": 0.3}
+OTF_GT = 128  # gt_size: LQ crops of 32x32
+OTF_QUEUE = 120
+# the template's L1 + MS-SSIM less MS-SSIM, which needs 161-pixel sides
+# (gt_size 128 raises in both packages)
+OTF_LOSSES = ("l1loss",)
+# every optics, sensor, ISP, editing and recompression gate open
+OTF_ALL_ON = {
+    "lens_distort_prob": 1.0, "chromatic_aberration_prob": 1.0, "motion_blur_prob": 1.0,
+    "blur_prob": 1.0, "demosaic_prob": 1.0, "sensor_noise_prob": 1.0,
+    "rolling_shutter_prob": 1.0, "gaussian_noise_prob": 1.0, "noise_range": [1, 20],
+    "exposure_prob": 1.0, "color_temp_prob": 1.0, "oversharpen_prob": 1.0,
+    "aliasing_prob": 1.0, "recompression_prob": 1.0, "editing_prob": 1.0,
+    "editing_exposure_prob": 1.0, "editing_oversharpen_prob": 1.0,
+}
+
+
+def otf_options(name: str, hr_dir: Path, seed: int, **degrade):
+    """SwinIR-M 4x OTF training as swinir_m_otf.yml has it, in fp32 and
+    without network_d, perceptualloss and ganloss, on `hr_dir`."""
+    from trainner_redux_tpu_torch.utils.options import resolve_options
+    from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
+    from trainner_redux_tpu_torch.utils.schema import decode
+
+    raw = {
+        "name": name, "scale": 4, "num_gpu": 1, "manual_seed": seed,
+        "compute_dtype": "float32", "network_g": {"type": "swinir_m"}, "path": {},
+        "high_order_degradation": True, "queue_size": OTF_QUEUE, **degrade,
+        "datasets": {"train": {
+            "name": "smoke_otf", "type": "realesrgandataset", "dataroot_gt": str(hr_dir),
+            "io_backend": {"type": "disk"}, "gt_size": OTF_GT, "batch_size_per_gpu": TB,
+            "num_worker_per_gpu": 8, "accum_iter": 1,
+        }},
+        "train": {
+            "total_iter": TRAIN_STEPS, "ema_decay": 0.999, "warmup_iter": -1,
+            "grad_clip": False,
+            "optim_g": {"type": "AdamW", "lr": 2e-4, "betas": [0.9, 0.99]},
+            "scheduler": {"type": "MultiStepLR", "milestones": [250000, 400000, 450000, 475000],
+                          "gamma": 0.5},
+            "losses": [{"type": t, "loss_weight": 1.0} for t in OTF_LOSSES],
+        },
+        "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False},
+    }
+    return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
+
+
+def otf_batch(opt, seed: int, n: int = TB) -> dict:
+    """n samples of the OTF dataset (uint8 GT of gt_size + 32 and the three
+    kernels), stacked, on the card."""
+    import numpy as np
+    import torch
+
+    from trainner_redux_tpu_torch.data import build_dataset
+
+    ds = build_dataset(opt.datasets["train"], seed=seed)
+    return {k: torch.from_numpy(np.stack([ds[i][k] for i in range(n)])).cuda()
+            for k in ("gt", "kernel1", "kernel2", "sinc_kernel")}
+
+
+@contextmanager
+def plain_jpeg_core():
+    """DiffJPEG's block transform through its plain version for the body."""
+    from trainner_redux_tpu_torch.ops import jpeg_kernel as jk
+
+    kernel = jk.jpeg_block_transform
+    jk.jpeg_block_transform = jk.jpeg_block_transform_reference
+    try:
+        yield
+    finally:
+        jk.jpeg_block_transform = kernel
+
+
+def phase_otf_degrade(seed: int, hr_dir: Path) -> None:
+    """One seeded batch through `_degrade` with every gate open, twice from
+    the same generator states: through #15 and through the plain core."""
+    import torch
+
+    from trainner_redux_tpu_torch.models import build_model
+    from trainner_redux_tpu_torch.models.sr_model import fp32_math
+
+    opt = otf_options("otf_degrade", hr_dir, seed, **OTF_ALL_ON)
+    model = build_model(opt, device="cuda")
+    batch = otf_batch(opt, seed)
+    states = (model.host_generator.get_state(), model.device_generator.get_state())
+    outs, times = {}, {}
+
+    def degrade():
+        with torch.no_grad(), fp32_math():
+            return model._degrade(*batch.values())
+
+    for core in ("kernel", "plain"):
+        model.host_generator.set_state(states[0])
+        model.device_generator.set_state(states[1])
+        reset_counts()
+        with plain_jpeg_core() if core == "plain" else nullcontext():
+            outs[core] = degrade()
+        torch.cuda.synchronize()
+        launches = read_counts()["jpeg_block_transform"]
+        want = 6 if core == "kernel" else 0  # 3 planes, compressed twice
+        if launches != want:
+            fail(f"otf degrade {core} core: {launches} launches of #15, expected {want}")
+    # the host clock of this machine wanders: time in turns, kernel, plain,
+    # plain, kernel, 10 runs a turn, from the same generator states
+    for core in ("kernel", "plain", "plain", "kernel"):
+        model.host_generator.set_state(states[0])
+        model.device_generator.set_state(states[1])
+        with plain_jpeg_core() if core == "plain" else nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                degrade()
+            torch.cuda.synchronize()
+        times.setdefault(core, []).append((time.perf_counter() - t0) / 10 * 1e3)
+    (gt_k, lq_k), (gt_p, lq_p) = outs["kernel"], outs["plain"]
+    if lq_k.shape != (TB, OTF_GT // 4, OTF_GT // 4, 3) or not torch.equal(gt_k, gt_p):
+        fail(f"otf degrade: lq {tuple(lq_k.shape)}, GT crops equal {torch.equal(gt_k, gt_p)}")
+    d = (lq_k - lq_p).abs()
+    say(f"[otf degrade] batch {TB} of {OTF_GT + 32}x{OTF_GT + 32} GT, every gate open: LQ "
+        f"{tuple(lq_k.shape)}, #15 vs plain core max_abs_diff {d.max().item():.3g} "
+        f"(tol {1 / 255:.3g}), {int((d > 1e-6).sum())} of {d.numel()} values differ; "
+        f"_degrade through #15 {' / '.join(f'{t:.2f}' for t in times['kernel'])} ms, through "
+        f"the plain core {' / '.join(f'{t:.2f}' for t in times['plain'])} ms (host clock, "
+        f"turns of 10 runs: kernel, plain, plain, kernel)")
+    if d.max().item() > 1 / 255 + 1e-6:
+        fail(f"otf degrade: the #15 and plain-core LQs differ by {d.max().item():.3g}")
+
+
+# ---------------------------------------------------------------------------
+# 28. otf train
+# ---------------------------------------------------------------------------
+
+
+def phase_otf_train(seed: int, hr_dir: Path) -> dict[str, int]:
+    """`train.run` on SwinIR-M 4x OTF: 30 steps, counting #15 (3 a
+    compression: one a step and one for each recompression drawn) and
+    #4/#5 (36 + 36 a step)."""
+    from trainner_redux_tpu_torch.models.realesrgan_model import RealESRGANModel
+
+    compressions = []
+    original = RealESRGANModel._compress
+
+    def counted(self, x, fmt):
+        compressions.append(fmt)
+        return original(self, x, fmt)
+
+    RealESRGANModel._compress = counted
+    try:
+        counts = phase_train(
+            seed, "swinir_m", "SwinIR-M OTF", "otf train", lq=OTF_GT // 4, losses=OTF_LOSSES,
+            opt=otf_options("swinir_m_x4_otf", hr_dir, seed, **OTF_TEMPLATE),
+            more_launches=lambda: {"jpeg_block_transform": 3 * len(compressions)})
+    finally:
+        RealESRGANModel._compress = original
+    say(f"[otf train] {len(compressions) - TRAIN_STEPS} recompressions drawn in "
+        f"{TRAIN_STEPS} steps (p 0.3); #15 launches {counts['jpeg_block_transform']}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 29. otf train profile
+# ---------------------------------------------------------------------------
+
+
+def phase_otf_profile(seed: int, hr_dir: Path) -> None:
+    """Device time by kernel of one OTF step, split into the degradation
+    (`feed_data`: degrade and pool) and the optimizer step; both timed
+    again without the profiler, and the card's idle share against that."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    opt = otf_options("swinir_m_x4_otf_profile", hr_dir, seed, **OTF_TEMPLATE)
+    model = build_model(opt, device="cuda")
+    batch = otf_batch(opt, seed)
+    for i in range(3):
+        model.feed_data(batch)
+        model.optimize_parameters(i + 1)
+    torch.cuda.synchronize()
+    parts = {}
+    for part, fn in (("degrade", lambda: model.feed_data(batch)),
+                     ("step", lambda: model.optimize_parameters(4))):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = device_events(prof)
+        parts[part] = (sum(e.self_device_time_total for e in events) / 1e3, wall * 1e3, events,
+                       prof)
+    if parts["degrade"][0] == 0:
+        say("[otf profile] the profiler recorded no device time")
+        return
+    timed = {}
+    for part, fn in (("degrade", lambda: model.feed_data(batch)),
+                     ("step", lambda: model.optimize_parameters(5))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        timed[part] = (time.perf_counter() - t0) / 5 * 1e3
+    device = sum(p[0] for p in parts.values())
+    wall = sum(timed.values())
+    say(f"[otf profile] one OTF step (batch {TB}, gt {OTF_GT}): device {device:.3f} ms "
+        f"(profiler) against {wall:.2f} ms on the host clock without the profiler (5 runs "
+        f"each): the card idle {1 - device / wall:.1%}. feed_data (degrade and pool) "
+        f"{parts['degrade'][0]:.3f} device ms, {timed['degrade']:.2f} ms host clock "
+        f"({parts['degrade'][0] / device:.1%} of the device time); optimize_parameters "
+        f"{parts['step'][0]:.3f} device ms, {timed['step']:.2f} ms host clock (under the "
+        f"profiler {parts['degrade'][1]:.1f} and {parts['step'][1]:.1f} ms)")
+    for part, (_, _, events, prof) in parts.items():
+        (OUT / f"profile_otf_{part}.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
+        say(f"[otf profile] {part}: {sum(e.count for e in events)} kernel launches")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            say(f"[otf profile]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+                f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1547,6 +1911,13 @@ def main() -> None:
     phase_swin2sr_train_branches(args.seed, s2_step)
     phase_train_profile(args.seed, "swin2sr_m", "swin2sr train profile",
                         "profile_swin2sr_train.txt", S2_LQ, S2_LOSSES)
+    kernels.update(phase_jpeg_kernel())
+    hr_dir, _ = make_dataset(OUT / "otf_data", args.seed, ((128, 128),) * 16)
+    phase_otf_degrade(args.seed, hr_dir)
+    otf_counts = phase_otf_train(args.seed, hr_dir)
+    launches["jpeg_block_transform"] = otf_counts["jpeg_block_transform"]
+    phase_otf_profile(args.seed, hr_dir)
+    shutil.rmtree(OUT / "otf_data")
 
     records = []
     for name in KERNELS:

@@ -12,7 +12,9 @@ Shapes are SwinIR-M's (C=180, 6 heads of 30, window 8, hidden 360) at a
 rect windows (a 90-channel branch, 3 heads of 30: 8x32, 32x8, 8x16, 16x8)
 at batch 2 and a 64x64 map; unit-scale fp32 inputs, tolerance 1e-4 (the
 kernels sum in another order than cuBLAS); the training kernels' gradients
-within 1e-4 of each tensor's largest magnitude.
+within 1e-4 of each tensor's largest magnitude. DiffJPEG's block transform
+(#15) at the OTF path's planes and at 8 images of 512x512, within 1e-3 on
+spatial values in [-128, 127], blocks near a rounding tie left out.
 """
 
 import numpy as np
@@ -596,3 +598,57 @@ def test_swin2sr_branches_agree_on_card(cuda, monkeypatch):
     assert abs(losses["kernel"] - losses["plain"]) <= 1e-4 * abs(losses["plain"])
     for k, w in grads["plain"].items():
         assert (grads["kernel"][k] - w).abs().max().item() <= 1e-3 * w.abs().max().item(), k
+
+
+# ---------------------------------------------------------------------------
+# kernel #15: the DiffJPEG block transform
+# ---------------------------------------------------------------------------
+
+
+def _jpeg_inputs(device, b: int, n: int, table, seed: int = 0):
+    """Level-shifted blocks of seeded smooth images and per-sample tables at
+    qualities across 45-95, as the OTF compression stage draws them."""
+    from trainner_redux_tpu_torch.utils.diffjpeg import quality_to_factor
+
+    gen = torch.Generator().manual_seed(seed)
+    blocks = (torch.rand(b, n, 64, generator=gen) * 60 - 30
+              + torch.rand(b, n, 1, generator=gen) * 180 - 90).to(device)
+    q = torch.linspace(45, 95, b)
+    qtabs = torch.clamp(torch.from_numpy(table.reshape(-1))[None] * quality_to_factor(q)[:, None],
+                        1.0, 255.0).to(device)
+    return blocks.contiguous(), qtabs.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("n", "table"), [(36, "Y"), (9, "C"), (4096, "Y")])
+def test_jpeg_block_kernel(cuda, n, table):
+    """At the OTF path's planes (batch 8, gt_size 128: 36 Y and 9 C blocks
+    an image) and at 8 images of 512x512; blocks near a rounding tie are
+    counted and left out."""
+    from trainner_redux_tpu_torch.ops import jpeg_kernel
+    from trainner_redux_tpu_torch.utils.diffjpeg import C_TABLE, Y_TABLE
+
+    blocks, qtabs = _jpeg_inputs(cuda, 8, n, Y_TABLE if table == "Y" else C_TABLE)
+    before = jpeg_kernel.jpeg_block_transform.launches
+    got = jpeg_kernel.jpeg_block_transform(blocks, qtabs)
+    again = jpeg_kernel.jpeg_block_transform(blocks, qtabs)
+    torch.cuda.synchronize()
+    assert jpeg_kernel.jpeg_block_transform.launches == before + 2
+    assert torch.equal(got, again)
+    want = jpeg_kernel.jpeg_block_transform_reference(blocks, qtabs)
+    clear = ~jpeg_kernel.ties(blocks, qtabs).any(dim=-1)
+    assert clear.float().mean() > 0.95
+    torch.testing.assert_close(got[clear], want[clear], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_jpeg_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from trainner_redux_tpu_torch.ops import jpeg_kernel
+
+    blocks, qtabs = torch.zeros(2, 9, 64, device=cuda), torch.ones(2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        jpeg_kernel.jpeg_block_transform(blocks.requires_grad_(True), qtabs)
+    with pytest.raises(TypeError, match="float32"):
+        jpeg_kernel.jpeg_block_transform(blocks.detach().double(), qtabs)
+    with pytest.raises(ValueError, match="shape"):
+        jpeg_kernel.jpeg_block_transform(blocks.detach(), torch.ones(3, 64, device=cuda))

@@ -1,8 +1,8 @@
 """Package-level rules of the torch port, checked on the CPU.
 
 - it imports no `jax`, `flax`, `optax`, `orbax` or `trainner_redux_tpu`
-  module (nor does `chip_smoke.py`), and imports without cv2, yaml or
-  safetensors;
+  module (nor does `chip_smoke.py`; the OTF slice's modules included), and
+  imports without cv2, yaml, safetensors or scipy;
 - its entry points run on CUDA unless the CPU is asked for, and raise when
   there is no card;
 - a kernel wrapper runs its plain version for a CPU tensor only, and never
@@ -36,9 +36,16 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+OTF_MODULES = ("data/degradation_kernels.py", "data/realesrgan_dataset.py",
+               "models/paragon_sequences.py", "models/realesrgan_model.py",
+               "ops/degradations.py", "ops/jpeg_kernel.py", "ops/resize.py",
+               "utils/bn_recalibrate.py", "utils/diffjpeg.py")
+
+
 def test_no_jax_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert {PORT / m for m in OTF_MODULES} <= set(files)
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert {f: m for f, m in bad.items() if m} == {}
 
@@ -46,9 +53,15 @@ def test_no_jax_imports():
 def test_imports_without_optional_host_packages():
     code = (
         "import sys\n"
-        "for m in ('cv2', 'yaml', 'safetensors', 'tqdm', 'rich', 'jax', 'flax'):\n"
+        "for m in ('cv2', 'yaml', 'safetensors', 'tqdm', 'rich', 'jax', 'flax', 'scipy'):\n"
         "    sys.modules[m] = None\n"
         "import trainner_redux_tpu_torch.test, trainner_redux_tpu_torch.models.sr_model\n"
+        "import trainner_redux_tpu_torch.models.realesrgan_model\n"
+        "import trainner_redux_tpu_torch.models.paragon_sequences\n"
+        "import trainner_redux_tpu_torch.data.realesrgan_dataset\n"
+        "import trainner_redux_tpu_torch.data.degradation_kernels\n"
+        "import trainner_redux_tpu_torch.ops.degradations, trainner_redux_tpu_torch.ops.jpeg_kernel\n"
+        "import trainner_redux_tpu_torch.utils.diffjpeg, trainner_redux_tpu_torch.utils.bn_recalibrate\n"
         "import trainner_redux_tpu_torch.train\n"
         "import trainner_redux_tpu_torch.data, trainner_redux_tpu_torch.metrics\n"
         "import trainner_redux_tpu_torch.utils.torch_compat\n"

@@ -1,11 +1,17 @@
 """Data layer: build_dataset / build_dataloader (parity: the JAX package's
-data/__init__.py). The paired and single-image datasets are registered by
-import (no directory scan); the train loader is the threaded `DataLoader`,
-the val/test loader batch 1 in order."""
+data/__init__.py). The paired, single-image and Real-ESRGAN OTF datasets
+are registered by import (no directory scan); the train loader is the
+threaded `DataLoader`, the val/test loader batch 1 in order. A train
+dataset's `device_cache` (the JAX package's device-memory feeder) is not
+ported and raises."""
 
 from __future__ import annotations
 
-from trainner_redux_tpu_torch.data import paired_image_dataset, single_image_dataset  # noqa: F401
+from trainner_redux_tpu_torch.data import (  # noqa: F401
+    paired_image_dataset,
+    realesrgan_dataset,
+    single_image_dataset,
+)
 from trainner_redux_tpu_torch.data.data_sampler import EnlargedSampler, resolve_enlarge_ratio
 from trainner_redux_tpu_torch.data.loader import DataLoader, DevicePrefetcher, eval_loader
 from trainner_redux_tpu_torch.utils.redux_options import DatasetOptions
@@ -36,6 +42,13 @@ def build_dataloader(dataset, dataset_opt: DatasetOptions, num_gpu: int = 1,
     val/test: batch 1, sequential."""
     if dataset_opt.phase != "train":
         return eval_loader(dataset, num_workers=dataset_opt.num_worker_per_gpu or 0)
+    if dataset_opt.device_cache:
+        # the JAX package's DeviceCacheFeeder samples with replacement and
+        # augments from another stream than the host loader
+        raise NotImplementedError(
+            "device_cache: true (the device-memory dataset feeder) is not ported to torch "
+            "yet (ROADMAP.md, section 1); remove it to train from the host loader"
+        )
     if dataset_opt.prefetch_mode not in (None, "cpu", "cuda"):
         raise ValueError(f"prefetch_mode '{dataset_opt.prefetch_mode}' is unknown")
     return DataLoader(

@@ -94,7 +94,15 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0, downsampl
     weights = torch.tensor(MS_WEIGHTS, device=x.device)
     mcs = []
     ssim_val = None
-    for _ in MS_WEIGHTS:
+    size = tuple(x.shape[2:])
+    for level in range(len(MS_WEIGHTS)):
+        if min(x.shape[2], x.shape[3]) < _WINDOW:
+            # the JAX package's loss fails here too, less plainly
+            raise ValueError(
+                f"MS-SSIM of {size[0]}x{size[1]} images: scale {level + 1} of "
+                f"{len(MS_WEIGHTS)} is {x.shape[2]}x{x.shape[3]}, smaller than the "
+                f"{_WINDOW}-tap window (both sides need at least 161 pixels)"
+            )
         ssim_val, cs = ssim(x, y, data_range=data_range, downsample=downsample, get_cs=True)
         mcs.append(cs)
         ph, pw = x.shape[2] % 2, x.shape[3] % 2

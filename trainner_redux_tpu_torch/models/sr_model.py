@@ -10,7 +10,8 @@ Port of the JAX package's models/sr_model.py.
   torch optimizer with optax's semantics and a step -> lr schedule,
   `accum_iter` micro-batches with averaged gradients, the logged global
   gradient norm, optional clipping, EMA with the warm-up power decay and
-  `ema_switch_iter`, checkpoints and resume. Validation runs the EMA
+  `ema_switch_iter`, checkpoints and resume, and the post-training
+  BatchNorm recalibration (`recalibrate_bn`). Validation runs the EMA
   weights when there are any.
 
 DropPath draws from one `torch.Generator` on the model's device, seeded from
@@ -265,6 +266,36 @@ class SRModel(BaseModel):
             return [float(self.log_dict["lr_g"])]
         return [float(self.schedule_g(self.step))]
 
+    def recalibrate_bn(self, dataloader, num_batches: int = 50) -> None:
+        """Refresh every BatchNormNoStats' running statistics, in the online
+        and the EMA network, from `num_batches` LQ batches of `dataloader`
+        (utils/bn_recalibrate.py). An OTF loader carries GT and kernels
+        only: then nothing changes, as in the JAX package."""
+        from trainner_redux_tpu_torch.utils.bn_recalibrate import recalibrate_bn
+
+        def batches():
+            n = 0
+            while n < num_batches:
+                got = False
+                for data in dataloader:
+                    if n >= num_batches or "lq" not in data:
+                        return
+                    got = True
+                    yield _nchw_float(torch.as_tensor(data["lq"]).to(self.device))
+                    n += 1
+                if not got:
+                    return
+
+        for net in (self.net_g, self.net_g_ema):
+            if net is None:
+                continue
+            try:
+                with fp32_math():
+                    recalibrate_bn(net, batches())
+            except ValueError as e:
+                self.logger.warning(f"{e}; the BatchNorm statistics are unchanged")
+                return
+
     # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
@@ -404,7 +435,15 @@ class SRModel(BaseModel):
             }
             if self.net_g_ema is not None:
                 state["net_g_ema"] = self.net_g_ema.state_dict()
+            state.update(self._extra_training_state())
             self.save_training_state(state, epoch, current_iter)
+
+    def _extra_training_state(self) -> dict:
+        """What a subclass adds to the training state (its generators)."""
+        return {}
+
+    def _load_extra_training_state(self, state: dict) -> None:
+        """Restore what `_extra_training_state` saved."""
 
     def resume_training(self, resume_state_path: str) -> dict:
         """Restore the weights, EMA, optimizer, generator and step saved by
@@ -415,6 +454,7 @@ class SRModel(BaseModel):
             self.net_g_ema.load_state_dict(state["net_g_ema"])
         self.optimizer_g.load_state_dict(state["optimizer_g"])
         self.dropout_generator.set_state(state["dropout_generator"])
+        self._load_extra_training_state(state)
         self.step = int(state["step"])
         return meta
 

@@ -28,6 +28,7 @@ SOURCES = {
     "fused_block": "fused_block.cu",
     "fused_block_train": "fused_block_train.cu",
     "fused_block_v2": "fused_block_v2.cu",
+    "jpeg_block": "jpeg_block.cu",
     "window_attention": "window_attention.cu",
 }
 HEADERS = ("common.cuh", "block_fwd.cuh")
@@ -72,6 +73,9 @@ SIGNATURES = {
         "trr_cos_attn_bwd_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_qkv_dx_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_pn_mlp_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    },
+    "jpeg_block": {
+        "trr_jpeg_block": ([_P] * 5 + [_I] * 2 + [_P], _I),
     },
     "window_attention": {
         "trr_window_mhsa_fwd": ([_P] * 3 + [_I] * 7 + [_F, _P], _I),

@@ -14,7 +14,8 @@ The loop: a threaded host loader (uint8 crops), a device prefetcher one
 batch ahead, one optimizer step per batch (`accum_iter` micro-batches
 inside it), log lines every `print_freq`, checkpoints every
 `save_checkpoint_freq` and at the end, validation every `val_freq` and at
-the end, a save on SIGINT or a crash.
+the end, a save on SIGINT or a crash. With `train.bn_recalibrate_batches`,
+the BatchNorm statistics are recalibrated before the final save.
 """
 
 from __future__ import annotations
@@ -179,6 +180,11 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
         prefetcher.close()
         if previous is not None:
             signal.signal(signal.SIGINT, previous)
+
+    n_recal = opt.train.bn_recalibrate_batches if opt.train else 0
+    if n_recal > 0:
+        logger.info(f"Recalibrating BatchNorm statistics over {n_recal} batches.")
+        model.recalibrate_bn(train_loader, num_batches=n_recal)
 
     logger.info("End of training. Saving final models and states.")
     model.save(epoch, current_iter)

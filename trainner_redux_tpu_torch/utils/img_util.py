@@ -57,6 +57,16 @@ def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True) -> bool:
     return bool(cv2.imwrite(file_path, img))
 
 
+def save_batch_grid(img_batch, file_path: str) -> None:
+    """Save an NHWC float batch in [0, 1] (numpy or tensor) as one image,
+    the samples side by side in a row: the OTF debug dumps."""
+    arr = np.asarray(img_batch.detach().cpu() if hasattr(img_batch, "detach") else img_batch,
+                     np.float32)
+    if arr.ndim == 3:
+        arr = arr[None]
+    imwrite(np.concatenate(list(arr), axis=1), file_path)
+
+
 def tensor2img(
     tensor, rgb2bgr: bool = False, min_max: tuple[float, float] = (0.0, 1.0)
 ) -> np.ndarray:
