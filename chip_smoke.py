@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x,
-DAT 4x and Swin2SR-M 4x serving and training, and SwinIR-M 4x training on
-pairs degraded on the fly (Real-ESRGAN OTF).
+DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, and SwinIR-M
+4x training on pairs degraded on the fly (Real-ESRGAN OTF).
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -114,8 +114,32 @@ failure:
 29. otf train profile - device time by kernel of one OTF step, split into
              the degradation (`feed_data`) and the optimizer step, with the
              card's idle share; both also timed without the profiler.
+30. srformerv2 kernels - SRFormerV2's Swin-block kernels at its training
+             block (B=8, the 48x48 LR crop padded to 72x72, C=240, 8 heads
+             of 30, 12x12 windows, hidden 480, DropPath scales holding 0 and
+             1/0.9): #1 on its staged kernels and its recompute backward #6,
+             K=1 and K=4 shifted by 6; #2 and #7 (the two-pass plan); each
+             against its plain version, #6 and #7 bit-identical over two
+             runs; times and the card's bound; #1 and #2 also at B=1,
+             144x144 (a 128x128 image, served).
+31. srformerv2 path - `test.run` on a seeded SRFormerV2 4x and the 4
+             images, counting 18 #1 and 18 #2 launches an image; one 128x128
+             forward timed through the kernel branch and the plain branch
+             (TRAINNER_FUSED_BLOCK=0), which must agree.
+32. srformerv2 train - `train.run` on SRFormerV2 4x as
+             `srformerv2_fidelity.yml` has it (L1 + MS-SSIM, AdamW 2e-4, EMA
+             0.999) in fp32 at batch 8 of 48x48 LR crops (the template's 16
+             halved), 30 steps, counting 18 launches of each of #1, #6, #2
+             and #7 a step; the EMA checkpoint then serves with the strict
+             load.
+33. srformerv2 train branches - one forward and backward of SRFormerV2
+             through the kernels and the plain branch: losses and gradients
+             must agree; then both timed.
+34. srformerv2 train profile - device time by kernel of one SRFormerV2
+             training step, its launches and the card's busy share.
 
-Then one JSON line of kernel records and, last, the device JSON line.
+Each phase prints its seconds. Then one JSON line of kernel records and,
+last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
 """
 
@@ -179,6 +203,16 @@ SWIN2SR_BLOCKS = 36
 S2_LQ = 48
 S2_LOSSES = ("l1loss", "mssimloss")
 
+# SRFormerV2 4x: 6 layers of 4 PSA and 3 Swin blocks at embed 240, 8 heads;
+# the Swin blocks' 12x12 windows (n 144), hidden 480. Its training crop
+# (srformerv2_fidelity.yml) is 48x48 LR, which the network pads to 72x72
+# (a multiple of its windows 36 and 12); a 128x128 image runs at 144x144.
+SRF_SWIN = 18  # Swin blocks a forward: one #1 and one #2 each
+SC, SNH, SWS, SHIDDEN = 240, 8, 12, 480
+SRF_WIDTHS = (SC, SNH, SWS, SHIDDEN)
+SHD, SN = SC // SNH, SWS * SWS
+SRF_LQ, SRF_PAD, SRF_SERVE = 48, 72, 144
+
 REPLACES = {
     "fused_attn_block": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
     "fused_ln_mlp": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
@@ -195,6 +229,10 @@ REPLACES = {
     "fused_postnorm_mlp": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:529",
     "fused_postnorm_mlp_backward": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:556",
     "jpeg_block_transform": "trainner_redux_tpu/ops/pallas/jpeg_kernel.py:62",
+    "fused_attn_block_ws12": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
+    "fused_attn_block_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:729",
+    "fused_ln_mlp_c240": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
+    "fused_ln_mlp_backward_c240": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -212,9 +250,15 @@ SOURCES = {
     "fused_postnorm_mlp": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
     "fused_postnorm_mlp_backward": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
     "jpeg_block_transform": "trainner_redux_tpu_torch/csrc/jpeg_block.cu",
+    "fused_attn_block_ws12": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
+    "fused_attn_block_backward": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
+    "fused_ln_mlp_c240": "trainner_redux_tpu_torch/csrc/fused_block.cu",
+    "fused_ln_mlp_backward_c240": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
-# window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs
+# window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
+# the "_ws12" / "_c240" records are #1, #2 and #7 at SRFormerV2's Swin
+# blocks, counted by their wrappers in SRFormerV2's runs
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -360,34 +404,38 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def block_inputs(gen, kinds: int, device, shape=(B, H, W)):
-    """Seeded unit-scale inputs of one SwinIR-M block, at B=1, 128x128 unless
-    `shape` gives (B, H, W)."""
+def block_inputs(gen, kinds: int, device, shape=(B, H, W), widths=(C, NH, WS, HIDDEN)):
+    """Seeded unit-scale inputs of one pre-LN Swin block: SwinIR-M's
+    (C, heads, window, hidden) unless `widths` gives others, at B=1,
+    128x128 unless `shape` gives (B, H, W); a shifted block's (K=4) masks
+    at a shift of half the window."""
     import torch
 
     from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    c, nh, ws, hidden = widths
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
 
     b, h, w = shape
-    x = randn(b, h, w, C)
+    x = randn(b, h, w, c)
     p = {
-        "g": 1.0 + randn(C, scale=0.1), "be": randn(C, scale=0.1),
-        "wq": randn(C, 3 * C, scale=C**-0.5), "bq": randn(3 * C, scale=0.1),
-        "wp": randn(C, C, scale=C**-0.5), "bp": randn(C, scale=0.1),
-        "w1": randn(C, HIDDEN, scale=C**-0.5), "b1": randn(HIDDEN, scale=0.1),
-        "w2": randn(HIDDEN, C, scale=HIDDEN**-0.5), "b2": randn(C, scale=0.1),
+        "g": 1.0 + randn(c, scale=0.1), "be": randn(c, scale=0.1),
+        "wq": randn(c, 3 * c, scale=c**-0.5), "bq": randn(3 * c, scale=0.1),
+        "wp": randn(c, c, scale=c**-0.5), "bp": randn(c, scale=0.1),
+        "w1": randn(c, hidden, scale=c**-0.5), "b1": randn(hidden, scale=0.1),
+        "w2": randn(hidden, c, scale=hidden**-0.5), "b2": randn(c, scale=0.1),
         "s": torch.ones(b, device=device),
     }
-    rel = randn(NH, N, N, scale=0.5)
+    rel = randn(nh, ws * ws, ws * ws, scale=0.5)
     if kinds == 4:
-        masks = torch.from_numpy(shift_mask_kinds(WS, WS // 2)).to(device)
+        masks = torch.from_numpy(shift_mask_kinds(ws, ws // 2)).to(device)
         bias = (rel[None] + masks[:, None]).contiguous()
     else:
         bias = rel[None].contiguous()
-    qkv = randn(b, h, w, 3 * C)
-    p["g2"], p["be2"] = 1.0 + randn(C, scale=0.1), randn(C, scale=0.1)
+    qkv = randn(b, h, w, 3 * c)
+    p["g2"], p["be2"] = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
     return x, p, bias, qkv
 
 
@@ -485,6 +533,7 @@ def _wrappers() -> dict:
 
     return {
         "fused_attn_block": fb.fused_attn_block,
+        "fused_attn_block_backward": fb.fused_attn_block_backward,
         "fused_ln_mlp": fb.fused_ln_mlp,
         "fused_window_mhsa": wa.fused_window_mhsa,
         "fused_swin_block_train": fb.fused_swin_block_train,
@@ -954,7 +1003,8 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
     losses, grads, counts = {}, {}, {}
     for branch, env in (("kernel", kernel_env), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
         m = nets[branch]
-        m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
+        if hasattr(m, "set_dropout_generator"):  # SRFormerV2 has no DropPath
+            m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
         with fused_env(env), fp32_math():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1015,7 +1065,9 @@ def phase_train_profile(seed: int, network: str = "swinir_m", tag: str = "train 
                         file: str = "profile_train.txt", lq: int = TH,
                         losses: tuple[str, ...] = ("l1loss",)) -> None:
     """Device time by kernel of one training step of `network` (batch 8 of
-    lq x lq), after two warm-up steps; the table goes to chip_smoke/`file`."""
+    lq x lq), after two warm-up steps; the table goes to chip_smoke/`file`.
+    The card's busy share is that device time over the host time of a step
+    without the profiler (the mean of three)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1045,9 +1097,16 @@ def phase_train_profile(seed: int, network: str = "swinir_m", tag: str = "train 
     OUT.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50)
     (OUT / file).write_text(table)
+    t0 = time.perf_counter()
+    for i in range(3):
+        model.feed_data(batch)
+        model.optimize_parameters(4 + i)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / 3
     say(f"[{tag}] device time per step {total / 1e3:.3f} ms over "
         f"{sum(e.count for e in events)} kernel launches; step wall time under the "
-        f"profiler {wall * 1e3:.1f} ms")
+        f"profiler {wall * 1e3:.1f} ms, without it {step * 1e3:.1f} ms (the card busy "
+        f"{total / 1e6 / step:.1%} of it)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         say(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
             f"{e.key[:90]}")
@@ -1474,7 +1533,7 @@ def phase_swin2sr_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 22. swin2sr path
+# 22. swin2sr path (and 31. srformerv2 path)
 # ---------------------------------------------------------------------------
 
 
@@ -1483,72 +1542,79 @@ def swin2sr_serving_counts() -> dict[str, int]:
             "fused_postnorm_mlp": SWIN2SR_BLOCKS * N_IMAGES}
 
 
-def phase_swin2sr_path(seed: int) -> None:
+def phase_branch_path(seed: int, network: str, label: str, tag: str,
+                      serve_want: dict[str, int], forward_want: dict[str, int],
+                      second: str) -> None:
+    """`test.run` on a seeded `network` 4x and the 4 images (its kernels
+    launching `serve_want`), then one 128x128 forward timed through the
+    kernel branch (launching `forward_want`) and through the branch
+    TRAINNER_FUSED_BLOCK=0 selects (`second`), which must agree."""
     import torch
 
     from trainner_redux_tpu_torch.archs import build_network
 
-    net = build_network({"type": "swin2sr_m", "scale": 4})
+    net = build_network({"type": network, "scale": 4})
     net.init_weights(torch.Generator().manual_seed(seed))
-    weights = OUT / "swin2sr_m_x4_seeded.pth"
+    weights = OUT / f"{network}_x4_seeded.pth"
     torch.save(net.state_dict(), weights)
     hr_dir, lr_dir = make_dataset(OUT / "data", seed)
-    served = serve("swin2sr_m_x4", weights, hr_dir, lr_dir, seed, {}, "swin2sr_m")
-    check_counts("Swin2SR-M serving path", served["counts"], swin2sr_serving_counts())
+    served = serve(f"{network}_x4", weights, hr_dir, lr_dir, seed, {}, network)
+    check_counts(f"{label} serving path", served["counts"], serve_want)
     weights.unlink()
     x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
     net = net.cuda().eval()
     outs = {}
-    for branch, env, want in (
-        ("kernel", {}, {"fused_cos_attn_block": SWIN2SR_BLOCKS,
-                        "fused_postnorm_mlp": SWIN2SR_BLOCKS}),
-        ("unfused", {"TRAINNER_FUSED_BLOCK": "0"}, {}),
-    ):
+    for branch, env, want in (("kernel", {}, forward_want),
+                              (second, {"TRAINNER_FUSED_BLOCK": "0"}, {})):
         with fused_env(env), torch.inference_mode():
             reset_counts()
             outs[branch] = net(x)
-            check_counts(f"Swin2SR-M {branch} branch forward", read_counts(), want)
+            check_counts(f"{label} {branch} branch forward", read_counts(), want)
             fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
         if outs[branch].shape != (1, 3, 512, 512) or not torch.isfinite(outs[branch]).all():
-            fail(f"Swin2SR-M {branch} forward: bad output {tuple(outs[branch].shape)}")
-        say(f"[swin2sr path] Swin2SR-M 4x {branch} branch {env or ''}: forward of one 128x128 "
+            fail(f"{label} {branch} forward: bad output {tuple(outs[branch].shape)}")
+        say(f"[{tag}] {label} 4x {branch} branch {env or ''}: forward of one 128x128 "
             f"image {fwd_ms:.3f} ms")
-    d = (outs["kernel"] - outs["unfused"]).abs().max().item()
-    say(f"[swin2sr path] kernel vs unfused branch: max_abs_diff {d:.3g} (tol {PATH_TOL})")
+    d = (outs["kernel"] - outs[second]).abs().max().item()
+    say(f"[{tag}] kernel vs {second} branch: max_abs_diff {d:.3g} (tol {PATH_TOL})")
     if d > PATH_TOL:
-        fail(f"Swin2SR-M: the kernel and unfused branches differ by {d:.3g}")
+        fail(f"{label}: the kernel and {second} branches differ by {d:.3g}")
 
 
 # ---------------------------------------------------------------------------
-# 24. swin2sr train branches
+# 24. swin2sr train branches (and 33. srformerv2 train branches)
 # ---------------------------------------------------------------------------
 
 
-def phase_swin2sr_train_branches(seed: int, per_step: dict[str, int]) -> None:
-    """The kernel branch against the unfused one for one training forward
-    and backward (the check), then both timed from equal weights."""
+def phase_timed_train_branches(seed: int, network: str, label: str, tag: str,
+                               per_step: dict[str, int], lq: int, second: str) -> None:
+    """The kernel branch against the plain one for one training forward and
+    backward of `network` (the check), then the kernel branch and the
+    branch TRAINNER_FUSED_BLOCK=0 selects (`second`) timed from equal
+    weights."""
     import torch
 
     from trainner_redux_tpu_torch.archs import build_network
     from trainner_redux_tpu_torch.models.sr_model import fp32_math
 
-    train_branches(seed, "swin2sr_m", "Swin2SR-M", {}, per_step, "swin2sr train branches", S2_LQ)
-    net = build_network({"type": "swin2sr_m", "scale": 4})
+    train_branches(seed, network, label, {}, per_step, tag, lq)
+    net = build_network({"type": network, "scale": 4})
     net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
-    net.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
+    if hasattr(net, "set_dropout_generator"):
+        net.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
     gen = torch.Generator().manual_seed(seed + 1)
-    x = torch.rand(TB, 3, S2_LQ, S2_LQ, generator=gen).cuda()
-    gt = torch.rand(TB, 3, 4 * S2_LQ, 4 * S2_LQ, generator=gen).cuda()
+    x = torch.rand(TB, 3, lq, lq, generator=gen).cuda()
+    gt = torch.rand(TB, 3, 4 * lq, 4 * lq, generator=gen).cuda()
 
     def step():
         net.zero_grad(set_to_none=True)
         (net(x) - gt).abs().mean().backward()
 
-    for branch, env in (("kernel", {}), ("unfused", {"TRAINNER_FUSED_BLOCK": "0"})):
+    for branch, env in (("kernel", {}), (second, {"TRAINNER_FUSED_BLOCK": "0"})):
         with fused_env(env), fp32_math():
             ms = time_ms(step, iters=5, warmup=2)
-        say(f"[swin2sr train branches] Swin2SR-M {branch} branch {env or ''}: forward and "
-            f"backward of batch {TB} of {S2_LQ}x{S2_LQ} {ms:.2f} ms")
+        say(f"[{tag}] {label} {branch} branch {env or ''}: forward and backward of batch "
+            f"{TB} of {lq}x{lq} {ms:.2f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1854,70 +1920,215 @@ def phase_otf_profile(seed: int, hr_dir: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 30. srformerv2 kernels
+# ---------------------------------------------------------------------------
+
+
+def srf_flops(tokens: int) -> dict[str, float]:
+    """Operations of SRFormerV2's Swin-block kernels at 12x12 windows. #1:
+    qkv, S and P v, proj (8 T C^2 + 4 T n C). #6 recomputes qkv, S and P v
+    and takes datt, dwp, dv, dP, dq, dk, dwq and dy (22 T C^2 + 12 T n C).
+    #2: fc1 and fc2. #7 recomputes fc1 and takes dw2, dh, dw1, dy."""
+    t = tokens
+    return {
+        "fused_attn_block_ws12": 8 * t * SC * SC + 4 * t * SN * SC,
+        "fused_attn_block_backward": 22 * t * SC * SC + 12 * t * SN * SC,
+        "fused_ln_mlp_c240": 4 * t * SC * SHIDDEN,
+        "fused_ln_mlp_backward_c240": 10 * t * SC * SHIDDEN,
+    }
+
+
+def phase_srformerv2_kernels() -> dict:
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    res: dict[str, dict] = {}
+    s = torch.full((TB,), 1.0 / 0.9, device=dev)  # DropPath at rate 0.1: keep or drop
+    s[5] = 0.0
+    flops = srf_flops(TB * SRF_PAD * SRF_PAD)
+    attn_parts = ("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias")
+    mlp_parts = ("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2")
+    # the JSON line reports the last case of each name: K=1, the path's
+    for kinds in (4, 1):
+        shift = SWS // 2 if kinds == 4 else 0
+        x, p, bias, _ = block_inputs(gen, kinds, dev, (TB, SRF_PAD, SRF_PAD), SRF_WIDTHS)
+        dout = torch.randn(x.shape, generator=gen).to(dev)
+        attn = (x, p["g"], p["be"], p["wq"], p["bq"], p["wp"], p["bp"], bias)
+        mlp = (x, p["g"], p["be"], p["w1"], p["b1"], p["w2"], p["b2"])
+        meta = (SNH, SHD, SWS, 1e-5, shift)
+
+        def attn_fwd():
+            with torch.no_grad():
+                return fb.fused_attn_block(*attn, s, *meta[:4], shift=shift)
+
+        def mlp_fwd():
+            with torch.no_grad():
+                return fb.fused_ln_mlp(*mlp, s, SWS)
+
+        cases = (
+            ("fused_attn_block_ws12", "fused_attn_block_backward", attn_parts, attn, attn_fwd,
+             lambda: fb.fused_attn_block_reference(*attn, s, *meta),
+             lambda: fb.fused_attn_block_backward(*attn, s, dout, *meta),
+             lambda: fb.fused_attn_block_bwd_reference(*attn, s, dout, *meta)),
+            ("fused_ln_mlp_c240", "fused_ln_mlp_backward_c240", mlp_parts, mlp, mlp_fwd,
+             lambda: fb.fused_ln_mlp_reference(*mlp, s, SWS),
+             lambda: fb.fused_ln_mlp_backward(*mlp, s, dout, SWS),
+             lambda: fb.fused_ln_mlp_bwd_reference(*mlp, s, dout, SWS)),
+        )
+        label = f"K={kinds} shift {shift}"
+        for name, bname, parts, operands, fwd, fwd_plain, bwd, bwd_plain in cases:
+            if name == "fused_ln_mlp_c240" and kinds == 4:
+                continue  # per-token: no window kinds
+            try:
+                got = fwd()
+                grads = bwd()
+                again = bwd()
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 - report and fail the phase
+                fail(f"{name} {label}: {e}")
+            fwd_err = (got - fwd_plain()).abs().max().item()
+            if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+                fail(f"{name} {label} disagrees with its plain version: {fwd_err:.3g}")
+            bwd_err, worst = check_grads(bname, label, grads, bwd_plain(), parts)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                fail(f"{bname} {label}: two runs differ")
+            record_kernel(res, "srformerv2 kernels", name, label, fwd, fwd_plain, None,
+                          flops[name], nbytes(*operands, s, got), fwd_err)
+            record_kernel(res, "srformerv2 kernels", bname, label, bwd, bwd_plain, None,
+                          flops[bname], nbytes(*operands, s, dout, *grads), bwd_err,
+                          f", largest error {worst:.3g} of its tensor's max |g|, two runs "
+                          "bit-identical")
+
+    # the serving shapes: B=1, one 128x128 image padded to 144x144
+    x, p, bias, _ = block_inputs(gen, 1, dev, (B, SRF_SERVE, SRF_SERVE), SRF_WIDTHS)
+    s1 = torch.ones(B, device=dev)
+    attn = (x, p["g"], p["be"], p["wq"], p["bq"], p["wp"], p["bp"], bias)
+    mlp = (x, p["g"], p["be"], p["w1"], p["b1"], p["w2"], p["b2"])
+    flops = srf_flops(B * SRF_SERVE * SRF_SERVE)
+    with torch.no_grad():
+        for name, operands, kern, plain in (
+            ("fused_attn_block_ws12", attn, lambda: fb.fused_attn_block(*attn, s1, SNH, SHD, SWS),
+             lambda: fb.fused_attn_block_reference(*attn, s1, SNH, SHD, SWS)),
+            ("fused_ln_mlp_c240", mlp, lambda: fb.fused_ln_mlp(*mlp, s1, SWS),
+             lambda: fb.fused_ln_mlp_reference(*mlp, s1, SWS)),
+        ):
+            got = kern()
+            err = (got - plain()).abs().max().item()
+            if not err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+                fail(f"{name} at B=1, 144x144 disagrees with its plain version: {err:.3g}")
+            bms, by = bound(flops[name], nbytes(*operands, s1, got))
+            say(f"[srformerv2 kernels] {name} at B=1, 144x144 (serving) K=1: max_abs_err "
+                f"{err:.3g} kernel {time_ms(kern):.4f} ms plain {time_ms(plain):.4f} ms "
+                f"bound {bms:.4f} ms ({by}; {flops[name] / 1e9:.3f} GFLOP)")
+    return res
+
+
+def srformerv2_serving_counts() -> dict[str, int]:
+    return {"fused_attn_block": SRF_SWIN * N_IMAGES, "fused_ln_mlp": SRF_SWIN * N_IMAGES}
+
+
+# ---------------------------------------------------------------------------
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    say(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    seed = args.seed
 
     (OUT / "summary.txt").unlink(missing_ok=True)
-    info = phase_device()
-    phase_build()
-    kernels = phase_kernels()
-    launches = phase_path(args.seed)
-    phase_branches(args.seed)
-    phase_profile(args.seed)
-    kernels.update(phase_train_kernels())
-    train_counts = phase_train(args.seed)
+    t0 = time.perf_counter()
+    info = timed("device", phase_device)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels)
+    launches = timed("path", phase_path, seed)
+    timed("branches", phase_branches, seed)
+    timed("profile", phase_profile, seed)
+    kernels.update(timed("train kernels", phase_train_kernels))
+    train_counts = timed("train", phase_train, seed)
     launches.update({k: train_counts[k] for k in ("fused_swin_block_train",
                                                   "fused_swin_block_train_backward")})
-    phase_train_branches(args.seed)
-    phase_train_profile(args.seed)
-    kernels.update(phase_hat_kernels())
-    phase_hat_path(args.seed)
+    timed("train branches", phase_train_branches, seed)
+    timed("train profile", phase_train_profile, seed)
+    kernels.update(timed("hat kernels", phase_hat_kernels))
+    timed("hat path", phase_hat_path, seed)
     hat_step = {"fused_window_mhsa": HAT_BLOCKS, "fused_window_mhsa_backward": HAT_BLOCKS,
                 "fused_ln_mlp": HAT_MLPS, "fused_ln_mlp_backward": HAT_MLPS}
-    hat_counts = phase_train(args.seed, "hat_m", "HAT-M", "hat train", hat_step,
-                             hat_serving_counts())
+    hat_counts = timed("hat train", phase_train, seed, "hat_m", "HAT-M", "hat train", hat_step,
+                       hat_serving_counts())
     launches.update(fused_window_mhsa_ws16=hat_counts["fused_window_mhsa"],
                     fused_window_mhsa_backward=hat_counts["fused_window_mhsa_backward"],
                     fused_ln_mlp_backward=hat_counts["fused_ln_mlp_backward"])
-    train_branches(args.seed, "hat_m", "HAT-M", {}, hat_step, "hat train branches")
-    train_branches(args.seed, "swinir_m", "SwinIR-M unfused", {"TRAINNER_FUSED_BLOCK": "0"},
-                   {"fused_window_mhsa": BLOCKS, "fused_window_mhsa_backward": BLOCKS},
-                   "hat train branches")
-    phase_train_profile(args.seed, "hat_m", "hat train profile", "profile_hat_train.txt")
-    kernels.update(phase_dat_kernels())
-    phase_dat_path(args.seed)
+    timed("hat train branches", train_branches, seed, "hat_m", "HAT-M", {}, hat_step,
+          "hat train branches")
+    timed("hat train branches (SwinIR-M unfused)", train_branches, seed, "swinir_m",
+          "SwinIR-M unfused", {"TRAINNER_FUSED_BLOCK": "0"},
+          {"fused_window_mhsa": BLOCKS, "fused_window_mhsa_backward": BLOCKS},
+          "hat train branches")
+    timed("hat train profile", phase_train_profile, seed, "hat_m", "hat train profile",
+          "profile_hat_train.txt")
+    kernels.update(timed("dat kernels", phase_dat_kernels))
+    timed("dat path", phase_dat_path, seed)
     dat_step = {"fused_rect_mhsa": DAT_RECT, "fused_rect_mhsa_backward": DAT_RECT}
     dat_losses = ("l1loss", "mssimloss")
-    dat_counts = phase_train(args.seed, "dat", "DAT", "dat train", dat_step,
-                             dat_serving_counts(), DAT_LQ, dat_losses)
+    dat_counts = timed("dat train", phase_train, seed, "dat", "DAT", "dat train", dat_step,
+                       dat_serving_counts(), DAT_LQ, dat_losses)
     launches.update({k: dat_counts[k] for k in dat_step})
     from trainner_redux_tpu_torch.archs.dat_arch import ZERO_GRAD_PARAMS
 
-    train_branches(args.seed, "dat", "DAT", {}, dat_step, "dat train branches", DAT_LQ,
-                   ZERO_GRAD_PARAMS)
-    phase_train_profile(args.seed, "dat", "dat train profile", "profile_dat_train.txt", DAT_LQ,
-                        dat_losses)
-    kernels.update(phase_swin2sr_kernels())
-    phase_swin2sr_path(args.seed)
+    timed("dat train branches", train_branches, seed, "dat", "DAT", {}, dat_step,
+          "dat train branches", DAT_LQ, ZERO_GRAD_PARAMS)
+    timed("dat train profile", phase_train_profile, seed, "dat", "dat train profile",
+          "profile_dat_train.txt", DAT_LQ, dat_losses)
+    kernels.update(timed("swin2sr kernels", phase_swin2sr_kernels))
+    timed("swin2sr path", phase_branch_path, seed, "swin2sr_m", "Swin2SR-M", "swin2sr path",
+          swin2sr_serving_counts(), {"fused_cos_attn_block": SWIN2SR_BLOCKS,
+                                     "fused_postnorm_mlp": SWIN2SR_BLOCKS}, "unfused")
     s2_step = {k: SWIN2SR_BLOCKS for k in ("fused_cos_attn_block", "fused_cos_attn_block_backward",
                                            "fused_postnorm_mlp", "fused_postnorm_mlp_backward")}
-    s2_counts = phase_train(args.seed, "swin2sr_m", "Swin2SR-M", "swin2sr train", s2_step,
-                            swin2sr_serving_counts(), S2_LQ, S2_LOSSES)
+    s2_counts = timed("swin2sr train", phase_train, seed, "swin2sr_m", "Swin2SR-M",
+                      "swin2sr train", s2_step, swin2sr_serving_counts(), S2_LQ, S2_LOSSES)
     launches.update({k: s2_counts[k] for k in s2_step})
-    phase_swin2sr_train_branches(args.seed, s2_step)
-    phase_train_profile(args.seed, "swin2sr_m", "swin2sr train profile",
-                        "profile_swin2sr_train.txt", S2_LQ, S2_LOSSES)
-    kernels.update(phase_jpeg_kernel())
-    hr_dir, _ = make_dataset(OUT / "otf_data", args.seed, ((128, 128),) * 16)
-    phase_otf_degrade(args.seed, hr_dir)
-    otf_counts = phase_otf_train(args.seed, hr_dir)
+    timed("swin2sr train branches", phase_timed_train_branches, seed, "swin2sr_m", "Swin2SR-M",
+          "swin2sr train branches", s2_step, S2_LQ, "unfused")
+    timed("swin2sr train profile", phase_train_profile, seed, "swin2sr_m",
+          "swin2sr train profile", "profile_swin2sr_train.txt", S2_LQ, S2_LOSSES)
+    kernels.update(timed("jpeg kernel", phase_jpeg_kernel))
+    hr_dir, _ = make_dataset(OUT / "otf_data", seed, ((128, 128),) * 16)
+    timed("otf degrade", phase_otf_degrade, seed, hr_dir)
+    otf_counts = timed("otf train", phase_otf_train, seed, hr_dir)
     launches["jpeg_block_transform"] = otf_counts["jpeg_block_transform"]
-    phase_otf_profile(args.seed, hr_dir)
+    timed("otf train profile", phase_otf_profile, seed, hr_dir)
     shutil.rmtree(OUT / "otf_data")
+    kernels.update(timed("srformerv2 kernels", phase_srformerv2_kernels))
+    timed("srformerv2 path", phase_branch_path, seed, "srformerv2", "SRFormerV2",
+          "srformerv2 path", srformerv2_serving_counts(),
+          {"fused_attn_block": SRF_SWIN, "fused_ln_mlp": SRF_SWIN}, "plain")
+    srf_step = {k: SRF_SWIN for k in ("fused_attn_block", "fused_attn_block_backward",
+                                      "fused_ln_mlp", "fused_ln_mlp_backward")}
+    srf_counts = timed("srformerv2 train", phase_train, seed, "srformerv2", "SRFormerV2",
+                       "srformerv2 train", srf_step, srformerv2_serving_counts(), SRF_LQ,
+                       S2_LOSSES)
+    launches.update(fused_attn_block_ws12=srf_counts["fused_attn_block"],
+                    fused_attn_block_backward=srf_counts["fused_attn_block_backward"],
+                    fused_ln_mlp_c240=srf_counts["fused_ln_mlp"],
+                    fused_ln_mlp_backward_c240=srf_counts["fused_ln_mlp_backward"])
+    timed("srformerv2 train branches", phase_timed_train_branches, seed, "srformerv2",
+          "SRFormerV2", "srformerv2 train branches", srf_step, SRF_LQ, "plain")
+    timed("srformerv2 train profile", phase_train_profile, seed, "srformerv2",
+          "srformerv2 train profile", "profile_srformerv2_train.txt", SRF_LQ, S2_LOSSES)
+    say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []
     for name in KERNELS:

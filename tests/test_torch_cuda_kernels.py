@@ -15,6 +15,8 @@ kernels sum in another order than cuBLAS); the training kernels' gradients
 within 1e-4 of each tensor's largest magnitude. DiffJPEG's block transform
 (#15) at the OTF path's planes and at 8 images of 512x512, within 1e-3 on
 spatial values in [-128, 127], blocks near a rounding tie left out.
+SRFormerV2's Swin blocks (C=240, 8 heads of 30, 12x12 windows, hidden 480)
+at batch 2 and a 48x72 map: #1 on its staged kernels, #6, and #2/#7.
 """
 
 import numpy as np
@@ -198,17 +200,25 @@ def test_swin_block_train_backward_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_forward_only_kernels_refuse_autograd(cuda):
-    """#1 has no CUDA backward yet (#6): under autograd it raises instead of
-    returning a tensor that carries no gradient; under no_grad it runs."""
+    """#1 was forward only; with #6 ported it carries its gradient at 8x8
+    windows too (the staged backward at n = 64): under autograd it returns
+    the plain version's gradients, under no_grad it runs as before."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
-    p = _inputs(cuda, 1)
-    wq = p["wq"].clone().requires_grad_()
-    attn = [p[k] for k in ("x", "g", "be")] + [wq] + [p[k] for k in ("bq", "wp", "bp", "bias", "s")]
-    with pytest.raises(RuntimeError, match="#6"):
-        fb.fused_attn_block(*attn, NH, HD, WS)
+    p = _inputs(cuda, 4)
+    names = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias")
+    ops = [p[k].clone().requires_grad_() for k in names]
+    n0 = fb.fused_attn_block_backward.launches
+    z = fb.fused_attn_block(*ops, p["s"], NH, HD, WS, shift=WS // 2)
+    got = torch.autograd.grad(z.square().sum(), ops)
+    torch.cuda.synchronize()
+    assert fb.fused_attn_block_backward.launches == n0 + 1
+    plain = fb.fused_attn_block_bwd_reference(*[p[k] for k in names], p["s"], 2 * z.detach(),
+                                              NH, HD, WS, shift=WS // 2)
+    for name, g, w in zip(names, got, plain):
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
     with torch.no_grad():
-        fb.fused_attn_block(*attn, NH, HD, WS)
+        fb.fused_attn_block(*[p[k] for k in names], p["s"], NH, HD, WS)
 
 
 @pytest.mark.cuda
@@ -652,3 +662,101 @@ def test_jpeg_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         jpeg_kernel.jpeg_block_transform(blocks.detach().double(), qtabs)
     with pytest.raises(ValueError, match="shape"):
         jpeg_kernel.jpeg_block_transform(blocks.detach(), torch.ones(3, 64, device=cuda))
+
+
+# SRFormerV2's Swin blocks: C 240, 8 heads of 30, 12x12 windows, hidden 480,
+# at batch 2 and a 48x72 map (4 x 6 windows)
+SB, SH, SW, SC, SNH, SWS, SHIDDEN = 2, 48, 72, 240, 8, 12, 480
+ATTN_NAMES = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias")
+
+
+def _ws12_inputs(device, kinds, seed=0):
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(seed)
+    n = SWS * SWS
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    p = {
+        "x": randn(SB, SH, SW, SC), "g": 1.0 + randn(SC, scale=0.1), "be": randn(SC, scale=0.1),
+        "wq": randn(SC, 3 * SC, scale=SC**-0.5), "bq": randn(3 * SC, scale=0.1),
+        "wp": randn(SC, SC, scale=SC**-0.5), "bp": randn(SC, scale=0.1),
+        "w1": randn(SC, SHIDDEN, scale=SC**-0.5), "b1": randn(SHIDDEN, scale=0.1),
+        "w2": randn(SHIDDEN, SC, scale=SHIDDEN**-0.5), "b2": randn(SC, scale=0.1),
+        "s": torch.tensor([1.0, 1.0 / 0.9], device=device),
+    }
+    rel = randn(SNH, n, n, scale=0.5)[None]
+    if kinds == 4:
+        rel = rel + torch.from_numpy(shift_mask_kinds(SWS, SWS // 2)).to(device)[:, None]
+    p["bias"] = rel.contiguous()
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, SWS // 2)])
+def test_fused_attn_block_ws12_kernels(cuda, kinds, shift):
+    """#1 at 12x12 windows (the staged kernels) and #6 against their plain
+    versions; #6 bit-identical over two runs."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _ws12_inputs(cuda, kinds)
+    args = [p[k] for k in ATTN_NAMES]
+    hd = SC // SNH
+    n0 = fb.fused_attn_block.launches
+    with torch.no_grad():
+        got = fb.fused_attn_block(*args, p["s"], SNH, hd, SWS, shift=shift)
+    torch.cuda.synchronize()
+    assert fb.fused_attn_block.launches == n0 + 1
+    want = fb.fused_attn_block_reference(*args, p["s"], SNH, hd, SWS, shift=shift)
+    assert (got - want).abs().max().item() <= TOL
+    dout = torch.randn(got.shape, generator=torch.Generator().manual_seed(9)).to(cuda)
+    n0 = fb.fused_attn_block_backward.launches
+    grads = fb.fused_attn_block_backward(*args, p["s"], dout, SNH, hd, SWS, shift=shift)
+    again = fb.fused_attn_block_backward(*args, p["s"], dout, SNH, hd, SWS, shift=shift)
+    torch.cuda.synchronize()
+    assert fb.fused_attn_block_backward.launches == n0 + 2
+    plain = fb.fused_attn_block_bwd_reference(*args, p["s"], dout, SNH, hd, SWS, shift=shift)
+    for name, g, w, g2 in zip(ATTN_NAMES, grads, plain, again):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+def test_fused_ln_mlp_at_c240_kernels(cuda):
+    """#2 and #7 (its two-pass plan) at C 240, hidden 480, against their
+    plain versions; #7 bit-identical over two runs."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _ws12_inputs(cuda, 1)
+    args = [p[k] for k in ("x", "g", "be", "w1", "b1", "w2", "b2")]
+    with torch.no_grad():
+        got = fb.fused_ln_mlp(*args, p["s"], SWS)
+    assert (got - fb.fused_ln_mlp_reference(*args, p["s"], SWS)).abs().max().item() <= TOL
+    dout = torch.randn(got.shape, generator=torch.Generator().manual_seed(10)).to(cuda)
+    grads = fb.fused_ln_mlp_backward(*args, p["s"], dout, SWS)
+    again = fb.fused_ln_mlp_backward(*args, p["s"], dout, SWS)
+    torch.cuda.synchronize()
+    want = fb.fused_ln_mlp_bwd_reference(*args, p["s"], dout, SWS)
+    for i, (g, w, g2) in enumerate(zip(grads, want, again)):
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), i
+        assert torch.equal(g, g2), i
+
+
+@pytest.mark.cuda
+def test_staged_shared_memory_plans_match_the_sources(cuda):
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    lib = cuda_build.library("attn_block_staged")
+    lib_tr = cuda_build.library("fused_block_train")
+    for c, nh, hidden in ((240, 8, 480), (180, 6, 360), (48, 2, 96)):
+        for ws in (8, 12):
+            assert lib.trr_attn_staged_fwd_smem_bytes(c, nh, ws) == (
+                fb.attn_staged_fwd_smem_bytes(c, nh, ws))
+            assert lib.trr_attn_staged_bwd_smem_bytes(c, nh, ws) == (
+                fb.attn_staged_bwd_smem_bytes(c, nh, ws))
+        assert lib_tr.trr_bwd_tokens_split_smem_bytes(c, hidden) == (
+            fb.bwd_tokens_split_smem_bytes(c, hidden))

@@ -17,7 +17,8 @@ wrappers run their plain versions).
 - three training steps of the tiny DAT (LR 12x12 crops, so qkv is padded to
   16x16; batch 2, L1, AdamW, EMA 0.999, fp32) against the JAX `SRModel`:
   step-1 gradients within 1e-4 of each tensor's largest (where the true
-  gradient is 0, both within 1e-5 of the largest of all), the logged loss and
+  gradient is 0, both within 1e-5 of the largest of all; where it cancels to
+  below 1e-4 of the largest of all, within 1e-4 of that floor), the logged loss and
   gradient norm within 1e-5 relative, params and EMA within 1e-5 (entries
   with a live step-1 gradient, and every BatchNorm running statistic, which
   AdamW's weight decay moves);
@@ -48,6 +49,11 @@ REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 TINY = {"type": "dat", "embed_dim": 96, "depth": [2, 2], "num_heads": [4, 4],
         "split_size": [8, 16], "expansion_factor": 2.0, "drop_path_rate": 0.0}
+# Step-1 gradients whose largest entry is below this share of the largest of
+# all (gmax) are sums that nearly cancel: the port's CPU backward of the
+# position-bias gather (`index_put_` with accumulate) adds its rows with
+# parallel atomic adds, so their last bits change from run to run.
+CANCEL_FLOOR = 1e-4
 # the golden fixture's config (tests/test_utils/test_golden_parity.py, "dat")
 GOLDEN_NET = {"type": "dat", "embed_dim": 16, "depth": [2], "num_heads": [2],
               "split_size": [2, 4], "drop_path_rate": 0.0}
@@ -283,8 +289,13 @@ def test_three_steps_match_jax(dataset, tmp_path, monkeypatch):  # noqa: F811
                 if k.endswith(ZERO_GRAD_PARAMS):  # rounding noise in both, near 0
                     assert max(np.abs(w).max(), np.abs(got_g[k]).max()) <= 1e-5 * gmax, k
                     continue
+                # a gradient that cancels to below CANCEL_FLOOR of gmax (the
+                # position MLPs': its sums carry rounding noise of gmax's
+                # terms) is held at 1e-4 of that floor, every other at 1e-4
+                # of its own largest
+                ref = max(np.abs(w).max(), CANCEL_FLOOR * gmax)
                 err = np.abs(got_g[k] - w).max()
-                assert err <= 1e-4 * np.abs(w).max(), f"{k}: {err:.3g} vs {np.abs(w).max():.3g}"
+                assert err <= 1e-4 * ref, f"{k}: {err:.3g} vs {np.abs(w).max():.3g}"
         for key in ("l_g_l1", "l_g_total", "grad_norm_g"):
             np.testing.assert_allclose(log[key], jlog[key], rtol=1e-5, err_msg=f"{key} step {i}")
 

@@ -138,7 +138,10 @@ def test_fused_mlp_gate(monkeypatch):
     monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
     assert tfb.fused_mlp_supported(64, 64, 16, 180, 360, train=True)  # HAT-M
     assert tfb.fused_mlp_supported(64, 64, 8, 240, 480)  # SwinIR-L widths serve...
-    assert not tfb.fused_mlp_supported(64, 64, 8, 240, 480, train=True)  # ...not train
+    # ...and train, on the backward's two-pass plan
+    assert tfb.fused_mlp_supported(64, 64, 8, 240, 480, train=True)
+    assert tfb.fused_mlp_supported(64, 64, 8, 300, 300)  # C 300, hidden 300 serve...
+    assert not tfb.fused_mlp_supported(64, 64, 8, 300, 300, train=True)  # ...not train
     assert not tfb.fused_mlp_supported(60, 64, 16, 180, 360)  # H not a multiple of rows
     monkeypatch.setenv("TRAINNER_FUSED_BLOCK", "0")
     assert not tfb.fused_mlp_supported(64, 64, 16, 180, 360)

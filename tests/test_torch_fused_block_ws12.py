@@ -1,0 +1,153 @@
+"""Torch port's attention half at 12x12 windows (TPU kernel #1, n = 144) and
+its recompute backward (#6), and the MLP half's backward (#7) at hidden =
+2C, against the JAX package's Pallas kernels in interpret mode and
+`jax.vjp` of them, on the CPU, where the port's wrappers run their plain
+versions.
+
+Same inputs from a numpy seed through both: B=2, 24x24 (2x2 windows of
+12x12), C=48 (2 heads of 24), hidden 96, DropPath scales s = [1.0, 0.8];
+K=1 unshifted and K=4 shifted by 6 (the port indexes the shift, the JAX
+side rolls around its call). The forward within 1e-4; every gradient
+within 1e-4 of that tensor's largest magnitude. Also the gates and the
+shared-memory plans at SRFormerV2's widths (C 240, 8 heads of 30, hidden
+480): the staged #1/#6 and the two-pass #7 within one thread block's
+232,448 bytes, the one-pass #7 not.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trainner_redux_tpu.ops.pallas import fused_block as jfb
+from trainner_redux_tpu.ops.pallas.window_attention import shift_mask_kinds
+from trainner_redux_tpu_torch.ops import fused_block as tfb
+
+B, HH, WW, NH, HD, WS, HIDDEN = 2, 24, 24, 2, 24, 12, 96
+C, N = NH * HD, WS * WS
+S = np.asarray([1.0, 0.8], np.float32)
+ATTN = ("x", "g", "be", "wq", "bq", "wp", "bp")
+GRADS = ("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias")
+
+
+def _params(rng):
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return {
+        "x": normal(B, HH, WW, C),
+        "g": 1.0 + normal(C, scale=0.1), "be": normal(C, scale=0.1),
+        "wq": normal(C, 3 * C, scale=0.2), "bq": normal(3 * C, scale=0.1),
+        "wp": normal(C, C, scale=0.2), "bp": normal(C, scale=0.1),
+        "w1": normal(C, HIDDEN, scale=0.2), "b1": normal(HIDDEN, scale=0.1),
+        "w2": normal(HIDDEN, C, scale=0.2), "b2": normal(C, scale=0.1),
+        "rel": normal(NH, N, N, scale=0.1),
+    }
+
+
+def _bias(p, kinds):
+    bias = p["rel"][None] + (shift_mask_kinds(WS, WS // 2)[:, None] if kinds == 4 else 0.0)
+    return np.ascontiguousarray(bias, dtype=np.float32)
+
+
+def _jax_attn(shift):
+    """The JAX block at `shift`: roll x by -shift, the kernel, roll z back."""
+    def f(x, g, be, wq, bq, wp, bp, bias):
+        xr = jnp.roll(x, (-shift, -shift), axis=(1, 2))
+        z = jfb.fused_attn_block(xr, g, be, wq, bq, wp, bp, bias, jnp.asarray(S), NH, HD, WS,
+                                 1e-5, True)
+        return jnp.roll(z, (shift, shift), axis=(1, 2))
+    return f
+
+
+@pytest.mark.parametrize("kinds", [1, 4])
+def test_fused_attn_block_ws12_matches_jax(kinds):
+    p = _params(np.random.default_rng(10 + kinds))
+    shift = WS // 2 if kinds == 4 else 0
+    args = [p[k] for k in ATTN] + [_bias(p, kinds)]
+    want = np.asarray(_jax_attn(shift)(*map(jnp.asarray, args)))
+    launches = tfb.fused_attn_block.launches
+    got = tfb.fused_attn_block(*map(torch.from_numpy, args), torch.from_numpy(S), NH, HD, WS,
+                               1e-5, shift=shift)
+    assert tfb.fused_attn_block.launches == launches  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kinds", [1, 4])
+def test_fused_attn_block_backward_matches_jax_vjp(kinds):
+    """#6's plain version, called directly and as fused_attn_block's
+    autograd backward, against jax.vjp of the Pallas kernel (whose backward
+    is the JAX package's #6)."""
+    p = _params(np.random.default_rng(20 + kinds))
+    shift = WS // 2 if kinds == 4 else 0
+    args = [p[k] for k in ATTN] + [_bias(p, kinds)]
+    dout = np.random.default_rng(30 + kinds).standard_normal((B, HH, WW, C)).astype(np.float32)
+    _, vjp = jax.vjp(_jax_attn(shift), *map(jnp.asarray, args))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    launches = tfb.fused_attn_block_backward.launches
+    direct = tfb.fused_attn_block_backward(*map(torch.from_numpy, args), torch.from_numpy(S),
+                                           torch.from_numpy(dout), NH, HD, WS, 1e-5, shift)
+    assert tfb.fused_attn_block_backward.launches == launches  # CPU: the plain version
+    ops = [torch.from_numpy(a).requires_grad_() for a in args]
+    tfb.fused_attn_block(*ops, torch.from_numpy(S), NH, HD, WS, 1e-5,
+                         shift=shift).backward(torch.from_numpy(dout))
+    for got in (direct, [t.grad for t in ops]):
+        for name, g, w in zip(GRADS, got, want):
+            assert g.shape == w.shape, name
+            err = np.abs(g.detach().numpy() - w).max()
+            assert err <= 1e-4 * np.abs(w).max(), f"{name}: {err:.3g} of {np.abs(w).max():.3g}"
+
+
+def test_fused_ln_mlp_backward_at_hidden_2c_matches_jax_vjp():
+    """#7's plain version at (C, hidden) = (48, 96), SRFormerV2's ratio and
+    12-row strips, against jax.vjp of the JAX fused_ln_mlp."""
+    p = _params(np.random.default_rng(40))
+    names = ("x", "g", "be", "w1", "b1", "w2", "b2")
+    dout = np.random.default_rng(41).standard_normal((B, HH, WW, C)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jfb.fused_ln_mlp(*a, jnp.asarray(S), WS, 1e-5, True),
+                     *(jnp.asarray(p[k]) for k in names))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    got = tfb.fused_ln_mlp_backward(*(torch.from_numpy(p[k]) for k in names),
+                                    torch.from_numpy(S), torch.from_numpy(dout), WS, 1e-5)
+    for name, g, w in zip(("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2"), got, want):
+        assert g.shape == w.shape, name
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-4 * np.abs(w).max(), f"{name}: {err:.3g} of {np.abs(w).max():.3g}"
+
+
+def test_gates_at_srformerv2_widths(monkeypatch):
+    """The training block (72x72) and the serving one (144x144) of
+    SRFormerV2's Swin blocks take #1/#6 and #2/#7; SwinIR's whole-block
+    training kernels (#4/#5) stay at 8x8 windows."""
+    monkeypatch.delenv("TRAINNER_FUSED_BLOCK", raising=False)
+    monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+    for side in (72, 144):
+        assert tfb.fused_block_supported(side, side, 12, 240, 8, 480)
+        assert tfb.attn_block_bwd_fits(side, side, 12, 240, 8)
+        assert tfb.fused_mlp_supported(side, side, 12, 240, 480, train=True)
+        assert not tfb.swin_block_train_fits(side, side, 12, 240, 8, 480)
+    assert not tfb.fused_block_supported(72, 66, 12, 240, 8, 480)  # not window-aligned
+    assert not tfb.attn_block_fits(72, 72, 12, 240, 6)  # heads of 40
+    assert not tfb.attn_block_fits(80, 80, 10, 240, 8)  # 10x10: no plan
+    monkeypatch.setenv("TRAINNER_FUSED_BLOCK", "0")
+    assert not tfb.fused_block_supported(72, 72, 12, 240, 8, 480)
+
+
+def test_shared_memory_plans_at_srformerv2_widths():
+    """The plans the kernels carve (csrc/attn_block_staged.cu,
+    csrc/fused_block_train.cu), fp32, at C 240, 8 heads of 30, hidden 480:
+    LN + qkv in two (C, 68) tiles and a 2 x 32 x 96 weight stage; the
+    backward's attention stage k, v twice, q and dA of 48 rows twice, the
+    (48, 148) score tile; #7 in two passes with a (240, 68) hidden tile."""
+    stage = 2 * 32 * 96
+    assert tfb.attn_staged_fwd_smem_bytes(240, 8, 12) == 4 * (2 * 240 * 68 + stage + 128)
+    attn_bwd = 2 * 30 * 144 + 2 * 144 * 32 + 2 * 30 * 48 + 2 * 48 * 32 + 48 * 148
+    assert tfb.attn_staged_bwd_smem_bytes(240, 8, 12) == 4 * max(2 * 240 * 68 + stage + 128,
+                                                                  attn_bwd)
+    assert tfb.bwd_tokens_smem_bytes(240, 480) == 286_720 > tfb.SMEM_LIMIT
+    assert tfb.bwd_tokens_split_smem_bytes(240, 480) == 4 * ((480 + 240) * 68 + stage + 128)
+    assert tfb.bwd_tokens_split_smem_bytes(240, 480) <= tfb.SMEM_LIMIT
+    assert tfb.ln_mlp_bwd_fits(180, 360)  # HAT-M keeps its one-pass plan
+    assert tfb.bwd_tokens_smem_bytes(180, 360) <= tfb.SMEM_LIMIT

@@ -1,0 +1,641 @@
+// The pre-LN Swin attention half at windows too large for one thread block,
+// forward and recompute backward, fp32, for sm_90a.
+//
+// Replaces the JAX package's Pallas TPU kernels in
+// trainner_redux_tpu/ops/pallas/fused_block.py:
+//   fused_attn_block (_attn_block_fwd_kernel, pallas_call at :693) at 12x12
+//       windows: z = x + s[b] * proj(window-MHSA(qkv(LN1 x)) + bias kind);
+//   its backward (_attn_bwd, _attn_block_bwd_kernel, pallas_call at :729):
+//       dx and the gradients of LN1, qkv, proj and the bias-kind table,
+//       recomputing LN1, qkv and the softmax from x (nothing is saved).
+//
+// What bounds them on the card: fp32 arithmetic. At SRFormerV2's training
+// block (B 8, 72x72, C 240, 8 heads of 30, n 144: 41,472 tokens) the forward
+// does some 25 GFLOP and the backward some 70 against a few hundred MB of
+// activations. The 8x8 kernel of block_fwd.cuh keeps a whole window's (C, n)
+// tiles in one block; at n 144 and C 240 two such tiles alone take 284 KB,
+// more than a block's 227 KB. So the half runs in stages, each with a
+// working set that fits, its intermediates in device memory (L2-resident at
+// these sizes):
+//   1. ln_qkv_kernel, per 64 tokens: y = LN1(x) and qkv = y wq + bq to a
+//      (T, 3C) buffer; for the backward also y and LN1's mean and 1/std, and
+//      dzp = s dout and datt = dzp wp^T.
+//   2. attn_rows_fwd_kernel<N, RB> (forward), per (window, head): q, k, v of
+//      the window's N tokens staged once, the queries in blocks of RB rows
+//      (48 at n 144: the (48, 148) score tile is 28 KB), the row softmax in
+//      registers, P v to an attention-output buffer (T, C).
+//      attn_rows_bwd_kernel<N, RB> (backward), per (window, head): P of each
+//      row block recomputed, then att = P v (for dwp), dV += P^T dA,
+//      dP = dA v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k and
+//      dK += scale dS^T q; dK and dV stay in registers across the row blocks.
+//      dS of each (window, head) goes to a buffer that dbias_kernel
+//      (common.cuh) sums per kind in window order.
+//   3. proj_residual_kernel (forward), per 64 tokens: z = x + s (att wp + bp).
+//      ln1_bwd_kernel (backward), per 64 tokens: dy = dqkv wq^T in three
+//      K-chunks of C (a (3C, 64) tile would not fit), then the LN1 backward
+//      dx = dout + LN1'(dy) and the dg / dbe partial sums per block.
+//   4. (the wrapper) the weight gradients dwq, dwp and their biases with
+//      fused_block_train.cu's split-K weight_grad_kernel and sum_rows_kernel.
+// No atomics: two runs give the same gradients bit for bit. Every product
+// runs on the fp32 FMA units; the tensor cores are later work. The windows
+// are those of x rolled by (-shift, -shift); the kernels index them, so the
+// caller rolls nothing.
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace trr {
+
+// Index (into the B*H*W tokens) of token r, row-major, of the ws x ws window
+// (wi, wj) of sample b on the map rolled by (-shift, -shift).
+__device__ __forceinline__ long long roll_token(int b, int wi, int wj, int r, int H, int W,
+                                                int ws, int shift) {
+  int y = wi * ws + r / ws + shift, x = wj * ws + r % ws + shift;
+  if (y >= H) y -= H;
+  if (x >= W) x -= W;
+  return ((long long)b * H + y) * W + x;
+}
+
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory of each stage, in floats.
+__host__ __device__ inline int ln_qkv_smem_floats(int C) {
+  return 2 * C * kTLd + kStageFloats + 2 * kTile;
+}
+__host__ __device__ inline int proj_residual_smem_floats(int C) { return C * kTLd + kStageFloats; }
+__host__ __device__ inline int ln1_bwd_smem_floats(int C) { return 2 * C * kTLd + kStageFloats; }
+// q and k (hd, N) transposed, v (N, 32), the P rows (RB, N + 4)
+__host__ __device__ inline int attn_rows_fwd_smem_floats(int N, int RB, int hd) {
+  return 2 * hd * N + N * kVLd + RB * (N + 4);
+}
+// k and v (hd, N) transposed and (N, 32) row-major, this row block's q and
+// dA (hd, RB) transposed and (RB, 32) row-major, the P / dS rows (RB, N + 4)
+__host__ __device__ inline int attn_rows_bwd_smem_floats(int N, int RB, int hd) {
+  return 2 * hd * N + 2 * N * kVLd + 2 * hd * RB + 2 * RB * kVLd + RB * (N + 4);
+}
+
+// One block per 64 consecutive tokens of the B*H*W. qkv (T, 3C) = LN1(x) wq
+// + bq. When y is not null: y = LN1(x) (T, C) and stats (T, 2) its mean and
+// 1/std. When dout is not null: dzp = s[b] dout and datt = dzp wp^T (wpt is
+// wp's transpose), both (T, C).
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  const float* __restrict__ be, const float* __restrict__ wq,
+                  const float* __restrict__ bq, float* __restrict__ qkv, float* __restrict__ y,
+                  float* __restrict__ stats, const float* __restrict__ dout,
+                  const float* __restrict__ s, const float* __restrict__ wpt,
+                  float* __restrict__ dzp, float* __restrict__ datt, long long tokens,
+                  long long hw, int C, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const int M = (int)min((long long)kTile, tokens - t0);
+  const int C3 = 3 * C;
+  float* yT = smem;               // (C, 64) LN1 output
+  float* T2 = yT + C * kTLd;      // (C, 64): LN scratch, then s dout
+  float* Bs = T2 + C * kTLd;      // weight stage
+  float* st = Bs + kStageFloats;  // LN mean and 1/std of each row
+
+  layernorm_t([&](int r) { return x + (t0 + r) * C; }, M, C, g, be, eps, T2, st, yT);
+  if (y != nullptr) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < M * C; e += kThreads) {
+      const int r = e / C, c = e % C;
+      y[(t0 + r) * C + c] = yT[c * kTLd + r];
+    }
+    for (int r = threadIdx.x; r < M; r += kThreads) {
+      stats[(t0 + r) * 2] = st[r];
+      stats[(t0 + r) * 2 + 1] = st[kTile + r];
+    }
+  }
+  gemm_weights(yT, C, wq, C3, C3, [](int c) { return c; }, Bs,
+               [&](int r0, int c, const float* o) {
+                 const float bb = __ldg(bq + c);
+#pragma unroll
+                 for (int i = 0; i < 4; ++i)
+                   if (r0 + i < M) qkv[(t0 + r0 + i) * C3 + c] = o[i] + bb;
+               });
+  if (dout == nullptr) return;
+  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
+    const int r = e / C, c = e % C;
+    float v = 0.f;
+    if (r < M) {
+      const long long t = t0 + r;
+      v = __ldg(s + t / hw) * __ldg(dout + t * C + c);
+      dzp[t * C + c] = v;
+    }
+    T2[c * kTLd + r] = v;
+  }
+  gemm_weights(T2, C, wpt, C, C, [](int c) { return c; }, Bs,
+               [&](int r0, int c, const float* o) {
+#pragma unroll
+                 for (int i = 0; i < 4; ++i)
+                   if (r0 + i < M) datt[(t0 + r0 + i) * C + c] = o[i];
+               });
+}
+
+// P (RB x N) of the rows r0.. of one window and head against its N keys,
+// left in registers: S = q k^T * scale + bias, then the row softmax.
+//   qT (hd, ldq) the rows' q transposed, column r0 + row of row `row`;
+//   kT (hd, N) the window's k transposed;
+//   table the (N, N) bias of this window's kind and head (global / L2).
+// Thread (rg, cl) holds rows rg*RPT + i and columns cl + 16 j in p[i][j]; a
+// row's 16 threads are one half-warp, which reduces it.
+template <int N, int RB>
+__device__ __forceinline__ void softmax_block(const float* qT, int ldq, int r0, const float* kT,
+                                              int hd, float scale,
+                                              const float* __restrict__ table,
+                                              float (&p)[RB / kLanes][N / kLanes]) {
+  constexpr int RPT = RB / kLanes, CPL = N / kLanes;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) p[i][j] = 0.f;
+  for (int d = 0; d < hd; ++d) {
+    float a[RPT], b[CPL];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) a[i] = qT[d * ldq + r0 + rg * RPT + i];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) b[j] = kT[d * N + cl + kLanes * j];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
+  }
+  // per-row max and sum, as the plain reference's row softmax
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float* brow = table + (size_t)(r0 + rg * RPT + i) * N + cl;
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      p[i][j] = p[i][j] * scale + __ldg(brow + kLanes * j);
+      m = fmaxf(m, p[i][j]);
+    }
+    m = half_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      p[i][j] = expf(p[i][j] - m);
+      sum += p[i][j];
+    }
+    const float inv = 1.f / half_sum(sum);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) p[i][j] *= inv;
+  }
+}
+
+// acc[i][e] = sum over j < N of A[(rg*RPT + i) * lda + j] * Bm[j * kVLd + cl*2 + e]: rows of
+// an (RB, N) tile in shared memory times an (N, 32) row-major one.
+template <int N, int RB>
+__device__ __forceinline__ void rows_times_v(const float* A, int lda, const float* Bm,
+                                             float (&acc)[RB / kLanes][2]) {
+  constexpr int RPT = RB / kLanes;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = 0.f;
+  const float* arow = A + rg * RPT * lda;
+#pragma unroll 4
+  for (int j = 0; j < N; ++j) {
+    const float2 bv = *reinterpret_cast<const float2*>(Bm + j * kVLd + cl * 2);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float a = arow[i * lda + j];
+      acc[i][0] = fmaf(a, bv.x, acc[i][0]);
+      acc[i][1] = fmaf(a, bv.y, acc[i][1]);
+    }
+  }
+}
+
+// acc[i][e] += sum over r < RB of A[r * lda + kg + 16 i] * Bm[r * kVLd + kl*2 + e]: the
+// transposed (RB, N) tile times an (RB, 32) row-major one, for this thread's
+// keys kg + 16 i and channels kl*2 + e (kg, kl: the thread's row group and lane).
+template <int N, int RB>
+__device__ __forceinline__ void cols_times_rows(const float* A, int lda, const float* Bm,
+                                                float (&acc)[N / kLanes][2]) {
+  constexpr int CPL = N / kLanes;
+  const int kg = threadIdx.x / kLanes, kl = threadIdx.x % kLanes;
+  for (int r = 0; r < RB; ++r) {
+    const float2 bv = *reinterpret_cast<const float2*>(Bm + r * kVLd + kl * 2);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const float a = A[r * lda + kg + kLanes * i];
+      acc[i][0] = fmaf(a, bv.x, acc[i][0]);
+      acc[i][1] = fmaf(a, bv.y, acc[i][1]);
+    }
+  }
+}
+
+// One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
+// of RB. att (T, C) gets this head's channels of P v in x's frame.
+template <int N, int RB>
+__global__ void __launch_bounds__(kThreads, 2)
+    attn_rows_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                         float* __restrict__ att, int H, int W, int C, int nh, int ws,
+                         int kinds, int shift, float scale) {
+  constexpr int RPT = RB / kLanes, kLd = N + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / ws, nwh = H / ws;
+  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+  float* qT = smem;            // (hd, N)
+  float* kT = qT + hd * N;     // (hd, N)
+  float* v = kT + hd * N;      // (N, 32)
+  float* P = v + N * kVLd;     // (RB, N + 4)
+  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
+  const int kind = window_kind(kinds, wi, wj, nwh, nww);
+  const float* table = bias + ((size_t)kind * nh + h) * N * N;
+
+  for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
+    const int r = e / kVLd, d = e % kVLd;
+    const float* src = qkv + token(r) * C3 + h * hd + d;
+    if (d < hd) {
+      qT[d * N + r] = __ldg(src);
+      kT[d * N + r] = __ldg(src + C);
+    }
+    v[e] = d < hd ? __ldg(src + 2 * C) : 0.f;
+  }
+  __syncthreads();
+  for (int r0 = 0; r0 < N; r0 += RB) {
+    float p[RPT][N / kLanes];
+    softmax_block<N, RB>(qT, N, r0, kT, hd, scale, table, p);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < N / kLanes; ++j) P[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
+    __syncthreads();
+    float acc[RPT][2];
+    rows_times_v<N, RB>(P, kLd, v, acc);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = cl * 2 + e;
+      if (d < hd) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) att[token(r0 + rg * RPT + i) * C + h * hd + d] = acc[i][e];
+      }
+    }
+    __syncthreads();  // P is rewritten by the next row block
+  }
+}
+
+// One block per 64 consecutive tokens: z = x + s[b] (att wp + bp).
+__global__ void __launch_bounds__(kThreads, 1)
+    proj_residual_kernel(const float* __restrict__ att, const float* __restrict__ wp,
+                         const float* __restrict__ bp, const float* __restrict__ x,
+                         const float* __restrict__ s, float* __restrict__ z, long long tokens,
+                         long long hw, int C) {
+  extern __shared__ __align__(16) float smem[];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const int M = (int)min((long long)kTile, tokens - t0);
+  float* attT = smem;              // (C, 64)
+  float* Bs = attT + C * kTLd;     // weight stage
+  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
+    const int r = e / C, c = e % C;
+    attT[c * kTLd + r] = r < M ? __ldg(att + (t0 + r) * C + c) : 0.f;
+  }
+  gemm_weights(attT, C, wp, C, C, [](int c) { return c; }, Bs,
+               [&](int r0, int c, const float* o) {
+                 const float bb = __ldg(bp + c);
+#pragma unroll
+                 for (int i = 0; i < 4; ++i) {
+                   if (r0 + i >= M) break;
+                   const long long t = t0 + r0 + i;
+                   const long long idx = t * C + c;
+                   z[idx] = __ldg(x + idx) + __ldg(s + t / hw) * (o[i] + bb);
+                 }
+               });
+}
+
+// One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
+// of RB. From qkv (T, 3C), the kind table and datt (T, C): writes this head's
+// dq | dk | dv into dqkv (T, 3C), its attention output into att (T, C), and
+// dS into a buffer (B, H/ws, W/ws, nh, N, N) for the bias-kind reduction.
+template <int N, int RB>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_rows_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                         const float* __restrict__ datt, float* __restrict__ dqkv,
+                         float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
+                         int nh, int ws, int kinds, int shift, float scale) {
+  constexpr int RPT = RB / kLanes, CPL = N / kLanes, kLd = N + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / ws, nwh = H / ws;
+  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+  float* kT = smem;              // (hd, N)
+  float* vT = kT + hd * N;       // (hd, N)
+  float* k = vT + hd * N;        // (N, 32)
+  float* v = k + N * kVLd;       // (N, 32)
+  float* qT = v + N * kVLd;      // (hd, RB) this row block's q
+  float* dAT = qT + hd * RB;     // (hd, RB) this row block's datt
+  float* q = dAT + hd * RB;      // (RB, 32)
+  float* dA = q + RB * kVLd;     // (RB, 32)
+  float* T = dA + RB * kVLd;     // (RB, N + 4): P, then dS
+  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
+  const int kind = window_kind(kinds, wi, wj, nwh, nww);
+  const float* table = bias + ((size_t)kind * nh + h) * N * N;
+  const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
+
+  for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
+    const int r = e / kVLd, d = e % kVLd;
+    const float* src = qkv + token(r) * C3 + C + h * hd + d;
+    const float kv = d < hd ? __ldg(src) : 0.f, vv = d < hd ? __ldg(src + C) : 0.f;
+    k[e] = kv;
+    v[e] = vv;
+    if (d < hd) {
+      kT[d * N + r] = kv;
+      vT[d * N + r] = vv;
+    }
+  }
+  float dk[CPL][2], dv[CPL][2];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) dk[i][0] = dk[i][1] = dv[i][0] = dv[i][1] = 0.f;
+
+  for (int r0 = 0; r0 < N; r0 += RB) {
+    for (int e = threadIdx.x; e < RB * kVLd; e += kThreads) {
+      const int r = e / kVLd, d = e % kVLd;
+      const long long t = token(r0 + r);
+      const float qv = d < hd ? __ldg(qkv + t * C3 + h * hd + d) : 0.f;
+      const float av = d < hd ? __ldg(datt + t * C + h * hd + d) : 0.f;
+      q[e] = qv;
+      dA[e] = av;
+      if (d < hd) {
+        qT[d * RB + r] = qv;
+        dAT[d * RB + r] = av;
+      }
+    }
+    __syncthreads();  // q and dA (and, the first time, k and v) staged
+    float p[RPT][CPL];
+    softmax_block<N, RB>(qT, RB, 0, kT, hd, scale, table + (size_t)r0 * N, p);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) T[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
+    __syncthreads();
+    {  // att = P v (the forward's output, for dwp)
+      float acc[RPT][2];
+      rows_times_v<N, RB>(T, kLd, v, acc);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = cl * 2 + e;
+        if (d < hd) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            att[token(r0 + rg * RPT + i) * C + h * hd + d] = acc[i][e];
+        }
+      }
+    }
+    cols_times_rows<N, RB>(T, kLd, dA, dv);  // dV += P^T dA
+    {
+      // dP = dA v^T at this thread's places of P, then dS = P (dP - rowsum(P dP))
+      float dp[RPT][CPL];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) dp[i][j] = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        float a[RPT], bb[CPL];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = dAT[d * RB + rg * RPT + i];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) bb[j] = vT[d * N + cl + kLanes * j];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) dp[i][j] = fmaf(a[i], bb[j], dp[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        float delta = 0.f;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) delta = fmaf(p[i][j], dp[i][j], delta);
+        delta = half_sum(delta);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) p[i][j] *= dp[i][j] - delta;  // now dS
+      }
+    }
+    __syncthreads();  // every thread is done reading P
+    float* grow = dS + head + (size_t)r0 * N;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int idx = (rg * RPT + i) * N + cl + kLanes * j;
+        T[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
+        grow[idx] = p[i][j];
+      }
+    __syncthreads();
+    {  // dQ = scale dS k
+      float acc[RPT][2];
+      rows_times_v<N, RB>(T, kLd, k, acc);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = cl * 2 + e;
+        if (d < hd) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            dqkv[token(r0 + rg * RPT + i) * C3 + h * hd + d] = scale * acc[i][e];
+        }
+      }
+    }
+    cols_times_rows<N, RB>(T, kLd, q, dk);  // dK += dS^T q (scaled once, at the end)
+    __syncthreads();  // q, dA and the tile are rewritten by the next row block
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int d = cl * 2 + e;
+    if (d < hd) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const long long t = token(rg + kLanes * i);
+        dqkv[t * C3 + C + h * hd + d] = scale * dk[i][e];
+        dqkv[t * C3 + 2 * C + h * hd + d] = dv[i][e];
+      }
+    }
+  }
+}
+
+// One block per 64 consecutive tokens: dy = dqkv wq^T (wqt is wq's transpose,
+// (3C, C)) in three K-chunks of C, then the LN1 backward dx = dout +
+// LN1'(dy) with the saved stats; per block the partial sums of dg (first C)
+// and dbe (next C).
+__global__ void __launch_bounds__(kThreads, 1)
+    ln1_bwd_kernel(const float* __restrict__ dqkv, const float* __restrict__ wqt,
+                   const float* __restrict__ x, const float* __restrict__ stats,
+                   const float* __restrict__ g, const float* __restrict__ dout,
+                   float* __restrict__ dx, float* __restrict__ ln_part, long long tokens, int C) {
+  extern __shared__ __align__(16) float smem[];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const int M = (int)min((long long)kTile, tokens - t0);
+  const int C3 = 3 * C;
+  float* DQ = smem;              // (C, 64) a third of dqkv; then xn
+  float* DY = DQ + C * kTLd;     // (C, 64)
+  float* Bs = DY + C * kTLd;     // weight stage
+
+  for (int part = 0; part < 3; ++part) {
+    __syncthreads();  // the previous chunk's product is done reading DQ
+    for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
+      const int r = e / C, c = e % C;
+      DQ[c * kTLd + r] = r < M ? __ldg(dqkv + (t0 + r) * C3 + part * C + c) : 0.f;
+    }
+    gemm_weights(DQ, C, wqt + (size_t)part * C * C, C, C, [](int c) { return c; }, Bs,
+                 [&](int r0, int c, const float* o) {
+                   float4* dst = reinterpret_cast<float4*>(DY + c * kTLd + r0);
+                   float4 acc = part == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
+                   acc.x += o[0];
+                   acc.y += o[1];
+                   acc.z += o[2];
+                   acc.w += o[3];
+                   *dst = acc;
+                 });
+  }
+  __syncthreads();
+  ln_backward_tile(
+      x, g, dout, DY, DQ, t0, M, C,
+      [&](int r, float& mean, float& inv) {
+        mean = __ldg(stats + 2 * (t0 + r));
+        inv = __ldg(stats + 2 * (t0 + r) + 1);
+      },
+      [&](int, long long t, int c, float d) { dx[t * C + c] = d; }, ln_part);
+}
+
+// The row-block plan of a window of n tokens: (N, RB) = (144, 48) or (64, 64).
+inline int rows_block(int n) { return n == 144 ? 48 : n == 64 ? 64 : 0; }
+
+template <int N, int RB>
+cudaError_t attn_rows_fwd(const float* qkv, const float* bias, float* att, int B, int H, int W,
+                          int C, int nh, int ws, int kinds, int shift, float scale,
+                          cudaStream_t stream) {
+  const int floats = attn_rows_fwd_smem_floats(N, RB, C / nh);
+  const cudaError_t err = set_smem(attn_rows_fwd_kernel<N, RB>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H / ws) * (W / ws), B, nh);
+  attn_rows_fwd_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
+      qkv, bias, att, H, W, C, nh, ws, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+template <int N, int RB>
+cudaError_t attn_rows_bwd(const float* qkv, const float* bias, const float* datt, float* dqkv,
+                          float* att, float* dS, int B, int H, int W, int C, int nh, int ws,
+                          int kinds, int shift, float scale, cudaStream_t stream) {
+  const int floats = attn_rows_bwd_smem_floats(N, RB, C / nh);
+  const cudaError_t err = set_smem(attn_rows_bwd_kernel<N, RB>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H / ws) * (W / ws), B, nh);
+  attn_rows_bwd_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
+      qkv, bias, datt, dqkv, att, dS, H, W, C, nh, ws, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_ln_qkv(const float* x, const float* g, const float* be,
+                                 const float* wq, const float* bq, float* qkv, float* y,
+                                 float* stats, const float* dout, const float* s,
+                                 const float* wpt, float* dzp, float* datt, long long tokens,
+                                 long long hw, int C, float eps, cudaStream_t stream) {
+  const int floats = ln_qkv_smem_floats(C);
+  const cudaError_t err = set_smem(ln_qkv_kernel, floats);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
+  ln_qkv_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(
+      x, g, be, wq, bq, qkv, y, stats, dout, s, wpt, dzp, datt, tokens, hw, C, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace trr
+
+extern "C" {
+
+// The largest shared memory of the forward's and of the backward's stages
+// at windows of ws x ws (12: rows of 48; 8: rows of 64), or 0 for another ws.
+size_t trr_attn_staged_fwd_smem_bytes(int C, int nh, int ws) {
+  const int n = ws * ws, rb = trr::rows_block(n);
+  if (rb == 0) return 0;
+  const int floats = std::max({trr::ln_qkv_smem_floats(C), trr::proj_residual_smem_floats(C),
+                               trr::attn_rows_fwd_smem_floats(n, rb, C / nh)});
+  return (size_t)floats * sizeof(float);
+}
+
+size_t trr_attn_staged_bwd_smem_bytes(int C, int nh, int ws) {
+  const int n = ws * ws, rb = trr::rows_block(n);
+  if (rb == 0) return 0;
+  const int floats = std::max({trr::ln_qkv_smem_floats(C), trr::ln1_bwd_smem_floats(C),
+                               trr::attn_rows_bwd_smem_floats(n, rb, C / nh)});
+  return (size_t)floats * sizeof(float);
+}
+
+// The forward at 12x12 windows: x, z (B, H, W, C); wq (C, 3C), bq (3C), wp
+// (C, C), bp (C), g/be (C), bias (kinds, nh, 144, 144), s (B); scratch qkv
+// (B*H*W, 3C) and att (B*H*W, C). H and W are multiples of 12; C / nh <= 32.
+// The windows are those of x rolled by (-shift, -shift) and z comes back
+// unrolled.
+int trr_attn_block_staged_fwd(const float* x, const float* g, const float* be, const float* wq,
+                              const float* bq, const float* wp, const float* bp,
+                              const float* bias, const float* s, float* qkv, float* att,
+                              float* z, int B, int H, int W, int C, int nh, int ws, int kinds,
+                              int shift, float eps, float scale, cudaStream_t stream) {
+  if (ws != 12) return (int)cudaErrorInvalidValue;
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  cudaError_t err = trr::launch_ln_qkv(x, g, be, wq, bq, qkv, nullptr, nullptr, nullptr, nullptr,
+                                       nullptr, nullptr, nullptr, tokens, hw, C, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = trr::attn_rows_fwd<144, 48>(qkv, bias, att, B, H, W, C, nh, ws, kinds, shift, scale,
+                                     stream);
+  if (err != cudaSuccess) return (int)err;
+  const int floats = trr::proj_residual_smem_floats(C);
+  err = trr::set_smem(trr::proj_residual_kernel, floats);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
+  trr::proj_residual_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
+      att, wp, bp, x, s, z, tokens, hw, C);
+  return (int)cudaGetLastError();
+}
+
+// The recompute backward at ws x ws windows (12 or 8), from x, the forward's
+// operands and dout (B, H, W, C): writes dx, and for the wrapper's weight
+// gradients y = LN1(x) and dzp = s dout (T, C), dqkv (T, 3C) and att (T, C);
+// ln_part (ceil(T / 64), 2C) the dg / dbe partial sums; dbias (kinds, nh, n,
+// n) from the per-window dS (B, H/ws, W/ws, nh, n, n). Scratch: qkv (T, 3C),
+// stats (T, 2), datt (T, C). wpt (C, C) and wqt (3C, C) are the transposes
+// of wp and wq.
+int trr_attn_block_staged_bwd(const float* x, const float* g, const float* be, const float* wq,
+                              const float* bq, const float* wpt, const float* wqt,
+                              const float* bias, const float* s, const float* dout, float* qkv,
+                              float* y, float* stats, float* dzp, float* datt, float* dqkv,
+                              float* att, float* dS, float* dx, float* ln_part, float* dbias,
+                              int B, int H, int W, int C, int nh, int ws, int kinds, int shift,
+                              float eps, float scale, cudaStream_t stream) {
+  const int n = ws * ws;
+  if (trr::rows_block(n) == 0) return (int)cudaErrorInvalidValue;
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  cudaError_t err = trr::launch_ln_qkv(x, g, be, wq, bq, qkv, y, stats, dout, s, wpt, dzp, datt,
+                                       tokens, hw, C, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = n == 144 ? trr::attn_rows_bwd<144, 48>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
+                                               ws, kinds, shift, scale, stream)
+                 : trr::attn_rows_bwd<64, 64>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
+                                              ws, kinds, shift, scale, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int floats = trr::ln1_bwd_smem_floats(C);
+  err = trr::set_smem(trr::ln1_bwd_kernel, floats);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
+  trr::ln1_bwd_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
+      dqkv, wqt, x, stats, g, dout, dx, ln_part, tokens, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)trr::launch_dbias(dS, B, H / ws, W / ws, nh, kinds, n * n, dbias, stream);
+}
+
+}  // extern "C"

@@ -60,6 +60,10 @@ __host__ __device__ inline int bwd_attn_smem_floats(int C, int nh) {
   return C * kTLd + 4 * kTile * kVLd + 2 * hd * kTLd + 2 * kTile * kTLd + kStageFloats;
 }
 __host__ __device__ inline int bwd_ln1_smem_floats(int C) { return 4 * C * kTLd + kStageFloats; }
+// fused_ln_mlp's backward with the hidden units in two halves
+__host__ __device__ inline int bwd_tokens_split_smem_floats(int C, int hidden) {
+  return 2 * C * kTLd + hidden / 2 * kTLd + kStageFloats + 2 * kTile;
+}
 
 // The MLP half's backward on the M <= 64 tokens t0.. of one block, from
 // the half's input rows xin (T, C): recompute y2 = LN(xin), h = y2 w1 + b1
@@ -79,7 +83,6 @@ __device__ __forceinline__ void mlp_bwd_tile(
     float* __restrict__ dm, float* __restrict__ dh, float* __restrict__ dx,
     float* __restrict__ dxs, float* __restrict__ ln_part, long long t0, int M, long long hw,
     int C, int hidden, float eps, float* T1, float* T2, float* T3, float* Bs, float* st) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // y2 = LN(xin)
   layernorm_t([&](int r) { return xin + (t0 + r) * C; }, M, C, g2, be2, eps, T2, st, T1);
   __syncthreads();
@@ -128,44 +131,22 @@ __device__ __forceinline__ void mlp_bwd_tile(
                      make_float4(o[0], o[1], o[2], o[3]);
                });
   __syncthreads();
-  // LN backward, one warp per row: dx = dout + inv (dy2 g2 - mean(dy2 g2)
-  // - xn2 mean(dy2 g2 xn2)); xn2 kept for the dg partials
-  for (int r = warp; r < M; r += kWarps) {
-    const long long t = t0 + r;
-    const float mean = st[r], inv = st[kTile + r];
-    float a = 0.f, bsum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = (__ldg(xin + t * C + c) - mean) * inv;
-      T2[c * kTLd + r] = xn;
-      const float dxh = T3[c * kTLd + r] * __ldg(g2 + c);
-      a += dxh;
-      bsum += dxh * xn;
-    }
-    a = warp_sum(a) / C;
-    bsum = warp_sum(bsum) / C;
-    const float sb = dxs != nullptr ? __ldg(s1 + t / hw) : 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = T2[c * kTLd + r];
-      const float dxh = T3[c * kTLd + r] * __ldg(g2 + c);
-      const float d = __ldg(dout + t * C + c) + inv * (dxh - a - xn * bsum);
-      dx[t * C + c] = d;
-      if (dxs != nullptr) {
-        dxs[t * C + c] = sb * d;
-        T1[c * kTLd + r] = sb * d;
-      }
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float dg = 0.f, db = 0.f;
-    for (int r = 0; r < M; ++r) {
-      const float d = T3[c * kTLd + r];
-      dg = fmaf(d, T2[c * kTLd + r], dg);
-      db += d;
-    }
-    ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
-    ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
-  }
+  // LN backward: dx = dout + LN'(dy2); xn2 (in T2) kept for the dg partials
+  ln_backward_tile(
+      xin, g2, dout, T3, T2, t0, M, C,
+      [&](int r, float& mean, float& inv) {
+        mean = st[r];
+        inv = st[kTile + r];
+      },
+      [&](int r, long long t, int c, float d) {
+        dx[t * C + c] = d;
+        if (dxs != nullptr) {
+          const float sd = __ldg(s1 + t / hw) * d;
+          dxs[t * C + c] = sd;
+          T1[c * kTLd + r] = sd;
+        }
+      },
+      ln_part);
 }
 
 // One block per 64 consecutive tokens. w1 (C, hidden) as in the forward;
@@ -243,6 +224,104 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* st = Bs + kStageFloats;
   mlp_bwd_tile(x, dout, g, be, w1, b1, w1t, w2t, s, nullptr, y, hg, dm, dh, dx, nullptr, ln_part,
                t0, M, hw, C, hidden, eps, T1, T2, T3, Bs, st);
+}
+
+// The backward of fused_ln_mlp alone where the per-token kernel's tiles do
+// not fit (C 240 / hidden 480: 286,720 B): the same arithmetic with the
+// hidden units in two halves, so the hidden tile is (hidden/2, 64). Pass
+// p = 1, then 0: h_p = y w1[:, p] + b1[p] and gelu(h_p) to hg, dh_p =
+// (dm w2^T[:, p]) gelu'(h_p) to dh; then dy = dh_0 w1^T[0] + dh_1 w1^T[1],
+// dh_1 read back from dh. Needs hidden even and hidden/2 >= C (the LN
+// scratch and xn live in the hidden tile).
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_mlp_bwd_split_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+                            const float* __restrict__ g, const float* __restrict__ be,
+                            const float* __restrict__ w1, const float* __restrict__ b1,
+                            const float* __restrict__ w1t, const float* __restrict__ w2t,
+                            const float* __restrict__ s, float* __restrict__ y,
+                            float* __restrict__ hg, float* __restrict__ dm,
+                            float* __restrict__ dh, float* __restrict__ dx,
+                            float* __restrict__ ln_part, long long tokens, long long hw, int C,
+                            int hidden, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const int M = (int)min((long long)kTile, tokens - t0);
+  const int half = hidden / 2;
+  float* T1 = smem;                  // (C, 64): y
+  float* T2 = T1 + C * kTLd;         // (hidden/2, 64): h_p, then dh_p; LN scratch, xn
+  float* T3 = T2 + half * kTLd;      // (C, 64): dm, then dy
+  float* Bs = T3 + C * kTLd;         // weight stage
+  float* st = Bs + kStageFloats;     // LN mean and 1/std of each row
+
+  layernorm_t([&](int r) { return x + (t0 + r) * C; }, M, C, g, be, eps, T2, st, T1);
+  __syncthreads();
+  for (int e = threadIdx.x; e < M * C; e += kThreads) {
+    const int r = e / C, c = e % C;
+    y[(t0 + r) * C + c] = T1[c * kTLd + r];
+  }
+  // dm = s[b] dout
+  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
+    const int r = e / C, c = e % C;
+    float v = 0.f;
+    if (r < M) {
+      const long long t = t0 + r;
+      v = __ldg(s + t / hw) * __ldg(dout + t * C + c);
+      dm[t * C + c] = v;
+    }
+    T3[c * kTLd + r] = v;
+  }
+  for (int p = 1; p >= 0; --p) {
+    const int off = p * half;
+    // h_p = y w1[:, p] + b1[p], kept before the GELU; gelu(h_p) to hg
+    gemm_weights(T1, C, w1, hidden, half, [=](int c) { return off + c; }, Bs,
+                 [&](int r0, int c, const float* o) {
+                   const float bb = __ldg(b1 + off + c);
+                   const float h[4] = {o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb};
+                   *reinterpret_cast<float4*>(T2 + c * kTLd + r0) =
+                       make_float4(h[0], h[1], h[2], h[3]);
+#pragma unroll
+                   for (int i = 0; i < 4; ++i)
+                     if (r0 + i < M) hg[(t0 + r0 + i) * hidden + off + c] = gelu_erf(h[i]);
+                 });
+    // dh_p = (dm w2^T[:, p]) * gelu'(h_p), in place of h_p
+    gemm_weights(T3, C, w2t, hidden, half, [=](int c) { return off + c; }, Bs,
+                 [&](int r0, int c, const float* o) {
+                   float* q = T2 + c * kTLd + r0;
+                   const float4 h = *reinterpret_cast<const float4*>(q);
+                   const float d[4] = {o[0] * gelu_erf_grad(h.x), o[1] * gelu_erf_grad(h.y),
+                                       o[2] * gelu_erf_grad(h.z), o[3] * gelu_erf_grad(h.w)};
+                   *reinterpret_cast<float4*>(q) = make_float4(d[0], d[1], d[2], d[3]);
+#pragma unroll
+                   for (int i = 0; i < 4; ++i)
+                     if (r0 + i < M) dh[(t0 + r0 + i) * hidden + off + c] = d[i];
+                 });
+  }
+  // dy = dh_0 w1^T[0] (dh_0 in T2), in place of dm
+  gemm_weights(T2, half, w1t, C, C, [](int c) { return c; }, Bs,
+               [&](int r0, int c, const float* o) {
+                 *reinterpret_cast<float4*>(T3 + c * kTLd + r0) =
+                     make_float4(o[0], o[1], o[2], o[3]);
+               });
+  __syncthreads();  // the product is done reading T2
+  for (int e = threadIdx.x; e < kTile * half; e += kThreads) {
+    const int r = e / half, c = e % half;
+    T2[c * kTLd + r] = r < M ? dh[(t0 + r) * hidden + half + c] : 0.f;
+  }
+  // dy += dh_1 w1^T[1]
+  gemm_weights(T2, half, w1t + (size_t)half * C, C, C, [](int c) { return c; }, Bs,
+               [&](int r0, int c, const float* o) {
+                 float4* q = reinterpret_cast<float4*>(T3 + c * kTLd + r0);
+                 const float4 a = *q;
+                 *q = make_float4(a.x + o[0], a.y + o[1], a.z + o[2], a.w + o[3]);
+               });
+  __syncthreads();
+  ln_backward_tile(
+      x, g, dout, T3, T2, t0, M, C,
+      [&](int r, float& mean, float& inv) {
+        mean = st[r];
+        inv = st[kTile + r];
+      },
+      [&](int, long long t, int c, float d) { dx[t * C + c] = d; }, ln_part);
 }
 
 // One block per 8x8 window of the map rolled by (-shift, -shift), as in the
@@ -421,7 +500,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) float smem[];
   const long long t0 = (long long)blockIdx.x * kTile;
   const int M = (int)min((long long)kTile, tokens - t0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int C3 = 3 * C;
   float* DQ = smem;                  // (3C, 64) dqkv; then xn (C, 64)
   float* DY = DQ + C3 * kTLd;        // (C, 64)
@@ -437,36 +515,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                      make_float4(o[0], o[1], o[2], o[3]);
                });
   __syncthreads();
-  for (int r = warp; r < M; r += kWarps) {
-    const long long t = t0 + r;
-    const float mean = __ldg(stats1 + 2 * t), inv = __ldg(stats1 + 2 * t + 1);
-    float a = 0.f, bsum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = (__ldg(x + t * C + c) - mean) * inv;
-      DQ[c * kTLd + r] = xn;
-      const float dxh = DY[c * kTLd + r] * __ldg(g1 + c);
-      a += dxh;
-      bsum += dxh * xn;
-    }
-    a = warp_sum(a) / C;
-    bsum = warp_sum(bsum) / C;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = DQ[c * kTLd + r];
-      const float dxh = DY[c * kTLd + r] * __ldg(g1 + c);
-      dx[t * C + c] = __ldg(dz + t * C + c) + inv * (dxh - a - xn * bsum);
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float dg = 0.f, db = 0.f;
-    for (int r = 0; r < M; ++r) {
-      const float d = DY[c * kTLd + r];
-      dg = fmaf(d, DQ[c * kTLd + r], dg);
-      db += d;
-    }
-    ln1_part[(size_t)blockIdx.x * 2 * C + c] = dg;
-    ln1_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
-  }
+  ln_backward_tile(
+      x, g1, dz, DY, DQ, t0, M, C,
+      [&](int r, float& mean, float& inv) {
+        mean = __ldg(stats1 + 2 * (t0 + r));
+        inv = __ldg(stats1 + 2 * (t0 + r) + 1);
+      },
+      [&](int, long long t, int c, float d) { dx[t * C + c] = d; }, ln1_part);
 }
 
 // part[z] (M*N + N floats) = A^T B over the tokens [z*chunk, (z+1)*chunk),
@@ -547,6 +602,9 @@ size_t trr_bwd_attn_smem_bytes(int C, int nh) {
   return (size_t)trr::bwd_attn_smem_floats(C, nh) * sizeof(float);
 }
 size_t trr_bwd_ln1_smem_bytes(int C) { return (size_t)trr::bwd_ln1_smem_floats(C) * sizeof(float); }
+size_t trr_bwd_tokens_split_smem_bytes(int C, int hidden) {
+  return (size_t)trr::bwd_tokens_split_smem_floats(C, hidden) * sizeof(float);
+}
 
 // The forward: x, out, att, z (B, H, W, C); P (B, H/8, W/8, nh, 64, 64);
 // weights (in, out) as in trr_attn_block_fwd and trr_ln_mlp_fwd; s1, s2 (B).
@@ -586,20 +644,30 @@ int trr_block_bwd_tokens(const float* x, const float* z, const float* dout, cons
 // The backward of fused_ln_mlp: x, dout, dx (B, H, W, C); g, be (C);
 // w1 (C, hidden), b1 (hidden) and the transposes w1t (hidden, C), w2t
 // (C, hidden); s (B). Writes y, dm (T, C), hg, dh (T, hidden), dx and
-// ln_part (ceil(T / 64), 2C).
+// ln_part (ceil(T / 64), 2C). The per-token kernel where its tiles fit one
+// block's shared memory (232,448 B), else its two-pass form.
 int trr_ln_mlp_bwd_tokens(const float* x, const float* dout, const float* g, const float* be,
                           const float* w1, const float* b1, const float* w1t, const float* w2t,
                           const float* s, float* y, float* hg, float* dm, float* dh, float* dx,
                           float* ln_part, int B, int H, int W, int C, int hidden, float eps,
                           cudaStream_t stream) {
-  const int floats = trr::bwd_tokens_smem_floats(C, hidden);
-  const cudaError_t err = trr::set_smem(trr::ln_mlp_bwd_tokens_kernel, floats);
+  const bool whole = trr::bwd_tokens_smem_floats(C, hidden) * sizeof(float) <= 232448;
+  const int floats = whole ? trr::bwd_tokens_smem_floats(C, hidden)
+                           : trr::bwd_tokens_split_smem_floats(C, hidden);
+  const cudaError_t err = whole ? trr::set_smem(trr::ln_mlp_bwd_tokens_kernel, floats)
+                                : trr::set_smem(trr::ln_mlp_bwd_split_kernel, floats);
   if (err != cudaSuccess) return (int)err;
   const long long tokens = (long long)B * H * W;
   const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
-  trr::ln_mlp_bwd_tokens_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      x, dout, g, be, w1, b1, w1t, w2t, s, y, hg, dm, dh, dx, ln_part, tokens, (long long)H * W,
-      C, hidden, eps);
+  if (whole) {
+    trr::ln_mlp_bwd_tokens_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
+        x, dout, g, be, w1, b1, w1t, w2t, s, y, hg, dm, dh, dx, ln_part, tokens,
+        (long long)H * W, C, hidden, eps);
+  } else {
+    trr::ln_mlp_bwd_split_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
+        x, dout, g, be, w1, b1, w1t, w2t, s, y, hg, dm, dh, dx, ln_part, tokens,
+        (long long)H * W, C, hidden, eps);
+  }
   return (int)cudaGetLastError();
 }
 

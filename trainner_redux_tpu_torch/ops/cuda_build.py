@@ -25,6 +25,7 @@ BUILD_ROOT = PACKAGE_DIR / "_build"
 
 # library name -> source file; every library includes every header
 SOURCES = {
+    "attn_block_staged": "attn_block_staged.cu",
     "fused_block": "fused_block.cu",
     "fused_block_train": "fused_block_train.cu",
     "fused_block_v2": "fused_block_v2.cu",
@@ -43,6 +44,12 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> (argtypes, restype)
 SIGNATURES = {
+    "attn_block_staged": {
+        "trr_attn_block_staged_fwd": ([_P] * 12 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_staged_bwd": ([_P] * 21 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_staged_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "trr_attn_staged_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    },
     "fused_block": {
         "trr_attn_block_fwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _P], _I),
         "trr_ln_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
@@ -61,6 +68,7 @@ SIGNATURES = {
         "trr_bwd_tokens_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_bwd_ln1_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_bwd_tokens_split_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "fused_block_v2": {
         "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),

@@ -10,23 +10,26 @@ Port of the JAX package's ops/pallas/fused_block.py:
       output and z, and whose backward computes every gradient from them
       (the saved-P backward).
 
-`fused_ln_mlp` is a torch.autograd.Function too: its backward (TPU kernel
-#7) recomputes LN and fc1 from x. `fused_attn_block` is forward only
-(serving): on a CUDA tensor that autograd would record it raises, since its
-backward kernel (#6) is not ported.
+`fused_attn_block` and `fused_ln_mlp` are torch.autograd.Functions whose
+backwards recompute from x: #1's (TPU kernel #6,
+`fused_attn_block_backward`) rebuilds LN, qkv and the softmax, #2's (#7)
+LN and fc1.
 
 `s` is the per-sample DropPath keep scale (ones at eval). Layout contract
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
-(K, nh, n, n). The kernels take 8x8 windows (n = 64) and heads of at most
-32 channels, in fp32. The cyclic shift of a shifted block is either done by
-the caller (roll x, unroll z; the JAX package's contract) or, with
-`fused_attn_block(..., shift=s)`, by the kernel's indexing. The MLP half is
-per-token and needs no roll.
+(K, nh, n, n). Heads of at most 32 channels, in fp32. The attention half
+takes 8x8 windows (n = 64: one thread block a window) and 12x12 (n = 144,
+SRFormerV2's: the staged kernels of `csrc/attn_block_staged.cu`); its
+backward takes both, the whole training block (#4/#5) 8x8 only. The cyclic
+shift of a shifted block is either done by the caller (roll x, unroll z;
+the JAX package's contract) or, with `fused_attn_block(..., shift=s)`, by
+the kernel's indexing. The MLP half is per-token and needs no roll.
 
 For a CUDA tensor each wrapper launches its kernel in
-`csrc/fused_block.cu` or `csrc/fused_block_train.cu`; for a CPU tensor it
-runs its plain version (`*_reference`); anything else raises.
+`csrc/fused_block.cu`, `csrc/attn_block_staged.cu` or
+`csrc/fused_block_train.cu`; for a CPU tensor it runs its plain version
+(`*_reference`); anything else raises.
 `fused_mlp_supported` gates `fused_ln_mlp` for archs whose attention half
 is their own (HAT's HAB and OCAB).
 """
@@ -43,15 +46,17 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     SMEM_LIMIT,
     TILE_LD,
     V_LD,
+    WINDOW,
     _check_cuda,
     fused_window_mhsa_reference,
-    heads_fit,
-    refuse_autograd,
     window_kinds,
 )
 
 STAGE_FLOATS = 2 * 32 * 96  # double-buffered weight stage (kStageFloats)
 WEIGHT_GRAD_CHUNK = 512  # tokens per partial sum of the weight gradients
+# window -> query rows of a thread block of the staged attention kernels
+# (csrc/attn_block_staged.cu): #1 at 12x12, #6 at 12x12 and 8x8
+STAGED_ROWS = {12: 48, 8: 64}
 
 
 def attn_block_smem_bytes(channels: int, num_heads: int) -> int:
@@ -66,13 +71,42 @@ def ln_mlp_smem_bytes(channels: int, hidden: int) -> int:
     return 4 * (channels * TILE_LD + hidden * TILE_LD + STAGE_FLOATS + 128)
 
 
+def attn_staged_fwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
+    """The largest shared memory of the staged forward's kernels
+    (csrc/attn_block_staged.cu): LN + qkv and proj + residual per 64 tokens,
+    the attention per (window, head)."""
+    n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
+    return 4 * max(2 * channels * TILE_LD + STAGE_FLOATS + 128, channels * TILE_LD + STAGE_FLOATS,
+                   2 * hd * n + n * V_LD + rb * (n + 4))
+
+
+def attn_staged_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
+    """The largest shared memory of the recompute backward's kernels (#6)."""
+    n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
+    return 4 * max(2 * channels * TILE_LD + STAGE_FLOATS + 128,
+                   2 * channels * TILE_LD + STAGE_FLOATS,
+                   2 * hd * n + 2 * n * V_LD + 2 * hd * rb + 2 * rb * V_LD + rb * (n + 4))
+
+
 def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
-    # the LayerNorm's (64, C + 1) scratch lives in the (C, 68) attention tile
+    """The attention half's forward (#1): window-aligned dims, heads of at
+    most 32 channels, 8x8 windows on the one-window kernel or 12x12 on the
+    staged kernels, each plan within one thread block's shared memory."""
+    # the LayerNorm's (64, C + 1) scratch lives in a (C, 68) tile
     if h % window_size or w % window_size or channels < 16:
         return False
-    if not heads_fit(window_size, channels, num_heads):
+    if channels % num_heads or channels // num_heads > V_LD:
         return False
-    return attn_block_smem_bytes(channels, num_heads) <= SMEM_LIMIT
+    if window_size == WINDOW:
+        return attn_block_smem_bytes(channels, num_heads) <= SMEM_LIMIT
+    return (window_size in STAGED_ROWS
+            and attn_staged_fwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
+
+
+def attn_block_bwd_fits(h, w, window_size, channels, num_heads) -> bool:
+    """The attention half's recompute backward (#6) as well as its forward."""
+    return (attn_block_fits(h, w, window_size, channels, num_heads)
+            and attn_staged_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
 
 
 def ln_mlp_fits(h, window_size, channels, hidden) -> bool:
@@ -84,8 +118,14 @@ def ln_mlp_fits(h, window_size, channels, hidden) -> bool:
 
 def ln_mlp_bwd_fits(channels: int, hidden: int) -> bool:
     """The MLP half's backward (the per-token kernel of
-    csrc/fused_block_train.cu) within one thread block's shared memory."""
-    return bwd_tokens_smem_bytes(channels, hidden) <= SMEM_LIMIT
+    csrc/fused_block_train.cu) within one thread block's shared memory, or
+    its two-pass form, whose hidden tile is half as tall (it keeps the LN
+    scratch and xn, so hidden / 2 holds C and 64 (C + 1) floats)."""
+    if bwd_tokens_smem_bytes(channels, hidden) <= SMEM_LIMIT:
+        return True
+    half = hidden // 2
+    return (hidden % 2 == 0 and half >= channels and 64 * (channels + 1) <= half * TILE_LD
+            and bwd_tokens_split_smem_bytes(channels, hidden) <= SMEM_LIMIT)
 
 
 def fused_mlp_supported(h: int, w: int, rows: int, channels: int, hidden: int,
@@ -106,9 +146,9 @@ def fused_mlp_supported(h: int, w: int, rows: int, channels: int, hidden: int,
 def fused_block_supported(
     h: int, w: int, window_size: int, channels: int, num_heads: int, hidden: int
 ) -> bool:
-    """Gate for SwinBlock's fused branch: window-aligned dims, 8x8 windows,
-    heads of at most 32 channels, and both kernels' shared-memory plans
-    within one thread block's limit.
+    """Gate for a Swin block's fused branch (SwinIR's, SRFormerV2's):
+    window-aligned dims, 8x8 or 12x12 windows, heads of at most 32 channels,
+    and both halves' shared-memory plans within one thread block's limit.
     TRAINNER_FUSED_BLOCK=0 and TRAINNER_FUSED_ATTN=0 are the off switches."""
     if os.environ.get("TRAINNER_FUSED_BLOCK", "1") == "0":
         return False
@@ -309,51 +349,167 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
 fused_ln_mlp.launches = 0
 
 
+def _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                         window_size, shift, fits):
+    b, hh, ww, c = x.shape
+    n, kinds = window_size * window_size, bias.shape[0]
+    if c != num_heads * head_dim or kinds not in (1, 4):
+        raise ValueError(f"x {tuple(x.shape)} / bias {tuple(bias.shape)} do not match")
+    if not 0 <= shift < min(hh, ww):
+        raise ValueError(f"{name}: shift {shift} outside [0, {min(hh, ww)})")
+    if not fits(hh, ww, window_size, c, num_heads):
+        raise ValueError(
+            f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, ws={window_size} "
+            "is outside the kernels' limits"
+        )
+    if b * hh * ww * 3 * c >= 2**31:
+        raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
+    for k, t, shape in (
+        ("x", x, (b, hh, ww, c)), ("g", g, (c,)), ("be", be, (c,)),
+        ("wq", wq, (c, 3 * c)), ("bq", bq, (3 * c,)), ("wp", wp, (c, c)),
+        ("bp", bp, (c,)), ("bias", bias, (kinds, num_heads, n, n)), ("s", s, (b,)),
+    ):
+        _check_cuda(k, t, shape, x.device)
+
+
+def _attn_block_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
+                         eps, shift):
+    _check_attn_operands("fused_attn_block", x, g, be, wq, bq, wp, bp, bias, s, num_heads,
+                         head_dim, window_size, shift, attn_block_fits)
+    b, hh, ww, c = x.shape
+    z = torch.empty_like(x)
+    if z.numel() == 0:
+        return z
+    fused_attn_block.launches += 1
+    if window_size == WINDOW:  # one thread block a window
+        _launch(
+            "fused_block", "trr_attn_block_fwd", x.device,
+            x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+            wp.data_ptr(), bp.data_ptr(), bias.data_ptr(), s.data_ptr(), z.data_ptr(),
+            b, hh, ww, c, num_heads, bias.shape[0], shift, eps, head_dim**-0.5,
+        )
+        return z
+    T = b * hh * ww  # the staged kernels, through (T, 3C) and (T, C) scratch
+    qkv = torch.empty((T, 3 * c), device=x.device, dtype=torch.float32)
+    att = torch.empty((T, c), device=x.device, dtype=torch.float32)
+    _launch(
+        "attn_block_staged", "trr_attn_block_staged_fwd", x.device,
+        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
+        bp.data_ptr(), bias.data_ptr(), s.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+        z.data_ptr(), b, hh, ww, c, num_heads, window_size, bias.shape[0], shift, eps,
+        head_dim**-0.5,
+    )
+    return z
+
+
+def fused_attn_block_bwd_reference(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads, head_dim,
+                                   window_size, eps=1e-5, shift=0):
+    """The recompute backward's spec, step by step, in fp32: dx and the
+    gradients of g, be, wq, bq, wp, bp and the (K, nh, n, n) kind table (none
+    for s, as in the JAX package), LN, qkv and the softmax rebuilt from x."""
+    b, hh, ww, c = x.shape
+    ws, nwh, nww = window_size, hh // window_size, ww // window_size
+    t = _roll(x.float(), -shift).reshape(-1, c)
+    do = _roll(dout.float(), -shift).reshape(-1, c)
+    xn, inv = _ln_parts(t, eps)
+    y = xn * g + be
+    qkv = _to_windows((y @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
+    q, k, v = (_heads(u, num_heads) for u in qkv.chunk(3, dim=-1))
+    kind = window_kinds(nwh, nww, bias.shape[0], device=x.device)
+    table = bias.float()[kind].reshape(nwh, nww, *bias.shape[1:])
+    P = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1)
+    att = _from_windows(_merge_heads(P @ v), ws).reshape(-1, c)
+    dzp = do * s.float().repeat_interleave(hh * ww)[:, None]
+    dwp, dbp = att.T @ dzp, dzp.sum(0)
+    dqkv, dbias = _window_attn_backward(P, q, k, v, dzp @ wp.T, bias.shape[0], b, hh, ww,
+                                        num_heads, head_dim, ws)
+    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
+    dy = dqkv @ wq.T
+    dg, dbe = (dy * xn).sum(0), dy.sum(0)
+    dx = _roll((do + _ln_backward(dy, xn, inv, g)).reshape(b, hh, ww, c), shift)
+    return dx, dg, dbe, dwq, dbq, dwp, dbp, dbias
+
+
+def fused_attn_block_backward(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads, head_dim,
+                              window_size, eps=1e-5, shift=0):
+    """The attention half's recompute backward (TPU kernel #6): dx, dg, dbe,
+    dwq, dbq, dwp, dbp, dbias, as `fused_attn_block_bwd_reference` returns
+    them. On a CUDA tensor it launches the staged kernels of
+    `csrc/attn_block_staged.cu` and the weight-gradient kernels of
+    `csrc/fused_block_train.cu` (one counted call); on a CPU tensor it runs
+    the plain version."""
+    if x.device.type == "cpu":
+        return fused_attn_block_bwd_reference(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads,
+                                              head_dim, window_size, eps, shift)
+    name = "fused_attn_block_backward"
+    _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                         window_size, shift, attn_block_bwd_fits)
+    _check_cuda("dout", dout, tuple(x.shape), x.device)
+    b, hh, ww, c = x.shape
+    ws, n, kinds, dev, T = window_size, window_size**2, bias.shape[0], x.device, b * hh * ww
+
+    def new(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    wpt, wqt = wp.t().contiguous(), wq.t().contiguous()
+    qkv, dqkv = new(T, 3 * c), new(T, 3 * c)
+    y, dzp, datt, att, stats = new(T, c), new(T, c), new(T, c), new(T, c), new(T, 2)
+    ds = new(b, hh // ws, ww // ws, num_heads, n, n)
+    dx, ln_part, dbias = torch.empty_like(x), new(math.ceil(T / 64), 2 * c), new(kinds, num_heads,
+                                                                                n, n)
+    fused_attn_block_backward.launches += 1
+    _launch(
+        "attn_block_staged", "trr_attn_block_staged_bwd", dev,
+        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wpt.data_ptr(),
+        wqt.data_ptr(), bias.data_ptr(), s.data_ptr(), dout.data_ptr(), qkv.data_ptr(),
+        y.data_ptr(), stats.data_ptr(), dzp.data_ptr(), datt.data_ptr(), dqkv.data_ptr(),
+        att.data_ptr(), ds.data_ptr(), dx.data_ptr(), ln_part.data_ptr(), dbias.data_ptr(),
+        b, hh, ww, c, num_heads, ws, kinds, shift, eps, head_dim**-0.5,
+    )
+    dwq, dbq = _weight_grad(y, dqkv)
+    dwp, dbp = _weight_grad(att, dzp)
+    dg, dbe = _sum_rows(ln_part).split(c)
+    return dx, dg, dbe, dwq, dbq, dwp, dbp, dbias
+
+
+fused_attn_block_backward.launches = 0
+
+
+class _AttnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps,
+                shift):
+        args = (x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps, shift)
+        if x.device.type == "cpu":
+            z = fused_attn_block_reference(*args)
+        else:
+            z = _attn_block_fwd_cuda(*args)
+        ctx.save_for_backward(x, g, be, wq, bq, wp, bp, bias, s)
+        ctx.meta = (num_heads, head_dim, window_size, eps, shift)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        grads = fused_attn_block_backward(*ctx.saved_tensors, dz.contiguous(), *ctx.meta)
+        return (*grads, None, None, None, None, None, None)
+
+
 def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
                      eps=1e-5, shift=0):
-    """z (B,H,W,C) = x + s[b] * proj(window-MHSA(qkv(LN(x)), bias)).
+    """z (B,H,W,C) = x + s[b] * proj(window-MHSA(qkv(LN(x)), bias)),
+    differentiable in x, the six parameters and the kind table (not in s).
 
     wq (C, 3C), bq (3C,), wp (C, C), bp (C,), bias (K, nh, n, n) fp32 kind
     table (relative-position bias + shift mask, see
     window_attention.shift_mask_kinds), s (B,) DropPath keep scale. With
     shift=0, as in the JAX package, the caller passes x already rolled and
     unrolls z; with shift > 0 the kernel takes the windows of x rolled by
-    (-shift, -shift) and returns z unrolled, in x's frame.
-    Forward only: on a CUDA tensor that autograd would record, it raises."""
-    if x.device.type == "cpu":
-        return fused_attn_block_reference(
-            x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps, shift
-        )
-    refuse_autograd("fused_attn_block", "TPU kernel #6, fused_block.py:729",
-                    x, g, be, wq, bq, wp, bp, bias)
-    b, hh, ww, c = x.shape
-    ws, n, kinds = window_size, window_size * window_size, bias.shape[0]
-    if c != num_heads * head_dim or kinds not in (1, 4):
-        raise ValueError(f"x {tuple(x.shape)} / bias {tuple(bias.shape)} do not match")
-    if not 0 <= shift < min(hh, ww):
-        raise ValueError(f"fused_attn_block: shift {shift} outside [0, {min(hh, ww)})")
-    if not attn_block_fits(hh, ww, ws, c, num_heads):
-        raise ValueError(
-            f"fused_attn_block: H={hh}, W={ww}, C={c}, heads={num_heads}, ws={ws} "
-            "is outside the kernel's limits"
-        )
-    for name, t, shape in (
-        ("x", x, (b, hh, ww, c)), ("g", g, (c,)), ("be", be, (c,)),
-        ("wq", wq, (c, 3 * c)), ("bq", bq, (3 * c,)), ("wp", wp, (c, c)),
-        ("bp", bp, (c,)), ("bias", bias, (kinds, num_heads, n, n)), ("s", s, (b,)),
-    ):
-        _check_cuda(name, t, shape, x.device)
-    z = torch.empty_like(x)
-    if z.numel() == 0:
-        return z
-    fused_attn_block.launches += 1
-    _launch(
-        "fused_block", "trr_attn_block_fwd", x.device,
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-        wp.data_ptr(), bp.data_ptr(), bias.data_ptr(), s.data_ptr(), z.data_ptr(),
-        b, hh, ww, c, num_heads, kinds, shift, eps, head_dim**-0.5,
-    )
-    return z
+    (-shift, -shift) and returns z unrolled, in x's frame. On a CUDA tensor
+    the forward launches TPU kernel #1's port (8x8 or 12x12 windows) and the
+    backward #6's (`fused_attn_block_backward`); on a CPU tensor both run
+    their plain versions."""
+    return _AttnBlock.apply(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
+                            eps, shift)
 
 
 fused_attn_block.launches = 0
@@ -382,10 +538,18 @@ def bwd_ln1_smem_bytes(channels: int) -> int:
     return 4 * (4 * channels * TILE_LD + STAGE_FLOATS)
 
 
+def bwd_tokens_split_smem_bytes(channels: int, hidden: int) -> int:
+    """Shared memory of the MLP half's backward in two passes over the
+    hidden units (csrc/fused_block_train.cu), where the one-pass plan does
+    not fit."""
+    return 4 * ((2 * channels + hidden // 2) * TILE_LD + STAGE_FLOATS + 2 * 64)
+
+
 def swin_block_train_fits(h, w, window_size, channels, num_heads, hidden) -> bool:
-    """The training kernels' limits: the forward halves' and the three
-    backward kernels' shared-memory plans within one thread block's."""
-    if not (attn_block_fits(h, w, window_size, channels, num_heads)
+    """The training kernels' limits: 8x8 windows, and the forward halves'
+    and the three backward kernels' shared-memory plans within one thread
+    block's."""
+    if window_size != WINDOW or not (attn_block_fits(h, w, window_size, channels, num_heads)
             and ln_mlp_fits(h, window_size, channels, hidden)):
         return False
     return max(bwd_tokens_smem_bytes(channels, hidden),
@@ -436,6 +600,24 @@ def _gelu_grad(h):
     return cdf + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
 
 
+def _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_dim, ws):
+    """(dqkv (T, 3C), dbias (K, nh, n, n)) of softmax(q k^T scale + bias) v
+    from its softmax P and q, k, v, all (B, H/ws, W/ws, nh, n, .), and the
+    output gradient datt (T, C); dbias sums dS over each kind's windows."""
+    nwh, nww, n = hh // ws, ww // ws, ws * ws
+    da = _heads(_to_windows(datt.reshape(b, hh, ww, -1), ws), num_heads)
+    dv = P.transpose(-1, -2) @ da
+    dp = da @ v.transpose(-1, -2)
+    ds = P * (dp - (dp * P).sum(-1, keepdim=True))
+    scale = head_dim**-0.5
+    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
+    dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=P.device)
+    dbias.index_add_(0, window_kinds(nwh, nww, kinds, device=P.device),
+                     ds.sum(0).reshape(nwh * nww, num_heads, n, n))
+    dqkv = torch.cat([_merge_heads(u) for u in (dq, dk, dv)], dim=-1)
+    return _from_windows(dqkv, ws).reshape(b * hh * ww, -1), dbias
+
+
 def fused_swin_block_train_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2,
                                      s1, s2, num_heads, head_dim, window_size, eps=1e-5,
                                      shift=0):
@@ -466,8 +648,7 @@ def fused_swin_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1
     gradients of g1, be1, wq, bq, wp, bp, the (K, nh, n, n) kind table, g2,
     be2, w1, b1, w2, b2, from the forward's saved P, att and z."""
     b, hh, ww, c = x.shape
-    ws, nwh, nww = window_size, hh // window_size, ww // window_size
-    n = ws * ws
+    ws = window_size
 
     def rows(t):
         return _roll(t.float(), -shift).reshape(b * hh * ww, -1)
@@ -494,17 +675,8 @@ def fused_swin_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1
     datt = dzp @ wp.T
     qkv = _to_windows((y @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
     q, k, v = (_heads(u, num_heads) for u in qkv.chunk(3, dim=-1))
-    da = _heads(_to_windows(datt.reshape(b, hh, ww, c), ws), num_heads)
-    dv = P.transpose(-1, -2) @ da
-    dp = da @ v.transpose(-1, -2)
-    ds = P * (dp - (dp * P).sum(-1, keepdim=True))
-    scale = head_dim**-0.5
-    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
-    dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=x.device)
-    dbias.index_add_(0, window_kinds(nwh, nww, kinds, device=x.device),
-                     ds.sum(0).reshape(nwh * nww, num_heads, n, n))
-    dqkv = torch.cat([_merge_heads(u) for u in (dq, dk, dv)], dim=-1)
-    dqkv = _from_windows(dqkv, ws).reshape(b * hh * ww, 3 * c)
+    dqkv, dbias = _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_dim,
+                                        ws)
     dwq, dbq = y.T @ dqkv, dqkv.sum(0)
     dy = dqkv @ wq.T
     dg1, dbe1 = (dy * xn).sum(0), dy.sum(0)

@@ -255,18 +255,6 @@ def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) 
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def refuse_autograd(name: str, backward: str, *tensors: torch.Tensor) -> None:
-    """Raise when autograd would record a call of a forward-only kernel: the
-    kernel's output would carry no gradient back to its inputs."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: its backward ({backward}) is not ported to CUDA, so this kernel "
-            "would cut the gradient. Call it under torch.no_grad() or "
-            "torch.inference_mode(); to train, use fused_swin_block_train or the plain "
-            "branch (TRAINNER_FUSED_ATTN=0)."
-        )
-
-
 def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc):
     b, hh, ww, c3 = qkv.shape
     c, n, kinds = num_heads * head_dim, wr * wc, bias.shape[0]

@@ -1,8 +1,8 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR, HAT, DAT and Swin2SR parts of the JAX package's
-utils/torch_compat.py:
+Port of the SwinIR, HAT, DAT, Swin2SR and SRFormerV2 parts of the JAX
+package's utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
   nesting and strip DDP's `module.` prefix (upstream's key canonicalization);
@@ -12,9 +12,9 @@ utils/torch_compat.py:
   (`.`-joined flax keys, as `BaseModel.flatten_params` gives them) as the
   port's state dict. For SwinIR it is the JAX `_export_swinir` mapping,
   extended to the 3conv residual connection and every upsampler; for HAT
-  the JAX `_export_hat` mapping; for DAT and Swin2SR the inverse of the
-  JAX `_convert_dat` and `_convert_swin2sr` (the JAX package has no
-  exporter for them);
+  the JAX `_export_hat` mapping; for DAT, Swin2SR and SRFormerV2 the
+  inverse of the JAX `_convert_dat`, `_convert_swin2sr` and
+  `_convert_srformerv2` (the JAX package has no exporter for them);
 - `pack_qkv_bias`: upstream Swin2SR's `attn.q_bias` / `attn.v_bias` as the
   port's one `attn.qkv.bias` = [q, 0, v], as the JAX `_convert_swin2sr`
   packs them.
@@ -22,8 +22,8 @@ utils/torch_compat.py:
 Buffers that upstream checkpoints carry and the port recomputes
 (`relative_position_index`, HAT's `relative_position_index_SA` / `_OCA`,
 `attn_mask`, DAT's `rpe_biases`, `attn.attn_mask_*` and the BatchNorms'
-`num_batches_tracked`, Swin2SR's `relative_coords_table`, `mean`) are
-dropped on load.
+`num_batches_tracked`, Swin2SR's `relative_coords_table`, SRFormerV2's
+`aligned_relative_position_index`, `mean`) are dropped on load.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
 
 
 def drop_recomputed_buffers(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Drop the buffers upstream SwinIR, HAT, DAT and Swin2SR checkpoints
-    carry and the port recomputes."""
+    """Drop the buffers upstream SwinIR, HAT, DAT, Swin2SR and SRFormerV2
+    checkpoints carry and the port recomputes."""
     return {
         k: v for k, v in sd.items()
         if not k.endswith(("relative_position_index", "relative_position_index_SA",
@@ -256,7 +256,42 @@ def _swin2sr_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     return _swinir_key(re.sub(r"^layers_(\d+)_conv\.", r"layers_\1.conv.", k), v)
 
 
-_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key}
+# SRFormerV2's block parts: flax name -> upstream module (the rest, norm1,
+# norm2 and PSA's attn.q / attn.kv / attn.proj, keep their names)
+_SRFORMERV2_PARTS = {"qkv": "attn.qkv", "proj": "attn.proj", "mlp_fc1": "mlp.fc1",
+                     "mlp_fc2": "mlp.fc2", "norm1": "norm1", "norm2": "norm2",
+                     "attn.q": "attn.q", "attn.kv": "attn.kv", "attn.proj": "attn.proj"}
+
+
+def _srformerv2_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax SRFormerV2 key -> (torch key, array in torch layout): the
+    inverse of the JAX `_convert_srformerv2`, whose Swin blocks keep their
+    table, qkv and proj at block level and whose PSA blocks keep the table
+    inside `attn`."""
+    m = re.fullmatch(r"layers_(\d+)_b(\d+)\.(.+)", k)
+    if m:
+        i, j, rest = m.groups()
+        pre = f"layers.{i}.residual_group.blocks.{j}"
+        if rest in ("relative_position_bias_table", "attn.relative_position_bias_table"):
+            return f"{pre}.attn.relative_position_bias_table", v
+        m = re.fullmatch(r"mlp_dw\.conv\.(kernel|bias)", rest)
+        if m:
+            kind = m.group(1)
+            return (f"{pre}.mlp.dwconv.depthwise_conv.0.{_weight_or_bias(kind)}",
+                    conv_w_inv(v) if kind == "kernel" else v)
+        inner, kind = rest.rsplit(".", 1)
+        if inner not in _SRFORMERV2_PARTS:
+            raise KeyError(f"no torch counterpart for SRFormerV2 key '{k}'")
+        return (f"{pre}.{_SRFORMERV2_PARTS[inner]}.{_weight_or_bias(kind)}",
+                linear_w(v) if kind == "kernel" else v)
+    # the norms and convs are named as in SwinIR, but for the layers'
+    # layers_i_conv and pixelshuffledirect's `upsample`
+    k = re.sub(r"^layers_(\d+)_conv\.", r"layers_\1.conv.", k)
+    return _swinir_key(re.sub(r"^upsample\.conv\.", "upsample_direct.conv.", k), v)
+
+
+_KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key,
+             "srformerv2": _srformerv2_key}
 
 
 def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> dict:
