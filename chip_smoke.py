@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x,
-DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, and SwinIR-M
-4x training on pairs degraded on the fly (Real-ESRGAN OTF).
+DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, SwinIR-M 4x
+training on pairs degraded on the fly (Real-ESRGAN OTF), and the training
+form of the Swin attention half that saves P.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -137,6 +138,19 @@ failure:
              must agree; then both timed.
 34. srformerv2 train profile - device time by kernel of one SRFormerV2
              training step, its launches and the card's busy share.
+35. attn train - the training form of the attention half,
+             `fused_attn_block_train` (#9, saving P and att; its saved-P
+             backward #10), at SwinIR-M's training block (B=8, 64x64, C=180,
+             6 heads of 30, 8x8 windows) and SRFormerV2's (B=8, 72x72, C=240,
+             8 heads of 30, 12x12 windows), K=1 unshifted and K=4 shifted by
+             half the window. First the path: one whole Swin block, that half
+             then `fused_ln_mlp`, forward and backward of sum(out^2) at each
+             block and K, counting launches; then #9 (z, P, att) and #10 (from
+             the same P and att) against their plain versions, #10 twice bit
+             for bit; the block against the same block through
+             `fused_attn_block` (#1/#6) and, at 8x8, `fused_swin_block_train`
+             (#4/#5); times of #9, #10, #1 and #6 and of the two blocks, the
+             card's bound, and each block's peak memory.
 
 Each phase prints its seconds. Then one JSON line of kernel records and,
 last, the device JSON line.
@@ -233,6 +247,10 @@ REPLACES = {
     "fused_attn_block_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:729",
     "fused_ln_mlp_c240": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
     "fused_ln_mlp_backward_c240": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
+    "fused_attn_block_train": "trainner_redux_tpu/ops/pallas/fused_block.py:977",
+    "fused_attn_block_train_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:1036",
+    "fused_attn_block_train_ws12": "trainner_redux_tpu/ops/pallas/fused_block.py:977",
+    "fused_attn_block_train_backward_ws12": "trainner_redux_tpu/ops/pallas/fused_block.py:1036",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -254,11 +272,17 @@ SOURCES = {
     "fused_attn_block_backward": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
     "fused_ln_mlp_c240": "trainner_redux_tpu_torch/csrc/fused_block.cu",
     "fused_ln_mlp_backward_c240": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_attn_block_train": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
+    "fused_attn_block_train_backward": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
+    "fused_attn_block_train_ws12": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
+    "fused_attn_block_train_backward_ws12": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
 # the "_ws12" / "_c240" records are #1, #2 and #7 at SRFormerV2's Swin
-# blocks, counted by their wrappers in SRFormerV2's runs
+# blocks, counted by their wrappers in SRFormerV2's runs; the
+# "fused_attn_block_train*" records are #9 and #10 at SwinIR-M's block (8x8)
+# and SRFormerV2's ("_ws12"), counted in phase 35's runs of each
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -534,6 +558,8 @@ def _wrappers() -> dict:
     return {
         "fused_attn_block": fb.fused_attn_block,
         "fused_attn_block_backward": fb.fused_attn_block_backward,
+        "fused_attn_block_train": fb.fused_attn_block_train,
+        "fused_attn_block_train_backward": fb.fused_attn_block_train_backward,
         "fused_ln_mlp": fb.fused_ln_mlp,
         "fused_window_mhsa": wa.fused_window_mhsa,
         "fused_swin_block_train": fb.fused_swin_block_train,
@@ -2031,6 +2057,184 @@ def srformerv2_serving_counts() -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# 35. attn train
+# ---------------------------------------------------------------------------
+
+
+def attn_train_flops(tokens: int, c: int, n: int) -> tuple[float, float]:
+    """Operations of #9 and #10. #9: qkv, S and P v, proj (8 T C^2 + 4 T n
+    C), as #1. #10 recomputes qkv only and takes datt, dwp, dwq and dy (22 T
+    C^2 with the recompute) and dv, dP, dq, dk from the saved P (8 T n C)."""
+    return 8 * tokens * c * c + 4 * tokens * n * c, 22 * tokens * c * c + 8 * tokens * n * c
+
+
+# label, record suffix, (B, H, W), (C, heads, window, hidden), K in order (the
+# JSON line reports the last: the path's own K of each model's timed cases)
+ATTN_TRAIN_BLOCKS = (
+    ("SwinIR-M block", "", (TB, TH, TW), (C, NH, WS, HIDDEN), (1, 4)),
+    ("SRFormerV2 block", "_ws12", (TB, SRF_PAD, SRF_PAD), SRF_WIDTHS, (4, 1)),
+)
+
+
+def swin_block_loss(attn_fn, ops, s1, s2, meta):
+    """One pre-LN Swin block, the attention half by `attn_fn` (the two
+    attention-half ops, or the whole training block when attn_fn is None)
+    then `fused_ln_mlp`: sum(out^2) and its gradients in the 14 operands."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    ops = [t.detach().requires_grad_() for t in ops]
+    nh, hd, ws, eps, shift = meta
+    if attn_fn is None:
+        out = fb.fused_swin_block_train(*ops, s1, s2, *meta)
+    else:
+        z = attn_fn(*ops[:8], s1, nh, hd, ws, eps, shift=shift)
+        out = fb.fused_ln_mlp(z, *ops[8:], s2, ws, eps)
+    return out.detach(), torch.autograd.grad(out.square().sum(), ops)
+
+
+def phase_attn_train() -> tuple[dict, dict]:
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    keep = 1.0 / 0.9  # DropPath at rate 0.1: a sample keeps 1/0.9 or drops to 0
+    s1 = torch.full((TB,), keep, device=dev)
+    s1[1] = 0.0
+    s2 = torch.full((TB,), keep, device=dev)
+    s2[4] = 0.0
+    res: dict[str, dict] = {}
+    launches: dict[str, int] = {}
+    grad_names = ("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias")
+    block_names = ("out", *TRAIN_OPS)
+    for label, suffix, shape, widths, kind_order in ATTN_TRAIN_BLOCKS:
+        c, nh, ws, _ = widths
+        hd, n = c // nh, ws * ws
+        cases = []
+        for kinds in kind_order:
+            x, p, bias, _ = block_inputs(gen, kinds, dev, shape, widths)
+            ops = [x if k == "x" else bias if k == "bias" else p[k] for k in TRAIN_OPS]
+            dout = torch.randn(x.shape, generator=gen).to(dev)
+            cases.append((kinds, ws // 2 if kinds == 4 else 0, ops, dout))
+
+        # the path: the whole block through #9/#10 and #2/#7, at each K
+        reset_counts()
+        try:
+            saved = [swin_block_loss(fb.fused_attn_block_train, ops, s1, s2,
+                                     (nh, hd, ws, 1e-5, shift)) for _, shift, ops, _ in cases]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"fused_attn_block_train {label}: {e}")
+        counts = read_counts()
+        k = len(cases)
+        check_counts(f"[attn train] {label}", counts, {
+            "fused_attn_block_train": k, "fused_attn_block_train_backward": k,
+            "fused_ln_mlp": k, "fused_ln_mlp_backward": k})
+        fname, bname = "fused_attn_block_train" + suffix, "fused_attn_block_train_backward" + suffix
+        launches[fname] = counts["fused_attn_block_train"]
+        launches[bname] = counts["fused_attn_block_train_backward"]
+        say(f"[attn train] {label}: launches {counts['fused_attn_block_train']} of #9, "
+            f"{counts['fused_attn_block_train_backward']} of #10 over {k} blocks forward and "
+            "backward")
+
+        fwd_flops, bwd_flops = attn_train_flops(shape[0] * shape[1] * shape[2], c, n)
+        for (kinds, shift, ops, dout), (out, grads) in zip(cases, saved):
+            case = f"{label} K={kinds} shift {shift}"
+            meta = (nh, hd, ws, 1e-5, shift)
+            attn = ops[:7]
+
+            def fwd():
+                return fb._attn_block_train_fwd_cuda(*attn, ops[7], s1, *meta)
+
+            def fwd_plain():
+                return fb.fused_attn_block_train_reference(*attn, ops[7], s1, *meta)
+
+            try:
+                got = fwd()
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 - report and fail the phase
+                fail(f"{fname} {case}: {e}")
+            want = fwd_plain()
+            errs = {name: (g - w).abs().max().item()
+                    for name, g, w in zip(("z", "P", "att"), got, want)}
+            fwd_err = max(errs.values())
+            if not fwd_err <= KERNEL_TOL or not all(bool(torch.isfinite(g).all()) for g in got):
+                fail(f"{fname} {case} disagrees with its plain version: {errs}")
+
+            def bwd():
+                return fb.fused_attn_block_train_backward(*attn, s1, want[1], want[2], dout, kinds,
+                                                          *meta)
+
+            def bwd_plain():
+                return fb.fused_attn_block_train_bwd_reference(*attn, s1, want[1], want[2], dout,
+                                                               kinds, *meta)
+
+            try:
+                bgrads = bwd()
+                again = bwd()
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 - report and fail the phase
+                fail(f"{bname} {case}: {e}")
+            bwd_err, worst = check_grads(bname, case, bgrads, bwd_plain(), grad_names)
+            if not all(torch.equal(a, b_) for a, b_ in zip(bgrads, again)):
+                fail(f"{bname} {case}: two runs differ")
+            record_kernel(res, "attn train", fname, case, fwd, fwd_plain, None, fwd_flops,
+                          nbytes(*ops[:8], s1, *got), fwd_err)
+            record_kernel(res, "attn train", bname, case, bwd, bwd_plain, None, bwd_flops,
+                          nbytes(*attn, s1, want[1], want[2], dout, *bgrads), bwd_err,
+                          f", largest error {worst:.3g} of its tensor's max |g|, two runs "
+                          "bit-identical")
+
+            # the recompute pair (#1 and #6) on the same inputs, timed beside
+            def rec_fwd():
+                with torch.no_grad():
+                    return fb.fused_attn_block(*ops[:8], s1, nh, hd, ws, 1e-5, shift=shift)
+
+            def rec_bwd():
+                return fb.fused_attn_block_backward(*ops[:8], s1, dout, *meta)
+
+            f_ms, b_ms = res[fname]["ms"], res[bname]["ms"]
+            rf_ms, rb_ms = time_ms(rec_fwd, iters=10, warmup=2), time_ms(rec_bwd, iters=10,
+                                                                         warmup=2)
+            say(f"[attn train] {case}: saved-P pair #9 {f_ms:.4f} + #10 {b_ms:.4f} = "
+                f"{f_ms + b_ms:.4f} ms; recompute pair #1 {rf_ms:.4f} + #6 {rb_ms:.4f} = "
+                f"{rf_ms + rb_ms:.4f} ms; P {got[1].numel() * 4 / 1e6:.1f} MB")
+
+            # the whole block: saved-P against recompute (and #4/#5 at 8x8)
+            others = {"#1/#6": fb.fused_attn_block}
+            if ws == WS:
+                others["#4/#5"] = None
+            for other, fn in others.items():
+                o_out, o_grads = swin_block_loss(fn, ops, s1, s2, meta)
+                worst = 0.0
+                for name, a, b_ in zip(block_names, (out, *grads), (o_out, *o_grads)):
+                    e, top = (a - b_).abs().max().item(), b_.abs().max().item()
+                    worst = max(worst, e / top)
+                    if not e <= GRAD_TOL * top:
+                        fail(f"[attn train] {case}: the block through #9/#10 and through {other} "
+                             f"differ in {name} by {e:.3g} (max {top:.3g})")
+                say(f"[attn train] {case}: the block through #9/#10 against {other}: out and 14 "
+                    f"gradients within {worst:.3g} of each tensor's max")
+            peaks, times = {}, {}
+            for other, fn in {"#9/#10": fb.fused_attn_block_train, **others}.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                swin_block_loss(fn, ops, s1, s2, meta)
+                torch.cuda.synchronize()
+                peaks[other] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                times[other] = time_ms(lambda fn=fn: swin_block_loss(fn, ops, s1, s2, meta),
+                                       iters=5, warmup=1)
+            say(f"[attn train] {case}: the block forward and backward through "
+                + ", ".join(f"{k} {times[k]:.4f} ms (peak {peaks[k]:.1f} MiB above the inputs)"
+                            for k in times))
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -2128,6 +2332,9 @@ def main() -> None:
           "SRFormerV2", "srformerv2 train branches", srf_step, SRF_LQ, "plain")
     timed("srformerv2 train profile", phase_train_profile, seed, "srformerv2",
           "srformerv2 train profile", "profile_srformerv2_train.txt", SRF_LQ, S2_LOSSES)
+    attn_train, attn_train_counts = timed("attn train", phase_attn_train)
+    kernels.update(attn_train)
+    launches.update(attn_train_counts)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

@@ -17,6 +17,8 @@ within 1e-4 of each tensor's largest magnitude. DiffJPEG's block transform
 spatial values in [-128, 127], blocks near a rounding tie left out.
 SRFormerV2's Swin blocks (C=240, 8 heads of 30, 12x12 windows, hidden 480)
 at batch 2 and a 48x72 map: #1 on its staged kernels, #6, and #2/#7.
+The training form of the attention half (#9 and its saved-P backward #10)
+at both: 8x8 windows at SwinIR-M's widths, 12x12 at SRFormerV2's.
 """
 
 import numpy as np
@@ -138,6 +140,7 @@ def test_shared_memory_plans_match_the_sources(cuda):
     lib_fb = cuda_build.library("fused_block")
     lib_tr = cuda_build.library("fused_block_train")
     lib_wa = cuda_build.library("window_attention")
+    lib_st = cuda_build.library("attn_block_staged")
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
         assert lib_fb.trr_attn_block_smem_bytes(c, nh) == fb.attn_block_smem_bytes(c, nh)
         assert lib_fb.trr_ln_mlp_smem_bytes(c, hidden) == fb.ln_mlp_smem_bytes(c, hidden)
@@ -149,6 +152,9 @@ def test_shared_memory_plans_match_the_sources(cuda):
         assert lib_tr.trr_bwd_tokens_smem_bytes(c, hidden) == fb.bwd_tokens_smem_bytes(c, hidden)
         assert lib_tr.trr_bwd_attn_smem_bytes(c, nh) == fb.bwd_attn_smem_bytes(c, nh)
         assert lib_tr.trr_bwd_ln1_smem_bytes(c) == fb.bwd_ln1_smem_bytes(c)
+        for ws in (8, 12):  # the saved-P backward (#10)
+            assert lib_st.trr_attn_train_bwd_smem_bytes(c, nh, ws) == (
+                fb.attn_train_bwd_smem_bytes(c, nh, ws))
 
 
 TRAIN_NAMES = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",
@@ -760,3 +766,44 @@ def test_staged_shared_memory_plans_match_the_sources(cuda):
                 fb.attn_staged_bwd_smem_bytes(c, nh, ws))
         assert lib_tr.trr_bwd_tokens_split_smem_bytes(c, hidden) == (
             fb.bwd_tokens_split_smem_bytes(c, hidden))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("ws", "kinds", "shift"), [(8, 1, 0), (8, 4, WS // 2), (12, 1, 0),
+                                                    (12, 4, SWS // 2)])
+def test_fused_attn_block_train_kernels(cuda, ws, kinds, shift):
+    """#9 (z, P, att) and #10 (dx and the 7 parameter gradients, from the
+    same P and att) against their plain versions, #10 bit-identical over two
+    runs; the serving form (#1, P not stored) gives #9's z bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    if ws == WS:
+        p, nh = _inputs(cuda, kinds), NH
+    else:
+        p, nh = _ws12_inputs(cuda, kinds), SNH
+    args = [p[k] for k in ATTN_NAMES] + [p["s"]]
+    meta = (nh, p["x"].shape[-1] // nh, ws, 1e-5, shift)
+    n0 = fb.fused_attn_block_train.launches
+    got = fb._attn_block_train_fwd_cuda(*args, *meta)
+    with torch.no_grad():
+        z = fb.fused_attn_block(*args, *meta[:4], shift=shift)
+    torch.cuda.synchronize()
+    assert fb.fused_attn_block_train.launches == n0 + 1
+    want = fb.fused_attn_block_train_reference(*args, *meta)
+    for name, g, w in zip(("z", "P", "att"), got, want):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL, name
+    assert torch.equal(z, got[0])
+    dout = torch.randn(z.shape, generator=torch.Generator().manual_seed(11)).to(cuda)
+    saved = (*args[:7], p["s"], want[1], want[2], dout, kinds, *meta)
+    n0 = fb.fused_attn_block_train_backward.launches
+    grads = fb.fused_attn_block_train_backward(*saved)
+    again = fb.fused_attn_block_train_backward(*saved)
+    torch.cuda.synchronize()
+    assert fb.fused_attn_block_train_backward.launches == n0 + 2
+    plain = fb.fused_attn_block_train_bwd_reference(*saved)
+    for name, g, w, g2 in zip(("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias"), grads,
+                              plain, again):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
+        assert torch.equal(g, g2), name

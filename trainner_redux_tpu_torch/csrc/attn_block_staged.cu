@@ -1,5 +1,6 @@
-// The pre-LN Swin attention half at windows too large for one thread block,
-// forward and recompute backward, fp32, for sm_90a.
+// The pre-LN Swin attention half through stages in device memory, fp32, for
+// sm_90a: its forward at windows too large for one thread block, its
+// recompute backward, and its training form that saves P and att.
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // trainner_redux_tpu/ops/pallas/fused_block.py:
@@ -7,42 +8,54 @@
 //       windows: z = x + s[b] * proj(window-MHSA(qkv(LN1 x)) + bias kind);
 //   its backward (_attn_bwd, _attn_block_bwd_kernel, pallas_call at :729):
 //       dx and the gradients of LN1, qkv, proj and the bias-kind table,
-//       recomputing LN1, qkv and the softmax from x (nothing is saved).
+//       recomputing LN1, qkv and the softmax from x (nothing is saved);
+//   fused_attn_block_train (_attn_block_fwd_train_kernel, pallas_call at
+//       :977): the same z, and the softmax P of every window and head and
+//       the attention output att, saved for its backward;
+//   its saved-P backward (_attn_train_bwd, _attn_block_bwd_saved_kernel,
+//       pallas_call at :1036): the same gradients from the saved P and att,
+//       recomputing LN1 and qkv only, with no bias table.
 //
 // What bounds them on the card: fp32 arithmetic. At SRFormerV2's training
 // block (B 8, 72x72, C 240, 8 heads of 30, n 144: 41,472 tokens) the forward
 // does some 25 GFLOP and the backward some 70 against a few hundred MB of
-// activations. The 8x8 kernel of block_fwd.cuh keeps a whole window's (C, n)
+// activations (the saved P adds 191 MB, and 64 GFLOP remain for the saved-P
+// backward). The 8x8 kernel of block_fwd.cuh keeps a whole window's (C, n)
 // tiles in one block; at n 144 and C 240 two such tiles alone take 284 KB,
 // more than a block's 227 KB. So the half runs in stages, each with a
 // working set that fits, its intermediates in device memory (L2-resident at
 // these sizes):
 //   1. ln_qkv_kernel, per 64 tokens: y = LN1(x) and qkv = y wq + bq to a
-//      (T, 3C) buffer; for the backward also y and LN1's mean and 1/std, and
-//      dzp = s dout and datt = dzp wp^T.
+//      (T, 3C) buffer; for the backwards also y and LN1's mean and 1/std,
+//      and dzp = s dout and datt = dzp wp^T.
 //   2. attn_rows_fwd_kernel<N, RB> (forward), per (window, head): q, k, v of
 //      the window's N tokens staged once, the queries in blocks of RB rows
 //      (48 at n 144: the (48, 148) score tile is 28 KB), the row softmax in
-//      registers, P v to an attention-output buffer (T, C).
-//      attn_rows_bwd_kernel<N, RB> (backward), per (window, head): P of each
-//      row block recomputed, then att = P v (for dwp), dV += P^T dA,
-//      dP = dA v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k and
+//      registers, P v to an attention-output buffer (T, C); the training
+//      form also stores each row block's P.
+//      attn_rows_bwd_kernel<N, RB> (recompute backward), per (window, head):
+//      P of each row block recomputed, then att = P v (for dwp), dV += P^T
+//      dA, dP = dA v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k and
 //      dK += scale dS^T q; dK and dV stay in registers across the row blocks.
+//      attn_rows_bwd_saved_kernel<N, RB> (saved-P backward): the same, with
+//      each row block's P read from the forward's and no S, softmax or P v.
 //      dS of each (window, head) goes to a buffer that dbias_kernel
 //      (common.cuh) sums per kind in window order.
 //   3. proj_residual_kernel (forward), per 64 tokens: z = x + s (att wp + bp).
-//      ln1_bwd_kernel (backward), per 64 tokens: dy = dqkv wq^T in three
+//      ln1_bwd_kernel (backwards), per 64 tokens: dy = dqkv wq^T in three
 //      K-chunks of C (a (3C, 64) tile would not fit), then the LN1 backward
 //      dx = dout + LN1'(dy) and the dg / dbe partial sums per block.
 //   4. (the wrapper) the weight gradients dwq, dwp and their biases with
 //      fused_block_train.cu's split-K weight_grad_kernel and sum_rows_kernel.
+// At 8x8 windows the training forward is block_fwd.cuh's one-window kernel
+// writing P and att; both backwards take 8x8 windows as well (rows of 64).
 // No atomics: two runs give the same gradients bit for bit. Every product
 // runs on the fp32 FMA units; the tensor cores are later work. The windows
 // are those of x rolled by (-shift, -shift); the kernels index them, so the
 // caller rolls nothing.
 #include <algorithm>
 
-#include "common.cuh"
+#include "block_fwd.cuh"
 
 namespace trr {
 
@@ -82,6 +95,11 @@ __host__ __device__ inline int attn_rows_fwd_smem_floats(int N, int RB, int hd) 
 // dA (hd, RB) transposed and (RB, 32) row-major, the P / dS rows (RB, N + 4)
 __host__ __device__ inline int attn_rows_bwd_smem_floats(int N, int RB, int hd) {
   return 2 * hd * N + 2 * N * kVLd + 2 * hd * RB + 2 * RB * kVLd + RB * (N + 4);
+}
+// the saved-P backward: v (hd, N) transposed and k (N, 32), this row block's
+// dA (hd, RB) transposed and q and dA (RB, 32), the P / dS rows (RB, N + 4)
+__host__ __device__ inline int attn_rows_bwd_saved_smem_floats(int N, int RB, int hd) {
+  return hd * N + N * kVLd + hd * RB + 2 * RB * kVLd + RB * (N + 4);
 }
 
 // One block per 64 consecutive tokens of the B*H*W. qkv (T, 3C) = LN1(x) wq
@@ -237,12 +255,14 @@ __device__ __forceinline__ void cols_times_rows(const float* A, int lda, const f
 }
 
 // One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
-// of RB. att (T, C) gets this head's channels of P v in x's frame.
+// of RB. att (T, C) gets this head's channels of P v in x's frame; when Pout
+// is not null, P (B, H/ws, W/ws, nh, N, N) gets the softmax in the rolled
+// frame.
 template <int N, int RB>
 __global__ void __launch_bounds__(kThreads, 2)
     attn_rows_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                         float* __restrict__ att, int H, int W, int C, int nh, int ws,
-                         int kinds, int shift, float scale) {
+                         float* __restrict__ att, float* __restrict__ Pout, int H, int W, int C,
+                         int nh, int ws, int kinds, int shift, float scale) {
   constexpr int RPT = RB / kLanes, kLd = N + 4;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
@@ -256,6 +276,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
   const int kind = window_kind(kinds, wi, wj, nwh, nww);
   const float* table = bias + ((size_t)kind * nh + h) * N * N;
+  float* Pg = Pout == nullptr
+                  ? nullptr
+                  : Pout + (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
 
   for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
     const int r = e / kVLd, d = e % kVLd;
@@ -274,6 +297,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < N / kLanes; ++j) P[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
+    if (Pg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < N / kLanes; ++j)
+          Pg[(size_t)(r0 + rg * RPT + i) * N + cl + kLanes * j] = p[i][j];
+    }
     __syncthreads();
     float acc[RPT][2];
     rows_times_v<N, RB>(P, kLd, v, acc);
@@ -466,6 +496,131 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
+// of RB. From qkv (T, 3C), the forward's softmax P (B, H/ws, W/ws, nh, N, N)
+// and datt (T, C): writes this head's dq | dk | dv into dqkv (T, 3C) and dS
+// into a buffer shaped as P. Where attn_rows_bwd_kernel rebuilds S, the
+// softmax and P v, this one reads P's row block: 4 products per row block,
+// not 6, and no bias table.
+template <int N, int RB>
+__global__ void __launch_bounds__(kThreads, 2)
+    attn_rows_bwd_saved_kernel(const float* __restrict__ qkv, const float* __restrict__ P,
+                               const float* __restrict__ datt, float* __restrict__ dqkv,
+                               float* __restrict__ dS, int H, int W, int C, int nh, int ws,
+                               int shift, float scale) {
+  constexpr int RPT = RB / kLanes, CPL = N / kLanes, kLd = N + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / ws, nwh = H / ws;
+  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
+  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
+  float* vT = smem;              // (hd, N)
+  float* k = vT + hd * N;        // (N, 32)
+  float* dAT = k + N * kVLd;     // (hd, RB) this row block's datt
+  float* q = dAT + hd * RB;      // (RB, 32)
+  float* dA = q + RB * kVLd;     // (RB, 32)
+  float* T = dA + RB * kVLd;     // (RB, N + 4): P, then dS
+  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
+  const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
+
+  for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
+    const int r = e / kVLd, d = e % kVLd;
+    const float* src = qkv + token(r) * C3 + C + h * hd + d;
+    k[e] = d < hd ? __ldg(src) : 0.f;
+    if (d < hd) vT[d * N + r] = __ldg(src + C);
+  }
+  float dk[CPL][2], dv[CPL][2];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) dk[i][0] = dk[i][1] = dv[i][0] = dv[i][1] = 0.f;
+
+  for (int r0 = 0; r0 < N; r0 += RB) {
+    for (int e = threadIdx.x; e < RB * kVLd; e += kThreads) {
+      const int r = e / kVLd, d = e % kVLd;
+      const long long t = token(r0 + r);
+      const float qv = d < hd ? __ldg(qkv + t * C3 + h * hd + d) : 0.f;
+      const float av = d < hd ? __ldg(datt + t * C + h * hd + d) : 0.f;
+      q[e] = qv;
+      dA[e] = av;
+      if (d < hd) dAT[d * RB + r] = av;
+    }
+    const float* prow = P + head + (size_t)r0 * N;
+    for (int e = threadIdx.x; e < RB * N; e += kThreads) T[(e / N) * kLd + e % N] = __ldg(prow + e);
+    __syncthreads();  // q, dA and P (and, the first time, k and v) staged
+    float p[RPT][CPL];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) p[i][j] = T[(rg * RPT + i) * kLd + cl + kLanes * j];
+    cols_times_rows<N, RB>(T, kLd, dA, dv);  // dV += P^T dA
+    {
+      // dP = dA v^T at this thread's places of P, then dS = P (dP - rowsum(P dP))
+      float dp[RPT][CPL];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) dp[i][j] = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        float a[RPT], bb[CPL];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = dAT[d * RB + rg * RPT + i];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) bb[j] = vT[d * N + cl + kLanes * j];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) dp[i][j] = fmaf(a[i], bb[j], dp[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        float delta = 0.f;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) delta = fmaf(p[i][j], dp[i][j], delta);
+        delta = half_sum(delta);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) p[i][j] *= dp[i][j] - delta;  // now dS
+      }
+    }
+    __syncthreads();  // every thread is done reading P
+    float* grow = dS + head + (size_t)r0 * N;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int idx = (rg * RPT + i) * N + cl + kLanes * j;
+        T[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
+        grow[idx] = p[i][j];
+      }
+    __syncthreads();
+    {  // dQ = scale dS k
+      float acc[RPT][2];
+      rows_times_v<N, RB>(T, kLd, k, acc);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = cl * 2 + e;
+        if (d < hd) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            dqkv[token(r0 + rg * RPT + i) * C3 + h * hd + d] = scale * acc[i][e];
+        }
+      }
+    }
+    cols_times_rows<N, RB>(T, kLd, q, dk);  // dK += dS^T q (scaled once, at the end)
+    __syncthreads();  // q, dA and the tile are rewritten by the next row block
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int d = cl * 2 + e;
+    if (d < hd) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const long long t = token(rg + kLanes * i);
+        dqkv[t * C3 + C + h * hd + d] = scale * dk[i][e];
+        dqkv[t * C3 + 2 * C + h * hd + d] = dv[i][e];
+      }
+    }
+  }
+}
+
 // One block per 64 consecutive tokens: dy = dqkv wq^T (wqt is wq's transpose,
 // (3C, C)) in three K-chunks of C, then the LN1 backward dx = dout +
 // LN1'(dy) with the saved stats; per block the partial sums of dg (first C)
@@ -514,15 +669,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 inline int rows_block(int n) { return n == 144 ? 48 : n == 64 ? 64 : 0; }
 
 template <int N, int RB>
-cudaError_t attn_rows_fwd(const float* qkv, const float* bias, float* att, int B, int H, int W,
-                          int C, int nh, int ws, int kinds, int shift, float scale,
+cudaError_t attn_rows_fwd(const float* qkv, const float* bias, float* att, float* P, int B,
+                          int H, int W, int C, int nh, int ws, int kinds, int shift, float scale,
                           cudaStream_t stream) {
   const int floats = attn_rows_fwd_smem_floats(N, RB, C / nh);
   const cudaError_t err = set_smem(attn_rows_fwd_kernel<N, RB>, floats);
   if (err != cudaSuccess) return err;
   const dim3 grid((H / ws) * (W / ws), B, nh);
   attn_rows_fwd_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
-      qkv, bias, att, H, W, C, nh, ws, kinds, shift, scale);
+      qkv, bias, att, P, H, W, C, nh, ws, kinds, shift, scale);
   return cudaGetLastError();
 }
 
@@ -536,6 +691,19 @@ cudaError_t attn_rows_bwd(const float* qkv, const float* bias, const float* datt
   const dim3 grid((H / ws) * (W / ws), B, nh);
   attn_rows_bwd_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
       qkv, bias, datt, dqkv, att, dS, H, W, C, nh, ws, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+template <int N, int RB>
+cudaError_t attn_rows_bwd_saved(const float* qkv, const float* P, const float* datt, float* dqkv,
+                                float* dS, int B, int H, int W, int C, int nh, int ws, int shift,
+                                float scale, cudaStream_t stream) {
+  const int floats = attn_rows_bwd_saved_smem_floats(N, RB, C / nh);
+  const cudaError_t err = set_smem(attn_rows_bwd_saved_kernel<N, RB>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H / ws) * (W / ws), B, nh);
+  attn_rows_bwd_saved_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
+      qkv, P, datt, dqkv, dS, H, W, C, nh, ws, shift, scale);
   return cudaGetLastError();
 }
 
@@ -553,11 +721,55 @@ inline cudaError_t launch_ln_qkv(const float* x, const float* g, const float* be
   return cudaGetLastError();
 }
 
+// The staged forward at 12x12 windows: LN + qkv, the attention (P stored
+// when not null), proj + residual.
+inline cudaError_t staged_fwd(const float* x, const float* g, const float* be, const float* wq,
+                              const float* bq, const float* wp, const float* bp,
+                              const float* bias, const float* s, float* qkv, float* att,
+                              float* P, float* z, int B, int H, int W, int C, int nh, int ws,
+                              int kinds, int shift, float eps, float scale,
+                              cudaStream_t stream) {
+  if (ws != 12) return cudaErrorInvalidValue;
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  cudaError_t err = launch_ln_qkv(x, g, be, wq, bq, qkv, nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, nullptr, tokens, hw, C, eps, stream);
+  if (err != cudaSuccess) return err;
+  err = attn_rows_fwd<144, 48>(qkv, bias, att, P, B, H, W, C, nh, ws, kinds, shift, scale,
+                               stream);
+  if (err != cudaSuccess) return err;
+  const int floats = proj_residual_smem_floats(C);
+  err = set_smem(proj_residual_kernel, floats);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
+  proj_residual_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(att, wp, bp, x, s,
+                                                                             z, tokens, hw, C);
+  return cudaGetLastError();
+}
+
+// The backwards' last stages: dx and the LN1 partial sums from dqkv, then
+// dbias from the per-window dS.
+inline cudaError_t ln1_bwd_and_dbias(const float* dqkv, const float* wqt, const float* x,
+                                     const float* stats, const float* g, const float* dout,
+                                     float* dx, float* ln_part, const float* dS, float* dbias,
+                                     int B, int H, int W, int C, int nh, int ws, int kinds,
+                                     cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W;
+  const int floats = ln1_bwd_smem_floats(C);
+  cudaError_t err = set_smem(ln1_bwd_kernel, floats);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
+  ln1_bwd_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(
+      dqkv, wqt, x, stats, g, dout, dx, ln_part, tokens, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dbias(dS, B, H / ws, W / ws, nh, kinds, ws * ws * ws * ws, dbias, stream);
+}
+
 }  // namespace trr
 
 extern "C" {
 
-// The largest shared memory of the forward's and of the backward's stages
+// The largest shared memory of the forward's and of each backward's stages
 // at windows of ws x ws (12: rows of 48; 8: rows of 64), or 0 for another ws.
 size_t trr_attn_staged_fwd_smem_bytes(int C, int nh, int ws) {
   const int n = ws * ws, rb = trr::rows_block(n);
@@ -575,6 +787,14 @@ size_t trr_attn_staged_bwd_smem_bytes(int C, int nh, int ws) {
   return (size_t)floats * sizeof(float);
 }
 
+size_t trr_attn_train_bwd_smem_bytes(int C, int nh, int ws) {
+  const int n = ws * ws, rb = trr::rows_block(n);
+  if (rb == 0) return 0;
+  const int floats = std::max({trr::ln_qkv_smem_floats(C), trr::ln1_bwd_smem_floats(C),
+                               trr::attn_rows_bwd_saved_smem_floats(n, rb, C / nh)});
+  return (size_t)floats * sizeof(float);
+}
+
 // The forward at 12x12 windows: x, z (B, H, W, C); wq (C, 3C), bq (3C), wp
 // (C, C), bp (C), g/be (C), bias (kinds, nh, 144, 144), s (B); scratch qkv
 // (B*H*W, 3C) and att (B*H*W, C). H and W are multiples of 12; C / nh <= 32.
@@ -585,21 +805,25 @@ int trr_attn_block_staged_fwd(const float* x, const float* g, const float* be, c
                               const float* bias, const float* s, float* qkv, float* att,
                               float* z, int B, int H, int W, int C, int nh, int ws, int kinds,
                               int shift, float eps, float scale, cudaStream_t stream) {
-  if (ws != 12) return (int)cudaErrorInvalidValue;
-  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
-  cudaError_t err = trr::launch_ln_qkv(x, g, be, wq, bq, qkv, nullptr, nullptr, nullptr, nullptr,
-                                       nullptr, nullptr, nullptr, tokens, hw, C, eps, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = trr::attn_rows_fwd<144, 48>(qkv, bias, att, B, H, W, C, nh, ws, kinds, shift, scale,
-                                     stream);
-  if (err != cudaSuccess) return (int)err;
-  const int floats = trr::proj_residual_smem_floats(C);
-  err = trr::set_smem(trr::proj_residual_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
-  trr::proj_residual_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      att, wp, bp, x, s, z, tokens, hw, C);
-  return (int)cudaGetLastError();
+  return (int)trr::staged_fwd(x, g, be, wq, bq, wp, bp, bias, s, qkv, att, nullptr, z, B, H, W,
+                              C, nh, ws, kinds, shift, eps, scale, stream);
+}
+
+// The training forward at ws x ws windows (8: one thread block a window,
+// block_fwd.cuh; 12: the staged kernels through the scratch qkv (B*H*W,
+// 3C), null at 8): z as trr_attn_block_staged_fwd, and for the backward P
+// (B, H/ws, W/ws, nh, n, n), the softmax of each window and head in the
+// rolled frame, and att (B, H, W, C), the attention output in x's frame.
+int trr_attn_block_train_fwd(const float* x, const float* g, const float* be, const float* wq,
+                             const float* bq, const float* wp, const float* bp,
+                             const float* bias, const float* s, float* qkv, float* P,
+                             float* att, float* z, int B, int H, int W, int C, int nh, int ws,
+                             int kinds, int shift, float eps, float scale, cudaStream_t stream) {
+  if (ws == 8)
+    return (int)trr::launch_attn_block_fwd(x, g, be, wq, bq, wp, bp, bias, s, z, P, att, B, H,
+                                           W, C, nh, kinds, shift, eps, scale, stream);
+  return (int)trr::staged_fwd(x, g, be, wq, bq, wp, bp, bias, s, qkv, att, P, z, B, H, W, C, nh,
+                              ws, kinds, shift, eps, scale, stream);
 }
 
 // The recompute backward at ws x ws windows (12 or 8), from x, the forward's
@@ -627,15 +851,34 @@ int trr_attn_block_staged_bwd(const float* x, const float* g, const float* be, c
                  : trr::attn_rows_bwd<64, 64>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
                                               ws, kinds, shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
-  const int floats = trr::ln1_bwd_smem_floats(C);
-  err = trr::set_smem(trr::ln1_bwd_kernel, floats);
+  return (int)trr::ln1_bwd_and_dbias(dqkv, wqt, x, stats, g, dout, dx, ln_part, dS, dbias, B, H,
+                                     W, C, nh, ws, kinds, stream);
+}
+
+// The saved-P backward at ws x ws windows (12 or 8): as
+// trr_attn_block_staged_bwd, but from the forward's P (B, H/ws, W/ws, nh, n,
+// n) in place of the bias table, and with no att output: the wrapper takes
+// dwp from the forward's saved att.
+int trr_attn_block_train_bwd(const float* x, const float* g, const float* be, const float* wq,
+                             const float* bq, const float* wpt, const float* wqt,
+                             const float* s, const float* P, const float* dout, float* qkv,
+                             float* y, float* stats, float* dzp, float* datt, float* dqkv,
+                             float* dS, float* dx, float* ln_part, float* dbias, int B, int H,
+                             int W, int C, int nh, int ws, int kinds, int shift, float eps,
+                             float scale, cudaStream_t stream) {
+  const int n = ws * ws;
+  if (trr::rows_block(n) == 0) return (int)cudaErrorInvalidValue;
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  cudaError_t err = trr::launch_ln_qkv(x, g, be, wq, bq, qkv, y, stats, dout, s, wpt, dzp, datt,
+                                       tokens, hw, C, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
-  trr::ln1_bwd_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      dqkv, wqt, x, stats, g, dout, dx, ln_part, tokens, C);
-  err = cudaGetLastError();
+  err = n == 144 ? trr::attn_rows_bwd_saved<144, 48>(qkv, P, datt, dqkv, dS, B, H, W, C, nh, ws,
+                                                     shift, scale, stream)
+                 : trr::attn_rows_bwd_saved<64, 64>(qkv, P, datt, dqkv, dS, B, H, W, C, nh, ws,
+                                                    shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)trr::launch_dbias(dS, B, H / ws, W / ws, nh, kinds, n * n, dbias, stream);
+  return (int)trr::ln1_bwd_and_dbias(dqkv, wqt, x, stats, g, dout, dx, ln_part, dS, dbias, B, H,
+                                     W, C, nh, ws, kinds, stream);
 }
 
 }  // extern "C"

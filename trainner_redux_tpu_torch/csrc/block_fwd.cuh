@@ -1,6 +1,7 @@
 // The forward kernels of the fused pre-LN Swin block halves, fp32, shared by
-// the serving library (fused_block.cu) and the training library
-// (fused_block_train.cu).
+// the serving library (fused_block.cu), the training library
+// (fused_block_train.cu) and the attention half's training form
+// (attn_block_staged.cu).
 //
 //   attn_block_fwd_kernel: z = x + s[b] * proj(window-MHSA(qkv(LN1 x)) + bias kind)
 //                          and, for training, the softmax P of every window

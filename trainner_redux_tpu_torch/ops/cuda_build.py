@@ -49,6 +49,9 @@ SIGNATURES = {
         "trr_attn_block_staged_bwd": ([_P] * 21 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_staged_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_attn_staged_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "trr_attn_block_train_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_train_bwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_train_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
     "fused_block": {
         "trr_attn_block_fwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _P], _I),

@@ -5,10 +5,13 @@ Port of the JAX package's ops/pallas/fused_block.py:
 
   fused_attn_block : z   = x + s[b] * proj(window-MHSA(qkv(LN1(x))))
   fused_ln_mlp     : out = x + s[b] * fc2(gelu_erf(fc1(LN2(x))))
+  fused_attn_block_train : the same z, a torch.autograd.Function whose
+      forward (TPU kernel #9) saves the softmax P and the attention output,
+      and whose backward (#10, `fused_attn_block_train_backward`) computes
+      every gradient from them (the saved-P backward);
   fused_swin_block_train : out = fused_ln_mlp(fused_attn_block(x)) with s1
       and s2, a torch.autograd.Function whose forward saves P, the attention
-      output and z, and whose backward computes every gradient from them
-      (the saved-P backward).
+      output and z, and whose backward computes every gradient from them.
 
 `fused_attn_block` and `fused_ln_mlp` are torch.autograd.Functions whose
 backwards recompute from x: #1's (TPU kernel #6,
@@ -21,10 +24,10 @@ multiples of window_size, weights are (in, out), the bias table is
 (K, nh, n, n). Heads of at most 32 channels, in fp32. The attention half
 takes 8x8 windows (n = 64: one thread block a window) and 12x12 (n = 144,
 SRFormerV2's: the staged kernels of `csrc/attn_block_staged.cu`); its
-backward takes both, the whole training block (#4/#5) 8x8 only. The cyclic
-shift of a shifted block is either done by the caller (roll x, unroll z;
-the JAX package's contract) or, with `fused_attn_block(..., shift=s)`, by
-the kernel's indexing. The MLP half is per-token and needs no roll.
+backwards and its training form take both, the whole training block (#4/#5)
+8x8 only. The cyclic shift of a shifted block is either done by the caller
+(roll x, unroll z; the JAX package's contract) or, with `shift=s`, by the
+kernels' indexing. The MLP half is per-token and needs no roll.
 
 For a CUDA tensor each wrapper launches its kernel in
 `csrc/fused_block.cu`, `csrc/attn_block_staged.cu` or
@@ -36,6 +39,7 @@ is their own (HAT's HAB and OCAB).
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -88,6 +92,15 @@ def attn_staged_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) 
                    2 * hd * n + 2 * n * V_LD + 2 * hd * rb + 2 * rb * V_LD + rb * (n + 4))
 
 
+def attn_train_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
+    """The largest shared memory of the saved-P backward's kernels (#10): LN +
+    qkv and the LN1 backward per 64 tokens, the attention per (window, head)
+    with v and k once, q and dA of a row block twice, the P / dS rows."""
+    n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
+    return 4 * max(2 * channels * TILE_LD + STAGE_FLOATS + 128,
+                   hd * n + n * V_LD + hd * rb + 2 * rb * V_LD + rb * (n + 4))
+
+
 def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
     """The attention half's forward (#1): window-aligned dims, heads of at
     most 32 channels, 8x8 windows on the one-window kernel or 12x12 on the
@@ -107,6 +120,18 @@ def attn_block_bwd_fits(h, w, window_size, channels, num_heads) -> bool:
     """The attention half's recompute backward (#6) as well as its forward."""
     return (attn_block_fits(h, w, window_size, channels, num_heads)
             and attn_staged_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
+
+
+def attn_block_train_fits(h, w, window_size, channels, num_heads, batch=1) -> bool:
+    """The attention half's training form (#9 and #10): as the forward, 8x8
+    or 12x12 windows and heads of at most 32 channels, the saved-P
+    backward's plan within one thread block's shared memory, and P's
+    batch * H * W * heads * n entries within a 32-bit index."""
+    if not attn_block_fits(h, w, window_size, channels, num_heads):
+        return False
+    if batch * h * w * num_heads * window_size**2 >= 2**31:
+        return False
+    return attn_train_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT
 
 
 def ln_mlp_fits(h, window_size, channels, hidden) -> bool:
@@ -350,11 +375,15 @@ fused_ln_mlp.launches = 0
 
 
 def _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
-                         window_size, shift, fits):
+                         window_size, shift, fits, kinds=None):
+    """Shapes, limits and placement of the attention half's operands; the
+    saved-P backward passes no bias table but its `kinds`."""
     b, hh, ww, c = x.shape
-    n, kinds = window_size * window_size, bias.shape[0]
+    n = window_size * window_size
+    kinds = bias.shape[0] if bias is not None else kinds
     if c != num_heads * head_dim or kinds not in (1, 4):
-        raise ValueError(f"x {tuple(x.shape)} / bias {tuple(bias.shape)} do not match")
+        raise ValueError(f"{name}: x {tuple(x.shape)}, {num_heads} heads of {head_dim}, "
+                         f"{kinds} bias kinds do not match")
     if not 0 <= shift < min(hh, ww):
         raise ValueError(f"{name}: shift {shift} outside [0, {min(hh, ww)})")
     if not fits(hh, ww, window_size, c, num_heads):
@@ -369,7 +398,8 @@ def _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, hea
         ("wq", wq, (c, 3 * c)), ("bq", bq, (3 * c,)), ("wp", wp, (c, c)),
         ("bp", bp, (c,)), ("bias", bias, (kinds, num_heads, n, n)), ("s", s, (b,)),
     ):
-        _check_cuda(k, t, shape, x.device)
+        if t is not None:
+            _check_cuda(k, t, shape, x.device)
 
 
 def _attn_block_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
@@ -404,30 +434,21 @@ def _attn_block_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
 
 def fused_attn_block_bwd_reference(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads, head_dim,
                                    window_size, eps=1e-5, shift=0):
-    """The recompute backward's spec, step by step, in fp32: dx and the
-    gradients of g, be, wq, bq, wp, bp and the (K, nh, n, n) kind table (none
-    for s, as in the JAX package), LN, qkv and the softmax rebuilt from x."""
+    """The recompute backward's spec, in fp32: dx and the gradients of g, be,
+    wq, bq, wp, bp and the (K, nh, n, n) kind table (none for s, as in the
+    JAX package). P and att are rebuilt from x, then the saved-P backward's
+    spec (`fused_attn_block_train_bwd_reference`) takes them."""
     b, hh, ww, c = x.shape
-    ws, nwh, nww = window_size, hh // window_size, ww // window_size
-    t = _roll(x.float(), -shift).reshape(-1, c)
-    do = _roll(dout.float(), -shift).reshape(-1, c)
-    xn, inv = _ln_parts(t, eps)
-    y = xn * g + be
-    qkv = _to_windows((y @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
+    ws = window_size
+    xn, _ = _ln_parts(_roll(x.float(), -shift).reshape(-1, c), eps)
+    qkv = _to_windows(((xn * g + be) @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
     q, k, v = (_heads(u, num_heads) for u in qkv.chunk(3, dim=-1))
-    kind = window_kinds(nwh, nww, bias.shape[0], device=x.device)
-    table = bias.float()[kind].reshape(nwh, nww, *bias.shape[1:])
+    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=x.device)
+    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
     P = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1)
-    att = _from_windows(_merge_heads(P @ v), ws).reshape(-1, c)
-    dzp = do * s.float().repeat_interleave(hh * ww)[:, None]
-    dwp, dbp = att.T @ dzp, dzp.sum(0)
-    dqkv, dbias = _window_attn_backward(P, q, k, v, dzp @ wp.T, bias.shape[0], b, hh, ww,
-                                        num_heads, head_dim, ws)
-    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
-    dy = dqkv @ wq.T
-    dg, dbe = (dy * xn).sum(0), dy.sum(0)
-    dx = _roll((do + _ln_backward(dy, xn, inv, g)).reshape(b, hh, ww, c), shift)
-    return dx, dg, dbe, dwq, dbq, dwp, dbp, dbias
+    att = _roll(_from_windows(_merge_heads(P @ v), ws), shift)
+    return fused_attn_block_train_bwd_reference(x, g, be, wq, bq, wp, bp, s, P, att, dout,
+                                                bias.shape[0], num_heads, head_dim, ws, eps, shift)
 
 
 def fused_attn_block_backward(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads, head_dim,
@@ -513,6 +534,173 @@ def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, win
 
 
 fused_attn_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training form of the attention half: the forward saving P and the attention
+# output (TPU kernel #9) and the saved-P backward (TPU kernel #10), as one
+# torch.autograd.Function.
+# ---------------------------------------------------------------------------
+
+
+def fused_attn_block_train_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                                     window_size, eps=1e-5, shift=0):
+    """The training forward's spec, in fp32: (z, P, att).
+
+    z is `fused_attn_block_reference`'s; att (the attention output) is
+    (B, H, W, C) in x's frame; P (B, H/ws, W/ws, nh, n, n) is the row softmax
+    of every window and head of x rolled by (-shift, -shift), the JAX
+    kernel's P of an input the caller has rolled."""
+    b, hh, ww, c = x.shape
+    ws = window_size
+    xr = _roll(x.float(), -shift)
+    y = F.layer_norm(xr, (c,), g.float(), be.float(), eps)
+    qkv = _to_windows(y @ wq.float() + bq.float(), ws)
+    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=bias.device)
+    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
+    p = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1)
+    att = _from_windows(_merge_heads(p @ v), ws)
+    z = xr + s.float()[:, None, None, None] * (att @ wp.float() + bp.float())
+    return _roll(z, shift).to(x.dtype), p, _roll(att, shift)
+
+
+def fused_attn_block_train_bwd_reference(x, g, be, wq, bq, wp, bp, s, P, att, dout, kinds,
+                                         num_heads, head_dim, window_size, eps=1e-5, shift=0):
+    """The saved-P backward's spec, step by step, in fp32: dx and the
+    gradients of g, be, wq, bq, wp, bp and the (K, nh, n, n) kind table (none
+    for s, as in the JAX package), from the forward's P and att. LN1 and qkv
+    are rebuilt from x; no bias table is read."""
+    b, hh, ww, c = x.shape
+    ws = window_size
+
+    def rows(t):
+        return _roll(t.float(), -shift).reshape(b * hh * ww, -1)
+
+    t, att, do = rows(x), rows(att), rows(dout)
+    xn, inv = _ln_parts(t, eps)
+    y = xn * g + be
+    qkv = _to_windows((y @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
+    q, k, v = (_heads(u, num_heads) for u in qkv.chunk(3, dim=-1))
+    dzp = do * _row_scale(s, b, hh * ww)
+    dwp, dbp = att.T @ dzp, dzp.sum(0)
+    dqkv, dbias = _window_attn_backward(P.float(), q, k, v, dzp @ wp.T, kinds, b, hh, ww,
+                                        num_heads, head_dim, ws)
+    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
+    dy = dqkv @ wq.T
+    dg, dbe = (dy * xn).sum(0), dy.sum(0)
+    dx = _roll((do + _ln_backward(dy, xn, inv, g)).reshape(b, hh, ww, c), shift)
+    return dx.to(x.dtype), dg, dbe, dwq, dbq, dwp, dbp, dbias
+
+
+def _attn_block_train_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                               window_size, eps, shift):
+    b, hh, ww, c = x.shape
+    _check_attn_operands("fused_attn_block_train", x, g, be, wq, bq, wp, bp, bias, s, num_heads,
+                         head_dim, window_size, shift,
+                         functools.partial(attn_block_train_fits, batch=b))
+    ws, n = window_size, window_size**2
+    z, att = torch.empty_like(x), torch.empty_like(x)
+    P = torch.empty((b, hh // ws, ww // ws, num_heads, n, n), device=x.device,
+                    dtype=torch.float32)
+    if z.numel() == 0:
+        return z, P, att
+    # the staged kernels (12x12) pass q, k, v through (T, 3C) scratch
+    qkv = None if ws == WINDOW else torch.empty((b * hh * ww, 3 * c), device=x.device,
+                                                dtype=torch.float32)
+    fused_attn_block_train.launches += 1
+    _launch(
+        "attn_block_staged", "trr_attn_block_train_fwd", x.device,
+        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
+        bp.data_ptr(), bias.data_ptr(), s.data_ptr(), None if qkv is None else qkv.data_ptr(),
+        P.data_ptr(), att.data_ptr(), z.data_ptr(), b, hh, ww, c, num_heads, ws, bias.shape[0],
+        shift, eps, head_dim**-0.5,
+    )
+    return z, P, att
+
+
+def fused_attn_block_train_backward(x, g, be, wq, bq, wp, bp, s, P, att, dout, kinds, num_heads,
+                                    head_dim, window_size, eps=1e-5, shift=0):
+    """The attention half's saved-P backward (TPU kernel #10): dx, dg, dbe,
+    dwq, dbq, dwp, dbp, dbias, as `fused_attn_block_train_bwd_reference`
+    returns them. On a CUDA tensor it launches the staged kernels of
+    `csrc/attn_block_staged.cu` and the weight-gradient kernels of
+    `csrc/fused_block_train.cu` (one counted call); on a CPU tensor it runs
+    the plain version."""
+    if x.device.type == "cpu":
+        return fused_attn_block_train_bwd_reference(x, g, be, wq, bq, wp, bp, s, P, att, dout,
+                                                    kinds, num_heads, head_dim, window_size, eps,
+                                                    shift)
+    name = "fused_attn_block_train_backward"
+    b, hh, ww, c = x.shape
+    ws, n, dev, T = window_size, window_size**2, x.device, b * hh * ww
+    _check_attn_operands(name, x, g, be, wq, bq, wp, bp, None, s, num_heads, head_dim, ws, shift,
+                         functools.partial(attn_block_train_fits, batch=b), kinds)
+    _check_cuda("att", att, tuple(x.shape), dev)
+    _check_cuda("dout", dout, tuple(x.shape), dev)
+    _check_cuda("P", P, (b, hh // ws, ww // ws, num_heads, n, n), dev)
+
+    def new(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    wpt, wqt = wp.t().contiguous(), wq.t().contiguous()
+    qkv, dqkv = new(T, 3 * c), new(T, 3 * c)
+    y, dzp, datt, stats = new(T, c), new(T, c), new(T, c), new(T, 2)
+    ds, dx = torch.empty_like(P), torch.empty_like(x)
+    ln_part, dbias = new(math.ceil(T / 64), 2 * c), new(kinds, num_heads, n, n)
+    fused_attn_block_train_backward.launches += 1
+    _launch(
+        "attn_block_staged", "trr_attn_block_train_bwd", dev,
+        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wpt.data_ptr(),
+        wqt.data_ptr(), s.data_ptr(), P.data_ptr(), dout.data_ptr(), qkv.data_ptr(),
+        y.data_ptr(), stats.data_ptr(), dzp.data_ptr(), datt.data_ptr(), dqkv.data_ptr(),
+        ds.data_ptr(), dx.data_ptr(), ln_part.data_ptr(), dbias.data_ptr(),
+        b, hh, ww, c, num_heads, ws, kinds, shift, eps, head_dim**-0.5,
+    )
+    dwq, dbq = _weight_grad(y, dqkv)
+    dwp, dbp = _weight_grad(att.view(T, c), dzp)
+    dg, dbe = _sum_rows(ln_part).split(c)
+    return dx, dg, dbe, dwq, dbq, dwp, dbp, dbias
+
+
+fused_attn_block_train_backward.launches = 0
+
+
+class _AttnBlockTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps,
+                shift):
+        args = (x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps, shift)
+        if x.device.type == "cpu":
+            z, p, att = fused_attn_block_train_reference(*args)
+        else:
+            z, p, att = _attn_block_train_fwd_cuda(*args)
+        ctx.save_for_backward(x, g, be, wq, bq, wp, bp, s, p, att)
+        ctx.meta = (bias.shape[0], num_heads, head_dim, window_size, eps, shift)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        grads = fused_attn_block_train_backward(*ctx.saved_tensors, dz.contiguous(), *ctx.meta)
+        return (*grads, None, None, None, None, None, None)
+
+
+def fused_attn_block_train(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
+                           eps=1e-5, shift=0):
+    """`fused_attn_block`'s z, operands and shift contract, for training: the
+    forward saves the softmax P of every window and head and the attention
+    output, and the backward computes every gradient from them instead of
+    recomputing the softmax (4 attention products per window and head, not
+    6; no bias table read). Differentiable in x, the six parameters and the
+    kind table (not in s). P costs B * H * W * heads * n floats of memory
+    until the backward. On a CUDA tensor the forward launches TPU kernel
+    #9's port and the backward #10's (`fused_attn_block_train_backward`),
+    8x8 or 12x12 windows; on a CPU tensor both run their plain versions."""
+    return _AttnBlockTrain.apply(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                                 window_size, eps, shift)
+
+
+fused_attn_block_train.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -621,67 +809,33 @@ def _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_di
 def fused_swin_block_train_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2,
                                      s1, s2, num_heads, head_dim, window_size, eps=1e-5,
                                      shift=0):
-    """The train forward's spec, in fp32: (out, P, att, z).
+    """The train forward's spec, in fp32: (out, P, att, z), the attention
+    half's training form followed by the MLP half.
 
     x, out, att (the attention output) and z (the mid-block residual) are
     (B, H, W, C) in x's frame; P (B, H/ws, W/ws, nh, n, n) is the row softmax
     of every window and head of x rolled by (-shift, -shift)."""
-    b, hh, ww, c = x.shape
-    ws = window_size
-    xr = _roll(x.float(), -shift)
-    y = F.layer_norm(xr, (c,), g1.float(), be1.float(), eps)
-    qkv = _to_windows(y @ wq.float() + bq.float(), ws)
-    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=bias.device)
-    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
-    p = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1)
-    att = _from_windows(_merge_heads(p @ v), ws)
-    z = xr + s1.float()[:, None, None, None] * (att @ wp.float() + bp.float())
-    out = fused_ln_mlp_reference(z, g2, be2, w1, b1, w2, b2, s2, ws, eps)
-    return _roll(out, shift), p, _roll(att, shift), _roll(z, shift)
+    z, p, att = fused_attn_block_train_reference(x, g1, be1, wq, bq, wp, bp, bias, s1, num_heads,
+                                                 head_dim, window_size, eps, shift)
+    # the MLP half is per-token; it runs on the rolled rows, as the kernels sum them
+    out = fused_ln_mlp_reference(_roll(z, -shift), g2, be2, w1, b1, w2, b2, s2, window_size, eps)
+    return _roll(out, shift), p, att, z
 
 
 def fused_swin_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2,
                                          s1, s2, P, att, z, dout, kinds, num_heads, head_dim,
                                          window_size, eps=1e-5, shift=0):
-    """The saved-P backward's spec, step by step, in fp32: returns dx and the
-    gradients of g1, be1, wq, bq, wp, bp, the (K, nh, n, n) kind table, g2,
-    be2, w1, b1, w2, b2, from the forward's saved P, att and z."""
-    b, hh, ww, c = x.shape
-    ws = window_size
-
-    def rows(t):
-        return _roll(t.float(), -shift).reshape(b * hh * ww, -1)
-
-    t, att, z, do = rows(x), rows(att), rows(z), rows(dout)
-    s1 = s1.float().repeat_interleave(hh * ww)[:, None]
-    s2 = s2.float().repeat_interleave(hh * ww)[:, None]
-    # MLP half: recompute LN2, fc1 and the GELU from z
-    xn2, inv2 = _ln_parts(z, eps)
-    y2 = xn2 * g2 + be2
-    h = y2 @ w1 + b1
-    dm = do * s2
-    dw2, db2 = F.gelu(h, approximate="none").T @ dm, dm.sum(0)
-    dh = (dm @ w2.T) * _gelu_grad(h)
-    dw1, db1 = y2.T @ dh, dh.sum(0)
-    dy2 = dh @ w1.T
-    dg2, dbe2 = (dy2 * xn2).sum(0), dy2.sum(0)
-    dz = do + _ln_backward(dy2, xn2, inv2, g2)
-    # attention half: recompute LN1 and qkv, the softmax comes saved
-    xn, inv = _ln_parts(t, eps)
-    y = xn * g1 + be1
-    dzp = dz * s1
-    dwp, dbp = att.T @ dzp, dzp.sum(0)
-    datt = dzp @ wp.T
-    qkv = _to_windows((y @ wq + bq).reshape(b, hh, ww, 3 * c), ws)
-    q, k, v = (_heads(u, num_heads) for u in qkv.chunk(3, dim=-1))
-    dqkv, dbias = _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_dim,
-                                        ws)
-    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
-    dy = dqkv @ wq.T
-    dg1, dbe1 = (dy * xn).sum(0), dy.sum(0)
-    dx = _roll((dz + _ln_backward(dy, xn, inv, g1)).reshape(b, hh, ww, c), shift)
-    return dx, dg1, dbe1, dwq, dbq, dwp, dbp, dbias, dg2, dbe2, dw1, db1, dw2, db2
+    """The saved-P backward's spec, in fp32: returns dx and the gradients of
+    g1, be1, wq, bq, wp, bp, the (K, nh, n, n) kind table, g2, be2, w1, b1,
+    w2, b2, from the forward's saved P, att and z: the MLP half's backward
+    (LN2 and fc1 recomputed from z) gives dz, the attention half's saved-P
+    backward the rest."""
+    dz, dg2, dbe2, dw1, db1, dw2, db2 = fused_ln_mlp_bwd_reference(
+        _roll(z, -shift), g2, be2, w1, b1, w2, b2, s2, _roll(dout, -shift), window_size, eps)
+    attn = fused_attn_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, s1, P, att,
+                                                _roll(dz, shift), kinds, num_heads, head_dim,
+                                                window_size, eps, shift)
+    return (*attn, dg2, dbe2, dw1, db1, dw2, db2)
 
 
 def _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, name):
