@@ -29,7 +29,9 @@ failure:
              saved-P backward (#5: dx and 13 parameter gradients) against
              their plain versions at the SwinIR-M training block (B=8, 64x64
              LR, DropPath scales holding 0 and 1/0.9), K=1 unshifted and K=4
-             shifted by 4; times and the card's bound.
+             shifted by 4; times and the card's bound; #5's device time by
+             stage (torch.profiler) and its time against the fp32 and the
+             3xTF32 bounds, with the share of each.
 8. train   - `trainner_redux_tpu_torch.train.run` on SwinIR-M 4x at full
              width and depth: 16 seeded 512x512 HR images, batch 8 of 64x64
              LR crops, L1, AdamW 2e-4, EMA 0.999, fp32, 30 steps and a
@@ -44,7 +46,8 @@ failure:
              forward (#3) and its backward (#8: dqkv, dbias; also at ws 8,
              SwinIR's unfused branch; two runs bit-identical), and the MLP
              half's backward (#7), each against its plain version; times,
-             the card's bound and, for #3 and #8, SDPA with a float mask.
+             the card's bound and, for #3 and #8, SDPA with a float mask;
+             #7's device time by stage and its time against both bounds.
 12. hat path - `test.run` on a seeded HAT-M 4x and the 4 images, counting
              launches (36 window-MHSA and 42 MLP kernels an image).
 13. hat train - `train.run` on HAT-M 4x as phase 8 (30 steps), counting
@@ -119,9 +122,10 @@ failure:
              block (B=8, the 48x48 LR crop padded to 72x72, C=240, 8 heads
              of 30, 12x12 windows, hidden 480, DropPath scales holding 0 and
              1/0.9): #1 on its staged kernels and its recompute backward #6,
-             K=1 and K=4 shifted by 6; #2 and #7 (the two-pass plan); each
+             K=1 and K=4 shifted by 6; #2 and #7; each
              against its plain version, #6 and #7 bit-identical over two
-             runs; times and the card's bound; #1 and #2 also at B=1,
+             runs; times and the card's bound; #7's device time by stage
+             and its time against both bounds; #1 and #2 also at B=1,
              144x144 (a 128x128 image, served).
 31. srformerv2 path - `test.run` on a seeded SRFormerV2 4x and the 4
              images, counting 18 #1 and 18 #2 launches an image; one 128x128
@@ -173,8 +177,9 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, TF32 on them, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 # SwinIR-M block shapes at B=1 and a 128x128 LR image (serving), and at the
@@ -426,6 +431,65 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def stage_of(kernel: str) -> str:
+    """The stage of #5 or #7 (csrc/fused_block_train.cu) a kernel runs."""
+    for part, stage in (("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
+                        ("rows_kernel<", "dy and the LN backward"),
+                        ("block_bwd_attn_kernel", "window attention"),
+                        ("atb_kernel", "weight gradients"), ("sum_rows_kernel", "partial sums"),
+                        ("dbias", "bias table")):
+        if part in kernel:
+            if part == "rows_kernel<" and "false>" in kernel:
+                return "datt"
+            return stage
+    return kernel[:60]
+
+
+# launches a call of each stage (csrc/fused_block_train.cu's entry points)
+STAGES_5 = {"LN rows": 2, "fc1 and dh": 1, "dy and the LN backward": 2, "datt": 1,
+            "window attention": 1, "weight gradients": 4, "partial sums": 6, "bias table": 2}
+STAGES_7 = {"LN rows": 1, "fc1 and dh": 1, "dy and the LN backward": 1, "weight gradients": 2,
+            "partial sums": 3}
+
+
+def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
+                per_call: dict[str, int], calls: int = 3) -> None:
+    """Device time by stage of one call of #5 or #7, and the call's time
+    `ms` against both bounds: fp32 on the FMA units (67 TFLOP/s) and 3xTF32
+    on the tensor cores (3 x operations at 495 TFLOP/s). A stage's time is
+    its launches' mean device time (torch.profiler over `calls` calls; the
+    table goes to chip_smoke/stages.txt) times its `per_call` launches: the
+    profiler may keep only some of a session's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen: dict[str, list] = {}
+    for e in device_events(prof):
+        rec = seen.setdefault(stage_of(e.key), [0.0, 0])
+        rec[0] += e.self_device_time_total / 1e3
+        rec[1] += e.count
+    stages = {st: (t / n * per_call.get(st, 0), n) for st, (t, n) in seen.items() if n}
+    total = sum(t for t, _ in stages.values())
+    OUT.mkdir(parents=True, exist_ok=True)
+    with open(OUT / "stages.txt", "a") as f:
+        f.write(f"== [{tag}] {name}\n"
+                + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+    for stage, (t, n) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
+        say(f"[{tag}] {name} stage {stage}: {t:.4f} ms a call ({per_call.get(stage, 0)} "
+            f"launches; {n} profiled over {calls} calls), {100 * t / max(total, 1e-9):.1f}% of "
+            f"the stages' {total:.4f} ms")
+    fp32 = max(flops / PEAK_FP32, nb / PEAK_BYTES) * 1e3
+    tc = max(3 * flops / PEAK_TF32, nb / PEAK_BYTES) * 1e3
+    say(f"[{tag}] {name}: kernel {ms:.4f} ms; fp32 bound {fp32:.4f} ms ({100 * fp32 / ms:.1f}% "
+        f"of the kernel's time), 3xTF32 bound {tc:.4f} ms ({100 * tc / ms:.1f}%)")
 
 
 def block_inputs(gen, kinds: int, device, shape=(B, H, W), widths=(C, NH, WS, HIDDEN)):
@@ -887,6 +951,8 @@ def phase_train_kernels() -> dict:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # the times reported in the JSON line are the shifted (K=4) calls'
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+        stage_split("train kernels", f"fused_swin_block_train_backward K={kinds}", bwd,
+                    bwd_flops, bwd_bytes, res["fused_swin_block_train_backward"]["ms"], STAGES_5)
     return res
 
 
@@ -1329,6 +1395,9 @@ def phase_hat_kernels() -> dict:
     record_kernel(res, "hat kernels", "fused_ln_mlp_backward", "K=1", mlp_bwd, mlp_bwd_plain,
                   None, 10 * T * C * HIDDEN, nbytes(x, *params, s, dout, *grads), err,
                   f", largest error {worst:.3g} of its tensor's max |g|, two runs bit-identical")
+    stage_split("hat kernels", "fused_ln_mlp_backward", mlp_bwd, 10 * T * C * HIDDEN,
+                nbytes(x, *params, s, dout, *grads), res["fused_ln_mlp_backward"]["ms"],
+                STAGES_7)
     return res
 
 
@@ -2027,6 +2096,9 @@ def phase_srformerv2_kernels() -> dict:
                           flops[bname], nbytes(*operands, s, dout, *grads), bwd_err,
                           f", largest error {worst:.3g} of its tensor's max |g|, two runs "
                           "bit-identical")
+            if bname == "fused_ln_mlp_backward_c240":
+                stage_split("srformerv2 kernels", bname, bwd, flops[bname],
+                            nbytes(*operands, s, dout, *grads), res[bname]["ms"], STAGES_7)
 
     # the serving shapes: B=1, one 128x128 image padded to 144x144
     x, p, bias, _ = block_inputs(gen, 1, dev, (B, SRF_SERVE, SRF_SERVE), SRF_WIDTHS)

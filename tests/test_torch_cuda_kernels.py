@@ -39,25 +39,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, kinds, seed=0, ws=WS):
+def _inputs(device, kinds, seed=0, ws=WS, shape=(B, H, W)):
     from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
 
     gen = torch.Generator().manual_seed(seed)
+    b, h, w = shape
     n = ws * ws
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
 
     p = {
-        "x": randn(B, H, W, C), "qkv": randn(B, H, W, 3 * C),
+        "x": randn(b, h, w, C), "qkv": randn(b, h, w, 3 * C),
         "g": 1.0 + randn(C, scale=0.1), "be": randn(C, scale=0.1),
         "wq": randn(C, 3 * C, scale=C**-0.5), "bq": randn(3 * C, scale=0.1),
         "wp": randn(C, C, scale=C**-0.5), "bp": randn(C, scale=0.1),
         "w1": randn(C, HIDDEN, scale=C**-0.5), "b1": randn(HIDDEN, scale=0.1),
         "w2": randn(HIDDEN, C, scale=HIDDEN**-0.5), "b2": randn(C, scale=0.1),
-        "s": torch.tensor([1.0, 0.8], device=device),
+        "s": torch.tensor([1.0, 0.8], device=device)[:b],
         "g2": 1.0 + randn(C, scale=0.1), "be2": randn(C, scale=0.1),
-        "s2": torch.tensor([0.0, 1.0 / 0.9], device=device),
+        "s2": torch.tensor([0.0, 1.0 / 0.9], device=device)[-b:],
     }
     rel = randn(NH, n, n, scale=0.5)
     if kinds == 4:
@@ -149,12 +150,13 @@ def test_shared_memory_plans_match_the_sources(cuda):
                 c, nh, ws)
             assert lib_wa.trr_window_mhsa_bwd_smem_bytes(c, nh, ws) == (
                 wa.window_mhsa_bwd_smem_bytes(c, nh, ws))
-        assert lib_tr.trr_bwd_tokens_smem_bytes(c, hidden) == fb.bwd_tokens_smem_bytes(c, hidden)
+        assert lib_tr.trr_rows_smem_bytes(c) == fb.rows_smem_bytes(c)
         assert lib_tr.trr_bwd_attn_smem_bytes(c, nh) == fb.bwd_attn_smem_bytes(c, nh)
-        assert lib_tr.trr_bwd_ln1_smem_bytes(c) == fb.bwd_ln1_smem_bytes(c)
         for ws in (8, 12):  # the saved-P backward (#10)
             assert lib_st.trr_attn_train_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_train_bwd_smem_bytes(c, nh, ws))
+    assert lib_tr.trr_hidden_smem_bytes() == fb.mlp_hidden_smem_bytes()
+    assert lib_tr.trr_atb_smem_bytes() == fb.weight_grad_smem_bytes()
 
 
 TRAIN_NAMES = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",
@@ -162,13 +164,17 @@ TRAIN_NAMES = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, WS // 2)])
-def test_swin_block_train_kernels(cuda, kinds, shift):
+@pytest.mark.parametrize(("kinds", "shift", "shape"), [
+    (1, 0, (B, H, W)), (4, WS // 2, (B, H, W)),
+    # 960 tokens: the last 128-token tile of the backward's kernels is ragged
+    (1, 0, (1, 24, 40)), (4, WS // 2, (1, 24, 40)),
+])
+def test_swin_block_train_kernels(cuda, kinds, shift, shape):
     """#4 (out, P, att, z) and #5 (dx and the 13 parameter gradients)
     against their plain versions."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
-    p = _inputs(cuda, kinds)
+    p = _inputs(cuda, kinds, shape=shape)
     ops = [p[k] for k in TRAIN_NAMES]
     meta = (NH, HD, WS, 1e-5, shift)
     got = fb._swin_block_train_fwd_cuda(*ops, p["s"], p["s2"], *meta)
@@ -176,7 +182,7 @@ def test_swin_block_train_kernels(cuda, kinds, shift):
     torch.cuda.synchronize()
     for name, g, w in zip(("out", "P", "att", "z"), got, want):
         assert (g - w).abs().max().item() <= TOL, name
-    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    dout = torch.randn(*shape, C, generator=torch.Generator().manual_seed(7)).to(cuda)
     saved = [t for k, t in zip(TRAIN_NAMES, ops) if k != "bias"]
     n0 = fb.fused_swin_block_train_backward.launches
     grads = fb.fused_swin_block_train_backward(*saved, p["s"], p["s2"], *want[1:], dout, kinds,
@@ -274,14 +280,17 @@ def test_fused_window_mhsa_backward_is_deterministic(cuda):
 @pytest.mark.cuda
 def test_fused_ln_mlp_backward_kernel(cuda):
     """#7 (dx and the six parameter gradients) against its plain version,
-    also on a ragged last tile of tokens."""
+    also on a ragged last tile of tokens (96 and 960 tokens against tiles of
+    128)."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
     p = _inputs(cuda, 1)
     params = [p[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
     gen = torch.Generator().manual_seed(8)
     for x, s in ((p["x"], p["s2"]), (torch.randn(1, 8, 12, C, generator=gen).to(cuda),
-                                     torch.ones(1, device=cuda))):
+                                     torch.ones(1, device=cuda)),
+                 (torch.randn(1, 24, 40, C, generator=gen).to(cuda),
+                  torch.full((1,), 1.0 / 0.9, device=cuda))):
         dout = torch.randn(x.shape, generator=gen).to(cuda)
         n0 = fb.fused_ln_mlp_backward.launches
         got = fb.fused_ln_mlp_backward(x, *params, s, dout, WS)
@@ -764,8 +773,7 @@ def test_staged_shared_memory_plans_match_the_sources(cuda):
                 fb.attn_staged_fwd_smem_bytes(c, nh, ws))
             assert lib.trr_attn_staged_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_staged_bwd_smem_bytes(c, nh, ws))
-        assert lib_tr.trr_bwd_tokens_split_smem_bytes(c, hidden) == (
-            fb.bwd_tokens_split_smem_bytes(c, hidden))
+        assert lib_tr.trr_rows_smem_bytes(c) == fb.rows_smem_bytes(c)
 
 
 @pytest.mark.cuda

@@ -140,14 +140,21 @@ def test_shared_memory_plans_at_srformerv2_widths():
     csrc/fused_block_train.cu), fp32, at C 240, 8 heads of 30, hidden 480:
     LN + qkv in two (C, 68) tiles and a 2 x 32 x 96 weight stage; the
     backward's attention stage k, v twice, q and dA of 48 rows twice, the
-    (48, 148) score tile; #7 in two passes with a (240, 68) hidden tile."""
+    (48, 148) score tile; #7's engine: rings of 4 stages of a (128, 16)
+    token chunk and a raw (256, 16) weight chunk spanning the C 240 row
+    (rows of 20 floats; 16 bytes of mbarriers a stage besides), three
+    buffers of the weight chunk's TF32 hi and lo tiles, and the hidden-unit
+    kernel's (128, 128) tile of gelu'(h)."""
     stage = 2 * 32 * 96
     assert tfb.attn_staged_fwd_smem_bytes(240, 8, 12) == 4 * (2 * 240 * 68 + stage + 128)
     attn_bwd = 2 * 30 * 144 + 2 * 144 * 32 + 2 * 30 * 48 + 2 * 48 * 32 + 48 * 148
     assert tfb.attn_staged_bwd_smem_bytes(240, 8, 12) == 4 * max(2 * 240 * 68 + stage + 128,
                                                                   attn_bwd)
-    assert tfb.bwd_tokens_smem_bytes(240, 480) == 286_720 > tfb.SMEM_LIMIT
-    assert tfb.bwd_tokens_split_smem_bytes(240, 480) == 4 * ((480 + 240) * 68 + stage + 128)
-    assert tfb.bwd_tokens_split_smem_bytes(240, 480) <= tfb.SMEM_LIMIT
-    assert tfb.ln_mlp_bwd_fits(180, 360)  # HAT-M keeps its one-pass plan
-    assert tfb.bwd_tokens_smem_bytes(180, 360) <= tfb.SMEM_LIMIT
+    ring = 4 * (128 * 20 + 256 * 20) * 4 + 4 * 16  # token and raw weight chunks, mbarriers
+    assert tfb.rows_smem_bytes(240) == 3 * 2 * 256 * 16 * 4 + ring == 221_248
+    assert tfb.rows_smem_bytes(240) <= tfb.SMEM_LIMIT
+    assert tfb.mlp_hidden_smem_bytes() == 4 * (128 * 128 + 6 * 128 * 16 + 4 * 2 * 128 * 20 + 16)
+    assert tfb.weight_grad_smem_bytes() == 4 * (6 * 128 * 32 + 3 * (2 * 32 * 136 + 4)) == 202_800
+    assert tfb.ln_mlp_bwd_fits(240, 480)
+    assert tfb.ln_mlp_bwd_fits(180, 360)  # HAT-M: a 192-column tile
+    assert tfb.rows_smem_bytes(180) == 4 * (6 * 192 * 16 + 4 * (128 * 20 + 192 * 20) + 16)

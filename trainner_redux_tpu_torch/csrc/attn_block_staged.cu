@@ -750,7 +750,7 @@ inline cudaError_t staged_fwd(const float* x, const float* g, const float* be, c
 // dbias from the per-window dS.
 inline cudaError_t ln1_bwd_and_dbias(const float* dqkv, const float* wqt, const float* x,
                                      const float* stats, const float* g, const float* dout,
-                                     float* dx, float* ln_part, const float* dS, float* dbias,
+                                     float* dx, float* ln_part, float* dS, float* dbias,
                                      int B, int H, int W, int C, int nh, int ws, int kinds,
                                      cudaStream_t stream) {
   const long long tokens = (long long)B * H * W;

@@ -336,7 +336,17 @@ __device__ __forceinline__ int window_kind(int kinds, int wi, int wj, int nwh, i
 
 // dbias[kind][h] = the sum of dS over the windows of that kind, windows in
 // order; dS (B, nwh, nww, nh, nn) with nn = n * n entries per window and
-// head. One thread per (head, entry): no atomics, the same sums every run.
+// head. No atomics: the same sums every run. Two passes over groups of
+// kDbiasGroup consecutive windows (the last group takes the rest):
+// dbias_groups_kernel, one thread per (group, head, entry), sums its
+// group's windows by kind in order and writes the kind sums over the
+// entries of the group's first `kinds` windows, in place (dS is scratch);
+// dbias_sum_kernel, one thread per (kind, head, entry), adds the groups'
+// sums in order. Fewer than two groups, or enough (head, entry) threads to
+// fill the card alone (16x16 windows), take one pass, dbias_kernel.
+constexpr int kDbiasGroup = 16;
+constexpr long long kDbiasWide = 1 << 18;
+
 __global__ void __launch_bounds__(kThreads)
     dbias_kernel(const float* __restrict__ dS, int B, int nwh, int nww, int nh, int kinds,
                  int nn, float* __restrict__ dbias) {
@@ -357,10 +367,54 @@ __global__ void __launch_bounds__(kThreads)
   for (int kind = 0; kind < kinds; ++kind) dbias[((size_t)kind * nh + h) * nn + e] = acc[kind];
 }
 
-inline cudaError_t launch_dbias(const float* dS, int B, int nwh, int nww, int nh, int kinds,
-                                int nn, float* dbias, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)(((long long)nh * nn + kThreads - 1) / kThreads);
-  dbias_kernel<<<blocks, kThreads, 0, stream>>>(dS, B, nwh, nww, nh, kinds, nn, dbias);
+__global__ void __launch_bounds__(kThreads)
+    dbias_groups_kernel(float* __restrict__ dS, int nwin, int nwh, int nww, int kinds,
+                        long long per_window, int groups) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)groups * per_window) return;
+  const int grp = (int)(idx / per_window);
+  const long long off = idx % per_window;
+  const int w0 = grp * kDbiasGroup, w1 = grp == groups - 1 ? nwin : w0 + kDbiasGroup;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int w = w0; w < w1; ++w) {
+    const float v = dS[(size_t)w * per_window + off];
+    const int kind = window_kind(kinds, (w / nww) % nwh, w % nww, nwh, nww);
+    if (kind == 0) acc[0] += v;
+    else if (kind == 1) acc[1] += v;
+    else if (kind == 2) acc[2] += v;
+    else acc[3] += v;
+  }
+  for (int kind = 0; kind < kinds; ++kind) dS[(size_t)(w0 + kind) * per_window + off] = acc[kind];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dbias_sum_kernel(const float* __restrict__ dS, int kinds, long long per_window, int groups,
+                     float* __restrict__ dbias) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)kinds * per_window) return;
+  const int kind = (int)(idx / per_window);
+  const long long off = idx % per_window;
+  float acc = 0.f;
+  for (int grp = 0; grp < groups; ++grp)
+    acc += __ldg(dS + (size_t)(grp * kDbiasGroup + kind) * per_window + off);
+  dbias[idx] = acc;
+}
+
+inline cudaError_t launch_dbias(float* dS, int B, int nwh, int nww, int nh, int kinds, int nn,
+                                float* dbias, cudaStream_t stream) {
+  const int nwin = B * nwh * nww, groups = nwin / kDbiasGroup;
+  const long long per_window = (long long)nh * nn;
+  if (groups < 2 || per_window >= kDbiasWide) {
+    const unsigned blocks = (unsigned)((per_window + kThreads - 1) / kThreads);
+    dbias_kernel<<<blocks, kThreads, 0, stream>>>(dS, B, nwh, nww, nh, kinds, nn, dbias);
+    return cudaGetLastError();
+  }
+  dbias_groups_kernel<<<(unsigned)((groups * per_window + kThreads - 1) / kThreads), kThreads, 0,
+                        stream>>>(dS, nwin, nwh, nww, kinds, per_window, groups);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dbias_sum_kernel<<<(unsigned)((kinds * per_window + kThreads - 1) / kThreads), kThreads, 0,
+                     stream>>>(dS, kinds, per_window, groups, dbias);
   return cudaGetLastError();
 }
 

@@ -16,312 +16,536 @@
 // The forward is the attention-half kernel of block_fwd.cuh told to write P
 // and att, then the MLP-half kernel: two launches, one call.
 //
-// What bounds the backward on the card: fp32 arithmetic. At SwinIR-M
-// training shapes (B 8, 64x64, C 180, hidden 360: 32,768 tokens) it does
-// some 47.6 GFLOP against a few hundred MB of activations and saved
-// tensors. A TPU core keeps a whole strip of windows in VMEM and carries
-// the weight gradients across its sequential grid; here the work splits
-// into launches whose working sets fit one thread block's 227 KB:
-//   1. block_bwd_tokens_kernel, per 64 tokens: the MLP half's backward
-//      (recompute LN2, fc1, GELU; dm, dh, dy2, the LN2 backward -> dz),
-//      then datt = s1 dz wp^T and LN1(x) for the attention side. The
-//      activations the weight gradients need (y2, gelu(h), dm, dh, dzp, y)
-//      go to device memory.
-//   2. block_bwd_attn_kernel, per 8x8 window, one head at a time: recompute
-//      q, k, v from LN1(x) and the head's wq columns, then dv, dP, dS, dq,
-//      dk from the saved P; dq/dk/dv to a (T, 3C) buffer, dS per window to a
-//      buffer the bias-kind reduction reads.
-//   3. block_bwd_ln1_kernel, per 64 tokens: dy = dqkv wq^T and the LN1
-//      backward -> dx.
-//   4. weight_grad_kernel, A^T B over all tokens for dw2, dw1, dwp, dwq (and
-//      the column sums for the biases), split over token chunks into
-//      partial sums that sum_rows_kernel adds in a fixed order; the LN
-//      parameter partials of 1 and 3 and the per-window dS reduce the same
-//      way. No atomics: two runs give the same gradients bit for bit.
-// fused_ln_mlp's backward is step 1's MLP half (mlp_bwd_tile, from x and
-// with dx = dout + LN'(dy)) in ln_mlp_bwd_tokens_kernel, then step 4 for
-// dw2 and dw1: 21 GFLOP at HAT-M's 32,768 training tokens, bound by fp32
-// arithmetic as the whole block's backward is.
-// Every product runs on the fp32 FMA units; the tensor cores are later work.
+// The backwards. What bounds them on the card: their products, 47.6 GFLOP
+// for #5 at SwinIR-M's training block (B 8, 64x64, C 180, hidden 360: T =
+// 32,768 tokens) against some 300 MB of activations and saved tensors, and
+// 21.2 GFLOP for #7 at C 180, 47.8 at C 240 / hidden 480. Every product but
+// the per-window attention's runs on the tensor cores in 3xTF32 through
+// the wgmma engine of tc_gemm.cuh (bound: 3 x operations / 495 TFLOP/s);
+// what the design does about the rest of the time: operands stream by
+// cp.async through a 4-stage mbarrier ring while the previous chunk's
+// wgmmas run; each block holds 128 tokens, so a weight chunk read from L2
+// serves 128 tokens; the row-wise work reads whole rows with 16-byte loads.
+// Every engine kernel runs 8 warps (two warpgroups, 64 rows each) and one
+// block a SM. The per-token work is split into launches of the engine, the
+// row-wise work in their prologues and epilogues, and the activations pass
+// between them through device memory (the weight gradients need them
+// there anyway). Shared memory below: ring + split buffers (+ others).
+//   1. ln_rows_kernel, one warp a token: y2 = LN2(z) with its stats, dm =
+//      s2 dout; y = LN1(x) with its stats (a second launch; #7: one, from x).
+//   2. mlp_hidden_kernel, per 128 tokens x 128 hidden units: h = y2 w1 + b1,
+//      gelu(h) to hg; then dh = (dm w2^T) gelu'(h), gelu'(h) waiting in
+//      shared memory between the two products. A stage: a (128, 16) token
+//      chunk and a raw (16, 128) w1 or (128, 16) w2 chunk; 196,672 B.
+//   3. rows_kernel<BN, true>, per 128 tokens x all C columns (BN = 192 at
+//      C 180, 256 at C 240): dy2 = dh w1^T, then the LN2 backward from a
+//      shared dy tile, a warp's 16 rows four at a time: dz = dout +
+//      LN2'(dy2), dzp = s1 dz, the block's partial sums of dg2 and dbe2. A
+//      stage: a (128, 16) token chunk and a raw (BN, 16) chunk of w1 as it
+//      lies (K-major); 176,192 B at C 180, 221,248 B at C 240.
+//   4. rows_kernel<BN, false>: datt = dzp wp^T (#5 only).
+//   5. block_bwd_attn_kernel, per 8x8 window, one head at a time (not
+//      redesigned): q, k, v from y, then dv, dP, dS, dq, dk from the saved P;
+//      dq/dk/dv to dqkv (T, 3C), dS per window for the bias-kind reduction.
+//   6. rows_kernel<BN, true>: dy = dqkv wq^T and the LN1 backward -> dx (#5).
+//   7. atb_kernel: the weight gradients A^T B over the tokens (dw2, dw1,
+//      and for #5 dwp, dwq) with the column sums of B for the biases, per
+//      128 x 128 output tile and token chunk: both operands token-major,
+//      two (32, 128) chunks a stage on a 3-stage ring; 202,800 B. The token
+//      ranges are as long as it takes to give about 264 blocks, so a
+//      gradient writes some 25-45 partial matrices; sum_rows_kernel adds
+//      them in a fixed order.
+//   8. the LN partials through sum_rows_kernel, dbias through the two-pass
+//      window-group reduction of common.cuh.
+// No atomics anywhere: two runs give the same gradients bit for bit.
 #include "block_fwd.cuh"
+#include "tc_gemm.cuh"
 
 namespace trr {
 
-constexpr int kAtbTile = 64;            // output tile (rows and columns) of A^T B
-constexpr int kAtbK = 32;               // tokens staged in shared memory per step
-constexpr int kAtbLd = kAtbTile + 4;
+constexpr int kHidTile = 128;        // hidden units of a mlp_hidden_kernel tile
+constexpr int kRowLd = kTcK + 4;     // row stride of a [row][k] chunk (conflict-free A loads)
+constexpr int kAtbK = 32;            // tokens of a weight-gradient chunk
+constexpr int kAtbStages = 3;        // depth of its ring (its split buffers are twice as deep)
+constexpr int kAtbLd = kTcRows + 8;  // row stride of a weight-gradient chunk
+constexpr int kAtbBlocks = 264;      // blocks a weight gradient aims at (two waves)
 
-// Shared memory, in floats, of the three per-tile backward kernels.
-__host__ __device__ inline int bwd_tokens_smem_floats(int C, int hidden) {
-  return 2 * C * kTLd + hidden * kTLd + kStageFloats + 4 * kTile;
+// The columns of a rows_kernel tile: the least of 64, 128, 192, 256 >= C.
+__host__ __device__ inline int rows_cols(int C) { return C <= 64 ? 64 : (C + 63) / 64 * 64; }
+
+// A per-token stage: a (128, kTcK) token chunk [row][k] (row stride
+// kRowLd) and a raw (BN, kTcK) weight chunk, [n][k] (stride kRowLd) or
+// [k][n] (stride BN + 8). The kernels keep the split buffers of
+// tc_gemm.cuh ahead of their ring.
+__host__ __device__ constexpr int token_stage_floats(int bn) {
+  return kTcRows * kRowLd + (bn * kRowLd > kTcK * (bn + 8) ? bn * kRowLd : kTcK * (bn + 8));
+}
+
+// Shared memory, in bytes, of the backward's kernels.
+__host__ __device__ inline int rows_smem_bytes(int C) {
+  return split_floats(rows_cols(C)) * (int)sizeof(float) +
+         Ring<>::bytes(token_stage_floats(rows_cols(C)));
+}
+// mlp_hidden_kernel keeps gelu'(h) of its tile in shared memory between
+// its two products, [element][thread].
+constexpr int kGeluFloats = kHidTile / 2 * kThreads;
+__host__ __device__ inline int hidden_smem_bytes() {
+  return (kGeluFloats + split_floats(kHidTile)) * (int)sizeof(float) +
+         Ring<>::bytes(token_stage_floats(kHidTile));
+}
+// atb_kernel: the split buffers, then a ring of two (kAtbK, 128)
+// token-major chunks a stage.
+__host__ __device__ inline int atb_smem_bytes() {
+  return split_floats(kTcRows, kAtbK) * (int)sizeof(float) +
+         Ring<kAtbStages>::bytes(2 * kAtbK * kAtbLd);
 }
 __host__ __device__ inline int bwd_attn_smem_floats(int C, int nh) {
   const int hd = C / nh;
   return C * kTLd + 4 * kTile * kVLd + 2 * hd * kTLd + 2 * kTile * kTLd + kStageFloats;
 }
-__host__ __device__ inline int bwd_ln1_smem_floats(int C) { return 4 * C * kTLd + kStageFloats; }
-// fused_ln_mlp's backward with the hidden units in two halves
-__host__ __device__ inline int bwd_tokens_split_smem_floats(int C, int hidden) {
-  return 2 * C * kTLd + hidden / 2 * kTLd + kStageFloats + 2 * kTile;
+
+// Tokens of one weight-gradient partial sum for A (T, M), B (T, N): about
+// kAtbBlocks blocks over the output tiles, at least 256 tokens (8 chunks),
+// a multiple of the chunk depth.
+inline long long atb_chunk(long long T, int M, int N) {
+  const int tiles = ((M + kTcRows - 1) / kTcRows) * ((N + kTcRows - 1) / kTcRows);
+  const long long want = (kAtbBlocks + tiles - 1) / tiles;
+  long long chunk = (T + want - 1) / want;
+  chunk = (chunk + kAtbK - 1) / kAtbK * kAtbK;
+  return chunk < 256 ? 256 : chunk;
 }
 
-// The MLP half's backward on the M <= 64 tokens t0.. of one block, from
-// the half's input rows xin (T, C): recompute y2 = LN(xin), h = y2 w1 + b1
-// and gelu(h); then dm = s2[b] dout, dh = (dm w2^T) gelu'(h), dy2 = dh w1^T
-// and the LN backward dx = dout + LN'(dy2). w1t (hidden, C) and w2t
-// (C, hidden) are the transposes of w1 and w2. Writes, per token, y2, hg =
-// gelu(h), dm, dh and dx; per block the partial sums of dg (first C) and
-// dbe (next C) to ln_part. When dxs is not null, s1[b] dx goes to dxs and
-// to T1 as well, for the attention half's backward.
-// Tiles: T1, T3 (C, 64) and T2 (hidden, 64) transposed, Bs the weight
-// stage, st the LN stats (2 * 64).
-__device__ __forceinline__ void mlp_bwd_tile(
-    const float* __restrict__ xin, const float* __restrict__ dout, const float* __restrict__ g2,
-    const float* __restrict__ be2, const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w1t, const float* __restrict__ w2t, const float* __restrict__ s2,
-    const float* __restrict__ s1, float* __restrict__ y2, float* __restrict__ hg,
-    float* __restrict__ dm, float* __restrict__ dh, float* __restrict__ dx,
-    float* __restrict__ dxs, float* __restrict__ ln_part, long long t0, int M, long long hw,
-    int C, int hidden, float eps, float* T1, float* T2, float* T3, float* Bs, float* st) {
-  // y2 = LN(xin)
-  layernorm_t([&](int r) { return xin + (t0 + r) * C; }, M, C, g2, be2, eps, T2, st, T1);
-  __syncthreads();
-  for (int e = threadIdx.x; e < M * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    y2[(t0 + r) * C + c] = T1[c * kTLd + r];
-  }
-  // h = y2 w1 + b1, kept before the GELU; gelu(h) to hg
-  gemm_weights(T1, C, w1, hidden, hidden, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(b1 + c);
-                 const float h[4] = {o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb};
-                 *reinterpret_cast<float4*>(T2 + c * kTLd + r0) =
-                     make_float4(h[0], h[1], h[2], h[3]);
+inline long long atb_part_floats(long long T, int M, int N) {
+  const long long chunk = atb_chunk(T, M, N);
+  return (T + chunk - 1) / chunk * ((long long)M * N + N);
+}
+
+// y = LN(x) (T, C) with g and be, two-pass mean and variance as the forward;
+// stats (T, 2) the mean and 1/std of each row. When dm is not null, dm =
+// s[t / hw] dout as well. One warp a token, C <= 256 and a multiple of 4.
+__global__ void __launch_bounds__(kThreads)
+    ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ be, float* __restrict__ y, float* __restrict__ stats,
+                   const float* __restrict__ dout, const float* __restrict__ s,
+                   float* __restrict__ dm, long long T, long long hw, int C, float eps) {
+  const long long t = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (t >= T) return;
+  const int lane = threadIdx.x % 32, n4 = C / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + t * C);
+  float4 v[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  float sum = 0.f;
 #pragma unroll
-                 for (int i = 0; i < 4; ++i)
-                   if (r0 + i < M) hg[(t0 + r0 + i) * hidden + c] = gelu_erf(h[i]);
-               });
-  // dm = s2[b] dout
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    float v = 0.f;
-    if (r < M) {
-      const long long t = t0 + r;
-      v = __ldg(s2 + t / hw) * __ldg(dout + t * C + c);
-      dm[t * C + c] = v;
+  for (int i = 0; i < 2; ++i) {
+    if (lane + 32 * i < n4) {
+      v[i] = __ldg(xr + lane + 32 * i);
+      sum += (v[i].x + v[i].y) + (v[i].z + v[i].w);
     }
-    T3[c * kTLd + r] = v;
   }
-  // dh = (dm w2^T) * gelu'(h), in place of h
-  gemm_weights(T3, C, w2t, hidden, hidden, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 float* p = T2 + c * kTLd + r0;
-                 const float4 h = *reinterpret_cast<const float4*>(p);
-                 const float d[4] = {o[0] * gelu_erf_grad(h.x), o[1] * gelu_erf_grad(h.y),
-                                     o[2] * gelu_erf_grad(h.z), o[3] * gelu_erf_grad(h.w)};
-                 *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  const float mean = warp_sum(sum) / C;
+  float q = 0.f;
 #pragma unroll
-                 for (int i = 0; i < 4; ++i)
-                   if (r0 + i < M) dh[(t0 + r0 + i) * hidden + c] = d[i];
-               });
-  // dy2 = dh w1^T
-  gemm_weights(T2, hidden, w1t, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 *reinterpret_cast<float4*>(T3 + c * kTLd + r0) =
-                     make_float4(o[0], o[1], o[2], o[3]);
-               });
-  __syncthreads();
-  // LN backward: dx = dout + LN'(dy2); xn2 (in T2) kept for the dg partials
-  ln_backward_tile(
-      xin, g2, dout, T3, T2, t0, M, C,
-      [&](int r, float& mean, float& inv) {
-        mean = st[r];
-        inv = st[kTile + r];
-      },
-      [&](int r, long long t, int c, float d) {
-        dx[t * C + c] = d;
-        if (dxs != nullptr) {
-          const float sd = __ldg(s1 + t / hw) * d;
-          dxs[t * C + c] = sd;
-          T1[c * kTLd + r] = sd;
+  for (int i = 0; i < 2; ++i) {
+    if (lane + 32 * i < n4) {
+      const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
+      q += (a * a + b * b) + (c * c + d * d);
+    }
+  }
+  const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
+  if (lane == 0) {
+    stats[2 * t] = mean;
+    stats[2 * t + 1] = inv;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c4 = lane + 32 * i;
+    if (c4 < n4) {
+      const float4 gg = __ldg(reinterpret_cast<const float4*>(g) + c4);
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(be) + c4);
+      reinterpret_cast<float4*>(y + t * C)[c4] =
+          make_float4((v[i].x - mean) * inv * gg.x + bb.x, (v[i].y - mean) * inv * gg.y + bb.y,
+                      (v[i].z - mean) * inv * gg.z + bb.z, (v[i].w - mean) * inv * gg.w + bb.w);
+    }
+  }
+  if (dm != nullptr) {
+    const float sc = __ldg(s + t / hw);
+    for (int c4 = lane; c4 < n4; c4 += 32) {
+      const float4 d = __ldg(reinterpret_cast<const float4*>(dout + t * C) + c4);
+      reinterpret_cast<float4*>(dm + t * C)[c4] =
+          make_float4(sc * d.x, sc * d.y, sc * d.z, sc * d.w);
+    }
+  }
+}
+
+// Issue the copies of chunk j: A (T, K) rows t0.. and, B_KMAJOR, W (N, K)
+// rows n0.., else W (K, N) columns n0...
+template <int BN, bool B_KMAJOR>
+__device__ __forceinline__ void load_wg_stage(float* st, const float* __restrict__ A,
+                                              long long t0, long long T,
+                                              const float* __restrict__ W, int n0, int N, int K,
+                                              int j) {
+  load_tile<kTcRows, kTcK>(st, kRowLd, A, K, t0, T, j * kTcK, K);
+  if constexpr (B_KMAJOR)
+    load_tile<BN, kTcK>(st + kTcRows * kRowLd, kRowLd, W, K, n0, N, j * kTcK, K);
+  else
+    load_tile<kTcK, BN>(st + kTcRows * kRowLd, BN + 8, W, N, j * kTcK, K, n0, N);
+}
+
+template <int BN, bool B_KMAJOR>
+__device__ __forceinline__ void use_wg_stage(float (&acc)[BN / 2], const float* st, float* split,
+                                             int j, AFrag<> (&af)[2]) {
+  wgmma_chunk<BN, kTcK, true, B_KMAJOR>(acc, st, kRowLd, 16 * (threadIdx.x / 32),
+                                  st + kTcRows * kRowLd, B_KMAJOR ? kRowLd : BN + 8, split, j, af);
+}
+
+// Row and column, in the block tile, of accumulator element i of a thread
+// (the warpgroup layout of tc_gemm.cuh; warp w owns rows 16 w..16 w+15).
+__device__ __forceinline__ int acc_row(int i) {
+  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
+}
+
+// Per 128 tokens t0.. and 128 hidden units n0..: h = y w1 + b1, hg =
+// gelu(h); dh = (dm w2^T) gelu'(h). y, dm (T, C); w1 (C, hidden) read
+// N-major (transposed as it is split), w2 (hidden, C) K-major; hg, dh (T,
+// hidden). gelu'(h) waits in shared memory while the second product runs.
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_hidden_kernel(const float* __restrict__ y, const float* __restrict__ dm,
+                      const float* __restrict__ w1, const float* __restrict__ b1,
+                      const float* __restrict__ w2, float* __restrict__ hg,
+                      float* __restrict__ dh, long long T, int C, int hidden) {
+  constexpr int BN = kHidTile;
+  extern __shared__ __align__(16) float smem[];
+  float* gp = smem;  // gelu'(h), element e of thread i at gp[e * kThreads + i]
+  float* split = gp + kGeluFloats;
+  Ring<> ring;
+  ring.init(split + split_floats(BN), token_stage_floats(BN));
+  const long long t0 = (long long)blockIdx.x * kTcRows;
+  const int n0 = blockIdx.y * kHidTile;
+  const int nk = (C + kTcK - 1) / kTcK;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  AFrag<> af[2];
+  ring.run(
+      nk,
+      [&](int j, float* st) { load_wg_stage<BN, false>(st, y, t0, T, w1, n0, hidden, C, j); },
+      [&](int j, const float* st) { use_wg_stage<BN, false>(acc, st, split, j, af); });
+  wgmma_wait_all();
+  // h = acc + b1: gelu(h) to hg, gelu'(h) to gp
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int c = n0 + acc_col(i);
+    const long long t = t0 + acc_row(i);
+    if (c < hidden) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c));
+      const float h0 = acc[i] + bb.x, h1 = acc[i + 1] + bb.y;
+      if (t < T)
+        *reinterpret_cast<float2*>(hg + t * hidden + c) = make_float2(gelu_erf(h0), gelu_erf(h1));
+      gp[i * kThreads + threadIdx.x] = gelu_erf_grad(h0);
+      gp[(i + 1) * kThreads + threadIdx.x] = gelu_erf_grad(h1);
+    }
+    acc[i] = 0.f;
+    acc[i + 1] = 0.f;
+  }
+  ring.run(
+      nk,
+      [&](int j, float* st) { load_wg_stage<BN, true>(st, dm, t0, T, w2, n0, hidden, C, j); },
+      [&](int j, const float* st) { use_wg_stage<BN, true>(acc, st, split, nk + j, af); });
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int c = n0 + acc_col(i);
+    const long long t = t0 + acc_row(i);
+    if (c < hidden && t < T)
+      *reinterpret_cast<float2*>(dh + t * hidden + c) =
+          make_float2(acc[i] * gp[i * kThreads + threadIdx.x],
+                      acc[i + 1] * gp[(i + 1) * kThreads + threadIdx.x]);
+  }
+}
+
+// Per 128 tokens t0.., every column (BN >= C): dy = A W^T with A (T, K) and
+// W (C, K) as it lies (K-major). LN = false: out = dy. LN = true: the
+// LayerNorm backward of the rows, out = dres + inv (dy g - mean(dy g) - xn
+// mean(dy g xn)) with xn = (xln - mean) inv from stats (T, 2); outs = s[t /
+// hw] out when not null; the block's partial sums of dg = sum dy xn (first
+// C) and dbe = sum dy (next C) to ln_part[blockIdx.x]. dy goes to a shared
+// tile after the products; each warp then walks its own 16 rows, four at a
+// time, reading xln and dres a row at a time with 16-byte loads.
+template <int BN, bool LN>
+__global__ void __launch_bounds__(kThreads, 1)
+    rows_kernel(const float* __restrict__ A, const float* __restrict__ W, long long T, int K,
+                int C, const float* __restrict__ xln, const float* __restrict__ stats,
+                const float* __restrict__ g, const float* __restrict__ dres,
+                const float* __restrict__ s, long long hw, float* __restrict__ out,
+                float* __restrict__ outs, float* __restrict__ ln_part) {
+  constexpr int LDY = BN + 8;  // 8 mod 32: the tile's float2 stores hit 32 banks a half-warp
+  extern __shared__ __align__(16) float smem[];
+  float* split = smem;
+  Ring<> ring;
+  ring.init(split + split_floats(BN), token_stage_floats(BN));
+  const long long t0 = (long long)blockIdx.x * kTcRows;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  AFrag<> af[2];
+  ring.run(
+      (K + kTcK - 1) / kTcK,
+      [&](int j, float* st) { load_wg_stage<BN, true>(st, A, t0, T, W, 0, C, K, j); },
+      [&](int j, const float* st) { use_wg_stage<BN, true>(acc, st, split, j, af); });
+  wgmma_wait_all();
+  __syncthreads();  // every warp is done with the buffers: they become the dy tile
+  float* dy = smem;  // (128, LDY)
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2)
+    *reinterpret_cast<float2*>(dy + acc_row(i) * LDY + acc_col(i)) =
+        make_float2(acc[i], acc[i + 1]);
+  __syncwarp();  // a warp reads back only its own 16 rows
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = C / 4;
+  const float4* dy4 = reinterpret_cast<const float4*>(dy);
+  if constexpr (!LN) {
+    for (int r = 16 * warp; r < 16 * warp + 16 && t0 + r < T; ++r)
+      for (int c4 = lane; c4 < n4; c4 += 32)
+        reinterpret_cast<float4*>(out + (t0 + r) * C)[c4] = dy4[r * (LDY / 4) + c4];
+  } else {
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 gv[2], cg[2] = {zero4, zero4}, cb[2] = {zero4, zero4};
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+      gv[v] =
+          lane + 32 * v < n4 ? __ldg(reinterpret_cast<const float4*>(g) + lane + 32 * v) : zero4;
+    for (int r0 = 16 * warp; r0 < 16 * warp + 16; r0 += 4) {
+      float4 xv[4][2], rv[4][2];
+      float mean[4], inv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long t = t0 + r0 + u;
+        const bool ok = t < T;
+        mean[u] = ok ? __ldg(stats + 2 * t) : 0.f;
+        inv[u] = ok ? __ldg(stats + 2 * t + 1) : 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c4 = lane + 32 * v;
+          const bool in = ok && c4 < n4;
+          xv[u][v] = in ? __ldg(reinterpret_cast<const float4*>(xln + t * C) + c4) : zero4;
+          rv[u][v] = in ? __ldg(reinterpret_cast<const float4*>(dres + t * C) + c4) : zero4;
         }
-      },
-      ln_part);
-}
-
-// One block per 64 consecutive tokens. w1 (C, hidden) as in the forward;
-// w1t (hidden, C), w2t (C, hidden) and wpt (C, C) are the transposes of w1,
-// w2 and wp. Writes, per token: y = LN1(x), its mean and 1/std (stats1),
-// y2 = LN2(z), hg = gelu(h), dm = s2 dout, dh, dz, dzp = s1 dz, datt; and
-// per block the partial sums of dg2 (first C) and dbe2 (next C).
-__global__ void __launch_bounds__(kThreads, 1)
-    block_bwd_tokens_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                            const float* __restrict__ dout, const float* __restrict__ g1,
-                            const float* __restrict__ be1, const float* __restrict__ g2,
-                            const float* __restrict__ be2, const float* __restrict__ w1,
-                            const float* __restrict__ b1, const float* __restrict__ w1t,
-                            const float* __restrict__ w2t, const float* __restrict__ wpt,
-                            const float* __restrict__ s1, const float* __restrict__ s2,
-                            float* __restrict__ y, float* __restrict__ stats1,
-                            float* __restrict__ y2, float* __restrict__ hg,
-                            float* __restrict__ dm, float* __restrict__ dh,
-                            float* __restrict__ dz, float* __restrict__ dzp,
-                            float* __restrict__ datt, float* __restrict__ ln2_part,
-                            long long tokens, long long hw, int C, int hidden, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  float* T1 = smem;                  // (C, 64): y2, then s1 dz
-  float* T2 = T1 + C * kTLd;         // (hidden, 64): h, then dh, then xn2; LN scratch
-  float* T3 = T2 + hidden * kTLd;    // (C, 64): dm, then dy2, then y
-  float* Bs = T3 + C * kTLd;         // weight stage
-  float* st2 = Bs + kStageFloats;    // LN2 mean and 1/std of each row
-  float* st1 = st2 + 2 * kTile;      // LN1 mean and 1/std of each row
-
-  mlp_bwd_tile(z, dout, g2, be2, w1, b1, w1t, w2t, s2, s1, y2, hg, dm, dh, dz, dzp, ln2_part,
-               t0, M, hw, C, hidden, eps, T1, T2, T3, Bs, st2);
-  // datt = dzp wp^T
-  gemm_weights(T1, C, wpt, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
+      }
 #pragma unroll
-                 for (int i = 0; i < 4; ++i)
-                   if (r0 + i < M) datt[(t0 + r0 + i) * C + c] = o[i];
-               });
-  // y = LN1(x), the same arithmetic as the forward's, for the attention side
-  layernorm_t([&](int r) { return x + (t0 + r) * C; }, M, C, g1, be1, eps, T2, st1, T3);
-  __syncthreads();
-  for (int e = threadIdx.x; e < M * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    y[(t0 + r) * C + c] = T3[c * kTLd + r];
-  }
-  for (int r = threadIdx.x; r < M; r += kThreads) {
-    stats1[(t0 + r) * 2] = st1[r];
-    stats1[(t0 + r) * 2 + 1] = st1[kTile + r];
-  }
-}
-
-// The backward of fused_ln_mlp alone (TPU kernel #7), per 64 consecutive
-// tokens: the MLP half of block_bwd_tokens_kernel from x, with dx = dout +
-// LN'(dy). Writes y = LN(x), hg, dm, dh and dx per token and the dg / dbe
-// partial sums per block; the weight gradients come from weight_grad_kernel.
-__global__ void __launch_bounds__(kThreads, 1)
-    ln_mlp_bwd_tokens_kernel(const float* __restrict__ x, const float* __restrict__ dout,
-                             const float* __restrict__ g, const float* __restrict__ be,
-                             const float* __restrict__ w1, const float* __restrict__ b1,
-                             const float* __restrict__ w1t, const float* __restrict__ w2t,
-                             const float* __restrict__ s, float* __restrict__ y,
-                             float* __restrict__ hg, float* __restrict__ dm,
-                             float* __restrict__ dh, float* __restrict__ dx,
-                             float* __restrict__ ln_part, long long tokens, long long hw, int C,
-                             int hidden, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  float* T1 = smem;
-  float* T2 = T1 + C * kTLd;
-  float* T3 = T2 + hidden * kTLd;
-  float* Bs = T3 + C * kTLd;
-  float* st = Bs + kStageFloats;
-  mlp_bwd_tile(x, dout, g, be, w1, b1, w1t, w2t, s, nullptr, y, hg, dm, dh, dx, nullptr, ln_part,
-               t0, M, hw, C, hidden, eps, T1, T2, T3, Bs, st);
-}
-
-// The backward of fused_ln_mlp alone where the per-token kernel's tiles do
-// not fit (C 240 / hidden 480: 286,720 B): the same arithmetic with the
-// hidden units in two halves, so the hidden tile is (hidden/2, 64). Pass
-// p = 1, then 0: h_p = y w1[:, p] + b1[p] and gelu(h_p) to hg, dh_p =
-// (dm w2^T[:, p]) gelu'(h_p) to dh; then dy = dh_0 w1^T[0] + dh_1 w1^T[1],
-// dh_1 read back from dh. Needs hidden even and hidden/2 >= C (the LN
-// scratch and xn live in the hidden tile).
-__global__ void __launch_bounds__(kThreads, 1)
-    ln_mlp_bwd_split_kernel(const float* __restrict__ x, const float* __restrict__ dout,
-                            const float* __restrict__ g, const float* __restrict__ be,
-                            const float* __restrict__ w1, const float* __restrict__ b1,
-                            const float* __restrict__ w1t, const float* __restrict__ w2t,
-                            const float* __restrict__ s, float* __restrict__ y,
-                            float* __restrict__ hg, float* __restrict__ dm,
-                            float* __restrict__ dh, float* __restrict__ dx,
-                            float* __restrict__ ln_part, long long tokens, long long hw, int C,
-                            int hidden, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int half = hidden / 2;
-  float* T1 = smem;                  // (C, 64): y
-  float* T2 = T1 + C * kTLd;         // (hidden/2, 64): h_p, then dh_p; LN scratch, xn
-  float* T3 = T2 + half * kTLd;      // (C, 64): dm, then dy
-  float* Bs = T3 + C * kTLd;         // weight stage
-  float* st = Bs + kStageFloats;     // LN mean and 1/std of each row
-
-  layernorm_t([&](int r) { return x + (t0 + r) * C; }, M, C, g, be, eps, T2, st, T1);
-  __syncthreads();
-  for (int e = threadIdx.x; e < M * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    y[(t0 + r) * C + c] = T1[c * kTLd + r];
-  }
-  // dm = s[b] dout
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    float v = 0.f;
-    if (r < M) {
-      const long long t = t0 + r;
-      v = __ldg(s + t / hw) * __ldg(dout + t * C + c);
-      dm[t * C + c] = v;
+      for (int u = 0; u < 4; ++u) {
+        const int r = r0 + u;
+        const long long t = t0 + r;
+        float4 d[2], xn[2];
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c4 = lane + 32 * v;
+          d[v] = c4 < n4 ? dy4[r * (LDY / 4) + c4] : zero4;
+          xn[v] = make_float4((xv[u][v].x - mean[u]) * inv[u], (xv[u][v].y - mean[u]) * inv[u],
+                              (xv[u][v].z - mean[u]) * inv[u], (xv[u][v].w - mean[u]) * inv[u]);
+          const float4 e = make_float4(d[v].x * gv[v].x, d[v].y * gv[v].y, d[v].z * gv[v].z,
+                                       d[v].w * gv[v].w);
+          sa += (e.x + e.y) + (e.z + e.w);
+          sb += (e.x * xn[v].x + e.y * xn[v].y) + (e.z * xn[v].z + e.w * xn[v].w);
+          cg[v] = make_float4(fmaf(d[v].x, xn[v].x, cg[v].x), fmaf(d[v].y, xn[v].y, cg[v].y),
+                              fmaf(d[v].z, xn[v].z, cg[v].z), fmaf(d[v].w, xn[v].w, cg[v].w));
+          cb[v] = make_float4(cb[v].x + d[v].x, cb[v].y + d[v].y, cb[v].z + d[v].z,
+                              cb[v].w + d[v].w);
+        }
+        const float ma = warp_sum(sa) / C, mb = warp_sum(sb) / C;
+        if (t >= T) continue;
+        const float sc = outs != nullptr ? __ldg(s + t / hw) : 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c4 = lane + 32 * v;
+          if (c4 >= n4) continue;
+          const float4 dx = make_float4(
+              rv[u][v].x + inv[u] * (d[v].x * gv[v].x - ma - xn[v].x * mb),
+              rv[u][v].y + inv[u] * (d[v].y * gv[v].y - ma - xn[v].y * mb),
+              rv[u][v].z + inv[u] * (d[v].z * gv[v].z - ma - xn[v].z * mb),
+              rv[u][v].w + inv[u] * (d[v].w * gv[v].w - ma - xn[v].w * mb));
+          reinterpret_cast<float4*>(out + t * C)[c4] = dx;
+          if (outs != nullptr)
+            reinterpret_cast<float4*>(outs + t * C)[c4] =
+                make_float4(sc * dx.x, sc * dx.y, sc * dx.z, sc * dx.w);
+        }
+      }
     }
-    T3[c * kTLd + r] = v;
-  }
-  for (int p = 1; p >= 0; --p) {
-    const int off = p * half;
-    // h_p = y w1[:, p] + b1[p], kept before the GELU; gelu(h_p) to hg
-    gemm_weights(T1, C, w1, hidden, half, [=](int c) { return off + c; }, Bs,
-                 [&](int r0, int c, const float* o) {
-                   const float bb = __ldg(b1 + off + c);
-                   const float h[4] = {o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb};
-                   *reinterpret_cast<float4*>(T2 + c * kTLd + r0) =
-                       make_float4(h[0], h[1], h[2], h[3]);
+    float* colred = smem + kTcRows * LDY;  // [8 warps][dg | dbe][C]
 #pragma unroll
-                   for (int i = 0; i < 4; ++i)
-                     if (r0 + i < M) hg[(t0 + r0 + i) * hidden + off + c] = gelu_erf(h[i]);
-                 });
-    // dh_p = (dm w2^T[:, p]) * gelu'(h_p), in place of h_p
-    gemm_weights(T3, C, w2t, hidden, half, [=](int c) { return off + c; }, Bs,
-                 [&](int r0, int c, const float* o) {
-                   float* q = T2 + c * kTLd + r0;
-                   const float4 h = *reinterpret_cast<const float4*>(q);
-                   const float d[4] = {o[0] * gelu_erf_grad(h.x), o[1] * gelu_erf_grad(h.y),
-                                       o[2] * gelu_erf_grad(h.z), o[3] * gelu_erf_grad(h.w)};
-                   *reinterpret_cast<float4*>(q) = make_float4(d[0], d[1], d[2], d[3]);
+    for (int v = 0; v < 2; ++v) {
+      const int c4 = lane + 32 * v;
+      if (c4 < n4) {
+        reinterpret_cast<float4*>(colred + 2 * warp * C)[c4] = cg[v];
+        reinterpret_cast<float4*>(colred + (2 * warp + 1) * C)[c4] = cb[v];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float dg = 0.f, db = 0.f;
 #pragma unroll
-                   for (int i = 0; i < 4; ++i)
-                     if (r0 + i < M) dh[(t0 + r0 + i) * hidden + off + c] = d[i];
-                 });
+      for (int w = 0; w < kWarps; ++w) {
+        dg += colred[2 * w * C + c];
+        db += colred[(2 * w + 1) * C + c];
+      }
+      ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
+      ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
+    }
   }
-  // dy = dh_0 w1^T[0] (dh_0 in T2), in place of dm
-  gemm_weights(T2, half, w1t, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 *reinterpret_cast<float4*>(T3 + c * kTLd + r0) =
-                     make_float4(o[0], o[1], o[2], o[3]);
-               });
-  __syncthreads();  // the product is done reading T2
-  for (int e = threadIdx.x; e < kTile * half; e += kThreads) {
-    const int r = e / half, c = e % half;
-    T2[c * kTLd + r] = r < M ? dh[(t0 + r) * hidden + half + c] : 0.f;
-  }
-  // dy += dh_1 w1^T[1]
-  gemm_weights(T2, half, w1t + (size_t)half * C, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 float4* q = reinterpret_cast<float4*>(T3 + c * kTLd + r0);
-                 const float4 a = *q;
-                 *q = make_float4(a.x + o[0], a.y + o[1], a.z + o[2], a.w + o[3]);
-               });
-  __syncthreads();
-  ln_backward_tile(
-      x, g, dout, T3, T2, t0, M, C,
-      [&](int r, float& mean, float& inv) {
-        mean = st[r];
-        inv = st[kTile + r];
+}
+
+// part[z] (M*N + N floats) = A^T B over the tokens [z*chunk, (z+1)*chunk),
+// then the column sums of B over the same tokens (blocks of x-index 0 only):
+// A (T, M) and B (T, N) row-major. One block per 128 x 128 output tile and
+// token chunk, one warpgroup per 64 rows of it. Both operands arrive
+// token-major; tf32 wgmma reads B only K-major (token-contiguous), so each
+// chunk of B is transposed and split into its TF32 hi / lo core-matrix
+// tiles in shared memory (one barrier a chunk), while A goes to registers
+// transposed by its fragment loads. Chunks of 32 tokens on a 3-stage ring:
+// twice the per-token kernels' depth, for half their barriers a token. VEC: M, N and both
+// addresses in multiples of 4 floats (16-byte copies).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    atb_kernel(const float* __restrict__ A, const float* __restrict__ B, long long T, int M,
+               int N, long long chunk, float* __restrict__ part) {
+  constexpr int BN = kTcRows;
+  extern __shared__ __align__(16) float smem[];
+  float* split = smem;
+  Ring<kAtbStages> ring;
+  ring.init(split + split_floats(BN, kAtbK), 2 * kAtbK * kAtbLd);
+  const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcRows;
+  const long long tb = (long long)blockIdx.z * chunk;
+  const long long te = min(T, tb + chunk);
+  const bool sums = blockIdx.x == 0 && threadIdx.x < kTcRows;
+  float colsum = 0.f;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  AFrag<kAtbK> af[2];
+  ring.run(
+      (int)((te - tb + kAtbK - 1) / kAtbK),
+      [&](int j, float* st) {
+        load_tile<kAtbK, kTcRows, VEC>(st, kAtbLd, A, M, tb + j * kAtbK, te, m0, M);
+        load_tile<kAtbK, kTcRows, VEC>(st + kAtbK * kAtbLd, kAtbLd, B, N, tb + j * kAtbK, te, n0,
+                                       N);
       },
-      [&](int, long long t, int c, float d) { dx[t * C + c] = d; }, ln_part);
+      [&](int j, const float* st) {
+        if (sums) {
+#pragma unroll 8
+          for (int k = 0; k < kAtbK; ++k) colsum += st[(kAtbK + k) * kAtbLd + threadIdx.x];
+        }
+        wgmma_chunk<BN, kAtbK, false, false>(acc, st, kAtbLd, 16 * (threadIdx.x / 32),
+                                             st + kAtbK * kAtbLd, kAtbLd, split, j, af);
+      });
+  wgmma_wait_all();
+  const size_t base = (size_t)blockIdx.z * ((size_t)M * N + N);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int m = m0 + acc_row(i), n = n0 + acc_col(i);
+    if (m < M && n < N) part[base + (size_t)m * N + n] = acc[i];
+  }
+  if (sums && n0 + (int)threadIdx.x < N) part[base + (size_t)M * N + n0 + threadIdx.x] = colsum;
+}
+
+// out[i] = sum over s < S of part[s * L + i], s in order.
+__global__ void __launch_bounds__(kThreads)
+    sum_rows_kernel(const float* __restrict__ part, int S, long long L, float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= L) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += __ldg(part + (size_t)s * L + i);
+  out[i] = acc;
+}
+
+inline cudaError_t sum_rows(const float* part, int S, long long L, float* out,
+                            cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((L + kThreads - 1) / kThreads);
+  sum_rows_kernel<<<blocks, kThreads, 0, stream>>>(part, S, L, out);
+  return cudaGetLastError();
+}
+
+// out (M*N + N) = (A^T B, column sums of B) over T tokens, through `part`
+// (atb_part_floats(T, M, N) floats).
+inline cudaError_t weight_grad(const float* A, const float* B, long long T, int M, int N,
+                               float* part, float* out, cudaStream_t stream) {
+  const long long chunk = atb_chunk(T, M, N);
+  const dim3 grid((M + kTcRows - 1) / kTcRows, (N + kTcRows - 1) / kTcRows,
+                  (unsigned)((T + chunk - 1) / chunk));
+  const int smem = atb_smem_bytes();
+  const bool vec = M % 4 == 0 && N % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  cudaError_t err;
+  if (vec) {
+    err = cudaFuncSetAttribute(atb_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    atb_kernel<true><<<grid, kThreads, smem, stream>>>(A, B, T, M, N, chunk, part);
+  } else {
+    err = cudaFuncSetAttribute(atb_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    atb_kernel<false><<<grid, kThreads, smem, stream>>>(A, B, T, M, N, chunk, part);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
+}
+
+inline cudaError_t ln_rows(const float* x, const float* g, const float* be, float* y,
+                           float* stats, const float* dout, const float* s, float* dm,
+                           long long T, long long hw, int C, float eps, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
+  ln_rows_kernel<<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw, C, eps);
+  return cudaGetLastError();
+}
+
+inline cudaError_t mlp_hidden(const float* y, const float* dm, const float* w1, const float* b1,
+                              const float* w2, float* hg, float* dh, long long T, int C,
+                              int hidden, cudaStream_t stream) {
+  const int smem = hidden_smem_bytes();
+  const cudaError_t err =
+      cudaFuncSetAttribute(mlp_hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (hidden + kHidTile - 1) / kHidTile);
+  mlp_hidden_kernel<<<grid, kThreads, smem, stream>>>(y, dm, w1, b1, w2, hg, dh, T, C, hidden);
+  return cudaGetLastError();
+}
+
+template <int BN, bool LN>
+inline cudaError_t rows_launch(const float* A, const float* W, long long T, int K, int C,
+                               const float* xln, const float* stats, const float* g,
+                               const float* dres, const float* s, long long hw, float* out,
+                               float* outs, float* ln_part, cudaStream_t stream) {
+  const int smem = rows_smem_bytes(C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rows_kernel<BN, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((T + kTcRows - 1) / kTcRows);
+  rows_kernel<BN, LN><<<blocks, kThreads, smem, stream>>>(A, W, T, K, C, xln, stats, g, dres, s,
+                                                          hw, out, outs, ln_part);
+  return cudaGetLastError();
+}
+
+// rows_kernel at the column tile of C (<= 256); W (C, K).
+template <bool LN>
+inline cudaError_t rows(const float* A, const float* W, long long T, int K, int C,
+                        const float* xln, const float* stats, const float* g, const float* dres,
+                        const float* s, long long hw, float* out, float* outs, float* ln_part,
+                        cudaStream_t stream) {
+  switch (rows_cols(C)) {
+    case 64:
+      return rows_launch<64, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                 ln_part, stream);
+    case 128:
+      return rows_launch<128, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                  ln_part, stream);
+    case 192:
+      return rows_launch<192, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                  ln_part, stream);
+    default:
+      return rows_launch<256, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                  ln_part, stream);
+  }
 }
 
 // One block per 8x8 window of the map rolled by (-shift, -shift), as in the
@@ -487,123 +711,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// One block per 64 consecutive tokens: dy = dqkv wq^T (wqt is wq's
-// transpose, (3C, C)), then the LN1 backward dx = dz + LN1'(dy) with the
-// stats the tokens kernel saved; per block the partial sums of dg1 (first
-// C) and dbe1 (next C).
-__global__ void __launch_bounds__(kThreads, 1)
-    block_bwd_ln1_kernel(const float* __restrict__ dqkv, const float* __restrict__ wqt,
-                         const float* __restrict__ x, const float* __restrict__ stats1,
-                         const float* __restrict__ g1, const float* __restrict__ dz,
-                         float* __restrict__ dx, float* __restrict__ ln1_part, long long tokens,
-                         int C) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int C3 = 3 * C;
-  float* DQ = smem;                  // (3C, 64) dqkv; then xn (C, 64)
-  float* DY = DQ + C3 * kTLd;        // (C, 64)
-  float* Bs = DY + C * kTLd;         // weight stage
-
-  for (int e = threadIdx.x; e < kTile * C3; e += kThreads) {
-    const int r = e / C3, c = e % C3;
-    DQ[c * kTLd + r] = r < M ? __ldg(dqkv + (t0 + r) * C3 + c) : 0.f;
-  }
-  gemm_weights(DQ, C3, wqt, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 *reinterpret_cast<float4*>(DY + c * kTLd + r0) =
-                     make_float4(o[0], o[1], o[2], o[3]);
-               });
-  __syncthreads();
-  ln_backward_tile(
-      x, g1, dz, DY, DQ, t0, M, C,
-      [&](int r, float& mean, float& inv) {
-        mean = __ldg(stats1 + 2 * (t0 + r));
-        inv = __ldg(stats1 + 2 * (t0 + r) + 1);
-      },
-      [&](int, long long t, int c, float d) { dx[t * C + c] = d; }, ln1_part);
-}
-
-// part[z] (M*N + N floats) = A^T B over the tokens [z*chunk, (z+1)*chunk),
-// then the column sums of B over the same tokens (blocks of x-index 0 only):
-// A (T, M) and B (T, N) row-major. One block per 64x64 output tile and
-// token chunk; 4x4 outputs per thread.
-__global__ void __launch_bounds__(kThreads)
-    weight_grad_kernel(const float* __restrict__ A, const float* __restrict__ B, long long T,
-                       int M, int N, int chunk, float* __restrict__ part) {
-  __shared__ __align__(16) float As[kAtbK * kAtbLd];
-  __shared__ __align__(16) float Bsh[kAtbK * kAtbLd];
-  const int m0 = blockIdx.x * kAtbTile, n0 = blockIdx.y * kAtbTile;
-  const long long tb = (long long)blockIdx.z * chunk;
-  const long long te = min(T, tb + chunk);
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  const bool sums = blockIdx.x == 0 && threadIdx.x < kAtbTile;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float colsum = 0.f;
-  for (long long t = tb; t < te; t += kAtbK) {
-    for (int e = threadIdx.x; e < kAtbK * kAtbTile; e += kThreads) {
-      const int kk = e / kAtbTile, i = e % kAtbTile;
-      const long long tt = t + kk;
-      As[kk * kAtbLd + i] = (tt < te && m0 + i < M) ? __ldg(A + tt * M + m0 + i) : 0.f;
-      Bsh[kk * kAtbLd + i] = (tt < te && n0 + i < N) ? __ldg(B + tt * N + n0 + i) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kAtbK; ++kk) {
-      const float4 a = ld4(As + kk * kAtbLd + rg * 4);
-      const float4 bv = ld4(Bsh + kk * kAtbLd + cl * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    if (sums) {
-      for (int kk = 0; kk < kAtbK; ++kk) colsum += Bsh[kk * kAtbLd + threadIdx.x];
-    }
-    __syncthreads();
-  }
-  const size_t base = (size_t)blockIdx.z * ((size_t)M * N + N);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + rg * 4 + i;
-    if (m >= M) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + cl * 4 + j;
-      if (n < N) part[base + (size_t)m * N + n] = acc[i][j];
-    }
-  }
-  if (sums && n0 + (int)threadIdx.x < N) part[base + (size_t)M * N + n0 + threadIdx.x] = colsum;
-}
-
-// out[i] = sum over s < S of part[s * L + i], s in order.
-__global__ void __launch_bounds__(kThreads)
-    sum_rows_kernel(const float* __restrict__ part, int S, long long L, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= L) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += __ldg(part + (size_t)s * L + i);
-  out[i] = acc;
-}
-
 }  // namespace trr
 
 extern "C" {
 
-size_t trr_bwd_tokens_smem_bytes(int C, int hidden) {
-  return (size_t)trr::bwd_tokens_smem_floats(C, hidden) * sizeof(float);
-}
+size_t trr_rows_smem_bytes(int C) { return (size_t)trr::rows_smem_bytes(C); }
+size_t trr_hidden_smem_bytes() { return (size_t)trr::hidden_smem_bytes(); }
+size_t trr_atb_smem_bytes() { return (size_t)trr::atb_smem_bytes(); }
 size_t trr_bwd_attn_smem_bytes(int C, int nh) {
   return (size_t)trr::bwd_attn_smem_floats(C, nh) * sizeof(float);
 }
-size_t trr_bwd_ln1_smem_bytes(int C) { return (size_t)trr::bwd_ln1_smem_floats(C) * sizeof(float); }
-size_t trr_bwd_tokens_split_smem_bytes(int C, int hidden) {
-  return (size_t)trr::bwd_tokens_split_smem_floats(C, hidden) * sizeof(float);
+size_t trr_weight_grad_part_floats(int T, int M, int N) {
+  return (size_t)trr::atb_part_floats(T, M, N);
 }
 
 // The forward: x, out, att, z (B, H, W, C); P (B, H/8, W/8, nh, 64, 64);
@@ -623,95 +742,94 @@ int trr_swin_block_fwd(const float* x, const float* g1, const float* be1, const 
                                      eps, stream);
 }
 
-int trr_block_bwd_tokens(const float* x, const float* z, const float* dout, const float* g1,
-                         const float* be1, const float* g2, const float* be2, const float* w1,
-                         const float* b1, const float* w1t, const float* w2t, const float* wpt,
-                         const float* s1, const float* s2, float* y, float* stats1, float* y2,
-                         float* hg, float* dm, float* dh, float* dz, float* dzp, float* datt,
-                         float* ln2_part, int B, int H, int W, int C, int hidden, float eps,
-                         cudaStream_t stream) {
-  const int floats = trr::bwd_tokens_smem_floats(C, hidden);
-  const cudaError_t err = trr::set_smem(trr::block_bwd_tokens_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
-  trr::block_bwd_tokens_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      x, z, dout, g1, be1, g2, be2, w1, b1, w1t, w2t, wpt, s1, s2, y, stats1, y2, hg, dm, dh, dz,
-      dzp, datt, ln2_part, tokens, (long long)H * W, C, hidden, eps);
-  return (int)cudaGetLastError();
+#define TRR_TRY(call)                      \
+  do {                                     \
+    const cudaError_t e_ = (call);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+
+// The backward of fused_ln_mlp (#7): x, dout, dx (B, H, W, C); g, be (C);
+// w1 (C, hidden), b1 (hidden), w2 (hidden, C) as the forward takes them;
+// s (B). Scratch: y, dm (T, C), stats (T, 2), hg, dh (T, hidden), ln_part
+// (ceil(T / 128), 2C), part (the largest trr_weight_grad_part_floats of
+// the two gradients). Writes dx, dln = dg | dbe (2C), d1 = dw1 | db1
+// (C * hidden + hidden) and d2 = dw2 | db2 (hidden * C + C).
+int trr_ln_mlp_bwd(const float* x, const float* dout, const float* g, const float* be,
+                   const float* w1, const float* b1, const float* w2, const float* s, float* y,
+                   float* stats, float* dm, float* hg, float* dh, float* ln_part, float* part,
+                   float* dx, float* dln, float* d1, float* d2, int B, int H, int W, int C,
+                   int hidden, float eps, cudaStream_t stream) {
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::ln_rows(x, g, be, y, stats, dout, s, dm, T, hw, C, eps, stream));
+  TRR_TRY(trr::mlp_hidden(y, dm, w1, b1, w2, hg, dh, T, C, hidden, stream));
+  TRR_TRY(trr::rows<true>(dh, w1, T, hidden, C, x, stats, g, dout, nullptr, hw, dx, nullptr,
+                          ln_part, stream));
+  TRR_TRY(trr::weight_grad(hg, dm, T, hidden, C, part, d2, stream));
+  TRR_TRY(trr::weight_grad(y, dh, T, C, hidden, part, d1, stream));
+  return (int)trr::sum_rows(ln_part, (int)((T + trr::kTcRows - 1) / trr::kTcRows), 2LL * C, dln,
+                            stream);
 }
 
-// The backward of fused_ln_mlp: x, dout, dx (B, H, W, C); g, be (C);
-// w1 (C, hidden), b1 (hidden) and the transposes w1t (hidden, C), w2t
-// (C, hidden); s (B). Writes y, dm (T, C), hg, dh (T, hidden), dx and
-// ln_part (ceil(T / 64), 2C). The per-token kernel where its tiles fit one
-// block's shared memory (232,448 B), else its two-pass form.
-int trr_ln_mlp_bwd_tokens(const float* x, const float* dout, const float* g, const float* be,
-                          const float* w1, const float* b1, const float* w1t, const float* w2t,
-                          const float* s, float* y, float* hg, float* dm, float* dh, float* dx,
-                          float* ln_part, int B, int H, int W, int C, int hidden, float eps,
-                          cudaStream_t stream) {
-  const bool whole = trr::bwd_tokens_smem_floats(C, hidden) * sizeof(float) <= 232448;
-  const int floats = whole ? trr::bwd_tokens_smem_floats(C, hidden)
-                           : trr::bwd_tokens_split_smem_floats(C, hidden);
-  const cudaError_t err = whole ? trr::set_smem(trr::ln_mlp_bwd_tokens_kernel, floats)
-                                : trr::set_smem(trr::ln_mlp_bwd_split_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
-  if (whole) {
-    trr::ln_mlp_bwd_tokens_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-        x, dout, g, be, w1, b1, w1t, w2t, s, y, hg, dm, dh, dx, ln_part, tokens,
-        (long long)H * W, C, hidden, eps);
-  } else {
-    trr::ln_mlp_bwd_split_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-        x, dout, g, be, w1, b1, w1t, w2t, s, y, hg, dm, dh, dx, ln_part, tokens,
-        (long long)H * W, C, hidden, eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-int trr_block_bwd_attn(const float* y, const float* wq, const float* bq, const float* P,
-                       const float* datt, float* dqkv, float* dS, int B, int H, int W, int C,
-                       int nh, int shift, float scale, cudaStream_t stream) {
+// The saved-P backward of the whole block (#5): operands as the forward
+// takes them, and P, att, z from it; dout (B, H, W, C). Scratch: y, y2, dm,
+// dz, dzp, datt (T, C), stats1, stats2 (T, 2), hg, dh (T, hidden), dqkv
+// (T, 3C), dS shaped as P, ln_part (ceil(T / 128), 2C), part (the largest
+// trr_weight_grad_part_floats of the four gradients). Writes dx; dln1 =
+// dg1 | dbe1 and dln2 = dg2 | dbe2 (2C each); dq = dwq | dbq, dp = dwp |
+// dbp, d1 = dw1 | db1, d2 = dw2 | db2; dbias (kinds, nh, 64, 64).
+int trr_swin_block_bwd(const float* x, const float* z, const float* dout, const float* P,
+                       const float* att, const float* g1, const float* be1, const float* wq,
+                       const float* bq, const float* wp, const float* g2, const float* be2,
+                       const float* w1, const float* b1, const float* w2, const float* s1,
+                       const float* s2, float* y, float* stats1, float* y2, float* stats2,
+                       float* dm, float* hg, float* dh, float* dz, float* dzp, float* datt,
+                       float* dqkv, float* dS, float* ln_part, float* part, float* dx,
+                       float* dln1, float* dq, float* dp, float* dbias, float* dln2, float* d1,
+                       float* d2, int B, int H, int W, int C, int nh, int hidden, int kinds,
+                       int shift, float eps, float scale, cudaStream_t stream) {
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  const int nblk = (int)((T + trr::kTcRows - 1) / trr::kTcRows);
+  // the MLP half: dz, dzp = s1 dz
+  TRR_TRY(trr::ln_rows(z, g2, be2, y2, stats2, dout, s2, dm, T, hw, C, eps, stream));
+  TRR_TRY(trr::ln_rows(x, g1, be1, y, stats1, nullptr, nullptr, nullptr, T, hw, C, eps, stream));
+  TRR_TRY(trr::mlp_hidden(y2, dm, w1, b1, w2, hg, dh, T, C, hidden, stream));
+  TRR_TRY(trr::rows<true>(dh, w1, T, hidden, C, z, stats2, g2, dout, s1, hw, dz, dzp, ln_part,
+                          stream));
+  TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln2, stream));
+  // the attention half: datt, then dqkv and dS per window, then dx
+  TRR_TRY(trr::rows<false>(dzp, wp, T, C, C, nullptr, nullptr, nullptr, nullptr, nullptr, hw,
+                           datt, nullptr, nullptr, stream));
   const int floats = trr::bwd_attn_smem_floats(C, nh);
-  const cudaError_t err = trr::set_smem(trr::block_bwd_attn_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
+  TRR_TRY(trr::set_smem(trr::block_bwd_attn_kernel, floats));
   const dim3 grid((H / 8) * (W / 8), B);
   trr::block_bwd_attn_kernel<<<grid, trr::kThreads, floats * sizeof(float), stream>>>(
       y, wq, bq, P, datt, dqkv, dS, H, W, C, nh, shift, scale);
-  return (int)cudaGetLastError();
+  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::rows<true>(dqkv, wq, T, 3 * C, C, x, stats1, g1, dz, nullptr, hw, dx, nullptr,
+                          ln_part, stream));
+  TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln1, stream));
+  TRR_TRY(trr::weight_grad(hg, dm, T, hidden, C, part, d2, stream));
+  TRR_TRY(trr::weight_grad(y2, dh, T, C, hidden, part, d1, stream));
+  TRR_TRY(trr::weight_grad(att, dzp, T, C, C, part, dp, stream));
+  TRR_TRY(trr::weight_grad(y, dqkv, T, C, 3 * C, part, dq, stream));
+  return (int)trr::launch_dbias(dS, B, H / 8, W / 8, nh, kinds, trr::kTile * trr::kTile, dbias,
+                                stream);
 }
 
-int trr_block_bwd_ln1(const float* dqkv, const float* wqt, const float* x, const float* stats1,
-                      const float* g1, const float* dz, float* dx, float* ln1_part, int B, int H,
-                      int W, int C, cudaStream_t stream) {
-  const int floats = trr::bwd_ln1_smem_floats(C);
-  const cudaError_t err = trr::set_smem(trr::block_bwd_ln1_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  const unsigned blocks = (unsigned)((tokens + trr::kTile - 1) / trr::kTile);
-  trr::block_bwd_ln1_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      dqkv, wqt, x, stats1, g1, dz, dx, ln1_part, tokens, C);
-  return (int)cudaGetLastError();
-}
-
-// part: ceil(T / chunk) rows of M*N + N floats (see weight_grad_kernel).
-int trr_weight_grad(const float* A, const float* B, int T, int M, int N, int chunk, float* part,
+// out (M*N + N) = (A^T B, column sums of B) of A (T, M) and B (T, N), through
+// part (trr_weight_grad_part_floats(T, M, N) floats).
+int trr_weight_grad(const float* A, const float* B, int T, int M, int N, float* part, float* out,
                     cudaStream_t stream) {
-  const dim3 grid((M + trr::kAtbTile - 1) / trr::kAtbTile, (N + trr::kAtbTile - 1) / trr::kAtbTile,
-                  (T + chunk - 1) / chunk);
-  trr::weight_grad_kernel<<<grid, trr::kThreads, 0, stream>>>(A, B, T, M, N, chunk, part);
-  return (int)cudaGetLastError();
+  return (int)trr::weight_grad(A, B, T, M, N, part, out, stream);
 }
 
 int trr_sum_rows(const float* part, int S, int L, float* out, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((L + trr::kThreads - 1) / trr::kThreads);
-  trr::sum_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(part, S, L, out);
-  return (int)cudaGetLastError();
+  return (int)trr::sum_rows(part, S, L, out, stream);
 }
 
-int trr_dbias(const float* dS, int B, int nwh, int nww, int nh, int kinds, float* dbias,
+// dbias (kinds, nh, 64, 64) from dS (B, H/8, W/8, nh, 64, 64), which the
+// reduction overwrites.
+int trr_dbias(float* dS, int B, int nwh, int nww, int nh, int kinds, float* dbias,
               cudaStream_t stream) {
   return (int)trr::launch_dbias(dS, B, nwh, nww, nh, kinds, trr::kTile * trr::kTile, dbias,
                                 stream);

@@ -32,7 +32,7 @@ SOURCES = {
     "jpeg_block": "jpeg_block.cu",
     "window_attention": "window_attention.cu",
 }
-HEADERS = ("common.cuh", "block_fwd.cuh")
+HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -61,17 +61,16 @@ SIGNATURES = {
     },
     "fused_block_train": {
         "trr_swin_block_fwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_block_bwd_tokens": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
-        "trr_block_bwd_attn": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),
-        "trr_block_bwd_ln1": ([_P] * 8 + [_I] * 4 + [_P], _I),
-        "trr_weight_grad": ([_P] * 2 + [_I] * 4 + [_P, _P], _I),
+        "trr_swin_block_bwd": ([_P] * 39 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_ln_mlp_bwd": ([_P] * 19 + [_I] * 5 + [_F, _P], _I),
+        "trr_weight_grad": ([_P] * 2 + [_I] * 3 + [_P] * 3, _I),
+        "trr_weight_grad_part_floats": ([_I] * 3, ctypes.c_size_t),
         "trr_sum_rows": ([_P, _I, _I, _P, _P], _I),
         "trr_dbias": ([_P] + [_I] * 5 + [_P, _P], _I),
-        "trr_ln_mlp_bwd_tokens": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
-        "trr_bwd_tokens_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_rows_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_hidden_smem_bytes": ([], ctypes.c_size_t),
+        "trr_atb_smem_bytes": ([], ctypes.c_size_t),
         "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "trr_bwd_ln1_smem_bytes": ([_I], ctypes.c_size_t),
-        "trr_bwd_tokens_split_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "fused_block_v2": {
         "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),

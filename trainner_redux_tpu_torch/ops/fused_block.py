@@ -57,7 +57,16 @@ from trainner_redux_tpu_torch.ops.window_attention import (
 )
 
 STAGE_FLOATS = 2 * 32 * 96  # double-buffered weight stage (kStageFloats)
-WEIGHT_GRAD_CHUNK = 512  # tokens per partial sum of the weight gradients
+# The tensor-core engine of the training backwards (csrc/tc_gemm.cuh): a ring
+# of TC_STAGES operand chunks TC_K deep ([row][k] rows TC_LD floats apart),
+# TC_SPLIT buffers of a weight chunk's TF32 halves, block tiles of TC_ROWS
+# tokens; the weight gradients take chunks ATB_K deep on ATB_STAGES stages.
+# A rows_kernel tile spans a row of at most ROWS_MAX_C channels.
+TC_STAGES, TC_K, TC_LD, TC_SPLIT, TC_ROWS = 4, 16, 20, 3, 128
+ATB_K, ATB_STAGES = 32, 3
+ROWS_MAX_C = 256
+# the whole block's backward (#5) is held to the widths checked on the card
+SWIN_BLOCK_MAX_C = 192
 # window -> query rows of a thread block of the staged attention kernels
 # (csrc/attn_block_staged.cu): #1 at 12x12, #6 at 12x12 and 8x8
 STAGED_ROWS = {12: 48, 8: 64}
@@ -141,16 +150,57 @@ def ln_mlp_fits(h, window_size, channels, hidden) -> bool:
     return ln_mlp_smem_bytes(channels, hidden) <= SMEM_LIMIT
 
 
+def _ring_bytes(stage_floats: int, stages: int = TC_STAGES) -> int:
+    """Shared memory of an operand ring: the stages and two mbarriers each."""
+    return stages * (4 * stage_floats + 16)
+
+
+def rows_tile_cols(channels: int) -> int:
+    """Columns of a rows_kernel tile: the least of 64, 128, 192 and 256 that
+    spans a row of `channels`."""
+    return next(n for n in (64, 128, 192, 256) if channels <= n)
+
+
+def _split_bytes(cols: int, depth: int = TC_K) -> int:
+    """The TC_SPLIT buffers of a (cols, depth) chunk's TF32 hi and lo tiles."""
+    return 4 * TC_SPLIT * 2 * cols * depth
+
+
+def _wg_bytes(cols: int) -> int:
+    """A per-token kernel's buffers: the split buffers, and a ring of a
+    (128, 16) token chunk and a raw (cols, 16) weight chunk ([n][k] rows of
+    20 floats, or [k][n] rows of cols + 8) a stage."""
+    raw = max(cols * TC_LD, TC_K * (cols + 8))
+    return _split_bytes(cols) + _ring_bytes(TC_ROWS * TC_LD + raw)
+
+
+def rows_smem_bytes(channels: int) -> int:
+    """Shared memory of rows_kernel (csrc/fused_block_train.cu)."""
+    return _wg_bytes(rows_tile_cols(channels))
+
+
+def mlp_hidden_smem_bytes() -> int:
+    """Shared memory of mlp_hidden_kernel: gelu'(h) of its (128, 128) tile
+    besides a per-token kernel's buffers."""
+    return 4 * TC_ROWS * 128 + _wg_bytes(128)
+
+
+def weight_grad_smem_bytes() -> int:
+    """Shared memory of atb_kernel: the split buffers of a (128, 32) chunk,
+    then a 3-stage ring of two (32, 128 + 8) token-major chunks a stage."""
+    return (_split_bytes(TC_ROWS, ATB_K)
+            + _ring_bytes(2 * ATB_K * (TC_ROWS + 8), ATB_STAGES))
+
+
 def ln_mlp_bwd_fits(channels: int, hidden: int) -> bool:
-    """The MLP half's backward (the per-token kernel of
-    csrc/fused_block_train.cu) within one thread block's shared memory, or
-    its two-pass form, whose hidden tile is half as tall (it keeps the LN
-    scratch and xn, so hidden / 2 holds C and 64 (C + 1) floats)."""
-    if bwd_tokens_smem_bytes(channels, hidden) <= SMEM_LIMIT:
-        return True
-    half = hidden // 2
-    return (hidden % 2 == 0 and half >= channels and 64 * (channels + 1) <= half * TILE_LD
-            and bwd_tokens_split_smem_bytes(channels, hidden) <= SMEM_LIMIT)
+    """The MLP half's backward (#7, csrc/fused_block_train.cu): a row of at
+    most ROWS_MAX_C channels (one rows_kernel tile spans it, for the LN
+    backward's row sums), C and hidden in multiples of 4 (16-byte copies),
+    and each kernel's plan within one thread block's shared memory."""
+    if channels > ROWS_MAX_C or channels % 4 or hidden % 4:
+        return False
+    return max(rows_smem_bytes(channels), mlp_hidden_smem_bytes(),
+               weight_grad_smem_bytes()) <= SMEM_LIMIT
 
 
 def fused_mlp_supported(h: int, w: int, rows: int, channels: int, hidden: int,
@@ -225,16 +275,28 @@ def _sum_rows(part):
     return out
 
 
+def _part_floats(t: int, m: int, n: int) -> int:
+    """Floats of the partial sums of one weight gradient (atb_kernel)."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+
+    return cuda_build.library("fused_block_train").trr_weight_grad_part_floats(t, m, n)
+
+
+def _split_grad(buf, m: int, n: int):
+    """(dW (m, n), db (n)) of a weight gradient's m * n + n floats."""
+    return buf[: m * n].view(m, n), buf[m * n :]
+
+
 def _weight_grad(a, bmat):
-    """(A^T B, column sums of B) over the T rows of a (T, M) and bmat (T, N):
-    partial sums over WEIGHT_GRAD_CHUNK-token chunks, added in order."""
+    """(A^T B, column sums of B) over the T rows of a (T, M) and bmat (T, N),
+    on the tensor cores in 3xTF32: partial sums over token chunks, added in
+    a fixed order."""
     t, m, nn = a.shape[0], a.shape[1], bmat.shape[1]
-    part = torch.empty((math.ceil(t / WEIGHT_GRAD_CHUNK), m * nn + nn), device=a.device,
-                       dtype=torch.float32)
+    part = torch.empty(_part_floats(t, m, nn), device=a.device, dtype=torch.float32)
+    out = torch.empty(m * nn + nn, device=a.device, dtype=torch.float32)
     _launch("fused_block_train", "trr_weight_grad", a.device, a.data_ptr(), bmat.data_ptr(), t, m,
-            nn, WEIGHT_GRAD_CHUNK, part.data_ptr())
-    out = _sum_rows(part)
-    return out[: m * nn].view(m, nn), out[m * nn :]
+            nn, part.data_ptr(), out.data_ptr())
+    return _split_grad(out, m, nn)
 
 
 def _launch(lib_name: str, fn_name: str, device, *args) -> None:
@@ -301,9 +363,10 @@ def fused_ln_mlp_bwd_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size, e
 def fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e-5):
     """The MLP backward (TPU kernel #7): dx, dg, dbe, dw1, db1, dw2, db2, as
     `fused_ln_mlp_bwd_reference` returns them. On a CUDA tensor it launches
-    the per-token kernel and the weight-gradient kernels of
-    `csrc/fused_block_train.cu` (one counted call); on a CPU tensor it runs
-    the plain version."""
+    the kernels of `csrc/fused_block_train.cu` (one counted call: LN rows,
+    the hidden-unit products, the LN backward's products, the weight
+    gradients, on the tensor cores in 3xTF32); on a CPU tensor it runs the
+    plain version."""
     if x.device.type == "cpu":
         return fused_ln_mlp_bwd_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps)
     name = "fused_ln_mlp_backward"
@@ -317,25 +380,23 @@ def fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e
     for k, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
         _check_cuda(k, t, shape, dev)
     _check_cuda("dout", dout, tuple(x.shape), dev)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
 
     def new(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    y, dm, hg, dh = new(T, c), new(T, c), new(T, hidden), new(T, hidden)
-    dx, ln_part = torch.empty_like(x), new(math.ceil(T / 64), 2 * c)
+    y, dm, stats, hg, dh = new(T, c), new(T, c), new(T, 2), new(T, hidden), new(T, hidden)
+    ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
+    part = new(max(_part_floats(T, hidden, c), _part_floats(T, c, hidden)))
+    dx, dln = torch.empty_like(x), new(2 * c)
+    d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
     fused_ln_mlp_backward.launches += 1
     _launch(
-        "fused_block_train", "trr_ln_mlp_bwd_tokens", dev,
-        x.data_ptr(), dout.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), s.data_ptr(), y.data_ptr(),
-        hg.data_ptr(), dm.data_ptr(), dh.data_ptr(), dx.data_ptr(), ln_part.data_ptr(),
+        "fused_block_train", "trr_ln_mlp_bwd", dev,
+        *(t.data_ptr() for t in (x, dout, g, be, w1, b1, w2, s, y, stats, dm, hg, dh, ln_part,
+                                 part, dx, dln, d1, d2)),
         b, hh, ww, c, hidden, eps,
     )
-    dw2, db2 = _weight_grad(hg, dm)
-    dw1, db1 = _weight_grad(y, dh)
-    dg, dbe = _sum_rows(ln_part).split(c)
-    return dx, dg, dbe, dw1, db1, dw2, db2
+    return (dx, *dln.split(c), *_split_grad(d1, c, hidden), *_split_grad(d2, hidden, c))
 
 
 fused_ln_mlp_backward.launches = 0
@@ -709,11 +770,6 @@ fused_attn_block_train.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def bwd_tokens_smem_bytes(channels: int, hidden: int) -> int:
-    """Shared memory of the backward's per-token kernel (csrc/fused_block_train.cu)."""
-    return 4 * ((2 * channels + hidden) * TILE_LD + STAGE_FLOATS + 4 * 64)
-
-
 def bwd_attn_smem_bytes(channels: int, num_heads: int) -> int:
     """Shared memory of the backward's per-window kernel."""
     hd = channels // num_heads
@@ -721,28 +777,18 @@ def bwd_attn_smem_bytes(channels: int, num_heads: int) -> int:
                 + STAGE_FLOATS)
 
 
-def bwd_ln1_smem_bytes(channels: int) -> int:
-    """Shared memory of the backward's LN1 kernel."""
-    return 4 * (4 * channels * TILE_LD + STAGE_FLOATS)
-
-
-def bwd_tokens_split_smem_bytes(channels: int, hidden: int) -> int:
-    """Shared memory of the MLP half's backward in two passes over the
-    hidden units (csrc/fused_block_train.cu), where the one-pass plan does
-    not fit."""
-    return 4 * ((2 * channels + hidden // 2) * TILE_LD + STAGE_FLOATS + 2 * 64)
-
-
 def swin_block_train_fits(h, w, window_size, channels, num_heads, hidden) -> bool:
-    """The training kernels' limits: 8x8 windows, and the forward halves'
-    and the three backward kernels' shared-memory plans within one thread
-    block's."""
-    if window_size != WINDOW or not (attn_block_fits(h, w, window_size, channels, num_heads)
+    """The training kernels' limits: 8x8 windows, rows of at most
+    SWIN_BLOCK_MAX_C channels (SwinIR-L's 240 keeps the unfused branch), the
+    forward halves' plans, the MLP half's backward (`ln_mlp_bwd_fits`) and
+    the per-window backward kernel's plan within one thread block's."""
+    if window_size != WINDOW or channels > SWIN_BLOCK_MAX_C:
+        return False
+    if not (attn_block_fits(h, w, window_size, channels, num_heads)
             and ln_mlp_fits(h, window_size, channels, hidden)):
         return False
-    return max(bwd_tokens_smem_bytes(channels, hidden),
-               bwd_attn_smem_bytes(channels, num_heads),
-               bwd_ln1_smem_bytes(channels)) <= SMEM_LIMIT
+    return (ln_mlp_bwd_fits(channels, hidden)
+            and bwd_attn_smem_bytes(channels, num_heads) <= SMEM_LIMIT)
 
 
 def _roll(t, shift):
@@ -899,7 +945,8 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
     """The saved-P backward (TPU kernel #5): dx and the 13 parameter
     gradients, as `fused_swin_block_train_bwd_reference` returns them. On a
     CUDA tensor it launches the kernels of `csrc/fused_block_train.cu` (one
-    counted call); on a CPU tensor it runs the plain version."""
+    counted call; every product but the per-window attention's on the
+    tensor cores in 3xTF32); on a CPU tensor it runs the plain version."""
     if x.device.type == "cpu":
         return fused_swin_block_train_bwd_reference(
             x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2, P, att, z, dout, kinds,
@@ -921,49 +968,30 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
     _check_cuda("s1", s1, (b,), dev)
     _check_cuda("s2", s2, (b,), dev)
     T = b * hh * ww
-    # the transposed weights of the products dX = dY W^T
-    wqt, wpt, w1t, w2t = (w.t().contiguous() for w in (wq, wp, w1, w2))
 
     def new(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
     y, y2, dm, dz, dzp, datt = (new(T, c) for _ in range(6))
+    stats1, stats2, dqkv = new(T, 2), new(T, 2), new(T, 3 * c)
     hg, dh = new(T, hidden), new(T, hidden)
-    stats1, dqkv, ds, dx = new(T, 2), new(T, 3 * c), torch.empty_like(P), torch.empty_like(x)
-    nblk = math.ceil(T / 64)
-    ln2_part, ln1_part = new(nblk, 2 * c), new(nblk, 2 * c)
+    ds, dx = torch.empty_like(P), torch.empty_like(x)
+    ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
+    part = new(max(_part_floats(T, m, k)
+                   for m, k in ((hidden, c), (c, hidden), (c, c), (c, 3 * c))))
+    dln1, dln2, dbias = new(2 * c), new(2 * c), new(kinds, num_heads, n, n)
+    dq, dp = new(c * 3 * c + 3 * c), new(c * c + c)
+    d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
     fused_swin_block_train_backward.launches += 1
-    lib = "fused_block_train"
     _launch(
-        lib, "trr_block_bwd_tokens", dev,
-        x.data_ptr(), z.data_ptr(), dout.data_ptr(), g1.data_ptr(), be1.data_ptr(),
-        g2.data_ptr(), be2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(),
-        w2t.data_ptr(), wpt.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-        y.data_ptr(), stats1.data_ptr(), y2.data_ptr(), hg.data_ptr(), dm.data_ptr(),
-        dh.data_ptr(), dz.data_ptr(), dzp.data_ptr(), datt.data_ptr(), ln2_part.data_ptr(),
-        b, hh, ww, c, hidden, eps,
+        "fused_block_train", "trr_swin_block_bwd", dev,
+        *(t.data_ptr() for t in (x, z, dout, P, att, g1, be1, wq, bq, wp, g2, be2, w1, b1, w2, s1,
+                                 s2, y, stats1, y2, stats2, dm, hg, dh, dz, dzp, datt, dqkv, ds,
+                                 ln_part, part, dx, dln1, dq, dp, dbias, dln2, d1, d2)),
+        b, hh, ww, c, num_heads, hidden, kinds, shift, eps, head_dim**-0.5,
     )
-    _launch(
-        lib, "trr_block_bwd_attn", dev,
-        y.data_ptr(), wq.data_ptr(), bq.data_ptr(), P.data_ptr(), datt.data_ptr(),
-        dqkv.data_ptr(), ds.data_ptr(), b, hh, ww, c, num_heads, shift, head_dim**-0.5,
-    )
-    _launch(
-        lib, "trr_block_bwd_ln1", dev,
-        dqkv.data_ptr(), wqt.data_ptr(), x.data_ptr(), stats1.data_ptr(), g1.data_ptr(),
-        dz.data_ptr(), dx.data_ptr(), ln1_part.data_ptr(), b, hh, ww, c,
-    )
-
-    dw2, db2 = _weight_grad(hg, dm)
-    dw1, db1 = _weight_grad(y2, dh)
-    dwp, dbp = _weight_grad(att.view(T, c), dzp)
-    dwq, dbq = _weight_grad(y, dqkv)
-    dg2, dbe2 = _sum_rows(ln2_part).split(c)
-    dg1, dbe1 = _sum_rows(ln1_part).split(c)
-    dbias = new(kinds, num_heads, n, n)
-    _launch(lib, "trr_dbias", dev, ds.data_ptr(), b, nwh, nww, num_heads, kinds,
-            dbias.data_ptr())
-    return dx, dg1, dbe1, dwq, dbq, dwp, dbp, dbias, dg2, dbe2, dw1, db1, dw2, db2
+    return (dx, *dln1.split(c), *_split_grad(dq, c, 3 * c), *_split_grad(dp, c, c), dbias,
+            *dln2.split(c), *_split_grad(d1, c, hidden), *_split_grad(d2, hidden, c))
 
 
 fused_swin_block_train_backward.launches = 0
