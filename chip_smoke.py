@@ -80,7 +80,9 @@ failure:
              the cosine-attention half (#11) and its backward (#12), the MLP
              half (#13) and its backward (#14), each against its plain
              version, two backward runs bit-identical; times and the card's
-             bound; #11 and #13 also at B=1, 128x128 (serving).
+             bound; #12's device time by stage at K=4 and its time against
+             the fp32 and the 3xTF32 bounds; #11 and #13 also at B=1,
+             128x128 (serving).
 22. swin2sr path - `test.run` on a seeded Swin2SR-M 4x and the 4 images,
              counting 36 #11 and 36 #13 launches an image; one 128x128
              forward timed through the kernel branch and the unfused branch
@@ -124,9 +126,9 @@ failure:
              1/0.9): #1 on its staged kernels and its recompute backward #6,
              K=1 and K=4 shifted by 6; #2 and #7; each
              against its plain version, #6 and #7 bit-identical over two
-             runs; times and the card's bound; #7's device time by stage
-             and its time against both bounds; #1 and #2 also at B=1,
-             144x144 (a 128x128 image, served).
+             runs; times and the card's bound; #6's (K=1) and #7's device
+             time by stage and their times against both bounds; #1 and #2
+             also at B=1, 144x144 (a 128x128 image, served).
 31. srformerv2 path - `test.run` on a seeded SRFormerV2 4x and the 4
              images, counting 18 #1 and 18 #2 launches an image; one 128x128
              forward timed through the kernel branch and the plain branch
@@ -154,7 +156,9 @@ failure:
              for bit; the block against the same block through
              `fused_attn_block` (#1/#6) and, at 8x8, `fused_swin_block_train`
              (#4/#5); times of #9, #10, #1 and #6 and of the two blocks, the
-             card's bound, and each block's peak memory.
+             card's bound, and each block's peak memory; at each block's
+             last K, #10's device time by stage against both bounds, and at
+             8x8 #6's.
 
 Each phase prints its seconds. Then one JSON line of kernel records and,
 last, the device JSON line.
@@ -434,31 +438,52 @@ def nbytes(*ts) -> int:
 
 
 def stage_of(kernel: str) -> str:
-    """The stage of #5 or #7 (csrc/fused_block_train.cu) a kernel runs."""
-    for part, stage in (("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
-                        ("rows_kernel<", "dy and the LN backward"),
+    """The stage of a staged training backward that a kernel (by its
+    profiler name) runs: #5 and #7 (csrc/fused_block_train.cu), #6 and #10
+    (csrc/attn_block_staged.cu), #12 (csrc/fused_block_v2.cu); their
+    per-token kernels are csrc/tc_rows.cuh's. rows_kernel's epilogue mode is
+    its second template argument: 0 stores A W^T (datt), 1 adds a residual
+    (#12's dx), 2 takes the LayerNorm backward."""
+    for part, stage in (("postnorm_ln_rows_kernel", "post-norm LN backward"),
+                        ("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
+                        ("linear_kernel", "x W + b"),
+                        ("cos_attn_rows_kernel", "window attention forward"),
                         ("block_bwd_attn_kernel", "window attention"),
+                        ("attn_rows_bwd_tc_kernel", "window attention"),
+                        ("attn_rows_bwd_saved_kernel", "window attention"),
+                        ("cos_attn_bwd_tc_kernel", "window attention"),
                         ("atb_kernel", "weight gradients"), ("sum_rows_kernel", "partial sums"),
                         ("dbias", "bias table")):
         if part in kernel:
-            if part == "rows_kernel<" and "false>" in kernel:
-                return "datt"
             return stage
+    if "rows_kernel<" in kernel:
+        mode = kernel.split("rows_kernel<", 1)[1].split(">", 1)[0].split(",")[-1].strip()
+        return {"0": "datt", "1": "dx = dout + dqkv wq^T"}.get(mode, "dy and the LN backward")
     return kernel[:60]
 
 
-# launches a call of each stage (csrc/fused_block_train.cu's entry points)
+# launches a call of each stage (the entry points of csrc/fused_block_train.cu,
+# csrc/attn_block_staged.cu and csrc/fused_block_v2.cu); "x W + b" is qkv (and
+# #12's proj), the partial sums those of the weight gradients and the
+# LayerNorm (and #12's dscale), the bias table two passes
 STAGES_5 = {"LN rows": 2, "fc1 and dh": 1, "dy and the LN backward": 2, "datt": 1,
             "window attention": 1, "weight gradients": 4, "partial sums": 6, "bias table": 2}
 STAGES_7 = {"LN rows": 1, "fc1 and dh": 1, "dy and the LN backward": 1, "weight gradients": 2,
             "partial sums": 3}
+STAGES_6 = {"LN rows": 1, "x W + b": 1, "datt": 1, "window attention": 1,
+            "dy and the LN backward": 1, "weight gradients": 2, "partial sums": 3,
+            "bias table": 2}
+STAGES_12 = {"x W + b": 2, "window attention forward": 1, "post-norm LN backward": 1, "datt": 1,
+             "window attention": 1, "dx = dout + dqkv wq^T": 1, "weight gradients": 2,
+             "partial sums": 4, "bias table": 2}
 
 
 def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
                 per_call: dict[str, int], calls: int = 3) -> None:
-    """Device time by stage of one call of #5 or #7, and the call's time
-    `ms` against both bounds: fp32 on the FMA units (67 TFLOP/s) and 3xTF32
-    on the tensor cores (3 x operations at 495 TFLOP/s). A stage's time is
+    """Device time by stage of one call of a staged training backward (#5,
+    #6, #7, #10 or #12), and the call's time `ms` against both bounds: fp32
+    on the FMA units (67 TFLOP/s) and 3xTF32 on the tensor cores (3 x
+    operations at 495 TFLOP/s). A stage's time is
     its launches' mean device time (torch.profiler over `calls` calls; the
     table goes to chip_smoke/stages.txt) times its `per_call` launches: the
     profiler may keep only some of a session's launches."""
@@ -1602,6 +1627,10 @@ def phase_swin2sr_kernels() -> dict:
                           flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads), bwd_err,
                           f", largest error {worst:.3g} of its tensor's max |g|, two runs "
                           "bit-identical")
+            if name == "fused_cos_attn_block" and kinds == 4:  # #12 as the JSON line has it
+                stage_split("swin2sr kernels", f"{name}_backward K=4", bwd,
+                            flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads),
+                            res[f"{name}_backward"]["ms"], STAGES_12)
 
     # the serving shapes: B=1, one 128x128 image, shifted
     x, p, bias = v2_inputs(gen, 4, dev, (B, H, W))
@@ -2099,6 +2128,9 @@ def phase_srformerv2_kernels() -> dict:
             if bname == "fused_ln_mlp_backward_c240":
                 stage_split("srformerv2 kernels", bname, bwd, flops[bname],
                             nbytes(*operands, s, dout, *grads), res[bname]["ms"], STAGES_7)
+            elif kinds == 1:  # #6 at the path's own K
+                stage_split("srformerv2 kernels", f"{bname} K=1", bwd, flops[bname],
+                            nbytes(*operands, s, dout, *grads), res[bname]["ms"], STAGES_6)
 
     # the serving shapes: B=1, one 128x128 image padded to 144x144
     x, p, bias, _ = block_inputs(gen, 1, dev, (B, SRF_SERVE, SRF_SERVE), SRF_WIDTHS)
@@ -2271,6 +2303,14 @@ def phase_attn_train() -> tuple[dict, dict]:
             f_ms, b_ms = res[fname]["ms"], res[bname]["ms"]
             rf_ms, rb_ms = time_ms(rec_fwd, iters=10, warmup=2), time_ms(rec_bwd, iters=10,
                                                                          warmup=2)
+            if kinds == kind_order[-1]:  # #10 (#6's stages), and #6 at 8x8 (phase 30: 12x12)
+                stage_split("attn train", f"{bname} {case}", bwd, bwd_flops,
+                            nbytes(*attn, s1, want[1], want[2], dout, *bgrads), b_ms, STAGES_6)
+                if ws == WS:
+                    t = shape[0] * shape[1] * shape[2]
+                    stage_split("attn train", f"fused_attn_block_backward {case}", rec_bwd,
+                                22 * t * c * c + 12 * t * n * c,
+                                nbytes(*ops[:8], s1, dout, *bgrads), rb_ms, STAGES_6)
             say(f"[attn train] {case}: saved-P pair #9 {f_ms:.4f} + #10 {b_ms:.4f} = "
                 f"{f_ms + b_ms:.4f} ms; recompute pair #1 {rf_ms:.4f} + #6 {rb_ms:.4f} = "
                 f"{rf_ms + rb_ms:.4f} ms; P {got[1].numel() * 4 / 1e6:.1f} MB")

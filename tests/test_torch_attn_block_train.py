@@ -162,11 +162,12 @@ def test_with_mlp_matches_swin_block_train(kinds):
 
 def test_gate_and_plan():
     """`attn_block_train_fits` takes SwinIR-M's and SRFormerV2's training
-    blocks and refuses other windows, heads of more than 32 channels and a
-    P of 2^31 entries or more; the saved-P backward's attention stage at
-    12x12 windows, C 240, 8 heads of 30 takes v and k once, q and dA of 48
-    rows twice and the (48, 148) P / dS tile (82,176 bytes), under LN +
-    qkv's two (C, 68) tiles and weight stage."""
+    blocks and refuses other windows, heads of more than 32 channels, rows
+    the engine's per-token kernels do not take and a P of 2^31 entries or
+    more; the saved-P backward's attention stage at 12x12 windows, C 240, 8
+    heads of 30 takes v and k once, q and dA of 48 rows twice and the (48,
+    148) P / dS tile (82,176 bytes), under the engine's per-token kernels
+    that it shares with #6 (the LN1 backward's over the C 240 row)."""
     fits = tfb.attn_block_train_fits
     assert fits(64, 64, 8, 180, 6, batch=8)
     assert fits(72, 72, 12, 240, 8, batch=8)
@@ -174,13 +175,15 @@ def test_gate_and_plan():
         assert not fits(ws * 8, ws * 8, ws, 180, 6)
     assert not fits(64, 64, 8, 198, 6)  # heads of 33
     assert not fits(72, 72, 12, 264, 8)
+    assert not fits(64, 64, 8, 288, 12)  # heads of 24, but rows of 288 channels
+    assert not fits(64, 64, 8, 90, 3)  # rows of 90 channels: not 16-byte rows
     # P of B * H * W * heads * n floats: 2^31 at B 4, 1024x1024, 8 heads of 64 tokens
     assert fits(1024, 1024, 8, 240, 8, batch=3)
     assert not fits(1024, 1024, 8, 240, 8, batch=4)
-    stage = 2 * 32 * 96
     saved = 30 * 144 + 144 * 32 + 30 * 48 + 2 * 48 * 32 + 48 * 148
     assert 4 * saved == 82_176
-    assert tfb.attn_train_bwd_smem_bytes(240, 8, 12) == 4 * max(2 * 240 * 68 + stage + 128, saved)
+    assert tfb.attn_train_bwd_smem_bytes(240, 8, 12) == max(
+        tfb.linear_smem_bytes(), tfb.rows_smem_bytes(240), 4 * saved) == 221_248
     assert tfb.attn_train_bwd_smem_bytes(240, 8, 12) <= tfb.attn_staged_bwd_smem_bytes(240, 8, 12)
 
 

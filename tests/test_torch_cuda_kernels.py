@@ -477,26 +477,29 @@ COS_NAMES = ("x", "wq", "bq", "scale", "wp", "bp", "g", "be", "bias")
 PN_NAMES = ("x", "w1", "b1", "w2", "b2", "g2", "be2")
 
 
-def _v2_inputs(device, kinds, seed=0):
+def _v2_inputs(device, kinds, seed=0, shape=(B, H, W)):
     """SwinIR-M-wide inputs plus the temperatures exp(min(logit, log 100)),
     between 1 and 100, that the cosine attention takes."""
-    p = _inputs(device, kinds, seed)
+    p = _inputs(device, kinds, seed, shape=shape)
     gen = torch.Generator().manual_seed(seed + 100)
     p["scale"] = torch.exp(torch.rand(NH, generator=gen) * 4.6).to(device)
     return p
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, 0), (4, WS // 2)])
-def test_fused_cos_attn_block_kernels(cuda, kinds, shift):
+@pytest.mark.parametrize(("kinds", "shift", "shape"), [(1, 0, (B, H, W)), (4, 0, (B, H, W)),
+                                                       (4, WS // 2, (B, H, W)),
+                                                       (4, WS // 2, (1, 16, 40))])
+def test_fused_cos_attn_block_kernels(cuda, kinds, shift, shape):
     """#11 (z) and #12 (dx and the eight parameter gradients) against their
-    plain versions."""
+    plain versions; 1 x 16 x 40 leaves #12's engine stages a ragged last
+    tile of 128 tokens."""
     from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
 
-    p = _v2_inputs(cuda, kinds)
+    p = _v2_inputs(cuda, kinds, shape=shape)
     ops = [p[k] for k in COS_NAMES]
     meta = (NH, HD, WS, 1e-5, shift)
-    dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
+    dout = torch.randn(*p["x"].shape, generator=torch.Generator().manual_seed(7)).to(cuda)
     n0 = (v2.fused_cos_attn_block.launches, v2.fused_cos_attn_block_backward.launches)
     with torch.no_grad():
         got = v2.fused_cos_attn_block(*ops, p["s2"], *meta)
@@ -544,11 +547,14 @@ def test_postnorm_backwards_are_deterministic(cuda):
     from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
 
     p = _v2_inputs(cuda, 4)
+    p1 = _v2_inputs(cuda, 1)
     dout = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(7)).to(cuda)
     cos = [p[k] for k in COS_NAMES]
+    cos1 = [p1[k] for k in COS_NAMES]
     mlp = [p[k] for k in PN_NAMES]
     for fn in (lambda: v2.fused_cos_attn_block_backward(*cos, p["s2"], dout, NH, HD, WS,
                                                         shift=WS // 2),
+               lambda: v2.fused_cos_attn_block_backward(*cos1, p1["s2"], dout, NH, HD, WS),
                lambda: v2.fused_postnorm_mlp_backward(*mlp, p["s2"], dout, WS)):
         runs = [fn() for _ in range(2)]
         for a, b in zip(*runs):
@@ -570,6 +576,9 @@ def test_postnorm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         v2.fused_cos_attn_block(cos[0][:, :60].contiguous(), *cos[1:], p["s"], NH, HD, WS)
     with pytest.raises(ValueError, match="shape"):  # one temperature for 6 heads
         v2.fused_cos_attn_block(*cos[:3], p["scale"][:1], *cos[4:], p["s"], NH, HD, WS)
+    x = torch.empty(cos[0].numel() + 1, device=cuda)[1:].view(cos[0].shape)
+    with pytest.raises(ValueError, match="16-byte"):  # the engine's 16-byte rows
+        v2.fused_cos_attn_block_backward(x, *cos[1:], p["s"], x, NH, HD, WS)
     with pytest.raises(ValueError, match="limits"):  # Swin2SR-L's MLP backward: no room
         x = torch.zeros(1, 8, 8, 240, device=cuda)
         w1, w2 = torch.zeros(240, 480, device=cuda), torch.zeros(480, 240, device=cuda)
@@ -587,9 +596,8 @@ def test_postnorm_shared_memory_plans_match_the_source(cuda):
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
         assert lib.trr_cos_attn_fwd_smem_bytes(c, nh) == v2.cos_attn_fwd_smem_bytes(c, nh)
         assert lib.trr_pn_mlp_fwd_smem_bytes(c, hidden) == v2.pn_mlp_fwd_smem_bytes(c, hidden)
-        assert lib.trr_postnorm_ln_bwd_smem_bytes(c) == v2.postnorm_ln_bwd_smem_bytes(c)
-        assert lib.trr_cos_attn_bwd_smem_bytes(c // nh) == v2.cos_attn_bwd_smem_bytes(c // nh)
-        assert lib.trr_qkv_dx_smem_bytes(c) == v2.qkv_dx_smem_bytes(c)
+        assert lib.trr_cos_attn_rows_smem_bytes(c // nh) == v2.cos_attn_rows_smem_bytes(c // nh)
+        assert lib.trr_cos_attn_bwd_smem_bytes() == v2.cos_attn_bwd_smem_bytes()
         assert lib.trr_pn_mlp_bwd_smem_bytes(c, hidden) == v2.pn_mlp_bwd_smem_bytes(c, hidden)
 
 
@@ -740,6 +748,60 @@ def test_fused_attn_block_ws12_kernels(cuda, kinds, shift):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(("ws", "kinds", "shift"), [(8, 1, 0), (8, 4, 0), (8, 4, WS // 2),
+                                                    (12, 4, 0), (12, 4, SWS // 2)])
+def test_fused_attn_block_backward_kernel(cuda, ws, kinds, shift):
+    """#6 (its tensor-core stages) at SwinIR-M's widths with 8x8 windows and
+    SRFormerV2's with 12x12, K=1 and K=4 unshifted and shifted by half the
+    window, against its plain version: each gradient within 1e-4 of its
+    tensor's largest entry, bit-identical over two runs, one count a call."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    if ws == WS:
+        p, nh = _inputs(cuda, kinds), NH
+    else:
+        p, nh = _ws12_inputs(cuda, kinds), SNH
+    args = [p[k] for k in ATTN_NAMES] + [p["s"]]
+    meta = (nh, p["x"].shape[-1] // nh, ws, 1e-5, shift)
+    dout = torch.randn(p["x"].shape, generator=torch.Generator().manual_seed(12)).to(cuda)
+    n0 = fb.fused_attn_block_backward.launches
+    grads = fb.fused_attn_block_backward(*args, dout, *meta)
+    again = fb.fused_attn_block_backward(*args, dout, *meta)
+    torch.cuda.synchronize()
+    assert fb.fused_attn_block_backward.launches == n0 + 2
+    plain = fb.fused_attn_block_bwd_reference(*args, dout, *meta)
+    for name, g, w, g2 in zip(("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias"), grads,
+                              plain, again):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+def test_attn_backwards_refuse_what_the_new_plans_do_not_take(cuda):
+    """#6 and #10 run their per-token stages on the engine: rows of at most
+    256 channels in multiples of 4, each tensor on a 16-byte boundary."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, 1)
+    args = [p[k] for k in ATTN_NAMES] + [p["s"]]
+    x = torch.empty(p["x"].numel() + 1, device=cuda)[1:].view(p["x"].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fb.fused_attn_block_backward(x, *args[1:], x, NH, HD, WS)
+    P = torch.empty(B, H // WS, W // WS, NH, N, N, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fb.fused_attn_block_train_backward(x, *args[1:7], p["s"], P, p["x"], x, 1, NH, HD, WS)
+    # 90 channels, 3 heads of 30: the forward takes them, the backwards do not
+    gen = torch.Generator().manual_seed(3)
+    c = 90
+    ops = [torch.randn(*shape, generator=gen).to(cuda) for shape in (
+        (1, 8, 8, c), (c,), (c,), (c, 3 * c), (3 * c,), (c, c), (c,), (1, 3, 64, 64), (1,))]
+    assert fb.attn_block_fits(8, 8, WS, c, 3)
+    with pytest.raises(ValueError, match="limits"):
+        fb.fused_attn_block_backward(*ops, ops[0], 3, 30, WS)
+
+
+@pytest.mark.cuda
 def test_fused_ln_mlp_at_c240_kernels(cuda):
     """#2 and #7 (its two-pass plan) at C 240, hidden 480, against their
     plain versions; #7 bit-identical over two runs."""
@@ -774,6 +836,7 @@ def test_staged_shared_memory_plans_match_the_sources(cuda):
             assert lib.trr_attn_staged_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_staged_bwd_smem_bytes(c, nh, ws))
         assert lib_tr.trr_rows_smem_bytes(c) == fb.rows_smem_bytes(c)
+    assert lib_tr.trr_linear_smem_bytes() == fb.linear_smem_bytes()
 
 
 @pytest.mark.cuda

@@ -159,20 +159,30 @@ def test_fused_block_v2_gate(monkeypatch):
 
 
 def test_shared_memory_plans_at_swin2sr_m():
-    """The plans the kernels carve (csrc/fused_block_v2.cu), fp32, at
-    Swin2SR-M's C=180, 6 heads of 30, hidden 360: transposed (C, 68)
-    tiles, the (64, C + 1) rows of the post-norm, a 2 x 32 x 96 weight
-    stage."""
+    """The plans the kernels carve (csrc/fused_block_v2.cu, csrc/tc_rows.cuh),
+    fp32, at Swin2SR-M's C=180, 6 heads of 30, hidden 360: transposed (C,
+    68) tiles, the (64, C + 1) rows of the post-norm, a 2 x 32 x 96 weight
+    stage; #12's per-window forward stage (q^, k^ (30, 68), v (64, 32), the
+    score tile, the inverse norms), its per-window backward on the tensor
+    cores (q, k, v, datt rows of 36 floats, the (64, 68) P / dS tile, the
+    exchanges, norms, warp sums and token indices) and its per-token stages
+    on the engine (qkv and proj at 128-column tiles, datt and dx over a
+    192-column row)."""
     stage = 2 * 32 * 96
     assert tv2.cos_attn_fwd_smem_bytes(180, 6) == 4 * (
         2 * 180 * 68 + 2 * 30 * 68 + 64 * 32 + 64 * 68 + stage + 128)
     assert tv2.pn_mlp_fwd_smem_bytes(180, 360) == 4 * (180 * 68 + 360 * 68 + stage)
-    assert tv2.postnorm_ln_bwd_smem_bytes(180) == 4 * (64 * 181 + 180 * 68 + stage + 192)
-    assert tv2.cos_attn_bwd_smem_bytes(30) == 4 * (4 * 64 * 32 + 4 * 30 * 68 + 3 * 64 * 68
-                                                   + 128 + 8)
-    assert tv2.qkv_dx_smem_bytes(180) == 4 * (3 * 180 * 68 + stage)
+    assert tv2.cos_attn_rows_smem_bytes(30) == 4 * (2 * 30 * 68 + 64 * 32 + 64 * 68 + 128)
+    assert tv2.cos_attn_bwd_smem_bytes() == 4 * (4 * 64 * 36 + 64 * 68 + 6 * 64 + 128 + 8 + 64)
+    assert tv2.rows_smem_bytes(180) == 4 * (6 * 192 * 16 + 4 * (128 * 20 + 192 * 20) + 16)
+    assert tv2.linear_smem_bytes() == 131_136
     assert tv2.pn_mlp_bwd_smem_bytes(180, 360) == 4 * (2 * 180 * 68 + 360 * 68 + stage + 192)
     # the post-norm rows fit the (C, 68) tile they share from C = 16 on
     assert all(64 * (c + 1) <= c * 68 for c in (16, 60, 180, 240))
-    assert max(tv2.pn_mlp_bwd_smem_bytes(180, 360), tv2.qkv_dx_smem_bytes(180)) <= tv2.SMEM_LIMIT
+    assert max(tv2.pn_mlp_bwd_smem_bytes(180, 360), tv2.rows_smem_bytes(180)) <= tv2.SMEM_LIMIT
     assert tv2.pn_mlp_bwd_smem_bytes(240, 480) > tv2.SMEM_LIMIT
+    # #12 trains rows the engine takes: at most 256 channels, multiples of 4
+    assert tv2.cos_attn_fits(48, 48, 8, 180, 6, train=True)
+    assert tv2.cos_attn_fits(48, 48, 8, 240, 8, train=True)
+    assert not tv2.cos_attn_fits(48, 48, 8, 90, 3, train=True)
+    assert tv2.cos_attn_fits(48, 48, 8, 90, 3)  # the forward alone takes them

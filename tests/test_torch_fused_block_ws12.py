@@ -137,22 +137,30 @@ def test_gates_at_srformerv2_widths(monkeypatch):
 
 def test_shared_memory_plans_at_srformerv2_widths():
     """The plans the kernels carve (csrc/attn_block_staged.cu,
-    csrc/fused_block_train.cu), fp32, at C 240, 8 heads of 30, hidden 480:
-    LN + qkv in two (C, 68) tiles and a 2 x 32 x 96 weight stage; the
-    backward's attention stage k, v twice, q and dA of 48 rows twice, the
-    (48, 148) score tile; #7's engine: rings of 4 stages of a (128, 16)
-    token chunk and a raw (256, 16) weight chunk spanning the C 240 row
-    (rows of 20 floats; 16 bytes of mbarriers a stage besides), three
-    buffers of the weight chunk's TF32 hi and lo tiles, and the hidden-unit
-    kernel's (128, 128) tile of gelu'(h)."""
+    csrc/tc_rows.cuh, csrc/fused_block_train.cu), fp32, at C 240, 8 heads
+    of 30, hidden 480: the forward's LN + qkv in two (C, 68) tiles and a 2 x
+    32 x 96 weight stage; the backward's tensor-core window attention k and
+    v of 144 tokens and q, dA, att and dq of 48 rows padded to 36 floats,
+    the (48, 148) P / dS tile, three (2, 48) exchanges and 144 token indices
+    (99,264 bytes: two blocks a SM), under its largest per-token kernel; #6's and #7's engine: rings
+    of 4 stages of a (128, 16) token chunk and a raw (256, 16) weight chunk
+    spanning the C 240 row (rows of 20 floats; 16 bytes of mbarriers a
+    stage besides), three buffers of the weight chunk's TF32 hi and lo
+    tiles, the qkv kernel's 128-column tile and the hidden-unit kernel's
+    (128, 128) tile of gelu'(h)."""
     stage = 2 * 32 * 96
     assert tfb.attn_staged_fwd_smem_bytes(240, 8, 12) == 4 * (2 * 240 * 68 + stage + 128)
-    attn_bwd = 2 * 30 * 144 + 2 * 144 * 32 + 2 * 30 * 48 + 2 * 48 * 32 + 48 * 148
-    assert tfb.attn_staged_bwd_smem_bytes(240, 8, 12) == 4 * max(2 * 240 * 68 + stage + 128,
-                                                                  attn_bwd)
+    attn_bwd = 2 * 144 * 36 + 4 * 48 * 36 + 48 * 148 + 6 * 48 + 144
+    assert tfb.attn_rows_bwd_tc_smem_bytes(12) == 4 * attn_bwd == 99_264
+    assert 2 * (tfb.attn_rows_bwd_tc_smem_bytes(12) + 1024) <= 228 * 1024  # two blocks a SM
+    assert tfb.attn_rows_bwd_tc_smem_bytes(8) == 4 * (2 * 64 * 36 + 4 * 64 * 36 + 64 * 68
+                                                      + 6 * 64 + 64)
     ring = 4 * (128 * 20 + 256 * 20) * 4 + 4 * 16  # token and raw weight chunks, mbarriers
     assert tfb.rows_smem_bytes(240) == 3 * 2 * 256 * 16 * 4 + ring == 221_248
     assert tfb.rows_smem_bytes(240) <= tfb.SMEM_LIMIT
+    assert tfb.linear_smem_bytes() == 4 * (6 * 128 * 16 + 4 * 2 * 128 * 20 + 16) == 131_136
+    assert tfb.attn_staged_bwd_smem_bytes(240, 8, 12) == max(
+        tfb.linear_smem_bytes(), tfb.rows_smem_bytes(240), 4 * attn_bwd) == 221_248
     assert tfb.mlp_hidden_smem_bytes() == 4 * (128 * 128 + 6 * 128 * 16 + 4 * 2 * 128 * 20 + 16)
     assert tfb.weight_grad_smem_bytes() == 4 * (6 * 128 * 32 + 3 * (2 * 32 * 136 + 4)) == 202_800
     assert tfb.ln_mlp_bwd_fits(240, 480)

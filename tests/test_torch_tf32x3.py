@@ -1,15 +1,21 @@
 """Why the training backwards' products split each operand (3xTF32).
 
 The engine of `trainner_redux_tpu_torch/csrc/tc_gemm.cuh` runs every
-product of #5 and #7 on the tensor cores, which read TF32 (10 mantissa
-bits). It splits each fp32 operand x into hi = rna_tf32(x) and lo =
-rna_tf32(x - hi) and accumulates lo*hi + hi*lo + hi*hi in fp32, one
-mma.sync k-step of 8 at a time. This file emulates that arithmetic on the
-CPU, bit for bit in its rounding of the operands, at the kernels' product
-shapes (small T), and holds it within 1e-5 of a float64 product relative to
-the largest entry of the output; plain 1xTF32 (hi*hi alone) must miss by at
-least 20 times as much, which is why the split is there.
+per-token product of #5, #6, #7, #10 and #12 on the tensor cores, and #6's
+window attention runs its six products on mma.sync; both read TF32 (10
+mantissa bits). Each fp32 operand x is split into hi = rna_tf32(x) and lo =
+rna_tf32(x - hi), and a product accumulates lo*hi + hi*lo + hi*hi in fp32,
+one k-step of 8 at a time. This file emulates that arithmetic on the CPU,
+bit for bit in its rounding of the operands, at the kernels' product shapes
+(small T), and holds it within 1e-5 of a float64 product relative to the
+largest entry of the output; plain 1xTF32 (hi*hi alone) must miss by at
+least 20 times as much, which is why the split is there. The attention
+backward of one window and head (n 144 in row blocks of 48, n 64 in one
+block, head dim 30 zero-padded to 32) keeps each of its outputs within 1e-4
+of the float64 result's largest entry; 1xTF32 misses that limit.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -30,10 +36,21 @@ def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna_tf32(x - hi)
 
 
-def product(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 bits cleared: a TF32 value, rounded toward zero."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_trunc(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mma.sync helpers' split (tc_gemm.cuh): hi and lo by truncation."""
+    hi = trunc_tf32(x)
+    return hi, trunc_tf32(x - hi)
+
+
+def product(a: torch.Tensor, b: torch.Tensor, terms: int, split=split) -> torch.Tensor:
     """a (M, K) @ b (K, N) as the kernels sum it: an fp32 accumulator that
     takes, for every k-step of 8 in order, lo*hi, hi*lo, then hi*hi (terms
-    3), or hi*hi alone (terms 1)."""
+    3), or hi*hi alone (terms 1), each operand split by `split`."""
     ah, al = split(a)
     bh, bl = split(b)
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
@@ -77,7 +94,7 @@ def test_3xtf32_holds_fp32_accuracy_where_1xtf32_does_not(rows, depth, cols, sca
 
 def test_the_split_is_exact_in_tf32():
     """hi and lo carry 10 mantissa bits each (their low 13 bits are 0), and
-    hi + lo is x to within 2^-21 of |x|."""
+    hi + lo is x to within 2^-21 of |x| (2^-20 by truncation)."""
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
     hi, lo = split(x)
     for part in (hi, lo):
@@ -87,3 +104,78 @@ def test_the_split_is_exact_in_tf32():
     # ties go away from zero: 1 + 2^-11 lies halfway between two TF32 values
     tie = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11)], dtype=torch.float32)
     assert rna_tf32(tie).tolist() == [1 + 2.0**-10, -(1 + 2.0**-10)]
+    # the truncating split of the mma.sync helpers: TF32 halves, hi + lo
+    # within 2^-20 of |x|
+    hi, lo = split_trunc(x)
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    gap = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool((gap <= 2.0**-20 * x.double().abs()).all())
+
+
+HD, HD_PAD = 30, 32  # a head's channels, padded to the kernel's 32
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_case(n: int, rb: int):
+    """One window and head: seeded q, k, v, datt (n, 30) and an (n, n) bias."""
+    rng = np.random.default_rng(n)
+    q, k, v, da = (rng.standard_normal((n, HD)).astype(np.float32) for _ in range(4))
+    table = (rng.standard_normal((n, n)) * 0.5).astype(np.float32)
+    return q, k, v, da, table
+
+
+def _attention_exact(n: int, rb: int) -> dict:
+    q, k, v, da, table = (torch.from_numpy(a).double() for a in _attention_case(n, rb))
+    scale = HD**-0.5
+    p = torch.softmax(q @ k.T * scale + table, -1)
+    dp = da @ v.T
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return {"att": p @ v, "dq": scale * ds @ k, "dk": scale * ds.T @ q, "dv": p.T @ da, "dS": ds}
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_kernel(n: int, rb: int, terms: int) -> dict:
+    """The window attention's backward as attn_rows_bwd_tc_kernel takes it:
+    the query rows in blocks of rb, the six products through `product` with
+    the truncating split on the zero-padded rows (S = q k^T, att = P v, dV
+    += P^T dA, dP = dA v^T, dQ = scale dS k, dK += dS^T q, dK scaled at the
+    end), the softmax and dS in fp32."""
+    q, k, v, da = (torch.nn.functional.pad(torch.from_numpy(a), (0, HD_PAD - HD))
+                   for a in _attention_case(n, rb)[:4])
+    table = torch.from_numpy(_attention_case(n, rb)[4])
+    scale = HD**-0.5
+    att, dq, dss = [], [], []
+    dv, dk = torch.zeros(n, HD_PAD), torch.zeros(n, HD_PAD)
+    mm = functools.partial(product, terms=terms, split=split_trunc)
+    for r0 in range(0, n, rb):
+        rows = slice(r0, r0 + rb)
+        p = torch.softmax(mm(q[rows], k.T.contiguous()) * scale + table[rows], -1)
+        att.append(mm(p, v))
+        dv = dv + mm(p.T.contiguous(), da[rows])
+        dp = mm(da[rows], v.T.contiguous())
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dss.append(ds)
+        dq.append(scale * mm(ds, k))
+        dk = dk + mm(ds.T.contiguous(), q[rows])
+    return {"att": torch.cat(att)[:, :HD], "dq": torch.cat(dq)[:, :HD], "dk": scale * dk[:, :HD],
+            "dv": dv[:, :HD], "dS": torch.cat(dss)}
+
+
+def _attention_error(n: int, rb: int, terms: int, name: str) -> float:
+    want = _attention_exact(n, rb)[name]
+    got = _attention_kernel(n, rb, terms)[name].double()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("name", ["att", "dq", "dk", "dv", "dS"])
+@pytest.mark.parametrize(("n", "rb"), [(144, 48), (64, 64)], ids=["n144", "n64"])
+def test_attention_backward_in_3xtf32_holds_the_gradient_limit(n, rb, name):
+    """The window attention on mma.sync (#6's; #12's is the same at n 64):
+    each output within 1e-4 of its largest entry against float64 in
+    3xTF32; 1xTF32 misses the limit."""
+    err3 = _attention_error(n, rb, 3, name)
+    err1 = _attention_error(n, rb, 1, name)
+    assert err3 <= 1e-4, err3
+    assert err1 > 1e-4, err1
+    assert err1 >= 20 * err3, (err1, err3)

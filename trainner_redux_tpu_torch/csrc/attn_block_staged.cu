@@ -16,7 +16,7 @@
 //       pallas_call at :1036): the same gradients from the saved P and att,
 //       recomputing LN1 and qkv only, with no bias table.
 //
-// What bounds them on the card: fp32 arithmetic. At SRFormerV2's training
+// What bounds them on the card: their products. At SRFormerV2's training
 // block (B 8, 72x72, C 240, 8 heads of 30, n 144: 41,472 tokens) the forward
 // does some 25 GFLOP and the backward some 70 against a few hundred MB of
 // activations (the saved P adds 191 MB, and 64 GFLOP remain for the saved-P
@@ -24,38 +24,54 @@
 // tiles in one block; at n 144 and C 240 two such tiles alone take 284 KB,
 // more than a block's 227 KB. So the half runs in stages, each with a
 // working set that fits, its intermediates in device memory (L2-resident at
-// these sizes):
-//   1. ln_qkv_kernel, per 64 tokens: y = LN1(x) and qkv = y wq + bq to a
-//      (T, 3C) buffer; for the backwards also y and LN1's mean and 1/std,
-//      and dzp = s dout and datt = dzp wp^T.
-//   2. attn_rows_fwd_kernel<N, RB> (forward), per (window, head): q, k, v of
-//      the window's N tokens staged once, the queries in blocks of RB rows
-//      (48 at n 144: the (48, 148) score tile is 28 KB), the row softmax in
-//      registers, P v to an attention-output buffer (T, C); the training
+// these sizes).
+//
+// The forward (fp32 FMA; not redesigned):
+//   1. ln_qkv_kernel, per 64 tokens: qkv = LN1(x) wq + bq to (T, 3C).
+//   2. attn_rows_fwd_kernel<N, RB>, per (window, head): q, k, v of the
+//      window's N tokens staged once, the queries in blocks of RB rows (48 at
+//      n 144), the row softmax in registers, P v to att (T, C); the training
 //      form also stores each row block's P.
-//      attn_rows_bwd_kernel<N, RB> (recompute backward), per (window, head):
-//      P of each row block recomputed, then att = P v (for dwp), dV += P^T
-//      dA, dP = dA v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k and
-//      dK += scale dS^T q; dK and dV stay in registers across the row blocks.
-//      attn_rows_bwd_saved_kernel<N, RB> (saved-P backward): the same, with
-//      each row block's P read from the forward's and no S, softmax or P v.
-//      dS of each (window, head) goes to a buffer that dbias_kernel
-//      (common.cuh) sums per kind in window order.
-//   3. proj_residual_kernel (forward), per 64 tokens: z = x + s (att wp + bp).
-//      ln1_bwd_kernel (backwards), per 64 tokens: dy = dqkv wq^T in three
-//      K-chunks of C (a (3C, 64) tile would not fit), then the LN1 backward
-//      dx = dout + LN1'(dy) and the dg / dbe partial sums per block.
-//   4. (the wrapper) the weight gradients dwq, dwp and their biases with
-//      fused_block_train.cu's split-K weight_grad_kernel and sum_rows_kernel.
+//   3. proj_residual_kernel, per 64 tokens: z = x + s (att wp + bp).
+// The backwards. Every per-token product runs on the tensor cores in 3xTF32
+// through the wgmma engine (tc_gemm.cuh, tc_rows.cuh; bound 3 x operations
+// / 495 TFLOP/s), 128 tokens a block:
+//   1. ln_rows_kernel, one warp a token: y = LN1(x) and its stats, dzp = s
+//      dout (bound: bytes).
+//   2. linear_kernel, per 128 tokens x 128 columns: qkv = y wq + bq, wq as
+//      it lies (N-major, transposed as it is split); 131,136 B.
+//   3. rows_kernel<BN, kRowsStore>: datt = dzp wp^T, wp as it lies (K-major).
+//   4. the window attention, per (window, head), dK and dV carried in
+//      registers across the row blocks, dS of each (window, head) to a
+//      buffer that dbias_kernel (common.cuh) sums per kind in window order:
+//      recompute: attn_rows_bwd_tc_kernel<N, RB>, its six products (S = q
+//      k^T, att = P v for dwp, dV += P^T dA, dP = dA v^T, dQ = scale dS k,
+//      dK += scale dS^T q) on mma.sync m16n8k8 tf32 in 3xTF32 (tc_attn.cuh),
+//      the head dimension zero-padded to 32, the softmax and dS = P (dP -
+//      rowsum(P dP)) on the accumulator fragments; two warps a 16-row tile,
+//      each over half the keys, and two blocks a SM (6 warps and 99,264 B
+//      each at n 144). Its products take about a fifth of its time at the
+//      tensor cores' mma.sync rate; what bounds it is moving its rows: q,
+//      k, v, dA in, att and dq | dk | dv out, a head row (120 bytes) at a
+//      time through shared memory, and 191 MB of dS at SRFormerV2's block.
+//      saved-P: attn_rows_bwd_saved_kernel<N, RB>, fp32 FMA (not
+//      redesigned): each row block's P read from the forward's, 4 products.
+//   5. rows_kernel<BN, kRowsLn>: dy = dqkv wq^T, wq as it lies (K-major), then
+//      the LN1 backward dx = dout + LN1'(dy) and the dg / dbe partial sums
+//      per 128 tokens, from a shared dy tile (BN 256 at C 240: 221,248 B).
+//   6. (the wrapper) the weight gradients dwq, dwp and their biases with
+//      fused_block_train.cu's split-K atb_kernel and sum_rows_kernel, then
+//      dbias.
 // At 8x8 windows the training forward is block_fwd.cuh's one-window kernel
 // writing P and att; both backwards take 8x8 windows as well (rows of 64).
-// No atomics: two runs give the same gradients bit for bit. Every product
-// runs on the fp32 FMA units; the tensor cores are later work. The windows
-// are those of x rolled by (-shift, -shift); the kernels index them, so the
+// No atomics: two runs give the same gradients bit for bit. The windows are
+// those of x rolled by (-shift, -shift); the kernels index them, so the
 // caller rolls nothing.
 #include <algorithm>
 
 #include "block_fwd.cuh"
+#include "tc_attn.cuh"
+#include "tc_rows.cuh"
 
 namespace trr {
 
@@ -86,15 +102,9 @@ __host__ __device__ inline int ln_qkv_smem_floats(int C) {
   return 2 * C * kTLd + kStageFloats + 2 * kTile;
 }
 __host__ __device__ inline int proj_residual_smem_floats(int C) { return C * kTLd + kStageFloats; }
-__host__ __device__ inline int ln1_bwd_smem_floats(int C) { return 2 * C * kTLd + kStageFloats; }
 // q and k (hd, N) transposed, v (N, 32), the P rows (RB, N + 4)
 __host__ __device__ inline int attn_rows_fwd_smem_floats(int N, int RB, int hd) {
   return 2 * hd * N + N * kVLd + RB * (N + 4);
-}
-// k and v (hd, N) transposed and (N, 32) row-major, this row block's q and
-// dA (hd, RB) transposed and (RB, 32) row-major, the P / dS rows (RB, N + 4)
-__host__ __device__ inline int attn_rows_bwd_smem_floats(int N, int RB, int hd) {
-  return 2 * hd * N + 2 * N * kVLd + 2 * hd * RB + 2 * RB * kVLd + RB * (N + 4);
 }
 // the saved-P backward: v (hd, N) transposed and k (N, 32), this row block's
 // dA (hd, RB) transposed and q and dA (RB, 32), the P / dS rows (RB, N + 4)
@@ -102,62 +112,38 @@ __host__ __device__ inline int attn_rows_bwd_saved_smem_floats(int N, int RB, in
   return hd * N + N * kVLd + hd * RB + 2 * RB * kVLd + RB * (N + 4);
 }
 
-// One block per 64 consecutive tokens of the B*H*W. qkv (T, 3C) = LN1(x) wq
-// + bq. When y is not null: y = LN1(x) (T, C) and stats (T, 2) its mean and
-// 1/std. When dout is not null: dzp = s[b] dout and datt = dzp wp^T (wpt is
-// wp's transpose), both (T, C).
+// The tensor-core window-attention backward (attn_rows_bwd_tc_kernel,
+// tc_attn.cuh) at N keys and query row blocks of RB: k and v (N, 36), this
+// row block's q and dA (RB, 36), the P / dS rows (RB, N + 4), three (2, RB)
+// exchanges of the halves' row max, row sum and rowsum(P dP), its att and
+// dq rows (RB, 36) on their way out, and the window's N token indices.
+__host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB) {
+  return 2 * N * kHeadLd + 4 * RB * kHeadLd + RB * (N + 4) + 6 * RB + N;
+}
+
+// One block per 64 consecutive tokens of the B*H*W: qkv (T, 3C) = LN1(x) wq
+// + bq.
 __global__ void __launch_bounds__(kThreads, 1)
     ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ be, const float* __restrict__ wq,
-                  const float* __restrict__ bq, float* __restrict__ qkv, float* __restrict__ y,
-                  float* __restrict__ stats, const float* __restrict__ dout,
-                  const float* __restrict__ s, const float* __restrict__ wpt,
-                  float* __restrict__ dzp, float* __restrict__ datt, long long tokens,
-                  long long hw, int C, float eps) {
+                  const float* __restrict__ bq, float* __restrict__ qkv, long long tokens, int C,
+                  float eps) {
   extern __shared__ __align__(16) float smem[];
   const long long t0 = (long long)blockIdx.x * kTile;
   const int M = (int)min((long long)kTile, tokens - t0);
   const int C3 = 3 * C;
   float* yT = smem;               // (C, 64) LN1 output
-  float* T2 = yT + C * kTLd;      // (C, 64): LN scratch, then s dout
+  float* T2 = yT + C * kTLd;      // (C, 64): LN scratch
   float* Bs = T2 + C * kTLd;      // weight stage
   float* st = Bs + kStageFloats;  // LN mean and 1/std of each row
 
   layernorm_t([&](int r) { return x + (t0 + r) * C; }, M, C, g, be, eps, T2, st, yT);
-  if (y != nullptr) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < M * C; e += kThreads) {
-      const int r = e / C, c = e % C;
-      y[(t0 + r) * C + c] = yT[c * kTLd + r];
-    }
-    for (int r = threadIdx.x; r < M; r += kThreads) {
-      stats[(t0 + r) * 2] = st[r];
-      stats[(t0 + r) * 2 + 1] = st[kTile + r];
-    }
-  }
   gemm_weights(yT, C, wq, C3, C3, [](int c) { return c; }, Bs,
                [&](int r0, int c, const float* o) {
                  const float bb = __ldg(bq + c);
 #pragma unroll
                  for (int i = 0; i < 4; ++i)
                    if (r0 + i < M) qkv[(t0 + r0 + i) * C3 + c] = o[i] + bb;
-               });
-  if (dout == nullptr) return;
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    float v = 0.f;
-    if (r < M) {
-      const long long t = t0 + r;
-      v = __ldg(s + t / hw) * __ldg(dout + t * C + c);
-      dzp[t * C + c] = v;
-    }
-    T2[c * kTLd + r] = v;
-  }
-  gemm_weights(T2, C, wpt, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-#pragma unroll
-                 for (int i = 0; i < 4; ++i)
-                   if (r0 + i < M) datt[(t0 + r0 + i) * C + c] = o[i];
                });
 }
 
@@ -348,158 +334,166 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
-// of RB. From qkv (T, 3C), the kind table and datt (T, C): writes this head's
-// dq | dk | dv into dqkv (T, 3C), its attention output into att (T, C), and
-// dS into a buffer (B, H/ws, W/ws, nh, N, N) for the bias-kind reduction.
+// of RB. From qkv (T, 3C), the kind table and datt (T, C): writes this
+// head's dq | dk | dv into dqkv (T, 3C), its attention output into att (T,
+// C), and dS into a buffer (B, H/ws, W/ws, nh, N, N) for the bias-kind
+// reduction. Six products a row block on mma.sync in 3xTF32, as
+// tc_attn.cuh lays them out: S = q k^T and the row softmax in the
+// fragments (the row block's bias rows staged in the shared tile first), P
+// to the tile, att = P v, dV += P^T dA, dP = dA v^T, dS = P (dP - rowsum(P
+// dP)) in place of P, dQ = scale dS k, dK += dS^T q; dK and dV in registers
+// across the row blocks, scaled at the end. The window's token indices are
+// computed once, into shared memory, and every output goes out through
+// shared memory a head row (hd floats) at a time: stores from the fragments
+// would write 4 bytes to each of 8 rows. The heads are the grid's fastest
+// index: a window's heads run together, so each token's 3C row is read
+// once and written whole while it stays in L2.
 template <int N, int RB>
-__global__ void __launch_bounds__(kThreads, 1)
-    attn_rows_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                         const float* __restrict__ datt, float* __restrict__ dqkv,
-                         float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
-                         int nh, int ws, int kinds, int shift, float scale) {
-  constexpr int RPT = RB / kLanes, CPL = N / kLanes, kLd = N + 4;
+__global__ void __launch_bounds__(attn_tc_threads(RB), 2)
+    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                            const float* __restrict__ datt, float* __restrict__ dqkv,
+                            float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
+                            int nh, int ws, int kinds, int shift, float scale) {
+  using AW = AttnWarps<N, RB>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, UNITS = AW::UNITS;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / ws, nwh = H / ws;
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  float* kT = smem;              // (hd, N)
-  float* vT = kT + hd * N;       // (hd, N)
-  float* k = vT + hd * N;        // (N, 32)
-  float* v = k + N * kVLd;       // (N, 32)
-  float* qT = v + N * kVLd;      // (hd, RB) this row block's q
-  float* dAT = qT + hd * RB;     // (hd, RB) this row block's datt
-  float* q = dAT + hd * RB;      // (RB, 32)
-  float* dA = q + RB * kVLd;     // (RB, 32)
-  float* T = dA + RB * kVLd;     // (RB, N + 4): P, then dS
-  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
-  const int kind = window_kind(kinds, wi, wj, nwh, nww);
-  const float* table = bias + ((size_t)kind * nh + h) * N * N;
-  const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
-
-  for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
-    const int r = e / kVLd, d = e % kVLd;
-    const float* src = qkv + token(r) * C3 + C + h * hd + d;
-    const float kv = d < hd ? __ldg(src) : 0.f, vv = d < hd ? __ldg(src + C) : 0.f;
-    k[e] = kv;
-    v[e] = vv;
-    if (d < hd) {
-      kT[d * N + r] = kv;
-      vT[d * N + r] = vv;
-    }
-  }
-  float dk[CPL][2], dv[CPL][2];
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const AW aw;
+  float* ks = smem;              // (N, LD) k, zero past hd
+  float* vs = ks + N * LD;       // (N, LD) v
+  float* qs = vs + N * LD;       // (RB, LD) this row block's q
+  float* das = qs + RB * LD;     // (RB, LD) its datt
+  float* pt = das + RB * LD;     // (RB, LP): P, then dS
+  float* red = pt + RB * LP;     // (3, 2, RB): each half's row max, row sum, rowsum(P dP)
+  float* oa = red + 6 * RB;      // (RB, LD) this row block's att
+  float* oq = oa + RB * LD;      // (RB, LD) its dq
+  int* tok = reinterpret_cast<int*>(oq + RB * LD);  // (N) the window's token indices
+  for (int r = threadIdx.x; r < N; r += NTH)
+    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, ws, shift);
+  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
+  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  __syncthreads();
+  stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
+  stage_head_rows<N, NTH>(vs, hd,
+                          [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+  float dk[UNITS][2][4], dv[UNITS][2][4];
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) dk[i][0] = dk[i][1] = dv[i][0] = dv[i][1] = 0.f;
+  for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[u][j][e] = dv[u][j][e] = 0.f;
 
   for (int r0 = 0; r0 < N; r0 += RB) {
-    for (int e = threadIdx.x; e < RB * kVLd; e += kThreads) {
-      const int r = e / kVLd, d = e % kVLd;
-      const long long t = token(r0 + r);
-      const float qv = d < hd ? __ldg(qkv + t * C3 + h * hd + d) : 0.f;
-      const float av = d < hd ? __ldg(datt + t * C + h * hd + d) : 0.f;
-      q[e] = qv;
-      dA[e] = av;
-      if (d < hd) {
-        qT[d * RB + r] = qv;
-        dAT[d * RB + r] = av;
-      }
+    const int* rt = tok + r0;  // this row block's tokens
+    stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_head_rows<RB, NTH>(das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
+    stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
+    __syncthreads();  // q, dA and the bias rows (and, the first time, k and v) staged
+    {  // S = q k^T * scale + bias, the row softmax in the fragments, P to the tile
+      float p[NT][4];
+      aw.rows_by_channels(qs, ks, p);
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 bb = *aw.at(pt, i, j);
+          p[j][2 * i] = p[j][2 * i] * scale + bb.x;
+          p[j][2 * i + 1] = p[j][2 * i + 1] * scale + bb.y;
+          m[i] = fmaxf(m[i], fmaxf(p[j][2 * i], p[j][2 * i + 1]));
+        }
+      aw.row_total(red, m, true);
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[j][e] = expf(p[j][e] - m[e / 2]);
+          sum[e / 2] += p[j][e];
+        }
+      aw.row_total(red + 2 * RB, sum, false);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float inv = 1.f / sum[i];
+          *aw.at(pt, i, j) = make_float2(p[j][2 * i] * inv, p[j][2 * i + 1] * inv);
+        }
     }
-    __syncthreads();  // q and dA (and, the first time, k and v) staged
-    float p[RPT][CPL];
-    softmax_block<N, RB>(qT, RB, 0, kT, hd, scale, table + (size_t)r0 * N, p);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) T[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
-    __syncthreads();
+    __syncthreads();  // P is whole
     {  // att = P v (the forward's output, for dwp)
-      float acc[RPT][2];
-      rows_times_v<N, RB>(T, kLd, v, acc);
+      float o[2][4];
+      aw.rows_by_keys(pt, vs, o);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = cl * 2 + e;
-        if (d < hd) {
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int i = 0; i < RPT; ++i)
-            att[token(r0 + rg * RPT + i) * C + h * hd + d] = acc[i][e];
+        for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
+    }
+    aw.keys_by_rows(pt, das, dv);  // dV += P^T dA
+    {  // dP = dA v^T, then dS = P (dP - rowsum(P dP)) in place of P, read back
+      float dp[NT][4];
+      aw.rows_by_channels(das, vs, dp);
+      float delta[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 pv = *aw.at(pt, i, j);
+          delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
+          delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
         }
-      }
+      aw.row_total(red + 4 * RB, delta, false);  // its barrier: every warp is done reading P
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 pv = *aw.at(pt, i, j);
+          const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
+                                       pv.y * (dp[j][2 * i + 1] - delta[i]));
+          *aw.at(pt, i, j) = v;
+          *reinterpret_cast<float2*>(dS + head + (size_t)(r0 + aw.s_row(i)) * N + aw.s_col(j)) =
+              v;
+        }
     }
-    cols_times_rows<N, RB>(T, kLd, dA, dv);  // dV += P^T dA
-    {
-      // dP = dA v^T at this thread's places of P, then dS = P (dP - rowsum(P dP))
-      float dp[RPT][CPL];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) dp[i][j] = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        float a[RPT], bb[CPL];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) a[i] = dAT[d * RB + rg * RPT + i];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) bb[j] = vT[d * N + cl + kLanes * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) dp[i][j] = fmaf(a[i], bb[j], dp[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        float delta = 0.f;
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) delta = fmaf(p[i][j], dp[i][j], delta);
-        delta = half_sum(delta);
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) p[i][j] *= dp[i][j] - delta;  // now dS
-      }
-    }
-    __syncthreads();  // every thread is done reading P
-    float* grow = dS + head + (size_t)r0 * N;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int idx = (rg * RPT + i) * N + cl + kLanes * j;
-        T[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
-        grow[idx] = p[i][j];
-      }
-    __syncthreads();
+    __syncthreads();  // dS is whole
     {  // dQ = scale dS k
-      float acc[RPT][2];
-      rows_times_v<N, RB>(T, kLd, k, acc);
+      float o[2][4];
+      aw.rows_by_keys(pt, ks, o);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = cl * 2 + e;
-        if (d < hd) {
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int i = 0; i < RPT; ++i)
-            dqkv[token(r0 + rg * RPT + i) * C3 + h * hd + d] = scale * acc[i][e];
-        }
-      }
+        for (int e = 0; e < 4; ++e) oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = scale * o[j][e];
     }
-    cols_times_rows<N, RB>(T, kLd, q, dk);  // dK += dS^T q (scaled once, at the end)
-    __syncthreads();  // q, dA and the tile are rewritten by the next row block
+    aw.keys_by_rows(pt, qs, dk);  // dK += dS^T q (scaled once, at the end)
+    __syncthreads();  // q, dA and the tile are rewritten by the next row block; att, dq whole
+    store_head_rows<RB, NTH>(oa, hd, [&](int r) { return att + (long long)rt[r] * C + h * hd; });
+    store_head_rows<RB, NTH>(oq, hd, [&](int r) { return dqkv + (long long)rt[r] * C3 + h * hd; });
   }
+  // dK and dV to the rooms of k and v, then out
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int d = cl * 2 + e;
-    if (d < hd) {
+  for (int u = 0; u < UNITS; ++u)
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const long long t = token(rg + kLanes * i);
-        dqkv[t * C3 + C + h * hd + d] = scale * dk[i][e];
-        dqkv[t * C3 + 2 * C + h * hd + d] = dv[i][e];
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = aw.u_key(u, e) * LD + aw.u_chan(u, j, e);
+        ks[i] = scale * dk[u][j][e];
+        vs[i] = dv[u][j][e];
       }
-    }
-  }
+  __syncthreads();
+  store_head_rows<N, NTH>(ks, hd,
+                          [&](int r) { return dqkv + (long long)tok[r] * C3 + C + h * hd; });
+  store_head_rows<N, NTH>(vs, hd,
+                          [&](int r) { return dqkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
 }
 
 // One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
 // of RB. From qkv (T, 3C), the forward's softmax P (B, H/ws, W/ws, nh, N, N)
 // and datt (T, C): writes this head's dq | dk | dv into dqkv (T, 3C) and dS
-// into a buffer shaped as P. Where attn_rows_bwd_kernel rebuilds S, the
+// into a buffer shaped as P. Where attn_rows_bwd_tc_kernel rebuilds S, the
 // softmax and P v, this one reads P's row block: 4 products per row block,
 // not 6, and no bias table.
 template <int N, int RB>
@@ -621,50 +615,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// One block per 64 consecutive tokens: dy = dqkv wq^T (wqt is wq's transpose,
-// (3C, C)) in three K-chunks of C, then the LN1 backward dx = dout +
-// LN1'(dy) with the saved stats; per block the partial sums of dg (first C)
-// and dbe (next C).
-__global__ void __launch_bounds__(kThreads, 1)
-    ln1_bwd_kernel(const float* __restrict__ dqkv, const float* __restrict__ wqt,
-                   const float* __restrict__ x, const float* __restrict__ stats,
-                   const float* __restrict__ g, const float* __restrict__ dout,
-                   float* __restrict__ dx, float* __restrict__ ln_part, long long tokens, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int C3 = 3 * C;
-  float* DQ = smem;              // (C, 64) a third of dqkv; then xn
-  float* DY = DQ + C * kTLd;     // (C, 64)
-  float* Bs = DY + C * kTLd;     // weight stage
-
-  for (int part = 0; part < 3; ++part) {
-    __syncthreads();  // the previous chunk's product is done reading DQ
-    for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-      const int r = e / C, c = e % C;
-      DQ[c * kTLd + r] = r < M ? __ldg(dqkv + (t0 + r) * C3 + part * C + c) : 0.f;
-    }
-    gemm_weights(DQ, C, wqt + (size_t)part * C * C, C, C, [](int c) { return c; }, Bs,
-                 [&](int r0, int c, const float* o) {
-                   float4* dst = reinterpret_cast<float4*>(DY + c * kTLd + r0);
-                   float4 acc = part == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
-                   acc.x += o[0];
-                   acc.y += o[1];
-                   acc.z += o[2];
-                   acc.w += o[3];
-                   *dst = acc;
-                 });
-  }
-  __syncthreads();
-  ln_backward_tile(
-      x, g, dout, DY, DQ, t0, M, C,
-      [&](int r, float& mean, float& inv) {
-        mean = __ldg(stats + 2 * (t0 + r));
-        inv = __ldg(stats + 2 * (t0 + r) + 1);
-      },
-      [&](int, long long t, int c, float d) { dx[t * C + c] = d; }, ln_part);
-}
-
 // The row-block plan of a window of n tokens: (N, RB) = (144, 48) or (64, 64).
 inline int rows_block(int n) { return n == 144 ? 48 : n == 64 ? 64 : 0; }
 
@@ -682,14 +632,14 @@ cudaError_t attn_rows_fwd(const float* qkv, const float* bias, float* att, float
 }
 
 template <int N, int RB>
-cudaError_t attn_rows_bwd(const float* qkv, const float* bias, const float* datt, float* dqkv,
-                          float* att, float* dS, int B, int H, int W, int C, int nh, int ws,
-                          int kinds, int shift, float scale, cudaStream_t stream) {
-  const int floats = attn_rows_bwd_smem_floats(N, RB, C / nh);
-  const cudaError_t err = set_smem(attn_rows_bwd_kernel<N, RB>, floats);
+cudaError_t attn_rows_bwd_tc(const float* qkv, const float* bias, const float* datt, float* dqkv,
+                             float* att, float* dS, int B, int H, int W, int C, int nh, int ws,
+                             int kinds, int shift, float scale, cudaStream_t stream) {
+  const int floats = attn_rows_bwd_tc_smem_floats(N, RB);
+  const cudaError_t err = set_smem(attn_rows_bwd_tc_kernel<N, RB>, floats);
   if (err != cudaSuccess) return err;
-  const dim3 grid((H / ws) * (W / ws), B, nh);
-  attn_rows_bwd_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
+  const dim3 grid(nh, (H / ws) * (W / ws), B);
+  attn_rows_bwd_tc_kernel<N, RB><<<grid, attn_tc_threads(RB), floats * sizeof(float), stream>>>(
       qkv, bias, datt, dqkv, att, dS, H, W, C, nh, ws, kinds, shift, scale);
   return cudaGetLastError();
 }
@@ -708,16 +658,14 @@ cudaError_t attn_rows_bwd_saved(const float* qkv, const float* P, const float* d
 }
 
 inline cudaError_t launch_ln_qkv(const float* x, const float* g, const float* be,
-                                 const float* wq, const float* bq, float* qkv, float* y,
-                                 float* stats, const float* dout, const float* s,
-                                 const float* wpt, float* dzp, float* datt, long long tokens,
-                                 long long hw, int C, float eps, cudaStream_t stream) {
+                                 const float* wq, const float* bq, float* qkv, long long tokens,
+                                 int C, float eps, cudaStream_t stream) {
   const int floats = ln_qkv_smem_floats(C);
   const cudaError_t err = set_smem(ln_qkv_kernel, floats);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
-  ln_qkv_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(
-      x, g, be, wq, bq, qkv, y, stats, dout, s, wpt, dzp, datt, tokens, hw, C, eps);
+  ln_qkv_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(x, g, be, wq, bq, qkv,
+                                                                      tokens, C, eps);
   return cudaGetLastError();
 }
 
@@ -731,8 +679,7 @@ inline cudaError_t staged_fwd(const float* x, const float* g, const float* be, c
                               cudaStream_t stream) {
   if (ws != 12) return cudaErrorInvalidValue;
   const long long tokens = (long long)B * H * W, hw = (long long)H * W;
-  cudaError_t err = launch_ln_qkv(x, g, be, wq, bq, qkv, nullptr, nullptr, nullptr, nullptr,
-                                  nullptr, nullptr, nullptr, tokens, hw, C, eps, stream);
+  cudaError_t err = launch_ln_qkv(x, g, be, wq, bq, qkv, tokens, C, eps, stream);
   if (err != cudaSuccess) return err;
   err = attn_rows_fwd<144, 48>(qkv, bias, att, P, B, H, W, C, nh, ws, kinds, shift, scale,
                                stream);
@@ -746,21 +693,29 @@ inline cudaError_t staged_fwd(const float* x, const float* g, const float* be, c
   return cudaGetLastError();
 }
 
-// The backwards' last stages: dx and the LN1 partial sums from dqkv, then
-// dbias from the per-window dS.
-inline cudaError_t ln1_bwd_and_dbias(const float* dqkv, const float* wqt, const float* x,
-                                     const float* stats, const float* g, const float* dout,
-                                     float* dx, float* ln_part, float* dS, float* dbias,
-                                     int B, int H, int W, int C, int nh, int ws, int kinds,
-                                     cudaStream_t stream) {
-  const long long tokens = (long long)B * H * W;
-  const int floats = ln1_bwd_smem_floats(C);
-  cudaError_t err = set_smem(ln1_bwd_kernel, floats);
+// The backwards' per-token stages before the window attention: y = LN1(x)
+// and its stats, dzp = s dout, qkv = y wq + bq, datt = dzp wp^T.
+inline cudaError_t bwd_head(const float* x, const float* g, const float* be, const float* wq,
+                            const float* bq, const float* wp, const float* s, const float* dout,
+                            float* qkv, float* y, float* stats, float* dzp, float* datt,
+                            long long tokens, long long hw, int C, float eps,
+                            cudaStream_t stream) {
+  cudaError_t err = ln_rows(x, g, be, y, stats, dout, s, dzp, tokens, hw, C, eps, stream);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
-  ln1_bwd_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(
-      dqkv, wqt, x, stats, g, dout, dx, ln_part, tokens, C);
-  err = cudaGetLastError();
+  if ((err = linear(y, wq, bq, qkv, tokens, C, 3 * C, stream)) != cudaSuccess) return err;
+  return rows<kRowsStore>(dzp, wp, tokens, C, C, nullptr, nullptr, nullptr, nullptr, nullptr, hw,
+                          datt, nullptr, nullptr, stream);
+}
+
+// The backwards' last stages: dy = dqkv wq^T and the LN1 backward -> dx and
+// the LN1 partial sums, then dbias from the per-window dS.
+inline cudaError_t bwd_tail(const float* dqkv, const float* wq, const float* x,
+                            const float* stats, const float* g, const float* dout, float* dx,
+                            float* ln_part, float* dS, float* dbias, int B, int H, int W, int C,
+                            int nh, int ws, int kinds, cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  const cudaError_t err = rows<kRowsLn>(dqkv, wq, tokens, 3 * C, C, x, stats, g, dout, nullptr,
+                                        hw, dx, nullptr, ln_part, stream);
   if (err != cudaSuccess) return err;
   return launch_dbias(dS, B, H / ws, W / ws, nh, kinds, ws * ws * ws * ws, dbias, stream);
 }
@@ -782,17 +737,16 @@ size_t trr_attn_staged_fwd_smem_bytes(int C, int nh, int ws) {
 size_t trr_attn_staged_bwd_smem_bytes(int C, int nh, int ws) {
   const int n = ws * ws, rb = trr::rows_block(n);
   if (rb == 0) return 0;
-  const int floats = std::max({trr::ln_qkv_smem_floats(C), trr::ln1_bwd_smem_floats(C),
-                               trr::attn_rows_bwd_smem_floats(n, rb, C / nh)});
-  return (size_t)floats * sizeof(float);
+  return (size_t)std::max({trr::linear_smem_bytes(), trr::rows_smem_bytes(C),
+                           trr::attn_rows_bwd_tc_smem_floats(n, rb) * (int)sizeof(float)});
 }
 
 size_t trr_attn_train_bwd_smem_bytes(int C, int nh, int ws) {
   const int n = ws * ws, rb = trr::rows_block(n);
   if (rb == 0) return 0;
-  const int floats = std::max({trr::ln_qkv_smem_floats(C), trr::ln1_bwd_smem_floats(C),
-                               trr::attn_rows_bwd_saved_smem_floats(n, rb, C / nh)});
-  return (size_t)floats * sizeof(float);
+  return (size_t)std::max(
+      {trr::linear_smem_bytes(), trr::rows_smem_bytes(C),
+       trr::attn_rows_bwd_saved_smem_floats(n, rb, C / nh) * (int)sizeof(float)});
 }
 
 // The forward at 12x12 windows: x, z (B, H, W, C); wq (C, 3C), bq (3C), wp
@@ -829,30 +783,29 @@ int trr_attn_block_train_fwd(const float* x, const float* g, const float* be, co
 // The recompute backward at ws x ws windows (12 or 8), from x, the forward's
 // operands and dout (B, H, W, C): writes dx, and for the wrapper's weight
 // gradients y = LN1(x) and dzp = s dout (T, C), dqkv (T, 3C) and att (T, C);
-// ln_part (ceil(T / 64), 2C) the dg / dbe partial sums; dbias (kinds, nh, n,
-// n) from the per-window dS (B, H/ws, W/ws, nh, n, n). Scratch: qkv (T, 3C),
-// stats (T, 2), datt (T, C). wpt (C, C) and wqt (3C, C) are the transposes
-// of wp and wq.
+// ln_part (ceil(T / 128), 2C) the dg / dbe partial sums; dbias (kinds, nh,
+// n, n) from the per-window dS (B, H/ws, W/ws, nh, n, n). Scratch: qkv (T,
+// 3C), stats (T, 2), datt (T, C). C is at most 256 and a multiple of 4.
 int trr_attn_block_staged_bwd(const float* x, const float* g, const float* be, const float* wq,
-                              const float* bq, const float* wpt, const float* wqt,
-                              const float* bias, const float* s, const float* dout, float* qkv,
-                              float* y, float* stats, float* dzp, float* datt, float* dqkv,
-                              float* att, float* dS, float* dx, float* ln_part, float* dbias,
-                              int B, int H, int W, int C, int nh, int ws, int kinds, int shift,
-                              float eps, float scale, cudaStream_t stream) {
+                              const float* bq, const float* wp, const float* bias,
+                              const float* s, const float* dout, float* qkv, float* y,
+                              float* stats, float* dzp, float* datt, float* dqkv, float* att,
+                              float* dS, float* dx, float* ln_part, float* dbias, int B, int H,
+                              int W, int C, int nh, int ws, int kinds, int shift, float eps,
+                              float scale, cudaStream_t stream) {
   const int n = ws * ws;
   if (trr::rows_block(n) == 0) return (int)cudaErrorInvalidValue;
   const long long tokens = (long long)B * H * W, hw = (long long)H * W;
-  cudaError_t err = trr::launch_ln_qkv(x, g, be, wq, bq, qkv, y, stats, dout, s, wpt, dzp, datt,
-                                       tokens, hw, C, eps, stream);
+  cudaError_t err = trr::bwd_head(x, g, be, wq, bq, wp, s, dout, qkv, y, stats, dzp, datt, tokens,
+                                  hw, C, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  err = n == 144 ? trr::attn_rows_bwd<144, 48>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
-                                               ws, kinds, shift, scale, stream)
-                 : trr::attn_rows_bwd<64, 64>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
-                                              ws, kinds, shift, scale, stream);
+  err = n == 144 ? trr::attn_rows_bwd_tc<144, 48>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
+                                                  ws, kinds, shift, scale, stream)
+                 : trr::attn_rows_bwd_tc<64, 64>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
+                                                 ws, kinds, shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)trr::ln1_bwd_and_dbias(dqkv, wqt, x, stats, g, dout, dx, ln_part, dS, dbias, B, H,
-                                     W, C, nh, ws, kinds, stream);
+  return (int)trr::bwd_tail(dqkv, wq, x, stats, g, dout, dx, ln_part, dS, dbias, B, H, W, C, nh,
+                            ws, kinds, stream);
 }
 
 // The saved-P backward at ws x ws windows (12 or 8): as
@@ -860,25 +813,24 @@ int trr_attn_block_staged_bwd(const float* x, const float* g, const float* be, c
 // n) in place of the bias table, and with no att output: the wrapper takes
 // dwp from the forward's saved att.
 int trr_attn_block_train_bwd(const float* x, const float* g, const float* be, const float* wq,
-                             const float* bq, const float* wpt, const float* wqt,
-                             const float* s, const float* P, const float* dout, float* qkv,
-                             float* y, float* stats, float* dzp, float* datt, float* dqkv,
-                             float* dS, float* dx, float* ln_part, float* dbias, int B, int H,
-                             int W, int C, int nh, int ws, int kinds, int shift, float eps,
-                             float scale, cudaStream_t stream) {
+                             const float* bq, const float* wp, const float* s, const float* P,
+                             const float* dout, float* qkv, float* y, float* stats, float* dzp,
+                             float* datt, float* dqkv, float* dS, float* dx, float* ln_part,
+                             float* dbias, int B, int H, int W, int C, int nh, int ws, int kinds,
+                             int shift, float eps, float scale, cudaStream_t stream) {
   const int n = ws * ws;
   if (trr::rows_block(n) == 0) return (int)cudaErrorInvalidValue;
   const long long tokens = (long long)B * H * W, hw = (long long)H * W;
-  cudaError_t err = trr::launch_ln_qkv(x, g, be, wq, bq, qkv, y, stats, dout, s, wpt, dzp, datt,
-                                       tokens, hw, C, eps, stream);
+  cudaError_t err = trr::bwd_head(x, g, be, wq, bq, wp, s, dout, qkv, y, stats, dzp, datt, tokens,
+                                  hw, C, eps, stream);
   if (err != cudaSuccess) return (int)err;
   err = n == 144 ? trr::attn_rows_bwd_saved<144, 48>(qkv, P, datt, dqkv, dS, B, H, W, C, nh, ws,
                                                      shift, scale, stream)
                  : trr::attn_rows_bwd_saved<64, 64>(qkv, P, datt, dqkv, dS, B, H, W, C, nh, ws,
                                                     shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)trr::ln1_bwd_and_dbias(dqkv, wqt, x, stats, g, dout, dx, ln_part, dS, dbias, B, H,
-                                     W, C, nh, ws, kinds, stream);
+  return (int)trr::bwd_tail(dqkv, wq, x, stats, g, dout, dx, ln_part, dS, dbias, B, H, W, C, nh,
+                            ws, kinds, stream);
 }
 
 }  // extern "C"

@@ -192,54 +192,6 @@ __device__ __forceinline__ void layernorm_t(Row row, int M, int C, const float* 
   }
 }
 
-// The LayerNorm backward of the M <= 64 rows t0.. of a tile, one warp per
-// row: dx = dres + inv (dy g - mean(dy g) - xn mean(dy g xn)), with xn =
-// (x - mean) inv rebuilt from x and the row's stats(r, mean, inv), and dy
-// the transposed tile DY (C, kTLd). xn goes to the transposed tile XN;
-// emit(r, t, c, dx) takes each result. Then, after a barrier, the partial
-// sums of dg (first C) and dbe (next C) over the tile's rows to
-// ln_part[blockIdx.x].
-template <class Stats, class Emit>
-__device__ __forceinline__ void ln_backward_tile(const float* __restrict__ x,
-                                                 const float* __restrict__ g,
-                                                 const float* __restrict__ dres, const float* DY,
-                                                 float* XN, long long t0, int M, int C,
-                                                 Stats stats, Emit emit,
-                                                 float* __restrict__ ln_part) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < M; r += kWarps) {
-    const long long t = t0 + r;
-    float mean, inv;
-    stats(r, mean, inv);
-    float a = 0.f, bsum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = (__ldg(x + t * C + c) - mean) * inv;
-      XN[c * kTLd + r] = xn;
-      const float dxh = DY[c * kTLd + r] * __ldg(g + c);
-      a += dxh;
-      bsum += dxh * xn;
-    }
-    a = warp_sum(a) / C;
-    bsum = warp_sum(bsum) / C;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = XN[c * kTLd + r];
-      const float dxh = DY[c * kTLd + r] * __ldg(g + c);
-      emit(r, t, c, __ldg(dres + t * C + c) + inv * (dxh - a - xn * bsum));
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float dg = 0.f, db = 0.f;
-    for (int r = 0; r < M; ++r) {
-      const float d = DY[c * kTLd + r];
-      dg = fmaf(d, XN[c * kTLd + r], dg);
-      db += d;
-    }
-    ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
-    ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
-  }
-}
-
 // Attention of one 64-token window and one head, operands in shared memory:
 // qT, kT (hd, kTLd) transposed, v (64, kVLd) row-major, S a (64, kTLd)
 // scratch tile, bias the (64, 64) table of this window's kind and head.

@@ -30,24 +30,26 @@
 // block a SM. The per-token work is split into launches of the engine, the
 // row-wise work in their prologues and epilogues, and the activations pass
 // between them through device memory (the weight gradients need them
-// there anyway). Shared memory below: ring + split buffers (+ others).
+// there anyway). ln_rows_kernel and rows_kernel are tc_rows.cuh's, shared
+// with the attention halves' backwards (#6, #10, #12). Shared memory below:
+// ring + split buffers (+ others).
 //   1. ln_rows_kernel, one warp a token: y2 = LN2(z) with its stats, dm =
 //      s2 dout; y = LN1(x) with its stats (a second launch; #7: one, from x).
 //   2. mlp_hidden_kernel, per 128 tokens x 128 hidden units: h = y2 w1 + b1,
 //      gelu(h) to hg; then dh = (dm w2^T) gelu'(h), gelu'(h) waiting in
 //      shared memory between the two products. A stage: a (128, 16) token
 //      chunk and a raw (16, 128) w1 or (128, 16) w2 chunk; 196,672 B.
-//   3. rows_kernel<BN, true>, per 128 tokens x all C columns (BN = 192 at
+//   3. rows_kernel<BN, kRowsLn> (tc_rows.cuh), per 128 tokens x all C columns (BN = 192 at
 //      C 180, 256 at C 240): dy2 = dh w1^T, then the LN2 backward from a
 //      shared dy tile, a warp's 16 rows four at a time: dz = dout +
 //      LN2'(dy2), dzp = s1 dz, the block's partial sums of dg2 and dbe2. A
 //      stage: a (128, 16) token chunk and a raw (BN, 16) chunk of w1 as it
 //      lies (K-major); 176,192 B at C 180, 221,248 B at C 240.
-//   4. rows_kernel<BN, false>: datt = dzp wp^T (#5 only).
+//   4. rows_kernel<BN, kRowsStore>: datt = dzp wp^T (#5 only).
 //   5. block_bwd_attn_kernel, per 8x8 window, one head at a time (not
 //      redesigned): q, k, v from y, then dv, dP, dS, dq, dk from the saved P;
 //      dq/dk/dv to dqkv (T, 3C), dS per window for the bias-kind reduction.
-//   6. rows_kernel<BN, true>: dy = dqkv wq^T and the LN1 backward -> dx (#5).
+//   6. rows_kernel<BN, kRowsLn>: dy = dqkv wq^T and the LN1 backward -> dx (#5).
 //   7. atb_kernel: the weight gradients A^T B over the tokens (dw2, dw1,
 //      and for #5 dwp, dwq) with the column sums of B for the biases, per
 //      128 x 128 output tile and token chunk: both operands token-major,
@@ -59,33 +61,16 @@
 //      window-group reduction of common.cuh.
 // No atomics anywhere: two runs give the same gradients bit for bit.
 #include "block_fwd.cuh"
-#include "tc_gemm.cuh"
+#include "tc_rows.cuh"
 
 namespace trr {
 
-constexpr int kHidTile = 128;        // hidden units of a mlp_hidden_kernel tile
-constexpr int kRowLd = kTcK + 4;     // row stride of a [row][k] chunk (conflict-free A loads)
+constexpr int kHidTile = kColTile;   // hidden units of a mlp_hidden_kernel tile
 constexpr int kAtbK = 32;            // tokens of a weight-gradient chunk
 constexpr int kAtbStages = 3;        // depth of its ring (its split buffers are twice as deep)
 constexpr int kAtbLd = kTcRows + 8;  // row stride of a weight-gradient chunk
 constexpr int kAtbBlocks = 264;      // blocks a weight gradient aims at (two waves)
 
-// The columns of a rows_kernel tile: the least of 64, 128, 192, 256 >= C.
-__host__ __device__ inline int rows_cols(int C) { return C <= 64 ? 64 : (C + 63) / 64 * 64; }
-
-// A per-token stage: a (128, kTcK) token chunk [row][k] (row stride
-// kRowLd) and a raw (BN, kTcK) weight chunk, [n][k] (stride kRowLd) or
-// [k][n] (stride BN + 8). The kernels keep the split buffers of
-// tc_gemm.cuh ahead of their ring.
-__host__ __device__ constexpr int token_stage_floats(int bn) {
-  return kTcRows * kRowLd + (bn * kRowLd > kTcK * (bn + 8) ? bn * kRowLd : kTcK * (bn + 8));
-}
-
-// Shared memory, in bytes, of the backward's kernels.
-__host__ __device__ inline int rows_smem_bytes(int C) {
-  return split_floats(rows_cols(C)) * (int)sizeof(float) +
-         Ring<>::bytes(token_stage_floats(rows_cols(C)));
-}
 // mlp_hidden_kernel keeps gelu'(h) of its tile in shared memory between
 // its two products, [element][thread].
 constexpr int kGeluFloats = kHidTile / 2 * kThreads;
@@ -120,92 +105,6 @@ inline long long atb_part_floats(long long T, int M, int N) {
   return (T + chunk - 1) / chunk * ((long long)M * N + N);
 }
 
-// y = LN(x) (T, C) with g and be, two-pass mean and variance as the forward;
-// stats (T, 2) the mean and 1/std of each row. When dm is not null, dm =
-// s[t / hw] dout as well. One warp a token, C <= 256 and a multiple of 4.
-__global__ void __launch_bounds__(kThreads)
-    ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ be, float* __restrict__ y, float* __restrict__ stats,
-                   const float* __restrict__ dout, const float* __restrict__ s,
-                   float* __restrict__ dm, long long T, long long hw, int C, float eps) {
-  const long long t = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (t >= T) return;
-  const int lane = threadIdx.x % 32, n4 = C / 4;
-  const float4* xr = reinterpret_cast<const float4*>(x + t * C);
-  float4 v[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (lane + 32 * i < n4) {
-      v[i] = __ldg(xr + lane + 32 * i);
-      sum += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-    }
-  }
-  const float mean = warp_sum(sum) / C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (lane + 32 * i < n4) {
-      const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
-      q += (a * a + b * b) + (c * c + d * d);
-    }
-  }
-  const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
-  if (lane == 0) {
-    stats[2 * t] = mean;
-    stats[2 * t + 1] = inv;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c4 = lane + 32 * i;
-    if (c4 < n4) {
-      const float4 gg = __ldg(reinterpret_cast<const float4*>(g) + c4);
-      const float4 bb = __ldg(reinterpret_cast<const float4*>(be) + c4);
-      reinterpret_cast<float4*>(y + t * C)[c4] =
-          make_float4((v[i].x - mean) * inv * gg.x + bb.x, (v[i].y - mean) * inv * gg.y + bb.y,
-                      (v[i].z - mean) * inv * gg.z + bb.z, (v[i].w - mean) * inv * gg.w + bb.w);
-    }
-  }
-  if (dm != nullptr) {
-    const float sc = __ldg(s + t / hw);
-    for (int c4 = lane; c4 < n4; c4 += 32) {
-      const float4 d = __ldg(reinterpret_cast<const float4*>(dout + t * C) + c4);
-      reinterpret_cast<float4*>(dm + t * C)[c4] =
-          make_float4(sc * d.x, sc * d.y, sc * d.z, sc * d.w);
-    }
-  }
-}
-
-// Issue the copies of chunk j: A (T, K) rows t0.. and, B_KMAJOR, W (N, K)
-// rows n0.., else W (K, N) columns n0...
-template <int BN, bool B_KMAJOR>
-__device__ __forceinline__ void load_wg_stage(float* st, const float* __restrict__ A,
-                                              long long t0, long long T,
-                                              const float* __restrict__ W, int n0, int N, int K,
-                                              int j) {
-  load_tile<kTcRows, kTcK>(st, kRowLd, A, K, t0, T, j * kTcK, K);
-  if constexpr (B_KMAJOR)
-    load_tile<BN, kTcK>(st + kTcRows * kRowLd, kRowLd, W, K, n0, N, j * kTcK, K);
-  else
-    load_tile<kTcK, BN>(st + kTcRows * kRowLd, BN + 8, W, N, j * kTcK, K, n0, N);
-}
-
-template <int BN, bool B_KMAJOR>
-__device__ __forceinline__ void use_wg_stage(float (&acc)[BN / 2], const float* st, float* split,
-                                             int j, AFrag<> (&af)[2]) {
-  wgmma_chunk<BN, kTcK, true, B_KMAJOR>(acc, st, kRowLd, 16 * (threadIdx.x / 32),
-                                  st + kTcRows * kRowLd, B_KMAJOR ? kRowLd : BN + 8, split, j, af);
-}
-
-// Row and column, in the block tile, of accumulator element i of a thread
-// (the warpgroup layout of tc_gemm.cuh; warp w owns rows 16 w..16 w+15).
-__device__ __forceinline__ int acc_row(int i) {
-  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * ((i / 2) % 2);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
-}
-
 // Per 128 tokens t0.. and 128 hidden units n0..: h = y w1 + b1, hg =
 // gelu(h); dh = (dm w2^T) gelu'(h). y, dm (T, C); w1 (C, hidden) read
 // N-major (transposed as it is split), w2 (hidden, C) K-major; hg, dh (T,
@@ -225,14 +124,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n0 = blockIdx.y * kHidTile;
   const int nk = (C + kTcK - 1) / kTcK;
   float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   AFrag<> af[2];
-  ring.run(
-      nk,
-      [&](int j, float* st) { load_wg_stage<BN, false>(st, y, t0, T, w1, n0, hidden, C, j); },
-      [&](int j, const float* st) { use_wg_stage<BN, false>(acc, st, split, j, af); });
-  wgmma_wait_all();
+  xw_product<BN>(acc, ring, split, af, y, t0, T, w1, n0, hidden, C, 0);
   // h = acc + b1: gelu(h) to hg, gelu'(h) to gp
 #pragma unroll
   for (int i = 0; i < BN / 2; i += 2) {
@@ -262,136 +155,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<float2*>(dh + t * hidden + c) =
           make_float2(acc[i] * gp[i * kThreads + threadIdx.x],
                       acc[i + 1] * gp[(i + 1) * kThreads + threadIdx.x]);
-  }
-}
-
-// Per 128 tokens t0.., every column (BN >= C): dy = A W^T with A (T, K) and
-// W (C, K) as it lies (K-major). LN = false: out = dy. LN = true: the
-// LayerNorm backward of the rows, out = dres + inv (dy g - mean(dy g) - xn
-// mean(dy g xn)) with xn = (xln - mean) inv from stats (T, 2); outs = s[t /
-// hw] out when not null; the block's partial sums of dg = sum dy xn (first
-// C) and dbe = sum dy (next C) to ln_part[blockIdx.x]. dy goes to a shared
-// tile after the products; each warp then walks its own 16 rows, four at a
-// time, reading xln and dres a row at a time with 16-byte loads.
-template <int BN, bool LN>
-__global__ void __launch_bounds__(kThreads, 1)
-    rows_kernel(const float* __restrict__ A, const float* __restrict__ W, long long T, int K,
-                int C, const float* __restrict__ xln, const float* __restrict__ stats,
-                const float* __restrict__ g, const float* __restrict__ dres,
-                const float* __restrict__ s, long long hw, float* __restrict__ out,
-                float* __restrict__ outs, float* __restrict__ ln_part) {
-  constexpr int LDY = BN + 8;  // 8 mod 32: the tile's float2 stores hit 32 banks a half-warp
-  extern __shared__ __align__(16) float smem[];
-  float* split = smem;
-  Ring<> ring;
-  ring.init(split + split_floats(BN), token_stage_floats(BN));
-  const long long t0 = (long long)blockIdx.x * kTcRows;
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  AFrag<> af[2];
-  ring.run(
-      (K + kTcK - 1) / kTcK,
-      [&](int j, float* st) { load_wg_stage<BN, true>(st, A, t0, T, W, 0, C, K, j); },
-      [&](int j, const float* st) { use_wg_stage<BN, true>(acc, st, split, j, af); });
-  wgmma_wait_all();
-  __syncthreads();  // every warp is done with the buffers: they become the dy tile
-  float* dy = smem;  // (128, LDY)
-#pragma unroll
-  for (int i = 0; i < BN / 2; i += 2)
-    *reinterpret_cast<float2*>(dy + acc_row(i) * LDY + acc_col(i)) =
-        make_float2(acc[i], acc[i + 1]);
-  __syncwarp();  // a warp reads back only its own 16 rows
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = C / 4;
-  const float4* dy4 = reinterpret_cast<const float4*>(dy);
-  if constexpr (!LN) {
-    for (int r = 16 * warp; r < 16 * warp + 16 && t0 + r < T; ++r)
-      for (int c4 = lane; c4 < n4; c4 += 32)
-        reinterpret_cast<float4*>(out + (t0 + r) * C)[c4] = dy4[r * (LDY / 4) + c4];
-  } else {
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 gv[2], cg[2] = {zero4, zero4}, cb[2] = {zero4, zero4};
-#pragma unroll
-    for (int v = 0; v < 2; ++v)
-      gv[v] =
-          lane + 32 * v < n4 ? __ldg(reinterpret_cast<const float4*>(g) + lane + 32 * v) : zero4;
-    for (int r0 = 16 * warp; r0 < 16 * warp + 16; r0 += 4) {
-      float4 xv[4][2], rv[4][2];
-      float mean[4], inv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const long long t = t0 + r0 + u;
-        const bool ok = t < T;
-        mean[u] = ok ? __ldg(stats + 2 * t) : 0.f;
-        inv[u] = ok ? __ldg(stats + 2 * t + 1) : 0.f;
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int c4 = lane + 32 * v;
-          const bool in = ok && c4 < n4;
-          xv[u][v] = in ? __ldg(reinterpret_cast<const float4*>(xln + t * C) + c4) : zero4;
-          rv[u][v] = in ? __ldg(reinterpret_cast<const float4*>(dres + t * C) + c4) : zero4;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = r0 + u;
-        const long long t = t0 + r;
-        float4 d[2], xn[2];
-        float sa = 0.f, sb = 0.f;
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int c4 = lane + 32 * v;
-          d[v] = c4 < n4 ? dy4[r * (LDY / 4) + c4] : zero4;
-          xn[v] = make_float4((xv[u][v].x - mean[u]) * inv[u], (xv[u][v].y - mean[u]) * inv[u],
-                              (xv[u][v].z - mean[u]) * inv[u], (xv[u][v].w - mean[u]) * inv[u]);
-          const float4 e = make_float4(d[v].x * gv[v].x, d[v].y * gv[v].y, d[v].z * gv[v].z,
-                                       d[v].w * gv[v].w);
-          sa += (e.x + e.y) + (e.z + e.w);
-          sb += (e.x * xn[v].x + e.y * xn[v].y) + (e.z * xn[v].z + e.w * xn[v].w);
-          cg[v] = make_float4(fmaf(d[v].x, xn[v].x, cg[v].x), fmaf(d[v].y, xn[v].y, cg[v].y),
-                              fmaf(d[v].z, xn[v].z, cg[v].z), fmaf(d[v].w, xn[v].w, cg[v].w));
-          cb[v] = make_float4(cb[v].x + d[v].x, cb[v].y + d[v].y, cb[v].z + d[v].z,
-                              cb[v].w + d[v].w);
-        }
-        const float ma = warp_sum(sa) / C, mb = warp_sum(sb) / C;
-        if (t >= T) continue;
-        const float sc = outs != nullptr ? __ldg(s + t / hw) : 0.f;
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int c4 = lane + 32 * v;
-          if (c4 >= n4) continue;
-          const float4 dx = make_float4(
-              rv[u][v].x + inv[u] * (d[v].x * gv[v].x - ma - xn[v].x * mb),
-              rv[u][v].y + inv[u] * (d[v].y * gv[v].y - ma - xn[v].y * mb),
-              rv[u][v].z + inv[u] * (d[v].z * gv[v].z - ma - xn[v].z * mb),
-              rv[u][v].w + inv[u] * (d[v].w * gv[v].w - ma - xn[v].w * mb));
-          reinterpret_cast<float4*>(out + t * C)[c4] = dx;
-          if (outs != nullptr)
-            reinterpret_cast<float4*>(outs + t * C)[c4] =
-                make_float4(sc * dx.x, sc * dx.y, sc * dx.z, sc * dx.w);
-        }
-      }
-    }
-    float* colred = smem + kTcRows * LDY;  // [8 warps][dg | dbe][C]
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int c4 = lane + 32 * v;
-      if (c4 < n4) {
-        reinterpret_cast<float4*>(colred + 2 * warp * C)[c4] = cg[v];
-        reinterpret_cast<float4*>(colred + (2 * warp + 1) * C)[c4] = cb[v];
-      }
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      float dg = 0.f, db = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        dg += colred[2 * w * C + c];
-        db += colred[(2 * w + 1) * C + c];
-      }
-      ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
-      ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
-    }
   }
 }
 
@@ -491,14 +254,6 @@ inline cudaError_t weight_grad(const float* A, const float* B, long long T, int 
   return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
 }
 
-inline cudaError_t ln_rows(const float* x, const float* g, const float* be, float* y,
-                           float* stats, const float* dout, const float* s, float* dm,
-                           long long T, long long hw, int C, float eps, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
-  ln_rows_kernel<<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw, C, eps);
-  return cudaGetLastError();
-}
-
 inline cudaError_t mlp_hidden(const float* y, const float* dm, const float* w1, const float* b1,
                               const float* w2, float* hg, float* dh, long long T, int C,
                               int hidden, cudaStream_t stream) {
@@ -509,43 +264,6 @@ inline cudaError_t mlp_hidden(const float* y, const float* dm, const float* w1, 
   const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (hidden + kHidTile - 1) / kHidTile);
   mlp_hidden_kernel<<<grid, kThreads, smem, stream>>>(y, dm, w1, b1, w2, hg, dh, T, C, hidden);
   return cudaGetLastError();
-}
-
-template <int BN, bool LN>
-inline cudaError_t rows_launch(const float* A, const float* W, long long T, int K, int C,
-                               const float* xln, const float* stats, const float* g,
-                               const float* dres, const float* s, long long hw, float* out,
-                               float* outs, float* ln_part, cudaStream_t stream) {
-  const int smem = rows_smem_bytes(C);
-  const cudaError_t err = cudaFuncSetAttribute(
-      rows_kernel<BN, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((T + kTcRows - 1) / kTcRows);
-  rows_kernel<BN, LN><<<blocks, kThreads, smem, stream>>>(A, W, T, K, C, xln, stats, g, dres, s,
-                                                          hw, out, outs, ln_part);
-  return cudaGetLastError();
-}
-
-// rows_kernel at the column tile of C (<= 256); W (C, K).
-template <bool LN>
-inline cudaError_t rows(const float* A, const float* W, long long T, int K, int C,
-                        const float* xln, const float* stats, const float* g, const float* dres,
-                        const float* s, long long hw, float* out, float* outs, float* ln_part,
-                        cudaStream_t stream) {
-  switch (rows_cols(C)) {
-    case 64:
-      return rows_launch<64, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
-                                 ln_part, stream);
-    case 128:
-      return rows_launch<128, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
-                                  ln_part, stream);
-    case 192:
-      return rows_launch<192, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
-                                  ln_part, stream);
-    default:
-      return rows_launch<256, LN>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
-                                  ln_part, stream);
-  }
 }
 
 // One block per 8x8 window of the map rolled by (-shift, -shift), as in the
@@ -716,6 +434,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 extern "C" {
 
 size_t trr_rows_smem_bytes(int C) { return (size_t)trr::rows_smem_bytes(C); }
+size_t trr_linear_smem_bytes() { return (size_t)trr::linear_smem_bytes(); }
 size_t trr_hidden_smem_bytes() { return (size_t)trr::hidden_smem_bytes(); }
 size_t trr_atb_smem_bytes() { return (size_t)trr::atb_smem_bytes(); }
 size_t trr_bwd_attn_smem_bytes(int C, int nh) {
@@ -742,12 +461,6 @@ int trr_swin_block_fwd(const float* x, const float* g1, const float* be1, const 
                                      eps, stream);
 }
 
-#define TRR_TRY(call)                      \
-  do {                                     \
-    const cudaError_t e_ = (call);         \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
-
 // The backward of fused_ln_mlp (#7): x, dout, dx (B, H, W, C); g, be (C);
 // w1 (C, hidden), b1 (hidden), w2 (hidden, C) as the forward takes them;
 // s (B). Scratch: y, dm (T, C), stats (T, 2), hg, dh (T, hidden), ln_part
@@ -762,8 +475,8 @@ int trr_ln_mlp_bwd(const float* x, const float* dout, const float* g, const floa
   const long long T = (long long)B * H * W, hw = (long long)H * W;
   TRR_TRY(trr::ln_rows(x, g, be, y, stats, dout, s, dm, T, hw, C, eps, stream));
   TRR_TRY(trr::mlp_hidden(y, dm, w1, b1, w2, hg, dh, T, C, hidden, stream));
-  TRR_TRY(trr::rows<true>(dh, w1, T, hidden, C, x, stats, g, dout, nullptr, hw, dx, nullptr,
-                          ln_part, stream));
+  TRR_TRY(trr::rows<trr::kRowsLn>(dh, w1, T, hidden, C, x, stats, g, dout, nullptr, hw, dx,
+                                  nullptr, ln_part, stream));
   TRR_TRY(trr::weight_grad(hg, dm, T, hidden, C, part, d2, stream));
   TRR_TRY(trr::weight_grad(y, dh, T, C, hidden, part, d1, stream));
   return (int)trr::sum_rows(ln_part, (int)((T + trr::kTcRows - 1) / trr::kTcRows), 2LL * C, dln,
@@ -793,20 +506,20 @@ int trr_swin_block_bwd(const float* x, const float* z, const float* dout, const 
   TRR_TRY(trr::ln_rows(z, g2, be2, y2, stats2, dout, s2, dm, T, hw, C, eps, stream));
   TRR_TRY(trr::ln_rows(x, g1, be1, y, stats1, nullptr, nullptr, nullptr, T, hw, C, eps, stream));
   TRR_TRY(trr::mlp_hidden(y2, dm, w1, b1, w2, hg, dh, T, C, hidden, stream));
-  TRR_TRY(trr::rows<true>(dh, w1, T, hidden, C, z, stats2, g2, dout, s1, hw, dz, dzp, ln_part,
-                          stream));
+  TRR_TRY(trr::rows<trr::kRowsLn>(dh, w1, T, hidden, C, z, stats2, g2, dout, s1, hw, dz, dzp,
+                                  ln_part, stream));
   TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln2, stream));
   // the attention half: datt, then dqkv and dS per window, then dx
-  TRR_TRY(trr::rows<false>(dzp, wp, T, C, C, nullptr, nullptr, nullptr, nullptr, nullptr, hw,
-                           datt, nullptr, nullptr, stream));
+  TRR_TRY(trr::rows<trr::kRowsStore>(dzp, wp, T, C, C, nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, hw, datt, nullptr, nullptr, stream));
   const int floats = trr::bwd_attn_smem_floats(C, nh);
   TRR_TRY(trr::set_smem(trr::block_bwd_attn_kernel, floats));
   const dim3 grid((H / 8) * (W / 8), B);
   trr::block_bwd_attn_kernel<<<grid, trr::kThreads, floats * sizeof(float), stream>>>(
       y, wq, bq, P, datt, dqkv, dS, H, W, C, nh, shift, scale);
   TRR_TRY(cudaGetLastError());
-  TRR_TRY(trr::rows<true>(dqkv, wq, T, 3 * C, C, x, stats1, g1, dz, nullptr, hw, dx, nullptr,
-                          ln_part, stream));
+  TRR_TRY(trr::rows<trr::kRowsLn>(dqkv, wq, T, 3 * C, C, x, stats1, g1, dz, nullptr, hw, dx,
+                                  nullptr, ln_part, stream));
   TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln1, stream));
   TRR_TRY(trr::weight_grad(hg, dm, T, hidden, C, part, d2, stream));
   TRR_TRY(trr::weight_grad(y2, dh, T, C, hidden, part, d1, stream));

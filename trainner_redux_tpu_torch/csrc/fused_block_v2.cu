@@ -14,36 +14,46 @@
 //   its backward (_pn_mlp_bwd_kernel, pallas_call at :556): dx and the
 //       gradients of w1, b1, w2, b2, g, be, recomputing fc1 and fc2 from x.
 //
-// What bounds them on the card: fp32 arithmetic. At the Swin2SR-M training
+// What bounds them on the card: their arithmetic. At the Swin2SR-M training
 // block (B 8, 48x48, C 180, 6 heads of 30, hidden 360: 18,432 tokens) the
 // attention half does 5.6 GFLOP forward and 17 backward, the MLP half 4.8
 // and 14, against some 13 MB for each activation: far above the card's fp32
-// ridge point. The forward kernels are the pre-norm ones of block_fwd.cuh
-// with the LayerNorm moved after the last product: one thread block per 8x8
-// window (attention half) or per 64 tokens (MLP half), every intermediate in
-// shared memory as transposed (C, 64) tiles, weights streamed from L2
-// through gemm_weights' double-buffered stage. The post-norm needs all C
-// channels of a token, which the block holds: the last product writes its
-// rows to a (64, C + 1) row-major tile and one warp a row takes the
-// LayerNorm, adds the residual and stores.
+// ridge point. The forward kernels (fp32 FMA) are the pre-norm ones of
+// block_fwd.cuh with the LayerNorm moved after the last product: one thread
+// block per 8x8 window (attention half) or per 64 tokens (MLP half), every
+// intermediate in shared memory as transposed (C, 64) tiles, weights
+// streamed from L2 through gemm_weights' double-buffered stage. The
+// post-norm needs all C channels of a token, which the block holds: the
+// last product writes its rows to a (64, C + 1) row-major tile and one warp
+// a row takes the LayerNorm, adds the residual and stores.
 //
-// The backward of the attention half runs in stages whose working sets fit
-// one thread block (a TPU core instead keeps a strip of windows in VMEM):
-//   1. cos_attn_fwd_kernel again, told to save qkv, the attention output and
-//      the pre-LN proj rows (the recompute);
-//   2. postnorm_ln_bwd_kernel, per 64 tokens: dy = s do, the LN backward ->
-//      dproj, the dg / dbe partial sums, datt = dproj wp^T;
-//   3. cos_attn_bwd_kernel, per 8x8 window and head: q^, k^, P from the
-//      saved qkv, then dv, dP, dS, the dscale partial sum of dS cos, dq^ and
-//      dk^ and the normalisation's backward -> dq, dk;
-//   4. qkv_dx_kernel, per 64 tokens: dx = do + dqkv wq^T;
+// The backward of the attention half (#12) runs in stages through device
+// memory. Its per-token products run on the tensor cores in 3xTF32 through
+// the wgmma engine (tc_gemm.cuh, tc_rows.cuh; bound 3 x operations / 495
+// TFLOP/s), 128 tokens a block; the per-window work stays on the FMA units:
+//   1. linear_kernel: qkv = x wq + bq (the post-norm block's qkv reads x),
+//      wq as it lies (N-major);
+//   2. cos_attn_rows_kernel, per (8x8 window, head), fp32 FMA: q^ and k^
+//      from qkv, the softmax and P v -> att (T, C);
+//   3. linear_kernel: proj = att wp + bp;
+//   4. postnorm_ln_rows_kernel, one warp a token, 16-byte row loads: dproj =
+//      LN1'(s dout) from proj's own row stats, the dg / dbe partial sums per
+//      128 tokens (bound: bytes);
+//   5. rows_kernel<BN, kRowsStore>: datt = dproj wp^T, wp as it lies (K-major);
+//   6. cos_attn_bwd_tc_kernel, per (8x8 window, head): q^, k^, P from qkv,
+//      then dv, dP, dS, the dscale partial sum of dS cos, dq^ and dk^ and
+//      the normalisation's backward -> dq, dk; its six products on
+//      mma.sync in 3xTF32 (tc_attn.cuh; on the FMA units this stage took
+//      30% of #12);
+//   7. rows_kernel<BN, kRowsResidual>: dx = dout + dqkv wq^T;
 // then the split-K weight gradients and fixed-order sums of
 // fused_block_train.cu (dwq = x^T dqkv, dwp = att^T dproj, the biases, dg,
 // dbe, dscale) and dbias_kernel for the per-window dS. The MLP half's
-// backward is one per-token kernel (pn_mlp_bwd_kernel) and the same weight
-// gradients. No atomics: two runs give the same gradients bit for bit.
-// Every product runs on the fp32 FMA units; the tensor cores are later work.
-#include "common.cuh"
+// backward (#14, not redesigned) is one per-token FMA kernel
+// (pn_mlp_bwd_kernel) and the same weight gradients. No atomics: two runs
+// give the same gradients bit for bit.
+#include "tc_attn.cuh"
+#include "tc_rows.cuh"
 
 namespace trr {
 
@@ -59,17 +69,18 @@ __host__ __device__ inline int cos_attn_fwd_smem_floats(int C, int nh) {
 __host__ __device__ inline int pn_mlp_fwd_smem_floats(int C, int hidden) {
   return C * kTLd + hidden * kTLd + kStageFloats;
 }
-// postnorm_ln_bwd: the proj rows (64, C + 1), dproj (C, 64), stage, row stats.
-__host__ __device__ inline int postnorm_ln_bwd_smem_floats(int C) {
-  return kTile * (C + 1) + C * kTLd + kStageFloats + 3 * kTile;
+// cos_attn_rows: one head's q^ and k^ (hd, 64) transposed, v (64, 32), the
+// score tile, the rows' inverse norms.
+__host__ __device__ inline int cos_attn_rows_smem_floats(int hd) {
+  return 2 * hd * kTLd + kTile * kVLd + kTile * kTLd + 2 * kTile;
 }
-// cos_attn_bwd: q^, k^, v, datt (64, 32) rows; q^, k^, v, datt (hd, 64)
-// transposed; cos, P, dS (64, 64); inverse norms; warp partial sums.
-__host__ __device__ inline int cos_attn_bwd_smem_floats(int hd) {
-  return 4 * kTile * kVLd + 4 * hd * kTLd + 3 * kTile * kTLd + 2 * kTile + kWarps;
+// cos_attn_bwd_tc (tc_attn.cuh): q, k, v, datt (64, 36) rows; the P / dS
+// tile (64, 68); three (2, 64) exchanges of the row halves' sums; the
+// inverse norms of the q and k rows; the warps' sums of dS cos; the
+// window's 64 token indices.
+__host__ __device__ constexpr int cos_attn_bwd_smem_floats() {
+  return 4 * kTile * kHeadLd + kTile * (kTile + 4) + 6 * kTile + 2 * kTile + kWarps + kTile;
 }
-// qkv_dx: dqkv (3C, 64) transposed, stage.
-__host__ __device__ inline int qkv_dx_smem_floats(int C) { return 3 * C * kTLd + kStageFloats; }
 // pn_mlp_bwd: x then dm (C, 64), gelu(h) then dh (hidden, 64), the fc2 rows
 // then xn (64, C + 1) in a (C, 64) tile's room, stage, row stats.
 __host__ __device__ inline int pn_mlp_bwd_smem_floats(int C, int hidden) {
@@ -78,16 +89,13 @@ __host__ __device__ inline int pn_mlp_bwd_smem_floats(int C, int hidden) {
 
 // out[tok(r)] = x[tok(r)] + sc(r) * LN(rows[r]) for the M <= 64 rows r of
 // `rows` (row-major in shared memory, stride ld, C values each), one warp a
-// row; two-pass mean and variance, as the JAX package's _ln_f32. When `keep`
-// is not null the pre-LN rows go there too; when `out` is null only `keep`
-// is written.
+// row; two-pass mean and variance, as the JAX package's _ln_f32.
 template <class Tok, class Scale>
 __device__ __forceinline__ void postnorm_residual(const float* rows, int ld, int M, int C,
                                                   const float* __restrict__ g,
                                                   const float* __restrict__ be, float eps, Tok tok,
                                                   Scale sc, const float* __restrict__ x,
-                                                  float* __restrict__ out,
-                                                  float* __restrict__ keep) {
+                                                  float* __restrict__ out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < M; r += kWarps) {
     const float* p = rows + r * ld;
@@ -101,12 +109,10 @@ __device__ __forceinline__ void postnorm_residual(const float* rows, int ld, int
       sq += d * d;
     }
     const float inv = 1.f / sqrtf(warp_sum(sq) / C + eps);
-    const float sb = out != nullptr ? sc(r) : 0.f;
+    const float sb = sc(r);
     for (int c = lane; c < C; c += 32) {
       const long long idx = t * C + c;
-      if (keep != nullptr) keep[idx] = p[c];
-      if (out != nullptr)
-        out[idx] = __ldg(x + idx) + sb * ((p[c] - mean) * inv * __ldg(g + c) + __ldg(be + c));
+      out[idx] = __ldg(x + idx) + sb * ((p[c] - mean) * inv * __ldg(g + c) + __ldg(be + c));
     }
   }
 }
@@ -198,9 +204,7 @@ __device__ __forceinline__ void normalize_rows(float* qT, float* kT, int hd, flo
 
 // ---------------------------------------------------------------------------
 // #11: the cosine-attention half, forward. One block per 8x8 window of x
-// rolled by (-shift, -shift); z comes back in x's frame. The backward's
-// recompute also asks for qkv (T, 3C, pre-normalisation), att (T, C) and the
-// pre-LN proj rows (T, C), all in x's frame, and passes z = nullptr.
+// rolled by (-shift, -shift); z comes back in x's frame.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads, 1)
     cos_attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wq,
@@ -208,9 +212,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ wp, const float* __restrict__ bp,
                         const float* __restrict__ g, const float* __restrict__ be,
                         const float* __restrict__ bias, const float* __restrict__ s,
-                        float* __restrict__ z, float* __restrict__ qkv_out,
-                        float* __restrict__ att_out, float* __restrict__ proj_out, int H, int W,
-                        int C, int nh, int kinds, int shift, float eps) {
+                        float* __restrict__ z, int H, int W, int C, int nh, int kinds, int shift,
+                        float eps) {
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / 8, nwh = H / 8;
@@ -238,10 +241,6 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int part = c / hd, d = c % hd, col = part * C + h * hd + d;
           const float bb = __ldg(bq + col);
           const float val[4] = {o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb};
-          if (qkv_out != nullptr) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) qkv_out[token(r0 + i) * C3 + col] = val[i];
-          }
           if (part == 2) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) v[(r0 + i) * kVLd + d] = val[i];
@@ -258,10 +257,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                    [&](int r0, int d, const float* o) {
                      *reinterpret_cast<float4*>(attT + (h * hd + d) * kTLd + r0) =
                          make_float4(o[0], o[1], o[2], o[3]);
-                     if (att_out != nullptr) {
-#pragma unroll
-                       for (int i = 0; i < 4; ++i) att_out[token(r0 + i) * C + h * hd + d] = o[i];
-                     }
                    });
   }
 
@@ -275,293 +270,307 @@ __global__ void __launch_bounds__(kThreads, 1)
                });
   __syncthreads();
   const float sb = __ldg(s + b);
-  postnorm_residual(xT, ld, kTile, C, g, be, eps, token, [&](int) { return sb; }, x, z, proj_out);
+  postnorm_residual(xT, ld, kTile, C, g, be, eps, token, [&](int) { return sb; }, x, z);
 }
 
 // ---------------------------------------------------------------------------
-// #12, stage 2: per 64 consecutive tokens, the LN1 backward and datt.
-// proj (T, C) are the saved pre-LN rows; wpt (C, C) is wp's transpose.
+// #12, stage 2: one block per (8x8 window of the rolled map, head): q^ and
+// k^ from the qkv buffer (T, 3C, pre-normalisation, in x's frame), S = (q^
+// k^T) scale[h] + bias, the row softmax and P v, as #11's forward takes them
+// -> this head's channels of att (T, C), in x's frame.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    postnorm_ln_bwd_kernel(const float* __restrict__ proj, const float* __restrict__ dout,
-                           const float* __restrict__ g, const float* __restrict__ s,
-                           const float* __restrict__ wpt, float* __restrict__ dproj,
-                           float* __restrict__ datt, float* __restrict__ ln_part,
-                           long long tokens, long long hw, int C, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int ld = C + 1;
-  float* R = smem;                   // (64, C + 1) proj rows, then xn
-  float* dT = R + kTile * ld;        // (C, 64) dy, then dproj
-  float* Bs = dT + C * kTLd;         // weight stage
-  float* st = Bs + kStageFloats;     // 1/std, mean(dy g), mean(dy g xn) of each row
-  for (int e = threadIdx.x; e < M * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    R[r * ld + c] = __ldg(proj + (t0 + r) * C + c);
-  }
-  postnorm_ln_bwd_tile(R, ld, dT, dout, g, s, t0, M, hw, C, eps, dproj, ln_part, st);
-  gemm_weights(dT, C, wpt, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-#pragma unroll
-                 for (int i = 0; i < 4; ++i)
-                   if (r0 + i < M) datt[(t0 + r0 + i) * C + c] = o[i];
-               });
-}
-
-// ---------------------------------------------------------------------------
-// #12, stage 3: one block per 8x8 window of the rolled map, the heads one
-// after another. qkv (T, 3C) is the saved pre-normalisation qkv and datt
-// (T, C) the gradient of the attention output, both in x's frame. Writes
-// dq | dk | dv into dqkv (T, 3C), dS (B, H/8, W/8, nh, 64, 64) for the
-// bias-kind sums, and per window and head the partial sum of dS * cos to
-// dscale_part (B * H/8 * W/8, nh).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    cos_attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ datt,
-                        const float* __restrict__ scale, const float* __restrict__ bias,
-                        float* __restrict__ dqkv, float* __restrict__ dS,
-                        float* __restrict__ dscale_part, int H, int W, int C, int nh, int kinds,
-                        int shift) {
+__global__ void __launch_bounds__(kThreads)
+    cos_attn_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ scale,
+                         const float* __restrict__ bias, float* __restrict__ att, int H, int W,
+                         int C, int nh, int kinds, int shift) {
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / 8, nwh = H / 8;
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y;
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q = smem;                   // (64, 32) rows: q, then q^
-  float* k = q + kTile * kVLd;       // (64, 32) k, then k^
-  float* v = k + kTile * kVLd;       // (64, 32)
-  float* dA = v + kTile * kVLd;      // (64, 32) this head's columns of datt
-  float* qT = dA + kTile * kVLd;     // (hd, 64) q, then q^
-  float* kT = qT + hd * kTLd;        // (hd, 64) k, then k^
-  float* vT = kT + hd * kTLd;        // (hd, 64)
-  float* dAT = vT + hd * kTLd;       // (hd, 64)
-  float* Cs = dAT + hd * kTLd;       // (64, 64) cos = q^ k^T
-  float* Ps = Cs + kTile * kTLd;     // (64, 64) scores, then P
-  float* G = Ps + kTile * kTLd;      // (64, 64) dP, then dS
-  float* inv = G + kTile * kTLd;     // (2, 64) inverse norms of q and k rows
-  float* red = inv + 2 * kTile;      // (8) warp partial sums
-
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, b = blockIdx.z, h = blockIdx.x;
+  float* qT = smem;                 // (hd, 64) q, then q^
+  float* kT = qT + hd * kTLd;       // (hd, 64) k, then k^
+  float* v = kT + hd * kTLd;        // (64, 32)
+  float* S = v + kTile * kVLd;      // (64, 64) scores, then probabilities
+  float* inv = S + kTile * kTLd;    // (2, 64) inverse norms
   auto token = [&](int r) { return window_token(b, wi, wj, r, H, W, shift); };
+  for (int e = threadIdx.x; e < kTile * kVLd; e += kThreads) {
+    const int r = e / kVLd, d = e % kVLd;
+    const float* row = qkv + token(r) * C3 + h * hd + d;
+    if (d < hd) {
+      qT[d * kTLd + r] = __ldg(row);
+      kT[d * kTLd + r] = __ldg(row + C);
+    }
+    v[e] = d < hd ? __ldg(row + 2 * C) : 0.f;
+  }
+  __syncthreads();
+  normalize_rows(qT, kT, hd, inv);
+  __syncthreads();
   const int kind = window_kind(kinds, wi, wj, nwh, nww);
-  const size_t window = (size_t)b * nwh * nww + blockIdx.x;
-  for (int h = 0; h < nh; ++h) {
-    const size_t head = (window * nh + h) * kTile * kTile;
-    const float sc = __ldg(scale + h);
-    const float* bias_h = bias + ((size_t)kind * nh + h) * kTile * kTile;
-    for (int e = threadIdx.x; e < kTile * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const long long t = token(r);
-      const float* row = qkv + t * C3 + h * hd + d;
-      const float qv = __ldg(row), kv = __ldg(row + C), vv = __ldg(row + 2 * C);
-      const float av = __ldg(datt + t * C + h * hd + d);
-      q[r * kVLd + d] = qv;
-      k[r * kVLd + d] = kv;
-      v[r * kVLd + d] = vv;
-      dA[r * kVLd + d] = av;
-      qT[d * kTLd + r] = qv;
-      kT[d * kTLd + r] = kv;
-      vT[d * kTLd + r] = vv;
-      dAT[d * kTLd + r] = av;
+  attention_head(qT, kT, v, hd, __ldg(scale + h), bias + ((size_t)kind * nh + h) * kTile * kTile,
+                 S, nullptr, [&](int r0, int d, const float* o) {
+#pragma unroll
+                   for (int i = 0; i < 4; ++i) att[token(r0 + i) * C + h * hd + d] = o[i];
+                 });
+}
+
+// ---------------------------------------------------------------------------
+// #12, stage 4: per 128 consecutive tokens, one warp a token (16 a warp, in
+// order), rows read with 16-byte loads (C <= 256, a multiple of 4): the
+// LayerNorm backward of z = x + s LN1(proj) -> dproj = inv (dy g - mean(dy
+// g) - xn mean(dy g xn)) with dy = s dout and xn from the proj row's own
+// mean and 1/std (two-pass, as the forward); the block's partial sums of dg
+// = sum dy xn (first C) and dbe = sum dy (next C) to ln_part[blockIdx.x].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    postnorm_ln_rows_kernel(const float* __restrict__ proj, const float* __restrict__ dout,
+                            const float* __restrict__ g, const float* __restrict__ s,
+                            float* __restrict__ dproj, float* __restrict__ ln_part, long long T,
+                            long long hw, int C, float eps) {
+  __shared__ __align__(16) float colred[kWarps * 2 * 256];  // [warp][dg | dbe][C]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = C / 4;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 gv[2], cg[2] = {zero4, zero4}, cb[2] = {zero4, zero4};
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+    gv[v] = lane + 32 * v < n4 ? __ldg(reinterpret_cast<const float4*>(g) + lane + 32 * v) : zero4;
+  const long long tb = (long long)blockIdx.x * kTcRows + 16 * warp;
+  for (int r = 0; r < 16 && tb + r < T; ++r) {
+    const long long t = tb + r;
+    float4 p[2], d[2];
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int c4 = lane + 32 * v;
+      p[v] = c4 < n4 ? __ldg(reinterpret_cast<const float4*>(proj + t * C) + c4) : zero4;
+      d[v] = c4 < n4 ? __ldg(reinterpret_cast<const float4*>(dout + t * C) + c4) : zero4;
+      sum += (p[v].x + p[v].y) + (p[v].z + p[v].w);
     }
-    __syncthreads();
-    normalize_rows(qT, kT, hd, inv);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      q[r * kVLd + d] *= inv[r];
-      k[r * kVLd + d] *= inv[kTile + r];
-    }
-    {  // cos[r][j] = q^_r . k^_j; scores cos * scale + bias
-      float acc[4][4];
+    const float mean = warp_sum(sum) / C;
+    float sq = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        const float4 a = ld4(qT + d * kTLd + rg * 4);
-        const float4 bv = ld4(kT + d * kTLd + cl * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i;
-        const float4 bb = __ldg(reinterpret_cast<const float4*>(bias_h + r * kTile + cl * 4));
-        *reinterpret_cast<float4*>(Cs + r * kTLd + cl * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(Ps + r * kTLd + cl * 4) =
-            make_float4(acc[i][0] * sc + bb.x, acc[i][1] * sc + bb.y, acc[i][2] * sc + bb.z,
-                        acc[i][3] * sc + bb.w);
+    for (int v = 0; v < 2; ++v) {
+      if (lane + 32 * v < n4) {
+        const float a = p[v].x - mean, b = p[v].y - mean, c = p[v].z - mean, e = p[v].w - mean;
+        sq += (a * a + b * b) + (c * c + e * e);
       }
     }
-    __syncthreads();
-    for (int r = warp; r < kTile; r += kWarps) {  // row softmax, the row max subtracted
-      float* p = Ps + r * kTLd;
-      const float s0 = p[lane], s1 = p[lane + 32];
-      const float m = warp_max(fmaxf(s0, s1));
-      const float p0 = expf(s0 - m), p1 = expf(s1 - m);
-      const float iv = 1.f / warp_sum(p0 + p1);
-      p[lane] = p0 * iv;
-      p[lane + 32] = p1 * iv;
+    const float inv = 1.f / sqrtf(warp_sum(sq) / C + eps);
+    const float sc = __ldg(s + t / hw);
+    float4 xn[2], dy[2];
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      xn[v] = make_float4((p[v].x - mean) * inv, (p[v].y - mean) * inv, (p[v].z - mean) * inv,
+                          (p[v].w - mean) * inv);
+      dy[v] = make_float4(sc * d[v].x, sc * d[v].y, sc * d[v].z, sc * d[v].w);
+      const float4 e = make_float4(dy[v].x * gv[v].x, dy[v].y * gv[v].y, dy[v].z * gv[v].z,
+                                   dy[v].w * gv[v].w);
+      sa += (e.x + e.y) + (e.z + e.w);
+      sb += (e.x * xn[v].x + e.y * xn[v].y) + (e.z * xn[v].z + e.w * xn[v].w);
+      cg[v] = make_float4(fmaf(dy[v].x, xn[v].x, cg[v].x), fmaf(dy[v].y, xn[v].y, cg[v].y),
+                          fmaf(dy[v].z, xn[v].z, cg[v].z), fmaf(dy[v].w, xn[v].w, cg[v].w));
+      cb[v] = make_float4(cb[v].x + dy[v].x, cb[v].y + dy[v].y, cb[v].z + dy[v].z,
+                          cb[v].w + dy[v].w);
     }
-    __syncthreads();
-    {  // dv[j][d] = sum_r P[r][j] dA[r][d]
-      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        const float4 p = ld4(Ps + r * kTLd + rg * 4);
-        const float2 a = *reinterpret_cast<const float2*>(dA + r * kVLd + cl * 2);
-        const float pv[4] = {p.x, p.y, p.z, p.w};
+    const float ma = warp_sum(sa) / C, mb = warp_sum(sb) / C;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] = fmaf(pv[i], a.x, acc[i][0]);
-          acc[i][1] = fmaf(pv[i], a.y, acc[i][1]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int d = cl * 2 + jj;
-        if (d < hd) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dqkv[token(rg * 4 + i) * C3 + 2 * C + h * hd + d] = acc[i][jj];
-        }
-      }
+    for (int v = 0; v < 2; ++v) {
+      const int c4 = lane + 32 * v;
+      if (c4 < n4)
+        reinterpret_cast<float4*>(dproj + t * C)[c4] =
+            make_float4(inv * (dy[v].x * gv[v].x - ma - xn[v].x * mb),
+                        inv * (dy[v].y * gv[v].y - ma - xn[v].y * mb),
+                        inv * (dy[v].z * gv[v].z - ma - xn[v].z * mb),
+                        inv * (dy[v].w * gv[v].w - ma - xn[v].w * mb));
     }
-    {  // dP[r][j] = sum_d dA[r][d] v[j][d]
-      float acc[4][4];
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        const float4 a = ld4(dAT + d * kTLd + rg * 4);
-        const float4 bv = ld4(vT + d * kTLd + cl * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(G + (rg * 4 + i) * kTLd + cl * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int v = 0; v < 2; ++v) {
+    const int c4 = lane + 32 * v;
+    if (c4 < n4) {
+      reinterpret_cast<float4*>(colred + 2 * warp * C)[c4] = cg[v];
+      reinterpret_cast<float4*>(colred + (2 * warp + 1) * C)[c4] = cb[v];
     }
-    __syncthreads();
-    {  // dS = P (dP - rowsum(P dP)), one warp per row; the sum of dS * cos
-      float part = 0.f;
-      for (int r = warp; r < kTile; r += kWarps) {
-        const float p0 = Ps[r * kTLd + lane], p1 = Ps[r * kTLd + lane + 32];
-        const float d0 = G[r * kTLd + lane], d1 = G[r * kTLd + lane + 32];
-        const float delta = warp_sum(p0 * d0 + p1 * d1);
-        const float s0 = p0 * (d0 - delta), s1 = p1 * (d1 - delta);
-        G[r * kTLd + lane] = s0;
-        G[r * kTLd + lane + 32] = s1;
-        dS[head + r * kTile + lane] = s0;
-        dS[head + r * kTile + lane + 32] = s1;
-        part = fmaf(s0, Cs[r * kTLd + lane], part);
-        part = fmaf(s1, Cs[r * kTLd + lane + 32], part);
-      }
-      part = warp_sum(part);
-      if (lane == 0) red[warp] = part;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float dg = 0.f, db = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      dg += colred[2 * w * C + c];
+      db += colred[(2 * w + 1) * C + c];
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float acc = 0.f;
-      for (int w = 0; w < kWarps; ++w) acc += red[w];
-      dscale_part[window * nh + h] = acc;
-    }
-    // dq^ = scale dS k^, dk^ = scale dS^T q^; then the normalisation's
-    // backward dq = (dq^ - q^ <q^, dq^>) / max(|q|, 1e-12), dk likewise. A
-    // row's hd columns lie in the 16 lanes of its row group: the dot product
-    // is a shuffle sum over them.
-    for (int side = 0; side < 2; ++side) {
-      const float* other = side == 0 ? k : q;   // the rows the product runs over
-      const float* self = side == 0 ? q : k;    // the normalised rows differentiated
-      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-      if (side == 0) {
-        const float* gr = G + rg * 4 * kTLd;
-#pragma unroll 4
-        for (int j = 0; j < kTile; ++j) {
-          const float2 kv = *reinterpret_cast<const float2*>(other + j * kVLd + cl * 2);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float a = gr[i * kTLd + j];
-            acc[i][0] = fmaf(a, kv.x, acc[i][0]);
-            acc[i][1] = fmaf(a, kv.y, acc[i][1]);
-          }
-        }
-      } else {
-#pragma unroll 4
-        for (int r = 0; r < kTile; ++r) {
-          const float4 sv = ld4(G + r * kTLd + rg * 4);
-          const float2 qv = *reinterpret_cast<const float2*>(other + r * kVLd + cl * 2);
-          const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][0] = fmaf(s4[i], qv.x, acc[i][0]);
-            acc[i][1] = fmaf(s4[i], qv.y, acc[i][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i;
-        float dot = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int d = cl * 2 + jj;
-          acc[i][jj] *= sc;
-          if (d < hd) dot = fmaf(self[r * kVLd + d], acc[i][jj], dot);
-        }
-#pragma unroll
-        for (int o = kLanes / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        const float iv = inv[side * kTile + r];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int d = cl * 2 + jj;
-          if (d < hd)
-            dqkv[token(r) * C3 + side * C + h * hd + d] = (acc[i][jj] - self[r * kVLd + d] * dot) * iv;
-        }
-      }
-    }
-    __syncthreads();  // this head's tiles are free for the next
+    ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
+    ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
   }
 }
 
 // ---------------------------------------------------------------------------
-// #12, stage 4: per 64 consecutive tokens, dx = dout + dqkv wq^T (wqt is
-// wq's transpose, (3C, C)).
+// #12, stage 6: one block per (8x8 window of the rolled map, head), its
+// products on mma.sync in 3xTF32 as tc_attn.cuh lays them out, one row
+// block of 64. From the qkv buffer (pre-normalisation) and datt (T, C), in
+// x's frame: q^ and k^ (rows divided by max(|row|, 1e-12)), cos = q^ k^T
+// kept in the fragments, S = cos scale[h] + bias, the row softmax, P to the
+// shared tile; dV = P^T dA, dP = dA v^T, dS = P (dP - rowsum(P dP)) in place
+// of P and to dS (B, H/8, W/8, nh, 64, 64) for the bias-kind sums, the
+// block's sum of dS cos to dscale_part (B * H/8 * W/8, nh); dq^ = scale dS
+// k^ and dk^ = scale dS^T q^ through shared memory, then the normalisation's
+// backward dq = (dq^ - q^ <q^, dq^>) / max(|q|, 1e-12), dk likewise, one warp
+// a row; dq | dk | dv to dqkv (T, 3C).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    qkv_dx_kernel(const float* __restrict__ dqkv, const float* __restrict__ wqt,
-                  const float* __restrict__ dout, float* __restrict__ dx, long long tokens,
-                  int C) {
+__global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
+    cos_attn_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ datt,
+                           const float* __restrict__ scale, const float* __restrict__ bias,
+                           float* __restrict__ dqkv, float* __restrict__ dS,
+                           float* __restrict__ dscale_part, int H, int W, int C, int nh,
+                           int kinds, int shift) {
+  using AW = AttnWarps<kTile, kTile>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, NT = AW::NT;
   extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int C3 = 3 * C;
-  float* DQ = smem;                  // (3C, 64) dqkv
-  float* Bs = DQ + C3 * kTLd;        // weight stage
-  for (int e = threadIdx.x; e < kTile * C3; e += kThreads) {
-    const int r = e / C3, c = e % C3;
-    DQ[c * kTLd + r] = r < M ? __ldg(dqkv + (t0 + r) * C3 + c) : 0.f;
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / 8, nwh = H / 8;
+  // heads fastest in the grid, as #6's: a window's heads run together
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const AW aw;
+  float* qs = smem;                  // (64, LD) q, then q^
+  float* ks = qs + kTile * LD;       // (64, LD) k, then k^
+  float* vs = ks + kTile * LD;       // (64, LD) v, then dk^
+  float* das = vs + kTile * LD;      // (64, LD) datt, then dq^
+  float* pt = das + kTile * LD;      // (64, 68): P, then dS
+  float* red = pt + kTile * AW::LP;  // (3, 2, 64) the halves' row max, row sum, rowsum(P dP)
+  float* inv = red + 6 * kTile;      // (2, 64) inverse norms of the q and k rows
+  float* wsum = inv + 2 * kTile;     // (8) the warps' sums of dS cos
+  int* tok = reinterpret_cast<int*>(wsum + kWarps);  // (64) the window's token indices
+  for (int r = threadIdx.x; r < kTile; r += NTH)
+    tok[r] = (int)window_token(blockIdx.z, wi, wj, r, H, W, shift);
+  const size_t window = (size_t)blockIdx.z * nwh * nww + blockIdx.y;
+  const size_t head = (window * nh + h) * kTile * kTile;
+  const float sc = __ldg(scale + h);
+  const float* table =
+      bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * kTile * kTile;
+  __syncthreads();
+  const float* base = qkv + h * hd;
+  stage_head_rows<kTile, NTH>(qs, hd, [&](int r) { return base + (long long)tok[r] * C3; });
+  stage_head_rows<kTile, NTH>(ks, hd, [&](int r) { return base + (long long)tok[r] * C3 + C; });
+  stage_head_rows<kTile, NTH>(vs, hd,
+                              [&](int r) { return base + (long long)tok[r] * C3 + 2 * C; });
+  stage_head_rows<kTile, NTH>(das, hd,
+                              [&](int r) { return datt + (long long)tok[r] * C + h * hd; });
+  stage_table_rows<kTile, kTile, NTH>(pt, table);  // the bias rows, for S
+  __syncthreads();
+  if (threadIdx.x < 2 * kTile) {  // q^ and k^, a thread a row
+    float* row = (threadIdx.x < kTile ? qs : ks) + (threadIdx.x % kTile) * LD;
+    float sq = 0.f;
+    for (int d = 0; d < hd; ++d) sq = fmaf(row[d], row[d], sq);
+    const float iv = 1.f / fmaxf(sqrtf(sq), 1e-12f);
+    for (int d = 0; d < hd; ++d) row[d] *= iv;
+    inv[threadIdx.x] = iv;
   }
-  gemm_weights(DQ, C3, wqt, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
+  __syncthreads();
+  float cs[NT][4];  // cos = q^ k^T, for dscale
+  aw.rows_by_channels(qs, ks, cs);
+  {  // S = cos scale + bias, the row softmax, P to the tile
+    float p[NT][4];
+    float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-                 for (int i = 0; i < 4; ++i) {
-                   if (r0 + i >= M) break;
-                   const long long idx = (t0 + r0 + i) * C + c;
-                   dx[idx] = __ldg(dout + idx) + o[i];
-                 }
-               });
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 bb = *aw.at(pt, i, j);
+        p[j][2 * i] = cs[j][2 * i] * sc + bb.x;
+        p[j][2 * i + 1] = cs[j][2 * i + 1] * sc + bb.y;
+        m[i] = fmaxf(m[i], fmaxf(p[j][2 * i], p[j][2 * i + 1]));
+      }
+    aw.row_total(red, m, true);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = expf(p[j][e] - m[e / 2]);
+        sum[e / 2] += p[j][e];
+      }
+    aw.row_total(red + 2 * kTile, sum, false);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float iv = 1.f / sum[i];
+        *aw.at(pt, i, j) = make_float2(p[j][2 * i] * iv, p[j][2 * i + 1] * iv);
+      }
+  }
+  __syncthreads();  // P is whole
+  float dv[1][2][4] = {};
+  aw.keys_by_rows(pt, das, dv);  // dV = P^T dA
+  float part = 0.f;              // this thread's sum of dS cos
+  {  // dP = dA v^T, then dS = P (dP - rowsum(P dP)) in place of P
+    float dp[NT][4];
+    aw.rows_by_channels(das, vs, dp);
+    float delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 pv = *aw.at(pt, i, j);
+        delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
+        delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
+      }
+    aw.row_total(red + 4 * kTile, delta, false);  // its barrier: P, dA and v are read
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 pv = *aw.at(pt, i, j);
+        const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
+                                     pv.y * (dp[j][2 * i + 1] - delta[i]));
+        *aw.at(pt, i, j) = v;
+        *reinterpret_cast<float2*>(dS + head + aw.s_row(i) * kTile + aw.s_col(j)) = v;
+        part = fmaf(v.x, cs[j][2 * i], part);
+        part = fmaf(v.y, cs[j][2 * i + 1], part);
+      }
+  }
+  part = warp_sum(part);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();  // dS and the warp sums are whole
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int w = 0; w < kWarps; ++w) acc += wsum[w];
+    dscale_part[window * nh + h] = acc;
+  }
+  {  // dq^ = scale dS k^, to the room of dA
+    float o[2][4];
+    aw.rows_by_keys(pt, ks, o);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) das[aw.o_row(e) * LD + aw.o_chan(j, e)] = sc * o[j][e];
+  }
+  {  // dk^ = scale dS^T q^, to the room of v
+    float dk[1][2][4] = {};
+    aw.keys_by_rows(pt, qs, dk);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vs[aw.u_key(0, e) * LD + aw.u_chan(0, j, e)] = sc * dk[0][j][e];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = aw.u_chan(0, j, e);
+      if (d < hd) dqkv[(long long)tok[aw.u_key(0, e)] * C3 + 2 * C + h * hd + d] = dv[0][j][e];
+    }
+  __syncthreads();  // dq^ and dk^ are whole
+  // the normalisation's backward, one warp a row: the q rows, then the k rows
+  for (int r = warp; r < 2 * kTile; r += kWarps) {
+    const int side = r / kTile, rr = r % kTile;
+    const float x = lane < hd ? (side == 0 ? qs : ks)[rr * LD + lane] : 0.f;
+    const float gx = lane < hd ? (side == 0 ? das : vs)[rr * LD + lane] : 0.f;
+    const float dot = warp_sum(x * gx);
+    if (lane < hd)
+      dqkv[(long long)tok[rr] * C3 + side * C + h * hd + lane] = (gx - x * dot) * inv[r];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -600,7 +609,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                });
   __syncthreads();
   postnorm_residual(xT, ld, M, C, g, be, eps, [&](int r) { return t0 + r; },
-                    [&](int r) { return __ldg(s + (t0 + r) / hw); }, x, out, nullptr);
+                    [&](int r) { return __ldg(s + (t0 + r) / hw); }, x, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -700,65 +709,67 @@ size_t trr_cos_attn_fwd_smem_bytes(int C, int nh) {
 size_t trr_pn_mlp_fwd_smem_bytes(int C, int hidden) {
   return (size_t)trr::pn_mlp_fwd_smem_floats(C, hidden) * sizeof(float);
 }
-size_t trr_postnorm_ln_bwd_smem_bytes(int C) {
-  return (size_t)trr::postnorm_ln_bwd_smem_floats(C) * sizeof(float);
+size_t trr_cos_attn_rows_smem_bytes(int hd) {
+  return (size_t)trr::cos_attn_rows_smem_floats(hd) * sizeof(float);
 }
-size_t trr_cos_attn_bwd_smem_bytes(int hd) {
-  return (size_t)trr::cos_attn_bwd_smem_floats(hd) * sizeof(float);
+size_t trr_cos_attn_bwd_smem_bytes() {
+  return (size_t)trr::cos_attn_bwd_smem_floats() * sizeof(float);
 }
-size_t trr_qkv_dx_smem_bytes(int C) { return (size_t)trr::qkv_dx_smem_floats(C) * sizeof(float); }
 size_t trr_pn_mlp_bwd_smem_bytes(int C, int hidden) {
   return (size_t)trr::pn_mlp_bwd_smem_floats(C, hidden) * sizeof(float);
 }
 
 // x (B, H, W, C); wq (C, 3C), bq (3C), scale (nh) already exponentiated, wp
 // (C, C), bp, g, be (C), bias (kinds, nh, 64, 64), s (B). Windows are 8x8 of
-// x rolled by (-shift, -shift); z and the saved tensors are in x's frame.
-// Any of z, qkv_out, att_out, proj_out may be null.
+// x rolled by (-shift, -shift); z is in x's frame.
 int trr_cos_attn_fwd(const float* x, const float* wq, const float* bq, const float* scale,
                      const float* wp, const float* bp, const float* g, const float* be,
-                     const float* bias, const float* s, float* z, float* qkv_out, float* att_out,
-                     float* proj_out, int B, int H, int W, int C, int nh, int kinds, int shift,
-                     float eps, cudaStream_t stream) {
+                     const float* bias, const float* s, float* z, int B, int H, int W, int C,
+                     int nh, int kinds, int shift, float eps, cudaStream_t stream) {
   const int floats = trr::cos_attn_fwd_smem_floats(C, nh);
   const cudaError_t err = trr::set_smem(trr::cos_attn_fwd_kernel, floats);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H / 8) * (W / 8), B);
   trr::cos_attn_fwd_kernel<<<grid, trr::kThreads, floats * sizeof(float), stream>>>(
-      x, wq, bq, scale, wp, bp, g, be, bias, s, z, qkv_out, att_out, proj_out, H, W, C, nh, kinds,
-      shift, eps);
+      x, wq, bq, scale, wp, bp, g, be, bias, s, z, H, W, C, nh, kinds, shift, eps);
   return (int)cudaGetLastError();
 }
 
-// The attention half's backward after the recompute: proj, dout (T, C) ->
-// dproj, datt (T, C), ln_part (ceil(T / 64), 2C); then the per-window
-// attention backward -> dqkv (T, 3C), dS (B, H/8, W/8, nh, 64, 64),
-// dscale_part (B * H/8 * W/8, nh); then dx (T, C). wpt (C, C) and wqt
-// (3C, C) are the transposes of wp and wq.
-int trr_cos_attn_bwd(const float* proj, const float* dout, const float* g, const float* s,
-                     const float* wpt, const float* qkv, const float* scale, const float* bias,
-                     const float* wqt, float* dproj, float* datt, float* ln_part, float* dqkv,
-                     float* dS, float* dscale_part, float* dx, int B, int H, int W, int C, int nh,
-                     int kinds, int shift, float eps, cudaStream_t stream) {
-  const long long tokens = (long long)B * H * W;
-  const unsigned blocks = trr::token_blocks(tokens);
-  int floats = trr::postnorm_ln_bwd_smem_floats(C);
-  cudaError_t err = trr::set_smem(trr::postnorm_ln_bwd_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  trr::postnorm_ln_bwd_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      proj, dout, g, s, wpt, dproj, datt, ln_part, tokens, (long long)H * W, C, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  floats = trr::cos_attn_bwd_smem_floats(C / nh);
-  if ((err = trr::set_smem(trr::cos_attn_bwd_kernel, floats)) != cudaSuccess) return (int)err;
-  const dim3 grid((H / 8) * (W / 8), B);
-  trr::cos_attn_bwd_kernel<<<grid, trr::kThreads, floats * sizeof(float), stream>>>(
+// The attention half's backward (#12): x, dout (B, H, W, C) and the
+// forward's operands -> dx; for the wrapper's weight gradients and sums
+// qkv (T, 3C), att, dproj (T, C), dqkv (T, 3C), ln_part (ceil(T / 128), 2C),
+// dS (B, H/8, W/8, nh, 64, 64), dscale_part (B * H/8 * W/8, nh). Scratch:
+// proj, datt (T, C). C is at most 256 and a multiple of 4.
+int trr_cos_attn_bwd(const float* x, const float* dout, const float* wq, const float* bq,
+                     const float* scale, const float* wp, const float* bp, const float* g,
+                     const float* s, const float* bias, float* qkv, float* att, float* proj,
+                     float* dproj, float* datt, float* ln_part, float* dqkv, float* dS,
+                     float* dscale_part, float* dx, int B, int H, int W, int C, int nh, int kinds,
+                     int shift, float eps, cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
+  TRR_TRY(trr::linear(x, wq, bq, qkv, tokens, C, 3 * C, stream));
+  int floats = trr::cos_attn_rows_smem_floats(C / nh);
+  TRR_TRY(trr::set_smem(trr::cos_attn_rows_kernel, floats));
+  trr::cos_attn_rows_kernel<<<dim3(nh, (H / 8) * (W / 8), B), trr::kThreads,
+                              floats * sizeof(float), stream>>>(qkv, scale, bias, att, H, W, C,
+                                                                nh, kinds, shift);
+  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::linear(att, wp, bp, proj, tokens, C, C, stream));
+  trr::postnorm_ln_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(proj, dout, g, s, dproj,
+                                                                      ln_part, tokens, hw, C, eps);
+  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::rows<trr::kRowsStore>(dproj, wp, tokens, C, C, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, hw, datt, nullptr, nullptr, stream));
+  floats = trr::cos_attn_bwd_smem_floats();
+  TRR_TRY(trr::set_smem(trr::cos_attn_bwd_tc_kernel, floats));
+  trr::cos_attn_bwd_tc_kernel<<<dim3(nh, (H / 8) * (W / 8), B), trr::attn_tc_threads(trr::kTile),
+                                floats * sizeof(float), stream>>>(
       qkv, datt, scale, bias, dqkv, dS, dscale_part, H, W, C, nh, kinds, shift);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  floats = trr::qkv_dx_smem_floats(C);
-  if ((err = trr::set_smem(trr::qkv_dx_kernel, floats)) != cudaSuccess) return (int)err;
-  trr::qkv_dx_kernel<<<blocks, trr::kThreads, floats * sizeof(float), stream>>>(
-      dqkv, wqt, dout, dx, tokens, C);
-  return (int)cudaGetLastError();
+  TRR_TRY(cudaGetLastError());
+  return (int)trr::rows<trr::kRowsResidual>(dqkv, wq, tokens, 3 * C, C, nullptr, nullptr,
+                                             nullptr, dout, nullptr, hw, dx, nullptr, nullptr,
+                                             stream);
 }
 
 // x, out: (B, H, W, C) seen as B*H*W tokens; w1 (C, hidden), b1 (hidden),

@@ -34,6 +34,9 @@
 //
 // Warps. 256 threads a block: two warpgroups, each owning 64 of the block
 // tile's 128 rows and all its columns.
+//
+// Below the engine, 3xTF32 mma.sync m16n8k8 helpers for the small products
+// that a thread block runs on operands it already holds in shared memory.
 #pragma once
 
 #include <stdint.h>
@@ -420,6 +423,78 @@ __device__ __forceinline__ void wgmma_chunk(float (&acc)[N / 2], const float* As
     wgmma_step<N, KC, A_ROWK, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[1], af[0]);
   else
     wgmma_step<N, KC, A_ROWK, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[0], af[1]);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k8 tf32 in 3xTF32, for products whose operands a thread
+// block already holds in shared memory (the per-window attention
+// backwards). A warp multiplies a 16 x 8 slice of A by an 8 x 8 slice of B
+// into a 16 x 8 tile of fp32 sums. Fragments of lane 4 g + q: A a0 (g, q),
+// a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4); B b0 (q, g), b1 (q + 4,
+// g); the sums d0 (g, 2q), d1 (g, 2q + 1), d2 (g + 8, 2q), d3 (g + 8, 2q + 1).
+// Each fragment element is split as it is loaded, by truncation: hi = x
+// with its low 13 bits cleared, lo = x - hi (exact) likewise, both TF32
+// values; x - hi - lo < 2^-20 |x|. Here every element is split once for
+// each use, and cvt.rna.tf32.f32 compiles to a sequence of some ten integer
+// and compare instructions, which cost #6's attention stage about a tenth
+// of its time on an H100 (both forms timed); the engine above splits each
+// chunk once and keeps round-to-nearest.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split into TF32 hi and lo.
+struct MmaA {
+  uint32_t h[4], l[4];
+};
+
+// The A fragment of the 16 x 8 slice at X: element (r, k) at X[r * ld + k],
+// or, A_T, at X[k * ld + r] (A is X's transpose).
+template <bool A_T>
+__device__ __forceinline__ void mma_load_a(MmaA& a, const float* X, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float v[4];
+  if constexpr (A_T) {
+    v[0] = X[q * ld + g];
+    v[1] = X[q * ld + g + 8];
+    v[2] = X[(q + 4) * ld + g];
+    v[3] = X[(q + 4) * ld + g + 8];
+  } else {
+    v[0] = X[g * ld + q];
+    v[1] = X[(g + 8) * ld + q];
+    v[2] = X[g * ld + q + 4];
+    v[3] = X[(g + 8) * ld + q + 4];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_trunc(v[e], a.h[e], a.l[e]);
+}
+
+// d += A B over one k-step of 8 in 3xTF32 (lo*hi, hi*lo, then hi*hi, in
+// the wgmma engine's order): B element (k, n) at X[k * ld + n], or, B_T,
+// at X[n * ld + k].
+template <bool B_T>
+__device__ __forceinline__ void mma3(float (&d)[4], const MmaA& a, const float* X, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float b0 = B_T ? X[g * ld + q] : X[q * ld + g];
+  const float b1 = B_T ? X[g * ld + q + 4] : X[(q + 4) * ld + g];
+  uint32_t h0, l0, h1, l1;
+  split_tf32_trunc(b0, h0, l0);
+  split_tf32_trunc(b1, h1, l1);
+  mma_tf32(d, a.l, h0, h1);
+  mma_tf32(d, a.h, l0, l1);
+  mma_tf32(d, a.h, h0, h1);
 }
 
 }  // namespace trr

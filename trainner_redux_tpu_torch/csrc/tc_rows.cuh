@@ -1,0 +1,374 @@
+// The per-token kernels of the tensor-core engine (tc_gemm.cuh), shared by
+// the training backwards: LayerNorm rows, the products y W (+ b) and A W^T
+// over 128-token block tiles, and the row-wise epilogues that take whole
+// rows of a product (the LayerNorm backward, a residual). fp32 in 3xTF32,
+// for sm_90a; 256 threads a block, two warpgroups of 64 rows each, one block
+// a SM. C (a row's channels) is at most 256 and a multiple of 4: rows move
+// with 16-byte loads and copies.
+#pragma once
+
+#include "tc_gemm.cuh"
+
+// Return a C launcher's cudaError_t as an int if `call` fails.
+#define TRR_TRY(call)                      \
+  do {                                     \
+    const cudaError_t e_ = (call);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+
+namespace trr {
+
+constexpr int kColTile = 128;       // columns of a y W block tile
+constexpr int kRowLd = kTcK + 4;    // row stride of a [row][k] chunk (conflict-free A loads)
+// What rows_kernel does with the rows of its product dy = A W^T.
+constexpr int kRowsStore = 0;       // out = dy
+constexpr int kRowsResidual = 1;    // out = dres + dy
+constexpr int kRowsLn = 2;          // the LayerNorm backward of the rows
+
+// The columns of a rows_kernel tile: the least of 64, 128, 192, 256 >= C.
+__host__ __device__ inline int rows_cols(int C) { return C <= 64 ? 64 : (C + 63) / 64 * 64; }
+
+// A per-token stage: a (128, kTcK) token chunk [row][k] (row stride
+// kRowLd) and a raw (BN, kTcK) weight chunk, [n][k] (stride kRowLd) or
+// [k][n] (stride BN + 8). The kernels keep the split buffers of
+// tc_gemm.cuh ahead of their ring.
+__host__ __device__ constexpr int token_stage_floats(int bn) {
+  return kTcRows * kRowLd + (bn * kRowLd > kTcK * (bn + 8) ? bn * kRowLd : kTcK * (bn + 8));
+}
+
+// Shared memory, in bytes, of rows_kernel and of linear_kernel.
+__host__ __device__ inline int rows_smem_bytes(int C) {
+  return split_floats(rows_cols(C)) * (int)sizeof(float) +
+         Ring<>::bytes(token_stage_floats(rows_cols(C)));
+}
+__host__ __device__ inline int linear_smem_bytes() {
+  return split_floats(kColTile) * (int)sizeof(float) +
+         Ring<>::bytes(token_stage_floats(kColTile));
+}
+
+// y = LN(x) (T, C) with g and be, two-pass mean and variance as the forward;
+// stats (T, 2) the mean and 1/std of each row. When dm is not null, dm =
+// s[t / hw] dout as well. One warp a token, C <= 256 and a multiple of 4.
+__global__ void __launch_bounds__(kThreads)
+    ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ be, float* __restrict__ y, float* __restrict__ stats,
+                   const float* __restrict__ dout, const float* __restrict__ s,
+                   float* __restrict__ dm, long long T, long long hw, int C, float eps) {
+  const long long t = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (t >= T) return;
+  const int lane = threadIdx.x % 32, n4 = C / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + t * C);
+  float4 v[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (lane + 32 * i < n4) {
+      v[i] = __ldg(xr + lane + 32 * i);
+      sum += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+    }
+  }
+  const float mean = warp_sum(sum) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (lane + 32 * i < n4) {
+      const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
+      q += (a * a + b * b) + (c * c + d * d);
+    }
+  }
+  const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
+  if (lane == 0) {
+    stats[2 * t] = mean;
+    stats[2 * t + 1] = inv;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c4 = lane + 32 * i;
+    if (c4 < n4) {
+      const float4 gg = __ldg(reinterpret_cast<const float4*>(g) + c4);
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(be) + c4);
+      reinterpret_cast<float4*>(y + t * C)[c4] =
+          make_float4((v[i].x - mean) * inv * gg.x + bb.x, (v[i].y - mean) * inv * gg.y + bb.y,
+                      (v[i].z - mean) * inv * gg.z + bb.z, (v[i].w - mean) * inv * gg.w + bb.w);
+    }
+  }
+  if (dm != nullptr) {
+    const float sc = __ldg(s + t / hw);
+    for (int c4 = lane; c4 < n4; c4 += 32) {
+      const float4 d = __ldg(reinterpret_cast<const float4*>(dout + t * C) + c4);
+      reinterpret_cast<float4*>(dm + t * C)[c4] =
+          make_float4(sc * d.x, sc * d.y, sc * d.z, sc * d.w);
+    }
+  }
+}
+
+// Issue the copies of chunk j: A (T, K) rows t0.. and, B_KMAJOR, W (N, K)
+// rows n0.., else W (K, N) columns n0...
+template <int BN, bool B_KMAJOR>
+__device__ __forceinline__ void load_wg_stage(float* st, const float* __restrict__ A,
+                                              long long t0, long long T,
+                                              const float* __restrict__ W, int n0, int N, int K,
+                                              int j) {
+  load_tile<kTcRows, kTcK>(st, kRowLd, A, K, t0, T, j * kTcK, K);
+  if constexpr (B_KMAJOR)
+    load_tile<BN, kTcK>(st + kTcRows * kRowLd, kRowLd, W, K, n0, N, j * kTcK, K);
+  else
+    load_tile<kTcK, BN>(st + kTcRows * kRowLd, BN + 8, W, N, j * kTcK, K, n0, N);
+}
+
+template <int BN, bool B_KMAJOR>
+__device__ __forceinline__ void use_wg_stage(float (&acc)[BN / 2], const float* st, float* split,
+                                             int j, AFrag<> (&af)[2]) {
+  wgmma_chunk<BN, kTcK, true, B_KMAJOR>(acc, st, kRowLd, 16 * (threadIdx.x / 32),
+                                  st + kTcRows * kRowLd, B_KMAJOR ? kRowLd : BN + 8, split, j, af);
+}
+
+// Row and column, in the block tile, of accumulator element i of a thread
+// (the warpgroup layout of tc_gemm.cuh; warp w owns rows 16 w..16 w+15).
+__device__ __forceinline__ int acc_row(int i) {
+  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
+}
+
+// acc (this warpgroup's 64 x BN of the block tile) = A W over K: A (T, K)
+// rows t0.., W (K, N) columns n0.. (N-major: transposed as it is split).
+// Chunk j of the product is chunk j0 + j of the block's split buffers.
+template <int BN>
+__device__ __forceinline__ void xw_product(float (&acc)[BN / 2], Ring<>& ring, float* split,
+                                           AFrag<> (&af)[2], const float* __restrict__ A,
+                                           long long t0, long long T,
+                                           const float* __restrict__ W, int n0, int N, int K,
+                                           int j0) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  ring.run(
+      (K + kTcK - 1) / kTcK,
+      [&](int j, float* st) { load_wg_stage<BN, false>(st, A, t0, T, W, n0, N, K, j); },
+      [&](int j, const float* st) { use_wg_stage<BN, false>(acc, st, split, j0 + j, af); });
+  wgmma_wait_all();
+}
+
+// Per 128 tokens t0.. and 128 columns n0..: out (T, N) = A (T, K) W (K, N)
+// + b, W as it lies (N-major); a ragged last column tile is masked.
+__global__ void __launch_bounds__(kThreads, 1)
+    linear_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                  const float* __restrict__ b, float* __restrict__ out, long long T, int K,
+                  int N) {
+  constexpr int BN = kColTile;
+  extern __shared__ __align__(16) float smem[];
+  float* split = smem;
+  Ring<> ring;
+  ring.init(split + split_floats(BN), token_stage_floats(BN));
+  const long long t0 = (long long)blockIdx.x * kTcRows;
+  const int n0 = blockIdx.y * kColTile;
+  float acc[BN / 2];
+  AFrag<> af[2];
+  xw_product<BN>(acc, ring, split, af, A, t0, T, W, n0, N, K, 0);
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int c = n0 + acc_col(i);
+    const long long t = t0 + acc_row(i);
+    if (c < N && t < T) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
+      *reinterpret_cast<float2*>(out + t * N + c) = make_float2(acc[i] + bb.x, acc[i + 1] + bb.y);
+    }
+  }
+}
+
+// Per 128 tokens t0.., every column (BN >= C): dy = A W^T with A (T, K) and
+// W (C, K) as it lies (K-major). EPI kRowsStore: out = dy; kRowsResidual:
+// out = dres + dy; kRowsLn: the
+// LayerNorm backward of the rows, out = dres + inv (dy g - mean(dy g) - xn
+// mean(dy g xn)) with xn = (xln - mean) inv from stats (T, 2); outs = s[t /
+// hw] out when not null; the block's partial sums of dg = sum dy xn (first
+// C) and dbe = sum dy (next C) to ln_part[blockIdx.x]. dy goes to a shared
+// tile after the products; each warp then walks its own 16 rows, four at a
+// time, reading xln and dres a row at a time with 16-byte loads.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+    rows_kernel(const float* __restrict__ A, const float* __restrict__ W, long long T, int K,
+                int C, const float* __restrict__ xln, const float* __restrict__ stats,
+                const float* __restrict__ g, const float* __restrict__ dres,
+                const float* __restrict__ s, long long hw, float* __restrict__ out,
+                float* __restrict__ outs, float* __restrict__ ln_part) {
+  constexpr int LDY = BN + 8;  // 8 mod 32: the tile's float2 stores hit 32 banks a half-warp
+  extern __shared__ __align__(16) float smem[];
+  float* split = smem;
+  Ring<> ring;
+  ring.init(split + split_floats(BN), token_stage_floats(BN));
+  const long long t0 = (long long)blockIdx.x * kTcRows;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  AFrag<> af[2];
+  ring.run(
+      (K + kTcK - 1) / kTcK,
+      [&](int j, float* st) { load_wg_stage<BN, true>(st, A, t0, T, W, 0, C, K, j); },
+      [&](int j, const float* st) { use_wg_stage<BN, true>(acc, st, split, j, af); });
+  wgmma_wait_all();
+  __syncthreads();  // every warp is done with the buffers: they become the dy tile
+  float* dy = smem;  // (128, LDY)
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2)
+    *reinterpret_cast<float2*>(dy + acc_row(i) * LDY + acc_col(i)) =
+        make_float2(acc[i], acc[i + 1]);
+  __syncwarp();  // a warp reads back only its own 16 rows
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = C / 4;
+  const float4* dy4 = reinterpret_cast<const float4*>(dy);
+  if constexpr (EPI != kRowsLn) {
+    for (int r = 16 * warp; r < 16 * warp + 16 && t0 + r < T; ++r)
+      for (int c4 = lane; c4 < n4; c4 += 32) {
+        float4 d = dy4[r * (LDY / 4) + c4];
+        if constexpr (EPI == kRowsResidual) {
+          const float4 rv = __ldg(reinterpret_cast<const float4*>(dres + (t0 + r) * C) + c4);
+          d = make_float4(d.x + rv.x, d.y + rv.y, d.z + rv.z, d.w + rv.w);
+        }
+        reinterpret_cast<float4*>(out + (t0 + r) * C)[c4] = d;
+      }
+  } else {
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 gv[2], cg[2] = {zero4, zero4}, cb[2] = {zero4, zero4};
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+      gv[v] =
+          lane + 32 * v < n4 ? __ldg(reinterpret_cast<const float4*>(g) + lane + 32 * v) : zero4;
+    for (int r0 = 16 * warp; r0 < 16 * warp + 16; r0 += 4) {
+      float4 xv[4][2], rv[4][2];
+      float mean[4], inv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long t = t0 + r0 + u;
+        const bool ok = t < T;
+        mean[u] = ok ? __ldg(stats + 2 * t) : 0.f;
+        inv[u] = ok ? __ldg(stats + 2 * t + 1) : 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c4 = lane + 32 * v;
+          const bool in = ok && c4 < n4;
+          xv[u][v] = in ? __ldg(reinterpret_cast<const float4*>(xln + t * C) + c4) : zero4;
+          rv[u][v] = in ? __ldg(reinterpret_cast<const float4*>(dres + t * C) + c4) : zero4;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = r0 + u;
+        const long long t = t0 + r;
+        float4 d[2], xn[2];
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c4 = lane + 32 * v;
+          d[v] = c4 < n4 ? dy4[r * (LDY / 4) + c4] : zero4;
+          xn[v] = make_float4((xv[u][v].x - mean[u]) * inv[u], (xv[u][v].y - mean[u]) * inv[u],
+                              (xv[u][v].z - mean[u]) * inv[u], (xv[u][v].w - mean[u]) * inv[u]);
+          const float4 e = make_float4(d[v].x * gv[v].x, d[v].y * gv[v].y, d[v].z * gv[v].z,
+                                       d[v].w * gv[v].w);
+          sa += (e.x + e.y) + (e.z + e.w);
+          sb += (e.x * xn[v].x + e.y * xn[v].y) + (e.z * xn[v].z + e.w * xn[v].w);
+          cg[v] = make_float4(fmaf(d[v].x, xn[v].x, cg[v].x), fmaf(d[v].y, xn[v].y, cg[v].y),
+                              fmaf(d[v].z, xn[v].z, cg[v].z), fmaf(d[v].w, xn[v].w, cg[v].w));
+          cb[v] = make_float4(cb[v].x + d[v].x, cb[v].y + d[v].y, cb[v].z + d[v].z,
+                              cb[v].w + d[v].w);
+        }
+        const float ma = warp_sum(sa) / C, mb = warp_sum(sb) / C;
+        if (t >= T) continue;
+        const float sc = outs != nullptr ? __ldg(s + t / hw) : 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c4 = lane + 32 * v;
+          if (c4 >= n4) continue;
+          const float4 dx = make_float4(
+              rv[u][v].x + inv[u] * (d[v].x * gv[v].x - ma - xn[v].x * mb),
+              rv[u][v].y + inv[u] * (d[v].y * gv[v].y - ma - xn[v].y * mb),
+              rv[u][v].z + inv[u] * (d[v].z * gv[v].z - ma - xn[v].z * mb),
+              rv[u][v].w + inv[u] * (d[v].w * gv[v].w - ma - xn[v].w * mb));
+          reinterpret_cast<float4*>(out + t * C)[c4] = dx;
+          if (outs != nullptr)
+            reinterpret_cast<float4*>(outs + t * C)[c4] =
+                make_float4(sc * dx.x, sc * dx.y, sc * dx.z, sc * dx.w);
+        }
+      }
+    }
+    float* colred = smem + kTcRows * LDY;  // [8 warps][dg | dbe][C]
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int c4 = lane + 32 * v;
+      if (c4 < n4) {
+        reinterpret_cast<float4*>(colred + 2 * warp * C)[c4] = cg[v];
+        reinterpret_cast<float4*>(colred + (2 * warp + 1) * C)[c4] = cb[v];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float dg = 0.f, db = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        dg += colred[2 * w * C + c];
+        db += colred[(2 * w + 1) * C + c];
+      }
+      ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
+      ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
+    }
+  }
+}
+
+inline cudaError_t ln_rows(const float* x, const float* g, const float* be, float* y,
+                           float* stats, const float* dout, const float* s, float* dm,
+                           long long T, long long hw, int C, float eps, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
+  ln_rows_kernel<<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw, C, eps);
+  return cudaGetLastError();
+}
+
+// out (T, N) = A (T, K) W (K, N) + b on linear_kernel.
+inline cudaError_t linear(const float* A, const float* W, const float* b, float* out, long long T,
+                          int K, int N, cudaStream_t stream) {
+  const int smem = linear_smem_bytes();
+  const cudaError_t err =
+      cudaFuncSetAttribute(linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (N + kColTile - 1) / kColTile);
+  linear_kernel<<<grid, kThreads, smem, stream>>>(A, W, b, out, T, K, N);
+  return cudaGetLastError();
+}
+
+template <int BN, int EPI>
+inline cudaError_t rows_launch(const float* A, const float* W, long long T, int K, int C,
+                               const float* xln, const float* stats, const float* g,
+                               const float* dres, const float* s, long long hw, float* out,
+                               float* outs, float* ln_part, cudaStream_t stream) {
+  const int smem = rows_smem_bytes(C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rows_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((T + kTcRows - 1) / kTcRows);
+  rows_kernel<BN, EPI><<<blocks, kThreads, smem, stream>>>(A, W, T, K, C, xln, stats, g, dres, s,
+                                                          hw, out, outs, ln_part);
+  return cudaGetLastError();
+}
+
+// rows_kernel at the column tile of C (<= 256); W (C, K).
+template <int EPI>
+inline cudaError_t rows(const float* A, const float* W, long long T, int K, int C,
+                        const float* xln, const float* stats, const float* g, const float* dres,
+                        const float* s, long long hw, float* out, float* outs, float* ln_part,
+                        cudaStream_t stream) {
+  switch (rows_cols(C)) {
+    case 64:
+      return rows_launch<64, EPI>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                 ln_part, stream);
+    case 128:
+      return rows_launch<128, EPI>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                  ln_part, stream);
+    case 192:
+      return rows_launch<192, EPI>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                  ln_part, stream);
+    default:
+      return rows_launch<256, EPI>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                  ln_part, stream);
+  }
+}
+
+}  // namespace trr

@@ -32,7 +32,7 @@ SOURCES = {
     "jpeg_block": "jpeg_block.cu",
     "window_attention": "window_attention.cu",
 }
-HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh")
+HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh", "tc_rows.cuh", "tc_attn.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,11 +46,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "attn_block_staged": {
         "trr_attn_block_staged_fwd": ([_P] * 12 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_attn_block_staged_bwd": ([_P] * 21 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_staged_bwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_staged_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_attn_staged_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_attn_block_train_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_attn_block_train_bwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_train_bwd": ([_P] * 19 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_train_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
     "fused_block": {
@@ -68,20 +68,20 @@ SIGNATURES = {
         "trr_sum_rows": ([_P, _I, _I, _P, _P], _I),
         "trr_dbias": ([_P] + [_I] * 5 + [_P, _P], _I),
         "trr_rows_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_linear_smem_bytes": ([], ctypes.c_size_t),
         "trr_hidden_smem_bytes": ([], ctypes.c_size_t),
         "trr_atb_smem_bytes": ([], ctypes.c_size_t),
         "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "fused_block_v2": {
-        "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),
-        "trr_cos_attn_bwd": ([_P] * 16 + [_I] * 7 + [_F, _P], _I),
+        "trr_cos_attn_fwd": ([_P] * 11 + [_I] * 7 + [_F, _P], _I),
+        "trr_cos_attn_bwd": ([_P] * 20 + [_I] * 7 + [_F, _P], _I),
         "trr_pn_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
         "trr_pn_mlp_bwd": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
         "trr_cos_attn_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_pn_mlp_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "trr_postnorm_ln_bwd_smem_bytes": ([_I], ctypes.c_size_t),
-        "trr_cos_attn_bwd_smem_bytes": ([_I], ctypes.c_size_t),
-        "trr_qkv_dx_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_cos_attn_rows_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_cos_attn_bwd_smem_bytes": ([], ctypes.c_size_t),
         "trr_pn_mlp_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "jpeg_block": {

@@ -68,8 +68,11 @@ ROWS_MAX_C = 256
 # the whole block's backward (#5) is held to the widths checked on the card
 SWIN_BLOCK_MAX_C = 192
 # window -> query rows of a thread block of the staged attention kernels
-# (csrc/attn_block_staged.cu): #1 at 12x12, #6 at 12x12 and 8x8
+# (csrc/attn_block_staged.cu): #1 at 12x12, #6 and #10 at 12x12 and 8x8
 STAGED_ROWS = {12: 48, 8: 64}
+# the tensor-core window-attention backward of #6: rows of q, k, v and dA
+# padded to 32 channels, HEAD_LD floats apart
+HEAD_LD = 36
 
 
 def attn_block_smem_bytes(channels: int, num_heads: int) -> int:
@@ -93,21 +96,31 @@ def attn_staged_fwd_smem_bytes(channels: int, num_heads: int, window_size: int) 
                    2 * hd * n + n * V_LD + rb * (n + 4))
 
 
+def attn_rows_bwd_tc_smem_bytes(window_size: int) -> int:
+    """Shared memory of #6's tensor-core window-attention stage: k and v of
+    the window's n tokens and q and dA of a row block, rows padded to 32
+    channels HEAD_LD apart, the (rows, n + 4) P / dS tile, three (2, rows)
+    exchanges of the two key halves' row sums, the row block's att and dq
+    rows on their way out, and the n token indices."""
+    n, rb = window_size**2, STAGED_ROWS[window_size]
+    return 4 * (2 * n * HEAD_LD + 4 * rb * HEAD_LD + rb * (n + 4) + 6 * rb + n)
+
+
 def attn_staged_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
-    """The largest shared memory of the recompute backward's kernels (#6)."""
-    n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
-    return 4 * max(2 * channels * TILE_LD + STAGE_FLOATS + 128,
-                   2 * channels * TILE_LD + STAGE_FLOATS,
-                   2 * hd * n + 2 * n * V_LD + 2 * hd * rb + 2 * rb * V_LD + rb * (n + 4))
+    """The largest shared memory of the recompute backward's kernels (#6):
+    the engine's per-token kernels (qkv; datt and the LN1 backward over a
+    row of `channels`) and the window attention."""
+    return max(linear_smem_bytes(), rows_smem_bytes(channels),
+               attn_rows_bwd_tc_smem_bytes(window_size))
 
 
 def attn_train_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
-    """The largest shared memory of the saved-P backward's kernels (#10): LN +
-    qkv and the LN1 backward per 64 tokens, the attention per (window, head)
+    """The largest shared memory of the saved-P backward's kernels (#10): the
+    engine's per-token kernels as #6's, the attention per (window, head)
     with v and k once, q and dA of a row block twice, the P / dS rows."""
     n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
-    return 4 * max(2 * channels * TILE_LD + STAGE_FLOATS + 128,
-                   hd * n + n * V_LD + hd * rb + 2 * rb * V_LD + rb * (n + 4))
+    return max(linear_smem_bytes(), rows_smem_bytes(channels),
+               4 * (hd * n + n * V_LD + hd * rb + 2 * rb * V_LD + rb * (n + 4)))
 
 
 def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
@@ -125,18 +138,31 @@ def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
             and attn_staged_fwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
 
 
+def tc_rows_fit(channels: int) -> bool:
+    """Rows the engine's per-token kernels (csrc/tc_rows.cuh) take: one
+    rows_kernel tile spans at most ROWS_MAX_C channels, and rows move in
+    16-byte pieces."""
+    return channels <= ROWS_MAX_C and channels % 4 == 0
+
+
 def attn_block_bwd_fits(h, w, window_size, channels, num_heads) -> bool:
-    """The attention half's recompute backward (#6) as well as its forward."""
-    return (attn_block_fits(h, w, window_size, channels, num_heads)
-            and attn_staged_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
+    """The attention half's recompute backward (#6) as well as its forward:
+    rows the engine takes (`tc_rows_fit`), each plan within one thread
+    block's shared memory."""
+    if not (attn_block_fits(h, w, window_size, channels, num_heads)
+            and tc_rows_fit(channels)):
+        return False
+    return attn_staged_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT
 
 
 def attn_block_train_fits(h, w, window_size, channels, num_heads, batch=1) -> bool:
     """The attention half's training form (#9 and #10): as the forward, 8x8
-    or 12x12 windows and heads of at most 32 channels, the saved-P
-    backward's plan within one thread block's shared memory, and P's
-    batch * H * W * heads * n entries within a 32-bit index."""
-    if not attn_block_fits(h, w, window_size, channels, num_heads):
+    or 12x12 windows and heads of at most 32 channels, rows the engine takes
+    (`tc_rows_fit`), the saved-P backward's plans within one thread block's
+    shared memory, and P's batch * H * W * heads * n entries within a 32-bit
+    index."""
+    if not (attn_block_fits(h, w, window_size, channels, num_heads)
+            and tc_rows_fit(channels)):
         return False
     if batch * h * w * num_heads * window_size**2 >= 2**31:
         return False
@@ -175,8 +201,14 @@ def _wg_bytes(cols: int) -> int:
 
 
 def rows_smem_bytes(channels: int) -> int:
-    """Shared memory of rows_kernel (csrc/fused_block_train.cu)."""
+    """Shared memory of rows_kernel (csrc/tc_rows.cuh)."""
     return _wg_bytes(rows_tile_cols(channels))
+
+
+def linear_smem_bytes() -> int:
+    """Shared memory of linear_kernel (csrc/tc_rows.cuh): a per-token
+    kernel's buffers at a 128-column tile."""
+    return _wg_bytes(128)
 
 
 def mlp_hidden_smem_bytes() -> int:
@@ -197,7 +229,7 @@ def ln_mlp_bwd_fits(channels: int, hidden: int) -> bool:
     most ROWS_MAX_C channels (one rows_kernel tile spans it, for the LN
     backward's row sums), C and hidden in multiples of 4 (16-byte copies),
     and each kernel's plan within one thread block's shared memory."""
-    if channels > ROWS_MAX_C or channels % 4 or hidden % 4:
+    if not tc_rows_fit(channels) or hidden % 4:
         return False
     return max(rows_smem_bytes(channels), mlp_hidden_smem_bytes(),
                weight_grad_smem_bytes()) <= SMEM_LIMIT
@@ -297,6 +329,14 @@ def _weight_grad(a, bmat):
     _launch("fused_block_train", "trr_weight_grad", a.device, a.data_ptr(), bmat.data_ptr(), t, m,
             nn, part.data_ptr(), out.data_ptr())
     return _split_grad(out, m, nn)
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    """The engine's kernels move rows with 16-byte loads and copies: each
+    tensor's first element on a 16-byte boundary."""
+    for k, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {k} does not start on a 16-byte boundary")
 
 
 def _launch(lib_name: str, fn_name: str, device, *args) -> None:
@@ -527,25 +567,23 @@ def fused_attn_block_backward(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads
     _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
                          window_size, shift, attn_block_bwd_fits)
     _check_cuda("dout", dout, tuple(x.shape), x.device)
+    _check_aligned(name, x=x, dout=dout, g=g, be=be, wq=wq, bq=bq, wp=wp)
     b, hh, ww, c = x.shape
     ws, n, kinds, dev, T = window_size, window_size**2, bias.shape[0], x.device, b * hh * ww
 
     def new(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    wpt, wqt = wp.t().contiguous(), wq.t().contiguous()
     qkv, dqkv = new(T, 3 * c), new(T, 3 * c)
     y, dzp, datt, att, stats = new(T, c), new(T, c), new(T, c), new(T, c), new(T, 2)
     ds = new(b, hh // ws, ww // ws, num_heads, n, n)
-    dx, ln_part, dbias = torch.empty_like(x), new(math.ceil(T / 64), 2 * c), new(kinds, num_heads,
-                                                                                n, n)
+    dx, ln_part = torch.empty_like(x), new(math.ceil(T / TC_ROWS), 2 * c)
+    dbias = new(kinds, num_heads, n, n)
     fused_attn_block_backward.launches += 1
     _launch(
         "attn_block_staged", "trr_attn_block_staged_bwd", dev,
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wpt.data_ptr(),
-        wqt.data_ptr(), bias.data_ptr(), s.data_ptr(), dout.data_ptr(), qkv.data_ptr(),
-        y.data_ptr(), stats.data_ptr(), dzp.data_ptr(), datt.data_ptr(), dqkv.data_ptr(),
-        att.data_ptr(), ds.data_ptr(), dx.data_ptr(), ln_part.data_ptr(), dbias.data_ptr(),
+        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bias, s, dout, qkv, y, stats, dzp, datt,
+                                 dqkv, att, ds, dx, ln_part, dbias)),
         b, hh, ww, c, num_heads, ws, kinds, shift, eps, head_dim**-0.5,
     )
     dwq, dbq = _weight_grad(y, dqkv)
@@ -700,22 +738,20 @@ def fused_attn_block_train_backward(x, g, be, wq, bq, wp, bp, s, P, att, dout, k
     _check_cuda("att", att, tuple(x.shape), dev)
     _check_cuda("dout", dout, tuple(x.shape), dev)
     _check_cuda("P", P, (b, hh // ws, ww // ws, num_heads, n, n), dev)
+    _check_aligned(name, x=x, dout=dout, g=g, be=be, wq=wq, bq=bq, wp=wp)
 
     def new(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    wpt, wqt = wp.t().contiguous(), wq.t().contiguous()
     qkv, dqkv = new(T, 3 * c), new(T, 3 * c)
     y, dzp, datt, stats = new(T, c), new(T, c), new(T, c), new(T, 2)
     ds, dx = torch.empty_like(P), torch.empty_like(x)
-    ln_part, dbias = new(math.ceil(T / 64), 2 * c), new(kinds, num_heads, n, n)
+    ln_part, dbias = new(math.ceil(T / TC_ROWS), 2 * c), new(kinds, num_heads, n, n)
     fused_attn_block_train_backward.launches += 1
     _launch(
         "attn_block_staged", "trr_attn_block_train_bwd", dev,
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wpt.data_ptr(),
-        wqt.data_ptr(), s.data_ptr(), P.data_ptr(), dout.data_ptr(), qkv.data_ptr(),
-        y.data_ptr(), stats.data_ptr(), dzp.data_ptr(), datt.data_ptr(), dqkv.data_ptr(),
-        ds.data_ptr(), dx.data_ptr(), ln_part.data_ptr(), dbias.data_ptr(),
+        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, s, P, dout, qkv, y, stats, dzp, datt, dqkv,
+                                 ds, dx, ln_part, dbias)),
         b, hh, ww, c, num_heads, ws, kinds, shift, eps, head_dim**-0.5,
     )
     dwq, dbq = _weight_grad(y, dqkv)

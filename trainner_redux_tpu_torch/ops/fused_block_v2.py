@@ -38,7 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from trainner_redux_tpu_torch.ops.fused_block import (
+    HEAD_LD,
     STAGE_FLOATS,
+    TC_ROWS,
+    _check_aligned,
     _from_windows,
     _gelu_grad,
     _heads,
@@ -51,6 +54,9 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     _sum_rows,
     _to_windows,
     _weight_grad,
+    linear_smem_bytes,
+    rows_smem_bytes,
+    tc_rows_fit,
 )
 from trainner_redux_tpu_torch.ops.window_attention import (
     SMEM_LIMIT,
@@ -83,19 +89,18 @@ def pn_mlp_fwd_smem_bytes(channels: int, hidden: int) -> int:
     return 4 * (channels * TILE_LD + hidden * TILE_LD + STAGE_FLOATS)
 
 
-def postnorm_ln_bwd_smem_bytes(channels: int) -> int:
-    """The attention half's backward, LN1 stage."""
-    return 4 * (TILE * (channels + 1) + channels * TILE_LD + STAGE_FLOATS + 3 * TILE)
+def cos_attn_rows_smem_bytes(head_dim: int) -> int:
+    """The attention half's backward, per-(window, head) forward stage: q^
+    and k^ (hd, 68), v (64, 32), the score tile, the inverse norms."""
+    return 4 * (2 * head_dim * TILE_LD + TILE * V_LD + TILE * TILE_LD + 2 * TILE)
 
 
-def cos_attn_bwd_smem_bytes(head_dim: int) -> int:
-    """The attention half's backward, per-window stage."""
-    return 4 * (4 * TILE * V_LD + 4 * head_dim * TILE_LD + 3 * TILE * TILE_LD + 2 * TILE + 8)
-
-
-def qkv_dx_smem_bytes(channels: int) -> int:
-    """The attention half's backward, dx stage."""
-    return 4 * (3 * channels * TILE_LD + STAGE_FLOATS)
+def cos_attn_bwd_smem_bytes() -> int:
+    """The attention half's backward, per-(window, head) stage on the tensor
+    cores: q, k, v, datt (64, HEAD_LD) rows, the (64, 68) P / dS tile, three
+    (2, 64) exchanges of the row halves' sums, the q and k rows' inverse
+    norms, 8 warp sums, the 64 token indices."""
+    return 4 * (4 * TILE * HEAD_LD + TILE * TILE_LD + 6 * TILE + 2 * TILE + 8 + TILE)
 
 
 def pn_mlp_bwd_smem_bytes(channels: int, hidden: int) -> int:
@@ -111,8 +116,11 @@ def cos_attn_fits(h, w, window_size, channels, num_heads, train=False) -> bool:
         return False
     plans = [cos_attn_fwd_smem_bytes(channels, num_heads)]
     if train:
-        plans += [postnorm_ln_bwd_smem_bytes(channels),
-                  cos_attn_bwd_smem_bytes(channels // num_heads), qkv_dx_smem_bytes(channels)]
+        if not tc_rows_fit(channels):  # the per-token stages run on the engine
+            return False
+        hd = channels // num_heads
+        plans += [linear_smem_bytes(), rows_smem_bytes(channels), cos_attn_rows_smem_bytes(hd),
+                  cos_attn_bwd_smem_bytes()]
     return max(plans) <= SMEM_LIMIT
 
 
@@ -275,39 +283,29 @@ def _attn_operands(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim
         _check_cuda(k, t, shape, x.device)
 
 
-def _cos_attn_fwd_cuda(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim,
-                       window_size, eps, shift, saves=None):
-    """Launch the forward kernel: z, or with `saves` = (qkv, att, proj)
-    buffers the backward's recompute (no z)."""
-    b, hh, ww, c = x.shape
-    z = torch.empty_like(x) if saves is None else None
-    outs = (z, *(saves or (None, None, None)))
-    if x.numel():
-        _launch(LIB, "trr_cos_attn_fwd", x.device,
-                *(t.data_ptr() for t in (x, wq, bq, scale, wp, bp, g, be, bias, s)),
-                *(None if t is None else t.data_ptr() for t in outs),
-                b, hh, ww, c, num_heads, bias.shape[0], shift, eps)
-    return z
-
-
 def _cos_attn_forward(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim,
                       window_size, eps, shift):
     _attn_operands(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim, window_size,
                    shift, False, "fused_cos_attn_block")
+    b, hh, ww, c = x.shape
+    z = torch.empty_like(x)
     if x.numel():
         fused_cos_attn_block.launches += 1
-    return _cos_attn_fwd_cuda(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim,
-                              window_size, eps, shift)
+        _launch(LIB, "trr_cos_attn_fwd", x.device,
+                *(t.data_ptr() for t in (x, wq, bq, scale, wp, bp, g, be, bias, s, z)),
+                b, hh, ww, c, num_heads, bias.shape[0], shift, eps)
+    return z
 
 
 def fused_cos_attn_block_backward(x, wq, bq, scale, wp, bp, g, be, bias, s, dout, num_heads,
                                   head_dim, window_size, eps=1e-5, shift=0):
     """The attention half's backward (TPU kernel #12): (dx, dwq, dbq, dscale,
     dwp, dbp, dg, dbe, dbias), as `fused_cos_attn_block_bwd_reference`
-    returns them. On a CUDA tensor it launches the recompute and the
-    backward stages of `csrc/fused_block_v2.cu`, then the weight-gradient,
-    row-sum and bias-kind kernels of `csrc/fused_block_train.cu` (one
-    counted call); on a CPU tensor it runs the plain version."""
+    returns them. On a CUDA tensor it launches the backward's stages of
+    `csrc/fused_block_v2.cu` (the per-token products on the tensor cores,
+    from qkv = x wq + bq on), then the weight-gradient, row-sum and
+    bias-kind kernels of `csrc/fused_block_train.cu` (one counted call); on
+    a CPU tensor it runs the plain version."""
     args = (x, wq, bq, scale, wp, bp, g, be, bias, s)
     if x.device.type == "cpu":
         return fused_cos_attn_block_bwd_reference(*args, dout, num_heads, head_dim, window_size,
@@ -315,6 +313,8 @@ def fused_cos_attn_block_backward(x, wq, bq, scale, wp, bp, g, be, bias, s, dout
     _attn_operands(*args, num_heads, head_dim, window_size, shift, True,
                    "fused_cos_attn_block_backward")
     _check_cuda("dout", dout, tuple(x.shape), x.device)
+    name = "fused_cos_attn_block_backward"
+    _check_aligned(name, x=x, dout=dout, wq=wq, bq=bq, wp=wp, bp=bp, g=g)
     b, hh, ww, c = x.shape
     T, dev, kinds = b * hh * ww, x.device, bias.shape[0]
     nwin = b * (hh // window_size) * (ww // window_size)
@@ -324,14 +324,12 @@ def fused_cos_attn_block_backward(x, wq, bq, scale, wp, bp, g, be, bias, s, dout
 
     qkv, att, proj = new(T, 3 * c), new(T, c), new(T, c)
     dproj, datt, dqkv, dx = new(T, c), new(T, c), new(T, 3 * c), torch.empty_like(x)
-    ln_part, dscale_part = new(math.ceil(T / TILE), 2 * c), new(nwin, num_heads)
+    ln_part, dscale_part = new(math.ceil(T / TC_ROWS), 2 * c), new(nwin, num_heads)
     dS = new(nwin, num_heads, TILE, TILE)
     fused_cos_attn_block_backward.launches += 1
-    _cos_attn_fwd_cuda(*args, num_heads, head_dim, window_size, eps, shift, (qkv, att, proj))
-    wpt, wqt = wp.t().contiguous(), wq.t().contiguous()
     _launch(LIB, "trr_cos_attn_bwd", dev,
-            *(t.data_ptr() for t in (proj, dout, g, s, wpt, qkv, scale, bias, wqt, dproj, datt,
-                                     ln_part, dqkv, dS, dscale_part, dx)),
+            *(t.data_ptr() for t in (x, dout, wq, bq, scale, wp, bp, g, s, bias, qkv, att, proj,
+                                     dproj, datt, ln_part, dqkv, dS, dscale_part, dx)),
             b, hh, ww, c, num_heads, kinds, shift, eps)
     dwq, dbq = _weight_grad(x.view(T, c), dqkv)
     dwp, dbp = _weight_grad(att, dproj)
