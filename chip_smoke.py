@@ -47,7 +47,8 @@ failure:
              SwinIR's unfused branch; two runs bit-identical), and the MLP
              half's backward (#7), each against its plain version; times,
              the card's bound and, for #3 and #8, SDPA with a float mask;
-             #7's device time by stage and its time against both bounds.
+             #8's (ws 16, K=4) and #7's device time by stage and their times
+             against both bounds.
 12. hat path - `test.run` on a seeded HAT-M 4x and the 4 images, counting
              launches (36 window-MHSA and 42 MLP kernels an image).
 13. hat train - `train.run` on HAT-M 4x as phase 8 (30 steps), counting
@@ -62,7 +63,8 @@ failure:
              8x32 and 32x8, K=1 and K=4 with their shifts, and dat_s's 8x16
              shifted; each against its plain version, two backward runs
              bit-identical; times, the card's bound and SDPA with a float
-             mask.
+             mask; #8's device time by stage at 8x32 K=4 and its time
+             against both bounds.
 17. dat path - `test.run` on a seeded DAT 4x and the 4 images, counting
              launches (36 rect-window forwards an image); one 128x128
              image's forward timed.
@@ -80,9 +82,11 @@ failure:
              the cosine-attention half (#11) and its backward (#12), the MLP
              half (#13) and its backward (#14), each against its plain
              version, two backward runs bit-identical; times and the card's
-             bound; #12's device time by stage at K=4 and its time against
-             the fp32 and the 3xTF32 bounds; #11 and #13 also at B=1,
-             128x128 (serving).
+             bound; #12's and #14's device time by stage at K=4 and their
+             times against the fp32 and the 3xTF32 bounds; #13 and #14 at
+             Swin2SR-L's MLP half (C 240, hidden 480) against their plain
+             versions, #14 twice bit for bit, timed and split by stage; #11
+             and #13 also at B=1, 128x128 (serving).
 22. swin2sr path - `test.run` on a seeded Swin2SR-M 4x and the 4 images,
              counting 36 #11 and 36 #13 launches an image; one 128x128
              forward timed through the kernel branch and the unfused branch
@@ -159,6 +163,11 @@ failure:
              card's bound, and each block's peak memory; at each block's
              last K, #10's device time by stage against both bounds, and at
              8x8 #6's.
+36. deterministic - one training step of each of SwinIR-M, HAT-M, DAT,
+             Swin2SR-M and SRFormerV2 (their train phases' crops and losses)
+             with `deterministic: true`, twice from one seed and batch: no op
+             of the step lacks a deterministic implementation, and the two
+             steps agree bit for bit.
 
 Each phase prints its seconds. Then one JSON line of kernel records and,
 last, the device JSON line.
@@ -440,10 +449,11 @@ def nbytes(*ts) -> int:
 def stage_of(kernel: str) -> str:
     """The stage of a staged training backward that a kernel (by its
     profiler name) runs: #5 and #7 (csrc/fused_block_train.cu), #6 and #10
-    (csrc/attn_block_staged.cu), #12 (csrc/fused_block_v2.cu); their
-    per-token kernels are csrc/tc_rows.cuh's. rows_kernel's epilogue mode is
-    its second template argument: 0 stores A W^T (datt), 1 adds a residual
-    (#12's dx), 2 takes the LayerNorm backward."""
+    (csrc/attn_block_staged.cu), #8 (csrc/window_attention.cu), #12 and #14
+    (csrc/fused_block_v2.cu); their per-token kernels are csrc/tc_rows.cuh's,
+    the window attention of #6 and #8 csrc/tc_attn.cuh's. rows_kernel's
+    epilogue mode is its second template argument: 0 stores A W^T (datt), 1
+    adds a residual (#12's and #14's dx), 2 takes the LayerNorm backward."""
     for part, stage in (("postnorm_ln_rows_kernel", "post-norm LN backward"),
                         ("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
                         ("linear_kernel", "x W + b"),
@@ -458,14 +468,16 @@ def stage_of(kernel: str) -> str:
             return stage
     if "rows_kernel<" in kernel:
         mode = kernel.split("rows_kernel<", 1)[1].split(">", 1)[0].split(",")[-1].strip()
-        return {"0": "datt", "1": "dx = dout + dqkv wq^T"}.get(mode, "dy and the LN backward")
+        return {"0": "datt", "1": "dx = dout + A W^T"}.get(mode, "dy and the LN backward")
     return kernel[:60]
 
 
 # launches a call of each stage (the entry points of csrc/fused_block_train.cu,
-# csrc/attn_block_staged.cu and csrc/fused_block_v2.cu); "x W + b" is qkv (and
-# #12's proj), the partial sums those of the weight gradients and the
-# LayerNorm (and #12's dscale), the bias table two passes
+# csrc/attn_block_staged.cu, csrc/window_attention.cu and
+# csrc/fused_block_v2.cu); "x W + b" is qkv (and #12's proj; #14's hg and
+# m), the partial sums those of the weight gradients and the LayerNorm (and
+# #12's dscale), the bias table two passes (one where a window kind's table
+# alone fills the card: HAT-M's ws 16)
 STAGES_5 = {"LN rows": 2, "fc1 and dh": 1, "dy and the LN backward": 2, "datt": 1,
             "window attention": 1, "weight gradients": 4, "partial sums": 6, "bias table": 2}
 STAGES_7 = {"LN rows": 1, "fc1 and dh": 1, "dy and the LN backward": 1, "weight gradients": 2,
@@ -474,14 +486,18 @@ STAGES_6 = {"LN rows": 1, "x W + b": 1, "datt": 1, "window attention": 1,
             "dy and the LN backward": 1, "weight gradients": 2, "partial sums": 3,
             "bias table": 2}
 STAGES_12 = {"x W + b": 2, "window attention forward": 1, "post-norm LN backward": 1, "datt": 1,
-             "window attention": 1, "dx = dout + dqkv wq^T": 1, "weight gradients": 2,
+             "window attention": 1, "dx = dout + A W^T": 1, "weight gradients": 2,
              "partial sums": 4, "bias table": 2}
+STAGES_8 = {"window attention": 1, "bias table": 1}  # HAT-M's ws 16
+STAGES_8_RECT = {"window attention": 1, "bias table": 2}  # DAT's 8x32, 3 heads
+STAGES_14 = {"x W + b": 2, "post-norm LN backward": 1, "fc1 and dh": 1, "dx = dout + A W^T": 1,
+             "weight gradients": 2, "partial sums": 3}
 
 
 def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
                 per_call: dict[str, int], calls: int = 3) -> None:
     """Device time by stage of one call of a staged training backward (#5,
-    #6, #7, #10 or #12), and the call's time `ms` against both bounds: fp32
+    #6, #7, #8, #10, #12 or #14), and the call's time `ms` against both bounds: fp32
     on the FMA units (67 TFLOP/s) and 3xTF32 on the tensor cores (3 x
     operations at 495 TFLOP/s). A stage's time is
     its launches' mean device time (torch.profiler over `calls` calls; the
@@ -987,7 +1003,7 @@ def phase_train_kernels() -> dict:
 
 
 def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str = "swinir_m",
-                  lq: int = TH, losses: tuple[str, ...] = ("l1loss",)):
+                  lq: int = TH, losses: tuple[str, ...] = ("l1loss",), **extra):
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
@@ -1009,6 +1025,7 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str
             "losses": [{"type": t, "loss_weight": 1.0} for t in losses],
         },
         "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False},
+        **extra,
     }
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
@@ -1382,6 +1399,10 @@ def phase_hat_kernels() -> dict:
             name = "fused_window_mhsa_ws16" if name == "fused_window_mhsa" else name
             record_kernel(res, "hat kernels", name, f"K={kinds}", kern, plain, lib, flops, nb,
                           err, note)
+        if kinds == 4:  # #8 as the JSON line has it
+            _, _, _, flops, nb, _, _ = cases["fused_window_mhsa_backward"]
+            stage_split("hat kernels", "fused_window_mhsa_backward ws 16 K=4", ops[2], flops, nb,
+                        res["fused_window_mhsa_backward"]["ms"], STAGES_8)
 
     # the MLP half's backward (#7), DropPath scales holding 0 and 1/0.9
     x, p, _, _ = block_inputs(gen, 1, dev, shape=(TB, TH, TW))
@@ -1503,6 +1524,10 @@ def phase_dat_kernels() -> dict:
                                        wr, wc, kinds, DNH, DHD)
         for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
             record_kernel(res, "dat kernels", name, label, kern, plain, lib, flops, nb, err, note)
+    # #8's rect form as the JSON line has it: 8x32, K=4
+    _, _, _, flops, nb, _, _ = cases["fused_rect_mhsa_backward"]
+    stage_split("dat kernels", "fused_rect_mhsa_backward 8x32 K=4", ops[2], flops, nb,
+                res["fused_rect_mhsa_backward"]["ms"], STAGES_8_RECT)
     return res
 
 
@@ -1627,10 +1652,52 @@ def phase_swin2sr_kernels() -> dict:
                           flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads), bwd_err,
                           f", largest error {worst:.3g} of its tensor's max |g|, two runs "
                           "bit-identical")
-            if name == "fused_cos_attn_block" and kinds == 4:  # #12 as the JSON line has it
+            if kinds == 4:  # #12 and #14 as the JSON line has them
                 stage_split("swin2sr kernels", f"{name}_backward K=4", bwd,
                             flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads),
-                            res[f"{name}_backward"]["ms"], STAGES_12)
+                            res[f"{name}_backward"]["ms"],
+                            STAGES_12 if name == "fused_cos_attn_block" else STAGES_14)
+
+    # #13 and #14 at Swin2SR-L's MLP half (C 240, hidden 480), which #14 now
+    # trains on the tensor-core engine
+    lc, lhidden = SC, SHIDDEN
+    x, p, _, _ = block_inputs(gen, 1, dev, (TB, S2_LQ, S2_LQ), (lc, SNH, WS, lhidden))
+    mlp = (x, p["w1"], p["b1"], p["w2"], p["b2"], p["g2"], p["be2"])
+    dout = torch.randn(x.shape, generator=gen).to(dev)
+    label = f"C {lc} hidden {lhidden}"
+    try:
+        with torch.no_grad():
+            got = v2.fused_postnorm_mlp(*mlp, s, WS)
+        grads = v2.fused_postnorm_mlp_backward(*mlp, s, dout, WS)
+        again = v2.fused_postnorm_mlp_backward(*mlp, s, dout, WS)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"fused_postnorm_mlp {label}: {e}")
+    fwd_err = (got - v2.fused_postnorm_mlp_reference(*mlp, s, WS)).abs().max().item()
+    if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+        fail(f"fused_postnorm_mlp {label} disagrees with its plain version: {fwd_err:.3g}")
+
+    def l_bwd():
+        return v2.fused_postnorm_mlp_backward(*mlp, s, dout, WS)
+
+    def l_bwd_plain():
+        return v2.fused_postnorm_mlp_bwd_reference(*mlp, s, dout, WS)
+
+    err, worst = check_grads("fused_postnorm_mlp_backward", label, grads, l_bwd_plain(),
+                             mlp_parts)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail(f"fused_postnorm_mlp_backward {label}: two runs differ")
+    l_flops = 12 * TB * S2_LQ * S2_LQ * lc * lhidden
+    l_nb = nbytes(*mlp, s, dout, *grads)
+    ms, plain_ms = time_ms(l_bwd, iters=10, warmup=2), time_ms(l_bwd_plain, iters=5, warmup=1)
+    bms, by = bound(l_flops, l_nb)
+    say(f"[swin2sr kernels] fused_postnorm_mlp {label}: forward max_abs_err {fwd_err:.3g}; "
+        f"fused_postnorm_mlp_backward {label}: max_abs_err {err:.3g}, largest error "
+        f"{worst:.3g} of its tensor's max |g|, two runs bit-identical, kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by}; {l_flops / 1e9:.3f} GFLOP, "
+        f"{l_nb / 1e6:.2f} MB)")
+    stage_split("swin2sr kernels", f"fused_postnorm_mlp_backward {label}", l_bwd, l_flops, l_nb,
+                ms, STAGES_14)
 
     # the serving shapes: B=1, one 128x128 image, shifted
     x, p, bias = v2_inputs(gen, 4, dev, (B, H, W))
@@ -2349,6 +2416,59 @@ def phase_attn_train() -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 36. deterministic
+# ---------------------------------------------------------------------------
+
+# (network, LR crop, pair losses) of each family's training step, as its
+# train phase runs it
+DET_FAMILIES = (("swinir_m", TH, ("l1loss",)), ("hat_m", TH, ("l1loss",)),
+                ("dat", DAT_LQ, ("l1loss", "mssimloss")), ("swin2sr_m", S2_LQ, S2_LOSSES),
+                ("srformerv2", SRF_LQ, S2_LOSSES))
+
+
+def phase_deterministic(seed: int) -> None:
+    """One training step of each family with `deterministic: true` (torch's
+    deterministic algorithms, cuDNN's deterministic convolutions, cuBLAS's
+    fixed workspace), twice from the same seed and batch: every op of the
+    step has a deterministic implementation (torch raises where one has
+    none), and the two steps agree bit for bit, in the loss and in every
+    parameter after AdamW."""
+    import numpy as np
+    import torch
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    for network, lq, losses in DET_FAMILIES:
+        opt = train_options(f"{network}_x4_deterministic", OUT, OUT, seed, network, lq, losses,
+                            deterministic=True)
+        rng = np.random.default_rng(seed)
+        batch = {"lq": rng.integers(0, 256, (TB, lq, lq, 3), dtype=np.uint8),
+                 "gt": rng.integers(0, 256, (TB, 4 * lq, 4 * lq, 3), dtype=np.uint8)}
+        runs = []
+        for _ in range(2):
+            model = build_model(opt, device="cuda")
+            model.feed_data(batch)
+            t0 = time.perf_counter()
+            try:
+                model.optimize_parameters(1)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                fail(f"{network} with deterministic: true: {e}")
+            secs = time.perf_counter() - t0
+            runs.append((model.log_dict["l_g_total"].item(),
+                         [p.detach().clone() for p in model.net_g.parameters()]))
+            del model
+            torch.cuda.empty_cache()
+        (loss_a, params_a), (loss_b, params_b) = runs
+        if loss_a != loss_b or not all(torch.equal(a, b) for a, b in zip(params_a, params_b)):
+            fail(f"{network} with deterministic: true: two steps differ (loss {loss_a!r} "
+                 f"against {loss_b!r})")
+        say(f"[deterministic] {network}: one step under deterministic algorithms in "
+            f"{secs * 1e3:.1f} ms (second build), loss {loss_a:.6f}; two steps bit-identical "
+            f"in the loss and all {len(params_a)} parameters")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2447,6 +2567,7 @@ def main() -> None:
     attn_train, attn_train_counts = timed("attn train", phase_attn_train)
     kernels.update(attn_train)
     launches.update(attn_train_counts)
+    timed("deterministic", phase_deterministic, seed)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

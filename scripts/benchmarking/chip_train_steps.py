@@ -1,6 +1,8 @@
 """The training phases of `chip_smoke.py` alone, on one CUDA card: 30 steps
 each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, each
-printing its median ms per step with the quartiles.
+printing its median ms per step with the quartiles; after HAT-M's, DAT's
+and Swin2SR-M's, the device time of one of their steps (`torch.profiler`)
+and the card's busy share.
 
 Run it from the root of the tree to measure; it imports that tree's
 `chip_smoke.py` and package. To compare two trees on one card, run it in
@@ -23,14 +25,19 @@ cs.phase_train(seed, "hat_m", "HAT-M", "hat train",
                {"fused_window_mhsa": cs.HAT_BLOCKS, "fused_window_mhsa_backward": cs.HAT_BLOCKS,
                 "fused_ln_mlp": cs.HAT_MLPS, "fused_ln_mlp_backward": cs.HAT_MLPS},
                cs.hat_serving_counts())
+cs.phase_train_profile(seed, "hat_m", "hat train profile", "profile_hat_train.txt")
 cs.phase_train(seed, "dat", "DAT", "dat train",
                {"fused_rect_mhsa": cs.DAT_RECT, "fused_rect_mhsa_backward": cs.DAT_RECT},
                cs.dat_serving_counts(), cs.DAT_LQ, ("l1loss", "mssimloss"))
+cs.phase_train_profile(seed, "dat", "dat train profile", "profile_dat_train.txt", cs.DAT_LQ,
+                       ("l1loss", "mssimloss"))
 cs.phase_train(seed, "swin2sr_m", "Swin2SR-M", "swin2sr train",
                {k: cs.SWIN2SR_BLOCKS for k in ("fused_cos_attn_block",
                                                "fused_cos_attn_block_backward",
                                                "fused_postnorm_mlp", "fused_postnorm_mlp_backward")},
                cs.swin2sr_serving_counts(), cs.S2_LQ, cs.S2_LOSSES)
+cs.phase_train_profile(seed, "swin2sr_m", "swin2sr train profile", "profile_swin2sr_train.txt",
+                       cs.S2_LQ, cs.S2_LOSSES)
 hr_dir, _ = cs.make_dataset(cs.OUT / "otf_data", seed, ((128, 128),) * 16)
 cs.phase_otf_train(seed, hr_dir)
 cs.phase_train(seed, "srformerv2", "SRFormerV2", "srformerv2 train",

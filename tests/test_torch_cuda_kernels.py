@@ -543,6 +543,40 @@ def test_fused_postnorm_mlp_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_fused_postnorm_mlp_at_c240_kernels(cuda):
+    """#13 and #14 at Swin2SR-L's MLP half (C 240, hidden 480), which #14
+    trains on the tensor-core engine: against their plain versions, two
+    backward runs bit-identical."""
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    gen = torch.Generator().manual_seed(9)
+    c, hidden = 240, 480
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    x = randn(2, 24, 40, c)
+    params = [randn(c, hidden, scale=c**-0.5), randn(hidden, scale=0.1),
+              randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1),
+              1.0 + randn(c, scale=0.1), randn(c, scale=0.1)]
+    s = torch.tensor([0.0, 1.0 / 0.9], device=cuda)
+    dout = randn(*x.shape)
+    assert v2.pn_mlp_fits(24, WS, c, hidden, train=True)
+    with torch.no_grad():
+        got = v2.fused_postnorm_mlp(x, *params, s, WS)
+    grads = v2.fused_postnorm_mlp_backward(x, *params, s, dout, WS)
+    again = v2.fused_postnorm_mlp_backward(x, *params, s, dout, WS)
+    torch.cuda.synchronize()
+    assert (got - v2.fused_postnorm_mlp_reference(x, *params, s, WS)).abs().max() <= TOL
+    plain = v2.fused_postnorm_mlp_bwd_reference(x, *params, s, dout, WS)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        assert g.shape == w.shape, i
+        assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), i
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_postnorm_backwards_are_deterministic(cuda):
     from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
 
@@ -579,12 +613,16 @@ def test_postnorm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.empty(cos[0].numel() + 1, device=cuda)[1:].view(cos[0].shape)
     with pytest.raises(ValueError, match="16-byte"):  # the engine's 16-byte rows
         v2.fused_cos_attn_block_backward(x, *cos[1:], p["s"], x, NH, HD, WS)
-    with pytest.raises(ValueError, match="limits"):  # Swin2SR-L's MLP backward: no room
-        x = torch.zeros(1, 8, 8, 240, device=cuda)
-        w1, w2 = torch.zeros(240, 480, device=cuda), torch.zeros(480, 240, device=cuda)
-        v2.fused_postnorm_mlp_backward(x, w1, torch.zeros(480, device=cuda), w2,
-                                       *(torch.zeros(240, device=cuda) for _ in range(3)),
+    with pytest.raises(ValueError, match="limits"):  # rows the engine does not take: C 90
+        x = torch.zeros(1, 8, 8, 90, device=cuda)
+        w1, w2 = torch.zeros(90, 180, device=cuda), torch.zeros(180, 90, device=cuda)
+        v2.fused_postnorm_mlp_backward(x, w1, torch.zeros(180, device=cuda), w2,
+                                       *(torch.zeros(90, device=cuda) for _ in range(3)),
                                        torch.ones(1, device=cuda), x, WS)
+    x = torch.empty(cos[0].numel() + 1, device=cuda)[1:].view(cos[0].shape)
+    mlp = [p[k] for k in PN_NAMES[1:]]
+    with pytest.raises(ValueError, match="16-byte"):  # #14 runs on the engine too
+        v2.fused_postnorm_mlp_backward(x, *mlp, p["s"], x, WS)
 
 
 @pytest.mark.cuda

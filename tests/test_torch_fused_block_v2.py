@@ -142,7 +142,7 @@ def test_fused_block_v2_gate(monkeypatch):
     assert gate(104, 120, 8, 180, 6, 360)  # Swin2SR-M serving, a padded image
     assert gate(64, 64, 8, 60, 6, 120, train=True)  # Swin2SR-S
     assert gate(64, 64, 8, 240, 8, 480)  # Swin2SR-L serves on the kernels...
-    assert not gate(64, 64, 8, 240, 8, 480, train=True)  # ...but #14 has no room to train
+    assert gate(64, 64, 8, 240, 8, 480, train=True)  # ...and trains on them (#14 on the engine)
     assert not gate(60, 64, 8, 180, 6, 360)  # not window-aligned
     assert not gate(64, 64, 16, 180, 6, 360)  # 16x16 windows
     assert not gate(64, 64, 8, 384, 6, 768)  # heads of 64 channels
@@ -167,7 +167,8 @@ def test_shared_memory_plans_at_swin2sr_m():
     cores (q, k, v, datt rows of 36 floats, the (64, 68) P / dS tile, the
     exchanges, norms, warp sums and token indices) and its per-token stages
     on the engine (qkv and proj at 128-column tiles, datt and dx over a
-    192-column row)."""
+    192-column row); #14's stages on the same engine (hg and m at
+    128-column tiles, h and dh per 128 hidden units, dx over the row)."""
     stage = 2 * 32 * 96
     assert tv2.cos_attn_fwd_smem_bytes(180, 6) == 4 * (
         2 * 180 * 68 + 2 * 30 * 68 + 64 * 32 + 64 * 68 + stage + 128)
@@ -176,13 +177,33 @@ def test_shared_memory_plans_at_swin2sr_m():
     assert tv2.cos_attn_bwd_smem_bytes() == 4 * (4 * 64 * 36 + 64 * 68 + 6 * 64 + 128 + 8 + 64)
     assert tv2.rows_smem_bytes(180) == 4 * (6 * 192 * 16 + 4 * (128 * 20 + 192 * 20) + 16)
     assert tv2.linear_smem_bytes() == 131_136
-    assert tv2.pn_mlp_bwd_smem_bytes(180, 360) == 4 * (2 * 180 * 68 + 360 * 68 + stage + 192)
+    assert tv2.pn_mlp_bwd_smem_bytes(180, 360) == max(
+        tv2.linear_smem_bytes(), tv2.mlp_hidden_smem_bytes(), tv2.rows_smem_bytes(180))
+    assert tv2.pn_mlp_bwd_smem_bytes(180, 360) == 4 * (128 * 128 + 6 * 128 * 16
+                                                       + 4 * 2 * 128 * 20 + 16)
     # the post-norm rows fit the (C, 68) tile they share from C = 16 on
     assert all(64 * (c + 1) <= c * 68 for c in (16, 60, 180, 240))
     assert max(tv2.pn_mlp_bwd_smem_bytes(180, 360), tv2.rows_smem_bytes(180)) <= tv2.SMEM_LIMIT
-    assert tv2.pn_mlp_bwd_smem_bytes(240, 480) > tv2.SMEM_LIMIT
+    # Swin2SR-L: dx spans a 256-column row
+    assert tv2.pn_mlp_bwd_smem_bytes(240, 480) == tv2.rows_smem_bytes(240) == 221_248
+    assert tv2.pn_mlp_bwd_smem_bytes(240, 480) <= tv2.SMEM_LIMIT
     # #12 trains rows the engine takes: at most 256 channels, multiples of 4
     assert tv2.cos_attn_fits(48, 48, 8, 180, 6, train=True)
     assert tv2.cos_attn_fits(48, 48, 8, 240, 8, train=True)
     assert not tv2.cos_attn_fits(48, 48, 8, 90, 3, train=True)
     assert tv2.cos_attn_fits(48, 48, 8, 90, 3)  # the forward alone takes them
+
+def test_postnorm_mlp_trains_the_rows_the_engine_takes():
+    """#14's backward runs on the tensor-core engine, so its gate in training
+    is the engine's: Swin2SR-M's and Swin2SR-L's rows (C 180 / hidden 360,
+    C 240 / hidden 480) and Swin2SR-S's (60 / 120) train on the kernels;
+    rows that are not 16-byte pieces (C 90, or a hidden of 362) or wider
+    than one rows_kernel tile (C 264) do not, though the forward takes
+    them."""
+    fits = tv2.pn_mlp_fits
+    for c, hidden in ((180, 360), (240, 480), (60, 120), (256, 256)):
+        assert fits(48, 8, c, hidden, train=True), (c, hidden)
+    for c, hidden in ((90, 180), (180, 362), (264, 264)):
+        assert fits(48, 8, c, hidden), (c, hidden)
+        assert not fits(48, 8, c, hidden, train=True), (c, hidden)
+    assert not fits(44, 8, 240, 480, train=True)  # not window-aligned

@@ -23,8 +23,9 @@ wrappers run their plain versions).
   each tensor's largest, the logged losses and gradient norm within 1e-5
   relative, params and EMA within 1e-5 (entries with a live step-1
   gradient, as in tests/test_torch_train.py);
-- the routing of a block too large for the training kernels (Swin2SR-L's
-  widths): the unfused branch in training, the kernels at eval.
+- the routing of a block too large for the training kernels (rows the
+  tensor-core engine does not take): the unfused branch in training, the
+  kernels at eval; Swin2SR-L's block trains on the kernels.
 """
 
 from pathlib import Path
@@ -289,10 +290,11 @@ def test_three_steps_match_jax(dataset, tmp_path, monkeypatch):
 
 
 def test_a_block_too_large_for_the_training_kernels_trains_unfused(monkeypatch):
-    """Swin2SR-L's block (C 240, 8 heads of 30, hidden 480): #14's plan has
-    no room, so in training it takes the unfused branch (no kernel wrapper),
-    which computes the same function; at eval, and at Swin2SR-M's widths in
-    training, it takes the kernels."""
+    """A block whose rows the training kernels' engine does not take (C 90,
+    3 heads of 30: rows not in 16-byte pieces) takes the unfused branch in
+    training (no kernel wrapper), which computes the same function; at
+    eval, and at Swin2SR-M's and Swin2SR-L's widths (C 240, 8 heads of 30,
+    hidden 480) in training, it takes the kernels."""
     from trainner_redux_tpu_torch.archs.swin2sr_arch import Swin2Block
     from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
 
@@ -307,8 +309,8 @@ def test_a_block_too_large_for_the_training_kernels_trains_unfused(monkeypatch):
 
     monkeypatch.setattr(v2._CosAttn, "apply", counted)
     gen = torch.Generator().manual_seed(0)
-    for dim, heads, mode, want in ((240, 8, "train", []), (240, 8, "eval", [240]),
-                                   (180, 6, "train", [180])):
+    for dim, heads, mode, want in ((90, 3, "train", []), (90, 3, "eval", [90]),
+                                   (240, 8, "train", [240]), (180, 6, "train", [180])):
         calls.clear()
         blk = Swin2Block(dim, heads, 8, 4, 2.0)
         blk.train(mode == "train")

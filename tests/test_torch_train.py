@@ -21,6 +21,7 @@ kernels in interpret mode, TRAINNER_FUSED_BLOCK=interpret).
   generator only; unported options raise.
 """
 
+import os
 from pathlib import Path
 
 import cv2
@@ -380,6 +381,74 @@ def test_unported_training_options_raise(dataset, tmp_path, extra, match):
     _, opt = _opts(tmp_path, _config(dataset, **extra))
     with pytest.raises(NotImplementedError, match=match):
         build_model(opt, device="cpu")
+
+
+class _NanGrad(torch.autograd.Function):
+    """Identity forward; a NaN gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * float("nan")
+
+
+def _flags():
+    cudnn = torch.backends.cudnn
+    return {"tf32": (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32),
+            "deterministic": (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
+                              cudnn.benchmark),
+            "anomaly": torch.is_anomaly_enabled()}
+
+
+@pytest.mark.parametrize("option", ["detect_anomaly", "fast_matmul", "deterministic",
+                                    "use_compile", "use_channels_last",
+                                    "find_unused_parameters"])
+def test_training_options_are_honoured_or_noted(dataset, tmp_path, monkeypatch, capsys, option):
+    """Each option the JAX entry acts on is honoured inside the training
+    step (`train.run` on the CPU, one step) and restored after it:
+    `detect_anomaly` raises on a NaN injected into the backward,
+    `fast_matmul` lets cuBLAS and cuDNN take TF32 (off otherwise),
+    `deterministic` runs the step on torch's deterministic algorithms with
+    cuDNN's deterministic convolutions and sets cuBLAS's workspace. Each
+    torch-only knob the port does not act on prints its NOTE line."""
+    from trainner_redux_tpu_torch import train as port_train
+    from trainner_redux_tpu_torch.models.sr_model import SRModel
+    from trainner_redux_tpu_torch.utils.options import parse_options
+
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    cfg = _config(dataset, use_channels_last=False, use_compile=False)
+    cfg["train"]["total_iter"] = 1
+    cfg[option] = True
+    opt, _ = parse_options(str(tmp_path), is_train=True,
+                           argv=["-opt", _yaml(tmp_path, cfg)])
+    before = _flags()
+    seen = []
+    losses = SRModel._generator_losses
+
+    def in_step(self, output, gt):
+        seen.append(_flags())
+        if option == "detect_anomaly":
+            output = _NanGrad.apply(output)
+        return losses(self, output, gt)
+
+    monkeypatch.setattr(SRModel, "_generator_losses", in_step)
+    if option == "detect_anomaly":
+        with pytest.raises(RuntimeError, match="nan"):
+            port_train.run(opt, device="cpu")
+    else:
+        port_train.run(opt, device="cpu")
+    assert _flags() == before
+    fast, det = option == "fast_matmul", option == "deterministic"
+    assert seen[0] == {"tf32": (fast, fast), "deterministic": (True, True, False) if det
+                       else before["deterministic"], "anomaly": option == "detect_anomaly"}
+    assert (os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8") == det
+    notes = [line for line in capsys.readouterr().out.splitlines() if line.startswith("NOTE:")]
+    for knob in ("use_compile", "use_channels_last", "find_unused_parameters"):
+        said = any(line.startswith(f"NOTE: {knob}") for line in notes)
+        assert said == (knob == option or knob == "use_compile"), (knob, notes)
 
 
 # ---------------------------------------------------------------------------

@@ -129,12 +129,20 @@ def test_fused_window_mhsa_backward_matches_jax_vjp(ws, shifted):
 
 def test_window_mhsa_plans_at_hat_m():
     """HAT-M's heads (C 180, 6 heads of 30) at 16x16 windows: the forward
-    takes 138 KB of shared memory and the backward 193 KB, both within one
-    thread block's 227 KB; SwinIR-M's 8x8 plans stay as they were."""
+    takes 138 KB of shared memory; the tensor-core backward (k and v of the
+    256 tokens and q, dA and dq of a 64-row block in rows of 36 floats, the
+    (64, 260) P / dS tile, three (4, 64) exchanges of the key quarters' row
+    sums, the token indices) 172 KB, one block of 16 warps a SM; at 8x8
+    windows the backward fits three blocks a SM, SwinIR-M's forward plan
+    stays as it was."""
     assert twa.window_mhsa_smem_bytes(180, 6, 16) == 4 * (30 * 68 + 30 * 256 + 256 * 32 + 64 * 260)
+    assert twa.TC_ATTN_PLANS[256] == (64, 4)
     assert twa.window_mhsa_bwd_smem_bytes(180, 6, 16) == 4 * (
-        2 * 30 * 256 + 256 * 32 + 2 * 30 * 68 + 2 * 64 * 32 + 64 * 260)
+        2 * 256 * 36 + 3 * 64 * 36 + 64 * 260 + 3 * 4 * 64 + 256) == 172_032
     assert twa.window_mhsa_bwd_smem_bytes(180, 6, 16) <= twa.SMEM_LIMIT
+    assert twa.window_mhsa_bwd_smem_bytes(180, 6, 8) == 4 * (
+        2 * 64 * 36 + 3 * 64 * 36 + 64 * 68 + 3 * 2 * 64 + 64)
+    assert 3 * (twa.window_mhsa_bwd_smem_bytes(180, 6, 8) + 1024) <= 228 * 1024
     assert twa.window_mhsa_smem_bytes(180, 6) == 4 * (2 * 30 * 68 + 64 * 32 + 64 * 68)
 
 
@@ -218,12 +226,15 @@ def test_rect_mhsa_gate(monkeypatch):
 
 def test_rect_mhsa_plans_at_dat():
     """DAT's branch (90 channels, 3 heads of 30) at n = 256 takes the ws-16
-    plans (138 KB forward, 193 KB backward); dat_s's n = 128 less."""
+    plans (138 KB forward, 172 KB backward); dat_s's n = 128 less, its
+    backward two blocks a SM."""
     for window in ((8, 32), (32, 8)):
         assert twa.rect_mhsa_smem_bytes(90, 3, *window) == twa.window_mhsa_smem_bytes(180, 6, 16)
         assert twa.rect_mhsa_bwd_smem_bytes(90, 3, *window) == (
             twa.window_mhsa_bwd_smem_bytes(180, 6, 16))
     assert twa.rect_mhsa_smem_bytes(90, 3, 8, 16) == 4 * (30 * 68 + 30 * 128 + 128 * 32
                                                          + 64 * 132)
+    assert twa.TC_ATTN_PLANS[128] == (32, 4)  # rows of 32, four warps a row tile
     assert twa.rect_mhsa_bwd_smem_bytes(90, 3, 16, 8) == 4 * (
-        2 * 30 * 128 + 128 * 32 + 2 * 30 * 68 + 2 * 64 * 32 + 64 * 132)
+        2 * 128 * 36 + 3 * 32 * 36 + 32 * 132 + 3 * 4 * 32 + 128)
+    assert 2 * (twa.rect_mhsa_bwd_smem_bytes(90, 3, 16, 8) + 1024) <= 228 * 1024

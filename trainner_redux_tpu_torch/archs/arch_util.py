@@ -18,6 +18,17 @@ def Conv2d(in_channels: int, out_channels: int, kernel_size: int = 3) -> nn.Conv
     return nn.Conv2d(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2)
 
 
+class SpatialMean(nn.Module):
+    """The mean over H and W of NCHW x, kept as (N, C, 1, 1): what
+    `nn.AdaptiveAvgPool2d(1)` computes, with no parameters, so a module
+    list's indices stay upstream's. Its backward has a deterministic CUDA
+    implementation, which adaptive pooling's lacks (`deterministic: true`
+    runs the step under `torch.use_deterministic_algorithms`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
 def bilinear_sample(img: torch.Tensor, coords_y: torch.Tensor,
                     coords_x: torch.Tensor) -> torch.Tensor:
     """Bilinear sampling of NHWC `img` at absolute float pixel coordinates

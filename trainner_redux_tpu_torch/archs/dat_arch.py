@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
 from trainner_redux_tpu_torch.archs.swinir_arch import _MEAN, _conv_nhwc, init_transformer_weights
 from trainner_redux_tpu_torch.ops.window_attention import (
@@ -222,7 +222,7 @@ def _interaction(dim: int) -> tuple[nn.Sequential, nn.Sequential]:
     module (upstream's Sequential indices)."""
     ci = max(1, dim // 8)
     si = max(1, dim // 16)
-    channel = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(dim, ci, 1), BatchNormNoStats(ci),
+    channel = nn.Sequential(SpatialMean(), nn.Conv2d(dim, ci, 1), BatchNormNoStats(ci),
                             nn.GELU(), nn.Conv2d(ci, dim, 1))
     spatial = nn.Sequential(nn.Conv2d(dim, si, 1), BatchNormNoStats(si), nn.GELU(),
                             nn.Conv2d(si, 1, 1))

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale, fused_mlp_residual
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
@@ -65,7 +65,7 @@ class ChannelAttention(nn.Module):
         super().__init__()
         sq = max(1, num_feat // squeeze_factor)
         self.attention = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), nn.Conv2d(num_feat, sq, 1), nn.ReLU(),
+            SpatialMean(), nn.Conv2d(num_feat, sq, 1), nn.ReLU(),
             nn.Conv2d(sq, num_feat, 1), nn.Sigmoid(),
         )
 

@@ -44,8 +44,8 @@
 //   4. the window attention, per (window, head), dK and dV carried in
 //      registers across the row blocks, dS of each (window, head) to a
 //      buffer that dbias_kernel (common.cuh) sums per kind in window order:
-//      recompute: attn_rows_bwd_tc_kernel<N, RB>, its six products (S = q
-//      k^T, att = P v for dwp, dV += P^T dA, dP = dA v^T, dQ = scale dS k,
+//      recompute: tc_attn.cuh's attn_rows_bwd_tc_kernel (#8's too), its six
+//      products (S = q k^T, att = P v for dwp, dV += P^T dA, dP = dA v^T, dQ = scale dS k,
 //      dK += scale dS^T q) on mma.sync m16n8k8 tf32 in 3xTF32 (tc_attn.cuh),
 //      the head dimension zero-padded to 32, the softmax and dS = P (dP -
 //      rowsum(P dP)) on the accumulator fragments; two warps a 16-row tile,
@@ -75,16 +75,6 @@
 
 namespace trr {
 
-// Index (into the B*H*W tokens) of token r, row-major, of the ws x ws window
-// (wi, wj) of sample b on the map rolled by (-shift, -shift).
-__device__ __forceinline__ long long roll_token(int b, int wi, int wj, int r, int H, int W,
-                                                int ws, int shift) {
-  int y = wi * ws + r / ws + shift, x = wj * ws + r % ws + shift;
-  if (y >= H) y -= H;
-  if (x >= W) x -= W;
-  return ((long long)b * H + y) * W + x;
-}
-
 __device__ __forceinline__ float half_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -110,15 +100,6 @@ __host__ __device__ inline int attn_rows_fwd_smem_floats(int N, int RB, int hd) 
 // dA (hd, RB) transposed and q and dA (RB, 32), the P / dS rows (RB, N + 4)
 __host__ __device__ inline int attn_rows_bwd_saved_smem_floats(int N, int RB, int hd) {
   return hd * N + N * kVLd + hd * RB + 2 * RB * kVLd + RB * (N + 4);
-}
-
-// The tensor-core window-attention backward (attn_rows_bwd_tc_kernel,
-// tc_attn.cuh) at N keys and query row blocks of RB: k and v (N, 36), this
-// row block's q and dA (RB, 36), the P / dS rows (RB, N + 4), three (2, RB)
-// exchanges of the halves' row max, row sum and rowsum(P dP), its att and
-// dq rows (RB, 36) on their way out, and the window's N token indices.
-__host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB) {
-  return 2 * N * kHeadLd + 4 * RB * kHeadLd + RB * (N + 4) + 6 * RB + N;
 }
 
 // One block per 64 consecutive tokens of the B*H*W: qkv (T, 3C) = LN1(x) wq
@@ -259,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* kT = qT + hd * N;     // (hd, N)
   float* v = kT + hd * N;      // (N, 32)
   float* P = v + N * kVLd;     // (RB, N + 4)
-  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
+  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, ws, shift); };
   const int kind = window_kind(kinds, wi, wj, nwh, nww);
   const float* table = bias + ((size_t)kind * nh + h) * N * N;
   float* Pg = Pout == nullptr
@@ -334,163 +315,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
-// of RB. From qkv (T, 3C), the kind table and datt (T, C): writes this
-// head's dq | dk | dv into dqkv (T, 3C), its attention output into att (T,
-// C), and dS into a buffer (B, H/ws, W/ws, nh, N, N) for the bias-kind
-// reduction. Six products a row block on mma.sync in 3xTF32, as
-// tc_attn.cuh lays them out: S = q k^T and the row softmax in the
-// fragments (the row block's bias rows staged in the shared tile first), P
-// to the tile, att = P v, dV += P^T dA, dP = dA v^T, dS = P (dP - rowsum(P
-// dP)) in place of P, dQ = scale dS k, dK += dS^T q; dK and dV in registers
-// across the row blocks, scaled at the end. The window's token indices are
-// computed once, into shared memory, and every output goes out through
-// shared memory a head row (hd floats) at a time: stores from the fragments
-// would write 4 bytes to each of 8 rows. The heads are the grid's fastest
-// index: a window's heads run together, so each token's 3C row is read
-// once and written whole while it stays in L2.
-template <int N, int RB>
-__global__ void __launch_bounds__(attn_tc_threads(RB), 2)
-    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                            const float* __restrict__ datt, float* __restrict__ dqkv,
-                            float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
-                            int nh, int ws, int kinds, int shift, float scale) {
-  using AW = AttnWarps<N, RB>;
-  constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, UNITS = AW::UNITS;
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / ws, nwh = H / ws;
-  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
-  const AW aw;
-  float* ks = smem;              // (N, LD) k, zero past hd
-  float* vs = ks + N * LD;       // (N, LD) v
-  float* qs = vs + N * LD;       // (RB, LD) this row block's q
-  float* das = qs + RB * LD;     // (RB, LD) its datt
-  float* pt = das + RB * LD;     // (RB, LP): P, then dS
-  float* red = pt + RB * LP;     // (3, 2, RB): each half's row max, row sum, rowsum(P dP)
-  float* oa = red + 6 * RB;      // (RB, LD) this row block's att
-  float* oq = oa + RB * LD;      // (RB, LD) its dq
-  int* tok = reinterpret_cast<int*>(oq + RB * LD);  // (N) the window's token indices
-  for (int r = threadIdx.x; r < N; r += NTH)
-    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, ws, shift);
-  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
-  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
-  __syncthreads();
-  stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
-  stage_head_rows<N, NTH>(vs, hd,
-                          [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
-  float dk[UNITS][2][4], dv[UNITS][2][4];
-#pragma unroll
-  for (int u = 0; u < UNITS; ++u)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[u][j][e] = dv[u][j][e] = 0.f;
-
-  for (int r0 = 0; r0 < N; r0 += RB) {
-    const int* rt = tok + r0;  // this row block's tokens
-    stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
-    stage_head_rows<RB, NTH>(das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
-    stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
-    __syncthreads();  // q, dA and the bias rows (and, the first time, k and v) staged
-    {  // S = q k^T * scale + bias, the row softmax in the fragments, P to the tile
-      float p[NT][4];
-      aw.rows_by_channels(qs, ks, p);
-      float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 bb = *aw.at(pt, i, j);
-          p[j][2 * i] = p[j][2 * i] * scale + bb.x;
-          p[j][2 * i + 1] = p[j][2 * i + 1] * scale + bb.y;
-          m[i] = fmaxf(m[i], fmaxf(p[j][2 * i], p[j][2 * i + 1]));
-        }
-      aw.row_total(red, m, true);
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[j][e] = expf(p[j][e] - m[e / 2]);
-          sum[e / 2] += p[j][e];
-        }
-      aw.row_total(red + 2 * RB, sum, false);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float inv = 1.f / sum[i];
-          *aw.at(pt, i, j) = make_float2(p[j][2 * i] * inv, p[j][2 * i + 1] * inv);
-        }
-    }
-    __syncthreads();  // P is whole
-    {  // att = P v (the forward's output, for dwp)
-      float o[2][4];
-      aw.rows_by_keys(pt, vs, o);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
-    }
-    aw.keys_by_rows(pt, das, dv);  // dV += P^T dA
-    {  // dP = dA v^T, then dS = P (dP - rowsum(P dP)) in place of P, read back
-      float dp[NT][4];
-      aw.rows_by_channels(das, vs, dp);
-      float delta[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 pv = *aw.at(pt, i, j);
-          delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
-          delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
-        }
-      aw.row_total(red + 4 * RB, delta, false);  // its barrier: every warp is done reading P
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 pv = *aw.at(pt, i, j);
-          const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
-                                       pv.y * (dp[j][2 * i + 1] - delta[i]));
-          *aw.at(pt, i, j) = v;
-          *reinterpret_cast<float2*>(dS + head + (size_t)(r0 + aw.s_row(i)) * N + aw.s_col(j)) =
-              v;
-        }
-    }
-    __syncthreads();  // dS is whole
-    {  // dQ = scale dS k
-      float o[2][4];
-      aw.rows_by_keys(pt, ks, o);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = scale * o[j][e];
-    }
-    aw.keys_by_rows(pt, qs, dk);  // dK += dS^T q (scaled once, at the end)
-    __syncthreads();  // q, dA and the tile are rewritten by the next row block; att, dq whole
-    store_head_rows<RB, NTH>(oa, hd, [&](int r) { return att + (long long)rt[r] * C + h * hd; });
-    store_head_rows<RB, NTH>(oq, hd, [&](int r) { return dqkv + (long long)rt[r] * C3 + h * hd; });
-  }
-  // dK and dV to the rooms of k and v, then out
-#pragma unroll
-  for (int u = 0; u < UNITS; ++u)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = aw.u_key(u, e) * LD + aw.u_chan(u, j, e);
-        ks[i] = scale * dk[u][j][e];
-        vs[i] = dv[u][j][e];
-      }
-  __syncthreads();
-  store_head_rows<N, NTH>(ks, hd,
-                          [&](int r) { return dqkv + (long long)tok[r] * C3 + C + h * hd; });
-  store_head_rows<N, NTH>(vs, hd,
-                          [&](int r) { return dqkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
-}
-
-// One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
 // of RB. From qkv (T, 3C), the forward's softmax P (B, H/ws, W/ws, nh, N, N)
 // and datt (T, C): writes this head's dq | dk | dv into dqkv (T, 3C) and dS
 // into a buffer shaped as P. Where attn_rows_bwd_tc_kernel rebuilds S, the
@@ -514,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* q = dAT + hd * RB;      // (RB, 32)
   float* dA = q + RB * kVLd;     // (RB, 32)
   float* T = dA + RB * kVLd;     // (RB, N + 4): P, then dS
-  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, shift); };
+  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, ws, shift); };
   const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
 
   for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
@@ -632,19 +456,6 @@ cudaError_t attn_rows_fwd(const float* qkv, const float* bias, float* att, float
 }
 
 template <int N, int RB>
-cudaError_t attn_rows_bwd_tc(const float* qkv, const float* bias, const float* datt, float* dqkv,
-                             float* att, float* dS, int B, int H, int W, int C, int nh, int ws,
-                             int kinds, int shift, float scale, cudaStream_t stream) {
-  const int floats = attn_rows_bwd_tc_smem_floats(N, RB);
-  const cudaError_t err = set_smem(attn_rows_bwd_tc_kernel<N, RB>, floats);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(nh, (H / ws) * (W / ws), B);
-  attn_rows_bwd_tc_kernel<N, RB><<<grid, attn_tc_threads(RB), floats * sizeof(float), stream>>>(
-      qkv, bias, datt, dqkv, att, dS, H, W, C, nh, ws, kinds, shift, scale);
-  return cudaGetLastError();
-}
-
-template <int N, int RB>
 cudaError_t attn_rows_bwd_saved(const float* qkv, const float* P, const float* datt, float* dqkv,
                                 float* dS, int B, int H, int W, int C, int nh, int ws, int shift,
                                 float scale, cudaStream_t stream) {
@@ -737,8 +548,10 @@ size_t trr_attn_staged_fwd_smem_bytes(int C, int nh, int ws) {
 size_t trr_attn_staged_bwd_smem_bytes(int C, int nh, int ws) {
   const int n = ws * ws, rb = trr::rows_block(n);
   if (rb == 0) return 0;
-  return (size_t)std::max({trr::linear_smem_bytes(), trr::rows_smem_bytes(C),
-                           trr::attn_rows_bwd_tc_smem_floats(n, rb) * (int)sizeof(float)});
+  const trr::AttnPlan plan = trr::attn_plan(n);
+  return (size_t)std::max(
+      {trr::linear_smem_bytes(), trr::rows_smem_bytes(C),
+       trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, true) * (int)sizeof(float)});
 }
 
 size_t trr_attn_train_bwd_smem_bytes(int C, int nh, int ws) {
@@ -799,10 +612,10 @@ int trr_attn_block_staged_bwd(const float* x, const float* g, const float* be, c
   cudaError_t err = trr::bwd_head(x, g, be, wq, bq, wp, s, dout, qkv, y, stats, dzp, datt, tokens,
                                   hw, C, eps, stream);
   if (err != cudaSuccess) return (int)err;
-  err = n == 144 ? trr::attn_rows_bwd_tc<144, 48>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
-                                                  ws, kinds, shift, scale, stream)
-                 : trr::attn_rows_bwd_tc<64, 64>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
-                                                 ws, kinds, shift, scale, stream);
+  err = n == 144 ? trr::attn_rows_bwd_tc<144, true>(qkv, bias, datt, dqkv, att, dS, B, H, W, C,
+                                                    nh, ws, ws, kinds, shift, scale, stream)
+                 : trr::attn_rows_bwd_tc<64, true>(qkv, bias, datt, dqkv, att, dS, B, H, W, C, nh,
+                                                   ws, ws, kinds, shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)trr::bwd_tail(dqkv, wq, x, stats, g, dout, dx, ln_part, dS, dbias, B, H, W, C, nh,
                             ws, kinds, stream);

@@ -35,7 +35,8 @@
 // ring + split buffers (+ others).
 //   1. ln_rows_kernel, one warp a token: y2 = LN2(z) with its stats, dm =
 //      s2 dout; y = LN1(x) with its stats (a second launch; #7: one, from x).
-//   2. mlp_hidden_kernel, per 128 tokens x 128 hidden units: h = y2 w1 + b1,
+//   2. mlp_hidden_kernel (tc_rows.cuh, shared with #14), per 128 tokens x
+//      128 hidden units: h = y2 w1 + b1,
 //      gelu(h) to hg; then dh = (dm w2^T) gelu'(h), gelu'(h) waiting in
 //      shared memory between the two products. A stage: a (128, 16) token
 //      chunk and a raw (16, 128) w1 or (128, 16) w2 chunk; 196,672 B.
@@ -65,19 +66,11 @@
 
 namespace trr {
 
-constexpr int kHidTile = kColTile;   // hidden units of a mlp_hidden_kernel tile
 constexpr int kAtbK = 32;            // tokens of a weight-gradient chunk
 constexpr int kAtbStages = 3;        // depth of its ring (its split buffers are twice as deep)
 constexpr int kAtbLd = kTcRows + 8;  // row stride of a weight-gradient chunk
 constexpr int kAtbBlocks = 264;      // blocks a weight gradient aims at (two waves)
 
-// mlp_hidden_kernel keeps gelu'(h) of its tile in shared memory between
-// its two products, [element][thread].
-constexpr int kGeluFloats = kHidTile / 2 * kThreads;
-__host__ __device__ inline int hidden_smem_bytes() {
-  return (kGeluFloats + split_floats(kHidTile)) * (int)sizeof(float) +
-         Ring<>::bytes(token_stage_floats(kHidTile));
-}
 // atb_kernel: the split buffers, then a ring of two (kAtbK, 128)
 // token-major chunks a stage.
 __host__ __device__ inline int atb_smem_bytes() {
@@ -103,59 +96,6 @@ inline long long atb_chunk(long long T, int M, int N) {
 inline long long atb_part_floats(long long T, int M, int N) {
   const long long chunk = atb_chunk(T, M, N);
   return (T + chunk - 1) / chunk * ((long long)M * N + N);
-}
-
-// Per 128 tokens t0.. and 128 hidden units n0..: h = y w1 + b1, hg =
-// gelu(h); dh = (dm w2^T) gelu'(h). y, dm (T, C); w1 (C, hidden) read
-// N-major (transposed as it is split), w2 (hidden, C) K-major; hg, dh (T,
-// hidden). gelu'(h) waits in shared memory while the second product runs.
-__global__ void __launch_bounds__(kThreads, 1)
-    mlp_hidden_kernel(const float* __restrict__ y, const float* __restrict__ dm,
-                      const float* __restrict__ w1, const float* __restrict__ b1,
-                      const float* __restrict__ w2, float* __restrict__ hg,
-                      float* __restrict__ dh, long long T, int C, int hidden) {
-  constexpr int BN = kHidTile;
-  extern __shared__ __align__(16) float smem[];
-  float* gp = smem;  // gelu'(h), element e of thread i at gp[e * kThreads + i]
-  float* split = gp + kGeluFloats;
-  Ring<> ring;
-  ring.init(split + split_floats(BN), token_stage_floats(BN));
-  const long long t0 = (long long)blockIdx.x * kTcRows;
-  const int n0 = blockIdx.y * kHidTile;
-  const int nk = (C + kTcK - 1) / kTcK;
-  float acc[BN / 2];
-  AFrag<> af[2];
-  xw_product<BN>(acc, ring, split, af, y, t0, T, w1, n0, hidden, C, 0);
-  // h = acc + b1: gelu(h) to hg, gelu'(h) to gp
-#pragma unroll
-  for (int i = 0; i < BN / 2; i += 2) {
-    const int c = n0 + acc_col(i);
-    const long long t = t0 + acc_row(i);
-    if (c < hidden) {
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c));
-      const float h0 = acc[i] + bb.x, h1 = acc[i + 1] + bb.y;
-      if (t < T)
-        *reinterpret_cast<float2*>(hg + t * hidden + c) = make_float2(gelu_erf(h0), gelu_erf(h1));
-      gp[i * kThreads + threadIdx.x] = gelu_erf_grad(h0);
-      gp[(i + 1) * kThreads + threadIdx.x] = gelu_erf_grad(h1);
-    }
-    acc[i] = 0.f;
-    acc[i + 1] = 0.f;
-  }
-  ring.run(
-      nk,
-      [&](int j, float* st) { load_wg_stage<BN, true>(st, dm, t0, T, w2, n0, hidden, C, j); },
-      [&](int j, const float* st) { use_wg_stage<BN, true>(acc, st, split, nk + j, af); });
-  wgmma_wait_all();
-#pragma unroll
-  for (int i = 0; i < BN / 2; i += 2) {
-    const int c = n0 + acc_col(i);
-    const long long t = t0 + acc_row(i);
-    if (c < hidden && t < T)
-      *reinterpret_cast<float2*>(dh + t * hidden + c) =
-          make_float2(acc[i] * gp[i * kThreads + threadIdx.x],
-                      acc[i + 1] * gp[(i + 1) * kThreads + threadIdx.x]);
-  }
 }
 
 // part[z] (M*N + N floats) = A^T B over the tokens [z*chunk, (z+1)*chunk),
@@ -252,18 +192,6 @@ inline cudaError_t weight_grad(const float* A, const float* B, long long T, int 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
-}
-
-inline cudaError_t mlp_hidden(const float* y, const float* dm, const float* w1, const float* b1,
-                              const float* w2, float* hg, float* dh, long long T, int C,
-                              int hidden, cudaStream_t stream) {
-  const int smem = hidden_smem_bytes();
-  const cudaError_t err =
-      cudaFuncSetAttribute(mlp_hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (hidden + kHidTile - 1) / kHidTile);
-  mlp_hidden_kernel<<<grid, kThreads, smem, stream>>>(y, dm, w1, b1, w2, hg, dh, T, C, hidden);
-  return cudaGetLastError();
 }
 
 // One block per 8x8 window of the map rolled by (-shift, -shift), as in the

@@ -48,10 +48,25 @@
 //   7. rows_kernel<BN, kRowsResidual>: dx = dout + dqkv wq^T;
 // then the split-K weight gradients and fixed-order sums of
 // fused_block_train.cu (dwq = x^T dqkv, dwp = att^T dproj, the biases, dg,
-// dbe, dscale) and dbias_kernel for the per-window dS. The MLP half's
-// backward (#14, not redesigned) is one per-token FMA kernel
-// (pn_mlp_bwd_kernel) and the same weight gradients. No atomics: two runs
-// give the same gradients bit for bit.
+// dbe, dscale) and dbias_kernel for the per-window dS.
+//
+// The backward of the MLP half (#14) runs every product on the same engine,
+// 128 tokens a block, each weight read as it lies (no transposed copies):
+//   1. linear_kernel with its gelu epilogue: hg = gelu(x w1 + b1);
+//   2. linear_kernel: m = hg w2 + b2;
+//   3. postnorm_ln_rows_kernel: dm = LN2'(s dout) from m's own row stats,
+//      the dg / dbe partial sums per 128 tokens;
+//   4. mlp_hidden_kernel (tc_rows.cuh, #7's): h = x w1 + b1 again in its
+//      first product, then dh = (dm w2^T) gelu'(h), gelu'(h) held in shared
+//      memory between the two (h never goes to device memory);
+//   5. rows_kernel<BN, kRowsResidual>: dx = dout + dh w1^T;
+// then the weight gradients dw2 = hg^T dm, dw1 = x^T dh and the sums. What
+// bounds it: its products, 14 GFLOP at Swin2SR-M's block against 41 MB (3 x
+// operations on the tensor cores); the engine's rows of up to 256 channels
+// also take Swin2SR-L's C 240 / hidden 480. No atomics: two runs give the
+// same gradients bit for bit.
+#include <algorithm>
+
 #include "tc_attn.cuh"
 #include "tc_rows.cuh"
 
@@ -81,11 +96,6 @@ __host__ __device__ inline int cos_attn_rows_smem_floats(int hd) {
 __host__ __device__ constexpr int cos_attn_bwd_smem_floats() {
   return 4 * kTile * kHeadLd + kTile * (kTile + 4) + 6 * kTile + 2 * kTile + kWarps + kTile;
 }
-// pn_mlp_bwd: x then dm (C, 64), gelu(h) then dh (hidden, 64), the fc2 rows
-// then xn (64, C + 1) in a (C, 64) tile's room, stage, row stats.
-__host__ __device__ inline int pn_mlp_bwd_smem_floats(int C, int hidden) {
-  return 2 * C * kTLd + hidden * kTLd + kStageFloats + 3 * kTile;
-}
 
 // out[tok(r)] = x[tok(r)] + sc(r) * LN(rows[r]) for the M <= 64 rows r of
 // `rows` (row-major in shared memory, stride ld, C values each), one warp a
@@ -114,73 +124,6 @@ __device__ __forceinline__ void postnorm_residual(const float* rows, int ld, int
       const long long idx = t * C + c;
       out[idx] = __ldg(x + idx) + sb * ((p[c] - mean) * inv * __ldg(g + c) + __ldg(be + c));
     }
-  }
-}
-
-// The LayerNorm backward of a post-norm residual out = x + s * LN(m) on the
-// M <= 64 rows of a tile of consecutive tokens t0..: R (64, ld) row-major
-// holds m on entry and xn = (m - mean) / std on exit; dT (C, 64) transposed
-// receives dm = LN'(s do) (rows M..63 zero), also written to dm_out. The
-// block's partial sums of dg (first C) and dbe (next C) go to
-// ln_part[blockIdx.x]. st: 3 * 64 floats.
-__device__ __forceinline__ void postnorm_ln_bwd_tile(
-    float* R, int ld, float* dT, const float* __restrict__ dout, const float* __restrict__ g,
-    const float* __restrict__ s, long long t0, int M, long long hw, int C, float eps,
-    float* __restrict__ dm_out, float* __restrict__ ln_part, float* st) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // R written
-  for (int r = warp; r < M; r += kWarps) {
-    float* p = R + r * ld;
-    const long long t = t0 + r;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += p[c];
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = p[c] - mean;
-      sq += d * d;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(sq) / C + eps);
-    const float sb = __ldg(s + t / hw);
-    float a = 0.f, bsum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xn = (p[c] - mean) * inv;
-      const float dy = sb * __ldg(dout + t * C + c);
-      p[c] = xn;
-      dT[c * kTLd + r] = dy;
-      const float dxh = dy * __ldg(g + c);
-      a += dxh;
-      bsum += dxh * xn;
-    }
-    a = warp_sum(a) / C;
-    bsum = warp_sum(bsum) / C;
-    if (lane == 0) {
-      st[r] = inv;
-      st[kTile + r] = a;
-      st[2 * kTile + r] = bsum;
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float dg = 0.f, db = 0.f;
-    for (int r = 0; r < M; ++r) {
-      const float dy = dT[c * kTLd + r];
-      dg = fmaf(dy, R[r * ld + c], dg);
-      db += dy;
-    }
-    ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
-    ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    float dm = 0.f;
-    if (r < M) {
-      const float dxh = dT[c * kTLd + r] * __ldg(g + c);
-      dm = st[r] * (dxh - st[kTile + r] - R[r * ld + c] * st[2 * kTile + r]);
-      dm_out[(t0 + r) * C + c] = dm;
-    }
-    dT[c * kTLd + r] = dm;
   }
 }
 
@@ -314,8 +257,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// #12, stage 4: per 128 consecutive tokens, one warp a token (16 a warp, in
-// order), rows read with 16-byte loads (C <= 256, a multiple of 4): the
+// #12, stage 4 (and #14, stage 3): per 128 consecutive tokens, one warp a
+// token (16 a warp, in order), rows read with 16-byte loads (C <= 256, a
+// multiple of 4): the
 // LayerNorm backward of z = x + s LN1(proj) -> dproj = inv (dy g - mean(dy
 // g) - xn mean(dy g xn)) with dy = s dout and xn from the proj row's own
 // mean and 1/std (two-pass, as the forward); the block's partial sums of dg
@@ -612,89 +556,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                     [&](int r) { return __ldg(s + (t0 + r) / hw); }, x, out);
 }
 
-// ---------------------------------------------------------------------------
-// #14: the post-norm MLP half's backward, one block per 64 consecutive
-// tokens: recompute h = x w1 + b1 and m = gelu(h) w2 + b2, then dm =
-// LN2'(s dout), dh = (dm w2^T) gelu'(h), dx = dout + dh w1^T. w1t (hidden,
-// C) and w2t (C, hidden) are the transposes of w1 and w2. Writes hg =
-// gelu(h), dm and dh per token for the weight gradients (dh holds h until
-// the block overwrites it), dx, and the dg / dbe partial sums per block.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    pn_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
-                      const float* __restrict__ w1, const float* __restrict__ b1,
-                      const float* __restrict__ w2, const float* __restrict__ b2,
-                      const float* __restrict__ w1t, const float* __restrict__ w2t,
-                      const float* __restrict__ g, const float* __restrict__ s,
-                      float* __restrict__ hg, float* __restrict__ dm, float* dh,
-                      float* __restrict__ dx, float* __restrict__ ln_part, long long tokens,
-                      long long hw, int C, int hidden, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int ld = C + 1;
-  float* T1 = smem;                  // (C, 64): x, then dy, then dm
-  float* T2 = T1 + C * kTLd;         // (hidden, 64): gelu(h), then dh
-  float* R = T2 + hidden * kTLd;     // (64, C + 1) in a (C, 64) room: m, then xn
-  float* Bs = R + C * kTLd;          // weight stage
-  float* st = Bs + kStageFloats;     // LN row stats
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    T1[c * kTLd + r] = r < M ? __ldg(x + (t0 + r) * C + c) : 0.f;
-  }
-  // h = x w1 + b1: gelu(h) to T2 and hg, h itself to dh
-  gemm_weights(T1, C, w1, hidden, hidden, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(b1 + c);
-                 float gv[4];
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) {
-                   const float h = o[i] + bb;
-                   gv[i] = gelu_erf(h);
-                   if (r0 + i < M) {
-                     const long long idx = (t0 + r0 + i) * hidden + c;
-                     hg[idx] = gv[i];
-                     dh[idx] = h;
-                   }
-                 }
-                 *reinterpret_cast<float4*>(T2 + c * kTLd + r0) =
-                     make_float4(gv[0], gv[1], gv[2], gv[3]);
-               });
-  // m = gelu(h) w2 + b2, as rows
-  gemm_weights(T2, hidden, w2, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(b2 + c);
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) R[(r0 + i) * ld + c] = o[i] + bb;
-               });
-  postnorm_ln_bwd_tile(R, ld, T1, dout, g, s, t0, M, hw, C, eps, dm, ln_part, st);
-  // dh = (dm w2^T) gelu'(h), h read back from dh (written by this block)
-  gemm_weights(T1, C, w2t, hidden, hidden, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 float d[4];
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) {
-                   d[i] = 0.f;
-                   if (r0 + i < M) {
-                     const long long idx = (t0 + r0 + i) * hidden + c;
-                     d[i] = o[i] * gelu_erf_grad(dh[idx]);
-                     dh[idx] = d[i];
-                   }
-                 }
-                 *reinterpret_cast<float4*>(T2 + c * kTLd + r0) = make_float4(d[0], d[1], d[2], d[3]);
-               });
-  // dx = dout + dh w1^T
-  gemm_weights(T2, hidden, w1t, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) {
-                   if (r0 + i >= M) break;
-                   const long long idx = (t0 + r0 + i) * C + c;
-                   dx[idx] = __ldg(dout + idx) + o[i];
-                 }
-               });
-}
-
 inline unsigned token_blocks(long long tokens) {
   return (unsigned)((tokens + kTile - 1) / kTile);
 }
@@ -715,8 +576,10 @@ size_t trr_cos_attn_rows_smem_bytes(int hd) {
 size_t trr_cos_attn_bwd_smem_bytes() {
   return (size_t)trr::cos_attn_bwd_smem_floats() * sizeof(float);
 }
+// The largest shared memory of the MLP half's backward kernels (any hidden).
 size_t trr_pn_mlp_bwd_smem_bytes(int C, int hidden) {
-  return (size_t)trr::pn_mlp_bwd_smem_floats(C, hidden) * sizeof(float);
+  return (size_t)std::max({trr::linear_smem_bytes(), trr::hidden_smem_bytes(),
+                           trr::rows_smem_bytes(C)});
 }
 
 // x (B, H, W, C); wq (C, 3C), bq (3C), scale (nh) already exponentiated, wp
@@ -787,21 +650,24 @@ int trr_pn_mlp_fwd(const float* x, const float* w1, const float* b1, const float
   return (int)cudaGetLastError();
 }
 
-// The MLP half's backward, per token: hg, dh (T, hidden), dm, dx (T, C),
-// ln_part (ceil(T / 64), 2C).
+// The MLP half's backward (#14): x, dout (B, H, W, C) and the forward's
+// operands -> dx; for the wrapper's weight gradients and sums hg, dh (T,
+// hidden), dm (T, C), ln_part (ceil(T / 128), 2C). Scratch: m (T, C). C is
+// at most 256 and a multiple of 4, hidden a multiple of 4.
 int trr_pn_mlp_bwd(const float* x, const float* dout, const float* w1, const float* b1,
-                   const float* w2, const float* b2, const float* w1t, const float* w2t,
-                   const float* g, const float* s, float* hg, float* dm, float* dh, float* dx,
-                   float* ln_part, int B, int H, int W, int C, int hidden, float eps,
-                   cudaStream_t stream) {
-  const int floats = trr::pn_mlp_bwd_smem_floats(C, hidden);
-  const cudaError_t err = trr::set_smem(trr::pn_mlp_bwd_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  trr::pn_mlp_bwd_kernel<<<trr::token_blocks(tokens), trr::kThreads, floats * sizeof(float),
-                           stream>>>(x, dout, w1, b1, w2, b2, w1t, w2t, g, s, hg, dm, dh, dx,
-                                     ln_part, tokens, (long long)H * W, C, hidden, eps);
-  return (int)cudaGetLastError();
+                   const float* w2, const float* b2, const float* g, const float* s, float* hg,
+                   float* m, float* dm, float* dh, float* dx, float* ln_part, int B, int H, int W,
+                   int C, int hidden, float eps, cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
+  TRR_TRY(trr::linear(x, w1, b1, hg, tokens, C, hidden, stream, true));
+  TRR_TRY(trr::linear(hg, w2, b2, m, tokens, hidden, C, stream));
+  trr::postnorm_ln_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(m, dout, g, s, dm, ln_part,
+                                                                      tokens, hw, C, eps);
+  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::mlp_hidden(x, dm, w1, b1, w2, nullptr, dh, tokens, C, hidden, stream));
+  return (int)trr::rows<trr::kRowsResidual>(dh, w1, tokens, hidden, C, nullptr, nullptr, nullptr,
+                                             dout, nullptr, hw, dx, nullptr, nullptr, stream);
 }
 
 }  // extern "C"

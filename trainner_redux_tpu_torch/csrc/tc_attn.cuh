@@ -1,17 +1,19 @@
 // The window-attention backwards' products on the tensor cores: mma.sync
 // m16n8k8 tf32 in 3xTF32 (tc_gemm.cuh) on the operands a thread block holds
-// in shared memory for one (window, head). Shared by #6's
-// attn_rows_bwd_tc_kernel (attn_block_staged.cu) and #12's
-// cos_attn_bwd_tc_kernel (fused_block_v2.cu).
+// in shared memory for one (window, head). Shared by
+// attn_rows_bwd_tc_kernel below (#6's recompute backward, in
+// attn_block_staged.cu, and #8's window MHSA backward, in
+// window_attention.cu) and #12's cos_attn_bwd_tc_kernel (fused_block_v2.cu).
 //
 // A block takes the N keys of a window and its query rows in blocks of RB,
-// 16 a row tile, two warps a row tile. In S = q k^T and dP = dA v^T warp w
-// takes row tile w / 2 and half w % 2 of the keys, the scores staying in
-// its accumulator fragments; the two halves of a row exchange their row
-// sums through shared memory. P, then dS, of the row block lies in a shared
-// (RB, N + 4) tile: att = P v and dQ = dS k read it as A, warp w taking
-// (row tile w / 2, channel half w % 2); dV += P^T dA and dK += dS^T q read
-// it transposed, warp w taking the (key tile, channel half) units w, w +
+// 16 a row tile, KS warps a row tile. In S = q k^T and dP = dA v^T warp w
+// takes row tile w / KS and part w % KS of the keys (N / KS of them), the
+// scores staying in its accumulator fragments; the KS parts of a row
+// exchange their row max and sums through shared memory and add them in
+// part order. P, then dS, of the row block lies in a shared (RB, N + 4)
+// tile: att = P v and dQ = dS k read it as A, warp w taking (row tile w /
+// KS, channels 32 / KS * (w % KS)..); dV += P^T dA and dK += dS^T q read it
+// transposed, warp w taking the (key tile, channel half) units w, w +
 // warps, ..., whose sums a kernel carries across its row blocks. Rows of q,
 // k, v and dA are padded with zeros to 32 channels, kHeadLd floats apart
 // (36: the row fragments' loads hit 32 banks).
@@ -23,46 +25,53 @@ namespace trr {
 
 constexpr int kHeadLd = 36;
 
-__host__ __device__ constexpr int attn_tc_threads(int RB) { return 32 * (RB / 8); }
+__host__ __device__ constexpr int attn_tc_threads(int RB, int KS = 2) {
+  return 32 * KS * (RB / 16);
+}
 
-template <int N, int RB>
+template <int N, int RB, int KS = 2>
 struct AttnWarps {
-  static constexpr int NTH = attn_tc_threads(RB), NW = NTH / 32;
-  static constexpr int LD = kHeadLd, LP = N + 4, HALF = N / 2, NT = HALF / 8, UNITS = N / RB;
-  static_assert(RB % 16 == 0 && N % RB == 0 && HALF % 8 == 0, "the tiles must split evenly");
+  static constexpr int NTH = attn_tc_threads(RB, KS), NW = NTH / 32;
+  static constexpr int LD = kHeadLd, LP = N + 4, PART = N / KS, NT = PART / 8;
+  static constexpr int CW = 32 / KS, CT = CW / 8;  // output channels of a warp, in tiles of 8
+  static constexpr int UNITS = 2 * (N / 16) / NW;
+  static_assert(RB % 16 == 0 && N % RB == 0 && PART % 8 == 0 && CW % 8 == 0,
+                "the tiles must split evenly");
   static_assert(2 * (N / 16) == UNITS * NW, "dK and dV units must share out evenly");
 
-  int warp, g, q4, row0, half, col0;
+  int warp, g, q4, row0, part, col0;
 
   __device__ AttnWarps()
       : warp(threadIdx.x / 32),
         g(threadIdx.x % 32 / 4),
         q4(threadIdx.x % 4),
-        row0(16 * (warp / 2)),
-        half(warp % 2),
-        col0(half * HALF) {}
+        row0(16 * (warp / KS)),
+        part(warp % KS),
+        col0(part * PART) {}
 
   // Element (i, two columns from s_col(j)) of this warp's S / dP fragments:
   // p[j][2 i + c] is (row s_row(i), column s_col(j) + c) of the row block.
   __device__ int s_row(int i) const { return row0 + g + 8 * i; }
   __device__ int s_col(int j) const { return col0 + 8 * j + 2 * q4; }
-  // Element e of tile j of this warp's (row tile, channel half) output.
+  // Element e of tile j of this warp's (row tile, CW channels) output.
   __device__ int o_row(int e) const { return row0 + g + 8 * (e / 2); }
-  __device__ int o_chan(int j, int e) const { return 16 * half + 8 * j + 2 * q4 + e % 2; }
+  __device__ int o_chan(int j, int e) const { return CW * part + 8 * j + 2 * q4 + e % 2; }
   // Element e of tile j of this warp's dV / dK unit u.
   __device__ int u_key(int u, int e) const { return 16 * ((warp + NW * u) / 2) + g + 8 * (e / 2); }
   __device__ int u_chan(int u, int j, int e) const {
     return 16 * ((warp + NW * u) % 2) + 8 * j + 2 * q4 + e % 2;
   }
 
-  // o = Y X^T for this warp's rows and half of the keys, over the 32
+  // o = Y X^T for this warp's rows and part of the keys, over the 32
   // channels: Y the (RB, LD) rows (q or dA), X the (N, LD) rows (k or v).
+  // With four parts (16 warps, 128 registers a thread) the channel steps
+  // stay a loop: unrolled, ptxas spilled at n 256.
   __device__ void rows_by_channels(const float* Y, const float* X, float (&o)[NT][4]) const {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-#pragma unroll
+#pragma unroll(KS == 4 ? 1 : 4)
     for (int k0 = 0; k0 < 32; k0 += 8) {
       MmaA a;
       mma_load_a<false>(a, Y + row0 * LD + k0, LD);
@@ -71,11 +80,11 @@ struct AttnWarps {
     }
   }
 
-  // o = pt X for this warp's (row tile, channel half) over the N keys: pt
+  // o = pt X for this warp's (row tile, CW channels) over the N keys: pt
   // the (RB, LP) P / dS tile, X the (N, LD) rows (v or k).
-  __device__ void rows_by_keys(const float* pt, const float* X, float (&o)[2][4]) const {
+  __device__ void rows_by_keys(const float* pt, const float* X, float (&o)[CT][4]) const {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < CT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 #pragma unroll 1
@@ -83,7 +92,7 @@ struct AttnWarps {
       MmaA a;
       mma_load_a<false>(a, pt + row0 * LP + k0, LP);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) mma3<false>(o[j], a, X + k0 * LD + 16 * half + 8 * j, LD);
+      for (int j = 0; j < CT; ++j) mma3<false>(o[j], a, X + k0 * LD + CW * part + 8 * j, LD);
     }
   }
 
@@ -103,9 +112,9 @@ struct AttnWarps {
     }
   }
 
-  // v[i] (row s_row(i), this thread's part) becomes the row's max (is_max)
-  // or sum over both halves, the halves combined in order through buf (2 *
-  // RB floats). Holds a block barrier.
+  // v[i] (row s_row(i), this thread's share) becomes the row's max (is_max)
+  // or sum over all KS parts of the keys, the parts combined in order
+  // through buf (KS * RB floats). Holds a block barrier.
   __device__ void row_total(float* buf, float (&v)[2], bool is_max) const {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -114,13 +123,18 @@ struct AttnWarps {
         const float w = __shfl_xor_sync(0xffffffffu, v[i], o);
         v[i] = is_max ? fmaxf(v[i], w) : v[i] + w;
       }
-      if (q4 == 0) buf[half * RB + s_row(i)] = v[i];
+      if (q4 == 0) buf[part * RB + s_row(i)] = v[i];
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float a = buf[s_row(i)], c = buf[RB + s_row(i)];
-      v[i] = is_max ? fmaxf(a, c) : a + c;
+      float a = buf[s_row(i)];
+#pragma unroll
+      for (int k = 1; k < KS; ++k) {
+        const float c = buf[k * RB + s_row(i)];
+        a = is_max ? fmaxf(a, c) : a + c;
+      }
+      v[i] = a;
     }
   }
 
@@ -171,6 +185,219 @@ __device__ __forceinline__ void store_head_rows(const float* src, int hd, Row ro
     const int e = threadIdx.x + i * NTH, d = e % 32;
     if (d < hd) row(e / 32)[d] = src[(e / 32) * kHeadLd + d];
   }
+}
+
+// Index (into the B*H*W tokens) of token r, row-major, of the wr x wc window
+// (wi, wj) of sample b on the map rolled by (-shift, -shift).
+__device__ __forceinline__ long long roll_token(int b, int wi, int wj, int r, int H, int W,
+                                                int wr, int wc, int shift) {
+  int y = wi * wr + r / wc + shift, x = wj * wc + r % wc + shift;
+  if (y >= H) y -= H;
+  if (x >= W) x -= W;
+  return ((long long)b * H + y) * W + x;
+}
+
+// Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT>, in floats: k
+// and v (N, 36), this row block's q and dA (RB, 36), the P / dS rows (RB, N
+// + 4), three (KS, RB) exchanges of the key parts' row max, row sum and
+// rowsum(P dP), its att (ATT) and dq rows (RB, 36) on their way out, and the
+// window's N token indices.
+__host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, int KS, bool ATT) {
+  return 2 * N * kHeadLd + (ATT ? 4 : 3) * RB * kHeadLd + RB * (N + 4) + 3 * KS * RB + N;
+}
+
+// One block per (wr x wc window of the map rolled by (-shift, -shift),
+// head), N = wr * wc; the query rows in blocks of RB, KS warps a 16-row
+// tile. From qkv (T, 3C), the kind table (kinds, nh, N, N) and datt (T, C),
+// in x's frame: writes this head's dq | dk | dv into dqkv (T, 3C), with ATT
+// its attention output P v into att (T, C) (#6's dwp needs it), and dS into
+// a buffer (B, H/wr, W/wc, nh, N, N) for the bias-kind reduction. Five
+// products a row block (six with ATT) on mma.sync in 3xTF32, as AttnWarps
+// lays them out: S = q k^T and the row softmax in the fragments (the row
+// block's bias rows staged in the shared tile first), P to the tile, [att =
+// P v,] dV += P^T dA, dP = dA v^T, dS = P (dP - rowsum(P dP)) in place of P,
+// dQ = scale dS k, dK += dS^T q; dK and dV in registers across the row
+// blocks, scaled at the end. The window's token indices are computed once,
+// into shared memory, and every output goes out through shared memory a
+// head row (hd floats) at a time: stores from the fragments would write 4
+// bytes to each of 8 rows. The heads are the grid's fastest index: a
+// window's heads run together, so each token's 3C row is read once and
+// written whole while it stays in L2. Plans (N, RB, KS): (256, 64, 4) with
+// 16 warps and one block a SM; (144, 48, 2), (128, 32, 4) and (64, 64, 2)
+// with two blocks a SM.
+template <int N, int RB, int KS, bool ATT>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                            const float* __restrict__ datt, float* __restrict__ dqkv,
+                            float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
+                            int nh, int wr, int wc, int kinds, int shift, float scale) {
+  using AW = AttnWarps<N, RB, KS>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, CT = AW::CT;
+  constexpr int UNITS = AW::UNITS, X = KS * RB;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / wc, nwh = H / wr;
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const AW aw;
+  float* ks = smem;              // (N, LD) k, zero past hd
+  float* vs = ks + N * LD;       // (N, LD) v
+  float* qs = vs + N * LD;       // (RB, LD) this row block's q
+  float* das = qs + RB * LD;     // (RB, LD) its datt
+  float* pt = das + RB * LD;     // (RB, LP): P, then dS
+  float* red = pt + RB * LP;     // (3, KS, RB): each part's row max, row sum, rowsum(P dP)
+  float* oq = red + 3 * X;       // (RB, LD) this row block's dq
+  float* oa = oq + RB * LD;      // (RB, LD) its att (ATT only)
+  int* tok = reinterpret_cast<int*>(oa + (ATT ? RB * LD : 0));  // (N) the window's tokens
+  for (int r = threadIdx.x; r < N; r += NTH)
+    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, shift);
+  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
+  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  __syncthreads();
+  stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
+  stage_head_rows<N, NTH>(vs, hd,
+                          [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+  float dk[UNITS][2][4], dv[UNITS][2][4];
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[u][j][e] = dv[u][j][e] = 0.f;
+
+  for (int r0 = 0; r0 < N; r0 += RB) {
+    const int* rt = tok + r0;  // this row block's tokens
+    stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_head_rows<RB, NTH>(das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
+    stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
+    __syncthreads();  // q, dA and the bias rows (and, the first time, k and v) staged
+    {  // S = q k^T * scale + bias, the row softmax in the fragments, P to the tile
+      float p[NT][4];
+      aw.rows_by_channels(qs, ks, p);
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 bb = *aw.at(pt, i, j);
+          p[j][2 * i] = p[j][2 * i] * scale + bb.x;
+          p[j][2 * i + 1] = p[j][2 * i + 1] * scale + bb.y;
+          m[i] = fmaxf(m[i], fmaxf(p[j][2 * i], p[j][2 * i + 1]));
+        }
+      aw.row_total(red, m, true);
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[j][e] = expf(p[j][e] - m[e / 2]);
+          sum[e / 2] += p[j][e];
+        }
+      aw.row_total(red + X, sum, false);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float inv = 1.f / sum[i];
+          *aw.at(pt, i, j) = make_float2(p[j][2 * i] * inv, p[j][2 * i + 1] * inv);
+        }
+    }
+    __syncthreads();  // P is whole
+    if constexpr (ATT) {  // att = P v (the forward's output, for dwp)
+      float o[CT][4];
+      aw.rows_by_keys(pt, vs, o);
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
+    }
+    aw.keys_by_rows(pt, das, dv);  // dV += P^T dA
+    {  // dP = dA v^T, then dS = P (dP - rowsum(P dP)) in place of P, read back
+      float dp[NT][4];
+      aw.rows_by_channels(das, vs, dp);
+      float delta[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 pv = *aw.at(pt, i, j);
+          delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
+          delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
+        }
+      aw.row_total(red + 2 * X, delta, false);  // its barrier: every warp is done reading P
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 pv = *aw.at(pt, i, j);
+          const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
+                                       pv.y * (dp[j][2 * i + 1] - delta[i]));
+          *aw.at(pt, i, j) = v;
+          *reinterpret_cast<float2*>(dS + head + (size_t)(r0 + aw.s_row(i)) * N + aw.s_col(j)) =
+              v;
+        }
+    }
+    __syncthreads();  // dS is whole
+    {  // dQ = scale dS k
+      float o[CT][4];
+      aw.rows_by_keys(pt, ks, o);
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = scale * o[j][e];
+    }
+    aw.keys_by_rows(pt, qs, dk);  // dK += dS^T q (scaled once, at the end)
+    __syncthreads();  // q, dA and the tile are rewritten by the next row block; dq (att) whole
+    if constexpr (ATT)
+      store_head_rows<RB, NTH>(oa, hd, [&](int r) { return att + (long long)rt[r] * C + h * hd; });
+    store_head_rows<RB, NTH>(oq, hd, [&](int r) { return dqkv + (long long)rt[r] * C3 + h * hd; });
+  }
+  // dK and dV to the rooms of k and v, then out
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = aw.u_key(u, e) * LD + aw.u_chan(u, j, e);
+        ks[i] = scale * dk[u][j][e];
+        vs[i] = dv[u][j][e];
+      }
+  __syncthreads();
+  store_head_rows<N, NTH>(ks, hd,
+                          [&](int r) { return dqkv + (long long)tok[r] * C3 + C + h * hd; });
+  store_head_rows<N, NTH>(vs, hd,
+                          [&](int r) { return dqkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+}
+
+// The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
+// takes it: four key parts a row tile at n 256 (rows of 64, 16 warps: a
+// thread's S fragments stay at 32 floats) and n 128 (rows of 32, 8 warps;
+// rows of 64 in two parts spilled at 128 registers), two parts at n 144
+// (rows of 48) and 64 (rows of 64); {0, 0} for another n.
+struct AttnPlan {
+  int rb, ks;
+};
+__host__ __device__ constexpr AttnPlan attn_plan(int n) {
+  return n == 256   ? AttnPlan{64, 4}
+         : n == 144 ? AttnPlan{48, 2}
+         : n == 128 ? AttnPlan{32, 4}
+         : n == 64  ? AttnPlan{64, 2}
+                    : AttnPlan{0, 0};
+}
+
+template <int N, bool ATT>
+cudaError_t attn_rows_bwd_tc(const float* qkv, const float* bias, const float* datt, float* dqkv,
+                             float* att, float* dS, int B, int H, int W, int C, int nh, int wr,
+                             int wc, int kinds, int shift, float scale, cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT);
+  const cudaError_t err = set_smem(attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nh, (H / wr) * (W / wc), B);
+  attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT>
+      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace trr

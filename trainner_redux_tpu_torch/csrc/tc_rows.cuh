@@ -19,6 +19,7 @@
 namespace trr {
 
 constexpr int kColTile = 128;       // columns of a y W block tile
+constexpr int kHidTile = kColTile;  // hidden units of a mlp_hidden_kernel tile
 constexpr int kRowLd = kTcK + 4;    // row stride of a [row][k] chunk (conflict-free A loads)
 // What rows_kernel does with the rows of its product dy = A W^T.
 constexpr int kRowsStore = 0;       // out = dy
@@ -44,6 +45,14 @@ __host__ __device__ inline int rows_smem_bytes(int C) {
 __host__ __device__ inline int linear_smem_bytes() {
   return split_floats(kColTile) * (int)sizeof(float) +
          Ring<>::bytes(token_stage_floats(kColTile));
+}
+
+// mlp_hidden_kernel keeps gelu'(h) of its tile in shared memory between
+// its two products, [element][thread].
+constexpr int kGeluFloats = kHidTile / 2 * kThreads;
+__host__ __device__ inline int hidden_smem_bytes() {
+  return (kGeluFloats + split_floats(kHidTile)) * (int)sizeof(float) +
+         Ring<>::bytes(token_stage_floats(kHidTile));
 }
 
 // y = LN(x) (T, C) with g and be, two-pass mean and variance as the forward;
@@ -151,11 +160,12 @@ __device__ __forceinline__ void xw_product(float (&acc)[BN / 2], Ring<>& ring, f
 }
 
 // Per 128 tokens t0.. and 128 columns n0..: out (T, N) = A (T, K) W (K, N)
-// + b, W as it lies (N-major); a ragged last column tile is masked.
+// + b, or its gelu_erf (gelu), W as it lies (N-major); a ragged last column
+// tile is masked.
 __global__ void __launch_bounds__(kThreads, 1)
     linear_kernel(const float* __restrict__ A, const float* __restrict__ W,
                   const float* __restrict__ b, float* __restrict__ out, long long T, int K,
-                  int N) {
+                  int N, bool gelu) {
   constexpr int BN = kColTile;
   extern __shared__ __align__(16) float smem[];
   float* split = smem;
@@ -172,8 +182,64 @@ __global__ void __launch_bounds__(kThreads, 1)
     const long long t = t0 + acc_row(i);
     if (c < N && t < T) {
       const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
-      *reinterpret_cast<float2*>(out + t * N + c) = make_float2(acc[i] + bb.x, acc[i + 1] + bb.y);
+      float2 y = make_float2(acc[i] + bb.x, acc[i + 1] + bb.y);
+      if (gelu) y = make_float2(gelu_erf(y.x), gelu_erf(y.y));
+      *reinterpret_cast<float2*>(out + t * N + c) = y;
     }
+  }
+}
+
+// Per 128 tokens t0.. and 128 hidden units n0..: h = y w1 + b1, hg =
+// gelu(h) (unless hg is null); dh = (dm w2^T) gelu'(h). y, dm (T, C); w1
+// (C, hidden) read N-major (transposed as it is split), w2 (hidden, C)
+// K-major; hg, dh (T, hidden). gelu'(h) waits in shared memory while the
+// second product runs.
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_hidden_kernel(const float* __restrict__ y, const float* __restrict__ dm,
+                      const float* __restrict__ w1, const float* __restrict__ b1,
+                      const float* __restrict__ w2, float* __restrict__ hg,
+                      float* __restrict__ dh, long long T, int C, int hidden) {
+  constexpr int BN = kHidTile;
+  extern __shared__ __align__(16) float smem[];
+  float* gp = smem;  // gelu'(h), element e of thread i at gp[e * kThreads + i]
+  float* split = gp + kGeluFloats;
+  Ring<> ring;
+  ring.init(split + split_floats(BN), token_stage_floats(BN));
+  const long long t0 = (long long)blockIdx.x * kTcRows;
+  const int n0 = blockIdx.y * kHidTile;
+  const int nk = (C + kTcK - 1) / kTcK;
+  float acc[BN / 2];
+  AFrag<> af[2];
+  xw_product<BN>(acc, ring, split, af, y, t0, T, w1, n0, hidden, C, 0);
+  // h = acc + b1: gelu(h) to hg, gelu'(h) to gp
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int c = n0 + acc_col(i);
+    const long long t = t0 + acc_row(i);
+    if (c < hidden) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c));
+      const float h0 = acc[i] + bb.x, h1 = acc[i + 1] + bb.y;
+      if (hg != nullptr && t < T)
+        *reinterpret_cast<float2*>(hg + t * hidden + c) = make_float2(gelu_erf(h0), gelu_erf(h1));
+      gp[i * kThreads + threadIdx.x] = gelu_erf_grad(h0);
+      gp[(i + 1) * kThreads + threadIdx.x] = gelu_erf_grad(h1);
+    }
+    acc[i] = 0.f;
+    acc[i + 1] = 0.f;
+  }
+  ring.run(
+      nk,
+      [&](int j, float* st) { load_wg_stage<BN, true>(st, dm, t0, T, w2, n0, hidden, C, j); },
+      [&](int j, const float* st) { use_wg_stage<BN, true>(acc, st, split, nk + j, af); });
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int c = n0 + acc_col(i);
+    const long long t = t0 + acc_row(i);
+    if (c < hidden && t < T)
+      *reinterpret_cast<float2*>(dh + t * hidden + c) =
+          make_float2(acc[i] * gp[i * kThreads + threadIdx.x],
+                      acc[i + 1] * gp[(i + 1) * kThreads + threadIdx.x]);
   }
 }
 
@@ -322,15 +388,27 @@ inline cudaError_t ln_rows(const float* x, const float* g, const float* be, floa
   return cudaGetLastError();
 }
 
-// out (T, N) = A (T, K) W (K, N) + b on linear_kernel.
+// out (T, N) = A (T, K) W (K, N) + b on linear_kernel, or its gelu_erf.
 inline cudaError_t linear(const float* A, const float* W, const float* b, float* out, long long T,
-                          int K, int N, cudaStream_t stream) {
+                          int K, int N, cudaStream_t stream, bool gelu = false) {
   const int smem = linear_smem_bytes();
   const cudaError_t err =
       cudaFuncSetAttribute(linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (N + kColTile - 1) / kColTile);
-  linear_kernel<<<grid, kThreads, smem, stream>>>(A, W, b, out, T, K, N);
+  linear_kernel<<<grid, kThreads, smem, stream>>>(A, W, b, out, T, K, N, gelu);
+  return cudaGetLastError();
+}
+
+inline cudaError_t mlp_hidden(const float* y, const float* dm, const float* w1, const float* b1,
+                              const float* w2, float* hg, float* dh, long long T, int C,
+                              int hidden, cudaStream_t stream) {
+  const int smem = hidden_smem_bytes();
+  const cudaError_t err =
+      cudaFuncSetAttribute(mlp_hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (hidden + kHidTile - 1) / kHidTile);
+  mlp_hidden_kernel<<<grid, kThreads, smem, stream>>>(y, dm, w1, b1, w2, hg, dh, T, C, hidden);
   return cudaGetLastError();
 }
 

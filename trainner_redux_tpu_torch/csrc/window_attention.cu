@@ -30,18 +30,28 @@
 //     one block where the whole 256 x 256 tile (256 KB) does not. The row
 //     softmax is taken in registers and the rows go through shared memory
 //     to the P v product; 138 KB of shared memory at N 256 and head_dim 30.
-//   - window_mhsa_bwd_kernel<N> (N 64, 128, 256): one block per (window,
-//     head), query rows in blocks of 64: recompute P, then dV += P^T dO,
-//     dP = dO v^T, dS = P (dP - rowsum(P dP)), dQ = scale dS k (written per
-//     row block) and dK += scale dS^T q. dK and dV of the window sum over
-//     every row block, so they stay in registers across the blocks (each
-//     thread owns 4 keys x N/32 channels of both). dS of each (window, head)
-//     goes to a buffer shaped as the windows' P, and dbias_kernel
-//     (common.cuh) adds it over the windows of each kind in window order:
-//     no atomics, two runs are bit-identical.
+//   - the backward is tc_attn.cuh's attn_rows_bwd_tc_kernel, #6's window
+//     attention without its att output: one block per (window, head), the
+//     heads fastest in the grid, query rows in blocks of 64: recompute P,
+//     then dV += P^T dO, dP = dO v^T, dS = P (dP - rowsum(P dP)), dQ =
+//     scale dS k (written per row block) and dK += scale dS^T q, five
+//     products a row block on mma.sync in 3xTF32 (bound: 3 x its 15 GFLOP
+//     at HAT-M's block on the tensor cores). dK and dV of the
+//     window sum over every row block, so they stay in registers across the
+//     blocks. At n 256 four warps share a 16-row tile, each over a quarter
+//     of the keys, so a thread holds 32 floats of S or dP and 32 of dK and
+//     dV: 16 warps, 172,032 B and one block a SM. At n 128 four warps
+//     share a tile of a 32-row block, at n 64 two warps one of a 64-row
+//     block, two blocks a SM. q, k, v and dO arrive a head row at a
+//     time through shared memory, the bias rows with 16-byte loads, and dq,
+//     dk, dv leave the same way. dS of each (window, head) goes to a buffer
+//     shaped as the windows' P, and dbias_kernel (common.cuh) adds it over
+//     the windows of each kind in window order: no atomics, two runs are
+//     bit-identical.
 // The kernels take no shift: the caller rolls qkv and the output, as the
-// JAX package's contract has it. Every product runs on the fp32 FMA units.
-#include "common.cuh"
+// JAX package's contract has it. The forwards' products run on the fp32
+// FMA units.
+#include "tc_attn.cuh"
 
 namespace trr {
 
@@ -73,13 +83,6 @@ __host__ __device__ inline int window_mhsa_smem_floats(int C, int nh) {
 // transposed, k (hd, N) transposed, v (N, 32), the P rows (64, N + 4).
 __host__ __device__ inline int window_mhsa_rows_smem_floats(int N, int hd) {
   return hd * kTLd + hd * N + N * kVLd + kTile * (N + 4);
-}
-
-// Shared memory of the backward: k (hd, N) transposed and (N, 32) row-major,
-// v (hd, N) transposed, this row block's q and dO each (hd, 64) transposed
-// and (64, 32) row-major, the P / dS rows (64, N + 4).
-__host__ __device__ inline int window_mhsa_bwd_smem_floats(int N, int hd) {
-  return 2 * hd * N + N * kVLd + 2 * hd * kTLd + 2 * kTile * kVLd + kTile * (N + 4);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -247,180 +250,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// One block per (wr x wc window, head), N = wr * wc (64, 128 or 256); the
-// query rows in blocks of 64. dqkv (B, H, W, 3C) gets every token's dq | dk |
-// dv of this head; dS (B, H/wr, W/wc, nh, N, N) the window's dS for the
-// bias-kind reduction.
-template <int N>
-__global__ void __launch_bounds__(kThreads, 1)
-    window_mhsa_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                           const float* __restrict__ dout, float* __restrict__ dqkv,
-                           float* __restrict__ dS, int H, int W, int C, int nh, int kinds,
-                           int wr, int wc, float scale) {
-  constexpr int kLd = N + 4;          // row stride of the P / dS tile
-  constexpr int kKL = 1024 / N;       // key-side lanes: threads sharing 4 keys
-  constexpr int kKC = kVLd / kKL;     // channels of dK and dV per thread
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / wc, nwh = H / wr;
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  const int kg = threadIdx.x / kKL, kl = threadIdx.x % kKL;  // keys kg*4.., channels kl*kKC..
-  float* kT = smem;                  // (hd, N)
-  float* k = kT + hd * N;            // (N, 32)
-  float* vT = k + N * kVLd;          // (hd, N)
-  float* qT = vT + hd * N;           // (hd, 64) this row block's q
-  float* doT = qT + hd * kTLd;       // (hd, 64) this row block's dO
-  float* q = doT + hd * kTLd;        // (64, 32)
-  float* dO = q + kTile * kVLd;      // (64, 32)
-  float* T = dO + kTile * kVLd;      // (64, N + 4): P, then dS
-  auto token = [&](int r) { return win_token(b, wi, wj, r, H, W, wr, wc); };
-  const int kind = window_kind(kinds, wi, wj, nwh, nww);
-  const float* table = bias + ((size_t)kind * nh + h) * N * N;
-  const size_t head = (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
-
-  for (int e = threadIdx.x; e < N * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const float* src = qkv + token(r) * C3 + h * hd + d;
-    const float kv = __ldg(src + C);
-    kT[d * N + r] = kv;
-    k[r * kVLd + d] = kv;
-    vT[d * N + r] = __ldg(src + 2 * C);
-  }
-  float dk[4][kKC], dv[4][kKC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < kKC; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int r0 = 0; r0 < N; r0 += kTile) {
-    for (int e = threadIdx.x; e < kTile * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const long long t = token(r0 + r);
-      const float qv = __ldg(qkv + t * C3 + h * hd + d);
-      const float gv = __ldg(dout + t * C + h * hd + d);
-      qT[d * kTLd + r] = qv;
-      q[r * kVLd + d] = qv;
-      doT[d * kTLd + r] = gv;
-      dO[r * kVLd + d] = gv;
-    }
-    __syncthreads();  // q and dO (and, the first time, k and v) staged
-    {
-      float p[4][N / 16];
-      softmax_rows<N>(qT, kT, hd, scale, table + (size_t)r0 * N, p);
-      store_rows<N>(p, T);
-    }
-    __syncthreads();
-    // dV[j][d] += sum_r P[r][j] dO[r][d]
-    for (int r = 0; r < kTile; ++r) {
-      const float4 pv = ld4(T + r * kLd + kg * 4);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int e = 0; e < kKC; ++e) {
-        const float g = dO[r * kVLd + kl * kKC + e];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i][e] = fmaf(pa[i], g, dv[i][e]);
-      }
-    }
-    __syncthreads();  // every thread is done reading P across the rows
-    {
-      // dP = dO v^T at this thread's (row, column) places of P, then
-      // dS = P (dP - rowsum(P dP)) in place of P, and to dS
-      constexpr int JJ = N / 64;
-      float dp[4][N / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < N / 16; ++j) dp[i][j] = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        const float4 a = ld4(doT + d * kTLd + rg * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int jj = 0; jj < JJ; ++jj) {
-          const float4 bv4 = ld4(vT + d * N + jj * 64 + cl * 4);
-          const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              dp[i][jj * 4 + e] = fmaf(av[i], bv[e], dp[i][jj * 4 + e]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* trow = T + (rg * 4 + i) * kLd + cl * 4;
-        float delta = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < JJ; ++jj) {
-          const float4 pv = ld4(trow + jj * 64);
-          delta += pv.x * dp[i][jj * 4] + pv.y * dp[i][jj * 4 + 1] + pv.z * dp[i][jj * 4 + 2] +
-                   pv.w * dp[i][jj * 4 + 3];
-        }
-        delta = half_warp_sum(delta);
-        float* grow = dS + head + (size_t)(r0 + rg * 4 + i) * N + cl * 4;
-#pragma unroll
-        for (int jj = 0; jj < JJ; ++jj) {
-          const float4 pv = ld4(trow + jj * 64);
-          const float4 s = make_float4(pv.x * (dp[i][jj * 4] - delta),
-                                       pv.y * (dp[i][jj * 4 + 1] - delta),
-                                       pv.z * (dp[i][jj * 4 + 2] - delta),
-                                       pv.w * (dp[i][jj * 4 + 3] - delta));
-          *reinterpret_cast<float4*>(trow + jj * 64) = s;
-          *reinterpret_cast<float4*>(grow + jj * 64) = s;
-        }
-      }
-    }
-    __syncthreads();
-    {  // dQ[r][d] = scale sum_j dS[r][j] k[j][d]
-      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-      const float* srow = T + rg * 4 * kLd;
-#pragma unroll 4
-      for (int j = 0; j < N; ++j) {
-        const float2 kv = *reinterpret_cast<const float2*>(k + j * kVLd + cl * 2);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = srow[i * kLd + j];
-          acc[i][0] = fmaf(a, kv.x, acc[i][0]);
-          acc[i][1] = fmaf(a, kv.y, acc[i][1]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int d = cl * 2 + jj;
-        if (d < hd) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dqkv[token(r0 + rg * 4 + i) * C3 + h * hd + d] = scale * acc[i][jj];
-        }
-      }
-    }
-    // dK[j][d] += sum_r dS[r][j] q[r][d] (scaled once, at the end)
-    for (int r = 0; r < kTile; ++r) {
-      const float4 sv = ld4(T + r * kLd + kg * 4);
-      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-      for (int e = 0; e < kKC; ++e) {
-        const float qv = q[r * kVLd + kl * kKC + e];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dk[i][e] = fmaf(sa[i], qv, dk[i][e]);
-      }
-    }
-    __syncthreads();  // q, dO and the tile are rewritten by the next row block
-  }
-#pragma unroll
-  for (int e = 0; e < kKC; ++e) {
-    const int d = kl * kKC + e;
-    if (d < hd) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long t = token(kg * 4 + i);
-        dqkv[t * C3 + C + h * hd + d] = scale * dk[i][e];
-        dqkv[t * C3 + 2 * C + h * hd + d] = dv[i][e];
-      }
-    }
-  }
-}
-
 }  // namespace trr
 
 extern "C" {
@@ -432,7 +261,9 @@ size_t trr_rect_mhsa_smem_bytes(int C, int nh, int wr, int wc) {
 }
 
 size_t trr_rect_mhsa_bwd_smem_bytes(int C, int nh, int wr, int wc) {
-  return (size_t)trr::window_mhsa_bwd_smem_floats(wr * wc, C / nh) * sizeof(float);
+  const int n = wr * wc;
+  const trr::AttnPlan plan = trr::attn_plan(n);
+  return (size_t)trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false) * sizeof(float);
 }
 
 size_t trr_window_mhsa_smem_bytes(int C, int nh, int ws) {
@@ -490,32 +321,20 @@ int trr_window_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, 
 int trr_rect_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
                       float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
                       int wr, int wc, float scale, cudaStream_t stream) {
-  const size_t smem = trr_rect_mhsa_bwd_smem_bytes(C, nh, wr, wc);
-  const dim3 grid((H / wr) * (W / wc), B, nh);
   const int n = wr * wc;
   cudaError_t err;
   if (n == 64) {
-    err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    trr::window_mhsa_bwd_kernel<64><<<grid, trr::kThreads, smem, stream>>>(
-        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, wr, wc, scale);
+    err = trr::attn_rows_bwd_tc<64, false>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C, nh, wr,
+                                           wc, kinds, 0, scale, stream);
   } else if (n == 128) {
-    err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<128>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    trr::window_mhsa_bwd_kernel<128><<<grid, trr::kThreads, smem, stream>>>(
-        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, wr, wc, scale);
+    err = trr::attn_rows_bwd_tc<128, false>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C, nh,
+                                            wr, wc, kinds, 0, scale, stream);
   } else if (n == 256) {
-    err = cudaFuncSetAttribute(trr::window_mhsa_bwd_kernel<256>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    trr::window_mhsa_bwd_kernel<256><<<grid, trr::kThreads, smem, stream>>>(
-        qkv, bias, dout, dqkv, dS, H, W, C, nh, kinds, wr, wc, scale);
+    err = trr::attn_rows_bwd_tc<256, false>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C, nh,
+                                            wr, wc, kinds, 0, scale, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);
 }

@@ -306,7 +306,7 @@ class RealESRGANModel(SRModel):
         if (self.sequence_controller is not None
                 and self._seq_rng.uniform() < self.opt.sequence_probability):
             plan = self.sequence_controller.plan()
-        with torch.no_grad(), fp32_math():
+        with torch.no_grad(), fp32_math(self.opt.fast_matmul):
             gt, lq = self._degrade(gt, k1, k2, sinc, skip_compression=bool(plan))
             if plan:
                 lq = self._apply_plan(lq, plan)

@@ -6,7 +6,10 @@ Port of the JAX package's models/sr_model.py.
   seeded init, pretrained weights), `load_network` for the three checkpoint
   formats, `test` (reflect-pad to a multiple of 16, one forward, crop) and
   `nondist_validation` (per image: save PNG, PSNR/SSIM).
-- Training (the `train.py` path), in fp32 with TF32 off: pair losses, the
+- Training (the `train.py` path), in fp32 with TF32 off (`fast_matmul`
+  lets cuBLAS and cuDNN use TF32; `deterministic` runs the step on torch's
+  deterministic algorithms; `detect_anomaly` under autograd's anomaly
+  detection, so a NaN in the backward raises): pair losses, the
   torch optimizer with optax's semantics and a step -> lr schedule,
   `accum_iter` micro-batches with averaged gradients, the logged global
   gradient norm, optional clipping, EMA with the warm-up power decay and
@@ -27,7 +30,8 @@ from __future__ import annotations
 
 import copy
 import math
-from contextlib import contextmanager
+import os
+from contextlib import ExitStack, contextmanager
 from os import path as osp
 from typing import Any
 
@@ -60,16 +64,52 @@ _LEGACY_LOSSES = {
 
 
 @contextmanager
-def fp32_math():
+def fp32_math(fast: bool = False):
     """Full fp32 matmuls and convolutions (TF32 off), as the JAX package's
-    fp32 twin computes."""
+    fp32 twin computes; with `fast` (the `fast_matmul` option, JAX's
+    "fastest" matmul precision) cuBLAS and cuDNN may take TF32. Either way
+    the hand-written kernels compute as they always do: the switch reaches
+    only cuBLAS and cuDNN."""
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = fast
+    torch.backends.cudnn.allow_tf32 = fast
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+@contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms (an op that has none raises), cuDNN's
+    deterministic convolutions and no cuDNN benchmark; restored after. The
+    hand-written kernels need no switch: they use no atomics."""
+    cudnn = torch.backends.cudnn
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
+           cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        cudnn.deterministic, cudnn.benchmark = old[2], old[3]
+
+
+@contextmanager
+def step_math(opt: ReduxOptions):
+    """What a training step runs under, as the options ask: `fp32_math` (TF32
+    with `fast_matmul`), `deterministic_algorithms` with `deterministic`,
+    and with `detect_anomaly` autograd's anomaly detection, so that a NaN
+    in the backward raises, as `jax_debug_nans` makes the JAX step raise."""
+    with ExitStack() as stack:
+        stack.enter_context(fp32_math(opt.fast_matmul))
+        if opt.deterministic:
+            stack.enter_context(deterministic_algorithms())
+        if opt.detect_anomaly:
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        yield
 
 
 def _nchw_float(x: torch.Tensor) -> torch.Tensor:
@@ -165,6 +205,9 @@ class SRModel(BaseModel):
                 f"bf16 training (compute_dtype: bfloat16 / use_amp) {_NOT_PORTED}; "
                 "set compute_dtype: float32"
             )
+        if opt.deterministic:
+            # cuBLAS is deterministic only with this workspace, set before its first use
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         refused = {
             "steps_per_dispatch > 1": (opt.steps_per_dispatch or 1) > 1,
             "remat": bool(opt.remat),
@@ -216,7 +259,7 @@ class SRModel(BaseModel):
         params = list(self.net_g.parameters())
         self.optimizer_g.zero_grad(set_to_none=True)
         logs: dict[str, torch.Tensor] = {}
-        with fp32_math():
+        with step_math(self.opt):
             for lq_mb, gt_mb in zip(lq.chunk(accum), gt.chunk(accum)):
                 total, mb_logs = self._generator_losses(self.net_g(lq_mb), gt_mb)
                 total.backward()
@@ -290,7 +333,7 @@ class SRModel(BaseModel):
             if net is None:
                 continue
             try:
-                with fp32_math():
+                with fp32_math(self.opt.fast_matmul):
                     recalibrate_bn(net, batches())
             except ValueError as e:
                 self.logger.warning(f"{e}; the BatchNorm statistics are unchanged")
@@ -322,7 +365,7 @@ class SRModel(BaseModel):
         was_training = net.training
         net.eval()
         try:
-            with torch.inference_mode(), fp32_math():
+            with torch.inference_mode(), fp32_math(self.opt.fast_matmul):
                 out = net(x)
         finally:
             net.train(was_training)

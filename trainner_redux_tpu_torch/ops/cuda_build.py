@@ -77,7 +77,7 @@ SIGNATURES = {
         "trr_cos_attn_fwd": ([_P] * 11 + [_I] * 7 + [_F, _P], _I),
         "trr_cos_attn_bwd": ([_P] * 20 + [_I] * 7 + [_F, _P], _I),
         "trr_pn_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
-        "trr_pn_mlp_bwd": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
+        "trr_pn_mlp_bwd": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
         "trr_cos_attn_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_pn_mlp_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_cos_attn_rows_smem_bytes": ([_I], ctypes.c_size_t),

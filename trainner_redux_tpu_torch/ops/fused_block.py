@@ -52,6 +52,7 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     V_LD,
     WINDOW,
     _check_cuda,
+    attn_bwd_tc_smem_bytes,
     fused_window_mhsa_reference,
     window_kinds,
 )
@@ -70,9 +71,6 @@ SWIN_BLOCK_MAX_C = 192
 # window -> query rows of a thread block of the staged attention kernels
 # (csrc/attn_block_staged.cu): #1 at 12x12, #6 and #10 at 12x12 and 8x8
 STAGED_ROWS = {12: 48, 8: 64}
-# the tensor-core window-attention backward of #6: rows of q, k, v and dA
-# padded to 32 channels, HEAD_LD floats apart
-HEAD_LD = 36
 
 
 def attn_block_smem_bytes(channels: int, num_heads: int) -> int:
@@ -97,13 +95,9 @@ def attn_staged_fwd_smem_bytes(channels: int, num_heads: int, window_size: int) 
 
 
 def attn_rows_bwd_tc_smem_bytes(window_size: int) -> int:
-    """Shared memory of #6's tensor-core window-attention stage: k and v of
-    the window's n tokens and q and dA of a row block, rows padded to 32
-    channels HEAD_LD apart, the (rows, n + 4) P / dS tile, three (2, rows)
-    exchanges of the two key halves' row sums, the row block's att and dq
-    rows on their way out, and the n token indices."""
-    n, rb = window_size**2, STAGED_ROWS[window_size]
-    return 4 * (2 * n * HEAD_LD + 4 * rb * HEAD_LD + rb * (n + 4) + 6 * rb + n)
+    """Shared memory of #6's tensor-core window-attention stage
+    (`attn_bwd_tc_smem_bytes` with its att rows)."""
+    return attn_bwd_tc_smem_bytes(window_size**2, att=True)
 
 
 def attn_staged_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:

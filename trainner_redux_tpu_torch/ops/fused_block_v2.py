@@ -38,7 +38,6 @@ import torch
 import torch.nn.functional as F
 
 from trainner_redux_tpu_torch.ops.fused_block import (
-    HEAD_LD,
     STAGE_FLOATS,
     TC_ROWS,
     _check_aligned,
@@ -55,10 +54,12 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     _to_windows,
     _weight_grad,
     linear_smem_bytes,
+    mlp_hidden_smem_bytes,
     rows_smem_bytes,
     tc_rows_fit,
 )
 from trainner_redux_tpu_torch.ops.window_attention import (
+    HEAD_LD,
     SMEM_LIMIT,
     TILE,
     TILE_LD,
@@ -104,8 +105,11 @@ def cos_attn_bwd_smem_bytes() -> int:
 
 
 def pn_mlp_bwd_smem_bytes(channels: int, hidden: int) -> int:
-    """The MLP half's backward."""
-    return 4 * (2 * channels * TILE_LD + hidden * TILE_LD + STAGE_FLOATS + 3 * TILE)
+    """The largest shared memory of the MLP half's backward kernels, all on
+    the tensor-core engine: hg and m at 128-column tiles (linear_kernel),
+    h and dh per 128 hidden units (mlp_hidden_kernel), dx over a row of
+    `channels` (rows_kernel). None depends on `hidden`."""
+    return max(linear_smem_bytes(), mlp_hidden_smem_bytes(), rows_smem_bytes(channels))
 
 
 def cos_attn_fits(h, w, window_size, channels, num_heads, train=False) -> bool:
@@ -129,6 +133,10 @@ def pn_mlp_fits(h, window_size, channels, hidden, train=False) -> bool:
         return False
     plans = [pn_mlp_fwd_smem_bytes(channels, hidden)]
     if train:
+        # the backward runs on the engine: rows of at most 256 channels,
+        # rows of C and of hidden in 16-byte pieces
+        if not tc_rows_fit(channels) or hidden % 4:
+            return False
         plans.append(pn_mlp_bwd_smem_bytes(channels, hidden))
     return max(plans) <= SMEM_LIMIT
 
@@ -376,27 +384,28 @@ def _pn_mlp_forward(x, w1, b1, w2, b2, g, be, s, window_size, eps):
 def fused_postnorm_mlp_backward(x, w1, b1, w2, b2, g, be, s, dout, window_size, eps=1e-5):
     """The MLP half's backward (TPU kernel #14): (dx, dw1, db1, dw2, db2, dg,
     dbe), as `fused_postnorm_mlp_bwd_reference` returns them. On a CUDA
-    tensor it launches the per-token kernel of `csrc/fused_block_v2.cu` and
-    the weight-gradient kernels of `csrc/fused_block_train.cu` (one counted
-    call); on a CPU tensor it runs the plain version."""
+    tensor it launches the backward's stages of `csrc/fused_block_v2.cu`
+    (every product on the tensor cores, fc1 and fc2 recomputed from x), then
+    the weight-gradient and row-sum kernels of `csrc/fused_block_train.cu`
+    (one counted call); on a CPU tensor it runs the plain version."""
     if x.device.type == "cpu":
         return fused_postnorm_mlp_bwd_reference(x, w1, b1, w2, b2, g, be, s, dout, window_size,
                                                 eps)
-    _mlp_operands(x, w1, b1, w2, b2, g, be, s, window_size, True, "fused_postnorm_mlp_backward")
+    name = "fused_postnorm_mlp_backward"
+    _mlp_operands(x, w1, b1, w2, b2, g, be, s, window_size, True, name)
     _check_cuda("dout", dout, tuple(x.shape), x.device)
+    _check_aligned(name, x=x, dout=dout, w1=w1, b1=b1, w2=w2, b2=b2, g=g)
     b, hh, ww, c = x.shape
     hidden, dev, T = w1.shape[1], x.device, b * hh * ww
 
     def new(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    hg, dh, dm = new(T, hidden), new(T, hidden), new(T, c)
-    dx, ln_part = torch.empty_like(x), new(math.ceil(T / TILE), 2 * c)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    hg, dh, m, dm = new(T, hidden), new(T, hidden), new(T, c), new(T, c)
+    dx, ln_part = torch.empty_like(x), new(math.ceil(T / TC_ROWS), 2 * c)
     fused_postnorm_mlp_backward.launches += 1
     _launch(LIB, "trr_pn_mlp_bwd", dev,
-            *(t.data_ptr() for t in (x, dout, w1, b1, w2, b2, w1t, w2t, g, s, hg, dm, dh, dx,
-                                     ln_part)),
+            *(t.data_ptr() for t in (x, dout, w1, b1, w2, b2, g, s, hg, m, dm, dh, dx, ln_part)),
             b, hh, ww, c, hidden, eps)
     dw2, db2 = _weight_grad(hg, dm)
     dw1, db1 = _weight_grad(x.view(T, c), dh)

@@ -23,8 +23,9 @@ forward, #8 backward), each counted on its own:
 
 Heads of at most 32 channels, fp32. Both are torch.autograd.Functions: on a
 CUDA tensor the forward launches the forward kernel and the backward the
-backward kernel, which recomputes the softmax from qkv and the bias and
-returns dqkv and dbias; on a CPU tensor both directions run their plain
+backward kernel (`csrc/tc_attn.cuh`'s tensor-core window attention, shared
+with #6), which recomputes the softmax from qkv and the bias and returns
+dqkv and dbias; on a CPU tensor both directions run their plain
 versions (`fused_rect_mhsa_reference`, `fused_rect_mhsa_bwd_reference`, and
 their square forms). Any other device, or a tensor the kernels do not take,
 raises.
@@ -48,6 +49,12 @@ RECT_TOKENS = (128, 256)  # n of the row-block kernels, besides the 8x8 window
 TILE = 64
 TILE_LD = 68
 V_LD = 32
+# the tensor-core window-attention backward (csrc/tc_attn.cuh, #8 and #6):
+# rows of q, k, v and dA padded to 32 channels, HEAD_LD floats apart; window
+# tokens n -> (query rows of a thread block, warps sharing a 16-row tile,
+# each over its part of the keys)
+HEAD_LD = 36
+TC_ATTN_PLANS = {256: (64, 4), 144: (48, 2), 128: (32, 4), 64: (64, 2)}
 
 
 def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
@@ -59,10 +66,22 @@ def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int
     return 4 * (hd * TILE_LD + hd * n + n * V_LD + TILE * (n + 4))
 
 
+def attn_bwd_tc_smem_bytes(n: int, att: bool) -> int:
+    """Shared memory of the tensor-core window-attention backward
+    (csrc/tc_attn.cuh) at windows of n tokens: k and v of the window and q
+    and dA of a row block, rows HEAD_LD apart, the (rows, n + 4) P / dS
+    tile, three (parts, rows) exchanges of the key parts' row sums, the row
+    block's dq rows (and, with `att`, #6's att rows) on their way out, and
+    the n token indices."""
+    rb, ks = TC_ATTN_PLANS[n]
+    return 4 * (2 * n * HEAD_LD + (4 if att else 3) * rb * HEAD_LD + rb * (n + 4) + 3 * ks * rb
+                + n)
+
+
 def rect_mhsa_bwd_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
-    """Shared memory of the backward kernel (csrc/window_attention.cu)."""
-    hd, n = channels // num_heads, wr * wc
-    return 4 * (2 * hd * n + n * V_LD + 2 * hd * TILE_LD + 2 * TILE * V_LD + TILE * (n + 4))
+    """Shared memory of the backward kernel (#8: the tensor-core window
+    attention without an att output; any head dim up to 32)."""
+    return attn_bwd_tc_smem_bytes(wr * wc, att=False)
 
 
 def window_mhsa_smem_bytes(channels: int, num_heads: int, window_size: int = WINDOW) -> int:
@@ -324,9 +343,10 @@ def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc):
 
 def fused_window_mhsa_backward(qkv, bias, dout, num_heads, head_dim, window_size):
     """(dqkv, dbias) of `fused_window_mhsa` for the output gradient dout
-    (TPU kernel #8). On a CUDA tensor it launches the backward kernel and the
-    bias-kind reduction of `csrc/window_attention.cu` (one counted call); on
-    a CPU tensor it runs the plain version."""
+    (TPU kernel #8). On a CUDA tensor it launches the backward kernel (five
+    products on the tensor cores in 3xTF32) and the bias-kind reduction of
+    `csrc/window_attention.cu` (one counted call); on a CPU tensor it runs
+    the plain version."""
     if qkv.device.type == "cpu":
         return fused_window_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window_size)
     return _mhsa_bwd_cuda(fused_window_mhsa_backward, qkv, bias, dout, num_heads, head_dim,

@@ -46,6 +46,23 @@ def load_resume_state(opt: ReduxOptions) -> str | None:
     return opt.path.resume_state
 
 
+def torch_only_notes(opt: ReduxOptions) -> list[str]:
+    """One NOTE line for each torch knob of the config that the port does
+    not act on, as the JAX entry prints them (the conditions are its own)."""
+    notes = []
+    if opt.use_compile or opt.compile_mode:
+        notes.append("NOTE: use_compile/compile_mode are torch.compile knobs; the port runs "
+                     "eagerly, its hot paths on hand-written CUDA kernels, and compiles nothing.")
+    if opt.use_channels_last:
+        notes.append("NOTE: use_channels_last is a torch memory-format knob; the port keeps "
+                     "the JAX package's layouts (NHWC tokens, NCHW convolutions) and does not "
+                     "act on it.")
+    if opt.find_unused_parameters:
+        notes.append("NOTE: find_unused_parameters is a DDP knob; the port trains on one card "
+                     "without DDP and does not act on it.")
+    return notes
+
+
 def create_train_val_dataloaders(opt: ReduxOptions, logger):
     """(train_loader, val_loaders, total_iters)."""
     from trainner_redux_tpu_torch.data import (
@@ -115,6 +132,8 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
     if opt.logger and (opt.logger.use_tb_logger or opt.logger.wandb):
         logger.warning("tensorboard and wandb logging are not ported to torch yet; "
                        "training logs to the console and the log file only")
+    for note in torch_only_notes(opt):
+        print(note, flush=True)
 
     train_loader, val_loaders, total_iters = create_train_val_dataloaders(opt, logger)
     model = build_model(opt, device=device)
