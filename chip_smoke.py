@@ -16,7 +16,10 @@ failure:
              SwinIR-M shapes (B=1, 128x128 LR, C=180, 6 heads, ws 8), as the
              path calls them: K=1 unshifted and K=4 with the shift of 4 that
              fused_attn_block indexes itself; kernel, plain and library
-             times and the card's bound.
+             times and the card's bound; at K=4 #1's and #2's device time
+             by stage (their tensor-core stages, csrc/block_fwd.cuh) and
+             their times against the fp32 and the 3xTF32 bounds; #1 and #2
+             and their plain versions against float64.
 4. path    - `trainner_redux_tpu_torch.test.run` on a seeded SwinIR-M 4x
              (.pth) and 4 seeded images (three 128x128 LR, one 100x120),
              counting kernel launches; then the same through the unfused
@@ -24,14 +27,17 @@ failure:
 5. branches - one 128x128 image through the fused, unfused and plain
              (TRAINNER_FUSED_ATTN=0) branches, each timed; the outputs
              must agree.
-6. profile - device time by kernel of the fused-branch forward.
+6. profile - device time by kernel of the fused-branch forward; a launch
+             of a RETIRED forward kernel fails it (as in every profile).
 7. train kernels - the training block's forward (#4: out, P, att, z) and
              saved-P backward (#5: dx and 13 parameter gradients) against
              their plain versions at the SwinIR-M training block (B=8, 64x64
              LR, DropPath scales holding 0 and 1/0.9), K=1 unshifted and K=4
-             shifted by 4; times and the card's bound; #5's device time by
-             stage (torch.profiler) and its time against the fp32 and the
-             3xTF32 bounds, with the share of each.
+             shifted by 4; times and the card's bound; #4's and #5's device
+             time by stage (torch.profiler) and their times against the fp32
+             and the 3xTF32 bounds, with the share of each; #5 also from #4's
+             own P, att and z against the plain backward from the plain
+             forward's; #4 at the OTF path's block (B=8, 32x32) timed.
 8. train   - `trainner_redux_tpu_torch.train.run` on SwinIR-M 4x at full
              width and depth: 16 seeded 512x512 HR images, batch 8 of 64x64
              LR crops, L1, AdamW 2e-4, EMA 0.999, fp32, 30 steps and a
@@ -130,9 +136,9 @@ failure:
              1/0.9): #1 on its staged kernels and its recompute backward #6,
              K=1 and K=4 shifted by 6; #2 and #7; each
              against its plain version, #6 and #7 bit-identical over two
-             runs; times and the card's bound; #6's (K=1) and #7's device
-             time by stage and their times against both bounds; #1 and #2
-             also at B=1, 144x144 (a 128x128 image, served).
+             runs; times and the card's bound; #6's (K=1), #2's and #7's
+             device time by stage and their times against both bounds; #1
+             and #2 also at B=1, 144x144 (a 128x128 image, served).
 31. srformerv2 path - `test.run` on a seeded SRFormerV2 4x and the 4
              images, counting 18 #1 and 18 #2 launches an image; one 128x128
              forward timed through the kernel branch and the plain branch
@@ -160,9 +166,9 @@ failure:
              for bit; the block against the same block through
              `fused_attn_block` (#1/#6) and, at 8x8, `fused_swin_block_train`
              (#4/#5); times of #9, #10, #1 and #6 and of the two blocks, the
-             card's bound, and each block's peak memory; at each block's
-             last K, #10's device time by stage against both bounds, and at
-             8x8 #6's.
+             card's bound, and each block's peak memory; #10 also from #9's
+             own P and att; at each block's last K, #10's device time by
+             stage against both bounds, and at 8x8 #6's and #9's.
 36. deterministic - one training step of each of SwinIR-M, HAT-M, DAT,
              Swin2SR-M and SRFormerV2 (their train phases' crops and losses)
              with `deterministic: true`, twice from one seed and batch: no op
@@ -177,6 +183,7 @@ Scratch files go to `chiprun_out/chip_smoke/` under the repo.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -205,6 +212,11 @@ GRAD_TOL = 1e-4  # of each gradient tensor's largest magnitude
 PATH_TOL = 1e-3  # [0, 1] outputs of 36 blocks, kernel vs plain branches
 BRANCH_LOSS_TOL = 1e-4  # relative, one training loss, kernel vs plain branch
 BRANCH_GRAD_TOL = 1e-3  # of each gradient tensor's largest, after 36 blocks back
+# a ReLU / LeakyReLU input element that the branches put on two sides of the
+# kink lies within this share of its tensor's largest |value| in both (the
+# elements seen lay within 2.64e-7), and a network has at most KINK_MAX
+KINK_TOL = 1e-6
+KINK_MAX = 4
 # #15's outputs are spatial values in [-128, 127]; the JAX kernel test's tolerance
 JPEG_TOL = 1e-3
 N_IMAGES = 4
@@ -447,16 +459,20 @@ def nbytes(*ts) -> int:
 
 
 def stage_of(kernel: str) -> str:
-    """The stage of a staged training backward that a kernel (by its
-    profiler name) runs: #5 and #7 (csrc/fused_block_train.cu), #6 and #10
-    (csrc/attn_block_staged.cu), #8 (csrc/window_attention.cu), #12 and #14
-    (csrc/fused_block_v2.cu); their per-token kernels are csrc/tc_rows.cuh's,
-    the window attention of #6 and #8 csrc/tc_attn.cuh's. rows_kernel's
-    epilogue mode is its second template argument: 0 stores A W^T (datt), 1
-    adds a residual (#12's and #14's dx), 2 takes the LayerNorm backward."""
+    """The stage of a staged kernel that a kernel (by its profiler name)
+    runs: the training backwards #5 and #7 (csrc/fused_block_train.cu), #6
+    and #10 (csrc/attn_block_staged.cu), #8 (csrc/window_attention.cu), #12
+    and #14 (csrc/fused_block_v2.cu), and the pre-LN block forwards #1 and #9
+    at 8x8, #2 and #4 (csrc/block_fwd.cuh); their per-token kernels are
+    csrc/tc_rows.cuh's, the window attention of #6, #8 and the forwards
+    csrc/tc_attn.cuh's. rows_kernel's epilogue mode is its second template
+    argument: 0 stores A W^T (datt), 1 adds a residual (#12's and #14's dx),
+    2 takes the LayerNorm backward. linear_kernel's is its third: 0 and 1
+    are x W + b and its gelu, 2 the forwards' proj and fc2 with the
+    residual, x + s (A W + b)."""
     for part, stage in (("postnorm_ln_rows_kernel", "post-norm LN backward"),
                         ("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
-                        ("linear_kernel", "x W + b"),
+                        ("attn_rows_fwd_tc_kernel", "window attention forward"),
                         ("cos_attn_rows_kernel", "window attention forward"),
                         ("block_bwd_attn_kernel", "window attention"),
                         ("attn_rows_bwd_tc_kernel", "window attention"),
@@ -466,6 +482,9 @@ def stage_of(kernel: str) -> str:
                         ("dbias", "bias table")):
         if part in kernel:
             return stage
+    if "linear_kernel<" in kernel:
+        mode = kernel.split("linear_kernel<", 1)[1].split(">", 1)[0].split(",")[2].strip()
+        return "x + s (A W + b)" if mode == "2" else "x W + b"
     if "rows_kernel<" in kernel:
         mode = kernel.split("rows_kernel<", 1)[1].split(">", 1)[0].split(",")[-1].strip()
         return {"0": "datt", "1": "dx = dout + A W^T"}.get(mode, "dy and the LN backward")
@@ -492,31 +511,48 @@ STAGES_8 = {"window attention": 1, "bias table": 1}  # HAT-M's ws 16
 STAGES_8_RECT = {"window attention": 1, "bias table": 2}  # DAT's 8x32, 3 heads
 STAGES_14 = {"x W + b": 2, "post-norm LN backward": 1, "fc1 and dh": 1, "dx = dout + A W^T": 1,
              "weight gradients": 2, "partial sums": 3}
+# the pre-LN forwards (csrc/block_fwd.cuh): #1 and #9 at 8x8 (LN1, qkv, the
+# window attention, proj + residual), #2 (LN2, fc1 + gelu, fc2 + residual)
+# and #4 (both halves)
+STAGES_1 = {"LN rows": 1, "x W + b": 1, "window attention forward": 1, "x + s (A W + b)": 1}
+STAGES_2 = {"LN rows": 1, "x W + b": 1, "x + s (A W + b)": 1}
+STAGES_4 = {"LN rows": 2, "x W + b": 2, "window attention forward": 1, "x + s (A W + b)": 2}
+# the FMA forward kernels that the tensor-core stages replaced: a profiled
+# forward or training step that launches one fails
+RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel")
+SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2}
 
 
 def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
                 per_call: dict[str, int], calls: int = 3) -> None:
-    """Device time by stage of one call of a staged training backward (#5,
-    #6, #7, #8, #10, #12 or #14), and the call's time `ms` against both bounds: fp32
+    """Device time by stage of one call of a staged kernel (the training
+    backwards #5, #6, #7, #8, #10, #12 and #14; the forwards #1 and #9 at
+    8x8, #2 and #4), and the call's time `ms` against both bounds: fp32
     on the FMA units (67 TFLOP/s) and 3xTF32 on the tensor cores (3 x
     operations at 495 TFLOP/s). A stage's time is
     its launches' mean device time (torch.profiler over `calls` calls; the
     table goes to chip_smoke/stages.txt) times its `per_call` launches: the
-    profiler may keep only some of a session's launches."""
+    profiler may keep only some of a session's launches, and of a short
+    session none (then it profiles again, four times the calls, twice at
+    most)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     seen: dict[str, list] = {}
-    for e in device_events(prof):
-        rec = seen.setdefault(stage_of(e.key), [0.0, 0])
-        rec[0] += e.self_device_time_total / 1e3
-        rec[1] += e.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in device_events(prof):
+            rec = seen.setdefault(stage_of(e.key), [0.0, 0])
+            rec[0] += e.self_device_time_total / 1e3
+            rec[1] += e.count
+        if seen:
+            break
+        calls *= 4
     stages = {st: (t / n * per_call.get(st, 0), n) for st, (t, n) in seen.items() if n}
     total = sum(t for t, _ in stages.values())
     OUT.mkdir(parents=True, exist_ok=True)
@@ -566,6 +602,30 @@ def block_inputs(gen, kinds: int, device, shape=(B, H, W), widths=(C, NH, WS, HI
     qkv = randn(b, h, w, 3 * c)
     p["g2"], p["be2"] = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
     return x, p, bias, qkv
+
+
+def block_half_f64(name: str, x, p: dict, bias, shift: int):
+    """#1's (fused_attn_block, 8x8 windows) or #2's (fused_ln_mlp) function
+    in float64 on the inputs of `block_inputs`: the yardstick of the
+    kernel's and of the plain version's accuracy."""
+    import torch
+    import torch.nn.functional as F
+
+    from trainner_redux_tpu_torch.ops.window_attention import fused_window_mhsa_reference
+
+    d = {k: v.double() for k, v in p.items()}
+    b, h, w, c = x.shape
+    s = d["s"].repeat_interleave(h * w)[:, None]
+    xr = torch.roll(x.double(), (-shift, -shift), (1, 2))
+    t = xr.reshape(-1, c)
+    y = F.layer_norm(t, (c,), d["g"], d["be"], 1e-5)
+    if name == "fused_ln_mlp":
+        out = t + s * (F.gelu(y @ d["w1"] + d["b1"]) @ d["w2"] + d["b2"])
+    else:
+        qkv = (y @ d["wq"] + d["bq"]).reshape(b, h, w, 3 * c)
+        att = fused_window_mhsa_reference(qkv, bias.double(), NH, HD, WS)
+        out = t + s * (att.reshape(-1, c) @ d["wp"] + d["bp"])
+    return torch.roll(out.reshape(x.shape), (shift, shift), (1, 2))
 
 
 def phase_kernels() -> dict:
@@ -642,10 +702,18 @@ def phase_kernels() -> dict:
                 f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB)")
             if not ok:
                 fail(f"{name} K={kinds} disagrees with its plain version: {err:.3g}")
+            if name in SERVING_STAGES:  # both against float64, on the tensor-core stages
+                exact = block_half_f64(name, x, p, bias, shift if name == "fused_attn_block" else 0)
+                say(f"[kernels] {name} K={kinds} against float64: kernel "
+                    f"{(got.double() - exact).abs().max().item():.3g}, plain "
+                    f"{(want.double() - exact).abs().max().item():.3g} of "
+                    f"{exact.abs().max().item():.3g}")
             rec = res.setdefault(name, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # the times reported in the JSON line are the shifted (K=4) calls'
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+            if kinds == 4 and name in SERVING_STAGES:
+                stage_split("kernels", f"{name} K=4", kern, flops, nb, ms, SERVING_STAGES[name])
     return res
 
 
@@ -866,6 +934,14 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
+def check_retired(tag: str, events) -> None:
+    """Fail if a profile launched one of the RETIRED forward kernels."""
+    for e in events:
+        if any(k in e.key for k in RETIRED):
+            fail(f"[{tag}] {e.key[:90]} was launched: the pre-LN block forwards run on the "
+                 "tensor-core stages")
+
+
 def phase_profile(seed: int) -> None:
     """Device time by kernel over two fused-branch forwards of one 128x128
     image (torch.profiler, CUPTI); the table goes to chip_smoke/profile.txt."""
@@ -885,6 +961,7 @@ def phase_profile(seed: int) -> None:
                 net(x)
             torch.cuda.synchronize()
     events = device_events(prof)
+    check_retired("profile", events)
     total = sum(e.self_device_time_total for e in events)
     if total == 0:
         say("[profile] the profiler recorded no device time")
@@ -972,8 +1049,18 @@ def phase_train_kernels() -> dict:
             fail(f"fused_swin_block_train_backward K={kinds}: {e}")
         names = ("dx", "dg1", "dbe1", "dwq", "dbq", "dwp", "dbp", "dbias", "dg2", "dbe2", "dw1",
                  "db1", "dw2", "db2")
+        plain_grads = bwd_plain()
         bwd_err, worst = check_grads("fused_swin_block_train_backward", f"K={kinds}", grads,
-                                     bwd_plain(), names)
+                                     plain_grads, names)
+        # #5 as the path runs it: from the kernel forward's P, att and z, held
+        # against the plain backward from the plain forward's
+        _, chained = check_grads("fused_swin_block_train_backward",
+                                 f"K={kinds} from the kernel's P, att, z",
+                                 fb.fused_swin_block_train_backward(*saved, s1, s2, *got[1:], dout,
+                                                                    kinds, *meta),
+                                 plain_grads, names)
+        say(f"[train kernels] fused_swin_block_train_backward K={kinds} from the kernel "
+            f"forward's P, att, z: within {chained:.3g} of each gradient's max")
         fwd_bytes = nbytes(*ops, s1, s2, *got)
         bwd_bytes = nbytes(*saved, s1, s2, *want[1:], dout, *grads)
         cases = {
@@ -992,8 +1079,26 @@ def phase_train_kernels() -> dict:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # the times reported in the JSON line are the shifted (K=4) calls'
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+        stage_split("train kernels", f"fused_swin_block_train K={kinds}", fwd, fwd_flops,
+                    fwd_bytes, res["fused_swin_block_train"]["ms"], STAGES_4)
         stage_split("train kernels", f"fused_swin_block_train_backward K={kinds}", bwd,
                     bwd_flops, bwd_bytes, res["fused_swin_block_train_backward"]["ms"], STAGES_5)
+
+    # #4 at the OTF path's block: 8 LR crops of 32x32, 8,192 tokens (64 token
+    # tiles on 132 SMs)
+    x, p, bias, _ = block_inputs(gen, 4, dev, shape=(TB, OTF_GT // 4, OTF_GT // 4))
+    ops = [x if k == "x" else bias if k == "bias" else p[k] for k in TRAIN_OPS]
+    meta = (NH, HD, WS, 1e-5, WS // 2)
+    got = fb._swin_block_train_fwd_cuda(*ops, s1, s2, *meta)
+    want = fb.fused_swin_block_train_reference(*ops, s1, s2, *meta)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not err <= KERNEL_TOL:
+        fail(f"fused_swin_block_train at B=8, 32x32 disagrees with its plain version: {err:.3g}")
+    flops = train_flops(TB * (OTF_GT // 4) ** 2)[0]
+    bms, by = bound(flops, nbytes(*ops, s1, s2, *got))
+    ms = time_ms(lambda: fb._swin_block_train_fwd_cuda(*ops, s1, s2, *meta), iters=10, warmup=2)
+    say(f"[train kernels] fused_swin_block_train at B=8, 32x32 (OTF) K=4: max_abs_err {err:.3g} "
+        f"kernel {ms:.4f} ms bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP)")
     return res
 
 
@@ -1117,10 +1222,19 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
                    expect: dict[str, int], tag: str, lq: int = TH,
                    zero_grad: tuple[str, ...] = ()) -> None:
     """One forward and backward of `network` in train mode (DropPath on, from
-    equal generators) on batch 8 of lq x lq LR through the kernel branch
-    (`kernel_env`) and the plain branch (TRAINNER_FUSED_ATTN=0); the kernel
+    equal generators) on batch 8 of lq x lq LR through the plain branch
+    (TRAINNER_FUSED_ATTN=0) and the kernel branch (`kernel_env`); the kernel
     branch launches `expect`. Parameters named in `zero_grad` (a true
-    gradient of 0) are held against their block's largest gradient."""
+    gradient of 0) are held against their block's largest gradient.
+
+    A ReLU's or LeakyReLU's gradient jumps at 0, so an input element that
+    lies within rounding of 0 can take the two sides in the two branches
+    and move every gradient behind it by far more than the kernels' error
+    (one such element of SRFormerV2's upsampler, 3.9e-8 from the kink,
+    moved a bias table's gradient by 1.5e-3 of its largest). The kernel
+    branch takes the plain branch's side at each such element: each must
+    lie within KINK_TOL of its tensor's largest |value| in both branches,
+    and there may be at most KINK_MAX of them; their count is printed."""
     import copy
 
     import torch
@@ -1135,10 +1249,36 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
     x = torch.rand(TB, 3, lq, lq, generator=gen).cuda()
     gt = torch.rand(TB, 3, 4 * lq, 4 * lq, generator=gen).cuda()
     losses, grads, counts = {}, {}, {}
-    for branch, env in (("kernel", kernel_env), ("plain", {"TRAINNER_FUSED_ATTN": "0"})):
+    plain_inputs: dict[int, list] = {}  # kink module -> its plain-branch inputs, in call order
+    pinned = [0, 0.0]  # elements that take the plain branch's side, the largest share of max
+
+    def record(i, mod, inp):
+        plain_inputs.setdefault(i, []).append(inp[0].detach())
+
+    def pin(i, mod, inp, out):
+        x, xp = inp[0], plain_inputs[i].pop(0)
+        side = xp > 0
+        moved = side != (x > 0)
+        if bool(moved.any()):
+            share = max((x.detach()[moved].abs().max() / x.detach().abs().max()).item(),
+                        (xp[moved].abs().max() / xp.abs().max()).item())
+            if not share <= KINK_TOL:
+                fail(f"{label}: a {type(mod).__name__} input differs in sign between the "
+                     f"branches at {share:.3g} of its largest |value| (tol {KINK_TOL})")
+            pinned[0] += int(moved.sum())
+            pinned[1] = max(pinned[1], share)
+        slope = mod.negative_slope if isinstance(mod, torch.nn.LeakyReLU) else 0.0
+        return torch.where(side, x, x * slope)
+
+    for branch, env in (("plain", {"TRAINNER_FUSED_ATTN": "0"}), ("kernel", kernel_env)):
         m = nets[branch]
         if hasattr(m, "set_dropout_generator"):  # SRFormerV2 has no DropPath
             m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
+        kinks = [mod for mod in m.modules()
+                 if isinstance(mod, (torch.nn.ReLU, torch.nn.LeakyReLU))]
+        hooks = [mod.register_forward_pre_hook(functools.partial(record, i))
+                 if branch == "plain" else mod.register_forward_hook(functools.partial(pin, i))
+                 for i, mod in enumerate(kinks)]
         with fused_env(env), fp32_math():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1148,6 +1288,8 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts[branch] = read_counts()
+        for h in hooks:
+            h.remove()
         losses[branch] = loss.item()
         # a parameter the step does not reach (DAT's BatchNorm statistics in
         # train mode) has a zero gradient, as SRModel hands it to AdamW
@@ -1155,6 +1297,9 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
                          for k, p in m.named_parameters()}
         say(f"[{tag}] {label} {branch} {env or ''}: loss {losses[branch]:.6f}, forward and "
             f"backward {secs * 1e3:.1f} ms (first call), launches {counts[branch]}")
+    if pinned[0] > KINK_MAX:
+        fail(f"{label}: {pinned[0]} ReLU / LeakyReLU input elements differ in sign between the "
+             f"branches (at most {KINK_MAX})")
     check_counts(f"{label} kernel branch", counts["kernel"], expect)
     check_counts(f"{label} plain branch", counts["plain"], {})
     rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
@@ -1181,7 +1326,10 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
             fail(f"{label}: gradient of {k} differs by {err:.3g} between the branches "
                  f"(ref {ref:.3g})")
     say(f"[{tag}] {label}: loss rel diff {rel:.3g} (tol {BRANCH_LOSS_TOL}); largest gradient "
-        f"diff {worst[0]:.3g} of its tensor's max, at {worst[1]} (tol {BRANCH_GRAD_TOL})")
+        f"diff {worst[0]:.3g} of its tensor's max, at {worst[1]} (tol {BRANCH_GRAD_TOL}); "
+        f"{pinned[0]} ReLU / LeakyReLU input elements on the other side of the kink in the "
+        f"kernel branch (at most {KINK_MAX}), within {pinned[1]:.3g} of their tensor's max "
+        f"(tol {KINK_TOL}), took the plain branch's side")
 
 
 def phase_train_branches(seed: int) -> None:
@@ -1224,6 +1372,7 @@ def phase_train_profile(seed: int, network: str = "swinir_m", tag: str = "train 
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = device_events(prof)
+    check_retired(tag, events)
     total = sum(e.self_device_time_total for e in events)
     if total == 0:
         say(f"[{tag}] the profiler recorded no device time")
@@ -2078,6 +2227,7 @@ def phase_otf_profile(seed: int, hr_dir: Path) -> None:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         events = device_events(prof)
+        check_retired("otf profile", events)
         parts[part] = (sum(e.self_device_time_total for e in events) / 1e3, wall * 1e3, events,
                        prof)
     if parts["degrade"][0] == 0:
@@ -2193,6 +2343,8 @@ def phase_srformerv2_kernels() -> dict:
                           f", largest error {worst:.3g} of its tensor's max |g|, two runs "
                           "bit-identical")
             if bname == "fused_ln_mlp_backward_c240":
+                stage_split("srformerv2 kernels", name, fwd, flops[name],
+                            nbytes(*operands, s, got), res[name]["ms"], STAGES_2)
                 stage_split("srformerv2 kernels", bname, bwd, flops[bname],
                             nbytes(*operands, s, dout, *grads), res[bname]["ms"], STAGES_7)
             elif kinds == 1:  # #6 at the path's own K
@@ -2349,9 +2501,17 @@ def phase_attn_train() -> tuple[dict, dict]:
                 torch.cuda.synchronize()
             except Exception as e:  # noqa: BLE001 - report and fail the phase
                 fail(f"{bname} {case}: {e}")
-            bwd_err, worst = check_grads(bname, case, bgrads, bwd_plain(), grad_names)
+            plain_grads = bwd_plain()
+            bwd_err, worst = check_grads(bname, case, bgrads, plain_grads, grad_names)
             if not all(torch.equal(a, b_) for a, b_ in zip(bgrads, again)):
                 fail(f"{bname} {case}: two runs differ")
+            # #10 as the path runs it: from the kernel forward's P and att
+            _, chained = check_grads(
+                bname, f"{case} from the kernel's P, att",
+                fb.fused_attn_block_train_backward(*attn, s1, got[1], got[2], dout, kinds, *meta),
+                plain_grads, grad_names)
+            say(f"[attn train] {bname} {case} from the kernel forward's P, att: within "
+                f"{chained:.3g} of each gradient's max")
             record_kernel(res, "attn train", fname, case, fwd, fwd_plain, None, fwd_flops,
                           nbytes(*ops[:8], s1, *got), fwd_err)
             record_kernel(res, "attn train", bname, case, bwd, bwd_plain, None, bwd_flops,
@@ -2373,7 +2533,9 @@ def phase_attn_train() -> tuple[dict, dict]:
             if kinds == kind_order[-1]:  # #10 (#6's stages), and #6 at 8x8 (phase 30: 12x12)
                 stage_split("attn train", f"{bname} {case}", bwd, bwd_flops,
                             nbytes(*attn, s1, want[1], want[2], dout, *bgrads), b_ms, STAGES_6)
-                if ws == WS:
+                if ws == WS:  # and #9 on the forward's tensor-core stages
+                    stage_split("attn train", f"{fname} {case}", fwd, fwd_flops,
+                                nbytes(*ops[:8], s1, *got), f_ms, STAGES_1)
                     t = shape[0] * shape[1] * shape[2]
                     stage_split("attn train", f"fused_attn_block_backward {case}", rec_bwd,
                                 22 * t * c * c + 12 * t * n * c,

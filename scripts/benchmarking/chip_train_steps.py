@@ -1,8 +1,7 @@
 """The training phases of `chip_smoke.py` alone, on one CUDA card: 30 steps
 each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, each
-printing its median ms per step with the quartiles; after HAT-M's, DAT's
-and Swin2SR-M's, the device time of one of their steps (`torch.profiler`)
-and the card's busy share.
+printing its median ms per step with the quartiles; after each, the device
+time of one of its steps (`torch.profiler`) and the card's busy share.
 
 Run it from the root of the tree to measure; it imports that tree's
 `chip_smoke.py` and package. To compare two trees on one card, run it in
@@ -21,6 +20,7 @@ seed = 0
 cs.phase_device()
 cs.phase_build()
 cs.phase_train(seed)
+cs.phase_train_profile(seed)
 cs.phase_train(seed, "hat_m", "HAT-M", "hat train",
                {"fused_window_mhsa": cs.HAT_BLOCKS, "fused_window_mhsa_backward": cs.HAT_BLOCKS,
                 "fused_ln_mlp": cs.HAT_MLPS, "fused_ln_mlp_backward": cs.HAT_MLPS},
@@ -40,8 +40,11 @@ cs.phase_train_profile(seed, "swin2sr_m", "swin2sr train profile", "profile_swin
                        cs.S2_LQ, cs.S2_LOSSES)
 hr_dir, _ = cs.make_dataset(cs.OUT / "otf_data", seed, ((128, 128),) * 16)
 cs.phase_otf_train(seed, hr_dir)
+cs.phase_otf_profile(seed, hr_dir)
 cs.phase_train(seed, "srformerv2", "SRFormerV2", "srformerv2 train",
                {k: cs.SRF_SWIN for k in ("fused_attn_block", "fused_attn_block_backward",
                                          "fused_ln_mlp", "fused_ln_mlp_backward")},
                cs.srformerv2_serving_counts(), cs.SRF_LQ, cs.S2_LOSSES)
+cs.phase_train_profile(seed, "srformerv2", "srformerv2 train profile",
+                       "profile_srformerv2_train.txt", cs.SRF_LQ, cs.S2_LOSSES)
 print("steps ok", flush=True)

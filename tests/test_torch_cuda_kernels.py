@@ -143,8 +143,8 @@ def test_shared_memory_plans_match_the_sources(cuda):
     lib_wa = cuda_build.library("window_attention")
     lib_st = cuda_build.library("attn_block_staged")
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
-        assert lib_fb.trr_attn_block_smem_bytes(c, nh) == fb.attn_block_smem_bytes(c, nh)
-        assert lib_fb.trr_ln_mlp_smem_bytes(c, hidden) == fb.ln_mlp_smem_bytes(c, hidden)
+        assert lib_fb.trr_attn_block_smem_bytes(c) == fb.attn_block_smem_bytes(c)
+        assert lib_fb.trr_ln_mlp_smem_bytes(c) == fb.ln_mlp_smem_bytes(c)
         for ws in (8, 16):
             assert lib_wa.trr_window_mhsa_smem_bytes(c, nh, ws) == wa.window_mhsa_smem_bytes(
                 c, nh, ws)
@@ -155,8 +155,83 @@ def test_shared_memory_plans_match_the_sources(cuda):
         for ws in (8, 12):  # the saved-P backward (#10)
             assert lib_st.trr_attn_train_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_train_bwd_smem_bytes(c, nh, ws))
+    for c in (300, 90):  # the forwards' residual product on 128-column tiles; a 96-column row
+        assert lib_fb.trr_ln_mlp_smem_bytes(c) == fb.ln_mlp_smem_bytes(c)
     assert lib_tr.trr_hidden_smem_bytes() == fb.mlp_hidden_smem_bytes()
     assert lib_tr.trr_atb_smem_bytes() == fb.weight_grad_smem_bytes()
+
+
+@pytest.mark.cuda
+def test_block_forwards_are_deterministic(cuda):
+    """#4 (out, P, att, z) and #2 run on the tensor-core stages without
+    atomics: two calls give the same bits."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, 4)
+    ops = [p[k] for k in TRAIN_NAMES]
+    runs = [fb._swin_block_train_fwd_cuda(*ops, p["s"], p["s2"], NH, HD, WS, 1e-5, WS // 2)
+            for _ in range(2)]
+    for name, a, b in zip(("out", "P", "att", "z"), *runs):
+        assert torch.equal(a, b), name
+    args = [p[k] for k in ("x", "g", "be", "w1", "b1", "w2", "b2", "s")]
+    with torch.no_grad():
+        assert torch.equal(fb.fused_ln_mlp(*args, WS), fb.fused_ln_mlp(*args, WS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("c", "nh", "hidden"), [(240, 8, 480), (300, 10, 300), (90, 3, 182)],
+                         ids=["c240", "c300", "c90"])
+def test_block_forwards_at_other_widths(cuda, c, nh, hidden):
+    """#1 at 8x8 windows and #2 against their plain versions at B=2,
+    16x24, K=4 shifted: at SwinIR-L's C 240 / hidden 480 (a 256-column row;
+    #2 also SRFormerV2's), at C 300 / hidden 300 (serving only: 128-column
+    tiles of the residual products, LayerNorm rows above 256), and at C 90 /
+    hidden 182, which are not multiples of 4 (4-byte copies, a float at a
+    time)."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(c)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    x, s = randn(2, 16, 24, c), torch.tensor([1.0, 0.0], device=cuda)
+    g, be = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+    mlp = (randn(c, hidden, scale=c**-0.5), randn(hidden, scale=0.1),
+           randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1))
+    with torch.no_grad():
+        got = fb.fused_ln_mlp(x, g, be, *mlp, s, WS)
+    assert (got - fb.fused_ln_mlp_reference(x, g, be, *mlp, s, WS)).abs().max().item() <= TOL
+    masks = torch.from_numpy(shift_mask_kinds(WS, WS // 2)).to(cuda)
+    bias = (randn(nh, N, N, scale=0.5)[None] + masks[:, None]).contiguous()
+    attn = (randn(c, 3 * c, scale=c**-0.5), randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5),
+            randn(c, scale=0.1), bias, s)
+    with torch.no_grad():
+        z = fb.fused_attn_block(x, g, be, *attn, nh, c // nh, WS, shift=WS // 2)
+    want = fb.fused_attn_block_reference(x, g, be, *attn, nh, c // nh, WS, shift=WS // 2)
+    assert (z - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_forwards_refuse_unaligned_operands(cuda):
+    """The forwards' stages move rows with 16-byte loads and copies: #1, #2,
+    #4 and #9 refuse a tensor that does not start on a 16-byte boundary."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, 1)
+    x = torch.empty(p["x"].numel() + 1, device=cuda)[1:].view(p["x"].shape)
+    x.copy_(p["x"])
+    attn = [p[k] for k in ("g", "be", "wq", "bq", "wp", "bp", "bias", "s")]
+    with pytest.raises(ValueError, match="16-byte"), torch.no_grad():
+        fb.fused_attn_block(x, *attn, NH, HD, WS)
+    with pytest.raises(ValueError, match="16-byte"), torch.no_grad():
+        fb.fused_ln_mlp(x, *[p[k] for k in ("g", "be", "w1", "b1", "w2", "b2", "s")], WS)
+    with pytest.raises(ValueError, match="16-byte"):
+        fb._attn_block_train_fwd_cuda(x, *attn, NH, HD, WS, 1e-5, 0)
+    ops = [x] + [p[k] for k in TRAIN_NAMES[1:]]
+    with pytest.raises(ValueError, match="16-byte"):
+        fb._swin_block_train_fwd_cuda(*ops, p["s"], p["s2"], NH, HD, WS, 1e-5, 0)
 
 
 TRAIN_NAMES = ("x", "g", "be", "wq", "bq", "wp", "bp", "bias", "g2", "be2", "w1", "b1", "w2",

@@ -97,17 +97,71 @@ def test_fused_block_gate(monkeypatch):
 
 
 def test_shared_memory_plans_at_swinir_m():
-    """The plans the kernels carve (csrc/fused_block.cu), fp32, at SwinIR-M's
-    C=180, 6 heads of 30, hidden 360: transposed (C, 68) tiles, q/k (30, 68),
-    v (64, 32), scores (64, 68), a 2 x 32 x 96 weight stage, LN stats."""
-    stage = 2 * 32 * 96 + 128
-    assert tfb.attn_block_smem_bytes(180, 6) == 4 * (
-        2 * 180 * 68 + 2 * 30 * 68 + 64 * 32 + 64 * 68 + stage
-    )
-    assert tfb.ln_mlp_smem_bytes(180, 360) == 4 * (180 * 68 + 360 * 68 + stage)
-    # SwinIR-L (C=240, 8 heads, hidden 480) fits too
-    assert tfb.attn_block_smem_bytes(240, 8) <= tfb.SMEM_LIMIT
-    assert tfb.ln_mlp_smem_bytes(240, 480) <= tfb.SMEM_LIMIT
+    """The plans the forward stages carve (csrc/block_fwd.cuh on
+    csrc/tc_rows.cuh and csrc/tc_attn.cuh), fp32, at SwinIR-M's C=180, 6
+    heads of 30, hidden 360. A per-token kernel holds the split buffers of
+    a (cols, 16) weight chunk's TF32 halves, then a 4-stage ring of a (128,
+    16) token chunk in rows of 20 and a raw weight chunk's room (the larger
+    of (cols, 20) and (16, cols + 8)), two mbarriers a stage. qkv and fc1
+    take linear_kernel's 128-column tiles, the largest plan; proj and fc2
+    two 96-column tiles of the residual product; the window attention k, v,
+    q and att rows of 36, the (64, 68) P tile, the key parts' exchanges and
+    64 token indices."""
+    col128 = 4 * 3 * 2 * 128 * 16 + 4 * (4 * (128 * 20 + 128 * 20) + 16)
+    col96 = 4 * 3 * 2 * 96 * 16 + 4 * (4 * (128 * 20 + 96 * 20) + 16)
+    window = 4 * (2 * 64 * 36 + 2 * 64 * 36 + 64 * 68 + 2 * 2 * 64 + 64)
+    assert (col128, col96, window) == (131_136, 108_608, 55_552)
+    assert tfb.linear_smem_bytes() == col128
+    assert tfb.residual_tile_cols(180) == 96 and tfb.residual_smem_bytes(180) == col96
+    assert tfb.attn_fwd_tc_smem_bytes(64) == window
+    assert tfb.attn_block_smem_bytes(180) == tfb.ln_mlp_smem_bytes(180) == col128
+    # SwinIR-L (C=240) and C 300 on 128-column tiles of the residual product,
+    # C 60 on one of 64
+    assert [tfb.residual_tile_cols(c) for c in (240, 300, 60)] == [128, 128, 64]
+    assert tfb.attn_block_smem_bytes(240) == tfb.ln_mlp_smem_bytes(300) == col128
+
+
+# (preset, branch kind, C, heads, window, hidden): the blocks of the three
+# families whose forwards run the pre-LN block kernels. "swin": SwinIR's
+# SwinBlock (archs/swinir_arch.py), the kernels in training only where
+# swin_block_train_fits holds; "mlp": HAT's HAB and OCAB MLP halves
+# (archs/fused_block_util.py); "swin12": SRFormerV2's Swin blocks
+# (archs/srformerv2_arch.py), in training where both backwards fit.
+FAMILY_BLOCKS = {
+    "swinir_s": ("swin", 60, 6, 8, 120), "swinir_m": ("swin", 180, 6, 8, 360),
+    "swinir_l": ("swin", 240, 8, 8, 480), "hat_s": ("mlp", 144, 6, 16, 288),
+    "hat_m": ("mlp", 180, 6, 16, 360), "hat_l": ("mlp", 180, 6, 16, 360),
+    "srformerv2": ("swin12", 240, 8, 12, 480),
+}
+FAMILY_MAPS = ((64, 64), (144, 144), (72, 96), (40, 56))
+# 1 where the block takes the kernels, at each map serving then training,
+# as the gates decided before the forwards moved to the tensor cores
+FAMILY_BRANCHES = {
+    "swinir_s": [1, 1, 1, 1, 1, 1, 1, 1], "swinir_m": [1, 1, 1, 1, 1, 1, 1, 1],
+    "swinir_l": [1, 0, 1, 0, 1, 0, 1, 0], "hat_s": [1, 1, 1, 1, 0, 0, 0, 0],
+    "hat_m": [1, 1, 1, 1, 0, 0, 0, 0], "hat_l": [1, 1, 1, 1, 0, 0, 0, 0],
+    "srformerv2": [0, 0, 1, 1, 1, 1, 0, 0],
+}
+
+
+def _takes_kernels(kind, c, nh, ws, hidden, h, w, train):
+    if kind == "mlp":
+        return tfb.fused_mlp_supported(h, w, ws, c, hidden, train)
+    fused = tfb.fused_block_supported(h, w, ws, c, nh, hidden)
+    if fused and train:
+        if kind == "swin":
+            return tfb.swin_block_train_fits(h, w, ws, c, nh, hidden)
+        return tfb.attn_block_bwd_fits(h, w, ws, c, nh) and tfb.ln_mlp_bwd_fits(c, hidden)
+    return fused
+
+
+@pytest.mark.parametrize("preset", list(FAMILY_BLOCKS))
+def test_family_presets_keep_their_branches(preset, monkeypatch):
+    monkeypatch.delenv("TRAINNER_FUSED_BLOCK", raising=False)
+    monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+    got = [int(_takes_kernels(*FAMILY_BLOCKS[preset], h, w, train))
+           for h, w in FAMILY_MAPS for train in (False, True)]
+    assert got == FAMILY_BRANCHES[preset]
 
 
 @pytest.mark.parametrize("scales", [[1.0, 0.8], [0.0, 1.0 / 0.9]])

@@ -17,7 +17,14 @@ zero-padded to 32; the key parts' row sums added in the kernel's order)
 keeps each of its outputs within 1e-4 of the float64 result's largest
 entry; 1xTF32 misses that limit. The post-norm MLP backward (#14) in the order of its stages on the
 engine, at a 128-token tile of Swin2SR-M's and Swin2SR-L's widths, keeps
-each gradient within 1e-4 of the float64 result's largest entry.
+each gradient within 1e-4 of the float64 result's largest entry. The
+pre-LN block forwards (#1, #2, #4, #9 at 8x8; csrc/block_fwd.cuh) in the
+order of their stages, with the per-token products promoted as the kernels
+take them (each 32-deep slice's sum carried alone, then added to the
+accumulator in fp32): the window-attention forward's P and att, qkv and the
+residual products at C 180, the MLP half at C 180 / 360 and C 240 / 480 on
+a 128-token tile, each within 1e-4 of the float64 result's largest entry,
+which 1xTF32 misses.
 """
 
 import functools
@@ -65,6 +72,16 @@ def product(a: torch.Tensor, b: torch.Tensor, terms: int, split=split) -> torch.
             acc = acc + al[:, ks] @ bh[ks]
             acc = acc + ah[:, ks] @ bl[ks]
         acc = acc + ah[:, ks] @ bh[ks]
+    return acc
+
+
+def promoted(a: torch.Tensor, b: torch.Tensor, terms: int, chunk: int = 32) -> torch.Tensor:
+    """`product` as the forwards' per-token kernels sum it (tc_rows.cuh's
+    xw_product, two 16-deep chunks a promotion): each chunk-deep slice of
+    the depth summed alone, then added to the accumulator in fp32."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], chunk):
+        acc = acc + product(a[:, k:k + chunk], b[k:k + chunk], terms)
     return acc
 
 
@@ -153,7 +170,8 @@ def _attention_exact(n: int, rb: int) -> dict:
     p = torch.softmax(q @ k.T * scale + table, -1)
     dp = da @ v.T
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
-    return {"att": p @ v, "dq": scale * ds @ k, "dk": scale * ds.T @ q, "dv": p.T @ da, "dS": ds}
+    return {"P": p, "att": p @ v, "dq": scale * ds @ k, "dk": scale * ds.T @ q, "dv": p.T @ da,
+            "dS": ds}
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,12 +187,13 @@ def _attention_kernel(n: int, rb: int, terms: int, ks: int = 2) -> dict:
                    for a in _attention_case(n, rb)[:4])
     table = torch.from_numpy(_attention_case(n, rb)[4])
     scale = HD**-0.5
-    att, dq, dss = [], [], []
+    ps, att, dq, dss = [], [], [], []
     dv, dk = torch.zeros(n, HD_PAD), torch.zeros(n, HD_PAD)
     mm = functools.partial(product, terms=terms, split=split_trunc)
     for r0 in range(0, n, rb):
         rows = slice(r0, r0 + rb)
         p = _softmax_parts(mm(q[rows], k.T.contiguous()) * scale + table[rows], ks)
+        ps.append(p)
         att.append(mm(p, v))
         dv = dv + mm(p.T.contiguous(), da[rows])
         dp = mm(da[rows], v.T.contiguous())
@@ -182,8 +201,8 @@ def _attention_kernel(n: int, rb: int, terms: int, ks: int = 2) -> dict:
         dss.append(ds)
         dq.append(scale * mm(ds, k))
         dk = dk + mm(ds.T.contiguous(), q[rows])
-    return {"att": torch.cat(att)[:, :HD], "dq": torch.cat(dq)[:, :HD], "dk": scale * dk[:, :HD],
-            "dv": dv[:, :HD], "dS": torch.cat(dss)}
+    return {"P": torch.cat(ps), "att": torch.cat(att)[:, :HD], "dq": torch.cat(dq)[:, :HD],
+            "dk": scale * dk[:, :HD], "dv": dv[:, :HD], "dS": torch.cat(dss)}
 
 
 def _attention_error(n: int, rb: int, terms: int, name: str, ks: int = 2) -> float:
@@ -205,6 +224,20 @@ def test_attention_backward_in_3xtf32_holds_the_gradient_limit(n, rb, ks, name):
     assert err3 <= 1e-4, err3
     assert err1 > 1e-4, err1
     assert err1 >= 20 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("name", ["P", "att"])
+@pytest.mark.parametrize(("n", "rb", "ks"), [(64, 64, 2), (144, 48, 2)], ids=["n64", "n144"])
+def test_attention_forward_in_3xtf32_holds_the_limit(n, rb, ks, name):
+    """The window-attention forward on mma.sync (attn_rows_fwd_tc_kernel:
+    #1, #4 and #9 at 8x8 windows; n 144 its plan for 12x12), S = q k^T and
+    att = P v in the backward's row blocks, key parts and truncating split:
+    P and att within 1e-4 of their largest entry against float64; 1xTF32
+    misses the limit."""
+    err3 = _attention_error(n, rb, 3, name, ks)
+    err1 = _attention_error(n, rb, 1, name, ks)
+    assert err3 <= 1e-4, err3
+    assert err1 > 1e-4, err1
 
 
 def _gelu(h):
@@ -272,3 +305,62 @@ def test_postnorm_mlp_backward_in_3xtf32_holds_the_gradient_limit(c, hidden, nam
     assert errs[0] <= 1e-4, errs
     if name != "dbe":  # dbe = sum s dout takes no product
         assert errs[1] > errs[0], errs
+
+
+@functools.lru_cache(maxsize=None)
+def _block_case(c: int, hidden: int):
+    """A 128-token tile of a pre-LN Swin block at C / hidden: seeded x,
+    att (T, C), LN affine, qkv, proj, fc1 and fc2 weights (unit-scale
+    inputs, weights at 1/sqrt(fan-in)), the DropPath scale of a kept
+    sample, 1/0.9."""
+    rng = np.random.default_rng(10 * c + hidden)
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return {
+        "x": normal(T, c), "att": normal(T, c), "g": 1.0 + normal(c, scale=0.1),
+        "be": normal(c, scale=0.1), "wq": normal(c, 3 * c, scale=c**-0.5),
+        "bq": normal(3 * c, scale=0.1), "wp": normal(c, c, scale=c**-0.5),
+        "bp": normal(c, scale=0.1), "w1": normal(c, hidden, scale=c**-0.5),
+        "b1": normal(hidden, scale=0.1), "w2": normal(hidden, c, scale=hidden**-0.5),
+        "b2": normal(c, scale=0.1),
+    }
+
+
+def _block_forward(c: int, hidden: int, mm) -> dict:
+    """The forwards' per-token stages at C / hidden with their products
+    through `mm` (None: float64, exact): y = LN(x) (two-pass), qkv = y wq +
+    bq, z = x + s (att wp + bp) (the attention half's residual product), and
+    the MLP half out = x + s (gelu(y w1 + b1) w2 + b2)."""
+    t = {k: torch.from_numpy(v) for k, v in _block_case(c, hidden).items()}
+    if mm is None:
+        t = {k: v.double() for k, v in t.items()}
+
+        def mm(a, b):
+            return a @ b
+    x, sc = t["x"], 1.0 / 0.9
+    mean = x.mean(-1, keepdim=True)
+    y = (x - mean) / torch.sqrt(((x - mean) ** 2).mean(-1, keepdim=True) + 1e-5) * t["g"] + t["be"]
+    h = _gelu(mm(y, t["w1"]) + t["b1"])
+    return {"qkv": mm(y, t["wq"]) + t["bq"], "z": x + sc * (mm(t["att"], t["wp"]) + t["bp"]),
+            "out": x + sc * (mm(h, t["w2"]) + t["b2"])}
+
+
+@pytest.mark.parametrize(("c", "hidden", "name"), [(C, HIDDEN, "qkv"), (C, HIDDEN, "z"),
+                                                   (C, HIDDEN, "out"),
+                                                   (C_SRF, HIDDEN_SRF, "out")],
+                         ids=["qkv-c180", "proj-residual-c180", "mlp-c180", "mlp-c240"])
+def test_block_forward_stages_in_3xtf32_hold_the_limit(c, hidden, name):
+    """The per-token stages of the pre-LN forwards on the engine, each
+    product promoted chunk by chunk as the kernels sum it: qkv (linear_kernel)
+    and the residual products (its residual epilogue) at C 180, and the MLP half
+    (LN, fc1 + gelu, fc2 + residual) at C 180 / 360 and at C 240 / 480,
+    within 1e-4 of the float64 result's largest entry; 1xTF32 misses."""
+    want = _block_forward(c, hidden, None)[name]
+    errs = []
+    for terms in (3, 1):
+        got = _block_forward(c, hidden, functools.partial(promoted, terms=terms))[name]
+        errs.append(((got.double() - want).abs().max() / want.abs().max()).item())
+    assert errs[0] <= 1e-4, errs
+    assert errs[1] > 1e-4, errs

@@ -20,13 +20,12 @@
 // block (B 8, 72x72, C 240, 8 heads of 30, n 144: 41,472 tokens) the forward
 // does some 25 GFLOP and the backward some 70 against a few hundred MB of
 // activations (the saved P adds 191 MB, and 64 GFLOP remain for the saved-P
-// backward). The 8x8 kernel of block_fwd.cuh keeps a whole window's (C, n)
-// tiles in one block; at n 144 and C 240 two such tiles alone take 284 KB,
-// more than a block's 227 KB. So the half runs in stages, each with a
-// working set that fits, its intermediates in device memory (L2-resident at
-// these sizes).
+// backward). The half runs in stages, each with a working set that fits
+// one thread block, its intermediates in device memory (L2-resident in part
+// at these sizes).
 //
-// The forward (fp32 FMA; not redesigned):
+// The forward at 12x12 windows (fp32 FMA; not redesigned; at 8x8 the
+// forward is block_fwd.cuh's, on the tensor-core engine):
 //   1. ln_qkv_kernel, per 64 tokens: qkv = LN1(x) wq + bq to (T, 3C).
 //   2. attn_rows_fwd_kernel<N, RB>, per (window, head): q, k, v of the
 //      window's N tokens staged once, the queries in blocks of RB rows (48 at
@@ -62,7 +61,7 @@
 //   6. (the wrapper) the weight gradients dwq, dwp and their biases with
 //      fused_block_train.cu's split-K atb_kernel and sum_rows_kernel, then
 //      dbias.
-// At 8x8 windows the training forward is block_fwd.cuh's one-window kernel
+// At 8x8 windows the training forward is block_fwd.cuh's attention half
 // writing P and att; both backwards take 8x8 windows as well (rows of 64).
 // No atomics: two runs give the same gradients bit for bit. The windows are
 // those of x rolled by (-shift, -shift); the kernels index them, so the
@@ -576,19 +575,20 @@ int trr_attn_block_staged_fwd(const float* x, const float* g, const float* be, c
                               C, nh, ws, kinds, shift, eps, scale, stream);
 }
 
-// The training forward at ws x ws windows (8: one thread block a window,
-// block_fwd.cuh; 12: the staged kernels through the scratch qkv (B*H*W,
-// 3C), null at 8): z as trr_attn_block_staged_fwd, and for the backward P
-// (B, H/ws, W/ws, nh, n, n), the softmax of each window and head in the
-// rolled frame, and att (B, H, W, C), the attention output in x's frame.
+// The training forward at ws x ws windows (8: block_fwd.cuh's attention
+// half on the tensor-core engine through the scratch y (B*H*W, C) and qkv;
+// 12: the staged FMA kernels through the scratch qkv (B*H*W, 3C), y null):
+// z as trr_attn_block_staged_fwd, and for the backward P (B, H/ws, W/ws, nh,
+// n, n), the softmax of each window and head in the rolled frame, and att
+// (B, H, W, C), the attention output in x's frame.
 int trr_attn_block_train_fwd(const float* x, const float* g, const float* be, const float* wq,
                              const float* bq, const float* wp, const float* bp,
-                             const float* bias, const float* s, float* qkv, float* P,
+                             const float* bias, const float* s, float* y, float* qkv, float* P,
                              float* att, float* z, int B, int H, int W, int C, int nh, int ws,
                              int kinds, int shift, float eps, float scale, cudaStream_t stream) {
   if (ws == 8)
-    return (int)trr::launch_attn_block_fwd(x, g, be, wq, bq, wp, bp, bias, s, z, P, att, B, H,
-                                           W, C, nh, kinds, shift, eps, scale, stream);
+    return trr::attn_half_fwd(x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, P, z, B, H, W, C,
+                              nh, kinds, shift, eps, scale, stream);
   return (int)trr::staged_fwd(x, g, be, wq, bq, wp, bp, bias, s, qkv, att, P, z, B, H, W, C, nh,
                               ws, kinds, shift, eps, scale, stream);
 }

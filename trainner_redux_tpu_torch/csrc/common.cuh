@@ -34,8 +34,6 @@ constexpr int kVLd = 32;             // row stride of v: head_dim <= 32
 // Floats of the staging buffers of one weight GEMM (double-buffered).
 constexpr int kStageFloats = 2 * kKChunk * kWeightNC;
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

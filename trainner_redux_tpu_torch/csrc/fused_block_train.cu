@@ -13,8 +13,8 @@
 // and the backward of fused_ln_mlp alone (_mlp_bwd_kernel, pallas_call at
 // :415): dx and the gradients of LN, fc1 and fc2, recomputing LN and fc1.
 //
-// The forward is the attention-half kernel of block_fwd.cuh told to write P
-// and att, then the MLP-half kernel: two launches, one call.
+// The forward is block_fwd.cuh's two halves on the tensor-core engine, the
+// attention half writing P and att: seven launches, one call.
 //
 // The backwards. What bounds them on the card: their products, 47.6 GFLOP
 // for #5 at SwinIR-M's training block (B 8, 64x64, C 180, hidden 360: T =
@@ -373,20 +373,20 @@ size_t trr_weight_grad_part_floats(int T, int M, int N) {
 }
 
 // The forward: x, out, att, z (B, H, W, C); P (B, H/8, W/8, nh, 64, 64);
-// weights (in, out) as in trr_attn_block_fwd and trr_ln_mlp_fwd; s1, s2 (B).
+// weights (in, out) as in trr_attn_block_fwd and trr_ln_mlp_fwd; s1, s2 (B);
+// scratch y (T, C), qkv (T, 3C), h (T, hidden).
 int trr_swin_block_fwd(const float* x, const float* g1, const float* be1, const float* wq,
                        const float* bq, const float* wp, const float* bp, const float* bias,
                        const float* g2, const float* be2, const float* w1, const float* b1,
                        const float* w2, const float* b2, const float* s1, const float* s2,
-                       float* out, float* P, float* att, float* z, int B, int H, int W, int C,
-                       int nh, int hidden, int kinds, int shift, float eps, float scale,
-                       cudaStream_t stream) {
-  const cudaError_t err = trr::launch_attn_block_fwd(x, g1, be1, wq, bq, wp, bp, bias, s1, z, P,
-                                                     att, B, H, W, C, nh, kinds, shift, eps,
-                                                     scale, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)trr::launch_ln_mlp_fwd(z, g2, be2, w1, b1, w2, b2, s2, out, B, H, W, C, hidden,
-                                     eps, stream);
+                       float* y, float* qkv, float* h, float* out, float* P, float* att, float* z,
+                       int B, int H, int W, int C, int nh, int hidden, int kinds, int shift,
+                       float eps, float scale, cudaStream_t stream) {
+  if (const int err = trr::attn_half_fwd(x, g1, be1, wq, bq, wp, bp, bias, s1, y, qkv, att, P, z,
+                                         B, H, W, C, nh, kinds, shift, eps, scale, stream))
+    return err;
+  return trr::mlp_half_fwd(z, g2, be2, w1, b1, w2, b2, s2, y, h, out, B, H, W, C, hidden, eps,
+                           stream);
 }
 
 // The backward of fused_ln_mlp (#7): x, dout, dx (B, H, W, C); g, be (C);

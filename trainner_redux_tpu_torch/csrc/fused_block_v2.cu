@@ -18,9 +18,8 @@
 // block (B 8, 48x48, C 180, 6 heads of 30, hidden 360: 18,432 tokens) the
 // attention half does 5.6 GFLOP forward and 17 backward, the MLP half 4.8
 // and 14, against some 13 MB for each activation: far above the card's fp32
-// ridge point. The forward kernels (fp32 FMA) are the pre-norm ones of
-// block_fwd.cuh with the LayerNorm moved after the last product: one thread
-// block per 8x8 window (attention half) or per 64 tokens (MLP half), every
+// ridge point. The forward kernels (fp32 FMA) take one thread block per
+// 8x8 window (attention half) or per 64 tokens (MLP half), every
 // intermediate in shared memory as transposed (C, 64) tiles, weights
 // streamed from L2 through gemm_weights' double-buffered stage. The
 // post-norm needs all C channels of a token, which the block holds: the
@@ -660,7 +659,7 @@ int trr_pn_mlp_bwd(const float* x, const float* dout, const float* w1, const flo
                    int C, int hidden, float eps, cudaStream_t stream) {
   const long long tokens = (long long)B * H * W, hw = (long long)H * W;
   const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
-  TRR_TRY(trr::linear(x, w1, b1, hg, tokens, C, hidden, stream, true));
+  TRR_TRY(trr::linear<trr::kLinearGelu>(x, w1, b1, hg, tokens, C, hidden, stream));
   TRR_TRY(trr::linear(hg, w2, b2, m, tokens, hidden, C, stream));
   trr::postnorm_ln_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(m, dout, g, s, dm, ln_part,
                                                                       tokens, hw, C, eps);

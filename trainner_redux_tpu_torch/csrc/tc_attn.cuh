@@ -1,7 +1,8 @@
-// The window-attention backwards' products on the tensor cores: mma.sync
-// m16n8k8 tf32 in 3xTF32 (tc_gemm.cuh) on the operands a thread block holds
-// in shared memory for one (window, head). Shared by
-// attn_rows_bwd_tc_kernel below (#6's recompute backward, in
+// The window attention's products on the tensor cores: mma.sync m16n8k8
+// tf32 in 3xTF32 (tc_gemm.cuh) on the operands a thread block holds in
+// shared memory for one (window, head). Shared by attn_rows_fwd_tc_kernel
+// below (the pre-LN block forwards #1, #4 and #9 at 8x8 windows, through
+// block_fwd.cuh), attn_rows_bwd_tc_kernel (#6's recompute backward, in
 // attn_block_staged.cu, and #8's window MHSA backward, in
 // window_attention.cu) and #12's cos_attn_bwd_tc_kernel (fused_block_v2.cu).
 //
@@ -142,6 +143,43 @@ struct AttnWarps {
   __device__ float2* at(float* pt, int i, int j) const {
     return reinterpret_cast<float2*>(pt + s_row(i) * LP + s_col(j));
   }
+
+  // P = softmax(q k^T * scale + bias) of the row block, the bias rows staged
+  // in pt: S in this warp's fragments, the key parts' row max and sums
+  // combined through red (2 KS RB floats), P written over the bias rows.
+  // Holds block barriers; P is whole after the caller's next one.
+  __device__ void softmax_rows(const float* qs, const float* ks, float* pt, float* red,
+                               float scale) const {
+    float p[NT][4];
+    rows_by_channels(qs, ks, p);
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 bb = *at(pt, i, j);
+        p[j][2 * i] = p[j][2 * i] * scale + bb.x;
+        p[j][2 * i + 1] = p[j][2 * i + 1] * scale + bb.y;
+        m[i] = fmaxf(m[i], fmaxf(p[j][2 * i], p[j][2 * i + 1]));
+      }
+    row_total(red, m, true);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = expf(p[j][e] - m[e / 2]);
+        sum[e / 2] += p[j][e];
+      }
+    row_total(red + KS * RB, sum, false);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float inv = 1.f / sum[i];
+        *at(pt, i, j) = make_float2(p[j][2 * i] * inv, p[j][2 * i + 1] * inv);
+      }
+  }
 };
 
 // dst[r * kHeadLd + d] = row(r)[d] for d < hd, else 0, for the ROWS rows
@@ -175,6 +213,18 @@ __device__ __forceinline__ void stage_table_rows(float* pt, const float* __restr
         __ldg(reinterpret_cast<const float4*>(src + (size_t)(e / Q) * N) + e % Q);
 }
 
+// The (ROWS, N + 4) tile pt to the ROWS x N rows at dst (row stride N), 16
+// bytes a copy (NTH threads).
+template <int ROWS, int N, int NTH>
+__device__ __forceinline__ void store_table_rows(float* __restrict__ dst, const float* pt) {
+  constexpr int Q = N / 4;
+  static_assert(N % 4 == 0, "16-byte rows");
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * Q; e += NTH)
+    reinterpret_cast<float4*>(dst + (size_t)(e / Q) * N)[e % Q] =
+        reinterpret_cast<const float4*>(pt + (e / Q) * (N + 4))[e % Q];
+}
+
 // row(r)[d] = src[r * kHeadLd + d] for d < hd, for the ROWS rows (NTH
 // threads; a warp writes a row's hd floats at once).
 template <int ROWS, int NTH, class Row>
@@ -195,6 +245,76 @@ __device__ __forceinline__ long long roll_token(int b, int wi, int wj, int r, in
   if (y >= H) y -= H;
   if (x >= W) x -= W;
   return ((long long)b * H + y) * W + x;
+}
+
+// Shared memory of attn_rows_fwd_tc_kernel<N, RB, KS>, in floats: k and v
+// (N, 36), this row block's q and att rows (RB, 36), the P rows (RB, N + 4),
+// two (KS, RB) exchanges of the key parts' row max and row sum, and the
+// window's N token indices.
+__host__ __device__ constexpr int attn_rows_fwd_tc_smem_floats(int N, int RB, int KS) {
+  return 2 * N * kHeadLd + 2 * RB * kHeadLd + RB * (N + 4) + 2 * KS * RB + N;
+}
+
+// Blocks a SM of the forward: three at n 64 (55,552 B of shared memory
+// each; 85 registers a thread), else two.
+__host__ __device__ constexpr int attn_fwd_blocks(int N) { return N <= 64 ? 3 : 2; }
+
+// One block per (wr x wc window of the map rolled by (-shift, -shift),
+// head), N = wr * wc; the query rows in blocks of RB, KS warps a 16-row
+// tile. From qkv (T, 3C) and the kind table (kinds, nh, N, N), in x's
+// frame: writes this head's attention output softmax(q k^T scale + bias) v
+// into att (T, C), in x's frame, and, when P is not null, the softmax into
+// P (B, H/wr, W/wc, nh, N, N), in the rolled frame. Two products a row
+// block on mma.sync in 3xTF32, laid out as attn_rows_bwd_tc_kernel's first
+// two: S = q k^T and the row softmax in the fragments (the row block's bias
+// rows staged in the shared tile first), P to the tile and from there to P
+// in 16-byte rows, att = P v out through shared memory a head row at a
+// time. Heads are the grid's fastest index, as in the backward: each
+// token's 3C row is read once while it stays in L2.
+template <int N, int RB, int KS>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_fwd_blocks(N))
+    attn_rows_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                            float* __restrict__ att, float* __restrict__ P, int H, int W, int C,
+                            int nh, int wr, int wc, int kinds, int shift, float scale) {
+  using AW = AttnWarps<N, RB, KS>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, CT = AW::CT;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / wc, nwh = H / wr;
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const AW aw;
+  float* ks = smem;              // (N, LD) k, zero past hd
+  float* vs = ks + N * LD;       // (N, LD) v
+  float* qs = vs + N * LD;       // (RB, LD) this row block's q
+  float* oa = qs + RB * LD;      // (RB, LD) its att
+  float* pt = oa + RB * LD;      // (RB, LP): the bias rows, then P
+  float* red = pt + RB * AW::LP;  // (2, KS, RB): each part's row max and row sum
+  int* tok = reinterpret_cast<int*>(red + 2 * KS * RB);  // (N) the window's tokens
+  for (int r = threadIdx.x; r < N; r += NTH)
+    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, shift);
+  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
+  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  __syncthreads();
+  stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
+  stage_head_rows<N, NTH>(vs, hd,
+                          [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+  for (int r0 = 0; r0 < N; r0 += RB) {
+    const int* rt = tok + r0;  // this row block's tokens
+    stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
+    __syncthreads();  // q and the bias rows (and, the first time, k and v) staged
+    aw.softmax_rows(qs, ks, pt, red, scale);
+    __syncthreads();  // P is whole
+    if (P != nullptr) store_table_rows<RB, N, NTH>(P + head + (size_t)r0 * N, pt);
+    float o[CT][4];
+    aw.rows_by_keys(pt, vs, o);  // att = P v
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
+    __syncthreads();  // att whole; q and the tile are rewritten by the next row block
+    store_head_rows<RB, NTH>(oa, hd, [&](int r) { return att + (long long)rt[r] * C + h * hd; });
+  }
 }
 
 // Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT>, in floats: k
@@ -270,37 +390,7 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
     stage_head_rows<RB, NTH>(das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
     stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
     __syncthreads();  // q, dA and the bias rows (and, the first time, k and v) staged
-    {  // S = q k^T * scale + bias, the row softmax in the fragments, P to the tile
-      float p[NT][4];
-      aw.rows_by_channels(qs, ks, p);
-      float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 bb = *aw.at(pt, i, j);
-          p[j][2 * i] = p[j][2 * i] * scale + bb.x;
-          p[j][2 * i + 1] = p[j][2 * i + 1] * scale + bb.y;
-          m[i] = fmaxf(m[i], fmaxf(p[j][2 * i], p[j][2 * i + 1]));
-        }
-      aw.row_total(red, m, true);
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[j][e] = expf(p[j][e] - m[e / 2]);
-          sum[e / 2] += p[j][e];
-        }
-      aw.row_total(red + X, sum, false);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float inv = 1.f / sum[i];
-          *aw.at(pt, i, j) = make_float2(p[j][2 * i] * inv, p[j][2 * i + 1] * inv);
-        }
-    }
+    aw.softmax_rows(qs, ks, pt, red, scale);  // S, the softmax, P to the tile
     __syncthreads();  // P is whole
     if constexpr (ATT) {  // att = P v (the forward's output, for dwp)
       float o[CT][4];
@@ -383,6 +473,21 @@ __host__ __device__ constexpr AttnPlan attn_plan(int n) {
          : n == 128 ? AttnPlan{32, 4}
          : n == 64  ? AttnPlan{64, 2}
                     : AttnPlan{0, 0};
+}
+
+template <int N>
+cudaError_t attn_rows_fwd_tc(const float* qkv, const float* bias, float* att, float* P, int B,
+                             int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
+                             float scale, cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N);
+  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
+  const cudaError_t err = set_smem(attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nh, (H / wr) * (W / wc), B);
+  attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks>
+      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
 }
 
 template <int N, bool ATT>

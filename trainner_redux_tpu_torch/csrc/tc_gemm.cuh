@@ -155,7 +155,8 @@ struct Ring {
 
 // ROWS x COLS floats (COLS a multiple of 4) of the row-major matrix G
 // (row stride ldg) from (r0, c0) into the shared tile S (row stride lds),
-// by cp.async; rows >= rlim and columns >= clim read as 0. VEC: 16-byte
+// by cp.async, the copies dealt out to the block's threads in turn; rows >=
+// rlim and columns >= clim read as 0. VEC: 16-byte
 // copies, which need ldg, c0 and G's address in multiples of 4 floats;
 // else 4-byte copies.
 template <int ROWS, int COLS, bool VEC = true>
@@ -163,11 +164,11 @@ __device__ __forceinline__ void load_tile(float* S, int lds, const float* __rest
                                           long long ldg, long long r0, long long rlim, int c0,
                                           int clim) {
   if constexpr (VEC) {
-    constexpr int SEG = COLS / 4;
-    static_assert(ROWS * SEG % kThreads == 0, "copies must split evenly");
+    constexpr int SEG = COLS / 4, ALL = ROWS * SEG;
 #pragma unroll
-    for (int i = 0; i < ROWS * SEG / kThreads; ++i) {
+    for (int i = 0; i < (ALL + kThreads - 1) / kThreads; ++i) {
       const int e = threadIdx.x + i * kThreads;
+      if (ALL % kThreads && e >= ALL) break;
       const int r = e / SEG, c = (e % SEG) * 4;
       const long long gr = r0 + r;
       const int gc = c0 + c;
@@ -248,7 +249,8 @@ struct Wgmma;
 
 template <>
 struct Wgmma<64> {
-  __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                  int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -256,13 +258,30 @@ struct Wgmma<64> {
         "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
         "}, {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
         : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  __device__ static void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                  int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+        "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
+        "}, {%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
+        : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24), TRR_D8(32), TRR_D8(40)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<128> {
-  __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                  int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
@@ -273,13 +292,14 @@ struct Wgmma<128> {
         "}, {%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
         : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24), TRR_D8(32), TRR_D8(40),
           TRR_D8(48), TRR_D8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<192> {
-  __device__ static void mma(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  __device__ static void mma(float (&d)[96], const uint32_t (&a)[4], uint64_t b,
+                                  int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
@@ -292,13 +312,14 @@ struct Wgmma<192> {
         "}, {%96,%97,%98,%99}, %100, p, 1, 1;\n}\n"
         : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24), TRR_D8(32), TRR_D8(40),
           TRR_D8(48), TRR_D8(56), TRR_D8(64), TRR_D8(72), TRR_D8(80), TRR_D8(88)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<256> {
-  __device__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  __device__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                  int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
@@ -314,7 +335,7 @@ struct Wgmma<256> {
         : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24), TRR_D8(32), TRR_D8(40),
           TRR_D8(48), TRR_D8(56), TRR_D8(64), TRR_D8(72), TRR_D8(80), TRR_D8(88),
           TRR_D8(96), TRR_D8(104), TRR_D8(112), TRR_D8(120)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
@@ -364,12 +385,11 @@ __device__ __forceinline__ void keep(AFrag<KC>& f) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f.h[s][e]), "+r"(f.l[s][e]));
 }
 
-template <int N, int KC, bool A_ROWK, bool B_KMAJOR>
-__device__ __forceinline__ void wgmma_step(float (&acc)[N / 2], const float* As, int lda, int ar,
-                                           const float* raw, int ldb, float* cb, AFrag<KC>& cur,
-                                           AFrag<KC>& prev) {
+// This warp's 16 rows of a staged A chunk (from row ar of As, [row][k]
+// (A_ROWK, row stride lda) or [k][row]) into the fragments cur, split.
+template <int KC, bool A_ROWK>
+__device__ __forceinline__ void load_a_frag(AFrag<KC>& cur, const float* As, int lda, int ar) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  split_to_core<N, KC, B_KMAJOR>(raw, ldb, cb);
 #pragma unroll
   for (int s = 0; s < KC / 8; ++s) {
     float v[4];
@@ -389,6 +409,14 @@ __device__ __forceinline__ void wgmma_step(float (&acc)[N / 2], const float* As,
 #pragma unroll
     for (int e = 0; e < 4; ++e) split_tf32(v[e], cur.h[s][e], cur.l[s][e]);
   }
+}
+
+template <int N, int KC, bool A_ROWK, bool B_KMAJOR>
+__device__ __forceinline__ void wgmma_step(float (&acc)[N / 2], const float* As, int lda, int ar,
+                                           const float* raw, int ldb, float* cb, AFrag<KC>& cur,
+                                           AFrag<KC>& prev) {
+  split_to_core<N, KC, B_KMAJOR>(raw, ldb, cb);
+  load_a_frag<KC, A_ROWK>(cur, As, lda, ar);
   fence_proxy_async();
   __syncthreads();  // cb is whole
   wgmma_fence();
@@ -423,6 +451,86 @@ __device__ __forceinline__ void wgmma_chunk(float (&acc)[N / 2], const float* As
     wgmma_step<N, KC, A_ROWK, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[1], af[0]);
   else
     wgmma_step<N, KC, A_ROWK, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[0], af[1]);
+}
+
+// Precision of the sums. A sum carried in one wgmma accumulator over a long
+// K strays further than an fp32 sum, the more the more wgmmas add into it
+// (three a k-step of 8). On an H100 the forwards' products (qkv, fc1 and
+// fc2, K 180 to 480, unit-scale operands) strayed 8.8e-6 to 2.3e-5 from a
+// float64 result, where PyTorch's fp32 product strayed 3.0e-6 to 5.5e-6. A
+// promoted product (wgmma_chunk_promoted) sums kPromoteChunks chunks (32
+// deep) alone, in `part`, and adds them to acc on the CUDA cores in fp32
+// with round-to-nearest: 1.7e-6 to 1.9e-6, for under 1% of the product's
+// time (every chunk: 1.3e-6 to 1.9e-6 and 4-5%; every four chunks: 2.7e-6
+// to 3.1e-6). scripts/benchmarking/chip_promote_sums.py measures the
+// settings on linear_kernel's PROMOTE.
+
+// Order the reads of part after the wait for the wgmmas that wrote it.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&part)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(part[i])::"memory");
+}
+
+constexpr int kPromoteChunks = 2;  // chunks a promoted product sums in `part` before acc
+
+template <int N, int KC, bool A_ROWK, bool B_KMAJOR, int PROMOTE>
+__device__ __forceinline__ void promoted_step(float (&acc)[N / 2], float (&part)[N / 2],
+                                              const float* As, int lda, int ar, const float* raw,
+                                              int ldb, float* cb, int i, AFrag<KC>& cur,
+                                              AFrag<KC>& prev) {
+  const bool fresh = i % PROMOTE == 0;
+  split_to_core<N, KC, B_KMAJOR>(raw, ldb, cb);
+  load_a_frag<KC, A_ROWK>(cur, As, lda, ar);
+  fence_proxy_async();
+  __syncthreads();  // cb is whole
+  if (fresh && i > 0) {  // the chunks before are done: their sum joins acc
+    wgmma_wait_all();
+    fence_operands(part);
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] += part[e];
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KC / 8; ++s) {
+    const uint64_t dh = wgmma_desc(cb + 64 * s, 128, KC * 32);
+    const uint64_t dl = wgmma_desc(cb + N * KC + 64 * s, 128, KC * 32);
+    Wgmma<N>::mma(part, cur.l[s], dh, !fresh || s > 0);
+    Wgmma<N>::mma(part, cur.h[s], dl);
+    Wgmma<N>::mma(part, cur.h[s], dh);
+  }
+  wgmma_commit();
+  wgmma_wait_prev();
+  keep(prev);  // the previous chunk's group is done only now
+}
+
+// acc (the warpgroup's 64 x N block) += A B over chunk i of a product, the
+// block's chunk j (its split buffer), as wgmma_chunk takes its operands,
+// promoted: every PROMOTE chunks, part starts afresh (scale-d 0 on the
+// first wgmma) once the sum of those before, done, has joined acc;
+// wgmma_promote_last adds the last. As in wgmma_chunk, a chunk's wgmmas run
+// while the next is split.
+template <int N, int KC, bool A_ROWK, bool B_KMAJOR, int PROMOTE = kPromoteChunks>
+__device__ __forceinline__ void wgmma_chunk_promoted(float (&acc)[N / 2], float (&part)[N / 2],
+                                                     const float* As, int lda, int ar,
+                                                     const float* raw, int ldb, float* split,
+                                                     int j, int i, AFrag<KC> (&af)[2]) {
+  float* cb = split + (j % kSplitBufs) * 2 * N * KC;
+  if (j & 1)
+    promoted_step<N, KC, A_ROWK, B_KMAJOR, PROMOTE>(acc, part, As, lda, ar, raw, ldb, cb, i, af[1],
+                                                    af[0]);
+  else
+    promoted_step<N, KC, A_ROWK, B_KMAJOR, PROMOTE>(acc, part, As, lda, ar, raw, ldb, cb, i, af[0],
+                                                    af[1]);
+}
+
+// The last chunks' sum to acc, after a run of wgmma_chunk_promoted.
+template <int N>
+__device__ __forceinline__ void wgmma_promote_last(float (&acc)[N], float (&part)[N]) {
+  wgmma_wait_all();
+  fence_operands(part);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += part[i];
 }
 
 // ---------------------------------------------------------------------------

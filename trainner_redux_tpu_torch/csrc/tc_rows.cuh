@@ -1,10 +1,13 @@
 // The per-token kernels of the tensor-core engine (tc_gemm.cuh), shared by
-// the training backwards: LayerNorm rows, the products y W (+ b) and A W^T
-// over 128-token block tiles, and the row-wise epilogues that take whole
-// rows of a product (the LayerNorm backward, a residual). fp32 in 3xTF32,
-// for sm_90a; 256 threads a block, two warpgroups of 64 rows each, one block
-// a SM. C (a row's channels) is at most 256 and a multiple of 4: rows move
-// with 16-byte loads and copies.
+// the training backwards and the pre-LN block forwards (block_fwd.cuh):
+// LayerNorm rows, the products y W (+ b) and A W^T over 128-token block
+// tiles, and the epilogues that take whole rows of a product (the LayerNorm
+// backward, a residual). fp32 in 3xTF32, for sm_90a; 256 threads a block,
+// two warpgroups of 64 rows each, one block a SM. The backwards take rows of
+// C <= 256 channels, C a multiple of 4: rows move with 16-byte loads and
+// copies. The forwards' kernels (ln_rows_kernel, linear_kernel) also take
+// rows of up to 512 channels and, where a width is not a multiple of 4,
+// move them a float at a time (VEC false).
 #pragma once
 
 #include "tc_gemm.cuh"
@@ -25,6 +28,11 @@ constexpr int kRowLd = kTcK + 4;    // row stride of a [row][k] chunk (conflict-
 constexpr int kRowsStore = 0;       // out = dy
 constexpr int kRowsResidual = 1;    // out = dres + dy
 constexpr int kRowsLn = 2;          // the LayerNorm backward of the rows
+constexpr int kLnMaxC = 512;        // channels of a ln_rows_kernel row
+// What linear_kernel does with its product acc = A W.
+constexpr int kLinearBias = 0;      // out = acc + b
+constexpr int kLinearGelu = 1;      // out = gelu_erf(acc + b)
+constexpr int kLinearResidual = 2;  // out = x + s[t / hw] (acc + b)
 
 // The columns of a rows_kernel tile: the least of 64, 128, 192, 256 >= C.
 __host__ __device__ inline int rows_cols(int C) { return C <= 64 ? 64 : (C + 63) / 64 * 64; }
@@ -37,14 +45,24 @@ __host__ __device__ constexpr int token_stage_floats(int bn) {
   return kTcRows * kRowLd + (bn * kRowLd > kTcK * (bn + 8) ? bn * kRowLd : kTcK * (bn + 8));
 }
 
-// Shared memory, in bytes, of rows_kernel and of linear_kernel.
+// Shared memory, in bytes, of rows_kernel and of linear_kernel at BN
+// columns.
 __host__ __device__ inline int rows_smem_bytes(int C) {
   return split_floats(rows_cols(C)) * (int)sizeof(float) +
          Ring<>::bytes(token_stage_floats(rows_cols(C)));
 }
-__host__ __device__ inline int linear_smem_bytes() {
-  return split_floats(kColTile) * (int)sizeof(float) +
-         Ring<>::bytes(token_stage_floats(kColTile));
+__host__ __device__ inline int linear_smem_bytes(int bn = kColTile) {
+  return split_floats(bn) * (int)sizeof(float) + Ring<>::bytes(token_stage_floats(bn));
+}
+
+// The columns of a linear_kernel tile: 128, and for the residual epilogue
+// 64 or 128 where one tile spans the row, 96 for rows of 129-192 (two
+// tiles: 192 columns at C 180, where 128-column tiles would take 256), else
+// 128 (256 at C 240). At most 128: a promoted product holds two
+// accumulators of BN / 2 floats a thread.
+__host__ __device__ inline int linear_cols(int N, int epi) {
+  if (epi != kLinearResidual) return kColTile;
+  return N <= 64 ? 64 : N <= 128 ? 128 : N <= 192 ? 96 : kColTile;
 }
 
 // mlp_hidden_kernel keeps gelu'(h) of its tile in shared memory between
@@ -56,73 +74,96 @@ __host__ __device__ inline int hidden_smem_bytes() {
 }
 
 // y = LN(x) (T, C) with g and be, two-pass mean and variance as the forward;
-// stats (T, 2) the mean and 1/std of each row. When dm is not null, dm =
-// s[t / hw] dout as well. One warp a token, C <= 256 and a multiple of 4.
+// stats (T, 2) the mean and 1/std of each row, when not null. When dm is
+// not null, dm = s[t / hw] dout as well. One warp a token, C <= kLnMaxC;
+// VEC (C a multiple of 4): 16-byte loads and stores, else a float at a time.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
                    const float* __restrict__ be, float* __restrict__ y, float* __restrict__ stats,
                    const float* __restrict__ dout, const float* __restrict__ s,
                    float* __restrict__ dm, long long T, long long hw, int C, float eps) {
+  constexpr int V = VEC ? 4 : 1;           // floats a load
+  constexpr int PER = kLnMaxC / (32 * V);  // loads a lane
   const long long t = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (t >= T) return;
-  const int lane = threadIdx.x % 32, n4 = C / 4;
-  const float4* xr = reinterpret_cast<const float4*>(x + t * C);
-  float4 v[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  const int lane = threadIdx.x % 32, nv = C / V;
+  const float* xr = x + t * C;
+  float v[PER * V];
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (lane + 32 * i < n4) {
-      v[i] = __ldg(xr + lane + 32 * i);
-      sum += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+  for (int i = 0; i < PER; ++i) {
+    const int e = lane + 32 * i;
+    if (e >= nv) continue;
+    if constexpr (VEC) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(xr) + e);
+      v[4 * i] = a.x, v[4 * i + 1] = a.y, v[4 * i + 2] = a.z, v[4 * i + 3] = a.w;
+      sum += (a.x + a.y) + (a.z + a.w);
+    } else {
+      v[i] = __ldg(xr + e);
+      sum += v[i];
     }
   }
   const float mean = warp_sum(sum) / C;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (lane + 32 * i < n4) {
-      const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
+  for (int i = 0; i < PER; ++i) {
+    if (lane + 32 * i >= nv) continue;
+    if constexpr (VEC) {
+      const float a = v[4 * i] - mean, b = v[4 * i + 1] - mean, c = v[4 * i + 2] - mean,
+                  d = v[4 * i + 3] - mean;
       q += (a * a + b * b) + (c * c + d * d);
+    } else {
+      const float a = v[i] - mean;
+      q += a * a;
     }
   }
   const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
-  if (lane == 0) {
+  if (lane == 0 && stats != nullptr) {
     stats[2 * t] = mean;
     stats[2 * t + 1] = inv;
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c4 = lane + 32 * i;
-    if (c4 < n4) {
-      const float4 gg = __ldg(reinterpret_cast<const float4*>(g) + c4);
-      const float4 bb = __ldg(reinterpret_cast<const float4*>(be) + c4);
-      reinterpret_cast<float4*>(y + t * C)[c4] =
-          make_float4((v[i].x - mean) * inv * gg.x + bb.x, (v[i].y - mean) * inv * gg.y + bb.y,
-                      (v[i].z - mean) * inv * gg.z + bb.z, (v[i].w - mean) * inv * gg.w + bb.w);
+  for (int i = 0; i < PER; ++i) {
+    const int e = lane + 32 * i;
+    if (e >= nv) continue;
+    if constexpr (VEC) {
+      const float4 gg = __ldg(reinterpret_cast<const float4*>(g) + e);
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(be) + e);
+      reinterpret_cast<float4*>(y + t * C)[e] = make_float4(
+          (v[4 * i] - mean) * inv * gg.x + bb.x, (v[4 * i + 1] - mean) * inv * gg.y + bb.y,
+          (v[4 * i + 2] - mean) * inv * gg.z + bb.z, (v[4 * i + 3] - mean) * inv * gg.w + bb.w);
+    } else {
+      y[t * C + e] = (v[i] - mean) * inv * __ldg(g + e) + __ldg(be + e);
     }
   }
   if (dm != nullptr) {
     const float sc = __ldg(s + t / hw);
-    for (int c4 = lane; c4 < n4; c4 += 32) {
-      const float4 d = __ldg(reinterpret_cast<const float4*>(dout + t * C) + c4);
-      reinterpret_cast<float4*>(dm + t * C)[c4] =
-          make_float4(sc * d.x, sc * d.y, sc * d.z, sc * d.w);
+    for (int e = lane; e < nv; e += 32) {
+      if constexpr (VEC) {
+        const float4 d = __ldg(reinterpret_cast<const float4*>(dout + t * C) + e);
+        reinterpret_cast<float4*>(dm + t * C)[e] =
+            make_float4(sc * d.x, sc * d.y, sc * d.z, sc * d.w);
+      } else {
+        dm[t * C + e] = sc * __ldg(dout + t * C + e);
+      }
     }
   }
 }
 
 // Issue the copies of chunk j: A (T, K) rows t0.. and, B_KMAJOR, W (N, K)
-// rows n0.., else W (K, N) columns n0...
-template <int BN, bool B_KMAJOR>
+// rows n0.., else W (K, N) columns n0... VEC: 16-byte copies (K and N
+// multiples of 4), else 4-byte ones.
+template <int BN, bool B_KMAJOR, bool VEC = true>
 __device__ __forceinline__ void load_wg_stage(float* st, const float* __restrict__ A,
                                               long long t0, long long T,
                                               const float* __restrict__ W, int n0, int N, int K,
                                               int j) {
-  load_tile<kTcRows, kTcK>(st, kRowLd, A, K, t0, T, j * kTcK, K);
+  load_tile<kTcRows, kTcK, VEC>(st, kRowLd, A, K, t0, T, j * kTcK, K);
   if constexpr (B_KMAJOR)
-    load_tile<BN, kTcK>(st + kTcRows * kRowLd, kRowLd, W, K, n0, N, j * kTcK, K);
+    load_tile<BN, kTcK, VEC>(st + kTcRows * kRowLd, kRowLd, W, K, n0, N, j * kTcK, K);
   else
-    load_tile<kTcK, BN>(st + kTcRows * kRowLd, BN + 8, W, N, j * kTcK, K, n0, N);
+    load_tile<kTcK, BN, VEC>(st + kTcRows * kRowLd, BN + 8, W, N, j * kTcK, K, n0, N);
 }
 
 template <int BN, bool B_KMAJOR>
@@ -142,49 +183,83 @@ __device__ __forceinline__ int acc_col(int i) {
 }
 
 // acc (this warpgroup's 64 x BN of the block tile) = A W over K: A (T, K)
-// rows t0.., W (K, N) columns n0.. (N-major: transposed as it is split).
-// Chunk j of the product is chunk j0 + j of the block's split buffers.
-template <int BN>
+// rows t0.., W (K, N) columns n0.. (N-major: transposed as it is split),
+// promoted every PROMOTE chunks (tc_gemm.cuh). Chunk j of the product is
+// chunk j0 + j of the block's split buffers.
+template <int BN, bool VEC = true, int PROMOTE = kPromoteChunks>
 __device__ __forceinline__ void xw_product(float (&acc)[BN / 2], Ring<>& ring, float* split,
                                            AFrag<> (&af)[2], const float* __restrict__ A,
                                            long long t0, long long T,
                                            const float* __restrict__ W, int n0, int N, int K,
                                            int j0) {
+  float part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   ring.run(
       (K + kTcK - 1) / kTcK,
-      [&](int j, float* st) { load_wg_stage<BN, false>(st, A, t0, T, W, n0, N, K, j); },
-      [&](int j, const float* st) { use_wg_stage<BN, false>(acc, st, split, j0 + j, af); });
-  wgmma_wait_all();
+      [&](int j, float* st) { load_wg_stage<BN, false, VEC>(st, A, t0, T, W, n0, N, K, j); },
+      [&](int j, const float* st) {
+        wgmma_chunk_promoted<BN, kTcK, true, false, PROMOTE>(
+            acc, part, st, kRowLd, 16 * (threadIdx.x / 32), st + kTcRows * kRowLd, BN + 8, split,
+            j0 + j, j, af);
+      });
+  wgmma_promote_last(acc, part);
 }
 
-// Per 128 tokens t0.. and 128 columns n0..: out (T, N) = A (T, K) W (K, N)
-// + b, or its gelu_erf (gelu), W as it lies (N-major); a ragged last column
-// tile is masked.
+// Per 128 tokens t0.. and BN columns n0..: out (T, N) = A (T, K) W (K, N)
+// + b (EPI kLinearBias), its gelu_erf (kLinearGelu), or x + s[t / hw] (A W
+// + b) (kLinearResidual, x (T, N)); W as it lies (N-major); a ragged last
+// column tile is masked. BN is linear_cols(N, EPI). The column tiles of a
+// token tile are neighbours in the grid, so A's rows come from L2 after the
+// first. VEC: K and N multiples of 4 (16-byte copies, 8-byte loads and
+// stores), else a float at a time. PROMOTE: as xw_product's.
+template <int BN, bool VEC, int EPI, int PROMOTE = kPromoteChunks>
 __global__ void __launch_bounds__(kThreads, 1)
     linear_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                  const float* __restrict__ b, float* __restrict__ out, long long T, int K,
-                  int N, bool gelu) {
-  constexpr int BN = kColTile;
+                  const float* __restrict__ b, const float* __restrict__ x,
+                  const float* __restrict__ s, float* __restrict__ out, long long T,
+                  long long hw, int K, int N) {
   extern __shared__ __align__(16) float smem[];
   float* split = smem;
   Ring<> ring;
   ring.init(split + split_floats(BN), token_stage_floats(BN));
-  const long long t0 = (long long)blockIdx.x * kTcRows;
-  const int n0 = blockIdx.y * kColTile;
+  const int ncol = (N + BN - 1) / BN;  // column tiles: the grid's fastest index
+  const long long t0 = (long long)(blockIdx.x / ncol) * kTcRows;
+  const int n0 = (int)(blockIdx.x % ncol) * BN;
   float acc[BN / 2];
   AFrag<> af[2];
-  xw_product<BN>(acc, ring, split, af, A, t0, T, W, n0, N, K, 0);
+  xw_product<BN, VEC, PROMOTE>(acc, ring, split, af, A, t0, T, W, n0, N, K, 0);
+  // a thread's elements lie in two rows, acc_row(0) and 8 below it
+  long long tr[2];
+  float sc[2] = {1.f, 1.f};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    tr[k] = t0 + acc_row(2 * k);
+    if constexpr (EPI == kLinearResidual) sc[k] = tr[k] < T ? __ldg(s + tr[k] / hw) : 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < BN / 2; i += 2) {
-    const int c = n0 + acc_col(i);
-    const long long t = t0 + acc_row(i);
-    if (c < N && t < T) {
+    const int c = n0 + acc_col(i), k = (i / 2) % 2;
+    const long long t = tr[k];
+    if (c >= N || t >= T) continue;
+    if constexpr (VEC) {
       const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
       float2 y = make_float2(acc[i] + bb.x, acc[i + 1] + bb.y);
-      if (gelu) y = make_float2(gelu_erf(y.x), gelu_erf(y.y));
+      if constexpr (EPI == kLinearGelu) y = make_float2(gelu_erf(y.x), gelu_erf(y.y));
+      if constexpr (EPI == kLinearResidual) {
+        const float2 xv = __ldg(reinterpret_cast<const float2*>(x + t * N + c));
+        y = make_float2(xv.x + sc[k] * y.x, xv.y + sc[k] * y.y);
+      }
       *reinterpret_cast<float2*>(out + t * N + c) = y;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (c + u >= N) break;
+        float y = acc[i + u] + __ldg(b + c + u);
+        if constexpr (EPI == kLinearGelu) y = gelu_erf(y);
+        if constexpr (EPI == kLinearResidual) y = __ldg(x + t * N + c + u) + sc[k] * y;
+        out[t * N + c + u] = y;
+      }
     }
   }
 }
@@ -380,24 +455,62 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ln_rows_kernel over the T rows: 16-byte rows where C is a multiple of 4
+// (dm, the backwards' scaled gradient, needs them), else a float at a time.
 inline cudaError_t ln_rows(const float* x, const float* g, const float* be, float* y,
                            float* stats, const float* dout, const float* s, float* dm,
                            long long T, long long hw, int C, float eps, cudaStream_t stream) {
+  if (C > kLnMaxC || (C % 4 && dm != nullptr)) return cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
-  ln_rows_kernel<<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw, C, eps);
+  if (C % 4 == 0)
+    ln_rows_kernel<true><<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw,
+                                                          C, eps);
+  else
+    ln_rows_kernel<false><<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T,
+                                                           hw, C, eps);
   return cudaGetLastError();
 }
 
-// out (T, N) = A (T, K) W (K, N) + b on linear_kernel, or its gelu_erf.
-inline cudaError_t linear(const float* A, const float* W, const float* b, float* out, long long T,
-                          int K, int N, cudaStream_t stream, bool gelu = false) {
-  const int smem = linear_smem_bytes();
-  const cudaError_t err =
-      cudaFuncSetAttribute(linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int BN, bool VEC, int EPI>
+inline cudaError_t linear_launch(const float* A, const float* W, const float* b, const float* x,
+                                 const float* s, float* out, long long T, long long hw, int K,
+                                 int N, cudaStream_t stream) {
+  const int smem = linear_smem_bytes(BN);
+  const cudaError_t err = cudaFuncSetAttribute(
+      linear_kernel<BN, VEC, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((T + kTcRows - 1) / kTcRows), (N + kColTile - 1) / kColTile);
-  linear_kernel<<<grid, kThreads, smem, stream>>>(A, W, b, out, T, K, N, gelu);
+  const unsigned grid = (unsigned)((T + kTcRows - 1) / kTcRows) * (unsigned)((N + BN - 1) / BN);
+  linear_kernel<BN, VEC, EPI><<<grid, kThreads, smem, stream>>>(A, W, b, x, s, out, T, hw, K, N);
   return cudaGetLastError();
+}
+
+template <bool VEC, int EPI>
+inline cudaError_t linear_vec(const float* A, const float* W, const float* b, const float* x,
+                              const float* s, float* out, long long T, long long hw, int K, int N,
+                              cudaStream_t stream) {
+  if constexpr (EPI != kLinearResidual) {
+    return linear_launch<kColTile, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
+  } else {
+    switch (linear_cols(N, EPI)) {
+      case 64:
+        return linear_launch<64, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
+      case 96:
+        return linear_launch<96, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
+      default:
+        return linear_launch<kColTile, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
+    }
+  }
+}
+
+// linear_kernel: out (T, N) = A (T, K) W (K, N) + b (EPI kLinearBias), its
+// gelu_erf (kLinearGelu) or x + s[t / hw] (A W + b) (kLinearResidual).
+template <int EPI = kLinearBias>
+inline cudaError_t linear(const float* A, const float* W, const float* b, float* out, long long T,
+                          int K, int N, cudaStream_t stream, const float* x = nullptr,
+                          const float* s = nullptr, long long hw = 1) {
+  return K % 4 == 0 && N % 4 == 0
+             ? linear_vec<true, EPI>(A, W, b, x, s, out, T, hw, K, N, stream)
+             : linear_vec<false, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
 }
 
 inline cudaError_t mlp_hidden(const float* y, const float* dm, const float* w1, const float* b1,

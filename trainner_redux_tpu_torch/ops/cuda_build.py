@@ -49,18 +49,18 @@ SIGNATURES = {
         "trr_attn_block_staged_bwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_staged_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_attn_staged_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
-        "trr_attn_block_train_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_train_fwd": ([_P] * 14 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_block_train_bwd": ([_P] * 19 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_train_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
     "fused_block": {
-        "trr_attn_block_fwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _P], _I),
-        "trr_ln_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
-        "trr_attn_block_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "trr_ln_mlp_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_attn_block_fwd": ([_P] * 13 + [_I] * 7 + [_F, _F, _P], _I),
+        "trr_ln_mlp_fwd": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
+        "trr_attn_block_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_ln_mlp_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "fused_block_train": {
-        "trr_swin_block_fwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_swin_block_fwd": ([_P] * 23 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_swin_block_bwd": ([_P] * 39 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_ln_mlp_bwd": ([_P] * 19 + [_I] * 5 + [_F, _P], _I),
         "trr_weight_grad": ([_P] * 2 + [_I] * 3 + [_P] * 3, _I),

@@ -22,8 +22,9 @@ LN and fc1.
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
 (K, nh, n, n). Heads of at most 32 channels, in fp32. The attention half
-takes 8x8 windows (n = 64: one thread block a window) and 12x12 (n = 144,
-SRFormerV2's: the staged kernels of `csrc/attn_block_staged.cu`); its
+takes 8x8 windows (n = 64: the tensor-core stages of `csrc/block_fwd.cuh`,
+which the MLP half runs too) and 12x12 (n = 144, SRFormerV2's: the staged
+kernels of `csrc/attn_block_staged.cu`); its
 backwards and its training form take both, the whole training block (#4/#5)
 8x8 only. The cyclic shift of a shifted block is either done by the caller
 (roll x, unroll z; the JAX package's contract) or, with `shift=s`, by the
@@ -53,6 +54,7 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     WINDOW,
     _check_cuda,
     attn_bwd_tc_smem_bytes,
+    attn_fwd_tc_smem_bytes,
     fused_window_mhsa_reference,
     window_kinds,
 )
@@ -62,10 +64,11 @@ STAGE_FLOATS = 2 * 32 * 96  # double-buffered weight stage (kStageFloats)
 # of TC_STAGES operand chunks TC_K deep ([row][k] rows TC_LD floats apart),
 # TC_SPLIT buffers of a weight chunk's TF32 halves, block tiles of TC_ROWS
 # tokens; the weight gradients take chunks ATB_K deep on ATB_STAGES stages.
-# A rows_kernel tile spans a row of at most ROWS_MAX_C channels.
+# A rows_kernel tile spans a row of at most ROWS_MAX_C channels, a
+# ln_rows_kernel row (the forwards' LayerNorm) at most LN_MAX_C.
 TC_STAGES, TC_K, TC_LD, TC_SPLIT, TC_ROWS = 4, 16, 20, 3, 128
 ATB_K, ATB_STAGES = 32, 3
-ROWS_MAX_C = 256
+ROWS_MAX_C, LN_MAX_C = 256, 512
 # the whole block's backward (#5) is held to the widths checked on the card
 SWIN_BLOCK_MAX_C = 192
 # window -> query rows of a thread block of the staged attention kernels
@@ -73,16 +76,19 @@ SWIN_BLOCK_MAX_C = 192
 STAGED_ROWS = {12: 48, 8: 64}
 
 
-def attn_block_smem_bytes(channels: int, num_heads: int) -> int:
-    """Shared memory of the attention-half kernel (csrc/fused_block.cu)."""
-    hd = channels // num_heads
-    return 4 * (2 * channels * TILE_LD + 2 * hd * TILE_LD + 64 * V_LD + 64 * TILE_LD
-                + STAGE_FLOATS + 128)
+def attn_block_smem_bytes(channels: int) -> int:
+    """The largest shared memory of the 8x8 attention half's forward kernels
+    (csrc/block_fwd.cuh): qkv on linear_kernel, the window attention on
+    mma.sync, the residual product over a row of `channels`."""
+    return max(linear_smem_bytes(), attn_fwd_tc_smem_bytes(WINDOW * WINDOW),
+               residual_smem_bytes(channels))
 
 
-def ln_mlp_smem_bytes(channels: int, hidden: int) -> int:
-    """Shared memory of the MLP-half kernel (csrc/fused_block.cu)."""
-    return 4 * (channels * TILE_LD + hidden * TILE_LD + STAGE_FLOATS + 128)
+def ln_mlp_smem_bytes(channels: int) -> int:
+    """The largest shared memory of the MLP half's forward kernels
+    (csrc/block_fwd.cuh): fc1 on linear_kernel (any hidden width), the
+    residual product over a row of `channels`."""
+    return max(linear_smem_bytes(), residual_smem_bytes(channels))
 
 
 def attn_staged_fwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
@@ -119,15 +125,15 @@ def attn_train_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -
 
 def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
     """The attention half's forward (#1): window-aligned dims, heads of at
-    most 32 channels, 8x8 windows on the one-window kernel or 12x12 on the
-    staged kernels, each plan within one thread block's shared memory."""
-    # the LayerNorm's (64, C + 1) scratch lives in a (C, 68) tile
-    if h % window_size or w % window_size or channels < 16:
+    most 32 channels, 8x8 windows on the tensor-core stages (a LayerNorm row
+    of at most LN_MAX_C channels) or 12x12 on the staged FMA kernels, each
+    plan within one thread block's shared memory."""
+    if h % window_size or w % window_size:
         return False
     if channels % num_heads or channels // num_heads > V_LD:
         return False
     if window_size == WINDOW:
-        return attn_block_smem_bytes(channels, num_heads) <= SMEM_LIMIT
+        return channels <= LN_MAX_C and attn_block_smem_bytes(channels) <= SMEM_LIMIT
     return (window_size in STAGED_ROWS
             and attn_staged_fwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
 
@@ -163,11 +169,12 @@ def attn_block_train_fits(h, w, window_size, channels, num_heads, batch=1) -> bo
     return attn_train_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT
 
 
-def ln_mlp_fits(h, window_size, channels, hidden) -> bool:
-    # the LayerNorm's (64, C + 1) scratch lives in the (hidden, 68) tile
-    if h % window_size or 64 * (channels + 1) > hidden * TILE_LD:
+def ln_mlp_fits(h, window_size, channels) -> bool:
+    """The MLP half's forward (#2): H a multiple of the caller's rows, a
+    LayerNorm row of at most LN_MAX_C channels, any hidden width."""
+    if h % window_size or channels > LN_MAX_C:
         return False
-    return ln_mlp_smem_bytes(channels, hidden) <= SMEM_LIMIT
+    return ln_mlp_smem_bytes(channels) <= SMEM_LIMIT
 
 
 def _ring_bytes(stage_floats: int, stages: int = TC_STAGES) -> int:
@@ -205,6 +212,19 @@ def linear_smem_bytes() -> int:
     return _wg_bytes(128)
 
 
+def residual_tile_cols(channels: int) -> int:
+    """Columns of a linear_kernel tile with its residual epilogue
+    (csrc/tc_rows.cuh `linear_cols`): 64 or 128 where one tile spans the
+    row, 96 for rows of 129-192 (two tiles), else 128."""
+    return 64 if channels <= 64 else 128 if channels <= 128 else 96 if channels <= 192 else 128
+
+
+def residual_smem_bytes(channels: int) -> int:
+    """Shared memory of linear_kernel with its residual epilogue: a
+    per-token kernel's buffers at its column tile."""
+    return _wg_bytes(residual_tile_cols(channels))
+
+
 def mlp_hidden_smem_bytes() -> int:
     """Shared memory of mlp_hidden_kernel: gelu'(h) of its (128, 128) tile
     besides a per-token kernel's buffers."""
@@ -239,7 +259,7 @@ def fused_mlp_supported(h: int, w: int, rows: int, channels: int, hidden: int,
         return False
     if os.environ.get("TRAINNER_FUSED_ATTN", "1") == "0":
         return False
-    if rows <= 0 or not ln_mlp_fits(h, rows, channels, hidden):
+    if rows <= 0 or not ln_mlp_fits(h, rows, channels):
         return False
     return not train or ln_mlp_bwd_fits(channels, hidden)
 
@@ -256,7 +276,7 @@ def fused_block_supported(
     if os.environ.get("TRAINNER_FUSED_ATTN", "1") == "0":
         return False
     return attn_block_fits(h, w, window_size, channels, num_heads) and ln_mlp_fits(
-        h, window_size, channels, hidden
+        h, window_size, channels
     )
 
 
@@ -343,23 +363,27 @@ def _launch(lib_name: str, fn_name: str, device, *args) -> None:
 
 
 def _ln_mlp_fwd_cuda(x, g, be, w1, b1, w2, b2, s, window_size, eps):
+    name = "fused_ln_mlp"
     b, hh, ww, c = x.shape
-    hidden = w1.shape[1]
-    if not ln_mlp_fits(hh, window_size, c, hidden):
+    hidden, T = w1.shape[1], b * hh * ww
+    if not ln_mlp_fits(hh, window_size, c):
         raise ValueError(
-            f"fused_ln_mlp: H={hh}, C={c}, hidden={hidden}, ws={window_size} "
-            "is outside the kernel's limits"
+            f"{name}: H={hh}, C={c}, hidden={hidden}, ws={window_size} "
+            "is outside the kernels' limits"
         )
-    for name, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
-        _check_cuda(name, t, shape, x.device)
+    for k, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
+        _check_cuda(k, t, shape, x.device)
+    _check_aligned(name, x=x, g=g, be=be, w1=w1, b1=b1, w2=w2, b2=b2)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    # scratch: LN2(x) and the hidden layer
+    y = torch.empty((T, c), device=x.device, dtype=torch.float32)
+    h = torch.empty((T, hidden), device=x.device, dtype=torch.float32)
     fused_ln_mlp.launches += 1
     _launch(
         "fused_block", "trr_ln_mlp_fwd", x.device,
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), s.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in (x, g, be, w1, b1, w2, b2, s, y, h, out)),
         b, hh, ww, c, hidden, eps,
     )
     return out
@@ -406,7 +430,7 @@ def fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e
     name = "fused_ln_mlp_backward"
     b, hh, ww, c = x.shape
     hidden, dev, T = w1.shape[1], x.device, b * hh * ww
-    if not (ln_mlp_fits(hh, window_size, c, hidden) and ln_mlp_bwd_fits(c, hidden)):
+    if not (ln_mlp_fits(hh, window_size, c) and ln_mlp_bwd_fits(c, hidden)):
         raise ValueError(f"{name}: H={hh}, C={c}, hidden={hidden}, ws={window_size} "
                          "is outside the kernels' limits")
     if T * hidden >= 2**31:
@@ -501,22 +525,23 @@ def _attn_block_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
                          eps, shift):
     _check_attn_operands("fused_attn_block", x, g, be, wq, bq, wp, bp, bias, s, num_heads,
                          head_dim, window_size, shift, attn_block_fits)
+    _check_aligned("fused_attn_block", x=x, g=g, be=be, wq=wq, bq=bq, wp=wp, bp=bp, bias=bias)
     b, hh, ww, c = x.shape
     z = torch.empty_like(x)
     if z.numel() == 0:
         return z
+    T = b * hh * ww  # the stages pass qkv and att through (T, 3C) and (T, C) scratch
+    qkv = torch.empty((T, 3 * c), device=x.device, dtype=torch.float32)
+    att = torch.empty((T, c), device=x.device, dtype=torch.float32)
     fused_attn_block.launches += 1
-    if window_size == WINDOW:  # one thread block a window
+    if window_size == WINDOW:  # the tensor-core stages, LN1(x) through (T, C) scratch
+        y = torch.empty((T, c), device=x.device, dtype=torch.float32)
         _launch(
             "fused_block", "trr_attn_block_fwd", x.device,
-            x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-            wp.data_ptr(), bp.data_ptr(), bias.data_ptr(), s.data_ptr(), z.data_ptr(),
+            *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, z)),
             b, hh, ww, c, num_heads, bias.shape[0], shift, eps, head_dim**-0.5,
         )
         return z
-    T = b * hh * ww  # the staged kernels, through (T, 3C) and (T, C) scratch
-    qkv = torch.empty((T, 3 * c), device=x.device, dtype=torch.float32)
-    att = torch.empty((T, c), device=x.device, dtype=torch.float32)
     _launch(
         "attn_block_staged", "trr_attn_block_staged_fwd", x.device,
         x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
@@ -692,21 +717,24 @@ def _attn_block_train_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, hea
     _check_attn_operands("fused_attn_block_train", x, g, be, wq, bq, wp, bp, bias, s, num_heads,
                          head_dim, window_size, shift,
                          functools.partial(attn_block_train_fits, batch=b))
+    _check_aligned("fused_attn_block_train", x=x, g=g, be=be, wq=wq, bq=bq, wp=wp, bp=bp,
+                   bias=bias)
     ws, n = window_size, window_size**2
     z, att = torch.empty_like(x), torch.empty_like(x)
     P = torch.empty((b, hh // ws, ww // ws, num_heads, n, n), device=x.device,
                     dtype=torch.float32)
     if z.numel() == 0:
         return z, P, att
-    # the staged kernels (12x12) pass q, k, v through (T, 3C) scratch
-    qkv = None if ws == WINDOW else torch.empty((b * hh * ww, 3 * c), device=x.device,
-                                                dtype=torch.float32)
+    # the stages pass q, k, v through (T, 3C) scratch, and at 8x8 LN1(x) through (T, C)
+    T = b * hh * ww
+    qkv = torch.empty((T, 3 * c), device=x.device, dtype=torch.float32)
+    y = torch.empty((T, c), device=x.device, dtype=torch.float32) if ws == WINDOW else None
     fused_attn_block_train.launches += 1
     _launch(
         "attn_block_staged", "trr_attn_block_train_fwd", x.device,
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
-        bp.data_ptr(), bias.data_ptr(), s.data_ptr(), None if qkv is None else qkv.data_ptr(),
-        P.data_ptr(), att.data_ptr(), z.data_ptr(), b, hh, ww, c, num_heads, ws, bias.shape[0],
+        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s)),
+        None if y is None else y.data_ptr(),
+        *(t.data_ptr() for t in (qkv, P, att, z)), b, hh, ww, c, num_heads, ws, bias.shape[0],
         shift, eps, head_dim**-0.5,
     )
     return z, P, att
@@ -815,7 +843,7 @@ def swin_block_train_fits(h, w, window_size, channels, num_heads, hidden) -> boo
     if window_size != WINDOW or channels > SWIN_BLOCK_MAX_C:
         return False
     if not (attn_block_fits(h, w, window_size, channels, num_heads)
-            and ln_mlp_fits(h, window_size, channels, hidden)):
+            and ln_mlp_fits(h, window_size, channels)):
         return False
     return (ln_mlp_bwd_fits(channels, hidden)
             and bwd_attn_smem_bytes(channels, num_heads) <= SMEM_LIMIT)
@@ -954,16 +982,20 @@ def _swin_block_train_fwd_cuda(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1
         _check_cuda(k, t, shapes[k], x.device)
     _check_cuda("s1", s1, (b,), x.device)
     _check_cuda("s2", s2, (b,), x.device)
+    _check_aligned(name, x=x, **ops)
     out, att, z = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
     p = torch.empty((b, hh // window_size, ww // window_size, num_heads, n, n),
                     device=x.device, dtype=torch.float32)
     if x.numel() == 0:
         return out, p, att, z
+    T = b * hh * ww  # scratch: LN1(x), then LN2(z); qkv; the MLP's hidden layer
+    y, qkv, h = (torch.empty((T, k), device=x.device, dtype=torch.float32)
+                 for k in (c, 3 * c, hidden))
     fused_swin_block_train.launches += 1
     _launch(
         "fused_block_train", "trr_swin_block_fwd", x.device,
         x.data_ptr(), *(t.data_ptr() for t in ops.values()), s1.data_ptr(), s2.data_ptr(),
-        out.data_ptr(), p.data_ptr(), att.data_ptr(), z.data_ptr(),
+        *(t.data_ptr() for t in (y, qkv, h, out, p, att, z)),
         b, hh, ww, c, num_heads, hidden, kinds, shift, eps, head_dim**-0.5,
     )
     return out, p, att, z

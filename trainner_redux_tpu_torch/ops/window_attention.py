@@ -66,6 +66,16 @@ def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int
     return 4 * (hd * TILE_LD + hd * n + n * V_LD + TILE * (n + 4))
 
 
+def attn_fwd_tc_smem_bytes(n: int) -> int:
+    """Shared memory of the tensor-core window-attention forward
+    (csrc/tc_attn.cuh) at windows of n tokens: k and v of the window and q
+    and att of a row block, rows HEAD_LD apart, the (rows, n + 4) P tile, two
+    (parts, rows) exchanges of the key parts' row max and sum, and the n
+    token indices."""
+    rb, ks = TC_ATTN_PLANS[n]
+    return 4 * (2 * n * HEAD_LD + 2 * rb * HEAD_LD + rb * (n + 4) + 2 * ks * rb + n)
+
+
 def attn_bwd_tc_smem_bytes(n: int, att: bool) -> int:
     """Shared memory of the tensor-core window-attention backward
     (csrc/tc_attn.cuh) at windows of n tokens: k and v of the window and q
