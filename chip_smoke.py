@@ -11,22 +11,25 @@ failure:
 
 1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
              versions; no card is a failure.
-2. build   - compile the CUDA kernels from `trainner_redux_tpu_torch/csrc`.
+2. build   - compile the CUDA kernels from `trainner_redux_tpu_torch/csrc`;
+             a kernel that spills registers (ptxas) fails it.
 3. kernels - each serving kernel against its plain PyTorch version at
              SwinIR-M shapes (B=1, 128x128 LR, C=180, 6 heads, ws 8), as the
              path calls them: K=1 unshifted and K=4 with the shift of 4 that
              fused_attn_block indexes itself; kernel, plain and library
-             times and the card's bound; at K=4 #1's and #2's device time
-             by stage (their tensor-core stages, csrc/block_fwd.cuh) and
-             their times against the fp32 and the 3xTF32 bounds; #1 and #2
-             and their plain versions against float64.
+             times (#3 by CUDA graphs: a call is shorter than its host time)
+             and the card's bound; at K=4 #1's, #2's and #3's device time by
+             stage (their tensor-core stages, csrc/block_fwd.cuh and
+             csrc/tc_attn.cuh) and their times against the fp32 and the
+             3xTF32 bounds; each and its plain version against float64.
 4. path    - `trainner_redux_tpu_torch.test.run` on a seeded SwinIR-M 4x
              (.pth) and 4 seeded images (three 128x128 LR, one 100x120),
              counting kernel launches; then the same through the unfused
              branch (TRAINNER_FUSED_BLOCK=0), which runs fused_window_mhsa.
 5. branches - one 128x128 image through the fused, unfused and plain
-             (TRAINNER_FUSED_ATTN=0) branches, each timed; the outputs
-             must agree.
+             (TRAINNER_FUSED_ATTN=0) branches, each timed (as every served
+             forward: the median of 7 timed groups after 3 warm-ups, with
+             the spread); the outputs must agree.
 6. profile - device time by kernel of the fused-branch forward; a launch
              of a RETIRED forward kernel fails it (as in every profile).
 7. train kernels - the training block's forward (#4: out, P, att, z) and
@@ -50,11 +53,11 @@ failure:
 11. hat kernels - HAT-M's kernels at its training block (B=8, 64x64 LR,
              C=180, 6 heads, 16x16 windows, hidden 360): the ws-16 window
              forward (#3) and its backward (#8: dqkv, dbias; also at ws 8,
-             SwinIR's unfused branch; two runs bit-identical), and the MLP
-             half's backward (#7), each against its plain version; times,
-             the card's bound and, for #3 and #8, SDPA with a float mask;
-             #8's (ws 16, K=4) and #7's device time by stage and their times
-             against both bounds.
+             SwinIR's unfused branch; two runs of each bit-identical, #3
+             against float64), and the MLP half's backward (#7), each
+             against its plain version; times, the card's bound and, for #3
+             and #8, SDPA with a float mask; #3's, #8's (ws 16, K=4) and
+             #7's device time by stage and their times against both bounds.
 12. hat path - `test.run` on a seeded HAT-M 4x and the 4 images, counting
              launches (36 window-MHSA and 42 MLP kernels an image).
 13. hat train - `train.run` on HAT-M 4x as phase 8 (30 steps), counting
@@ -67,10 +70,11 @@ failure:
              backward) at DAT's training block (B=8, the 48x48 LR crop's qkv
              padded to 64x64, a 90-channel branch of 3 heads of 30): windows
              8x32 and 32x8, K=1 and K=4 with their shifts, and dat_s's 8x16
-             shifted; each against its plain version, two backward runs
-             bit-identical; times, the card's bound and SDPA with a float
-             mask; #8's device time by stage at 8x32 K=4 and its time
-             against both bounds.
+             shifted; each against its plain version and #3 against
+             float64, two runs of each bit-identical; times, the card's
+             bound and SDPA with a float mask; #3's device time by stage at
+             each window's K=4 and #8's at 8x32 K=4, their times against
+             both bounds.
 17. dat path - `test.run` on a seeded DAT 4x and the 4 images, counting
              launches (36 rect-window forwards an image); one 128x128
              image's forward timed.
@@ -133,12 +137,13 @@ failure:
 30. srformerv2 kernels - SRFormerV2's Swin-block kernels at its training
              block (B=8, the 48x48 LR crop padded to 72x72, C=240, 8 heads
              of 30, 12x12 windows, hidden 480, DropPath scales holding 0 and
-             1/0.9): #1 on its staged kernels and its recompute backward #6,
-             K=1 and K=4 shifted by 6; #2 and #7; each
-             against its plain version, #6 and #7 bit-identical over two
-             runs; times and the card's bound; #6's (K=1), #2's and #7's
-             device time by stage and their times against both bounds; #1
-             and #2 also at B=1, 144x144 (a 128x128 image, served).
+             1/0.9): #1 on the tensor-core stages (csrc/block_fwd.cuh) and
+             its recompute backward #6, K=1 and K=4 shifted by 6; #2 and #7;
+             each against its plain version, #1 also against float64, #6
+             and #7 bit-identical over two runs; times and the card's bound;
+             #1's, #6's (K=1), #2's and #7's device time by stage and their
+             times against both bounds; #1 and #2 also at B=1, 144x144 (a
+             128x128 image, served).
 31. srformerv2 path - `test.run` on a seeded SRFormerV2 4x and the 4
              images, counting 18 #1 and 18 #2 launches an image; one 128x128
              forward timed through the kernel branch and the plain branch
@@ -167,8 +172,8 @@ failure:
              `fused_attn_block` (#1/#6) and, at 8x8, `fused_swin_block_train`
              (#4/#5); times of #9, #10, #1 and #6 and of the two blocks, the
              card's bound, and each block's peak memory; #10 also from #9's
-             own P and att; at each block's last K, #10's device time by
-             stage against both bounds, and at 8x8 #6's and #9's.
+             own P and att; at each block's last K, #9's and #10's device
+             time by stage against both bounds, and at 8x8 #6's.
 36. deterministic - one training step of each of SwinIR-M, HAT-M, DAT,
              Swin2SR-M and SRFormerV2 (their train phases' crops and losses)
              with `deterministic: true`, twice from one seed and batch: no op
@@ -186,6 +191,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -394,12 +400,23 @@ def phase_build() -> None:
     rep = cuda_build.build_report
     say(f"[build] {time.perf_counter() - t0:.1f} s, built {rep['built']} in {rep['dir']}")
     OUT.mkdir(parents=True, exist_ok=True)
+    spills, reports = [], 0
     with open(OUT / "ptxas.txt", "w") as f:
         for name, log in rep["logs"].items():
             f.write(f"== {name}\n{log}\n")
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"[build] {name}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    reports += 1
+                    if int(m.group(1)) or int(m.group(2)):
+                        spills.append(f"{name}: {line.strip()}")
+    say(f"[build] {reports} ptxas reports, {len(spills)} with spills")
+    if not reports:
+        fail("no ptxas report: the build kept no register counts")
+    if spills:
+        fail("a kernel spills registers: " + "; ".join(spills))
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +466,35 @@ def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def serving_ms(fn, groups: int = 7, calls: int = 2, warmup: int = 3) -> tuple[float, float, float]:
+    """Time a call of `fn` (one whole forward) by CUDA events: `warmup`
+    calls, then `groups` timed groups of `calls` calls each. Returns the
+    median group's time a call and the least and largest group's: one
+    timed loop varied 10-40% between runs."""
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times), min(times), max(times)
+
+
+def spread(t: tuple[float, float, float]) -> str:
+    """`serving_ms`'s result as a line prints it."""
+    return f"{t[0]:.3f} ms (median of 7 groups of 2 calls; {t[1]:.3f}-{t[2]:.3f})"
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
@@ -462,10 +508,10 @@ def stage_of(kernel: str) -> str:
     """The stage of a staged kernel that a kernel (by its profiler name)
     runs: the training backwards #5 and #7 (csrc/fused_block_train.cu), #6
     and #10 (csrc/attn_block_staged.cu), #8 (csrc/window_attention.cu), #12
-    and #14 (csrc/fused_block_v2.cu), and the pre-LN block forwards #1 and #9
-    at 8x8, #2 and #4 (csrc/block_fwd.cuh); their per-token kernels are
-    csrc/tc_rows.cuh's, the window attention of #6, #8 and the forwards
-    csrc/tc_attn.cuh's. rows_kernel's epilogue mode is its second template
+    and #14 (csrc/fused_block_v2.cu), the pre-LN block forwards #1 and #9
+    at 8x8 and 12x12, #2 and #4 (csrc/block_fwd.cuh), and #3; their
+    per-token kernels are csrc/tc_rows.cuh's, the window attention of #3,
+    #6, #8 and the forwards csrc/tc_attn.cuh's. rows_kernel's epilogue mode is its second template
     argument: 0 stores A W^T (datt), 1 adds a residual (#12's and #14's dx),
     2 takes the LayerNorm backward. linear_kernel's is its third: 0 and 1
     are x W + b and its gelu, 2 the forwards' proj and fc2 with the
@@ -511,46 +557,62 @@ STAGES_8 = {"window attention": 1, "bias table": 1}  # HAT-M's ws 16
 STAGES_8_RECT = {"window attention": 1, "bias table": 2}  # DAT's 8x32, 3 heads
 STAGES_14 = {"x W + b": 2, "post-norm LN backward": 1, "fc1 and dh": 1, "dx = dout + A W^T": 1,
              "weight gradients": 2, "partial sums": 3}
-# the pre-LN forwards (csrc/block_fwd.cuh): #1 and #9 at 8x8 (LN1, qkv, the
-# window attention, proj + residual), #2 (LN2, fc1 + gelu, fc2 + residual)
-# and #4 (both halves)
+# the pre-LN forwards (csrc/block_fwd.cuh): #1 and #9 at 8x8 and 12x12 (LN1,
+# qkv, the window attention, proj + residual), #2 (LN2, fc1 + gelu, fc2 +
+# residual) and #4 (both halves); #3, the window attention alone
 STAGES_1 = {"LN rows": 1, "x W + b": 1, "window attention forward": 1, "x + s (A W + b)": 1}
 STAGES_2 = {"LN rows": 1, "x W + b": 1, "x + s (A W + b)": 1}
 STAGES_4 = {"LN rows": 2, "x W + b": 2, "window attention forward": 1, "x + s (A W + b)": 2}
+STAGES_3 = {"window attention forward": 1}
 # the FMA forward kernels that the tensor-core stages replaced: a profiled
 # forward or training step that launches one fails
-RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel")
-SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2}
+RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel", "trr::ln_qkv_kernel",
+           "trr::attn_rows_fwd_kernel", "trr::proj_residual_kernel",
+           "trr::window_mhsa_fwd_kernel", "trr::window_mhsa_rows_fwd_kernel")
+SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2,
+                  "fused_window_mhsa": STAGES_3}
+# the window attention forward's kernel at each window of n tokens (its plan
+# <n, rows, key parts>), which #3 and the forwards' stage splits must show
+ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}>"
+            for n, rb, ks in ((64, 64, 2), (128, 32, 4), (144, 48, 2), (256, 64, 4))}
+LN_LINEAR = ("ln_rows_kernel", "linear_kernel")
+SERVING_KERNELS = {"fused_attn_block": (*LN_LINEAR, ATTN_FWD[N]), "fused_ln_mlp": LN_LINEAR,
+                   "fused_window_mhsa": (ATTN_FWD[N],)}
 
 
 def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
-                per_call: dict[str, int], calls: int = 3) -> None:
+                per_call: dict[str, int], calls: int = 3, kernels: tuple[str, ...] = ()) -> None:
     """Device time by stage of one call of a staged kernel (the training
     backwards #5, #6, #7, #8, #10, #12 and #14; the forwards #1 and #9 at
-    8x8, #2 and #4), and the call's time `ms` against both bounds: fp32
-    on the FMA units (67 TFLOP/s) and 3xTF32 on the tensor cores (3 x
-    operations at 495 TFLOP/s). A stage's time is
-    its launches' mean device time (torch.profiler over `calls` calls; the
-    table goes to chip_smoke/stages.txt) times its `per_call` launches: the
-    profiler may keep only some of a session's launches, and of a short
-    session none (then it profiles again, four times the calls, twice at
-    most)."""
+    8x8 and 12x12, #2, #3 and #4), and the call's time `ms` against both
+    bounds: fp32 on the FMA units (67 TFLOP/s) and 3xTF32 on the tensor
+    cores (3 x operations at 495 TFLOP/s). A stage's time is its launches'
+    mean device time (torch.profiler over `calls` calls; the table goes to
+    chip_smoke/stages.txt) times its `per_call` launches: the profiler may
+    keep only some of a session's launches, and of a short session none of
+    a stage (then it profiles again, four times the calls, twice at most,
+    and adds the sessions' launches up). Fails unless a profiled kernel's
+    name holds each of `kernels`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     seen: dict[str, list] = {}
+    names: set[str] = set()
+    profiled = 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        profiled += calls
         for e in device_events(prof):
+            names.add(e.key)
             rec = seen.setdefault(stage_of(e.key), [0.0, 0])
             rec[0] += e.self_device_time_total / 1e3
             rec[1] += e.count
-        if seen:
+        if all(st in seen for st in per_call):
             break
         calls *= 4
     stages = {st: (t / n * per_call.get(st, 0), n) for st, (t, n) in seen.items() if n}
@@ -561,8 +623,13 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
                 + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
     for stage, (t, n) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         say(f"[{tag}] {name} stage {stage}: {t:.4f} ms a call ({per_call.get(stage, 0)} "
-            f"launches; {n} profiled over {calls} calls), {100 * t / max(total, 1e-9):.1f}% of "
-            f"the stages' {total:.4f} ms")
+            f"launches; {n} profiled over {profiled} calls), {100 * t / max(total, 1e-9):.1f}% "
+            f"of the stages' {total:.4f} ms")
+    for k in kernels:
+        if not any(k in key for key in names):
+            fail(f"[{tag}] {name}: no profiled kernel is {k}")
+    if kernels:
+        say(f"[{tag}] {name} launched " + ", ".join(kernels))
     fp32 = max(flops / PEAK_FP32, nb / PEAK_BYTES) * 1e3
     tc = max(3 * flops / PEAK_TF32, nb / PEAK_BYTES) * 1e3
     say(f"[{tag}] {name}: kernel {ms:.4f} ms; fp32 bound {fp32:.4f} ms ({100 * fp32 / ms:.1f}% "
@@ -604,14 +671,33 @@ def block_inputs(gen, kinds: int, device, shape=(B, H, W), widths=(C, NH, WS, HI
     return x, p, bias, qkv
 
 
-def block_half_f64(name: str, x, p: dict, bias, shift: int):
-    """#1's (fused_attn_block, 8x8 windows) or #2's (fused_ln_mlp) function
-    in float64 on the inputs of `block_inputs`: the yardstick of the
-    kernel's and of the plain version's accuracy."""
+def window_mhsa_f64(qkv, bias, nh: int, hd: int, wr: int, wc: int):
+    """#3's function (window MHSA with the kind table, wr x wc windows) in
+    float64: the yardstick of the kernels' and the plain versions'
+    accuracy."""
+    import torch
+
+    b, h, w, _ = qkv.shape
+    q, k, v, mask = sdpa_windows(qkv.double(), bias.double(), wr, wc, bias.shape[0], nh, hd)
+    p = torch.softmax(q @ k.transpose(-1, -2) * hd**-0.5 + mask, dim=-1)
+    return from_windows(p @ v, b, h, w, wr, wc, nh, hd)
+
+
+def f64_line(tag: str, what: str, got, want, exact) -> None:
+    """Print the kernel's and the plain version's largest errors against
+    the float64 result `exact`."""
+    say(f"[{tag}] {what} against float64: kernel "
+        f"{(got.double() - exact).abs().max().item():.3g}, plain "
+        f"{(want.double() - exact).abs().max().item():.3g} of {exact.abs().max().item():.3g}")
+
+
+def block_half_f64(name: str, x, p: dict, bias, shift: int, nh: int = NH, ws: int = WS):
+    """#1's (fused_attn_block, nh heads, ws x ws windows) or #2's
+    (fused_ln_mlp) function in float64, the window attention's included,
+    on the inputs of `block_inputs`: the yardstick of the kernel's and of
+    the plain version's accuracy."""
     import torch
     import torch.nn.functional as F
-
-    from trainner_redux_tpu_torch.ops.window_attention import fused_window_mhsa_reference
 
     d = {k: v.double() for k, v in p.items()}
     b, h, w, c = x.shape
@@ -623,7 +709,7 @@ def block_half_f64(name: str, x, p: dict, bias, shift: int):
         out = t + s * (F.gelu(y @ d["w1"] + d["b1"]) @ d["w2"] + d["b2"])
     else:
         qkv = (y @ d["wq"] + d["bq"]).reshape(b, h, w, 3 * c)
-        att = fused_window_mhsa_reference(qkv, bias.double(), NH, HD, WS)
+        att = window_mhsa_f64(qkv, bias, nh, c // nh, ws, ws)
         out = t + s * (att.reshape(-1, c) @ d["wp"] + d["bp"])
     return torch.roll(out.reshape(x.shape), (shift, shift), (1, 2))
 
@@ -694,26 +780,30 @@ def phase_kernels() -> dict:
                     fail(f"{name} K={kinds}: the SDPA yardstick differs by {lib_err:.3g}")
             ok = bool(err <= KERNEL_TOL) and bool(torch.isfinite(got).all())
             ms, plain_ms = time_ms(kern), time_ms(plain)
+            note = ""
+            if name == "fused_window_mhsa":  # a call shorter than its host time: CUDA graphs
+                note = f" (back-to-back calls {ms:.4f} ms)"
+                ms = graph_ms(kern)
             lib_ms = time_ms(lib) if lib is not None else None
             bms, by = bound(flops, nb)
             say(f"[kernels] {name} K={kinds}: max_abs_err {err:.3g} (tol {KERNEL_TOL}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"kernel {ms:.4f} ms{note} plain {plain_ms:.4f} ms "
                 f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
                 f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB)")
             if not ok:
                 fail(f"{name} K={kinds} disagrees with its plain version: {err:.3g}")
-            if name in SERVING_STAGES:  # both against float64, on the tensor-core stages
-                exact = block_half_f64(name, x, p, bias, shift if name == "fused_attn_block" else 0)
-                say(f"[kernels] {name} K={kinds} against float64: kernel "
-                    f"{(got.double() - exact).abs().max().item():.3g}, plain "
-                    f"{(want.double() - exact).abs().max().item():.3g} of "
-                    f"{exact.abs().max().item():.3g}")
+            # each against float64, on the tensor-core stages
+            exact = (window_mhsa_f64(qkv, bias, NH, HD, WS, WS) if name == "fused_window_mhsa"
+                     else block_half_f64(name, x, p, bias,
+                                         shift if name == "fused_attn_block" else 0))
+            f64_line("kernels", f"{name} K={kinds}", got, want, exact)
             rec = res.setdefault(name, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # the times reported in the JSON line are the shifted (K=4) calls'
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
             if kinds == 4 and name in SERVING_STAGES:
-                stage_split("kernels", f"{name} K=4", kern, flops, nb, ms, SERVING_STAGES[name])
+                stage_split("kernels", f"{name} K=4", kern, flops, nb, ms, SERVING_STAGES[name],
+                            kernels=SERVING_KERNELS[name])
     return res
 
 
@@ -907,10 +997,10 @@ def phase_branches(seed: int) -> None:
     ):
         with fused_env(env), torch.inference_mode():
             outs[branch] = net(x)
-            fwd_ms = time_ms(lambda: net(x), iters=5, warmup=1)
+            fwd_ms = serving_ms(lambda: net(x))
         if outs[branch].shape != (1, 3, 512, 512) or not torch.isfinite(outs[branch]).all():
             fail(f"branch {branch}: bad output {tuple(outs[branch].shape)}")
-        say(f"[branches] {branch}: SwinIR-M 4x forward of one 128x128 image {fwd_ms:.3f} ms")
+        say(f"[branches] {branch}: SwinIR-M 4x forward of one 128x128 image {spread(fwd_ms)}")
     for branch in ("fused", "unfused"):
         d = (outs[branch] - outs["plain"]).abs().max().item()
         say(f"[branches] {branch} vs plain: max_abs_diff {d:.3g} (tol {PATH_TOL})")
@@ -1512,8 +1602,12 @@ def window_attention_cases(tag: str, name: str, label: str, ops, inputs, wr: int
     bwd_err, worst = check_grads(f"{name}_backward", label, grads, bwd_plain(), ("dqkv", "dbias"))
     if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
         fail(f"{name}_backward {label}: two runs differ")
+    with torch.no_grad():
+        if not torch.equal(got, fwd()):
+            fail(f"{name} {label}: two runs differ")
     say(f"[{tag}] {label}: forward max_abs_err {fwd_err:.3g}, backward {bwd_err:.3g} "
-        f"({worst:.3g} of its tensor's max |g|), two backward runs bit-identical")
+        f"({worst:.3g} of its tensor's max |g|), two runs of each bit-identical")
+    f64_line(tag, f"{name} {label}", got, want, window_mhsa_f64(qkv, bias, nh, hd, wr, wc))
     c = nh * hd
     return {
         name: (fwd, fwd_plain, lib_fwd, 4 * tokens * n * c, nbytes(qkv, bias, got), fwd_err, ""),
@@ -1548,7 +1642,10 @@ def phase_hat_kernels() -> dict:
             name = "fused_window_mhsa_ws16" if name == "fused_window_mhsa" else name
             record_kernel(res, "hat kernels", name, f"K={kinds}", kern, plain, lib, flops, nb,
                           err, note)
-        if kinds == 4:  # #8 as the JSON line has it
+        if kinds == 4:  # #3 and #8 as the JSON line has them
+            _, _, _, flops, nb, _, _ = cases["fused_window_mhsa"]
+            stage_split("hat kernels", "fused_window_mhsa ws 16 K=4", ops[0], flops, nb,
+                        res["fused_window_mhsa_ws16"]["ms"], STAGES_3, kernels=(ATTN_FWD[HN],))
             _, _, _, flops, nb, _, _ = cases["fused_window_mhsa_backward"]
             stage_split("hat kernels", "fused_window_mhsa_backward ws 16 K=4", ops[2], flops, nb,
                         res["fused_window_mhsa_backward"]["ms"], STAGES_8)
@@ -1622,10 +1719,10 @@ def phase_hat_path(seed: int) -> None:
     net = net.cuda().eval()
     with torch.inference_mode():
         out = net(x)
-        fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+        fwd_ms = serving_ms(lambda: net(x))
     if out.shape != (1, 3, 512, 512) or not torch.isfinite(out).all():
         fail(f"HAT-M forward: bad output {tuple(out.shape)}")
-    say(f"[hat path] HAT-M 4x forward of one 128x128 image {fwd_ms:.3f} ms")
+    say(f"[hat path] HAT-M 4x forward of one 128x128 image {spread(fwd_ms)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1673,6 +1770,10 @@ def phase_dat_kernels() -> dict:
                                        wr, wc, kinds, DNH, DHD)
         for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
             record_kernel(res, "dat kernels", name, label, kern, plain, lib, flops, nb, err, note)
+        if kinds == 4:  # #3 at each window
+            _, _, _, flops, nb, _, _ = cases["fused_rect_mhsa"]
+            stage_split("dat kernels", f"fused_rect_mhsa {label}", ops[0], flops, nb,
+                        res["fused_rect_mhsa"]["ms"], STAGES_3, kernels=(ATTN_FWD[wr * wc],))
     # #8's rect form as the JSON line has it: 8x32, K=4
     _, _, _, flops, nb, _, _ = cases["fused_rect_mhsa_backward"]
     stage_split("dat kernels", "fused_rect_mhsa_backward 8x32 K=4", ops[2], flops, nb,
@@ -1706,10 +1807,10 @@ def phase_dat_path(seed: int) -> None:
     net = net.cuda().eval()
     with torch.inference_mode():
         out = net(x)
-        fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+        fwd_ms = serving_ms(lambda: net(x))
     if out.shape != (1, 3, 512, 512) or not torch.isfinite(out).all():
         fail(f"DAT forward: bad output {tuple(out.shape)}")
-    say(f"[dat path] DAT 4x forward of one 128x128 image {fwd_ms:.3f} ms")
+    say(f"[dat path] DAT 4x forward of one 128x128 image {spread(fwd_ms)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1910,11 +2011,11 @@ def phase_branch_path(seed: int, network: str, label: str, tag: str,
             reset_counts()
             outs[branch] = net(x)
             check_counts(f"{label} {branch} branch forward", read_counts(), want)
-            fwd_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+            fwd_ms = serving_ms(lambda: net(x))
         if outs[branch].shape != (1, 3, 512, 512) or not torch.isfinite(outs[branch]).all():
             fail(f"{label} {branch} forward: bad output {tuple(outs[branch].shape)}")
         say(f"[{tag}] {label} 4x {branch} branch {env or ''}: forward of one 128x128 "
-            f"image {fwd_ms:.3f} ms")
+            f"image {spread(fwd_ms)}")
     d = (outs["kernel"] - outs[second]).abs().max().item()
     say(f"[{tag}] kernel vs {second} branch: max_abs_diff {d:.3g} (tol {PATH_TOL})")
     if d > PATH_TOL:
@@ -2342,6 +2443,13 @@ def phase_srformerv2_kernels() -> dict:
                           flops[bname], nbytes(*operands, s, dout, *grads), bwd_err,
                           f", largest error {worst:.3g} of its tensor's max |g|, two runs "
                           "bit-identical")
+            if name == "fused_attn_block_ws12":  # #1 at 12x12 against float64, split by stage
+                exact = block_half_f64("fused_attn_block", x, {**p, "s": s}, bias, shift, SNH, SWS)
+                f64_line("srformerv2 kernels", f"{name} {label}", got, fwd_plain(), exact)
+                if kinds == 1:
+                    stage_split("srformerv2 kernels", f"{name} K=1", fwd, flops[name],
+                                nbytes(*operands, s, got), res[name]["ms"], STAGES_1,
+                                kernels=(*LN_LINEAR, ATTN_FWD[SN]))
             if bname == "fused_ln_mlp_backward_c240":
                 stage_split("srformerv2 kernels", name, fwd, flops[name],
                             nbytes(*operands, s, got), res[name]["ms"], STAGES_2)
@@ -2530,12 +2638,13 @@ def phase_attn_train() -> tuple[dict, dict]:
             f_ms, b_ms = res[fname]["ms"], res[bname]["ms"]
             rf_ms, rb_ms = time_ms(rec_fwd, iters=10, warmup=2), time_ms(rec_bwd, iters=10,
                                                                          warmup=2)
-            if kinds == kind_order[-1]:  # #10 (#6's stages), and #6 at 8x8 (phase 30: 12x12)
+            if kinds == kind_order[-1]:  # #10 (#6's stages), #9, and #6 at 8x8 (phase 30: 12x12)
                 stage_split("attn train", f"{bname} {case}", bwd, bwd_flops,
                             nbytes(*attn, s1, want[1], want[2], dout, *bgrads), b_ms, STAGES_6)
-                if ws == WS:  # and #9 on the forward's tensor-core stages
-                    stage_split("attn train", f"{fname} {case}", fwd, fwd_flops,
-                                nbytes(*ops[:8], s1, *got), f_ms, STAGES_1)
+                stage_split("attn train", f"{fname} {case}", fwd, fwd_flops,
+                            nbytes(*ops[:8], s1, *got), f_ms, STAGES_1,
+                            kernels=(*LN_LINEAR, ATTN_FWD[n]))
+                if ws == WS:
                     t = shape[0] * shape[1] * shape[2]
                     stage_split("attn train", f"fused_attn_block_backward {case}", rec_bwd,
                                 22 * t * c * c + 12 * t * n * c,

@@ -16,7 +16,7 @@ within 1e-4 of each tensor's largest magnitude. DiffJPEG's block transform
 (#15) at the OTF path's planes and at 8 images of 512x512, within 1e-3 on
 spatial values in [-128, 127], blocks near a rounding tie left out.
 SRFormerV2's Swin blocks (C=240, 8 heads of 30, 12x12 windows, hidden 480)
-at batch 2 and a 48x72 map: #1 on its staged kernels, #6, and #2/#7.
+at batch 2 and a 48x72 map: #1 on the tensor-core stages, #6, and #2/#7.
 The training form of the attention half (#9 and its saved-P backward #10)
 at both: 8x8 windows at SwinIR-M's widths, 12x12 at SRFormerV2's.
 """
@@ -143,7 +143,8 @@ def test_shared_memory_plans_match_the_sources(cuda):
     lib_wa = cuda_build.library("window_attention")
     lib_st = cuda_build.library("attn_block_staged")
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
-        assert lib_fb.trr_attn_block_smem_bytes(c) == fb.attn_block_smem_bytes(c)
+        for ws in (8, 12):
+            assert lib_fb.trr_attn_block_smem_bytes(c, ws) == fb.attn_block_smem_bytes(c, ws)
         assert lib_fb.trr_ln_mlp_smem_bytes(c) == fb.ln_mlp_smem_bytes(c)
         for ws in (8, 16):
             assert lib_wa.trr_window_mhsa_smem_bytes(c, nh, ws) == wa.window_mhsa_smem_bytes(
@@ -478,6 +479,50 @@ def test_fused_rect_mhsa_backward_is_deterministic(cuda):
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(8, 8), (16, 16), (8, 32), (32, 8), (8, 16), (16, 8)],
+                         ids=lambda w: f"{w[0]}x{w[1]}")
+def test_window_mhsa_forward_is_deterministic(cuda, window):
+    """#3 on the tensor-core window attention (no atomics) at each form:
+    two calls give the same bits."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    c, nh = (C, NH) if window[0] == window[1] else (RC, RNH)
+    qkv = torch.randn(2, 64, 64, 3 * c, generator=torch.Generator().manual_seed(21)).to(cuda)
+    n = window[0] * window[1]
+    bias = torch.randn(1, nh, n, n, generator=torch.Generator().manual_seed(22)).to(cuda)
+    with torch.no_grad():
+        runs = [wa.fused_rect_mhsa(qkv, bias, nh, c // nh, *window) for _ in range(2)]
+    assert torch.equal(*runs)
+    assert (runs[0] - wa.fused_rect_mhsa_reference(qkv, bias, nh, c // nh, *window)).abs().max(
+    ).item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("c", "nh"), [(90, 3), (150, 5), (372, 12)], ids=["c90", "c150", "c372"])
+def test_fused_attn_block_ws12_at_other_widths(cuda, c, nh):
+    """#1 at 12x12 windows against its plain version at B=2, 24x36, K=4
+    shifted by 6: at C 90 and C 150 (not multiples of 4: 4-byte copies) and
+    C 372 (a LayerNorm row above 256, which the FMA kernels took)."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(c)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    x, s = randn(2, 24, 36, c), torch.tensor([1.0, 0.0], device=cuda)
+    masks = torch.from_numpy(shift_mask_kinds(SWS, SWS // 2)).to(cuda)
+    bias = (randn(nh, SWS**2, SWS**2, scale=0.5)[None] + masks[:, None]).contiguous()
+    args = (x, 1.0 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5),
+            randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5), randn(c, scale=0.1), bias, s)
+    with torch.no_grad():
+        z = fb.fused_attn_block(*args, nh, c // nh, SWS, shift=SWS // 2)
+    want = fb.fused_attn_block_reference(*args, nh, c // nh, SWS, shift=SWS // 2)
+    assert (z - want).abs().max().item() <= TOL
 
 
 @pytest.mark.cuda
@@ -833,8 +878,8 @@ def _ws12_inputs(device, kinds, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize(("kinds", "shift"), [(1, 0), (4, SWS // 2)])
 def test_fused_attn_block_ws12_kernels(cuda, kinds, shift):
-    """#1 at 12x12 windows (the staged kernels) and #6 against their plain
-    versions; #6 bit-identical over two runs."""
+    """#1 at 12x12 windows (the tensor-core stages) and #6 against their
+    plain versions; both bit-identical over two runs."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
     p = _ws12_inputs(cuda, kinds)
@@ -843,8 +888,9 @@ def test_fused_attn_block_ws12_kernels(cuda, kinds, shift):
     n0 = fb.fused_attn_block.launches
     with torch.no_grad():
         got = fb.fused_attn_block(*args, p["s"], SNH, hd, SWS, shift=shift)
+        assert torch.equal(got, fb.fused_attn_block(*args, p["s"], SNH, hd, SWS, shift=shift))
     torch.cuda.synchronize()
-    assert fb.fused_attn_block.launches == n0 + 1
+    assert fb.fused_attn_block.launches == n0 + 2
     want = fb.fused_attn_block_reference(*args, p["s"], SNH, hd, SWS, shift=shift)
     assert (got - want).abs().max().item() <= TOL
     dout = torch.randn(got.shape, generator=torch.Generator().manual_seed(9)).to(cuda)
@@ -944,8 +990,6 @@ def test_staged_shared_memory_plans_match_the_sources(cuda):
     lib_tr = cuda_build.library("fused_block_train")
     for c, nh, hidden in ((240, 8, 480), (180, 6, 360), (48, 2, 96)):
         for ws in (8, 12):
-            assert lib.trr_attn_staged_fwd_smem_bytes(c, nh, ws) == (
-                fb.attn_staged_fwd_smem_bytes(c, nh, ws))
             assert lib.trr_attn_staged_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_staged_bwd_smem_bytes(c, nh, ws))
         assert lib_tr.trr_rows_smem_bytes(c) == fb.rows_smem_bytes(c)

@@ -135,11 +135,42 @@ def test_gates_at_srformerv2_widths(monkeypatch):
     assert not tfb.fused_block_supported(72, 72, 12, 240, 8, 480)
 
 
+def _fma_forward_took(c: int, nh: int) -> bool:
+    """The gate of the 12x12 forward before it moved to the tensor cores:
+    heads of at most 32 channels and the largest shared memory of its three
+    FMA kernels (LN + qkv and proj + residual on (C, 68) tiles and a 2 x 32
+    x 96 weight stage, the attention's q, k, v and (48, 148) P rows) within
+    one thread block's."""
+    hd, stage = c // nh, 2 * 32 * 96
+    floats = max(2 * c * 68 + stage + 128, c * 68 + stage, 2 * hd * 144 + 144 * 32 + 48 * 148)
+    return c % nh == 0 and hd <= 32 and 4 * floats <= tfb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize(("c", "nh"), [(240, 8), (90, 3), (150, 5), (372, 12), (None, None)],
+                         ids=["c240", "c90", "c150", "c372", "every_width"])
+def test_12x12_gate_takes_every_shape_it_took(c, nh):
+    """The 12x12 forward on the tensor-core stages takes every shape its FMA
+    kernels took: SRFormerV2's C 240 / 8 heads, C 90 / 3 heads and C 150 /
+    5 heads (not multiples of 4: 4-byte copies), C 372 / 12 heads (near the
+    old limit), and every C up to 512 with each head count the old gate
+    took."""
+    cases = [(c, nh)] if c else [(cc, k) for cc in range(1, 513) for k in range(1, cc + 1)
+                                 if cc % k == 0 and cc // k <= 32]
+    took = [(cc, k) for cc, k in cases if _fma_forward_took(cc, k)]
+    assert took
+    for cc, k in took:
+        assert tfb.attn_block_fits(72, 144, 12, cc, k), (cc, k)
+    assert all(tfb.attn_block_fits(72, 72, 12, cc, k) for cc, k in cases)  # C <= 512 too
+
+
 def test_shared_memory_plans_at_srformerv2_widths():
-    """The plans the kernels carve (csrc/attn_block_staged.cu,
-    csrc/tc_rows.cuh, csrc/fused_block_train.cu), fp32, at C 240, 8 heads
-    of 30, hidden 480: the forward's LN + qkv in two (C, 68) tiles and a 2 x
-    32 x 96 weight stage; the backward's tensor-core window attention k and
+    """The plans the kernels carve (csrc/block_fwd.cuh, csrc/tc_attn.cuh,
+    csrc/attn_block_staged.cu, csrc/tc_rows.cuh, csrc/fused_block_train.cu),
+    fp32, at C 240, 8 heads of 30, hidden 480: the forward's tensor-core
+    window attention k and v of 144 tokens and q and att of 48 rows padded to
+    36 floats, the (48, 148) P tile, two (2, 48) exchanges and 144 token
+    indices (85,056 bytes: two blocks a SM), under its per-token kernels'
+    128-column tiles; the backward's tensor-core window attention k and
     v of 144 tokens and q, dA, att and dq of 48 rows padded to 36 floats,
     the (48, 148) P / dS tile, three (2, 48) exchanges and 144 token indices
     (99,264 bytes: two blocks a SM), under its largest per-token kernel; #6's and #7's engine: rings
@@ -148,8 +179,11 @@ def test_shared_memory_plans_at_srformerv2_widths():
     stage besides), three buffers of the weight chunk's TF32 hi and lo
     tiles, the qkv kernel's 128-column tile and the hidden-unit kernel's
     (128, 128) tile of gelu'(h)."""
-    stage = 2 * 32 * 96
-    assert tfb.attn_staged_fwd_smem_bytes(240, 8, 12) == 4 * (2 * 240 * 68 + stage + 128)
+    attn_fwd = 2 * 144 * 36 + 2 * 48 * 36 + 48 * 148 + 4 * 48 + 144
+    assert tfb.attn_fwd_tc_smem_bytes(144) == 4 * attn_fwd == 85_056
+    assert 2 * (tfb.attn_fwd_tc_smem_bytes(144) + 1024) <= 228 * 1024  # two blocks a SM
+    assert tfb.attn_block_smem_bytes(240, 12) == max(
+        tfb.linear_smem_bytes(), tfb.residual_smem_bytes(240), 4 * attn_fwd) == 131_136
     attn_bwd = 2 * 144 * 36 + 4 * 48 * 36 + 48 * 148 + 6 * 48 + 144
     assert tfb.attn_rows_bwd_tc_smem_bytes(12) == 4 * attn_bwd == 99_264
     assert 2 * (tfb.attn_rows_bwd_tc_smem_bytes(12) + 1024) <= 228 * 1024  # two blocks a SM

@@ -128,14 +128,17 @@ def test_fused_window_mhsa_backward_matches_jax_vjp(ws, shifted):
 
 
 def test_window_mhsa_plans_at_hat_m():
-    """HAT-M's heads (C 180, 6 heads of 30) at 16x16 windows: the forward
-    takes 138 KB of shared memory; the tensor-core backward (k and v of the
-    256 tokens and q, dA and dq of a 64-row block in rows of 36 floats, the
-    (64, 260) P / dS tile, three (4, 64) exchanges of the key quarters' row
-    sums, the token indices) 172 KB, one block of 16 warps a SM; at 8x8
-    windows the backward fits three blocks a SM, SwinIR-M's forward plan
-    stays as it was."""
-    assert twa.window_mhsa_smem_bytes(180, 6, 16) == 4 * (30 * 68 + 30 * 256 + 256 * 32 + 64 * 260)
+    """HAT-M's heads (C 180, 6 heads of 30) at 16x16 windows: the
+    tensor-core forward (k and v of the 256 tokens and q and att of a 64-row
+    block in rows of 36 floats, the (64, 260) P tile, two (4, 64) exchanges
+    of the key quarters' row max and sum, the token indices) takes 161,792
+    bytes of shared memory, one block of 16 warps a SM; the backward (q, dA
+    and dq of the row block, three exchanges) 172 KB, one block a SM; at 8x8
+    windows both fit three blocks a SM, SwinIR-M's forward on the pre-LN
+    block forwards' plan."""
+    assert twa.window_mhsa_smem_bytes(180, 6, 16) == 4 * (
+        2 * 256 * 36 + 2 * 64 * 36 + 64 * 260 + 2 * 4 * 64 + 256) == 161_792
+    assert twa.window_mhsa_smem_bytes(180, 6, 16) <= twa.SMEM_LIMIT
     assert twa.TC_ATTN_PLANS[256] == (64, 4)
     assert twa.window_mhsa_bwd_smem_bytes(180, 6, 16) == 4 * (
         2 * 256 * 36 + 3 * 64 * 36 + 64 * 260 + 3 * 4 * 64 + 256) == 172_032
@@ -143,7 +146,9 @@ def test_window_mhsa_plans_at_hat_m():
     assert twa.window_mhsa_bwd_smem_bytes(180, 6, 8) == 4 * (
         2 * 64 * 36 + 3 * 64 * 36 + 64 * 68 + 3 * 2 * 64 + 64)
     assert 3 * (twa.window_mhsa_bwd_smem_bytes(180, 6, 8) + 1024) <= 228 * 1024
-    assert twa.window_mhsa_smem_bytes(180, 6) == 4 * (2 * 30 * 68 + 64 * 32 + 64 * 68)
+    assert twa.window_mhsa_smem_bytes(180, 6) == 4 * (
+        2 * 64 * 36 + 2 * 64 * 36 + 64 * 68 + 2 * 2 * 64 + 64) == 55_552
+    assert 3 * (twa.window_mhsa_smem_bytes(180, 6) + 1024) <= 228 * 1024
 
 
 # DAT's rect windows: (h_sp, w_sp) -> the shift of a shifted block
@@ -224,16 +229,51 @@ def test_rect_mhsa_gate(monkeypatch):
     assert not twa.fused_rect_mhsa_supported(64, 64, 8, 32, 90, 3)
 
 
+def _fma_forward_smem(c: int, nh: int, wr: int, wc: int) -> int:
+    """Shared memory of the FMA forwards #3 ran before it moved to the tensor
+    cores: at 8x8 q and k transposed in (hd, 68) tiles, v (64, 32) and the
+    (64, 68) scores; at n 128 and 256 a row block's q (hd, 68), k (hd, n), v
+    (n, 32) and the (64, n + 4) P rows."""
+    hd, n = c // nh, wr * wc
+    if wr == wc == 8:
+        return 4 * (2 * hd * 68 + 64 * 32 + 64 * 68)
+    return 4 * (hd * 68 + hd * n + n * 32 + 64 * (n + 4))
+
+
+@pytest.mark.parametrize("window", [(8, 8), (16, 16), (8, 32), (32, 8), (8, 16), (16, 8)],
+                         ids=lambda w: f"{w[0]}x{w[1]}")
+def test_rect_gate_takes_every_shape_it_took(window):
+    """#3's gate on the tensor-core forward takes every shape it took on the
+    FMA kernels: every C up to 512 and head count of at most 32 channels
+    (widths not multiples of 4 among them: C 90 / 3 heads, DAT's branch),
+    at its window and map sizes that are and are not window-aligned."""
+    wr, wc = window
+    took = 0
+    for c in range(1, 513):
+        for nh in range(1, c + 1):
+            if c % nh or c // nh > 32:
+                continue
+            old = max(_fma_forward_smem(c, nh, wr, wc),
+                      twa.rect_mhsa_bwd_smem_bytes(c, nh, wr, wc)) <= twa.SMEM_LIMIT
+            for h, w in ((64, 64), (2 * wr, 3 * wc), (wr + 4, wc)):
+                was = old and h % wr == 0 and w % wc == 0
+                assert twa.rect_mhsa_fits(h, w, wr, wc, c, nh) == was, (c, nh, h, w)
+                took += was
+    assert took
+    assert twa.rect_mhsa_fits(64, 64, wr, wc, 90, 3)
+
+
 def test_rect_mhsa_plans_at_dat():
     """DAT's branch (90 channels, 3 heads of 30) at n = 256 takes the ws-16
-    plans (138 KB forward, 172 KB backward); dat_s's n = 128 less, its
-    backward two blocks a SM."""
+    plans (161,792 bytes forward, 172 KB backward); dat_s's n = 128 less,
+    the forward and the backward two blocks a SM each."""
     for window in ((8, 32), (32, 8)):
         assert twa.rect_mhsa_smem_bytes(90, 3, *window) == twa.window_mhsa_smem_bytes(180, 6, 16)
         assert twa.rect_mhsa_bwd_smem_bytes(90, 3, *window) == (
             twa.window_mhsa_bwd_smem_bytes(180, 6, 16))
-    assert twa.rect_mhsa_smem_bytes(90, 3, 8, 16) == 4 * (30 * 68 + 30 * 128 + 128 * 32
-                                                         + 64 * 132)
+    assert twa.rect_mhsa_smem_bytes(90, 3, 8, 16) == 4 * (
+        2 * 128 * 36 + 2 * 32 * 36 + 32 * 132 + 2 * 4 * 32 + 128) == 64_512
+    assert 2 * (twa.rect_mhsa_smem_bytes(90, 3, 16, 8) + 1024) <= 228 * 1024
     assert twa.TC_ATTN_PLANS[128] == (32, 4)  # rows of 32, four warps a row tile
     assert twa.rect_mhsa_bwd_smem_bytes(90, 3, 16, 8) == 4 * (
         2 * 128 * 36 + 3 * 32 * 36 + 32 * 132 + 3 * 4 * 32 + 128)

@@ -1,17 +1,16 @@
 // The pre-LN Swin attention half through stages in device memory, fp32, for
-// sm_90a: its forward at windows too large for one thread block, its
-// recompute backward, and its training form that saves P and att.
+// sm_90a: its recompute backward and its training form that saves P and att.
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // trainner_redux_tpu/ops/pallas/fused_block.py:
-//   fused_attn_block (_attn_block_fwd_kernel, pallas_call at :693) at 12x12
-//       windows: z = x + s[b] * proj(window-MHSA(qkv(LN1 x)) + bias kind);
-//   its backward (_attn_bwd, _attn_block_bwd_kernel, pallas_call at :729):
-//       dx and the gradients of LN1, qkv, proj and the bias-kind table,
-//       recomputing LN1, qkv and the softmax from x (nothing is saved);
+//   the backward of fused_attn_block (_attn_bwd, _attn_block_bwd_kernel,
+//       pallas_call at :729): dx and the gradients of LN1, qkv, proj and the
+//       bias-kind table, recomputing LN1, qkv and the softmax from x
+//       (nothing is saved); the forward (:693) is fused_block.cu's;
 //   fused_attn_block_train (_attn_block_fwd_train_kernel, pallas_call at
-//       :977): the same z, and the softmax P of every window and head and
-//       the attention output att, saved for its backward;
+//       :977): z = x + s[b] * proj(window-MHSA(qkv(LN1 x)) + bias kind), and
+//       the softmax P of every window and head and the attention output att,
+//       saved for its backward;
 //   its saved-P backward (_attn_train_bwd, _attn_block_bwd_saved_kernel,
 //       pallas_call at :1036): the same gradients from the saved P and att,
 //       recomputing LN1 and qkv only, with no bias table.
@@ -24,14 +23,11 @@
 // one thread block, its intermediates in device memory (L2-resident in part
 // at these sizes).
 //
-// The forward at 12x12 windows (fp32 FMA; not redesigned; at 8x8 the
-// forward is block_fwd.cuh's, on the tensor-core engine):
-//   1. ln_qkv_kernel, per 64 tokens: qkv = LN1(x) wq + bq to (T, 3C).
-//   2. attn_rows_fwd_kernel<N, RB>, per (window, head): q, k, v of the
-//      window's N tokens staged once, the queries in blocks of RB rows (48 at
-//      n 144), the row softmax in registers, P v to att (T, C); the training
-//      form also stores each row block's P.
-//   3. proj_residual_kernel, per 64 tokens: z = x + s (att wp + bp).
+// The training forward, at 8x8 and 12x12 windows, is block_fwd.cuh's
+// attention half on the tensor-core engine, writing P and att: LN1 rows,
+// qkv on linear_kernel, attn_rows_fwd_tc_kernel (tc_attn.cuh; <144, 48, 2>
+// at 12x12, the backward's plan) storing P, proj + residual on
+// linear_kernel's residual epilogue.
 // The backwards. Every per-token product runs on the tensor cores in 3xTF32
 // through the wgmma engine (tc_gemm.cuh, tc_rows.cuh; bound 3 x operations
 // / 495 TFLOP/s), 128 tokens a block:
@@ -61,8 +57,7 @@
 //   6. (the wrapper) the weight gradients dwq, dwp and their biases with
 //      fused_block_train.cu's split-K atb_kernel and sum_rows_kernel, then
 //      dbias.
-// At 8x8 windows the training forward is block_fwd.cuh's attention half
-// writing P and att; both backwards take 8x8 windows as well (rows of 64).
+// Both backwards take 8x8 windows as well (rows of 64).
 // No atomics: two runs give the same gradients bit for bit. The windows are
 // those of x rolled by (-shift, -shift); the kernels index them, so the
 // caller rolls nothing.
@@ -74,109 +69,17 @@
 
 namespace trr {
 
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float half_sum(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Shared memory of each stage, in floats.
-__host__ __device__ inline int ln_qkv_smem_floats(int C) {
-  return 2 * C * kTLd + kStageFloats + 2 * kTile;
-}
-__host__ __device__ inline int proj_residual_smem_floats(int C) { return C * kTLd + kStageFloats; }
-// q and k (hd, N) transposed, v (N, 32), the P rows (RB, N + 4)
-__host__ __device__ inline int attn_rows_fwd_smem_floats(int N, int RB, int hd) {
-  return 2 * hd * N + N * kVLd + RB * (N + 4);
-}
-// the saved-P backward: v (hd, N) transposed and k (N, 32), this row block's
-// dA (hd, RB) transposed and q and dA (RB, 32), the P / dS rows (RB, N + 4)
+// Shared memory of the saved-P backward's window attention, in floats: v
+// (hd, N) transposed and k (N, 32), this row block's dA (hd, RB) transposed
+// and q and dA (RB, 32), the P / dS rows (RB, N + 4).
 __host__ __device__ inline int attn_rows_bwd_saved_smem_floats(int N, int RB, int hd) {
   return hd * N + N * kVLd + hd * RB + 2 * RB * kVLd + RB * (N + 4);
-}
-
-// One block per 64 consecutive tokens of the B*H*W: qkv (T, 3C) = LN1(x) wq
-// + bq.
-__global__ void __launch_bounds__(kThreads, 1)
-    ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ be, const float* __restrict__ wq,
-                  const float* __restrict__ bq, float* __restrict__ qkv, long long tokens, int C,
-                  float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int C3 = 3 * C;
-  float* yT = smem;               // (C, 64) LN1 output
-  float* T2 = yT + C * kTLd;      // (C, 64): LN scratch
-  float* Bs = T2 + C * kTLd;      // weight stage
-  float* st = Bs + kStageFloats;  // LN mean and 1/std of each row
-
-  layernorm_t([&](int r) { return x + (t0 + r) * C; }, M, C, g, be, eps, T2, st, yT);
-  gemm_weights(yT, C, wq, C3, C3, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(bq + c);
-#pragma unroll
-                 for (int i = 0; i < 4; ++i)
-                   if (r0 + i < M) qkv[(t0 + r0 + i) * C3 + c] = o[i] + bb;
-               });
-}
-
-// P (RB x N) of the rows r0.. of one window and head against its N keys,
-// left in registers: S = q k^T * scale + bias, then the row softmax.
-//   qT (hd, ldq) the rows' q transposed, column r0 + row of row `row`;
-//   kT (hd, N) the window's k transposed;
-//   table the (N, N) bias of this window's kind and head (global / L2).
-// Thread (rg, cl) holds rows rg*RPT + i and columns cl + 16 j in p[i][j]; a
-// row's 16 threads are one half-warp, which reduces it.
-template <int N, int RB>
-__device__ __forceinline__ void softmax_block(const float* qT, int ldq, int r0, const float* kT,
-                                              int hd, float scale,
-                                              const float* __restrict__ table,
-                                              float (&p)[RB / kLanes][N / kLanes]) {
-  constexpr int RPT = RB / kLanes, CPL = N / kLanes;
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) p[i][j] = 0.f;
-  for (int d = 0; d < hd; ++d) {
-    float a[RPT], b[CPL];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) a[i] = qT[d * ldq + r0 + rg * RPT + i];
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) b[j] = kT[d * N + cl + kLanes * j];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
-  }
-  // per-row max and sum, as the plain reference's row softmax
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const float* brow = table + (size_t)(r0 + rg * RPT + i) * N + cl;
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      p[i][j] = p[i][j] * scale + __ldg(brow + kLanes * j);
-      m = fmaxf(m, p[i][j]);
-    }
-    m = half_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      p[i][j] = expf(p[i][j] - m);
-      sum += p[i][j];
-    }
-    const float inv = 1.f / half_sum(sum);
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) p[i][j] *= inv;
-  }
 }
 
 // acc[i][e] = sum over j < N of A[(rg*RPT + i) * lda + j] * Bm[j * kVLd + cl*2 + e]: rows of
@@ -218,99 +121,6 @@ __device__ __forceinline__ void cols_times_rows(const float* A, int lda, const f
       acc[i][1] = fmaf(a, bv.y, acc[i][1]);
     }
   }
-}
-
-// One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
-// of RB. att (T, C) gets this head's channels of P v in x's frame; when Pout
-// is not null, P (B, H/ws, W/ws, nh, N, N) gets the softmax in the rolled
-// frame.
-template <int N, int RB>
-__global__ void __launch_bounds__(kThreads, 2)
-    attn_rows_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                         float* __restrict__ att, float* __restrict__ Pout, int H, int W, int C,
-                         int nh, int ws, int kinds, int shift, float scale) {
-  constexpr int RPT = RB / kLanes, kLd = N + 4;
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / ws, nwh = H / ws;
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y, h = blockIdx.z;
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  float* qT = smem;            // (hd, N)
-  float* kT = qT + hd * N;     // (hd, N)
-  float* v = kT + hd * N;      // (N, 32)
-  float* P = v + N * kVLd;     // (RB, N + 4)
-  auto token = [&](int r) { return roll_token(b, wi, wj, r, H, W, ws, ws, shift); };
-  const int kind = window_kind(kinds, wi, wj, nwh, nww);
-  const float* table = bias + ((size_t)kind * nh + h) * N * N;
-  float* Pg = Pout == nullptr
-                  ? nullptr
-                  : Pout + (((size_t)b * nwh * nww + blockIdx.x) * nh + h) * N * N;
-
-  for (int e = threadIdx.x; e < N * kVLd; e += kThreads) {
-    const int r = e / kVLd, d = e % kVLd;
-    const float* src = qkv + token(r) * C3 + h * hd + d;
-    if (d < hd) {
-      qT[d * N + r] = __ldg(src);
-      kT[d * N + r] = __ldg(src + C);
-    }
-    v[e] = d < hd ? __ldg(src + 2 * C) : 0.f;
-  }
-  __syncthreads();
-  for (int r0 = 0; r0 < N; r0 += RB) {
-    float p[RPT][N / kLanes];
-    softmax_block<N, RB>(qT, N, r0, kT, hd, scale, table, p);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < N / kLanes; ++j) P[(rg * RPT + i) * kLd + cl + kLanes * j] = p[i][j];
-    if (Pg != nullptr) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < N / kLanes; ++j)
-          Pg[(size_t)(r0 + rg * RPT + i) * N + cl + kLanes * j] = p[i][j];
-    }
-    __syncthreads();
-    float acc[RPT][2];
-    rows_times_v<N, RB>(P, kLd, v, acc);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = cl * 2 + e;
-      if (d < hd) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) att[token(r0 + rg * RPT + i) * C + h * hd + d] = acc[i][e];
-      }
-    }
-    __syncthreads();  // P is rewritten by the next row block
-  }
-}
-
-// One block per 64 consecutive tokens: z = x + s[b] (att wp + bp).
-__global__ void __launch_bounds__(kThreads, 1)
-    proj_residual_kernel(const float* __restrict__ att, const float* __restrict__ wp,
-                         const float* __restrict__ bp, const float* __restrict__ x,
-                         const float* __restrict__ s, float* __restrict__ z, long long tokens,
-                         long long hw, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  float* attT = smem;              // (C, 64)
-  float* Bs = attT + C * kTLd;     // weight stage
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    attT[c * kTLd + r] = r < M ? __ldg(att + (t0 + r) * C + c) : 0.f;
-  }
-  gemm_weights(attT, C, wp, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(bp + c);
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) {
-                   if (r0 + i >= M) break;
-                   const long long t = t0 + r0 + i;
-                   const long long idx = t * C + c;
-                   z[idx] = __ldg(x + idx) + __ldg(s + t / hw) * (o[i] + bb);
-                 }
-               });
 }
 
 // One block per (ws x ws window, head), N = ws * ws; the query rows in blocks
@@ -442,19 +252,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 inline int rows_block(int n) { return n == 144 ? 48 : n == 64 ? 64 : 0; }
 
 template <int N, int RB>
-cudaError_t attn_rows_fwd(const float* qkv, const float* bias, float* att, float* P, int B,
-                          int H, int W, int C, int nh, int ws, int kinds, int shift, float scale,
-                          cudaStream_t stream) {
-  const int floats = attn_rows_fwd_smem_floats(N, RB, C / nh);
-  const cudaError_t err = set_smem(attn_rows_fwd_kernel<N, RB>, floats);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((H / ws) * (W / ws), B, nh);
-  attn_rows_fwd_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
-      qkv, bias, att, P, H, W, C, nh, ws, kinds, shift, scale);
-  return cudaGetLastError();
-}
-
-template <int N, int RB>
 cudaError_t attn_rows_bwd_saved(const float* qkv, const float* P, const float* datt, float* dqkv,
                                 float* dS, int B, int H, int W, int C, int nh, int ws, int shift,
                                 float scale, cudaStream_t stream) {
@@ -464,42 +261,6 @@ cudaError_t attn_rows_bwd_saved(const float* qkv, const float* P, const float* d
   const dim3 grid((H / ws) * (W / ws), B, nh);
   attn_rows_bwd_saved_kernel<N, RB><<<grid, kThreads, floats * sizeof(float), stream>>>(
       qkv, P, datt, dqkv, dS, H, W, C, nh, ws, shift, scale);
-  return cudaGetLastError();
-}
-
-inline cudaError_t launch_ln_qkv(const float* x, const float* g, const float* be,
-                                 const float* wq, const float* bq, float* qkv, long long tokens,
-                                 int C, float eps, cudaStream_t stream) {
-  const int floats = ln_qkv_smem_floats(C);
-  const cudaError_t err = set_smem(ln_qkv_kernel, floats);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
-  ln_qkv_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(x, g, be, wq, bq, qkv,
-                                                                      tokens, C, eps);
-  return cudaGetLastError();
-}
-
-// The staged forward at 12x12 windows: LN + qkv, the attention (P stored
-// when not null), proj + residual.
-inline cudaError_t staged_fwd(const float* x, const float* g, const float* be, const float* wq,
-                              const float* bq, const float* wp, const float* bp,
-                              const float* bias, const float* s, float* qkv, float* att,
-                              float* P, float* z, int B, int H, int W, int C, int nh, int ws,
-                              int kinds, int shift, float eps, float scale,
-                              cudaStream_t stream) {
-  if (ws != 12) return cudaErrorInvalidValue;
-  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
-  cudaError_t err = launch_ln_qkv(x, g, be, wq, bq, qkv, tokens, C, eps, stream);
-  if (err != cudaSuccess) return err;
-  err = attn_rows_fwd<144, 48>(qkv, bias, att, P, B, H, W, C, nh, ws, kinds, shift, scale,
-                               stream);
-  if (err != cudaSuccess) return err;
-  const int floats = proj_residual_smem_floats(C);
-  err = set_smem(proj_residual_kernel, floats);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((tokens + kTile - 1) / kTile);
-  proj_residual_kernel<<<blocks, kThreads, floats * sizeof(float), stream>>>(att, wp, bp, x, s,
-                                                                             z, tokens, hw, C);
   return cudaGetLastError();
 }
 
@@ -534,16 +295,8 @@ inline cudaError_t bwd_tail(const float* dqkv, const float* wq, const float* x,
 
 extern "C" {
 
-// The largest shared memory of the forward's and of each backward's stages
-// at windows of ws x ws (12: rows of 48; 8: rows of 64), or 0 for another ws.
-size_t trr_attn_staged_fwd_smem_bytes(int C, int nh, int ws) {
-  const int n = ws * ws, rb = trr::rows_block(n);
-  if (rb == 0) return 0;
-  const int floats = std::max({trr::ln_qkv_smem_floats(C), trr::proj_residual_smem_floats(C),
-                               trr::attn_rows_fwd_smem_floats(n, rb, C / nh)});
-  return (size_t)floats * sizeof(float);
-}
-
+// The largest shared memory of each backward's stages at windows of ws x ws
+// (12: rows of 48; 8: rows of 64), or 0 for another ws.
 size_t trr_attn_staged_bwd_smem_bytes(int C, int nh, int ws) {
   const int n = ws * ws, rb = trr::rows_block(n);
   if (rb == 0) return 0;
@@ -561,36 +314,20 @@ size_t trr_attn_train_bwd_smem_bytes(int C, int nh, int ws) {
        trr::attn_rows_bwd_saved_smem_floats(n, rb, C / nh) * (int)sizeof(float)});
 }
 
-// The forward at 12x12 windows: x, z (B, H, W, C); wq (C, 3C), bq (3C), wp
-// (C, C), bp (C), g/be (C), bias (kinds, nh, 144, 144), s (B); scratch qkv
-// (B*H*W, 3C) and att (B*H*W, C). H and W are multiples of 12; C / nh <= 32.
-// The windows are those of x rolled by (-shift, -shift) and z comes back
-// unrolled.
-int trr_attn_block_staged_fwd(const float* x, const float* g, const float* be, const float* wq,
-                              const float* bq, const float* wp, const float* bp,
-                              const float* bias, const float* s, float* qkv, float* att,
-                              float* z, int B, int H, int W, int C, int nh, int ws, int kinds,
-                              int shift, float eps, float scale, cudaStream_t stream) {
-  return (int)trr::staged_fwd(x, g, be, wq, bq, wp, bp, bias, s, qkv, att, nullptr, z, B, H, W,
-                              C, nh, ws, kinds, shift, eps, scale, stream);
-}
-
-// The training forward at ws x ws windows (8: block_fwd.cuh's attention
-// half on the tensor-core engine through the scratch y (B*H*W, C) and qkv;
-// 12: the staged FMA kernels through the scratch qkv (B*H*W, 3C), y null):
-// z as trr_attn_block_staged_fwd, and for the backward P (B, H/ws, W/ws, nh,
-// n, n), the softmax of each window and head in the rolled frame, and att
-// (B, H, W, C), the attention output in x's frame.
+// The training forward at ws x ws windows (8 or 12): block_fwd.cuh's
+// attention half on the tensor-core engine through the scratch y (B*H*W, C)
+// and qkv (B*H*W, 3C). x, z (B, H, W, C); wq (C, 3C), bq (3C), wp (C, C),
+// bp (C), g/be (C), bias (kinds, nh, n, n), s (B); z as fused_block.cu's
+// trr_attn_block_fwd, and for the backward P (B, H/ws, W/ws, nh, n, n), the
+// softmax of each window and head in the rolled frame, and att (B, H, W,
+// C), the attention output in x's frame.
 int trr_attn_block_train_fwd(const float* x, const float* g, const float* be, const float* wq,
                              const float* bq, const float* wp, const float* bp,
                              const float* bias, const float* s, float* y, float* qkv, float* P,
                              float* att, float* z, int B, int H, int W, int C, int nh, int ws,
                              int kinds, int shift, float eps, float scale, cudaStream_t stream) {
-  if (ws == 8)
-    return trr::attn_half_fwd(x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, P, z, B, H, W, C,
-                              nh, kinds, shift, eps, scale, stream);
-  return (int)trr::staged_fwd(x, g, be, wq, bq, wp, bp, bias, s, qkv, att, P, z, B, H, W, C, nh,
-                              ws, kinds, shift, eps, scale, stream);
+  return trr::attn_half_fwd(x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, P, z, B, H, W, C, nh,
+                            ws, kinds, shift, eps, scale, stream);
 }
 
 // The recompute backward at ws x ws windows (12 or 8), from x, the forward's

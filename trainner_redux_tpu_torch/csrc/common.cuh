@@ -1,5 +1,5 @@
 // Shared device code of the port's Swin block kernels: the block-wide fp32
-// GEMMs, row LayerNorm and the attention of one window and one head. Every
+// GEMMs and the attention of one window and one head. Every
 // kernel here runs 256 threads per block on tiles of 64 tokens (one 8x8
 // window, or 64 consecutive tokens).
 //
@@ -146,47 +146,6 @@ __device__ __forceinline__ void gemm_weights(const float* At, int K,
         out(rg * 4, c, v);
       }
     }
-  }
-}
-
-// LayerNorm of the M <= 64 rows row(r) (C contiguous fp32 each, in device
-// memory) into the transposed tile dstT[c * kTLd + r]; rows M..63 become 0.
-// Two-pass mean and variance, as the JAX package's _ln_f32. `scratch`
-// holds 64 * (C + 1) floats and `stats` 128 floats.
-template <class Row>
-__device__ __forceinline__ void layernorm_t(Row row, int M, int C, const float* __restrict__ g,
-                                            const float* __restrict__ b, float eps,
-                                            float* scratch, float* stats, float* dstT) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ldx = C + 1;  // odd: the transposing reads below hit distinct banks
-  for (int r = warp; r < kTile; r += kWarps) {
-    if (r >= M) continue;
-    float* xs = scratch + r * ldx;
-    const float* x = row(r);
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = __ldg(x + c);
-      xs[c] = v;
-      s += v;
-    }
-    const float mean = warp_sum(s) / C;
-    float q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = xs[c] - mean;
-      q += v * v;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
-    if (lane == 0) {
-      stats[r] = mean;
-      stats[kTile + r] = inv;
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int c = e / kTile, r = e % kTile;
-    dstT[c * kTLd + r] =
-        r < M ? (scratch[r * ldx + c] - stats[r]) * stats[kTile + r] * __ldg(g + c) + __ldg(b + c)
-              : 0.f;
   }
 }
 

@@ -383,7 +383,7 @@ int trr_swin_block_fwd(const float* x, const float* g1, const float* be1, const 
                        int B, int H, int W, int C, int nh, int hidden, int kinds, int shift,
                        float eps, float scale, cudaStream_t stream) {
   if (const int err = trr::attn_half_fwd(x, g1, be1, wq, bq, wp, bp, bias, s1, y, qkv, att, P, z,
-                                         B, H, W, C, nh, kinds, shift, eps, scale, stream))
+                                         B, H, W, C, nh, 8, kinds, shift, eps, scale, stream))
     return err;
   return trr::mlp_half_fwd(z, g2, be2, w1, b1, w2, b2, s2, y, h, out, B, H, W, C, hidden, eps,
                            stream);

@@ -1,8 +1,9 @@
 // The window attention's products on the tensor cores: mma.sync m16n8k8
 // tf32 in 3xTF32 (tc_gemm.cuh) on the operands a thread block holds in
 // shared memory for one (window, head). Shared by attn_rows_fwd_tc_kernel
-// below (the pre-LN block forwards #1, #4 and #9 at 8x8 windows, through
-// block_fwd.cuh), attn_rows_bwd_tc_kernel (#6's recompute backward, in
+// below (the pre-LN block forwards #1 and #9 at 8x8 and 12x12 windows and #4,
+// through block_fwd.cuh, and #3's window MHSA forward, in
+// window_attention.cu), attn_rows_bwd_tc_kernel (#6's recompute backward, in
 // attn_block_staged.cu, and #8's window MHSA backward, in
 // window_attention.cu) and #12's cos_attn_bwd_tc_kernel (fused_block_v2.cu).
 //
@@ -256,8 +257,12 @@ __host__ __device__ constexpr int attn_rows_fwd_tc_smem_floats(int N, int RB, in
 }
 
 // Blocks a SM of the forward: three at n 64 (55,552 B of shared memory
-// each; 85 registers a thread), else two.
-__host__ __device__ constexpr int attn_fwd_blocks(int N) { return N <= 64 ? 3 : 2; }
+// each; 85 registers a thread), two of at most 8 warps (n 144: 85,056 B;
+// n 128: 64,512 B), else one (n 256: 16 warps, 161,792 B; two would cap a
+// thread at 64 registers).
+__host__ __device__ constexpr int attn_fwd_blocks(int N, int threads) {
+  return N <= 64 ? 3 : threads <= 256 ? 2 : 1;
+}
 
 // One block per (wr x wc window of the map rolled by (-shift, -shift),
 // head), N = wr * wc; the query rows in blocks of RB, KS warps a 16-row
@@ -270,9 +275,12 @@ __host__ __device__ constexpr int attn_fwd_blocks(int N) { return N <= 64 ? 3 : 
 // rows staged in the shared tile first), P to the tile and from there to P
 // in 16-byte rows, att = P v out through shared memory a head row at a
 // time. Heads are the grid's fastest index, as in the backward: each
-// token's 3C row is read once while it stays in L2.
+// token's 3C row is read once while it stays in L2. The grid is one-
+// dimensional, (sample, window, head) with the head fastest, so a map of
+// any number of windows fits it.
 template <int N, int RB, int KS>
-__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_fwd_blocks(N))
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
+                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
     attn_rows_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                             float* __restrict__ att, float* __restrict__ P, int H, int W, int C,
                             int nh, int wr, int wc, int kinds, int shift, float scale) {
@@ -281,7 +289,9 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_fwd_blocks(N))
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / wc, nwh = H / wr;
-  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const int h = (int)(blockIdx.x % nh), win = (int)(blockIdx.x / nh % (nwh * nww));
+  const int b = (int)(blockIdx.x / nh / (nwh * nww));
+  const int wi = win / nww, wj = win % nww;
   const AW aw;
   float* ks = smem;              // (N, LD) k, zero past hd
   float* vs = ks + N * LD;       // (N, LD) v
@@ -291,9 +301,9 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_fwd_blocks(N))
   float* red = pt + RB * AW::LP;  // (2, KS, RB): each part's row max and row sum
   int* tok = reinterpret_cast<int*>(red + 2 * KS * RB);  // (N) the window's tokens
   for (int r = threadIdx.x; r < N; r += NTH)
-    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, shift);
+    tok[r] = (int)roll_token(b, wi, wj, r, H, W, wr, wc, shift);
   const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
-  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  const size_t head = (size_t)blockIdx.x * N * N;  // (b, win, h) of P, in the grid's order
   __syncthreads();
   stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
   stage_head_rows<N, NTH>(vs, hd,
@@ -483,9 +493,9 @@ cudaError_t attn_rows_fwd_tc(const float* qkv, const float* bias, float* att, fl
   constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
   const cudaError_t err = set_smem(attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks>, floats);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nh, (H / wr) * (W / wc), B);
+  const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
   attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks>
-      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+      <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }

@@ -45,18 +45,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> (argtypes, restype)
 SIGNATURES = {
     "attn_block_staged": {
-        "trr_attn_block_staged_fwd": ([_P] * 12 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_block_staged_bwd": ([_P] * 20 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_attn_staged_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_attn_staged_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
         "trr_attn_block_train_fwd": ([_P] * 14 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_block_train_bwd": ([_P] * 19 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_train_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     },
     "fused_block": {
-        "trr_attn_block_fwd": ([_P] * 13 + [_I] * 7 + [_F, _F, _P], _I),
+        "trr_attn_block_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_ln_mlp_fwd": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
-        "trr_attn_block_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_attn_block_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "trr_ln_mlp_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "fused_block_train": {
@@ -124,8 +122,10 @@ def build_dir() -> Path:
 
 def build_all() -> dict[str, Path]:
     """Compile every library that is not built yet, in parallel; return
-    their paths. Records the seconds taken and nvcc's ptxas report in
-    `build_report`. Raises with the compiler's output if a build fails."""
+    their paths. Records the seconds taken and nvcc's ptxas report of every
+    library in `build_report` (kept beside each library, so a tree built
+    before reports too). Raises with the compiler's output if a build
+    fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {name: out_dir / f"libtrr_{name}.so" for name in SOURCES}
@@ -146,12 +146,17 @@ def build_all() -> dict[str, Path]:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
+            paths[name].with_suffix(".ptxas.txt").write_text(logs[name])
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[name] for name in failed)
         )
+    for name, p in paths.items():
+        if name not in logs:
+            log = p.with_suffix(".ptxas.txt")
+            logs[name] = log.read_text() if log.exists() else ""
     build_report.update(
         seconds=time.perf_counter() - t0, built=todo, dir=str(out_dir), logs=logs
     )

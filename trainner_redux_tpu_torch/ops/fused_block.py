@@ -21,14 +21,14 @@ LN and fc1.
 `s` is the per-sample DropPath keep scale (ones at eval). Layout contract
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
-(K, nh, n, n). Heads of at most 32 channels, in fp32. The attention half
-takes 8x8 windows (n = 64: the tensor-core stages of `csrc/block_fwd.cuh`,
-which the MLP half runs too) and 12x12 (n = 144, SRFormerV2's: the staged
-kernels of `csrc/attn_block_staged.cu`); its
-backwards and its training form take both, the whole training block (#4/#5)
-8x8 only. The cyclic shift of a shifted block is either done by the caller
-(roll x, unroll z; the JAX package's contract) or, with `shift=s`, by the
-kernels' indexing. The MLP half is per-token and needs no roll.
+(K, nh, n, n). Heads of at most 32 channels, in fp32. The attention half's
+forward takes 8x8 windows (n = 64) and 12x12 (n = 144, SRFormerV2's), both
+on the tensor-core stages of `csrc/block_fwd.cuh`, which the MLP half runs
+too; its backwards (`csrc/attn_block_staged.cu`) and its training form take
+both, the whole training block (#4/#5) 8x8 only. The cyclic shift of a
+shifted block is either done by the caller (roll x, unroll z; the JAX
+package's contract) or, with `shift=s`, by the kernels' indexing. The MLP
+half is per-token and needs no roll.
 
 For a CUDA tensor each wrapper launches its kernel in
 `csrc/fused_block.cu`, `csrc/attn_block_staged.cu` or
@@ -71,16 +71,17 @@ ATB_K, ATB_STAGES = 32, 3
 ROWS_MAX_C, LN_MAX_C = 256, 512
 # the whole block's backward (#5) is held to the widths checked on the card
 SWIN_BLOCK_MAX_C = 192
-# window -> query rows of a thread block of the staged attention kernels
-# (csrc/attn_block_staged.cu): #1 at 12x12, #6 and #10 at 12x12 and 8x8
+# window -> query rows of a thread block of the staged saved-P attention
+# kernel (csrc/attn_block_staged.cu, #10); the windows the attention half takes
 STAGED_ROWS = {12: 48, 8: 64}
 
 
-def attn_block_smem_bytes(channels: int) -> int:
-    """The largest shared memory of the 8x8 attention half's forward kernels
-    (csrc/block_fwd.cuh): qkv on linear_kernel, the window attention on
-    mma.sync, the residual product over a row of `channels`."""
-    return max(linear_smem_bytes(), attn_fwd_tc_smem_bytes(WINDOW * WINDOW),
+def attn_block_smem_bytes(channels: int, window_size: int = WINDOW) -> int:
+    """The largest shared memory of the attention half's forward kernels
+    (csrc/block_fwd.cuh) at 8x8 or 12x12 windows: qkv on linear_kernel, the
+    window attention on mma.sync, the residual product over a row of
+    `channels`."""
+    return max(linear_smem_bytes(), attn_fwd_tc_smem_bytes(window_size * window_size),
                residual_smem_bytes(channels))
 
 
@@ -89,15 +90,6 @@ def ln_mlp_smem_bytes(channels: int) -> int:
     (csrc/block_fwd.cuh): fc1 on linear_kernel (any hidden width), the
     residual product over a row of `channels`."""
     return max(linear_smem_bytes(), residual_smem_bytes(channels))
-
-
-def attn_staged_fwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
-    """The largest shared memory of the staged forward's kernels
-    (csrc/attn_block_staged.cu): LN + qkv and proj + residual per 64 tokens,
-    the attention per (window, head)."""
-    n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
-    return 4 * max(2 * channels * TILE_LD + STAGE_FLOATS + 128, channels * TILE_LD + STAGE_FLOATS,
-                   2 * hd * n + n * V_LD + rb * (n + 4))
 
 
 def attn_rows_bwd_tc_smem_bytes(window_size: int) -> int:
@@ -124,18 +116,15 @@ def attn_train_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -
 
 
 def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
-    """The attention half's forward (#1): window-aligned dims, heads of at
-    most 32 channels, 8x8 windows on the tensor-core stages (a LayerNorm row
-    of at most LN_MAX_C channels) or 12x12 on the staged FMA kernels, each
-    plan within one thread block's shared memory."""
-    if h % window_size or w % window_size:
+    """The attention half's forward (#1): 8x8 or 12x12 windows on the
+    tensor-core stages, window-aligned dims, heads of at most 32 channels, a
+    LayerNorm row of at most LN_MAX_C channels, each plan within one thread
+    block's shared memory."""
+    if window_size not in STAGED_ROWS or h % window_size or w % window_size:
         return False
-    if channels % num_heads or channels // num_heads > V_LD:
+    if channels % num_heads or channels // num_heads > V_LD or channels > LN_MAX_C:
         return False
-    if window_size == WINDOW:
-        return channels <= LN_MAX_C and attn_block_smem_bytes(channels) <= SMEM_LIMIT
-    return (window_size in STAGED_ROWS
-            and attn_staged_fwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
+    return attn_block_smem_bytes(channels, window_size) <= SMEM_LIMIT
 
 
 def tc_rows_fit(channels: int) -> bool:
@@ -530,24 +519,13 @@ def _attn_block_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
     z = torch.empty_like(x)
     if z.numel() == 0:
         return z
-    T = b * hh * ww  # the stages pass qkv and att through (T, 3C) and (T, C) scratch
-    qkv = torch.empty((T, 3 * c), device=x.device, dtype=torch.float32)
-    att = torch.empty((T, c), device=x.device, dtype=torch.float32)
+    T = b * hh * ww  # the stages pass LN1(x), qkv and att through (T, C), (T, 3C), (T, C)
+    y, qkv, att = (torch.empty((T, k), device=x.device, dtype=torch.float32) for k in (c, 3 * c, c))
     fused_attn_block.launches += 1
-    if window_size == WINDOW:  # the tensor-core stages, LN1(x) through (T, C) scratch
-        y = torch.empty((T, c), device=x.device, dtype=torch.float32)
-        _launch(
-            "fused_block", "trr_attn_block_fwd", x.device,
-            *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, z)),
-            b, hh, ww, c, num_heads, bias.shape[0], shift, eps, head_dim**-0.5,
-        )
-        return z
     _launch(
-        "attn_block_staged", "trr_attn_block_staged_fwd", x.device,
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
-        bp.data_ptr(), bias.data_ptr(), s.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-        z.data_ptr(), b, hh, ww, c, num_heads, window_size, bias.shape[0], shift, eps,
-        head_dim**-0.5,
+        "fused_block", "trr_attn_block_fwd", x.device,
+        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, z)),
+        b, hh, ww, c, num_heads, window_size, bias.shape[0], shift, eps, head_dim**-0.5,
     )
     return z
 
@@ -725,17 +703,13 @@ def _attn_block_train_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, hea
                     dtype=torch.float32)
     if z.numel() == 0:
         return z, P, att
-    # the stages pass q, k, v through (T, 3C) scratch, and at 8x8 LN1(x) through (T, C)
-    T = b * hh * ww
-    qkv = torch.empty((T, 3 * c), device=x.device, dtype=torch.float32)
-    y = torch.empty((T, c), device=x.device, dtype=torch.float32) if ws == WINDOW else None
+    T = b * hh * ww  # the stages pass LN1(x) and qkv through (T, C) and (T, 3C) scratch
+    y, qkv = (torch.empty((T, k), device=x.device, dtype=torch.float32) for k in (c, 3 * c))
     fused_attn_block_train.launches += 1
     _launch(
         "attn_block_staged", "trr_attn_block_train_fwd", x.device,
-        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s)),
-        None if y is None else y.data_ptr(),
-        *(t.data_ptr() for t in (qkv, P, att, z)), b, hh, ww, c, num_heads, ws, bias.shape[0],
-        shift, eps, head_dim**-0.5,
+        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s, y, qkv, P, att, z)),
+        b, hh, ww, c, num_heads, ws, bias.shape[0], shift, eps, head_dim**-0.5,
     )
     return z, P, att
 

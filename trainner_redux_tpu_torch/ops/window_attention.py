@@ -23,9 +23,10 @@ forward, #8 backward), each counted on its own:
 
 Heads of at most 32 channels, fp32. Both are torch.autograd.Functions: on a
 CUDA tensor the forward launches the forward kernel and the backward the
-backward kernel (`csrc/tc_attn.cuh`'s tensor-core window attention, shared
-with #6), which recomputes the softmax from qkv and the bias and returns
-dqkv and dbias; on a CPU tensor both directions run their plain
+backward kernel (`csrc/tc_attn.cuh`'s tensor-core window attention, 3xTF32
+on mma.sync: the forward is the pre-LN block forwards', the backward
+shared with #6), which recomputes the softmax from qkv and the bias and
+returns dqkv and dbias; on a CPU tensor both directions run their plain
 versions (`fused_rect_mhsa_reference`, `fused_rect_mhsa_bwd_reference`, and
 their square forms). Any other device, or a tensor the kernels do not take,
 raises.
@@ -40,30 +41,27 @@ import torch
 
 # shared memory one thread block may use on sm_90 (bytes)
 SMEM_LIMIT = 232_448
-# the kernels' tiles (csrc/common.cuh): 64 tokens (an 8x8 window, or 64
-# query rows of a larger one), transposed tiles of row stride 68, v rows of
-# 32 (so head_dim <= 32)
+# the block kernels' tiles (csrc/common.cuh): 64 tokens (an 8x8 window),
+# transposed tiles of row stride 68, v rows of 32 (so head_dim <= 32)
 WINDOW = 8
 WINDOWS = (8, 16)
-RECT_TOKENS = (128, 256)  # n of the row-block kernels, besides the 8x8 window
+RECT_TOKENS = (128, 256)  # n of the rect windows, besides the 8x8 window
 TILE = 64
 TILE_LD = 68
 V_LD = 32
-# the tensor-core window-attention backward (csrc/tc_attn.cuh, #8 and #6):
-# rows of q, k, v and dA padded to 32 channels, HEAD_LD floats apart; window
-# tokens n -> (query rows of a thread block, warps sharing a 16-row tile,
-# each over its part of the keys)
+# the tensor-core window attention (csrc/tc_attn.cuh: #3, #8, and #1, #6 and
+# #9's stage): rows of q, k, v and dA padded to 32 channels, HEAD_LD floats
+# apart; window tokens n -> (query rows of a thread block, warps sharing a
+# 16-row tile, each over its part of the keys)
 HEAD_LD = 36
 TC_ATTN_PLANS = {256: (64, 4), 144: (48, 2), 128: (32, 4), 64: (64, 2)}
 
 
 def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
-    """Shared memory of the forward kernel (csrc/window_attention.cu) for
-    windows of wr rows and wc columns."""
-    hd, n = channels // num_heads, wr * wc
-    if wr == wc == WINDOW:
-        return 4 * (2 * hd * TILE_LD + TILE * V_LD + TILE * TILE_LD)
-    return 4 * (hd * TILE_LD + hd * n + n * V_LD + TILE * (n + 4))
+    """Shared memory of the forward kernel (#3: the tensor-core window
+    attention forward, any head dim up to 32) for windows of wr rows and wc
+    columns."""
+    return attn_fwd_tc_smem_bytes(wr * wc)
 
 
 def attn_fwd_tc_smem_bytes(n: int) -> int:
