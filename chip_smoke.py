@@ -91,9 +91,11 @@ failure:
              DropPath scales holding 0 and 1/0.9), K=1 and K=4 shifted by 4:
              the cosine-attention half (#11) and its backward (#12), the MLP
              half (#13) and its backward (#14), each against its plain
-             version, two backward runs bit-identical; times and the card's
-             bound; #12's and #14's device time by stage at K=4 and their
-             times against the fp32 and the 3xTF32 bounds; #13 and #14 at
+             version, two runs of each bit-identical; times and the card's
+             bound; #11's, #12's, #13's and #14's device time by stage at K=4
+             and their times against the fp32 and the 3xTF32 bounds; #11 and
+             #13 against float64 with every temperature at its largest, 100;
+             #13 and #14 at
              Swin2SR-L's MLP half (C 240, hidden 480) against their plain
              versions, #14 twice bit for bit, timed and split by stage; #11
              and #13 also at B=1, 128x128 (serving).
@@ -511,15 +513,20 @@ def stage_of(kernel: str) -> str:
     and #14 (csrc/fused_block_v2.cu), the pre-LN block forwards #1 and #9
     at 8x8 and 12x12, #2 and #4 (csrc/block_fwd.cuh), and #3; their
     per-token kernels are csrc/tc_rows.cuh's, the window attention of #3,
-    #6, #8 and the forwards csrc/tc_attn.cuh's. rows_kernel's epilogue mode is its second template
+    #6, #8 and the forwards csrc/tc_attn.cuh's; #11 and #13 (csrc/fused_block_v2.cu) run
+    the same kernels. rows_kernel's epilogue mode is its second template
     argument: 0 stores A W^T (datt), 1 adds a residual (#12's and #14's dx),
     2 takes the LayerNorm backward. linear_kernel's is its third: 0 and 1
     are x W + b and its gelu, 2 the forwards' proj and fc2 with the
-    residual, x + s (A W + b)."""
+    residual, x + s (A W + b). ln_rows_kernel's second is true in the
+    post-norm forwards' row pass, x + s LN(rows)."""
+    if "ln_rows_kernel<" in kernel and "postnorm_ln_rows_kernel" not in kernel:
+        args = kernel.split("ln_rows_kernel<", 1)[1].split(">", 1)[0].split(",")
+        if args[-1].strip() == "true":
+            return "post-norm rows"
     for part, stage in (("postnorm_ln_rows_kernel", "post-norm LN backward"),
                         ("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
                         ("attn_rows_fwd_tc_kernel", "window attention forward"),
-                        ("cos_attn_rows_kernel", "window attention forward"),
                         ("block_bwd_attn_kernel", "window attention"),
                         ("attn_rows_bwd_tc_kernel", "window attention"),
                         ("attn_rows_bwd_saved_kernel", "window attention"),
@@ -564,17 +571,26 @@ STAGES_1 = {"LN rows": 1, "x W + b": 1, "window attention forward": 1, "x + s (A
 STAGES_2 = {"LN rows": 1, "x W + b": 1, "x + s (A W + b)": 1}
 STAGES_4 = {"LN rows": 2, "x W + b": 2, "window attention forward": 1, "x + s (A W + b)": 2}
 STAGES_3 = {"window attention forward": 1}
+# the post-norm forwards (csrc/fused_block_v2.cu): #11 (qkv, the cosine
+# window attention, proj, the post-norm rows) and #13 (fc1 + gelu, fc2, the
+# post-norm rows)
+STAGES_11 = {"x W + b": 2, "window attention forward": 1, "post-norm rows": 1}
+STAGES_13 = {"x W + b": 2, "post-norm rows": 1}
 # the FMA forward kernels that the tensor-core stages replaced: a profiled
 # forward or training step that launches one fails
 RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel", "trr::ln_qkv_kernel",
            "trr::attn_rows_fwd_kernel", "trr::proj_residual_kernel",
-           "trr::window_mhsa_fwd_kernel", "trr::window_mhsa_rows_fwd_kernel")
+           "trr::window_mhsa_fwd_kernel", "trr::window_mhsa_rows_fwd_kernel",
+           "trr::cos_attn_fwd_kernel", "trr::cos_attn_rows_kernel", "trr::pn_mlp_fwd_kernel")
 SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2,
                   "fused_window_mhsa": STAGES_3}
 # the window attention forward's kernel at each window of n tokens (its plan
-# <n, rows, key parts>), which #3 and the forwards' stage splits must show
-ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}>"
+# <n, rows, key parts, cosine>), which #3 and the forwards' stage splits must
+# show; the cosine form (#11, #12) at 8x8 windows; the post-norm row pass
+ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}, false>"
             for n, rb, ks in ((64, 64, 2), (128, 32, 4), (144, 48, 2), (256, 64, 4))}
+COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true>"
+POSTNORM_ROWS = "ln_rows_kernel<true, true>"
 LN_LINEAR = ("ln_rows_kernel", "linear_kernel")
 SERVING_KERNELS = {"fused_attn_block": (*LN_LINEAR, ATTN_FWD[N]), "fused_ln_mlp": LN_LINEAR,
                    "fused_window_mhsa": (ATTN_FWD[N],)}
@@ -590,9 +606,10 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
     mean device time (torch.profiler over `calls` calls; the table goes to
     chip_smoke/stages.txt) times its `per_call` launches: the profiler may
     keep only some of a session's launches, and of a short session none of
-    a stage (then it profiles again, four times the calls, twice at most,
-    and adds the sessions' launches up). Fails unless a profiled kernel's
-    name holds each of `kernels`."""
+    a stage (then, while a stage has fewer profiled launches than the
+    session's calls, it profiles again, four times the calls, twice at
+    most, and adds the sessions' launches up). Fails unless a profiled
+    kernel's name holds each of `kernels`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -612,7 +629,7 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
             rec = seen.setdefault(stage_of(e.key), [0.0, 0])
             rec[0] += e.self_device_time_total / 1e3
             rec[1] += e.count
-        if all(st in seen for st in per_call):
+        if all(seen.get(st, (0, 0))[1] >= calls for st in per_call):
             break
         calls *= 4
     stages = {st: (t / n * per_call.get(st, 0), n) for st, (t, n) in seen.items() if n}
@@ -1848,6 +1865,30 @@ def v2_inputs(gen, kinds: int, device, shape):
     return x, p, bias.contiguous()
 
 
+def postnorm_half_f64(name: str, x, p: dict, bias, s, shift: int):
+    """#11's (fused_cos_attn_block) or #13's (fused_postnorm_mlp) function in
+    float64, on the operands of `v2_inputs` and DropPath scales s: the
+    yardstick of the kernel's and of the plain version's accuracy."""
+    import torch
+    import torch.nn.functional as F
+
+    d = {k: v.double() for k, v in p.items()}
+    b, h, w, c = x.shape
+    t = torch.roll(x.double(), (-shift, -shift), (1, 2)).reshape(-1, c)
+    if name == "fused_postnorm_mlp":
+        m = F.gelu(t @ d["w1"] + d["b1"]) @ d["w2"] + d["b2"]
+        g, be = d["g2"], d["be2"]
+    else:
+        qkv = (t @ d["wq"] + d["bq"]).reshape(b, h, w, 3 * c)
+        q, k, v, mask = sdpa_windows(qkv, bias.double(), WS, WS, bias.shape[0])
+        q, k = F.normalize(q, dim=-1, eps=1e-12), F.normalize(k, dim=-1, eps=1e-12)
+        pw = torch.softmax(q @ k.transpose(-1, -2) * d["scale"][:, None, None] + mask, dim=-1)
+        m = from_windows(pw @ v, b, h, w, WS, WS).reshape(-1, c) @ d["wp"] + d["bp"]
+        g, be = d["g"], d["be"]
+    out = t + s.double().repeat_interleave(h * w)[:, None] * F.layer_norm(m, (c,), g, be, 1e-5)
+    return torch.roll(out.reshape(x.shape), (shift, shift), (1, 2))
+
+
 def phase_swin2sr_kernels() -> dict:
     import torch
 
@@ -1884,7 +1925,7 @@ def phase_swin2sr_kernels() -> dict:
         label = f"K={kinds} shift {shift}"
         for name, parts, operands, fwd, fwd_plain, bwd, bwd_plain in cases:
             try:
-                got = fwd()
+                got, got_again = fwd(), fwd()
                 grads = bwd()
                 again = bwd()
                 torch.cuda.synchronize()
@@ -1893,6 +1934,8 @@ def phase_swin2sr_kernels() -> dict:
             fwd_err = (got - fwd_plain()).abs().max().item()
             if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
                 fail(f"{name} {label} disagrees with its plain version: {fwd_err:.3g}")
+            if not torch.equal(got, got_again):
+                fail(f"{name} {label}: two runs differ")
             bwd_err, worst = check_grads(f"{name}_backward", label, grads, bwd_plain(), parts)
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                 fail(f"{name}_backward {label}: two runs differ")
@@ -1902,11 +1945,34 @@ def phase_swin2sr_kernels() -> dict:
                           flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads), bwd_err,
                           f", largest error {worst:.3g} of its tensor's max |g|, two runs "
                           "bit-identical")
-            if kinds == 4:  # #12 and #14 as the JSON line has them
+            if kinds == 4:  # #11-#14 as the JSON line has them
+                stage_split("swin2sr kernels", f"{name} K=4", fwd, flops[name],
+                            nbytes(*operands, s, got), res[name]["ms"],
+                            STAGES_11 if name == "fused_cos_attn_block" else STAGES_13,
+                            kernels=("linear_kernel", POSTNORM_ROWS)
+                            + ((COS_ATTN_FWD,) if name == "fused_cos_attn_block" else ()))
                 stage_split("swin2sr kernels", f"{name}_backward K=4", bwd,
                             flops[f"{name}_backward"], nbytes(*operands, s, dout, *grads),
                             res[f"{name}_backward"]["ms"],
                             STAGES_12 if name == "fused_cos_attn_block" else STAGES_14)
+
+    # #11 and #13 against float64 where the cosine attention's error grows
+    # most: every head's temperature at its largest, 100 (the last K=4
+    # operands)
+    p["scale"] = torch.full_like(p["scale"], 100.0)
+    cos = (x, p["wq"], p["bq"], p["scale"], p["wp"], p["bp"], p["g"], p["be"], bias)
+    for name, got, want in (
+        ("fused_cos_attn_block", v2.fused_cos_attn_block(*cos, s, *meta),
+         v2.fused_cos_attn_block_reference(*cos, s, *meta)),
+        ("fused_postnorm_mlp", v2.fused_postnorm_mlp(*mlp, s, WS),
+         v2.fused_postnorm_mlp_reference(*mlp, s, WS)),
+    ):
+        err = (got - want).abs().max().item()
+        if not err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"{name} K=4, temperatures 100, disagrees with its plain version: {err:.3g}")
+        f64_line("swin2sr kernels", f"{name} K=4, temperatures 100", got, want,
+                 postnorm_half_f64(name, x, p, bias, s, shift if name == "fused_cos_attn_block"
+                                   else 0))
 
     # #13 and #14 at Swin2SR-L's MLP half (C 240, hidden 480), which #14 now
     # trains on the tensor-core engine
@@ -1926,6 +1992,17 @@ def phase_swin2sr_kernels() -> dict:
     fwd_err = (got - v2.fused_postnorm_mlp_reference(*mlp, s, WS)).abs().max().item()
     if not fwd_err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
         fail(f"fused_postnorm_mlp {label} disagrees with its plain version: {fwd_err:.3g}")
+
+    def l_fwd():
+        return v2.fused_postnorm_mlp(*mlp, s, WS)
+
+    f_flops, f_nb = 4 * TB * S2_LQ * S2_LQ * lc * lhidden, nbytes(*mlp, s, got)
+    f_ms = time_ms(l_fwd, iters=10, warmup=2)
+    say(f"[swin2sr kernels] fused_postnorm_mlp {label}: kernel {f_ms:.4f} ms plain "
+        f"{time_ms(lambda: v2.fused_postnorm_mlp_reference(*mlp, s, WS), iters=5, warmup=1):.4f}"
+        " ms")
+    stage_split("swin2sr kernels", f"fused_postnorm_mlp {label}", l_fwd, f_flops, f_nb, f_ms,
+                STAGES_13)
 
     def l_bwd():
         return v2.fused_postnorm_mlp_backward(*mlp, s, dout, WS)
@@ -1968,8 +2045,8 @@ def phase_swin2sr_kernels() -> dict:
             fail(f"{name} at B=1, 128x128 disagrees with its plain version: {err:.3g}")
         bms, by = bound(flops[name], nbytes(*operands, s1, got))
         say(f"[swin2sr kernels] {name} at B=1, 128x128 (serving) K=4: max_abs_err {err:.3g} "
-            f"kernel {time_ms(kern):.4f} ms plain {time_ms(plain):.4f} ms "
-            f"bound {bms:.4f} ms ({by}; {flops[name] / 1e9:.3f} GFLOP)")
+            f"kernel {time_ms(kern):.4f} ms ({graph_ms(kern):.4f} by CUDA graphs) plain "
+            f"{time_ms(plain):.4f} ms bound {bms:.4f} ms ({by}; {flops[name] / 1e9:.3f} GFLOP)")
     return res
 
 

@@ -746,15 +746,53 @@ def test_postnorm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(("c", "nh", "hidden"), [(90, 3, 180), (180, 6, 362), (264, 12, 264)])
+def test_postnorm_forwards_at_widths_the_backwards_do_not_take(cuda, c, nh, hidden):
+    """#11 and #13 at widths only the forwards take: C 90 (rows not in
+    16-byte pieces: the stages move them a float at a time), a hidden width
+    of 362, C 264 (wider than one rows_kernel tile); K=4 shifted, against
+    their plain versions; a forward refuses an x off a 16-byte boundary."""
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(c + hidden)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    x, s = randn(2, 16, 24, c), torch.tensor([0.0, 1.0 / 0.9], device=cuda)
+    bias = (16.0 * torch.sigmoid(randn(nh, N, N)))[None] + torch.from_numpy(
+        shift_mask_kinds(WS, WS // 2)).to(cuda)[:, None]
+    cos = [x, randn(c, 3 * c, scale=c**-0.5), randn(3 * c, scale=0.1),
+           torch.exp(torch.rand(nh, generator=gen) * 4.6).to(cuda), randn(c, c, scale=c**-0.5),
+           randn(c, scale=0.1), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+           bias.contiguous()]
+    mlp = [x, randn(c, hidden, scale=c**-0.5), randn(hidden, scale=0.1),
+           randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1), 1.0 + randn(c, scale=0.1),
+           randn(c, scale=0.1)]
+    meta = (nh, c // nh, WS, 1e-5, WS // 2)
+    assert v2.cos_attn_fits(16, 24, WS, c, nh) and v2.pn_mlp_fits(16, WS, c, hidden)
+    with torch.no_grad():
+        z = v2.fused_cos_attn_block(*cos, s, *meta)
+        out = v2.fused_postnorm_mlp(*mlp, s, WS)
+    assert (z - v2.fused_cos_attn_block_reference(*cos, s, *meta)).abs().max().item() <= TOL
+    assert (out - v2.fused_postnorm_mlp_reference(*mlp, s, WS)).abs().max().item() <= TOL
+    off = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        v2.fused_cos_attn_block(off, *cos[1:], s, *meta)
+    with pytest.raises(ValueError, match="16-byte"):
+        v2.fused_postnorm_mlp(off, *mlp[1:], s, WS)
+
+
+@pytest.mark.cuda
 def test_postnorm_shared_memory_plans_match_the_source(cuda):
     from trainner_redux_tpu_torch.ops import cuda_build
     from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
 
     lib = cuda_build.library("fused_block_v2")
     for c, nh, hidden in ((180, 6, 360), (240, 8, 480), (60, 6, 120)):
-        assert lib.trr_cos_attn_fwd_smem_bytes(c, nh) == v2.cos_attn_fwd_smem_bytes(c, nh)
-        assert lib.trr_pn_mlp_fwd_smem_bytes(c, hidden) == v2.pn_mlp_fwd_smem_bytes(c, hidden)
-        assert lib.trr_cos_attn_rows_smem_bytes(c // nh) == v2.cos_attn_rows_smem_bytes(c // nh)
+        assert lib.trr_cos_attn_fwd_smem_bytes(c) == v2.cos_attn_fwd_smem_bytes(c)
+        assert lib.trr_pn_mlp_fwd_smem_bytes(c) == v2.pn_mlp_fwd_smem_bytes(c)
         assert lib.trr_cos_attn_bwd_smem_bytes() == v2.cos_attn_bwd_smem_bytes()
         assert lib.trr_pn_mlp_bwd_smem_bytes(c, hidden) == v2.pn_mlp_bwd_smem_bytes(c, hidden)
 

@@ -159,30 +159,35 @@ def test_fused_block_v2_gate(monkeypatch):
 
 
 def test_shared_memory_plans_at_swin2sr_m():
-    """The plans the kernels carve (csrc/fused_block_v2.cu, csrc/tc_rows.cuh),
-    fp32, at Swin2SR-M's C=180, 6 heads of 30, hidden 360: transposed (C,
-    68) tiles, the (64, C + 1) rows of the post-norm, a 2 x 32 x 96 weight
-    stage; #12's per-window forward stage (q^, k^ (30, 68), v (64, 32), the
-    score tile, the inverse norms), its per-window backward on the tensor
-    cores (q, k, v, datt rows of 36 floats, the (64, 68) P / dS tile, the
-    exchanges, norms, warp sums and token indices) and its per-token stages
-    on the engine (qkv and proj at 128-column tiles, datt and dx over a
-    192-column row); #14's stages on the same engine (hg and m at
-    128-column tiles, h and dh per 128 hidden units, dx over the row)."""
-    stage = 2 * 32 * 96
-    assert tv2.cos_attn_fwd_smem_bytes(180, 6) == 4 * (
-        2 * 180 * 68 + 2 * 30 * 68 + 64 * 32 + 64 * 68 + stage + 128)
-    assert tv2.pn_mlp_fwd_smem_bytes(180, 360) == 4 * (180 * 68 + 360 * 68 + stage)
-    assert tv2.cos_attn_rows_smem_bytes(30) == 4 * (2 * 30 * 68 + 64 * 32 + 64 * 68 + 128)
+    """The plans the kernels carve (csrc/fused_block_v2.cu, csrc/tc_rows.cuh,
+    csrc/tc_attn.cuh), fp32, at Swin2SR-M's C=180, 6 heads of 30, hidden
+    360. The forwards (#11, #13) run in stages: qkv and hg on linear_kernel
+    at 128-column tiles, proj and m at the 96-column tile of a 180-channel
+    row, #11's cosine window attention per (8x8 window, head) (k and v of
+    the window, q and att of its 64 rows, 36 floats apart, the (64, 68) P
+    tile, the key halves' row max and sum, the token indices), and a row
+    pass for the post-norm that takes no shared memory. #12's per-window
+    backward on the tensor cores (q, k, v, datt rows of 36 floats, the (64,
+    68) P / dS tile, the exchanges, norms, warp sums and token indices) and
+    its per-token stages on the engine (datt and dx over a 192-column row);
+    #14's stages on the same engine (hg and m at those tiles, h and dh per
+    128 hidden units, dx over the row)."""
+    col96 = 4 * (6 * 96 * 16 + 4 * (128 * 20 + 96 * 20) + 16)
+    assert tv2.linear_smem_bytes() == 131_136
+    assert tv2.residual_smem_bytes(180) == col96 == 108_608
+    attn = 4 * (2 * 64 * 36 + 2 * 64 * 36 + 64 * 68 + 2 * 2 * 64 + 64)
+    assert tv2.attn_fwd_tc_smem_bytes(64) == attn == 55_552
+    assert tv2.pn_mlp_fwd_smem_bytes(180) == max(131_136, col96) == 131_136
+    assert tv2.cos_attn_fwd_smem_bytes(180) == max(131_136, col96, attn) == 131_136
     assert tv2.cos_attn_bwd_smem_bytes() == 4 * (4 * 64 * 36 + 64 * 68 + 6 * 64 + 128 + 8 + 64)
     assert tv2.rows_smem_bytes(180) == 4 * (6 * 192 * 16 + 4 * (128 * 20 + 192 * 20) + 16)
-    assert tv2.linear_smem_bytes() == 131_136
     assert tv2.pn_mlp_bwd_smem_bytes(180, 360) == max(
         tv2.linear_smem_bytes(), tv2.mlp_hidden_smem_bytes(), tv2.rows_smem_bytes(180))
     assert tv2.pn_mlp_bwd_smem_bytes(180, 360) == 4 * (128 * 128 + 6 * 128 * 16
                                                        + 4 * 2 * 128 * 20 + 16)
-    # the post-norm rows fit the (C, 68) tile they share from C = 16 on
-    assert all(64 * (c + 1) <= c * 68 for c in (16, 60, 180, 240))
+    # no forward plan depends on the heads or the hidden width, and none
+    # grows past a 128-column product's
+    assert {tv2.cos_attn_fwd_smem_bytes(c) for c in (16, 60, 90, 180, 240, 768)} == {131_136}
     assert max(tv2.pn_mlp_bwd_smem_bytes(180, 360), tv2.rows_smem_bytes(180)) <= tv2.SMEM_LIMIT
     # Swin2SR-L: dx spans a 256-column row
     assert tv2.pn_mlp_bwd_smem_bytes(240, 480) == tv2.rows_smem_bytes(240) == 221_248
@@ -192,6 +197,55 @@ def test_shared_memory_plans_at_swin2sr_m():
     assert tv2.cos_attn_fits(48, 48, 8, 240, 8, train=True)
     assert not tv2.cos_attn_fits(48, 48, 8, 90, 3, train=True)
     assert tv2.cos_attn_fits(48, 48, 8, 90, 3)  # the forward alone takes them
+
+
+def _fma_forward_took(half, c, n):
+    """Whether the fp32 FMA forwards that the stages replaced took a shape:
+    #11 (n heads) kept x and the attention output as transposed (C, 68)
+    tiles, one head's q^ and k^ (hd, 68), v (64, 32), the score tile, a 2 x
+    32 x 96 weight stage and the 128 inverse norms, the proj rows in the x
+    tile (C >= 16); #13 (n hidden units) x and the hidden layer as (C, 68)
+    and (hidden, 68) tiles and the stage. Each within one block's shared
+    memory."""
+    stage = 2 * 32 * 96
+    if half == "attention":
+        if c < 16 or c % n or c // n > 32:
+            return False
+        hd = c // n
+        floats = 2 * c * 68 + 2 * hd * 68 + 64 * 32 + 64 * 68 + stage + 128
+    else:
+        if c < 16:
+            return False
+        floats = c * 68 + n * 68 + stage
+    return 4 * floats <= tv2.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("half", ["attention", "mlp"])
+def test_forward_gates_take_every_shape_the_fma_forwards_took(half):
+    """The staged forwards take at least what the FMA forwards took: every
+    width (with every head count, every hidden width) that fit the old
+    kernels' shared memory passes the new gate, Swin2SR-S/M/L's and C 90 /
+    3 heads, (180, 362) and (264, 264) among them (rows not in 16-byte
+    pieces, a row wider than one rows_kernel tile). The row pass takes rows
+    of up to PN_MAX_C channels."""
+    took = 0
+    if half == "attention":
+        named = [(60, 6), (180, 6), (240, 8), (90, 3)]
+        grid = [(c, nh) for c in range(16, 800) for nh in range(1, 33) if c % nh == 0]
+        fits = lambda c, nh: tv2.cos_attn_fits(48, 48, 8, c, nh)  # noqa: E731
+    else:
+        named = [(60, 120), (180, 360), (240, 480), (90, 180), (180, 362), (264, 264)]
+        grid = [(c, hidden) for c in range(16, 800, 3) for hidden in range(1, 800, 7)]
+        fits = lambda c, hidden: tv2.pn_mlp_fits(48, 8, c, hidden)  # noqa: E731
+    for c, n in named:
+        assert _fma_forward_took(half, c, n), (c, n)
+    for c, n in named + grid:
+        if _fma_forward_took(half, c, n):
+            took += 1
+            assert fits(c, n), (half, c, n)
+    assert took > len(named)
+    assert max(c for c, n in grid if _fma_forward_took(half, c, n)) <= tv2.PN_MAX_C
+
 
 def test_postnorm_mlp_trains_the_rows_the_engine_takes():
     """#14's backward runs on the tensor-core engine, so its gate in training

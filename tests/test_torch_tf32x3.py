@@ -24,7 +24,10 @@ take them (each 32-deep slice's sum carried alone, then added to the
 accumulator in fp32): the window-attention forward's P and att, qkv and the
 residual products at C 180, the MLP half at C 180 / 360 and C 240 / 480 on
 a 128-token tile, each within 1e-4 of the float64 result's largest entry,
-which 1xTF32 misses.
+which 1xTF32 misses. Swin2SR's post-norm forwards (#11, #13) the same way:
+the cosine window attention at n 64 with q and k normalised per row and
+the temperature at its largest, 100 (P and att), and the halves' products
+followed by the post-norm row pass (z at C 180 / 360 and C 240 / 480).
 """
 
 import functools
@@ -364,6 +367,107 @@ def test_block_forward_stages_in_3xtf32_hold_the_limit(c, hidden, name):
     errs = []
     for terms in (3, 1):
         got = _block_forward(c, hidden, functools.partial(promoted, terms=terms))[name]
+        errs.append(((got.double() - want).abs().max() / want.abs().max()).item())
+    assert errs[0] <= 1e-4, errs
+    assert errs[1] > 1e-4, errs
+
+
+TEMP_MAX = 100.0  # the cosine attention's largest temperature, exp(log 100)
+N_COS = 64  # tokens of an 8x8 window
+
+
+@functools.lru_cache(maxsize=None)
+def _cos_case():
+    """One 8x8 window and head of SwinV2's cosine attention: seeded q, k, v
+    (64, 30) before the normalisation and a (64, 64) table of 16 * sigmoid
+    values, as Swin2SR's CPB MLP gives it."""
+    rng = np.random.default_rng(64)
+    q, k, v = (rng.standard_normal((N_COS, HD)).astype(np.float32) for _ in range(3))
+    table = (16.0 / (1.0 + np.exp(-rng.standard_normal((N_COS, N_COS))))).astype(np.float32)
+    return q, k, v, table
+
+
+def _normalize_rows(t: torch.Tensor) -> torch.Tensor:
+    """Each row divided by max(|row|, 1e-12), as the staging of q and k
+    takes it (tc_attn.cuh, stage_head_rows' NORM): a channel a lane, the
+    squares summed by a butterfly over the 32 lanes of a warp, one inverse,
+    a product a channel."""
+    sq = torch.nn.functional.pad(t * t, (0, HD_PAD - t.shape[1]))
+    for o in (16, 8, 4, 2, 1):
+        sq = sq + sq[:, torch.arange(HD_PAD) ^ o]
+    return t * (1.0 / torch.sqrt(sq[:, 0]).clamp_min(1e-12))[:, None]
+
+
+def _cos_attention(terms: int | None) -> dict:
+    """The cosine window-attention forward at TEMP_MAX: float64 and exact
+    (terms None), or as attn_rows_fwd_tc_kernel's cosine form takes it on
+    the (64, 64, 2) plan: q^ and k^ in fp32, S = q^ k^T and att = P v
+    through `product` with the truncating split on the zero-padded rows, the
+    softmax's two key halves added in order."""
+    q, k, v, table = (torch.from_numpy(a) for a in _cos_case())
+    if terms is None:
+        q, k, v, table = (t.double() for t in (q, k, v, table))
+        qn, kn = _normalize_rows(q), _normalize_rows(k)
+        p = torch.softmax(qn @ kn.T * TEMP_MAX + table, -1)
+        return {"P": p, "att": p @ v}
+    qn, kn, v = (torch.nn.functional.pad(t, (0, HD_PAD - HD))
+                 for t in (_normalize_rows(q), _normalize_rows(k), v))
+    mm = functools.partial(product, terms=terms, split=split_trunc)
+    p = _softmax_parts(mm(qn, kn.T.contiguous()) * TEMP_MAX + table, 2)
+    return {"P": p, "att": mm(p, v)[:, :HD]}
+
+
+@pytest.mark.parametrize("name", ["P", "att"])
+def test_cosine_attention_forward_in_3xtf32_holds_the_limit(name):
+    """#11's window attention (and #12's forward stage) on mma.sync, the
+    cosine form at n 64 on the (64, 64, 2) plan, q and k normalised per row
+    and the temperature at its largest, 100, which multiplies the error of
+    cos = q^ k^T before the softmax: P and att within 1e-4 of their largest
+    entry against float64; 1xTF32 misses the limit."""
+    want = _cos_attention(None)[name]
+    errs = [((_cos_attention(terms)[name].double() - want).abs().max()
+             / want.abs().max()).item() for terms in (3, 1)]
+    assert errs[0] <= 1e-4, errs
+    assert errs[1] > 1e-4, errs
+
+
+def _postnorm_forward(c: int, hidden: int, mm) -> dict:
+    """The post-norm halves' forward stages at C / hidden with their
+    products through `mm` (None: float64, exact), then the post-norm row
+    pass (a two-pass LayerNorm, the residual): #11's z = x + s LN1(att wp
+    + bp) from its attention output, #13's out = x + s LN2(gelu(x w1 + b1)
+    w2 + b2)."""
+    t = {k: torch.from_numpy(v) for k, v in _block_case(c, hidden).items()}
+    if mm is None:
+        t = {k: v.double() for k, v in t.items()}
+
+        def mm(a, b):
+            return a @ b
+    x, sc = t["x"], 1.0 / 0.9
+
+    def post_norm(m):
+        mean = m.mean(-1, keepdim=True)
+        inv = 1.0 / torch.sqrt(((m - mean) ** 2).mean(-1, keepdim=True) + 1e-5)
+        return x + sc * ((m - mean) * inv * t["g"] + t["be"])
+
+    hg = _gelu(mm(x, t["w1"]) + t["b1"])
+    return {"z": post_norm(mm(t["att"], t["wp"]) + t["bp"]),
+            "out": post_norm(mm(hg, t["w2"]) + t["b2"])}
+
+
+@pytest.mark.parametrize(("c", "hidden", "name"), [(C, HIDDEN, "z"), (C, HIDDEN, "out"),
+                                                   (C_SRF, HIDDEN_SRF, "out")],
+                         ids=["attention-c180", "mlp-c180", "mlp-c240"])
+def test_postnorm_forward_stages_in_3xtf32_hold_the_limit(c, hidden, name):
+    """The post-norm halves' forwards (#11's proj and row pass, #13's fc1 +
+    gelu, fc2 and row pass) in the order of their stages, each product
+    promoted chunk by chunk as linear_kernel sums it, at Swin2SR-M's C 180
+    / hidden 360 and Swin2SR-L's C 240 / hidden 480: within 1e-4 of the
+    float64 result's largest entry; 1xTF32 misses."""
+    want = _postnorm_forward(c, hidden, None)[name]
+    errs = []
+    for terms in (3, 1):
+        got = _postnorm_forward(c, hidden, functools.partial(promoted, terms=terms))[name]
         errs.append(((got.double() - want).abs().max() / want.abs().max()).item())
     assert errs[0] <= 1e-4, errs
     assert errs[1] > 1e-4, errs

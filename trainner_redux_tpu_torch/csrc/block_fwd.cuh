@@ -59,11 +59,11 @@ namespace trr {
 inline int attn_half_fwd_smem_bytes(int C, int ws) {
   const int n = ws * ws;
   const AttnPlan plan = attn_plan(n);
-  return std::max({linear_smem_bytes(), linear_smem_bytes(linear_cols(C, kLinearResidual)),
+  return std::max({linear_smem_bytes(), linear_smem_bytes(linear_cols(C)),
                    attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks) * (int)sizeof(float)});
 }
 inline int mlp_half_fwd_smem_bytes(int C) {
-  return std::max(linear_smem_bytes(), linear_smem_bytes(linear_cols(C, kLinearResidual)));
+  return std::max(linear_smem_bytes(), linear_smem_bytes(linear_cols(C)));
 }
 
 // x, z (B, H, W, C); wq (C, 3C), bq (3C), wp (C, C), bp (C), g / be (C),

@@ -1,5 +1,5 @@
 // Shared device code of the port's Swin block kernels: the block-wide fp32
-// GEMMs and the attention of one window and one head. Every
+// GEMMs, the window indexing and the bias-kind sums. Every
 // kernel here runs 256 threads per block on tiles of 64 tokens (one 8x8
 // window, or 64 consecutive tokens).
 //
@@ -144,84 +144,6 @@ __device__ __forceinline__ void gemm_weights(const float* At, int K,
       if (c < N) {
         const float v[4] = {acc[0][j], acc[1][j], acc[2][j], acc[3][j]};
         out(rg * 4, c, v);
-      }
-    }
-  }
-}
-
-// Attention of one 64-token window and one head, operands in shared memory:
-// qT, kT (hd, kTLd) transposed, v (64, kVLd) row-major, S a (64, kTLd)
-// scratch tile, bias the (64, 64) table of this window's kind and head.
-//   S = q k^T * scale + bias;  P = row softmax(S);  out(r0, d, (P v)[r0..r0+3, d]).
-// When `P_out` is not null, P is also written there, (64, 64) row-major.
-// The caller synchronises before (q, k, v written) and after (S reused).
-template <class Out>
-__device__ __forceinline__ void attention_head(const float* qT, const float* kT, const float* v,
-                                               int hd, float scale,
-                                               const float* __restrict__ bias, float* S,
-                                               float* __restrict__ P_out, Out out) {
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float4 a = ld4(qT + d * kTLd + rg * 4);
-      const float4 b = ld4(kT + d * kTLd + cl * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + r * kTile + cl * 4));
-      *reinterpret_cast<float4*>(S + r * kTLd + cl * 4) =
-          make_float4(acc[i][0] * scale + bb.x, acc[i][1] * scale + bb.y,
-                      acc[i][2] * scale + bb.z, acc[i][3] * scale + bb.w);
-    }
-  }
-  __syncthreads();
-  // per-row max and sum (the JAX kernels take one max per tile; a per-row
-  // max is the softmax of the plain reference and guards each row alone)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kTile; r += kWarps) {
-    float* s = S + r * kTLd;
-    const float s0 = s[lane], s1 = s[lane + 32];
-    const float m = warp_max(fmaxf(s0, s1));
-    const float p0 = expf(s0 - m), p1 = expf(s1 - m);
-    const float inv = 1.f / warp_sum(p0 + p1);
-    s[lane] = p0 * inv;
-    s[lane + 32] = p1 * inv;
-    if (P_out != nullptr) {
-      P_out[r * kTile + lane] = p0 * inv;
-      P_out[r * kTile + lane + 32] = p1 * inv;
-    }
-  }
-  __syncthreads();
-  {
-    float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-    const float* p = S + rg * 4 * kTLd;
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float2 b = *reinterpret_cast<const float2*>(v + j * kVLd + cl * 2);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = p[i * kTLd + j];
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int d = cl * 2 + j;
-      if (d < hd) {
-        const float o[4] = {acc[0][j], acc[1][j], acc[2][j], acc[3][j]};
-        out(rg * 4, d, o);
       }
     }
   }

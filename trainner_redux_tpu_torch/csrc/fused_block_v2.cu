@@ -14,26 +14,39 @@
 //   its backward (_pn_mlp_bwd_kernel, pallas_call at :556): dx and the
 //       gradients of w1, b1, w2, b2, g, be, recomputing fc1 and fc2 from x.
 //
-// What bounds them on the card: their arithmetic. At the Swin2SR-M training
+// What bounds them on the card: their products. At the Swin2SR-M training
 // block (B 8, 48x48, C 180, 6 heads of 30, hidden 360: 18,432 tokens) the
 // attention half does 5.6 GFLOP forward and 17 backward, the MLP half 4.8
-// and 14, against some 13 MB for each activation: far above the card's fp32
-// ridge point. The forward kernels (fp32 FMA) take one thread block per
-// 8x8 window (attention half) or per 64 tokens (MLP half), every
-// intermediate in shared memory as transposed (C, 64) tiles, weights
-// streamed from L2 through gemm_weights' double-buffered stage. The
-// post-norm needs all C channels of a token, which the block holds: the
-// last product writes its rows to a (64, C + 1) row-major tile and one warp
-// a row takes the LayerNorm, adds the residual and stores.
+// and 14, against some 13 MB for each activation. Every half runs in stages
+// through device memory, its per-token products on the tensor cores in
+// 3xTF32 through the wgmma engine (tc_gemm.cuh, tc_rows.cuh; bound 3 x
+// operations / 495 TFLOP/s), 128 tokens a block, each weight read as it
+// lies; the window attention on mma.sync in 3xTF32 (tc_attn.cuh), one block
+// per (8x8 window of x rolled by (-shift, -shift), head). The post-norm
+// needs all C channels of a token: a row pass after the last product, one
+// warp a token, takes the LayerNorm and adds the residual. The forwards' products add each
+// 32-deep partial sum to an fp32 accumulator (tc_gemm.cuh's promoted
+// products, as block_fwd.cuh's pre-LN forwards).
 //
-// The backward of the attention half (#12) runs in stages through device
-// memory. Its per-token products run on the tensor cores in 3xTF32 through
-// the wgmma engine (tc_gemm.cuh, tc_rows.cuh; bound 3 x operations / 495
-// TFLOP/s), 128 tokens a block; the per-window work stays on the FMA units:
-//   1. linear_kernel: qkv = x wq + bq (the post-norm block's qkv reads x),
-//      wq as it lies (N-major);
-//   2. cos_attn_rows_kernel, per (8x8 window, head), fp32 FMA: q^ and k^
-//      from qkv, the softmax and P v -> att (T, C);
+// The forward of the attention half (#11), in x's frame but for stage 2:
+//   1. linear_kernel: qkv = x wq + bq (the post-norm block's qkv reads x);
+//   2. attn_rows_fwd_tc_kernel<64, 64, 2, true>, the cosine form: q^ and k^
+//      (rows divided by max(|row|, 1e-12)), S = (q^ k^T) scale[h] + bias,
+//      the row softmax and P v -> att (T, C);
+//   3. linear_kernel: proj = att wp + bp;
+//   4. ln_rows_kernel<VEC, true>, the post-norm row pass: z = x + s[b]
+//      LN1(proj).
+// The forward of the MLP half (#13):
+//   1. linear_kernel with its gelu epilogue: hg = gelu(x w1 + b1);
+//   2. linear_kernel: m = hg w2 + b2;
+//   3. the post-norm row pass: out = x + s[b] LN2(m).
+// Scratch (the wrappers' torch.empty): qkv (T, 3C), att, proj (T, C); hg
+// (T, hidden), m (T, C). Rows of any width the gates take: 16-byte copies
+// where C (and hidden) are multiples of 4, else a float at a time.
+//
+// The backward of the attention half (#12), the forward's stages 1-3 again:
+//   1. linear_kernel: qkv = x wq + bq;
+//   2. attn_rows_fwd_tc_kernel's cosine form -> att (T, C);
 //   3. linear_kernel: proj = att wp + bp;
 //   4. postnorm_ln_rows_kernel, one warp a token, 16-byte row loads: dproj =
 //      LN1'(s dout) from proj's own row stats, the dg / dbe partial sums per
@@ -42,15 +55,13 @@
 //   6. cos_attn_bwd_tc_kernel, per (8x8 window, head): q^, k^, P from qkv,
 //      then dv, dP, dS, the dscale partial sum of dS cos, dq^ and dk^ and
 //      the normalisation's backward -> dq, dk; its six products on
-//      mma.sync in 3xTF32 (tc_attn.cuh; on the FMA units this stage took
-//      30% of #12);
+//      mma.sync in 3xTF32;
 //   7. rows_kernel<BN, kRowsResidual>: dx = dout + dqkv wq^T;
 // then the split-K weight gradients and fixed-order sums of
 // fused_block_train.cu (dwq = x^T dqkv, dwp = att^T dproj, the biases, dg,
 // dbe, dscale) and dbias_kernel for the per-window dS.
 //
-// The backward of the MLP half (#14) runs every product on the same engine,
-// 128 tokens a block, each weight read as it lies (no transposed copies):
+// The backward of the MLP half (#14):
 //   1. linear_kernel with its gelu epilogue: hg = gelu(x w1 + b1);
 //   2. linear_kernel: m = hg w2 + b2;
 //   3. postnorm_ln_rows_kernel: dm = LN2'(s dout) from m's own row stats,
@@ -59,11 +70,10 @@
 //      first product, then dh = (dm w2^T) gelu'(h), gelu'(h) held in shared
 //      memory between the two (h never goes to device memory);
 //   5. rows_kernel<BN, kRowsResidual>: dx = dout + dh w1^T;
-// then the weight gradients dw2 = hg^T dm, dw1 = x^T dh and the sums. What
-// bounds it: its products, 14 GFLOP at Swin2SR-M's block against 41 MB (3 x
-// operations on the tensor cores); the engine's rows of up to 256 channels
-// also take Swin2SR-L's C 240 / hidden 480. No atomics: two runs give the
-// same gradients bit for bit.
+// then the weight gradients dw2 = hg^T dm, dw1 = x^T dh and the sums. The
+// backwards take rows of up to 256 channels, multiples of 4 (Swin2SR-L's C
+// 240 / hidden 480 too). No atomics: two runs give the same outputs bit for
+// bit.
 #include <algorithm>
 
 #include "tc_attn.cuh"
@@ -71,22 +81,16 @@
 
 namespace trr {
 
-// Shared memory, in floats, of each kernel.
-// cos_attn_fwd: x tile (C, 64) (later the proj rows, (64, C + 1)), the
-// attention tile (C, 64), one head's q^ and k^ (hd, 64) and v (64, 32), the
-// score tile, the weight stage, the rows' inverse norms.
-__host__ __device__ inline int cos_attn_fwd_smem_floats(int C, int nh) {
-  const int hd = C / nh;
-  return 2 * C * kTLd + 2 * hd * kTLd + kTile * kVLd + kTile * kTLd + kStageFloats + 2 * kTile;
+// The largest shared memory, in bytes, of the forwards' kernels: the
+// per-token products at a 128-column tile (qkv, hg) and at the tile of a
+// row of C (proj, m), the cosine window attention (the attention half);
+// the row pass takes none.
+inline int pn_mlp_fwd_smem_bytes(int C) {
+  return std::max(linear_smem_bytes(), linear_smem_bytes(linear_cols(C)));
 }
-// pn_mlp_fwd: x tile (C, 64) (later the fc2 rows), hidden tile (hidden, 64), stage.
-__host__ __device__ inline int pn_mlp_fwd_smem_floats(int C, int hidden) {
-  return C * kTLd + hidden * kTLd + kStageFloats;
-}
-// cos_attn_rows: one head's q^ and k^ (hd, 64) transposed, v (64, 32), the
-// score tile, the rows' inverse norms.
-__host__ __device__ inline int cos_attn_rows_smem_floats(int hd) {
-  return 2 * hd * kTLd + kTile * kVLd + kTile * kTLd + 2 * kTile;
+inline int cos_attn_fwd_smem_bytes(int C) {
+  return std::max(pn_mlp_fwd_smem_bytes(C),
+                  attn_rows_fwd_tc_smem_floats(kTile, kTile, 2) * (int)sizeof(float));
 }
 // cos_attn_bwd_tc (tc_attn.cuh): q, k, v, datt (64, 36) rows; the P / dS
 // tile (64, 68); three (2, 64) exchanges of the row halves' sums; the
@@ -96,163 +100,14 @@ __host__ __device__ constexpr int cos_attn_bwd_smem_floats() {
   return 4 * kTile * kHeadLd + kTile * (kTile + 4) + 6 * kTile + 2 * kTile + kWarps + kTile;
 }
 
-// out[tok(r)] = x[tok(r)] + sc(r) * LN(rows[r]) for the M <= 64 rows r of
-// `rows` (row-major in shared memory, stride ld, C values each), one warp a
-// row; two-pass mean and variance, as the JAX package's _ln_f32.
-template <class Tok, class Scale>
-__device__ __forceinline__ void postnorm_residual(const float* rows, int ld, int M, int C,
-                                                  const float* __restrict__ g,
-                                                  const float* __restrict__ be, float eps, Tok tok,
-                                                  Scale sc, const float* __restrict__ x,
-                                                  float* __restrict__ out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < M; r += kWarps) {
-    const float* p = rows + r * ld;
-    const long long t = tok(r);
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += p[c];
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = p[c] - mean;
-      sq += d * d;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(sq) / C + eps);
-    const float sb = sc(r);
-    for (int c = lane; c < C; c += 32) {
-      const long long idx = t * C + c;
-      out[idx] = __ldg(x + idx) + sb * ((p[c] - mean) * inv * __ldg(g + c) + __ldg(be + c));
-    }
-  }
-}
-
-// Rows 0..63 of the transposed (hd, 64) tiles qT and kT divided by their L2
-// norm over hd, clamped below at 1e-12 (the JAX package's _norm_rows, torch's
-// F.normalize); inv[0..63] and inv[64..127] get the inverse norms.
-__device__ __forceinline__ void normalize_rows(float* qT, float* kT, int hd, float* inv) {
-  if (threadIdx.x < 2 * kTile) {
-    float* T = threadIdx.x < kTile ? qT : kT;
-    const int r = threadIdx.x % kTile;
-    float sq = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float v = T[d * kTLd + r];
-      sq = fmaf(v, v, sq);
-    }
-    const float iv = 1.f / fmaxf(sqrtf(sq), 1e-12f);
-    for (int d = 0; d < hd; ++d) T[d * kTLd + r] *= iv;
-    inv[threadIdx.x] = iv;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// #11: the cosine-attention half, forward. One block per 8x8 window of x
-// rolled by (-shift, -shift); z comes back in x's frame.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    cos_attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wq,
-                        const float* __restrict__ bq, const float* __restrict__ scale,
-                        const float* __restrict__ wp, const float* __restrict__ bp,
-                        const float* __restrict__ g, const float* __restrict__ be,
-                        const float* __restrict__ bias, const float* __restrict__ s,
-                        float* __restrict__ z, int H, int W, int C, int nh, int kinds, int shift,
-                        float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / 8, nwh = H / 8;
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y;
-  float* xT = smem;                 // (C, 64) the window's x; then the proj rows
-  float* attT = xT + C * kTLd;      // (C, 64) attention output
-  float* qT = attT + C * kTLd;      // (hd, 64) q, then q^
-  float* kT = qT + hd * kTLd;       // (hd, 64) k, then k^
-  float* v = kT + hd * kTLd;        // (64, 32)
-  float* S = v + kTile * kVLd;      // (64, 64) scores, then probabilities
-  float* Bs = S + kTile * kTLd;     // weight stage
-  float* inv = Bs + kStageFloats;   // (2, 64) inverse norms
-
-  auto token = [&](int r) { return window_token(b, wi, wj, r, H, W, shift); };
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    xT[c * kTLd + r] = __ldg(x + token(r) * C + c);
-  }
-  const int kind = window_kind(kinds, wi, wj, nwh, nww);
-  for (int h = 0; h < nh; ++h) {
-    // this head's columns of qkv: [q_h | k_h | v_h], 3 * hd of the 3C
-    gemm_weights(
-        xT, C, wq, C3, 3 * hd, [&](int c) { return (c / hd) * C + h * hd + c % hd; }, Bs,
-        [&](int r0, int c, const float* o) {
-          const int part = c / hd, d = c % hd, col = part * C + h * hd + d;
-          const float bb = __ldg(bq + col);
-          const float val[4] = {o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb};
-          if (part == 2) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[(r0 + i) * kVLd + d] = val[i];
-          } else {
-            *reinterpret_cast<float4*>((part == 0 ? qT : kT) + d * kTLd + r0) =
-                make_float4(val[0], val[1], val[2], val[3]);
-          }
-        });
-    __syncthreads();
-    normalize_rows(qT, kT, hd, inv);
-    __syncthreads();
-    attention_head(qT, kT, v, hd, __ldg(scale + h),
-                   bias + ((size_t)kind * nh + h) * kTile * kTile, S, nullptr,
-                   [&](int r0, int d, const float* o) {
-                     *reinterpret_cast<float4*>(attT + (h * hd + d) * kTLd + r0) =
-                         make_float4(o[0], o[1], o[2], o[3]);
-                   });
-  }
-
-  // proj rows into the x tile's room, then LN1 and the residual
-  const int ld = C + 1;
-  gemm_weights(attT, C, wp, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(bp + c);
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) xT[(r0 + i) * ld + c] = o[i] + bb;
-               });
-  __syncthreads();
-  const float sb = __ldg(s + b);
-  postnorm_residual(xT, ld, kTile, C, g, be, eps, token, [&](int) { return sb; }, x, z);
-}
-
-// ---------------------------------------------------------------------------
-// #12, stage 2: one block per (8x8 window of the rolled map, head): q^ and
-// k^ from the qkv buffer (T, 3C, pre-normalisation, in x's frame), S = (q^
-// k^T) scale[h] + bias, the row softmax and P v, as #11's forward takes them
-// -> this head's channels of att (T, C), in x's frame.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    cos_attn_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ scale,
-                         const float* __restrict__ bias, float* __restrict__ att, int H, int W,
-                         int C, int nh, int kinds, int shift) {
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / 8, nwh = H / 8;
-  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, b = blockIdx.z, h = blockIdx.x;
-  float* qT = smem;                 // (hd, 64) q, then q^
-  float* kT = qT + hd * kTLd;       // (hd, 64) k, then k^
-  float* v = kT + hd * kTLd;        // (64, 32)
-  float* S = v + kTile * kVLd;      // (64, 64) scores, then probabilities
-  float* inv = S + kTile * kTLd;    // (2, 64) inverse norms
-  auto token = [&](int r) { return window_token(b, wi, wj, r, H, W, shift); };
-  for (int e = threadIdx.x; e < kTile * kVLd; e += kThreads) {
-    const int r = e / kVLd, d = e % kVLd;
-    const float* row = qkv + token(r) * C3 + h * hd + d;
-    if (d < hd) {
-      qT[d * kTLd + r] = __ldg(row);
-      kT[d * kTLd + r] = __ldg(row + C);
-    }
-    v[e] = d < hd ? __ldg(row + 2 * C) : 0.f;
-  }
-  __syncthreads();
-  normalize_rows(qT, kT, hd, inv);
-  __syncthreads();
-  const int kind = window_kind(kinds, wi, wj, nwh, nww);
-  attention_head(qT, kT, v, hd, __ldg(scale + h), bias + ((size_t)kind * nh + h) * kTile * kTile,
-                 S, nullptr, [&](int r0, int d, const float* o) {
-#pragma unroll
-                   for (int i = 0; i < 4; ++i) att[token(r0 + i) * C + h * hd + d] = o[i];
-                 });
+// The cosine window attention at 8x8 windows (#11's stage 2, #12's): att
+// (T, C) from qkv (T, 3C), the heads' temperatures `scale` (nh) and the kind
+// table, on attn_rows_fwd_tc_kernel's cosine form.
+inline cudaError_t cos_window_attention(const float* qkv, const float* scale, const float* bias,
+                                 float* att, int B, int H, int W, int C, int nh, int kinds,
+                                 int shift, cudaStream_t stream) {
+  return attn_rows_fwd_tc<kTile, true>(qkv, bias, att, nullptr, B, H, W, C, nh, 8, 8, kinds,
+                                       shift, 0.f, stream, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -376,8 +231,8 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
   const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const AW aw;
-  float* qs = smem;                  // (64, LD) q, then q^
-  float* ks = qs + kTile * LD;       // (64, LD) k, then k^
+  float* qs = smem;                  // (64, LD) q^
+  float* ks = qs + kTile * LD;       // (64, LD) k^
   float* vs = ks + kTile * LD;       // (64, LD) v, then dk^
   float* das = vs + kTile * LD;      // (64, LD) datt, then dq^
   float* pt = das + kTile * LD;      // (64, 68): P, then dS
@@ -394,22 +249,16 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
       bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * kTile * kTile;
   __syncthreads();
   const float* base = qkv + h * hd;
-  stage_head_rows<kTile, NTH>(qs, hd, [&](int r) { return base + (long long)tok[r] * C3; });
-  stage_head_rows<kTile, NTH>(ks, hd, [&](int r) { return base + (long long)tok[r] * C3 + C; });
+  // q^ and k^ (rows divided by max(|row|, 1e-12)) and their inverse norms
+  stage_head_rows<kTile, NTH, true>(
+      qs, hd, [&](int r) { return base + (long long)tok[r] * C3; }, inv);
+  stage_head_rows<kTile, NTH, true>(
+      ks, hd, [&](int r) { return base + (long long)tok[r] * C3 + C; }, inv + kTile);
   stage_head_rows<kTile, NTH>(vs, hd,
                               [&](int r) { return base + (long long)tok[r] * C3 + 2 * C; });
   stage_head_rows<kTile, NTH>(das, hd,
                               [&](int r) { return datt + (long long)tok[r] * C + h * hd; });
   stage_table_rows<kTile, kTile, NTH>(pt, table);  // the bias rows, for S
-  __syncthreads();
-  if (threadIdx.x < 2 * kTile) {  // q^ and k^, a thread a row
-    float* row = (threadIdx.x < kTile ? qs : ks) + (threadIdx.x % kTile) * LD;
-    float sq = 0.f;
-    for (int d = 0; d < hd; ++d) sq = fmaf(row[d], row[d], sq);
-    const float iv = 1.f / fmaxf(sqrtf(sq), 1e-12f);
-    for (int d = 0; d < hd; ++d) row[d] *= iv;
-    inv[threadIdx.x] = iv;
-  }
   __syncthreads();
   float cs[NT][4];  // cos = q^ k^T, for dscale
   aw.rows_by_channels(qs, ks, cs);
@@ -516,62 +365,12 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
   }
 }
 
-// ---------------------------------------------------------------------------
-// #13: the post-norm MLP half, forward, one block per 64 consecutive tokens.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    pn_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                      const float* __restrict__ b1, const float* __restrict__ w2,
-                      const float* __restrict__ b2, const float* __restrict__ g,
-                      const float* __restrict__ be, const float* __restrict__ s,
-                      float* __restrict__ out, long long tokens, long long hw, int C, int hidden,
-                      float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int M = (int)min((long long)kTile, tokens - t0);
-  const int ld = C + 1;
-  float* xT = smem;                  // (C, 64) x; then the fc2 rows (64, C + 1)
-  float* hT = xT + C * kTLd;         // (hidden, 64) gelu(fc1)
-  float* Bs = hT + hidden * kTLd;    // weight stage
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    xT[c * kTLd + r] = r < M ? __ldg(x + (t0 + r) * C + c) : 0.f;
-  }
-  gemm_weights(xT, C, w1, hidden, hidden, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(b1 + c);
-                 *reinterpret_cast<float4*>(hT + c * kTLd + r0) =
-                     make_float4(gelu_erf(o[0] + bb), gelu_erf(o[1] + bb),
-                                 gelu_erf(o[2] + bb), gelu_erf(o[3] + bb));
-               });
-  gemm_weights(hT, hidden, w2, C, C, [](int c) { return c; }, Bs,
-               [&](int r0, int c, const float* o) {
-                 const float bb = __ldg(b2 + c);
-#pragma unroll
-                 for (int i = 0; i < 4; ++i) xT[(r0 + i) * ld + c] = o[i] + bb;
-               });
-  __syncthreads();
-  postnorm_residual(xT, ld, M, C, g, be, eps, [&](int r) { return t0 + r; },
-                    [&](int r) { return __ldg(s + (t0 + r) / hw); }, x, out);
-}
-
-inline unsigned token_blocks(long long tokens) {
-  return (unsigned)((tokens + kTile - 1) / kTile);
-}
-
 }  // namespace trr
 
 extern "C" {
 
-size_t trr_cos_attn_fwd_smem_bytes(int C, int nh) {
-  return (size_t)trr::cos_attn_fwd_smem_floats(C, nh) * sizeof(float);
-}
-size_t trr_pn_mlp_fwd_smem_bytes(int C, int hidden) {
-  return (size_t)trr::pn_mlp_fwd_smem_floats(C, hidden) * sizeof(float);
-}
-size_t trr_cos_attn_rows_smem_bytes(int hd) {
-  return (size_t)trr::cos_attn_rows_smem_floats(hd) * sizeof(float);
-}
+size_t trr_cos_attn_fwd_smem_bytes(int C) { return (size_t)trr::cos_attn_fwd_smem_bytes(C); }
+size_t trr_pn_mlp_fwd_smem_bytes(int C) { return (size_t)trr::pn_mlp_fwd_smem_bytes(C); }
 size_t trr_cos_attn_bwd_smem_bytes() {
   return (size_t)trr::cos_attn_bwd_smem_floats() * sizeof(float);
 }
@@ -581,20 +380,20 @@ size_t trr_pn_mlp_bwd_smem_bytes(int C, int hidden) {
                            trr::rows_smem_bytes(C)});
 }
 
-// x (B, H, W, C); wq (C, 3C), bq (3C), scale (nh) already exponentiated, wp
-// (C, C), bp, g, be (C), bias (kinds, nh, 64, 64), s (B). Windows are 8x8 of
-// x rolled by (-shift, -shift); z is in x's frame.
+// The attention half's forward (#11): x, z (B, H, W, C); wq (C, 3C), bq
+// (3C), scale (nh) already exponentiated, wp (C, C), bp, g, be (C), bias
+// (kinds, nh, 64, 64), s (B); scratch qkv (T, 3C), att, proj (T, C).
+// Windows are 8x8 of x rolled by (-shift, -shift); z is in x's frame.
 int trr_cos_attn_fwd(const float* x, const float* wq, const float* bq, const float* scale,
                      const float* wp, const float* bp, const float* g, const float* be,
-                     const float* bias, const float* s, float* z, int B, int H, int W, int C,
-                     int nh, int kinds, int shift, float eps, cudaStream_t stream) {
-  const int floats = trr::cos_attn_fwd_smem_floats(C, nh);
-  const cudaError_t err = trr::set_smem(trr::cos_attn_fwd_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H / 8) * (W / 8), B);
-  trr::cos_attn_fwd_kernel<<<grid, trr::kThreads, floats * sizeof(float), stream>>>(
-      x, wq, bq, scale, wp, bp, g, be, bias, s, z, H, W, C, nh, kinds, shift, eps);
-  return (int)cudaGetLastError();
+                     const float* bias, const float* s, float* qkv, float* att, float* proj,
+                     float* z, int B, int H, int W, int C, int nh, int kinds, int shift,
+                     float eps, cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::linear(x, wq, bq, qkv, tokens, C, 3 * C, stream));
+  TRR_TRY(trr::cos_window_attention(qkv, scale, bias, att, B, H, W, C, nh, kinds, shift, stream));
+  TRR_TRY(trr::linear(att, wp, bp, proj, tokens, C, C, stream));
+  return (int)trr::postnorm_rows(proj, g, be, x, s, z, tokens, hw, C, eps, stream);
 }
 
 // The attention half's backward (#12): x, dout (B, H, W, C) and the
@@ -611,19 +410,14 @@ int trr_cos_attn_bwd(const float* x, const float* dout, const float* wq, const f
   const long long tokens = (long long)B * H * W, hw = (long long)H * W;
   const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
   TRR_TRY(trr::linear(x, wq, bq, qkv, tokens, C, 3 * C, stream));
-  int floats = trr::cos_attn_rows_smem_floats(C / nh);
-  TRR_TRY(trr::set_smem(trr::cos_attn_rows_kernel, floats));
-  trr::cos_attn_rows_kernel<<<dim3(nh, (H / 8) * (W / 8), B), trr::kThreads,
-                              floats * sizeof(float), stream>>>(qkv, scale, bias, att, H, W, C,
-                                                                nh, kinds, shift);
-  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::cos_window_attention(qkv, scale, bias, att, B, H, W, C, nh, kinds, shift, stream));
   TRR_TRY(trr::linear(att, wp, bp, proj, tokens, C, C, stream));
   trr::postnorm_ln_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(proj, dout, g, s, dproj,
                                                                       ln_part, tokens, hw, C, eps);
   TRR_TRY(cudaGetLastError());
   TRR_TRY(trr::rows<trr::kRowsStore>(dproj, wp, tokens, C, C, nullptr, nullptr, nullptr,
                                      nullptr, nullptr, hw, datt, nullptr, nullptr, stream));
-  floats = trr::cos_attn_bwd_smem_floats();
+  const int floats = trr::cos_attn_bwd_smem_floats();
   TRR_TRY(trr::set_smem(trr::cos_attn_bwd_tc_kernel, floats));
   trr::cos_attn_bwd_tc_kernel<<<dim3(nh, (H / 8) * (W / 8), B), trr::attn_tc_threads(trr::kTile),
                                 floats * sizeof(float), stream>>>(
@@ -634,19 +428,17 @@ int trr_cos_attn_bwd(const float* x, const float* dout, const float* wq, const f
                                              stream);
 }
 
-// x, out: (B, H, W, C) seen as B*H*W tokens; w1 (C, hidden), b1 (hidden),
-// w2 (hidden, C), b2, g, be (C), s (B).
+// The MLP half's forward (#13): x, out (B, H, W, C) as B*H*W tokens; w1 (C,
+// hidden), b1 (hidden), w2 (hidden, C), b2, g, be (C), s (B); scratch hg
+// (T, hidden), m (T, C).
 int trr_pn_mlp_fwd(const float* x, const float* w1, const float* b1, const float* w2,
-                   const float* b2, const float* g, const float* be, const float* s, float* out,
-                   int B, int H, int W, int C, int hidden, float eps, cudaStream_t stream) {
-  const int floats = trr::pn_mlp_fwd_smem_floats(C, hidden);
-  const cudaError_t err = trr::set_smem(trr::pn_mlp_fwd_kernel, floats);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  trr::pn_mlp_fwd_kernel<<<trr::token_blocks(tokens), trr::kThreads, floats * sizeof(float),
-                           stream>>>(x, w1, b1, w2, b2, g, be, s, out, tokens, (long long)H * W,
-                                     C, hidden, eps);
-  return (int)cudaGetLastError();
+                   const float* b2, const float* g, const float* be, const float* s, float* hg,
+                   float* m, float* out, int B, int H, int W, int C, int hidden, float eps,
+                   cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::linear<trr::kLinearGelu>(x, w1, b1, hg, tokens, C, hidden, stream));
+  TRR_TRY(trr::linear(hg, w2, b2, m, tokens, hidden, C, stream));
+  return (int)trr::postnorm_rows(m, g, be, x, s, out, tokens, hw, C, eps, stream);
 }
 
 // The MLP half's backward (#14): x, dout (B, H, W, C) and the forward's

@@ -2,8 +2,9 @@
 // tf32 in 3xTF32 (tc_gemm.cuh) on the operands a thread block holds in
 // shared memory for one (window, head). Shared by attn_rows_fwd_tc_kernel
 // below (the pre-LN block forwards #1 and #9 at 8x8 and 12x12 windows and #4,
-// through block_fwd.cuh, and #3's window MHSA forward, in
-// window_attention.cu), attn_rows_bwd_tc_kernel (#6's recompute backward, in
+// through block_fwd.cuh, #3's window MHSA forward, in window_attention.cu,
+// and, in its cosine form, #11 and #12's forward stage, in
+// fused_block_v2.cu), attn_rows_bwd_tc_kernel (#6's recompute backward, in
 // attn_block_staged.cu, and #8's window MHSA backward, in
 // window_attention.cu) and #12's cos_attn_bwd_tc_kernel (fused_block_v2.cu).
 //
@@ -184,16 +185,29 @@ struct AttnWarps {
 };
 
 // dst[r * kHeadLd + d] = row(r)[d] for d < hd, else 0, for the ROWS rows
-// (NTH threads; each thread's loads issued before its stores).
-template <int ROWS, int NTH, class Row>
-__device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row) {
-  static_assert(ROWS * 32 % NTH == 0, "the rows must split evenly");
+// (NTH threads; each thread's loads issued before its stores; a warp holds
+// a whole row at each step, a channel a lane). NORM, SwinV2's cosine
+// attention: each row divided by max(|row|, 1e-12), its L2 norm over hd
+// (the JAX package's _norm_rows, torch's F.normalize; the zero padding adds
+// nothing), and, where inv is not null, the inverse norm to inv[r].
+template <int ROWS, int NTH, bool NORM = false, class Row>
+__device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row,
+                                                float* inv = nullptr) {
+  static_assert(ROWS * 32 % NTH == 0 && NTH % 32 == 0, "the rows must split evenly");
   constexpr int PER = ROWS * 32 / NTH;
   float v[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = threadIdx.x + i * NTH, d = e % 32;
     v[i] = d < hd ? __ldg(row(e / 32) + d) : 0.f;
+  }
+  if constexpr (NORM) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const float iv = 1.f / fmaxf(sqrtf(warp_sum(v[i] * v[i])), 1e-12f);
+      v[i] *= iv;
+      if (inv != nullptr && threadIdx.x % 32 == 0) inv[(threadIdx.x + i * NTH) / 32] = iv;
+    }
   }
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
@@ -277,13 +291,17 @@ __host__ __device__ constexpr int attn_fwd_blocks(int N, int threads) {
 // time. Heads are the grid's fastest index, as in the backward: each
 // token's 3C row is read once while it stays in L2. The grid is one-
 // dimensional, (sample, window, head) with the head fastest, so a map of
-// any number of windows fits it.
-template <int N, int RB, int KS>
+// any number of windows fits it. COS, SwinV2's cosine attention (#11, #12's
+// forward stage): the rows of k and q are divided by their L2 norm as they
+// are staged (stage_head_rows' NORM), and the temperature is the head's,
+// temps[h] (already exponentiated), in place of `scale`.
+template <int N, int RB, int KS, bool COS = false>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                   attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
     attn_rows_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                             float* __restrict__ att, float* __restrict__ P, int H, int W, int C,
-                            int nh, int wr, int wc, int kinds, int shift, float scale) {
+                            int nh, int wr, int wc, int kinds, int shift, float scale,
+                            const float* __restrict__ temps) {
   using AW = AttnWarps<N, RB, KS>;
   constexpr int NTH = AW::NTH, LD = AW::LD, CT = AW::CT;
   extern __shared__ __align__(16) float smem[];
@@ -304,13 +322,16 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
     tok[r] = (int)roll_token(b, wi, wj, r, H, W, wr, wc, shift);
   const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
   const size_t head = (size_t)blockIdx.x * N * N;  // (b, win, h) of P, in the grid's order
+  if constexpr (COS) scale = __ldg(temps + h);
   __syncthreads();
-  stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
+  stage_head_rows<N, NTH, COS>(ks, hd,
+                               [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
   stage_head_rows<N, NTH>(vs, hd,
                           [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
   for (int r0 = 0; r0 < N; r0 += RB) {
     const int* rt = tok + r0;  // this row block's tokens
-    stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_head_rows<RB, NTH, COS>(qs, hd,
+                                  [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
     stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
     __syncthreads();  // q and the bias rows (and, the first time, k and v) staged
     aw.softmax_rows(qs, ks, pt, red, scale);
@@ -485,18 +506,20 @@ __host__ __device__ constexpr AttnPlan attn_plan(int n) {
                     : AttnPlan{0, 0};
 }
 
-template <int N>
+// attn_rows_fwd_tc_kernel at windows of N tokens; COS, the cosine form, with
+// the heads' temperatures `temps` (nh).
+template <int N, bool COS = false>
 cudaError_t attn_rows_fwd_tc(const float* qkv, const float* bias, float* att, float* P, int B,
                              int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
-                             float scale, cudaStream_t stream) {
+                             float scale, cudaStream_t stream, const float* temps = nullptr) {
   constexpr AttnPlan plan = attn_plan(N);
   constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
-  const cudaError_t err = set_smem(attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks>, floats);
+  const cudaError_t err = set_smem(attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks, COS>, floats);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
-  attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks>
+  attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks, COS>
       <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
-          qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
+          qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale, temps);
   return cudaGetLastError();
 }
 

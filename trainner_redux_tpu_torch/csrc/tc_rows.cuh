@@ -6,8 +6,9 @@
 // two warpgroups of 64 rows each, one block a SM. The backwards take rows of
 // C <= 256 channels, C a multiple of 4: rows move with 16-byte loads and
 // copies. The forwards' kernels (ln_rows_kernel, linear_kernel) also take
-// rows of up to 512 channels and, where a width is not a multiple of 4,
-// move them a float at a time (VEC false).
+// rows of up to 512 channels (768 in the post-norm blocks' residual row
+// pass) and, where a width is not a multiple of 4, move them a float at a
+// time (VEC false).
 #pragma once
 
 #include "tc_gemm.cuh"
@@ -29,6 +30,7 @@ constexpr int kRowsStore = 0;       // out = dy
 constexpr int kRowsResidual = 1;    // out = dres + dy
 constexpr int kRowsLn = 2;          // the LayerNorm backward of the rows
 constexpr int kLnMaxC = 512;        // channels of a ln_rows_kernel row
+constexpr int kPnMaxC = 768;        // channels of its residual (post-norm) form's row
 // What linear_kernel does with its product acc = A W.
 constexpr int kLinearBias = 0;      // out = acc + b
 constexpr int kLinearGelu = 1;      // out = gelu_erf(acc + b)
@@ -55,13 +57,12 @@ __host__ __device__ inline int linear_smem_bytes(int bn = kColTile) {
   return split_floats(bn) * (int)sizeof(float) + Ring<>::bytes(token_stage_floats(bn));
 }
 
-// The columns of a linear_kernel tile: 128, and for the residual epilogue
-// 64 or 128 where one tile spans the row, 96 for rows of 129-192 (two
-// tiles: 192 columns at C 180, where 128-column tiles would take 256), else
-// 128 (256 at C 240). At most 128: a promoted product holds two
-// accumulators of BN / 2 floats a thread.
-__host__ __device__ inline int linear_cols(int N, int epi) {
-  if (epi != kLinearResidual) return kColTile;
+// The columns of a linear_kernel tile, whatever its epilogue: 64 or 128
+// where one tile spans the row, 96 for rows of 129-192 (two tiles: 192
+// columns at C 180, where 128-column tiles would take 256), else 128 (256
+// at C 240). At most 128: a promoted product holds two accumulators of BN
+// / 2 floats a thread.
+__host__ __device__ inline int linear_cols(int N) {
   return N <= 64 ? 64 : N <= 128 ? 128 : N <= 192 ? 96 : kColTile;
 }
 
@@ -77,14 +78,17 @@ __host__ __device__ inline int hidden_smem_bytes() {
 // stats (T, 2) the mean and 1/std of each row, when not null. When dm is
 // not null, dm = s[t / hw] dout as well. One warp a token, C <= kLnMaxC;
 // VEC (C a multiple of 4): 16-byte loads and stores, else a float at a time.
-template <bool VEC>
+// RES, the post-norm blocks' last stage: y = res + s[t / hw] LN(x) instead,
+// res (T, C) the block's input, C <= kPnMaxC.
+template <bool VEC, bool RES = false>
 __global__ void __launch_bounds__(kThreads)
     ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ be, float* __restrict__ y, float* __restrict__ stats,
+                   const float* __restrict__ be, const float* __restrict__ res,
+                   float* __restrict__ y, float* __restrict__ stats,
                    const float* __restrict__ dout, const float* __restrict__ s,
                    float* __restrict__ dm, long long T, long long hw, int C, float eps) {
-  constexpr int V = VEC ? 4 : 1;           // floats a load
-  constexpr int PER = kLnMaxC / (32 * V);  // loads a lane
+  constexpr int V = VEC ? 4 : 1;                             // floats a load
+  constexpr int PER = (RES ? kPnMaxC : kLnMaxC) / (32 * V);  // loads a lane
   const long long t = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (t >= T) return;
   const int lane = threadIdx.x % 32, nv = C / V;
@@ -123,6 +127,7 @@ __global__ void __launch_bounds__(kThreads)
     stats[2 * t] = mean;
     stats[2 * t + 1] = inv;
   }
+  const float sr = RES ? __ldg(s + t / hw) : 0.f;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = lane + 32 * i;
@@ -130,11 +135,17 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (VEC) {
       const float4 gg = __ldg(reinterpret_cast<const float4*>(g) + e);
       const float4 bb = __ldg(reinterpret_cast<const float4*>(be) + e);
-      reinterpret_cast<float4*>(y + t * C)[e] = make_float4(
+      float4 o = make_float4(
           (v[4 * i] - mean) * inv * gg.x + bb.x, (v[4 * i + 1] - mean) * inv * gg.y + bb.y,
           (v[4 * i + 2] - mean) * inv * gg.z + bb.z, (v[4 * i + 3] - mean) * inv * gg.w + bb.w);
+      if constexpr (RES) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(res + t * C) + e);
+        o = make_float4(r.x + sr * o.x, r.y + sr * o.y, r.z + sr * o.z, r.w + sr * o.w);
+      }
+      reinterpret_cast<float4*>(y + t * C)[e] = o;
     } else {
-      y[t * C + e] = (v[i] - mean) * inv * __ldg(g + e) + __ldg(be + e);
+      const float o = (v[i] - mean) * inv * __ldg(g + e) + __ldg(be + e);
+      y[t * C + e] = RES ? __ldg(res + t * C + e) + sr * o : o;
     }
   }
   if (dm != nullptr) {
@@ -209,7 +220,7 @@ __device__ __forceinline__ void xw_product(float (&acc)[BN / 2], Ring<>& ring, f
 // Per 128 tokens t0.. and BN columns n0..: out (T, N) = A (T, K) W (K, N)
 // + b (EPI kLinearBias), its gelu_erf (kLinearGelu), or x + s[t / hw] (A W
 // + b) (kLinearResidual, x (T, N)); W as it lies (N-major); a ragged last
-// column tile is masked. BN is linear_cols(N, EPI). The column tiles of a
+// column tile is masked. BN is linear_cols(N). The column tiles of a
 // token tile are neighbours in the grid, so A's rows come from L2 after the
 // first. VEC: K and N multiples of 4 (16-byte copies, 8-byte loads and
 // stores), else a float at a time. PROMOTE: as xw_product's.
@@ -463,11 +474,27 @@ inline cudaError_t ln_rows(const float* x, const float* g, const float* be, floa
   if (C > kLnMaxC || (C % 4 && dm != nullptr)) return cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
   if (C % 4 == 0)
-    ln_rows_kernel<true><<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw,
-                                                          C, eps);
+    ln_rows_kernel<true><<<blocks, kThreads, 0, stream>>>(x, g, be, nullptr, y, stats, dout, s,
+                                                          dm, T, hw, C, eps);
   else
-    ln_rows_kernel<false><<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T,
-                                                           hw, C, eps);
+    ln_rows_kernel<false><<<blocks, kThreads, 0, stream>>>(x, g, be, nullptr, y, stats, dout, s,
+                                                           dm, T, hw, C, eps);
+  return cudaGetLastError();
+}
+
+// The post-norm blocks' row pass: out = res + s[t / hw] LN(x) over the T
+// rows of C <= kPnMaxC channels, g and be the LayerNorm's affine.
+inline cudaError_t postnorm_rows(const float* x, const float* g, const float* be,
+                                 const float* res, const float* s, float* out, long long T,
+                                 long long hw, int C, float eps, cudaStream_t stream) {
+  if (C > kPnMaxC) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
+  if (C % 4 == 0)
+    ln_rows_kernel<true, true><<<blocks, kThreads, 0, stream>>>(
+        x, g, be, res, out, nullptr, nullptr, s, nullptr, T, hw, C, eps);
+  else
+    ln_rows_kernel<false, true><<<blocks, kThreads, 0, stream>>>(
+        x, g, be, res, out, nullptr, nullptr, s, nullptr, T, hw, C, eps);
   return cudaGetLastError();
 }
 
@@ -488,17 +515,13 @@ template <bool VEC, int EPI>
 inline cudaError_t linear_vec(const float* A, const float* W, const float* b, const float* x,
                               const float* s, float* out, long long T, long long hw, int K, int N,
                               cudaStream_t stream) {
-  if constexpr (EPI != kLinearResidual) {
-    return linear_launch<kColTile, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
-  } else {
-    switch (linear_cols(N, EPI)) {
-      case 64:
-        return linear_launch<64, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
-      case 96:
-        return linear_launch<96, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
-      default:
-        return linear_launch<kColTile, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
-    }
+  switch (linear_cols(N)) {
+    case 64:
+      return linear_launch<64, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
+    case 96:
+      return linear_launch<96, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
+    default:
+      return linear_launch<kColTile, VEC, EPI>(A, W, b, x, s, out, T, hw, K, N, stream);
   }
 }
 

@@ -72,13 +72,12 @@ SIGNATURES = {
         "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "fused_block_v2": {
-        "trr_cos_attn_fwd": ([_P] * 11 + [_I] * 7 + [_F, _P], _I),
+        "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),
         "trr_cos_attn_bwd": ([_P] * 20 + [_I] * 7 + [_F, _P], _I),
-        "trr_pn_mlp_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
+        "trr_pn_mlp_fwd": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
         "trr_pn_mlp_bwd": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
-        "trr_cos_attn_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "trr_pn_mlp_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "trr_cos_attn_rows_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_cos_attn_fwd_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_pn_mlp_fwd_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_cos_attn_bwd_smem_bytes": ([], ctypes.c_size_t),
         "trr_pn_mlp_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },

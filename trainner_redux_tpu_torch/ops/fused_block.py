@@ -196,21 +196,23 @@ def rows_smem_bytes(channels: int) -> int:
 
 
 def linear_smem_bytes() -> int:
-    """Shared memory of linear_kernel (csrc/tc_rows.cuh): a per-token
-    kernel's buffers at a 128-column tile."""
+    """Shared memory of linear_kernel (csrc/tc_rows.cuh) at its widest,
+    128-column tile: a per-token kernel's buffers."""
     return _wg_bytes(128)
 
 
 def residual_tile_cols(channels: int) -> int:
-    """Columns of a linear_kernel tile with its residual epilogue
-    (csrc/tc_rows.cuh `linear_cols`): 64 or 128 where one tile spans the
+    """Columns of a linear_kernel tile over a row of `channels` outputs,
+    whatever its epilogue (csrc/tc_rows.cuh `linear_cols`; the residual
+    products' rows are the block's): 64 or 128 where one tile spans the
     row, 96 for rows of 129-192 (two tiles), else 128."""
     return 64 if channels <= 64 else 128 if channels <= 128 else 96 if channels <= 192 else 128
 
 
 def residual_smem_bytes(channels: int) -> int:
-    """Shared memory of linear_kernel with its residual epilogue: a
-    per-token kernel's buffers at its column tile."""
+    """Shared memory of linear_kernel over a row of `channels` outputs (its
+    residual epilogue's rows): a per-token kernel's buffers at its column
+    tile."""
     return _wg_bytes(residual_tile_cols(channels))
 
 

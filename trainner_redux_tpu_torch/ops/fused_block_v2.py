@@ -19,7 +19,11 @@ TPU kernel #11's (#13's) port in `csrc/fused_block_v2.cu` and the backward
 #12's (#14's), which recomputes the forward from x, as the JAX package
 does; on a CPU tensor both directions run their plain versions
 (`*_reference`, `*_bwd_reference`). Anything else raises. `s` is the
-per-sample DropPath keep scale; it gets no gradient (as in JAX).
+per-sample DropPath keep scale; it gets no gradient (as in JAX). Every
+direction runs in stages through device memory: the per-token products on
+the tensor-core engine (3xTF32), the window attention on mma.sync
+(3xTF32), and, in the forwards, a row pass for the post-norm; the
+wrappers allocate the stages' scratch.
 
 Layout as in ops/fused_block.py: x is NHWC (B, H, W, C), H and W multiples
 of the 8x8 window, weights (in, out), heads of at most 32 channels, fp32.
@@ -38,7 +42,6 @@ import torch
 import torch.nn.functional as F
 
 from trainner_redux_tpu_torch.ops.fused_block import (
-    STAGE_FLOATS,
     TC_ROWS,
     _check_aligned,
     _from_windows,
@@ -55,6 +58,7 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     _weight_grad,
     linear_smem_bytes,
     mlp_hidden_smem_bytes,
+    residual_smem_bytes,
     rows_smem_bytes,
     tc_rows_fit,
 )
@@ -63,14 +67,15 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     SMEM_LIMIT,
     TILE,
     TILE_LD,
-    V_LD,
     _check_cuda,
+    attn_fwd_tc_smem_bytes,
     heads_fit,
     window_kinds,
 )
 
 LIB = "fused_block_v2"
 NORM_EPS = 1e-12  # the L2 norm's clamp (JAX _norm_rows, torch F.normalize)
+PN_MAX_C = 768  # channels of a post-norm row pass's row (csrc/tc_rows.cuh kPnMaxC)
 
 
 # ---------------------------------------------------------------------------
@@ -78,22 +83,19 @@ NORM_EPS = 1e-12  # the L2 norm's clamp (JAX _norm_rows, torch F.normalize)
 # ---------------------------------------------------------------------------
 
 
-def cos_attn_fwd_smem_bytes(channels: int, num_heads: int) -> int:
-    """The attention half's forward (and its recompute)."""
-    hd = channels // num_heads
-    return 4 * (2 * channels * TILE_LD + 2 * hd * TILE_LD + TILE * V_LD + TILE * TILE_LD
-                + STAGE_FLOATS + 2 * TILE)
+def pn_mlp_fwd_smem_bytes(channels: int) -> int:
+    """The largest shared memory of the MLP half's forward stages: hg on
+    linear_kernel at a 128-column tile (any hidden width), m at the tile of
+    a row of `channels`; the post-norm row pass takes none."""
+    return max(linear_smem_bytes(), residual_smem_bytes(channels))
 
 
-def pn_mlp_fwd_smem_bytes(channels: int, hidden: int) -> int:
-    """The MLP half's forward."""
-    return 4 * (channels * TILE_LD + hidden * TILE_LD + STAGE_FLOATS)
-
-
-def cos_attn_rows_smem_bytes(head_dim: int) -> int:
-    """The attention half's backward, per-(window, head) forward stage: q^
-    and k^ (hd, 68), v (64, 32), the score tile, the inverse norms."""
-    return 4 * (2 * head_dim * TILE_LD + TILE * V_LD + TILE * TILE_LD + 2 * TILE)
+def cos_attn_fwd_smem_bytes(channels: int) -> int:
+    """The largest shared memory of the attention half's forward stages (and
+    of the backward's recompute): qkv and proj as the MLP half's products,
+    the cosine window attention at 8x8 windows (k and v of the window, q
+    and att of the 64 rows, the P tile, the exchanges, the token indices)."""
+    return max(pn_mlp_fwd_smem_bytes(channels), attn_fwd_tc_smem_bytes(TILE))
 
 
 def cos_attn_bwd_smem_bytes() -> int:
@@ -113,25 +115,29 @@ def pn_mlp_bwd_smem_bytes(channels: int, hidden: int) -> int:
 
 
 def cos_attn_fits(h, w, window_size, channels, num_heads, train=False) -> bool:
-    # the proj rows, (64, C + 1), live in the (C, 68) x tile: C >= 16
-    if h % window_size or w % window_size or channels < 16:
+    """The attention half's forward (#11): 8x8 windows, window-aligned dims,
+    heads of at most 32 channels, a post-norm row of at most PN_MAX_C
+    channels; in training (#12) also rows the engine's backward kernels take
+    (`tc_rows_fit`); each plan within one thread block's shared memory."""
+    if h % window_size or w % window_size or channels > PN_MAX_C:
         return False
     if not heads_fit(window_size, channels, num_heads):
         return False
-    plans = [cos_attn_fwd_smem_bytes(channels, num_heads)]
+    plans = [cos_attn_fwd_smem_bytes(channels)]
     if train:
         if not tc_rows_fit(channels):  # the per-token stages run on the engine
             return False
-        hd = channels // num_heads
-        plans += [linear_smem_bytes(), rows_smem_bytes(channels), cos_attn_rows_smem_bytes(hd),
-                  cos_attn_bwd_smem_bytes()]
+        plans += [rows_smem_bytes(channels), cos_attn_bwd_smem_bytes()]
     return max(plans) <= SMEM_LIMIT
 
 
 def pn_mlp_fits(h, window_size, channels, hidden, train=False) -> bool:
-    if h % window_size or channels < 16:
+    """The MLP half's forward (#13): H a multiple of the caller's rows, a
+    post-norm row of at most PN_MAX_C channels, any hidden width; in
+    training (#14) also rows the engine's backward kernels take."""
+    if h % window_size or channels > PN_MAX_C:
         return False
-    plans = [pn_mlp_fwd_smem_bytes(channels, hidden)]
+    plans = [pn_mlp_fwd_smem_bytes(channels)]
     if train:
         # the backward runs on the engine: rows of at most 256 channels,
         # rows of C and of hidden in 16-byte pieces
@@ -293,15 +299,22 @@ def _attn_operands(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim
 
 def _cos_attn_forward(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim,
                       window_size, eps, shift):
+    name = "fused_cos_attn_block"
     _attn_operands(x, wq, bq, scale, wp, bp, g, be, bias, s, num_heads, head_dim, window_size,
-                   shift, False, "fused_cos_attn_block")
+                   shift, False, name)
+    _check_aligned(name, x=x, wq=wq, bq=bq, wp=wp, bp=bp, g=g, be=be, bias=bias)
     b, hh, ww, c = x.shape
     z = torch.empty_like(x)
-    if x.numel():
-        fused_cos_attn_block.launches += 1
-        _launch(LIB, "trr_cos_attn_fwd", x.device,
-                *(t.data_ptr() for t in (x, wq, bq, scale, wp, bp, g, be, bias, s, z)),
-                b, hh, ww, c, num_heads, bias.shape[0], shift, eps)
+    if z.numel() == 0:
+        return z
+    T = b * hh * ww  # the stages pass qkv, att and proj through (T, 3C), (T, C), (T, C)
+    qkv, att, proj = (torch.empty((T, k), device=x.device, dtype=torch.float32)
+                      for k in (3 * c, c, c))
+    fused_cos_attn_block.launches += 1
+    _launch(LIB, "trr_cos_attn_fwd", x.device,
+            *(t.data_ptr() for t in (x, wq, bq, scale, wp, bp, g, be, bias, s, qkv, att, proj,
+                                     z)),
+            b, hh, ww, c, num_heads, bias.shape[0], shift, eps)
     return z
 
 
@@ -369,15 +382,20 @@ def _mlp_operands(x, w1, b1, w2, b2, g, be, s, window_size, train, name):
 
 
 def _pn_mlp_forward(x, w1, b1, w2, b2, g, be, s, window_size, eps):
-    _mlp_operands(x, w1, b1, w2, b2, g, be, s, window_size, False, "fused_postnorm_mlp")
+    name = "fused_postnorm_mlp"
+    _mlp_operands(x, w1, b1, w2, b2, g, be, s, window_size, False, name)
+    _check_aligned(name, x=x, w1=w1, b1=b1, w2=w2, b2=b2, g=g, be=be)
     b, hh, ww, c = x.shape
+    hidden, T = w1.shape[1], b * hh * ww
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    # scratch: gelu(fc1 x), then fc2's rows
+    hg, m = (torch.empty((T, k), device=x.device, dtype=torch.float32) for k in (hidden, c))
     fused_postnorm_mlp.launches += 1
     _launch(LIB, "trr_pn_mlp_fwd", x.device,
-            *(t.data_ptr() for t in (x, w1, b1, w2, b2, g, be, s, out)),
-            b, hh, ww, c, w1.shape[1], eps)
+            *(t.data_ptr() for t in (x, w1, b1, w2, b2, g, be, s, hg, m, out)),
+            b, hh, ww, c, hidden, eps)
     return out
 
 
