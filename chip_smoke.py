@@ -120,7 +120,10 @@ failure:
              of 512x512 (8x4096 Y blocks): max abs error, blocks near a
              rounding tie counted and left out, two runs bit-identical;
              kernel and plain device times (CUDA graphs: at the path's
-             planes a call is shorter than its host time) and the bound.
+             planes a call is shorter than its host time) and the bound;
+             then a compression's three planes (Y, Cb, Cr) in one launch,
+             bit for bit the three single-plane launches, timed against
+             them, beside an empty kernel's launch floor.
 27. otf degrade - one seeded batch (8 GT crops of 160x160, the dataset's
              kernels) through `_degrade` with every optics, sensor, ISP,
              editing and recompression gate open, twice from the same
@@ -130,9 +133,9 @@ failure:
              in fp32, without the GAN and the perceptual loss (batch 8 of
              gt_size 128, queue 120, L1, AdamW 2e-4, EMA 0.999; the
              template's MS-SSIM raises at gt_size 128 in both packages),
-             30 steps from 16 seeded 512x512 HR images, counting #15 (3 a
-             compression, recompressions included) and #4/#5 (36 + 36 a
-             step); the EMA checkpoint then serves with the strict load.
+             30 steps from 16 seeded 512x512 HR images, counting #15 (one
+             launch a compression, recompressions included) and #4/#5 (36 +
+             36 a step); the EMA checkpoint then serves with the strict load.
 29. otf train profile - device time by kernel of one OTF step, split into
              the degradation (`feed_data`) and the optimizer step, with the
              card's idle share; both also timed without the profiler.
@@ -529,7 +532,6 @@ def stage_of(kernel: str) -> str:
                         ("attn_rows_fwd_tc_kernel", "window attention forward"),
                         ("block_bwd_attn_kernel", "window attention"),
                         ("attn_rows_bwd_tc_kernel", "window attention"),
-                        ("attn_rows_bwd_saved_kernel", "window attention"),
                         ("cos_attn_bwd_tc_kernel", "window attention"),
                         ("atb_kernel", "weight gradients"), ("sum_rows_kernel", "partial sums"),
                         ("dbias", "bias table")):
@@ -576,12 +578,14 @@ STAGES_3 = {"window attention forward": 1}
 # post-norm rows)
 STAGES_11 = {"x W + b": 2, "window attention forward": 1, "post-norm rows": 1}
 STAGES_13 = {"x W + b": 2, "post-norm rows": 1}
-# the FMA forward kernels that the tensor-core stages replaced: a profiled
-# forward or training step that launches one fails
+# the FMA kernels that the tensor-core stages replaced (the forwards, #10's
+# saved-P window attention, #15's block transform): a profile or stage split
+# that launches one fails
 RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel", "trr::ln_qkv_kernel",
            "trr::attn_rows_fwd_kernel", "trr::proj_residual_kernel",
            "trr::window_mhsa_fwd_kernel", "trr::window_mhsa_rows_fwd_kernel",
-           "trr::cos_attn_fwd_kernel", "trr::cos_attn_rows_kernel", "trr::pn_mlp_fwd_kernel")
+           "trr::cos_attn_fwd_kernel", "trr::cos_attn_rows_kernel", "trr::pn_mlp_fwd_kernel",
+           "trr::attn_rows_bwd_saved_kernel", "trr::jpeg_block_kernel")
 SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2,
                   "fused_window_mhsa": STAGES_3}
 # the window attention forward's kernel at each window of n tokens (its plan
@@ -590,6 +594,10 @@ SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2,
 ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}, false>"
             for n, rb, ks in ((64, 64, 2), (128, 32, 4), (144, 48, 2), (256, 64, 4))}
 COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true>"
+# #10's window attention: the saved-P form of the tensor-core backward
+# (<n, rows, key parts, att, saved>) at 8x8 and 12x12 windows
+SAVED_BWD = {n: f"attn_rows_bwd_tc_kernel<{n}, {rb}, {ks}, false, true>"
+             for n, rb, ks in ((64, 64, 2), (144, 48, 2))}
 POSTNORM_ROWS = "ln_rows_kernel<true, true>"
 LN_LINEAR = ("ln_rows_kernel", "linear_kernel")
 SERVING_KERNELS = {"fused_attn_block": (*LN_LINEAR, ATTN_FWD[N]), "fused_ln_mlp": LN_LINEAR,
@@ -609,7 +617,8 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
     a stage (then, while a stage has fewer profiled launches than the
     session's calls, it profiles again, four times the calls, twice at
     most, and adds the sessions' launches up). Fails unless a profiled
-    kernel's name holds each of `kernels`."""
+    kernel's name holds each of `kernels`, and if a RETIRED kernel
+    launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,7 +633,9 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
                 fn()
             torch.cuda.synchronize()
         profiled += calls
-        for e in device_events(prof):
+        events = device_events(prof)
+        check_retired(tag, events)
+        for e in events:
             names.add(e.key)
             rec = seen.setdefault(stage_of(e.key), [0.0, 0])
             rec[0] += e.self_device_time_total / 1e3
@@ -1042,11 +1053,11 @@ def device_events(prof) -> list:
 
 
 def check_retired(tag: str, events) -> None:
-    """Fail if a profile launched one of the RETIRED forward kernels."""
+    """Fail if a profile launched one of the RETIRED FMA kernels."""
     for e in events:
         if any(k in e.key for k in RETIRED):
-            fail(f"[{tag}] {e.key[:90]} was launched: the pre-LN block forwards run on the "
-                 "tensor-core stages")
+            fail(f"[{tag}] {e.key[:90]} was launched: a retired FMA kernel (the tensor-core "
+                 "stages replaced it)")
 
 
 def phase_profile(seed: int) -> None:
@@ -2141,9 +2152,9 @@ def phase_timed_train_branches(seed: int, network: str, label: str, tag: str,
 
 
 def jpeg_planes(seed: int, b: int, size: int, device) -> dict[str, tuple]:
-    """The level-shifted 8x8 blocks of the Y and Cb planes of `b` seeded
-    smooth size x size images, and their tables at qualities across 45-95,
-    as DiffJPEG hands them to kernel #15."""
+    """The level-shifted 8x8 blocks of the Y ("Y"), Cb ("C") and Cr ("Cr")
+    planes of `b` seeded smooth size x size images, and their tables at
+    qualities across 45-95, as DiffJPEG hands them to kernel #15."""
     import torch
 
     from trainner_redux_tpu_torch.utils import diffjpeg as dj
@@ -2158,9 +2169,11 @@ def jpeg_planes(seed: int, b: int, size: int, device) -> dict[str, tuple]:
     img = (img + 0.03 * torch.randn(img.shape, generator=gen)).clamp(0, 1).to(device)
     factor = dj.quality_to_factor(torch.linspace(45, 95, b)).to(device)[:, None]
     ycc = dj._rgb_to_ycbcr(img * 255.0)
-    cb = ycc[..., 1].reshape(b, size // 2, 2, size // 2, 2).mean(dim=(2, 4))
+    cb, cr = (ycc[..., i].reshape(b, size // 2, 2, size // 2, 2).mean(dim=(2, 4))
+              for i in (1, 2))
     out = {}
-    for plane, x, table in (("Y", ycc[..., 0], dj.Y_TABLE), ("C", cb, dj.C_TABLE)):
+    for plane, x, table in (("Y", ycc[..., 0], dj.Y_TABLE), ("C", cb, dj.C_TABLE),
+                            ("Cr", cr, dj.C_TABLE)):
         qt = torch.clamp(torch.from_numpy(table.reshape(-1)).to(device)[None] * factor, 1.0, 255.0)
         out[plane] = (dj._to_blocks(x - 128.0).contiguous(), qt.contiguous())
     return out
@@ -2171,7 +2184,10 @@ def phase_jpeg_kernel() -> dict:
     gt_size 128: the 40x40 LQ padded to 48x48, 36 Y and 9 C blocks an
     image) and at 8 images of 512x512 (4096 Y blocks an image). Blocks with
     a coefficient within 1e-4 of a rounding tie are counted and left out of
-    the comparison."""
+    the comparison. Then the path's three planes in one launch
+    (`jpeg_block_transform_planes`, DiffJPEG's call) against three
+    single-plane launches, and an empty kernel's launch, all by CUDA
+    graphs."""
     import torch
 
     from trainner_redux_tpu_torch.ops import jpeg_kernel as jk
@@ -2207,6 +2223,35 @@ def phase_jpeg_kernel() -> dict:
                       lambda: jk.jpeg_block_transform(blocks, qt),
                       lambda: jk.jpeg_block_transform_reference(blocks, qt), None, flops,
                       nbytes(blocks, qt, got), err, note, timer=graph_ms)
+
+    # a compression's three planes, as DiffJPEG launches them
+    planes = [path[k] for k in ("Y", "C", "Cr")]
+    try:
+        got = jk.jpeg_block_transform_planes(planes)
+        again = jk.jpeg_block_transform_planes(planes)
+        single = [jk.jpeg_block_transform(*pl) for pl in planes]
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"jpeg_block_transform_planes: {e}")
+    for name, out, out2, one, (blocks, qt) in zip(("Y", "Cb", "Cr"), got, again, single, planes):
+        clear = ~jk.ties(blocks, qt).any(dim=-1)
+        err = (out - jk.jpeg_block_transform_reference(blocks, qt))[clear].abs().max().item()
+        if not (err <= JPEG_TOL and torch.equal(out, out2) and torch.equal(out, one)):
+            fail(f"jpeg_block_transform_planes {name}: max_abs_err {err:.3g} (tol {JPEG_TOL}), "
+                 f"two runs bit-identical {torch.equal(out, out2)}, the single-plane launch's "
+                 f"output {torch.equal(out, one)}")
+    three_ms = graph_ms(lambda: jk.jpeg_block_transform_planes(planes))
+    singles_ms = graph_ms(lambda: [jk.jpeg_block_transform(*pl) for pl in planes])
+    floor_ms = graph_ms(lambda: jk.empty_launch(dev))
+    blocks = sum(pl[0].shape[0] * pl[0].shape[1] for pl in planes)
+    bms, by = bound(blocks * (4 * 64 * 64 + 6 * 64), nbytes(*(t for pl in planes for t in pl))
+                    + nbytes(*got))
+    say(f"[jpeg kernel] a compression's three planes (Y {TB}x{planes[0][0].shape[1]}, Cb and Cr "
+        f"{TB}x{planes[1][0].shape[1]} blocks) in one launch: {three_ms:.4f} ms; as three "
+        f"single-plane launches {singles_ms:.4f} ms; an empty kernel's launch {floor_ms:.4f} ms "
+        f"(the launch floor; CUDA graphs, each of the three); bound {bms:.4f} ms ({by}); each "
+        "plane bit for bit its single launch, within tolerance of the plain version, two runs "
+        "bit-identical")
     return res
 
 
@@ -2278,15 +2323,17 @@ def otf_batch(opt, seed: int, n: int = TB) -> dict:
 
 @contextmanager
 def plain_jpeg_core():
-    """DiffJPEG's block transform through its plain version for the body."""
+    """DiffJPEG's block transform (its three-plane entry, which DiffJPEG
+    calls) through its plain version, plane by plane, for the body."""
     from trainner_redux_tpu_torch.ops import jpeg_kernel as jk
 
-    kernel = jk.jpeg_block_transform
-    jk.jpeg_block_transform = jk.jpeg_block_transform_reference
+    kernel = jk.jpeg_block_transform_planes
+    jk.jpeg_block_transform_planes = lambda planes: [
+        jk.jpeg_block_transform_reference(blocks, qtabs) for blocks, qtabs in planes]
     try:
         yield
     finally:
-        jk.jpeg_block_transform = kernel
+        jk.jpeg_block_transform_planes = kernel
 
 
 def phase_otf_degrade(seed: int, hr_dir: Path) -> None:
@@ -2315,7 +2362,7 @@ def phase_otf_degrade(seed: int, hr_dir: Path) -> None:
             outs[core] = degrade()
         torch.cuda.synchronize()
         launches = read_counts()["jpeg_block_transform"]
-        want = 6 if core == "kernel" else 0  # 3 planes, compressed twice
+        want = 2 if core == "kernel" else 0  # compressed twice, 3 planes a launch
         if launches != want:
             fail(f"otf degrade {core} core: {launches} launches of #15, expected {want}")
     # the host clock of this machine wanders: time in turns, kernel, plain,
@@ -2350,9 +2397,9 @@ def phase_otf_degrade(seed: int, hr_dir: Path) -> None:
 
 
 def phase_otf_train(seed: int, hr_dir: Path) -> dict[str, int]:
-    """`train.run` on SwinIR-M 4x OTF: 30 steps, counting #15 (3 a
-    compression: one a step and one for each recompression drawn) and
-    #4/#5 (36 + 36 a step)."""
+    """`train.run` on SwinIR-M 4x OTF: 30 steps, counting #15 (one launch
+    a compression, its three planes together: one a step and one for each
+    recompression drawn) and #4/#5 (36 + 36 a step)."""
     from trainner_redux_tpu_torch.models.realesrgan_model import RealESRGANModel
 
     compressions = []
@@ -2367,7 +2414,7 @@ def phase_otf_train(seed: int, hr_dir: Path) -> dict[str, int]:
         counts = phase_train(
             seed, "swinir_m", "SwinIR-M OTF", "otf train", lq=OTF_GT // 4, losses=OTF_LOSSES,
             opt=otf_options("swinir_m_x4_otf", hr_dir, seed, **OTF_TEMPLATE),
-            more_launches=lambda: {"jpeg_block_transform": 3 * len(compressions)})
+            more_launches=lambda: {"jpeg_block_transform": len(compressions)})
     finally:
         RealESRGANModel._compress = original
     say(f"[otf train] {len(compressions) - TRAIN_STEPS} recompressions drawn in "
@@ -2717,7 +2764,8 @@ def phase_attn_train() -> tuple[dict, dict]:
                                                                          warmup=2)
             if kinds == kind_order[-1]:  # #10 (#6's stages), #9, and #6 at 8x8 (phase 30: 12x12)
                 stage_split("attn train", f"{bname} {case}", bwd, bwd_flops,
-                            nbytes(*attn, s1, want[1], want[2], dout, *bgrads), b_ms, STAGES_6)
+                            nbytes(*attn, s1, want[1], want[2], dout, *bgrads), b_ms, STAGES_6,
+                            kernels=(SAVED_BWD[n],))
                 stage_split("attn train", f"{fname} {case}", fwd, fwd_flops,
                             nbytes(*ops[:8], s1, *got), f_ms, STAGES_1,
                             kernels=(*LN_LINEAR, ATTN_FWD[n]))

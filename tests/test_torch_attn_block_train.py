@@ -164,10 +164,10 @@ def test_gate_and_plan():
     """`attn_block_train_fits` takes SwinIR-M's and SRFormerV2's training
     blocks and refuses other windows, heads of more than 32 channels, rows
     the engine's per-token kernels do not take and a P of 2^31 entries or
-    more; the saved-P backward's attention stage at 12x12 windows, C 240, 8
-    heads of 30 takes v and k once, q and dA of 48 rows twice and the (48,
-    148) P / dS tile (82,176 bytes), under the engine's per-token kernels
-    that it shares with #6 (the LN1 backward's over the C 240 row)."""
+    more; the saved-P backward's attention stage at 12x12 windows, the
+    saved-P form of the tensor-core window attention, takes 91,584 bytes,
+    under the engine's per-token kernels that it shares with #6 (the LN1
+    backward's over the C 240 row)."""
     fits = tfb.attn_block_train_fits
     assert fits(64, 64, 8, 180, 6, batch=8)
     assert fits(72, 72, 12, 240, 8, batch=8)
@@ -180,8 +180,11 @@ def test_gate_and_plan():
     # P of B * H * W * heads * n floats: 2^31 at B 4, 1024x1024, 8 heads of 64 tokens
     assert fits(1024, 1024, 8, 240, 8, batch=3)
     assert not fits(1024, 1024, 8, 240, 8, batch=4)
-    saved = 30 * 144 + 144 * 32 + 30 * 48 + 2 * 48 * 32 + 48 * 148
-    assert 4 * saved == 82_176
+    # the saved-P form of the tensor-core window attention at n 144 (rows of
+    # 48, two key parts): k, v (144, 36); q, dA, dq (48, 36); the (48, 148)
+    # P / dS tile; one (2, 48) exchange; the 144 token indices
+    saved = 2 * 144 * 36 + 3 * 48 * 36 + 48 * 148 + 2 * 48 + 144
+    assert 4 * saved == 91_584 == tfb.attn_bwd_tc_smem_bytes(144, att=False, saved=True)
     assert tfb.attn_train_bwd_smem_bytes(240, 8, 12) == max(
         tfb.linear_smem_bytes(), tfb.rows_smem_bytes(240), 4 * saved) == 221_248
     assert tfb.attn_train_bwd_smem_bytes(240, 8, 12) <= tfb.attn_staged_bwd_smem_bytes(240, 8, 12)

@@ -14,7 +14,9 @@ at batch 2 and a 64x64 map; unit-scale fp32 inputs, tolerance 1e-4 (the
 kernels sum in another order than cuBLAS); the training kernels' gradients
 within 1e-4 of each tensor's largest magnitude. DiffJPEG's block transform
 (#15) at the OTF path's planes and at 8 images of 512x512, within 1e-3 on
-spatial values in [-128, 127], blocks near a rounding tie left out.
+spatial values in [-128, 127], blocks near a rounding tie left out, and a
+compression's three planes in one launch, bit for bit the single-plane
+launches.
 SRFormerV2's Swin blocks (C=240, 8 heads of 30, 12x12 windows, hidden 480)
 at batch 2 and a 48x72 map: #1 on the tensor-core stages, #6, and #2/#7.
 The training form of the attention half (#9 and its saved-P backward #10)
@@ -871,6 +873,32 @@ def test_jpeg_block_kernel(cuda, n, table):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(36, 9, 9), (4096, 36, 9)], ids=["path", "large"])
+def test_jpeg_block_kernel_three_planes(cuda, sizes):
+    """One launch for a compression's three planes (Y, Cb, Cr: the path's,
+    on tiles of 16 blocks; and with a plane of 8 x 4096 blocks, on tiles of
+    64): each plane bit for bit its own single-plane launch (a block's sums
+    do not depend on its tile), bit-identical over two runs, and within
+    1e-3 of the plain version with ties left out."""
+    from trainner_redux_tpu_torch.ops import jpeg_kernel
+    from trainner_redux_tpu_torch.utils.diffjpeg import C_TABLE, Y_TABLE
+
+    planes = [_jpeg_inputs(cuda, 8, n, Y_TABLE if i == 0 else C_TABLE, seed=i)
+              for i, n in enumerate(sizes)]
+    before = jpeg_kernel.jpeg_block_transform.launches
+    got = jpeg_kernel.jpeg_block_transform_planes(planes)
+    again = jpeg_kernel.jpeg_block_transform_planes(planes)
+    torch.cuda.synchronize()
+    assert jpeg_kernel.jpeg_block_transform.launches == before + 2
+    for out, out2, (blocks, qtabs) in zip(got, again, planes):
+        assert torch.equal(out, out2)
+        assert torch.equal(out, jpeg_kernel.jpeg_block_transform(blocks, qtabs))
+        want = jpeg_kernel.jpeg_block_transform_reference(blocks, qtabs)
+        clear = ~jpeg_kernel.ties(blocks, qtabs).any(dim=-1)
+        torch.testing.assert_close(out[clear], want[clear], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_jpeg_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from trainner_redux_tpu_torch.ops import jpeg_kernel
 
@@ -881,6 +909,9 @@ def test_jpeg_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         jpeg_kernel.jpeg_block_transform(blocks.detach().double(), qtabs)
     with pytest.raises(ValueError, match="shape"):
         jpeg_kernel.jpeg_block_transform(blocks.detach(), torch.ones(3, 64, device=cuda))
+    off = torch.zeros(2 * 9 * 64 + 1, device=cuda)[1:].view(2, 9, 64)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        jpeg_kernel.jpeg_block_transform_planes([(blocks.detach(), qtabs), (off, qtabs)])
 
 
 # SRFormerV2's Swin blocks: C 240, 8 heads of 30, 12x12 windows, hidden 480,
@@ -1030,6 +1061,8 @@ def test_staged_shared_memory_plans_match_the_sources(cuda):
         for ws in (8, 12):
             assert lib.trr_attn_staged_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_staged_bwd_smem_bytes(c, nh, ws))
+            assert lib.trr_attn_train_bwd_smem_bytes(c, nh, ws) == (
+                fb.attn_train_bwd_smem_bytes(c, nh, ws))
         assert lib_tr.trr_rows_smem_bytes(c) == fb.rows_smem_bytes(c)
     assert lib_tr.trr_linear_smem_bytes() == fb.linear_smem_bytes()
 
@@ -1039,8 +1072,11 @@ def test_staged_shared_memory_plans_match_the_sources(cuda):
                                                     (12, 4, SWS // 2)])
 def test_fused_attn_block_train_kernels(cuda, ws, kinds, shift):
     """#9 (z, P, att) and #10 (dx and the 7 parameter gradients, from the
-    same P and att) against their plain versions, #10 bit-identical over two
-    runs; the serving form (#1, P not stored) gives #9's z bit for bit."""
+    same P and att; its window attention the saved-P form of the
+    tensor-core kernel) against their plain versions, #10 bit-identical over
+    two runs and within 1e-4 of each gradient's largest from the kernel
+    forward's own P and att too; the serving form (#1, P not stored) gives
+    #9's z bit for bit."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
     if ws == WS:
@@ -1068,8 +1104,11 @@ def test_fused_attn_block_train_kernels(cuda, ws, kinds, shift):
     torch.cuda.synchronize()
     assert fb.fused_attn_block_train_backward.launches == n0 + 2
     plain = fb.fused_attn_block_train_bwd_reference(*saved)
-    for name, g, w, g2 in zip(("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias"), grads,
-                              plain, again):
+    chained = fb.fused_attn_block_train_backward(*args[:7], p["s"], got[1], got[2], dout, kinds,
+                                                 *meta)
+    for name, g, w, g2, g3 in zip(("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias"),
+                                  grads, plain, again, chained):
         assert g.shape == w.shape, name
         assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
         assert torch.equal(g, g2), name
+        assert (g3 - w).abs().max().item() <= TOL * w.abs().max().item(), name

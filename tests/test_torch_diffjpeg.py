@@ -10,7 +10,9 @@ in Pallas interpret mode).
   out of the comparison and counted: one of the 200;
 - `diff_jpeg` on seeded 2x40x40 and 2x37x45 images (edge padding) at
   per-sample qualities 10 and 95, within 1e-4;
-- `quality_to_factor` exactly; the wrapper's routing and its refusals.
+- `quality_to_factor` exactly; the wrappers' routing and their refusals;
+  the three-plane entry on the CPU against three single-plane calls, bit
+  for bit; the kernel's split B fragments of the DCT and the IDCT.
 """
 
 import jax.numpy as jnp
@@ -65,16 +67,58 @@ def test_block_transform_routes_cpu_tensors_to_the_plain_version():
 
 
 def test_block_transform_matrices_are_row_major():
-    """The kernel reads the DCT, its transpose and the IDCT as row-major
-    (64, 64) arrays; the IDCT comes out of numpy column-major."""
+    """The plain version reads the DCT and the IDCT as row-major (64, 64)
+    arrays (the IDCT comes out of numpy column-major); the kernel reads
+    both products' B operands (the DCT's B(k, u) = DCT[u, k], the IDCT's
+    B(u, k) = IDCT[u, k]) split into TF32 hi and lo by truncation, in
+    mma.sync m16n8k8's fragment order: lane 4 g + q of k-step ks and n-tile
+    nt holds B(8 ks + q, 8 nt + g) and B(8 ks + q + 4, 8 nt + g)."""
     from trainner_redux_tpu_torch.ops import jpeg_kernel
     from trainner_redux_tpu_torch.utils.diffjpeg import _dct_matrix, _idct_matrix_np
 
-    dct, idct, dct_t = jpeg_kernel.dct_matrices("cpu")
-    assert all(m.is_contiguous() and m.shape == (64, 64) for m in (dct, idct, dct_t))
+    dct, idct, frags = jpeg_kernel.dct_matrices("cpu")
+    assert all(m.is_contiguous() and m.shape == (64, 64) for m in (dct, idct))
     np.testing.assert_array_equal(dct.numpy(), _dct_matrix())
     np.testing.assert_array_equal(idct.numpy(), _idct_matrix_np())
-    np.testing.assert_array_equal(dct_t.numpy(), _dct_matrix().T)
+    assert frags.is_contiguous() and frags.shape == (2, 8, 8, 32, 4)
+    assert bool(((frags.view(torch.int32) & 0x1FFF) == 0).all())  # TF32 values
+    for f, b in zip(frags, (dct.T, idct)):  # B (k, n) of each product
+        hi, lo = jpeg_kernel.split_trunc(b)
+        for ks, nt, lane in ((0, 0, 0), (3, 5, 13), (7, 7, 31), (6, 1, 22)):
+            g, q = lane // 4, lane % 4
+            k, n = 8 * ks + q, 8 * nt + g
+            assert f[ks, nt, lane].tolist() == [hi[k, n].item(), hi[k + 4, n].item(),
+                                                lo[k, n].item(), lo[k + 4, n].item()]
+        # every element once: hi + lo back in B's order is B within 2^-20
+        whole = (f[..., :2] + f[..., 2:]).double().reshape(8, 8, 8, 4, 2)  # ks nt g q half
+        back = whole.permute(0, 4, 3, 1, 2).reshape(64, 64)  # (k, n)
+        assert bool(((back - b.double()).abs() <= 2.0**-20 * b.double().abs()).all())
+
+
+def test_block_transform_planes_on_the_cpu_are_single_plane_calls():
+    """The three-plane entry (one launch a compression on the card) runs the
+    plain version on each plane on the CPU: bit for bit three single-plane
+    calls, with its planes' own block counts and tables, and no launch."""
+    from trainner_redux_tpu_torch.ops import jpeg_kernel
+    from trainner_redux_tpu_torch.utils.diffjpeg import C_TABLE, Y_TABLE
+
+    rng = np.random.default_rng(3)
+    planes = []
+    for n, table in ((36, Y_TABLE), (9, C_TABLE), (9, C_TABLE)):
+        blocks = (rng.random((2, n, 64)) * 255 - 128).astype(np.float32)
+        qtabs = np.clip(table.reshape(1, 64) * np.asarray([[0.5], [1.7]], np.float32), 1, 255)
+        planes.append((torch.from_numpy(blocks), torch.from_numpy(qtabs.astype(np.float32))))
+    before = jpeg_kernel.jpeg_block_transform.launches
+    got = jpeg_kernel.jpeg_block_transform_planes(planes)
+    assert jpeg_kernel.jpeg_block_transform.launches == before
+    assert len(got) == 3
+    for out, (blocks, qtabs) in zip(got, planes):
+        assert torch.equal(out, jpeg_kernel.jpeg_block_transform(blocks, qtabs))
+    with pytest.raises(ValueError, match="1 to 3 planes"):
+        jpeg_kernel.jpeg_block_transform_planes(planes + planes[:1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        jpeg_kernel.jpeg_block_transform_planes(
+            [(b.to("meta"), q.to("meta")) for b, q in planes])
 
 
 def test_block_transform_refuses_other_devices():

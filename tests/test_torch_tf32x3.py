@@ -28,6 +28,11 @@ which 1xTF32 misses. Swin2SR's post-norm forwards (#11, #13) the same way:
 the cosine window attention at n 64 with q and k normalised per row and
 the temperature at its largest, 100 (P and att), and the halves' products
 followed by the post-norm row pass (z at C 180 / 360 and C 240 / 480).
+The saved-P form of the attention backward (#10 at n 144 and 64), from the
+float64 softmax cast to fp32, the last four products: dq, dk, dv and dS
+within 1e-4 of float64. DiffJPEG's block transform (#15): the DCT's sums
+and the output within 1e-5 of float64, blocks near a rounding tie left
+out.
 """
 
 import functools
@@ -178,24 +183,30 @@ def _attention_exact(n: int, rb: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _attention_kernel(n: int, rb: int, terms: int, ks: int = 2) -> dict:
+def _attention_kernel(n: int, rb: int, terms: int, ks: int = 2, saved: bool = False) -> dict:
     """The window attention's backward as attn_rows_bwd_tc_kernel takes it:
     the query rows in blocks of rb, ks warps a 16-row tile each over a part
     of the keys, the six products through `product` with the truncating
     split on the zero-padded rows (S = q k^T, att = P v (#6 only), dV +=
     P^T dA, dP = dA v^T, dQ = scale dS k, dK += dS^T q, dK scaled at the
     end), the softmax and dS in fp32, the parts' row sums and rowsum(P dP)
-    added in part order."""
+    added in part order. `saved`, its saved-P form (#10): each row block's
+    P read from the float64 softmax cast to fp32 (the forward's, to within
+    its rounding), no S and no softmax: the last four products."""
     q, k, v, da = (torch.nn.functional.pad(torch.from_numpy(a), (0, HD_PAD - HD))
                    for a in _attention_case(n, rb)[:4])
     table = torch.from_numpy(_attention_case(n, rb)[4])
     scale = HD**-0.5
+    p_saved = _attention_exact(n, rb)["P"].float()
     ps, att, dq, dss = [], [], [], []
     dv, dk = torch.zeros(n, HD_PAD), torch.zeros(n, HD_PAD)
     mm = functools.partial(product, terms=terms, split=split_trunc)
     for r0 in range(0, n, rb):
         rows = slice(r0, r0 + rb)
-        p = _softmax_parts(mm(q[rows], k.T.contiguous()) * scale + table[rows], ks)
+        if saved:
+            p = p_saved[rows]
+        else:
+            p = _softmax_parts(mm(q[rows], k.T.contiguous()) * scale + table[rows], ks)
         ps.append(p)
         att.append(mm(p, v))
         dv = dv + mm(p.T.contiguous(), da[rows])
@@ -208,9 +219,10 @@ def _attention_kernel(n: int, rb: int, terms: int, ks: int = 2) -> dict:
             "dk": scale * dk[:, :HD], "dv": dv[:, :HD], "dS": torch.cat(dss)}
 
 
-def _attention_error(n: int, rb: int, terms: int, name: str, ks: int = 2) -> float:
+def _attention_error(n: int, rb: int, terms: int, name: str, ks: int = 2,
+                     saved: bool = False) -> float:
     want = _attention_exact(n, rb)[name]
-    got = _attention_kernel(n, rb, terms, ks)[name].double()
+    got = _attention_kernel(n, rb, terms, ks, saved)[name].double()
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
@@ -224,6 +236,21 @@ def test_attention_backward_in_3xtf32_holds_the_gradient_limit(n, rb, ks, name):
     against float64 in 3xTF32; 1xTF32 misses the limit."""
     err3 = _attention_error(n, rb, 3, name, ks)
     err1 = _attention_error(n, rb, 1, name, ks)
+    assert err3 <= 1e-4, err3
+    assert err1 > 1e-4, err1
+    assert err1 >= 20 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("name", ["dq", "dk", "dv", "dS"])
+@pytest.mark.parametrize(("n", "rb", "ks"), [(144, 48, 2), (64, 64, 2)], ids=["n144", "n64"])
+def test_saved_p_attention_backward_in_3xtf32_holds_the_gradient_limit(n, rb, ks, name):
+    """The saved-P form of the window attention on mma.sync (#10 at 12x12
+    and 8x8 windows): from the forward's P, dV, dP, dQ and dK in the
+    kernel's row blocks, key parts and truncating split, each output within
+    1e-4 of its largest entry against float64 in 3xTF32; 1xTF32 misses the
+    limit."""
+    err3 = _attention_error(n, rb, 3, name, ks, saved=True)
+    err1 = _attention_error(n, rb, 1, name, ks, saved=True)
     assert err3 <= 1e-4, err3
     assert err1 > 1e-4, err1
     assert err1 >= 20 * err3, (err1, err3)
@@ -471,3 +498,61 @@ def test_postnorm_forward_stages_in_3xtf32_hold_the_limit(c, hidden, name):
         errs.append(((got.double() - want).abs().max() / want.abs().max()).item())
     assert errs[0] <= 1e-4, errs
     assert errs[1] > 1e-4, errs
+
+
+@functools.lru_cache(maxsize=None)
+def _jpeg_case(table_name: str) -> dict:
+    """DiffJPEG's block transform (#15) on 4 samples of 64 seeded blocks
+    (level-shifted values, each block about its own mean) with the Y or C
+    table at qualities 45-95: the DCT's sums c and the output in float64,
+    and as jpeg_tc_kernel takes them in 3xTF32 and 1xTF32 (both 64-deep
+    products through `product` with the truncating split, k-steps 0-3 and
+    4-7 summed apart and then added; the quantisation in fp32). Blocks with
+    a coefficient within 1e-4 of a rounding tie in float64 are marked."""
+    from trainner_redux_tpu_torch.utils import diffjpeg as dj
+
+    rng = np.random.default_rng(15)
+    b, nb = 4, 64
+    blocks = (rng.random((b, nb, 64)) * 60 - 30 + rng.random((b, nb, 1)) * 180 - 90)
+    table = dj.Y_TABLE if table_name == "Y" else dj.C_TABLE
+    factor = dj.quality_to_factor(torch.linspace(45, 95, b)).numpy()[:, None]
+    qtabs = np.clip(table.reshape(1, 64) * factor, 1, 255).astype(np.float32)
+    x = torch.from_numpy(blocks.astype(np.float32)).reshape(-1, 64)
+    qt = torch.from_numpy(qtabs).repeat_interleave(nb, 0)
+    dct, idct = torch.from_numpy(dj._dct_matrix()), torch.from_numpy(dj._idct_matrix_np())
+    c = x.double() @ dct.double().T
+    y = c / qt.double()
+    r = torch.round(y)
+    out = {"exact": {"c": c, "out": ((r + (y - r) ** 3) * qt.double()) @ idct.double()},
+           "tied": ((y - torch.floor(y) - 0.5).abs() < 1e-4).any(-1)}
+    def halves(a, b, terms):
+        return (product(a[:, :32], b[:32], terms, split_trunc)
+                + product(a[:, 32:], b[32:], terms, split_trunc))
+
+    for terms in (3, 1):
+        c = halves(x, dct.T.contiguous(), terms)
+        y = c / qt
+        r = torch.round(y)
+        d = y - r
+        out[terms] = {"c": c, "out": halves((r + d * d * d) * qt, idct, terms)}
+    return out
+
+
+@pytest.mark.parametrize("name", ["c", "out"])
+@pytest.mark.parametrize("table", ["Y", "C"])
+def test_jpeg_block_transform_in_3xtf32_holds_the_limit(table, name):
+    """#15's two products on mma.sync (jpeg_tc_kernel): the DCT's sums and
+    the output, blocks near a rounding tie left out, within 1e-5 of their
+    largest entry against float64 in 3xTF32 (the output within 1e-3
+    absolute, chip_smoke.py's JPEG_TOL, by far); 1xTF32 misses the limit."""
+    case = _jpeg_case(table)
+    keep = ~case["tied"]
+    assert int(keep.sum()) >= 250
+    want = case["exact"][name][keep]
+    top = want.abs().max().item()
+    err3, err1 = ((case[t][name][keep].double() - want).abs().max().item() for t in (3, 1))
+    assert err3 <= 1e-5 * top, (err3, top)
+    assert err1 > 1e-5 * top, (err1, top)
+    assert err1 >= 20 * err3, (err1, err3)
+    if name == "out":
+        assert err3 <= 1e-3

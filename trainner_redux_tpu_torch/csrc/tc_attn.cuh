@@ -4,9 +4,10 @@
 // below (the pre-LN block forwards #1 and #9 at 8x8 and 12x12 windows and #4,
 // through block_fwd.cuh, #3's window MHSA forward, in window_attention.cu,
 // and, in its cosine form, #11 and #12's forward stage, in
-// fused_block_v2.cu), attn_rows_bwd_tc_kernel (#6's recompute backward, in
-// attn_block_staged.cu, and #8's window MHSA backward, in
-// window_attention.cu) and #12's cos_attn_bwd_tc_kernel (fused_block_v2.cu).
+// fused_block_v2.cu), attn_rows_bwd_tc_kernel (#6's recompute backward and,
+// in its saved-P form, #10's, in attn_block_staged.cu, and #8's window MHSA
+// backward, in window_attention.cu) and #12's cos_attn_bwd_tc_kernel
+// (fused_block_v2.cu).
 //
 // A block takes the N keys of a window and its query rows in blocks of RB,
 // 16 a row tile, KS warps a row tile. In S = q k^T and dP = dA v^T warp w
@@ -348,13 +349,15 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
   }
 }
 
-// Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT>, in floats: k
-// and v (N, 36), this row block's q and dA (RB, 36), the P / dS rows (RB, N
-// + 4), three (KS, RB) exchanges of the key parts' row max, row sum and
-// rowsum(P dP), its att (ATT) and dq rows (RB, 36) on their way out, and the
-// window's N token indices.
-__host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, int KS, bool ATT) {
-  return 2 * N * kHeadLd + (ATT ? 4 : 3) * RB * kHeadLd + RB * (N + 4) + 3 * KS * RB + N;
+// Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT, SAVED>, in
+// floats: k and v (N, 36), this row block's q and dA (RB, 36), the P / dS
+// rows (RB, N + 4), the (KS, RB) exchanges of the key parts' row max and row
+// sum (not SAVED) and rowsum(P dP), its att (ATT) and dq rows (RB, 36) on
+// their way out, and the window's N token indices.
+__host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, int KS, bool ATT,
+                                                               bool SAVED = false) {
+  return 2 * N * kHeadLd + (ATT ? 4 : 3) * RB * kHeadLd + RB * (N + 4) +
+         (SAVED ? 1 : 3) * KS * RB + N;
 }
 
 // One block per (wr x wc window of the map rolled by (-shift, -shift),
@@ -376,15 +379,24 @@ __host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, in
 // written whole while it stays in L2. Plans (N, RB, KS): (256, 64, 4) with
 // 16 warps and one block a SM; (144, 48, 2), (128, 32, 4) and (64, 64, 2)
 // with two blocks a SM.
-template <int N, int RB, int KS, bool ATT>
+//
+// SAVED, #10's saved-P backward: `table` is the forward's softmax P (B,
+// H/wr, W/wc, nh, N, N) in the rolled frame, which attn_rows_fwd_tc_kernel
+// wrote at the (sample, window, head) index that dS takes here. Each row
+// block's P rows are staged into the tile in place of the bias rows, and S
+// and the softmax go: four products a row block (dV += P^T dA, dP = dA v^T,
+// dQ = scale dS k, dK += dS^T q), the key parts exchanging rowsum(P dP)
+// only. It writes no att (ATT is false): #10's dwp reads the forward's.
+template <int N, int RB, int KS, bool ATT, bool SAVED = false>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
-    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ table,
                             const float* __restrict__ datt, float* __restrict__ dqkv,
                             float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
                             int nh, int wr, int wc, int kinds, int shift, float scale) {
+  static_assert(!(ATT && SAVED), "the saved-P form writes no att");
   using AW = AttnWarps<N, RB, KS>;
   constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, CT = AW::CT;
-  constexpr int UNITS = AW::UNITS, X = KS * RB;
+  constexpr int UNITS = AW::UNITS, X = KS * RB, EX = SAVED ? 1 : 3;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / wc, nwh = H / wr;
@@ -395,14 +407,18 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
   float* qs = vs + N * LD;       // (RB, LD) this row block's q
   float* das = qs + RB * LD;     // (RB, LD) its datt
   float* pt = das + RB * LD;     // (RB, LP): P, then dS
-  float* red = pt + RB * LP;     // (3, KS, RB): each part's row max, row sum, rowsum(P dP)
-  float* oq = red + 3 * X;       // (RB, LD) this row block's dq
+  float* red = pt + RB * LP;     // (EX, KS, RB): each part's [row max, row sum,] rowsum(P dP)
+  float* oq = red + EX * X;      // (RB, LD) this row block's dq
   float* oa = oq + RB * LD;      // (RB, LD) its att (ATT only)
   int* tok = reinterpret_cast<int*>(oa + (ATT ? RB * LD : 0));  // (N) the window's tokens
   for (int r = threadIdx.x; r < N; r += NTH)
     tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, shift);
-  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
+  // the (N, N) rows staged a row block at a time: the bias kind's, or P's
+  const float* tile_src =
+      table + (SAVED ? 0 : ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N);
+  // (b, win, h) of dS, and of P: the forward's one-dimensional grid order
   const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  if constexpr (SAVED) tile_src += head;
   __syncthreads();
   stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
   stage_head_rows<N, NTH>(vs, hd,
@@ -419,10 +435,12 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
     const int* rt = tok + r0;  // this row block's tokens
     stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
     stage_head_rows<RB, NTH>(das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
-    stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
-    __syncthreads();  // q, dA and the bias rows (and, the first time, k and v) staged
-    aw.softmax_rows(qs, ks, pt, red, scale);  // S, the softmax, P to the tile
-    __syncthreads();  // P is whole
+    stage_table_rows<RB, N, NTH>(pt, tile_src + (size_t)r0 * N);  // the bias rows for S, or P
+    __syncthreads();  // q, dA and the tile's rows (and, the first time, k and v) staged
+    if constexpr (!SAVED) {
+      aw.softmax_rows(qs, ks, pt, red, scale);  // S, the softmax, P to the tile
+      __syncthreads();  // P is whole
+    }
     if constexpr (ATT) {  // att = P v (the forward's output, for dwp)
       float o[CT][4];
       aw.rows_by_keys(pt, vs, o);
@@ -444,7 +462,7 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
           delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
           delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
         }
-      aw.row_total(red + 2 * X, delta, false);  // its barrier: every warp is done reading P
+      aw.row_total(red + (EX - 1) * X, delta, false);  // its barrier: every warp is done reading P
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -523,18 +541,21 @@ cudaError_t attn_rows_fwd_tc(const float* qkv, const float* bias, float* att, fl
   return cudaGetLastError();
 }
 
-template <int N, bool ATT>
-cudaError_t attn_rows_bwd_tc(const float* qkv, const float* bias, const float* datt, float* dqkv,
+// attn_rows_bwd_tc_kernel at windows of N tokens; `table` the kind table, or,
+// SAVED, the forward's P.
+template <int N, bool ATT, bool SAVED = false>
+cudaError_t attn_rows_bwd_tc(const float* qkv, const float* table, const float* datt, float* dqkv,
                              float* att, float* dS, int B, int H, int W, int C, int nh, int wr,
                              int wc, int kinds, int shift, float scale, cudaStream_t stream) {
   constexpr AttnPlan plan = attn_plan(N);
-  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT);
-  const cudaError_t err = set_smem(attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT>, floats);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT, SAVED);
+  const cudaError_t err =
+      set_smem(attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED>, floats);
   if (err != cudaSuccess) return err;
   const dim3 grid(nh, (H / wr) * (W / wc), B);
-  attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT>
+  attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
-          qkv, bias, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
+          qkv, table, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }
 

@@ -82,7 +82,8 @@ SIGNATURES = {
         "trr_pn_mlp_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "jpeg_block": {
-        "trr_jpeg_block": ([_P] * 5 + [_I] * 2 + [_P], _I),
+        "trr_jpeg_planes": ([_P, _I] + ([_P] * 3 + [_I] * 2) * 3 + [_P], _I),
+        "trr_empty_launch": ([_P], _I),
     },
     "window_attention": {
         "trr_window_mhsa_fwd": ([_P] * 3 + [_I] * 7 + [_F, _P], _I),

@@ -71,9 +71,8 @@ ATB_K, ATB_STAGES = 32, 3
 ROWS_MAX_C, LN_MAX_C = 256, 512
 # the whole block's backward (#5) is held to the widths checked on the card
 SWIN_BLOCK_MAX_C = 192
-# window -> query rows of a thread block of the staged saved-P attention
-# kernel (csrc/attn_block_staged.cu, #10); the windows the attention half takes
-STAGED_ROWS = {12: 48, 8: 64}
+# the windows the attention half takes (csrc/attn_block_staged.cu)
+STAGED_WINDOWS = (12, 8)
 
 
 def attn_block_smem_bytes(channels: int, window_size: int = WINDOW) -> int:
@@ -108,11 +107,10 @@ def attn_staged_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) 
 
 def attn_train_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
     """The largest shared memory of the saved-P backward's kernels (#10): the
-    engine's per-token kernels as #6's, the attention per (window, head)
-    with v and k once, q and dA of a row block twice, the P / dS rows."""
-    n, rb, hd = window_size**2, STAGED_ROWS[window_size], channels // num_heads
+    engine's per-token kernels as #6's, and the saved-P form of the
+    tensor-core window attention (no att rows, one exchange)."""
     return max(linear_smem_bytes(), rows_smem_bytes(channels),
-               4 * (hd * n + n * V_LD + hd * rb + 2 * rb * V_LD + rb * (n + 4)))
+               attn_bwd_tc_smem_bytes(window_size**2, att=False, saved=True))
 
 
 def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
@@ -120,7 +118,7 @@ def attn_block_fits(h, w, window_size, channels, num_heads) -> bool:
     tensor-core stages, window-aligned dims, heads of at most 32 channels, a
     LayerNorm row of at most LN_MAX_C channels, each plan within one thread
     block's shared memory."""
-    if window_size not in STAGED_ROWS or h % window_size or w % window_size:
+    if window_size not in STAGED_WINDOWS or h % window_size or w % window_size:
         return False
     if channels % num_heads or channels // num_heads > V_LD or channels > LN_MAX_C:
         return False
@@ -736,7 +734,7 @@ def fused_attn_block_train_backward(x, g, be, wq, bq, wp, bp, s, P, att, dout, k
     _check_cuda("att", att, tuple(x.shape), dev)
     _check_cuda("dout", dout, tuple(x.shape), dev)
     _check_cuda("P", P, (b, hh // ws, ww // ws, num_heads, n, n), dev)
-    _check_aligned(name, x=x, dout=dout, g=g, be=be, wq=wq, bq=bq, wp=wp)
+    _check_aligned(name, x=x, dout=dout, g=g, be=be, wq=wq, bq=bq, wp=wp, P=P)
 
     def new(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)

@@ -74,16 +74,17 @@ def attn_fwd_tc_smem_bytes(n: int) -> int:
     return 4 * (2 * n * HEAD_LD + 2 * rb * HEAD_LD + rb * (n + 4) + 2 * ks * rb + n)
 
 
-def attn_bwd_tc_smem_bytes(n: int, att: bool) -> int:
+def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False) -> int:
     """Shared memory of the tensor-core window-attention backward
     (csrc/tc_attn.cuh) at windows of n tokens: k and v of the window and q
     and dA of a row block, rows HEAD_LD apart, the (rows, n + 4) P / dS
-    tile, three (parts, rows) exchanges of the key parts' row sums, the row
-    block's dq rows (and, with `att`, #6's att rows) on their way out, and
-    the n token indices."""
+    tile, three (parts, rows) exchanges of the key parts' row sums (one,
+    rowsum(P dP), in the `saved`-P form, #10's), the row block's dq rows
+    (and, with `att`, #6's att rows) on their way out, and the n token
+    indices."""
     rb, ks = TC_ATTN_PLANS[n]
-    return 4 * (2 * n * HEAD_LD + (4 if att else 3) * rb * HEAD_LD + rb * (n + 4) + 3 * ks * rb
-                + n)
+    return 4 * (2 * n * HEAD_LD + (4 if att else 3) * rb * HEAD_LD + rb * (n + 4)
+                + (1 if saved else 3) * ks * rb + n)
 
 
 def rect_mhsa_bwd_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:

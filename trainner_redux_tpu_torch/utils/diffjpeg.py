@@ -124,19 +124,17 @@ def diff_jpeg(img: torch.Tensor, quality) -> torch.Tensor:
     cb = ycc[..., 1].reshape(n, hp // 2, 2, wp // 2, 2).mean(dim=(2, 4))
     cr = ycc[..., 2].reshape(n, hp // 2, 2, wp // 2, 2).mean(dim=(2, 4))
 
-    def table(t: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(t.reshape(-1)).to(img.device)
+    def qtab(t: np.ndarray) -> torch.Tensor:  # (B, 64)
+        tab = torch.from_numpy(t.reshape(-1)).to(img.device)
+        return torch.clamp(tab[None, :] * factor[:, 0], 1.0, 255.0).contiguous()
 
-    def encode_decode(channel: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-        ch, cw = channel.shape[1], channel.shape[2]
-        blocks = _to_blocks(channel - 128.0).contiguous()
-        qtab = torch.clamp(tab[None, :] * factor[:, 0], 1.0, 255.0)  # (B, 64)
-        spatial = jpeg_kernel.jpeg_block_transform(blocks, qtab.contiguous())
-        return _from_blocks(spatial, ch, cw) + 128.0
-
-    y2 = encode_decode(y, table(Y_TABLE))
-    cb2 = encode_decode(cb, table(C_TABLE))
-    cr2 = encode_decode(cr, table(C_TABLE))
+    # the three planes' blocks through one call of the block transform
+    channels = (y, cb, cr)
+    q_y, q_c = qtab(Y_TABLE), qtab(C_TABLE)
+    spatial = jpeg_kernel.jpeg_block_transform_planes(
+        [(_to_blocks(ch - 128.0).contiguous(), q) for ch, q in zip(channels, (q_y, q_c, q_c))])
+    y2, cb2, cr2 = (_from_blocks(sp, ch.shape[1], ch.shape[2]) + 128.0
+                    for sp, ch in zip(spatial, channels))
 
     # chroma upsample (nearest 2x)
     cb_up = cb2.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
