@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x,
 DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, SwinIR-M 4x
-training on pairs degraded on the fly (Real-ESRGAN OTF), and the training
-form of the Swin attention half that saves P.
+training on pairs degraded on the fly (Real-ESRGAN OTF), the training
+form of the Swin attention half that saves P, and SwinIR-M 4x GAN
+training with the DUnet discriminator (swinir_m_gan.yml).
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -184,6 +185,27 @@ failure:
              with `deterministic: true`, twice from one seed and batch: no op
              of the step lacks a deterministic implementation, and the two
              steps agree bit for bit.
+37. gan branches - one GAN step of configs/_templates/train/SwinIR/
+             swinir_m_gan.yml (fp32: batch 8 of 48x48 LR, DUnet, L1 +
+             MS-SSIM + perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and
+             D) from equal weights and batch through the kernel branch and
+             the plain branch: the logged G and D losses, D's gradients,
+             each spectral norm's refreshed (u, v), and G's gradients from
+             the plain branch's gradient at G's output (VGG19's kinks turn
+             the branches' rounding into larger differences there; printed).
+38. gan train - `train.run` of that config, 30 steps from 16 seeded
+             512x512 HR images, counting #4/#5 (36 + 36 a step); every log
+             finite; D's parameters and (u, v) moved; the EMA checkpoint
+             serves with the strict load and net_d_30 loads back strictly
+             into DUnet. The perceptual loss runs on the seeded random VGG19
+             where no vgg19.pth is on the machine, and says so.
+39. gan train profile - device time by kernel of one GAN step, split into
+             the G step and the D step, with the card's busy share; of the G
+             step, DUnet on the fake and the two VGG19 passes, and of one
+             DUnet pass its three DySamples, each profiled alone.
+40. gan deterministic - two GAN steps with `deterministic: true`, twice
+             from one seed and batches: bit for bit in every log, G, D and
+             each (u, v).
 
 Each phase prints its seconds. Then one JSON line of kernel records and,
 last, the device JSON line.
@@ -1257,11 +1279,13 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
                 tag: str = "train", per_step: dict[str, int] | None = None,
                 serve_want: dict[str, int] | None = None, lq: int = TH,
                 losses: tuple[str, ...] = ("l1loss",), opt=None,
-                more_launches=None) -> dict[str, int]:
+                more_launches=None, check=None) -> dict[str, int]:
     """The training entry point on `network` (batch 8 of lq x lq LR crops,
     the pair `losses`; `opt`, when given, are the run's options); returns
     the launch counts of its run, which must be `per_step` times the steps
-    and what `more_launches()` returns after the run."""
+    and what `more_launches()` returns after the run. With `check`, every
+    step's logs must be finite, and `check(model, opt)` runs before the
+    checkpoints are removed."""
     import math
     import statistics
 
@@ -1280,10 +1304,15 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     ends, totals = [], []
     original = SRModel.optimize_parameters
 
+    bad_logs = []
+
     def timed(self, current_iter):
         original(self, current_iter)
         totals.append(float(self.log_dict["l_g_total"]))  # waits for the step
         ends.append(time.perf_counter())
+        if check is not None:
+            bad_logs.extend(f"{k} at step {current_iter}" for k, v in self.log_dict.items()
+                            if not math.isfinite(float(v)))
 
     SRModel.optimize_parameters = timed
     try:
@@ -1312,6 +1341,8 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
         fail(f"{tag} ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
     if not all(math.isfinite(v) for v in totals):
         fail(f"a training loss is not finite: {totals}")
+    if bad_logs:
+        fail(f"{tag}: logs not finite: {bad_logs[:8]}")
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     want.update(more_launches() if more_launches else {})
     check_counts(f"{tag} ({label})", counts, want)
@@ -1324,6 +1355,8 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     eval_hr, eval_lr = make_dataset(OUT / "data", seed)
     served = serve(f"{network}_x4_trained", ema, eval_hr, eval_lr, seed, {}, network)
     check_counts(f"serving the trained {label} checkpoint", served["counts"], serve_want)
+    if check is not None:
+        check(model, opt)
     # checkpoints, states and the 512x512 PNGs: too large to bring back
     shutil.rmtree(opt.path.models)
     shutil.rmtree(opt.path.training_states)
@@ -1334,6 +1367,59 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
 # ---------------------------------------------------------------------------
 # 9. train branches
 # ---------------------------------------------------------------------------
+
+
+class KinkPins:
+    """The kernel branch takes the plain branch's side at a ReLU's or
+    LeakyReLU's kink (see `train_branches`): `hooks(branch, net)` records
+    each kink module's inputs in the plain branch, in call order, and pins
+    the kernel branch's outputs to the plain branch's sides; an element on
+    the other side must lie within KINK_TOL of its tensor's largest |value|
+    in both, and `check` fails past KINK_MAX of them."""
+
+    def __init__(self, label: str) -> None:
+        self.label = label
+        self.plain_inputs: dict[int, list] = {}
+        self.pinned, self.share = 0, 0.0
+
+    def _record(self, i, mod, inp):
+        self.plain_inputs.setdefault(i, []).append(inp[0].detach())
+
+    def _pin(self, i, mod, inp, out):
+        import torch
+
+        x, xp = inp[0], self.plain_inputs[i].pop(0)
+        side = xp > 0
+        moved = side != (x > 0)
+        if bool(moved.any()):
+            share = max((x.detach()[moved].abs().max() / x.detach().abs().max()).item(),
+                        (xp[moved].abs().max() / xp.abs().max()).item())
+            if not share <= KINK_TOL:
+                fail(f"{self.label}: a {type(mod).__name__} input differs in sign between the "
+                     f"branches at {share:.3g} of its largest |value| (tol {KINK_TOL})")
+            self.pinned += int(moved.sum())
+            self.share = max(self.share, share)
+        slope = mod.negative_slope if isinstance(mod, torch.nn.LeakyReLU) else 0.0
+        return torch.where(side, x, x * slope)
+
+    def hooks(self, branch: str, net) -> list:
+        import torch
+
+        kinks = [mod for mod in net.modules()
+                 if isinstance(mod, (torch.nn.ReLU, torch.nn.LeakyReLU))]
+        return [mod.register_forward_pre_hook(functools.partial(self._record, i))
+                if branch == "plain" else mod.register_forward_hook(functools.partial(self._pin, i))
+                for i, mod in enumerate(kinks)]
+
+    def check(self) -> None:
+        if self.pinned > KINK_MAX:
+            fail(f"{self.label}: {self.pinned} ReLU / LeakyReLU input elements differ in sign "
+                 f"between the branches (at most {KINK_MAX})")
+
+    def said(self) -> str:
+        return (f"{self.pinned} ReLU / LeakyReLU input elements on the other side of the kink "
+                f"in the kernel branch (at most {KINK_MAX}), within {self.share:.3g} of their "
+                f"tensor's max (tol {KINK_TOL}), took the plain branch's side")
 
 
 def train_branches(seed: int, network: str, label: str, kernel_env: dict,
@@ -1367,36 +1453,13 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
     x = torch.rand(TB, 3, lq, lq, generator=gen).cuda()
     gt = torch.rand(TB, 3, 4 * lq, 4 * lq, generator=gen).cuda()
     losses, grads, counts = {}, {}, {}
-    plain_inputs: dict[int, list] = {}  # kink module -> its plain-branch inputs, in call order
-    pinned = [0, 0.0]  # elements that take the plain branch's side, the largest share of max
-
-    def record(i, mod, inp):
-        plain_inputs.setdefault(i, []).append(inp[0].detach())
-
-    def pin(i, mod, inp, out):
-        x, xp = inp[0], plain_inputs[i].pop(0)
-        side = xp > 0
-        moved = side != (x > 0)
-        if bool(moved.any()):
-            share = max((x.detach()[moved].abs().max() / x.detach().abs().max()).item(),
-                        (xp[moved].abs().max() / xp.abs().max()).item())
-            if not share <= KINK_TOL:
-                fail(f"{label}: a {type(mod).__name__} input differs in sign between the "
-                     f"branches at {share:.3g} of its largest |value| (tol {KINK_TOL})")
-            pinned[0] += int(moved.sum())
-            pinned[1] = max(pinned[1], share)
-        slope = mod.negative_slope if isinstance(mod, torch.nn.LeakyReLU) else 0.0
-        return torch.where(side, x, x * slope)
+    pins = KinkPins(label)
 
     for branch, env in (("plain", {"TRAINNER_FUSED_ATTN": "0"}), ("kernel", kernel_env)):
         m = nets[branch]
         if hasattr(m, "set_dropout_generator"):  # SRFormerV2 has no DropPath
             m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
-        kinks = [mod for mod in m.modules()
-                 if isinstance(mod, (torch.nn.ReLU, torch.nn.LeakyReLU))]
-        hooks = [mod.register_forward_pre_hook(functools.partial(record, i))
-                 if branch == "plain" else mod.register_forward_hook(functools.partial(pin, i))
-                 for i, mod in enumerate(kinks)]
+        hooks = pins.hooks(branch, m)
         with fused_env(env), fp32_math():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1415,9 +1478,7 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
                          for k, p in m.named_parameters()}
         say(f"[{tag}] {label} {branch} {env or ''}: loss {losses[branch]:.6f}, forward and "
             f"backward {secs * 1e3:.1f} ms (first call), launches {counts[branch]}")
-    if pinned[0] > KINK_MAX:
-        fail(f"{label}: {pinned[0]} ReLU / LeakyReLU input elements differ in sign between the "
-             f"branches (at most {KINK_MAX})")
+    pins.check()
     check_counts(f"{label} kernel branch", counts["kernel"], expect)
     check_counts(f"{label} plain branch", counts["plain"], {})
     rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
@@ -1445,9 +1506,7 @@ def train_branches(seed: int, network: str, label: str, kernel_env: dict,
                  f"(ref {ref:.3g})")
     say(f"[{tag}] {label}: loss rel diff {rel:.3g} (tol {BRANCH_LOSS_TOL}); largest gradient "
         f"diff {worst[0]:.3g} of its tensor's max, at {worst[1]} (tol {BRANCH_GRAD_TOL}); "
-        f"{pinned[0]} ReLU / LeakyReLU input elements on the other side of the kink in the "
-        f"kernel branch (at most {KINK_MAX}), within {pinned[1]:.3g} of their tensor's max "
-        f"(tol {KINK_TOL}), took the plain branch's side")
+        f"{pins.said()}")
 
 
 def phase_train_branches(seed: int) -> None:
@@ -2865,6 +2924,353 @@ def phase_deterministic(seed: int) -> None:
             f"in the loss and all {len(params_a)} parameters")
 
 
+# ---------------------------------------------------------------------------
+# 37-40. GAN training (swinir_m_gan.yml)
+# ---------------------------------------------------------------------------
+
+GAN_TEMPLATE = ROOT / "configs" / "_templates" / "train" / "SwinIR" / "swinir_m_gan.yml"
+GAN_LQ = 48  # the template's lq_size: 192x192 GT
+GAN_LOSSES = ("l1loss", "mssimloss", "perceptualloss", "ganloss")
+GAN_DATA = OUT / "gan_data"
+
+
+def gan_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, **extra):
+    """configs/_templates/train/SwinIR/swinir_m_gan.yml as it is (SwinIR-M
+    4x, batch 8 of 48x48 LR crops, network_d dunet, L1 + MS-SSIM +
+    perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA 0.999, its
+    MultiStepLR) with one cut, compute_dtype float32 (bf16 is not ported),
+    on `hr_dir` / `lr_dir`, 30 steps, without validation."""
+    import yaml
+
+    from trainner_redux_tpu_torch.utils.options import resolve_options
+    from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
+    from trainner_redux_tpu_torch.utils.schema import decode
+
+    raw = yaml.safe_load(GAN_TEMPLATE.read_text())
+    raw.update(name=name, manual_seed=seed, compute_dtype="float32", num_gpu=1, path={})
+    raw["datasets"] = {"train": {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir),
+                                 "dataroot_lq": str(lr_dir), "io_backend": {"type": "disk"},
+                                 "num_worker_per_gpu": 4}}
+    raw["train"]["total_iter"] = TRAIN_STEPS
+    raw["val"]["val_enabled"] = False
+    raw["logger"] = {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}
+    raw.update(extra)
+    return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
+
+
+def gan_vgg_line(tag: str | None) -> None:
+    """Let the perceptual loss run: torchvision's vgg19.pth from
+    TRAINNER_WEIGHTS_DIR where one is there, else the seeded random init,
+    allowed here (TRAINNER_ALLOW_RANDOM_VGG=1); with a `tag`, say which."""
+    wdir = os.environ.get("TRAINNER_WEIGHTS_DIR")
+    if wdir and (Path(wdir) / "vgg19.pth").exists():
+        if tag:
+            say(f"[{tag}] VGG19: torchvision's weights from {wdir}/vgg19.pth")
+        return
+    os.environ["TRAINNER_ALLOW_RANDOM_VGG"] = "1"
+    if tag:
+            say(f"[{tag}] VGG19: no vgg19.pth on this machine: the perceptual loss runs on the "
+            "seeded random He-normal init (TRAINNER_ALLOW_RANDOM_VGG=1), the JAX package's "
+            "numbers; its features are not meaningful, its cost is the real one")
+
+
+def gan_batch(seed: int, n: int = TB, lq: int = GAN_LQ) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"lq": rng.integers(0, 256, (n, lq, lq, 3), dtype=np.uint8),
+            "gt": rng.integers(0, 256, (n, 4 * lq, 4 * lq, 3), dtype=np.uint8)}
+
+
+def gan_train_kernels() -> dict[str, int]:
+    return {"fused_swin_block_train": BLOCKS, "fused_swin_block_train_backward": BLOCKS}
+
+
+def phase_gan_branches(seed: int) -> None:
+    """One GAN step of the template's run from equal weights (G and D from
+    one seed) and batch through the kernel branch and the plain branch
+    (TRAINNER_FUSED_ATTN=0): every logged loss within BRANCH_LOSS_TOL
+    (D's mean outputs within it of the larger), D's gradients within
+    BRANCH_GRAD_TOL of each tensor's largest, and every spectral norm's
+    (u, v), refreshed from D's equal weights of before the step, within
+    1e-6. G's gradients are held to BRANCH_GRAD_TOL from one upstream
+    gradient: the kernel branch's backward takes the plain branch's
+    gradient of the losses at G's output, because VGG19's ReLUs and max
+    pools turn the branches' rounding-level different outputs into
+    differences at their kinks far above the kernels' error (how far, the
+    phase prints); G's own ReLU / LeakyReLU kinks are pinned as in
+    `train_branches`."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs.arch_util import spectral_norms
+    from trainner_redux_tpu_torch.models import build_model
+
+    gan_vgg_line("gan branches")
+    opt = gan_options("swinir_m_x4_gan_branches", OUT, OUT, seed)
+    batch = gan_batch(seed)
+    pins = KinkPins("gan branches")
+    upstream = {}
+    runs = {}
+
+    def at_output(branch, grad):
+        upstream[branch] = grad.detach().clone()
+        return upstream["plain"] if branch == "kernel" else None
+
+    def hook_output(branch, module, args, out):
+        out.register_hook(functools.partial(at_output, branch))
+
+    for branch, env in (("plain", {"TRAINNER_FUSED_ATTN": "0"}), ("kernel", {})):
+        with fused_env(env):
+            model = build_model(opt, device="cuda")
+            hooks = pins.hooks(branch, model.net_g)
+            hooks.append(model.net_g.register_forward_hook(
+                functools.partial(hook_output, branch)))
+            model.feed_data(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reset_counts()
+            model.optimize_parameters(1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            for h in hooks:
+                h.remove()
+        logs = {k: float(v) for k, v in model.log_dict.items()}
+        runs[branch] = (logs,
+                        {k: p.grad.clone() for k, p in model.net_g.named_parameters()},
+                        {k: p.grad.clone() for k, p in model.net_d.named_parameters()},
+                        [torch.cat([sn._u, sn._v]) for _, sn in spectral_norms(model.net_d)])
+        say(f"[gan branches] {branch} {env or ''}: one GAN step {secs * 1e3:.1f} ms (first "
+            f"call), l_g_total {logs['l_g_total']:.6f}, l_d_real {logs['l_d_real']:.6f}, "
+            f"l_d_fake {logs['l_d_fake']:.6f}, launches {counts}")
+        check_counts(f"gan branches ({branch})", counts,
+                     gan_train_kernels() if branch == "kernel" else {})
+        del model
+        torch.cuda.empty_cache()
+    pins.check()
+    (lk, gk, dk, uvk), (lp, gp, dp, uvp) = runs["kernel"], runs["plain"]
+    out_scale = max(abs(lp["out_d_real"]), abs(lp["out_d_fake"]))
+    worst_loss = (0.0, "")
+    for k, w in lp.items():
+        if k.startswith("lr_") or k == "grad_norm_g":
+            continue
+        ref = out_scale if k.startswith("out_d") else abs(w)
+        rel = abs(lk[k] - w) / ref
+        worst_loss = max(worst_loss, (rel, k))
+        if not rel <= BRANCH_LOSS_TOL:
+            fail(f"gan branches: {k} differs by {rel:.3g} (relative) between the branches")
+    worst = (0.0, "")
+    for name, kern, plain in (("G", gk, gp), ("D", dk, dp)):
+        for k, w in plain.items():
+            ref = w.abs().max().item()
+            err = (kern[k] - w).abs().max().item()
+            share = err / ref if ref else err
+            worst = max(worst, (share, f"{name} {k}"))
+            if not share <= BRANCH_GRAD_TOL:
+                fail(f"gan branches: {name} gradient of {k} differs by {err:.3g} between the "
+                     f"branches (ref {ref:.3g})")
+    uv = max((a - b).abs().max().item() for a, b in zip(uvk, uvp))
+    if not uv <= 1e-6:
+        fail(f"gan branches: a spectral norm's (u, v) differs by {uv:.3g} between the branches")
+    up = (upstream["kernel"] - upstream["plain"]).abs().max() / upstream["plain"].abs().max()
+    say(f"[gan branches] largest loss diff {worst_loss[0]:.3g} (relative, {worst_loss[1]}; tol "
+        f"{BRANCH_LOSS_TOL}); largest gradient diff {worst[0]:.3g} of its tensor's max, at "
+        f"{worst[1]} (tol {BRANCH_GRAD_TOL}); (u, v) of {len(uvk)} spectral norms within "
+        f"{uv:.3g} (tol 1e-6); each branch's own gradient of the losses at G's output differs "
+        f"by {up.item():.3g} of its largest (the kernel branch's backward took the plain "
+        f"one's); {pins.said()}")
+
+
+def phase_gan_train(seed: int) -> dict[str, int]:
+    """`train.run` of swinir_m_gan.yml (fp32), 30 steps from 16 seeded
+    512x512 HR images, counting #4/#5 (36 + 36 a step); every log finite;
+    D's parameters and every (u, v) moved from D's seeded init; the EMA
+    checkpoint serves with the strict load, and net_d_<iter> loads back
+    strictly into DUnet."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+
+    gan_vgg_line("gan train")
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    opt = gan_options("swinir_m_x4_gan", hr_dir, lr_dir, seed)
+    start = build_network(dict(opt.network_d)).init_weights(
+        torch.Generator().manual_seed(seed + 1)).state_dict()
+
+    def check(model, opt):
+        if type(model.net_d).__name__ != "DUnet":
+            fail(f"gan train: network_d is {type(model.net_d).__name__}, expected DUnet")
+        now = model.net_d.state_dict()
+        still = [k for k, v in now.items() if not k.endswith("init_pos")
+                 and torch.equal(v.cpu(), start[k])]
+        if still:
+            fail(f"gan train: D did not move in {TRAIN_STEPS} steps: {still[:6]}")
+        path = Path(opt.path.resume_models) / f"net_d_{TRAIN_STEPS}.safetensors"
+        if not path.exists():
+            fail(f"gan train: no {path.name} under resume_models")
+        fresh = build_network(dict(opt.network_d))
+        model.load_network(fresh, str(path), strict=True)  # raises on any key or shape
+        same = all(torch.equal(fresh.state_dict()[k], v.cpu()) for k, v in now.items())
+        if not same:
+            fail(f"gan train: {path.name} does not load back to the trained D")
+        log = model.get_current_log()
+        say(f"[gan train] D moved in all {len(now) - 3} parameters and (u, v) buffers; "
+            f"{path.name} loads back strictly into DUnet; last step: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in log.items())
+            + f"; lr_g, lr_d {model.get_current_learning_rate()}")
+
+    return phase_train(seed, "swinir_m", "SwinIR-M GAN", "gan train", lq=GAN_LQ,
+                       losses=GAN_LOSSES, opt=opt, check=check)
+
+
+def phase_gan_profile(seed: int) -> None:
+    """Device time by kernel of one GAN step, split into the G step (its
+    forward, losses, backward, AdamW and EMA; D's step held back) and the
+    D step (D on the GT and on the fake, forward and backward, AdamW, the
+    spectral refresh) on that G step's own output; of the G step, DUnet on
+    the fake (forward and backward to the image) and the perceptual loss's
+    two VGG19 passes each profiled alone on the step's inputs, and of one
+    DUnet pass its three DySample upsamplers. The card's busy share is the
+    device time over the host time of a whole step without the profiler
+    (the mean of three)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_redux_tpu_torch.archs.arch_util import DySample
+    from trainner_redux_tpu_torch.models import build_model
+    from trainner_redux_tpu_torch.models.sr_model import step_math
+
+    def device_ms(fn, file: str | None = None):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        check_retired("gan profile", events)
+        if file:
+            (OUT / file).write_text(
+                prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
+        return sum(e.self_device_time_total for e in events) / 1e3, events
+
+    gan_vgg_line(None)
+    opt = gan_options("swinir_m_x4_gan_profile", OUT, OUT, seed)
+    model = build_model(opt, device="cuda")
+    batch = gan_batch(seed)
+    for i in range(2):
+        model.feed_data(batch)
+        model.optimize_parameters(i + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        model.feed_data(batch)
+        model.optimize_parameters(3 + i)
+    torch.cuda.synchronize()
+    step_host = (time.perf_counter() - t0) / 3 * 1e3
+
+    d_step = model._discriminator_step
+    held = {}
+    model._discriminator_step = lambda *args: held.setdefault("args", args)
+    model.feed_data(batch)
+    g_ms, g_events = device_ms(lambda: model.optimize_parameters(6), "profile_gan_g_step.txt")
+    del model._discriminator_step  # the class's again
+
+    def run_d_step():
+        with step_math(model.opt):
+            d_step(*held["args"])
+
+    d_ms, d_events = device_ms(run_d_step, "profile_gan_d_step.txt")
+    if g_ms == 0:
+        say("[gan profile] the profiler recorded no device time")
+        return
+
+    fake, gt = held["args"][0], held["args"][1]
+    net_d, gan = model.net_d.train().requires_grad_(False), model.gan_losses[0]
+    percep = next(loss for key, loss in model.losses if key == "l_g_perceptual")
+
+    def dunet_on_fake():
+        with step_math(model.opt):
+            x = fake.clone().requires_grad_(True)
+            (abs(gan.loss_weight) * gan(net_d(x), True, is_disc=False)).backward()
+
+    def vgg_passes():
+        with step_math(model.opt):
+            x = fake.clone().requires_grad_(True)
+            percep(x, gt).backward()
+
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: inputs.append((m, a[0].detach())))
+             for m in net_d.modules() if isinstance(m, DySample)]
+    with torch.no_grad():
+        net_d(fake)
+    for h in hooks:
+        h.remove()
+
+    def dysamples():
+        with step_math(model.opt):
+            for m, x in inputs:
+                x = x.clone().requires_grad_(True)
+                m(x).square().mean().backward()
+
+    dunet_ms, _ = device_ms(dunet_on_fake)
+    vgg_ms, _ = device_ms(vgg_passes)
+    dys_ms, dys_events = device_ms(dysamples, "profile_gan_dysample.txt")
+    total = g_ms + d_ms
+    launches = sum(e.count for e in g_events) + sum(e.count for e in d_events)
+    say(f"[gan profile] one GAN step (batch {TB}, {GAN_LQ}x{GAN_LQ} LR, "
+        f"{4 * GAN_LQ}x{4 * GAN_LQ} GT): device {total:.3f} ms over {launches} kernel "
+        f"launches = G step {g_ms:.3f} + D step {d_ms:.3f}; host clock {step_host:.1f} ms a "
+        f"step without the profiler (mean of 3): the card busy {total / step_host:.1%}")
+    say(f"[gan profile] of the G step, profiled alone on its inputs: DUnet on the fake, "
+        f"forward and backward to the image, {dunet_ms:.3f} ms; the perceptual loss's two "
+        f"VGG19 passes (the output's with its backward, the GT's without) {vgg_ms:.3f} ms; "
+        f"the three DySamples of one DUnet pass, forward and backward, {dys_ms:.3f} ms over "
+        f"{sum(e.count for e in dys_events)} launches")
+    for part, events in (("G step", g_events), ("D step", d_events)):
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            say(f"[gan profile]   {part} {e.self_device_time_total / 1e3:8.3f} ms  "
+                f"{e.count:4d}x  {e.key[:80]}")
+
+
+def phase_gan_deterministic(seed: int) -> None:
+    """Two GAN steps of the template's run with `deterministic: true`,
+    twice from one seed and batches: every op has a deterministic
+    implementation, and the two runs agree bit for bit in every log, G's
+    parameters, D's parameters and every (u, v)."""
+    import torch
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    gan_vgg_line(None)
+    opt = gan_options("swinir_m_x4_gan_deterministic", OUT, OUT, seed, deterministic=True)
+    batches = [gan_batch(seed + i) for i in range(2)]
+    runs = []
+    for _ in range(2):
+        model = build_model(opt, device="cuda")
+        t0 = time.perf_counter()
+        try:
+            for i, batch in enumerate(batches):
+                model.feed_data(batch)
+                model.optimize_parameters(i + 1)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"GAN step with deterministic: true: {e}")
+        secs = time.perf_counter() - t0
+        runs.append(({k: v.item() for k, v in model.log_dict.items()},
+                     [p.detach().clone() for p in model.net_g.parameters()],
+                     {k: v.clone() for k, v in model.net_d.state_dict().items()}))
+        del model
+        torch.cuda.empty_cache()
+    (la, ga, da), (lb, gb, db) = runs
+    if la != lb or not all(torch.equal(a, b) for a, b in zip(ga, gb)) or \
+            not all(torch.equal(da[k], db[k]) for k in da):
+        fail(f"GAN steps with deterministic: true differ between two runs (logs {la} against "
+             f"{lb})")
+    say(f"[gan deterministic] two GAN steps under deterministic algorithms in {secs * 1e3:.1f} "
+        f"ms (second build), l_g_total {la['l_g_total']:.6f}, l_d_real {la['l_d_real']:.6f}; "
+        f"two runs bit-identical in {len(la)} logs, {len(ga)} G parameters and {len(da)} D "
+        f"tensors (parameters and each spectral norm's u and v)")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2964,6 +3370,10 @@ def main() -> None:
     kernels.update(attn_train)
     launches.update(attn_train_counts)
     timed("deterministic", phase_deterministic, seed)
+    timed("gan branches", phase_gan_branches, seed)
+    timed("gan train", phase_gan_train, seed)
+    timed("gan train profile", phase_gan_profile, seed)
+    timed("gan deterministic", phase_gan_deterministic, seed)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

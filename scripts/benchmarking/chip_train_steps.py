@@ -1,7 +1,8 @@
 """The training phases of `chip_smoke.py` alone, on one CUDA card: 30 steps
-each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, each
-printing its median ms per step with the quartiles; after each, the device
-time of one of its steps (`torch.profiler`) and the card's busy share.
+each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, and
+SwinIR-M GAN where the tree's `chip_smoke.py` has it, each printing its
+median ms per step with the quartiles; after each, the device time of one
+of its steps (`torch.profiler`) and the card's busy share.
 
 Run it from the root of the tree to measure; it imports that tree's
 `chip_smoke.py` and package. To compare two trees on one card, run it in
@@ -47,4 +48,7 @@ cs.phase_train(seed, "srformerv2", "SRFormerV2", "srformerv2 train",
                cs.srformerv2_serving_counts(), cs.SRF_LQ, cs.S2_LOSSES)
 cs.phase_train_profile(seed, "srformerv2", "srformerv2 train profile",
                        "profile_srformerv2_train.txt", cs.SRF_LQ, cs.S2_LOSSES)
+if hasattr(cs, "phase_gan_train"):  # trees from the GAN slice on
+    cs.phase_gan_train(seed)
+    cs.phase_gan_profile(seed)
 print("steps ok", flush=True)

@@ -206,8 +206,8 @@ def test_unported_losses_and_optimizers_raise():
     from trainner_redux_tpu_torch.losses import build_loss
     from trainner_redux_tpu_torch.optimizers import build_optimizer
 
-    with pytest.raises(NotImplementedError, match="perceptualloss"):
-        build_loss({"type": "perceptualloss"})
+    with pytest.raises(NotImplementedError, match="distsloss"):
+        build_loss({"type": "distsloss"})
     with pytest.raises(NotImplementedError, match="schedule"):
         build_loss({"type": "l1loss", "start_iter": 10})
     with pytest.raises(NotImplementedError, match="lion"):
@@ -373,7 +373,7 @@ def test_train_run_raises_without_card(dataset, tmp_path, monkeypatch):
     ({"compute_dtype": "bfloat16"}, "bf16"),
     ({"use_amp": True}, "bf16"),
     ({"steps_per_dispatch": 2}, "steps_per_dispatch"),
-    ({"network_d": {"type": "dunet"}}, "network_d"),
+    ({"network_d": {"type": "unetdiscriminatorsn"}}, "network_d"),
 ])
 def test_unported_training_options_raise(dataset, tmp_path, extra, match):
     from trainner_redux_tpu_torch.models import build_model

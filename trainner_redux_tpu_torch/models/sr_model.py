@@ -16,14 +16,28 @@ Port of the JAX package's models/sr_model.py.
   `ema_switch_iter`, checkpoints and resume, and the post-training
   BatchNorm recalibration (`recalibrate_bn`). Validation runs the EMA
   weights when there are any.
+- GAN training (a `ganloss` / `multiscaleganloss` loss and `network_d:
+  dunet`), as the JAX step has it: the generator's GAN term
+  |loss_weight| * ganloss(D(output), real) through D in train mode with
+  D's parameters frozen; then, after the generator's update, the
+  discriminator's step on the generator forward's own output (detached;
+  with `accum_iter`, micro-batch 0's output and GT), with the weights of
+  before the step: l_d_real + l_d_fake, its own optimizer (`optim_d`, else
+  `optim_g`) and `grad_clip`, then one refresh of each spectral norm's
+  (u, v) from those weights. D's learning rate is its schedule at D's own
+  count of updates, as optax counts them (the logged lr_d is at the global
+  step, as the JAX step logs it). With
+  `adaptive_d`, the step and the refresh are skipped while the smoothed
+  generator GAN loss rises.
 
 DropPath draws from one `torch.Generator` on the model's device, seeded from
 `manual_seed`, that the model hands to the network.
 
 Not ported yet, and refused where configured: bf16 compute (`compute_dtype:
-bfloat16`, `use_amp`), `steps_per_dispatch > 1`, `remat`, discriminators and
-GAN losses, MoA, dynamic loss scheduling, training automations, tiled
-inference and the mesh-sharded paths.
+bfloat16`, `use_amp`), `steps_per_dispatch > 1`, `remat`, discriminators
+other than DUnet, the R3GAN and feature-matching losses, MoA, dynamic loss
+scheduling, training automations, tiled inference and the mesh-sharded
+paths.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import numpy as np
 import torch
 
 from trainner_redux_tpu_torch.archs import build_network
+from trainner_redux_tpu_torch.archs.arch_util import refresh_spectral_norms
 from trainner_redux_tpu_torch.losses import build_loss, loss_log_key
 from trainner_redux_tpu_torch.metrics import calculate_metric
 from trainner_redux_tpu_torch.models.base_model import BaseModel
@@ -49,6 +64,8 @@ from trainner_redux_tpu_torch.utils.registry import MODEL_REGISTRY
 
 _PAD_MULT = 16
 _NOT_PORTED = "is not ported to torch yet (ROADMAP.md, section 1)"
+GAN_LOSS_TYPES = {"ganloss", "multiscaleganloss"}
+DISCRIMINATORS = {"dunet"}  # the ported network_d types
 
 # legacy per-loss option keys and the type each defaults to (None: the dict
 # must name its type), as the JAX package reads them
@@ -140,6 +157,7 @@ class SRModel(BaseModel):
             self.load_network(net, opt.path.pretrain_network_g, strict=opt.path.strict_load_g)
         self.net_g = net.to(self.device)
         self.net_g_ema: torch.nn.Module | None = None
+        self.net_d: torch.nn.Module | None = None
         self.output = None
         self.lq = self.gt = None
         if self.is_train:
@@ -177,11 +195,16 @@ class SRModel(BaseModel):
                     lo["type"] = default_type or "l1loss"
                 loss_opts.append(lo)
         self.losses: list[tuple[str, Any]] = []
+        self.gan_losses: list[Any] = []
         for lo in loss_opts:
+            ltype = str(lo["type"]).lower()
             loss = build_loss(lo)
+            if ltype in GAN_LOSS_TYPES:
+                self.gan_losses.append(loss)
+                continue
             if loss.loss_weight < 0:
                 raise NotImplementedError(f"negative loss weights (bicubic targets) {_NOT_PORTED}")
-            self.losses.append((loss_log_key(loss, str(lo["type"]).lower()), loss))
+            self.losses.append((loss_log_key(loss, ltype), loss))
 
         self.net_g.train()
         self.optimizer_g, self.schedule_g = build_optimizer(
@@ -190,6 +213,8 @@ class SRModel(BaseModel):
         )
         if self.ema_decay > 0:
             self.net_g_ema = copy.deepcopy(self.net_g).eval().requires_grad_(False)
+        if self.gan_losses:
+            self._init_discriminator()
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(
             opt.manual_seed or 0
         )
@@ -197,6 +222,31 @@ class SRModel(BaseModel):
             self.net_g.set_dropout_generator(self.dropout_generator)
         self.step = 0
         self.log_dict: dict[str, torch.Tensor] = {}
+
+    def _init_discriminator(self) -> None:
+        """network_d, seeded from manual_seed + 1 (and its pretrained
+        weights), its optimizer and schedule, and the adaptive-D state."""
+        opt, train_opt = self.opt, self.opt.train
+        if opt.network_d is None:
+            raise ValueError("GAN losses require network_d")
+        net_d = build_network(dict(opt.network_d))
+        net_d.init_weights(torch.Generator().manual_seed((opt.manual_seed or 0) + 1))
+        if opt.path.pretrain_network_d:
+            self.load_network(net_d, opt.path.pretrain_network_d, strict=opt.path.strict_load_d)
+        self.logger.info(
+            f"Network [bold]{type(net_d).__name__}[/bold] created, "
+            f"{self.param_count(net_d):,d} params."
+        )
+        self.net_d = net_d.to(self.device).train()
+        self.optimizer_d, self.schedule_d = build_optimizer(
+            self.net_d.parameters(),
+            train_opt.optim_d or train_opt.optim_g or {"type": "Adam", "lr": 1e-4},
+            int(train_opt.total_iter), train_opt.scheduler, train_opt.warmup_iter,
+        )
+        self.adaptive_d = bool(train_opt.adaptive_d)
+        self.adaptive_d_decay = float(train_opt.adaptive_d_ema_decay)
+        self.adaptive_d_threshold = float(train_opt.adaptive_d_threshold)
+        self.gan_ema = torch.zeros((), device=self.device)
 
     def _refuse_unported(self) -> None:
         opt, train_opt = self.opt, self.opt.train
@@ -211,7 +261,10 @@ class SRModel(BaseModel):
         refused = {
             "steps_per_dispatch > 1": (opt.steps_per_dispatch or 1) > 1,
             "remat": bool(opt.remat),
-            "network_d (GAN training)": opt.network_d is not None,
+            f"network_d type '{(opt.network_d or {}).get('type')}' (only "
+            f"{', '.join(sorted(DISCRIMINATORS))} is ported)": (
+                opt.network_d is not None
+                and str(opt.network_d.get("type")).lower() not in DISCRIMINATORS),
             "use_moa": bool(train_opt.use_moa),
             "dynamic_loss_scheduling": bool(
                 (train_opt.dynamic_loss_scheduling or {}).get("enabled", False)),
@@ -223,15 +276,71 @@ class SRModel(BaseModel):
                 raise NotImplementedError(f"{what} {_NOT_PORTED}")
 
     def _generator_losses(self, output: torch.Tensor, gt: torch.Tensor):
-        """(total, logs) of the pair losses on one micro-batch."""
+        """(total, logs) of the generator's losses on one micro-batch: the
+        pair losses, then each GAN term |weight| * ganloss(D(output), real),
+        logged as l_g_gan; its unweighted value goes to logs["raw_gan"]."""
         logs: dict[str, torch.Tensor] = {}
         total = torch.zeros((), device=output.device)
         for log_key, loss in self.losses:
             val = loss(output, gt).float()
             logs[log_key] = val
             total = total + val
+        for loss in self.gan_losses:
+            raw = loss(self.net_d(output), True, is_disc=False)
+            logs["raw_gan"] = raw.detach()
+            val = abs(loss.loss_weight) * raw
+            logs["l_g_gan"] = val
+            total = total + val
         logs["l_g_total"] = total
         return total, logs
+
+    def _discriminator_step(self, fake: torch.Tensor, gt: torch.Tensor,
+                            raw_gan: torch.Tensor | None, logs: dict) -> None:
+        """D's step on the detached `fake` and `gt`, from the weights of
+        before it: l_d_real + l_d_fake, the update, and the refresh of each
+        spectral norm from those weights; with adaptive_d, skipped (no
+        update, no refresh, the optimizer state unchanged) while the
+        smoothed generator GAN loss rises."""
+        net_d = self.net_d
+        skip = False
+        if self.adaptive_d:
+            prev = self.gan_ema
+            cand = raw_gan if self.step == 0 else (
+                self.adaptive_d_decay * prev + (1.0 - self.adaptive_d_decay) * raw_gan)
+            skip = self.step > 0 and bool(cand > prev * self.adaptive_d_threshold)
+            self.gan_ema = cand
+            logs["adaptive_d_skip"] = torch.tensor(float(skip))
+        net_d.requires_grad_(True)
+        self.optimizer_d.zero_grad(set_to_none=True)
+        total = torch.zeros((), device=fake.device)
+        for loss in self.gan_losses:
+            real_pred, fake_pred = net_d(gt), net_d(fake)
+            l_real = loss(real_pred, True, is_disc=True)
+            l_fake = loss(fake_pred, False, is_disc=True)
+            rp = real_pred[-1] if isinstance(real_pred, (list, tuple)) else real_pred
+            fp = fake_pred[-1] if isinstance(fake_pred, (list, tuple)) else fake_pred
+            logs.update(l_d_real=l_real.detach(), l_d_fake=l_fake.detach(),
+                        out_d_real=rp.detach().mean(), out_d_fake=fp.detach().mean())
+            total = total + l_real + l_fake
+        total.backward()
+        logs["lr_d"] = torch.tensor(float(self.schedule_d(self.step)))
+        if skip:
+            return
+        with torch.no_grad():
+            grads = []
+            for p in net_d.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            if self.grad_clip:
+                clip_by_global_norm(grads, torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(g) for g in grads])))
+            refresh_spectral_norms(net_d)
+            # optax evaluates the schedule at its own count of updates, which
+            # adaptive-D skips hold back; the logged lr_d is of the global step
+            state = next(iter(self.optimizer_d.state.values()), {})
+            set_lr(self.optimizer_d, float(self.schedule_d(int(state.get("step", 0)))))
+            self.optimizer_d.step()
 
     def feed_data(self, data: dict[str, Any]) -> None:
         """Take a batch's lq and gt, NHWC numpy arrays or tensors (uint8 or
@@ -259,10 +368,16 @@ class SRModel(BaseModel):
         params = list(self.net_g.parameters())
         self.optimizer_g.zero_grad(set_to_none=True)
         logs: dict[str, torch.Tensor] = {}
+        d_batch = None
+        if self.net_d is not None:
+            self.net_d.train().requires_grad_(False)  # no G gradient reaches D
         with step_math(self.opt):
             for lq_mb, gt_mb in zip(lq.chunk(accum), gt.chunk(accum)):
-                total, mb_logs = self._generator_losses(self.net_g(lq_mb), gt_mb)
+                output = self.net_g(lq_mb)
+                total, mb_logs = self._generator_losses(output, gt_mb)
                 total.backward()
+                if d_batch is None:  # D sees micro-batch 0, as in the JAX step
+                    d_batch = (output.detach(), gt_mb)
                 for k, v in mb_logs.items():
                     logs[k] = logs[k] + v.detach() if k in logs else v.detach()
         with torch.no_grad():
@@ -292,6 +407,9 @@ class SRModel(BaseModel):
                     # optimizer moments stay, as upstream
                     for e, p in zip(ema, params):
                         p.copy_(e)
+        if self.net_d is not None:
+            with step_math(self.opt):
+                self._discriminator_step(*d_batch, logs.pop("raw_gan", None), logs)
         logs["lr_g"] = torch.tensor(lr)
         self.step += 1
         self.log_dict = logs
@@ -304,10 +422,14 @@ class SRModel(BaseModel):
         return out
 
     def get_current_learning_rate(self) -> list[float]:
-        """The lr of the last step, or of the next one before any."""
+        """The lr of the last step, or of the next one before any: G's,
+        then D's where there is a D."""
         if "lr_g" in self.log_dict:
-            return [float(self.log_dict["lr_g"])]
-        return [float(self.schedule_g(self.step))]
+            return [float(self.log_dict[k]) for k in ("lr_g", "lr_d") if k in self.log_dict]
+        lrs = [float(self.schedule_g(self.step))]
+        if self.net_d is not None:
+            lrs.append(float(self.schedule_d(self.step)))
+        return lrs
 
     def recalibrate_bn(self, dataloader, num_batches: int = 50) -> None:
         """Refresh every BatchNormNoStats' running statistics, in the online
@@ -454,7 +576,8 @@ class SRModel(BaseModel):
 
     def save(self, epoch: int, current_iter: int) -> None:
         """net_g_ema_<iter> (or net_g_<iter>) under models/, the online
-        weights under models/resume_models/, and the training state."""
+        weights (and net_d_<iter>) under models/resume_models/, and the
+        training state."""
         opt = self.opt
         label = "latest" if current_iter == -1 else str(current_iter)
         meta = {
@@ -469,6 +592,11 @@ class SRModel(BaseModel):
         self.save_network_safetensors(
             self.net_g, osp.join(opt.path.resume_models, f"net_g_{label}.safetensors"), meta
         )
+        if self.net_d is not None:
+            self.save_network_safetensors(
+                self.net_d, osp.join(opt.path.resume_models, f"net_d_{label}.safetensors"),
+                {**meta, "arch": opt.network_d.get("type", "?")},
+            )
         if current_iter != -1:
             state = {
                 "step": self.step,
@@ -478,6 +606,9 @@ class SRModel(BaseModel):
             }
             if self.net_g_ema is not None:
                 state["net_g_ema"] = self.net_g_ema.state_dict()
+            if self.net_d is not None:  # its weights with each spectral norm's (u, v)
+                state.update(net_d=self.net_d.state_dict(),
+                             optimizer_d=self.optimizer_d.state_dict(), gan_ema=self.gan_ema)
             state.update(self._extra_training_state())
             self.save_training_state(state, epoch, current_iter)
 
@@ -490,12 +621,17 @@ class SRModel(BaseModel):
 
     def resume_training(self, resume_state_path: str) -> dict:
         """Restore the weights, EMA, optimizer, generator and step saved by
-        `save`; returns the sidecar's {"epoch", "iter"}."""
+        `save` (and D's weights, optimizer and adaptive-D state); returns
+        the sidecar's {"epoch", "iter"}."""
         state, meta = self.load_training_state(resume_state_path)
         self.net_g.load_state_dict(state["net_g"])
         if self.net_g_ema is not None:
             self.net_g_ema.load_state_dict(state["net_g_ema"])
         self.optimizer_g.load_state_dict(state["optimizer_g"])
+        if self.net_d is not None:
+            self.net_d.load_state_dict(state["net_d"])
+            self.optimizer_d.load_state_dict(state["optimizer_d"])
+            self.gan_ema = state["gan_ema"].to(self.device)
         self.dropout_generator.set_state(state["dropout_generator"])
         self._load_extra_training_state(state)
         self.step = int(state["step"])
@@ -505,7 +641,10 @@ class SRModel(BaseModel):
         """Load weights into `net`: a JAX-framework safetensors (metadata
         `framework: trainner_redux_tpu`, through the weight bridge), a
         torch-layout safetensors, or a .pth/.pt pickle (an upstream
-        Swin2SR's q_bias / v_bias packed into the port's qkv bias)."""
+        Swin2SR's q_bias / v_bias packed into the port's qkv bias; either
+        torch spectral-norm API's keys). A JAX-framework file holds
+        parameters only: the net keeps its spectral norms' (u, v), as the
+        JAX package keeps them on such a load."""
         from trainner_redux_tpu_torch.utils import torch_compat
 
         if path.endswith(".safetensors"):
@@ -516,10 +655,13 @@ class SRModel(BaseModel):
                 metadata = f.metadata() or {}
             if metadata.get("framework") == "trainner_redux_tpu":
                 sd = torch_compat.state_dict_from_jax(load_file(path), type(net).__name__)
+                template = net.state_dict()
+                sd.update({k: v for k, v in template.items()
+                           if k.endswith((".0._u", ".0._v")) and k not in sd})
                 self._merge_params(net, sd, strict, path)
                 return
         flat = torch_compat.drop_recomputed_buffers(torch_compat.load_torch_state_dict(path))
-        flat = torch_compat.pack_qkv_bias(flat)
+        flat = torch_compat.canonical_spectral_keys(torch_compat.pack_qkv_bias(flat))
         sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in flat.items()}
         self._merge_params(net, sd, strict, path)
 

@@ -15,7 +15,10 @@ batch ahead, one optimizer step per batch (`accum_iter` micro-batches
 inside it), log lines every `print_freq`, checkpoints every
 `save_checkpoint_freq` and at the end, validation every `val_freq` and at
 the end, a save on SIGINT or a crash. With `train.bn_recalibrate_batches`,
-the BatchNorm statistics are recalibrated before the final save.
+the BatchNorm statistics are recalibrated before the final save. GAN
+training logs D's learning rate beside G's and D's losses and outputs
+beside G's, saves `net_d_<iter>` under `models/resume_models/`, and resumes
+D, its optimizer and the adaptive-D state from the training state.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR, HAT, DAT, Swin2SR and SRFormerV2 parts of the JAX
+Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2 and DUnet parts of the JAX
 package's utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
@@ -14,7 +14,12 @@ package's utils/torch_compat.py:
   extended to the 3conv residual connection and every upsampler; for HAT
   the JAX `_export_hat` mapping; for DAT, Swin2SR and SRFormerV2 the
   inverse of the JAX `_convert_dat`, `_convert_swin2sr` and
-  `_convert_srformerv2` (the JAX package has no exporter for them);
+  `_convert_srformerv2` (the JAX package has no exporter for them); for
+  DUnet the inverse of the JAX `_convert_dunet`, the `spectral`
+  collection's u and v included (as `__spectral__.<module>.u` / `.v`);
+- `canonical_spectral_keys`: either torch spectral-norm API's keys (the
+  legacy `weight_orig` / `weight_u` / `weight_v`, or the parametrization's)
+  as the port's `parametrizations.weight.original` / `.0._u` / `.0._v`;
 - `pack_qkv_bias`: upstream Swin2SR's `attn.q_bias` / `attn.v_bias` as the
   port's one `attn.qkv.bias` = [q, 0, v], as the JAX `_convert_swin2sr`
   packs them.
@@ -290,6 +295,66 @@ def _srformerv2_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     return _swinir_key(re.sub(r"^upsample\.conv\.", "upsample_direct.conv.", k), v)
 
 
+def canonical_spectral_keys(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Spectral-norm keys of either torch API as the port's parametrization
+    keys; other keys come back as they are."""
+    renames = ((".weight_orig", ".parametrizations.weight.original"),
+               (".weight_u", ".parametrizations.weight.0._u"),
+               (".weight_v", ".parametrizations.weight.0._v"),
+               (".parametrizations.weight._u", ".parametrizations.weight.0._u"),
+               (".parametrizations.weight._v", ".parametrizations.weight.0._v"))
+    out = {}
+    for k, v in sd.items():
+        for old, new in renames:
+            if k.endswith(old):
+                k = k.removesuffix(old) + new
+                break
+        out[k] = v
+    return out
+
+
+# DUnet's flax modules -> (upstream module, spectrally normalised)
+_DUNET = {"in_to_dim.conv": ("in_to_dim", False), "end_conv0": ("end_conv.0", True),
+          "end_conv1": ("end_conv.2", True), "end_conv2.conv": ("end_conv.4", False),
+          **{f"e_x{i}.conv": (f"e_x{i}.0", True) for i in (1, 2, 3)},
+          **{f"up{i}.conv": (f"up{i}.1", True) for i in (1, 2, 3)},
+          **{f"up{i}.dysample.{c}.conv": (f"up{i}.0.{c}", False)
+             for i in (1, 2, 3) for c in ("offset", "scope")}}
+
+
+def _dunet_state_dict(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """The JAX DUnet's flattened params (and `__spectral__.<module>.u` /
+    `.v`, the JAX `_convert_dunet`'s form of its spectral collection) as the
+    port's state dict: the inverse of `_convert_dunet`. v is indexed over
+    flax's (kh, kw, in) flattening there and over torch's (in, kh, kw)
+    here. Upstream's `init_pos` buffers are added."""
+    from trainner_redux_tpu_torch.archs.arch_util import dysample_init_pos
+
+    out = {}
+    for k, v in flat.items():
+        spectral = k.startswith(("__spectral__.", "spectral."))
+        module, kind = k.split(".", 1)[1].rsplit(".", 1) if spectral else k.rsplit(".", 1)
+        if module not in _DUNET:
+            raise KeyError(f"no torch counterpart for DUnet key '{k}'")
+        tpre, sn = _DUNET[module]
+        if spectral and kind == "u":
+            out[f"{tpre}.parametrizations.weight.0._u"] = v
+        elif spectral and kind == "v":
+            kh, kw, cin, _ = flat[f"{module}.kernel"].shape
+            out[f"{tpre}.parametrizations.weight.0._v"] = np.ascontiguousarray(
+                v.reshape(kh, kw, cin).transpose(2, 0, 1).reshape(-1))
+        elif kind == "kernel":
+            out[f"{tpre}.parametrizations.weight.original" if sn else f"{tpre}.weight"] = \
+                conv_w_inv(v)
+        elif kind == "bias":
+            out[f"{tpre}.bias"] = v
+        else:
+            raise KeyError(f"no torch counterpart for DUnet key '{k}'")
+    for i in (1, 2, 3):
+        out[f"up{i}.0.init_pos"] = dysample_init_pos(2, 4).numpy()
+    return out
+
+
 _KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key,
              "srformerv2": _srformerv2_key}
 
@@ -298,6 +363,9 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> di
     """The JAX package's flattened params -> the port's state dict (tensors)."""
     import torch
 
+    if arch.lower() == "dunet":
+        return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+                for k, v in _dunet_state_dict(flat).items()}
     key_map = _KEY_MAPS.get(arch.lower())
     if key_map is None:
         raise NotImplementedError(f"no weight bridge for arch '{arch}' yet")
