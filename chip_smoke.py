@@ -2,8 +2,9 @@
 """Smoke test of the torch port on one CUDA card: SwinIR-M 4x, HAT-M 4x,
 DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, SwinIR-M 4x
 training on pairs degraded on the fly (Real-ESRGAN OTF), the training
-form of the Swin attention half that saves P, and SwinIR-M 4x GAN
-training with the DUnet discriminator (swinir_m_gan.yml).
+form of the Swin attention half that saves P, SwinIR-M 4x GAN training
+with the DUnet discriminator (swinir_m_gan.yml), and SwinIR-M 4x bf16
+training as swinir_m_fidelity.yml ships it.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -39,7 +40,8 @@ failure:
              LR, DropPath scales holding 0 and 1/0.9), K=1 unshifted and K=4
              shifted by 4; times and the card's bound; #4's and #5's device
              time by stage (torch.profiler) and their times against the fp32
-             and the 3xTF32 bounds, with the share of each; #5 also from #4's
+             and the 3xTF32 bounds, with the share of each (#5's window
+             attention must be #10's saved-P stage); #5 also from #4's
              own P, att and z against the plain backward from the plain
              forward's; #4 at the OTF path's block (B=8, 32x32) timed.
 8. train   - `trainner_redux_tpu_torch.train.run` on SwinIR-M 4x at full
@@ -206,6 +208,33 @@ failure:
 40. gan deterministic - two GAN steps with `deterministic: true`, twice
              from one seed and batches: bit for bit in every log, G, D and
              each (u, v).
+41. bf16 kernels - the bf16 forms of #4 and #5 at the training block (B=8,
+             64x64 LR, C 180, K=1 and K=4 shifted by 4), on bf16 x and dout
+             with the fp32 parameters: every output and gradient against
+             its bf16 plain version (BF16_TOL of its largest, at most
+             BF16_FAR_SHARE of its elements beyond one bf16 step), #5 also
+             from the kernel forward's own P, att and z; kernels and plain
+             versions against the float64 function of the same bf16
+             inputs (the kernel's error at most F64_RATIO times the plain
+             version's, plus F64_FLOOR of the largest); two runs bit for
+             bit; times beside the plain versions' and the fp32 forms',
+             the bf16 bound (989 TFLOP/s) and its share; device time by
+             stage.
+42. bf16 train - `train.run` of configs/_templates/train/SwinIR/
+             swinir_m_fidelity.yml as shipped (compute_dtype bfloat16,
+             batch 8 of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its
+             validation), 30 steps, counting 36 + 36 bf16 #4/#5 launches a
+             step and none of the fp32 forms; the validation at the end of
+             training runs the fp32 twin on #1/#2 (PSNR, SSIM); the EMA
+             checkpoint then serves with the strict load.
+43. bf16 train profile - device time by kernel of one bf16 step, the
+             bf16 #4/#5 stages summed, the card's busy share.
+44. bf16 branches - one bf16 step from equal weights and batch through the
+             bf16 kernels, through the bf16 plain versions of #4/#5 on the
+             card, and through the fp32 kernels: the losses within
+             BF16_BRANCH_LOSS_TOL, the gradients' distance from the fp32
+             step (see phase_bf16_branches); then two `deterministic: true`
+             bf16 steps twice, bit for bit.
 
 Each phase prints its seconds. Then one JSON line of kernel records and,
 last, the device JSON line.
@@ -314,6 +343,8 @@ REPLACES = {
     "fused_attn_block_train_backward": "trainner_redux_tpu/ops/pallas/fused_block.py:1036",
     "fused_attn_block_train_ws12": "trainner_redux_tpu/ops/pallas/fused_block.py:977",
     "fused_attn_block_train_backward_ws12": "trainner_redux_tpu/ops/pallas/fused_block.py:1036",
+    "fused_swin_block_train_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:1374",
+    "fused_swin_block_train_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:1441",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -339,13 +370,17 @@ SOURCES = {
     "fused_attn_block_train_backward": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
     "fused_attn_block_train_ws12": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
     "fused_attn_block_train_backward_ws12": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
+    "fused_swin_block_train_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_swin_block_train_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
 # the "_ws12" / "_c240" records are #1, #2 and #7 at SRFormerV2's Swin
 # blocks, counted by their wrappers in SRFormerV2's runs; the
 # "fused_attn_block_train*" records are #9 and #10 at SwinIR-M's block (8x8)
-# and SRFormerV2's ("_ws12"), counted in phase 35's runs of each
+# and SRFormerV2's ("_ws12"), counted in phase 35's runs of each; the
+# "_bf16" records are #4 and #5's bf16 forms, counted in the bf16 training
+# run of swinir_m_fidelity.yml (phase 42)
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -522,8 +557,10 @@ def spread(t: tuple[float, float, float]) -> str:
     return f"{t[0]:.3f} ms (median of 7 groups of 2 calls; {t[1]:.3f}-{t[2]:.3f})"
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    """The least time (ms) of `flops` operations at `peak` (fp32 outside the
+    tensor cores unless said) and `nbytes` at 3.35 TB/s, and which bounds."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -544,7 +581,22 @@ def stage_of(kernel: str) -> str:
     2 takes the LayerNorm backward. linear_kernel's is its third: 0 and 1
     are x W + b and its gelu, 2 the forwards' proj and fc2 with the
     residual, x + s (A W + b). ln_rows_kernel's second is true in the
-    post-norm forwards' row pass, x + s LN(rows)."""
+    post-norm forwards' row pass, x + s LN(rows). The bf16 forms of #4 and
+    #5 (csrc/tc_rows_bf16.cuh, csrc/tc_attn.cuh, csrc/fused_block_train.cu)
+    run the same stages under `_bf16_` names, their epilogue mode the second
+    template argument of linear_bf16_kernel and rows_bf16_kernel."""
+    for part, stage in (("ln_rows_bf16_kernel", "LN rows"),
+                        ("mlp_hidden_bf16_kernel", "fc1 and dh"),
+                        ("attn_rows_fwd_bf16_kernel", "window attention forward"),
+                        ("attn_rows_bwd_bf16_kernel", "window attention"),
+                        ("atb_bf16_kernel", "weight gradients")):
+        if part in kernel:
+            return stage
+    for part, modes in (("linear_bf16_kernel<", {"2": "x + s (A W + b)"}),
+                        ("rows_bf16_kernel<", {"0": "datt", "2": "dy and the LN backward"})):
+        if part in kernel:
+            mode = kernel.split(part, 1)[1].split(">", 1)[0].split(",")[1].strip()
+            return modes.get(mode, "x W + b")
     if "ln_rows_kernel<" in kernel and "postnorm_ln_rows_kernel" not in kernel:
         args = kernel.split("ln_rows_kernel<", 1)[1].split(">", 1)[0].split(",")
         if args[-1].strip() == "true":
@@ -552,7 +604,6 @@ def stage_of(kernel: str) -> str:
     for part, stage in (("postnorm_ln_rows_kernel", "post-norm LN backward"),
                         ("ln_rows_kernel", "LN rows"), ("mlp_hidden_kernel", "fc1 and dh"),
                         ("attn_rows_fwd_tc_kernel", "window attention forward"),
-                        ("block_bwd_attn_kernel", "window attention"),
                         ("attn_rows_bwd_tc_kernel", "window attention"),
                         ("cos_attn_bwd_tc_kernel", "window attention"),
                         ("atb_kernel", "weight gradients"), ("sum_rows_kernel", "partial sums"),
@@ -575,7 +626,8 @@ def stage_of(kernel: str) -> str:
 # #12's dscale), the bias table two passes (one where a window kind's table
 # alone fills the card: HAT-M's ws 16)
 STAGES_5 = {"LN rows": 2, "fc1 and dh": 1, "dy and the LN backward": 2, "datt": 1,
-            "window attention": 1, "weight gradients": 4, "partial sums": 6, "bias table": 2}
+            "x W + b": 1, "window attention": 1, "weight gradients": 4, "partial sums": 6,
+            "bias table": 2}
 STAGES_7 = {"LN rows": 1, "fc1 and dh": 1, "dy and the LN backward": 1, "weight gradients": 2,
             "partial sums": 3}
 STAGES_6 = {"LN rows": 1, "x W + b": 1, "datt": 1, "window attention": 1,
@@ -601,13 +653,14 @@ STAGES_3 = {"window attention forward": 1}
 STAGES_11 = {"x W + b": 2, "window attention forward": 1, "post-norm rows": 1}
 STAGES_13 = {"x W + b": 2, "post-norm rows": 1}
 # the FMA kernels that the tensor-core stages replaced (the forwards, #10's
-# saved-P window attention, #15's block transform): a profile or stage split
-# that launches one fails
+# saved-P window attention, #15's block transform, #5's window attention):
+# a profile or stage split that launches one fails
 RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel", "trr::ln_qkv_kernel",
            "trr::attn_rows_fwd_kernel", "trr::proj_residual_kernel",
            "trr::window_mhsa_fwd_kernel", "trr::window_mhsa_rows_fwd_kernel",
            "trr::cos_attn_fwd_kernel", "trr::cos_attn_rows_kernel", "trr::pn_mlp_fwd_kernel",
-           "trr::attn_rows_bwd_saved_kernel", "trr::jpeg_block_kernel")
+           "trr::attn_rows_bwd_saved_kernel", "trr::jpeg_block_kernel",
+           "trr::block_bwd_attn_kernel")
 SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2,
                   "fused_window_mhsa": STAGES_3}
 # the window attention forward's kernel at each window of n tokens (its plan
@@ -627,7 +680,8 @@ SERVING_KERNELS = {"fused_attn_block": (*LN_LINEAR, ATTN_FWD[N]), "fused_ln_mlp"
 
 
 def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
-                per_call: dict[str, int], calls: int = 3, kernels: tuple[str, ...] = ()) -> None:
+                per_call: dict[str, int], calls: int = 3, kernels: tuple[str, ...] = (),
+                bf16: bool = False) -> None:
     """Device time by stage of one call of a staged kernel (the training
     backwards #5, #6, #7, #8, #10, #12 and #14; the forwards #1 and #9 at
     8x8 and 12x12, #2, #3 and #4), and the call's time `ms` against both
@@ -640,7 +694,8 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
     session's calls, it profiles again, four times the calls, twice at
     most, and adds the sessions' launches up). Fails unless a profiled
     kernel's name holds each of `kernels`, and if a RETIRED kernel
-    launched."""
+    launched. `bf16`, a bf16 form: its time against the bf16 bound (989
+    TFLOP/s on the tensor cores, 3.35 TB/s) instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -680,6 +735,11 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
             fail(f"[{tag}] {name}: no profiled kernel is {k}")
     if kernels:
         say(f"[{tag}] {name} launched " + ", ".join(kernels))
+    if bf16:
+        bms, by = bound(flops, nb, PEAK_BF16)
+        say(f"[{tag}] {name}: kernel {ms:.4f} ms; bf16 bound {bms:.4f} ms ({by}; "
+            f"{100 * bms / ms:.1f}% of the kernel's time)")
+        return
     fp32 = max(flops / PEAK_FP32, nb / PEAK_BYTES) * 1e3
     tc = max(3 * flops / PEAK_TF32, nb / PEAK_BYTES) * 1e3
     say(f"[{tag}] {name}: kernel {ms:.4f} ms; fp32 bound {fp32:.4f} ms ({100 * fp32 / ms:.1f}% "
@@ -877,6 +937,8 @@ def _wrappers() -> dict:
         "fused_window_mhsa": wa.fused_window_mhsa,
         "fused_swin_block_train": fb.fused_swin_block_train,
         "fused_swin_block_train_backward": fb.fused_swin_block_train_backward,
+        "fused_swin_block_train_bf16": fb.fused_swin_block_train_bf16,
+        "fused_swin_block_train_backward_bf16": fb.fused_swin_block_train_backward_bf16,
         "fused_window_mhsa_backward": wa.fused_window_mhsa_backward,
         "fused_ln_mlp_backward": fb.fused_ln_mlp_backward,
         "fused_rect_mhsa": wa.fused_rect_mhsa,
@@ -1222,7 +1284,8 @@ def phase_train_kernels() -> dict:
         stage_split("train kernels", f"fused_swin_block_train K={kinds}", fwd, fwd_flops,
                     fwd_bytes, res["fused_swin_block_train"]["ms"], STAGES_4)
         stage_split("train kernels", f"fused_swin_block_train_backward K={kinds}", bwd,
-                    bwd_flops, bwd_bytes, res["fused_swin_block_train_backward"]["ms"], STAGES_5)
+                    bwd_flops, bwd_bytes, res["fused_swin_block_train_backward"]["ms"], STAGES_5,
+                    kernels=(SAVED_BWD[N], "linear_kernel"))
 
     # #4 at the OTF path's block: 8 LR crops of 32x32, 8,192 tokens (64 token
     # tiles on 132 SMs)
@@ -3271,6 +3334,494 @@ def phase_gan_deterministic(seed: int) -> None:
         f"tensors (parameters and each spectral norm's u and v)")
 
 
+# ---------------------------------------------------------------------------
+# 41-44. bf16 training (swinir_m_fidelity.yml as shipped)
+# ---------------------------------------------------------------------------
+
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16 = 989e12
+FIDELITY_TEMPLATE = ROOT / "configs" / "_templates" / "train" / "SwinIR" / "swinir_m_fidelity.yml"
+FID_LQ = 48  # the template's lq_size: 192x192 GT
+FID_LOSSES = ("l1loss", "mssimloss")
+# bf16 kernel against its bf16 plain version: both round to bf16 (8 bits,
+# 2^-8 = 3.9e-3 of a value) at the same points, summing in other orders, so
+# a value at a rounding tie rounds one way in one and the other way in the
+# other: each tensor within BF16_TOL (some 2.5 bf16 steps) of its largest,
+# and at most BF16_FAR_SHARE of its elements beyond one bf16 step of it
+BF16_TOL = 1e-2
+BF16_STEP = 2.0**-8
+BF16_FAR_SHARE = 1e-3
+# against the float64 function of the same bf16-rounded inputs, the kernel's
+# error at most F64_RATIO times the plain version's, plus F64_FLOOR of the
+# tensor's largest (what fp32 sums over 32,768 tokens in another order
+# move: db2 sums s2 dout exactly in both, and nothing else moves it)
+F64_RATIO = 1.5
+F64_FLOOR = 1e-5
+# one bf16 step's loss, kernels against plain versions (relative): the mean
+# of 884,736 output pixels, a few of which round apart by a bf16 step
+BF16_BRANCH_LOSS_TOL = 1e-3
+# the bf16 step's gradients, kernels against plain versions, each against
+# the fp32 step: two bf16 computations of one function, each as far from
+# fp32 as bf16's rounding puts it (see phase_bf16_branches)
+BF16_BRANCH_RATIO = 1.5  # L2 over every parameter
+BF16_TENSOR_RATIO = 3.0  # one tensor's largest difference
+BF16_TRAIN_STEP = {"fused_swin_block_train_bf16": BLOCKS,
+                   "fused_swin_block_train_backward_bf16": BLOCKS}
+BF16_GRAD_NAMES = ("dx", "dg1", "dbe1", "dwq", "dbq", "dwp", "dbp", "dbias", "dg2", "dbe2", "dw1",
+                   "db1", "dw2", "db2")
+
+
+def swin_block_f64(ops, s1, s2, shift: int):
+    """#4's function in float64 on float64 leaves `ops` (TRAIN_OPS order),
+    the window attention's P included, for autograd: (out, P, att, z), laid
+    out as the kernels lay them out; no rounding anywhere."""
+    import torch
+    import torch.nn.functional as F
+
+    x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2 = ops
+    b, h, w, c = x.shape
+    xr = torch.roll(x, (-shift, -shift), (1, 2))
+    t = xr.reshape(-1, c)
+    qkv = (F.layer_norm(t, (c,), g1, be1, 1e-5) @ wq + bq).reshape(b, h, w, 3 * c)
+    q, k, v, mask = sdpa_windows(qkv, bias, WS, WS, bias.shape[0])
+    P = torch.softmax(q @ k.transpose(-1, -2) * HD**-0.5 + mask, dim=-1)
+    att = from_windows(P @ v, b, h, w, WS, WS)
+    rows = h * w
+    z = t + s1.double().repeat_interleave(rows)[:, None] * (att.reshape(-1, c) @ wp + bp)
+    mlp = F.gelu(F.layer_norm(z, (c,), g2, be2, 1e-5) @ w1 + b1) @ w2 + b2
+    out = z + s2.double().repeat_interleave(rows)[:, None] * mlp
+
+    def unroll(u):
+        return torch.roll(u.reshape(b, h, w, c), (shift, shift), (1, 2))
+
+    return (unroll(out), P.reshape(b, h // WS, w // WS, NH, N, N), unroll(att.reshape(-1, c)),
+            unroll(z))
+
+
+def check_bf16(tag: str, what: str, got, want) -> tuple[float, float]:
+    """A bf16 form's output or gradient against its bf16 plain version:
+    within BF16_TOL of the tensor's largest, at most BF16_FAR_SHARE of the
+    elements beyond one bf16 step of it; returns the largest error and that
+    over the tensor's largest."""
+    g, w = got.float(), want.float()
+    top = w.abs().max().item()
+    err = (g - w).abs()
+    rel, far = err.max().item() / top, (err > BF16_STEP * top).float().mean().item()
+    if got.dtype != want.dtype or not (rel <= BF16_TOL and far <= BF16_FAR_SHARE):
+        fail(f"[{tag}] {what}: {rel:.3g} of its largest (tol {BF16_TOL}), {far:.3g} of the "
+             f"elements beyond one bf16 step (tol {BF16_FAR_SHARE}); dtypes {got.dtype}, "
+             f"{want.dtype}")
+    return err.max().item(), rel
+
+
+def phase_bf16_kernels() -> dict:
+    """41. The bf16 forms of #4 and #5 at the bf16 path's block (B=8, 64x64
+    LR, C 180, 6 heads of 30, hidden 360, DropPath scales holding 0 and
+    1/0.9), K=1 and K=4 shifted by 4, on bf16 x and dout with the fp32
+    parameters: each output and gradient against its bf16 plain version
+    (`check_bf16`), #5 from the plain forward's P, att and z and, as the path
+    runs it, from the kernel forward's own; kernel and plain version against
+    the float64 function of the same bf16-rounded inputs (autograd for the
+    gradients; `F64_RATIO`, `F64_FLOOR`); two runs of each bit for bit; ms a
+    call beside the plain versions' and the fp32 forms' from the same call,
+    the bf16 bound (989 TFLOP/s, 3.35 TB/s) and its share; at K=4 the device
+    time by stage."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(41)
+    keep = 1.0 / 0.9
+    s1 = torch.full((TB,), keep, device=dev)
+    s1[1] = 0.0
+    s2 = torch.full((TB,), keep, device=dev)
+    s2[4] = 0.0
+    fwd_flops, bwd_flops = train_flops(TB * TH * TW)
+    res: dict[str, dict] = {}
+    for kinds in (1, 4):
+        shift = WS // 2 if kinds == 4 else 0
+        x32, p, bias, _ = block_inputs(gen, kinds, dev, shape=(TB, TH, TW))
+        ops32 = [x32 if k == "x" else bias if k == "bias" else p[k] for k in TRAIN_OPS]
+        ops = [ops32[0].bfloat16()] + ops32[1:]
+        dout = torch.randn(TB, TH, TW, C, generator=gen).to(dev).bfloat16()
+        meta = (NH, HD, WS, 1e-5, shift)
+        saved = [t for k, t in zip(TRAIN_OPS, ops) if k != "bias"]
+        label = f"K={kinds}"
+
+        def fwd():
+            return fb.fused_swin_block_train_bf16(*ops, s1, s2, *meta)
+
+        def fwd_plain():
+            return fb.fused_swin_block_train_bf16_reference(*ops, s1, s2, *meta)
+
+        try:
+            got = fwd()
+            again = fwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"fused_swin_block_train_bf16 {label}: {e}")
+        want = fwd_plain()
+        fwd_err = {n: check_bf16("bf16 kernels", f"#4 bf16 {label} {n}", g, w)
+                   for n, g, w in zip(("out", "P", "att", "z"), got, want)}
+        fwd_rel = {n: e[1] for n, e in fwd_err.items()}
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"fused_swin_block_train_bf16 {label}: two runs differ")
+
+        def bwd():
+            return fb.fused_swin_block_train_backward_bf16(*saved, s1, s2, *want[1:], dout, kinds,
+                                                           *meta)
+
+        def bwd_plain():
+            return fb.fused_swin_block_train_bwd_bf16_reference(*saved, s1, s2, *want[1:], dout,
+                                                                kinds, *meta)
+
+        try:
+            grads, grads2 = bwd(), bwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"fused_swin_block_train_backward_bf16 {label}: {e}")
+        plain_grads = bwd_plain()
+        bwd_err = {n: check_bf16("bf16 kernels", f"#5 bf16 {label} {n}", g, w)
+                   for n, g, w in zip(BF16_GRAD_NAMES, grads, plain_grads)}
+        bwd_rel = {n: e[1] for n, e in bwd_err.items()}
+        if not all(torch.equal(a, b) for a, b in zip(grads, grads2)):
+            fail(f"fused_swin_block_train_backward_bf16 {label}: two runs differ")
+        # as the path runs it: from the kernel forward's own P, att and z
+        path_grads = fb.fused_swin_block_train_backward_bf16(*saved, s1, s2, *got[1:], dout,
+                                                             kinds, *meta)
+        path_rel = max(check_bf16("bf16 kernels", f"#5 bf16 {label} {n} from the kernel's P",
+                                  g, w)[1] for n, g, w in zip(BF16_GRAD_NAMES, path_grads,
+                                                             plain_grads))
+        say(f"[bf16 kernels] {label}: #4 within {max(fwd_rel.values()):.3g} of each output's "
+            f"largest ({', '.join(f'{k} {v:.3g}' for k, v in fwd_rel.items())}); #5 within "
+            f"{max(bwd_rel.values()):.3g} of each gradient's ({max(bwd_rel, key=bwd_rel.get)}), "
+            f"{path_rel:.3g} from the kernel forward's P, att, z; two runs of each bit for bit")
+
+        # the float64 yardstick: the same bf16-rounded inputs, no rounding after
+        leaves = [t.detach().double().requires_grad_() for t in
+                  ([ops[0]] + [fb._bf(t) if k in ("wq", "wp", "w1", "w2") else t
+                               for k, t in zip(TRAIN_OPS[1:], ops[1:])])]
+        exact = swin_block_f64(leaves, s1, s2, shift)
+        # the gradients in TRAIN_OPS order, which is #5's
+        exact_g = torch.autograd.grad(exact[0], leaves, dout.double())
+        pairs = [(f"#4 {n}", g, w, e) for n, g, w, e in
+                 zip(("out", "P", "att", "z"), got, want, exact)]
+        pairs += [(f"#5 {n}", g, w, e) for n, g, w, e in
+                  zip(BF16_GRAD_NAMES, path_grads, plain_grads, exact_g)]
+        worst = (0.0, "")
+        for what, g, w, e in pairs:
+            e = e.detach()
+            top = e.abs().max().item()
+            ke = (g.double() - e).abs().max().item()
+            pe = (w.double() - e).abs().max().item()
+            worst = max(worst, (ke / max(pe, 1e-30), what))
+            if not ke <= F64_RATIO * pe + F64_FLOOR * top:
+                fail(f"[bf16 kernels] {label} {what} against float64: kernel {ke:.3g}, plain "
+                     f"{pe:.3g} of {top:.3g} (the kernel may be at most {F64_RATIO}x the plain "
+                     f"version's + {F64_FLOOR} of the largest)")
+            say(f"[bf16 kernels] {label} {what} against float64: kernel {ke:.3g}, plain "
+                f"{pe:.3g} of {top:.3g}")
+        say(f"[bf16 kernels] {label}: against float64 the kernels' error is at most "
+            f"{worst[0]:.3f}x the plain versions' ({worst[1]})")
+
+        fwd_bytes = nbytes(*ops, s1, s2, *got)
+        bwd_bytes = nbytes(*saved, s1, s2, *want[1:], dout, *grads)
+        saved32 = [t for k, t in zip(TRAIN_OPS, ops32) if k != "bias"]
+        want32 = fb.fused_swin_block_train_reference(*ops32, s1, s2, *meta)
+        dout32 = dout.float()
+        cases = {
+            "fused_swin_block_train_bf16": (
+                fwd, fwd_plain, lambda: fb._swin_block_train_fwd_cuda(*ops32, s1, s2, *meta),
+                max(e[0] for e in fwd_err.values()), max(fwd_rel.values()), fwd_flops,
+                fwd_bytes),
+            "fused_swin_block_train_backward_bf16": (
+                bwd, bwd_plain, lambda: fb.fused_swin_block_train_backward(
+                    *saved32, s1, s2, *want32[1:], dout32, kinds, *meta),
+                max(e[0] for e in bwd_err.values()), max(bwd_rel.values()), bwd_flops,
+                bwd_bytes),
+        }
+        for name, (kern, plain_fn, fp32_fn, err, rel, flops, nb) in cases.items():
+            ms, fp32_ms = time_ms(kern, iters=10, warmup=2), time_ms(fp32_fn, iters=10, warmup=2)
+            plain_ms = time_ms(plain_fn, iters=5, warmup=1)
+            bms, by = bound(flops, nb, PEAK_BF16)
+            say(f"[bf16 kernels] {name} {label} shift {shift}: max_abs_err {err:.3g} ({rel:.3g} of "
+                f"its tensor's largest), "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, fp32 form {fp32_ms:.4f} ms; bf16 "
+                f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB), "
+                f"{100 * bms / ms:.1f}% of the kernel's time")
+            rec = res.setdefault(name, {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+        stage_split("bf16 kernels", f"fused_swin_block_train_bf16 {label}", fwd, fwd_flops,
+                    fwd_bytes, res["fused_swin_block_train_bf16"]["ms"], STAGES_4,
+                    kernels=("attn_rows_fwd_bf16_kernel", "linear_bf16_kernel"), bf16=True)
+        stage_split("bf16 kernels", f"fused_swin_block_train_backward_bf16 {label}", bwd,
+                    bwd_flops, bwd_bytes, res["fused_swin_block_train_backward_bf16"]["ms"],
+                    STAGES_5, kernels=("attn_rows_bwd_bf16_kernel", "atb_bf16_kernel"),
+                    bf16=True)
+    return res
+
+
+def fidelity_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, val_dirs=None,
+                     **extra):
+    """configs/_templates/train/SwinIR/swinir_m_fidelity.yml as shipped
+    (compute_dtype bfloat16, SwinIR-M 4x, batch 8 of 48x48 LR crops, L1 +
+    MS-SSIM, AdamW 2e-4, EMA 0.999, its MultiStepLR; its tensorboard logger
+    prints the port's NOTE), on `hr_dir` / `lr_dir`, 30 steps; with
+    `val_dirs` (HR, LR) its validation (PSNR and SSIM, the fp32 twin) runs
+    as the template sets it: at the end of training, its val_freq not
+    reached in 30 steps; else none."""
+    import yaml
+
+    from trainner_redux_tpu_torch.utils.options import resolve_options
+    from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
+    from trainner_redux_tpu_torch.utils.schema import decode
+
+    raw = yaml.safe_load(FIDELITY_TEMPLATE.read_text())
+    raw.update(name=name, manual_seed=seed, num_gpu=1, path={})
+    train = {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir), "dataroot_lq": str(lr_dir),
+             "io_backend": {"type": "disk"}, "num_worker_per_gpu": 4}
+    raw["datasets"] = {"train": train}
+    if val_dirs:
+        raw["datasets"]["val"] = {"name": "val dataset", "type": "pairedimagedataset",
+                                  "dataroot_gt": str(val_dirs[0]), "dataroot_lq": str(val_dirs[1]),
+                                  "io_backend": {"type": "disk"}}
+    else:
+        raw["val"]["val_enabled"] = False
+    raw["train"]["total_iter"] = TRAIN_STEPS
+    raw["logger"].update(print_freq=10, save_checkpoint_freq=1000)
+    raw.update(extra)
+    return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
+
+
+def phase_bf16_train(seed: int) -> dict[str, int]:
+    """42. `train.run` of swinir_m_fidelity.yml as shipped: 30 bf16 steps
+    from 16 seeded 512x512 HR images, 36 + 36 launches of the bf16 #4/#5 a
+    step and none of any fp32 training kernel; every log finite; the
+    validation after step 30 runs the fp32 twin (the EMA network in fp32,
+    on #1/#2: 36 + 36 launches an image) and logs PSNR/SSIM; the EMA
+    checkpoint then serves with the strict load."""
+    import math
+
+    import torch
+
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    val_hr, val_lr = make_dataset(OUT / "data", seed)
+    opt = fidelity_options("swinir_m_x4_fidelity_bf16", hr_dir, lr_dir, seed, (val_hr, val_lr))
+
+    def check(model, opt):
+        if model.compute_dtype != torch.bfloat16 or model.net_g.compute_dtype != torch.bfloat16:
+            fail(f"bf16 train: the model computes in {model.compute_dtype}")
+        if any(p.dtype != torch.float32 for p in model.net_g.parameters()):
+            fail("bf16 train: a parameter is not fp32")
+        metrics = getattr(model, "metric_results", {})
+        if not all(math.isfinite(metrics.get(k, float("nan"))) for k in ("psnr", "ssim")):
+            fail(f"bf16 train: validation logged no finite PSNR/SSIM: {metrics}")
+        say(f"[bf16 train] validation after step {TRAIN_STEPS} through the fp32 twin: psnr "
+            f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f}")
+
+    return phase_train(seed, "swinir_m", "SwinIR-M bf16 (swinir_m_fidelity.yml)", "bf16 train",
+                       per_step=BF16_TRAIN_STEP, lq=FID_LQ, losses=FID_LOSSES, opt=opt,
+                       more_launches=lambda: {"fused_attn_block": BLOCKS * N_IMAGES,
+                                              "fused_ln_mlp": BLOCKS * N_IMAGES},
+                       check=check)
+
+
+def phase_bf16_profile(seed: int) -> None:
+    """43. Device time by kernel of one bf16 step of the template's run
+    (after two warm-up steps), its busy share and launches; the table to
+    chip_smoke/profile_bf16_train.txt."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    opt = fidelity_options("swinir_m_x4_bf16_profile", OUT, OUT, seed)
+    model = build_model(opt, device="cuda")
+    rng = np.random.default_rng(seed)
+    batch = {"lq": rng.integers(0, 256, (TB, FID_LQ, FID_LQ, 3), dtype=np.uint8),
+             "gt": rng.integers(0, 256, (TB, 4 * FID_LQ, 4 * FID_LQ, 3), dtype=np.uint8)}
+    for i in range(2):
+        model.feed_data(batch)
+        model.optimize_parameters(i + 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    model.feed_data(batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.optimize_parameters(3)
+        torch.cuda.synchronize()
+    check_counts("bf16 profile step", read_counts(), BF16_TRAIN_STEP)
+    events = device_events(prof)
+    check_retired("bf16 train profile", events)
+    total = sum(e.self_device_time_total for e in events)
+    if total == 0:
+        fail("[bf16 train profile] the profiler recorded no device time")
+    (OUT / "profile_bf16_train.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+    t0 = time.perf_counter()
+    for i in range(3):
+        model.feed_data(batch)
+        model.optimize_parameters(4 + i)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / 3
+    by_stage: dict[str, float] = {}
+    for e in events:
+        st = stage_of(e.key) if "trr::" in e.key and "bf16" in e.key else "other"
+        by_stage[st] = by_stage.get(st, 0.0) + e.self_device_time_total / 1e3
+    say(f"[bf16 train profile] device time per step {total / 1e3:.3f} ms over "
+        f"{sum(e.count for e in events)} kernel launches; step {step * 1e3:.1f} ms without the "
+        f"profiler (the card busy {total / 1e6 / step:.1%} of it); bf16 #4/#5 stages: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_stage.items(), key=lambda kv: -kv[1])))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
+        say(f"[bf16 train profile]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+            f"{e.key[:90]}")
+
+
+class _PlainBf16Block:
+    """`fused_swin_block_train` with the bf16 plain versions on the card, for
+    the branch check: an autograd Function whose forward and backward are
+    `fused_swin_block_train_bf16_reference` and its backward's."""
+
+    def __init__(self, fb):
+        import torch
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, *rest):
+                params, meta = rest[:15], rest[15:]
+                out, P, att, z = fb.fused_swin_block_train_bf16_reference(x, *params, *meta)
+                ctx.save_for_backward(x, *params, P, att, z)
+                ctx.meta = meta
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                x, *params, P, att, z = ctx.saved_tensors
+                ops = [x] + [t for i, t in enumerate(params[:13]) if i != 6] + params[13:]
+                grads = fb.fused_swin_block_train_bwd_bf16_reference(
+                    *ops, P, att, z, dout, params[6].shape[0], *ctx.meta)
+                return (*grads, None, None, *([None] * len(ctx.meta)))
+
+        self.fn = Fn
+
+    def __call__(self, x, *rest, shift=0):
+        return self.fn.apply(x, *rest, shift)
+
+
+def phase_bf16_branches(seed: int) -> None:
+    """44. One bf16 step of the template's SwinIR-M (batch 8 of 48x48 LR, L1
+    + MS-SSIM) from equal weights, DropPath generators and batch, through
+    the bf16 kernels and through the bf16 plain versions of #4/#5 on the
+    card (everything else the same), and, as the yardstick of bf16 itself,
+    through the fp32 kernels: the losses within BF16_BRANCH_LOSS_TOL of each
+    other (relative). The gradients sum bf16-rounded gradients of random
+    sign over every pixel through 36 blocks, so bf16 moves a first layer's
+    by some 6% of its largest from fp32, and a value at a rounding tie that
+    the two branches round apart moves them as far: over all parameters the
+    kernel branch lies within BF16_BRANCH_RATIO of the plain branch's
+    distance from the fp32 step (L2 over every gradient), and per tensor
+    within BF16_TENSOR_RATIO of the plain branch's largest distance from it
+    (plus BRANCH_GRAD_TOL of the tensor's largest). Then two
+    `deterministic: true` bf16 steps bit for bit."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network_cast, swinir_arch
+    from trainner_redux_tpu_torch.models import build_model
+    from trainner_redux_tpu_torch.models.sr_model import fp32_math
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    net = build_network_cast({"type": "swinir_m", "scale": 4}, torch.bfloat16)
+    net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.rand(TB, 3, FID_LQ, FID_LQ, generator=gen).cuda()
+    gt = torch.rand(TB, 3, 4 * FID_LQ, 4 * FID_LQ, generator=gen).cuda()
+    opt = fidelity_options("swinir_m_x4_bf16_branches", OUT, OUT, seed)
+    losses_fn = build_model(opt, device="cuda")._generator_losses
+    results = {}
+    for branch in ("kernel", "plain", "fp32"):
+        m = copy.deepcopy(net)
+        if branch == "fp32":
+            m.compute_dtype = torch.float32
+        m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
+        saved = swinir_arch.fused_swin_block_train
+        if branch == "plain":
+            swinir_arch.fused_swin_block_train = _PlainBf16Block(fb)
+        try:
+            with fp32_math():
+                reset_counts()
+                loss = losses_fn(m(x), gt)[0]
+                loss.backward()
+                torch.cuda.synchronize()
+                counts = read_counts()
+        finally:
+            swinir_arch.fused_swin_block_train = saved
+        want = {"kernel": BF16_TRAIN_STEP, "plain": {},
+                "fp32": {"fused_swin_block_train": BLOCKS,
+                         "fused_swin_block_train_backward": BLOCKS}}[branch]
+        check_counts(f"bf16 branches ({branch})", counts, want)
+        results[branch] = (loss.item(), {k: p.grad for k, p in m.named_parameters()})
+        say(f"[bf16 branches] {branch}: loss {loss.item():.6f}, launches {counts}")
+    (lk, gk), (lp, gp), (lf, gf) = results["kernel"], results["plain"], results["fp32"]
+    rel = abs(lk - lp) / abs(lp)
+    if not rel <= BF16_BRANCH_LOSS_TOL:
+        fail(f"bf16 branches: loss differs by {rel:.3g} (relative) between the kernels and the "
+             "plain versions")
+    worst = (0.0, "")
+    for k, w in gp.items():
+        top = w.abs().max().item()
+        diff, noise = (gk[k] - w).abs().max().item(), (w - gf[k]).abs().max().item()
+        worst = max(worst, (diff / max(noise, 1e-30), k))
+        if not diff <= BF16_TENSOR_RATIO * noise + BRANCH_GRAD_TOL * top:
+            fail(f"bf16 branches: gradient of {k} differs by {diff:.3g} between the kernels and "
+                 f"the plain versions; bf16 and fp32 differ by {noise:.3g} (max {top:.3g})")
+
+    def dist(a, b):
+        return sum(((a[k] - b[k]).double() ** 2).sum().item() for k in b) ** 0.5
+
+    dk, dp = dist(gk, gf), dist(gp, gf)
+    if not dk <= BF16_BRANCH_RATIO * dp:
+        fail(f"bf16 branches: the kernels' gradients lie {dk:.4g} from the fp32 step's, the "
+             f"plain versions' {dp:.4g} (L2 over every parameter)")
+    say(f"[bf16 branches] losses: kernels {lk:.6f}, plain versions {lp:.6f} (rel {rel:.3g}, tol "
+        f"{BF16_BRANCH_LOSS_TOL}), fp32 {lf:.6f}; gradients' L2 distance from the fp32 step: "
+        f"kernels {dk:.4g}, plain versions {dp:.4g} (ratio {dk / dp:.3f}, tol "
+        f"{BF16_BRANCH_RATIO}); per tensor the kernel-plain difference at most {worst[0]:.3f} "
+        f"of the plain-fp32 one ({worst[1]}; tol {BF16_TENSOR_RATIO})")
+
+    # two deterministic bf16 steps, bit for bit
+    det = fidelity_options("swinir_m_x4_bf16_deterministic", OUT, OUT, seed, deterministic=True)
+    rng = np.random.default_rng(seed)
+    batch = {"lq": rng.integers(0, 256, (TB, FID_LQ, FID_LQ, 3), dtype=np.uint8),
+             "gt": rng.integers(0, 256, (TB, 4 * FID_LQ, 4 * FID_LQ, 3), dtype=np.uint8)}
+    runs = []
+    for _ in range(2):
+        model = build_model(det, device="cuda")
+        reset_counts()
+        for i in range(2):
+            model.feed_data(batch)
+            try:
+                model.optimize_parameters(i + 1)
+            except RuntimeError as e:
+                fail(f"bf16 with deterministic: true: {e}")
+        torch.cuda.synchronize()
+        check_counts("bf16 deterministic", read_counts(),
+                     {k: 2 * v for k, v in BF16_TRAIN_STEP.items()})
+        runs.append((model.log_dict["l_g_total"].item(),
+                     [p.detach().clone() for p in model.net_g.parameters()]))
+        del model
+        torch.cuda.empty_cache()
+    (la, pa), (lb, pb) = runs
+    if la != lb or not all(torch.equal(a, b) for a, b in zip(pa, pb)):
+        fail(f"bf16 with deterministic: true: two runs differ (loss {la!r} against {lb!r})")
+    say(f"[bf16 branches] deterministic: two bf16 steps twice, bit for bit in the loss "
+        f"({la:.6f}) and all {len(pa)} parameters")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3374,6 +3925,11 @@ def main() -> None:
     timed("gan train", phase_gan_train, seed)
     timed("gan train profile", phase_gan_profile, seed)
     timed("gan deterministic", phase_gan_deterministic, seed)
+    kernels.update(timed("bf16 kernels", phase_bf16_kernels))
+    bf16_counts = timed("bf16 train", phase_bf16_train, seed)
+    launches.update({k: bf16_counts[k] for k in BF16_TRAIN_STEP})
+    timed("bf16 train profile", phase_bf16_profile, seed)
+    timed("bf16 branches", phase_bf16_branches, seed)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

@@ -1,6 +1,7 @@
 """The training phases of `chip_smoke.py` alone, on one CUDA card: 30 steps
 each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, and
-SwinIR-M GAN where the tree's `chip_smoke.py` has it, each printing its
+SwinIR-M GAN and SwinIR-M in bf16 (swinir_m_fidelity.yml) where the tree's
+`chip_smoke.py` has them, each printing its
 median ms per step with the quartiles; after each, the device time of one
 of its steps (`torch.profiler`) and the card's busy share.
 
@@ -51,4 +52,7 @@ cs.phase_train_profile(seed, "srformerv2", "srformerv2 train profile",
 if hasattr(cs, "phase_gan_train"):  # trees from the GAN slice on
     cs.phase_gan_train(seed)
     cs.phase_gan_profile(seed)
+if hasattr(cs, "phase_bf16_train"):  # trees from the bf16 slice on
+    cs.phase_bf16_train(seed)
+    cs.phase_bf16_profile(seed)
 print("steps ok", flush=True)

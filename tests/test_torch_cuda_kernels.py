@@ -21,6 +21,13 @@ SRFormerV2's Swin blocks (C=240, 8 heads of 30, 12x12 windows, hidden 480)
 at batch 2 and a 48x72 map: #1 on the tensor-core stages, #6, and #2/#7.
 The training form of the attention half (#9 and its saved-P backward #10)
 at both: 8x8 windows at SwinIR-M's widths, 12x12 at SRFormerV2's.
+The bf16 forms of #4 and #5 (bf16 x, dout, P, att, z; fp32 parameters)
+against their bf16 plain versions at SwinIR-M's and SwinIR-S's widths:
+outputs within BF16_TOL (1e-2, some 2.5 bf16 steps) of each tensor's
+largest magnitude with at most one element in a thousand beyond one bf16
+step of it (a kernel and its plain version sum in other orders, and a sum
+that lies at a rounding tie rounds one way in one and the other way in the
+other), gradients within 1e-2 of each tensor's largest.
 """
 
 import numpy as np
@@ -154,7 +161,10 @@ def test_shared_memory_plans_match_the_sources(cuda):
             assert lib_wa.trr_window_mhsa_bwd_smem_bytes(c, nh, ws) == (
                 wa.window_mhsa_bwd_smem_bytes(c, nh, ws))
         assert lib_tr.trr_rows_smem_bytes(c) == fb.rows_smem_bytes(c)
-        assert lib_tr.trr_bwd_attn_smem_bytes(c, nh) == fb.bwd_attn_smem_bytes(c, nh)
+        if fb.swin_block_train_fits(16, 16, 8, c, nh, hidden):  # the bf16 forms' plans fit too
+            assert max(lib_tr.trr_linear_bf16_smem_bytes(n) for n in (c, 3 * c, hidden)) <= (
+                wa.SMEM_LIMIT)
+            assert lib_tr.trr_rows_bf16_smem_bytes(c) <= wa.SMEM_LIMIT
         for ws in (8, 12):  # the saved-P backward (#10)
             assert lib_st.trr_attn_train_bwd_smem_bytes(c, nh, ws) == (
                 fb.attn_train_bwd_smem_bytes(c, nh, ws))
@@ -162,6 +172,8 @@ def test_shared_memory_plans_match_the_sources(cuda):
         assert lib_fb.trr_ln_mlp_smem_bytes(c) == fb.ln_mlp_smem_bytes(c)
     assert lib_tr.trr_hidden_smem_bytes() == fb.mlp_hidden_smem_bytes()
     assert lib_tr.trr_atb_smem_bytes() == fb.weight_grad_smem_bytes()
+    assert max(lib_tr.trr_hidden_bf16_smem_bytes(), lib_tr.trr_atb_bf16_smem_bytes()) <= (
+        wa.SMEM_LIMIT)
 
 
 @pytest.mark.cuda
@@ -272,6 +284,134 @@ def test_swin_block_train_kernels(cuda, kinds, shift, shape):
     for i, (g, w) in enumerate(zip(grads, plain)):
         assert g.shape == w.shape, i
         assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), i
+
+
+BF16_TOL = 1e-2  # of each tensor's largest magnitude
+BF16_STEP = 2.0**-8  # one bf16 step of it ...
+BF16_FAR_SHARE = 1e-3  # ... which at most this share of the elements exceed
+
+
+def _bf16_case(p):
+    """The bf16 training block's operands: x in bf16, the parameters fp32."""
+    ops = [p[k] for k in TRAIN_NAMES]
+    ops[0] = ops[0].bfloat16()
+    return ops
+
+
+def _assert_bf16_close(name, got, want):
+    assert got.dtype == want.dtype, name
+    g, w = got.float(), want.float()
+    top, err = w.abs().max().item(), (g - w).abs()
+    assert err.max().item() <= BF16_TOL * top, f"{name}: {err.max().item():.3g} of {top:.3g}"
+    far = (err > BF16_STEP * top).float().mean().item()
+    assert far <= BF16_FAR_SHARE, f"{name}: {far:.3g} of the elements beyond one bf16 step"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("kinds", "shift", "shape"), [
+    (1, 0, (B, H, W)), (4, WS // 2, (B, H, W)), (4, WS // 2, (1, 24, 40)),
+])
+def test_swin_block_train_bf16_kernels(cuda, kinds, shift, shape):
+    """#4's bf16 form (out, P, att, z in bf16) and #5's (dx in bf16, the 13
+    parameter gradients in fp32) against their bf16 plain versions; #5 from
+    the plain forward's P, att and z, each counted once."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, kinds, shape=shape)
+    ops = _bf16_case(p)
+    meta = (NH, HD, WS, 1e-5, shift)
+    n0 = (fb.fused_swin_block_train_bf16.launches, fb.fused_swin_block_train.launches)
+    got = fb._swin_block_train_fwd_cuda(*ops, p["s"], p["s2"], *meta)
+    want = fb.fused_swin_block_train_bf16_reference(*ops, p["s"], p["s2"], *meta)
+    torch.cuda.synchronize()
+    assert (fb.fused_swin_block_train_bf16.launches, fb.fused_swin_block_train.launches) == (
+        n0[0] + 1, n0[1])
+    for name, g, w in zip(("out", "P", "att", "z"), got, want):
+        _assert_bf16_close(name, g, w)
+    dout = torch.randn(*shape, C, generator=torch.Generator().manual_seed(7)).to(cuda).bfloat16()
+    saved = [t for k, t in zip(TRAIN_NAMES, ops) if k != "bias"]
+    n1 = (fb.fused_swin_block_train_backward_bf16.launches,
+          fb.fused_swin_block_train_backward.launches)
+    grads = fb.fused_swin_block_train_backward(*saved, p["s"], p["s2"], *want[1:], dout, kinds,
+                                               *meta)
+    torch.cuda.synchronize()
+    assert (fb.fused_swin_block_train_backward_bf16.launches,
+            fb.fused_swin_block_train_backward.launches) == (n1[0] + 1, n1[1])
+    plain = fb.fused_swin_block_train_bwd_bf16_reference(*saved, p["s"], p["s2"], *want[1:],
+                                                         dout, kinds, *meta)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        assert (g.float() - w.float()).abs().max().item() <= BF16_TOL * w.float().abs().max(), i
+
+
+@pytest.mark.cuda
+def test_swin_block_train_bf16_at_swinir_s(cuda):
+    """The bf16 forms at SwinIR-S's block (C 60, 6 heads of 10, hidden 120:
+    64-column tiles, heads padded from 10 to 32 channels)."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    c, nh, hidden, shift = 60, 6, 120, WS // 2
+    gen = torch.Generator().manual_seed(60)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    masks = torch.from_numpy(shift_mask_kinds(WS, shift)).to(cuda)
+    ops = [randn(2, 32, 48, c).bfloat16(), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+           randn(c, 3 * c, scale=c**-0.5), randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5),
+           randn(c, scale=0.1), (randn(nh, N, N, scale=0.5)[None] + masks[:, None]).contiguous(),
+           1.0 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, hidden, scale=c**-0.5),
+           randn(hidden, scale=0.1), randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1)]
+    s1, s2 = torch.tensor([1.0, 0.8], device=cuda), torch.tensor([0.0, 1 / 0.9], device=cuda)
+    meta = (nh, c // nh, WS, 1e-5, shift)
+    got = fb.fused_swin_block_train_bf16(*ops, s1, s2, *meta)
+    want = fb.fused_swin_block_train_bf16_reference(*ops, s1, s2, *meta)
+    for name, g, w in zip(("out", "P", "att", "z"), got, want):
+        _assert_bf16_close(name, g, w)
+    dout = randn(2, 32, 48, c).bfloat16()
+    saved = [t for i, t in enumerate(ops) if i != 7]
+    grads = fb.fused_swin_block_train_backward_bf16(*saved, s1, s2, *want[1:], dout, 4, *meta)
+    plain = fb.fused_swin_block_train_bwd_bf16_reference(*saved, s1, s2, *want[1:], dout, 4,
+                                                         *meta)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        assert (g.float() - w.float()).abs().max().item() <= BF16_TOL * w.float().abs().max(), i
+
+
+@pytest.mark.cuda
+def test_swin_block_train_bf16_is_deterministic(cuda):
+    """The bf16 forms use no atomics: two forwards and backwards, the same
+    bits."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _inputs(cuda, 4)
+    ops = [t.clone().requires_grad_() for t in _bf16_case(p)]
+    runs = []
+    for _ in range(2):
+        out = fb.fused_swin_block_train(*ops, p["s"], p["s2"], NH, HD, WS, 1e-5, shift=WS // 2)
+        runs.append((out, *torch.autograd.grad(out.float().square().sum(), ops)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fp32_kernels_refuse_bf16(cuda):
+    """Only the whole training block has bf16 forms: a bf16 tensor that
+    reaches #1, #2, #3 or #9 raises, and is never cast."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    p = _inputs(cuda, 1)
+    x = p["x"].bfloat16()
+    attn = [p[k] for k in ("g", "be", "wq", "bq", "wp", "bp", "bias", "s")]
+    with pytest.raises(TypeError, match="float32"), torch.no_grad():
+        fb.fused_attn_block(x, *attn, NH, HD, WS)
+    with pytest.raises(TypeError, match="float32"), torch.no_grad():
+        fb.fused_ln_mlp(x, *[p[k] for k in ("g", "be", "w1", "b1", "w2", "b2", "s")], WS)
+    with pytest.raises(TypeError, match="float32"), torch.no_grad():
+        wa.fused_window_mhsa(p["qkv"].bfloat16(), p["bias"], NH, HD, WS)
+    with pytest.raises(TypeError, match="float32"):
+        fb._attn_block_train_fwd_cuda(x, *attn, NH, HD, WS, 1e-5, 0)
 
 
 @pytest.mark.cuda

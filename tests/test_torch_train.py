@@ -369,11 +369,21 @@ def test_train_run_raises_without_card(dataset, tmp_path, monkeypatch):
     assert not (tmp_path / "experiments").exists()
 
 
+# a family whose bf16 kernels are not ported (only SwinIR's are)
+HAT_NET = {"type": "hat", "embed_dim": 24, "depths": [2], "num_heads": [2], "window_size": 8,
+           "compress_ratio": 3, "squeeze_factor": 6, "overlap_ratio": 0.5}
+
+
 @pytest.mark.parametrize(("extra", "match"), [
-    ({"compute_dtype": "bfloat16"}, "bf16"),
-    ({"use_amp": True}, "bf16"),
+    ({"compute_dtype": "bfloat16", "network_g": HAT_NET}, "bf16 training .* of HAT"),
+    ({"use_amp": True, "network_g": HAT_NET}, "bf16 training .* of HAT"),
     ({"steps_per_dispatch": 2}, "steps_per_dispatch"),
     ({"network_d": {"type": "unetdiscriminatorsn"}}, "network_d"),
+    ({"compute_dtype": "bfloat16", "network_g": {"type": "swinir_l"}},
+     "C 240.* unfused branch"),
+    ({"compute_dtype": "bfloat16", "network_d": {"type": "dunet"}}, "bf16 .*network_d"),
+    ({"compute_dtype": "bfloat16", "high_order_degradation": True, "queue_size": 0},
+     "bf16 .*OTF"),
 ])
 def test_unported_training_options_raise(dataset, tmp_path, extra, match):
     from trainner_redux_tpu_torch.models import build_model

@@ -19,7 +19,7 @@ from trainner_redux_tpu_torch.archs import swin2sr_arch  # noqa: F401 (registers
 from trainner_redux_tpu_torch.archs import swinir_arch  # noqa: F401 (registers swinir_*)
 from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY, SPANDREL_REGISTRY
 
-__all__ = ["build_network", "ARCH_REGISTRY", "SPANDREL_REGISTRY"]
+__all__ = ["build_network", "build_network_cast", "ARCH_REGISTRY", "SPANDREL_REGISTRY"]
 
 
 def build_network(opt: dict[str, Any]):
@@ -35,3 +35,13 @@ def build_network(opt: dict[str, Any]):
             f"Known: {sorted(set(SPANDREL_REGISTRY.keys()) | set(ARCH_REGISTRY.keys()))}"
         )
     return factory(**opt)
+
+
+def build_network_cast(opt: dict[str, Any], dtype):
+    """build_network with the model's compute dtype (torch.bfloat16 or
+    torch.float32) passed as `dtype`, as the JAX package's
+    `build_network_cast` passes it to every flax arch (parameters stay
+    fp32); an options dict that names its own dtype keeps it. SwinIR takes
+    it as its training compute dtype; the other ported archs accept and
+    drop it, and the model refuses bf16 training for them."""
+    return build_network({"dtype": dtype, **opt})

@@ -27,6 +27,18 @@ DropPath draws its masks from the `generator` attribute of each SwinBlock,
 which the model sets (`set_dropout_generator`); torch's global generator is
 never read.
 
+Compute dtype (`compute_dtype`, as the JAX package's `dtype` field and
+`build_network_cast` set it): the parameters stay fp32, and a training
+forward in bf16 computes as the flax SwinIR does with `dtype=bfloat16`: the
+input cast to bf16, every convolution on bf16 operands with its bias added
+in bf16, every LayerNorm from fp32 statistics rounded to bf16, and each
+SwinBlock on `fused_swin_block_train`'s bf16 forms; the output back to fp32.
+The parameters are cast at use (`w.to(bf16)`), so their gradients arrive in
+fp32 through the casts; no autocast, whose op lists round elsewhere. An eval
+forward (validation, `test`, the EMA network) computes in fp32 from the same
+parameters: the JAX package's fp32 twin. A bf16 SwinBlock that would leave
+the fused training branch raises (its bf16 forms are not ported).
+
 Divergence from upstream SwinIR kept from the JAX package: `patch_embed.norm`
 uses eps 1e-6 (flax's LayerNorm default); every other LayerNorm uses 1e-5.
 """
@@ -204,6 +216,10 @@ class SwinBlock(nn.Module):
             # a block too large for the training kernels trains on the
             # unfused branch, which computes the same function
             fused = swin_block_train_fits(h, w, ws, c, self.num_heads, hidden)
+        if x.dtype == torch.bfloat16 and not (fused and self.training):
+            raise NotImplementedError(
+                f"SwinBlock (C {c}, {self.num_heads} heads, window {ws}) in bf16 needs the "
+                "fused training branch; its other branches' bf16 forms (#3/#8) are not ported")
         if fused:
             # the kernels take (in, out) weights; the attention kernels read
             # the rolled windows and write their outputs unrolled
@@ -271,10 +287,37 @@ class ResidualGroup(nn.Module):
         return x
 
 
+def _apply(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """m(x), in x's dtype: for bf16 x, a convolution (alone or in a
+    Sequential) takes its weight cast to bf16 and adds its bias as a bf16
+    operation, as flax's Conv with dtype=bfloat16 does (the sum rounded to
+    bf16, then the bias added and rounded); LeakyReLU and PixelShuffle run
+    on x as it is."""
+    if x.dtype == torch.float32:
+        return m(x)
+    if isinstance(m, nn.Sequential):
+        for sub in m:
+            x = _apply(sub, x)
+        return x
+    if isinstance(m, nn.Conv2d):
+        y = F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding, m.dilation, m.groups)
+        return y + m.bias.to(x.dtype)[:, None, None] if m.bias is not None else y
+    return m(x)
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """norm(x) in x's dtype: for bf16 x, flax's LayerNorm with
+    dtype=bfloat16 (fp32 statistics and affine, the result rounded)."""
+    if x.dtype == torch.float32:
+        return norm(x)
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(x.dtype)
+
+
 def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW conv module to NHWC x, returning contiguous NHWC.
     The permuted view is NCHW in channels-last memory, which cuDNN keeps."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+    return _apply(conv, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
 
 
 def _resi_conv(dim: int, resi_connection: str) -> nn.Module:
@@ -322,8 +365,11 @@ class SwinIR(nn.Module):
                  qk_scale: float | None = None, drop_path_rate: float = 0.1,
                  patch_norm: bool = True, img_range: float = 1.0,
                  upsampler: str = "pixelshuffle", resi_connection: str = "1conv",
-                 start_unshuffle: int = 1) -> None:
+                 start_unshuffle: int = 1, compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
         self.upscale = upscale
         self.in_chans = in_chans
         self.window_size = window_size
@@ -381,6 +427,24 @@ class SwinIR(nn.Module):
         else:  # '' — restoration (scale 1)
             self.conv_last = Conv2d(embed_dim, out_ch, 3)
 
+    def bf16_refusal(self) -> str | None:
+        """Why this network cannot train in bf16 on the port, or None: a
+        SwinBlock that would leave the fused training branch (SwinIR-L's C
+        240, a qk_scale, TRAINNER_FUSED_BLOCK=0 or TRAINNER_FUSED_ATTN=0)
+        needs the bf16 forms of #3/#8, which are not ported. A window-sized
+        map stands for every map: the SwinIR forward pads to the window."""
+        for m in self.modules():
+            if not isinstance(m, SwinBlock):
+                continue
+            ws, c, nh = m.window_size, m.dim, m.num_heads
+            hidden = m.mlp.fc1.out_features
+            if not (m.qk_scale is None and fused_block_supported(ws, ws, ws, c, nh, hidden)
+                    and swin_block_train_fits(ws, ws, ws, c, nh, hidden)):
+                return (f"a SwinBlock of C {c}, {nh} heads, window {ws}, hidden {hidden} takes "
+                        "the unfused branch in training, whose bf16 kernels (#3/#8) are not "
+                        "ported")
+        return None
+
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """The generator every SwinBlock draws its DropPath masks from."""
         for m in self.modules():
@@ -391,14 +455,17 @@ class SwinIR(nn.Module):
         return init_transformer_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale)."""
+        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale), fp32; in
+        training computed in `compute_dtype`, at eval in fp32."""
         in_h, in_w = x.shape[2], x.shape[3]
+        x = x.to(self.compute_dtype if self.training else torch.float32)
         if self.start_unshuffle > 1:
             x = F.pixel_unshuffle(x, self.start_unshuffle)
+        mean = self.mean.to(x.dtype)
         # mean-shift and scale 3-channel input, as upstream SwinIR
         three = x.shape[1] == 3
         if three:
-            x = (x - self.mean) * self.img_range
+            x = (x - mean) * self.img_range
 
         # pad to a window multiple (reflect, like check_image_size)
         h, w = x.shape[2], x.shape[3]
@@ -407,30 +474,31 @@ class SwinIR(nn.Module):
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
 
-        feat = self.conv_first(x)
+        feat = _apply(self.conv_first, x)
         body = feat.permute(0, 2, 3, 1).contiguous()  # NHWC tokens
         if self.patch_norm:
-            body = self.patch_embed.norm(body)
+            body = _layer_norm(self.patch_embed.norm, body)
         for layer in self.layers:
             body = layer(body)
-        body = self.norm(body)
-        feat = feat + self.conv_after_body(body.permute(0, 3, 1, 2))
+        body = _layer_norm(self.norm, body)
+        feat = feat + _apply(self.conv_after_body, body.permute(0, 3, 1, 2))
 
         if self.upsampler == "pixelshuffle":
-            out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))
+            out = _apply(self.conv_last, _apply(self.upsample,
+                                                _apply(self.conv_before_upsample, feat)))
         elif self.upsampler == "pixelshuffledirect":
-            out = self.upsample(feat)
+            out = _apply(self.upsample, feat)
         elif self.upsampler == "nearest+conv":
-            feat = self.conv_before_upsample(feat)
+            feat = _apply(self.conv_before_upsample, feat)
             for stage in range(1, self.num_up + 1):
                 feat = F.interpolate(feat, scale_factor=2, mode="nearest")
-                feat = F.leaky_relu(getattr(self, f"conv_up{stage}")(feat), 0.2)
-            out = self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))
+                feat = F.leaky_relu(_apply(getattr(self, f"conv_up{stage}"), feat), 0.2)
+            out = _apply(self.conv_last, F.leaky_relu(_apply(self.conv_hr, feat), 0.2))
         else:
-            out = self.conv_last(feat)
+            out = _apply(self.conv_last, feat)
 
         if out.shape[1] == 3:
-            out = out / self.img_range + self.mean
+            out = out / self.img_range + mean
         return out[:, :, : in_h * self.upscale, : in_w * self.upscale].float()
 
 
@@ -462,8 +530,11 @@ def _swinir_factory(**defaults):
         cfg = dict(defaults)
         # accepted-but-unused torch knobs
         for k in ("img_size", "patch_size", "ape", "use_checkpoint", "drop_rate",
-                  "attn_drop_rate", "in_chans", "dtype"):
+                  "attn_drop_rate", "in_chans"):
             kwargs.pop(k, None)
+        # the JAX package's compute dtype (build_network_cast)
+        dtype = kwargs.pop("dtype", None) or torch.float32
+        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         cfg.update(kwargs)
         cfg["depths"] = tuple(cfg["depths"])
         cfg["num_heads"] = tuple(cfg["num_heads"])

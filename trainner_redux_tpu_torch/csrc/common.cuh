@@ -1,19 +1,12 @@
-// Shared device code of the port's Swin block kernels: the block-wide fp32
-// GEMMs, the window indexing and the bias-kind sums. Every
-// kernel here runs 256 threads per block on tiles of 64 tokens (one 8x8
-// window, or 64 consecutive tokens).
+// Shared device code of the port's Swin block kernels: warp reductions, the
+// exact gelu and its derivative, the window indexing and the bias-kind
+// sums. Every kernel here runs 256 threads per block.
 //
 // Layout contract (that of the JAX package's Pallas kernels): activations
 // are NHWC and contiguous, weights are (in, out) row-major, and the bias
 // table is (K, nh, 64, 64) fp32. K = 1 (one kind, unshifted) or 4
 // (shifted: interior, right edge, bottom edge, corner); the kind of a
 // window is 2 * is_bottom_row + is_rightmost_column.
-//
-// Tiles in shared memory are kept TRANSPOSED (feature-major, "At[k][r]",
-// row stride kTLd) wherever they are the left operand of a GEMM, so that a
-// thread's four rows are one 16-byte load; the right operand's columns of a
-// thread are contiguous too. The thread grid of every GEMM is 16 row groups
-// (4 rows each) by 16 column lanes (CT columns each).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,16 +16,7 @@ namespace trr {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;            // tokens of a tile: one 8x8 window
-constexpr int kTLd = kTile + 4;      // row stride of a transposed tile (16-byte rows)
-constexpr int kLanes = 16;           // column lanes (and row groups) of a GEMM
-constexpr int kKChunk = 32;          // rows of B staged in shared memory at a time
-constexpr int kWeightCT = 6;         // columns per thread of the weight GEMMs
-constexpr int kWeightNC = kLanes * kWeightCT;  // 96 columns per chunk
-constexpr int kVLd = 32;             // row stride of v: head_dim <= 32
-
-// Floats of the staging buffers of one weight GEMM (double-buffered).
-constexpr int kStageFloats = 2 * kKChunk * kWeightNC;
+constexpr int kTile = 64;            // tokens of an 8x8 window
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -44,10 +28,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float gelu_erf(float t) {
@@ -64,89 +44,6 @@ template <class Kernel>
 cudaError_t set_smem(Kernel kernel, int floats) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               floats * (int)sizeof(float));
-}
-
-// C (64 x N) = A (64 x K) B[:, bcol(0..N-1)]:
-//   At  transposed A in shared memory, At[k * kTLd + r];
-//   B   (K x ldb) row-major in device memory, read through L2 and staged
-//       kKChunk rows at a time in Bs (kStageFloats), double-buffered: the
-//       next chunk's loads are in flight while this one is multiplied.
-// out(r0, c, v) receives rows r0..r0+3 of column c (v[0..3]) for every
-// c < N; rows are always the full 64.
-template <class BCol, class Out>
-__device__ __forceinline__ void gemm_weights(const float* At, int K,
-                                             const float* __restrict__ B, int ldb, int N,
-                                             BCol bcol, float* Bs, Out out) {
-  constexpr int CT = kWeightCT, NC = kWeightNC;
-  constexpr int PER = kKChunk * NC / kThreads;  // staged floats per thread
-  static_assert(kKChunk * NC % kThreads == 0, "staging must split evenly");
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  int buf = 0;
-  __syncthreads();  // Bs and At are free and written
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    int gcol[PER], krow[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      krow[i] = e / NC;
-      gcol[i] = bcol(min(n0 + e % NC, N - 1));
-    }
-    float reg[PER];
-    auto fetch = [&](int k0) {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int k = k0 + krow[i];
-        reg[i] = k < K ? __ldg(B + (size_t)k * ldb + gcol[i]) : 0.f;
-      }
-    };
-    float acc[4][CT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-    fetch(0);
-    for (int k0 = 0; k0 < K; k0 += kKChunk) {
-      float* bs = Bs + buf * (kKChunk * NC);
-#pragma unroll
-      for (int i = 0; i < PER; ++i) bs[threadIdx.x + i * kThreads] = reg[i];
-      __syncthreads();
-      if (k0 + kKChunk < K) fetch(k0 + kKChunk);
-      const float* a_col = At + (size_t)k0 * kTLd + rg * 4;
-      const float* b_row = bs + cl * CT;
-      auto step = [&](int kc) {
-        const float4 a = ld4(a_col + kc * kTLd);
-        float b[CT];
-#pragma unroll
-        for (int j = 0; j < CT; j += 2) {
-          const float2 t = *reinterpret_cast<const float2*>(b_row + kc * NC + j);
-          b[j] = t.x;
-          b[j + 1] = t.y;
-        }
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          acc[0][j] = fmaf(a.x, b[j], acc[0][j]);
-          acc[1][j] = fmaf(a.y, b[j], acc[1][j]);
-          acc[2][j] = fmaf(a.z, b[j], acc[2][j]);
-          acc[3][j] = fmaf(a.w, b[j], acc[3][j]);
-        }
-      };
-      if (K - k0 >= kKChunk) {  // a full chunk: a fixed trip count the compiler pipelines
-#pragma unroll
-        for (int kc = 0; kc < kKChunk; ++kc) step(kc);
-      } else {
-        for (int kc = 0; kc < K - k0; ++kc) step(kc);
-      }
-      buf ^= 1;
-    }
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int c = n0 + cl * CT + j;
-      if (c < N) {
-        const float v[4] = {acc[0][j], acc[1][j], acc[2][j], acc[3][j]};
-        out(rg * 4, c, v);
-      }
-    }
-  }
 }
 
 // Index (into the B*H*W tokens) of token r of the 8x8 window (b, wi, wj)

@@ -1,5 +1,5 @@
 // The whole pre-LN Swin block for training, forward and saved-P backward,
-// fp32, for sm_90a.
+// in fp32 and in bf16, for sm_90a.
 //
 // Replaces the JAX package's Pallas TPU kernels of fused_swin_block_train in
 // trainner_redux_tpu/ops/pallas/fused_block.py:
@@ -19,9 +19,10 @@
 // The backwards. What bounds them on the card: their products, 47.6 GFLOP
 // for #5 at SwinIR-M's training block (B 8, 64x64, C 180, hidden 360: T =
 // 32,768 tokens) against some 300 MB of activations and saved tensors, and
-// 21.2 GFLOP for #7 at C 180, 47.8 at C 240 / hidden 480. Every product but
-// the per-window attention's runs on the tensor cores in 3xTF32 through
-// the wgmma engine of tc_gemm.cuh (bound: 3 x operations / 495 TFLOP/s);
+// 21.2 GFLOP for #7 at C 180, 47.8 at C 240 / hidden 480. Every per-token
+// product runs on the tensor cores in 3xTF32 through the wgmma engine of
+// tc_gemm.cuh (bound: 3 x operations / 495 TFLOP/s), the window attention
+// on tc_attn.cuh's mma.sync stages;
 // what the design does about the rest of the time: operands stream by
 // cp.async through a 4-stage mbarrier ring while the previous chunk's
 // wgmmas run; each block holds 128 tokens, so a weight chunk read from L2
@@ -47,9 +48,12 @@
 //      stage: a (128, 16) token chunk and a raw (BN, 16) chunk of w1 as it
 //      lies (K-major); 176,192 B at C 180, 221,248 B at C 240.
 //   4. rows_kernel<BN, kRowsStore>: datt = dzp wp^T (#5 only).
-//   5. block_bwd_attn_kernel, per 8x8 window, one head at a time (not
-//      redesigned): q, k, v from y, then dv, dP, dS, dq, dk from the saved P;
-//      dq/dk/dv to dqkv (T, 3C), dS per window for the bias-kind reduction.
+//   5. the window attention as #10 runs it at 8x8 (#5 only): linear_kernel
+//      recomputes qkv = y wq + bq (the forward's own product, bit for bit),
+//      then the saved-P form of tc_attn.cuh's attn_rows_bwd_tc_kernel, per
+//      (window, head): dv, dP, dS, dq, dk from the saved P on mma.sync in
+//      3xTF32; dq | dk | dv to dqkv (T, 3C), dS per window for the
+//      bias-kind reduction.
 //   6. rows_kernel<BN, kRowsLn>: dy = dqkv wq^T and the LN1 backward -> dx (#5).
 //   7. atb_kernel: the weight gradients A^T B over the tokens (dw2, dw1,
 //      and for #5 dwp, dwq) with the column sums of B for the biases, per
@@ -61,8 +65,23 @@
 //   8. the LN partials through sum_rows_kernel, dbias through the two-pass
 //      window-group reduction of common.cuh.
 // No atomics anywhere: two runs give the same gradients bit for bit.
+//
+// The bf16 forms (trr_swin_block_fwd_bf16, trr_swin_block_bwd_bf16): the JAX
+// kernels compute in x.dtype, so a bf16 training step runs the same block
+// on bf16 activations, saving P, att and z in bf16, with the weights cast
+// to bf16 and the LayerNorm parameters, biases, bias table and DropPath
+// scales in fp32. The same launches on bf16 stages: tc_rows_bf16.cuh's
+// per-token kernels on the bf16 wgmma engine (tc_gemm_bf16.cuh: m64nNk16,
+// fp32 sums, no hi/lo split), the window attention on tc_attn.cuh's bf16
+// forms (mma.sync m16n8k16), the weight gradients on atb_bf16_kernel below;
+// every statistic, softmax, gelu, weight gradient and bias or LayerNorm
+// gradient in fp32, the activations rounded to bf16 where the JAX kernel
+// rounds them. Their bound: the bf16 tensor cores (989 TFLOP/s) take #5's
+// 47.6 GFLOP in 0.048 ms and #4's 18.5 in 0.019, below what their bytes
+// take at 3.35 TB/s, so bytes bound both.
 #include "block_fwd.cuh"
 #include "tc_rows.cuh"
+#include "tc_rows_bf16.cuh"
 
 namespace trr {
 
@@ -76,10 +95,6 @@ constexpr int kAtbBlocks = 264;      // blocks a weight gradient aims at (two wa
 __host__ __device__ inline int atb_smem_bytes() {
   return split_floats(kTcRows, kAtbK) * (int)sizeof(float) +
          Ring<kAtbStages>::bytes(2 * kAtbK * kAtbLd);
-}
-__host__ __device__ inline int bwd_attn_smem_floats(int C, int nh) {
-  const int hd = C / nh;
-  return C * kTLd + 4 * kTile * kVLd + 2 * hd * kTLd + 2 * kTile * kTLd + kStageFloats;
 }
 
 // Tokens of one weight-gradient partial sum for A (T, M), B (T, N): about
@@ -194,167 +209,116 @@ inline cudaError_t weight_grad(const float* A, const float* B, long long T, int 
   return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
 }
 
-// One block per 8x8 window of the map rolled by (-shift, -shift), as in the
-// forward; the heads one after another. y is LN1(x) (T, C) in x's frame,
-// P the saved softmax (B, H/8, W/8, nh, 64, 64), datt (T, C). Writes every
-// token's dq | dk | dv into dqkv (T, 3C) and dS into a buffer shaped as P.
-__global__ void __launch_bounds__(kThreads, 1)
-    block_bwd_attn_kernel(const float* __restrict__ y, const float* __restrict__ wq,
-                          const float* __restrict__ bq, const float* __restrict__ P,
-                          const float* __restrict__ datt, float* __restrict__ dqkv,
-                          float* __restrict__ dS, int H, int W, int C, int nh, int shift,
-                          float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / 8, nwh = H / 8;
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww, b = blockIdx.y;
-  const int rg = threadIdx.x / kLanes, cl = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* yT = smem;                  // (C, 64) LN1 output of the window
-  float* q = yT + C * kTLd;          // (64, 32) row-major, this head
-  float* k = q + kTile * kVLd;       // (64, 32)
-  float* v = k + kTile * kVLd;       // (64, 32)
-  float* dA = v + kTile * kVLd;      // (64, 32) this head's columns of datt
-  float* vT = dA + kTile * kVLd;     // (hd, 64)
-  float* dAT = vT + hd * kTLd;       // (hd, 64)
-  float* Ps = dAT + hd * kTLd;       // (64, 64) P of this head
-  float* G = Ps + kTile * kTLd;      // (64, 64) dP, then dS
-  float* Bs = G + kTile * kTLd;      // weight stage
+// atb_bf16_kernel: the core-tile buffers of a (128, 32) chunk, then a ring
+// of two (kAtbK, 128 + 8) bf16 token-major chunks a stage and the chunk's
+// (kAtbK, 128 + 4) rows of the bias sums' source (fp32, or bf16 in the
+// first half of each row).
+constexpr int kAtbLdBf = kTcRows + 8;
+constexpr int kAtbSumLd = kTcRows + 4;
+__host__ __device__ inline int atb_bf16_smem_bytes() {
+  return core_words(kTcRows, kAtbK) * 4 +
+         Ring<kAtbStages>::bytes(kAtbK * kAtbLdBf + kAtbK * kAtbSumLd);
+}
 
-  auto token = [&](int r) { return window_token(b, wi, wj, r, H, W, shift); };
-  const size_t window = (size_t)b * nwh * nww + blockIdx.x;
-  for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    yT[c * kTLd + r] = __ldg(y + token(r) * C + c);
+// atb_kernel's bf16 form: part[z] = A^T B over the tokens [z*chunk,
+// (z+1)*chunk) in fp32 from A (T, M) and B (T, N) in bf16 (M and N
+// multiples of 4), then the column sums of the fp32 values B was rounded
+// from, as the JAX kernel sums its bias gradients: of sf (T, N) fp32, or of
+// sb (T, N) bf16, each row times ss[t / hw] where ss is not null (times 1,
+// exactly, where it is null). The blocks of the first row of output tiles
+// stage the source's rows with the chunk's operands and sum them while the
+// chunk's wgmmas run.
+__global__ void __launch_bounds__(kThreads, 1)
+    atb_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, long long T, int M,
+                    int N, long long chunk, const float* __restrict__ sf,
+                    const bf16* __restrict__ sb, const float* __restrict__ ss, long long hw,
+                    float* __restrict__ part) {
+  constexpr int BN = kTcRows;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* core = reinterpret_cast<uint32_t*>(smem);
+  Ring<kAtbStages> ring;
+  ring.init(smem + core_words(BN, kAtbK), kAtbK * kAtbLdBf + kAtbK * kAtbSumLd);
+  const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcRows;
+  const long long tb = (long long)blockIdx.z * chunk;
+  const long long te = min(T, tb + chunk);
+  const int n = n0 + (int)threadIdx.x;
+  const bool stage_sums = blockIdx.x == 0;
+  const bool sums = stage_sums && threadIdx.x < kTcRows && n < N;
+  float colsum = 0.f;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  AFragBf<kAtbK> af[2];
+  ring.run(
+      (int)((te - tb + kAtbK - 1) / kAtbK),
+      [&](int j, float* stage) {
+        bf16* st = reinterpret_cast<bf16*>(stage);
+        load_tile_bf16<kAtbK, kTcRows>(st, kAtbLdBf, A, M, tb + j * kAtbK, te, m0, M);
+        load_tile_bf16<kAtbK, kTcRows>(st + kAtbK * kAtbLdBf, kAtbLdBf, B, N, tb + j * kAtbK, te,
+                                       n0, N);
+        if (stage_sums) {
+          float* side = stage + kAtbK * kAtbLdBf;
+          if (sf != nullptr)
+            load_tile<kAtbK, kTcRows>(side, kAtbSumLd, sf, N, tb + j * kAtbK, te, n0, N);
+          else
+            load_tile_bf16<kAtbK, kTcRows>(reinterpret_cast<bf16*>(side), 2 * kAtbSumLd, sb, N,
+                                           tb + j * kAtbK, te, n0, N);
+        }
+      },
+      [&](int j, const float* stage) {
+        const bf16* st = reinterpret_cast<const bf16*>(stage);
+        wgmma_bf16_chunk<BN, kAtbK, false, false>(acc, st, kAtbLdBf, 16 * (threadIdx.x / 32),
+                                                  st + kAtbK * kAtbLdBf, kAtbLdBf, core, j, af);
+        if (sums) {  // the staged rows of the source, in token order
+          const float* side = stage + kAtbK * kAtbLdBf;
+          const long long t0 = tb + (long long)j * kAtbK;
+          const int cnt = (int)min((long long)kAtbK, te - t0);
+          // the sample of each token, found once a chunk: a row's scale
+          long long sample = ss != nullptr ? t0 / hw : 0, next = (sample + 1) * hw;
+          float sc = ss != nullptr ? __ldg(ss + sample) : 1.f;
+#pragma unroll 8
+          for (int k = 0; k < cnt; ++k) {
+            if (ss != nullptr && t0 + k == next) {
+              ++sample;
+              next += hw;
+              sc = __ldg(ss + sample);
+            }
+            const float v = sf != nullptr
+                                ? side[k * kAtbSumLd + threadIdx.x]
+                                : bf2f(reinterpret_cast<const bf16*>(side)[2 * k * kAtbSumLd +
+                                                                           threadIdx.x]);
+            colsum += sc * v;
+          }
+        }
+      });
+  wgmma_wait_all();
+  fence_operands(acc);
+  const size_t base = (size_t)blockIdx.z * ((size_t)M * N + N);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int m = m0 + acc_row(i), c = n0 + acc_col(i);
+    if (m < M && c < N) part[base + (size_t)m * N + c] = acc[i];
   }
-  for (int h = 0; h < nh; ++h) {
-    const size_t head = (window * nh + h) * kTile * kTile;
-    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads)
-      Ps[(e / kTile) * kTLd + e % kTile] = __ldg(P + head + e);
-    for (int e = threadIdx.x; e < kTile * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const float val = __ldg(datt + token(r) * C + h * hd + d);
-      dA[r * kVLd + d] = val;
-      dAT[d * kTLd + r] = val;
-    }
-    // recompute this head's q, k, v exactly as the forward did
-    gemm_weights(
-        yT, C, wq, C3, 3 * hd, [&](int c) { return (c / hd) * C + h * hd + c % hd; }, Bs,
-        [&](int r0, int c, const float* o) {
-          const int part = c / hd, d = c % hd;
-          const float bb = __ldg(bq + part * C + h * hd + d);
-          float* dst = part == 0 ? q : (part == 1 ? k : v);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dst[(r0 + i) * kVLd + d] = o[i] + bb;
-          if (part == 2)
-            *reinterpret_cast<float4*>(vT + d * kTLd + r0) =
-                make_float4(o[0] + bb, o[1] + bb, o[2] + bb, o[3] + bb);
-        });
-    __syncthreads();
-    {  // dv[j][d] = sum_r P[r][j] dA[r][d]
-      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        const float4 p = ld4(Ps + r * kTLd + rg * 4);
-        const float2 a = *reinterpret_cast<const float2*>(dA + r * kVLd + cl * 2);
-        const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] = fmaf(pv[i], a.x, acc[i][0]);
-          acc[i][1] = fmaf(pv[i], a.y, acc[i][1]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int d = cl * 2 + jj;
-        if (d < hd) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dqkv[token(rg * 4 + i) * C3 + 2 * C + h * hd + d] = acc[i][jj];
-        }
-      }
-    }
-    {  // dP[r][j] = sum_d dA[r][d] v[j][d]
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        const float4 a = ld4(dAT + d * kTLd + rg * 4);
-        const float4 bv = ld4(vT + d * kTLd + cl * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(G + (rg * 4 + i) * kTLd + cl * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-    __syncthreads();
-    // dS = P (dP - rowsum(P dP)), one warp per row
-    for (int r = warp; r < kTile; r += kWarps) {
-      const float p0 = Ps[r * kTLd + lane], p1 = Ps[r * kTLd + lane + 32];
-      const float d0 = G[r * kTLd + lane], d1 = G[r * kTLd + lane + 32];
-      const float delta = warp_sum(p0 * d0 + p1 * d1);
-      const float s0 = p0 * (d0 - delta), s1 = p1 * (d1 - delta);
-      G[r * kTLd + lane] = s0;
-      G[r * kTLd + lane + 32] = s1;
-      dS[head + r * kTile + lane] = s0;
-      dS[head + r * kTile + lane + 32] = s1;
-    }
-    __syncthreads();
-    {  // dq[r][d] = scale sum_j dS[r][j] k[j][d]
-      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-      const float* g = G + rg * 4 * kTLd;
-#pragma unroll 4
-      for (int j = 0; j < kTile; ++j) {
-        const float2 kv = *reinterpret_cast<const float2*>(k + j * kVLd + cl * 2);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = g[i * kTLd + j];
-          acc[i][0] = fmaf(a, kv.x, acc[i][0]);
-          acc[i][1] = fmaf(a, kv.y, acc[i][1]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int d = cl * 2 + jj;
-        if (d < hd) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dqkv[token(rg * 4 + i) * C3 + h * hd + d] = scale * acc[i][jj];
-        }
-      }
-    }
-    {  // dk[j][d] = scale sum_r dS[r][j] q[r][d]
-      float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        const float4 sv = ld4(G + r * kTLd + rg * 4);
-        const float2 qv = *reinterpret_cast<const float2*>(q + r * kVLd + cl * 2);
-        const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] = fmaf(s4[i], qv.x, acc[i][0]);
-          acc[i][1] = fmaf(s4[i], qv.y, acc[i][1]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int d = cl * 2 + jj;
-        if (d < hd) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dqkv[token(rg * 4 + i) * C3 + C + h * hd + d] = scale * acc[i][jj];
-        }
-      }
-    }
-    __syncthreads();  // this head's tiles are free for the next
-  }
+  if (sums) part[base + (size_t)M * N + n] = colsum;
+}
+
+// out (M*N + N) = (A^T B, the column sums of sf or sb (times ss)) over T
+// tokens in bf16, through `part` (atb_part_floats(T, M, N) floats).
+inline cudaError_t weight_grad_bf16(const bf16* A, const bf16* B, long long T, int M, int N,
+                                    const float* sf, const bf16* sb, const float* ss,
+                                    long long hw, float* part, float* out, cudaStream_t stream) {
+  if (M % 4 || N % 4) return cudaErrorInvalidValue;
+  const long long chunk = atb_chunk(T, M, N);
+  const dim3 grid((M + kTcRows - 1) / kTcRows, (N + kTcRows - 1) / kTcRows,
+                  (unsigned)((T + chunk - 1) / chunk));
+  const int smem = atb_bf16_smem_bytes();
+  cudaError_t err =
+      cudaFuncSetAttribute(atb_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  atb_bf16_kernel<<<grid, kThreads, smem, stream>>>(A, B, T, M, N, chunk, sf, sb, ss, hw, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
 }
 
 }  // namespace trr
@@ -365,9 +329,6 @@ size_t trr_rows_smem_bytes(int C) { return (size_t)trr::rows_smem_bytes(C); }
 size_t trr_linear_smem_bytes() { return (size_t)trr::linear_smem_bytes(); }
 size_t trr_hidden_smem_bytes() { return (size_t)trr::hidden_smem_bytes(); }
 size_t trr_atb_smem_bytes() { return (size_t)trr::atb_smem_bytes(); }
-size_t trr_bwd_attn_smem_bytes(int C, int nh) {
-  return (size_t)trr::bwd_attn_smem_floats(C, nh) * sizeof(float);
-}
 size_t trr_weight_grad_part_floats(int T, int M, int N) {
   return (size_t)trr::atb_part_floats(T, M, N);
 }
@@ -413,8 +374,8 @@ int trr_ln_mlp_bwd(const float* x, const float* dout, const float* g, const floa
 
 // The saved-P backward of the whole block (#5): operands as the forward
 // takes them, and P, att, z from it; dout (B, H, W, C). Scratch: y, y2, dm,
-// dz, dzp, datt (T, C), stats1, stats2 (T, 2), hg, dh (T, hidden), dqkv
-// (T, 3C), dS shaped as P, ln_part (ceil(T / 128), 2C), part (the largest
+// dz, dzp, datt (T, C), stats1, stats2 (T, 2), hg, dh (T, hidden), qkv,
+// dqkv (T, 3C), dS shaped as P, ln_part (ceil(T / 128), 2C), part (the largest
 // trr_weight_grad_part_floats of the four gradients). Writes dx; dln1 =
 // dg1 | dbe1 and dln2 = dg2 | dbe2 (2C each); dq = dwq | dbq, dp = dwp |
 // dbp, d1 = dw1 | db1, d2 = dw2 | db2; dbias (kinds, nh, 64, 64).
@@ -424,7 +385,7 @@ int trr_swin_block_bwd(const float* x, const float* z, const float* dout, const 
                        const float* w1, const float* b1, const float* w2, const float* s1,
                        const float* s2, float* y, float* stats1, float* y2, float* stats2,
                        float* dm, float* hg, float* dh, float* dz, float* dzp, float* datt,
-                       float* dqkv, float* dS, float* ln_part, float* part, float* dx,
+                       float* qkv, float* dqkv, float* dS, float* ln_part, float* part, float* dx,
                        float* dln1, float* dq, float* dp, float* dbias, float* dln2, float* d1,
                        float* d2, int B, int H, int W, int C, int nh, int hidden, int kinds,
                        int shift, float eps, float scale, cudaStream_t stream) {
@@ -437,15 +398,13 @@ int trr_swin_block_bwd(const float* x, const float* z, const float* dout, const 
   TRR_TRY(trr::rows<trr::kRowsLn>(dh, w1, T, hidden, C, z, stats2, g2, dout, s1, hw, dz, dzp,
                                   ln_part, stream));
   TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln2, stream));
-  // the attention half: datt, then dqkv and dS per window, then dx
+  // the attention half: datt; qkv = y wq + bq, then dqkv and dS per window
+  // from the saved P (#10's stage at 8x8); then dx
   TRR_TRY(trr::rows<trr::kRowsStore>(dzp, wp, T, C, C, nullptr, nullptr, nullptr, nullptr,
                                      nullptr, hw, datt, nullptr, nullptr, stream));
-  const int floats = trr::bwd_attn_smem_floats(C, nh);
-  TRR_TRY(trr::set_smem(trr::block_bwd_attn_kernel, floats));
-  const dim3 grid((H / 8) * (W / 8), B);
-  trr::block_bwd_attn_kernel<<<grid, trr::kThreads, floats * sizeof(float), stream>>>(
-      y, wq, bq, P, datt, dqkv, dS, H, W, C, nh, shift, scale);
-  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::linear(y, wq, bq, qkv, T, C, 3 * C, stream));
+  TRR_TRY((trr::attn_rows_bwd_tc<64, false, true>(qkv, P, datt, dqkv, nullptr, dS, B, H, W, C,
+                                                  nh, 8, 8, kinds, shift, scale, stream)));
   TRR_TRY(trr::rows<trr::kRowsLn>(dqkv, wq, T, 3 * C, C, x, stats1, g1, dz, nullptr, hw, dx,
                                   nullptr, ln_part, stream));
   TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln1, stream));
@@ -456,6 +415,92 @@ int trr_swin_block_bwd(const float* x, const float* z, const float* dout, const 
   return (int)trr::launch_dbias(dS, B, H / 8, W / 8, nh, kinds, trr::kTile * trr::kTile, dbias,
                                 stream);
 }
+
+// The bf16 forward (#4's bf16 form): x, out, att, z (B, H, W, C) and P (B,
+// H/8, W/8, nh, 64, 64) bf16; wq, wp, w1, w2 bf16 (in, out); g1, be1, bq, bp,
+// bias, g2, be2, b1, b2, s1, s2 fp32; scratch y (T, C), qkv (T, 3C), h (T,
+// hidden) bf16. The seven launches of the fp32 form on the bf16 stages.
+int trr_swin_block_fwd_bf16(const trr::bf16* x, const float* g1, const float* be1,
+                            const trr::bf16* wq, const float* bq, const trr::bf16* wp,
+                            const float* bp, const float* bias, const float* g2, const float* be2,
+                            const trr::bf16* w1, const float* b1, const trr::bf16* w2,
+                            const float* b2, const float* s1, const float* s2, trr::bf16* y,
+                            trr::bf16* qkv, trr::bf16* h, trr::bf16* out, trr::bf16* P,
+                            trr::bf16* att, trr::bf16* z, int B, int H, int W, int C, int nh,
+                            int hidden, int kinds, int shift, float eps, float scale,
+                            cudaStream_t stream) {
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::ln_rows_bf16(x, g1, be1, y, nullptr, nullptr, nullptr, nullptr, T, hw, C, eps,
+                            stream));
+  TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
+  TRR_TRY(trr::attn_rows_fwd_bf16<64>(qkv, bias, att, P, B, H, W, C, nh, 8, 8, kinds, shift, scale,
+                                      stream));
+  TRR_TRY(trr::linear_bf16<trr::kLinearResidual>(att, wp, bp, z, T, C, C, stream, x, s1, hw));
+  TRR_TRY(trr::ln_rows_bf16(z, g2, be2, y, nullptr, nullptr, nullptr, nullptr, T, hw, C, eps,
+                            stream));
+  TRR_TRY(trr::linear_bf16<trr::kLinearGelu>(y, w1, b1, h, T, C, hidden, stream));
+  return (int)trr::linear_bf16<trr::kLinearResidual>(h, w2, b2, out, T, hidden, C, stream, z, s2,
+                                                     hw);
+}
+
+// The bf16 saved-P backward (#5's bf16 form): x, z, dout, att (B, H, W, C)
+// and P bf16 from the forward, the weights and fp32 operands as
+// trr_swin_block_fwd_bf16 takes them. Scratch: y, y2, dm, dzp, datt (T, C)
+// bf16, dz (T, C) fp32, stats1, stats2 (T, 2), hg, dh (T, hidden) bf16 and
+// dh32 (T, hidden) fp32, qkv, dqkv (T, 3C) bf16, dS fp32 shaped as P,
+// ln_part and part as trr_swin_block_bwd's. Writes dx (bf16) and the fp32
+// gradients as trr_swin_block_bwd does.
+int trr_swin_block_bwd_bf16(const trr::bf16* x, const trr::bf16* z, const trr::bf16* dout,
+                            const trr::bf16* P, const trr::bf16* att, const float* g1,
+                            const float* be1, const trr::bf16* wq, const float* bq,
+                            const trr::bf16* wp, const float* g2, const float* be2,
+                            const trr::bf16* w1, const float* b1, const trr::bf16* w2,
+                            const float* s1, const float* s2, trr::bf16* y, float* stats1,
+                            trr::bf16* y2, float* stats2, trr::bf16* dm, trr::bf16* hg,
+                            trr::bf16* dh, float* dh32, float* dz, trr::bf16* dzp,
+                            trr::bf16* datt, trr::bf16* qkv, trr::bf16* dqkv, float* dS,
+                            float* ln_part, float* part, trr::bf16* dx, float* dln1, float* dq,
+                            float* dp, float* dbias, float* dln2, float* d1, float* d2, int B,
+                            int H, int W, int C, int nh, int hidden, int kinds, int shift,
+                            float eps, float scale, cudaStream_t stream) {
+  using trr::bf16;
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  const int nblk = (int)((T + trr::kTcRows - 1) / trr::kTcRows);
+  // the MLP half: dz (fp32), dzp = bf16(s1 dz)
+  TRR_TRY(trr::ln_rows_bf16(z, g2, be2, y2, stats2, dout, s2, dm, T, hw, C, eps, stream));
+  TRR_TRY(trr::ln_rows_bf16(x, g1, be1, y, stats1, nullptr, nullptr, nullptr, T, hw, C, eps,
+                            stream));
+  TRR_TRY(trr::mlp_hidden_bf16(y2, dm, w1, b1, w2, hg, dh, dh32, T, C, hidden, stream));
+  TRR_TRY((trr::rows_bf16<trr::kRowsLn, bf16, float>(dh, w1, T, hidden, C, z, stats2, g2, dout,
+                                                    s1, hw, dz, dzp, ln_part, stream)));
+  TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln2, stream));
+  // the attention half: datt, qkv, the saved-P window attention, dx
+  TRR_TRY((trr::rows_bf16<trr::kRowsStore, float, bf16>(dzp, wp, T, C, C, nullptr, nullptr,
+                                                       nullptr, nullptr, nullptr, hw, datt,
+                                                       nullptr, nullptr, stream)));
+  TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
+  TRR_TRY(trr::attn_rows_bwd_saved_bf16<64>(qkv, P, datt, dqkv, dS, B, H, W, C, nh, 8, 8, kinds,
+                                            shift, scale, stream));
+  TRR_TRY((trr::rows_bf16<trr::kRowsLn, float, bf16>(dqkv, wq, T, 3 * C, C, x, stats1, g1, dz,
+                                                    nullptr, hw, dx, nullptr, ln_part, stream)));
+  TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln1, stream));
+  // the weight gradients; the biases' sums of the fp32 values: s2 dout, dh, s1 dz, dqkv
+  TRR_TRY(trr::weight_grad_bf16(hg, dm, T, hidden, C, nullptr, dout, s2, hw, part, d2, stream));
+  TRR_TRY(trr::weight_grad_bf16(y2, dh, T, C, hidden, dh32, nullptr, nullptr, hw, part, d1,
+                                stream));
+  TRR_TRY(trr::weight_grad_bf16(att, dzp, T, C, C, dz, nullptr, s1, hw, part, dp, stream));
+  TRR_TRY(trr::weight_grad_bf16(y, dqkv, T, C, 3 * C, nullptr, dqkv, nullptr, hw, part, dq,
+                                stream));
+  return (int)trr::launch_dbias(dS, B, H / 8, W / 8, nh, kinds, trr::kTile * trr::kTile, dbias,
+                                stream);
+}
+
+size_t trr_linear_bf16_smem_bytes(int N) {
+  return (size_t)trr::wg_bf16_bytes(trr::linear_cols(N));
+}
+size_t trr_rows_bf16_smem_bytes(int C) { return (size_t)trr::rows_bf16_smem_bytes(C); }
+size_t trr_hidden_bf16_smem_bytes() { return (size_t)trr::hidden_bf16_smem_bytes(); }
+size_t trr_atb_bf16_smem_bytes() { return (size_t)trr::atb_bf16_smem_bytes(); }
 
 // out (M*N + N) = (A^T B, column sums of B) of A (T, M) and B (T, N), through
 // part (trr_weight_grad_part_floats(T, M, N) floats).

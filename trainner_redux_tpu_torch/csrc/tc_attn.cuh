@@ -21,9 +21,20 @@
 // warps, ..., whose sums a kernel carries across its row blocks. Rows of q,
 // k, v and dA are padded with zeros to 32 channels, kHeadLd floats apart
 // (36: the row fragments' loads hit 32 banks).
+//
+// The bf16 forms (attn_rows_fwd_bf16_kernel, and attn_rows_bwd_bf16_kernel,
+// the saved-P backward: the bf16 training block's #4 and #5 stages) read and
+// write bf16 rows and P and keep the same fp32 tiles in shared memory; each
+// product runs on mma.sync m16n8k16 bf16 with fp32 sums (tc_gemm_bf16.cuh),
+// its operands rounded to bf16 as their fragments load: the JAX kernel's
+// bf16 P (softmax in fp32, then rounded) in att = P v, and its bf16(scale
+// dS) in dQ and dK. Heads of 30 pad to 32 channels: two k-steps.
 #pragma once
 
+#include <type_traits>
+
 #include "tc_gemm.cuh"
+#include "tc_gemm_bf16.cuh"
 
 namespace trr {
 
@@ -33,7 +44,7 @@ __host__ __device__ constexpr int attn_tc_threads(int RB, int KS = 2) {
   return 32 * KS * (RB / 16);
 }
 
-template <int N, int RB, int KS = 2>
+template <int N, int RB, int KS = 2, bool BF = false>
 struct AttnWarps {
   static constexpr int NTH = attn_tc_threads(RB, KS), NW = NTH / 32;
   static constexpr int LD = kHeadLd, LP = N + 4, PART = N / KS, NT = PART / 8;
@@ -75,12 +86,22 @@ struct AttnWarps {
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-#pragma unroll(KS == 4 ? 1 : 4)
-    for (int k0 = 0; k0 < 32; k0 += 8) {
-      MmaA a;
-      mma_load_a<false>(a, Y + row0 * LD + k0, LD);
+    if constexpr (BF) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3<true>(o[j], a, X + (col0 + 8 * j) * LD + k0, LD);
+      for (int k0 = 0; k0 < 32; k0 += 16) {
+        MmaABf a;
+        mma_load_a_bf16<false>(a, Y + row0 * LD + k0, LD);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma1_bf16<true>(o[j], a, X + (col0 + 8 * j) * LD + k0, LD);
+      }
+    } else {
+#pragma unroll(KS == 4 ? 1 : 4)
+      for (int k0 = 0; k0 < 32; k0 += 8) {
+        MmaA a;
+        mma_load_a<false>(a, Y + row0 * LD + k0, LD);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma3<true>(o[j], a, X + (col0 + 8 * j) * LD + k0, LD);
+      }
     }
   }
 
@@ -91,12 +112,22 @@ struct AttnWarps {
     for (int j = 0; j < CT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    if constexpr (BF) {
 #pragma unroll 1
-    for (int k0 = 0; k0 < N; k0 += 8) {
-      MmaA a;
-      mma_load_a<false>(a, pt + row0 * LP + k0, LP);
+      for (int k0 = 0; k0 < N; k0 += 16) {
+        MmaABf a;
+        mma_load_a_bf16<false>(a, pt + row0 * LP + k0, LP);
 #pragma unroll
-      for (int j = 0; j < CT; ++j) mma3<false>(o[j], a, X + k0 * LD + CW * part + 8 * j, LD);
+        for (int j = 0; j < CT; ++j) mma1_bf16<false>(o[j], a, X + k0 * LD + CW * part + 8 * j, LD);
+      }
+    } else {
+#pragma unroll 1
+      for (int k0 = 0; k0 < N; k0 += 8) {
+        MmaA a;
+        mma_load_a<false>(a, pt + row0 * LP + k0, LP);
+#pragma unroll
+        for (int j = 0; j < CT; ++j) mma3<false>(o[j], a, X + k0 * LD + CW * part + 8 * j, LD);
+      }
     }
   }
 
@@ -106,12 +137,23 @@ struct AttnWarps {
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
       const int unit = warp + NW * u, kt = unit / 2, ch = unit % 2;
+      if constexpr (BF) {
 #pragma unroll 2
-      for (int k0 = 0; k0 < RB; k0 += 8) {
-        MmaA a;
-        mma_load_a<true>(a, pt + k0 * LP + 16 * kt, LP);
+        for (int k0 = 0; k0 < RB; k0 += 16) {
+          MmaABf a;
+          mma_load_a_bf16<true>(a, pt + k0 * LP + 16 * kt, LP);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) mma3<false>(acc[u][j], a, Y + k0 * LD + 16 * ch + 8 * j, LD);
+          for (int j = 0; j < 2; ++j)
+            mma1_bf16<false>(acc[u][j], a, Y + k0 * LD + 16 * ch + 8 * j, LD);
+        }
+      } else {
+#pragma unroll 2
+        for (int k0 = 0; k0 < RB; k0 += 8) {
+          MmaA a;
+          mma_load_a<true>(a, pt + k0 * LP + 16 * kt, LP);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma3<false>(acc[u][j], a, Y + k0 * LD + 16 * ch + 8 * j, LD);
+        }
       }
     }
   }
@@ -193,14 +235,14 @@ struct AttnWarps {
 // nothing), and, where inv is not null, the inverse norm to inv[r].
 template <int ROWS, int NTH, bool NORM = false, class Row>
 __device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row,
-                                                float* inv = nullptr) {
+                                                float* inv = nullptr) {  // row(r): float or bf16
   static_assert(ROWS * 32 % NTH == 0 && NTH % 32 == 0, "the rows must split evenly");
   constexpr int PER = ROWS * 32 / NTH;
   float v[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = threadIdx.x + i * NTH, d = e % 32;
-    v[i] = d < hd ? __ldg(row(e / 32) + d) : 0.f;
+    v[i] = d < hd ? ldg_f(row(e / 32) + d) : 0.f;
   }
   if constexpr (NORM) {
 #pragma unroll
@@ -217,39 +259,39 @@ __device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row,
   }
 }
 
-// The ROWS x N rows of the table at src (row stride N) into the (ROWS, N +
-// 4) tile pt, 16 bytes a copy (NTH threads).
-template <int ROWS, int N, int NTH>
-__device__ __forceinline__ void stage_table_rows(float* pt, const float* __restrict__ src) {
+// The ROWS x N rows of the table at src (row stride N; fp32, or a bf16 P)
+// into the (ROWS, N + 4) fp32 tile pt, 4 entries a copy (NTH threads).
+template <int ROWS, int N, int NTH, typename T>
+__device__ __forceinline__ void stage_table_rows(float* pt, const T* __restrict__ src) {
   constexpr int Q = N / 4;
-  static_assert(N % 4 == 0, "16-byte rows");
+  static_assert(N % 4 == 0, "rows of 4-entry pieces");
 #pragma unroll 4
   for (int e = threadIdx.x; e < ROWS * Q; e += NTH)
     reinterpret_cast<float4*>(pt + (e / Q) * (N + 4))[e % Q] =
-        __ldg(reinterpret_cast<const float4*>(src + (size_t)(e / Q) * N) + e % Q);
+        ldg4(src + (size_t)(e / Q) * N + 4 * (e % Q));
 }
 
-// The (ROWS, N + 4) tile pt to the ROWS x N rows at dst (row stride N), 16
-// bytes a copy (NTH threads).
-template <int ROWS, int N, int NTH>
-__device__ __forceinline__ void store_table_rows(float* __restrict__ dst, const float* pt) {
+// The (ROWS, N + 4) tile pt to the ROWS x N rows at dst (row stride N; fp32,
+// or bf16, rounded), 4 entries a copy (NTH threads).
+template <int ROWS, int N, int NTH, typename T>
+__device__ __forceinline__ void store_table_rows(T* __restrict__ dst, const float* pt) {
   constexpr int Q = N / 4;
-  static_assert(N % 4 == 0, "16-byte rows");
+  static_assert(N % 4 == 0, "rows of 4-entry pieces");
 #pragma unroll 4
   for (int e = threadIdx.x; e < ROWS * Q; e += NTH)
-    reinterpret_cast<float4*>(dst + (size_t)(e / Q) * N)[e % Q] =
-        reinterpret_cast<const float4*>(pt + (e / Q) * (N + 4))[e % Q];
+    st4(dst + (size_t)(e / Q) * N + 4 * (e % Q),
+        reinterpret_cast<const float4*>(pt + (e / Q) * (N + 4))[e % Q]);
 }
 
 // row(r)[d] = src[r * kHeadLd + d] for d < hd, for the ROWS rows (NTH
-// threads; a warp writes a row's hd floats at once).
+// threads; a warp writes a row's hd entries at once; row(r) float or bf16).
 template <int ROWS, int NTH, class Row>
 __device__ __forceinline__ void store_head_rows(const float* src, int hd, Row row) {
   static_assert(ROWS * 32 % NTH == 0, "the rows must split evenly");
 #pragma unroll 4
   for (int i = 0; i < ROWS * 32 / NTH; ++i) {
     const int e = threadIdx.x + i * NTH, d = e % 32;
-    if (d < hd) row(e / 32)[d] = src[(e / 32) * kHeadLd + d];
+    if (d < hd) st_f(row(e / 32) + d, src[(e / 32) * kHeadLd + d]);
   }
 }
 
@@ -295,15 +337,16 @@ __host__ __device__ constexpr int attn_fwd_blocks(int N, int threads) {
 // any number of windows fits it. COS, SwinV2's cosine attention (#11, #12's
 // forward stage): the rows of k and q are divided by their L2 norm as they
 // are staged (stage_head_rows' NORM), and the temperature is the head's,
-// temps[h] (already exponentiated), in place of `scale`.
-template <int N, int RB, int KS, bool COS = false>
-__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
-                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
-    attn_rows_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                            float* __restrict__ att, float* __restrict__ P, int H, int W, int C,
-                            int nh, int wr, int wc, int kinds, int shift, float scale,
-                            const float* __restrict__ temps) {
-  using AW = AttnWarps<N, RB, KS>;
+// temps[h] (already exponentiated), in place of `scale`. T: the type of
+// qkv, att and P (float, or bf16 in attn_rows_fwd_bf16_kernel).
+template <int N, int RB, int KS, bool COS, typename T>
+__device__ __forceinline__ void attn_rows_fwd_body(const T* __restrict__ qkv,
+                                                   const float* __restrict__ bias,
+                                                   T* __restrict__ att, T* __restrict__ P, int H,
+                                                   int W, int C, int nh, int wr, int wc, int kinds,
+                                                   int shift, float scale,
+                                                   const float* __restrict__ temps) {
+  using AW = AttnWarps<N, RB, KS, std::is_same<T, bf16>::value>;
   constexpr int NTH = AW::NTH, LD = AW::LD, CT = AW::CT;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
@@ -349,6 +392,28 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
   }
 }
 
+template <int N, int RB, int KS, bool COS = false>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
+                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
+    attn_rows_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                            float* __restrict__ att, float* __restrict__ P, int H, int W, int C,
+                            int nh, int wr, int wc, int kinds, int shift, float scale,
+                            const float* __restrict__ temps) {
+  attn_rows_fwd_body<N, RB, KS, COS, float>(qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift,
+                                            scale, temps);
+}
+
+// The bf16 form: qkv, att and P in bf16.
+template <int N, int RB, int KS>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
+                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
+    attn_rows_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                              bf16* __restrict__ att, bf16* __restrict__ P, int H, int W, int C,
+                              int nh, int wr, int wc, int kinds, int shift, float scale) {
+  attn_rows_fwd_body<N, RB, KS, false, bf16>(qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift,
+                                             scale, nullptr);
+}
+
 // Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT, SAVED>, in
 // floats: k and v (N, 36), this row block's q and dA (RB, 36), the P / dS
 // rows (RB, N + 4), the (KS, RB) exchanges of the key parts' row max and row
@@ -387,14 +452,19 @@ __host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, in
 // and the softmax go: four products a row block (dV += P^T dA, dP = dA v^T,
 // dQ = scale dS k, dK += dS^T q), the key parts exchanging rowsum(P dP)
 // only. It writes no att (ATT is false): #10's dwp reads the forward's.
-template <int N, int RB, int KS, bool ATT, bool SAVED = false>
-__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
-    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ table,
-                            const float* __restrict__ datt, float* __restrict__ dqkv,
-                            float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
-                            int nh, int wr, int wc, int kinds, int shift, float scale) {
+//
+// T: the type of qkv, datt, dqkv, att and a saved P (float, or bf16 in
+// attn_rows_bwd_bf16_kernel, where the tile holds bf16(scale dS), as the JAX
+// kernel rounds it, and dS still goes out unscaled in fp32).
+template <int N, int RB, int KS, bool ATT, bool SAVED, typename T>
+__device__ __forceinline__ void attn_rows_bwd_body(
+    const T* __restrict__ qkv, const std::conditional_t<SAVED, T, float>* __restrict__ table,
+    const T* __restrict__ datt, T* __restrict__ dqkv, T* __restrict__ att,
+    float* __restrict__ dS, int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
+    float scale) {
   static_assert(!(ATT && SAVED), "the saved-P form writes no att");
-  using AW = AttnWarps<N, RB, KS>;
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  using AW = AttnWarps<N, RB, KS, BF>;
   constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, CT = AW::CT;
   constexpr int UNITS = AW::UNITS, X = KS * RB, EX = SAVED ? 1 : 3;
   extern __shared__ __align__(16) float smem[];
@@ -414,7 +484,7 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
   for (int r = threadIdx.x; r < N; r += NTH)
     tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, shift);
   // the (N, N) rows staged a row block at a time: the bias kind's, or P's
-  const float* tile_src =
+  const auto* tile_src =
       table + (SAVED ? 0 : ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N);
   // (b, win, h) of dS, and of P: the forward's one-dimensional grid order
   const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
@@ -470,7 +540,7 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
           const float2 pv = *aw.at(pt, i, j);
           const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
                                        pv.y * (dp[j][2 * i + 1] - delta[i]));
-          *aw.at(pt, i, j) = v;
+          *aw.at(pt, i, j) = BF ? make_float2(scale * v.x, scale * v.y) : v;
           *reinterpret_cast<float2*>(dS + head + (size_t)(r0 + aw.s_row(i)) * N + aw.s_col(j)) =
               v;
         }
@@ -482,7 +552,7 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
 #pragma unroll
       for (int j = 0; j < CT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = scale * o[j][e];
+        for (int e = 0; e < 4; ++e) oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = (BF ? 1.f : scale) * o[j][e];
     }
     aw.keys_by_rows(pt, qs, dk);  // dK += dS^T q (scaled once, at the end)
     __syncthreads();  // q, dA and the tile are rewritten by the next row block; dq (att) whole
@@ -498,7 +568,7 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = aw.u_key(u, e) * LD + aw.u_chan(u, j, e);
-        ks[i] = scale * dk[u][j][e];
+        ks[i] = (BF ? 1.f : scale) * dk[u][j][e];
         vs[i] = dv[u][j][e];
       }
   __syncthreads();
@@ -506,6 +576,27 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
                           [&](int r) { return dqkv + (long long)tok[r] * C3 + C + h * hd; });
   store_head_rows<N, NTH>(vs, hd,
                           [&](int r) { return dqkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+}
+
+template <int N, int RB, int KS, bool ATT, bool SAVED = false>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+    attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ table,
+                            const float* __restrict__ datt, float* __restrict__ dqkv,
+                            float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
+                            int nh, int wr, int wc, int kinds, int shift, float scale) {
+  attn_rows_bwd_body<N, RB, KS, ATT, SAVED, float>(qkv, table, datt, dqkv, att, dS, H, W, C, nh,
+                                                   wr, wc, kinds, shift, scale);
+}
+
+// The bf16 form of the saved-P backward: qkv, P, datt and dqkv in bf16.
+template <int N, int RB, int KS>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+    attn_rows_bwd_bf16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ P,
+                              const bf16* __restrict__ datt, bf16* __restrict__ dqkv,
+                              float* __restrict__ dS, int H, int W, int C, int nh, int wr, int wc,
+                              int kinds, int shift, float scale) {
+  attn_rows_bwd_body<N, RB, KS, false, true, bf16>(qkv, P, datt, dqkv, nullptr, dS, H, W, C, nh,
+                                                   wr, wc, kinds, shift, scale);
 }
 
 // The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
@@ -556,6 +647,39 @@ cudaError_t attn_rows_bwd_tc(const float* qkv, const float* table, const float* 
   attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, table, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+// attn_rows_fwd_bf16_kernel at windows of N tokens.
+template <int N>
+cudaError_t attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att, bf16* P, int B,
+                               int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
+                               float scale, cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N);
+  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
+  const cudaError_t err = set_smem(attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks>, floats);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
+  attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks>
+      <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+// attn_rows_bwd_bf16_kernel (the saved-P backward) at windows of N tokens.
+template <int N>
+cudaError_t attn_rows_bwd_saved_bf16(const bf16* qkv, const bf16* P, const bf16* datt,
+                                     bf16* dqkv, float* dS, int B, int H, int W, int C, int nh,
+                                     int wr, int wc, int kinds, int shift, float scale,
+                                     cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, false, true);
+  const cudaError_t err = set_smem(attn_rows_bwd_bf16_kernel<N, plan.rb, plan.ks>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nh, (H / wr) * (W / wc), B);
+  attn_rows_bwd_bf16_kernel<N, plan.rb, plan.ks>
+      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, P, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }
 

@@ -32,6 +32,11 @@ class BaseModel:
         self.is_train = bool(opt.is_train)
         self.logger = get_root_logger()
         self.device = resolve_device(device)
+        # the JAX package's dtype policy (models/base_model.py:43-51): bf16
+        # compute for `compute_dtype: bfloat16`, its default, and for the
+        # reference's `use_amp`; the parameters stay fp32
+        self.compute_dtype = (torch.bfloat16 if opt.compute_dtype == "bfloat16" or opt.use_amp
+                              else torch.float32)
         self.best_metric_results: dict[str, Any] = {}
 
     @staticmethod

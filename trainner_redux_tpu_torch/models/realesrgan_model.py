@@ -78,6 +78,10 @@ class RealESRGANModel(SRModel):
             )
             self._seq_rng = np.random.default_rng([opt.manual_seed or 0, 515151])
 
+    def _bf16_refusal(self) -> str | None:
+        """bf16 OTF training waits for the bf16 GAN path it ships with."""
+        return "the OTF model (RealESRGANModel)"
+
     # ------------------------------------------------------------------
     # draws
     # ------------------------------------------------------------------

@@ -6,7 +6,14 @@ Port of the JAX package's models/sr_model.py.
   seeded init, pretrained weights), `load_network` for the three checkpoint
   formats, `test` (reflect-pad to a multiple of 16, one forward, crop) and
   `nondist_validation` (per image: save PNG, PSNR/SSIM).
-- Training (the `train.py` path), in fp32 with TF32 off (`fast_matmul`
+- Training (the `train.py` path), in the compute dtype of the JAX package's
+  policy (`compute_dtype: bfloat16`, its default, and `use_amp` give bf16;
+  `compute_dtype: float32` fp32): the network is built with it
+  (`build_network_cast`) and computes its training forward in it, from fp32
+  parameters that take fp32 gradients and fp32 optimizer and EMA updates;
+  validation, `test` and the EMA network's forward run the same parameters
+  in fp32, the JAX package's fp32 twin. bf16 trains SwinIR only, on the
+  bf16 forms of #4/#5. fp32 runs with TF32 off (`fast_matmul`
   lets cuBLAS and cuDNN use TF32; `deterministic` runs the step on torch's
   deterministic algorithms; `detect_anomaly` under autograd's anomaly
   detection, so a NaN in the backward raises): pair losses, the
@@ -33,8 +40,10 @@ Port of the JAX package's models/sr_model.py.
 DropPath draws from one `torch.Generator` on the model's device, seeded from
 `manual_seed`, that the model hands to the network.
 
-Not ported yet, and refused where configured: bf16 compute (`compute_dtype:
-bfloat16`, `use_amp`), `steps_per_dispatch > 1`, `remat`, discriminators
+Not ported yet, and refused where configured: bf16 training of every family
+but SwinIR, of a SwinIR block off the fused training branch (SwinIR-L), of
+a GAN (`network_d`) and of the OTF model, `steps_per_dispatch > 1`, `remat`,
+discriminators
 other than DUnet, the R3GAN and feature-matching losses, MoA, dynamic loss
 scheduling, training automations, tiled inference and the mesh-sharded
 paths.
@@ -52,7 +61,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from trainner_redux_tpu_torch.archs import build_network
+from trainner_redux_tpu_torch.archs import build_network, build_network_cast
 from trainner_redux_tpu_torch.archs.arch_util import refresh_spectral_norms
 from trainner_redux_tpu_torch.losses import build_loss, loss_log_key
 from trainner_redux_tpu_torch.metrics import calculate_metric
@@ -146,7 +155,7 @@ class SRModel(BaseModel):
         if opt.val and opt.val.tile_size:
             raise NotImplementedError(f"tiled inference {_NOT_PORTED}")
         self.scale = opt.scale
-        net = build_network({**opt.network_g, "scale": opt.scale})
+        net = build_network_cast({**opt.network_g, "scale": opt.scale}, self.compute_dtype)
         generator = torch.Generator().manual_seed(opt.manual_seed or 0)
         net.init_weights(generator)
         self.logger.info(
@@ -248,13 +257,25 @@ class SRModel(BaseModel):
         self.adaptive_d_threshold = float(train_opt.adaptive_d_threshold)
         self.gan_ema = torch.zeros((), device=self.device)
 
+    def _bf16_refusal(self) -> str | None:
+        """Why this model cannot train in bf16 on the port, or None: only
+        SwinIR's fused training blocks have bf16 kernels (#4/#5)."""
+        from trainner_redux_tpu_torch.archs.swinir_arch import SwinIR
+
+        if not isinstance(self.net_g, SwinIR):
+            return f"{type(self.net_g).__name__} (only SwinIR trains in bf16)"
+        if self.opt.network_d is not None:
+            return "GAN training with network_d (DUnet in bf16 is not ported)"
+        return self.net_g.bf16_refusal()
+
     def _refuse_unported(self) -> None:
         opt, train_opt = self.opt, self.opt.train
-        if opt.compute_dtype == "bfloat16" or opt.use_amp:
-            raise NotImplementedError(
-                f"bf16 training (compute_dtype: bfloat16 / use_amp) {_NOT_PORTED}; "
-                "set compute_dtype: float32"
-            )
+        if self.compute_dtype == torch.bfloat16:
+            why = self._bf16_refusal()
+            if why:
+                raise NotImplementedError(
+                    f"bf16 training (compute_dtype: bfloat16, its default, or use_amp) of {why} "
+                    f"{_NOT_PORTED}; set compute_dtype: float32")
         if opt.deterministic:
             # cuBLAS is deterministic only with this workspace, set before its first use
             os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")

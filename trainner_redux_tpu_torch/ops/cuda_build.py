@@ -32,7 +32,8 @@ SOURCES = {
     "jpeg_block": "jpeg_block.cu",
     "window_attention": "window_attention.cu",
 }
-HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh", "tc_rows.cuh", "tc_attn.cuh")
+HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh", "tc_rows.cuh", "tc_attn.cuh",
+           "tc_gemm_bf16.cuh", "tc_rows_bf16.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,7 +60,9 @@ SIGNATURES = {
     },
     "fused_block_train": {
         "trr_swin_block_fwd": ([_P] * 23 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_swin_block_bwd": ([_P] * 39 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_swin_block_bwd": ([_P] * 40 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_swin_block_fwd_bf16": ([_P] * 23 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_swin_block_bwd_bf16": ([_P] * 41 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_ln_mlp_bwd": ([_P] * 19 + [_I] * 5 + [_F, _P], _I),
         "trr_weight_grad": ([_P] * 2 + [_I] * 3 + [_P] * 3, _I),
         "trr_weight_grad_part_floats": ([_I] * 3, ctypes.c_size_t),
@@ -69,7 +72,10 @@ SIGNATURES = {
         "trr_linear_smem_bytes": ([], ctypes.c_size_t),
         "trr_hidden_smem_bytes": ([], ctypes.c_size_t),
         "trr_atb_smem_bytes": ([], ctypes.c_size_t),
-        "trr_bwd_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_linear_bf16_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_rows_bf16_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_hidden_bf16_smem_bytes": ([], ctypes.c_size_t),
+        "trr_atb_bf16_smem_bytes": ([], ctypes.c_size_t),
     },
     "fused_block_v2": {
         "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),

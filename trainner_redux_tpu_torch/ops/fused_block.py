@@ -11,7 +11,10 @@ Port of the JAX package's ops/pallas/fused_block.py:
       every gradient from them (the saved-P backward);
   fused_swin_block_train : out = fused_ln_mlp(fused_attn_block(x)) with s1
       and s2, a torch.autograd.Function whose forward saves P, the attention
-      output and z, and whose backward computes every gradient from them.
+      output and z, and whose backward computes every gradient from them; on
+      a bf16 x it computes as the JAX kernel does in bf16 (its bf16 forms,
+      counted as `fused_swin_block_train_bf16` and
+      `fused_swin_block_train_backward_bf16`).
 
 `fused_attn_block` and `fused_ln_mlp` are torch.autograd.Functions whose
 backwards recompute from x: #1's (TPU kernel #6,
@@ -21,7 +24,8 @@ LN and fc1.
 `s` is the per-sample DropPath keep scale (ones at eval). Layout contract
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
-(K, nh, n, n). Heads of at most 32 channels, in fp32. The attention half's
+(K, nh, n, n). Heads of at most 32 channels, in fp32 (the whole training
+block also in bf16, every other kernel raising on it). The attention half's
 forward takes 8x8 windows (n = 64) and 12x12 (n = 144, SRFormerV2's), both
 on the tensor-core stages of `csrc/block_fwd.cuh`, which the MLP half runs
 too; its backwards (`csrc/attn_block_staged.cu`) and its training form take
@@ -49,7 +53,6 @@ import torch.nn.functional as F
 
 from trainner_redux_tpu_torch.ops.window_attention import (
     SMEM_LIMIT,
-    TILE_LD,
     V_LD,
     WINDOW,
     _check_cuda,
@@ -59,7 +62,6 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     window_kinds,
 )
 
-STAGE_FLOATS = 2 * 32 * 96  # double-buffered weight stage (kStageFloats)
 # The tensor-core engine of the training backwards (csrc/tc_gemm.cuh): a ring
 # of TC_STAGES operand chunks TC_K deep ([row][k] rows TC_LD floats apart),
 # TC_SPLIT buffers of a weight chunk's TF32 halves, block tiles of TC_ROWS
@@ -802,25 +804,19 @@ fused_attn_block_train.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def bwd_attn_smem_bytes(channels: int, num_heads: int) -> int:
-    """Shared memory of the backward's per-window kernel."""
-    hd = channels // num_heads
-    return 4 * (channels * TILE_LD + 4 * 64 * V_LD + 2 * hd * TILE_LD + 2 * 64 * TILE_LD
-                + STAGE_FLOATS)
-
-
 def swin_block_train_fits(h, w, window_size, channels, num_heads, hidden) -> bool:
-    """The training kernels' limits: 8x8 windows, rows of at most
-    SWIN_BLOCK_MAX_C channels (SwinIR-L's 240 keeps the unfused branch), the
-    forward halves' plans, the MLP half's backward (`ln_mlp_bwd_fits`) and
-    the per-window backward kernel's plan within one thread block's."""
+    """The training kernels' limits, in fp32 and in bf16: 8x8 windows, rows
+    of at most SWIN_BLOCK_MAX_C channels (SwinIR-L's 240 keeps the unfused
+    branch), the forward halves' plans, the MLP half's backward
+    (`ln_mlp_bwd_fits`) and the saved-P attention stage's plans (#10's at 8x8)
+    within one thread block's."""
     if window_size != WINDOW or channels > SWIN_BLOCK_MAX_C:
         return False
     if not (attn_block_fits(h, w, window_size, channels, num_heads)
             and ln_mlp_fits(h, window_size, channels)):
         return False
     return (ln_mlp_bwd_fits(channels, hidden)
-            and bwd_attn_smem_bytes(channels, num_heads) <= SMEM_LIMIT)
+            and attn_train_bwd_smem_bytes(channels, num_heads, window_size) <= SMEM_LIMIT)
 
 
 def _roll(t, shift):
@@ -866,17 +862,24 @@ def _gelu_grad(h):
     return cdf + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
 
 
-def _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_dim, ws):
+def _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_dim, ws,
+                          rounded=False):
     """(dqkv (T, 3C), dbias (K, nh, n, n)) of softmax(q k^T scale + bias) v
     from its softmax P and q, k, v, all (B, H/ws, W/ws, nh, n, .), and the
-    output gradient datt (T, C); dbias sums dS over each kind's windows."""
+    output gradient datt (T, C); dbias sums dS over each kind's windows.
+    `rounded`, the bf16 kernel's arithmetic: dq and dk from bf16(scale dS),
+    and dq, dk, dv rounded to bf16 (dbias from the fp32 dS)."""
     nwh, nww, n = hh // ws, ww // ws, ws * ws
     da = _heads(_to_windows(datt.reshape(b, hh, ww, -1), ws), num_heads)
     dv = P.transpose(-1, -2) @ da
     dp = da @ v.transpose(-1, -2)
     ds = P * (dp - (dp * P).sum(-1, keepdim=True))
     scale = head_dim**-0.5
-    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
+    if rounded:
+        ds_lo = _bf(ds * scale)
+        dq, dk, dv = _bf(ds_lo @ k), _bf(ds_lo.transpose(-1, -2) @ q), _bf(dv)
+    else:
+        dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
     dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=P.device)
     dbias.index_add_(0, window_kinds(nwh, nww, kinds, device=P.device),
                      ds.sum(0).reshape(nwh * nww, num_heads, n, n))
@@ -916,6 +919,110 @@ def fused_swin_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1
     return (*attn, dg2, dbe2, dw1, db1, dw2, db2)
 
 
+# ---------------------------------------------------------------------------
+# The whole block's bf16 forms: the JAX kernel computes in x.dtype, so a
+# bf16 training step runs #4 and #5 on bf16 activations (weights cast to
+# bf16 as they go in; LayerNorm parameters, biases, the bias table and the
+# DropPath scales fp32), every product summed in fp32 and rounded to bf16
+# where the JAX kernel rounds (ops/pallas/fused_block.py:1092-1290), the
+# statistics, softmax and gelu in fp32, and the gradients of the parameters
+# in fp32.
+# ---------------------------------------------------------------------------
+
+
+def _bf(t):
+    """t rounded to bf16 and held in fp32 for the arithmetic that follows:
+    the JAX kernel's `.astype(bf16)` between its fp32 steps."""
+    return t.to(torch.bfloat16).float()
+
+
+def fused_swin_block_train_bf16_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2,
+                                          b2, s1, s2, num_heads, head_dim, window_size, eps=1e-5,
+                                          shift=0):
+    """#4's bf16 form, step by step in fp32 with the JAX kernel's roundings:
+    (out, P, att, z) in bf16, laid out as `fused_swin_block_train_reference`
+    returns them. qkv, P, the head outputs, proj, z, h1, gelu(h1), m2 and out
+    are rounded to bf16; each bf16 bias and DropPath scale is added or
+    applied as a bf16 operation (rounded); the products sum exactly the
+    bf16 values in fp32."""
+    b, hh, ww, c = x.shape
+    ws, t = window_size, _roll(x.float(), -shift).reshape(-1, c)
+    f = {k: v.float() for k, v in dict(g1=g1, be1=be1, bq=bq, bp=bp, g2=g2, be2=be2, b1=b1,
+                                        b2=b2).items()}
+    xn, _ = _ln_parts(t, eps)
+    y = _bf(xn * f["g1"] + f["be1"])
+    qkv = _bf(_bf(y @ _bf(wq)) + _bf(f["bq"]))
+    q, k, v = (_heads(u, num_heads)
+               for u in _to_windows(qkv.reshape(b, hh, ww, 3 * c), ws).chunk(3, dim=-1))
+    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=x.device)
+    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
+    p = _bf(torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1))
+    att = _bf(_from_windows(_merge_heads(p @ v), ws).reshape(-1, c))
+    s1r, s2r = (_bf(_row_scale(u, b, hh * ww)) for u in (s1, s2))
+    z = _bf(t + _bf(s1r * _bf(_bf(att @ _bf(wp)) + _bf(f["bp"]))))
+    xn2, _ = _ln_parts(z, eps)
+    y2 = _bf(xn2 * f["g2"] + f["be2"])
+    hg = _bf(F.gelu(_bf(_bf(y2 @ _bf(w1)) + _bf(f["b1"])), approximate="none"))
+    out = _bf(z + _bf(s2r * _bf(_bf(hg @ _bf(w2)) + _bf(f["b2"]))))
+
+    def unroll(u):
+        return _roll(u.reshape(b, hh, ww, c), shift).to(torch.bfloat16)
+
+    return unroll(out), p.to(torch.bfloat16), unroll(att), unroll(z)
+
+
+def fused_swin_block_train_bwd_bf16_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2,
+                                              b2, s1, s2, P, att, z, dout, kinds, num_heads,
+                                              head_dim, window_size, eps=1e-5, shift=0):
+    """#5's bf16 form, step by step in fp32 with the JAX kernel's roundings:
+    dx (bf16) and the 13 parameter gradients (fp32), in
+    `fused_swin_block_train_bwd_reference`'s order, from the bf16 P, att and
+    z. The MLP half recomputes LN2, h1 and gelu(h1) as the forward rounds
+    them; dm, dh, dzp, datt, dS (scaled) and dq, dk, dv are rounded to bf16
+    as operands, while db2, db1 and dbp sum the fp32 dm, dh and dzp, and dz,
+    every LayerNorm gradient and dbias stay fp32."""
+    b, hh, ww, c = x.shape
+    ws, tokens = window_size, b * hh * ww
+
+    def rows(u):
+        return _roll(u.float(), -shift).reshape(tokens, -1)
+
+    t, zt, do, att_t = rows(x), rows(z), rows(dout), rows(att)
+    g1, be1, bq, g2, be2, b1 = (u.float() for u in (g1, be1, bq, g2, be2, b1))
+    # the MLP half
+    xn2, inv2 = _ln_parts(zt, eps)
+    y2 = _bf(xn2 * g2 + be2)
+    h = _bf(_bf(y2 @ _bf(w1)) + _bf(b1))
+    hg = _bf(F.gelu(h, approximate="none"))
+    dm = do * _row_scale(s2, b, hh * ww)
+    dm_lo = _bf(dm)
+    dw2, db2 = hg.T @ dm_lo, dm.sum(0)
+    dh = (dm_lo @ _bf(w2).T) * _gelu_grad(h)
+    dh_lo = _bf(dh)
+    dw1, db1 = y2.T @ dh_lo, dh.sum(0)
+    dy2 = dh_lo @ _bf(w1).T
+    dg2, dbe2 = (dy2 * xn2).sum(0), dy2.sum(0)
+    dz = do + _ln_backward(dy2, xn2, inv2, g2)
+    # the attention half
+    xn, inv = _ln_parts(t, eps)
+    y = _bf(xn * g1 + be1)
+    qkv = _bf(_bf(y @ _bf(wq)) + _bf(bq))
+    q, k, v = (_heads(u, num_heads)
+               for u in _to_windows(qkv.reshape(b, hh, ww, 3 * c), ws).chunk(3, dim=-1))
+    dzp = dz * _row_scale(s1, b, hh * ww)
+    dzp_lo = _bf(dzp)
+    dwp, dbp = att_t.T @ dzp_lo, dzp.sum(0)
+    datt = _bf(dzp_lo @ _bf(wp).T)
+    dqkv, dbias = _window_attn_backward(P.float(), q, k, v, datt, kinds, b, hh, ww, num_heads,
+                                        head_dim, ws, rounded=True)
+    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
+    dy = dqkv @ _bf(wq).T
+    dg1, dbe1 = (dy * xn).sum(0), dy.sum(0)
+    dx = _roll((dz + _ln_backward(dy, xn, inv, g1)).reshape(b, hh, ww, c), shift)
+    return (dx.to(torch.bfloat16), dg1, dbe1, dwq, dbq, dwp, dbp, dbias, dg2, dbe2, dw1, db1, dw2,
+            db2)
+
+
 def _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, name):
     b, hh, ww, c = x.shape
     hidden = w1.shape[1]
@@ -944,6 +1051,10 @@ def _param_shapes(c, hidden, kinds, num_heads, n):
 
 def _swin_block_train_fwd_cuda(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1,
                                s2, num_heads, head_dim, window_size, eps, shift):
+    if x.dtype == torch.bfloat16:
+        return fused_swin_block_train_bf16(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2,
+                                           b2, s1, s2, num_heads, head_dim, window_size, eps,
+                                           shift)
     name = "fused_swin_block_train"
     _check_train_shapes(x, w1, bias.shape[0], num_heads, head_dim, window_size, shift, name)
     b, hh, ww, c = x.shape
@@ -981,8 +1092,14 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
     """The saved-P backward (TPU kernel #5): dx and the 13 parameter
     gradients, as `fused_swin_block_train_bwd_reference` returns them. On a
     CUDA tensor it launches the kernels of `csrc/fused_block_train.cu` (one
-    counted call; every product but the per-window attention's on the
-    tensor cores in 3xTF32); on a CPU tensor it runs the plain version."""
+    counted call; every product on the tensor cores in 3xTF32, the window
+    attention's on #10's saved-P stage); on a CPU tensor it runs the plain
+    version. A bf16 x takes the bf16 form
+    (`fused_swin_block_train_backward_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return fused_swin_block_train_backward_bf16(
+            x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2, P, att, z, dout, kinds,
+            num_heads, head_dim, window_size, eps, shift)
     if x.device.type == "cpu":
         return fused_swin_block_train_bwd_reference(
             x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2, P, att, z, dout, kinds,
@@ -1009,7 +1126,7 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
     y, y2, dm, dz, dzp, datt = (new(T, c) for _ in range(6))
-    stats1, stats2, dqkv = new(T, 2), new(T, 2), new(T, 3 * c)
+    stats1, stats2, qkv, dqkv = new(T, 2), new(T, 2), new(T, 3 * c), new(T, 3 * c)
     hg, dh = new(T, hidden), new(T, hidden)
     ds, dx = torch.empty_like(P), torch.empty_like(x)
     ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
@@ -1022,8 +1139,8 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
     _launch(
         "fused_block_train", "trr_swin_block_bwd", dev,
         *(t.data_ptr() for t in (x, z, dout, P, att, g1, be1, wq, bq, wp, g2, be2, w1, b1, w2, s1,
-                                 s2, y, stats1, y2, stats2, dm, hg, dh, dz, dzp, datt, dqkv, ds,
-                                 ln_part, part, dx, dln1, dq, dp, dbias, dln2, d1, d2)),
+                                 s2, y, stats1, y2, stats2, dm, hg, dh, dz, dzp, datt, qkv, dqkv,
+                                 ds, ln_part, part, dx, dln1, dq, dp, dbias, dln2, d1, d2)),
         b, hh, ww, c, num_heads, hidden, kinds, shift, eps, head_dim**-0.5,
     )
     return (dx, *dln1.split(c), *_split_grad(dq, c, 3 * c), *_split_grad(dp, c, c), dbias,
@@ -1033,13 +1150,124 @@ def fused_swin_block_train_backward(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1,
 fused_swin_block_train_backward.launches = 0
 
 
+def fused_swin_block_train_bf16(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2,
+                                num_heads, head_dim, window_size, eps=1e-5, shift=0):
+    """#4's bf16 form: (out, P, att, z) of a bf16 x, all bf16, from the fp32
+    parameters, as `fused_swin_block_train_bf16_reference` computes them.
+    On a CUDA tensor it casts the four weights to bf16 and launches
+    `trr_swin_block_fwd_bf16` (one counted call, seven launches); on a CPU
+    tensor it runs the plain version. Its gate is the fp32 form's."""
+    args = (x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2, num_heads,
+            head_dim, window_size, eps, shift)
+    if x.device.type == "cpu":
+        return fused_swin_block_train_bf16_reference(*args)
+    name = "fused_swin_block_train_bf16"
+    _check_train_shapes(x, w1, bias.shape[0], num_heads, head_dim, window_size, shift, name)
+    b, hh, ww, c = x.shape
+    hidden, kinds, n, dev = w1.shape[1], bias.shape[0], window_size**2, x.device
+    shapes = _param_shapes(c, hidden, kinds, num_heads, n)
+    ops = dict(g1=g1, be1=be1, wq=wq, bq=bq, wp=wp, bp=bp, bias=bias, g2=g2, be2=be2, w1=w1,
+               b1=b1, w2=w2, b2=b2)
+    _check_cuda("x", x, (b, hh, ww, c), dev, torch.bfloat16)
+    for k, t in ops.items():
+        _check_cuda(k, t, shapes[k], dev)
+    _check_cuda("s1", s1, (b,), dev)
+    _check_cuda("s2", s2, (b,), dev)
+    ops.update({k: ops[k].to(torch.bfloat16) for k in ("wq", "wp", "w1", "w2")})
+    _check_aligned(name, x=x, **ops)
+    out, att, z = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    p = torch.empty((b, hh // window_size, ww // window_size, num_heads, n, n), device=dev,
+                    dtype=torch.bfloat16)
+    if x.numel() == 0:
+        return out, p, att, z
+    T = b * hh * ww  # scratch: LN1(x), then LN2(z); qkv; the MLP's hidden layer
+    y, qkv, h = (torch.empty((T, k), device=dev, dtype=torch.bfloat16)
+                 for k in (c, 3 * c, hidden))
+    fused_swin_block_train_bf16.launches += 1
+    _launch(
+        "fused_block_train", "trr_swin_block_fwd_bf16", dev,
+        x.data_ptr(), *(t.data_ptr() for t in ops.values()), s1.data_ptr(), s2.data_ptr(),
+        *(t.data_ptr() for t in (y, qkv, h, out, p, att, z)),
+        b, hh, ww, c, num_heads, hidden, kinds, shift, eps, head_dim**-0.5,
+    )
+    return out, p, att, z
+
+
+fused_swin_block_train_bf16.launches = 0
+
+
+def fused_swin_block_train_backward_bf16(x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2,
+                                         s1, s2, P, att, z, dout, kinds, num_heads, head_dim,
+                                         window_size, eps=1e-5, shift=0):
+    """#5's bf16 form: dx (bf16) and the 13 parameter gradients (fp32) from
+    the bf16 x, P, att, z and dout, as
+    `fused_swin_block_train_bwd_bf16_reference` computes them. On a CUDA
+    tensor it launches `trr_swin_block_bwd_bf16` (one counted call); on a
+    CPU tensor it runs the plain version."""
+    if x.device.type == "cpu":
+        return fused_swin_block_train_bwd_bf16_reference(
+            x, g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2, s1, s2, P, att, z, dout, kinds,
+            num_heads, head_dim, window_size, eps, shift)
+    name = "fused_swin_block_train_backward_bf16"
+    _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, name)
+    b, hh, ww, c = x.shape
+    hidden, n, dev = w1.shape[1], window_size**2, x.device
+    nwh, nww = hh // window_size, ww // window_size
+    shapes = _param_shapes(c, hidden, kinds, num_heads, n)
+    ops = dict(g1=g1, be1=be1, wq=wq, bq=bq, wp=wp, g2=g2, be2=be2, w1=w1, b1=b1, w2=w2)
+    for k, t in ops.items():
+        _check_cuda(k, t, shapes[k], dev)
+    for k, t in (("x", x), ("att", att), ("z", z), ("dout", dout)):
+        _check_cuda(k, t, (b, hh, ww, c), dev, torch.bfloat16)
+    _check_cuda("P", P, (b, nwh, nww, num_heads, n, n), dev, torch.bfloat16)
+    _check_cuda("s1", s1, (b,), dev)
+    _check_cuda("s2", s2, (b,), dev)
+    ops.update({k: ops[k].to(torch.bfloat16) for k in ("wq", "wp", "w1", "w2")})
+    _check_aligned(name, x=x, z=z, dout=dout, P=P, att=att, **ops)
+    T = b * hh * ww
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    def half(*shape):
+        return new(*shape, dtype=torch.bfloat16)
+
+    y, y2, dm, dzp, datt = (half(T, c) for _ in range(5))
+    dz, stats1, stats2 = new(T, c), new(T, 2), new(T, 2)
+    hg, dh, dh32 = half(T, hidden), half(T, hidden), new(T, hidden)
+    qkv, dqkv = half(T, 3 * c), half(T, 3 * c)
+    ds, dx = new(*P.shape), torch.empty_like(x)
+    ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
+    part = new(max(_part_floats(T, m, k)
+                   for m, k in ((hidden, c), (c, hidden), (c, c), (c, 3 * c))))
+    dln1, dln2, dbias = new(2 * c), new(2 * c), new(kinds, num_heads, n, n)
+    dq, dp = new(c * 3 * c + 3 * c), new(c * c + c)
+    d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
+    fused_swin_block_train_backward_bf16.launches += 1
+    _launch(
+        "fused_block_train", "trr_swin_block_bwd_bf16", dev,
+        *(t.data_ptr() for t in (x, z, dout, P, att, g1, be1, ops["wq"], bq, ops["wp"], g2, be2,
+                                 ops["w1"], b1, ops["w2"], s1, s2, y, stats1, y2, stats2, dm, hg,
+                                 dh, dh32, dz, dzp, datt, qkv, dqkv, ds, ln_part, part, dx, dln1,
+                                 dq, dp, dbias, dln2, d1, d2)),
+        b, hh, ww, c, num_heads, hidden, kinds, shift, eps, head_dim**-0.5,
+    )
+    return (dx, *dln1.split(c), *_split_grad(dq, c, 3 * c), *_split_grad(dp, c, c), dbias,
+            *dln2.split(c), *_split_grad(d1, c, hidden), *_split_grad(d2, hidden, c))
+
+
+fused_swin_block_train_backward_bf16.launches = 0
+
+
 class _SwinBlockTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2,
                 num_heads, head_dim, window_size, eps, shift):
         args = (x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1, s2,
                 num_heads, head_dim, window_size, eps, shift)
-        if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            out, p, att, z = fused_swin_block_train_bf16(*args)
+        elif x.device.type == "cpu":
             out, p, att, z = fused_swin_block_train_reference(*args)
         else:
             out, p, att, z = _swin_block_train_fwd_cuda(*args)
@@ -1067,8 +1295,10 @@ def fused_swin_block_train(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2
     gradient from them (the saved-P backward). With shift > 0 the windows
     are those of x rolled by (-shift, -shift) and out comes back in x's
     frame, so the caller rolls nothing. On a CUDA tensor the forward
-    launches `csrc/fused_block_train.cu` (one counted call, two launches);
-    on a CPU tensor both directions run their plain versions."""
+    launches `csrc/fused_block_train.cu` (one counted call); on a CPU tensor
+    both directions run their plain versions. A bf16 x runs the bf16 forms
+    (`fused_swin_block_train_bf16` and its backward): out and dx in bf16,
+    the parameter gradients in fp32."""
     return _SwinBlockTrain.apply(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2, b2, s1,
                                  s2, num_heads, head_dim, window_size, eps, shift)
 

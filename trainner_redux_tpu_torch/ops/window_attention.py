@@ -270,13 +270,18 @@ def fused_window_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window
                                          window_size)
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> None:
+    """Placement, type (float32 unless a bf16 form asks for bfloat16), shape
+    and contiguity of a kernel operand; raises on anything else, so a bf16
+    tensor that reaches an fp32-only kernel raises and is never cast."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, the other operands on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {str(dtype).removeprefix('torch.')}, "
+                        f"got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
