@@ -3,8 +3,8 @@
 DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, SwinIR-M 4x
 training on pairs degraded on the fly (Real-ESRGAN OTF), the training
 form of the Swin attention half that saves P, SwinIR-M 4x GAN training
-with the DUnet discriminator (swinir_m_gan.yml), and SwinIR-M 4x bf16
-training as swinir_m_fidelity.yml ships it.
+with the DUnet discriminator (swinir_m_gan.yml), and bf16 training as
+the fidelity templates of SwinIR-M, HAT-M, DAT and SwinIR-L ship it.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -235,6 +235,36 @@ failure:
              BF16_BRANCH_LOSS_TOL, the gradients' distance from the fp32
              step (see phase_bf16_branches); then two `deterministic: true`
              bf16 steps twice, bit for bit.
+45. bf16 window kernels - the bf16 forms of #3/#8 and #2/#7 on bf16
+             operands (fp32 kind table and parameters) at each bf16 path's
+             shapes: HAT-M's block (B=8, 48x48, C 180, 6 heads, ws 16, K=1
+             and K=4), SwinIR-L's (C 240, 8 heads of 30, ws 8, K=1 and K=4),
+             DAT's branches (90 channels, 3 heads; 32x8 and 8x32 at the
+             crop's qkv padded to 64x64, K=4 and K=1/K=4, and dat_s's 8x16 at
+             48x48) and HAT-M's MLP half (C 180, hidden 360, DropPath scales
+             holding 0 and 1/0.9): each output and gradient against its bf16
+             plain version (phase 41's BF16_TOL, BF16_FAR_SHARE) and, with
+             it, against float64 of the same bf16 inputs (F64_RATIO,
+             F64_FLOOR); two runs of each bit for bit; times beside the fp32
+             forms', bf16 SDPA with a float mask (#3/#8) and the bf16 bound
+             with its share; the stage splits at HAT-M's K=4, SwinIR-L's K=4,
+             DAT's 8x32 K=4 and the MLP half; the MLP half also at
+             SRFormerV2's C 240 / hidden 480 (B=8, 72x72), checked and timed.
+46-48. hat / dat / swinir_l bf16 train - `train.run` of hat_m_fidelity.yml,
+             dat_fidelity.yml and swinir_l_fidelity.yml as shipped (bf16,
+             batch 8 of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, their
+             validation), 30 steps each, counting a step's bf16 launches (HAT-M
+             36 + 36 #3/#8 and 42 + 42 #2/#7; DAT 36 + 36 rect #3/#8;
+             SwinIR-L 54 + 54 #3/#8 at ws 8) and none of any fp32 training
+             form; every log finite; the validation through the fp32 twin
+             (PSNR/SSIM); the EMA checkpoint served with the strict load.
+49. hat / dat bf16 profile and branches - phases 43 and 44 for HAT-M and
+             DAT: one bf16 step's device time by kernel, the bf16 forms'
+             stages summed, the busy share and peak memory; one step through
+             the bf16 kernels, their bf16 plain versions and the fp32
+             kernels (the losses within BF16_BRANCH_LOSS_TOL, the gradients'
+             L2 distance from fp32 within BF16_BRANCH_RATIO of the plain
+             versions'); two deterministic bf16 steps twice, bit for bit.
 
 Each phase prints its seconds. Then one JSON line of kernel records and,
 last, the device JSON line.
@@ -345,6 +375,14 @@ REPLACES = {
     "fused_attn_block_train_backward_ws12": "trainner_redux_tpu/ops/pallas/fused_block.py:1036",
     "fused_swin_block_train_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:1374",
     "fused_swin_block_train_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:1441",
+    "fused_window_mhsa_bf16": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward_bf16": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_window_mhsa_bf16_ws8": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward_bf16_ws8": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_rect_mhsa_bf16": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_rect_mhsa_backward_bf16": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_ln_mlp_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
+    "fused_ln_mlp_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -372,6 +410,14 @@ SOURCES = {
     "fused_attn_block_train_backward_ws12": "trainner_redux_tpu_torch/csrc/attn_block_staged.cu",
     "fused_swin_block_train_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_swin_block_train_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_window_mhsa_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_bf16_ws8": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_bf16_ws8": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_rect_mhsa_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_rect_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_ln_mlp_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_ln_mlp_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
@@ -380,7 +426,10 @@ SOURCES = {
 # "fused_attn_block_train*" records are #9 and #10 at SwinIR-M's block (8x8)
 # and SRFormerV2's ("_ws12"), counted in phase 35's runs of each; the
 # "_bf16" records are #4 and #5's bf16 forms, counted in the bf16 training
-# run of swinir_m_fidelity.yml (phase 42)
+# run of swinir_m_fidelity.yml (phase 42), and those of #3/#8 and #2/#7,
+# counted in the bf16 runs of hat_m_fidelity.yml (ws 16, the MLP halves),
+# dat_fidelity.yml (rect) and swinir_l_fidelity.yml ("_ws8": 8x8 at C 240;
+# phases 46-48)
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -589,6 +638,7 @@ def stage_of(kernel: str) -> str:
                         ("mlp_hidden_bf16_kernel", "fc1 and dh"),
                         ("attn_rows_fwd_bf16_kernel", "window attention forward"),
                         ("attn_rows_bwd_bf16_kernel", "window attention"),
+                        ("attn_rows_bwd_recompute_bf16_kernel", "window attention"),
                         ("atb_bf16_kernel", "weight gradients")):
         if part in kernel:
             return stage
@@ -939,6 +989,12 @@ def _wrappers() -> dict:
         "fused_swin_block_train_backward": fb.fused_swin_block_train_backward,
         "fused_swin_block_train_bf16": fb.fused_swin_block_train_bf16,
         "fused_swin_block_train_backward_bf16": fb.fused_swin_block_train_backward_bf16,
+        "fused_window_mhsa_bf16": wa.fused_window_mhsa_bf16,
+        "fused_window_mhsa_backward_bf16": wa.fused_window_mhsa_backward_bf16,
+        "fused_rect_mhsa_bf16": wa.fused_rect_mhsa_bf16,
+        "fused_rect_mhsa_backward_bf16": wa.fused_rect_mhsa_backward_bf16,
+        "fused_ln_mlp_bf16": fb.fused_ln_mlp_bf16,
+        "fused_ln_mlp_backward_bf16": fb.fused_ln_mlp_backward_bf16,
         "fused_window_mhsa_backward": wa.fused_window_mhsa_backward,
         "fused_ln_mlp_backward": fb.fused_ln_mlp_backward,
         "fused_rect_mhsa": wa.fused_rect_mhsa,
@@ -3564,21 +3620,21 @@ def phase_bf16_kernels() -> dict:
 
 
 def fidelity_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, val_dirs=None,
-                     **extra):
-    """configs/_templates/train/SwinIR/swinir_m_fidelity.yml as shipped
-    (compute_dtype bfloat16, SwinIR-M 4x, batch 8 of 48x48 LR crops, L1 +
-    MS-SSIM, AdamW 2e-4, EMA 0.999, its MultiStepLR; its tensorboard logger
-    prints the port's NOTE), on `hr_dir` / `lr_dir`, 30 steps; with
-    `val_dirs` (HR, LR) its validation (PSNR and SSIM, the fp32 twin) runs
-    as the template sets it: at the end of training, its val_freq not
-    reached in 30 steps; else none."""
+                     template: Path = FIDELITY_TEMPLATE, **extra):
+    """`template` (configs/_templates/train/SwinIR/swinir_m_fidelity.yml unless
+    said: compute_dtype bfloat16, SwinIR-M 4x, batch 8 of 48x48 LR crops, L1
+    + MS-SSIM, AdamW 2e-4, EMA 0.999, its MultiStepLR; its tensorboard
+    logger prints the port's NOTE) as shipped, on `hr_dir` / `lr_dir`, 30
+    steps; with `val_dirs` (HR, LR) its validation (PSNR and SSIM, the fp32
+    twin) runs as the template sets it: at the end of training, its
+    val_freq not reached in 30 steps; else none."""
     import yaml
 
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
 
-    raw = yaml.safe_load(FIDELITY_TEMPLATE.read_text())
+    raw = yaml.safe_load(template.read_text())
     raw.update(name=name, manual_seed=seed, num_gpu=1, path={})
     train = {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir), "dataroot_lq": str(lr_dir),
              "io_backend": {"type": "disk"}, "num_worker_per_gpu": 4}
@@ -3602,44 +3658,55 @@ def phase_bf16_train(seed: int) -> dict[str, int]:
     validation after step 30 runs the fp32 twin (the EMA network in fp32,
     on #1/#2: 36 + 36 launches an image) and logs PSNR/SSIM; the EMA
     checkpoint then serves with the strict load."""
-    import math
-
-    import torch
-
     hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
     val_hr, val_lr = make_dataset(OUT / "data", seed)
     opt = fidelity_options("swinir_m_x4_fidelity_bf16", hr_dir, lr_dir, seed, (val_hr, val_lr))
-
-    def check(model, opt):
-        if model.compute_dtype != torch.bfloat16 or model.net_g.compute_dtype != torch.bfloat16:
-            fail(f"bf16 train: the model computes in {model.compute_dtype}")
-        if any(p.dtype != torch.float32 for p in model.net_g.parameters()):
-            fail("bf16 train: a parameter is not fp32")
-        metrics = getattr(model, "metric_results", {})
-        if not all(math.isfinite(metrics.get(k, float("nan"))) for k in ("psnr", "ssim")):
-            fail(f"bf16 train: validation logged no finite PSNR/SSIM: {metrics}")
-        say(f"[bf16 train] validation after step {TRAIN_STEPS} through the fp32 twin: psnr "
-            f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f}")
-
     return phase_train(seed, "swinir_m", "SwinIR-M bf16 (swinir_m_fidelity.yml)", "bf16 train",
                        per_step=BF16_TRAIN_STEP, lq=FID_LQ, losses=FID_LOSSES, opt=opt,
                        more_launches=lambda: {"fused_attn_block": BLOCKS * N_IMAGES,
                                               "fused_ln_mlp": BLOCKS * N_IMAGES},
-                       check=check)
+                       check=bf16_train_check("bf16 train"))
 
 
-def phase_bf16_profile(seed: int) -> None:
-    """43. Device time by kernel of one bf16 step of the template's run
-    (after two warm-up steps), its busy share and launches; the table to
-    chip_smoke/profile_bf16_train.txt."""
+def bf16_train_check(tag: str):
+    """A bf16 training run's check for `phase_train`: the model and network
+    compute in bf16, every parameter is fp32, and the validation at the end
+    (the fp32 twin) logged a finite PSNR and SSIM."""
+    import math
+
+    import torch
+
+    def check(model, opt):
+        if model.compute_dtype != torch.bfloat16 or model.net_g.compute_dtype != torch.bfloat16:
+            fail(f"{tag}: the model computes in {model.compute_dtype}")
+        if any(p.dtype != torch.float32 for p in model.net_g.parameters()):
+            fail(f"{tag}: a parameter is not fp32")
+        metrics = getattr(model, "metric_results", {})
+        if not all(math.isfinite(metrics.get(k, float("nan"))) for k in ("psnr", "ssim")):
+            fail(f"{tag}: validation logged no finite PSNR/SSIM: {metrics}")
+        say(f"[{tag}] validation after step {TRAIN_STEPS} through the fp32 twin: psnr "
+            f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f}")
+
+    return check
+
+
+def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
+                       name: str = "swinir_m_x4_bf16_profile",
+                       per_step: dict[str, int] = BF16_TRAIN_STEP, tag: str = "bf16 train profile",
+                       file: str = "profile_bf16_train.txt") -> None:
+    """43 (and 49). Device time by kernel of one bf16 step of `template`'s
+    run (after two warm-up steps), its busy share and launches (`per_step`
+    and no others), the bf16 forms' stages summed; the table to
+    chip_smoke/`file`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from trainner_redux_tpu_torch.models import build_model
 
-    opt = fidelity_options("swinir_m_x4_bf16_profile", OUT, OUT, seed)
+    opt = fidelity_options(name, OUT, OUT, seed, template=template)
     model = build_model(opt, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed)
     batch = {"lq": rng.integers(0, 256, (TB, FID_LQ, FID_LQ, 3), dtype=np.uint8),
              "gt": rng.integers(0, 256, (TB, 4 * FID_LQ, 4 * FID_LQ, 3), dtype=np.uint8)}
@@ -3652,13 +3719,14 @@ def phase_bf16_profile(seed: int) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.optimize_parameters(3)
         torch.cuda.synchronize()
-    check_counts("bf16 profile step", read_counts(), BF16_TRAIN_STEP)
+    check_counts(f"{tag} step", read_counts(), per_step)
     events = device_events(prof)
-    check_retired("bf16 train profile", events)
+    check_retired(tag, events)
     total = sum(e.self_device_time_total for e in events)
     if total == 0:
-        fail("[bf16 train profile] the profiler recorded no device time")
-    (OUT / "profile_bf16_train.txt").write_text(
+        fail(f"[{tag}] the profiler recorded no device time")
+    peak = torch.cuda.max_memory_allocated()
+    (OUT / file).write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
     t0 = time.perf_counter()
     for i in range(3):
@@ -3670,12 +3738,13 @@ def phase_bf16_profile(seed: int) -> None:
     for e in events:
         st = stage_of(e.key) if "trr::" in e.key and "bf16" in e.key else "other"
         by_stage[st] = by_stage.get(st, 0.0) + e.self_device_time_total / 1e3
-    say(f"[bf16 train profile] device time per step {total / 1e3:.3f} ms over "
+    say(f"[{tag}] device time per step {total / 1e3:.3f} ms over "
         f"{sum(e.count for e in events)} kernel launches; step {step * 1e3:.1f} ms without the "
-        f"profiler (the card busy {total / 1e6 / step:.1%} of it); bf16 #4/#5 stages: "
+        f"profiler (the card busy {total / 1e6 / step:.1%} of it); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; the bf16 forms' stages: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_stage.items(), key=lambda kv: -kv[1])))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
-        say(f"[bf16 train profile]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+        say(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
             f"{e.key[:90]}")
 
 
@@ -3710,12 +3779,46 @@ class _PlainBf16Block:
         return self.fn.apply(x, *rest, shift)
 
 
-def phase_bf16_branches(seed: int) -> None:
-    """44. One bf16 step of the template's SwinIR-M (batch 8 of 48x48 LR, L1
-    + MS-SSIM) from equal weights, DropPath generators and batch, through
-    the bf16 kernels and through the bf16 plain versions of #4/#5 on the
-    card (everything else the same), and, as the yardstick of bf16 itself,
-    through the fp32 kernels: the losses within BF16_BRANCH_LOSS_TOL of each
+@contextmanager
+def bf16_plain_versions(network: str):
+    """For the body, the bf16 forms that `network`'s training step runs are
+    replaced by their bf16 plain versions, on the card: #4/#5's for
+    SwinIR-M, #3/#8's and #2/#7's for the others."""
+    from trainner_redux_tpu_torch.archs import swinir_arch
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    if network == "swinir_m":
+        patches = [(swinir_arch, "fused_swin_block_train", _PlainBf16Block(fb))]
+    else:
+        patches = [(mod, name, getattr(mod, ref)) for mod, name, ref in (
+            (wa, "fused_window_mhsa_bf16", "fused_window_mhsa_bf16_reference"),
+            (wa, "fused_window_mhsa_backward_bf16", "fused_window_mhsa_bwd_bf16_reference"),
+            (wa, "fused_rect_mhsa_bf16", "fused_rect_mhsa_bf16_reference"),
+            (wa, "fused_rect_mhsa_backward_bf16", "fused_rect_mhsa_bwd_bf16_reference"),
+            (fb, "fused_ln_mlp_bf16", "fused_ln_mlp_bf16_reference"),
+            (fb, "fused_ln_mlp_backward_bf16", "fused_ln_mlp_bwd_bf16_reference"))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_bf16_branches(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
+                        template: Path = FIDELITY_TEMPLATE, tag: str = "bf16 branches",
+                        kernel_step: dict[str, int] = BF16_TRAIN_STEP,
+                        fp32_step: dict[str, int] | None = None,
+                        tensor_check: bool = True) -> None:
+    """44 (and 49). One bf16 step of `template`'s network (SwinIR-M: batch 8
+    of 48x48 LR, L1 + MS-SSIM) from equal weights, DropPath generators and
+    batch, through the bf16 kernels (`kernel_step` launches), through their
+    bf16 plain versions on the card (`bf16_plain_versions`; everything else
+    the same), and, as the yardstick of bf16 itself, through the fp32
+    kernels (`fp32_step`): the losses within BF16_BRANCH_LOSS_TOL of each
     other (relative). The gradients sum bf16-rounded gradients of random
     sign over every pixel through 36 blocks, so bf16 moves a first layer's
     by some 6% of its largest from fp32, and a value at a rounding tie that
@@ -3723,24 +3826,31 @@ def phase_bf16_branches(seed: int) -> None:
     kernel branch lies within BF16_BRANCH_RATIO of the plain branch's
     distance from the fp32 step (L2 over every gradient), and per tensor
     within BF16_TENSOR_RATIO of the plain branch's largest distance from it
-    (plus BRANCH_GRAD_TOL of the tensor's largest). Then two
-    `deterministic: true` bf16 steps bit for bit."""
+    (plus BRANCH_GRAD_TOL of the tensor's largest). Without `tensor_check`
+    (phase 49) the per-tensor ratio is printed and not held: HAT's
+    channel-attention convolutions and DAT's position MLPs take sums of
+    terms of random sign that nearly cancel (HAT's SE convolutions some
+    1e-6 of their block's largest gradient), on which two bf16 computations
+    differ by their terms' roundings, not by a share of the sum; the L2
+    distance over every parameter holds them. Then two `deterministic:
+    true` bf16 steps bit for bit."""
     import copy
 
     import numpy as np
     import torch
 
-    from trainner_redux_tpu_torch.archs import build_network_cast, swinir_arch
+    from trainner_redux_tpu_torch.archs import build_network_cast
     from trainner_redux_tpu_torch.models import build_model
     from trainner_redux_tpu_torch.models.sr_model import fp32_math
-    from trainner_redux_tpu_torch.ops import fused_block as fb
 
-    net = build_network_cast({"type": "swinir_m", "scale": 4}, torch.bfloat16)
+    fp32_step = fp32_step or {"fused_swin_block_train": BLOCKS,
+                              "fused_swin_block_train_backward": BLOCKS}
+    net = build_network_cast({"type": network, "scale": 4}, torch.bfloat16)
     net = net.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
     gen = torch.Generator().manual_seed(seed + 1)
     x = torch.rand(TB, 3, FID_LQ, FID_LQ, generator=gen).cuda()
     gt = torch.rand(TB, 3, 4 * FID_LQ, 4 * FID_LQ, generator=gen).cuda()
-    opt = fidelity_options("swinir_m_x4_bf16_branches", OUT, OUT, seed)
+    opt = fidelity_options(f"{network}_x4_bf16_branches", OUT, OUT, seed, template=template)
     losses_fn = build_model(opt, device="cuda")._generator_losses
     results = {}
     for branch in ("kernel", "plain", "fp32"):
@@ -3748,36 +3858,31 @@ def phase_bf16_branches(seed: int) -> None:
         if branch == "fp32":
             m.compute_dtype = torch.float32
         m.set_dropout_generator(torch.Generator(device="cuda").manual_seed(seed))
-        saved = swinir_arch.fused_swin_block_train
-        if branch == "plain":
-            swinir_arch.fused_swin_block_train = _PlainBf16Block(fb)
-        try:
-            with fp32_math():
-                reset_counts()
-                loss = losses_fn(m(x), gt)[0]
-                loss.backward()
-                torch.cuda.synchronize()
-                counts = read_counts()
-        finally:
-            swinir_arch.fused_swin_block_train = saved
-        want = {"kernel": BF16_TRAIN_STEP, "plain": {},
-                "fp32": {"fused_swin_block_train": BLOCKS,
-                         "fused_swin_block_train_backward": BLOCKS}}[branch]
-        check_counts(f"bf16 branches ({branch})", counts, want)
-        results[branch] = (loss.item(), {k: p.grad for k, p in m.named_parameters()})
-        say(f"[bf16 branches] {branch}: loss {loss.item():.6f}, launches {counts}")
+        with fp32_math(), bf16_plain_versions(network) if branch == "plain" else nullcontext():
+            reset_counts()
+            loss = losses_fn(m(x), gt)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = read_counts()
+        want = {"kernel": kernel_step, "plain": {}, "fp32": fp32_step}[branch]
+        check_counts(f"{tag} {label} ({branch})", counts, want)
+        # a parameter the step does not reach (DAT's BatchNorm statistics in
+        # train mode) has a zero gradient, as SRModel hands it to AdamW
+        results[branch] = (loss.item(), {k: torch.zeros_like(p) if p.grad is None else p.grad
+                                         for k, p in m.named_parameters()})
+        say(f"[{tag}] {label} {branch}: loss {loss.item():.6f}, launches {counts}")
     (lk, gk), (lp, gp), (lf, gf) = results["kernel"], results["plain"], results["fp32"]
     rel = abs(lk - lp) / abs(lp)
     if not rel <= BF16_BRANCH_LOSS_TOL:
-        fail(f"bf16 branches: loss differs by {rel:.3g} (relative) between the kernels and the "
+        fail(f"{tag} {label}: loss differs by {rel:.3g} (relative) between the kernels and the "
              "plain versions")
     worst = (0.0, "")
     for k, w in gp.items():
         top = w.abs().max().item()
         diff, noise = (gk[k] - w).abs().max().item(), (w - gf[k]).abs().max().item()
         worst = max(worst, (diff / max(noise, 1e-30), k))
-        if not diff <= BF16_TENSOR_RATIO * noise + BRANCH_GRAD_TOL * top:
-            fail(f"bf16 branches: gradient of {k} differs by {diff:.3g} between the kernels and "
+        if tensor_check and not diff <= BF16_TENSOR_RATIO * noise + BRANCH_GRAD_TOL * top:
+            fail(f"{tag} {label}: gradient of {k} differs by {diff:.3g} between the kernels and "
                  f"the plain versions; bf16 and fp32 differ by {noise:.3g} (max {top:.3g})")
 
     def dist(a, b):
@@ -3785,16 +3890,18 @@ def phase_bf16_branches(seed: int) -> None:
 
     dk, dp = dist(gk, gf), dist(gp, gf)
     if not dk <= BF16_BRANCH_RATIO * dp:
-        fail(f"bf16 branches: the kernels' gradients lie {dk:.4g} from the fp32 step's, the "
+        fail(f"{tag} {label}: the kernels' gradients lie {dk:.4g} from the fp32 step's, the "
              f"plain versions' {dp:.4g} (L2 over every parameter)")
-    say(f"[bf16 branches] losses: kernels {lk:.6f}, plain versions {lp:.6f} (rel {rel:.3g}, tol "
+    say(f"[{tag}] {label} losses: kernels {lk:.6f}, plain versions {lp:.6f} (rel {rel:.3g}, tol "
         f"{BF16_BRANCH_LOSS_TOL}), fp32 {lf:.6f}; gradients' L2 distance from the fp32 step: "
         f"kernels {dk:.4g}, plain versions {dp:.4g} (ratio {dk / dp:.3f}, tol "
         f"{BF16_BRANCH_RATIO}); per tensor the kernel-plain difference at most {worst[0]:.3f} "
-        f"of the plain-fp32 one ({worst[1]}; tol {BF16_TENSOR_RATIO})")
+        f"of the plain-fp32 one ({worst[1]}; "
+        f"{f'tol {BF16_TENSOR_RATIO}' if tensor_check else 'printed, not held'})")
 
     # two deterministic bf16 steps, bit for bit
-    det = fidelity_options("swinir_m_x4_bf16_deterministic", OUT, OUT, seed, deterministic=True)
+    det = fidelity_options(f"{network}_x4_bf16_deterministic", OUT, OUT, seed, template=template,
+                           deterministic=True)
     rng = np.random.default_rng(seed)
     batch = {"lq": rng.integers(0, 256, (TB, FID_LQ, FID_LQ, 3), dtype=np.uint8),
              "gt": rng.integers(0, 256, (TB, 4 * FID_LQ, 4 * FID_LQ, 3), dtype=np.uint8)}
@@ -3807,19 +3914,357 @@ def phase_bf16_branches(seed: int) -> None:
             try:
                 model.optimize_parameters(i + 1)
             except RuntimeError as e:
-                fail(f"bf16 with deterministic: true: {e}")
+                fail(f"{label} bf16 with deterministic: true: {e}")
         torch.cuda.synchronize()
-        check_counts("bf16 deterministic", read_counts(),
-                     {k: 2 * v for k, v in BF16_TRAIN_STEP.items()})
+        check_counts(f"{label} bf16 deterministic", read_counts(),
+                     {k: 2 * v for k, v in kernel_step.items()})
         runs.append((model.log_dict["l_g_total"].item(),
                      [p.detach().clone() for p in model.net_g.parameters()]))
         del model
         torch.cuda.empty_cache()
     (la, pa), (lb, pb) = runs
     if la != lb or not all(torch.equal(a, b) for a, b in zip(pa, pb)):
-        fail(f"bf16 with deterministic: true: two runs differ (loss {la!r} against {lb!r})")
-    say(f"[bf16 branches] deterministic: two bf16 steps twice, bit for bit in the loss "
+        fail(f"{label} bf16 with deterministic: true: two runs differ (loss {la!r} against "
+             f"{lb!r})")
+    say(f"[{tag}] {label} deterministic: two bf16 steps twice, bit for bit in the loss "
         f"({la:.6f}) and all {len(pa)} parameters")
+
+
+# ---------------------------------------------------------------------------
+# 45-49. bf16 window attention and LN-MLP: HAT, DAT and SwinIR-L training
+# ---------------------------------------------------------------------------
+
+# SwinIR-L's blocks: C 240, 8 heads of 30, 8x8 windows (the unfused branch:
+# C 240 is above the training block's 192); 54 blocks a forward
+SLC, SLNH = 240, 8
+SLHD = SLC // SLNH
+SWINIR_L_BLOCKS = 54
+TEMPLATES = ROOT / "configs" / "_templates" / "train"
+
+
+def bf16_f64_check(tag: str, what: str, got, want, exact) -> float:
+    """The kernel's and the plain version's errors against the float64
+    result `exact` of the same bf16 inputs: the kernel's at most F64_RATIO
+    times the plain version's plus F64_FLOOR of the largest; returns their
+    ratio."""
+    top = exact.abs().max().item()
+    ke = (got.double() - exact).abs().max().item()
+    pe = (want.double() - exact).abs().max().item()
+    if not ke <= F64_RATIO * pe + F64_FLOOR * top:
+        fail(f"[{tag}] {what} against float64: kernel {ke:.3g}, plain {pe:.3g} of {top:.3g} (the "
+             f"kernel may be at most {F64_RATIO}x the plain version's + {F64_FLOOR} of the "
+             "largest)")
+    say(f"[{tag}] {what} against float64: kernel {ke:.3g}, plain {pe:.3g} of {top:.3g}")
+    return ke / max(pe, 1e-30)
+
+
+def bf16_record(res: dict, tag: str, name: str, label: str, kern, plain, fp32, lib,
+                flops: float, nb: float, err: float, rel: float) -> None:
+    """Time a checked bf16 form beside its plain version, its fp32 form and
+    the library call; print them with the bf16 bound (989 TFLOP/s, 3.35
+    TB/s) and keep them in `res[name]` (the last case of a name is the JSON
+    line's)."""
+    ms, fp32_ms = time_ms(kern, iters=10, warmup=2), time_ms(fp32, iters=10, warmup=2)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
+    lib_ms = time_ms(lib, iters=10, warmup=2) if lib is not None else None
+    bms, by = bound(flops, nb, PEAK_BF16)
+    say(f"[{tag}] {name} {label}: max_abs_err {err:.3g} ({rel:.3g} of its tensor's largest), "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, fp32 form {fp32_ms:.4f} ms, library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms (bf16 SDPA, float mask)'}; bf16 bound "
+        f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB), "
+        f"{100 * bms / ms:.1f}% of the kernel's time")
+    rec = res.setdefault(name, {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: int, wc: int,
+                     kinds: int, nh: int, hd: int, shift_hw, gen, split: dict | None) -> None:
+    """#3's and #8's bf16 forms at one block: bf16 qkv and dout, the fp32
+    kind table (with the shift masks of `shift_hw` at K=4); each output and
+    gradient against its bf16 plain version (`check_bf16`) and, with the
+    plain version, against float64 of the same bf16 inputs; two runs of each
+    bit for bit; timed beside the fp32 forms and bf16 SDPA with a float mask
+    (forward, and forward and backward); `split`, the backward's stages a
+    call: both stage splits."""
+    import torch
+    import torch.nn.functional as F
+
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    dev = torch.device("cuda")
+    b, h, w = shape
+    c, n = nh * hd, wr * wc
+    square = wr == wc
+    qkv = torch.randn(b, h, w, 3 * c, generator=gen).to(dev).bfloat16()
+    rel = (torch.randn(nh, n, n, generator=gen) * 0.5).to(dev)
+    if kinds == 4:
+        masks = wa.rect_shift_mask_kinds(wr, wc, *shift_hw)
+        bias = (rel[None] + torch.from_numpy(masks).to(dev)[:, None]).contiguous()
+    else:
+        bias = rel[None].contiguous()
+    dout = torch.randn(b, h, w, c, generator=gen).to(dev).bfloat16()
+    win = (wr,) if square else (wr, wc)
+    if square:
+        fwd_k, fwd_p, fwd_32 = wa.fused_window_mhsa_bf16, wa.fused_window_mhsa_bf16_reference, \
+            wa.fused_window_mhsa
+        bwd_k, bwd_p, bwd_32 = (wa.fused_window_mhsa_backward_bf16,
+                                wa.fused_window_mhsa_bwd_bf16_reference,
+                                wa.fused_window_mhsa_backward)
+    else:
+        fwd_k, fwd_p, fwd_32 = wa.fused_rect_mhsa_bf16, wa.fused_rect_mhsa_bf16_reference, \
+            wa.fused_rect_mhsa
+        bwd_k, bwd_p, bwd_32 = (wa.fused_rect_mhsa_backward_bf16,
+                                wa.fused_rect_mhsa_bwd_bf16_reference,
+                                wa.fused_rect_mhsa_backward)
+    qkv32, dout32 = qkv.float(), dout.float()
+    tag = "bf16 window kernels"
+    try:
+        got, again = fwd_k(qkv, bias, nh, hd, *win), fwd_k(qkv, bias, nh, hd, *win)
+        grads, grads2 = (bwd_k(qkv, bias, dout, nh, hd, *win),
+                         bwd_k(qkv, bias, dout, nh, hd, *win))
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"{names[0]} {label}: {e}")
+    want, plain_grads = fwd_p(qkv, bias, nh, hd, *win), bwd_p(qkv, bias, dout, nh, hd, *win)
+    fwd_err = check_bf16(tag, f"{names[0]} {label} out", got, want)
+    bwd_err = [check_bf16(tag, f"{names[1]} {label} {part}", g, p_)
+               for part, g, p_ in zip(("dqkv", "dbias"), grads, plain_grads)]
+    if not torch.equal(got, again) or not all(torch.equal(x, y) for x, y in zip(grads, grads2)):
+        fail(f"{names[0]} {label}: two runs differ")
+    if got.dtype != torch.bfloat16 or grads[0].dtype != torch.bfloat16:
+        fail(f"{names[0]} {label}: out {got.dtype}, dqkv {grads[0].dtype}, expected bf16")
+    # float64 of the same bf16 inputs, autograd for the gradients
+    q64, b64 = qkv.double().requires_grad_(), bias.double().requires_grad_()
+    exact = window_mhsa_f64(q64, b64, nh, hd, wr, wc)
+    exact_g = torch.autograd.grad(exact, (q64, b64), dout.double())
+    ratio = max(bf16_f64_check(tag, f"{name} {label} {part}", g, p_, e.detach())
+                for name, part, g, p_, e in (
+                    (names[0], "out", got, want, exact),
+                    (names[1], "dqkv", grads[0], plain_grads[0], exact_g[0]),
+                    (names[1], "dbias", grads[1], plain_grads[1], exact_g[1])))
+    say(f"[{tag}] {label}: #3 bf16 within {fwd_err[1]:.3g} of out's largest, #8 bf16 within "
+        f"{max(e[1] for e in bwd_err):.3g} of each gradient's; against float64 at most "
+        f"{ratio:.3f}x the plain versions' error; two runs of each bit for bit")
+    q, k, v, mask = sdpa_windows(qkv, bias, wr, wc, kinds, nh, hd)
+    mask = mask.bfloat16()
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    gwin = dout.reshape(b, h // wr, wr, w // wc, wc, nh, hd)
+    gwin = gwin.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, nh, n, hd).contiguous()
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        return torch.autograd.grad(out, (qg, kg, vg), gwin)
+
+    tokens = b * h * w
+    fwd_flops, bwd_flops = 4 * tokens * n * c, 10 * tokens * n * c
+    fwd_bytes, bwd_bytes = nbytes(qkv, bias, got), nbytes(qkv, bias, dout, *grads)
+    bf16_record(res, tag, names[0], label, lambda: fwd_k(qkv, bias, nh, hd, *win),
+                lambda: fwd_p(qkv, bias, nh, hd, *win),
+                lambda: fwd_32(qkv32, bias, nh, hd, *win),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                fwd_flops, fwd_bytes, *fwd_err)
+    bf16_record(res, tag, names[1], label, lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
+                lambda: bwd_p(qkv, bias, dout, nh, hd, *win),
+                lambda: bwd_32(qkv32, bias, dout32, nh, hd, *win), lib_fwd_bwd,
+                bwd_flops, bwd_bytes, max(e[0] for e in bwd_err), max(e[1] for e in bwd_err))
+    if split is not None:
+        rb, ks = wa.TC_ATTN_PLANS[n]
+        stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win), fwd_flops,
+                    fwd_bytes, res[names[0]]["ms"], STAGES_3,
+                    kernels=(f"attn_rows_fwd_bf16_kernel<{n}, {rb}, {ks}, false>",), bf16=True)
+        stage_split(tag, f"{names[1]} {label}", lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
+                    bwd_flops, bwd_bytes, res[names[1]]["ms"], split,
+                    kernels=(f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}>",),
+                    bf16=True)
+
+
+def mlp_f64(x, g, be, w1, b1, w2, b2, s):
+    """#2's function in float64 (for autograd): x + s fc2(gelu(fc1(LN x)))."""
+    import torch.nn.functional as F
+
+    b, h, w, c = x.shape
+    t = x.reshape(-1, c)
+    m = F.gelu(F.layer_norm(t, (c,), g, be, 1e-5) @ w1 + b1) @ w2 + b2
+    return (t + s.double().repeat_interleave(h * w)[:, None] * m).reshape(x.shape)
+
+
+def phase_bf16_window_kernels() -> dict:
+    """45. The bf16 forms of #3/#8 and #2/#7 at each bf16 path's shapes (see
+    the module doc): HAT-M's block, DAT's branches, SwinIR-L's block; the
+    MLP half at HAT-M's block with DropPath scales holding 0 and 1/0.9, and
+    at SRFormerV2's C 240 / hidden 480."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(45)
+    res: dict[str, dict] = {}
+    tag = "bf16 window kernels"
+    hat = (TB, FID_LQ, FID_LQ)
+    # HAT-M: ws 16 (the JSON line's case: K=4, shifted by 8)
+    for kinds in (1, 4):
+        bf16_window_case(res, ("fused_window_mhsa_bf16", "fused_window_mhsa_backward_bf16"),
+                         f"HAT-M ws 16 K={kinds}", hat, HWS, HWS, kinds, NH, HD,
+                         (HWS // 2, HWS // 2), gen, STAGES_8 if kinds == 4 else None)
+    # SwinIR-L: ws 8 at C 240
+    for kinds in (1, 4):
+        bf16_window_case(res, ("fused_window_mhsa_bf16_ws8", "fused_window_mhsa_backward_bf16_ws8"),
+                         f"SwinIR-L ws 8 C 240 K={kinds}", hat, WS, WS, kinds, SLNH, SLHD,
+                         (WS // 2, WS // 2), gen, STAGES_8_RECT if kinds == 4 else None)
+    # DAT: its 90-channel branches at the crop's qkv padded to 64x64, and
+    # dat_s's 8x16 at 48x48 (the JSON line's case: 8x32, K=4)
+    for (wr, wc), kinds, size in (((32, 8), 4, TH), ((8, 16), 4, FID_LQ), ((8, 32), 1, TH),
+                                  ((8, 32), 4, TH)):
+        bf16_window_case(res, ("fused_rect_mhsa_bf16", "fused_rect_mhsa_backward_bf16"),
+                         f"DAT {wr}x{wc} K={kinds}", (TB, size, size), wr, wc, kinds, DNH, DHD,
+                         DAT_WINDOWS[(wr, wc)], gen,
+                         STAGES_8_RECT if (wr, wc, kinds) == (8, 32, 4) else None)
+
+    # the MLP half (#2, #7) at HAT-M's block
+    x32, p, _, _ = block_inputs(gen, 1, dev, shape=hat)
+    x = x32.bfloat16()
+    s = torch.full((TB,), 1.0 / 0.9, device=dev)
+    s[3] = 0.0
+    params = [p[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    dout = torch.randn(*hat, C, generator=gen).to(dev).bfloat16()
+
+    def fwd():
+        return fb.fused_ln_mlp_bf16(x, *params, s, HWS)
+
+    def bwd():
+        return fb.fused_ln_mlp_backward_bf16(x, *params, s, dout, HWS)
+
+    try:
+        got, again, grads, grads2 = fwd(), fwd(), bwd(), bwd()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"fused_ln_mlp_bf16 / fused_ln_mlp_backward_bf16: {e}")
+    want = fb.fused_ln_mlp_bf16_reference(x, *params, s, HWS)
+    plain_grads = fb.fused_ln_mlp_bwd_bf16_reference(x, *params, s, dout, HWS)
+    names = ("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2")
+    fwd_err = check_bf16(tag, "fused_ln_mlp_bf16 out", got, want)
+    bwd_err = [check_bf16(tag, f"fused_ln_mlp_backward_bf16 {n}", g, w)
+               for n, g, w in zip(names, grads, plain_grads)]
+    if not torch.equal(got, again) or not all(torch.equal(a, b) for a, b in zip(grads, grads2)):
+        fail("fused_ln_mlp_bf16 / fused_ln_mlp_backward_bf16: two runs differ")
+    leaves = [x.double().requires_grad_()] + [
+        (fb._bf(t) if k in ("w1", "w2") else t).double().requires_grad_()
+        for k, t in zip(("g", "be", "w1", "b1", "w2", "b2"), params)]
+    exact = mlp_f64(*leaves, s)
+    exact_g = torch.autograd.grad(exact, leaves, dout.double())
+    ratio = max([bf16_f64_check(tag, "fused_ln_mlp_bf16 out", got, want, exact.detach())]
+                + [bf16_f64_check(tag, f"fused_ln_mlp_backward_bf16 {n}", g, w, e)
+                   for n, g, w, e in zip(names, grads, plain_grads, exact_g)])
+    say(f"[{tag}] MLP half at HAT-M's block: #2 bf16 within {fwd_err[1]:.3g} of out's largest, "
+        f"#7 bf16 within {max(e[1] for e in bwd_err):.3g} of each gradient's; against float64 at "
+        f"most {ratio:.3f}x the plain versions' error; two runs of each bit for bit")
+    x32c = x.float()
+    dout32 = dout.float()
+    T = TB * FID_LQ * FID_LQ
+    fwd_bytes = nbytes(x, *params, s, got)
+    bwd_bytes = nbytes(x, *params, s, dout, *grads)
+    bf16_record(res, tag, "fused_ln_mlp_bf16", "HAT-M", fwd,
+                lambda: fb.fused_ln_mlp_bf16_reference(x, *params, s, HWS),
+                lambda: fb._ln_mlp_fwd_cuda(x32c, *params, s, HWS, 1e-5), None,
+                4 * T * C * HIDDEN, fwd_bytes, *fwd_err)
+    bf16_record(res, tag, "fused_ln_mlp_backward_bf16", "HAT-M", bwd,
+                lambda: fb.fused_ln_mlp_bwd_bf16_reference(x, *params, s, dout, HWS),
+                lambda: fb.fused_ln_mlp_backward(x32c, *params, s, dout32, HWS), None,
+                10 * T * C * HIDDEN, bwd_bytes, max(e[0] for e in bwd_err),
+                max(e[1] for e in bwd_err))
+    stage_split(tag, "fused_ln_mlp_bf16 HAT-M", fwd, 4 * T * C * HIDDEN, fwd_bytes,
+                res["fused_ln_mlp_bf16"]["ms"], STAGES_2,
+                kernels=("ln_rows_bf16_kernel", "linear_bf16_kernel"), bf16=True)
+    stage_split(tag, "fused_ln_mlp_backward_bf16 HAT-M", bwd, 10 * T * C * HIDDEN, bwd_bytes,
+                res["fused_ln_mlp_backward_bf16"]["ms"], STAGES_7,
+                kernels=("mlp_hidden_bf16_kernel", "rows_bf16_kernel", "atb_bf16_kernel"),
+                bf16=True)
+
+    # the MLP half at SRFormerV2's block (C 240, hidden 480: the 256-column
+    # rows tile), which no bf16 path runs yet: checked and timed
+    xw32, pw, _, _ = block_inputs(gen, 1, dev, shape=(TB, SRF_PAD, SRF_PAD), widths=SRF_WIDTHS)
+    xw = xw32.bfloat16()
+    pws = [pw[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    sw = torch.ones(TB, device=dev)
+    doutw = torch.randn(TB, SRF_PAD, SRF_PAD, SC, generator=gen).to(dev).bfloat16()
+    try:
+        gw = [fb.fused_ln_mlp_bf16(xw, *pws, sw, SWS),
+              *fb.fused_ln_mlp_backward_bf16(xw, *pws, sw, doutw, SWS)]
+        again = [fb.fused_ln_mlp_bf16(xw, *pws, sw, SWS),
+                 *fb.fused_ln_mlp_backward_bf16(xw, *pws, sw, doutw, SWS)]
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - report and fail the phase
+        fail(f"fused_ln_mlp_bf16 at C 240: {e}")
+    ww = [fb.fused_ln_mlp_bf16_reference(xw, *pws, sw, SWS),
+          *fb.fused_ln_mlp_bwd_bf16_reference(xw, *pws, sw, doutw, SWS)]
+    rel = max(check_bf16(tag, f"MLP half at C 240 {n}", g, w)[1]
+              for n, g, w in zip(("out",) + names, gw, ww))
+    if not all(torch.equal(a, b) for a, b in zip(gw, again)):
+        fail("fused_ln_mlp_bf16 / fused_ln_mlp_backward_bf16 at C 240: two runs differ")
+    tw = TB * SRF_PAD * SRF_PAD
+    ms_f = time_ms(lambda: fb.fused_ln_mlp_bf16(xw, *pws, sw, SWS), iters=10, warmup=2)
+    ms_b = time_ms(lambda: fb.fused_ln_mlp_backward_bf16(xw, *pws, sw, doutw, SWS), iters=10,
+                   warmup=2)
+    bf, _ = bound(4 * tw * SC * SHIDDEN, nbytes(xw, *pws, sw, gw[0]), PEAK_BF16)
+    bb, _ = bound(10 * tw * SC * SHIDDEN, nbytes(xw, *pws, sw, doutw, *gw[1:]), PEAK_BF16)
+    say(f"[{tag}] MLP half at SRFormerV2's block (B=8, 72x72, C 240, hidden 480): within "
+        f"{rel:.3g} of each tensor's largest, two runs bit for bit; #2 bf16 {ms_f:.4f} ms (bound "
+        f"{bf:.4f}), #7 bf16 {ms_b:.4f} ms (bound {bb:.4f})")
+    return res
+
+
+# the bf16 training runs of phases 46-48: template, network, label, the
+# bf16 forms' launches a step, and the fp32 twin's launches an image (its
+# validation and the served EMA checkpoint)
+BF16_RUNS = {
+    "hat": (TEMPLATES / "HAT" / "hat_m_fidelity.yml", "hat_m", "HAT-M",
+            {"fused_window_mhsa_bf16": HAT_BLOCKS, "fused_window_mhsa_backward_bf16": HAT_BLOCKS,
+             "fused_ln_mlp_bf16": HAT_MLPS, "fused_ln_mlp_backward_bf16": HAT_MLPS},
+            {"fused_window_mhsa": HAT_BLOCKS, "fused_ln_mlp": HAT_MLPS}),
+    "dat": (TEMPLATES / "DAT" / "dat_fidelity.yml", "dat", "DAT",
+            {"fused_rect_mhsa_bf16": DAT_RECT, "fused_rect_mhsa_backward_bf16": DAT_RECT},
+            {"fused_rect_mhsa": DAT_RECT}),
+    "swinir_l": (TEMPLATES / "SwinIR" / "swinir_l_fidelity.yml", "swinir_l", "SwinIR-L",
+                 {"fused_window_mhsa_bf16": SWINIR_L_BLOCKS,
+                  "fused_window_mhsa_backward_bf16": SWINIR_L_BLOCKS},
+                 {"fused_attn_block": SWINIR_L_BLOCKS, "fused_ln_mlp": SWINIR_L_BLOCKS}),
+}
+
+
+def phase_bf16_family_train(seed: int, family: str) -> dict[str, int]:
+    """46-48. `train.run` of a family's fidelity template as shipped
+    (BF16_RUNS: compute_dtype bfloat16, batch 8 of 48x48 LR, L1 + MS-SSIM,
+    AdamW 2e-4, EMA 0.999, its validation), 30 bf16 steps from 16 seeded
+    512x512 HR images: its bf16 forms' launches a step and none of any fp32
+    training kernel; every log finite; the validation after step 30 runs
+    the fp32 twin on the serving kernels and logs PSNR/SSIM; the EMA
+    checkpoint then serves with the strict load."""
+    template, network, label, per_step, per_image = BF16_RUNS[family]
+    tag = f"{family} bf16 train"
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    val_hr, val_lr = make_dataset(OUT / "data", seed)
+    opt = fidelity_options(f"{network}_x4_fidelity_bf16", hr_dir, lr_dir, seed, (val_hr, val_lr),
+                           template=template)
+    serving = {k: v * N_IMAGES for k, v in per_image.items()}
+    return phase_train(seed, network, f"{label} bf16 ({template.name})", tag, per_step=per_step,
+                       serve_want=serving, lq=FID_LQ, losses=FID_LOSSES, opt=opt,
+                       more_launches=lambda: serving, check=bf16_train_check(tag))
+
+
+def phase_bf16_family_profile_branches(seed: int, family: str) -> None:
+    """49. For HAT-M and DAT: their bf16 step's profile (phase 43's: device
+    ms by kernel, the bf16 forms' stages summed, the busy share, peak
+    memory) and branches (phase 44's: the bf16 kernels, their bf16 plain
+    versions and the fp32 kernels from equal weights; two deterministic
+    bf16 steps twice, bit for bit)."""
+    template, network, label, per_step, per_image = BF16_RUNS[family]
+    phase_bf16_profile(seed, template, f"{network}_x4_bf16_profile", per_step,
+                       f"{family} bf16 profile", f"profile_{family}_bf16_train.txt")
+    fp32_step = {k.removesuffix("_bf16"): v for k, v in per_step.items()}
+    phase_bf16_branches(seed, network, label, template, f"{family} bf16 branches", per_step,
+                        fp32_step, tensor_check=False)
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -3930,6 +4375,13 @@ def main() -> None:
     launches.update({k: bf16_counts[k] for k in BF16_TRAIN_STEP})
     timed("bf16 train profile", phase_bf16_profile, seed)
     timed("bf16 branches", phase_bf16_branches, seed)
+    kernels.update(timed("bf16 window kernels", phase_bf16_window_kernels))
+    fam = {f: timed(f"{f} bf16 train", phase_bf16_family_train, seed, f) for f in BF16_RUNS}
+    launches.update({k: fam["hat"][k] for k in BF16_RUNS["hat"][3]})
+    launches.update({k: fam["dat"][k] for k in BF16_RUNS["dat"][3]})
+    launches.update({f"{k}_ws8": fam["swinir_l"][k] for k in BF16_RUNS["swinir_l"][3]})
+    for f in ("hat", "dat"):
+        timed(f"{f} bf16 profile and branches", phase_bf16_family_profile_branches, seed, f)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

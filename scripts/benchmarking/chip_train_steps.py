@@ -1,7 +1,7 @@
 """The training phases of `chip_smoke.py` alone, on one CUDA card: 30 steps
 each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, and
-SwinIR-M GAN and SwinIR-M in bf16 (swinir_m_fidelity.yml) where the tree's
-`chip_smoke.py` has them, each printing its
+SwinIR-M GAN and the bf16 fidelity templates (SwinIR-M; HAT-M, DAT and
+SwinIR-L) where the tree's `chip_smoke.py` has them, each printing its
 median ms per step with the quartiles; after each, the device time of one
 of its steps (`torch.profiler`) and the card's busy share.
 
@@ -55,4 +55,9 @@ if hasattr(cs, "phase_gan_train"):  # trees from the GAN slice on
 if hasattr(cs, "phase_bf16_train"):  # trees from the bf16 slice on
     cs.phase_bf16_train(seed)
     cs.phase_bf16_profile(seed)
+if hasattr(cs, "BF16_RUNS"):  # trees from bf16 HAT, DAT and SwinIR-L on
+    for family, (template, network, _, per_step, _) in cs.BF16_RUNS.items():
+        cs.phase_bf16_family_train(seed, family)
+        cs.phase_bf16_profile(seed, template, f"{network}_x4_bf16_profile", per_step,
+                              f"{family} bf16 profile", f"profile_{family}_bf16_train.txt")
 print("steps ok", flush=True)

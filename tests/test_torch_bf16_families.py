@@ -1,0 +1,165 @@
+"""bf16 training forwards of HAT, DAT and SwinIR-L on the port against the
+JAX package, on the CPU (the port's kernel wrappers run their bf16 plain
+versions; the JAX package runs its Pallas kernels in interpret mode in
+bf16, TRAINNER_FUSED_BLOCK=interpret):
+
+- a tiny HAT (embed 24, one group of two HABs and an OCAB, 2 heads of 12,
+  window 8: the window attention on #3/#8's bf16 forms, every MLP half on
+  #2/#7's), a tiny DAT (embed 48, two groups of two blocks, split (8, 16):
+  the second group's first block shifted, the rect #3/#8's bf16 forms) and
+  a 240-wide SwinIR-L (one group of two blocks, 8 heads of 30: the unfused
+  branch, #3/#8's bf16 forms at 8x8), each 2x on a batch of 2 16x16 LR
+  images, computing in bf16 in training against the flax network built
+  with dtype=bfloat16, from equal parameters through `state_dict_from_jax`:
+  the output within 2e-2 of its largest magnitude (as the bf16 SwinIR's,
+  tests/test_torch_bf16_train.py); each parameter gradient held against
+  the port's fp32 gradient, its error at most twice the flax bf16
+  gradient's plus 1e-2 of the largest gradient of its block (a HAB, OCAB,
+  DATB or SwinBlock; elsewhere of its own). The block's scale: DAT's
+  interaction maps pass a few channels through a batch norm over 2 values
+  each, which turns each bf16 rounding behind them into a large gradient
+  error on their small tensors; XLA's CPU lowering keeps fp32 between the
+  flax graph's ops there, the port rounds where the graph does. DAT's
+  parameters whose true gradient is 0 (a bias before a train-mode norm, a
+  constant of the position bias) carry only that rounding: each within
+  2^-5 of the largest gradient of all (bf16 moves a real gradient 3-17%);
+- the refusals that remain: bf16 training of Swin2SR (#11-#14), of
+  SRFormerV2 (#1/#6 at 12x12), of a GAN (DUnet) and of the OTF model, each
+  naming what is missing. Three bf16 `SRModel` steps of each family are in
+  tests/test_torch_bf16_family_steps.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_train import _config, _opts, dataset  # noqa: F401 (a fixture)
+
+OUT_TOL = 2e-2  # of the largest |output|
+GRAD_RATIO, GRAD_SLACK = 2.0, 1e-2  # port's bf16 error <= RATIO x flax's + SLACK x block's largest
+ZERO_TOL = 2.0**-5  # a true-zero gradient's noise, of the largest gradient of all
+LR_SIDE, SCALE = 16, 2
+
+NETS = {
+    "HAT": {"type": "hat", "embed_dim": 24, "depths": [2], "num_heads": [2], "window_size": 8,
+            "mlp_ratio": 2.0, "compress_ratio": 3, "squeeze_factor": 8, "num_feat": 16,
+            "drop_path_rate": 0.0},
+    "DAT": {"type": "dat", "embed_dim": 48, "depth": [2, 2], "num_heads": [4, 4],
+            "split_size": [8, 16], "expansion_factor": 2.0, "drop_path_rate": 0.0},
+    "SwinIR": {"type": "swinir_l", "embed_dim": 240, "depths": [2], "num_heads": [8],
+               "drop_path_rate": 0.0},
+}
+
+
+def _jax_flat(net_opt: dict, scale: int = SCALE) -> dict:
+    """The flax network's flattened parameters at `scale`, init plus noise."""
+    from trainner_redux_tpu.archs import build_network
+    from trainner_redux_tpu.models.base_model import BaseModel
+
+    net = build_network({**net_opt, "scale": scale})
+    params = net.init(jax.random.key(0), jnp.zeros((1, LR_SIDE, LR_SIDE, 3)), train=False)
+    rng = np.random.default_rng(1)
+    return {k: (v + rng.standard_normal(v.shape) * 0.02).astype(np.float32)
+            for k, v in BaseModel.flatten_params(params["params"]).items()}
+
+
+def _block(name: str) -> str:
+    """`layers.i[.residual_group].blocks.j` of a block parameter (its
+    `overlap_attn` for HAT's OCAB), else the name."""
+    for sep in (".blocks.", ".overlap_attn."):
+        head, found, tail = name.partition(sep)
+        if found:
+            return head + sep + (tail.split(".")[0] if sep == ".blocks." else "")
+    return name
+
+
+@pytest.mark.parametrize("arch", list(NETS))
+def test_bf16_family_matches_flax(arch, monkeypatch):
+    from trainner_redux_tpu.archs import build_network_cast as jax_build_cast
+    from trainner_redux_tpu.models.base_model import BaseModel
+    from trainner_redux_tpu_torch.archs import build_network_cast
+    from trainner_redux_tpu_torch.archs.dat_arch import ZERO_GRAD_PARAMS
+    from trainner_redux_tpu_torch.ops import fused_block as tfb
+    from trainner_redux_tpu_torch.ops import window_attention as twa
+    from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
+
+    net_opt = NETS[arch]
+    monkeypatch.delenv("TRAINNER_FUSED_ATTN", raising=False)
+    monkeypatch.setenv("TRAINNER_FUSED_BLOCK", "interpret")
+    flat = _jax_flat(net_opt)
+    jnet = jax_build_cast({**net_opt, "scale": SCALE}, jnp.bfloat16)
+    rng = np.random.default_rng(4)
+    lr = rng.random((2, LR_SIDE, LR_SIDE, 3)).astype(np.float32)
+    side = SCALE * LR_SIDE
+    wout = rng.standard_normal((2, side, side, 3)).astype(np.float32)
+
+    def jloss(p):
+        out = jnet.apply({"params": p}, jnp.asarray(lr), train=True)
+        return jnp.sum(out * wout), out
+
+    params = BaseModel.unflatten_params({k: jnp.asarray(v) for k, v in flat.items()})
+    (_, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    want_g = {k: np.asarray(v) for k, v in
+              state_dict_from_jax(BaseModel.flatten_params(jgrads), arch).items()}
+
+    monkeypatch.delenv("TRAINNER_FUSED_BLOCK", raising=False)
+    # the bf16 forms' wrappers: on the CPU their plain versions, uncounted
+    wrappers = (twa.fused_window_mhsa_bf16, twa.fused_window_mhsa_backward_bf16,
+                twa.fused_rect_mhsa_bf16, twa.fused_rect_mhsa_backward_bf16,
+                tfb.fused_ln_mlp_bf16, tfb.fused_ln_mlp_backward_bf16)
+    nets = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        net = build_network_cast({**net_opt, "scale": SCALE}, dtype)
+        assert net.compute_dtype == dtype and net.bf16_refusal() is None
+        net.load_state_dict(state_dict_from_jax(flat, arch), strict=False)
+        net.train()
+        calls = [f.launches for f in wrappers]
+        out = net(torch.from_numpy(lr).permute(0, 3, 1, 2))
+        assert out.dtype == torch.float32
+        (out * torch.from_numpy(wout).permute(0, 3, 1, 2)).sum().backward()
+        assert calls == [f.launches for f in wrappers]
+        nets[dtype] = (out.detach().permute(0, 2, 3, 1).numpy(),
+                       {k: p.grad.numpy() for k, p in net.named_parameters()
+                        if p.grad is not None})
+    got, got_g = nets[torch.bfloat16]
+    want = np.asarray(want)
+    err, top = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= OUT_TOL * top, f"output: max|diff| {err:.3g} vs max {top:.3g}"
+    fp32_g = nets[torch.float32][1]
+    assert got_g.keys() == fp32_g.keys()
+    gmax = max(np.abs(g).max() for g in fp32_g.values())
+    block_max: dict[str, float] = {}
+    for k, g in fp32_g.items():
+        block_max[_block(k)] = max(block_max.get(_block(k), 0.0), np.abs(g).max())
+    for k, g in got_g.items():
+        assert g.dtype == np.float32, k
+        port, flax = np.abs(g - fp32_g[k]).max(), np.abs(want_g[k] - fp32_g[k]).max()
+        if k.endswith(ZERO_GRAD_PARAMS):
+            assert port <= ZERO_TOL * gmax, f"{k}: a true zero off by {port:.3g} of {gmax:.3g}"
+            continue
+        top = block_max[_block(k)]
+        assert port <= GRAD_RATIO * flax + GRAD_SLACK * top, (
+            f"{k}: bf16 off fp32 by {port:.3g} (flax bf16 {flax:.3g}) of its block's max|g| "
+            f"{top:.3g}")
+
+
+SWIN2SR_NET = {"type": "swin2sr_m", "embed_dim": 24, "depths": [2], "num_heads": [3],
+               "num_feat": 16}
+SRFORMER_NET = {"type": "srformerv2", "embed_dim": 32, "depths": [2], "num_heads": [2],
+                "window_size": 12, "squeeze_dim": 8, "num_feat": 16}
+
+
+@pytest.mark.parametrize(("extra", "match"), [
+    ({"network_g": SWIN2SR_NET}, "of Swin2SR .*#11-#14 are not ported"),
+    ({"network_g": SRFORMER_NET}, "of SRFormerV2 .*#1/#6 at 12x12 windows"),
+    ({"network_d": {"type": "dunet"}}, "GAN training .*DUnet in bf16"),
+    ({"high_order_degradation": True, "queue_size": 0}, "OTF model .*DUnet in bf16"),
+])
+def test_bf16_refusals_name_their_kernels(dataset, tmp_path, extra, match):  # noqa: F811
+    from trainner_redux_tpu_torch.models import build_model
+
+    _, opt = _opts(tmp_path, _config(dataset, compute_dtype="bfloat16", **extra))
+    with pytest.raises(NotImplementedError, match=match):
+        build_model(opt, device="cpu")

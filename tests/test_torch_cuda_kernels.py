@@ -27,7 +27,9 @@ outputs within BF16_TOL (1e-2, some 2.5 bf16 steps) of each tensor's
 largest magnitude with at most one element in a thousand beyond one bf16
 step of it (a kernel and its plain version sum in other orders, and a sum
 that lies at a rounding tie rounds one way in one and the other way in the
-other), gradients within 1e-2 of each tensor's largest.
+other), gradients within 1e-2 of each tensor's largest. The same for the
+bf16 forms of #3/#8 (HAT-M's 16x16 windows, SwinIR-L's 8x8 at C 240, DAT's
+rect windows) and of #2/#7 (HAT-M's MLP half), each twice bit for bit.
 """
 
 import numpy as np
@@ -396,8 +398,10 @@ def test_swin_block_train_bf16_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_fp32_kernels_refuse_bf16(cuda):
-    """Only the whole training block has bf16 forms: a bf16 tensor that
-    reaches #1, #2, #3 or #9 raises, and is never cast."""
+    """The attention half's kernels have no bf16 forms: a bf16 tensor that
+    reaches #1 or #9 raises, and is never cast; the bf16 forms of #2 and #3
+    refuse an fp32 parameter where they take bf16 and a width they do not
+    take, and are never run in fp32."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
@@ -406,12 +410,17 @@ def test_fp32_kernels_refuse_bf16(cuda):
     attn = [p[k] for k in ("g", "be", "wq", "bq", "wp", "bp", "bias", "s")]
     with pytest.raises(TypeError, match="float32"), torch.no_grad():
         fb.fused_attn_block(x, *attn, NH, HD, WS)
-    with pytest.raises(TypeError, match="float32"), torch.no_grad():
-        fb.fused_ln_mlp(x, *[p[k] for k in ("g", "be", "w1", "b1", "w2", "b2", "s")], WS)
-    with pytest.raises(TypeError, match="float32"), torch.no_grad():
-        wa.fused_window_mhsa(p["qkv"].bfloat16(), p["bias"], NH, HD, WS)
+    with pytest.raises(TypeError, match="bfloat16"), torch.no_grad():
+        wa.fused_window_mhsa_bf16(p["qkv"], p["bias"], NH, HD, WS)
     with pytest.raises(TypeError, match="float32"):
         fb._attn_block_train_fwd_cuda(x, *attn, NH, HD, WS, 1e-5, 0)
+    wide = torch.zeros(1, 8, 8, 260, device=cuda, dtype=torch.bfloat16)
+    mlp = [torch.ones(260, device=cuda), torch.zeros(260, device=cuda),
+           torch.zeros(260, 520, device=cuda), torch.zeros(520, device=cuda),
+           torch.zeros(520, 260, device=cuda), torch.zeros(260, device=cuda),
+           torch.ones(1, device=cuda)]
+    with pytest.raises(ValueError, match="bf16 kernels' limits"), torch.no_grad():
+        fb.fused_ln_mlp(wide, *mlp, 8)
 
 
 @pytest.mark.cuda
@@ -1252,3 +1261,111 @@ def test_fused_attn_block_train_kernels(cuda, ws, kinds, shift):
         assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
         assert torch.equal(g, g2), name
         assert (g3 - w).abs().max().item() <= TOL * w.abs().max().item(), name
+
+
+def _bf16_window_case(device, window, kinds, c, nh, shape, seed=0):
+    """bf16 qkv and dout, the fp32 kind table of one bf16 window case."""
+    from trainner_redux_tpu_torch.ops.window_attention import rect_shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(seed)
+    wr, wc = window
+    n = wr * wc
+    qkv = torch.randn(*shape, 3 * c, generator=gen).to(device).bfloat16()
+    rel = (torch.randn(nh, n, n, generator=gen) * 0.5).to(device)
+    if kinds == 4:
+        masks = torch.from_numpy(rect_shift_mask_kinds(wr, wc, wr // 2, wc // 2)).to(device)
+        rel = rel[None] + masks[:, None]
+    else:
+        rel = rel[None]
+    dout = torch.randn(*shape, c, generator=gen).to(device).bfloat16()
+    return qkv, rel.contiguous(), dout
+
+
+# bf16 window cases: (window, C, heads, (B, H, W)): HAT-M's ws 16, SwinIR-L's
+# ws 8 at C 240, DAT's rect branches
+BF16_WINDOWS = [((16, 16), C, NH, (B, 48, 48)), ((8, 8), 240, 8, (B, 48, 48)),
+                ((8, 32), RC, RNH, (B, 64, 64)), ((32, 8), RC, RNH, (B, 64, 64)),
+                ((8, 16), RC, RNH, (B, 48, 48))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("window", "c", "nh", "shape"), BF16_WINDOWS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_bf16_window_attention_kernels(cuda, window, c, nh, shape, kinds):
+    """#3's and #8's bf16 forms against their bf16 plain versions, each
+    counted once under its own name and none of the fp32 forms; two runs of
+    each bit for bit."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _bf16_window_case(cuda, window, kinds, c, nh, shape)
+    hd = c // nh
+    square = window[0] == window[1]
+    win = window[:1] if square else window
+    fwd, bwd = ((wa.fused_window_mhsa_bf16, wa.fused_window_mhsa_backward_bf16) if square
+                else (wa.fused_rect_mhsa_bf16, wa.fused_rect_mhsa_backward_bf16))
+    fp32 = (wa.fused_window_mhsa, wa.fused_window_mhsa_backward, wa.fused_rect_mhsa,
+            wa.fused_rect_mhsa_backward)
+    n0 = (fwd.launches, bwd.launches, [f.launches for f in fp32])
+    tq = qkv.clone().requires_grad_()
+    tb = bias.clone().requires_grad_()
+    entry = wa.fused_window_mhsa if square else wa.fused_rect_mhsa
+    out = entry(tq, tb, nh, hd, *win)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    assert [f.launches for f in fp32] == n0[2]
+    ref = wa.fused_window_mhsa_bf16_reference if square else wa.fused_rect_mhsa_bf16_reference
+    bref = (wa.fused_window_mhsa_bwd_bf16_reference if square
+            else wa.fused_rect_mhsa_bwd_bf16_reference)
+    _assert_bf16_close("out", out.detach(), ref(qkv, bias, nh, hd, *win))
+    plain = bref(qkv, bias, dout, nh, hd, *win)
+    for name, g, w in zip(("dqkv", "dbias"), (tq.grad, tb.grad), plain):
+        assert g.dtype == w.dtype, name
+        assert (g.float() - w.float()).abs().max().item() <= BF16_TOL * w.float().abs().max(), name
+    again = (fwd(qkv, bias, nh, hd, *win), *bwd(qkv, bias, dout, nh, hd, *win))
+    once = (fwd(qkv, bias, nh, hd, *win), *bwd(qkv, bias, dout, nh, hd, *win))
+    for a, b in zip(again, once):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("c", "hidden"), [(C, HIDDEN), (240, 480)])
+def test_bf16_ln_mlp_kernels(cuda, c, hidden):
+    """#2's and #7's bf16 forms at HAT-M's MLP half (C 180, hidden 360, 16-row
+    strips) and SRFormerV2's (C 240, hidden 480: the 256-column rows tile) on
+    bf16 x and dout with fp32 parameters, against their bf16 plain versions
+    through the autograd Function, each counted once under its own name;
+    two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator().manual_seed(c)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    x = randn(B, 48, 48, c).bfloat16()
+    s = torch.tensor([1.0, 0.8], device=cuda)
+    params = [(1.0 + randn(c, scale=0.1)), randn(c, scale=0.1), randn(c, hidden, scale=c**-0.5),
+              randn(hidden, scale=0.1), randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1)]
+    params = [t.requires_grad_() for t in params]
+    dout = randn(B, 48, 48, c).bfloat16()
+    tx = x.clone().requires_grad_()
+    n0 = (fb.fused_ln_mlp_bf16.launches, fb.fused_ln_mlp_backward_bf16.launches,
+          fb.fused_ln_mlp.launches, fb.fused_ln_mlp_backward.launches)
+    out = fb.fused_ln_mlp(tx, *params, s, 16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fb.fused_ln_mlp_bf16.launches, fb.fused_ln_mlp_backward_bf16.launches,
+            fb.fused_ln_mlp.launches, fb.fused_ln_mlp_backward.launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    plain = [t.detach() for t in params]
+    _assert_bf16_close("out", out.detach(), fb.fused_ln_mlp_bf16_reference(x, *plain, s, 16))
+    want = fb.fused_ln_mlp_bwd_bf16_reference(x, *plain, s, dout, 16)
+    for i, (g, w) in enumerate(zip((tx.grad, *(t.grad for t in params)), want)):
+        assert g.dtype == w.dtype, i
+        assert (g.float() - w.float()).abs().max().item() <= BF16_TOL * w.float().abs().max(), i
+    runs = [(fb.fused_ln_mlp_bf16(x, *plain, s, 16),
+             *fb.fused_ln_mlp_backward_bf16(x, *plain, s, dout, 16)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

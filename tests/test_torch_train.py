@@ -369,18 +369,21 @@ def test_train_run_raises_without_card(dataset, tmp_path, monkeypatch):
     assert not (tmp_path / "experiments").exists()
 
 
-# a family whose bf16 kernels are not ported (only SwinIR's are)
-HAT_NET = {"type": "hat", "embed_dim": 24, "depths": [2], "num_heads": [2], "window_size": 8,
-           "compress_ratio": 3, "squeeze_factor": 6, "overlap_ratio": 0.5}
+# families whose bf16 kernels are not ported (SwinIR's, HAT's and DAT's are)
+SWIN2SR_NET = {"type": "swin2sr_m", "embed_dim": 24, "depths": [2], "num_heads": [3],
+               "num_feat": 16}
+SRFORMER_NET = {"type": "srformerv2", "embed_dim": 32, "depths": [2], "num_heads": [2],
+                "window_size": 12, "squeeze_dim": 8, "num_feat": 16}
 
 
 @pytest.mark.parametrize(("extra", "match"), [
-    ({"compute_dtype": "bfloat16", "network_g": HAT_NET}, "bf16 training .* of HAT"),
-    ({"use_amp": True, "network_g": HAT_NET}, "bf16 training .* of HAT"),
+    ({"compute_dtype": "bfloat16", "network_g": SWIN2SR_NET},
+     "bf16 training .* of Swin2SR .*#11-#14"),
+    ({"use_amp": True, "network_g": SWIN2SR_NET}, "bf16 training .* of Swin2SR .*#11-#14"),
     ({"steps_per_dispatch": 2}, "steps_per_dispatch"),
     ({"network_d": {"type": "unetdiscriminatorsn"}}, "network_d"),
-    ({"compute_dtype": "bfloat16", "network_g": {"type": "swinir_l"}},
-     "C 240.* unfused branch"),
+    ({"compute_dtype": "bfloat16", "network_g": SRFORMER_NET},
+     "bf16 training .* of SRFormerV2 .*#1/#6 at 12x12"),
     ({"compute_dtype": "bfloat16", "network_d": {"type": "dunet"}}, "bf16 .*network_d"),
     ({"compute_dtype": "bfloat16", "high_order_degradation": True, "queue_size": 0},
      "bf16 .*OTF"),

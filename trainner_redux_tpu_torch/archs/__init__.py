@@ -41,7 +41,8 @@ def build_network_cast(opt: dict[str, Any], dtype):
     """build_network with the model's compute dtype (torch.bfloat16 or
     torch.float32) passed as `dtype`, as the JAX package's
     `build_network_cast` passes it to every flax arch (parameters stay
-    fp32); an options dict that names its own dtype keeps it. SwinIR takes
-    it as its training compute dtype; the other ported archs accept and
-    drop it, and the model refuses bf16 training for them."""
+    fp32); an options dict that names its own dtype keeps it. SwinIR, HAT
+    and DAT take it as their training compute dtype; Swin2SR and
+    SRFormerV2 accept and drop it, and the model refuses bf16 training for
+    them (their `bf16_refusal` names the kernels they lack)."""
     return build_network({"dtype": dtype, **opt})

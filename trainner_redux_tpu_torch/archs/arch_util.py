@@ -6,6 +6,10 @@ convolution `SNConv2d` and the DySample upsampler. Pixel shuffle and
 unshuffle are torch's own (`nn.PixelShuffle`, `F.pixel_unshuffle`), whose
 channel ordering the JAX versions reproduce. Convolutions go to cuDNN, as
 the JAX package left them to XLA.
+
+`in_dtype` and `droppath` compute in the activations' dtype as the flax
+modules do with `dtype=bfloat16` (the parameters stay fp32 and are cast at
+use): the bf16 training forwards of SwinIR, HAT and DAT call them.
 """
 
 from __future__ import annotations
@@ -23,15 +27,48 @@ def Conv2d(in_channels: int, out_channels: int, kernel_size: int = 3) -> nn.Conv
     return nn.Conv2d(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2)
 
 
+def in_dtype(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """m(x), in x's dtype: for a bf16 x, what the flax layer computes with
+    dtype=bfloat16. A convolution or Linear takes its weight cast to bf16
+    (the product summed in fp32 and rounded to bf16) and adds its bias as a
+    bf16 operation (rounded again); a LayerNorm takes fp32 statistics and
+    affine and rounds the result; a Sequential applies its layers so; any
+    other module (activations, PixelShuffle, modules that call `in_dtype`
+    themselves) runs on x as it is. For an fp32 x, m(x)."""
+    if x.dtype == torch.float32:
+        return m(x)
+    if isinstance(m, nn.Sequential):
+        for sub in m:
+            x = in_dtype(sub, x)
+        return x
+    if isinstance(m, nn.Conv2d):
+        y = F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding, m.dilation, m.groups)
+        return y + m.bias.to(x.dtype)[:, None, None] if m.bias is not None else y
+    if isinstance(m, nn.Linear):
+        y = F.linear(x, m.weight.to(x.dtype))
+        return y + m.bias.to(x.dtype) if m.bias is not None else y
+    if isinstance(m, nn.LayerNorm):
+        return F.layer_norm(x.float(), m.normalized_shape, m.weight, m.bias, m.eps).to(x.dtype)
+    return m(x)
+
+
+def droppath(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """DropPath of NHWC x with the per-sample keep scales s (B,) fp32 (0 or
+    1/keep): x * s in fp32, rounded to x's dtype, as flax's `x / keep`
+    computes it on a bf16 x."""
+    return (x * s[:, None, None, None]).to(x.dtype)
+
+
 class SpatialMean(nn.Module):
     """The mean over H and W of NCHW x, kept as (N, C, 1, 1): what
     `nn.AdaptiveAvgPool2d(1)` computes, with no parameters, so a module
     list's indices stay upstream's. Its backward has a deterministic CUDA
     implementation, which adaptive pooling's lacks (`deterministic: true`
-    runs the step under `torch.use_deterministic_algorithms`)."""
+    runs the step under `torch.use_deterministic_algorithms`). A bf16 x's
+    mean is computed in fp32 and rounded, as jnp.mean's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(dim=(2, 3), keepdim=True)
+        return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
 def bilinear_sample(img: torch.Tensor, coords_y: torch.Tensor,

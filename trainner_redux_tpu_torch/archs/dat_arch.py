@@ -32,6 +32,18 @@ The network takes and returns NCHW images; the body runs on NHWC tokens.
 DropPath draws from the `generator` attribute of each DATB, which the model
 sets (`set_dropout_generator`). LayerNorm eps is 1e-5 and GELU exact
 throughout; the residual connection is always one 3x3 conv, as in JAX.
+
+Compute dtype (`compute_dtype`, as SwinIR's): the parameters stay fp32; a
+training forward in bf16 computes as the flax DAT does with
+`dtype=bfloat16`: the input and the mean cast to bf16, every convolution,
+Linear and LayerNorm through `arch_util.in_dtype`, the dynamic position
+bias in bf16 and then fp32 as a kind table, the spatial branches on the
+bf16 forms of the rect #3/#8 (`fused_rect_mhsa` on bf16 qkv) or, off the
+kernels, in PyTorch with the softmax in fp32 rounded to bf16, DropPath as
+a bf16 operation; BatchNormNoStats, the interaction maps' gating and the
+channel attention's norms and scores each one fp32 pass rounded once, as
+XLA fuses them; the output back to fp32. An eval forward runs in fp32 (the
+fp32 twin).
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean, droppath, in_dtype
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
 from trainner_redux_tpu_torch.archs.swinir_arch import _MEAN, _conv_nhwc, init_transformer_weights
 from trainner_redux_tpu_torch.ops.window_attention import (
@@ -78,14 +90,22 @@ class BatchNormNoStats(nn.Module):
         self.running_var = nn.Parameter(torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """In x's dtype, as the JAX module computes it under XLA, which fuses
+        the statistics and the normalisation and keeps their fp32 (excess
+        precision): for a bf16 x the batch mean and variance, the
+        normalisation and the affine in fp32, rounded to bf16 once at the
+        end. (Rounding the statistics too makes DAT's channel-interaction
+        norm, over B values per channel, add noise to every gradient behind
+        it: tests/test_torch_bf16_families.py.)"""
         if self.training:
-            mu = x.mean(dim=(0, 2, 3), keepdim=True)
-            var = x.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+            xf = x.float()
+            mu = xf.mean(dim=(0, 2, 3), keepdim=True)
+            var = xf.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
         else:
-            mu = self.running_mean.view(1, -1, 1, 1)
-            var = self.running_var.view(1, -1, 1, 1)
-        y = (x - mu) * torch.rsqrt(var + self.eps)
-        return y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+            mu = self.running_mean.view(1, -1, 1, 1).to(x.dtype)
+            var = self.running_var.view(1, -1, 1, 1).to(x.dtype)
+        y = (x.float() - mu.float()) * torch.rsqrt(var.float() + self.eps)
+        return (y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)).to(x.dtype)
 
 
 def _depthwise(channels: int) -> nn.Conv2d:
@@ -99,7 +119,7 @@ class SpatialGate(nn.Module):
         self.conv = _depthwise(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_nhwc(self.conv, self.norm(x))
+        return _conv_nhwc(self.conv, in_dtype(self.norm, x))
 
 
 class SGFN(nn.Module):
@@ -113,8 +133,8 @@ class SGFN(nn.Module):
         self.fc2 = nn.Linear(hidden_features // 2, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = F.gelu(self.fc1(x)).chunk(2, dim=-1)
-        return self.fc2(x1 * self.sg(x2))
+        x1, x2 = F.gelu(in_dtype(self.fc1, x)).chunk(2, dim=-1)
+        return in_dtype(self.fc2, x1 * self.sg(x2))
 
 
 @lru_cache(maxsize=64)
@@ -168,9 +188,14 @@ class DynamicPosBias(nn.Module):
         self.pos3 = nn.Sequential(nn.LayerNorm(pd, eps=1e-5), nn.ReLU(), nn.Linear(pd, num_heads))
 
     def forward(self, biases: torch.Tensor) -> torch.Tensor:
+        """The bias of each offset in `biases`' dtype (fp32 coordinates, or
+        bf16 ones in a bf16 forward, as flax's with dtype=bfloat16)."""
         if self.pos_dim == 0:
-            return self.pos3[2](biases.new_zeros(biases.shape[:-1] + (0,)))
-        return self.pos3(self.pos2(self.pos1(self.pos_proj(biases))))
+            return in_dtype(self.pos3[2], biases.new_zeros(biases.shape[:-1] + (0,)))
+        x = in_dtype(self.pos_proj, biases)
+        for layer in (self.pos1, self.pos2, self.pos3):
+            x = in_dtype(layer, x)
+        return x
 
 
 class SpatialAttentionBranch(nn.Module):
@@ -196,16 +221,16 @@ class SpatialAttentionBranch(nn.Module):
         self.register_buffer("mask_kinds", None if kinds is None else torch.from_numpy(kinds),
                              persistent=False)
 
-    def position_bias(self) -> torch.Tensor:
-        """(nh, n, n) dynamic position bias."""
+    def position_bias(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(nh, n, n) dynamic position bias in fp32, computed in `dtype`."""
         n = self.h_sp * self.w_sp
-        pos = self.pos(self.rpe_biases)
+        pos = self.pos(self.rpe_biases.to(dtype)).float()
         return pos[self.relative_position_index.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1)
 
     def forward(self, qkv: torch.Tensor) -> torch.Tensor:
         _, hp, wp, c3 = qkv.shape
         nh, hd = self.num_heads, self.head_dim
-        bias = self.position_bias()[None]
+        bias = self.position_bias(qkv.dtype)[None]
         if self.qk_scale is None and fused_rect_mhsa_supported(hp, wp, self.h_sp, self.w_sp,
                                                                c3 // 3, nh):
             table = bias if self.mask_kinds is None else bias + self.mask_kinds[:, None]
@@ -215,6 +240,17 @@ class SpatialAttentionBranch(nn.Module):
             mask = rect_mask(hp, wp, self.h_sp, self.w_sp, *self.shift_hw)
             bias = bias + torch.from_numpy(mask).to(bias.device)[:, None]
         return reference_rect_mhsa(qkv, bias, nh, hd, self.h_sp, self.w_sp, self.qk_scale)
+
+
+def _interact(attened: torch.Tensor, att_map: torch.Tensor, conv_x: torch.Tensor,
+              conv_map: torch.Tensor) -> torch.Tensor:
+    """attened * sigmoid(att_map) + conv_x * sigmoid(conv_map), NHWC, from
+    NHWC attened and NCHW maps and conv_x: one elementwise pass in fp32,
+    rounded to attened's dtype at its end, as XLA fuses it (for a bf16
+    forward; its gradients then sum fp32 products, as XLA's do)."""
+    out = (attened.float() * torch.sigmoid(att_map.float()).permute(0, 2, 3, 1)
+           + (conv_x.float() * torch.sigmoid(conv_map.float())).permute(0, 2, 3, 1))
+    return out.to(attened.dtype)
 
 
 def _interaction(dim: int) -> tuple[nn.Sequential, nn.Sequential]:
@@ -257,7 +293,7 @@ class AdaptiveSpatialAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
-        qkv = self.qkv(x)
+        qkv = in_dtype(self.qkv, x)
         v_img = qkv[..., 2 * c :]
         max_sp = max(self.split_size)
         ph, pw = (max_sp - h % max_sp) % max_sp, (max_sp - w % max_sp) % max_sp
@@ -276,12 +312,17 @@ class AdaptiveSpatialAttention(nn.Module):
             outs.append(out[:, :h, :w])
         attened = torch.cat(outs, dim=-1)
 
-        conv_x = self.dwconv(v_img.permute(0, 3, 1, 2))
-        ch_map = self.channel_interaction(conv_x)
-        sp_map = self.spatial_interaction(attened.permute(0, 3, 1, 2))
-        attened = attened * torch.sigmoid(ch_map).permute(0, 2, 3, 1)
-        conv_x = conv_x * torch.sigmoid(sp_map)
-        return self.proj(attened + conv_x.permute(0, 2, 3, 1))
+        conv_x = in_dtype(self.dwconv, v_img.permute(0, 3, 1, 2))
+        ch_map = in_dtype(self.channel_interaction, conv_x)
+        sp_map = in_dtype(self.spatial_interaction, attened.permute(0, 3, 1, 2))
+        return in_dtype(self.proj, _interact(attened, ch_map, conv_x, sp_map))
+
+
+def _l2_normalize(t: torch.Tensor) -> torch.Tensor:
+    """t / max(|t|, 1e-12) over the last axis, the norm in fp32 rounded to
+    t's dtype (jnp.linalg.norm of a bf16 t sums in fp32)."""
+    norm = torch.linalg.vector_norm(t.float(), dim=-1, keepdim=True).to(t.dtype)
+    return t / norm.clamp_min(1e-12)
 
 
 class AdaptiveChannelAttention(nn.Module):
@@ -302,20 +343,18 @@ class AdaptiveChannelAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         nh = self.num_heads
-        qkv = self.qkv(x).reshape(b, h * w, 3, nh, c // nh)
+        qkv = in_dtype(self.qkv, x).reshape(b, h * w, 3, nh, c // nh)
         q, k, v = qkv.permute(2, 0, 3, 4, 1)  # each (B, nh, hd, N)
         v_img = qkv[:, :, 2].reshape(b, h, w, c)
-        q = F.normalize(q, dim=-1, eps=1e-12)
-        k = F.normalize(k, dim=-1, eps=1e-12)
-        attn = torch.softmax((q @ k.transpose(-2, -1)) * self.temperature, dim=-1)
-        attened = (attn @ v).permute(0, 3, 1, 2).reshape(b, h, w, c)
+        q, k = _l2_normalize(q), _l2_normalize(k)
+        # the scores summed in fp32 and the softmax in fp32, rounded to x's dtype
+        attn = torch.softmax((q.float() @ k.float().transpose(-2, -1)) * self.temperature, dim=-1)
+        attened = (attn.to(v.dtype) @ v).permute(0, 3, 1, 2).reshape(b, h, w, c)
 
-        conv_x = self.dwconv(v_img.permute(0, 3, 1, 2))
-        ch_map = self.channel_interaction(attened.permute(0, 3, 1, 2))
-        sp_map = self.spatial_interaction(conv_x)
-        attened = attened * torch.sigmoid(sp_map).permute(0, 2, 3, 1)
-        conv_x = conv_x * torch.sigmoid(ch_map)
-        return self.proj(attened + conv_x.permute(0, 2, 3, 1))
+        conv_x = in_dtype(self.dwconv, v_img.permute(0, 3, 1, 2))
+        ch_map = in_dtype(self.channel_interaction, attened.permute(0, 3, 1, 2))
+        sp_map = in_dtype(self.spatial_interaction, conv_x)
+        return in_dtype(self.proj, _interact(attened, sp_map, conv_x, ch_map))
 
 
 class DATB(nn.Module):
@@ -342,9 +381,9 @@ class DATB(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
         s1 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
-        x = x + s1[:, None, None, None] * self.attn(self.norm1(x))
+        x = x + droppath(self.attn(in_dtype(self.norm1, x)), s1)
         s2 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
-        return x + s2[:, None, None, None] * self.ffn(self.norm2(x))
+        return x + droppath(self.ffn(in_dtype(self.norm2, x)), s2)
 
 
 class ResidualGroup(nn.Module):
@@ -368,8 +407,12 @@ class DAT(nn.Module):
                  expansion_factor: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, drop_path_rate: float = 0.1,
                  img_range: float = 1.0, resi_connection: str = "1conv",
-                 upsampler: str = "pixelshuffle", num_feat: int = 64) -> None:
+                 upsampler: str = "pixelshuffle", num_feat: int = 64,
+                 compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
         self.upscale = upscale
         self.img_range = img_range
         self.upsampler = upsampler
@@ -407,6 +450,12 @@ class DAT(nn.Module):
             self.upsample = nn.Sequential(*stages)
             self.conv_last = Conv2d(num_feat, in_chans, 3)
 
+    def bf16_refusal(self) -> str | None:
+        """Why this network cannot train in bf16 on the port, or None: the
+        rect #3/#8 have bf16 forms at every window the kernels take, and the
+        plain branch computes in PyTorch, so none."""
+        return None
+
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """The generator every DATB draws its DropPath masks from."""
         for m in self.modules():
@@ -420,22 +469,26 @@ class DAT(nn.Module):
         return init_transformer_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale)."""
+        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale), fp32; in
+        training computed in `compute_dtype`, at eval in fp32."""
         in_h, in_w = x.shape[2], x.shape[3]
+        x = x.to(self.compute_dtype if self.training else torch.float32)
+        mean = self.mean.to(x.dtype)
         if x.shape[1] == 3:
-            x = (x - self.mean) * self.img_range
-        feat = self.conv_first(x)
-        body = self.before_RG[1](feat.permute(0, 2, 3, 1).contiguous())  # NHWC tokens
+            x = (x - mean) * self.img_range
+        feat = in_dtype(self.conv_first, x)
+        body = in_dtype(self.before_RG[1], feat.permute(0, 2, 3, 1).contiguous())  # NHWC tokens
         for layer in self.layers:
             body = layer(body)
-        body = self.norm(body)
-        feat = feat + self.conv_after_body(body.permute(0, 3, 1, 2))
+        body = in_dtype(self.norm, body)
+        feat = feat + in_dtype(self.conv_after_body, body.permute(0, 3, 1, 2))
         if self.upsampler == "pixelshuffledirect":
-            out = self.upsample(feat)
+            out = in_dtype(self.upsample, feat)
         else:
-            out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))
+            feat = in_dtype(self.conv_before_upsample, feat)
+            out = in_dtype(self.conv_last, in_dtype(self.upsample, feat))
         if out.shape[1] == 3:
-            out = out / self.img_range + self.mean
+            out = out / self.img_range + mean
         return out[:, :, : in_h * self.upscale, : in_w * self.upscale].float()
 
 
@@ -443,8 +496,11 @@ def _dat_factory(**defaults):
     def factory(scale: int = 4, **kwargs):
         cfg = dict(defaults)
         # accepted-but-unused torch knobs
-        for k in ("img_size", "use_chk", "drop_rate", "attn_drop_rate", "dtype"):
+        for k in ("img_size", "use_chk", "drop_rate", "attn_drop_rate"):
             kwargs.pop(k, None)
+        # the JAX package's compute dtype (build_network_cast)
+        dtype = kwargs.pop("dtype", None) or torch.float32
+        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         cfg.update(kwargs)
         cfg["depth"] = tuple(cfg.get("depth", (6,) * 6))
         cfg["num_heads"] = tuple(cfg.get("num_heads", (6,) * 6))

@@ -36,7 +36,9 @@ def fused_mlp_residual(x: torch.Tensor, norm: nn.LayerNorm, fc1: nn.Linear, fc2:
     """x + DropPath(fc2(gelu(fc1(norm(x))))) through `fused_ln_mlp`, or None
     when `fused_mlp_supported` says no (the caller runs its modules). `rows`
     is the strip height the gate checks H against (archs pass their window
-    size); x is NHWC."""
+    size); x is NHWC, in the network's compute dtype: a bf16 x (a bf16
+    training forward) runs the bf16 forms of #2/#7, from the fp32
+    parameters, as the JAX package passes `x.astype(dtype)`."""
     b, h, w, c = x.shape
     if not fused_mlp_supported(h, w, rows, c, fc1.out_features, train):
         return None

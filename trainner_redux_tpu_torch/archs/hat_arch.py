@@ -25,6 +25,16 @@ DropPath (HABs only) draws from the `generator` attribute of each HAB, which
 the model sets (`set_dropout_generator`). LayerNorm eps is 1e-5 throughout,
 `patch_embed.norm` included. As in the JAX package, the upsampler is always
 pixel shuffle and the residual connection one 3x3 conv.
+
+Compute dtype (`compute_dtype`, as SwinIR's): the parameters stay fp32; a
+training forward in bf16 computes as the flax HAT does with
+`dtype=bfloat16`: the input and the mean cast to bf16, every convolution,
+Linear and LayerNorm through `arch_util.in_dtype`, the HABs' window
+attention on the bf16 forms of #3/#8 (`fused_window_mhsa` on bf16 qkv) and
+every MLP half on those of #2/#7 (`fused_ln_mlp` on a bf16 x), OCAB's
+attention in PyTorch with its softmax in fp32 rounded to bf16, the
+`conv_scale` mix and DropPath as bf16 operations; the output back to fp32.
+An eval forward runs in fp32 (the fp32 twin).
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean, droppath, in_dtype
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale, fused_mlp_residual
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
@@ -70,7 +80,7 @@ class ChannelAttention(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.attention(x)
+        return x * in_dtype(self.attention, x)
 
 
 class CAB(nn.Module):
@@ -85,7 +95,7 @@ class CAB(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cab(x)
+        return in_dtype(self.cab, x)
 
 
 class HAB(nn.Module):
@@ -118,14 +128,14 @@ class HAB(nn.Module):
         b, h, w, c = x.shape
         ws = self.window_size
         shift = self.shift_size if min(h, w) > ws else 0
-        xn = self.norm1(x)
+        xn = in_dtype(self.norm1, x)
         conv_x = _conv_nhwc(self.conv_block, xn)
         xs = torch.roll(xn, (-shift, -shift), dims=(1, 2)) if shift else xn
         if self.qk_scale is None and fused_window_mhsa_supported(h, w, ws, c, self.num_heads):
-            qkv = self.attn.qkv(xs).contiguous()
+            qkv = in_dtype(self.attn.qkv, xs).contiguous()
             out = fused_window_mhsa(qkv, bias_kinds(self.attn, self.mask_kinds, shift),
                                     self.num_heads, self.attn.head_dim, ws)
-            attn_x = self.attn.proj(out)
+            attn_x = in_dtype(self.attn.proj, out)
         else:
             mask = _attn_mask(h, w, ws, shift)
             if mask is not None:
@@ -134,14 +144,14 @@ class HAB(nn.Module):
         if shift:
             attn_x = torch.roll(attn_x, (shift, shift), dims=(1, 2))
         s1 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
-        x = x + s1[:, None, None, None] * (attn_x + self.conv_scale * conv_x)
+        x = x + droppath(attn_x + self.conv_scale * conv_x, s1)
 
         fused = fused_mlp_residual(x, self.norm2, self.mlp.fc1, self.mlp.fc2, self.drop_path,
                                    self.training, ws, self.generator)
         if fused is not None:
             return fused
         s2 = droppath_scale(self.drop_path, self.training, b, x.device, self.generator)
-        return (x + s2[:, None, None, None] * self.mlp(self.norm2(x))).contiguous()
+        return (x + droppath(self.mlp(in_dtype(self.norm2, x)), s2)).contiguous()
 
 
 @lru_cache(maxsize=8)
@@ -195,7 +205,7 @@ class OCAB(nn.Module):
         b, h, w, c = x.shape
         ws, ows, nh, hd = self.window_size, self.overlap_win_size, self.num_heads, self.head_dim
         pad = (ows - ws) // 2
-        qkv = self.qkv(self.norm1(x))
+        qkv = in_dtype(self.qkv, in_dtype(self.norm1, x))
         q, kv = qkv[..., :c], qkv[..., c:]
         q = window_partition(q, ws)  # (b*nW, ws*ws, c)
         # the overlapping windows: stride ws over the zero-padded map
@@ -207,17 +217,19 @@ class OCAB(nn.Module):
         qh = q.reshape(-1, nq, nh, hd).transpose(1, 2)
         kh = k.reshape(-1, nk, nh, hd).transpose(1, 2)
         vh = v.reshape(-1, nk, nh, hd).transpose(1, 2)
-        attn = (qh * hd**-0.5) @ kh.transpose(-2, -1)
+        # in x's dtype, as flax's: bf16(q scale) k summed in fp32, the softmax
+        # in fp32 rounded to bf16 before its product with v
+        attn = (qh * hd**-0.5).float() @ kh.float().transpose(-2, -1)
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         attn = attn + bias.reshape(nq, nk, nh).permute(2, 0, 1)[None]
-        out = (torch.softmax(attn, dim=-1) @ vh).transpose(1, 2).reshape(-1, nq, c)
-        x = x + window_reverse(self.proj(out), ws, h, w)
+        out = (torch.softmax(attn, dim=-1).to(vh.dtype) @ vh).transpose(1, 2).reshape(-1, nq, c)
+        x = x + window_reverse(in_dtype(self.proj, out), ws, h, w)
 
         fused = fused_mlp_residual(x, self.norm2, self.mlp.fc1, self.mlp.fc2, 0.0,
                                    self.training, ws)
         if fused is not None:
             return fused
-        return (x + self.mlp(self.norm2(x))).contiguous()
+        return (x + self.mlp(in_dtype(self.norm2, x))).contiguous()
 
 
 class AttenBlocks(nn.Module):
@@ -261,8 +273,12 @@ class HAT(nn.Module):
                  overlap_ratio: float = 0.5, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, drop_path_rate: float = 0.1,
                  img_range: float = 1.0, upsampler: str = "pixelshuffle",
-                 resi_connection: str = "1conv", num_feat: int = 64) -> None:
+                 resi_connection: str = "1conv", num_feat: int = 64,
+                 compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
         self.upscale = upscale
         self.window_size = window_size
         self.img_range = img_range
@@ -297,6 +313,14 @@ class HAT(nn.Module):
         self.upsample = nn.Sequential(*stages)
         self.conv_last = Conv2d(num_feat, in_chans, 3)
 
+    def bf16_refusal(self) -> str | None:
+        """Why this network cannot train in bf16 on the port, or None: the
+        window attention (#3/#8) and the MLP halves (#2/#7) have bf16 forms
+        wherever their fp32 training forms run (the MLP's rows of at most
+        256 channels, as the fp32 backward's), and the other branches
+        compute in PyTorch, so none."""
+        return None
+
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """The generator every HAB draws its DropPath masks from."""
         for m in self.modules():
@@ -307,24 +331,28 @@ class HAT(nn.Module):
         return init_transformer_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale)."""
+        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale), fp32; in
+        training computed in `compute_dtype`, at eval in fp32."""
         in_h, in_w = x.shape[2], x.shape[3]
+        x = x.to(self.compute_dtype if self.training else torch.float32)
+        mean = self.mean.to(x.dtype)
         if x.shape[1] == 3:
-            x = (x - self.mean) * self.img_range
+            x = (x - mean) * self.img_range
         ws = self.window_size
         ph, pw = (ws - in_h % ws) % ws, (ws - in_w % ws) % ws
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
 
-        feat = self.conv_first(x)
-        body = self.patch_embed.norm(feat.permute(0, 2, 3, 1).contiguous())  # NHWC tokens
+        feat = in_dtype(self.conv_first, x)
+        body = in_dtype(self.patch_embed.norm, feat.permute(0, 2, 3, 1).contiguous())  # NHWC
         for layer in self.layers:
             body = layer(body)
-        body = self.norm(body)
-        feat = feat + self.conv_after_body(body.permute(0, 3, 1, 2))
-        out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))
+        body = in_dtype(self.norm, body)
+        feat = feat + in_dtype(self.conv_after_body, body.permute(0, 3, 1, 2))
+        feat = in_dtype(self.conv_before_upsample, feat)
+        out = in_dtype(self.conv_last, in_dtype(self.upsample, feat))
         if out.shape[1] == 3:
-            out = out / self.img_range + self.mean
+            out = out / self.img_range + mean
         return out[:, :, : in_h * self.upscale, : in_w * self.upscale].float()
 
 
@@ -333,8 +361,11 @@ def _hat_factory(**defaults):
         cfg = dict(defaults)
         # accepted-but-unused torch knobs
         for k in ("img_size", "patch_size", "ape", "patch_norm", "use_checkpoint", "drop_rate",
-                  "attn_drop_rate", "dtype"):
+                  "attn_drop_rate"):
             kwargs.pop(k, None)
+        # the JAX package's compute dtype (build_network_cast)
+        dtype = kwargs.pop("dtype", None) or torch.float32
+        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         cfg.update(kwargs)
         cfg["depths"] = tuple(cfg.get("depths", (6, 6, 6, 6)))
         cfg["num_heads"] = tuple(cfg.get("num_heads", (6, 6, 6, 6)))

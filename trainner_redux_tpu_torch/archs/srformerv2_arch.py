@@ -328,6 +328,12 @@ class SRFormerV2(nn.Module):
             self.upsample = nn.Sequential(*stages)
             self.conv_last = Conv2d(num_feat, in_chans, 3)
 
+    def bf16_refusal(self) -> str:
+        """Why this network cannot train in bf16 on the port: its Swin
+        blocks' kernels lack their bf16 forms."""
+        return ("SRFormerV2 (the bf16 forms of #1/#6 at 12x12 windows, and of #2/#7 at C 240, "
+                "are not ported)")
+
     def init_weights(self, generator: torch.Generator) -> SRFormerV2:
         """Linear weights and bias tables trunc-normal 0.02, zero Linear
         biases, LayerNorm ones and zeros, torch's default conv init, from

@@ -237,6 +237,11 @@ class Swin2SR(nn.Module):
         self.upsample = nn.Sequential(*stages)
         self.conv_last = Conv2d(num_feat, in_chans, 3)
 
+    def bf16_refusal(self) -> str:
+        """Why this network cannot train in bf16 on the port: its kernels'
+        bf16 forms are not ported."""
+        return "Swin2SR (the bf16 forms of its kernels #11-#14 are not ported)"
+
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """The generator every Swin2Block draws its DropPath masks from."""
         for m in self.modules():

@@ -15,8 +15,8 @@ chosen as in the JAX package:
   as one autograd Function with kernels both ways; at eval
   `fused_attn_block` then `fused_ln_mlp`, two forward-only kernels;
 - unfused (`TRAINNER_FUSED_BLOCK=0`, and in training any block too large
-  for the training kernels, as SwinIR-L's): LayerNorms, Linears and MLP in
-  PyTorch around `fused_window_mhsa`, whose kernels run both ways;
+  for the training kernels, as SwinIR-L's C 240): LayerNorms, Linears and
+  MLP in PyTorch around `fused_window_mhsa`, whose kernels run both ways;
 - plain (`TRAINNER_FUSED_ATTN=0`): window partition and PyTorch attention
   with the per-window mask, no kernel at all.
 
@@ -30,14 +30,15 @@ never read.
 Compute dtype (`compute_dtype`, as the JAX package's `dtype` field and
 `build_network_cast` set it): the parameters stay fp32, and a training
 forward in bf16 computes as the flax SwinIR does with `dtype=bfloat16`: the
-input cast to bf16, every convolution on bf16 operands with its bias added
-in bf16, every LayerNorm from fp32 statistics rounded to bf16, and each
-SwinBlock on `fused_swin_block_train`'s bf16 forms; the output back to fp32.
-The parameters are cast at use (`w.to(bf16)`), so their gradients arrive in
-fp32 through the casts; no autocast, whose op lists round elsewhere. An eval
+input cast to bf16, every convolution, Linear and LayerNorm through
+`arch_util.in_dtype` (bf16 operands, biases added in bf16, LayerNorm
+statistics in fp32), each SwinBlock on `fused_swin_block_train`'s bf16 forms
+or, off that branch (SwinIR-L), on the bf16 forms of `fused_window_mhsa`
+(#3/#8) with its Linears and MLP in bf16; the output back to fp32. The
+parameters are cast at use (`w.to(bf16)`), so their gradients arrive in fp32
+through the casts; no autocast, whose op lists round elsewhere. An eval
 forward (validation, `test`, the EMA network) computes in fp32 from the same
-parameters: the JAX package's fp32 twin. A bf16 SwinBlock that would leave
-the fused training branch raises (its bf16 forms are not ported).
+parameters: the JAX package's fp32 twin.
 
 Divergence from upstream SwinIR kept from the JAX package: `patch_embed.norm`
 uses eps 1e-6 (flax's LayerNorm default); every other LayerNorm uses 1e-5.
@@ -53,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, droppath, in_dtype
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
 from trainner_redux_tpu_torch.ops.fused_block import (
     fused_attn_block,
@@ -145,19 +146,22 @@ class WindowAttention(nn.Module):
         return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        """Plain attention over windows x (B*nW, n, C); mask (nW, n, n)."""
+        """Plain attention over windows x (B*nW, n, C); mask (nW, n, n). In
+        x's dtype, as flax's: for bf16 x the scores sum bf16(q scale) k in
+        fp32 and the softmax is fp32, rounded to bf16 before its product with
+        v."""
         b_, n, c = x.shape
         nh = self.num_heads
-        qkv = self.qkv(x).reshape(b_, n, 3, nh, self.head_dim).permute(2, 0, 3, 1, 4)
+        qkv = in_dtype(self.qkv, x).reshape(b_, n, 3, nh, self.head_dim).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (b_, nh, n, hd)
-        attn = (q * self.scale) @ k.transpose(-2, -1) + self.position_bias()[None]
+        attn = (q * self.scale).float() @ k.float().transpose(-2, -1) + self.position_bias()[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = attn.reshape(b_ // nw, nw, nh, n, n) + mask[None, :, None]
             attn = attn.reshape(b_, nh, n, n)
-        attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b_, n, c)
-        return self.proj(out)
+        return in_dtype(self.proj, out)
 
 
 def bias_kinds(attn: WindowAttention, mask_kinds: torch.Tensor | None,
@@ -177,7 +181,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return in_dtype(self.fc2, F.gelu(in_dtype(self.fc1, x), approximate="none"))
 
 
 class SwinBlock(nn.Module):
@@ -216,10 +220,6 @@ class SwinBlock(nn.Module):
             # a block too large for the training kernels trains on the
             # unfused branch, which computes the same function
             fused = swin_block_train_fits(h, w, ws, c, self.num_heads, hidden)
-        if x.dtype == torch.bfloat16 and not (fused and self.training):
-            raise NotImplementedError(
-                f"SwinBlock (C {c}, {self.num_heads} heads, window {ws}) in bf16 needs the "
-                "fused training branch; its other branches' bf16 forms (#3/#8) are not ported")
         if fused:
             # the kernels take (in, out) weights; the attention kernels read
             # the rolled windows and write their outputs unrolled
@@ -247,15 +247,16 @@ class SwinBlock(nn.Module):
                 s2, ws, 1e-5,
             )
 
+        # unfused and plain, in x's dtype (bf16: #3/#8's bf16 forms)
         shortcut = x
-        x = self.norm1(x)
+        x = in_dtype(self.norm1, x)
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
         if self.qk_scale is None and fused_window_mhsa_supported(h, w, ws, c, self.num_heads):
-            qkv = self.attn.qkv(x).contiguous()
+            qkv = in_dtype(self.attn.qkv, x).contiguous()
             out = fused_window_mhsa(qkv, bias_kinds(self.attn, self.mask_kinds, shift),
                                     self.num_heads, self.attn.head_dim, ws)
-            x = self.attn.proj(out)
+            x = in_dtype(self.attn.proj, out)
         else:
             mask = _attn_mask(h, w, ws, shift)
             if mask is not None:
@@ -263,9 +264,9 @@ class SwinBlock(nn.Module):
             x = window_reverse(self.attn(window_partition(x, ws), mask), ws, h, w)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + s1[:, None, None, None] * x
-        y = self.mlp(self.norm2(x))
-        return (x + s2[:, None, None, None] * y).contiguous()
+        x = shortcut + droppath(x, s1)
+        y = self.mlp(in_dtype(self.norm2, x))
+        return (x + droppath(y, s2)).contiguous()
 
 
 def _bias_or_zeros(linear: nn.Linear) -> torch.Tensor:
@@ -287,37 +288,11 @@ class ResidualGroup(nn.Module):
         return x
 
 
-def _apply(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """m(x), in x's dtype: for bf16 x, a convolution (alone or in a
-    Sequential) takes its weight cast to bf16 and adds its bias as a bf16
-    operation, as flax's Conv with dtype=bfloat16 does (the sum rounded to
-    bf16, then the bias added and rounded); LeakyReLU and PixelShuffle run
-    on x as it is."""
-    if x.dtype == torch.float32:
-        return m(x)
-    if isinstance(m, nn.Sequential):
-        for sub in m:
-            x = _apply(sub, x)
-        return x
-    if isinstance(m, nn.Conv2d):
-        y = F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding, m.dilation, m.groups)
-        return y + m.bias.to(x.dtype)[:, None, None] if m.bias is not None else y
-    return m(x)
-
-
-def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """norm(x) in x's dtype: for bf16 x, flax's LayerNorm with
-    dtype=bfloat16 (fp32 statistics and affine, the result rounded)."""
-    if x.dtype == torch.float32:
-        return norm(x)
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
-                        norm.eps).to(x.dtype)
-
-
 def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW conv module to NHWC x, returning contiguous NHWC.
-    The permuted view is NCHW in channels-last memory, which cuDNN keeps."""
-    return _apply(conv, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+    """Apply an NCHW conv module to NHWC x in x's dtype, returning contiguous
+    NHWC. The permuted view is NCHW in channels-last memory, which cuDNN
+    keeps."""
+    return in_dtype(conv, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
 
 
 def _resi_conv(dim: int, resi_connection: str) -> nn.Module:
@@ -428,21 +403,9 @@ class SwinIR(nn.Module):
             self.conv_last = Conv2d(embed_dim, out_ch, 3)
 
     def bf16_refusal(self) -> str | None:
-        """Why this network cannot train in bf16 on the port, or None: a
-        SwinBlock that would leave the fused training branch (SwinIR-L's C
-        240, a qk_scale, TRAINNER_FUSED_BLOCK=0 or TRAINNER_FUSED_ATTN=0)
-        needs the bf16 forms of #3/#8, which are not ported. A window-sized
-        map stands for every map: the SwinIR forward pads to the window."""
-        for m in self.modules():
-            if not isinstance(m, SwinBlock):
-                continue
-            ws, c, nh = m.window_size, m.dim, m.num_heads
-            hidden = m.mlp.fc1.out_features
-            if not (m.qk_scale is None and fused_block_supported(ws, ws, ws, c, nh, hidden)
-                    and swin_block_train_fits(ws, ws, ws, c, nh, hidden)):
-                return (f"a SwinBlock of C {c}, {nh} heads, window {ws}, hidden {hidden} takes "
-                        "the unfused branch in training, whose bf16 kernels (#3/#8) are not "
-                        "ported")
+        """Why this network cannot train in bf16 on the port, or None: every
+        SwinBlock branch has its bf16 form (the fused training branch #4/#5,
+        the unfused branch #3/#8, the plain branch in PyTorch), so none."""
         return None
 
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
@@ -474,28 +437,28 @@ class SwinIR(nn.Module):
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
 
-        feat = _apply(self.conv_first, x)
+        feat = in_dtype(self.conv_first, x)
         body = feat.permute(0, 2, 3, 1).contiguous()  # NHWC tokens
         if self.patch_norm:
-            body = _layer_norm(self.patch_embed.norm, body)
+            body = in_dtype(self.patch_embed.norm, body)
         for layer in self.layers:
             body = layer(body)
-        body = _layer_norm(self.norm, body)
-        feat = feat + _apply(self.conv_after_body, body.permute(0, 3, 1, 2))
+        body = in_dtype(self.norm, body)
+        feat = feat + in_dtype(self.conv_after_body, body.permute(0, 3, 1, 2))
 
         if self.upsampler == "pixelshuffle":
-            out = _apply(self.conv_last, _apply(self.upsample,
-                                                _apply(self.conv_before_upsample, feat)))
+            feat = in_dtype(self.conv_before_upsample, feat)
+            out = in_dtype(self.conv_last, in_dtype(self.upsample, feat))
         elif self.upsampler == "pixelshuffledirect":
-            out = _apply(self.upsample, feat)
+            out = in_dtype(self.upsample, feat)
         elif self.upsampler == "nearest+conv":
-            feat = _apply(self.conv_before_upsample, feat)
+            feat = in_dtype(self.conv_before_upsample, feat)
             for stage in range(1, self.num_up + 1):
                 feat = F.interpolate(feat, scale_factor=2, mode="nearest")
-                feat = F.leaky_relu(_apply(getattr(self, f"conv_up{stage}"), feat), 0.2)
-            out = _apply(self.conv_last, F.leaky_relu(_apply(self.conv_hr, feat), 0.2))
+                feat = F.leaky_relu(in_dtype(getattr(self, f"conv_up{stage}"), feat), 0.2)
+            out = in_dtype(self.conv_last, F.leaky_relu(in_dtype(self.conv_hr, feat), 0.2))
         else:
-            out = _apply(self.conv_last, feat)
+            out = in_dtype(self.conv_last, feat)
 
         if out.shape[1] == 3:
             out = out / self.img_range + mean

@@ -79,6 +79,15 @@
 // rounds them. Their bound: the bf16 tensor cores (989 TFLOP/s) take #5's
 // 47.6 GFLOP in 0.048 ms and #4's 18.5 in 0.019, below what their bytes
 // take at 3.35 TB/s, so bytes bound both.
+//
+// The MLP half alone in bf16 (trr_ln_mlp_fwd_bf16, #2's bf16 form; and
+// trr_ln_mlp_bwd_bf16, #7's, ops/pallas/fused_block.py:196-254: HAT's HABs
+// and OCABs in a bf16 step) runs #4's and #5's MLP stages on their own: LN
+// rows, fc1 + gelu, fc2 with the residual (three launches); LN rows with dm
+// = bf16(s dout), fc1 + dh, dy and the LN backward to dx = bf16(dout + dt),
+// the two weight gradients and the LN partial sums. Its bound at HAT-M's
+// block (T 32,768, C 180, hidden 360): 8.5 and 21.2 GFLOP, 9 and 21 us on
+// the bf16 tensor cores, against some 24 and 36 MB of rows (7 and 11 us).
 #include "block_fwd.cuh"
 #include "tc_rows.cuh"
 #include "tc_rows_bf16.cuh"
@@ -493,6 +502,46 @@ int trr_swin_block_bwd_bf16(const trr::bf16* x, const trr::bf16* z, const trr::b
                                 stream));
   return (int)trr::launch_dbias(dS, B, H / 8, W / 8, nh, kinds, trr::kTile * trr::kTile, dbias,
                                 stream);
+}
+
+// The bf16 MLP half (#2's bf16 form): x, out (B, H, W, C) bf16; w1 (C,
+// hidden), w2 (hidden, C) bf16; g, be, b1, b2, s fp32; scratch y (T, C) and
+// h (T, hidden) bf16. Three launches: #4's MLP stages.
+int trr_ln_mlp_fwd_bf16(const trr::bf16* x, const float* g, const float* be, const trr::bf16* w1,
+                        const float* b1, const trr::bf16* w2, const float* b2, const float* s,
+                        trr::bf16* y, trr::bf16* h, trr::bf16* out, int B, int H, int W, int C,
+                        int hidden, float eps, cudaStream_t stream) {
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::ln_rows_bf16(x, g, be, y, nullptr, nullptr, nullptr, nullptr, T, hw, C, eps,
+                            stream));
+  TRR_TRY(trr::linear_bf16<trr::kLinearGelu>(y, w1, b1, h, T, C, hidden, stream));
+  return (int)trr::linear_bf16<trr::kLinearResidual>(h, w2, b2, out, T, hidden, C, stream, x, s,
+                                                     hw);
+}
+
+// The bf16 MLP backward (#7's bf16 form): x, dout, dx (B, H, W, C) bf16; w1,
+// w2 bf16 and g, be, b1, s fp32 as trr_ln_mlp_fwd_bf16 takes them. Scratch:
+// y, dm (T, C) bf16, stats (T, 2), hg, dh (T, hidden) bf16, dh32 (T,
+// hidden) fp32, ln_part and part as trr_ln_mlp_bwd's. Writes dx and the fp32
+// dln = dg | dbe, d1 = dw1 | db1 and d2 = dw2 | db2, whose bias sums add
+// the fp32 dm = s dout and dh.
+int trr_ln_mlp_bwd_bf16(const trr::bf16* x, const trr::bf16* dout, const float* g,
+                        const float* be, const trr::bf16* w1, const float* b1,
+                        const trr::bf16* w2, const float* s, trr::bf16* y, float* stats,
+                        trr::bf16* dm, trr::bf16* hg, trr::bf16* dh, float* dh32, float* ln_part,
+                        float* part, trr::bf16* dx, float* dln, float* d1, float* d2, int B,
+                        int H, int W, int C, int hidden, float eps, cudaStream_t stream) {
+  using trr::bf16;
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::ln_rows_bf16(x, g, be, y, stats, dout, s, dm, T, hw, C, eps, stream));
+  TRR_TRY(trr::mlp_hidden_bf16(y, dm, w1, b1, w2, hg, dh, dh32, T, C, hidden, stream));
+  TRR_TRY((trr::rows_bf16<trr::kRowsLn, bf16, bf16>(dh, w1, T, hidden, C, x, stats, g, dout,
+                                                   nullptr, hw, dx, nullptr, ln_part, stream)));
+  TRR_TRY(trr::weight_grad_bf16(hg, dm, T, hidden, C, nullptr, dout, s, hw, part, d2, stream));
+  TRR_TRY(trr::weight_grad_bf16(y, dh, T, C, hidden, dh32, nullptr, nullptr, hw, part, d1,
+                                stream));
+  return (int)trr::sum_rows(ln_part, (int)((T + trr::kTcRows - 1) / trr::kTcRows), 2LL * C, dln,
+                            stream);
 }
 
 size_t trr_linear_bf16_smem_bytes(int N) {

@@ -22,13 +22,16 @@
 // k, v and dA are padded with zeros to 32 channels, kHeadLd floats apart
 // (36: the row fragments' loads hit 32 banks).
 //
-// The bf16 forms (attn_rows_fwd_bf16_kernel, and attn_rows_bwd_bf16_kernel,
-// the saved-P backward: the bf16 training block's #4 and #5 stages) read and
-// write bf16 rows and P and keep the same fp32 tiles in shared memory; each
+// The bf16 forms (attn_rows_fwd_bf16_kernel, with P as the bf16 training
+// block's #4 stage and without it as #3's bf16 form; attn_rows_bwd_bf16_kernel,
+// the saved-P backward of #5's stage; attn_rows_bwd_recompute_bf16_kernel,
+// #8's bf16 form, which recomputes P from the bias table) read and write
+// bf16 rows and P and keep the same fp32 tiles in shared memory; each
 // product runs on mma.sync m16n8k16 bf16 with fp32 sums (tc_gemm_bf16.cuh),
 // its operands rounded to bf16 as their fragments load: the JAX kernel's
-// bf16 P (softmax in fp32, then rounded) in att = P v, and its bf16(scale
-// dS) in dQ and dK. Heads of 30 pad to 32 channels: two k-steps.
+// bf16 P (softmax in fp32, then rounded) in att = P v and dV = P^T dA, and
+// its bf16(scale dS) in dQ and dK, while rowsum(P dP) and dS take the fp32
+// P. Heads of 30 pad to 32 channels: two k-steps.
 #pragma once
 
 #include <type_traits>
@@ -338,8 +341,10 @@ __host__ __device__ constexpr int attn_fwd_blocks(int N, int threads) {
 // forward stage): the rows of k and q are divided by their L2 norm as they
 // are staged (stage_head_rows' NORM), and the temperature is the head's,
 // temps[h] (already exponentiated), in place of `scale`. T: the type of
-// qkv, att and P (float, or bf16 in attn_rows_fwd_bf16_kernel).
-template <int N, int RB, int KS, bool COS, typename T>
+// qkv, att and P (float, or bf16 in attn_rows_fwd_bf16_kernel). SP false:
+// no P is stored whatever `P` holds (#3's bf16 form, a template flag: no
+// test of a null pointer in the row loop).
+template <int N, int RB, int KS, bool COS, typename T, bool SP = true>
 __device__ __forceinline__ void attn_rows_fwd_body(const T* __restrict__ qkv,
                                                    const float* __restrict__ bias,
                                                    T* __restrict__ att, T* __restrict__ P, int H,
@@ -380,7 +385,7 @@ __device__ __forceinline__ void attn_rows_fwd_body(const T* __restrict__ qkv,
     __syncthreads();  // q and the bias rows (and, the first time, k and v) staged
     aw.softmax_rows(qs, ks, pt, red, scale);
     __syncthreads();  // P is whole
-    if (P != nullptr) store_table_rows<RB, N, NTH>(P + head + (size_t)r0 * N, pt);
+    if (SP && P != nullptr) store_table_rows<RB, N, NTH>(P + head + (size_t)r0 * N, pt);
     float o[CT][4];
     aw.rows_by_keys(pt, vs, o);  // att = P v
 #pragma unroll
@@ -403,15 +408,15 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                             scale, temps);
 }
 
-// The bf16 form: qkv, att and P in bf16.
-template <int N, int RB, int KS>
+// The bf16 form: qkv, att and P in bf16; SP false, #3's: no P.
+template <int N, int RB, int KS, bool SP = true>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                   attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
     attn_rows_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                               bf16* __restrict__ att, bf16* __restrict__ P, int H, int W, int C,
                               int nh, int wr, int wc, int kinds, int shift, float scale) {
-  attn_rows_fwd_body<N, RB, KS, false, bf16>(qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift,
-                                             scale, nullptr);
+  attn_rows_fwd_body<N, RB, KS, false, bf16, SP>(qkv, bias, att, P, H, W, C, nh, wr, wc, kinds,
+                                                 shift, scale, nullptr);
 }
 
 // Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT, SAVED>, in
@@ -599,6 +604,20 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
                                                    wr, wc, kinds, shift, scale);
 }
 
+// #8's bf16 form, the recompute backward: qkv, datt and dqkv in bf16, the
+// kind table and dS in fp32. P is recomputed in fp32 from q, k and the
+// table; dV takes bf16(P), dS the fp32 P.
+template <int N, int RB, int KS>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+    attn_rows_bwd_recompute_bf16_kernel(const bf16* __restrict__ qkv,
+                                        const float* __restrict__ bias,
+                                        const bf16* __restrict__ datt, bf16* __restrict__ dqkv,
+                                        float* __restrict__ dS, int H, int W, int C, int nh,
+                                        int wr, int wc, int kinds, int shift, float scale) {
+  attn_rows_bwd_body<N, RB, KS, false, false, bf16>(qkv, bias, datt, dqkv, nullptr, dS, H, W, C,
+                                                    nh, wr, wc, kinds, shift, scale);
+}
+
 // The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
 // takes it: four key parts a row tile at n 256 (rows of 64, 16 warps: a
 // thread's S fragments stay at 32 floats) and n 128 (rows of 32, 8 warps;
@@ -650,19 +669,37 @@ cudaError_t attn_rows_bwd_tc(const float* qkv, const float* table, const float* 
   return cudaGetLastError();
 }
 
-// attn_rows_fwd_bf16_kernel at windows of N tokens.
-template <int N>
+// attn_rows_fwd_bf16_kernel at windows of N tokens; SP false: no P.
+template <int N, bool SP = true>
 cudaError_t attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att, bf16* P, int B,
                                int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
                                float scale, cudaStream_t stream) {
   constexpr AttnPlan plan = attn_plan(N);
   constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
-  const cudaError_t err = set_smem(attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks>, floats);
+  const cudaError_t err = set_smem(attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP>, floats);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
-  attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks>
+  attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP>
       <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+// attn_rows_bwd_recompute_bf16_kernel (#8's bf16 form) at windows of N tokens.
+template <int N>
+cudaError_t attn_rows_bwd_recompute_bf16(const bf16* qkv, const float* bias, const bf16* datt,
+                                         bf16* dqkv, float* dS, int B, int H, int W, int C, int nh,
+                                         int wr, int wc, int kinds, int shift, float scale,
+                                         cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, false);
+  const cudaError_t err =
+      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nh, (H / wr) * (W / wc), B);
+  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks>
+      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }
 

@@ -30,8 +30,8 @@
 // two sets of A registers, so chunk c's wgmmas run while chunk c + 1 is
 // copied), a chunk 32 deep (the fp32 form's 16, in the same bytes). Rows
 // move by 8-byte cp.async copies (4 bf16): every width the
-// bf16 block takes (C 60 and 180, 3C, hidden) is a multiple of 4, and a
-// chunk's K tail past the matrix is zero-filled.
+// bf16 block takes (C 60 and 180, 3C, hidden; the MLP half's C 240) is a
+// multiple of 4, and a chunk's K tail past the matrix is zero-filled.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -177,6 +177,28 @@ struct WgmmaBf<192> {
         "}, {%96,%97,%98,%99}, %100, p, 1, 1, 0;\n}\n"
         : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24), TRR_D8(32), TRR_D8(40),
           TRR_D8(48), TRR_D8(56), TRR_D8(64), TRR_D8(72), TRR_D8(80), TRR_D8(88)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf<256> {
+  __device__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+        "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+        "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+        "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+        "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+        "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+        "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127"
+        "}, {%128,%129,%130,%131}, %132, p, 1, 1, 0;\n}\n"
+        : TRR_D8(0), TRR_D8(8), TRR_D8(16), TRR_D8(24), TRR_D8(32), TRR_D8(40),
+          TRR_D8(48), TRR_D8(56), TRR_D8(64), TRR_D8(72), TRR_D8(80), TRR_D8(88),
+          TRR_D8(96), TRR_D8(104), TRR_D8(112), TRR_D8(120)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

@@ -18,8 +18,9 @@
 //                         (dz in fp32, or dx in bf16), outs = bf16(s out).
 // Every LayerNorm statistic, softmax, gelu and sum of a row is fp32. 256
 // threads, two warpgroups of 64 rows, one block a SM, as the fp32 forms.
-// Rows of C <= 192 channels (the training gate's), every width a multiple
-// of 4: rows move 8 bytes (4 bf16) at a time.
+// Rows of C <= 192 channels in the whole block (the training gate's), of
+// C <= 256 in the MLP half alone (#7's bf16 form: a 256-column rows tile),
+// every width a multiple of 4: rows move 8 bytes (4 bf16) at a time.
 #pragma once
 
 #include "tc_gemm_bf16.cuh"
@@ -443,7 +444,7 @@ inline cudaError_t rows_bf16_launch(const bf16* A, const bf16* W, long long T, i
   return cudaGetLastError();
 }
 
-// rows_bf16_kernel at the column tile of C (<= 192, a multiple of 4); W (C, K).
+// rows_bf16_kernel at the column tile of C (<= 256, a multiple of 4); W (C, K).
 template <int EPI, typename RT, typename OT>
 inline cudaError_t rows_bf16(const bf16* A, const bf16* W, long long T, int K, int C,
                              const bf16* xln, const float* stats, const float* g, const RT* dres,
@@ -459,6 +460,9 @@ inline cudaError_t rows_bf16(const bf16* A, const bf16* W, long long T, int K, i
                                         ln_part, stream);
     case 192:
       return rows_bf16_launch<192, EPI>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
+                                        ln_part, stream);
+    case 256:
+      return rows_bf16_launch<256, EPI>(A, W, T, K, C, xln, stats, g, dres, s, hw, out, outs,
                                         ln_part, stream);
     default:
       return cudaErrorInvalidValue;

@@ -47,6 +47,20 @@
 //     no atomics, two runs are bit-identical.
 // The kernels take no shift: the caller rolls qkv and the output, as the
 // JAX package's contract has it.
+//
+// The bf16 forms (trr_*_mhsa_fwd_bf16, trr_*_mhsa_bwd_bf16): the JAX kernels
+// compute in qkv's dtype, so a bf16 training step (HAT, DAT, SwinIR-L) runs
+// #3 and #8 on bf16 qkv, dout and dqkv with the fp32 kind table, dS and
+// dbias, on the same plans and fp32 tiles as the fp32 forms: the products on
+// mma.sync m16n8k16 bf16 with fp32 sums (no hi/lo split), the softmax and
+// its row sums in fp32, P rounded to bf16 for P v and dV, bf16(scale dS)
+// for dQ and dK, the outputs rounded to bf16 as they leave
+// (ops/pallas/window_attention.py:191-220 and :226-300). Their bound: the
+// bf16 tensor cores take HAT-M's ws-16 forward (6.04 GFLOP) in 6.1 us and
+// its backward (15.10) in 15.3, below what their bytes take at 3.35 TB/s
+// (about 50 and 95 MB: 15 and 28 us): bytes bound both, and the window
+// attention's issue rate holds them (the fp32 forms reach 12-13% of their
+// 3xTF32 bound).
 #include "tc_attn.cuh"
 
 extern "C" {
@@ -135,6 +149,66 @@ int trr_window_mhsa_bwd(const float* qkv, const float* bias, const float* dout, 
   if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
   return trr_rect_mhsa_bwd(qkv, bias, dout, dqkv, dS, dbias, B, H, W, C, nh, kinds, ws, ws,
                            scale, stream);
+}
+
+// The bf16 forward (#3's bf16 form): qkv (B, H, W, 3C) and out (B, H, W,
+// C) bf16, bias (kinds, nh, n, n) fp32; windows as trr_rect_mhsa_fwd's.
+int trr_rect_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16* out, int B, int H,
+                           int W, int C, int nh, int kinds, int wr, int wc, float scale,
+                           cudaStream_t stream) {
+  const int n = wr * wc;
+  cudaError_t err;
+  if (n == 64) {
+    err = trr::attn_rows_fwd_bf16<64, false>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
+                                             kinds, 0, scale, stream);
+  } else if (n == 128) {
+    err = trr::attn_rows_fwd_bf16<128, false>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
+                                              kinds, 0, scale, stream);
+  } else if (n == 256) {
+    err = trr::attn_rows_fwd_bf16<256, false>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
+                                              kinds, 0, scale, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+int trr_window_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16* out, int B,
+                             int H, int W, int C, int nh, int kinds, int ws, float scale,
+                             cudaStream_t stream) {
+  if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
+  return trr_rect_mhsa_fwd_bf16(qkv, bias, out, B, H, W, C, nh, kinds, ws, ws, scale, stream);
+}
+
+// The bf16 backward (#8's bf16 form): qkv, dout and dqkv bf16; bias, the dS
+// scratch and dbias fp32, shaped as trr_rect_mhsa_bwd's.
+int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::bf16* dout,
+                           trr::bf16* dqkv, float* dS, float* dbias, int B, int H, int W, int C,
+                           int nh, int kinds, int wr, int wc, float scale, cudaStream_t stream) {
+  const int n = wr * wc;
+  cudaError_t err;
+  if (n == 64) {
+    err = trr::attn_rows_bwd_recompute_bf16<64>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr, wc,
+                                                kinds, 0, scale, stream);
+  } else if (n == 128) {
+    err = trr::attn_rows_bwd_recompute_bf16<128>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr,
+                                                 wc, kinds, 0, scale, stream);
+  } else if (n == 256) {
+    err = trr::attn_rows_bwd_recompute_bf16<256>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr,
+                                                 wc, kinds, 0, scale, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);
+}
+
+int trr_window_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::bf16* dout,
+                             trr::bf16* dqkv, float* dS, float* dbias, int B, int H, int W, int C,
+                             int nh, int kinds, int ws, float scale, cudaStream_t stream) {
+  if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
+  return trr_rect_mhsa_bwd_bf16(qkv, bias, dout, dqkv, dS, dbias, B, H, W, C, nh, kinds, ws, ws,
+                                scale, stream);
 }
 
 }  // extern "C"

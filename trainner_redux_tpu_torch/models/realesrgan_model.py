@@ -80,7 +80,7 @@ class RealESRGANModel(SRModel):
 
     def _bf16_refusal(self) -> str | None:
         """bf16 OTF training waits for the bf16 GAN path it ships with."""
-        return "the OTF model (RealESRGANModel)"
+        return "the OTF model (RealESRGANModel: DUnet in bf16 is not ported)"
 
     # ------------------------------------------------------------------
     # draws

@@ -12,8 +12,9 @@ Port of the JAX package's models/sr_model.py.
   (`build_network_cast`) and computes its training forward in it, from fp32
   parameters that take fp32 gradients and fp32 optimizer and EMA updates;
   validation, `test` and the EMA network's forward run the same parameters
-  in fp32, the JAX package's fp32 twin. bf16 trains SwinIR only, on the
-  bf16 forms of #4/#5. fp32 runs with TF32 off (`fast_matmul`
+  in fp32, the JAX package's fp32 twin. bf16 trains SwinIR (on the bf16
+  forms of #4/#5, SwinIR-L on those of #3/#8), HAT (#3/#8, #2/#7) and DAT
+  (the rect #3/#8). fp32 runs with TF32 off (`fast_matmul`
   lets cuBLAS and cuDNN use TF32; `deterministic` runs the step on torch's
   deterministic algorithms; `detect_anomaly` under autograd's anomaly
   detection, so a NaN in the backward raises): pair losses, the
@@ -40,9 +41,9 @@ Port of the JAX package's models/sr_model.py.
 DropPath draws from one `torch.Generator` on the model's device, seeded from
 `manual_seed`, that the model hands to the network.
 
-Not ported yet, and refused where configured: bf16 training of every family
-but SwinIR, of a SwinIR block off the fused training branch (SwinIR-L), of
-a GAN (`network_d`) and of the OTF model, `steps_per_dispatch > 1`, `remat`,
+Not ported yet, and refused where configured: bf16 training of Swin2SR
+(#11-#14), of SRFormerV2 (#1/#6 at 12x12), of a GAN (`network_d`: DUnet)
+and of the OTF model, `steps_per_dispatch > 1`, `remat`,
 discriminators
 other than DUnet, the R3GAN and feature-matching losses, MoA, dynamic loss
 scheduling, training automations, tiled inference and the mesh-sharded
@@ -258,15 +259,16 @@ class SRModel(BaseModel):
         self.gan_ema = torch.zeros((), device=self.device)
 
     def _bf16_refusal(self) -> str | None:
-        """Why this model cannot train in bf16 on the port, or None: only
-        SwinIR's fused training blocks have bf16 kernels (#4/#5)."""
-        from trainner_redux_tpu_torch.archs.swinir_arch import SwinIR
-
-        if not isinstance(self.net_g, SwinIR):
-            return f"{type(self.net_g).__name__} (only SwinIR trains in bf16)"
+        """Why this model cannot train in bf16 on the port, or None: the
+        network says (its `bf16_refusal`, which names the kernels it
+        lacks); a network without one, and GAN training (DUnet in bf16), are
+        refused."""
+        refusal = getattr(self.net_g, "bf16_refusal", None)
+        if refusal is None:
+            return f"{type(self.net_g).__name__} (it has no bf16 form)"
         if self.opt.network_d is not None:
             return "GAN training with network_d (DUnet in bf16 is not ported)"
-        return self.net_g.bf16_refusal()
+        return refusal()
 
     def _refuse_unported(self) -> None:
         opt, train_opt = self.opt, self.opt.train

@@ -64,6 +64,8 @@ SIGNATURES = {
         "trr_swin_block_fwd_bf16": ([_P] * 23 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_swin_block_bwd_bf16": ([_P] * 41 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_ln_mlp_bwd": ([_P] * 19 + [_I] * 5 + [_F, _P], _I),
+        "trr_ln_mlp_fwd_bf16": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
+        "trr_ln_mlp_bwd_bf16": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
         "trr_weight_grad": ([_P] * 2 + [_I] * 3 + [_P] * 3, _I),
         "trr_weight_grad_part_floats": ([_I] * 3, ctypes.c_size_t),
         "trr_sum_rows": ([_P, _I, _I, _P, _P], _I),
@@ -100,6 +102,10 @@ SIGNATURES = {
         "trr_rect_mhsa_bwd": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
         "trr_rect_mhsa_smem_bytes": ([_I] * 4, ctypes.c_size_t),
         "trr_rect_mhsa_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+        "trr_window_mhsa_fwd_bf16": ([_P] * 3 + [_I] * 7 + [_F, _P], _I),
+        "trr_window_mhsa_bwd_bf16": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
+        "trr_rect_mhsa_fwd_bf16": ([_P] * 3 + [_I] * 8 + [_F, _P], _I),
+        "trr_rect_mhsa_bwd_bf16": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
     },
 }
 

@@ -14,7 +14,9 @@ Port of the JAX package's ops/pallas/fused_block.py:
       output and z, and whose backward computes every gradient from them; on
       a bf16 x it computes as the JAX kernel does in bf16 (its bf16 forms,
       counted as `fused_swin_block_train_bf16` and
-      `fused_swin_block_train_backward_bf16`).
+      `fused_swin_block_train_backward_bf16`); `fused_ln_mlp` does too (its
+      bf16 forms `fused_ln_mlp_bf16` and `fused_ln_mlp_backward_bf16`, HAT's
+      MLP halves in a bf16 step).
 
 `fused_attn_block` and `fused_ln_mlp` are torch.autograd.Functions whose
 backwards recompute from x: #1's (TPU kernel #6,
@@ -25,7 +27,8 @@ LN and fc1.
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
 (K, nh, n, n). Heads of at most 32 channels, in fp32 (the whole training
-block also in bf16, every other kernel raising on it). The attention half's
+block and the MLP half also in bf16, the attention half's kernels raising
+on it). The attention half's
 forward takes 8x8 windows (n = 64) and 12x12 (n = 144, SRFormerV2's), both
 on the tensor-core stages of `csrc/block_fwd.cuh`, which the MLP half runs
 too; its backwards (`csrc/attn_block_staged.cu`) and its training form take
@@ -55,6 +58,7 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     SMEM_LIMIT,
     V_LD,
     WINDOW,
+    _bf,
     _check_cuda,
     attn_bwd_tc_smem_bytes,
     attn_fwd_tc_smem_bytes,
@@ -415,7 +419,10 @@ def fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e
     the kernels of `csrc/fused_block_train.cu` (one counted call: LN rows,
     the hidden-unit products, the LN backward's products, the weight
     gradients, on the tensor cores in 3xTF32); on a CPU tensor it runs the
-    plain version."""
+    plain version. A bf16 x takes the bf16 form
+    (`fused_ln_mlp_backward_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return fused_ln_mlp_backward_bf16(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps)
     if x.device.type == "cpu":
         return fused_ln_mlp_bwd_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps)
     name = "fused_ln_mlp_backward"
@@ -455,7 +462,9 @@ class _LnMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, be, w1, b1, w2, b2, s, window_size, eps):
         args = (x, g, be, w1, b1, w2, b2, s, window_size, eps)
-        if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            out = fused_ln_mlp_bf16(*args)
+        elif x.device.type == "cpu":
             out = fused_ln_mlp_reference(*args)
         else:
             out = _ln_mlp_fwd_cuda(*args)
@@ -477,7 +486,9 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
     g/be (C,) LayerNorm affine, w1 (C, hidden), b1 (hidden,), w2 (hidden, C),
     b2 (C,), s (B,) per-sample DropPath keep scale (ones at eval). On a CUDA
     tensor the forward launches TPU kernel #2's port and the backward #7's
-    (`fused_ln_mlp_backward`); on a CPU tensor both run their plain versions."""
+    (`fused_ln_mlp_backward`); on a CPU tensor both run their plain versions.
+    A bf16 x runs the bf16 forms (out and dx in bf16, the parameter
+    gradients in fp32)."""
     return _LnMlp.apply(x, g, be, w1, b1, w2, b2, s, window_size, eps)
 
 
@@ -930,10 +941,150 @@ def fused_swin_block_train_bwd_reference(x, g1, be1, wq, bq, wp, bp, g2, be2, w1
 # ---------------------------------------------------------------------------
 
 
-def _bf(t):
-    """t rounded to bf16 and held in fp32 for the arithmetic that follows:
-    the JAX kernel's `.astype(bf16)` between its fp32 steps."""
-    return t.to(torch.bfloat16).float()
+def _ln_mlp_bf16_rows(t, g, be, w1, b1, w2, b2, srow, eps):
+    """The MLP half in bf16 on rows t (T, C) held in fp32 (bf16 values),
+    with the JAX kernel's roundings (ops/pallas/fused_block.py:196-208): y =
+    bf16(LN(t)) from fp32 statistics, h = bf16(y w1) + bf16(b1), hg =
+    bf16(gelu(h)), m = bf16(hg w2) + bf16(b2), out = t + bf16(s) m, every
+    addition and product a bf16 operation (rounded); srow (T, 1) the fp32
+    DropPath scale of each row."""
+    xn, _ = _ln_parts(t, eps)
+    y = _bf(xn * g.float() + be.float())
+    hg = _bf(F.gelu(_bf(_bf(y @ _bf(w1)) + _bf(b1.float())), approximate="none"))
+    return _bf(t + _bf(_bf(srow) * _bf(_bf(hg @ _bf(w2)) + _bf(b2.float()))))
+
+
+def _ln_mlp_bwd_bf16_rows(t, do, g, be, w1, b1, w2, srow, eps):
+    """The MLP half's backward in bf16 on rows t and do (T, C) in fp32
+    (bf16 values), with the JAX kernel's roundings
+    (ops/pallas/fused_block.py:210-254): (dt, dg, dbe, dw1, db1, dw2, db2),
+    dt = do + LN'(dy) in fp32 (the caller rounds it or not). LN and h are
+    recomputed as the forward rounds them; dm = do s and dh are rounded to
+    bf16 as operands, while db2 and db1 sum the fp32 dm and dh; every
+    LayerNorm gradient is fp32."""
+    g, be, b1 = g.float(), be.float(), b1.float()
+    xn, inv = _ln_parts(t, eps)
+    y = _bf(xn * g + be)
+    h = _bf(_bf(y @ _bf(w1)) + _bf(b1))
+    hg = _bf(F.gelu(h, approximate="none"))
+    dm = do * srow
+    dm_lo = _bf(dm)
+    dw2, db2 = hg.T @ dm_lo, dm.sum(0)
+    dh = (dm_lo @ _bf(w2).T) * _gelu_grad(h)
+    dh_lo = _bf(dh)
+    dw1, db1 = y.T @ dh_lo, dh.sum(0)
+    dy = dh_lo @ _bf(w1).T
+    dg, dbe = (dy * xn).sum(0), dy.sum(0)
+    return do + _ln_backward(dy, xn, inv, g), dg, dbe, dw1, db1, dw2, db2
+
+
+def fused_ln_mlp_bf16_reference(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
+    """#2's bf16 form, step by step in fp32 with the JAX kernel's roundings
+    (`_ln_mlp_bf16_rows`): out (B, H, W, C) bf16 from a bf16 x and the fp32
+    parameters."""
+    b, hh, ww, c = x.shape
+    out = _ln_mlp_bf16_rows(x.float().reshape(-1, c), g, be, w1, b1, w2, b2,
+                            _row_scale(s, b, hh * ww), eps)
+    return out.reshape(x.shape).to(torch.bfloat16)
+
+
+def fused_ln_mlp_bwd_bf16_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e-5):
+    """#7's bf16 form, step by step in fp32 with the JAX kernel's roundings
+    (`_ln_mlp_bwd_bf16_rows`): dx = bf16(dout + LN'(dy)) and the fp32
+    gradients of g, be, w1, b1, w2, b2, as `fused_ln_mlp_bwd_reference`
+    orders them."""
+    b, hh, ww, c = x.shape
+    dt, *grads = _ln_mlp_bwd_bf16_rows(x.float().reshape(-1, c), dout.float().reshape(-1, c), g,
+                                       be, w1, b1, w2, _row_scale(s, b, hh * ww), eps)
+    return (dt.reshape(x.shape).to(torch.bfloat16), *grads)
+
+
+def _check_ln_mlp_bf16(name, x, g, be, w1, b1, w2, b2, s, window_size, dout=None):
+    """Limits, shapes, types and placement of the bf16 MLP half's operands
+    (x and dout bf16, the parameters and s fp32); returns w1 and w2 cast to
+    bf16. The bf16 forms take the rows the fp32 backward takes
+    (`ln_mlp_bwd_fits`: one rows tile of at most ROWS_MAX_C channels spans a
+    row, C and hidden multiples of 4; their plans fit at every such width)."""
+    b, hh, ww, c = x.shape
+    hidden = w1.shape[1]
+    if not (ln_mlp_fits(hh, window_size, c) and ln_mlp_bwd_fits(c, hidden)):
+        raise ValueError(
+            f"{name}: H={hh}, C={c}, hidden={hidden}, ws={window_size} is outside the bf16 "
+            f"kernels' limits (C <= {ROWS_MAX_C}, C and hidden multiples of 4)")
+    if b * hh * ww * hidden >= 2**31:
+        raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
+    for k, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
+        _check_cuda(k, t, shape, x.device, torch.bfloat16 if k == "x" else torch.float32)
+    if dout is not None:
+        _check_cuda("dout", dout, tuple(x.shape), x.device, torch.bfloat16)
+    w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    _check_aligned(name, x=x, g=g, be=be, w1=w1, b1=b1, w2=w2, b2=b2,
+                   **({} if dout is None else {"dout": dout}))
+    return w1, w2
+
+
+def fused_ln_mlp_bf16(x, g, be, w1, b1, w2, b2, s, window_size, eps=1e-5):
+    """#2's bf16 form: out (B, H, W, C) bf16 of a bf16 x from the fp32
+    parameters, as `fused_ln_mlp_bf16_reference` computes it. On a CUDA
+    tensor it casts w1 and w2 to bf16 and launches `trr_ln_mlp_fwd_bf16`
+    (one counted call, three launches: #4's MLP stages); on a CPU tensor it
+    runs the plain version. Outside the fp32 backward's limits it raises."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_bf16_reference(x, g, be, w1, b1, w2, b2, s, window_size, eps)
+    name = "fused_ln_mlp_bf16"
+    w1, w2 = _check_ln_mlp_bf16(name, x, g, be, w1, b1, w2, b2, s, window_size)
+    b, hh, ww, c = x.shape
+    hidden, T = w1.shape[1], b * hh * ww
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    y = torch.empty((T, c), device=x.device, dtype=torch.bfloat16)
+    h = torch.empty((T, hidden), device=x.device, dtype=torch.bfloat16)
+    fused_ln_mlp_bf16.launches += 1
+    _launch(
+        "fused_block_train", "trr_ln_mlp_fwd_bf16", x.device,
+        *(t.data_ptr() for t in (x, g, be, w1, b1, w2, b2, s, y, h, out)),
+        b, hh, ww, c, hidden, eps,
+    )
+    return out
+
+
+def fused_ln_mlp_backward_bf16(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e-5):
+    """#7's bf16 form: dx (bf16) and the fp32 gradients of g, be, w1, b1,
+    w2, b2 from the bf16 x and dout, as `fused_ln_mlp_bwd_bf16_reference`
+    computes them. On a CUDA tensor it launches `trr_ln_mlp_bwd_bf16` (one
+    counted call: #5's MLP stages and its two weight gradients); on a CPU
+    tensor it runs the plain version."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_bwd_bf16_reference(x, g, be, w1, b1, w2, b2, s, dout, window_size,
+                                               eps)
+    name = "fused_ln_mlp_backward_bf16"
+    w1h, w2h = _check_ln_mlp_bf16(name, x, g, be, w1, b1, w2, b2, s, window_size, dout)
+    b, hh, ww, c = x.shape
+    hidden, dev, T = w1.shape[1], x.device, b * hh * ww
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    y, dm = new(T, c, dtype=torch.bfloat16), new(T, c, dtype=torch.bfloat16)
+    hg, dh = new(T, hidden, dtype=torch.bfloat16), new(T, hidden, dtype=torch.bfloat16)
+    stats, dh32 = new(T, 2), new(T, hidden)
+    ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
+    part = new(max(_part_floats(T, hidden, c), _part_floats(T, c, hidden)))
+    dx, dln = torch.empty_like(x), new(2 * c)
+    d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
+    fused_ln_mlp_backward_bf16.launches += 1
+    _launch(
+        "fused_block_train", "trr_ln_mlp_bwd_bf16", dev,
+        *(t.data_ptr() for t in (x, dout, g, be, w1h, b1, w2h, s, y, stats, dm, hg, dh, dh32,
+                                 ln_part, part, dx, dln, d1, d2)),
+        b, hh, ww, c, hidden, eps,
+    )
+    return (dx, *dln.split(c), *_split_grad(d1, c, hidden), *_split_grad(d2, hidden, c))
+
+
+fused_ln_mlp_bf16.launches = 0
+fused_ln_mlp_backward_bf16.launches = 0
 
 
 def fused_swin_block_train_bf16_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2,
@@ -947,8 +1098,7 @@ def fused_swin_block_train_bf16_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, 
     bf16 values in fp32."""
     b, hh, ww, c = x.shape
     ws, t = window_size, _roll(x.float(), -shift).reshape(-1, c)
-    f = {k: v.float() for k, v in dict(g1=g1, be1=be1, bq=bq, bp=bp, g2=g2, be2=be2, b1=b1,
-                                        b2=b2).items()}
+    f = {k: v.float() for k, v in dict(g1=g1, be1=be1, bq=bq, bp=bp).items()}
     xn, _ = _ln_parts(t, eps)
     y = _bf(xn * f["g1"] + f["be1"])
     qkv = _bf(_bf(y @ _bf(wq)) + _bf(f["bq"]))
@@ -958,12 +1108,9 @@ def fused_swin_block_train_bf16_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, 
     table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
     p = _bf(torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1))
     att = _bf(_from_windows(_merge_heads(p @ v), ws).reshape(-1, c))
-    s1r, s2r = (_bf(_row_scale(u, b, hh * ww)) for u in (s1, s2))
+    s1r = _bf(_row_scale(s1, b, hh * ww))
     z = _bf(t + _bf(s1r * _bf(_bf(att @ _bf(wp)) + _bf(f["bp"]))))
-    xn2, _ = _ln_parts(z, eps)
-    y2 = _bf(xn2 * f["g2"] + f["be2"])
-    hg = _bf(F.gelu(_bf(_bf(y2 @ _bf(w1)) + _bf(f["b1"])), approximate="none"))
-    out = _bf(z + _bf(s2r * _bf(_bf(hg @ _bf(w2)) + _bf(f["b2"]))))
+    out = _ln_mlp_bf16_rows(z, g2, be2, w1, b1, w2, b2, _row_scale(s2, b, hh * ww), eps)
 
     def unroll(u):
         return _roll(u.reshape(b, hh, ww, c), shift).to(torch.bfloat16)
@@ -988,21 +1135,10 @@ def fused_swin_block_train_bwd_bf16_reference(x, g1, be1, wq, bq, wp, bp, g2, be
         return _roll(u.float(), -shift).reshape(tokens, -1)
 
     t, zt, do, att_t = rows(x), rows(z), rows(dout), rows(att)
-    g1, be1, bq, g2, be2, b1 = (u.float() for u in (g1, be1, bq, g2, be2, b1))
-    # the MLP half
-    xn2, inv2 = _ln_parts(zt, eps)
-    y2 = _bf(xn2 * g2 + be2)
-    h = _bf(_bf(y2 @ _bf(w1)) + _bf(b1))
-    hg = _bf(F.gelu(h, approximate="none"))
-    dm = do * _row_scale(s2, b, hh * ww)
-    dm_lo = _bf(dm)
-    dw2, db2 = hg.T @ dm_lo, dm.sum(0)
-    dh = (dm_lo @ _bf(w2).T) * _gelu_grad(h)
-    dh_lo = _bf(dh)
-    dw1, db1 = y2.T @ dh_lo, dh.sum(0)
-    dy2 = dh_lo @ _bf(w1).T
-    dg2, dbe2 = (dy2 * xn2).sum(0), dy2.sum(0)
-    dz = do + _ln_backward(dy2, xn2, inv2, g2)
+    g1, be1, bq = (u.float() for u in (g1, be1, bq))
+    # the MLP half: dz in fp32
+    dz, dg2, dbe2, dw1, db1, dw2, db2 = _ln_mlp_bwd_bf16_rows(
+        zt, do, g2, be2, w1, b1, w2, _row_scale(s2, b, hh * ww), eps)
     # the attention half
     xn, inv = _ln_parts(t, eps)
     y = _bf(xn * g1 + be1)

@@ -21,7 +21,7 @@ forward, #8 backward), each counted on its own:
 - `fused_rect_mhsa(qkv, bias, nh, hd, h_sp, w_sp)`: DAT's rectangles of
   h_sp rows and w_sp columns, n = 128 (8x16, 16x8) or 256 (8x32, 32x8).
 
-Heads of at most 32 channels, fp32. Both are torch.autograd.Functions: on a
+Heads of at most 32 channels. Both are torch.autograd.Functions: on a
 CUDA tensor the forward launches the forward kernel and the backward the
 backward kernel (`csrc/tc_attn.cuh`'s tensor-core window attention, 3xTF32
 on mma.sync: the forward is the pre-LN block forwards', the backward
@@ -30,6 +30,13 @@ returns dqkv and dbias; on a CPU tensor both directions run their plain
 versions (`fused_rect_mhsa_reference`, `fused_rect_mhsa_bwd_reference`, and
 their square forms). Any other device, or a tensor the kernels do not take,
 raises.
+
+A bf16 qkv (a bf16 training step of HAT, DAT or SwinIR-L) takes the bf16
+forms, computing as the JAX kernels do in qkv's dtype (bf16 mma.sync, fp32
+sums and softmax, P and bf16(scale dS) rounded as operands, the outputs
+rounded to bf16; the kind table, dS and dbias fp32), counted on their own:
+`fused_window_mhsa_bf16`, `fused_rect_mhsa_bf16` and their `_backward_bf16`
+wrappers, whose plain versions are the `*_bf16_reference` functions.
 """
 
 from __future__ import annotations
@@ -191,6 +198,12 @@ def window_kinds(nwh: int, nww: int, kinds: int, device=None) -> torch.Tensor:
     return (2 * (i == nwh - 1) + (j == nww - 1)).reshape(-1).long()
 
 
+def _bf(t):
+    """t rounded to bf16 and held in fp32 for the arithmetic that follows:
+    the JAX kernel's `.astype(bf16)` between its fp32 steps."""
+    return t.to(torch.bfloat16).float()
+
+
 def rect_partition(t: torch.Tensor, wr: int, wc: int) -> torch.Tensor:
     """(B, H, W, X) -> (B, nW, wr * wc, X), windows of wr rows and wc
     columns, row-major."""
@@ -210,13 +223,19 @@ def reference_rect_mhsa(qkv, bias_full, num_heads, head_dim, wr, wc,
                         scale: float | None = None):
     """Plain PyTorch window MHSA over windows of wr rows and wc columns with
     a per-window bias bias_full (nW or 1, nh, n, n), already including any
-    shift mask; the scores scaled by `scale`, head_dim**-0.5 by default."""
+    shift mask; the scores scaled by `scale`, head_dim**-0.5 by default. A
+    bf16 qkv computes as flax's plain attention in bf16: bf16(q scale) k and
+    the softmax in fp32, P rounded to bf16, P v rounded to bf16."""
     _, hh, ww, _ = qkv.shape
     x = rect_partition(qkv, wr, wc).unflatten(-1, (3, num_heads, head_dim))
     q, k, v = x.permute(3, 0, 1, 4, 2, 5).float()  # each (b, nw, nh, n, hd)
-    s = torch.einsum("bwhnd,bwhmd->bwhnm", q, k)
-    s = s * (scale or head_dim**-0.5) + bias_full[None].float()
-    p = torch.softmax(s, dim=-1)
+    scale = scale or head_dim**-0.5
+    if qkv.dtype == torch.bfloat16:
+        s = torch.einsum("bwhnd,bwhmd->bwhnm", _bf(q * scale), k) + bias_full[None].float()
+        p = _bf(torch.softmax(s, dim=-1))
+    else:
+        s = torch.einsum("bwhnd,bwhmd->bwhnm", q, k) * scale + bias_full[None].float()
+        p = torch.softmax(s, dim=-1)
     o = torch.einsum("bwhnm,bwhmd->bwhnd", p, v)
     return rect_reverse(o.transpose(2, 3).flatten(-2), hh, ww, wr, wc).to(qkv.dtype)
 
@@ -239,21 +258,74 @@ def fused_window_mhsa_reference(qkv, bias, num_heads, head_dim, window_size):
     return fused_rect_mhsa_reference(qkv, bias, num_heads, head_dim, window_size, window_size)
 
 
+def _window_heads(t, num_heads, h_sp, w_sp):
+    """(B, H, W, nh*hd) -> (B, nW, nh, n, hd) in fp32."""
+    return rect_partition(t.float(), h_sp, w_sp).unflatten(-1, (num_heads, -1)).transpose(2, 3)
+
+
+def _window_softmax(qkv, bias, num_heads, head_dim, h_sp, w_sp):
+    """(P, q, k, v, kind) of the windows: P the fp32 softmax of q k^T scale
+    plus each window's kind table, q, k, v (B, nW, nh, n, hd) in fp32."""
+    _, hh, ww, _ = qkv.shape
+    q, k, v = (_window_heads(t, num_heads, h_sp, w_sp) for t in qkv.chunk(3, dim=-1))
+    kind = window_kinds(hh // h_sp, ww // w_sp, bias.shape[0], device=bias.device)
+    p = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + bias.float()[kind], dim=-1)
+    return p, q, k, v, kind
+
+
+def fused_rect_mhsa_bf16_reference(qkv, bias, num_heads, head_dim, h_sp, w_sp):
+    """#3's bf16 form, step by step in fp32 with the JAX kernel's roundings
+    (ops/pallas/window_attention.py:191-220): S = q k^T from the bf16 q, k
+    summed in fp32, S scale + bias and the softmax in fp32, P rounded to
+    bf16, att = bf16(P) v summed in fp32 and rounded to bf16."""
+    _, hh, ww, _ = qkv.shape
+    p, _, _, v, _ = _window_softmax(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+    o = _bf(p) @ v
+    return rect_reverse(o.transpose(2, 3).flatten(-2), hh, ww, h_sp, w_sp).to(torch.bfloat16)
+
+
+def fused_window_mhsa_bf16_reference(qkv, bias, num_heads, head_dim, window_size):
+    """`fused_rect_mhsa_bf16_reference` at square windows."""
+    return fused_rect_mhsa_bf16_reference(qkv, bias, num_heads, head_dim, window_size,
+                                          window_size)
+
+
+def fused_rect_mhsa_bwd_bf16_reference(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
+    """#8's bf16 form, step by step in fp32 with the JAX kernel's roundings
+    (ops/pallas/window_attention.py:226-300): P recomputed in fp32, dv =
+    bf16(P)^T dout; dP = dout v^T and dS = P (dP - rowsum(P dP)) in fp32,
+    dbias summing the fp32 dS; dq and dk from bf16(scale dS); dq, dk, dv
+    rounded to bf16. Returns (dqkv bf16, dbias fp32)."""
+    _, hh, ww, _ = qkv.shape
+    n, kinds = h_sp * w_sp, bias.shape[0]
+    p, q, k, v, kind = _window_softmax(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+    do = _window_heads(dout, num_heads, h_sp, w_sp)
+    dv = _bf(_bf(p).transpose(-1, -2) @ do)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_lo = _bf(ds * head_dim**-0.5)
+    dq, dk = _bf(ds_lo @ k), _bf(ds_lo.transpose(-1, -2) @ q)
+    dbias = torch.zeros(kinds, num_heads, n, n, dtype=torch.float32, device=qkv.device)
+    dbias.index_add_(0, kind, ds.sum(0))
+    dqkv = torch.cat([t.transpose(2, 3).flatten(-2) for t in (dq, dk, dv)], dim=-1)
+    return rect_reverse(dqkv, hh, ww, h_sp, w_sp).to(torch.bfloat16), dbias
+
+
+def fused_window_mhsa_bwd_bf16_reference(qkv, bias, dout, num_heads, head_dim, window_size):
+    """`fused_rect_mhsa_bwd_bf16_reference` at square windows."""
+    return fused_rect_mhsa_bwd_bf16_reference(qkv, bias, dout, num_heads, head_dim, window_size,
+                                              window_size)
+
+
 def fused_rect_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
     """The backward kernel's spec, step by step, in fp32: (dqkv (B,H,W,3C),
     dbias (K,nh,n,n)) of `fused_rect_mhsa_reference` for the output gradient
     dout (B,H,W,C), the softmax recomputed from qkv and the bias."""
     _, hh, ww, _ = qkv.shape
     n, kinds = h_sp * w_sp, bias.shape[0]
-
-    def heads(t):  # (B, nW, n, nh*hd) -> (B, nW, nh, n, hd)
-        return t.unflatten(-1, (num_heads, head_dim)).transpose(2, 3)
-
-    q, k, v = (heads(t) for t in rect_partition(qkv.float(), h_sp, w_sp).chunk(3, dim=-1))
-    do = heads(rect_partition(dout.float(), h_sp, w_sp))
-    kind = window_kinds(hh // h_sp, ww // w_sp, kinds, device=bias.device)
+    p, q, k, v, kind = _window_softmax(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+    do = _window_heads(dout, num_heads, h_sp, w_sp)
     scale = head_dim**-0.5
-    p = torch.softmax(q @ k.transpose(-1, -2) * scale + bias.float()[kind], dim=-1)
     dv = p.transpose(-1, -2) @ do
     dp = do @ v.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
@@ -288,12 +360,13 @@ def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc):
+def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc,
+                         dtype=torch.float32):
     b, hh, ww, c3 = qkv.shape
     c, n, kinds = num_heads * head_dim, wr * wc, bias.shape[0]
     if c3 != 3 * c or kinds not in (1, 4):
         raise ValueError(f"qkv {tuple(qkv.shape)} / bias {tuple(bias.shape)} do not match")
-    _check_cuda("qkv", qkv, (b, hh, ww, 3 * c), qkv.device)
+    _check_cuda("qkv", qkv, (b, hh, ww, 3 * c), qkv.device, dtype)
     _check_cuda("bias", bias, (kinds, num_heads, n, n), qkv.device)
     if not rect_mhsa_fits(hh, ww, wr, wc, c, num_heads):
         raise ValueError(
@@ -304,9 +377,11 @@ def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc):
         raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
 
 
-def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc):
-    """Launch the forward kernel, one count on the wrapper `counted`."""
-    _check_window_shapes(counted.__name__, qkv, bias, num_heads, head_dim, wr, wc)
+def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc, bf16=False):
+    """Launch the forward kernel (`bf16`: its bf16 form), one count on the
+    wrapper `counted`."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    _check_window_shapes(counted.__name__, qkv, bias, num_heads, head_dim, wr, wc, dtype)
     b, hh, ww, _ = qkv.shape
     c = num_heads * head_dim
     out = torch.empty((b, hh, ww, c), device=qkv.device, dtype=qkv.dtype)
@@ -315,9 +390,10 @@ def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc):
     from trainner_redux_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("window_attention")
+    fn = lib.trr_rect_mhsa_fwd_bf16 if bf16 else lib.trr_rect_mhsa_fwd
     with torch.cuda.device(qkv.device):
         counted.launches += 1
-        status = lib.trr_rect_mhsa_fwd(
+        status = fn(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
             b, hh, ww, c, num_heads, bias.shape[0], wr, wc, head_dim**-0.5,
             torch.cuda.current_stream().cuda_stream,
@@ -326,14 +402,15 @@ def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc):
     return out
 
 
-def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc):
-    """Launch the backward kernel and the bias-kind reduction, one count on
-    the wrapper `counted`."""
+def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc, bf16=False):
+    """Launch the backward kernel (`bf16`: its bf16 form) and the bias-kind
+    reduction, one count on the wrapper `counted`."""
     name = counted.__name__
-    _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc, dtype)
     b, hh, ww, _ = qkv.shape
     c, n, kinds = num_heads * head_dim, wr * wc, bias.shape[0]
-    _check_cuda("dout", dout, (b, hh, ww, c), qkv.device)
+    _check_cuda("dout", dout, (b, hh, ww, c), qkv.device, dtype)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
     # dS of every window and head, which the bias-kind reduction sums
@@ -344,9 +421,10 @@ def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc):
     from trainner_redux_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("window_attention")
+    fn = lib.trr_rect_mhsa_bwd_bf16 if bf16 else lib.trr_rect_mhsa_bwd
     with torch.cuda.device(qkv.device):
         counted.launches += 1
-        status = lib.trr_rect_mhsa_bwd(
+        status = fn(
             qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
             dbias.data_ptr(), b, hh, ww, c, num_heads, kinds, wr, wc, head_dim**-0.5,
             torch.cuda.current_stream().cuda_stream,
@@ -360,7 +438,10 @@ def fused_window_mhsa_backward(qkv, bias, dout, num_heads, head_dim, window_size
     (TPU kernel #8). On a CUDA tensor it launches the backward kernel (five
     products on the tensor cores in 3xTF32) and the bias-kind reduction of
     `csrc/window_attention.cu` (one counted call); on a CPU tensor it runs
-    the plain version."""
+    the plain version. A bf16 qkv takes the bf16 form
+    (`fused_window_mhsa_backward_bf16`)."""
+    if qkv.dtype == torch.bfloat16:
+        return fused_window_mhsa_backward_bf16(qkv, bias, dout, num_heads, head_dim, window_size)
     if qkv.device.type == "cpu":
         return fused_window_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, window_size)
     return _mhsa_bwd_cuda(fused_window_mhsa_backward, qkv, bias, dout, num_heads, head_dim,
@@ -371,7 +452,10 @@ def fused_rect_mhsa_backward(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
     """(dqkv, dbias) of `fused_rect_mhsa` for the output gradient dout (TPU
     kernel #8's rect form). On a CUDA tensor it launches the backward kernel
     and the bias-kind reduction (one counted call); on a CPU tensor it runs
-    the plain version."""
+    the plain version. A bf16 qkv takes the bf16 form
+    (`fused_rect_mhsa_backward_bf16`)."""
+    if qkv.dtype == torch.bfloat16:
+        return fused_rect_mhsa_backward_bf16(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp)
     if qkv.device.type == "cpu":
         return fused_rect_mhsa_bwd_reference(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp)
     return _mhsa_bwd_cuda(fused_rect_mhsa_backward, qkv, bias, dout, num_heads, head_dim,
@@ -382,10 +466,62 @@ fused_window_mhsa_backward.launches = 0
 fused_rect_mhsa_backward.launches = 0
 
 
+def fused_window_mhsa_bf16(qkv, bias, num_heads, head_dim, window_size):
+    """#3's bf16 form at square windows (8x8, 16x16): out (B, H, W, C) bf16
+    from a bf16 qkv and the fp32 kind table, as
+    `fused_window_mhsa_bf16_reference` computes it. On a CUDA tensor it
+    launches `trr_rect_mhsa_fwd_bf16` (one counted call); on a CPU tensor it
+    runs the plain version. Its limits are the fp32 form's
+    (`rect_mhsa_fits`); a tensor outside them raises."""
+    if qkv.device.type == "cpu":
+        return fused_window_mhsa_bf16_reference(qkv, bias, num_heads, head_dim, window_size)
+    return _mhsa_fwd_cuda(fused_window_mhsa_bf16, qkv, bias, num_heads, head_dim, window_size,
+                          window_size, bf16=True)
+
+
+def fused_rect_mhsa_bf16(qkv, bias, num_heads, head_dim, h_sp, w_sp):
+    """#3's bf16 form at DAT's rect windows, as `fused_window_mhsa_bf16`."""
+    if qkv.device.type == "cpu":
+        return fused_rect_mhsa_bf16_reference(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+    return _mhsa_fwd_cuda(fused_rect_mhsa_bf16, qkv, bias, num_heads, head_dim, h_sp, w_sp,
+                          bf16=True)
+
+
+def fused_window_mhsa_backward_bf16(qkv, bias, dout, num_heads, head_dim, window_size):
+    """#8's bf16 form at square windows: (dqkv bf16, dbias fp32) from the
+    bf16 qkv and dout, as `fused_window_mhsa_bwd_bf16_reference` computes
+    them. On a CUDA tensor it launches `trr_rect_mhsa_bwd_bf16` and the
+    bias-kind reduction (one counted call); on a CPU tensor it runs the
+    plain version."""
+    if qkv.device.type == "cpu":
+        return fused_window_mhsa_bwd_bf16_reference(qkv, bias, dout, num_heads, head_dim,
+                                                    window_size)
+    return _mhsa_bwd_cuda(fused_window_mhsa_backward_bf16, qkv, bias, dout, num_heads, head_dim,
+                          window_size, window_size, bf16=True)
+
+
+def fused_rect_mhsa_backward_bf16(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
+    """#8's bf16 form at DAT's rect windows, as
+    `fused_window_mhsa_backward_bf16`."""
+    if qkv.device.type == "cpu":
+        return fused_rect_mhsa_bwd_bf16_reference(qkv, bias, dout, num_heads, head_dim, h_sp,
+                                                  w_sp)
+    return _mhsa_bwd_cuda(fused_rect_mhsa_backward_bf16, qkv, bias, dout, num_heads, head_dim,
+                          h_sp, w_sp, bf16=True)
+
+
+fused_window_mhsa_bf16.launches = 0
+fused_rect_mhsa_bf16.launches = 0
+fused_window_mhsa_backward_bf16.launches = 0
+fused_rect_mhsa_backward_bf16.launches = 0
+
+
 class _WindowMhsa(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, head_dim, window_size):
-        if qkv.device.type == "cpu":
+        if qkv.dtype == torch.bfloat16:
+            out = fused_window_mhsa_bf16(qkv, bias, num_heads, head_dim, window_size)
+        elif qkv.device.type == "cpu":
             out = fused_window_mhsa_reference(qkv, bias, num_heads, head_dim, window_size)
         else:
             out = _mhsa_fwd_cuda(fused_window_mhsa, qkv, bias, num_heads, head_dim,
@@ -404,7 +540,9 @@ class _WindowMhsa(torch.autograd.Function):
 class _RectMhsa(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, head_dim, h_sp, w_sp):
-        if qkv.device.type == "cpu":
+        if qkv.dtype == torch.bfloat16:
+            out = fused_rect_mhsa_bf16(qkv, bias, num_heads, head_dim, h_sp, w_sp)
+        elif qkv.device.type == "cpu":
             out = fused_rect_mhsa_reference(qkv, bias, num_heads, head_dim, h_sp, w_sp)
         else:
             out = _mhsa_fwd_cuda(fused_rect_mhsa, qkv, bias, num_heads, head_dim, h_sp, w_sp)
@@ -425,7 +563,8 @@ def fused_window_mhsa(qkv, bias, num_heads, head_dim, window_size):
 
     On a CUDA tensor the forward launches TPU kernel #3's port (ws 8 or 16)
     and the backward #8's (`fused_window_mhsa_backward`); on a CPU tensor
-    both run their plain versions."""
+    both run their plain versions. A bf16 qkv runs the bf16 forms (out and
+    dqkv in bf16, dbias in fp32)."""
     return _WindowMhsa.apply(qkv, bias, num_heads, head_dim, window_size)
 
 
@@ -436,7 +575,7 @@ def fused_rect_mhsa(qkv, bias, num_heads, head_dim, h_sp, w_sp):
 
     On a CUDA tensor the forward launches the rect form of TPU kernel #3 and
     the backward that of #8 (`fused_rect_mhsa_backward`); on a CPU tensor
-    both run their plain versions."""
+    both run their plain versions. A bf16 qkv runs the bf16 forms."""
     return _RectMhsa.apply(qkv, bias, num_heads, head_dim, h_sp, w_sp)
 
 
