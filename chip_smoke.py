@@ -4,7 +4,9 @@ DAT 4x, Swin2SR-M 4x and SRFormerV2 4x serving and training, SwinIR-M 4x
 training on pairs degraded on the fly (Real-ESRGAN OTF), the training
 form of the Swin attention half that saves P, SwinIR-M 4x GAN training
 with the DUnet discriminator (swinir_m_gan.yml), and bf16 training as
-the fidelity templates of SwinIR-M, HAT-M, DAT and SwinIR-L ship it.
+the fidelity templates of SwinIR-M, HAT-M, DAT, SwinIR-L and SRFormerV2,
+the GAN templates of SwinIR-M, HAT-M, DAT and SRFormerV2 and the OTF
+template of SwinIR-M ship it.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -266,8 +268,34 @@ failure:
              L2 distance from fp32 within BF16_BRANCH_RATIO of the plain
              versions'); two deterministic bf16 steps twice, bit for bit.
 
-Each phase prints its seconds. Then one JSON line of kernel records and,
-last, the device JSON line.
+50. srformerv2 bf16 kernels - the bf16 forms of #1 and #6 (12x12
+             windows, csrc/fused_block_train.cu's trr_attn_block_fwd_bf16 /
+             _bwd_bf16) at SRFormerV2's training block as its template ships
+             it (B=16, 72x72, C 240, 8 heads of 30), K=1 and K=4 shifted by
+             6, on bf16 x and dout with fp32 parameters: against their bf16
+             plain versions and float64 (phase 45's limits), two runs bit for
+             bit, timed beside the fp32 forms with the bf16 bound; split by
+             stage at K=1.
+51. srformerv2 bf16 train - `train.run` of srformerv2_fidelity.yml as
+             shipped (bf16, batch 16 of 48x48 LR, L1 + MS-SSIM, its
+             validation), 30 steps, counting 18 + 18 launches a step of
+             #1/#6's bf16 forms and of #2/#7's and none of any fp32 training
+             form; the fp32 twin's validation; the EMA checkpoint served;
+             then one step profiled (device ms, busy share, peak memory).
+52. bf16 gan - `train.run` of swinir_m_gan.yml as shipped (bf16: G on
+             #4/#5's bf16 forms, DUnet in bf16), 30 steps with phase 38's
+             checks; its step profiled into the G and D steps (phase 39's);
+             then hat_m_gan.yml, dat_gan.yml and srformerv2_gan.yml as
+             shipped, six steps each, a G step's bf16 launches counted and
+             one step profiled into G and D.
+53. otf bf16 - `train.run` of swinir_m_otf.yml as shipped with its MS-SSIM
+             cut (bf16 G and DUnet, L1 + perceptual + GAN; the degradation
+             in fp32 on #15), 30 steps, counting #15 and 36 + 36 bf16 #4/#5
+             launches a step; one step profiled into the degradation and
+             the optimizer step, peak memory.
+
+Each phase prints its seconds, and the run its total. Then one JSON line
+of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
 """
 
@@ -383,6 +411,8 @@ REPLACES = {
     "fused_rect_mhsa_backward_bf16": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
     "fused_ln_mlp_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:388",
     "fused_ln_mlp_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
+    "fused_attn_block_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
+    "fused_attn_block_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:729",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -418,6 +448,8 @@ SOURCES = {
     "fused_rect_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_ln_mlp_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_ln_mlp_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_attn_block_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_attn_block_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
@@ -429,7 +461,8 @@ SOURCES = {
 # run of swinir_m_fidelity.yml (phase 42), and those of #3/#8 and #2/#7,
 # counted in the bf16 runs of hat_m_fidelity.yml (ws 16, the MLP halves),
 # dat_fidelity.yml (rect) and swinir_l_fidelity.yml ("_ws8": 8x8 at C 240;
-# phases 46-48)
+# phases 46-48); #1/#6's bf16 forms ("fused_attn_block_bf16" and its
+# backward, 12x12) in the bf16 run of srformerv2_fidelity.yml (phase 51)
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -995,6 +1028,8 @@ def _wrappers() -> dict:
         "fused_rect_mhsa_backward_bf16": wa.fused_rect_mhsa_backward_bf16,
         "fused_ln_mlp_bf16": fb.fused_ln_mlp_bf16,
         "fused_ln_mlp_backward_bf16": fb.fused_ln_mlp_backward_bf16,
+        "fused_attn_block_bf16": fb.fused_attn_block_bf16,
+        "fused_attn_block_backward_bf16": fb.fused_attn_block_backward_bf16,
         "fused_window_mhsa_backward": wa.fused_window_mhsa_backward,
         "fused_ln_mlp_backward": fb.fused_ln_mlp_backward,
         "fused_rect_mhsa": wa.fused_rect_mhsa,
@@ -1398,9 +1433,10 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
                 tag: str = "train", per_step: dict[str, int] | None = None,
                 serve_want: dict[str, int] | None = None, lq: int = TH,
                 losses: tuple[str, ...] = ("l1loss",), opt=None,
-                more_launches=None, check=None) -> dict[str, int]:
-    """The training entry point on `network` (batch 8 of lq x lq LR crops,
-    the pair `losses`; `opt`, when given, are the run's options); returns
+                more_launches=None, check=None, batch_size: int = TB) -> dict[str, int]:
+    """The training entry point on `network` (batch `batch_size` of lq x lq
+    LR crops, the pair `losses`; `opt`, when given, are the run's options,
+    at that batch); returns
     the launch counts of its run, which must be `per_step` times the steps
     and what `more_launches()` returns after the run. With `check`, every
     step's logs must be finite, and `check(model, opt)` runs before the
@@ -1449,11 +1485,11 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     per = [b - a for a, b in zip(ends[TRAIN_WARMUP:], ends[TRAIN_WARMUP + 1:])]
     med = statistics.median(per)
     q = statistics.quantiles(per, n=4)
-    say(f"[{tag}] {label} 4x, batch {TB} of {lq}x{lq} LR, {' + '.join(losses)}, {steps} "
-        f"steps in {secs:.2f} s "
+    say(f"[{tag}] {label} 4x, batch {batch_size} of {lq}x{lq} LR, {' + '.join(losses)}, "
+        f"{steps} steps in {secs:.2f} s "
         f"(model build and data included): median {med * 1e3:.2f} ms per step "
         f"(quartiles {q[0] * 1e3:.2f} / {q[2] * 1e3:.2f} ms, steps {TRAIN_WARMUP + 1}-{steps}), "
-        f"{TB / med:.2f} images/s, max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"{batch_size / med:.2f} images/s, max_memory_allocated {peak / 2**30:.2f} GiB")
     say(f"[{tag}] l_g_total per step: first {totals[0]:.5f}, last {totals[-1]:.5f}; "
         f"launches {counts}")
     if steps != TRAIN_STEPS or model.step != TRAIN_STEPS:
@@ -2605,16 +2641,18 @@ def phase_otf_train(seed: int, hr_dir: Path) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def phase_otf_profile(seed: int, hr_dir: Path) -> None:
-    """Device time by kernel of one OTF step, split into the degradation
-    (`feed_data`: degrade and pool) and the optimizer step; both timed
-    again without the profiler, and the card's idle share against that."""
+def phase_otf_profile(seed: int, hr_dir: Path, opt=None, tag: str = "otf profile") -> None:
+    """Device time by kernel of one OTF step (`opt`, else phase 28's run),
+    split into the degradation (`feed_data`: degrade and pool) and the
+    optimizer step; both timed again without the profiler, and the card's
+    idle share against that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from trainner_redux_tpu_torch.models import build_model
 
-    opt = otf_options("swinir_m_x4_otf_profile", hr_dir, seed, **OTF_TEMPLATE)
+    opt = opt or otf_options("swinir_m_x4_otf_profile", hr_dir, seed, **OTF_TEMPLATE)
+    stem = "otf" if tag == "otf profile" else tag.replace(" ", "_")
     model = build_model(opt, device="cuda")
     batch = otf_batch(opt, seed)
     for i in range(3):
@@ -2630,11 +2668,11 @@ def phase_otf_profile(seed: int, hr_dir: Path) -> None:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         events = device_events(prof)
-        check_retired("otf profile", events)
+        check_retired(tag, events)
         parts[part] = (sum(e.self_device_time_total for e in events) / 1e3, wall * 1e3, events,
                        prof)
     if parts["degrade"][0] == 0:
-        say("[otf profile] the profiler recorded no device time")
+        say(f"[{tag}] the profiler recorded no device time")
         return
     timed = {}
     for part, fn in (("degrade", lambda: model.feed_data(batch)),
@@ -2647,7 +2685,7 @@ def phase_otf_profile(seed: int, hr_dir: Path) -> None:
         timed[part] = (time.perf_counter() - t0) / 5 * 1e3
     device = sum(p[0] for p in parts.values())
     wall = sum(timed.values())
-    say(f"[otf profile] one OTF step (batch {TB}, gt {OTF_GT}): device {device:.3f} ms "
+    say(f"[{tag}] one OTF step (batch {TB}, gt {OTF_GT}): device {device:.3f} ms "
         f"(profiler) against {wall:.2f} ms on the host clock without the profiler (5 runs "
         f"each): the card idle {1 - device / wall:.1%}. feed_data (degrade and pool) "
         f"{parts['degrade'][0]:.3f} device ms, {timed['degrade']:.2f} ms host clock "
@@ -2655,11 +2693,11 @@ def phase_otf_profile(seed: int, hr_dir: Path) -> None:
         f"{parts['step'][0]:.3f} device ms, {timed['step']:.2f} ms host clock (under the "
         f"profiler {parts['degrade'][1]:.1f} and {parts['step'][1]:.1f} ms)")
     for part, (_, _, events, prof) in parts.items():
-        (OUT / f"profile_otf_{part}.txt").write_text(
+        (OUT / f"profile_{stem}_{part}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
-        say(f"[otf profile] {part}: {sum(e.count for e in events)} kernel launches")
+        say(f"[{tag}] {part}: {sum(e.count for e in events)} kernel launches")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-            say(f"[otf profile]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+            say(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
                 f"{e.key[:90]}")
 
 
@@ -3053,20 +3091,24 @@ GAN_LOSSES = ("l1loss", "mssimloss", "perceptualloss", "ganloss")
 GAN_DATA = OUT / "gan_data"
 
 
-def gan_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, **extra):
-    """configs/_templates/train/SwinIR/swinir_m_gan.yml as it is (SwinIR-M
-    4x, batch 8 of 48x48 LR crops, network_d dunet, L1 + MS-SSIM +
-    perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA 0.999, its
-    MultiStepLR) with one cut, compute_dtype float32 (bf16 is not ported),
-    on `hr_dir` / `lr_dir`, 30 steps, without validation."""
+def gan_options(name: str, hr_dir: Path, lr_dir: Path, seed: int,
+                template: Path = GAN_TEMPLATE, as_shipped: bool = False, **extra):
+    """`template`, configs/_templates/train/SwinIR/swinir_m_gan.yml unless
+    said (SwinIR-M 4x, batch 8 of 48x48 LR crops, network_d dunet, L1 +
+    MS-SSIM + perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA
+    0.999, its MultiStepLR, bf16), in fp32 (phases 37-40) or `as_shipped`
+    (bf16, phase 52), on `hr_dir` / `lr_dir`, 30 steps, without
+    validation."""
     import yaml
 
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
 
-    raw = yaml.safe_load(GAN_TEMPLATE.read_text())
-    raw.update(name=name, manual_seed=seed, compute_dtype="float32", num_gpu=1, path={})
+    raw = yaml.safe_load(template.read_text())
+    raw.update(name=name, manual_seed=seed, num_gpu=1, path={})
+    if not as_shipped:
+        raw["compute_dtype"] = "float32"
     raw["datasets"] = {"train": {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir),
                                  "dataroot_lq": str(lr_dir), "io_backend": {"type": "disk"},
                                  "num_worker_per_gpu": 4}}
@@ -3200,58 +3242,73 @@ def phase_gan_branches(seed: int) -> None:
         f"one's); {pins.said()}")
 
 
-def phase_gan_train(seed: int) -> dict[str, int]:
-    """`train.run` of swinir_m_gan.yml (fp32), 30 steps from 16 seeded
-    512x512 HR images, counting #4/#5 (36 + 36 a step); every log finite;
-    D's parameters and every (u, v) moved from D's seeded init; the EMA
-    checkpoint serves with the strict load, and net_d_<iter> loads back
-    strictly into DUnet."""
+def phase_gan_train(seed: int, as_shipped: bool = False, tag: str = "gan train",
+                    per_step: dict[str, int] | None = None) -> dict[str, int]:
+    """`train.run` of swinir_m_gan.yml (fp32, or `as_shipped` in bf16), 30
+    steps from 16 seeded 512x512 HR images, counting #4/#5 (36 + 36 a step,
+    or `per_step`); every log finite; D's parameters and every (u, v) moved
+    from D's seeded init; the EMA checkpoint serves with the strict load,
+    and net_d_<iter> loads back strictly into DUnet."""
     import torch
 
-    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.archs import build_network_cast
 
-    gan_vgg_line("gan train")
+    gan_vgg_line(tag)
     hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
-    opt = gan_options("swinir_m_x4_gan", hr_dir, lr_dir, seed)
+    opt = gan_options("swinir_m_x4_gan" + ("_bf16" if as_shipped else ""), hr_dir, lr_dir, seed,
+                      as_shipped=as_shipped)
+    dtype = torch.bfloat16 if as_shipped else torch.float32
+
+    def build_network(o):
+        return build_network_cast(o, dtype)
+
     start = build_network(dict(opt.network_d)).init_weights(
         torch.Generator().manual_seed(seed + 1)).state_dict()
 
     def check(model, opt):
         if type(model.net_d).__name__ != "DUnet":
-            fail(f"gan train: network_d is {type(model.net_d).__name__}, expected DUnet")
+            fail(f"{tag}: network_d is {type(model.net_d).__name__}, expected DUnet")
+        if model.net_d.compute_dtype != dtype or model.net_g.compute_dtype != dtype:
+            fail(f"{tag}: G and D compute in {model.net_g.compute_dtype} and "
+                 f"{model.net_d.compute_dtype}, expected {dtype}")
         now = model.net_d.state_dict()
         still = [k for k, v in now.items() if not k.endswith("init_pos")
                  and torch.equal(v.cpu(), start[k])]
         if still:
-            fail(f"gan train: D did not move in {TRAIN_STEPS} steps: {still[:6]}")
+            fail(f"{tag}: D did not move in {TRAIN_STEPS} steps: {still[:6]}")
         path = Path(opt.path.resume_models) / f"net_d_{TRAIN_STEPS}.safetensors"
         if not path.exists():
-            fail(f"gan train: no {path.name} under resume_models")
+            fail(f"{tag}: no {path.name} under resume_models")
         fresh = build_network(dict(opt.network_d))
         model.load_network(fresh, str(path), strict=True)  # raises on any key or shape
         same = all(torch.equal(fresh.state_dict()[k], v.cpu()) for k, v in now.items())
         if not same:
-            fail(f"gan train: {path.name} does not load back to the trained D")
+            fail(f"{tag}: {path.name} does not load back to the trained D")
         log = model.get_current_log()
-        say(f"[gan train] D moved in all {len(now) - 3} parameters and (u, v) buffers; "
+        say(f"[{tag}] D moved in all {len(now) - 3} parameters and (u, v) buffers; "
             f"{path.name} loads back strictly into DUnet; last step: "
             + ", ".join(f"{k} {v:.5f}" for k, v in log.items())
             + f"; lr_g, lr_d {model.get_current_learning_rate()}")
 
-    return phase_train(seed, "swinir_m", "SwinIR-M GAN", "gan train", lq=GAN_LQ,
+    label = "SwinIR-M GAN" + (" bf16 (swinir_m_gan.yml)" if as_shipped else "")
+    return phase_train(seed, "swinir_m", label, tag, per_step=per_step, lq=GAN_LQ,
                        losses=GAN_LOSSES, opt=opt, check=check)
 
 
-def phase_gan_profile(seed: int) -> None:
-    """Device time by kernel of one GAN step, split into the G step (its
-    forward, losses, backward, AdamW and EMA; D's step held back) and the
-    D step (D on the GT and on the fake, forward and backward, AdamW, the
-    spectral refresh) on that G step's own output; of the G step, DUnet on
-    the fake (forward and backward to the image) and the perceptual loss's
-    two VGG19 passes each profiled alone on the step's inputs, and of one
-    DUnet pass its three DySample upsamplers. The card's busy share is the
-    device time over the host time of a whole step without the profiler
-    (the mean of three)."""
+def phase_gan_profile(seed: int, template: Path = GAN_TEMPLATE, as_shipped: bool = False,
+                      tag: str = "gan profile", per_step: dict[str, int] | None = None,
+                      detail: bool = True) -> None:
+    """Device time by kernel of one GAN step of `template` (fp32, or
+    `as_shipped`), split into the G step (its forward, losses, backward,
+    AdamW and EMA; D's step held back) and the D step (D on the GT and on
+    the fake, forward and backward, AdamW, the spectral refresh) on that G
+    step's own output; with `per_step`, the G step's launches of the
+    hand-written kernels must be those; with `detail`, of the G step, DUnet
+    on the fake (forward and backward to the image) and the perceptual
+    loss's two VGG19 passes each profiled alone on the step's inputs, and of
+    one DUnet pass its three DySample upsamplers. The card's busy share is
+    the device time over the host time of a whole step without the profiler
+    (the mean of three); peak memory over the six steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3265,16 +3322,20 @@ def phase_gan_profile(seed: int) -> None:
             fn()
             torch.cuda.synchronize()
         events = device_events(prof)
-        check_retired("gan profile", events)
+        check_retired(tag, events)
         if file:
             (OUT / file).write_text(
                 prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
         return sum(e.self_device_time_total for e in events) / 1e3, events
 
     gan_vgg_line(None)
-    opt = gan_options("swinir_m_x4_gan_profile", OUT, OUT, seed)
+    stem = template.stem + ("_bf16" if as_shipped else "")
+    opt = gan_options(f"{stem}_profile", OUT, OUT, seed, template=template,
+                      as_shipped=as_shipped)
     model = build_model(opt, device="cuda")
-    batch = gan_batch(seed)
+    batch_size = opt.datasets["train"].batch_size_per_gpu
+    batch = gan_batch(seed, batch_size)
+    torch.cuda.reset_peak_memory_stats()
     for i in range(2):
         model.feed_data(batch)
         model.optimize_parameters(i + 1)
@@ -3290,16 +3351,34 @@ def phase_gan_profile(seed: int) -> None:
     held = {}
     model._discriminator_step = lambda *args: held.setdefault("args", args)
     model.feed_data(batch)
-    g_ms, g_events = device_ms(lambda: model.optimize_parameters(6), "profile_gan_g_step.txt")
+    reset_counts()
+    g_ms, g_events = device_ms(lambda: model.optimize_parameters(6),
+                               f"profile_{stem}_g_step.txt")
+    if per_step is not None:
+        check_counts(f"{tag} G step", read_counts(), per_step)
     del model._discriminator_step  # the class's again
 
     def run_d_step():
         with step_math(model.opt):
             d_step(*held["args"])
 
-    d_ms, d_events = device_ms(run_d_step, "profile_gan_d_step.txt")
+    d_ms, d_events = device_ms(run_d_step, f"profile_{stem}_d_step.txt")
+    peak = torch.cuda.max_memory_allocated()
     if g_ms == 0:
-        say("[gan profile] the profiler recorded no device time")
+        fail(f"[{tag}] the profiler recorded no device time")
+    total = g_ms + d_ms
+    launches = sum(e.count for e in g_events) + sum(e.count for e in d_events)
+    lq = opt.datasets["train"].lq_size
+    say(f"[{tag}] one GAN step of {template.name}{' as shipped' if as_shipped else ' in fp32'} "
+        f"(batch {batch_size}, {lq}x{lq} LR, {4 * lq}x{4 * lq} GT): device {total:.3f} ms over "
+        f"{launches} kernel launches = G step {g_ms:.3f} + D step {d_ms:.3f}; host clock "
+        f"{step_host:.1f} ms a step without the profiler (mean of 3): the card busy "
+        f"{total / step_host:.1%}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    for part, events in (("G step", g_events), ("D step", d_events)):
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            say(f"[{tag}]   {part} {e.self_device_time_total / 1e3:8.3f} ms  "
+                f"{e.count:4d}x  {e.key[:80]}")
+    if not detail:
         return
 
     fake, gt = held["args"][0], held["args"][1]
@@ -3332,22 +3411,12 @@ def phase_gan_profile(seed: int) -> None:
 
     dunet_ms, _ = device_ms(dunet_on_fake)
     vgg_ms, _ = device_ms(vgg_passes)
-    dys_ms, dys_events = device_ms(dysamples, "profile_gan_dysample.txt")
-    total = g_ms + d_ms
-    launches = sum(e.count for e in g_events) + sum(e.count for e in d_events)
-    say(f"[gan profile] one GAN step (batch {TB}, {GAN_LQ}x{GAN_LQ} LR, "
-        f"{4 * GAN_LQ}x{4 * GAN_LQ} GT): device {total:.3f} ms over {launches} kernel "
-        f"launches = G step {g_ms:.3f} + D step {d_ms:.3f}; host clock {step_host:.1f} ms a "
-        f"step without the profiler (mean of 3): the card busy {total / step_host:.1%}")
-    say(f"[gan profile] of the G step, profiled alone on its inputs: DUnet on the fake, "
+    dys_ms, dys_events = device_ms(dysamples, f"profile_{stem}_dysample.txt")
+    say(f"[{tag}] of the G step, profiled alone on its inputs: DUnet on the fake, "
         f"forward and backward to the image, {dunet_ms:.3f} ms; the perceptual loss's two "
         f"VGG19 passes (the output's with its backward, the GT's without) {vgg_ms:.3f} ms; "
         f"the three DySamples of one DUnet pass, forward and backward, {dys_ms:.3f} ms over "
         f"{sum(e.count for e in dys_events)} launches")
-    for part, events in (("G step", g_events), ("D step", d_events)):
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-            say(f"[gan profile]   {part} {e.self_device_time_total / 1e3:8.3f} ms  "
-                f"{e.count:4d}x  {e.key[:80]}")
 
 
 def phase_gan_deterministic(seed: int) -> None:
@@ -3693,11 +3762,11 @@ def bf16_train_check(tag: str):
 def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
                        name: str = "swinir_m_x4_bf16_profile",
                        per_step: dict[str, int] = BF16_TRAIN_STEP, tag: str = "bf16 train profile",
-                       file: str = "profile_bf16_train.txt") -> None:
-    """43 (and 49). Device time by kernel of one bf16 step of `template`'s
-    run (after two warm-up steps), its busy share and launches (`per_step`
-    and no others), the bf16 forms' stages summed; the table to
-    chip_smoke/`file`."""
+                       file: str = "profile_bf16_train.txt", batch_size: int = TB) -> None:
+    """43 (and 49, 51). Device time by kernel of one bf16 step of
+    `template`'s run (after two warm-up steps; `batch_size` 48x48 LR crops),
+    its busy share and launches (`per_step` and no others), the bf16 forms'
+    stages summed; the table to chip_smoke/`file`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3708,8 +3777,9 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
     model = build_model(opt, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed)
-    batch = {"lq": rng.integers(0, 256, (TB, FID_LQ, FID_LQ, 3), dtype=np.uint8),
-             "gt": rng.integers(0, 256, (TB, 4 * FID_LQ, 4 * FID_LQ, 3), dtype=np.uint8)}
+    batch = {"lq": rng.integers(0, 256, (batch_size, FID_LQ, FID_LQ, 3), dtype=np.uint8),
+             "gt": rng.integers(0, 256, (batch_size, 4 * FID_LQ, 4 * FID_LQ, 3),
+                                dtype=np.uint8)}
     for i in range(2):
         model.feed_data(batch)
         model.optimize_parameters(i + 1)
@@ -4075,7 +4145,7 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
                     kernels=(f"attn_rows_fwd_bf16_kernel<{n}, {rb}, {ks}, false>",), bf16=True)
         stage_split(tag, f"{names[1]} {label}", lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
                     bwd_flops, bwd_bytes, res[names[1]]["ms"], split,
-                    kernels=(f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}>",),
+                    kernels=(f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}, false>",),
                     bf16=True)
 
 
@@ -4267,6 +4337,230 @@ def phase_bf16_family_profile_branches(seed: int, family: str) -> None:
                         fp32_step, tensor_check=False)
 
 
+# ---------------------------------------------------------------------------
+# 50-53. bf16 SRFormerV2, GAN and OTF
+# ---------------------------------------------------------------------------
+
+SRF_BF16_TEMPLATE = TEMPLATES / "SRFormerV2" / "srformerv2_fidelity.yml"
+SRF_BF16_B = 16  # the template's batch
+SRF_BF16_STEP = {k: SRF_SWIN for k in ("fused_attn_block_bf16", "fused_attn_block_backward_bf16",
+                                       "fused_ln_mlp_bf16", "fused_ln_mlp_backward_bf16")}
+# phase 51's run: as BF16_RUNS's (template, network, label, a step's bf16
+# launches, the fp32 twin's launches an image)
+SRF_BF16_RUN = (SRF_BF16_TEMPLATE, "srformerv2", "SRFormerV2", SRF_BF16_STEP,
+                {"fused_attn_block": SRF_SWIN, "fused_ln_mlp": SRF_SWIN})
+# the bf16 GAN templates of phase 52 beside swinir_m_gan.yml: their bf16
+# forms' launches a G step (D runs no hand-written kernel)
+BF16_GANS = {
+    "hat_m_gan": (TEMPLATES / "HAT" / "hat_m_gan.yml", BF16_RUNS["hat"][3]),
+    "dat_gan": (TEMPLATES / "DAT" / "dat_gan.yml", BF16_RUNS["dat"][3]),
+    "srformerv2_gan": (TEMPLATES / "SRFormerV2" / "srformerv2_gan.yml", SRF_BF16_STEP),
+}
+OTF_BF16_TEMPLATE = TEMPLATES / "SwinIR" / "swinir_m_otf.yml"
+
+
+def phase_srformerv2_bf16_kernels() -> dict:
+    """50. #1's and #6's bf16 forms at SRFormerV2's training block as
+    srformerv2_fidelity.yml ships it (B=16, the 48x48 LR crop padded to
+    72x72, C 240, 8 heads of 30, 12x12 windows; DropPath scales holding 0
+    and 1/0.9), K=1 (the path's) and K=4 shifted by 6, on bf16 x and dout
+    with the fp32 parameters: each output and gradient against its bf16
+    plain version (`check_bf16`) and, with it, against float64 of the same
+    bf16 inputs (wq and wp rounded to bf16, as the forms take them;
+    `bf16_f64_check`); two runs of each bit for bit; times beside the plain
+    versions' and the fp32 forms' (#1 at 12x12, #6), the bf16 bound and its
+    share; at K=1 both split by stage (#6's window attention must be the
+    recompute kernel that writes att)."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(50)
+    res: dict[str, dict] = {}
+    tag = "srformerv2 bf16 kernels"
+    shape = (SRF_BF16_B, SRF_PAD, SRF_PAD)
+    s = torch.full((SRF_BF16_B,), 1.0 / 0.9, device=dev)
+    s[5] = 0.0
+    flops = srf_flops(SRF_BF16_B * SRF_PAD * SRF_PAD)
+    fwd_flops, bwd_flops = flops["fused_attn_block_ws12"], flops["fused_attn_block_backward"]
+    parts = ("dx", "dg", "dbe", "dwq", "dbq", "dwp", "dbp", "dbias")
+    # the JSON line reports the last case of each name: K=1, the path's
+    for kinds in (4, 1):
+        shift = SWS // 2 if kinds == 4 else 0
+        label = f"K={kinds} shift {shift}"
+        x32, p, bias, _ = block_inputs(gen, kinds, dev, shape, SRF_WIDTHS)
+        x = x32.bfloat16()
+        dout = torch.randn(*shape, SC, generator=gen).to(dev).bfloat16()
+        params = [p[k] for k in ("g", "be", "wq", "bq", "wp", "bp")]
+        meta = (SNH, SHD, SWS, 1e-5, shift)
+
+        def fwd():
+            return fb.fused_attn_block_bf16(x, *params, bias, s, *meta)
+
+        def bwd():
+            return fb.fused_attn_block_backward_bf16(x, *params, bias, s, dout, *meta)
+
+        try:
+            got, again, grads, grads2 = fwd(), fwd(), bwd(), bwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"fused_attn_block_bf16 / _backward_bf16 {label}: {e}")
+        want = fb.fused_attn_block_bf16_reference(x, *params, bias, s, *meta)
+        plain_grads = fb.fused_attn_block_bwd_bf16_reference(x, *params, bias, s, dout, *meta)
+        fwd_err = check_bf16(tag, f"fused_attn_block_bf16 {label} z", got, want)
+        bwd_err = [check_bf16(tag, f"fused_attn_block_backward_bf16 {label} {n}", g, w)
+                   for n, g, w in zip(parts, grads, plain_grads)]
+        if not torch.equal(got, again) or not all(torch.equal(a, b) for a, b in zip(grads, grads2)):
+            fail(f"fused_attn_block_bf16 / _backward_bf16 {label}: two runs differ")
+        if got.dtype != torch.bfloat16 or grads[0].dtype != torch.bfloat16:
+            fail(f"{label}: z {got.dtype}, dx {grads[0].dtype}, expected bf16")
+        leaves = {k: (fb._bf(v) if k in ("wq", "wp") else v).double().requires_grad_()
+                  for k, v in zip(("g", "be", "wq", "bq", "wp", "bp"), params)}
+        x64, b64 = x.double().requires_grad_(), bias.double().requires_grad_()
+        exact = block_half_f64("fused_attn_block", x64, {**leaves, "s": s}, b64, shift, SNH, SWS)
+        exact_g = torch.autograd.grad(exact, (x64, *leaves.values(), b64), dout.double())
+        ratio = max([bf16_f64_check(tag, f"fused_attn_block_bf16 {label} z", got, want,
+                                    exact.detach())]
+                    + [bf16_f64_check(tag, f"fused_attn_block_backward_bf16 {label} {n}", g, w, e)
+                       for n, g, w, e in zip(parts, grads, plain_grads, exact_g)])
+        del exact, exact_g, x64, b64, leaves
+        say(f"[{tag}] {label}: #1 bf16 within {fwd_err[1]:.3g} of z's largest, #6 bf16 within "
+            f"{max(e[1] for e in bwd_err):.3g} of each gradient's; against float64 at most "
+            f"{ratio:.3f}x the plain versions' error; two runs of each bit for bit")
+        fwd_bytes = nbytes(x, *params, bias, s, got)
+        bwd_bytes = nbytes(x, *params, bias, s, dout, *grads)
+        x32c, dout32 = x.float(), dout.float()
+        bf16_record(res, tag, "fused_attn_block_bf16", label, fwd,
+                    lambda: fb.fused_attn_block_bf16_reference(x, *params, bias, s, *meta),
+                    lambda: fb._attn_block_fwd_cuda(x32c, *params, bias, s, *meta), None,
+                    fwd_flops, fwd_bytes, *fwd_err)
+        bf16_record(res, tag, "fused_attn_block_backward_bf16", label, bwd,
+                    lambda: fb.fused_attn_block_bwd_bf16_reference(x, *params, bias, s, dout,
+                                                                   *meta),
+                    lambda: fb.fused_attn_block_backward(x32c, *params, bias, s, dout32, *meta),
+                    None, bwd_flops, bwd_bytes, max(e[0] for e in bwd_err),
+                    max(e[1] for e in bwd_err))
+        if kinds == 1:
+            stage_split(tag, f"fused_attn_block_bf16 {label}", fwd, fwd_flops, fwd_bytes,
+                        res["fused_attn_block_bf16"]["ms"], STAGES_1,
+                        kernels=("ln_rows_bf16_kernel", "linear_bf16_kernel",
+                                 "attn_rows_fwd_bf16_kernel<144, 48, 2, false>"), bf16=True)
+            stage_split(tag, f"fused_attn_block_backward_bf16 {label}", bwd, bwd_flops, bwd_bytes,
+                        res["fused_attn_block_backward_bf16"]["ms"], STAGES_6,
+                        kernels=("attn_rows_bwd_recompute_bf16_kernel<144, 48, 2, true>",
+                                 "atb_bf16_kernel", "rows_bf16_kernel"), bf16=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_srformerv2_bf16_train(seed: int) -> dict[str, int]:
+    """51. `train.run` of srformerv2_fidelity.yml as shipped (bf16, batch 16
+    of 48x48 LR padded to 72x72, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its
+    validation), 30 steps: 18 + 18 launches a step of #1/#6's bf16 forms and
+    18 + 18 of #2/#7's, none of any fp32 training form; every log finite;
+    the validation through the fp32 twin (on #1/#2); the EMA checkpoint
+    served with the strict load. Then one step profiled (phase 43's)."""
+    template, network, label, per_step, per_image = SRF_BF16_RUN
+    tag = "srformerv2 bf16 train"
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    val_hr, val_lr = make_dataset(OUT / "data", seed)
+    opt = fidelity_options("srformerv2_x4_fidelity_bf16", hr_dir, lr_dir, seed,
+                           (val_hr, val_lr), template=template)
+    serving = {k: v * N_IMAGES for k, v in per_image.items()}
+    counts = phase_train(seed, network, f"{label} bf16 ({template.name})", tag,
+                         per_step=per_step, serve_want=serving, lq=FID_LQ, losses=FID_LOSSES,
+                         opt=opt, more_launches=lambda: serving, check=bf16_train_check(tag),
+                         batch_size=SRF_BF16_B)
+    phase_bf16_profile(seed, template, "srformerv2_x4_bf16_profile", per_step,
+                       "srformerv2 bf16 profile", "profile_srformerv2_bf16_train.txt",
+                       batch_size=SRF_BF16_B)
+    return counts
+
+
+def phase_bf16_gan(seed: int) -> None:
+    """52. bf16 GAN training as the templates ship it: `train.run` of
+    swinir_m_gan.yml (bf16, batch 8 of 48x48 LR, DUnet in bf16, L1 +
+    MS-SSIM + perceptual + vanilla GAN 0.1), 30 steps, 36 + 36 launches a
+    step of #4/#5's bf16 forms and none of the fp32 forms (phase 38's checks
+    on D, its (u, v) and net_d_30); its step profiled, split into the G and
+    D steps (phase 39's, the DUnet, VGG19 and DySample parts too); then six
+    steps each of hat_m_gan.yml, dat_gan.yml and srformerv2_gan.yml as
+    shipped, each G step's bf16 launches counted and one step profiled into
+    G and D."""
+    phase_gan_train(seed, as_shipped=True, tag="bf16 gan train", per_step=BF16_TRAIN_STEP)
+    phase_gan_profile(seed, as_shipped=True, tag="bf16 gan profile", per_step=BF16_TRAIN_STEP)
+    for name, (template, per_step) in BF16_GANS.items():
+        phase_gan_profile(seed, template, as_shipped=True, tag=f"bf16 {name}",
+                          per_step=per_step, detail=False)
+
+
+def otf_bf16_options(name: str, hr_dir: Path, seed: int):
+    """configs/_templates/train/SwinIR/swinir_m_otf.yml as shipped (bf16,
+    batch 8 of gt_size 128, the template's degradation, DUnet, L1 +
+    perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA 0.999) with one
+    cut, its MS-SSIM (five scales need 161-pixel sides: gt_size 128 raises
+    in both packages), on `hr_dir`, 30 steps, without validation."""
+    import yaml
+
+    from trainner_redux_tpu_torch.utils.options import resolve_options
+    from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
+    from trainner_redux_tpu_torch.utils.schema import decode
+
+    raw = yaml.safe_load(OTF_BF16_TEMPLATE.read_text())
+    raw.update(name=name, manual_seed=seed, num_gpu=1, path={})
+    raw["datasets"] = {"train": {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir),
+                                 "io_backend": {"type": "disk"}}}
+    raw["train"]["losses"] = [lo for lo in raw["train"]["losses"] if lo["type"] != "mssimloss"]
+    raw["train"]["total_iter"] = TRAIN_STEPS
+    raw["val"]["val_enabled"] = False
+    raw["logger"] = {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}
+    return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
+
+
+def phase_otf_bf16(seed: int, hr_dir: Path) -> dict[str, int]:
+    """53. `train.run` of swinir_m_otf.yml as shipped less its MS-SSIM
+    (`otf_bf16_options`), 30 steps: the degradation in fp32 on #15 (one
+    launch a compression), the networks in bf16 (36 + 36 launches of #4/#5's
+    bf16 forms a step, none of the fp32 forms); every log finite; then one
+    step profiled into the degradation and the optimizer step (phase 29's),
+    with peak memory."""
+    import torch
+
+    from trainner_redux_tpu_torch.models.realesrgan_model import RealESRGANModel
+
+    gan_vgg_line("otf bf16 train")
+    compressions = []
+    original = RealESRGANModel._compress
+
+    def counted(self, x, fmt):
+        compressions.append(fmt)
+        return original(self, x, fmt)
+
+    def check(model, opt):
+        if (model.net_g.compute_dtype, model.net_d.compute_dtype) != (torch.bfloat16,) * 2:
+            fail("otf bf16 train: G and D do not compute in bf16")
+
+    opt = otf_bf16_options("swinir_m_x4_otf_bf16", hr_dir, seed)
+    RealESRGANModel._compress = counted
+    try:
+        counts = phase_train(
+            seed, "swinir_m", "SwinIR-M OTF + GAN bf16 (swinir_m_otf.yml, MS-SSIM cut)",
+            "otf bf16 train", per_step=BF16_TRAIN_STEP, lq=OTF_GT // 4,
+            losses=tuple(lo["type"] for lo in opt.train.losses), opt=opt,
+            more_launches=lambda: {"jpeg_block_transform": len(compressions)}, check=check)
+    finally:
+        RealESRGANModel._compress = original
+    say(f"[otf bf16 train] {len(compressions) - TRAIN_STEPS} recompressions drawn in "
+        f"{TRAIN_STEPS} steps; #15 launches {counts['jpeg_block_transform']}")
+    torch.cuda.reset_peak_memory_stats()
+    phase_otf_profile(seed, hr_dir, otf_bf16_options("swinir_m_x4_otf_bf16_profile", hr_dir, seed),
+                      "otf bf16 profile")
+    say(f"[otf bf16 profile] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB over the profile's six steps")
+    return counts
+
+
 def timed(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4382,6 +4676,14 @@ def main() -> None:
     launches.update({f"{k}_ws8": fam["swinir_l"][k] for k in BF16_RUNS["swinir_l"][3]})
     for f in ("hat", "dat"):
         timed(f"{f} bf16 profile and branches", phase_bf16_family_profile_branches, seed, f)
+    kernels.update(timed("srformerv2 bf16 kernels", phase_srformerv2_bf16_kernels))
+    srf16 = timed("srformerv2 bf16 train", phase_srformerv2_bf16_train, seed)
+    launches.update({k: srf16[k] for k in ("fused_attn_block_bf16",
+                                           "fused_attn_block_backward_bf16")})
+    timed("bf16 gan", phase_bf16_gan, seed)
+    hr_dir, _ = make_dataset(OUT / "otf_data", seed, ((128, 128),) * 16)
+    timed("otf bf16", phase_otf_bf16, seed, hr_dir)
+    shutil.rmtree(OUT / "otf_data")
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

@@ -1,7 +1,8 @@
 """The training phases of `chip_smoke.py` alone, on one CUDA card: 30 steps
 each of SwinIR-M, HAT-M, DAT, Swin2SR-M, SwinIR-M OTF and SRFormerV2, and
 SwinIR-M GAN and the bf16 fidelity templates (SwinIR-M; HAT-M, DAT and
-SwinIR-L) where the tree's `chip_smoke.py` has them, each printing its
+SwinIR-L; SRFormerV2) and bf16 GAN and OTF templates where the tree's
+`chip_smoke.py` has them, each printing its
 median ms per step with the quartiles; after each, the device time of one
 of its steps (`torch.profiler`) and the card's busy share.
 
@@ -60,4 +61,8 @@ if hasattr(cs, "BF16_RUNS"):  # trees from bf16 HAT, DAT and SwinIR-L on
         cs.phase_bf16_family_train(seed, family)
         cs.phase_bf16_profile(seed, template, f"{network}_x4_bf16_profile", per_step,
                               f"{family} bf16 profile", f"profile_{family}_bf16_train.txt")
+if hasattr(cs, "phase_srformerv2_bf16_train"):  # trees from bf16 SRFormerV2, GAN and OTF on
+    cs.phase_srformerv2_bf16_train(seed)
+    cs.phase_bf16_gan(seed)
+    cs.phase_otf_bf16(seed, hr_dir)
 print("steps ok", flush=True)

@@ -23,9 +23,14 @@ bf16, TRAINNER_FUSED_BLOCK=interpret):
   parameters whose true gradient is 0 (a bias before a train-mode norm, a
   constant of the position bias) carry only that rounding: each within
   2^-5 of the largest gradient of all (bf16 moves a real gradient 3-17%);
-- the refusals that remain: bf16 training of Swin2SR (#11-#14), of
-  SRFormerV2 (#1/#6 at 12x12), of a GAN (DUnet) and of the OTF model, each
-  naming what is missing. Three bf16 `SRModel` steps of each family are in
+- the refusal that remains: bf16 training of Swin2SR (#11-#14), naming
+  what is missing; and what bf16 now builds where it was refused: a tiny
+  SRFormerV2, a GAN model with DUnet and the OTF model, each computing in
+  bf16 on its bf16 kernel branch (the bf16 forms' calls counted on the
+  CPU, where they run their plain versions: #1/#6 and #2/#7 for
+  SRFormerV2's Swin blocks, #4/#5 for the tiny SwinIR of the GAN and OTF
+  models) and DUnet in bf16 (its features bf16, its logits fp32). Three
+  bf16 `SRModel` steps of each family are in
   tests/test_torch_bf16_family_steps.py.
 """
 
@@ -153,9 +158,6 @@ SRFORMER_NET = {"type": "srformerv2", "embed_dim": 32, "depths": [2], "num_heads
 
 @pytest.mark.parametrize(("extra", "match"), [
     ({"network_g": SWIN2SR_NET}, "of Swin2SR .*#11-#14 are not ported"),
-    ({"network_g": SRFORMER_NET}, "of SRFormerV2 .*#1/#6 at 12x12 windows"),
-    ({"network_d": {"type": "dunet"}}, "GAN training .*DUnet in bf16"),
-    ({"high_order_degradation": True, "queue_size": 0}, "OTF model .*DUnet in bf16"),
 ])
 def test_bf16_refusals_name_their_kernels(dataset, tmp_path, extra, match):  # noqa: F811
     from trainner_redux_tpu_torch.models import build_model
@@ -163,3 +165,47 @@ def test_bf16_refusals_name_their_kernels(dataset, tmp_path, extra, match):  # n
     _, opt = _opts(tmp_path, _config(dataset, compute_dtype="bfloat16", **extra))
     with pytest.raises(NotImplementedError, match=match):
         build_model(opt, device="cpu")
+
+
+GAN = {"network_d": {"type": "dunet", "num_feat": 8},
+       "train": {"total_iter": 1, "optim_g": {"type": "AdamW", "lr": 2e-4},
+                 "losses": [{"type": "l1loss", "loss_weight": 1.0},
+                            {"type": "ganloss", "gan_type": "vanilla", "loss_weight": 0.1}]}}
+SWINIR_FORMS = ("fused_swin_block_train_bf16", "fused_swin_block_train_backward_bf16")
+SRFORMER_FORMS = ("fused_attn_block_bf16", "fused_attn_block_backward_bf16",
+                  "fused_ln_mlp_bf16", "fused_ln_mlp_backward_bf16")
+
+
+@pytest.mark.parametrize(("extra", "model_type", "forms", "calls"), [
+    ({"network_g": SRFORMER_NET}, "SRModel", SRFORMER_FORMS, 3),  # its three Swin blocks
+    (GAN, "SRModel", SWINIR_FORMS, 4),  # the tiny SwinIR's four blocks
+    ({**GAN, "high_order_degradation": True, "queue_size": 0}, "RealESRGANModel",
+     SWINIR_FORMS, 4),
+], ids=["srformerv2", "network_d", "otf"])
+def test_bf16_builds_on_its_bf16_kernel_branch(dataset, tmp_path, monkeypatch, extra,  # noqa: F811
+                                               model_type, forms, calls):
+    from trainner_redux_tpu_torch.models import build_model
+    from trainner_redux_tpu_torch.ops import fused_block as tfb
+
+    cfg = _config(dataset, compute_dtype="bfloat16")
+    cfg.update({k: v for k, v in extra.items() if k != "train"})
+    cfg["train"].update(extra.get("train", {}))
+    _, opt = _opts(tmp_path, cfg)
+    model = build_model(opt, device="cpu")
+    assert type(model).__name__ == model_type
+    assert model.net_g.compute_dtype == torch.bfloat16
+    counts = dict.fromkeys(forms, 0)
+    for name in forms:
+        def counted(*a, _real=getattr(tfb, name), _name=name, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(tfb, name, counted)
+    lq = torch.rand(1, 3, 24, 24, generator=torch.Generator().manual_seed(0))
+    model.net_g.train()(lq).mean().backward()
+    assert counts == dict.fromkeys(forms, calls)
+    if model.net_d is not None:
+        assert model.net_d.compute_dtype == torch.bfloat16
+        logits, feats = model.net_d(torch.rand(1, 3, 32, 32), return_features=True)
+        assert logits.dtype == torch.float32
+        assert all(f.dtype == torch.bfloat16 for f in feats)

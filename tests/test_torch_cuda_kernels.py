@@ -29,7 +29,8 @@ step of it (a kernel and its plain version sum in other orders, and a sum
 that lies at a rounding tie rounds one way in one and the other way in the
 other), gradients within 1e-2 of each tensor's largest. The same for the
 bf16 forms of #3/#8 (HAT-M's 16x16 windows, SwinIR-L's 8x8 at C 240, DAT's
-rect windows) and of #2/#7 (HAT-M's MLP half), each twice bit for bit.
+rect windows), of #2/#7 (HAT-M's MLP half) and of #1/#6 (SRFormerV2's Swin
+blocks at 12x12 windows, K=1 and K=4 shifted), each twice bit for bit.
 """
 
 import numpy as np
@@ -176,6 +177,9 @@ def test_shared_memory_plans_match_the_sources(cuda):
     assert lib_tr.trr_atb_smem_bytes() == fb.weight_grad_smem_bytes()
     assert max(lib_tr.trr_hidden_bf16_smem_bytes(), lib_tr.trr_atb_bf16_smem_bytes()) <= (
         wa.SMEM_LIMIT)
+    for c in (240, 180, 60, 256):  # the bf16 attention half (#1/#6) at 12x12 windows
+        assert lib_tr.trr_attn_block_bf16_smem_bytes(c) == fb.attn_block_bf16_smem_bytes(c)
+        assert fb.attn_block_bf16_smem_bytes(c) <= wa.SMEM_LIMIT
 
 
 @pytest.mark.cuda
@@ -398,18 +402,22 @@ def test_swin_block_train_bf16_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_fp32_kernels_refuse_bf16(cuda):
-    """The attention half's kernels have no bf16 forms: a bf16 tensor that
-    reaches #1 or #9 raises, and is never cast; the bf16 forms of #2 and #3
-    refuse an fp32 parameter where they take bf16 and a width they do not
-    take, and are never run in fp32."""
+    """The attention half's bf16 forms take 12x12 windows only: a bf16
+    tensor at 8x8 windows that reaches #1 raises, naming the limits, and
+    one that reaches #9 (no bf16 form) raises on its type; neither is cast
+    nor falls back. The bf16 forms of #2 and #3 refuse an fp32 parameter
+    where they take bf16 and a width they do not take, and are never run
+    in fp32."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     p = _inputs(cuda, 1)
     x = p["x"].bfloat16()
     attn = [p[k] for k in ("g", "be", "wq", "bq", "wp", "bp", "bias", "s")]
-    with pytest.raises(TypeError, match="float32"), torch.no_grad():
+    n0 = (fb.fused_attn_block_bf16.launches, fb.fused_attn_block.launches)
+    with pytest.raises(ValueError, match="bf16 kernels' limits"), torch.no_grad():
         fb.fused_attn_block(x, *attn, NH, HD, WS)
+    assert (fb.fused_attn_block_bf16.launches, fb.fused_attn_block.launches) == n0
     with pytest.raises(TypeError, match="bfloat16"), torch.no_grad():
         wa.fused_window_mhsa_bf16(p["qkv"], p["bias"], NH, HD, WS)
     with pytest.raises(TypeError, match="float32"):
@@ -1122,6 +1130,49 @@ def test_fused_attn_block_ws12_kernels(cuda, kinds, shift):
         assert g.shape == w.shape, name
         assert (g - w).abs().max().item() <= TOL * w.abs().max().item(), name
         assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("kinds", "shift", "shape"), [
+    (1, 0, (SB, SH, SW)), (4, SWS // 2, (SB, SH, SW)), (1, 0, (1, 24, 36)),
+])
+def test_bf16_attn_block_ws12_kernels(cuda, kinds, shift, shape):
+    """#1's and #6's bf16 forms at SRFormerV2's block (bf16 x and dout, fp32
+    parameters) through the autograd Function against their bf16 plain
+    versions, each counted once under its own name and no fp32 form
+    launched; the tokens of (1, 24, 36) fill no whole 128-token tile; two
+    runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    p = _ws12_inputs(cuda, kinds)
+    b, h, w = shape
+    x = p["x"][:b, :h, :w].contiguous().bfloat16()
+    s = p["s"][:b].contiguous()
+    params = [p[k].clone().requires_grad_() for k in ATTN_NAMES[1:]]
+    dout = torch.randn(b, h, w, SC, generator=torch.Generator().manual_seed(13)).to(cuda)
+    dout = dout.bfloat16()
+    hd = SC // SNH
+    tx = x.clone().requires_grad_()
+    forms = (fb.fused_attn_block_bf16, fb.fused_attn_block_backward_bf16, fb.fused_attn_block,
+             fb.fused_attn_block_backward)
+    n0 = [f.launches for f in forms]
+    z = fb.fused_attn_block(tx, *params, s, SNH, hd, SWS, shift=shift)
+    z.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in forms] == [n0[0] + 1, n0[1] + 1, n0[2], n0[3]]
+    plain = [t.detach() for t in params]
+    _assert_bf16_close("z", z.detach(),
+                       fb.fused_attn_block_bf16_reference(x, *plain, s, SNH, hd, SWS, 1e-5, shift))
+    want = fb.fused_attn_block_bwd_bf16_reference(x, *plain, s, dout, SNH, hd, SWS, 1e-5, shift)
+    for name, g, wt in zip(ATTN_NAMES, (tx.grad, *(t.grad for t in params)), want):
+        assert g.dtype == wt.dtype and g.shape == wt.shape, name
+        err, top = (g.float() - wt.float()).abs().max().item(), wt.float().abs().max().item()
+        assert err <= BF16_TOL * top, f"{name}: {err:.3g} of {top:.3g}"
+    runs = [(fb.fused_attn_block_bf16(x, *plain, s, SNH, hd, SWS, 1e-5, shift),
+             *fb.fused_attn_block_backward_bf16(x, *plain, s, dout, SNH, hd, SWS, 1e-5, shift))
+            for _ in range(2)]
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
 
 
 @pytest.mark.cuda

@@ -369,11 +369,9 @@ def test_train_run_raises_without_card(dataset, tmp_path, monkeypatch):
     assert not (tmp_path / "experiments").exists()
 
 
-# families whose bf16 kernels are not ported (SwinIR's, HAT's and DAT's are)
+# the family whose bf16 kernels are not ported (Swin2SR's #11-#14)
 SWIN2SR_NET = {"type": "swin2sr_m", "embed_dim": 24, "depths": [2], "num_heads": [3],
                "num_feat": 16}
-SRFORMER_NET = {"type": "srformerv2", "embed_dim": 32, "depths": [2], "num_heads": [2],
-                "window_size": 12, "squeeze_dim": 8, "num_feat": 16}
 
 
 @pytest.mark.parametrize(("extra", "match"), [
@@ -382,11 +380,9 @@ SRFORMER_NET = {"type": "srformerv2", "embed_dim": 32, "depths": [2], "num_heads
     ({"use_amp": True, "network_g": SWIN2SR_NET}, "bf16 training .* of Swin2SR .*#11-#14"),
     ({"steps_per_dispatch": 2}, "steps_per_dispatch"),
     ({"network_d": {"type": "unetdiscriminatorsn"}}, "network_d"),
-    ({"compute_dtype": "bfloat16", "network_g": SRFORMER_NET},
-     "bf16 training .* of SRFormerV2 .*#1/#6 at 12x12"),
-    ({"compute_dtype": "bfloat16", "network_d": {"type": "dunet"}}, "bf16 .*network_d"),
-    ({"compute_dtype": "bfloat16", "high_order_degradation": True, "queue_size": 0},
-     "bf16 .*OTF"),
+    ({"remat": True}, "remat"),
+    ({"input_pixel_format": "ycbcr"}, "non-rgb pixel formats"),
+    ({"val": {"val_enabled": True, "save_img": False, "tile_size": 32}}, "tiled inference"),
 ])
 def test_unported_training_options_raise(dataset, tmp_path, extra, match):
     from trainner_redux_tpu_torch.models import build_model

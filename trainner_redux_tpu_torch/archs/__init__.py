@@ -41,8 +41,8 @@ def build_network_cast(opt: dict[str, Any], dtype):
     """build_network with the model's compute dtype (torch.bfloat16 or
     torch.float32) passed as `dtype`, as the JAX package's
     `build_network_cast` passes it to every flax arch (parameters stay
-    fp32); an options dict that names its own dtype keeps it. SwinIR, HAT
-    and DAT take it as their training compute dtype; Swin2SR and
-    SRFormerV2 accept and drop it, and the model refuses bf16 training for
-    them (their `bf16_refusal` names the kernels they lack)."""
+    fp32); an options dict that names its own dtype keeps it. SwinIR, HAT,
+    DAT and SRFormerV2 take it as their training compute dtype, DUnet as
+    its own; Swin2SR accepts and drops it, and the model refuses bf16
+    training for it (its `bf16_refusal` names the kernels it lacks)."""
     return build_network({"dtype": dtype, **opt})

@@ -9,7 +9,10 @@ the JAX package left them to XLA.
 
 `in_dtype` and `droppath` compute in the activations' dtype as the flax
 modules do with `dtype=bfloat16` (the parameters stay fp32 and are cast at
-use): the bf16 training forwards of SwinIR, HAT and DAT call them.
+use): the bf16 training forwards of SwinIR, HAT, DAT and SRFormerV2 and the
+bf16 DUnet call them. `SNConv2d` through `in_dtype` takes bf16(W / sigma),
+sigma from the fp32 weight; `DySample` computes its offsets in x's dtype and
+its tap sum in fp32, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -242,7 +245,11 @@ class DySample(nn.Module):
     sampler (TRAINNER_DYSAMPLE_MODE): 'local' (the default), the windowed
     tap sum `dysample_local` of radius TRAINNER_DYSAMPLE_RADIUS, else
     `local_radius`, else 2; 'gather', unbounded bilinear sampling with the
-    corners clamped to the image (`bilinear_sample`)."""
+    corners clamped to the image (`bilinear_sample`). A bf16 x computes as
+    the flax DySample with dtype=bfloat16: the two 1x1 convolutions and the
+    offsets' gating in bf16, the sampling in fp32 from the bf16 x and
+    offsets, its result rounded to bf16 (where the JAX package's next
+    convolution casts it)."""
 
     def __init__(self, in_channels: int, scale: int = 2, groups: int = 4,
                  local_radius: int | None = None) -> None:
@@ -258,12 +265,13 @@ class DySample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         s, g = self.scale, self.groups
-        off = (self.offset(x) * torch.sigmoid(self.scope(x)) * 0.5).view(n, 2, g, s, s, h, w)
+        off = in_dtype(self.offset, x) * torch.sigmoid(in_dtype(self.scope, x)) * 0.5
+        off, xf = off.view(n, 2, g, s, s, h, w).float(), x.float()
         if os.environ.get("TRAINNER_DYSAMPLE_MODE", "local") == "local":
             radius = int(os.environ.get("TRAINNER_DYSAMPLE_RADIUS", "0")) or (
                 self.local_radius or 2)
-            return dysample_local(x, off, s, g, radius)
-        return self._gather(x, off)
+            return dysample_local(xf, off, s, g, radius).to(x.dtype)
+        return self._gather(xf, off).to(x.dtype)
 
     def _gather(self, x: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
         """Unbounded bilinear sampling of each group at its coordinates."""

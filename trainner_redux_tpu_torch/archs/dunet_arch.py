@@ -6,6 +6,15 @@ The module tree is upstream's, so upstream checkpoints load as they are:
 `in_to_dim`, `e_x{1,2,3}` = (SNConv2d stride 2, Mish), `up{1,2,3}` =
 (DySample, SNConv2d), `end_conv` = (SNConv2d, Mish, SNConv2d, Mish, Conv2d).
 The upsamplers sample a window of radius 1, as the JAX package's do.
+
+Compute dtype (`compute_dtype`, which `build_network_cast` passes as the
+JAX package's does): the parameters, spectral norms included, stay fp32,
+and with bfloat16 the network computes as the flax DUnet does with
+`dtype=bfloat16`, in training and at eval alike (the JAX package builds D
+once, with no fp32 twin): the input cast to bf16, every convolution through
+`arch_util.in_dtype` (a spectral-norm convolution takes bf16(W / sigma),
+sigma from the fp32 weight, its bias added in bf16), Mish on bf16,
+DySample's tap sum in fp32; the logits back to fp32.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from trainner_redux_tpu_torch.archs.arch_util import (
     Conv2d,
     DySample,
     SNConv2d,
+    in_dtype,
     spectral_norms,
 )
 from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -35,10 +45,13 @@ def _up(dim: int) -> nn.Sequential:
     )
 
 
-@ARCH_REGISTRY.register(name="dunet")
 class DUnet(nn.Module):
-    def __init__(self, num_in_ch: int = 3, num_feat: int = 64) -> None:
+    def __init__(self, num_in_ch: int = 3, num_feat: int = 64,
+                 compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
         nf = num_feat
         self.in_to_dim = Conv2d(num_in_ch, nf, 3)
         self.e_x1 = _down(nf)
@@ -70,17 +83,26 @@ class DUnet(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
-        """x (N, C, H, W), H and W multiples of 8 -> logits (N, 1, H, W);
-        with `return_features`, also [x1, x2, x3, u], the encoder's three
-        outputs and the last decoder sum."""
-        x0 = self.in_to_dim(x)
-        x1 = self.e_x1(x0)
-        x2 = self.e_x2(x1)
-        x3 = self.e_x3(x2)
-        u = self.up1(x3) + x2
-        u = self.up2(u) + x1
-        u = self.up3(u) + x0
-        out = self.end_conv(u)
+        """x (N, C, H, W), H and W multiples of 8 -> fp32 logits (N, 1, H, W),
+        computed in `compute_dtype`; with `return_features`, also [x1, x2,
+        x3, u], the encoder's three outputs and the last decoder sum."""
+        x0 = in_dtype(self.in_to_dim, x.to(self.compute_dtype))
+        x1 = in_dtype(self.e_x1, x0)
+        x2 = in_dtype(self.e_x2, x1)
+        x3 = in_dtype(self.e_x3, x2)
+        u = in_dtype(self.up1, x3) + x2
+        u = in_dtype(self.up2, u) + x1
+        u = in_dtype(self.up3, u) + x0
+        out = in_dtype(self.end_conv, u).float()
         if return_features:
             return out, [x1, x2, x3, u]
         return out
+
+
+@ARCH_REGISTRY.register(name="dunet")
+def _dunet_factory(**kwargs) -> DUnet:
+    """DUnet from its options, the JAX package's compute dtype (`dtype`, as
+    `build_network_cast` passes it) as `compute_dtype`."""
+    dtype = kwargs.pop("dtype", None) or torch.float32
+    return DUnet(compute_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
+                 **kwargs)

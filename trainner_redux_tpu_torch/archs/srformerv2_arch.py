@@ -21,9 +21,20 @@ buffers (`relative_position_index`, `aligned_relative_position_index`,
   12x12 windows (clamped to `img_size` when smaller), never shifted. Two
   branches, chosen as in the JAX package: the kernels (`fused_attn_block`,
   TPU kernel #1 with #6 as its backward, then `fused_ln_mlp`, #2 with #7)
-  when `fused_block_supported` holds, in training only where the backward
-  kernels fit too; else the plain modules (`TRAINNER_FUSED_BLOCK=0` or
-  `TRAINNER_FUSED_ATTN=0`).
+  when `fused_block_supported` holds, in fp32 training only where the
+  backward kernels fit too; else the plain modules (`TRAINNER_FUSED_BLOCK=0`
+  or `TRAINNER_FUSED_ATTN=0`).
+
+Compute dtype (`compute_dtype`, as SwinIR's): the parameters stay fp32, and
+a training forward in bf16 computes as the flax SRFormerV2 does with
+`dtype=bfloat16`: the input and the mean cast to bf16, every convolution
+(the depthwise 5x5 of ConvFFN too), Linear and LayerNorm through
+`arch_util.in_dtype`, PSA's scores summed in fp32 from bf16(q scale) and k
+with the softmax in fp32 rounded to bf16, the Swin blocks on the bf16 forms
+of #1/#6 and #2/#7 wherever the JAX gate takes its kernel branch (a block
+outside the bf16 kernels' limits raises on the card, naming them; the
+plain branch computes in bf16 too); the output back to fp32. An eval
+forward (validation, `test`, the EMA network) runs in fp32: the fp32 twin.
 
 The input is reflect-padded to a multiple of lcm(window_size, Swin window),
 so a 48x48 crop runs at 72x72 and a 128x128 image at 144x144. The PSA shift
@@ -43,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, in_dtype
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
     Mlp,
@@ -135,20 +146,22 @@ class PSAv2(nn.Module):
         pws, nh, sq = self.window_size // 2, self.num_heads, self.squeeze_dim
         hd = 4 * sq // nh
         # each 2x2 group of tokens -> one token of (dy, dx, squeeze) channels
-        kv = self.kv(x).reshape(b_, pws, 2, pws, 2, 2, sq).permute(0, 1, 3, 5, 2, 4, 6)
+        kv = in_dtype(self.kv, x).reshape(b_, pws, 2, pws, 2, 2, sq).permute(0, 1, 3, 5, 2, 4, 6)
         kv = kv.reshape(b_, n // 4, 2, nh, hd).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]  # (b_, nh, n/4, hd)
-        q = self.q(x).reshape(b_, n, nh, hd).transpose(1, 2)
-        attn = (q * self.scale) @ k.transpose(-2, -1)
+        q = in_dtype(self.q, x).reshape(b_, n, nh, hd).transpose(1, 2)
+        # in x's dtype, as flax's: bf16(q scale) k summed in fp32, the softmax
+        # in fp32 rounded to bf16 before its product with v
+        attn = (q * self.scale).float() @ k.float().transpose(-2, -1)
         bias = self.relative_position_bias_table[self.aligned_relative_position_index.reshape(-1)]
         attn = attn + bias.reshape(n, n // 4, nh).permute(2, 0, 1)[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = attn.reshape(b_ // nw, nw, nh, n, n // 4) + mask[None, :, None]
             attn = attn.reshape(b_, nh, n, n // 4)
-        attn = torch.softmax(attn.float(), dim=-1)
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b_, n, 4 * sq)
-        return self.proj(out)
+        return in_dtype(self.proj, out)
 
 
 class DWConv(nn.Module):
@@ -173,8 +186,8 @@ class ConvFFN(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        z = F.gelu(self.fc1(x), approximate="none")
-        return self.fc2(z + self.dwconv(z))
+        z = F.gelu(in_dtype(self.fc1, x), approximate="none")
+        return in_dtype(self.fc2, z + self.dwconv(z))
 
 
 class PSABlockV2(nn.Module):
@@ -191,7 +204,7 @@ class PSABlockV2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift_size  # not clamped, as upstream
-        y = self.norm1(x)
+        y = in_dtype(self.norm1, x)
         if shift:
             y = torch.roll(y, (-shift, -shift), dims=(1, 2))
         mask = _psa_mask(h, w, ws, shift)
@@ -201,7 +214,7 @@ class PSABlockV2(nn.Module):
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x = x + y
-        return (x + self.mlp(self.norm2(x))).contiguous()
+        return (x + self.mlp(in_dtype(self.norm2, x))).contiguous()
 
 
 class SwinBlockV2(nn.Module):
@@ -230,9 +243,11 @@ class SwinBlockV2(nn.Module):
         attn, mlp = self.attn, self.mlp
         hidden = mlp.fc1.out_features
         fused = fused_block_supported(h, w, ws, c, nh, hidden)
-        if fused and self.training:
-            # a block too large for the backward kernels trains on the plain
-            # modules, which compute the same function
+        if fused and self.training and x.dtype == torch.float32:
+            # a block too large for the fp32 backward kernels trains on the
+            # plain modules, which compute the same function; a bf16 block
+            # takes the bf16 forms wherever the JAX gate takes its kernels,
+            # and on the card their wrappers raise outside their limits
             fused = attn_block_bwd_fits(h, w, ws, c, nh) and ln_mlp_bwd_fits(c, hidden)
         if fused:
             ones = torch.ones(b, device=x.device)
@@ -248,7 +263,7 @@ class SwinBlockV2(nn.Module):
                 mlp.fc1.bias, mlp.fc2.weight.t().contiguous(), mlp.fc2.bias, ones, ws, 1e-5,
             )
 
-        y = self.norm1(x)
+        y = in_dtype(self.norm1, x)
         if shift:
             y = torch.roll(y, (-shift, -shift), dims=(1, 2))
         mask = _attn_mask(h, w, ws, shift)
@@ -258,7 +273,7 @@ class SwinBlockV2(nn.Module):
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x = x + y
-        return (x + mlp(self.norm2(x))).contiguous()
+        return (x + mlp(in_dtype(self.norm2, x))).contiguous()
 
 
 class SRFormerLayer(nn.Module):
@@ -289,8 +304,11 @@ class SRFormerV2(nn.Module):
                  depths=(4,) * 6, num_heads=(8,) * 6, window_size: int = 36,
                  squeeze_dim: int = 60, mlp_ratio: float = 2.0, img_range: float = 1.0,
                  upsampler: str = "pixelshuffle", num_feat: int = 64,
-                 img_size: int = 64) -> None:
+                 img_size: int = 64, compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
         self.upscale = upscale
         self.window_size = window_size
         self.img_range = img_range
@@ -328,11 +346,11 @@ class SRFormerV2(nn.Module):
             self.upsample = nn.Sequential(*stages)
             self.conv_last = Conv2d(num_feat, in_chans, 3)
 
-    def bf16_refusal(self) -> str:
-        """Why this network cannot train in bf16 on the port: its Swin
-        blocks' kernels lack their bf16 forms."""
-        return ("SRFormerV2 (the bf16 forms of #1/#6 at 12x12 windows, and of #2/#7 at C 240, "
-                "are not ported)")
+    def bf16_refusal(self) -> str | None:
+        """Why this network cannot train in bf16 on the port, or None: its
+        Swin blocks have their bf16 forms (#1/#6 at 12x12 windows, #2/#7),
+        and PSA, ConvFFN and the plain branch compute in bf16 in PyTorch."""
+        return None
 
     def init_weights(self, generator: torch.Generator) -> SRFormerV2:
         """Linear weights and bias tables trunc-normal 0.02, zero Linear
@@ -341,32 +359,39 @@ class SRFormerV2(nn.Module):
         return init_transformer_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale)."""
+        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale), fp32; in
+        training computed in `compute_dtype`, at eval in fp32."""
         in_h, in_w = x.shape[2], x.shape[3]
-        x = (x - self.mean) * self.img_range
+        x = x.to(self.compute_dtype if self.training else torch.float32)
+        mean = self.mean.to(x.dtype)
+        x = (x - mean) * self.img_range
         # a multiple both window sizes divide, reflect-padded
         mult = self.window_size * self.swin_window // math.gcd(self.window_size, self.swin_window)
         ph, pw = (mult - in_h % mult) % mult, (mult - in_w % mult) % mult
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
 
-        feat = self.conv_first(x)
-        body = self.patch_embed.norm(feat.permute(0, 2, 3, 1).contiguous())  # NHWC tokens
+        feat = in_dtype(self.conv_first, x)
+        body = in_dtype(self.patch_embed.norm, feat.permute(0, 2, 3, 1).contiguous())  # NHWC
         for layer in self.layers:
             body = layer(body)
-        body = self.norm(body)
-        feat = feat + self.conv_after_body(body.permute(0, 3, 1, 2))
+        body = in_dtype(self.norm, body)
+        feat = feat + in_dtype(self.conv_after_body, body.permute(0, 3, 1, 2))
         if self.upsampler == "pixelshuffledirect":
-            out = self.upsample(feat)
+            out = in_dtype(self.upsample, feat)
         else:
-            out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))
-        out = out / self.img_range + self.mean
+            out = in_dtype(self.conv_last,
+                           in_dtype(self.upsample, in_dtype(self.conv_before_upsample, feat)))
+        out = out / self.img_range + mean
         return out[:, :, : in_h * self.upscale, : in_w * self.upscale].float()
 
 
 def _srformerv2_factory(scale: int = 4, **kwargs) -> SRFormerV2:
-    for k in ("resi_connection", "use_checkpoint", "dtype"):
+    for k in ("resi_connection", "use_checkpoint"):
         kwargs.pop(k, None)
+    # the JAX package's compute dtype (build_network_cast)
+    dtype = kwargs.pop("dtype", None) or torch.float32
+    kwargs["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     for k in ("depths", "num_heads"):
         if k in kwargs:
             kwargs[k] = tuple(kwargs[k])

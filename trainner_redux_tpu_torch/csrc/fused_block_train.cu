@@ -80,6 +80,26 @@
 // 47.6 GFLOP in 0.048 ms and #4's 18.5 in 0.019, below what their bytes
 // take at 3.35 TB/s, so bytes bound both.
 //
+// The attention half alone in bf16 at 12x12 windows (trr_attn_block_fwd_bf16,
+// #1's bf16 form, fused_block.py:693, _attn_block_fwd_kernel :468-511; and
+// trr_attn_block_bwd_bf16, #6's, :729, _attn_block_bwd_kernel :513-634:
+// SRFormerV2's Swin blocks in a bf16 step) is #4's and #5's attention stages
+// on their own at n 144 (attn_plan's (48, 2)): LN1 rows, qkv, the window
+// attention without P, proj with the residual (four launches); then LN1 rows
+// with dzp = bf16(s dout), datt = bf16(dzp wp^T), qkv, the recompute window
+// attention, which rebuilds P in fp32 and writes att = bf16(bf16(P) v) for
+// dwp besides dq | dk | dv and dS (attn_rows_bwd_recompute_bf16_kernel with
+// ATT), dy and the LN1 backward to dx = bf16(dout + LN1'(dy)), the two
+// weight gradients, the LN partial sums and dbias. Nothing is saved between
+// them, as the JAX kernel saves nothing. Their bound at SRFormerV2's block
+// (B 16, 72x72, C 240, 8 heads of 30: T 82,944): 49.7 GFLOP forward and
+// 139.5 backward (qkv and the softmax rebuilt, att recomputed for dwp), 50
+// and 141 us on the bf16 tensor cores, above what their inputs and outputs
+// take at 3.35 TB/s (40 MB a bf16 (T, C) tensor: some 24 and 36 us). The
+// stages pass their intermediates through device memory, the recompute
+// attention's dS (382 MB in fp32) the largest, read once by the kind
+// reduction: what the design does is keep #4/#5's stages, right first.
+//
 // The MLP half alone in bf16 (trr_ln_mlp_fwd_bf16, #2's bf16 form; and
 // trr_ln_mlp_bwd_bf16, #7's, ops/pallas/fused_block.py:196-254: HAT's HABs
 // and OCABs in a bf16 step) runs #4's and #5's MLP stages on their own: LN
@@ -504,6 +524,62 @@ int trr_swin_block_bwd_bf16(const trr::bf16* x, const trr::bf16* z, const trr::b
                                 stream);
 }
 
+// The bf16 attention half (#1's bf16 form) at 12x12 windows: x, z (B, H, W,
+// C) bf16; wq (C, 3C), wp (C, C) bf16; g, be, bq, bp, bias (kinds, nh, 144,
+// 144), s (B) fp32; scratch y, att (T, C) and qkv (T, 3C) bf16. The windows
+// are those of x rolled by (-shift, -shift), z comes back in x's frame.
+int trr_attn_block_fwd_bf16(const trr::bf16* x, const float* g, const float* be,
+                            const trr::bf16* wq, const float* bq, const trr::bf16* wp,
+                            const float* bp, const float* bias, const float* s, trr::bf16* y,
+                            trr::bf16* qkv, trr::bf16* att, trr::bf16* z, int B, int H, int W,
+                            int C, int nh, int ws, int kinds, int shift, float eps, float scale,
+                            cudaStream_t stream) {
+  if (ws != 12) return (int)cudaErrorInvalidValue;
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::ln_rows_bf16(x, g, be, y, nullptr, nullptr, nullptr, nullptr, T, hw, C, eps,
+                            stream));
+  TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
+  TRR_TRY((trr::attn_rows_fwd_bf16<144, false>(qkv, bias, att, nullptr, B, H, W, C, nh, 12, 12,
+                                               kinds, shift, scale, stream)));
+  return (int)trr::linear_bf16<trr::kLinearResidual>(att, wp, bp, z, T, C, C, stream, x, s, hw);
+}
+
+// The bf16 recompute backward (#6's bf16 form) at 12x12 windows: x, dout
+// (B, H, W, C) bf16 and the operands as trr_attn_block_fwd_bf16 takes them.
+// Scratch: y, dzp, datt, att (T, C) bf16, stats (T, 2), qkv, dqkv (T, 3C)
+// bf16, dS (B, H/12, W/12, nh, 144, 144) fp32, ln_part (ceil(T / 128), 2C),
+// part (the larger trr_weight_grad_part_floats of dwq and dwp). Writes dx
+// (bf16), dln = dg | dbe, dq = dwq | dbq, dp = dwp | dbp and dbias (kinds,
+// nh, 144, 144) in fp32; dbp sums the fp32 s dout, dbq the bf16 dqkv.
+int trr_attn_block_bwd_bf16(const trr::bf16* x, const float* g, const float* be,
+                            const trr::bf16* wq, const float* bq, const trr::bf16* wp,
+                            const float* bias, const float* s, const trr::bf16* dout,
+                            trr::bf16* y, float* stats, trr::bf16* dzp, trr::bf16* datt,
+                            trr::bf16* qkv, trr::bf16* dqkv, trr::bf16* att, float* dS,
+                            float* ln_part, float* part, trr::bf16* dx, float* dln, float* dq,
+                            float* dp, float* dbias, int B, int H, int W, int C, int nh, int ws,
+                            int kinds, int shift, float eps, float scale, cudaStream_t stream) {
+  using trr::bf16;
+  if (ws != 12) return (int)cudaErrorInvalidValue;
+  const long long T = (long long)B * H * W, hw = (long long)H * W;
+  const int nblk = (int)((T + trr::kTcRows - 1) / trr::kTcRows);
+  TRR_TRY(trr::ln_rows_bf16(x, g, be, y, stats, dout, s, dzp, T, hw, C, eps, stream));
+  TRR_TRY((trr::rows_bf16<trr::kRowsStore, float, bf16>(dzp, wp, T, C, C, nullptr, nullptr,
+                                                       nullptr, nullptr, nullptr, hw, datt,
+                                                       nullptr, nullptr, stream)));
+  TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
+  TRR_TRY((trr::attn_rows_bwd_recompute_bf16<144, true>(qkv, bias, datt, dqkv, att, dS, B, H, W,
+                                                        C, nh, 12, 12, kinds, shift, scale,
+                                                        stream)));
+  TRR_TRY((trr::rows_bf16<trr::kRowsLn, bf16, bf16>(dqkv, wq, T, 3 * C, C, x, stats, g, dout,
+                                                   nullptr, hw, dx, nullptr, ln_part, stream)));
+  TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln, stream));
+  TRR_TRY(trr::weight_grad_bf16(att, dzp, T, C, C, nullptr, dout, s, hw, part, dp, stream));
+  TRR_TRY(trr::weight_grad_bf16(y, dqkv, T, C, 3 * C, nullptr, dqkv, nullptr, hw, part, dq,
+                                stream));
+  return (int)trr::launch_dbias(dS, B, H / 12, W / 12, nh, kinds, 144 * 144, dbias, stream);
+}
+
 // The bf16 MLP half (#2's bf16 form): x, out (B, H, W, C) bf16; w1 (C,
 // hidden), w2 (hidden, C) bf16; g, be, b1, b2, s fp32; scratch y (T, C) and
 // h (T, hidden) bf16. Three launches: #4's MLP stages.
@@ -550,6 +626,17 @@ size_t trr_linear_bf16_smem_bytes(int N) {
 size_t trr_rows_bf16_smem_bytes(int C) { return (size_t)trr::rows_bf16_smem_bytes(C); }
 size_t trr_hidden_bf16_smem_bytes() { return (size_t)trr::hidden_bf16_smem_bytes(); }
 size_t trr_atb_bf16_smem_bytes() { return (size_t)trr::atb_bf16_smem_bytes(); }
+
+// The largest shared memory of the bf16 attention half's kernels (#1 and
+// #6's bf16 forms) at 12x12 windows and rows of C channels.
+size_t trr_attn_block_bf16_smem_bytes(int C) {
+  const trr::AttnPlan plan = trr::attn_plan(144);
+  return (size_t)std::max(
+      {trr::wg_bf16_bytes(trr::linear_cols(3 * C)), trr::wg_bf16_bytes(trr::linear_cols(C)),
+       trr::rows_bf16_smem_bytes(C), trr::atb_bf16_smem_bytes(),
+       trr::attn_rows_fwd_tc_smem_floats(144, plan.rb, plan.ks) * (int)sizeof(float),
+       trr::attn_rows_bwd_tc_smem_floats(144, plan.rb, plan.ks, true) * (int)sizeof(float)});
+}
 
 // out (M*N + N) = (A^T B, column sums of B) of A (T, M) and B (T, N), through
 // part (trr_weight_grad_part_floats(T, M, N) floats).

@@ -23,9 +23,10 @@
 // (36: the row fragments' loads hit 32 banks).
 //
 // The bf16 forms (attn_rows_fwd_bf16_kernel, with P as the bf16 training
-// block's #4 stage and without it as #3's bf16 form; attn_rows_bwd_bf16_kernel,
-// the saved-P backward of #5's stage; attn_rows_bwd_recompute_bf16_kernel,
-// #8's bf16 form, which recomputes P from the bias table) read and write
+// block's #4 stage and without it as #3's bf16 form and #1's bf16 stage;
+// attn_rows_bwd_bf16_kernel, the saved-P backward of #5's stage;
+// attn_rows_bwd_recompute_bf16_kernel, #8's bf16 form and, writing att too,
+// #6's bf16 stage, which recompute P from the bias table) read and write
 // bf16 rows and P and keep the same fp32 tiles in shared memory; each
 // product runs on mma.sync m16n8k16 bf16 with fp32 sums (tc_gemm_bf16.cuh),
 // its operands rounded to bf16 as their fragments load: the JAX kernel's
@@ -604,18 +605,24 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
                                                    wr, wc, kinds, shift, scale);
 }
 
-// #8's bf16 form, the recompute backward: qkv, datt and dqkv in bf16, the
-// kind table and dS in fp32. P is recomputed in fp32 from q, k and the
-// table; dV takes bf16(P), dS the fp32 P.
-template <int N, int RB, int KS>
-__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+// The bf16 recompute backward: qkv, datt and dqkv in bf16, the kind table
+// and dS in fp32. P is recomputed in fp32 from q, k and the table; dV takes
+// bf16(P), dS the fp32 P. ATT false, #8's bf16 form; ATT true, #6's bf16
+// stage: att = bf16(bf16(P) v) into att (T, C) as well, for its dwp. With
+// ATT one block a SM: the att product's fragments take the (144, 48, 2)
+// plan past the 168 registers a thread that two blocks of 192 threads
+// leave (ptxas spilled 40 bytes there).
+template <int N, int RB, int KS, bool ATT>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
+                                  !ATT && attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
     attn_rows_bwd_recompute_bf16_kernel(const bf16* __restrict__ qkv,
                                         const float* __restrict__ bias,
                                         const bf16* __restrict__ datt, bf16* __restrict__ dqkv,
-                                        float* __restrict__ dS, int H, int W, int C, int nh,
-                                        int wr, int wc, int kinds, int shift, float scale) {
-  attn_rows_bwd_body<N, RB, KS, false, false, bf16>(qkv, bias, datt, dqkv, nullptr, dS, H, W, C,
-                                                    nh, wr, wc, kinds, shift, scale);
+                                        bf16* __restrict__ att, float* __restrict__ dS, int H,
+                                        int W, int C, int nh, int wr, int wc, int kinds,
+                                        int shift, float scale) {
+  attn_rows_bwd_body<N, RB, KS, ATT, false, bf16>(qkv, bias, datt, dqkv, att, dS, H, W, C, nh,
+                                                  wr, wc, kinds, shift, scale);
 }
 
 // The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
@@ -685,21 +692,22 @@ cudaError_t attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att, bf
   return cudaGetLastError();
 }
 
-// attn_rows_bwd_recompute_bf16_kernel (#8's bf16 form) at windows of N tokens.
-template <int N>
+// attn_rows_bwd_recompute_bf16_kernel at windows of N tokens: ATT false,
+// #8's bf16 form (att unused); ATT true, #6's bf16 stage, writing att.
+template <int N, bool ATT = false>
 cudaError_t attn_rows_bwd_recompute_bf16(const bf16* qkv, const float* bias, const bf16* datt,
-                                         bf16* dqkv, float* dS, int B, int H, int W, int C, int nh,
-                                         int wr, int wc, int kinds, int shift, float scale,
-                                         cudaStream_t stream) {
+                                         bf16* dqkv, bf16* att, float* dS, int B, int H, int W,
+                                         int C, int nh, int wr, int wc, int kinds, int shift,
+                                         float scale, cudaStream_t stream) {
   constexpr AttnPlan plan = attn_plan(N);
-  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, false);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT);
   const cudaError_t err =
-      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks>, floats);
+      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT>, floats);
   if (err != cudaSuccess) return err;
   const dim3 grid(nh, (H / wr) * (W / wc), B);
-  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks>
+  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
-          qkv, bias, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
+          qkv, bias, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }
 

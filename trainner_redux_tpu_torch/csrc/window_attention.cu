@@ -188,14 +188,14 @@ int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::b
   const int n = wr * wc;
   cudaError_t err;
   if (n == 64) {
-    err = trr::attn_rows_bwd_recompute_bf16<64>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr, wc,
-                                                kinds, 0, scale, stream);
+    err = trr::attn_rows_bwd_recompute_bf16<64>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C,
+                                                nh, wr, wc, kinds, 0, scale, stream);
   } else if (n == 128) {
-    err = trr::attn_rows_bwd_recompute_bf16<128>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr,
-                                                 wc, kinds, 0, scale, stream);
+    err = trr::attn_rows_bwd_recompute_bf16<128>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C,
+                                                 nh, wr, wc, kinds, 0, scale, stream);
   } else if (n == 256) {
-    err = trr::attn_rows_bwd_recompute_bf16<256>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr,
-                                                 wc, kinds, 0, scale, stream);
+    err = trr::attn_rows_bwd_recompute_bf16<256>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C,
+                                                 nh, wr, wc, kinds, 0, scale, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -27,7 +27,9 @@ from manual_seed + 7919, as the JAX program's key is; torch cannot give
 jax.random's numbers, so the tests hold each operator against JAX on the
 same inputs and noise, and the whole `_degrade` where nothing is drawn.
 The degradation runs in fp32 with TF32 off, as the JAX resize runs at
-precision "highest".
+precision "highest", whatever the compute dtype: with bfloat16 (the
+templates' default) only the networks (net_g, and net_d with a GAN) compute
+in bf16, on the fp32 pairs.
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ class RealESRGANModel(SRModel):
                 sequences_for_set(opt.sequence_set), seed=opt.manual_seed or 0
             )
             self._seq_rng = np.random.default_rng([opt.manual_seed or 0, 515151])
-
-    def _bf16_refusal(self) -> str | None:
-        """bf16 OTF training waits for the bf16 GAN path it ships with."""
-        return "the OTF model (RealESRGANModel: DUnet in bf16 is not ported)"
 
     # ------------------------------------------------------------------
     # draws

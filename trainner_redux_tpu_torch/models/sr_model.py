@@ -13,8 +13,10 @@ Port of the JAX package's models/sr_model.py.
   parameters that take fp32 gradients and fp32 optimizer and EMA updates;
   validation, `test` and the EMA network's forward run the same parameters
   in fp32, the JAX package's fp32 twin. bf16 trains SwinIR (on the bf16
-  forms of #4/#5, SwinIR-L on those of #3/#8), HAT (#3/#8, #2/#7) and DAT
-  (the rect #3/#8). fp32 runs with TF32 off (`fast_matmul`
+  forms of #4/#5, SwinIR-L on those of #3/#8), HAT (#3/#8, #2/#7), DAT
+  (the rect #3/#8) and SRFormerV2 (#1/#6 at 12x12, #2/#7), and a GAN's
+  DUnet computes in the same dtype (no twin: D only trains). fp32 runs
+  with TF32 off (`fast_matmul`
   lets cuBLAS and cuDNN use TF32; `deterministic` runs the step on torch's
   deterministic algorithms; `detect_anomaly` under autograd's anomaly
   detection, so a NaN in the backward raises): pair losses, the
@@ -32,7 +34,9 @@ Port of the JAX package's models/sr_model.py.
   with `accum_iter`, micro-batch 0's output and GT), with the weights of
   before the step: l_d_real + l_d_fake, its own optimizer (`optim_d`, else
   `optim_g`) and `grad_clip`, then one refresh of each spectral norm's
-  (u, v) from those weights. D's learning rate is its schedule at D's own
+  (u, v) from those weights (from the fp32 weights in bf16 too, as the
+  JAX refresh computes them). D takes the generator's fp32 output and the
+  fp32 GT and returns fp32 logits, which the GAN loss takes. D's learning rate is its schedule at D's own
   count of updates, as optax counts them (the logged lr_d is at the global
   step, as the JAX step logs it). With
   `adaptive_d`, the step and the refresh are skipped while the smoothed
@@ -42,10 +46,8 @@ DropPath draws from one `torch.Generator` on the model's device, seeded from
 `manual_seed`, that the model hands to the network.
 
 Not ported yet, and refused where configured: bf16 training of Swin2SR
-(#11-#14), of SRFormerV2 (#1/#6 at 12x12), of a GAN (`network_d`: DUnet)
-and of the OTF model, `steps_per_dispatch > 1`, `remat`,
-discriminators
-other than DUnet, the R3GAN and feature-matching losses, MoA, dynamic loss
+(#11-#14), `steps_per_dispatch > 1`, `remat`, discriminators other than
+DUnet, the R3GAN and feature-matching losses, MoA, dynamic loss
 scheduling, training automations, tiled inference and the mesh-sharded
 paths.
 """
@@ -62,7 +64,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from trainner_redux_tpu_torch.archs import build_network, build_network_cast
+from trainner_redux_tpu_torch.archs import build_network_cast
 from trainner_redux_tpu_torch.archs.arch_util import refresh_spectral_norms
 from trainner_redux_tpu_torch.losses import build_loss, loss_log_key
 from trainner_redux_tpu_torch.metrics import calculate_metric
@@ -239,7 +241,7 @@ class SRModel(BaseModel):
         opt, train_opt = self.opt, self.opt.train
         if opt.network_d is None:
             raise ValueError("GAN losses require network_d")
-        net_d = build_network(dict(opt.network_d))
+        net_d = build_network_cast(dict(opt.network_d), self.compute_dtype)
         net_d.init_weights(torch.Generator().manual_seed((opt.manual_seed or 0) + 1))
         if opt.path.pretrain_network_d:
             self.load_network(net_d, opt.path.pretrain_network_d, strict=opt.path.strict_load_d)
@@ -261,13 +263,11 @@ class SRModel(BaseModel):
     def _bf16_refusal(self) -> str | None:
         """Why this model cannot train in bf16 on the port, or None: the
         network says (its `bf16_refusal`, which names the kernels it
-        lacks); a network without one, and GAN training (DUnet in bf16), are
-        refused."""
+        lacks); a network without one is refused. DUnet, the one ported
+        discriminator, has its bf16 form."""
         refusal = getattr(self.net_g, "bf16_refusal", None)
         if refusal is None:
             return f"{type(self.net_g).__name__} (it has no bf16 form)"
-        if self.opt.network_d is not None:
-            return "GAN training with network_d (DUnet in bf16 is not ported)"
         return refusal()
 
     def _refuse_unported(self) -> None:

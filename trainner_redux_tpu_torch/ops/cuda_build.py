@@ -63,6 +63,8 @@ SIGNATURES = {
         "trr_swin_block_bwd": ([_P] * 40 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_swin_block_fwd_bf16": ([_P] * 23 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_swin_block_bwd_bf16": ([_P] * 41 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_fwd_bf16": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_bwd_bf16": ([_P] * 24 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_ln_mlp_bwd": ([_P] * 19 + [_I] * 5 + [_F, _P], _I),
         "trr_ln_mlp_fwd_bf16": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
         "trr_ln_mlp_bwd_bf16": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
@@ -78,6 +80,7 @@ SIGNATURES = {
         "trr_rows_bf16_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_hidden_bf16_smem_bytes": ([], ctypes.c_size_t),
         "trr_atb_bf16_smem_bytes": ([], ctypes.c_size_t),
+        "trr_attn_block_bf16_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "fused_block_v2": {
         "trr_cos_attn_fwd": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),

@@ -16,7 +16,9 @@ Port of the JAX package's ops/pallas/fused_block.py:
       counted as `fused_swin_block_train_bf16` and
       `fused_swin_block_train_backward_bf16`); `fused_ln_mlp` does too (its
       bf16 forms `fused_ln_mlp_bf16` and `fused_ln_mlp_backward_bf16`, HAT's
-      MLP halves in a bf16 step).
+      MLP halves in a bf16 step), and so does `fused_attn_block` at 12x12
+      windows (`fused_attn_block_bf16` and `fused_attn_block_backward_bf16`,
+      SRFormerV2's Swin blocks in a bf16 step).
 
 `fused_attn_block` and `fused_ln_mlp` are torch.autograd.Functions whose
 backwards recompute from x: #1's (TPU kernel #6,
@@ -27,8 +29,8 @@ LN and fc1.
 as in ops/window_attention.py: x is NHWC (B, H, W, C) with H and W
 multiples of window_size, weights are (in, out), the bias table is
 (K, nh, n, n). Heads of at most 32 channels, in fp32 (the whole training
-block and the MLP half also in bf16, the attention half's kernels raising
-on it). The attention half's
+block, the MLP half and the attention half at 12x12 windows also in bf16,
+the attention half's training form raising on it). The attention half's
 forward takes 8x8 windows (n = 64) and 12x12 (n = 144, SRFormerV2's), both
 on the tensor-core stages of `csrc/block_fwd.cuh`, which the MLP half runs
 too; its backwards (`csrc/attn_block_staged.cu`) and its training form take
@@ -77,8 +79,13 @@ ATB_K, ATB_STAGES = 32, 3
 ROWS_MAX_C, LN_MAX_C = 256, 512
 # the whole block's backward (#5) is held to the widths checked on the card
 SWIN_BLOCK_MAX_C = 192
-# the windows the attention half takes (csrc/attn_block_staged.cu)
+# the windows the attention half takes (csrc/attn_block_staged.cu), and its
+# bf16 forms (csrc/fused_block_train.cu: SRFormerV2's)
 STAGED_WINDOWS = (12, 8)
+BF16_ATTN_WINDOW = 12
+# the bf16 engine (csrc/tc_gemm_bf16.cuh): chunks BF_K bf16 deep, staged
+# [row][k] rows BF_LD bf16 apart
+BF_K, BF_LD = 32, 40
 
 
 def attn_block_smem_bytes(channels: int, window_size: int = WINDOW) -> int:
@@ -231,6 +238,59 @@ def weight_grad_smem_bytes() -> int:
     then a 3-stage ring of two (32, 128 + 8) token-major chunks a stage."""
     return (_split_bytes(TC_ROWS, ATB_K)
             + _ring_bytes(2 * ATB_K * (TC_ROWS + 8), ATB_STAGES))
+
+
+def _core_bytes(cols: int, depth: int = BF_K) -> int:
+    """The TC_SPLIT core-tile buffers of a bf16 (cols, depth) chunk."""
+    return 4 * TC_SPLIT * cols * depth // 2
+
+
+def wg_bf16_bytes(cols: int) -> int:
+    """Shared memory of a bf16 per-token kernel (csrc/tc_rows_bf16.cuh) at
+    `cols` columns: the core-tile buffers, then a ring of a (128, BF_K) token
+    chunk and a raw (cols, BF_K) weight chunk a stage, two bf16 a float."""
+    raw = max(cols * BF_LD, BF_K * (cols + 8))
+    return _core_bytes(cols) + _ring_bytes((TC_ROWS * BF_LD + raw) // 2)
+
+
+def rows_bf16_smem_bytes(channels: int) -> int:
+    """Shared memory of rows_bf16_kernel: its buffers, or the (128, BN + 8)
+    fp32 dy tile and the 8 warps' column sums they are reused for."""
+    cols = rows_tile_cols(channels)
+    return max(wg_bf16_bytes(cols), 4 * (TC_ROWS * (cols + 8) + 2 * 8 * channels))
+
+
+def weight_grad_bf16_smem_bytes() -> int:
+    """Shared memory of atb_bf16_kernel: the core-tile buffers of a (128,
+    32) chunk, then a 3-stage ring of a (32, 128 + 8) bf16 chunk pair and the
+    chunk's (32, 128 + 4) rows of the bias sums' source a stage."""
+    return (_core_bytes(TC_ROWS, ATB_K)
+            + _ring_bytes(ATB_K * (TC_ROWS + 8) + ATB_K * (TC_ROWS + 4), ATB_STAGES))
+
+
+def attn_block_bf16_smem_bytes(channels: int) -> int:
+    """The largest shared memory of the bf16 attention half's kernels (#1 and
+    #6's bf16 forms) at 12x12 windows: qkv and proj on linear_bf16_kernel,
+    datt and the LN1 backward on rows_bf16_kernel, the weight gradients, and
+    the window attention's forward and its recompute backward with att
+    rows (n 144)."""
+    return max(wg_bf16_bytes(residual_tile_cols(3 * channels)),
+               wg_bf16_bytes(residual_tile_cols(channels)), rows_bf16_smem_bytes(channels),
+               weight_grad_bf16_smem_bytes(), attn_fwd_tc_smem_bytes(BF16_ATTN_WINDOW**2),
+               attn_rows_bwd_tc_smem_bytes(BF16_ATTN_WINDOW))
+
+
+def attn_block_bf16_fits(h, w, window_size, channels, num_heads) -> bool:
+    """#1 and #6's bf16 forms: 12x12 windows (SRFormerV2's), window-aligned
+    dims, heads of at most 32 channels, rows the bf16 engine takes (C <=
+    ROWS_MAX_C, a multiple of 4) and each plan within one thread block's
+    shared memory."""
+    ws = BF16_ATTN_WINDOW
+    if window_size != ws or h % ws or w % ws:
+        return False
+    if channels % num_heads or channels // num_heads > V_LD or not tc_rows_fit(channels):
+        return False
+    return attn_block_bf16_smem_bytes(channels) <= SMEM_LIMIT
 
 
 def ln_mlp_bwd_fits(channels: int, hidden: int) -> bool:
@@ -496,9 +556,10 @@ fused_ln_mlp.launches = 0
 
 
 def _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
-                         window_size, shift, fits, kinds=None):
-    """Shapes, limits and placement of the attention half's operands; the
-    saved-P backward passes no bias table but its `kinds`."""
+                         window_size, shift, fits, kinds=None, xdtype=torch.float32):
+    """Shapes, limits, types and placement of the attention half's operands
+    (x of `xdtype`, the rest fp32); the saved-P backward passes no bias
+    table but its `kinds`."""
     b, hh, ww, c = x.shape
     n = window_size * window_size
     kinds = bias.shape[0] if bias is not None else kinds
@@ -520,7 +581,7 @@ def _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, hea
         ("bp", bp, (c,)), ("bias", bias, (kinds, num_heads, n, n)), ("s", s, (b,)),
     ):
         if t is not None:
-            _check_cuda(k, t, shape, x.device)
+            _check_cuda(k, t, shape, x.device, xdtype if k == "x" else torch.float32)
 
 
 def _attn_block_fwd_cuda(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
@@ -569,7 +630,11 @@ def fused_attn_block_backward(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads
     them. On a CUDA tensor it launches the staged kernels of
     `csrc/attn_block_staged.cu` and the weight-gradient kernels of
     `csrc/fused_block_train.cu` (one counted call); on a CPU tensor it runs
-    the plain version."""
+    the plain version. A bf16 x takes the bf16 form
+    (`fused_attn_block_backward_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return fused_attn_block_backward_bf16(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads,
+                                              head_dim, window_size, eps, shift)
     if x.device.type == "cpu":
         return fused_attn_block_bwd_reference(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads,
                                               head_dim, window_size, eps, shift)
@@ -610,7 +675,9 @@ class _AttnBlock(torch.autograd.Function):
     def forward(ctx, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps,
                 shift):
         args = (x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size, eps, shift)
-        if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            z = fused_attn_block_bf16(*args)
+        elif x.device.type == "cpu":
             z = fused_attn_block_reference(*args)
         else:
             z = _attn_block_fwd_cuda(*args)
@@ -637,7 +704,8 @@ def fused_attn_block(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, win
     (-shift, -shift) and returns z unrolled, in x's frame. On a CUDA tensor
     the forward launches TPU kernel #1's port (8x8 or 12x12 windows) and the
     backward #6's (`fused_attn_block_backward`); on a CPU tensor both run
-    their plain versions."""
+    their plain versions. A bf16 x runs the bf16 forms at 12x12 windows (z
+    and dx in bf16, the parameter gradients in fp32)."""
     return _AttnBlock.apply(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
                             eps, shift)
 
@@ -878,11 +946,12 @@ def _window_attn_backward(P, q, k, v, datt, kinds, b, hh, ww, num_heads, head_di
     """(dqkv (T, 3C), dbias (K, nh, n, n)) of softmax(q k^T scale + bias) v
     from its softmax P and q, k, v, all (B, H/ws, W/ws, nh, n, .), and the
     output gradient datt (T, C); dbias sums dS over each kind's windows.
-    `rounded`, the bf16 kernel's arithmetic: dq and dk from bf16(scale dS),
+    `rounded`, the bf16 kernel's arithmetic: dv from bf16(P) (P itself where
+    the forward saved it in bf16), dS from P, dq and dk from bf16(scale dS),
     and dq, dk, dv rounded to bf16 (dbias from the fp32 dS)."""
     nwh, nww, n = hh // ws, ww // ws, ws * ws
     da = _heads(_to_windows(datt.reshape(b, hh, ww, -1), ws), num_heads)
-    dv = P.transpose(-1, -2) @ da
+    dv = (_bf(P) if rounded else P).transpose(-1, -2) @ da
     dp = da @ v.transpose(-1, -2)
     ds = P * (dp - (dp * P).sum(-1, keepdim=True))
     scale = head_dim**-0.5
@@ -1087,6 +1156,60 @@ fused_ln_mlp_bf16.launches = 0
 fused_ln_mlp_backward_bf16.launches = 0
 
 
+def _qkv_bf16_rows(t, g, be, wq, bq, b, hh, ww, num_heads, ws, eps):
+    """(y, (q, k, v)) of rows t (T, C) of the rolled frame in bf16, with the
+    JAX kernel's roundings: y = bf16(LN(t)) from fp32 statistics and the
+    heads of qkv = bf16(bf16(y wq) + bf16(bq)), (B, H/ws, W/ws, nh, n, hd)."""
+    c = t.shape[1]
+    xn, _ = _ln_parts(t, eps)
+    y = _bf(xn * g.float() + be.float())
+    qkv = _bf(_bf(y @ _bf(wq)) + _bf(bq.float()))
+    heads = (_heads(u, num_heads)
+             for u in _to_windows(qkv.reshape(b, hh, ww, 3 * c), ws).chunk(3, dim=-1))
+    return y, tuple(heads)
+
+
+def _attn_half_bf16_rows(t, g, be, wq, bq, wp, bp, bias, srow, b, hh, ww, num_heads, head_dim,
+                         ws, eps):
+    """The attention half in bf16 on rows t (T, C) of the rolled frame held
+    in fp32 (bf16 values), with the JAX kernel's roundings
+    (ops/pallas/fused_block.py:468-511): P the fp32 softmax of q k^T scale +
+    bias, att = bf16(bf16(P) v), z = t + bf16(s) (bf16(att wp) + bf16(bp)),
+    each bf16 addition and product rounded; srow (T, 1) the fp32 DropPath
+    scale of each row. Returns (z, P, att, y, (q, k, v)), P unrounded."""
+    c = t.shape[1]
+    y, (q, k, v) = _qkv_bf16_rows(t, g, be, wq, bq, b, hh, ww, num_heads, ws, eps)
+    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=t.device)
+    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
+    p = torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1)
+    att = _bf(_from_windows(_merge_heads(_bf(p) @ v), ws).reshape(-1, c))
+    z = _bf(t + _bf(_bf(srow) * _bf(_bf(att @ _bf(wp)) + _bf(bp.float()))))
+    return z, p, att, y, (q, k, v)
+
+
+def _attn_half_bwd_bf16_rows(t, dz, P, att, y, heads, g, wq, wp, srow, kinds, b, hh, ww,
+                             num_heads, head_dim, ws, eps):
+    """The attention half's backward in bf16 on rows t and dz (T, C) of the
+    rolled frame, with the JAX kernel's roundings
+    (ops/pallas/fused_block.py:513-634): from P, att and the forward's y and
+    heads, (dt, dg, dbe, dwq, dbq, dwp, dbp, dbias) with dt = dz + LN'(dy)
+    in fp32 (the caller rounds it). dzp = dz s and datt are rounded to bf16
+    as operands while dbp sums the fp32 dzp; the window attention's as
+    `_window_attn_backward(rounded=True)`; dy = dqkv wq^T, every LayerNorm
+    gradient and dbias stay fp32."""
+    xn, inv = _ln_parts(t, eps)
+    dzp = dz * srow
+    dzp_lo = _bf(dzp)
+    dwp, dbp = att.T @ dzp_lo, dzp.sum(0)
+    datt = _bf(dzp_lo @ _bf(wp).T)
+    dqkv, dbias = _window_attn_backward(P, *heads, datt, kinds, b, hh, ww, num_heads, head_dim,
+                                        ws, rounded=True)
+    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
+    dy = dqkv @ _bf(wq).T
+    dg, dbe = (dy * xn).sum(0), dy.sum(0)
+    return dz + _ln_backward(dy, xn, inv, g.float()), dg, dbe, dwq, dbq, dwp, dbp, dbias
+
+
 def fused_swin_block_train_bf16_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, be2, w1, b1, w2,
                                           b2, s1, s2, num_heads, head_dim, window_size, eps=1e-5,
                                           shift=0):
@@ -1097,19 +1220,10 @@ def fused_swin_block_train_bf16_reference(x, g1, be1, wq, bq, wp, bp, bias, g2, 
     applied as a bf16 operation (rounded); the products sum exactly the
     bf16 values in fp32."""
     b, hh, ww, c = x.shape
-    ws, t = window_size, _roll(x.float(), -shift).reshape(-1, c)
-    f = {k: v.float() for k, v in dict(g1=g1, be1=be1, bq=bq, bp=bp).items()}
-    xn, _ = _ln_parts(t, eps)
-    y = _bf(xn * f["g1"] + f["be1"])
-    qkv = _bf(_bf(y @ _bf(wq)) + _bf(f["bq"]))
-    q, k, v = (_heads(u, num_heads)
-               for u in _to_windows(qkv.reshape(b, hh, ww, 3 * c), ws).chunk(3, dim=-1))
-    kind = window_kinds(hh // ws, ww // ws, bias.shape[0], device=x.device)
-    table = bias.float()[kind].reshape(hh // ws, ww // ws, *bias.shape[1:])
-    p = _bf(torch.softmax(q @ k.transpose(-1, -2) * head_dim**-0.5 + table, dim=-1))
-    att = _bf(_from_windows(_merge_heads(p @ v), ws).reshape(-1, c))
-    s1r = _bf(_row_scale(s1, b, hh * ww))
-    z = _bf(t + _bf(s1r * _bf(_bf(att @ _bf(wp)) + _bf(f["bp"]))))
+    t = _roll(x.float(), -shift).reshape(-1, c)
+    z, p, att, _, _ = _attn_half_bf16_rows(t, g1, be1, wq, bq, wp, bp, bias,
+                                           _row_scale(s1, b, hh * ww), b, hh, ww, num_heads,
+                                           head_dim, window_size, eps)
     out = _ln_mlp_bf16_rows(z, g2, be2, w1, b1, w2, b2, _row_scale(s2, b, hh * ww), eps)
 
     def unroll(u):
@@ -1135,28 +1249,143 @@ def fused_swin_block_train_bwd_bf16_reference(x, g1, be1, wq, bq, wp, bp, g2, be
         return _roll(u.float(), -shift).reshape(tokens, -1)
 
     t, zt, do, att_t = rows(x), rows(z), rows(dout), rows(att)
-    g1, be1, bq = (u.float() for u in (g1, be1, bq))
     # the MLP half: dz in fp32
     dz, dg2, dbe2, dw1, db1, dw2, db2 = _ln_mlp_bwd_bf16_rows(
         zt, do, g2, be2, w1, b1, w2, _row_scale(s2, b, hh * ww), eps)
-    # the attention half
-    xn, inv = _ln_parts(t, eps)
-    y = _bf(xn * g1 + be1)
-    qkv = _bf(_bf(y @ _bf(wq)) + _bf(bq))
-    q, k, v = (_heads(u, num_heads)
-               for u in _to_windows(qkv.reshape(b, hh, ww, 3 * c), ws).chunk(3, dim=-1))
-    dzp = dz * _row_scale(s1, b, hh * ww)
-    dzp_lo = _bf(dzp)
-    dwp, dbp = att_t.T @ dzp_lo, dzp.sum(0)
-    datt = _bf(dzp_lo @ _bf(wp).T)
-    dqkv, dbias = _window_attn_backward(P.float(), q, k, v, datt, kinds, b, hh, ww, num_heads,
-                                        head_dim, ws, rounded=True)
-    dwq, dbq = y.T @ dqkv, dqkv.sum(0)
-    dy = dqkv @ _bf(wq).T
-    dg1, dbe1 = (dy * xn).sum(0), dy.sum(0)
-    dx = _roll((dz + _ln_backward(dy, xn, inv, g1)).reshape(b, hh, ww, c), shift)
-    return (dx.to(torch.bfloat16), dg1, dbe1, dwq, dbq, dwp, dbp, dbias, dg2, dbe2, dw1, db1, dw2,
-            db2)
+    # the attention half, from the saved P and att
+    y, heads = _qkv_bf16_rows(t, g1, be1, wq, bq, b, hh, ww, num_heads, ws, eps)
+    dt, *attn = _attn_half_bwd_bf16_rows(t, dz, P.float(), att_t, y, heads, g1, wq, wp,
+                                         _row_scale(s1, b, hh * ww), kinds, b, hh, ww, num_heads,
+                                         head_dim, ws, eps)
+    dx = _roll(dt.reshape(b, hh, ww, c), shift)
+    return (dx.to(torch.bfloat16), *attn, dg2, dbe2, dw1, db1, dw2, db2)
+
+
+def fused_attn_block_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                                    window_size, eps=1e-5, shift=0):
+    """#1's bf16 form, step by step in fp32 with the JAX kernel's roundings
+    (`_attn_half_bf16_rows`): z (B, H, W, C) bf16 from a bf16 x and the fp32
+    parameters, in x's frame."""
+    b, hh, ww, c = x.shape
+    t = _roll(x.float(), -shift).reshape(-1, c)
+    z, *_ = _attn_half_bf16_rows(t, g, be, wq, bq, wp, bp, bias, _row_scale(s, b, hh * ww), b,
+                                 hh, ww, num_heads, head_dim, window_size, eps)
+    return _roll(z.reshape(b, hh, ww, c), shift).to(torch.bfloat16)
+
+
+def fused_attn_block_bwd_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads,
+                                        head_dim, window_size, eps=1e-5, shift=0):
+    """#6's bf16 form, step by step in fp32 with the JAX kernel's roundings:
+    dx = bf16(dout + LN'(dy)) and the fp32 gradients of g, be, wq, bq, wp,
+    bp and the kind table, as `fused_attn_block_bwd_reference` orders them.
+    P and att are recomputed as the forward computes them (P in fp32: dv
+    takes bf16(P), dS the fp32 P), dz = dout s in fp32."""
+    b, hh, ww, c = x.shape
+    ws, tokens, srow = window_size, b * hh * ww, _row_scale(s, b, hh * ww)
+
+    def rows(u):
+        return _roll(u.float(), -shift).reshape(tokens, -1)
+
+    t, do = rows(x), rows(dout)
+    _, p, att, y, heads = _attn_half_bf16_rows(t, g, be, wq, bq, wp, bp, bias, srow, b, hh, ww,
+                                               num_heads, head_dim, ws, eps)
+    dt, *grads = _attn_half_bwd_bf16_rows(t, do, p, att, y, heads, g, wq, wp, srow,
+                                          bias.shape[0], b, hh, ww, num_heads, head_dim, ws, eps)
+    dx = _roll(dt.reshape(b, hh, ww, c), shift)
+    return (dx.to(torch.bfloat16), *grads)
+
+
+def _check_attn_bf16(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
+                     shift, dout=None):
+    """Limits, shapes, types and placement of the bf16 attention half's
+    operands (x and dout bf16, the parameters, kind table and s fp32);
+    returns wq and wp cast to bf16. Outside `attn_block_bf16_fits` it
+    raises, naming the limits."""
+    b, hh, ww, c = x.shape
+    if not attn_block_bf16_fits(hh, ww, window_size, c, num_heads):
+        raise ValueError(
+            f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, ws={window_size} is outside "
+            f"the bf16 kernels' limits (12x12 windows, heads of at most {V_LD} channels, C <= "
+            f"{ROWS_MAX_C} and a multiple of 4)")
+    _check_attn_operands(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                         window_size, shift, attn_block_bf16_fits, xdtype=torch.bfloat16)
+    if dout is not None:
+        _check_cuda("dout", dout, tuple(x.shape), x.device, torch.bfloat16)
+    wq, wp = wq.to(torch.bfloat16), wp.to(torch.bfloat16)
+    _check_aligned(name, x=x, g=g, be=be, wq=wq, bq=bq, wp=wp, bp=bp, bias=bias,
+                   **({} if dout is None else {"dout": dout}))
+    return wq, wp
+
+
+def fused_attn_block_bf16(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
+                          eps=1e-5, shift=0):
+    """#1's bf16 form at 12x12 windows: z (B, H, W, C) bf16 of a bf16 x from
+    the fp32 parameters, as `fused_attn_block_bf16_reference` computes it.
+    On a CUDA tensor it casts wq and wp to bf16 and launches
+    `trr_attn_block_fwd_bf16` (one counted call, four launches: #4's
+    attention stages at n 144); on a CPU tensor it runs the plain version.
+    Outside `attn_block_bf16_fits` a CUDA tensor raises."""
+    if x.device.type == "cpu":
+        return fused_attn_block_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads,
+                                               head_dim, window_size, eps, shift)
+    name = "fused_attn_block_bf16"
+    wq, wp = _check_attn_bf16(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                              window_size, shift)
+    b, hh, ww, c = x.shape
+    z = torch.empty_like(x)
+    if z.numel() == 0:
+        return z
+    T = b * hh * ww  # the stages pass LN1(x), qkv and att through (T, C), (T, 3C), (T, C)
+    y, qkv, att = (torch.empty((T, k), device=x.device, dtype=torch.bfloat16)
+                   for k in (c, 3 * c, c))
+    fused_attn_block_bf16.launches += 1
+    _launch(
+        "fused_block_train", "trr_attn_block_fwd_bf16", x.device,
+        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, z)),
+        b, hh, ww, c, num_heads, window_size, bias.shape[0], shift, eps, head_dim**-0.5,
+    )
+    return z
+
+
+def fused_attn_block_backward_bf16(x, g, be, wq, bq, wp, bp, bias, s, dout, num_heads, head_dim,
+                                   window_size, eps=1e-5, shift=0):
+    """#6's bf16 form at 12x12 windows: dx (bf16) and the fp32 gradients of
+    g, be, wq, bq, wp, bp and the kind table from the bf16 x and dout, as
+    `fused_attn_block_bwd_bf16_reference` computes them. On a CUDA tensor it
+    launches `trr_attn_block_bwd_bf16` (one counted call: the recompute
+    window attention writing att, the per-token stages, two weight
+    gradients, dbias); on a CPU tensor it runs the plain version."""
+    if x.device.type == "cpu":
+        return fused_attn_block_bwd_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, dout,
+                                                   num_heads, head_dim, window_size, eps, shift)
+    name = "fused_attn_block_backward_bf16"
+    wqh, wph = _check_attn_bf16(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim,
+                                window_size, shift, dout)
+    b, hh, ww, c = x.shape
+    ws, n, kinds, dev, T = window_size, window_size**2, bias.shape[0], x.device, b * hh * ww
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    y, dzp, datt, att = (new(T, c, dtype=torch.bfloat16) for _ in range(4))
+    qkv, dqkv = new(T, 3 * c, dtype=torch.bfloat16), new(T, 3 * c, dtype=torch.bfloat16)
+    stats, ds = new(T, 2), new(b, hh // ws, ww // ws, num_heads, n, n)
+    ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
+    part = new(max(_part_floats(T, c, c), _part_floats(T, c, 3 * c)))
+    dx, dln, dbias = torch.empty_like(x), new(2 * c), new(kinds, num_heads, n, n)
+    dq, dp = new(c * 3 * c + 3 * c), new(c * c + c)
+    fused_attn_block_backward_bf16.launches += 1
+    _launch(
+        "fused_block_train", "trr_attn_block_bwd_bf16", dev,
+        *(t.data_ptr() for t in (x, g, be, wqh, bq, wph, bias, s, dout, y, stats, dzp, datt, qkv,
+                                 dqkv, att, ds, ln_part, part, dx, dln, dq, dp, dbias)),
+        b, hh, ww, c, num_heads, ws, kinds, shift, eps, head_dim**-0.5,
+    )
+    return (dx, *dln.split(c), *_split_grad(dq, c, 3 * c), *_split_grad(dp, c, c), dbias)
+
+
+fused_attn_block_bf16.launches = 0
+fused_attn_block_backward_bf16.launches = 0
 
 
 def _check_train_shapes(x, w1, kinds, num_heads, head_dim, window_size, shift, name):
