@@ -5,8 +5,9 @@ training on pairs degraded on the fly (Real-ESRGAN OTF), the training
 form of the Swin attention half that saves P, SwinIR-M 4x GAN training
 with the DUnet discriminator (swinir_m_gan.yml), and bf16 training as
 the fidelity templates of SwinIR-M, HAT-M, DAT, SwinIR-L and SRFormerV2,
-the GAN templates of SwinIR-M, HAT-M, DAT and SRFormerV2 and the OTF
-template of SwinIR-M ship it.
+the GAN templates of SwinIR-M, HAT-M, DAT and SRFormerV2, the OTF
+template of SwinIR-M, and Swin2SR's fidelity, GAN and OTF templates ship
+it.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -294,6 +295,31 @@ failure:
              launches a step; one step profiled into the degradation and
              the optimizer step, peak memory.
 
+54. swin2sr bf16 kernels - the bf16 forms of #11-#14 (csrc/fused_block_v2.cu's
+             trr_cos_attn_fwd_bf16 / _bwd_bf16 and trr_pn_mlp_fwd_bf16 /
+             _bwd_bf16) at Swin2SR-M's training block as its template ships
+             it (B=8, 48x48, C 180, 6 heads of 30, hidden 360, DropPath
+             scales holding 0 and 1/0.9) and at Swin2SR-L's (C 240, 8 heads,
+             hidden 480), K=1 and K=4 shifted by 4, and at Swin2SR-S's (C 60)
+             K=4 for correctness, on bf16 x and dout with fp32 parameters:
+             against their bf16 plain versions and float64 (phase 45's
+             limits), two runs bit for bit, timed beside the fp32 forms with
+             the bf16 bound; split by stage at M's and L's K=4.
+55. swin2sr bf16 train - `train.run` of swin2sr_m_fidelity.yml as shipped
+             (bf16, batch 8 of 48x48 LR, L1 + MS-SSIM, its validation), 30
+             steps, counting 36 launches a step of each of #11-#14's bf16
+             forms and none of any fp32 training form; the fp32 twin's
+             validation (#11/#13); the EMA checkpoint served; then one step
+             profiled (device ms, busy share, peak memory).
+56. swin2sr bf16 branches - one bf16 step of Swin2SR-M through the bf16
+             forms, their bf16 plain versions on the card and the fp32
+             forms: the losses within BF16_BRANCH_LOSS_TOL, the gradients'
+             L2 distance from fp32 within BF16_BRANCH_RATIO of the plain
+             versions'; two deterministic bf16 steps twice, bit for bit.
+57. swin2sr bf16 templates - six bf16 steps each of swin2sr_l_fidelity.yml,
+             swin2sr_m_gan.yml and swin2sr_m_otf.yml less its MS-SSIM, as
+             shipped: every log finite, each step's bf16 launches counted.
+
 Each phase prints its seconds, and the run its total. Then one JSON line
 of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -413,6 +439,10 @@ REPLACES = {
     "fused_ln_mlp_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
     "fused_attn_block_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:693",
     "fused_attn_block_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block.py:729",
+    "fused_cos_attn_block_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:338",
+    "fused_cos_attn_block_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:373",
+    "fused_postnorm_mlp_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:529",
+    "fused_postnorm_mlp_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:556",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -450,6 +480,10 @@ SOURCES = {
     "fused_ln_mlp_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_attn_block_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_attn_block_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_cos_attn_block_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_cos_attn_block_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_postnorm_mlp_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_postnorm_mlp_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
@@ -462,7 +496,8 @@ SOURCES = {
 # counted in the bf16 runs of hat_m_fidelity.yml (ws 16, the MLP halves),
 # dat_fidelity.yml (rect) and swinir_l_fidelity.yml ("_ws8": 8x8 at C 240;
 # phases 46-48); #1/#6's bf16 forms ("fused_attn_block_bf16" and its
-# backward, 12x12) in the bf16 run of srformerv2_fidelity.yml (phase 51)
+# backward, 12x12) in the bf16 run of srformerv2_fidelity.yml (phase 51);
+# #11-#14's bf16 forms in the bf16 run of swin2sr_m_fidelity.yml (phase 55)
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -666,8 +701,11 @@ def stage_of(kernel: str) -> str:
     post-norm forwards' row pass, x + s LN(rows). The bf16 forms of #4 and
     #5 (csrc/tc_rows_bf16.cuh, csrc/tc_attn.cuh, csrc/fused_block_train.cu)
     run the same stages under `_bf16_` names, their epilogue mode the second
-    template argument of linear_bf16_kernel and rows_bf16_kernel."""
-    for part, stage in (("ln_rows_bf16_kernel", "LN rows"),
+    template argument of linear_bf16_kernel and rows_bf16_kernel (1 in #12's
+    and #14's bf16 dx); #11's and #13's bf16 post-norm row pass is
+    postnorm_rows_bf16_kernel."""
+    for part, stage in (("postnorm_rows_bf16_kernel", "post-norm rows"),
+                        ("ln_rows_bf16_kernel", "LN rows"),
                         ("mlp_hidden_bf16_kernel", "fc1 and dh"),
                         ("attn_rows_fwd_bf16_kernel", "window attention forward"),
                         ("attn_rows_bwd_bf16_kernel", "window attention"),
@@ -676,7 +714,8 @@ def stage_of(kernel: str) -> str:
         if part in kernel:
             return stage
     for part, modes in (("linear_bf16_kernel<", {"2": "x + s (A W + b)"}),
-                        ("rows_bf16_kernel<", {"0": "datt", "2": "dy and the LN backward"})):
+                        ("rows_bf16_kernel<", {"0": "datt", "1": "dx = dout + A W^T",
+                                               "2": "dy and the LN backward"})):
         if part in kernel:
             mode = kernel.split(part, 1)[1].split(">", 1)[0].split(",")[1].strip()
             return modes.get(mode, "x W + b")
@@ -1038,6 +1077,10 @@ def _wrappers() -> dict:
         "fused_cos_attn_block_backward": v2.fused_cos_attn_block_backward,
         "fused_postnorm_mlp": v2.fused_postnorm_mlp,
         "fused_postnorm_mlp_backward": v2.fused_postnorm_mlp_backward,
+        "fused_cos_attn_block_bf16": v2.fused_cos_attn_block_bf16,
+        "fused_cos_attn_block_backward_bf16": v2.fused_cos_attn_block_backward_bf16,
+        "fused_postnorm_mlp_bf16": v2.fused_postnorm_mlp_bf16,
+        "fused_postnorm_mlp_backward_bf16": v2.fused_postnorm_mlp_backward_bf16,
         "jpeg_block_transform": jk.jpeg_block_transform,
     }
 
@@ -2060,40 +2103,43 @@ def phase_dat_path(seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def v2_flops(tokens: int) -> dict[str, float]:
-    """Operations of the post-norm halves at 8x8 windows. #11: qkv, cos and
-    P v, proj. #12 recomputes them and takes datt, dwp, dv, dP, dq^, dk^,
-    dwq and dx (24 T C^2 + 12 T n C in all). #13: fc1 and fc2. #14
-    recomputes both and takes dhg, dx, dw2 and dw1."""
+def v2_flops(tokens: int, c: int = C, hidden: int = HIDDEN) -> dict[str, float]:
+    """Operations of the post-norm halves at 8x8 windows (Swin2SR-M's widths
+    unless said). #11: qkv, cos and P v, proj. #12 recomputes them and takes
+    datt, dwp, dv, dP, dq^, dk^, dwq and dx (24 T C^2 + 12 T n C in all).
+    #13: fc1 and fc2. #14 recomputes both and takes dhg, dx, dw2 and dw1."""
     t = tokens
     return {
-        "fused_cos_attn_block": 8 * t * C * C + 4 * t * N * C,
-        "fused_cos_attn_block_backward": 24 * t * C * C + 12 * t * N * C,
-        "fused_postnorm_mlp": 4 * t * C * HIDDEN,
-        "fused_postnorm_mlp_backward": 12 * t * C * HIDDEN,
+        "fused_cos_attn_block": 8 * t * c * c + 4 * t * N * c,
+        "fused_cos_attn_block_backward": 24 * t * c * c + 12 * t * N * c,
+        "fused_postnorm_mlp": 4 * t * c * hidden,
+        "fused_postnorm_mlp_backward": 12 * t * c * hidden,
     }
 
 
-def v2_inputs(gen, kinds: int, device, shape):
-    """Seeded unit-scale operands of one Swin2SR-M block: `block_inputs`'
-    weights, temperatures exp(min(logit, log 100)) between 1 and 100, and a
-    kind table of 16 * sigmoid values (plus the shift masks at K=4)."""
+def v2_inputs(gen, kinds: int, device, shape, widths=(C, NH, WS, HIDDEN)):
+    """Seeded unit-scale operands of one Swin2SR block (Swin2SR-M's unless
+    `widths` gives others): `block_inputs`' weights, temperatures
+    exp(min(logit, log 100)) between 1 and 100, and a kind table of 16 *
+    sigmoid values (plus the shift masks at K=4)."""
     import torch
 
     from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
 
-    x, p, _, _ = block_inputs(gen, 1, device, shape)
-    p["scale"] = torch.exp(torch.rand(NH, generator=gen) * 4.6).to(device)
-    bias = (16.0 * torch.sigmoid(torch.randn(NH, N, N, generator=gen))).to(device)[None]
+    nh = widths[1]
+    x, p, _, _ = block_inputs(gen, 1, device, shape, widths)
+    p["scale"] = torch.exp(torch.rand(nh, generator=gen) * 4.6).to(device)
+    bias = (16.0 * torch.sigmoid(torch.randn(nh, N, N, generator=gen))).to(device)[None]
     if kinds == 4:
         bias = bias + torch.from_numpy(shift_mask_kinds(WS, WS // 2)).to(device)[:, None]
     return x, p, bias.contiguous()
 
 
-def postnorm_half_f64(name: str, x, p: dict, bias, s, shift: int):
-    """#11's (fused_cos_attn_block) or #13's (fused_postnorm_mlp) function in
-    float64, on the operands of `v2_inputs` and DropPath scales s: the
-    yardstick of the kernel's and of the plain version's accuracy."""
+def postnorm_half_f64(name: str, x, p: dict, bias, s, shift: int, nh: int = NH):
+    """#11's (fused_cos_attn_block, nh heads) or #13's (fused_postnorm_mlp)
+    function in float64, on the operands of `v2_inputs` and DropPath scales
+    s: the yardstick of the kernel's and of the plain version's accuracy
+    (differentiable in float64 leaves)."""
     import torch
     import torch.nn.functional as F
 
@@ -2105,10 +2151,10 @@ def postnorm_half_f64(name: str, x, p: dict, bias, s, shift: int):
         g, be = d["g2"], d["be2"]
     else:
         qkv = (t @ d["wq"] + d["bq"]).reshape(b, h, w, 3 * c)
-        q, k, v, mask = sdpa_windows(qkv, bias.double(), WS, WS, bias.shape[0])
+        q, k, v, mask = sdpa_windows(qkv, bias.double(), WS, WS, bias.shape[0], nh, c // nh)
         q, k = F.normalize(q, dim=-1, eps=1e-12), F.normalize(k, dim=-1, eps=1e-12)
         pw = torch.softmax(q @ k.transpose(-1, -2) * d["scale"][:, None, None] + mask, dim=-1)
-        m = from_windows(pw @ v, b, h, w, WS, WS).reshape(-1, c) @ d["wp"] + d["bp"]
+        m = from_windows(pw @ v, b, h, w, WS, WS, nh, c // nh).reshape(-1, c) @ d["wp"] + d["bp"]
         g, be = d["g"], d["be"]
     out = t + s.double().repeat_interleave(h * w)[:, None] * F.layer_norm(m, (c,), g, be, 1e-5)
     return torch.roll(out.reshape(x.shape), (shift, shift), (1, 2))
@@ -3523,16 +3569,21 @@ def swin_block_f64(ops, s1, s2, shift: int):
             unroll(z))
 
 
-def check_bf16(tag: str, what: str, got, want) -> tuple[float, float]:
+def check_bf16(tag: str, what: str, got, want, hold_max: bool = True) -> tuple[float, float]:
     """A bf16 form's output or gradient against its bf16 plain version:
     within BF16_TOL of the tensor's largest, at most BF16_FAR_SHARE of the
     elements beyond one bf16 step of it; returns the largest error and that
-    over the tensor's largest."""
+    over the tensor's largest. Without `hold_max` the largest is printed and
+    only the share held (see phase 54)."""
     g, w = got.float(), want.float()
     top = w.abs().max().item()
     err = (g - w).abs()
     rel, far = err.max().item() / top, (err > BF16_STEP * top).float().mean().item()
-    if got.dtype != want.dtype or not (rel <= BF16_TOL and far <= BF16_FAR_SHARE):
+    if not hold_max and rel > BF16_TOL:
+        say(f"[{tag}] {what}: {rel:.3g} of its largest (printed, not held), {far:.3g} of the "
+            f"elements beyond one bf16 step (tol {BF16_FAR_SHARE})")
+    held = rel if hold_max else 0.0
+    if got.dtype != want.dtype or not (held <= BF16_TOL and far <= BF16_FAR_SHARE):
         fail(f"[{tag}] {what}: {rel:.3g} of its largest (tol {BF16_TOL}), {far:.3g} of the "
              f"elements beyond one bf16 step (tol {BF16_FAR_SHARE}); dtypes {got.dtype}, "
              f"{want.dtype}")
@@ -3853,13 +3904,18 @@ class _PlainBf16Block:
 def bf16_plain_versions(network: str):
     """For the body, the bf16 forms that `network`'s training step runs are
     replaced by their bf16 plain versions, on the card: #4/#5's for
-    SwinIR-M, #3/#8's and #2/#7's for the others."""
+    SwinIR-M, #11-#14's for Swin2SR-M, #3/#8's and #2/#7's for the others."""
     from trainner_redux_tpu_torch.archs import swinir_arch
     from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     if network == "swinir_m":
         patches = [(swinir_arch, "fused_swin_block_train", _PlainBf16Block(fb))]
+    elif network == "swin2sr_m":
+        patches = [(v2, f"{half}{part}_bf16", getattr(v2, f"{half}{ref}_bf16_reference"))
+                   for half in ("fused_cos_attn_block", "fused_postnorm_mlp")
+                   for part, ref in (("", ""), ("_backward", "_bwd"))]
     else:
         patches = [(mod, name, getattr(mod, ref)) for mod, name, ref in (
             (wa, "fused_window_mhsa_bf16", "fused_window_mhsa_bf16_reference"),
@@ -3883,7 +3939,7 @@ def phase_bf16_branches(seed: int, network: str = "swinir_m", label: str = "Swin
                         kernel_step: dict[str, int] = BF16_TRAIN_STEP,
                         fp32_step: dict[str, int] | None = None,
                         tensor_check: bool = True) -> None:
-    """44 (and 49). One bf16 step of `template`'s network (SwinIR-M: batch 8
+    """44 (and 49, 56). One bf16 step of `template`'s network (SwinIR-M: batch 8
     of 48x48 LR, L1 + MS-SSIM) from equal weights, DropPath generators and
     batch, through the bf16 kernels (`kernel_step` launches), through their
     bf16 plain versions on the card (`bf16_plain_versions`; everything else
@@ -4495,8 +4551,9 @@ def phase_bf16_gan(seed: int) -> None:
                           per_step=per_step, detail=False)
 
 
-def otf_bf16_options(name: str, hr_dir: Path, seed: int):
-    """configs/_templates/train/SwinIR/swinir_m_otf.yml as shipped (bf16,
+def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF16_TEMPLATE):
+    """`template`, configs/_templates/train/SwinIR/swinir_m_otf.yml unless
+    said, as shipped (bf16,
     batch 8 of gt_size 128, the template's degradation, DUnet, L1 +
     perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA 0.999) with one
     cut, its MS-SSIM (five scales need 161-pixel sides: gt_size 128 raises
@@ -4507,7 +4564,7 @@ def otf_bf16_options(name: str, hr_dir: Path, seed: int):
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
 
-    raw = yaml.safe_load(OTF_BF16_TEMPLATE.read_text())
+    raw = yaml.safe_load(template.read_text())
     raw.update(name=name, manual_seed=seed, num_gpu=1, path={})
     raw["datasets"] = {"train": {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir),
                                  "io_backend": {"type": "disk"}}}
@@ -4559,6 +4616,244 @@ def phase_otf_bf16(seed: int, hr_dir: Path) -> dict[str, int]:
     say(f"[otf bf16 profile] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB over the profile's six steps")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# 54-57. bf16 Swin2SR: the bf16 forms of #11-#14
+# ---------------------------------------------------------------------------
+
+S2_TEMPLATES = TEMPLATES / "Swin2SR"
+S2_BF16_STEP = {k: SWIN2SR_BLOCKS for k in (
+    "fused_cos_attn_block_bf16", "fused_cos_attn_block_backward_bf16", "fused_postnorm_mlp_bf16",
+    "fused_postnorm_mlp_backward_bf16")}
+S2_FP32_STEP = {k.removesuffix("_bf16"): v for k, v in S2_BF16_STEP.items()}
+# phase 55's run: as BF16_RUNS's (template, network, label, a step's bf16
+# launches, the fp32 twin's launches an image)
+S2_BF16_RUN = (S2_TEMPLATES / "swin2sr_m_fidelity.yml", "swin2sr_m", "Swin2SR-M", S2_BF16_STEP,
+               {"fused_cos_attn_block": SWIN2SR_BLOCKS, "fused_postnorm_mlp": SWIN2SR_BLOCKS})
+# phase 54's blocks: (label, (C, heads, window, hidden), the Ks, timed and
+# split); None: Swin2SR-S at every temperature 10, the templates' start
+S2_BF16_BLOCKS = (("Swin2SR-S", (60, 6, WS, 120), (4,), False),
+                  ("Swin2SR-S", (60, 6, WS, 120), (4,), None),
+                  ("Swin2SR-L", (240, 8, WS, 480), (1, 4), True),
+                  ("Swin2SR-M", (C, NH, WS, HIDDEN), (1, 4), True))
+S2_BF16_KERNELS = {
+    "fused_cos_attn_block": (STAGES_11, ("linear_bf16_kernel", "cos_attn_rows_fwd_bf16_kernel",
+                                         "postnorm_rows_bf16_kernel")),
+    "fused_cos_attn_block_backward": (STAGES_12, (
+        "cos_attn_rows_fwd_bf16_kernel", "postnorm_ln_rows_kernel<__nv_bfloat16>",
+        "cos_attn_bwd_tc_kernel<__nv_bfloat16>", "atb_bf16_kernel", "rows_bf16_kernel")),
+    "fused_postnorm_mlp": (STAGES_13, ("linear_bf16_kernel", "postnorm_rows_bf16_kernel")),
+    "fused_postnorm_mlp_backward": (STAGES_14, (
+        "postnorm_ln_rows_kernel<__nv_bfloat16>", "mlp_hidden_bf16_kernel", "atb_bf16_kernel",
+        "rows_bf16_kernel")),
+}
+
+
+def phase_swin2sr_bf16_kernels() -> dict:
+    """54. #11-#14's bf16 forms at Swin2SR's training blocks as the templates
+    ship them (B=8, 48x48 LR, DropPath scales holding 0 and 1/0.9;
+    temperatures between 1 and 100): Swin2SR-S (C 60) K=4 for correctness
+    (also at every temperature 10), Swin2SR-L (C 240, 8 heads, hidden 480) and
+    Swin2SR-M (C 180) K=1 and K=4 shifted by 4, on bf16 x and dout with the
+    fp32 parameters: each output and gradient against its bf16 plain version
+    (`check_bf16`) and, with it, against float64 of the same bf16 inputs
+    (the weights rounded to bf16, as the forms take them; `bf16_f64_check`);
+    two runs of each bit for bit; at L and M timed beside the plain versions
+    and the fp32 forms with the bf16 bound and its share, and split by stage
+    at K=4 (each stage split fails unless the form's bf16 kernels ran). The
+    JSON line keeps Swin2SR-M's K=4."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+    from trainner_redux_tpu_torch.ops.window_attention import _bf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(54)
+    res: dict[str, dict] = {}
+    tag = "swin2sr bf16 kernels"
+    s = torch.full((TB,), 1.0 / 0.9, device=dev)
+    s[2] = 0.0
+    shape = (TB, S2_LQ, S2_LQ)
+    halves = {
+        "fused_cos_attn_block": (("x", "wq", "bq", "scale", "wp", "bp", "g", "be", "bias"),
+                                 ("wq", "wp")),
+        "fused_postnorm_mlp": (("x", "w1", "b1", "w2", "b2", "g2", "be2"), ("w1", "w2")),
+    }
+    for preset, widths, ks, timed_split in S2_BF16_BLOCKS:
+        c, nh, _, hidden = widths
+        flops = v2_flops(TB * S2_LQ * S2_LQ, c, hidden)
+        # Swin2SR-S's rows of 10 channels at temperatures up to 100: a q^ or
+        # k^ entry that the kernel and its plain version round to bf16 apart
+        # (a tie, their fp32 norms summed in other orders) moves a logit by
+        # up to 100 bf16 steps of cos, so single elements of #12's dx move
+        # past BF16_TOL (1.7% of its largest, measured) while the share of
+        # elements past one bf16 step and the float64 check hold: there the
+        # largest is printed and not held; at every temperature 10, the
+        # templates' start, it is held
+        hold_max, temps10, timed = timed_split is not False, timed_split is None, bool(timed_split)
+        for kinds in ks:
+            shift = WS // 2 if kinds == 4 else 0
+            label = f"{preset} K={kinds} shift {shift}"
+            x32, p, bias = v2_inputs(gen, kinds, dev, shape, widths)
+            if temps10:
+                p["scale"] = torch.full_like(p["scale"], 10.0)
+                label += ", temperatures 10"
+            ops = {**p, "x": x32.bfloat16(), "bias": bias}
+            dout = torch.randn(*shape, c, generator=gen).to(dev).bfloat16()
+            for name, (keys, weights) in halves.items():
+                args = [ops[k] for k in keys]
+                meta = (nh, c // nh, WS, 1e-5, shift) if name == "fused_cos_attn_block" else (
+                    WS, 1e-5)
+                form, back = getattr(v2, f"{name}_bf16"), getattr(v2, f"{name}_backward_bf16")
+                ref = getattr(v2, f"{name}_bf16_reference")
+                bref = getattr(v2, f"{name}_bwd_bf16_reference")
+
+                def fwd(form=form, args=args, meta=meta):
+                    return form(*args, s, *meta)
+
+                def bwd(back=back, args=args, meta=meta):
+                    return back(*args, s, dout, *meta)
+
+                try:
+                    got, again, grads, grads2 = fwd(), fwd(), bwd(), bwd()
+                    torch.cuda.synchronize()
+                except Exception as e:  # noqa: BLE001 - report and fail the phase
+                    fail(f"{name}_bf16 / _backward_bf16 {label}: {e}")
+                want, plain_grads = ref(*args, s, *meta), bref(*args, s, dout, *meta)
+                fwd_err = check_bf16(tag, f"{name}_bf16 {label} out", got, want, hold_max)
+                bwd_err = [check_bf16(tag, f"{name}_backward_bf16 {label} d{k}", g, w, hold_max)
+                           for k, g, w in zip(keys, grads, plain_grads)]
+                if not torch.equal(got, again) or not all(
+                        torch.equal(a, b) for a, b in zip(grads, grads2)):
+                    fail(f"{name}_bf16 / _backward_bf16 {label}: two runs differ")
+                if got.dtype != torch.bfloat16 or grads[0].dtype != torch.bfloat16:
+                    fail(f"{name} {label}: out {got.dtype}, dx {grads[0].dtype}, expected bf16")
+                leaves = {k: (_bf(ops[k]) if k in weights else ops[k]).double().requires_grad_()
+                          for k in keys}
+                exact = postnorm_half_f64(name, leaves["x"], leaves, leaves.get("bias"), s, shift,
+                                          nh)
+                exact_g = torch.autograd.grad(exact, list(leaves.values()), dout.double())
+                ratio = max([bf16_f64_check(tag, f"{name}_bf16 {label} out", got, want,
+                                            exact.detach())]
+                            + [bf16_f64_check(tag, f"{name}_backward_bf16 {label} d{k}", g, w, e)
+                               for k, g, w, e in zip(keys, grads, plain_grads, exact_g)])
+                del exact, exact_g, leaves
+                say(f"[{tag}] {name} {label}: bf16 forward within {fwd_err[1]:.3g} of its "
+                    f"largest, backward within {max(e[1] for e in bwd_err):.3g} of each "
+                    f"gradient's; against float64 at most {ratio:.3f}x the plain versions' "
+                    "error; two runs of each bit for bit")
+                if not timed:
+                    continue
+                fwd_bytes = nbytes(*args, s, got)
+                bwd_bytes = nbytes(*args, s, dout, *grads)
+                args32 = [args[0].float(), *args[1:]]
+                bf16_record(res, tag, f"{name}_bf16", label, fwd,
+                            lambda ref=ref, args=args, meta=meta: ref(*args, s, *meta),
+                            lambda name=name, args32=args32, meta=meta: getattr(v2, name)(
+                                *args32, s, *meta),
+                            None, flops[name], fwd_bytes, *fwd_err)
+                bf16_record(res, tag, f"{name}_backward_bf16", label, bwd,
+                            lambda bref=bref, args=args, meta=meta: bref(*args, s, dout, *meta),
+                            lambda name=name, args32=args32, meta=meta: getattr(
+                                v2, f"{name}_backward")(*args32, s, dout.float(), *meta),
+                            None, flops[f"{name}_backward"], bwd_bytes,
+                            max(e[0] for e in bwd_err), max(e[1] for e in bwd_err))
+                if kinds == 4:
+                    for part, fn, nb in (("", fwd, fwd_bytes), ("_backward", bwd, bwd_bytes)):
+                        stages, kernels = S2_BF16_KERNELS[f"{name}{part}"]
+                        stage_split(tag, f"{name}{part}_bf16 {label}", fn, flops[f"{name}{part}"],
+                                    nb, res[f"{name}{part}_bf16"]["ms"], stages, kernels=kernels,
+                                    bf16=True)
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_swin2sr_bf16_train(seed: int) -> dict[str, int]:
+    """55. `train.run` of swin2sr_m_fidelity.yml as shipped (bf16, batch 8
+    of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its validation), 30
+    steps: 36 launches a step of each of #11-#14's bf16 forms and none of any
+    fp32 training form; every log finite; the validation through the fp32
+    twin (on #11/#13); the EMA checkpoint served with the strict load. Then
+    one step profiled (phase 43's: device ms, busy share, peak memory)."""
+    template, network, label, per_step, per_image = S2_BF16_RUN
+    tag = "swin2sr bf16 train"
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    val_hr, val_lr = make_dataset(OUT / "data", seed)
+    opt = fidelity_options("swin2sr_m_x4_fidelity_bf16", hr_dir, lr_dir, seed, (val_hr, val_lr),
+                           template=template)
+    serving = {k: v * N_IMAGES for k, v in per_image.items()}
+    counts = phase_train(seed, network, f"{label} bf16 ({template.name})", tag,
+                         per_step=per_step, serve_want=serving, lq=FID_LQ, losses=FID_LOSSES,
+                         opt=opt, more_launches=lambda: serving, check=bf16_train_check(tag))
+    phase_bf16_profile(seed, template, "swin2sr_m_x4_bf16_profile", per_step,
+                       "swin2sr bf16 profile", "profile_swin2sr_bf16_train.txt")
+    return counts
+
+
+def six_bf16_steps(tag: str, opt, batch, per_step: dict[str, int]) -> None:
+    """Six steps of `opt`'s model from `batch` (for OTF, raw GT and kernels
+    that `feed_data` degrades): the model computes in bf16, every log of
+    every step is finite, and each step launches `per_step` of the
+    hand-written training kernels (OTF's #15 launches counted apart)."""
+    import math
+
+    import torch
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    model = build_model(opt, device="cuda")
+    if model.net_g.compute_dtype != torch.bfloat16:
+        fail(f"[{tag}] G computes in {model.net_g.compute_dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logs = []
+    for i in range(6):
+        model.feed_data(batch)
+        model.optimize_parameters(i + 1)
+        logs.append({k: float(v) for k, v in model.log_dict.items()})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 6 * 1e3
+    bad = [(i + 1, k) for i, log in enumerate(logs) for k, v in log.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"[{tag}] logs not finite at (step, key) {bad}")
+    counts = read_counts()
+    jpeg = counts.pop("jpeg_block_transform")
+    check_counts(f"{tag} six steps", counts, {k: 6 * v for k, v in per_step.items()})
+    say(f"[{tag}] six bf16 steps, {ms:.1f} ms a step (host clock, the model's build left "
+        "out), "
+        f"every log finite; l_g_total {logs[0]['l_g_total']:.5f} -> {logs[-1]['l_g_total']:.5f}; "
+        f"{jpeg} #15 launches; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_swin2sr_bf16_templates(seed: int) -> None:
+    """57. Six bf16 steps each of swin2sr_l_fidelity.yml (Swin2SR-L, C 240:
+    54 launches a step of each bf16 form), swin2sr_m_gan.yml (DUnet in bf16)
+    and swin2sr_m_otf.yml less its MS-SSIM (`otf_bf16_options`), as shipped:
+    every log finite, the bf16 launches of each step counted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fid = {"lq": rng.integers(0, 256, (TB, FID_LQ, FID_LQ, 3), dtype=np.uint8),
+           "gt": rng.integers(0, 256, (TB, 4 * FID_LQ, 4 * FID_LQ, 3), dtype=np.uint8)}
+    l_step = {k: 54 for k in S2_BF16_STEP}
+    six_bf16_steps("swin2sr_l_fidelity bf16", fidelity_options(
+        "swin2sr_l_x4_bf16_six", OUT, OUT, seed, template=S2_TEMPLATES / "swin2sr_l_fidelity.yml"),
+        fid, l_step)
+    gan_vgg_line("swin2sr_m_gan bf16")
+    gan = gan_options("swin2sr_m_gan_bf16_six", OUT, OUT, seed,
+                      template=S2_TEMPLATES / "swin2sr_m_gan.yml", as_shipped=True)
+    six_bf16_steps("swin2sr_m_gan bf16", gan,
+                   gan_batch(seed, gan.datasets["train"].batch_size_per_gpu), S2_BF16_STEP)
+    hr_dir, _ = make_dataset(OUT / "otf_data", seed, ((128, 128),) * 16)
+    otf = otf_bf16_options("swin2sr_m_x4_otf_bf16_six", hr_dir, seed,
+                           template=S2_TEMPLATES / "swin2sr_m_otf.yml")
+    six_bf16_steps("swin2sr_m_otf bf16", otf, otf_batch(otf, seed), S2_BF16_STEP)
+    shutil.rmtree(OUT / "otf_data")
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -4684,6 +4979,14 @@ def main() -> None:
     hr_dir, _ = make_dataset(OUT / "otf_data", seed, ((128, 128),) * 16)
     timed("otf bf16", phase_otf_bf16, seed, hr_dir)
     shutil.rmtree(OUT / "otf_data")
+    kernels.update({k: v for k, v in timed("swin2sr bf16 kernels",
+                                           phase_swin2sr_bf16_kernels).items()})
+    s2_16 = timed("swin2sr bf16 train", phase_swin2sr_bf16_train, seed)
+    launches.update({k: s2_16[k] for k in S2_BF16_STEP})
+    timed("swin2sr bf16 branches", phase_bf16_branches, seed, "swin2sr_m", "Swin2SR-M",
+          S2_BF16_RUN[0], "swin2sr bf16 branches", S2_BF16_STEP, S2_FP32_STEP,
+          tensor_check=False)
+    timed("swin2sr bf16 templates", phase_swin2sr_bf16_templates, seed)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

@@ -23,13 +23,13 @@ bf16, TRAINNER_FUSED_BLOCK=interpret):
   parameters whose true gradient is 0 (a bias before a train-mode norm, a
   constant of the position bias) carry only that rounding: each within
   2^-5 of the largest gradient of all (bf16 moves a real gradient 3-17%);
-- the refusal that remains: bf16 training of Swin2SR (#11-#14), naming
-  what is missing; and what bf16 now builds where it was refused: a tiny
-  SRFormerV2, a GAN model with DUnet and the OTF model, each computing in
+- what bf16 now builds where it was refused: a tiny SRFormerV2, a GAN
+  model with DUnet, the OTF model and a tiny Swin2SR, each computing in
   bf16 on its bf16 kernel branch (the bf16 forms' calls counted on the
   CPU, where they run their plain versions: #1/#6 and #2/#7 for
   SRFormerV2's Swin blocks, #4/#5 for the tiny SwinIR of the GAN and OTF
-  models) and DUnet in bf16 (its features bf16, its logits fp32). Three
+  models, #11-#14 for Swin2SR's Swin2Blocks) and DUnet in bf16 (its
+  features bf16, its logits fp32). Three
   bf16 `SRModel` steps of each family are in
   tests/test_torch_bf16_family_steps.py.
 """
@@ -156,15 +156,33 @@ SRFORMER_NET = {"type": "srformerv2", "embed_dim": 32, "depths": [2], "num_heads
                 "window_size": 12, "squeeze_dim": 8, "num_feat": 16}
 
 
-@pytest.mark.parametrize(("extra", "match"), [
-    ({"network_g": SWIN2SR_NET}, "of Swin2SR .*#11-#14 are not ported"),
-])
-def test_bf16_refusals_name_their_kernels(dataset, tmp_path, extra, match):  # noqa: F811
-    from trainner_redux_tpu_torch.models import build_model
+SWIN2SR_FORMS = ("fused_cos_attn_block_bf16", "fused_cos_attn_block_backward_bf16",
+                 "fused_postnorm_mlp_bf16", "fused_postnorm_mlp_backward_bf16")
 
-    _, opt = _opts(tmp_path, _config(dataset, compute_dtype="bfloat16", **extra))
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(opt, device="cpu")
+
+def test_bf16_swin2sr_builds_on_its_bf16_kernel_branch(dataset, tmp_path,  # noqa: F811
+                                                       monkeypatch):
+    """The bf16 Swin2SR that was refused (#11-#14 had no bf16 forms): built
+    from `compute_dtype: bfloat16`, its network computes in bf16 with no
+    refusal, both Swin2Blocks on the bf16 forms of #11-#14, once each way."""
+    from trainner_redux_tpu_torch.models import build_model
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as tv2
+
+    _, opt = _opts(tmp_path, _config(dataset, compute_dtype="bfloat16", network_g=SWIN2SR_NET))
+    model = build_model(opt, device="cpu")
+    assert model.net_g.compute_dtype == torch.bfloat16 and model.net_g.bf16_refusal() is None
+    counts = dict.fromkeys(SWIN2SR_FORMS, 0)
+    for name in SWIN2SR_FORMS:
+        def counted(*a, _real=getattr(tv2, name), _name=name, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(tv2, name, counted)
+    lq = torch.rand(1, 3, 24, 24, generator=torch.Generator().manual_seed(0))
+    out = model.net_g.train()(lq)
+    assert out.dtype == torch.float32
+    out.mean().backward()
+    assert counts == dict.fromkeys(SWIN2SR_FORMS, 2)
 
 
 GAN = {"network_d": {"type": "dunet", "num_feat": 8},

@@ -30,7 +30,9 @@ that lies at a rounding tie rounds one way in one and the other way in the
 other), gradients within 1e-2 of each tensor's largest. The same for the
 bf16 forms of #3/#8 (HAT-M's 16x16 windows, SwinIR-L's 8x8 at C 240, DAT's
 rect windows), of #2/#7 (HAT-M's MLP half) and of #1/#6 (SRFormerV2's Swin
-blocks at 12x12 windows, K=1 and K=4 shifted), each twice bit for bit.
+blocks at 12x12 windows, K=1 and K=4 shifted), each twice bit for bit; and
+of #11-#14 (Swin2SR's post-norm halves at SwinIR-M's widths, K=1 and K=4
+shifted, the MLP half also at Swin2SR-L's C 240 and Swin2SR-S's C 60).
 """
 
 import numpy as np
@@ -1420,3 +1422,120 @@ def test_bf16_ln_mlp_kernels(cuda, c, hidden):
              *fb.fused_ln_mlp_backward_bf16(x, *plain, s, dout, 16)) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("kinds", "shift", "shape"), [(1, 0, (B, H, W)),
+                                                       (4, WS // 2, (B, H, W)),
+                                                       (4, WS // 2, (1, 16, 40))])
+def test_bf16_cos_attn_block_kernels(cuda, kinds, shift, shape):
+    """#11's and #12's bf16 forms (bf16 x and dout, fp32 parameters) through
+    the autograd Function against their bf16 plain versions, each counted
+    once under its own name and no fp32 form launched; (1, 16, 40) leaves a
+    ragged last tile of 128 tokens; two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    p = _v2_inputs(cuda, kinds, shape=shape)
+    x = p["x"].bfloat16()
+    params = [p[k].clone().requires_grad_() for k in COS_NAMES[1:]]
+    s = p["s2"]
+    dout = torch.randn(*x.shape, generator=torch.Generator().manual_seed(17)).to(cuda).bfloat16()
+    meta = (NH, HD, WS, 1e-5, shift)
+    forms = (v2.fused_cos_attn_block_bf16, v2.fused_cos_attn_block_backward_bf16,
+             v2.fused_cos_attn_block, v2.fused_cos_attn_block_backward)
+    n0 = [f.launches for f in forms]
+    tx = x.clone().requires_grad_()
+    z = v2.fused_cos_attn_block(tx, *params, s, *meta)
+    z.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in forms] == [n0[0] + 1, n0[1] + 1, n0[2], n0[3]]
+    plain = [t.detach() for t in params]
+    _assert_bf16_close("z", z.detach(), v2.fused_cos_attn_block_bf16_reference(x, *plain, s, *meta))
+    want = v2.fused_cos_attn_block_bwd_bf16_reference(x, *plain, s, dout, *meta)
+    for name, g, wt in zip(COS_NAMES, (tx.grad, *(t.grad for t in params)), want):
+        assert g.dtype == wt.dtype and g.shape == wt.shape, name
+        err, top = (g.float() - wt.float()).abs().max().item(), wt.float().abs().max().item()
+        assert err <= BF16_TOL * top, f"{name}: {err:.3g} of {top:.3g}"
+    runs = [(v2.fused_cos_attn_block_bf16(x, *plain, s, *meta),
+             *v2.fused_cos_attn_block_backward_bf16(x, *plain, s, dout, *meta)) for _ in range(2)]
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("c", "hidden"), [(C, HIDDEN), (240, 480), (60, 120)])
+def test_bf16_postnorm_mlp_kernels(cuda, c, hidden):
+    """#13's and #14's bf16 forms at Swin2SR-M's, -L's and -S's MLP halves
+    (bf16 x and dout, fp32 parameters, DropPath scales 0 and 1/0.9) through
+    the autograd Function against their bf16 plain versions, each counted
+    once under its own name; two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    gen = torch.Generator().manual_seed(c + 1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    x = randn(B, 48, 48, c).bfloat16()
+    s = torch.tensor([0.0, 1.0 / 0.9], device=cuda)
+    params = [randn(c, hidden, scale=c**-0.5), randn(hidden, scale=0.1),
+              randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1),
+              1.0 + randn(c, scale=0.1), randn(c, scale=0.1)]
+    params = [t.requires_grad_() for t in params]
+    dout = randn(B, 48, 48, c).bfloat16()
+    tx = x.clone().requires_grad_()
+    forms = (v2.fused_postnorm_mlp_bf16, v2.fused_postnorm_mlp_backward_bf16,
+             v2.fused_postnorm_mlp, v2.fused_postnorm_mlp_backward)
+    n0 = [f.launches for f in forms]
+    out = v2.fused_postnorm_mlp(tx, *params, s, WS)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in forms] == [n0[0] + 1, n0[1] + 1, n0[2], n0[3]]
+    plain = [t.detach() for t in params]
+    _assert_bf16_close("out", out.detach(), v2.fused_postnorm_mlp_bf16_reference(x, *plain, s, WS))
+    want = v2.fused_postnorm_mlp_bwd_bf16_reference(x, *plain, s, dout, WS)
+    for i, (g, w) in enumerate(zip((tx.grad, *(t.grad for t in params)), want)):
+        assert g.dtype == w.dtype, i
+        assert (g.float() - w.float()).abs().max().item() <= BF16_TOL * w.float().abs().max(), i
+    runs = [(v2.fused_postnorm_mlp_bf16(x, *plain, s, WS),
+             *v2.fused_postnorm_mlp_backward_bf16(x, *plain, s, dout, WS)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_postnorm_forms_refuse_what_they_do_not_take(cuda):
+    """A bf16 x outside the bf16 forms' gates raises, naming the form's
+    limits, and launches nothing: rows of 264 channels (past the bf16
+    engine's 256), and an fp32 parameter where the form takes bf16 x with a
+    bf16 dout; the shared-memory plans are the sources'."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    forms = (v2.fused_cos_attn_block_bf16, v2.fused_cos_attn_block_backward_bf16,
+             v2.fused_postnorm_mlp_bf16, v2.fused_postnorm_mlp_backward_bf16)
+    n0 = [f.launches for f in forms]
+    c, nh = 264, 12
+    x = torch.zeros(1, 16, 16, c, device=cuda, dtype=torch.bfloat16)
+    cos = [torch.zeros(c, 3 * c, device=cuda), torch.zeros(3 * c, device=cuda),
+           torch.ones(nh, device=cuda), torch.zeros(c, c, device=cuda),
+           *(torch.zeros(c, device=cuda) for _ in range(3)),
+           torch.zeros(1, nh, N, N, device=cuda)]
+    with pytest.raises(ValueError, match="bf16 form's limits"), torch.no_grad():
+        v2.fused_cos_attn_block(x, *cos, torch.ones(1, device=cuda), nh, c // nh, WS)
+    mlp = [torch.zeros(c, 2 * c, device=cuda), torch.zeros(2 * c, device=cuda),
+           torch.zeros(2 * c, c, device=cuda), *(torch.zeros(c, device=cuda) for _ in range(3))]
+    with pytest.raises(ValueError, match="bf16 form's limits"), torch.no_grad():
+        v2.fused_postnorm_mlp(x, *mlp, torch.ones(1, device=cuda), WS)
+    p = _v2_inputs(cuda, 1)
+    ops = [p[k] for k in COS_NAMES]
+    with pytest.raises(TypeError, match="bfloat16"):  # dout fp32 beside a bf16 x
+        v2.fused_cos_attn_block_backward_bf16(ops[0].bfloat16(), *ops[1:], p["s2"], ops[0],
+                                              NH, HD, WS)
+    assert [f.launches for f in forms] == n0
+    lib_v2, lib_tr = cuda_build.library("fused_block_v2"), cuda_build.library("fused_block_train")
+    for c, hidden in ((180, 360), (240, 480), (60, 120)):
+        assert max(lib_v2.trr_cos_attn_bf16_smem_bytes(c), lib_tr.trr_atb_bf16_smem_bytes()) == (
+            v2.cos_attn_bf16_smem_bytes(c))
+        assert max(lib_v2.trr_pn_mlp_bf16_smem_bytes(c, hidden),
+                   lib_tr.trr_atb_bf16_smem_bytes()) == v2.pn_mlp_bf16_smem_bytes(c, hidden)

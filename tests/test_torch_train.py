@@ -369,15 +369,31 @@ def test_train_run_raises_without_card(dataset, tmp_path, monkeypatch):
     assert not (tmp_path / "experiments").exists()
 
 
-# the family whose bf16 kernels are not ported (Swin2SR's #11-#14)
+# Swin2SR, the last family whose bf16 kernels were ported (#11-#14's bf16 forms)
 SWIN2SR_NET = {"type": "swin2sr_m", "embed_dim": 24, "depths": [2], "num_heads": [3],
                "num_feat": 16}
 
 
+@pytest.mark.parametrize("extra", [
+    {"compute_dtype": "bfloat16"},
+    {"use_amp": True},
+    {"compute_dtype": None},  # no dtype: the JAX package's default, bf16
+], ids=["compute_dtype", "use_amp", "default"])
+def test_swin2sr_builds_in_bf16(dataset, tmp_path, extra):
+    """Each option set that asks for bf16 builds Swin2SR computing in bf16,
+    with no refusal (its kernels' bf16 forms are ported)."""
+    from trainner_redux_tpu_torch.models import build_model
+
+    cfg = _config(dataset, network_g=SWIN2SR_NET, **extra)
+    if extra.get("compute_dtype", "") is None:
+        del cfg["compute_dtype"]
+    _, opt = _opts(tmp_path, cfg)
+    model = build_model(opt, device="cpu")
+    assert model.compute_dtype == model.net_g.compute_dtype == torch.bfloat16
+    assert model.net_g.bf16_refusal() is None
+
+
 @pytest.mark.parametrize(("extra", "match"), [
-    ({"compute_dtype": "bfloat16", "network_g": SWIN2SR_NET},
-     "bf16 training .* of Swin2SR .*#11-#14"),
-    ({"use_amp": True, "network_g": SWIN2SR_NET}, "bf16 training .* of Swin2SR .*#11-#14"),
     ({"steps_per_dispatch": 2}, "steps_per_dispatch"),
     ({"network_d": {"type": "unetdiscriminatorsn"}}, "network_d"),
     ({"remat": True}, "remat"),

@@ -42,7 +42,6 @@ def build_network_cast(opt: dict[str, Any], dtype):
     torch.float32) passed as `dtype`, as the JAX package's
     `build_network_cast` passes it to every flax arch (parameters stay
     fp32); an options dict that names its own dtype keeps it. SwinIR, HAT,
-    DAT and SRFormerV2 take it as their training compute dtype, DUnet as
-    its own; Swin2SR accepts and drops it, and the model refuses bf16
-    training for it (its `bf16_refusal` names the kernels it lacks)."""
+    DAT, SRFormerV2 and Swin2SR take it as their training compute dtype,
+    DUnet as its own."""
     return build_network({"dtype": dtype, **opt})

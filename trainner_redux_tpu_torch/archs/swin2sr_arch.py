@@ -18,11 +18,25 @@ Swin2Block has two branches, chosen as in the JAX package:
   (TPU kernels #11-#14 on the card, both ways); the CPB bias MLP, 16 *
   sigmoid, the shift masks and exp(min(logit_scale, log 100)) stay outside
   them in PyTorch, so autograd carries their gradients from the kernels'
-  dbias and dscale;
+  dbias and dscale. The gate takes every preset's blocks, in training too
+  (Swin2SR-L's C 240 as well);
 - unfused (`TRAINNER_FUSED_BLOCK=0` or `TRAINNER_FUSED_ATTN=0`, and any
-  block whose kernel plans do not fit one thread block, as Swin2SR-L's in
-  training): window partition, cosine attention with the per-window mask,
-  LayerNorms and the MLP in PyTorch, no kernel.
+  block whose kernel plans do not fit one thread block): window partition,
+  cosine attention with the per-window mask, LayerNorms and the MLP in
+  PyTorch, no kernel.
+
+Compute dtype (`compute_dtype`, as SwinIR's): the parameters stay fp32, and
+a training forward in bf16 computes as the flax Swin2SR does with
+`dtype=bfloat16`: the input and the mean cast to bf16, every convolution,
+Linear and LayerNorm through `arch_util.in_dtype`, the CPB MLP in bf16 (its
+table into 16 * sigmoid in fp32 on the kernel branch, as the JAX fused path
+takes it, and in bf16 on the unfused branch, as flax's SwinV2Attention);
+the kernel branch on the bf16 forms of #11-#14 (weights cast to bf16 at
+use; biases, temperatures, LayerNorm affine and DropPath scales fp32); the
+unfused branch as flax's: q and k normalised by a bf16 division, the scores
+summed in fp32, the softmax in fp32 rounded to bf16, LayerNorms and
+DropPath in bf16; the output back to fp32. An eval forward (validation,
+`test`, EMA) runs in fp32, the JAX package's fp32 twin.
 
 On the CPU the kernel wrappers run their plain versions, so both branches
 run anywhere. The network takes and returns NCHW images; the body runs on
@@ -41,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, droppath, in_dtype
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
@@ -97,12 +111,19 @@ class SwinV2Attention(nn.Module):
                              torch.from_numpy(_relative_position_index(window_size)),
                              persistent=False)
 
-    def position_bias(self) -> torch.Tensor:
-        """(nh, n, n) continuous position bias, 16 * sigmoid of the CPB MLP."""
+    def cpb_table(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(nh, n, n) table of the CPB MLP over the log-spaced coordinates,
+        computed in `dtype` (flax's Dense with that dtype)."""
         n = self.window_size**2
-        table = self.cpb_mlp(self.relative_coords_table)
-        bias = table[self.relative_position_index.reshape(-1)].reshape(n, n, self.num_heads)
-        return 16.0 * torch.sigmoid(bias.permute(2, 0, 1))
+        table = in_dtype(self.cpb_mlp, self.relative_coords_table.to(dtype))
+        return table[self.relative_position_index.reshape(-1)].reshape(
+            n, n, self.num_heads).permute(2, 0, 1)
+
+    def position_bias(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(nh, n, n) continuous position bias in fp32, 16 * sigmoid of the
+        CPB MLP's table (computed in `dtype`), the sigmoid in fp32: the JAX
+        fused path's."""
+        return 16.0 * torch.sigmoid(self.cpb_table(dtype).float())
 
     def scale(self) -> torch.Tensor:
         """(nh, 1, 1) temperatures exp(min(logit_scale, log 100)); torch.minimum
@@ -111,20 +132,34 @@ class SwinV2Attention(nn.Module):
         return torch.exp(torch.minimum(self.logit_scale, cap))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        """Plain attention over windows x (B*nW, n, C); mask (nW, n, n)."""
+        """Plain attention over windows x (B*nW, n, C); mask (nW, n, n). In
+        x's dtype, as flax's SwinV2Attention: for bf16 x, q and k divided by
+        their bf16 norms, the scores summed in fp32 from them, the CPB bias
+        16 * sigmoid in bf16, the softmax in fp32 rounded to bf16 before its
+        product with v."""
         b_, n, c = x.shape
         nh = self.num_heads
-        qkv = self.qkv(x).reshape(b_, n, 3, nh, self.head_dim).permute(2, 0, 3, 1, 4)
+        qkv = in_dtype(self.qkv, x).reshape(b_, n, 3, nh, self.head_dim).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (b_, nh, n, hd)
-        qn = q / torch.sqrt((q * q).sum(-1, keepdim=True)).clamp_min(1e-12)
-        kn = k / torch.sqrt((k * k).sum(-1, keepdim=True)).clamp_min(1e-12)
-        attn = (qn @ kn.transpose(-2, -1)) * self.scale()[None] + self.position_bias()[None]
+        qn, kn = _l2_normalize(q), _l2_normalize(k)
+        bias = (16.0 * torch.sigmoid(self.cpb_table(x.dtype))).float()
+        attn = (qn.float() @ kn.float().transpose(-2, -1)) * self.scale()[None] + bias[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = attn.reshape(b_ // nw, nw, nh, n, n) + mask[None, :, None]
             attn = attn.reshape(b_, nh, n, n)
-        out = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(b_, n, c)
-        return self.proj(out)
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(b_, n, c)
+        return in_dtype(self.proj, out)
+
+
+def _l2_normalize(t: torch.Tensor) -> torch.Tensor:
+    """t / max(|t|, 1e-12) over the last axis, in t's dtype, as
+    jnp.linalg.norm and the division compute it: for a bf16 t the squares
+    rounded to bf16, their sum taken in fp32 and rounded, the square root
+    and the division bf16 operations."""
+    norm = torch.sqrt((t * t).float().sum(-1, keepdim=True).to(t.dtype))
+    return t / norm.clamp_min(1e-12)
 
 
 class Swin2Block(nn.Module):
@@ -158,7 +193,8 @@ class Swin2Block(nn.Module):
         attn, mlp = self.attn, self.mlp
         if fused_block_v2_supported(h, w, ws, c, self.num_heads, mlp.fc1.out_features,
                                     self.training):
-            bias = attn.position_bias()[None]
+            # a bf16 x runs the bf16 forms (the wrappers cast the weights)
+            bias = attn.position_bias(x.dtype)[None]
             if shift > 0:
                 bias = bias + self.mask_kinds[:, None]
             z = fused_cos_attn_block(
@@ -180,8 +216,8 @@ class Swin2Block(nn.Module):
         y = window_reverse(attn(window_partition(y, ws), mask), ws, h, w)
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + s1[:, None, None, None] * self.norm1(y)
-        return (x + s2[:, None, None, None] * self.norm2(mlp(x))).contiguous()
+        x = x + droppath(in_dtype(self.norm1, y), s1)
+        return (x + droppath(in_dtype(self.norm2, mlp(x)), s2)).contiguous()
 
 
 class RSTB(nn.Module):
@@ -206,8 +242,12 @@ class Swin2SR(nn.Module):
     def __init__(self, upscale: int = 4, in_chans: int = 3, embed_dim: int = 180,
                  depths=(6, 6, 6, 6, 6, 6), num_heads=(6, 6, 6, 6, 6, 6), window_size: int = 8,
                  mlp_ratio: float = 2.0, drop_path_rate: float = 0.1, img_range: float = 1.0,
-                 upsampler: str = "pixelshuffle", num_feat: int = 64) -> None:
+                 upsampler: str = "pixelshuffle", num_feat: int = 64,
+                 compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.compute_dtype = compute_dtype
         self.upscale = upscale
         self.window_size = window_size
         self.img_range = img_range
@@ -237,10 +277,11 @@ class Swin2SR(nn.Module):
         self.upsample = nn.Sequential(*stages)
         self.conv_last = Conv2d(num_feat, in_chans, 3)
 
-    def bf16_refusal(self) -> str:
-        """Why this network cannot train in bf16 on the port: its kernels'
-        bf16 forms are not ported."""
-        return "Swin2SR (the bf16 forms of its kernels #11-#14 are not ported)"
+    def bf16_refusal(self) -> str | None:
+        """Why this network cannot train in bf16 on the port, or None: both
+        Swin2Block branches have their bf16 form (the kernel branch #11-#14's
+        bf16 forms, the unfused branch in PyTorch), so none."""
+        return None
 
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """The generator every Swin2Block draws its DropPath masks from."""
@@ -255,24 +296,28 @@ class Swin2SR(nn.Module):
         return init_transformer_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale)."""
+        """x (B, C, H, W) in [0, 1] -> (B, C, H*scale, W*scale), fp32; in
+        training computed in `compute_dtype`, at eval in fp32."""
         in_h, in_w = x.shape[2], x.shape[3]
+        x = x.to(self.compute_dtype if self.training else torch.float32)
+        mean = self.mean.to(x.dtype)
         if x.shape[1] == 3:
-            x = (x - self.mean) * self.img_range
+            x = (x - mean) * self.img_range
         ws = self.window_size
         ph, pw = (ws - in_h % ws) % ws, (ws - in_w % ws) % ws
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
 
-        feat = self.conv_first(x)
-        body = self.patch_embed.norm(feat.permute(0, 2, 3, 1).contiguous())  # NHWC tokens
+        feat = in_dtype(self.conv_first, x)
+        body = in_dtype(self.patch_embed.norm, feat.permute(0, 2, 3, 1).contiguous())  # NHWC
         for layer in self.layers:
             body = layer(body)
-        body = self.norm(body)
-        feat = feat + self.conv_after_body(body.permute(0, 3, 1, 2))
-        out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))
+        body = in_dtype(self.norm, body)
+        feat = feat + in_dtype(self.conv_after_body, body.permute(0, 3, 1, 2))
+        out = in_dtype(self.conv_before_upsample, feat)
+        out = in_dtype(self.conv_last, in_dtype(self.upsample, out))
         if out.shape[1] == 3:
-            out = out / self.img_range + self.mean
+            out = out / self.img_range + mean
         return out[:, :, : in_h * self.upscale, : in_w * self.upscale].float()
 
 
@@ -281,9 +326,11 @@ def _swin2sr_factory(**defaults):
         cfg = dict(defaults)
         # accepted-but-unused torch knobs, as the JAX factory drops them
         for k in ("img_size", "patch_size", "in_chans", "ape", "patch_norm", "use_checkpoint",
-                  "drop_rate", "attn_drop_rate", "qkv_bias", "qk_scale", "resi_connection",
-                  "dtype"):
+                  "drop_rate", "attn_drop_rate", "qkv_bias", "qk_scale", "resi_connection"):
             kwargs.pop(k, None)
+        # the JAX package's compute dtype (build_network_cast)
+        dtype = kwargs.pop("dtype", None) or torch.float32
+        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         cfg.update(kwargs)
         cfg["depths"] = tuple(cfg["depths"])
         cfg["num_heads"] = tuple(cfg["num_heads"])

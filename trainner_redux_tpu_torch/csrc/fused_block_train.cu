@@ -645,6 +645,16 @@ int trr_weight_grad(const float* A, const float* B, int T, int M, int N, float* 
   return (int)trr::weight_grad(A, B, T, M, N, part, out, stream);
 }
 
+// out (M*N + N) = (A^T B, the column sums of sf or, where sf is null, of sb)
+// of A (T, M) and B (T, N) bf16, sf (T, N) fp32 or sb (T, N) bf16, through
+// part (trr_weight_grad_part_floats(T, M, N) floats): the bf16 post-norm
+// halves' weight gradients (#12 and #14's bf16 forms, fused_block_v2.cu).
+int trr_weight_grad_bf16(const trr::bf16* A, const trr::bf16* B, int T, int M, int N,
+                         const float* sf, const trr::bf16* sb, float* part, float* out,
+                         cudaStream_t stream) {
+  return (int)trr::weight_grad_bf16(A, B, T, M, N, sf, sb, nullptr, 1, part, out, stream);
+}
+
 int trr_sum_rows(const float* part, int S, int L, float* out, cudaStream_t stream) {
   return (int)trr::sum_rows(part, S, L, out, stream);
 }

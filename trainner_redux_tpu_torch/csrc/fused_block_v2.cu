@@ -78,6 +78,7 @@
 
 #include "tc_attn.cuh"
 #include "tc_rows.cuh"
+#include "tc_rows_bf16.cuh"
 
 namespace trr {
 
@@ -109,6 +110,28 @@ inline cudaError_t cos_window_attention(const float* qkv, const float* scale, co
   return attn_rows_fwd_tc<kTile, true>(qkv, bias, att, nullptr, B, H, W, C, nh, 8, 8, kinds,
                                        shift, 0.f, stream, scale);
 }
+inline cudaError_t cos_window_attention(const bf16* qkv, const float* scale, const float* bias,
+                                        bf16* att, int B, int H, int W, int C, int nh, int kinds,
+                                        int shift, cudaStream_t stream) {
+  return cos_attn_rows_fwd_bf16<kTile>(qkv, bias, att, B, H, W, C, nh, 8, 8, kinds, shift, scale,
+                                       stream);
+}
+
+// The bf16 forms' largest shared memory, in bytes, of their kernels in this
+// file and the headers (the weight gradients' atb_bf16_kernel is
+// fused_block_train.cu's): the products at the tiles of rows of 3C, C and
+// hidden, rows_bf16_kernel over a row of C, mlp_hidden_bf16_kernel, the
+// cosine window attention forward and its backward stage.
+inline int cos_attn_bf16_smem_bytes(int C) {
+  return std::max({wg_bf16_bytes(linear_cols(3 * C)), wg_bf16_bytes(linear_cols(C)),
+                   rows_bf16_smem_bytes(C),
+                   attn_rows_fwd_tc_smem_floats(kTile, kTile, 2) * (int)sizeof(float),
+                   cos_attn_bwd_smem_floats() * (int)sizeof(float)});
+}
+inline int pn_mlp_bf16_smem_bytes(int C, int hidden) {
+  return std::max({wg_bf16_bytes(linear_cols(hidden)), wg_bf16_bytes(linear_cols(C)),
+                   hidden_bf16_smem_bytes(), rows_bf16_smem_bytes(C)});
+}
 
 // ---------------------------------------------------------------------------
 // #12, stage 4 (and #14, stage 3): per 128 consecutive tokens, one warp a
@@ -118,12 +141,17 @@ inline cudaError_t cos_window_attention(const float* qkv, const float* scale, co
 // g) - xn mean(dy g xn)) with dy = s dout and xn from the proj row's own
 // mean and 1/std (two-pass, as the forward); the block's partial sums of dg
 // = sum dy xn (first C) and dbe = sum dy (next C) to ln_part[blockIdx.x].
+// DT: the type of proj, dout and dproj (float, or bf16 in the bf16 forms,
+// whose dproj is rounded as the next products' operand and, where dproj32
+// is not null, also written in fp32 for the bias gradient's sum).
 // ---------------------------------------------------------------------------
+template <typename DT>
 __global__ void __launch_bounds__(kThreads)
-    postnorm_ln_rows_kernel(const float* __restrict__ proj, const float* __restrict__ dout,
+    postnorm_ln_rows_kernel(const DT* __restrict__ proj, const DT* __restrict__ dout,
                             const float* __restrict__ g, const float* __restrict__ s,
-                            float* __restrict__ dproj, float* __restrict__ ln_part, long long T,
-                            long long hw, int C, float eps) {
+                            DT* __restrict__ dproj, float* __restrict__ dproj32,
+                            float* __restrict__ ln_part, long long T, long long hw, int C,
+                            float eps) {
   __shared__ __align__(16) float colred[kWarps * 2 * 256];  // [warp][dg | dbe][C]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = C / 4;
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -139,8 +167,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int v = 0; v < 2; ++v) {
       const int c4 = lane + 32 * v;
-      p[v] = c4 < n4 ? __ldg(reinterpret_cast<const float4*>(proj + t * C) + c4) : zero4;
-      d[v] = c4 < n4 ? __ldg(reinterpret_cast<const float4*>(dout + t * C) + c4) : zero4;
+      p[v] = c4 < n4 ? ldg4(proj + t * C + 4 * c4) : zero4;
+      d[v] = c4 < n4 ? ldg4(dout + t * C + 4 * c4) : zero4;
       sum += (p[v].x + p[v].y) + (p[v].z + p[v].w);
     }
     const float mean = warp_sum(sum) / C;
@@ -174,12 +202,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int v = 0; v < 2; ++v) {
       const int c4 = lane + 32 * v;
-      if (c4 < n4)
-        reinterpret_cast<float4*>(dproj + t * C)[c4] =
-            make_float4(inv * (dy[v].x * gv[v].x - ma - xn[v].x * mb),
-                        inv * (dy[v].y * gv[v].y - ma - xn[v].y * mb),
-                        inv * (dy[v].z * gv[v].z - ma - xn[v].z * mb),
-                        inv * (dy[v].w * gv[v].w - ma - xn[v].w * mb));
+      if (c4 >= n4) continue;
+      const float4 o = make_float4(inv * (dy[v].x * gv[v].x - ma - xn[v].x * mb),
+                                   inv * (dy[v].y * gv[v].y - ma - xn[v].y * mb),
+                                   inv * (dy[v].z * gv[v].z - ma - xn[v].z * mb),
+                                   inv * (dy[v].w * gv[v].w - ma - xn[v].w * mb));
+      st4(dproj + t * C + 4 * c4, o);
+      if (dproj32 != nullptr) st4(dproj32 + t * C + 4 * c4, o);
     }
   }
 #pragma unroll
@@ -215,14 +244,22 @@ __global__ void __launch_bounds__(kThreads)
 // k^ and dk^ = scale dS^T q^ through shared memory, then the normalisation's
 // backward dq = (dq^ - q^ <q^, dq^>) / max(|q|, 1e-12), dk likewise, one warp
 // a row; dq | dk | dv to dqkv (T, 3C).
+// T, the bf16 form (#12's bf16 stage): qkv, datt and dqkv in bf16, each
+// product on mma.sync m16n8k16 with fp32 sums, its operands rounded to bf16
+// as their fragments load, as the JAX kernel rounds them: cos = bf16(q^)
+// bf16(k^)^T, dV from bf16(P), the tile holding scale dS so that dq^ and dk^
+// take dcos = bf16(scale dS); dS, rowsum(P dP), the dscale sums and the
+// normalisation's backward (from the fp32 q^ and k^) stay fp32.
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
-    cos_attn_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ datt,
+    cos_attn_bwd_tc_kernel(const T* __restrict__ qkv, const T* __restrict__ datt,
                            const float* __restrict__ scale, const float* __restrict__ bias,
-                           float* __restrict__ dqkv, float* __restrict__ dS,
+                           T* __restrict__ dqkv, float* __restrict__ dS,
                            float* __restrict__ dscale_part, int H, int W, int C, int nh,
                            int kinds, int shift) {
-  using AW = AttnWarps<kTile, kTile>;
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  using AW = AttnWarps<kTile, kTile, 2, BF>;
   constexpr int NTH = AW::NTH, LD = AW::LD, NT = AW::NT;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
@@ -248,7 +285,7 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
   const float* table =
       bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * kTile * kTile;
   __syncthreads();
-  const float* base = qkv + h * hd;
+  const T* base = qkv + h * hd;
   // q^ and k^ (rows divided by max(|row|, 1e-12)) and their inverse norms
   stage_head_rows<kTile, NTH, true>(
       qs, hd, [&](int r) { return base + (long long)tok[r] * C3; }, inv);
@@ -316,7 +353,7 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
         const float2 pv = *aw.at(pt, i, j);
         const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
                                      pv.y * (dp[j][2 * i + 1] - delta[i]));
-        *aw.at(pt, i, j) = v;
+        *aw.at(pt, i, j) = BF ? make_float2(sc * v.x, sc * v.y) : v;
         *reinterpret_cast<float2*>(dS + head + aw.s_row(i) * kTile + aw.s_col(j)) = v;
         part = fmaf(v.x, cs[j][2 * i], part);
         part = fmaf(v.y, cs[j][2 * i + 1], part);
@@ -330,13 +367,14 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
     for (int w = 0; w < kWarps; ++w) acc += wsum[w];
     dscale_part[window * nh + h] = acc;
   }
+  const float dsc = BF ? 1.f : sc;  // the bf16 tile holds scale dS already
   {  // dq^ = scale dS k^, to the room of dA
     float o[2][4];
     aw.rows_by_keys(pt, ks, o);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) das[aw.o_row(e) * LD + aw.o_chan(j, e)] = sc * o[j][e];
+      for (int e = 0; e < 4; ++e) das[aw.o_row(e) * LD + aw.o_chan(j, e)] = dsc * o[j][e];
   }
   {  // dk^ = scale dS^T q^, to the room of v
     float dk[1][2][4] = {};
@@ -344,14 +382,15 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) vs[aw.u_key(0, e) * LD + aw.u_chan(0, j, e)] = sc * dk[0][j][e];
+      for (int e = 0; e < 4; ++e) vs[aw.u_key(0, e) * LD + aw.u_chan(0, j, e)] = dsc * dk[0][j][e];
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = aw.u_chan(0, j, e);
-      if (d < hd) dqkv[(long long)tok[aw.u_key(0, e)] * C3 + 2 * C + h * hd + d] = dv[0][j][e];
+      if (d < hd)
+        st_f(dqkv + (long long)tok[aw.u_key(0, e)] * C3 + 2 * C + h * hd + d, dv[0][j][e]);
     }
   __syncthreads();  // dq^ and dk^ are whole
   // the normalisation's backward, one warp a row: the q rows, then the k rows
@@ -361,7 +400,7 @@ __global__ void __launch_bounds__(attn_tc_threads(kTile), 2)
     const float gx = lane < hd ? (side == 0 ? das : vs)[rr * LD + lane] : 0.f;
     const float dot = warp_sum(x * gx);
     if (lane < hd)
-      dqkv[(long long)tok[rr] * C3 + side * C + h * hd + lane] = (gx - x * dot) * inv[r];
+      st_f(dqkv + (long long)tok[rr] * C3 + side * C + h * hd + lane, (gx - x * dot) * inv[r]);
   }
 }
 
@@ -412,16 +451,17 @@ int trr_cos_attn_bwd(const float* x, const float* dout, const float* wq, const f
   TRR_TRY(trr::linear(x, wq, bq, qkv, tokens, C, 3 * C, stream));
   TRR_TRY(trr::cos_window_attention(qkv, scale, bias, att, B, H, W, C, nh, kinds, shift, stream));
   TRR_TRY(trr::linear(att, wp, bp, proj, tokens, C, C, stream));
-  trr::postnorm_ln_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(proj, dout, g, s, dproj,
-                                                                      ln_part, tokens, hw, C, eps);
+  trr::postnorm_ln_rows_kernel<float><<<blocks, trr::kThreads, 0, stream>>>(
+      proj, dout, g, s, dproj, nullptr, ln_part, tokens, hw, C, eps);
   TRR_TRY(cudaGetLastError());
   TRR_TRY(trr::rows<trr::kRowsStore>(dproj, wp, tokens, C, C, nullptr, nullptr, nullptr,
                                      nullptr, nullptr, hw, datt, nullptr, nullptr, stream));
   const int floats = trr::cos_attn_bwd_smem_floats();
-  TRR_TRY(trr::set_smem(trr::cos_attn_bwd_tc_kernel, floats));
-  trr::cos_attn_bwd_tc_kernel<<<dim3(nh, (H / 8) * (W / 8), B), trr::attn_tc_threads(trr::kTile),
-                                floats * sizeof(float), stream>>>(
-      qkv, datt, scale, bias, dqkv, dS, dscale_part, H, W, C, nh, kinds, shift);
+  TRR_TRY(trr::set_smem(trr::cos_attn_bwd_tc_kernel<float>, floats));
+  trr::cos_attn_bwd_tc_kernel<float><<<dim3(nh, (H / 8) * (W / 8), B),
+                                       trr::attn_tc_threads(trr::kTile), floats * sizeof(float),
+                                       stream>>>(qkv, datt, scale, bias, dqkv, dS, dscale_part, H,
+                                                 W, C, nh, kinds, shift);
   TRR_TRY(cudaGetLastError());
   return (int)trr::rows<trr::kRowsResidual>(dqkv, wq, tokens, 3 * C, C, nullptr, nullptr,
                                              nullptr, dout, nullptr, hw, dx, nullptr, nullptr,
@@ -453,12 +493,122 @@ int trr_pn_mlp_bwd(const float* x, const float* dout, const float* w1, const flo
   const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
   TRR_TRY(trr::linear<trr::kLinearGelu>(x, w1, b1, hg, tokens, C, hidden, stream));
   TRR_TRY(trr::linear(hg, w2, b2, m, tokens, hidden, C, stream));
-  trr::postnorm_ln_rows_kernel<<<blocks, trr::kThreads, 0, stream>>>(m, dout, g, s, dm, ln_part,
-                                                                      tokens, hw, C, eps);
+  trr::postnorm_ln_rows_kernel<float><<<blocks, trr::kThreads, 0, stream>>>(
+      m, dout, g, s, dm, nullptr, ln_part, tokens, hw, C, eps);
   TRR_TRY(cudaGetLastError());
   TRR_TRY(trr::mlp_hidden(x, dm, w1, b1, w2, nullptr, dh, tokens, C, hidden, stream));
   return (int)trr::rows<trr::kRowsResidual>(dh, w1, tokens, hidden, C, nullptr, nullptr, nullptr,
                                              dout, nullptr, hw, dx, nullptr, nullptr, stream);
+}
+
+
+// The bf16 forms (#11-#14's, for a bf16 training step): the fp32 forms'
+// stages on bf16 activations and weights, rounding where the JAX kernels
+// round in bf16 (ops/pallas/fused_block_v2.py: qkv = bf16(bf16(x wq) +
+// bf16(bq)), cos from bf16(q^) and bf16(k^), att = bf16(bf16(P) v), proj and
+// m as qkv, h and hg as #2's bf16 form, z = bf16(x + s LN(proj))); the
+// statistics, norms, softmax, gelu and every bias or LayerNorm gradient in
+// fp32. The products run on tc_rows_bf16.cuh's kernels (bf16 wgmma, fp32
+// sums), the window attention on mma.sync m16n8k16; the weight gradients
+// are the wrappers' atb_bf16_kernel calls (fused_block_train.cu). Their
+// bound at Swin2SR-M's block (T 18,432, C 180): 5.6 and 17 GFLOP (the
+// attention half), 4.8 and 14 (the MLP half), 6-17 us on the bf16 tensor
+// cores, against 6.6 MB a bf16 (T, C) activation: both halves lie near the
+// ridge, their stages' intermediates through device memory.
+
+size_t trr_cos_attn_bf16_smem_bytes(int C) { return (size_t)trr::cos_attn_bf16_smem_bytes(C); }
+size_t trr_pn_mlp_bf16_smem_bytes(int C, int hidden) {
+  return (size_t)trr::pn_mlp_bf16_smem_bytes(C, hidden);
+}
+
+// #11's bf16 form: x, z (B, H, W, C) bf16; wq (C, 3C), wp (C, C) bf16; bq,
+// scale (nh), bp, g, be, bias (kinds, nh, 64, 64), s (B) fp32; scratch qkv
+// (T, 3C), att, proj (T, C) bf16. Four launches, as trr_cos_attn_fwd.
+int trr_cos_attn_fwd_bf16(const trr::bf16* x, const trr::bf16* wq, const float* bq,
+                          const float* scale, const trr::bf16* wp, const float* bp,
+                          const float* g, const float* be, const float* bias, const float* s,
+                          trr::bf16* qkv, trr::bf16* att, trr::bf16* proj, trr::bf16* z, int B,
+                          int H, int W, int C, int nh, int kinds, int shift, float eps,
+                          cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::linear_bf16(x, wq, bq, qkv, tokens, C, 3 * C, stream));
+  TRR_TRY(trr::cos_window_attention(qkv, scale, bias, att, B, H, W, C, nh, kinds, shift, stream));
+  TRR_TRY(trr::linear_bf16(att, wp, bp, proj, tokens, C, C, stream));
+  return (int)trr::postnorm_rows_bf16(proj, g, be, x, s, z, tokens, hw, C, eps, stream);
+}
+
+// #12's bf16 form: x, dout, dx (B, H, W, C) bf16 and the operands as
+// trr_cos_attn_fwd_bf16 takes them; for the wrapper's weight gradients and
+// sums qkv (T, 3C), att, dproj (T, C) bf16 and dproj32 (T, C) fp32, dqkv (T,
+// 3C) bf16, ln_part (ceil(T / 128), 2C), dS (B, H/8, W/8, nh, 64, 64) and
+// dscale_part (B * H/8 * W/8, nh) fp32. Scratch: proj, datt (T, C) bf16. C at
+// most 256 and a multiple of 4.
+int trr_cos_attn_bwd_bf16(const trr::bf16* x, const trr::bf16* dout, const trr::bf16* wq,
+                          const float* bq, const float* scale, const trr::bf16* wp,
+                          const float* bp, const float* g, const float* s, const float* bias,
+                          trr::bf16* qkv, trr::bf16* att, trr::bf16* proj, trr::bf16* dproj,
+                          float* dproj32, trr::bf16* datt, float* ln_part, trr::bf16* dqkv,
+                          float* dS, float* dscale_part, trr::bf16* dx, int B, int H, int W,
+                          int C, int nh, int kinds, int shift, float eps, cudaStream_t stream) {
+  using trr::bf16;
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
+  TRR_TRY(trr::linear_bf16(x, wq, bq, qkv, tokens, C, 3 * C, stream));
+  TRR_TRY(trr::cos_window_attention(qkv, scale, bias, att, B, H, W, C, nh, kinds, shift, stream));
+  TRR_TRY(trr::linear_bf16(att, wp, bp, proj, tokens, C, C, stream));
+  trr::postnorm_ln_rows_kernel<bf16><<<blocks, trr::kThreads, 0, stream>>>(
+      proj, dout, g, s, dproj, dproj32, ln_part, tokens, hw, C, eps);
+  TRR_TRY(cudaGetLastError());
+  TRR_TRY((trr::rows_bf16<trr::kRowsStore, float, bf16>(dproj, wp, tokens, C, C, nullptr, nullptr,
+                                                       nullptr, nullptr, nullptr, hw, datt,
+                                                       nullptr, nullptr, stream)));
+  const int floats = trr::cos_attn_bwd_smem_floats();
+  TRR_TRY(trr::set_smem(trr::cos_attn_bwd_tc_kernel<bf16>, floats));
+  trr::cos_attn_bwd_tc_kernel<bf16><<<dim3(nh, (H / 8) * (W / 8), B),
+                                      trr::attn_tc_threads(trr::kTile), floats * sizeof(float),
+                                      stream>>>(qkv, datt, scale, bias, dqkv, dS, dscale_part, H,
+                                                W, C, nh, kinds, shift);
+  TRR_TRY(cudaGetLastError());
+  return (int)trr::rows_bf16<trr::kRowsResidual, bf16, bf16>(dqkv, wq, tokens, 3 * C, C, nullptr,
+                                                              nullptr, nullptr, dout, nullptr, hw,
+                                                              dx, nullptr, nullptr, stream);
+}
+
+// #13's bf16 form: x, out (B, H, W, C) bf16; w1 (C, hidden), w2 (hidden, C)
+// bf16; b1, b2, g, be, s fp32; scratch hg (T, hidden), m (T, C) bf16. Three
+// launches, as trr_pn_mlp_fwd.
+int trr_pn_mlp_fwd_bf16(const trr::bf16* x, const trr::bf16* w1, const float* b1,
+                        const trr::bf16* w2, const float* b2, const float* g, const float* be,
+                        const float* s, trr::bf16* hg, trr::bf16* m, trr::bf16* out, int B, int H,
+                        int W, int C, int hidden, float eps, cudaStream_t stream) {
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  TRR_TRY(trr::linear_bf16<trr::kLinearGelu>(x, w1, b1, hg, tokens, C, hidden, stream));
+  TRR_TRY(trr::linear_bf16(hg, w2, b2, m, tokens, hidden, C, stream));
+  return (int)trr::postnorm_rows_bf16(m, g, be, x, s, out, tokens, hw, C, eps, stream);
+}
+
+// #14's bf16 form: x, dout, dx (B, H, W, C) bf16 and the operands as
+// trr_pn_mlp_fwd_bf16 takes them; for the wrapper's weight gradients and
+// sums hg, dh (T, hidden) and dm (T, C) bf16, dh32 (T, hidden) and dm32 (T,
+// C) fp32, ln_part (ceil(T / 128), 2C). Scratch: m (T, C) bf16. C at most 256
+// and a multiple of 4, hidden a multiple of 4.
+int trr_pn_mlp_bwd_bf16(const trr::bf16* x, const trr::bf16* dout, const trr::bf16* w1,
+                        const float* b1, const trr::bf16* w2, const float* b2, const float* g,
+                        const float* s, trr::bf16* hg, trr::bf16* m, trr::bf16* dm, float* dm32,
+                        trr::bf16* dh, float* dh32, trr::bf16* dx, float* ln_part, int B, int H,
+                        int W, int C, int hidden, float eps, cudaStream_t stream) {
+  using trr::bf16;
+  const long long tokens = (long long)B * H * W, hw = (long long)H * W;
+  const unsigned blocks = (unsigned)((tokens + trr::kTcRows - 1) / trr::kTcRows);
+  TRR_TRY(trr::linear_bf16<trr::kLinearGelu>(x, w1, b1, hg, tokens, C, hidden, stream));
+  TRR_TRY(trr::linear_bf16(hg, w2, b2, m, tokens, hidden, C, stream));
+  trr::postnorm_ln_rows_kernel<bf16><<<blocks, trr::kThreads, 0, stream>>>(
+      m, dout, g, s, dm, dm32, ln_part, tokens, hw, C, eps);
+  TRR_TRY(cudaGetLastError());
+  TRR_TRY(trr::mlp_hidden_bf16(x, dm, w1, b1, w2, nullptr, dh, dh32, tokens, C, hidden, stream));
+  return (int)trr::rows_bf16<trr::kRowsResidual, bf16, bf16>(dh, w1, tokens, hidden, C, nullptr,
+                                                              nullptr, nullptr, dout, nullptr, hw,
+                                                              dx, nullptr, nullptr, stream);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@
 // block's #4 stage and without it as #3's bf16 form and #1's bf16 stage;
 // attn_rows_bwd_bf16_kernel, the saved-P backward of #5's stage;
 // attn_rows_bwd_recompute_bf16_kernel, #8's bf16 form and, writing att too,
-// #6's bf16 stage, which recompute P from the bias table) read and write
+// #6's bf16 stage, which recompute P from the bias table;
+// cos_attn_rows_fwd_bf16_kernel, #11's cosine stage in bf16) read and write
 // bf16 rows and P and keep the same fp32 tiles in shared memory; each
 // product runs on mma.sync m16n8k16 bf16 with fp32 sums (tc_gemm_bf16.cuh),
 // its operands rounded to bf16 as their fragments load: the JAX kernel's
@@ -420,6 +421,20 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                                  shift, scale, nullptr);
 }
 
+// The bf16 cosine form (#11's bf16 stage and #12's bf16 forward stage):
+// qkv and att in bf16, no P; the rows of q and k normalised in fp32 as they
+// are staged and rounded to bf16 as the score product's fragments load (the
+// JAX kernel's bf16(q^) bf16(k^)^T), the head's temperature temps[h].
+template <int N, int RB, int KS>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
+                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
+    cos_attn_rows_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                                  bf16* __restrict__ att, int H, int W, int C, int nh, int wr,
+                                  int wc, int kinds, int shift, const float* __restrict__ temps) {
+  attn_rows_fwd_body<N, RB, KS, true, bf16, false>(qkv, bias, att, nullptr, H, W, C, nh, wr, wc,
+                                                   kinds, shift, 0.f, temps);
+}
+
 // Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT, SAVED>, in
 // floats: k and v (N, 36), this row block's q and dA (RB, 36), the P / dS
 // rows (RB, N + 4), the (KS, RB) exchanges of the key parts' row max and row
@@ -689,6 +704,23 @@ cudaError_t attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att, bf
   attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP>
       <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+// cos_attn_rows_fwd_bf16_kernel at windows of N tokens, the heads'
+// temperatures `temps` (nh).
+template <int N>
+cudaError_t cos_attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att, int B, int H,
+                                   int W, int C, int nh, int wr, int wc, int kinds, int shift,
+                                   const float* temps, cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N);
+  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
+  const cudaError_t err = set_smem(cos_attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks>, floats);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
+  cos_attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks>
+      <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, att, H, W, C, nh, wr, wc, kinds, shift, temps);
   return cudaGetLastError();
 }
 

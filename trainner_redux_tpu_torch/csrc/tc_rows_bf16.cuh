@@ -13,9 +13,12 @@
 //                         bf16(gelu(h)), dh = (dm w2^T) gelu'(h) in fp32,
 //                         stored as bf16 (the next products' operand) and
 //                         fp32 (db1's sum);
-//   rows_bf16_kernel      dy = A W^T in fp32, then bf16(dy) (datt) or the
+//   rows_bf16_kernel      dy = A W^T in fp32, then bf16(dy) (datt), bf16(dres
+//                         + dy) (the post-norm halves' dx) or the
 //                         LayerNorm backward in fp32: out = dres + LN'(dy)
-//                         (dz in fp32, or dx in bf16), outs = bf16(s out).
+//                         (dz in fp32, or dx in bf16), outs = bf16(s out);
+//   postnorm_rows_bf16_kernel  out = bf16(res + s LN(x)), the post-norm
+//                         halves' row pass (#11 and #13's bf16 forms).
 // Every LayerNorm statistic, softmax, gelu and sum of a row is fp32. 256
 // threads, two warpgroups of 64 rows, one block a SM, as the fp32 forms.
 // Rows of C <= 192 channels in the whole block (the training gate's), of
@@ -145,6 +148,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// out = bf16(res + s[t / hw] LN(x)) (T, C) with g and be: the post-norm
+// blocks' last stage in bf16 (#11 and #13's bf16 forms, the JAX kernel's
+// (t + s y32).astype(bf16)), x and res bf16, the two-pass statistics, the
+// affine and the DropPath scale in fp32, one rounding. One warp a token, C
+// <= kLnMaxC, C a multiple of 4.
+__global__ void __launch_bounds__(kThreads)
+    postnorm_rows_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                              const float* __restrict__ be, const bf16* __restrict__ res,
+                              const float* __restrict__ s, bf16* __restrict__ out, long long T,
+                              long long hw, int C, float eps) {
+  constexpr int PER = kLnMaxC / (32 * 4);  // loads of 4 a lane
+  const long long t = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (t >= T) return;
+  const int lane = threadIdx.x % 32, nv = C / 4;
+  float4 v[PER];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = lane + 32 * i;
+    if (e >= nv) continue;
+    v[i] = ldg4(x + t * C + 4 * e);
+    sum += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+  }
+  const float mean = warp_sum(sum) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    if (lane + 32 * i >= nv) continue;
+    const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
+    q += (a * a + b * b) + (c * c + d * d);
+  }
+  const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
+  const float sr = __ldg(s + t / hw);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = lane + 32 * i;
+    if (e >= nv) continue;
+    const float4 gg = ldg4(g + 4 * e), bb = ldg4(be + 4 * e), r = ldg4(res + t * C + 4 * e);
+    st4(out + t * C + 4 * e,
+        make_float4(r.x + sr * ((v[i].x - mean) * inv * gg.x + bb.x),
+                    r.y + sr * ((v[i].y - mean) * inv * gg.y + bb.y),
+                    r.z + sr * ((v[i].z - mean) * inv * gg.z + bb.z),
+                    r.w + sr * ((v[i].w - mean) * inv * gg.w + bb.w)));
+  }
+}
+
 // Per 128 tokens t0.. and BN columns n0..: out (T, N) from A (T, K) W (K, N)
 // as EPI says (kLinearBias, kLinearGelu, kLinearResidual with x (T, N) and
 // s (T / hw)), rounded to bf16 where the JAX kernel rounds (above); W as it
@@ -250,8 +299,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Per 128 tokens t0.., every column (BN >= C): dy = A W^T in fp32 with A (T,
 // K) and W (C, K) as it lies (K-major). EPI kRowsStore: out = bf16(dy);
-// kRowsLn: the LayerNorm backward of the rows in fp32, out = dres + inv (dy
-// g - mean(dy g) - xn mean(dy g xn)) with xn = (xln - mean) inv from stats
+// kRowsResidual: out = dres + dy, rounded where OT is bf16 (#12 and #14's
+// bf16 dx = bf16(dout + dt)); kRowsLn: the LayerNorm backward of the rows
+// in fp32, out = dres + inv (dy g - mean(dy g) - xn mean(dy g xn)) with xn
+// = (xln - mean) inv from stats
 // (T, 2); outs = bf16(s[t / hw] out) when not null; the block's partial
 // sums of dg = sum dy xn (first C) and dbe = sum dy (next C) to
 // ln_part[blockIdx.x]. RT, OT: the types of dres and out (float or bf16).
@@ -289,7 +340,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float4* dy4 = reinterpret_cast<const float4*>(dy);
   if constexpr (EPI != kRowsLn) {
     for (int r = 16 * warp; r < 16 * warp + 16 && t0 + r < T; ++r)
-      for (int c4 = lane; c4 < n4; c4 += 32) st4(out + (t0 + r) * C + 4 * c4, dy4[r * (LDY / 4) + c4]);
+      for (int c4 = lane; c4 < n4; c4 += 32) {
+        float4 v = dy4[r * (LDY / 4) + c4];
+        if constexpr (EPI == kRowsResidual) {
+          const float4 d = ldg4(dres + (t0 + r) * C + 4 * c4);
+          v = make_float4(d.x + v.x, d.y + v.y, d.z + v.z, d.w + v.w);
+        }
+        st4(out + (t0 + r) * C + 4 * c4, v);
+      }
   } else {
     const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
     float4 gv[2], cg[2] = {zero4, zero4}, cb[2] = {zero4, zero4};
@@ -382,6 +440,15 @@ inline cudaError_t ln_rows_bf16(const bf16* x, const float* g, const float* be, 
   const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
   ln_rows_bf16_kernel<<<blocks, kThreads, 0, stream>>>(x, g, be, y, stats, dout, s, dm, T, hw, C,
                                                        eps);
+  return cudaGetLastError();
+}
+
+inline cudaError_t postnorm_rows_bf16(const bf16* x, const float* g, const float* be,
+                                      const bf16* res, const float* s, bf16* out, long long T,
+                                      long long hw, int C, float eps, cudaStream_t stream) {
+  if (C > kLnMaxC || C % 4) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((T + kWarps - 1) / kWarps);
+  postnorm_rows_bf16_kernel<<<blocks, kThreads, 0, stream>>>(x, g, be, res, s, out, T, hw, C, eps);
   return cudaGetLastError();
 }
 

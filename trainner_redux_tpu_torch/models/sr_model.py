@@ -14,7 +14,8 @@ Port of the JAX package's models/sr_model.py.
   validation, `test` and the EMA network's forward run the same parameters
   in fp32, the JAX package's fp32 twin. bf16 trains SwinIR (on the bf16
   forms of #4/#5, SwinIR-L on those of #3/#8), HAT (#3/#8, #2/#7), DAT
-  (the rect #3/#8) and SRFormerV2 (#1/#6 at 12x12, #2/#7), and a GAN's
+  (the rect #3/#8), SRFormerV2 (#1/#6 at 12x12, #2/#7) and Swin2SR (the
+  bf16 forms of #11-#14), and a GAN's
   DUnet computes in the same dtype (no twin: D only trains). fp32 runs
   with TF32 off (`fast_matmul`
   lets cuBLAS and cuDNN use TF32; `deterministic` runs the step on torch's
@@ -45,8 +46,7 @@ Port of the JAX package's models/sr_model.py.
 DropPath draws from one `torch.Generator` on the model's device, seeded from
 `manual_seed`, that the model hands to the network.
 
-Not ported yet, and refused where configured: bf16 training of Swin2SR
-(#11-#14), `steps_per_dispatch > 1`, `remat`, discriminators other than
+Not ported yet, and refused where configured: `steps_per_dispatch > 1`, `remat`, discriminators other than
 DUnet, the R3GAN and feature-matching losses, MoA, dynamic loss
 scheduling, training automations, tiled inference and the mesh-sharded
 paths.

@@ -69,6 +69,7 @@ SIGNATURES = {
         "trr_ln_mlp_fwd_bf16": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
         "trr_ln_mlp_bwd_bf16": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
         "trr_weight_grad": ([_P] * 2 + [_I] * 3 + [_P] * 3, _I),
+        "trr_weight_grad_bf16": ([_P] * 2 + [_I] * 3 + [_P] * 5, _I),
         "trr_weight_grad_part_floats": ([_I] * 3, ctypes.c_size_t),
         "trr_sum_rows": ([_P, _I, _I, _P, _P], _I),
         "trr_dbias": ([_P] + [_I] * 5 + [_P, _P], _I),
@@ -91,6 +92,12 @@ SIGNATURES = {
         "trr_pn_mlp_fwd_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_cos_attn_bwd_smem_bytes": ([], ctypes.c_size_t),
         "trr_pn_mlp_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "trr_cos_attn_fwd_bf16": ([_P] * 14 + [_I] * 7 + [_F, _P], _I),
+        "trr_cos_attn_bwd_bf16": ([_P] * 21 + [_I] * 7 + [_F, _P], _I),
+        "trr_pn_mlp_fwd_bf16": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
+        "trr_pn_mlp_bwd_bf16": ([_P] * 16 + [_I] * 5 + [_F, _P], _I),
+        "trr_cos_attn_bf16_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_pn_mlp_bf16_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "jpeg_block": {
         "trr_jpeg_planes": ([_P, _I] + ([_P] * 3 + [_I] * 2) * 3 + [_P], _I),
