@@ -7,7 +7,9 @@ with the DUnet discriminator (swinir_m_gan.yml), and bf16 training as
 the fidelity templates of SwinIR-M, HAT-M, DAT, SwinIR-L and SRFormerV2,
 the GAN templates of SwinIR-M, HAT-M, DAT and SRFormerV2, the OTF
 template of SwinIR-M, and Swin2SR's fidelity, GAN and OTF templates ship
-it.
+it; then the conv families (SPAN-S, SPANPlus, Compact, ESRGAN) served and
+trained as their templates ship, and two of the JAX bench's workloads
+(esrgan_gan with hsluv and cosim; span_s from the device-memory cache).
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -49,8 +51,9 @@ failure:
              forward's; #4 at the OTF path's block (B=8, 32x32) timed.
 8. train   - `trainner_redux_tpu_torch.train.run` on SwinIR-M 4x at full
              width and depth: 16 seeded 512x512 HR images, batch 8 of 64x64
-             LR crops, L1, AdamW 2e-4, EMA 0.999, fp32, 30 steps and a
-             checkpoint, counting launches; the EMA checkpoint then serves
+             LR crops, L1, AdamW 2e-4, EMA 0.999, fp32, 6 steps
+             (FP32_STEPS; 30 until PR 21) and a checkpoint, counting
+             launches; the EMA checkpoint then serves
              through `test.run` with the strict load.
 9. train branches - one forward and backward from equal weights and batch
              through the kernel branch and the plain branch; losses and
@@ -66,7 +69,7 @@ failure:
              #7's device time by stage and their times against both bounds.
 12. hat path - `test.run` on a seeded HAT-M 4x and the 4 images, counting
              launches (36 window-MHSA and 42 MLP kernels an image).
-13. hat train - `train.run` on HAT-M 4x as phase 8 (30 steps), counting
+13. hat train - `train.run` on HAT-M 4x as phase 8 (6 steps), counting
              36 + 36 window-MHSA and 42 + 42 MLP launches a step.
 14. hat train branches - one forward and backward of HAT-M, and one of
              SwinIR-M's unfused branch (TRAINNER_FUSED_BLOCK=0), each through
@@ -86,7 +89,7 @@ failure:
              image's forward timed.
 18. dat train - `train.run` on DAT 4x as `dat_fidelity.yml` has it (batch
              8 of 48x48 LR crops, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999) in
-             fp32, 30 steps, counting 36 + 36 rect launches a step; the EMA
+             fp32, 6 steps, counting 36 + 36 rect launches a step; the EMA
              checkpoint then serves with the strict load.
 19. dat train branches - one forward and backward of DAT 4x (48x48 LR)
              through the kernels and the plain branch; losses and gradients
@@ -111,7 +114,7 @@ failure:
              (TRAINNER_FUSED_BLOCK=0), which must agree.
 23. swin2sr train - `train.run` on Swin2SR-M 4x as `swin2sr_m_fidelity.yml`
              has it (batch 8 of 48x48 LR crops, L1 + MS-SSIM, AdamW 2e-4,
-             EMA 0.999) in fp32, 30 steps, counting 36 launches of each of
+             EMA 0.999) in fp32, 6 steps, counting 36 launches of each of
              #11-#14 a step; the EMA checkpoint then serves with the strict
              load.
 24. swin2sr train branches - one forward and backward of Swin2SR-M through
@@ -162,7 +165,7 @@ failure:
 32. srformerv2 train - `train.run` on SRFormerV2 4x as
              `srformerv2_fidelity.yml` has it (L1 + MS-SSIM, AdamW 2e-4, EMA
              0.999) in fp32 at batch 8 of 48x48 LR crops (the template's 16
-             halved), 30 steps, counting 18 launches of each of #1, #6, #2
+             halved), 6 steps, counting 18 launches of each of #1, #6, #2
              and #7 a step; the EMA checkpoint then serves with the strict
              load.
 33. srformerv2 train branches - one forward and backward of SRFormerV2
@@ -198,7 +201,7 @@ failure:
              each spectral norm's refreshed (u, v), and G's gradients from
              the plain branch's gradient at G's output (VGG19's kinks turn
              the branches' rounding into larger differences there; printed).
-38. gan train - `train.run` of that config, 30 steps from 16 seeded
+38. gan train - `train.run` of that config, 6 steps from 16 seeded
              512x512 HR images, counting #4/#5 (36 + 36 a step); every log
              finite; D's parameters and (u, v) moved; the EMA checkpoint
              serves with the strict load and net_d_30 loads back strictly
@@ -320,6 +323,34 @@ failure:
              swin2sr_m_gan.yml and swin2sr_m_otf.yml less its MS-SSIM, as
              shipped: every log finite, each step's bf16 launches counted.
 
+58. conv serve - `test.run` on seeded SPAN-S, SPANPlus, Compact and
+             ESRGAN 4x and ESRGAN 2x (pixel-unshuffle; 2x images), full
+             width and depth, on the 4 images: no hand-written kernel
+             launched (cuDNN convolutions); each 128x128 forward's device
+             ms (CUDA graph replay, fp32); SPAN-S's folded eval form
+             against its train form, FOLD_TOL of the output's largest.
+59. span_s train - `train.run` of span_s_fidelity.yml as shipped (bf16,
+             batch 16 of 48x48 LR, L1 + MS-SSIM, its validation through the
+             fp32 twin), 30 steps; one step profiled (device ms, launches,
+             busy share, peak memory); one fp32 step (TF32 off) on the card
+             against the CPU's (BRANCH_LOSS_TOL, BRANCH_GRAD_TOL); two
+             3-step `deterministic: true` runs bit for bit.
+60. conv templates - six bf16 steps each of spanplus_fidelity.yml
+             (DySample with its end convolution), compact_fidelity.yml,
+             esrgan_fidelity.yml (phase 43's profile), esrgan_gan.yml
+             (phase 39's G/D profile) and compact_otf.yml less its
+             MS-SSIM, queue_size twice its batch (bench.py's; 120 is no
+             multiple of 16), as shipped: every log finite.
+61-62. conv bench - through `train.run`: bench.py's esrgan_gan (ESRGAN +
+             DUnet in bf16; MS-SSIM 0.5, perceptual charbonnier 0.01, hsluv
+             charbonnier 1.0, cosim 1.0, vanilla GAN 0.1; optim_d AdamW
+             1e-4; no remat), six steps, hsluv's terms logged apart; its
+             span_s (batch 16 of 64x64 LR, charbonnier) with `device_cache:
+             true`, 30 steps, beside the same run from the host loader:
+             each step end to end, device ms and busy share (the last two
+             steps profiled), and a count that the cache cut every batch on
+             the card.
+
 Each phase prints its seconds, and the run its total. Then one JSON line
 of kernel records and, last, the device JSON line.
 Scratch files go to `chiprun_out/chip_smoke/` under the repo.
@@ -368,6 +399,7 @@ JPEG_TOL = 1e-3
 N_IMAGES = 4
 BLOCKS = 36
 TRAIN_STEPS = 30
+FP32_STEPS = 6  # the fp32 train.run phases 8, 13, 18, 23, 32 and 38 (30 until PR 21)
 TRAIN_WARMUP = 5  # steps left out of the per-step median
 
 # HAT-M's block: the same widths, 16x16 windows (n = 256), 42 MLP halves
@@ -1101,9 +1133,9 @@ def read_counts() -> dict[str, int]:
 
 
 def make_dataset(root: Path, seed: int,
-                 sizes=((128, 128),) * 3 + ((100, 120),)) -> tuple[Path, Path]:
-    """Seeded smooth HR images and their 4x4 box-average LR, as PNGs; one
-    image for each LR (height, width) of `sizes`."""
+                 sizes=((128, 128),) * 3 + ((100, 120),), scale: int = 4) -> tuple[Path, Path]:
+    """Seeded smooth HR images and their `scale` x `scale` box-average LR,
+    as PNGs; one image for each LR (height, width) of `sizes`."""
     import numpy as np
 
     from trainner_redux_tpu_torch.utils.img_util import imwrite
@@ -1113,7 +1145,7 @@ def make_dataset(root: Path, seed: int,
     hr_dir.mkdir(parents=True, exist_ok=True)
     lr_dir.mkdir(parents=True, exist_ok=True)
     for i, (lh, lw) in enumerate(sizes):
-        hh, hw = 4 * lh, 4 * lw
+        hh, hw = scale * lh, scale * lw
         yy, xx = np.mgrid[0:hh, 0:hw] / 64.0
         img = np.zeros((hh, hw, 3))
         for _ in range(6):
@@ -1122,14 +1154,14 @@ def make_dataset(root: Path, seed: int,
         img += 0.02 * rng.standard_normal(img.shape)
         hr = np.clip(img + 0.5, 0, 1)
         hr8 = (hr * 255).round().astype(np.uint8)
-        lr = hr8.astype(np.float64).reshape(lh, 4, lw, 4, 3).mean(axis=(1, 3))
+        lr = hr8.astype(np.float64).reshape(lh, scale, lw, scale, 3).mean(axis=(1, 3))
         imwrite(hr8, str(hr_dir / f"img{i}.png"))
         imwrite((lr / 255.0).astype(np.float32), str(lr_dir / f"img{i}.png"))
     return hr_dir, lr_dir
 
 
 def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int,
-                  network: str = "swinir_m"):
+                  network: str = "swinir_m", scale: int = 4):
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
@@ -1137,7 +1169,7 @@ def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: in
     metric = {"crop_border": 4, "test_y_channel": True}
     raw = {
         "name": name,
-        "scale": 4,
+        "scale": scale,
         "num_gpu": 1,
         "manual_seed": seed,
         "network_g": {"type": network},
@@ -1161,7 +1193,7 @@ def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: in
 
 
 def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: dict,
-          network: str = "swinir_m") -> dict:
+          network: str = "swinir_m", scale: int = 4) -> dict:
     """One run of the serving entry point with kernel counts read around it."""
     import math
 
@@ -1169,7 +1201,7 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
 
     from trainner_redux_tpu_torch import test as port_test
 
-    opt = smoke_options(name, weights, hr_dir, lr_dir, seed, network)
+    opt = smoke_options(name, weights, hr_dir, lr_dir, seed, network, scale)
     with fused_env(env):
         t0 = time.perf_counter()
         reset_counts()
@@ -1445,7 +1477,8 @@ def phase_train_kernels() -> dict:
 
 
 def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str = "swinir_m",
-                  lq: int = TH, losses: tuple[str, ...] = ("l1loss",), **extra):
+                  lq: int = TH, losses: tuple[str, ...] = ("l1loss",), steps: int = TRAIN_STEPS,
+                  **extra):
     from trainner_redux_tpu_torch.utils.options import resolve_options
     from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
     from trainner_redux_tpu_torch.utils.schema import decode
@@ -1462,7 +1495,7 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str
             "num_worker_per_gpu": 4,
         }},
         "train": {
-            "total_iter": TRAIN_STEPS, "ema_decay": 0.999,
+            "total_iter": steps, "ema_decay": 0.999,
             "optim_g": {"type": "AdamW", "lr": 2e-4, "betas": [0.9, 0.99]},
             "losses": [{"type": t, "loss_weight": 1.0} for t in losses],
         },
@@ -1476,10 +1509,11 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
                 tag: str = "train", per_step: dict[str, int] | None = None,
                 serve_want: dict[str, int] | None = None, lq: int = TH,
                 losses: tuple[str, ...] = ("l1loss",), opt=None,
-                more_launches=None, check=None, batch_size: int = TB) -> dict[str, int]:
+                more_launches=None, check=None, batch_size: int = TB,
+                steps: int = TRAIN_STEPS) -> dict[str, int]:
     """The training entry point on `network` (batch `batch_size` of lq x lq
-    LR crops, the pair `losses`; `opt`, when given, are the run's options,
-    at that batch); returns
+    LR crops, the pair `losses`, `steps` steps; `opt`, when given, are the
+    run's options, at that batch and step count); returns
     the launch counts of its run, which must be `per_step` times the steps
     and what `more_launches()` returns after the run. With `check`, every
     step's logs must be finite, and `check(model, opt)` runs before the
@@ -1492,13 +1526,14 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     from trainner_redux_tpu_torch import train as port_train
     from trainner_redux_tpu_torch.models.sr_model import SRModel
 
-    per_step = per_step or {"fused_swin_block_train": BLOCKS,
-                            "fused_swin_block_train_backward": BLOCKS}
-    serve_want = serve_want or {"fused_attn_block": BLOCKS * N_IMAGES,
-                                "fused_ln_mlp": BLOCKS * N_IMAGES}
+    if per_step is None:
+        per_step = {"fused_swin_block_train": BLOCKS, "fused_swin_block_train_backward": BLOCKS}
+    if serve_want is None:
+        serve_want = {"fused_attn_block": BLOCKS * N_IMAGES, "fused_ln_mlp": BLOCKS * N_IMAGES}
     if opt is None:
         hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
-        opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network, lq, losses)
+        opt = train_options(f"{network}_x4_train", hr_dir, lr_dir, seed, network, lq, losses,
+                            steps)
     ends, totals = [], []
     original = SRModel.optimize_parameters
 
@@ -1524,30 +1559,31 @@ def phase_train(seed: int, network: str = "swinir_m", label: str = "SwinIR-M",
     finally:
         SRModel.optimize_parameters = original
     peak = torch.cuda.max_memory_allocated()
-    steps = len(ends)
-    per = [b - a for a, b in zip(ends[TRAIN_WARMUP:], ends[TRAIN_WARMUP + 1:])]
+    ran = len(ends)
+    warm = min(TRAIN_WARMUP, steps - 3)  # a short run keeps two intervals
+    per = [b - a for a, b in zip(ends[warm:], ends[warm + 1:])]
     med = statistics.median(per)
     q = statistics.quantiles(per, n=4)
     say(f"[{tag}] {label} 4x, batch {batch_size} of {lq}x{lq} LR, {' + '.join(losses)}, "
-        f"{steps} steps in {secs:.2f} s "
+        f"{ran} steps in {secs:.2f} s "
         f"(model build and data included): median {med * 1e3:.2f} ms per step "
-        f"(quartiles {q[0] * 1e3:.2f} / {q[2] * 1e3:.2f} ms, steps {TRAIN_WARMUP + 1}-{steps}), "
+        f"(quartiles {q[0] * 1e3:.2f} / {q[2] * 1e3:.2f} ms, steps {warm + 1}-{ran}), "
         f"{batch_size / med:.2f} images/s, max_memory_allocated {peak / 2**30:.2f} GiB")
     say(f"[{tag}] l_g_total per step: first {totals[0]:.5f}, last {totals[-1]:.5f}; "
         f"launches {counts}")
-    if steps != TRAIN_STEPS or model.step != TRAIN_STEPS:
-        fail(f"{tag} ran {steps} steps (model step {model.step}), expected {TRAIN_STEPS}")
+    if ran != steps or model.step != steps:
+        fail(f"{tag} ran {ran} steps (model step {model.step}), expected {steps}")
     if not all(math.isfinite(v) for v in totals):
         fail(f"a training loss is not finite: {totals}")
     if bad_logs:
         fail(f"{tag}: logs not finite: {bad_logs[:8]}")
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want = {k: v * steps for k, v in per_step.items()}
     want.update(more_launches() if more_launches else {})
     check_counts(f"{tag} ({label})", counts, want)
-    ema = Path(opt.path.models) / f"net_g_ema_{TRAIN_STEPS}.safetensors"
+    ema = Path(opt.path.models) / f"net_g_ema_{steps}.safetensors"
     if not ema.exists():
         fail(f"no EMA checkpoint at {ema}")
-    state = Path(opt.path.training_states) / f"{TRAIN_STEPS}.state"
+    state = Path(opt.path.training_states) / f"{steps}.state"
     if not (state.exists() and Path(f"{state}.meta.json").exists()):
         fail(f"no training state at {state}")
     eval_hr, eval_lr = make_dataset(OUT / "data", seed)
@@ -3138,12 +3174,13 @@ GAN_DATA = OUT / "gan_data"
 
 
 def gan_options(name: str, hr_dir: Path, lr_dir: Path, seed: int,
-                template: Path = GAN_TEMPLATE, as_shipped: bool = False, **extra):
+                template: Path = GAN_TEMPLATE, as_shipped: bool = False,
+                steps: int = TRAIN_STEPS, **extra):
     """`template`, configs/_templates/train/SwinIR/swinir_m_gan.yml unless
     said (SwinIR-M 4x, batch 8 of 48x48 LR crops, network_d dunet, L1 +
     MS-SSIM + perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA
     0.999, its MultiStepLR, bf16), in fp32 (phases 37-40) or `as_shipped`
-    (bf16, phase 52), on `hr_dir` / `lr_dir`, 30 steps, without
+    (bf16, phase 52), on `hr_dir` / `lr_dir`, `steps` steps, without
     validation."""
     import yaml
 
@@ -3158,7 +3195,7 @@ def gan_options(name: str, hr_dir: Path, lr_dir: Path, seed: int,
     raw["datasets"] = {"train": {**raw["datasets"]["train"], "dataroot_gt": str(hr_dir),
                                  "dataroot_lq": str(lr_dir), "io_backend": {"type": "disk"},
                                  "num_worker_per_gpu": 4}}
-    raw["train"]["total_iter"] = TRAIN_STEPS
+    raw["train"]["total_iter"] = steps
     raw["val"]["val_enabled"] = False
     raw["logger"] = {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}
     raw.update(extra)
@@ -3289,9 +3326,10 @@ def phase_gan_branches(seed: int) -> None:
 
 
 def phase_gan_train(seed: int, as_shipped: bool = False, tag: str = "gan train",
-                    per_step: dict[str, int] | None = None) -> dict[str, int]:
-    """`train.run` of swinir_m_gan.yml (fp32, or `as_shipped` in bf16), 30
-    steps from 16 seeded 512x512 HR images, counting #4/#5 (36 + 36 a step,
+                    per_step: dict[str, int] | None = None,
+                    steps: int = TRAIN_STEPS) -> dict[str, int]:
+    """`train.run` of swinir_m_gan.yml (fp32, or `as_shipped` in bf16),
+    `steps` steps from 16 seeded 512x512 HR images, counting #4/#5 (36 + 36 a step,
     or `per_step`); every log finite; D's parameters and every (u, v) moved
     from D's seeded init; the EMA checkpoint serves with the strict load,
     and net_d_<iter> loads back strictly into DUnet."""
@@ -3302,7 +3340,7 @@ def phase_gan_train(seed: int, as_shipped: bool = False, tag: str = "gan train",
     gan_vgg_line(tag)
     hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
     opt = gan_options("swinir_m_x4_gan" + ("_bf16" if as_shipped else ""), hr_dir, lr_dir, seed,
-                      as_shipped=as_shipped)
+                      as_shipped=as_shipped, steps=steps)
     dtype = torch.bfloat16 if as_shipped else torch.float32
 
     def build_network(o):
@@ -3321,8 +3359,8 @@ def phase_gan_train(seed: int, as_shipped: bool = False, tag: str = "gan train",
         still = [k for k, v in now.items() if not k.endswith("init_pos")
                  and torch.equal(v.cpu(), start[k])]
         if still:
-            fail(f"{tag}: D did not move in {TRAIN_STEPS} steps: {still[:6]}")
-        path = Path(opt.path.resume_models) / f"net_d_{TRAIN_STEPS}.safetensors"
+            fail(f"{tag}: D did not move in {steps} steps: {still[:6]}")
+        path = Path(opt.path.resume_models) / f"net_d_{steps}.safetensors"
         if not path.exists():
             fail(f"{tag}: no {path.name} under resume_models")
         fresh = build_network(dict(opt.network_d))
@@ -3338,7 +3376,7 @@ def phase_gan_train(seed: int, as_shipped: bool = False, tag: str = "gan train",
 
     label = "SwinIR-M GAN" + (" bf16 (swinir_m_gan.yml)" if as_shipped else "")
     return phase_train(seed, "swinir_m", label, tag, per_step=per_step, lq=GAN_LQ,
-                       losses=GAN_LOSSES, opt=opt, check=check)
+                       losses=GAN_LOSSES, opt=opt, check=check, steps=steps)
 
 
 def phase_gan_profile(seed: int, template: Path = GAN_TEMPLATE, as_shipped: bool = False,
@@ -3354,7 +3392,8 @@ def phase_gan_profile(seed: int, template: Path = GAN_TEMPLATE, as_shipped: bool
     loss's two VGG19 passes each profiled alone on the step's inputs, and of
     one DUnet pass its three DySample upsamplers. The card's busy share is
     the device time over the host time of a whole step without the profiler
-    (the mean of three); peak memory over the six steps."""
+    (the mean of three); peak memory over the six steps. The logs of the
+    warm-up steps and the last timed step must be finite."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3385,6 +3424,7 @@ def phase_gan_profile(seed: int, template: Path = GAN_TEMPLATE, as_shipped: bool
     for i in range(2):
         model.feed_data(batch)
         model.optimize_parameters(i + 1)
+        check_finite_logs(tag, model, i + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(3):
@@ -3392,6 +3432,7 @@ def phase_gan_profile(seed: int, template: Path = GAN_TEMPLATE, as_shipped: bool
         model.optimize_parameters(3 + i)
     torch.cuda.synchronize()
     step_host = (time.perf_counter() - t0) / 3 * 1e3
+    check_finite_logs(tag, model, 5)
 
     d_step = model._discriminator_step
     held = {}
@@ -3810,6 +3851,15 @@ def bf16_train_check(tag: str):
     return check
 
 
+def check_finite_logs(tag: str, model, step: int) -> None:
+    """Every log of `model`'s last step is finite."""
+    import math
+
+    bad = [k for k, v in model.log_dict.items() if not math.isfinite(float(v))]
+    if bad:
+        fail(f"[{tag}] logs not finite at step {step}: {bad}")
+
+
 def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
                        name: str = "swinir_m_x4_bf16_profile",
                        per_step: dict[str, int] = BF16_TRAIN_STEP, tag: str = "bf16 train profile",
@@ -3817,7 +3867,8 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
     """43 (and 49, 51). Device time by kernel of one bf16 step of
     `template`'s run (after two warm-up steps; `batch_size` 48x48 LR crops),
     its busy share and launches (`per_step` and no others), the bf16 forms'
-    stages summed; the table to chip_smoke/`file`."""
+    stages summed; the table to chip_smoke/`file`. The logs of the warm-up,
+    profiled and last steps must be finite."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3834,12 +3885,14 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
     for i in range(2):
         model.feed_data(batch)
         model.optimize_parameters(i + 1)
+        check_finite_logs(tag, model, i + 1)
     torch.cuda.synchronize()
     reset_counts()
     model.feed_data(batch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.optimize_parameters(3)
         torch.cuda.synchronize()
+    check_finite_logs(tag, model, 3)
     check_counts(f"{tag} step", read_counts(), per_step)
     events = device_events(prof)
     check_retired(tag, events)
@@ -3855,6 +3908,7 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
         model.optimize_parameters(4 + i)
     torch.cuda.synchronize()
     step = (time.perf_counter() - t0) / 3
+    check_finite_logs(tag, model, 6)
     by_stage: dict[str, float] = {}
     for e in events:
         st = stage_of(e.key) if "trr::" in e.key and "bf16" in e.key else "other"
@@ -4551,7 +4605,8 @@ def phase_bf16_gan(seed: int) -> None:
                           per_step=per_step, detail=False)
 
 
-def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF16_TEMPLATE):
+def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF16_TEMPLATE,
+                     **extra):
     """`template`, configs/_templates/train/SwinIR/swinir_m_otf.yml unless
     said, as shipped (bf16,
     batch 8 of gt_size 128, the template's degradation, DUnet, L1 +
@@ -4572,6 +4627,7 @@ def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF
     raw["train"]["total_iter"] = TRAIN_STEPS
     raw["val"]["val_enabled"] = False
     raw["logger"] = {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}
+    raw.update(extra)
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
 
@@ -4856,6 +4912,327 @@ def phase_swin2sr_bf16_templates(seed: int) -> None:
     shutil.rmtree(OUT / "otf_data")
 
 
+# ---------------------------------------------------------------------------
+# 58-62. the conv families: SPAN-S, SPANPlus, Compact and ESRGAN
+# ---------------------------------------------------------------------------
+
+# phase 58's served networks: (type, label, scale)
+CONV_SERVE = (("span_s", "SPAN-S", 4), ("spanplus", "SPANPlus", 4), ("compact", "Compact", 4),
+              ("esrgan", "ESRGAN", 4), ("esrgan", "ESRGAN", 2))
+FOLD_TOL = 1e-4  # SPAN-S's folded eval form against its train form, of the output's largest
+SPAN_S_FID = TEMPLATES / "SPAN" / "span_s_fidelity.yml"
+CONV_BATCH = 16  # span_s_fidelity.yml's batch
+CPU_STEP_BATCH = 4  # phase 59's fp32 step on the card and on the CPU
+# phase 60's fidelity templates, six bf16 steps each (ESRGAN's in its profile)
+CONV_SIX = (TEMPLATES / "SPANPlus" / "spanplus_fidelity.yml",
+            TEMPLATES / "Compact" / "compact_fidelity.yml")
+ESRGAN_FID = TEMPLATES / "ESRGAN" / "esrgan_fidelity.yml"
+ESRGAN_GAN = TEMPLATES / "ESRGAN" / "esrgan_gan.yml"
+COMPACT_OTF = TEMPLATES / "Compact" / "compact_otf.yml"
+BENCH_LQ = 64  # bench.py's lq for span_s and esrgan_gan
+BENCH_STEPS = {"esrgan_gan": 6, "span_s": TRAIN_STEPS}
+BENCH_PROFILED = 2  # the last steps of span_s's bench runs, profiled
+# bench.py's esrgan_gan loss mix (:141-151) and its optim_d (:152-153)
+ESRGAN_GAN_LOSSES = [
+    {"type": "mssimloss", "loss_weight": 0.5},
+    {"type": "perceptualloss", "criterion": "charbonnier", "loss_weight": 0.01},
+    {"type": "hsluvloss", "criterion": "charbonnier", "loss_weight": 1.0},
+    {"type": "cosimloss", "loss_weight": 1.0},
+    {"type": "ganloss", "gan_type": "vanilla", "loss_weight": 0.1},
+]
+ESRGAN_GAN_OPTIM_D = {"type": "AdamW", "lr": 1e-4, "weight_decay": 0, "betas": [0.9, 0.99]}
+
+
+def phase_conv_serve(seed: int) -> None:
+    """58. `test.run` on seeded SPAN-S, SPANPlus, Compact and ESRGAN at 4x
+    and ESRGAN at 2x (the pixel-unshuffle path; its images 2x), full width
+    and depth, on the 4 images (three 128x128 LR, one 100x120): PNGs and
+    finite PSNR/SSIM, no hand-written kernel launched (the convolutions are
+    cuDNN's); each network's 128x128 forward timed on the device (CUDA
+    graph replay, fp32, TF32 off). SPAN-S's folded eval form against its
+    train form on the same weights and input (fp32, TF32 off): within
+    FOLD_TOL of the output's largest."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+    from trainner_redux_tpu_torch.models.sr_model import fp32_math
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    data = {4: make_dataset(OUT / "data", seed), 2: make_dataset(OUT / "data_x2", seed, scale=2)}
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
+    for network, label, scale in CONV_SERVE:
+        net = build_network({"type": network, "scale": scale}).init_weights(
+            torch.Generator().manual_seed(seed))
+        weights = OUT / f"{network}_x{scale}_seeded.pth"
+        torch.save(net.state_dict(), weights)
+        served = serve(f"{network}_x{scale}", weights, *data[scale], seed, {}, network, scale)
+        check_counts(f"{label} {scale}x serving", served["counts"], {})
+        weights.unlink()
+        net = net.cuda().eval()
+        with torch.no_grad(), fp32_math():
+            ms = graph_ms(lambda: net(x), iters=5, replays=4)
+        say(f"[conv serve] {label} {scale}x: one 128x128 forward {ms:.3f} ms on the device "
+            f"(CUDA graph replay, fp32, TF32 off; {type(net).__name__}, "
+            f"{sum(p.numel() for p in net.parameters()):,d} parameters)")
+        if network == "span_s":
+            with torch.no_grad(), fp32_math():
+                trained = net.train()(x)
+                folded = net.eval()(x)
+            err = float((trained - folded).abs().max() / folded.abs().max())
+            say(f"[conv serve] SPAN-S's 20 Conv3XCs folded (eval) against their 1x1-3x3-1x1 "
+                f"chains (train): max |diff| {err:.3g} of the output's largest (limit "
+                f"{FOLD_TOL:g})")
+            if not err <= FOLD_TOL:
+                fail(f"SPAN-S's folded form is {err:.3g} off its train form")
+    shutil.rmtree(OUT / "data_x2")
+
+
+def phase_span_s_train(seed: int) -> None:
+    """59. `train.run` of span_s_fidelity.yml as shipped (bf16, batch 16 of
+    48x48 LR, L1 + MS-SSIM, AdamW 5e-4, EMA 0.999, its validation), 30
+    steps from 16 seeded 512x512 HR images: no hand-written kernel launched,
+    every log finite, the validation through the fp32 twin (PSNR/SSIM), the
+    EMA checkpoint served with the strict load; one step profiled (device
+    ms, launches, busy share, peak memory); one fp32 step (TF32 off) on the
+    card against the same step on the CPU from the same weights and batch
+    (4 crops): the loss within BRANCH_LOSS_TOL relative, each gradient
+    within BRANCH_GRAD_TOL of its largest; two 3-step bf16 runs with
+    `deterministic: true`, bit for bit."""
+    import torch
+
+    from trainner_redux_tpu_torch.models import build_model
+
+    tag = "span_s train"
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    val_hr, val_lr = make_dataset(OUT / "data", seed)
+    opt = fidelity_options("span_s_x4_fidelity_bf16", hr_dir, lr_dir, seed, (val_hr, val_lr),
+                           template=SPAN_S_FID)
+    phase_train(seed, "span_s", "SPAN-S bf16 (span_s_fidelity.yml)", tag, per_step={},
+                serve_want={}, lq=FID_LQ, losses=FID_LOSSES, opt=opt,
+                check=bf16_train_check(tag), batch_size=CONV_BATCH)
+    phase_bf16_profile(seed, SPAN_S_FID, "span_s_x4_bf16_profile", {}, "span_s profile",
+                       "profile_span_s_train.txt", CONV_BATCH)
+
+    opt = fidelity_options("span_s_x4_fp32_step", OUT, OUT, seed, template=SPAN_S_FID,
+                           compute_dtype="float32")
+    batch = gan_batch(seed, CPU_STEP_BATCH, FID_LQ)
+    steps = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(opt, device=device)
+        model.feed_data(batch)
+        model.optimize_parameters(1)
+        steps[device] = (float(model.log_dict["l_g_total"]),
+                         {k: p.grad.detach().cpu() for k, p in model.net_g.named_parameters()})
+    (loss_card, g_card), (loss_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max((float((g_card[k] - g).abs().max() / g.abs().max()), k) for k, g in g_cpu.items())
+    say(f"[{tag}] one fp32 step (TF32 off, {CPU_STEP_BATCH} crops) on the card against the CPU: "
+        f"loss {loss_card:.6f} against {loss_cpu:.6f} ({rel:.2e} relative, limit "
+        f"{BRANCH_LOSS_TOL:g}); the farthest of {len(g_cpu)} gradients {worst[0]:.2e} of its "
+        f"largest ({worst[1]}; limit {BRANCH_GRAD_TOL:g})")
+    if not rel <= BRANCH_LOSS_TOL or not worst[0] <= BRANCH_GRAD_TOL:
+        fail(f"{tag}: the card's fp32 step is off the CPU's")
+
+    opt = fidelity_options("span_s_x4_deterministic", OUT, OUT, seed, template=SPAN_S_FID,
+                           deterministic=True)
+    batches = [gan_batch(seed + i, CONV_BATCH, FID_LQ) for i in range(3)]
+    runs = []
+    for _ in range(2):
+        model = build_model(opt, device="cuda")
+        for i, b in enumerate(batches):
+            model.feed_data(b)
+            model.optimize_parameters(i + 1)
+        runs.append(([float(v) for v in model.log_dict.values()],
+                     [p.detach().clone() for p in model.net_g.parameters()]))
+    (logs_a, params_a), (logs_b, params_b) = runs
+    if logs_a != logs_b or not all(torch.equal(a, b) for a, b in zip(params_a, params_b)):
+        fail(f"{tag}: two deterministic 3-step bf16 runs differ")
+    say(f"[{tag}] two 3-step bf16 runs with deterministic: true: bit for bit in all "
+        f"{len(logs_a)} logs and {len(params_a)} parameters")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_conv_templates(seed: int) -> None:
+    """60. Six bf16 steps each, as shipped, of spanplus_fidelity.yml
+    (DySample with its end convolution), compact_fidelity.yml,
+    esrgan_fidelity.yml (its profile's: device ms, launches, busy share),
+    esrgan_gan.yml (DUnet, VGG19 at its seeded random init; its GAN
+    profile's: G and D device ms apart) and compact_otf.yml with its
+    MS-SSIM cut and its queue_size set to twice its batch, as bench.py's OTF
+    workloads set it (:497; the default 120 is no multiple of batch 16,
+    which both packages refuse; the degradation on #15): every log finite,
+    no hand-written kernel launched but OTF's #15."""
+    for template in CONV_SIX:
+        opt = fidelity_options(f"{template.stem}_bf16_six", OUT, OUT, seed, template=template)
+        train = opt.datasets["train"]
+        six_bf16_steps(f"{template.stem} bf16", opt,
+                       gan_batch(seed, train.batch_size_per_gpu, train.lq_size), {})
+    # ESRGAN's six steps are its profile's (two warm-up, one profiled, three
+    # timed), every log checked
+    phase_bf16_profile(seed, ESRGAN_FID, "esrgan_x4_bf16_profile", {}, "esrgan profile",
+                       "profile_esrgan_train.txt", TB)
+    gan_vgg_line("esrgan_gan bf16")
+    phase_gan_profile(seed, ESRGAN_GAN, as_shipped=True, tag="esrgan_gan bf16 profile",
+                      per_step={}, detail=False)
+    hr_dir, _ = make_dataset(OUT / "otf_data", seed, ((128, 128),) * 16)
+    batch = 16  # compact_otf.yml's: its default queue_size 120 is no multiple of it
+    otf = otf_bf16_options("compact_x4_otf_bf16_six", hr_dir, seed, template=COMPACT_OTF,
+                           queue_size=2 * batch)
+    if otf.datasets["train"].batch_size_per_gpu != batch:
+        fail(f"compact_otf.yml's batch is {otf.datasets['train'].batch_size_per_gpu}, not {batch}")
+    six_bf16_steps("compact_otf bf16", otf, otf_batch(otf, seed, batch), {})
+    shutil.rmtree(OUT / "otf_data")
+
+
+def bench_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, workload: str, **ds):
+    """bench.py's `workload` (span_s: batch 16, lq 64, charbonnier;
+    esrgan_gan: batch 8, lq 64, ESRGAN_GAN_LOSSES with DUnet and
+    ESRGAN_GAN_OPTIM_D, without remat) through the port's options: 4x, the
+    JAX package's default compute dtype (bf16), AdamW 2e-4, EMA 0.999,
+    BENCH_STEPS[workload] steps, no validation; `ds` adds to the train
+    dataset (device_cache)."""
+    from trainner_redux_tpu_torch.utils.options import resolve_options
+    from trainner_redux_tpu_torch.utils.redux_options import ReduxOptions
+    from trainner_redux_tpu_torch.utils.schema import decode
+
+    gan = workload == "esrgan_gan"
+    train = {"total_iter": BENCH_STEPS[workload], "ema_decay": 0.999,
+             "optim_g": {"type": "AdamW", "lr": 2e-4, "betas": [0.9, 0.99]},
+             "losses": ESRGAN_GAN_LOSSES if gan else [{"type": "charbonnierloss",
+                                                       "loss_weight": 1.0}]}
+    raw = {"name": name, "scale": 4, "num_gpu": 1, "manual_seed": seed, "path": {},
+           "network_g": {"type": "esrgan" if gan else "span_s"},
+           "datasets": {"train": {
+               "name": "bench", "type": "PairedImageDataset", "dataroot_gt": str(hr_dir),
+               "dataroot_lq": str(lr_dir), "io_backend": {"type": "disk"}, "lq_size": BENCH_LQ,
+               "batch_size_per_gpu": 8 if gan else CONV_BATCH, "num_worker_per_gpu": 4, **ds}},
+           "train": {**train, **({"optim_d": ESRGAN_GAN_OPTIM_D} if gan else {})},
+           "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}}
+    if gan:
+        raw["network_d"] = {"type": "dunet"}
+    return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
+
+
+def bench_run(opt, tag: str, label: str, profiled: int) -> dict:
+    """`train.run` of `opt`, timing every step end to end (the loader or the
+    device cache, `feed_data` and the step), its last `profiled` steps (if
+    any) under torch.profiler: the median step of the unprofiled ones after
+    the warm-up, the device ms and launches a step of the profiled ones, the
+    busy share (device ms over the median step), peak memory; every log
+    finite, no hand-written kernel launched. Returns the model's last logs
+    and the numbers."""
+    import math
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_redux_tpu_torch import train as port_train
+    from trainner_redux_tpu_torch.models.sr_model import SRModel
+
+    steps = int(opt.train.total_iter)
+    first = steps - profiled + 1
+    ends, bad, window = [], [], {}
+    original = SRModel.optimize_parameters
+
+    def wrapped(self, current_iter):
+        if current_iter == first:
+            torch.cuda.synchronize()
+            window["t0"] = time.perf_counter()
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+        original(self, current_iter)
+        bad.extend(k for k, v in self.log_dict.items() if not math.isfinite(float(v)))
+        ends.append(time.perf_counter())
+        if profiled and current_iter == steps:
+            torch.cuda.synchronize()
+            window["prof"].__exit__(None, None, None)
+
+    SRModel.optimize_parameters = wrapped
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        model = port_train.run(opt)
+        counts = read_counts()
+    finally:
+        SRModel.optimize_parameters = original
+    check_counts(tag, counts, {})
+    if bad or model.step != steps:
+        fail(f"[{tag}] {model.step} of {steps} steps; logs not finite: {bad[:8]}")
+    warm = min(TRAIN_WARMUP, first - 3)
+    per = [b - a for a, b in zip(ends[warm:first - 1], ends[warm + 1:first - 1])]
+    med = statistics.median(per) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = opt.datasets["train"].batch_size_per_gpu
+    device = busy = None
+    line = "not profiled"
+    if profiled:
+        events = device_events(window["prof"])
+        device = sum(e.self_device_time_total for e in events) / 1e3 / profiled
+        busy = device / med
+        line = (f"device {device:.3f} ms and {sum(e.count for e in events) / profiled:.0f} "
+                f"launches a step (torch.profiler, steps {first}-{steps}): the card busy "
+                f"{busy:.1%}")
+    say(f"[{tag}] {label}: {steps} steps through train.run; median {med:.2f} ms a step end to "
+        f"end (steps {warm + 1}-{first - 1}; {batch / med * 1e3:.1f} images/s); {line}; "
+        f"max_memory_allocated {peak:.2f} GiB")
+    shutil.rmtree(opt.path.experiments_root, ignore_errors=True)
+    return {"logs": {k: float(v) for k, v in model.log_dict.items()}, "ms": med,
+            "device_ms": device, "busy": busy}
+
+
+def phase_conv_bench(seed: int) -> None:
+    """61-62. Two of bench.py's workloads through the port's `train.run`:
+    esrgan_gan (ESRGAN and DUnet in bf16, the workload's loss mix with
+    hsluv and cosim, optim_d AdamW 1e-4, without remat), six steps, hsluv's
+    three terms logged apart; span_s (batch 16 of 64x64 LR, charbonnier)
+    with `device_cache: true`, 30 steps, beside the same run from the host
+    loader: each run's step end to end and busy share, and a count that
+    the cached run cut every batch on the device (and built no host
+    prefetcher's batches)."""
+    from trainner_redux_tpu_torch.data import device_cache
+
+    gan_vgg_line("esrgan_gan bench")
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    opt = bench_options("esrgan_gan_bench", hr_dir, lr_dir, seed, "esrgan_gan")
+    res = bench_run(opt, "esrgan_gan bench", "ESRGAN + DUnet bf16, batch 8 of 64x64 LR, "
+                    "bench.py's esrgan_gan losses", 0)
+    parts = [f"l_g_hsluv_{k}" for k in ("hue", "saturation", "lightness")]
+    missing = [k for k in (*parts, "l_g_cosim", "l_g_gan", "l_d_real") if k not in res["logs"]]
+    if missing:
+        fail(f"[esrgan_gan bench] not logged: {missing}")
+    say("[esrgan_gan bench] last step: " + ", ".join(f"{k} {v:.5f}"
+                                                    for k, v in res["logs"].items()))
+
+    feeders = []
+    real_init = device_cache.DeviceCacheFeeder.__init__
+
+    def recorded(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        feeders.append(self)
+
+    runs = {}
+    device_cache.DeviceCacheFeeder.__init__ = recorded
+    try:
+        for cached in (True, False):
+            source = "device cache" if cached else "host loader"
+            opt = bench_options(f"span_s_bench_{'cache' if cached else 'host'}", hr_dir, lr_dir,
+                                seed, "span_s", device_cache=cached)
+            runs[source] = bench_run(opt, "span_s bench", f"SPAN-S bf16 from the {source}, "
+                                     "batch 16 of 64x64 LR, charbonnier", BENCH_PROFILED)
+    finally:
+        device_cache.DeviceCacheFeeder.__init__ = real_init
+    if len(feeders) != 1 or feeders[0].batches_cut != BENCH_STEPS["span_s"]:
+        fail(f"[span_s bench] the cached run cut {[f.batches_cut for f in feeders]} batches on "
+             f"the device, expected one cache cutting {BENCH_STEPS['span_s']}")
+    cache, host = runs["device cache"], runs["host loader"]
+    say(f"[span_s bench] the device cache cut all {feeders[0].batches_cut} batches on the card; "
+        f"a step {cache['ms']:.2f} ms from it against {host['ms']:.2f} ms from the host loader "
+        f"(x{host['ms'] / cache['ms']:.2f}); busy {cache['busy']:.1%} against {host['busy']:.1%}")
+    shutil.rmtree(OUT / "train_data", ignore_errors=True)
+
+
 def timed(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4879,7 +5256,7 @@ def main() -> None:
     timed("branches", phase_branches, seed)
     timed("profile", phase_profile, seed)
     kernels.update(timed("train kernels", phase_train_kernels))
-    train_counts = timed("train", phase_train, seed)
+    train_counts = timed("train", phase_train, seed, steps=FP32_STEPS)
     launches.update({k: train_counts[k] for k in ("fused_swin_block_train",
                                                   "fused_swin_block_train_backward")})
     timed("train branches", phase_train_branches, seed)
@@ -4889,7 +5266,7 @@ def main() -> None:
     hat_step = {"fused_window_mhsa": HAT_BLOCKS, "fused_window_mhsa_backward": HAT_BLOCKS,
                 "fused_ln_mlp": HAT_MLPS, "fused_ln_mlp_backward": HAT_MLPS}
     hat_counts = timed("hat train", phase_train, seed, "hat_m", "HAT-M", "hat train", hat_step,
-                       hat_serving_counts())
+                       hat_serving_counts(), steps=FP32_STEPS)
     launches.update(fused_window_mhsa_ws16=hat_counts["fused_window_mhsa"],
                     fused_window_mhsa_backward=hat_counts["fused_window_mhsa_backward"],
                     fused_ln_mlp_backward=hat_counts["fused_ln_mlp_backward"])
@@ -4906,7 +5283,7 @@ def main() -> None:
     dat_step = {"fused_rect_mhsa": DAT_RECT, "fused_rect_mhsa_backward": DAT_RECT}
     dat_losses = ("l1loss", "mssimloss")
     dat_counts = timed("dat train", phase_train, seed, "dat", "DAT", "dat train", dat_step,
-                       dat_serving_counts(), DAT_LQ, dat_losses)
+                       dat_serving_counts(), DAT_LQ, dat_losses, steps=FP32_STEPS)
     launches.update({k: dat_counts[k] for k in dat_step})
     from trainner_redux_tpu_torch.archs.dat_arch import ZERO_GRAD_PARAMS
 
@@ -4921,7 +5298,8 @@ def main() -> None:
     s2_step = {k: SWIN2SR_BLOCKS for k in ("fused_cos_attn_block", "fused_cos_attn_block_backward",
                                            "fused_postnorm_mlp", "fused_postnorm_mlp_backward")}
     s2_counts = timed("swin2sr train", phase_train, seed, "swin2sr_m", "Swin2SR-M",
-                      "swin2sr train", s2_step, swin2sr_serving_counts(), S2_LQ, S2_LOSSES)
+                      "swin2sr train", s2_step, swin2sr_serving_counts(), S2_LQ, S2_LOSSES,
+                      steps=FP32_STEPS)
     launches.update({k: s2_counts[k] for k in s2_step})
     timed("swin2sr train branches", phase_timed_train_branches, seed, "swin2sr_m", "Swin2SR-M",
           "swin2sr train branches", s2_step, S2_LQ, "unfused")
@@ -4942,7 +5320,7 @@ def main() -> None:
                                       "fused_ln_mlp", "fused_ln_mlp_backward")}
     srf_counts = timed("srformerv2 train", phase_train, seed, "srformerv2", "SRFormerV2",
                        "srformerv2 train", srf_step, srformerv2_serving_counts(), SRF_LQ,
-                       S2_LOSSES)
+                       S2_LOSSES, steps=FP32_STEPS)
     launches.update(fused_attn_block_ws12=srf_counts["fused_attn_block"],
                     fused_attn_block_backward=srf_counts["fused_attn_block_backward"],
                     fused_ln_mlp_c240=srf_counts["fused_ln_mlp"],
@@ -4956,7 +5334,7 @@ def main() -> None:
     launches.update(attn_train_counts)
     timed("deterministic", phase_deterministic, seed)
     timed("gan branches", phase_gan_branches, seed)
-    timed("gan train", phase_gan_train, seed)
+    timed("gan train", phase_gan_train, seed, steps=FP32_STEPS)
     timed("gan train profile", phase_gan_profile, seed)
     timed("gan deterministic", phase_gan_deterministic, seed)
     kernels.update(timed("bf16 kernels", phase_bf16_kernels))
@@ -4987,6 +5365,10 @@ def main() -> None:
           S2_BF16_RUN[0], "swin2sr bf16 branches", S2_BF16_STEP, S2_FP32_STEP,
           tensor_check=False)
     timed("swin2sr bf16 templates", phase_swin2sr_bf16_templates, seed)
+    timed("conv serve", phase_conv_serve, seed)
+    timed("span_s train", phase_span_s_train, seed)
+    timed("conv templates", phase_conv_templates, seed)
+    timed("conv bench", phase_conv_bench, seed)
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

@@ -8,8 +8,10 @@
   of the JAX `SRModel`'s (JAX on its plain XLA path, as on a CPU it runs).
   A loader without `lq` (the OTF one) leaves them as they are, as in JAX;
   `train.run` recalibrates before its final save when the option asks.
-- a train dataset's `device_cache: true` (the JAX package's device-memory
-  feeder) is refused by name when the loader is built.
+- a train dataset's `device_cache: true` (the device-memory feeder) builds
+  its loader, and the feeder refuses, by name, a dataset above
+  TRAINNER_DEVICE_CACHE_MB instead of falling back to the host loader, as
+  the JAX package's does (the feeder itself: tests/test_torch_device_cache.py).
 """
 
 import numpy as np
@@ -97,12 +99,18 @@ def test_train_run_recalibrates_before_the_final_save(dataset, tmp_path, monkeyp
     assert calls == [(1, 3)]
 
 
-def test_device_cache_is_refused(dataset, tmp_path):  # noqa: F811
+def test_device_cache_is_refused(dataset, tmp_path, monkeypatch):  # noqa: F811
+    """Over TRAINNER_DEVICE_CACHE_MB the device cache raises by name; the
+    loader itself builds."""
     from trainner_redux_tpu_torch.data import build_dataloader, build_dataset
+    from trainner_redux_tpu_torch.data.device_cache import DeviceCacheFeeder
 
     cfg = _config(dataset)
     cfg["datasets"]["train"]["device_cache"] = True
     _, opt = _opts(tmp_path, cfg)
-    ds = build_dataset(opt.datasets["train"], seed=0)
-    with pytest.raises(NotImplementedError, match="device_cache"):
-        build_dataloader(ds, opt.datasets["train"])
+    ds_opt = opt.datasets["train"]
+    ds = build_dataset(ds_opt, seed=0)
+    loader = build_dataloader(ds, ds_opt)
+    monkeypatch.setenv("TRAINNER_DEVICE_CACHE_MB", "0.01")
+    with pytest.raises(ValueError, match="device_cache: .* exceeds TRAINNER_DEVICE_CACHE_MB"):
+        DeviceCacheFeeder(ds, ds_opt, loader.batch_size, "cpu")

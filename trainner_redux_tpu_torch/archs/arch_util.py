@@ -1,8 +1,9 @@
 """Building blocks of the ported archs (PyTorch, NCHW convolutions).
 
 Counterpart of the JAX package's archs/arch_util.py: `Conv2d` with the same
-"same"-padding convention, `bilinear_sample`, `mish`, the spectral-norm
-convolution `SNConv2d` and the DySample upsampler. Pixel shuffle and
+"same"-padding convention, channel-wise `PReLU`, `bilinear_sample`, `mish`,
+the spectral-norm convolution `SNConv2d`, the DySample upsampler (with its
+optional end convolution) and `init_conv_weights`. Pixel shuffle and
 unshuffle are torch's own (`nn.PixelShuffle`, `F.pixel_unshuffle`), whose
 channel ordering the JAX versions reproduce. Convolutions go to cuDNN, as
 the JAX package left them to XLA.
@@ -17,6 +18,8 @@ its tap sum in fp32, as the JAX package's.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 
 import torch
@@ -53,6 +56,101 @@ def in_dtype(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     if isinstance(m, nn.LayerNorm):
         return F.layer_norm(x.float(), m.normalized_shape, m.weight, m.bias, m.eps).to(x.dtype)
     return m(x)
+
+
+class PReLU(nn.Module):
+    """Channel-wise PReLU (upstream's `nn.PReLU(num_parameters=C)`, whose
+    `weight` key it keeps): where(x >= 0, x, alpha * x), alpha cast to x's
+    dtype first, as the JAX package's PReLU computes it on a bf16 x."""
+
+    def __init__(self, num_parameters: int = 1, init: float = 0.25) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((num_parameters,), init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        alpha = self.weight.to(x.dtype).view(1, -1, 1, 1)
+        return torch.where(x >= 0, x, alpha * x)
+
+
+@torch.no_grad()
+def init_conv_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """torch's default init of every convolution of `net` (weights
+    kaiming-uniform with a = sqrt(5), biases uniform in +-1/sqrt(fan_in)),
+    drawn from `generator`; returns `net`. Other parameters keep the values
+    their modules set."""
+    for m in net.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
+            if m.bias is not None:
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+    return net
+
+
+def parse_dtype(kwargs: dict) -> torch.dtype:
+    """Pop the compute dtype `build_network_cast` passes as `dtype` (a
+    torch dtype or its name; fp32 when absent) and check it."""
+    dtype = kwargs.pop("dtype", None) or torch.float32
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {dtype}: float32 or bfloat16")
+    return dtype
+
+
+class ConvFamily(nn.Module):
+    """What the conv families share: the compute dtype, the seeded init and
+    no bf16 refusal (no kernel to lack)."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    def bf16_refusal(self) -> str | None:
+        """None: a conv network computes in bf16 on cuDNN, with no kernel
+        that could lack a bf16 form."""
+        return None
+
+    def init_weights(self, generator: torch.Generator) -> nn.Module:
+        return init_conv_weights(self, generator)
+
+    def input_dtype(self) -> torch.dtype:
+        """The dtype a forward computes in: `compute_dtype` in training,
+        fp32 at eval (the fp32 twin)."""
+        return self.compute_dtype if self.training else torch.float32
+
+
+@functools.lru_cache(maxsize=64)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def scale_by(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x * c with c first rounded to x's dtype: in a bf16 operation the JAX
+    package's Python constants (weak-typed) are bf16, so `0.2 * x` scales
+    by 0.2001953125 there; torch would scale by 0.2."""
+    return x * _rounded(c, x.dtype)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """where(x >= 0, x, slope * x), the slope in x's dtype (`scale_by`),
+    as jax.nn.leaky_relu computes it."""
+    return torch.where(x >= 0, x, scale_by(x, negative_slope))
+
+
+class LeakyReLU(nn.Module):
+    """`leaky_relu` as a module (no parameters)."""
+
+    def __init__(self, negative_slope: float) -> None:
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x, self.negative_slope)
+
+
+def nearest_repeat(x: torch.Tensor, s: int) -> torch.Tensor:
+    """NCHW x with each pixel repeated s x s times: nearest-neighbour
+    upsampling, the JAX package's jnp.repeat along H and W."""
+    n, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(n, c, h, s, w, s).reshape(n, c, h * s, w * s)
 
 
 def droppath(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -234,10 +332,12 @@ def dysample_local(x: torch.Tensor, off: torch.Tensor, scale: int, groups: int,
 
 
 class DySample(nn.Module):
-    """The dynamic upsampler (DySample), as DUnet's decoder uses it (no end
-    convolution): offsets from a 1x1 convolution, gated by 0.5 * sigmoid
-    of a 1x1 `scope` convolution, added to the subpixel anchors, then
-    bilinear resampling per channel group.
+    """The dynamic upsampler (DySample): offsets from a 1x1 convolution,
+    gated by 0.5 * sigmoid of a 1x1 `scope` convolution, added to the
+    subpixel anchors, then bilinear resampling per channel group; with
+    `end_convolution`, an `end_kernel` convolution to `out_channels` after
+    the sampling, in either sampler mode (SPANPlus's upsampler). DUnet's
+    decoder uses it without.
 
     The offset channels are laid out (coordinate, group, sy, sx), coordinate
     0 = x, as upstream's, so checkpoints load as they are; upstream's
@@ -249,10 +349,11 @@ class DySample(nn.Module):
     the flax DySample with dtype=bfloat16: the two 1x1 convolutions and the
     offsets' gating in bf16, the sampling in fp32 from the bf16 x and
     offsets, its result rounded to bf16 (where the JAX package's next
-    convolution casts it)."""
+    convolution casts it), the end convolution in bf16."""
 
     def __init__(self, in_channels: int, scale: int = 2, groups: int = 4,
-                 local_radius: int | None = None) -> None:
+                 local_radius: int | None = None, out_channels: int | None = None,
+                 end_convolution: bool = False, end_kernel: int = 1) -> None:
         super().__init__()
         if in_channels % groups:
             raise ValueError(f"in_channels {in_channels} do not split into {groups} groups")
@@ -261,8 +362,14 @@ class DySample(nn.Module):
         self.offset = nn.Conv2d(in_channels, offset_ch, 1)
         self.scope = nn.Conv2d(in_channels, offset_ch, 1, bias=False)
         self.register_buffer("init_pos", dysample_init_pos(scale, groups))
+        self.end_conv = (Conv2d(in_channels, out_channels or in_channels, end_kernel)
+                         if end_convolution else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._sample(x)
+        return out if self.end_conv is None else in_dtype(self.end_conv, out)
+
+    def _sample(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         s, g = self.scale, self.groups
         off = in_dtype(self.offset, x) * torch.sigmoid(in_dtype(self.scope, x)) * 0.5

@@ -29,6 +29,7 @@ from trainner_redux_tpu_torch.archs.arch_util import (
     DySample,
     SNConv2d,
     in_dtype,
+    parse_dtype,
     spectral_norms,
 )
 from trainner_redux_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -103,6 +104,4 @@ class DUnet(nn.Module):
 def _dunet_factory(**kwargs) -> DUnet:
     """DUnet from its options, the JAX package's compute dtype (`dtype`, as
     `build_network_cast` passes it) as `compute_dtype`."""
-    dtype = kwargs.pop("dtype", None) or torch.float32
-    return DUnet(compute_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
-                 **kwargs)
+    return DUnet(compute_dtype=parse_dtype(kwargs), **kwargs)

@@ -46,7 +46,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d, SpatialMean, droppath, in_dtype
+from trainner_redux_tpu_torch.archs.arch_util import (
+    Conv2d,
+    SpatialMean,
+    droppath,
+    in_dtype,
+    parse_dtype,
+)
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale, fused_mlp_residual
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
@@ -364,8 +370,7 @@ def _hat_factory(**defaults):
                   "attn_drop_rate"):
             kwargs.pop(k, None)
         # the JAX package's compute dtype (build_network_cast)
-        dtype = kwargs.pop("dtype", None) or torch.float32
-        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        cfg["compute_dtype"] = parse_dtype(kwargs)
         cfg.update(kwargs)
         cfg["depths"] = tuple(cfg.get("depths", (6, 6, 6, 6)))
         cfg["num_heads"] = tuple(cfg.get("num_heads", (6, 6, 6, 6)))

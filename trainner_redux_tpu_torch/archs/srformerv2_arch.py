@@ -54,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d, in_dtype
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, in_dtype, parse_dtype
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
     Mlp,
@@ -390,8 +390,7 @@ def _srformerv2_factory(scale: int = 4, **kwargs) -> SRFormerV2:
     for k in ("resi_connection", "use_checkpoint"):
         kwargs.pop(k, None)
     # the JAX package's compute dtype (build_network_cast)
-    dtype = kwargs.pop("dtype", None) or torch.float32
-    kwargs["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    kwargs["compute_dtype"] = parse_dtype(kwargs)
     for k in ("depths", "num_heads"):
         if k in kwargs:
             kwargs[k] = tuple(kwargs[k])

@@ -55,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d, droppath, in_dtype
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, droppath, in_dtype, parse_dtype
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
 from trainner_redux_tpu_torch.archs.swinir_arch import (
     _MEAN,
@@ -329,8 +329,7 @@ def _swin2sr_factory(**defaults):
                   "drop_rate", "attn_drop_rate", "qkv_bias", "qk_scale", "resi_connection"):
             kwargs.pop(k, None)
         # the JAX package's compute dtype (build_network_cast)
-        dtype = kwargs.pop("dtype", None) or torch.float32
-        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        cfg["compute_dtype"] = parse_dtype(kwargs)
         cfg.update(kwargs)
         cfg["depths"] = tuple(cfg["depths"])
         cfg["num_heads"] = tuple(cfg["num_heads"])

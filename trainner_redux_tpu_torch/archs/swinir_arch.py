@@ -54,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trainner_redux_tpu_torch.archs.arch_util import Conv2d, droppath, in_dtype
+from trainner_redux_tpu_torch.archs.arch_util import Conv2d, droppath, in_dtype, parse_dtype
 from trainner_redux_tpu_torch.archs.fused_block_util import droppath_scale
 from trainner_redux_tpu_torch.ops.fused_block import (
     fused_attn_block,
@@ -496,8 +496,7 @@ def _swinir_factory(**defaults):
                   "attn_drop_rate", "in_chans"):
             kwargs.pop(k, None)
         # the JAX package's compute dtype (build_network_cast)
-        dtype = kwargs.pop("dtype", None) or torch.float32
-        cfg["compute_dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        cfg["compute_dtype"] = parse_dtype(kwargs)
         cfg.update(kwargs)
         cfg["depths"] = tuple(cfg["depths"])
         cfg["num_heads"] = tuple(cfg["num_heads"])

@@ -2,8 +2,9 @@
 data/__init__.py). The paired, single-image and Real-ESRGAN OTF datasets
 are registered by import (no directory scan); the train loader is the
 threaded `DataLoader`, the val/test loader batch 1 in order. A train
-dataset's `device_cache` (the JAX package's device-memory feeder) is not
-ported and raises."""
+dataset with `device_cache: true` still gets its loader (its dataset and
+batch size); `train.run` then draws the batches from a `DeviceCacheFeeder`
+(data/device_cache.py) instead."""
 
 from __future__ import annotations
 
@@ -42,13 +43,6 @@ def build_dataloader(dataset, dataset_opt: DatasetOptions, num_gpu: int = 1,
     val/test: batch 1, sequential."""
     if dataset_opt.phase != "train":
         return eval_loader(dataset, num_workers=dataset_opt.num_worker_per_gpu or 0)
-    if dataset_opt.device_cache:
-        # the JAX package's DeviceCacheFeeder samples with replacement and
-        # augments from another stream than the host loader
-        raise NotImplementedError(
-            "device_cache: true (the device-memory dataset feeder) is not ported to torch "
-            "yet (ROADMAP.md, section 1); remove it to train from the host loader"
-        )
     if dataset_opt.prefetch_mode not in (None, "cpu", "cuda"):
         raise ValueError(f"prefetch_mode '{dataset_opt.prefetch_mode}' is unknown")
     return DataLoader(

@@ -1,7 +1,8 @@
 """Loss registry: build_loss and the log keys (port of the JAX package's
 losses/__init__.py). Ported: the pixel losses of `basic_loss.py`, the
-SSIM / MS-SSIM losses of `mssim_loss.py`, the VGG perceptual loss and the
-GAN losses; any other type, and the iterative schedule parameters,
+SSIM / MS-SSIM losses of `mssim_loss.py`, the VGG perceptual loss, the GAN
+losses, `hsluvloss` (a dict of hue, saturation and lightness terms) and
+`cosimloss`; any other type, and the iterative schedule parameters,
 raise."""
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from typing import Any
 from trainner_redux_tpu_torch.losses import (  # noqa: F401 (registers)
     basic_loss,
     gan_loss,
+    hsluv_loss,
+    misc_losses_loss,
     mssim_loss,
     perceptual_loss,
 )

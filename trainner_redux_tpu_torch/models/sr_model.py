@@ -14,13 +14,15 @@ Port of the JAX package's models/sr_model.py.
   validation, `test` and the EMA network's forward run the same parameters
   in fp32, the JAX package's fp32 twin. bf16 trains SwinIR (on the bf16
   forms of #4/#5, SwinIR-L on those of #3/#8), HAT (#3/#8, #2/#7), DAT
-  (the rect #3/#8), SRFormerV2 (#1/#6 at 12x12, #2/#7) and Swin2SR (the
-  bf16 forms of #11-#14), and a GAN's
+  (the rect #3/#8), SRFormerV2 (#1/#6 at 12x12, #2/#7), Swin2SR (the
+  bf16 forms of #11-#14) and the conv families (SPAN, SPANF, SPANPlus,
+  SpanC, Compact, ESRGAN: cuDNN, no kernel), and a GAN's
   DUnet computes in the same dtype (no twin: D only trains). fp32 runs
   with TF32 off (`fast_matmul`
   lets cuBLAS and cuDNN use TF32; `deterministic` runs the step on torch's
   deterministic algorithms; `detect_anomaly` under autograd's anomaly
-  detection, so a NaN in the backward raises): pair losses, the
+  detection, so a NaN in the backward raises): pair losses (a dict loss,
+  hsluv's, summed and logged term by term), the
   torch optimizer with optax's semantics and a step -> lr schedule,
   `accum_iter` micro-batches with averaged gradients, the logged global
   gradient norm, optional clipping, EMA with the warm-up power decay and
@@ -300,14 +302,18 @@ class SRModel(BaseModel):
 
     def _generator_losses(self, output: torch.Tensor, gt: torch.Tensor):
         """(total, logs) of the generator's losses on one micro-batch: the
-        pair losses, then each GAN term |weight| * ganloss(D(output), real),
-        logged as l_g_gan; its unweighted value goes to logs["raw_gan"]."""
+        pair losses (a dict loss's terms each logged under its key), then
+        each GAN term |weight| * ganloss(D(output), real), logged as
+        l_g_gan; its unweighted value goes to logs["raw_gan"]."""
         logs: dict[str, torch.Tensor] = {}
         total = torch.zeros((), device=output.device)
         for log_key, loss in self.losses:
-            val = loss(output, gt).float()
-            logs[log_key] = val
-            total = total + val
+            val = loss(output, gt)
+            # a dict loss (hsluv) logs each term apart, as the JAX step does
+            for key, v in (val.items() if isinstance(val, dict) else [(None, val)]):
+                v = v.float()
+                logs[log_key if key is None else f"{log_key}_{key}"] = v
+                total = total + v
         for loss in self.gan_losses:
             raw = loss(self.net_d(output), True, is_disc=False)
             logs["raw_gan"] = raw.detach()
@@ -665,9 +671,11 @@ class SRModel(BaseModel):
         `framework: trainner_redux_tpu`, through the weight bridge), a
         torch-layout safetensors, or a .pth/.pt pickle (an upstream
         Swin2SR's q_bias / v_bias packed into the port's qkv bias; either
-        torch spectral-norm API's keys). A JAX-framework file holds
-        parameters only: the net keeps its spectral norms' (u, v), as the
-        JAX package keeps them on such a load."""
+        torch spectral-norm API's keys; the folded `eval_conv` /
+        `conv_3x3_rep` copies of upstream SPAN, SPANPlus and SpanC dropped).
+        A JAX-framework file holds parameters only: the net keeps its
+        buffers (the spectral norms' (u, v) among them), as the JAX package
+        keeps them on such a load."""
         from trainner_redux_tpu_torch.utils import torch_compat
 
         if path.endswith(".safetensors"):
@@ -677,13 +685,15 @@ class SRModel(BaseModel):
             with safe_open(path, framework="numpy") as f:
                 metadata = f.metadata() or {}
             if metadata.get("framework") == "trainner_redux_tpu":
-                sd = torch_compat.state_dict_from_jax(load_file(path), type(net).__name__)
                 template = net.state_dict()
-                sd.update({k: v for k, v in template.items()
-                           if k.endswith((".0._u", ".0._v")) and k not in sd})
+                sd = torch_compat.state_dict_from_jax(load_file(path), type(net).__name__,
+                                                      keys=template.keys())
+                buffers = {k for k, _ in net.named_buffers()}
+                sd.update({k: v for k, v in template.items() if k in buffers and k not in sd})
                 self._merge_params(net, sd, strict, path)
                 return
         flat = torch_compat.drop_recomputed_buffers(torch_compat.load_torch_state_dict(path))
+        flat = torch_compat.drop_folded_copies(flat, net.state_dict().keys())
         flat = torch_compat.canonical_spectral_keys(torch_compat.pack_qkv_bias(flat))
         sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in flat.items()}
         self._merge_params(net, sd, strict, path)

@@ -10,8 +10,10 @@ experiment goes under `<repo>/experiments/<name>/`: models, training states
 caller with options of its own (decoded with `utils.schema.decode` and
 completed by `utils.options.resolve_options`) calls `run` directly.
 
-The loop: a threaded host loader (uint8 crops), a device prefetcher one
-batch ahead, one optimizer step per batch (`accum_iter` micro-batches
+The loop: a threaded host loader (uint8 crops) and a device prefetcher one
+batch ahead, or with a train dataset's `device_cache: true` the images on
+the card and each batch cut there (data/device_cache.py); one optimizer
+step per batch (`accum_iter` micro-batches
 inside it), log lines every `print_freq`, checkpoints every
 `save_checkpoint_freq` and at the end, validation every `val_freq` and at
 the end, a save on SIGINT or a crash. With `train.bn_recalibrate_batches`,
@@ -163,16 +165,26 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
         return bool(freq) and current_iter % freq == 0
 
     iter_timer = AvgTimer()
-    prefetcher = DevicePrefetcher(train_loader, device)
+    train_ds_opt = next(d for k, d in opt.datasets.items() if k.split("_")[0] == "train")
+    if train_ds_opt.device_cache:
+        from trainner_redux_tpu_torch.data.device_cache import DeviceCacheFeeder
+
+        # the images on the card and each batch cut there; next() never ends
+        # an epoch (sampling with replacement), the iteration count does
+        prefetcher = DeviceCacheFeeder(train_loader.dataset, train_ds_opt,
+                                       train_loader.batch_size, device, opt.manual_seed or 0)
+        logger.info(f"Device dataset cache active: batches of {train_loader.batch_size} are "
+                    "cut on the device.")
+    else:
+        prefetcher = DevicePrefetcher(train_loader, device)
     logger.info(f"Start training from epoch: {start_epoch}, iter: {current_iter}")
     epoch = start_epoch
     try:
         while current_iter < total_iters and not interrupted["flag"]:
             train_loader.set_epoch(epoch)
             prefetcher.reset()
-            while (train_data := prefetcher.next()) is not None:
-                if current_iter >= total_iters or interrupted["flag"]:
-                    break
+            while (current_iter < total_iters and not interrupted["flag"]
+                   and (train_data := prefetcher.next()) is not None):
                 current_iter += 1
                 model.feed_data(train_data)
                 model.optimize_parameters(current_iter)

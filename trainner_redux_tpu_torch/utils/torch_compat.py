@@ -1,8 +1,9 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2 and DUnet parts of the JAX
-package's utils/torch_compat.py:
+Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2, DUnet, SPAN, SPANF,
+SpanPlus, SpanC, SRVGGNetCompact and RRDBNet parts of the JAX package's
+utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
   nesting and strip DDP's `module.` prefix (upstream's key canonicalization);
@@ -16,7 +17,15 @@ package's utils/torch_compat.py:
   inverse of the JAX `_convert_dat`, `_convert_swin2sr` and
   `_convert_srformerv2` (the JAX package has no exporter for them); for
   DUnet the inverse of the JAX `_convert_dunet`, the `spectral`
-  collection's u and v included (as `__spectral__.<module>.u` / `.v`);
+  collection's u and v included (as `__spectral__.<module>.u` / `.v`); for
+  the conv families the inverse of `_convert_span`, `_convert_spanf`,
+  `_convert_spanplus`, `_convert_spanc`, `_convert_srvgg` and
+  `_convert_rrdbnet`;
+- `drop_folded_copies`: the folded convolutions upstream SPAN, SPANPlus
+  and SpanC checkpoints also save (each Conv3XC's `eval_conv`, each
+  RepConv's `conv_3x3_rep`), which the port recomputes from the parameters
+  and the JAX converters ignore, dropped where the network has no such key
+  (SPANF's weights are its `eval_conv`s);
 - `canonical_spectral_keys`: either torch spectral-norm API's keys (the
   legacy `weight_orig` / `weight_u` / `weight_v`, or the parametrization's)
   as the port's `parametrizations.weight.original` / `.0._u` / `.0._v`;
@@ -355,12 +364,123 @@ def _dunet_state_dict(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def drop_folded_copies(sd: dict[str, np.ndarray], keep) -> dict[str, np.ndarray]:
+    """`sd` without the `.eval_conv.` / `.conv_3x3_rep.` weights and biases
+    that are not among the keys `keep` (the network's own)."""
+    return {k: v for k, v in sd.items()
+            if k in keep or not re.search(r"\.(eval_conv|conv_3x3_rep)\.(weight|bias)$", k)}
+
+
+_CONV3XC = {"conv0_kernel": "conv.0.weight", "conv0_bias": "conv.0.bias",
+            "conv1_kernel": "conv.1.weight", "conv1_bias": "conv.1.bias",
+            "conv2_kernel": "conv.2.weight", "conv2_bias": "conv.2.bias",
+            "sk_kernel": "sk.weight", "sk_bias": "sk.bias"}
+
+
+def _conv3xc_or_conv(k: str, v: np.ndarray, renames=()) -> tuple[str, np.ndarray]:
+    """A flax Conv3XC parameter (`<pre>.conv0_kernel`, ...) or plain Conv2d
+    (`<pre>.conv.kernel` / `.bias`) -> (torch key, array), `<pre>` passed
+    through `renames` ((pattern, replacement) pairs, applied in turn)."""
+    pre, leaf = k.rsplit(".", 1)
+    if leaf in _CONV3XC:
+        tail = _CONV3XC[leaf]
+    elif pre.endswith(".conv") and leaf in ("kernel", "bias"):
+        pre, tail = pre.removesuffix(".conv"), _weight_or_bias(leaf)
+    else:
+        raise KeyError(f"no torch counterpart for key '{k}'")
+    for pattern, repl in renames:
+        pre = re.sub(pattern, repl, pre)
+    return f"{pre}.{tail}", conv_w_inv(v) if v.ndim == 4 else v
+
+
+def _span_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax SPAN key -> (torch key, array): the inverse of `_convert_span`."""
+    return _conv3xc_or_conv(k, v, ((r"^upsampler_conv$", "upsampler.0"),))
+
+
+def _spanf_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax SPANF key: the inverse of `_convert_spanf`, whose block and
+    conv_2 weights are upstream's `eval_conv`s."""
+    if k == "conv_near_kernel":
+        return "conv_near.weight", conv_w_inv(v)
+    return _conv3xc_or_conv(k, v, ((r"^(block_\d\.c\d_r|conv_2)$", r"\1.eval_conv"),))
+
+
+def _spanplus_key(k: str, v: np.ndarray, conv_upsampler: bool = False) -> tuple[str, np.ndarray]:
+    """One flax SpanPlus key: the inverse of `_convert_spanplus`. `up_conv`
+    is the pixel-shuffle upsampler's convolution (`upsampler.0`), or with
+    `conv_upsampler` the scale-1 convolution (`upsampler`)."""
+    return _conv3xc_or_conv(k, v, (
+        (r"^feats_(\d+)", r"feats.\1"), (r"\.block_n_(\d+)", r".block_n.\1"),
+        (r"^up_conv$", "upsampler" if conv_upsampler else "upsampler.0"),
+        (r"^dysample\.", "upsampler.")))
+
+
+def _spanc_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax SpanC key: the inverse of `_convert_spanc` (RepConv's raw
+    SeqConv3x3 kernels, IGConv's embeddings and 1x1 query MLP)."""
+    m = re.fullmatch(r"(.+)\.(alpha|conv1\.[kb][01])", k)
+    if m:
+        return k, conv_w_inv(v) if v.ndim == 4 else v
+    m = re.fullmatch(r"upsampler\.(freq|amplitude|phase_w|phase_b)", k)
+    if m:
+        name = m.group(1)
+        if name == "phase_w":
+            return "upsampler.phase.weight", np.ascontiguousarray(v.T.reshape(-1, 1, 1, 1))
+        if name == "phase_b":
+            return "upsampler.phase.bias", v
+        return f"upsampler.{name}", v.reshape(*v.shape, 1, 1)
+    m = re.fullmatch(r"upsampler\.qk_(\d+|out)\.(kernel|bias)", k)
+    if m:
+        # qk_out's index is set by `state_dict_from_jax` (`_last_index`)
+        idx = m.group(1)
+        key = f"upsampler.query_kernel.{'@' if idx == 'out' else 2 * int(idx)}"
+        kind = m.group(2)
+        return (f"{key}.{_weight_or_bias(kind)}",
+                linear_w(v)[:, :, None, None] if kind == "kernel" else v)
+    return _conv3xc_or_conv(k, v)
+
+
+def _srvgg_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax SRVGGNetCompact key: the inverse of `_convert_srvgg`
+    (body_last's index is set by `state_dict_from_jax`)."""
+    m = re.fullmatch(r"act_(\d+)\.weight", k)
+    if m:
+        return f"body.{2 * int(m.group(1)) + 1}.weight", v
+    m = re.fullmatch(r"body_(\d+|last)\.conv\.(kernel|bias)", k)
+    if not m:
+        raise KeyError(f"no torch counterpart for SRVGGNetCompact key '{k}'")
+    idx = "@" if m.group(1) == "last" else 2 * int(m.group(1))
+    kind = m.group(2)
+    return f"body.{idx}.{_weight_or_bias(kind)}", conv_w_inv(v) if kind == "kernel" else v
+
+
+def _rrdbnet_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax RRDBNet key: the inverse of `_convert_rrdbnet`."""
+    return _conv3xc_or_conv(k, v, ((r"^body_(\d+)", r"body.\1"),))
+
+
+def _last_index(out: dict[str, np.ndarray], prefix: str, step: int = 2) -> dict:
+    """Replace the `@` placeholder index after `prefix` by the index of the
+    list's last convolution: `step` times the number of convolutions before
+    it, which sit at the multiples of `step` (the activations between)."""
+    idx = {int(m.group(1)) for k in out if (m := re.match(rf"{re.escape(prefix)}\.(\d+)\.", k))}
+    last = str(step * sum(1 for i in idx if i % step == 0))
+    return {k.replace(f"{prefix}.@.", f"{prefix}.{last}."): v for k, v in out.items()}
+
+
 _KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key,
-             "srformerv2": _srformerv2_key}
+             "srformerv2": _srformerv2_key, "span": _span_key, "spanf": _spanf_key,
+             "spanplus": _spanplus_key, "spanc": _spanc_key, "srvggnetcompact": _srvgg_key,
+             "rrdbnet": _rrdbnet_key}
 
 
-def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> dict:
-    """The JAX package's flattened params -> the port's state dict (tensors)."""
+def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR",
+                        keys=None) -> dict:
+    """The JAX package's flattened params -> the port's state dict
+    (tensors). `keys`, the network's own state-dict keys where known,
+    tells SpanPlus's scale-1 convolution upsampler from the pixel-shuffle
+    one. Buffers (DUnet's anchors aside) are the network's to fill in."""
     import torch
 
     if arch.lower() == "dunet":
@@ -369,8 +489,15 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], arch: str = "SwinIR") -> di
     key_map = _KEY_MAPS.get(arch.lower())
     if key_map is None:
         raise NotImplementedError(f"no weight bridge for arch '{arch}' yet")
-    out = dict(key_map(k, np.asarray(v)) for k, v in flat.items())
+    if key_map is _spanplus_key and keys is not None and "upsampler.weight" in keys:
+        out = dict(_spanplus_key(k, np.asarray(v), True) for k, v in flat.items())
+    else:
+        out = dict(key_map(k, np.asarray(v)) for k, v in flat.items())
     if key_map is _dat_key:
         _dat_zero_pos_layers(out)
+    if key_map is _srvgg_key:
+        out = _last_index(out, "body")
+    if key_map is _spanc_key:
+        out = _last_index(out, "upsampler.query_kernel")
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in out.items()}
