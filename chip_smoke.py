@@ -9,7 +9,10 @@ the GAN templates of SwinIR-M, HAT-M, DAT and SRFormerV2, the OTF
 template of SwinIR-M, and Swin2SR's fidelity, GAN and OTF templates ship
 it; then the conv families (SPAN-S, SPANPlus, Compact, ESRGAN) served and
 trained as their templates ship, and two of the JAX bench's workloads
-(esrgan_gan with hsluv and cosim; span_s from the device-memory cache).
+(esrgan_gan with hsluv and cosim; span_s from the device-memory cache);
+then SRFormer and ATD (srformer, srformer_light, atd, atd_light) served
+and trained as their templates ship, on #2/#7 and on #3/#8's 64-wide form
+(atd's heads of 35).
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -142,7 +145,7 @@ failure:
              in fp32, without the GAN and the perceptual loss (batch 8 of
              gt_size 128, queue 120, L1, AdamW 2e-4, EMA 0.999; the
              template's MS-SSIM raises at gt_size 128 in both packages),
-             30 steps from 16 seeded 512x512 HR images, counting #15 (one
+             TRAIN_STEPS steps from 16 seeded 512x512 HR images, counting #15 (one
              launch a compression, recompressions included) and #4/#5 (36 +
              36 a step); the EMA checkpoint then serves with the strict load.
 29. otf train profile - device time by kernel of one OTF step, split into
@@ -204,7 +207,7 @@ failure:
 38. gan train - `train.run` of that config, 6 steps from 16 seeded
              512x512 HR images, counting #4/#5 (36 + 36 a step); every log
              finite; D's parameters and (u, v) moved; the EMA checkpoint
-             serves with the strict load and net_d_30 loads back strictly
+             serves with the strict load and net_d_<TRAIN_STEPS> loads back strictly
              into DUnet. The perceptual loss runs on the seeded random VGG19
              where no vgg19.pth is on the machine, and says so.
 39. gan train profile - device time by kernel of one GAN step, split into
@@ -229,7 +232,7 @@ failure:
 42. bf16 train - `train.run` of configs/_templates/train/SwinIR/
              swinir_m_fidelity.yml as shipped (compute_dtype bfloat16,
              batch 8 of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its
-             validation), 30 steps, counting 36 + 36 bf16 #4/#5 launches a
+             validation), TRAIN_STEPS steps, counting 36 + 36 bf16 #4/#5 launches a
              step and none of the fp32 forms; the validation at the end of
              training runs the fp32 twin on #1/#2 (PSNR, SSIM); the EMA
              checkpoint then serves with the strict load.
@@ -259,7 +262,7 @@ failure:
 46-48. hat / dat / swinir_l bf16 train - `train.run` of hat_m_fidelity.yml,
              dat_fidelity.yml and swinir_l_fidelity.yml as shipped (bf16,
              batch 8 of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, their
-             validation), 30 steps each, counting a step's bf16 launches (HAT-M
+             validation), TRAIN_STEPS steps each, counting a step's bf16 launches (HAT-M
              36 + 36 #3/#8 and 42 + 42 #2/#7; DAT 36 + 36 rect #3/#8;
              SwinIR-L 54 + 54 #3/#8 at ws 8) and none of any fp32 training
              form; every log finite; the validation through the fp32 twin
@@ -282,19 +285,19 @@ failure:
              stage at K=1.
 51. srformerv2 bf16 train - `train.run` of srformerv2_fidelity.yml as
              shipped (bf16, batch 16 of 48x48 LR, L1 + MS-SSIM, its
-             validation), 30 steps, counting 18 + 18 launches a step of
+             validation), TRAIN_STEPS steps, counting 18 + 18 launches a step of
              #1/#6's bf16 forms and of #2/#7's and none of any fp32 training
              form; the fp32 twin's validation; the EMA checkpoint served;
              then one step profiled (device ms, busy share, peak memory).
 52. bf16 gan - `train.run` of swinir_m_gan.yml as shipped (bf16: G on
-             #4/#5's bf16 forms, DUnet in bf16), 30 steps with phase 38's
+             #4/#5's bf16 forms, DUnet in bf16), TRAIN_STEPS steps with phase 38's
              checks; its step profiled into the G and D steps (phase 39's);
              then hat_m_gan.yml, dat_gan.yml and srformerv2_gan.yml as
              shipped, six steps each, a G step's bf16 launches counted and
              one step profiled into G and D.
 53. otf bf16 - `train.run` of swinir_m_otf.yml as shipped with its MS-SSIM
              cut (bf16 G and DUnet, L1 + perceptual + GAN; the degradation
-             in fp32 on #15), 30 steps, counting #15 and 36 + 36 bf16 #4/#5
+             in fp32 on #15), TRAIN_STEPS steps, counting #15 and 36 + 36 bf16 #4/#5
              launches a step; one step profiled into the degradation and
              the optimizer step, peak memory.
 
@@ -309,7 +312,7 @@ failure:
              limits), two runs bit for bit, timed beside the fp32 forms with
              the bf16 bound; split by stage at M's and L's K=4.
 55. swin2sr bf16 train - `train.run` of swin2sr_m_fidelity.yml as shipped
-             (bf16, batch 8 of 48x48 LR, L1 + MS-SSIM, its validation), 30
+             (bf16, batch 8 of 48x48 LR, L1 + MS-SSIM, its validation), TRAIN_STEPS
              steps, counting 36 launches a step of each of #11-#14's bf16
              forms and none of any fp32 training form; the fp32 twin's
              validation (#11/#13); the EMA checkpoint served; then one step
@@ -331,7 +334,7 @@ failure:
              against its train form, FOLD_TOL of the output's largest.
 59. span_s train - `train.run` of span_s_fidelity.yml as shipped (bf16,
              batch 16 of 48x48 LR, L1 + MS-SSIM, its validation through the
-             fp32 twin), 30 steps; one step profiled (device ms, launches,
+             fp32 twin), TRAIN_STEPS steps; one step profiled (device ms, launches,
              busy share, peak memory); one fp32 step (TF32 off) on the card
              against the CPU's (BRANCH_LOSS_TOL, BRANCH_GRAD_TOL); two
              3-step `deterministic: true` runs bit for bit.
@@ -346,10 +349,46 @@ failure:
              charbonnier 1.0, cosim 1.0, vanilla GAN 0.1; optim_d AdamW
              1e-4; no remat), six steps, hsluv's terms logged apart; its
              span_s (batch 16 of 64x64 LR, charbonnier) with `device_cache:
-             true`, 30 steps, beside the same run from the host loader:
+             true`, TRAIN_STEPS steps, beside the same run from the host loader:
              each step end to end, device ms and busy share (the last two
              steps profiled), and a count that the cache cut every batch on
              the card.
+
+63. atd kernels - #3 and #8 at heads of 33 to 64 channels (the 64-wide
+             form: rows padded to 64 channels, at n 256 rows of 32 and 8
+             warps, csrc/tc_attn.cuh's HD = 64), fp32 and bf16, at atd's
+             training block (B=4, 48x48, C 210, 6 heads of 35, ws 16), K=1
+             and K=4, and at heads of 64 (C 384) K=4: each against its plain
+             version (phase 11's and 45's limits) and float64, two runs bit
+             for bit, timed beside the bound and SDPA (bf16: and the fp32
+             form), split by stage at K=4 (the 64-wide kernels must launch);
+             #3 at B=1, 128x128 (serving) by CUDA graphs; the 32-wide forms
+             timed beside them at HAT-M's heads on the same block. #2/#7 in
+             fp32 and bf16 at srformer_light's MLP half (C 60, hidden 120,
+             rows 16) and srformer's (C 180, hidden 360, rows 24): against
+             their plain versions, two runs bit for bit, timed.
+64. srformer atd serve - `test.run` on seeded srformer, srformer_light, atd
+             and atd_light 4x, full width and depth, on the 4 images: PNGs,
+             PSNR/SSIM and launches (#2 once a block for SRFormer, #3 once a
+             block for ATD: 36 in one atd forward, on the 64-wide form);
+             each 128x128 forward's device ms (torch.profiler).
+65. srformer atd train - `train.run` of srformer_fidelity.yml and
+             atd_fidelity.yml as shipped (bf16; batch 16 and 4; L1 +
+             MS-SSIM; their validation through the fp32 twin), six steps
+             each (SIX_STEPS): ms and images/s a step, launches (36 + 36 a
+             step of #2/#7's or #3/#8's bf16 forms), peak memory, PSNR/SSIM,
+             the EMA checkpoint served; one step profiled (device ms, busy
+             share); the share of it SRFormer's PSA and ATD's category
+             attention and sort take (timed alone at the step's shapes).
+66. srformer atd templates - six bf16 steps each of
+             srformer_light_fidelity.yml, atd_light_fidelity.yml and
+             atd_gan.yml, as shipped: every log finite, launches counted.
+67. atd fp32 - `train.run` of atd in fp32 (batch 4 of 48x48, L1),
+             FP32_STEPS steps, 36 + 36 launches a step of #3/#8's 64-wide
+             fp32 forms; one fp32 step of atd_light (TF32 off) on the card
+             against the CPU (BRANCH_LOSS_TOL, BRANCH_GRAD_TOL), each
+             layer's categories compared; two 3-step `deterministic: true`
+             bf16 runs of atd_light_fidelity.yml bit for bit.
 
 Each phase prints its seconds, and the run its total. Then one JSON line
 of kernel records and, last, the device JSON line.
@@ -398,8 +437,12 @@ KINK_MAX = 4
 JPEG_TOL = 1e-3
 N_IMAGES = 4
 BLOCKS = 36
-TRAIN_STEPS = 30
-FP32_STEPS = 6  # the fp32 train.run phases 8, 13, 18, 23, 32 and 38 (30 until PR 21)
+# the template and OTF train.run phases (30 until PR 22, cut to make room
+# for phases 63-67)
+TRAIN_STEPS = 12
+# the fp32 train.run phases 8, 13, 18, 23, 32, 38 and 67 (30 until PR 21, 6
+# until PR 22)
+FP32_STEPS = 4
 TRAIN_WARMUP = 5  # steps left out of the per-step median
 
 # HAT-M's block: the same widths, 16x16 windows (n = 256), 42 MLP halves
@@ -475,6 +518,10 @@ REPLACES = {
     "fused_cos_attn_block_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:373",
     "fused_postnorm_mlp_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:529",
     "fused_postnorm_mlp_backward_bf16": "trainner_redux_tpu/ops/pallas/fused_block_v2.py:556",
+    "fused_window_mhsa_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_window_mhsa_bf16_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward_bf16_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -516,6 +563,10 @@ SOURCES = {
     "fused_cos_attn_block_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
     "fused_postnorm_mlp_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
     "fused_postnorm_mlp_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_v2.cu",
+    "fused_window_mhsa_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_bf16_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_bf16_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
@@ -529,7 +580,11 @@ SOURCES = {
 # dat_fidelity.yml (rect) and swinir_l_fidelity.yml ("_ws8": 8x8 at C 240;
 # phases 46-48); #1/#6's bf16 forms ("fused_attn_block_bf16" and its
 # backward, 12x12) in the bf16 run of srformerv2_fidelity.yml (phase 51);
-# #11-#14's bf16 forms in the bf16 run of swin2sr_m_fidelity.yml (phase 55)
+# #11-#14's bf16 forms in the bf16 run of swin2sr_m_fidelity.yml (phase 55);
+# the "_hd64" records are #3/#8's 64-wide form (heads of 33 to 64 channels,
+# atd's 35), counted by the window wrappers in atd's runs: fp32 #3 in its
+# serving (phase 64), fp32 #8 in its fp32 train.run (phase 67), the bf16
+# forms in atd_fidelity.yml's run (phase 65)
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -818,14 +873,17 @@ RETIRED = ("trr::attn_block_fwd_kernel", "trr::ln_mlp_fwd_kernel", "trr::ln_qkv_
 SERVING_STAGES = {"fused_attn_block": STAGES_1, "fused_ln_mlp": STAGES_2,
                   "fused_window_mhsa": STAGES_3}
 # the window attention forward's kernel at each window of n tokens (its plan
-# <n, rows, key parts, cosine>), which #3 and the forwards' stage splits must
-# show; the cosine form (#11, #12) at 8x8 windows; the post-norm row pass
-ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}, false>"
+# <n, rows, key parts, cosine, row width>), which #3 and the forwards' stage
+# splits must show; the cosine form (#11, #12) at 8x8 windows; the 64-wide
+# rows of #3 at n 256 (heads of 33 to 64 channels); the post-norm row pass
+ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}, false, 32>"
             for n, rb, ks in ((64, 64, 2), (128, 32, 4), (144, 48, 2), (256, 64, 4))}
-COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true>"
+COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true, 32>"
+ATTN_FWD_64 = "attn_rows_fwd_tc_kernel<256, 32, 4, false, 64>"
+ATTN_BWD_64 = "attn_rows_bwd_tc_kernel<256, 32, 4, false, false, 64>"
 # #10's window attention: the saved-P form of the tensor-core backward
-# (<n, rows, key parts, att, saved>) at 8x8 and 12x12 windows
-SAVED_BWD = {n: f"attn_rows_bwd_tc_kernel<{n}, {rb}, {ks}, false, true>"
+# (<n, rows, key parts, att, saved, row width>) at 8x8 and 12x12 windows
+SAVED_BWD = {n: f"attn_rows_bwd_tc_kernel<{n}, {rb}, {ks}, false, true, 32>"
              for n, rb, ks in ((64, 64, 2), (144, 48, 2))}
 POSTNORM_ROWS = "ln_rows_kernel<true, true>"
 LN_LINEAR = ("ln_rows_kernel", "linear_kernel")
@@ -845,8 +903,8 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
     chip_smoke/stages.txt) times its `per_call` launches: the profiler may
     keep only some of a session's launches, and of a short session none of
     a stage (then, while a stage has fewer profiled launches than the
-    session's calls, it profiles again, four times the calls, twice at
-    most, and adds the sessions' launches up). Fails unless a profiled
+    session's calls, it profiles again, four times the calls up to 48,
+    four times at most, and adds the sessions' launches up). Fails unless a profiled
     kernel's name holds each of `kernels`, and if a RETIRED kernel
     launched. `bf16`, a bf16 form: its time against the bf16 bound (989
     TFLOP/s on the tensor cores, 3.35 TB/s) instead."""
@@ -858,7 +916,7 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
     seen: dict[str, list] = {}
     names: set[str] = set()
     profiled = 0
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -873,7 +931,7 @@ def stage_split(tag: str, name: str, fn, flops: float, nb: float, ms: float,
             rec[1] += e.count
         if all(seen.get(st, (0, 0))[1] >= calls for st in per_call):
             break
-        calls *= 4
+        calls = min(4 * calls, 48)
     stages = {st: (t / n * per_call.get(st, 0), n) for st, (t, n) in seen.items() if n}
     total = sum(t for t, _ in stages.values())
     OUT.mkdir(parents=True, exist_ok=True)
@@ -2693,7 +2751,7 @@ def phase_otf_degrade(seed: int, hr_dir: Path) -> None:
 
 
 def phase_otf_train(seed: int, hr_dir: Path) -> dict[str, int]:
-    """`train.run` on SwinIR-M 4x OTF: 30 steps, counting #15 (one launch
+    """`train.run` on SwinIR-M 4x OTF: TRAIN_STEPS steps, counting #15 (one launch
     a compression, its three planes together: one a step and one for each
     recompression drawn) and #4/#5 (36 + 36 a step)."""
     from trainner_redux_tpu_torch.models.realesrgan_model import RealESRGANModel
@@ -3784,11 +3842,12 @@ def fidelity_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, val_dirs=
                      template: Path = FIDELITY_TEMPLATE, **extra):
     """`template` (configs/_templates/train/SwinIR/swinir_m_fidelity.yml unless
     said: compute_dtype bfloat16, SwinIR-M 4x, batch 8 of 48x48 LR crops, L1
-    + MS-SSIM, AdamW 2e-4, EMA 0.999, its MultiStepLR; its tensorboard
-    logger prints the port's NOTE) as shipped, on `hr_dir` / `lr_dir`, 30
-    steps; with `val_dirs` (HR, LR) its validation (PSNR and SSIM, the fp32
+    + MS-SSIM, AdamW 2e-4, EMA 0.999, its MultiStepLR; its TensorBoard
+    logger writes under chiprun_out/chip_smoke/tb_logger) as shipped, on
+    `hr_dir` / `lr_dir`, TRAIN_STEPS steps; with `val_dirs` (HR, LR) its
+    validation (PSNR and SSIM, the fp32
     twin) runs as the template sets it: at the end of training, its
-    val_freq not reached in 30 steps; else none."""
+    val_freq not reached in TRAIN_STEPS steps; else none."""
     import yaml
 
     from trainner_redux_tpu_torch.utils.options import resolve_options
@@ -3845,7 +3904,7 @@ def bf16_train_check(tag: str):
         metrics = getattr(model, "metric_results", {})
         if not all(math.isfinite(metrics.get(k, float("nan"))) for k in ("psnr", "ssim")):
             fail(f"{tag}: validation logged no finite PSNR/SSIM: {metrics}")
-        say(f"[{tag}] validation after step {TRAIN_STEPS} through the fp32 twin: psnr "
+        say(f"[{tag}] validation after step {model.step} through the fp32 twin: psnr "
             f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f}")
 
     return check
@@ -3921,6 +3980,7 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         say(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
             f"{e.key[:90]}")
+    return total / 1e3, step * 1e3
 
 
 class _PlainBf16Block:
@@ -4249,14 +4309,14 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
                 lambda: bwd_32(qkv32, bias, dout32, nh, hd, *win), lib_fwd_bwd,
                 bwd_flops, bwd_bytes, max(e[0] for e in bwd_err), max(e[1] for e in bwd_err))
     if split is not None:
-        rb, ks = wa.TC_ATTN_PLANS[n]
+        rb, ks = wa.tc_attn_plan(n, hd)
+        plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
         stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win), fwd_flops,
                     fwd_bytes, res[names[0]]["ms"], STAGES_3,
-                    kernels=(f"attn_rows_fwd_bf16_kernel<{n}, {rb}, {ks}, false>",), bf16=True)
+                    kernels=(f"attn_rows_fwd_bf16_kernel<{plan}>",), bf16=True)
         stage_split(tag, f"{names[1]} {label}", lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
                     bwd_flops, bwd_bytes, res[names[1]]["ms"], split,
-                    kernels=(f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}, false>",),
-                    bf16=True)
+                    kernels=(f"attn_rows_bwd_recompute_bf16_kernel<{plan}>",), bf16=True)
 
 
 def mlp_f64(x, g, be, w1, b1, w2, b2, s):
@@ -4555,10 +4615,10 @@ def phase_srformerv2_bf16_kernels() -> dict:
             stage_split(tag, f"fused_attn_block_bf16 {label}", fwd, fwd_flops, fwd_bytes,
                         res["fused_attn_block_bf16"]["ms"], STAGES_1,
                         kernels=("ln_rows_bf16_kernel", "linear_bf16_kernel",
-                                 "attn_rows_fwd_bf16_kernel<144, 48, 2, false>"), bf16=True)
+                                 "attn_rows_fwd_bf16_kernel<144, 48, 2, false, 32>"), bf16=True)
             stage_split(tag, f"fused_attn_block_backward_bf16 {label}", bwd, bwd_flops, bwd_bytes,
                         res["fused_attn_block_backward_bf16"]["ms"], STAGES_6,
-                        kernels=("attn_rows_bwd_recompute_bf16_kernel<144, 48, 2, true>",
+                        kernels=("attn_rows_bwd_recompute_bf16_kernel<144, 48, 2, true, 32>",
                                  "atb_bf16_kernel", "rows_bf16_kernel"), bf16=True)
         torch.cuda.empty_cache()
     return res
@@ -4567,7 +4627,7 @@ def phase_srformerv2_bf16_kernels() -> dict:
 def phase_srformerv2_bf16_train(seed: int) -> dict[str, int]:
     """51. `train.run` of srformerv2_fidelity.yml as shipped (bf16, batch 16
     of 48x48 LR padded to 72x72, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its
-    validation), 30 steps: 18 + 18 launches a step of #1/#6's bf16 forms and
+    validation), TRAIN_STEPS steps: 18 + 18 launches a step of #1/#6's bf16 forms and
     18 + 18 of #2/#7's, none of any fp32 training form; every log finite;
     the validation through the fp32 twin (on #1/#2); the EMA checkpoint
     served with the strict load. Then one step profiled (phase 43's)."""
@@ -4591,9 +4651,9 @@ def phase_srformerv2_bf16_train(seed: int) -> dict[str, int]:
 def phase_bf16_gan(seed: int) -> None:
     """52. bf16 GAN training as the templates ship it: `train.run` of
     swinir_m_gan.yml (bf16, batch 8 of 48x48 LR, DUnet in bf16, L1 +
-    MS-SSIM + perceptual + vanilla GAN 0.1), 30 steps, 36 + 36 launches a
+    MS-SSIM + perceptual + vanilla GAN 0.1), TRAIN_STEPS steps, 36 + 36 launches a
     step of #4/#5's bf16 forms and none of the fp32 forms (phase 38's checks
-    on D, its (u, v) and net_d_30); its step profiled, split into the G and
+    on D, its (u, v) and net_d_<TRAIN_STEPS>); its step profiled, split into the G and
     D steps (phase 39's, the DUnet, VGG19 and DySample parts too); then six
     steps each of hat_m_gan.yml, dat_gan.yml and srformerv2_gan.yml as
     shipped, each G step's bf16 launches counted and one step profiled into
@@ -4612,7 +4672,7 @@ def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF
     batch 8 of gt_size 128, the template's degradation, DUnet, L1 +
     perceptual + vanilla GAN 0.1, AdamW 2e-4 for G and D, EMA 0.999) with one
     cut, its MS-SSIM (five scales need 161-pixel sides: gt_size 128 raises
-    in both packages), on `hr_dir`, 30 steps, without validation."""
+    in both packages), on `hr_dir`, TRAIN_STEPS steps, without validation."""
     import yaml
 
     from trainner_redux_tpu_torch.utils.options import resolve_options
@@ -4633,7 +4693,7 @@ def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF
 
 def phase_otf_bf16(seed: int, hr_dir: Path) -> dict[str, int]:
     """53. `train.run` of swinir_m_otf.yml as shipped less its MS-SSIM
-    (`otf_bf16_options`), 30 steps: the degradation in fp32 on #15 (one
+    (`otf_bf16_options`), TRAIN_STEPS steps: the degradation in fp32 on #15 (one
     launch a compression), the networks in bf16 (36 + 36 launches of #4/#5's
     bf16 forms a step, none of the fp32 forms); every log finite; then one
     step profiled into the degradation and the optimizer step (phase 29's),
@@ -4827,7 +4887,7 @@ def phase_swin2sr_bf16_kernels() -> dict:
 
 def phase_swin2sr_bf16_train(seed: int) -> dict[str, int]:
     """55. `train.run` of swin2sr_m_fidelity.yml as shipped (bf16, batch 8
-    of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its validation), 30
+    of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, its validation), TRAIN_STEPS
     steps: 36 launches a step of each of #11-#14's bf16 forms and none of any
     fp32 training form; every log finite; the validation through the fp32
     twin (on #11/#13); the EMA checkpoint served with the strict load. Then
@@ -4989,7 +5049,7 @@ def phase_conv_serve(seed: int) -> None:
 
 def phase_span_s_train(seed: int) -> None:
     """59. `train.run` of span_s_fidelity.yml as shipped (bf16, batch 16 of
-    48x48 LR, L1 + MS-SSIM, AdamW 5e-4, EMA 0.999, its validation), 30
+    48x48 LR, L1 + MS-SSIM, AdamW 5e-4, EMA 0.999, its validation), TRAIN_STEPS
     steps from 16 seeded 512x512 HR images: no hand-written kernel launched,
     every log finite, the validation through the fp32 twin (PSNR/SSIM), the
     EMA checkpoint served with the strict load; one step profiled (device
@@ -5187,7 +5247,7 @@ def phase_conv_bench(seed: int) -> None:
     esrgan_gan (ESRGAN and DUnet in bf16, the workload's loss mix with
     hsluv and cosim, optim_d AdamW 1e-4, without remat), six steps, hsluv's
     three terms logged apart; span_s (batch 16 of 64x64 LR, charbonnier)
-    with `device_cache: true`, 30 steps, beside the same run from the host
+    with `device_cache: true`, TRAIN_STEPS steps, beside the same run from the host
     loader: each run's step end to end and busy share, and a count that
     the cached run cut every batch on the device (and built no host
     prefetcher's batches)."""
@@ -5231,6 +5291,524 @@ def phase_conv_bench(seed: int) -> None:
         f"a step {cache['ms']:.2f} ms from it against {host['ms']:.2f} ms from the host loader "
         f"(x{host['ms'] / cache['ms']:.2f}); busy {cache['busy']:.1%} against {host['busy']:.1%}")
     shutil.rmtree(OUT / "train_data", ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# 63-67. SRFormer and ATD: #3/#8's 64-wide form, served and trained
+# ---------------------------------------------------------------------------
+
+# atd's window attention: C 210, 6 heads of 35 (rows padded to 64), 16x16
+# windows; atd_fidelity.yml's batch of 4 48x48 LR crops
+AC, ANH, AWS = 210, 6, 16
+AHD = AC // ANH
+ATD_B = 4
+# blocks a forward: srformer 6x6 (one #2 each), srformer_light 4x6, atd 6x6
+# (one #3 each), atd_light 4x6
+SRF1_SERVE = (("srformer", "SRFormer", {"fused_ln_mlp": 36}),
+              ("srformer_light", "SRFormer-light", {"fused_ln_mlp": 24}),
+              ("atd", "ATD", {"fused_window_mhsa": 36}),
+              ("atd_light", "ATD-light", {"fused_window_mhsa": 24}))
+SRF1_TEMPLATES = TEMPLATES / "SRFormer"
+ATD_TEMPLATES = TEMPLATES / "ATD"
+SRF1_STEP = {"fused_ln_mlp_bf16": 36, "fused_ln_mlp_backward_bf16": 36}
+ATD_STEP = {"fused_window_mhsa_bf16": 36, "fused_window_mhsa_backward_bf16": 36}
+# phase 65's runs: template, network, label, a step's bf16 launches, the
+# fp32 twin's launches an image (its validation, the served EMA checkpoint)
+SRF1_ATD_RUNS = (
+    (SRF1_TEMPLATES / "srformer_fidelity.yml", "srformer", "SRFormer", SRF1_STEP,
+     {"fused_ln_mlp": 36}),
+    (ATD_TEMPLATES / "atd_fidelity.yml", "atd", "ATD", ATD_STEP, {"fused_window_mhsa": 36}),
+)
+SIX_STEPS = 6  # phases 65-66's runs of the templates as shipped
+# phase 67's fp32 step of atd_light on the card against the CPU: a token
+# whose category (the argmax of its sim) differs between the two takes the
+# CPU's where the card's sim at the CPU's category lies within this of its
+# own largest (a near-tie that the two sum orders break apart)
+CATEGORY_PIN_TOL = 1e-5
+# ... and a gradient whose largest lies below this share of its layer's
+# largest is held against the layer's largest, as `train_branches` holds
+# DAT's zero-gradient biases: a gradient at the rounding floor of the sums
+# behind it (at the seeded init the dictionary is small, trunc-normal 0.02,
+# so in a group's last layers sim barely moves the output, and the cross
+# attention's q, k and scale gradients lie 1e-5 to 1e-6 of their layer's)
+NEAR_NULL = 1e-4
+
+
+def hd64_inputs(gen, kinds: int, shape, c: int, nh: int, ws: int = AWS, dtype=None):
+    """Seeded unit-scale qkv, kind table (K=4: the shift masks of ws / 2)
+    and output gradient of a window attention of heads of c / nh channels."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    dev = torch.device("cuda")
+    n = ws * ws
+    qkv = torch.randn(*shape, 3 * c, generator=gen).to(dev)
+    rel = (torch.randn(nh, n, n, generator=gen) * 0.5).to(dev)
+    if kinds == 4:
+        rel = rel[None] + torch.from_numpy(shift_mask_kinds(ws, ws // 2)).to(dev)[:, None]
+    else:
+        rel = rel[None]
+    dout = torch.randn(*shape, c, generator=gen).to(dev)
+    if dtype is not None:
+        qkv, dout = qkv.to(dtype), dout.to(dtype)
+    return qkv, rel.contiguous(), dout
+
+
+def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int, nh: int,
+                   kinds: int, gen, split: bool) -> None:
+    """#3 and #8 in fp32 at one block: `window_attention_cases`' checks
+    (plain versions, SDPA, float64, two runs bit for bit), recorded under
+    `names`; `split`: both stage splits, the 64-wide kernels among them."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = inputs = hd64_inputs(gen, kinds, shape, c, nh)
+    hd = c // nh
+    ops = (lambda: wa.fused_window_mhsa(qkv, bias, nh, hd, AWS),
+           lambda: wa.fused_window_mhsa_reference(qkv, bias, nh, hd, AWS),
+           lambda: wa.fused_window_mhsa_backward(qkv, bias, dout, nh, hd, AWS),
+           lambda: wa.fused_window_mhsa_bwd_reference(qkv, bias, dout, nh, hd, AWS))
+    cases = window_attention_cases("atd kernels", "fused_window_mhsa", label, ops, inputs, AWS,
+                                   AWS, kinds, nh, hd)
+    for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
+        record_kernel(res, "atd kernels", names[name != "fused_window_mhsa"], label, kern, plain,
+                      lib, flops, nb, err, note)
+    if split:
+        _, _, _, flops, nb, _, _ = cases["fused_window_mhsa"]
+        stage_split("atd kernels", f"{names[0]} {label}", ops[0], flops, nb, res[names[0]]["ms"],
+                    STAGES_3, kernels=(ATTN_FWD_64,))
+        _, _, _, flops, nb, _, _ = cases["fused_window_mhsa_backward"]
+        stage_split("atd kernels", f"{names[1]} {label}", ops[2], flops, nb, res[names[1]]["ms"],
+                    STAGES_8, kernels=(ATTN_BWD_64,))
+
+
+def mlp_half_case(tag: str, label: str, shape, c: int, hidden: int, rows: int, gen) -> None:
+    """#2 and #7, fp32 and bf16, at one MLP half (DropPath scales holding 0
+    and 1/0.9): each against its plain version (fp32 KERNEL_TOL and
+    GRAD_TOL, bf16 `check_bf16`), two runs of each bit for bit, timed."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    b = shape[0]
+    x32, p, _, _ = block_inputs(gen, 1, dev, shape=shape, widths=(c, c // 6, rows, hidden))
+    s = torch.full((b,), 1.0 / 0.9, device=dev)
+    s[1] = 0.0
+    params = [p[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    dout32 = torch.randn(*shape, c, generator=gen).to(dev)
+    names = ("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2")
+    for dtype in ("fp32", "bf16"):
+        x, dout = (x32, dout32) if dtype == "fp32" else (x32.bfloat16(), dout32.bfloat16())
+        if dtype == "fp32":
+            def fwd():
+                with torch.no_grad():
+                    return fb.fused_ln_mlp(x, *params, s, rows)
+
+            def bwd():
+                return fb.fused_ln_mlp_backward(x, *params, s, dout, rows)
+
+            ref_f, ref_b = fb.fused_ln_mlp_reference, fb.fused_ln_mlp_bwd_reference
+        else:
+            def fwd():
+                return fb.fused_ln_mlp_bf16(x, *params, s, rows)
+
+            def bwd():
+                return fb.fused_ln_mlp_backward_bf16(x, *params, s, dout, rows)
+
+            ref_f, ref_b = fb.fused_ln_mlp_bf16_reference, fb.fused_ln_mlp_bwd_bf16_reference
+        try:
+            got, again, grads, grads2 = fwd(), fwd(), bwd(), bwd()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - report and fail the phase
+            fail(f"[{tag}] #2/#7 {dtype} {label}: {e}")
+        want, plain = ref_f(x, *params, s, rows), ref_b(x, *params, s, dout, rows)
+        if dtype == "fp32":
+            err = (got - want).abs().max().item()
+            if not err <= KERNEL_TOL or not bool(torch.isfinite(got).all()):
+                fail(f"[{tag}] #2 {label}: {err:.3g} off its plain version")
+            gerr, worst = check_grads("fused_ln_mlp_backward", label, grads, plain, names)
+        else:
+            err = check_bf16(tag, f"#2 bf16 {label} out", got, want)[1]
+            worst = max(check_bf16(tag, f"#7 bf16 {label} {n}", g, w)[1]
+                        for n, g, w in zip(names, grads, plain))
+        if not torch.equal(got, again) or not all(torch.equal(a, b_)
+                                                  for a, b_ in zip(grads, grads2)):
+            fail(f"[{tag}] #2/#7 {dtype} {label}: two runs differ")
+        tokens = b * shape[1] * shape[2]
+        bound_f, _ = bound(4 * tokens * c * hidden, nbytes(x, *params, s, got),
+                           PEAK_FP32 if dtype == "fp32" else PEAK_BF16)
+        bound_b, _ = bound(10 * tokens * c * hidden, nbytes(x, *params, s, dout, *grads),
+                           PEAK_FP32 if dtype == "fp32" else PEAK_BF16)
+        ms_f, ms_b = time_ms(fwd, iters=10, warmup=2), time_ms(bwd, iters=10, warmup=2)
+        say(f"[{tag}] #2/#7 {dtype} at {label} (B={b}, {shape[1]}x{shape[2]}, C {c}, hidden "
+            f"{hidden}, rows {rows}): out within {err:.3g}, gradients within {worst:.3g} of "
+            f"their largest, two runs bit for bit; #2 {ms_f:.4f} ms (bound {bound_f:.4f}), #7 "
+            f"{ms_b:.4f} ms (bound {bound_b:.4f})")
+
+
+def phase_atd_kernels() -> dict:
+    """63. #3 and #8 at heads of 33 to 64 channels (the 64-wide form), fp32
+    and bf16, at atd's training block (B=4, 48x48, C 210, 6 heads of 35, ws
+    16), K=1 and K=4 (the JSON line's case), and at heads of 64 (C 384, 6
+    heads) at K=4; #3 at B=1, 128x128 (serving); each against its plain
+    version and float64, two runs bit for bit, timed beside the bound, SDPA
+    and (bf16) the fp32 form; split by stage at K=4. The 32-wide form timed
+    beside it at HAT-M's heads (C 180, 6 heads of 30) at the same block.
+    #2 and #7 at srformer_light's MLP half (C 60, hidden 120, rows 16) and
+    srformer's (C 180, hidden 360, rows 24), fp32 and bf16."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(63)
+    res: dict[str, dict] = {}
+    other: dict[str, dict] = {}  # cases timed but not the JSON line's
+    atd = (ATD_B, FID_LQ, FID_LQ)
+    names = ("fused_window_mhsa_hd64", "fused_window_mhsa_backward_hd64")
+    bf_names = ("fused_window_mhsa_bf16_hd64", "fused_window_mhsa_backward_bf16_hd64")
+    for kinds in (1, 4):
+        hd64_fp32_case(res, names, f"ATD ws 16 K={kinds}", atd, AC, ANH, kinds, gen, kinds == 4)
+        bf16_window_case(res, bf_names, f"ATD ws 16 K={kinds}", atd, AWS, AWS, kinds, ANH, AHD,
+                         (AWS // 2, AWS // 2), gen, STAGES_8 if kinds == 4 else None)
+    hd64_fp32_case(other, names, "heads of 64 (C 384) K=4", atd, 384, 6, 4, gen, False)
+    bf16_window_case(other, bf_names, "heads of 64 (C 384) K=4", atd, AWS, AWS, 4, 6, 64,
+                     (AWS // 2, AWS // 2), gen, None)
+    # serving: #3 at one 128x128 image, K=4
+    qkv, bias, _ = hd64_inputs(gen, 4, (1, 128, 128), AC, ANH)
+    with torch.no_grad():
+        got = wa.fused_window_mhsa(qkv, bias, ANH, AHD, AWS)
+    err = (got - wa.fused_window_mhsa_reference(qkv, bias, ANH, AHD, AWS)).abs().max().item()
+    if not err <= KERNEL_TOL:
+        fail(f"[atd kernels] #3 at B=1 128x128: {err:.3g} off its plain version")
+    with torch.no_grad():
+        ms = graph_ms(lambda: wa.fused_window_mhsa(qkv, bias, ANH, AHD, AWS))
+    bms, by = bound(4 * 128 * 128 * 256 * AC, nbytes(qkv, bias, got))
+    say(f"[atd kernels] #3 64-wide at B=1, 128x128 (serving, K=4): max_abs_err {err:.3g}, "
+        f"{ms:.4f} ms (CUDA graphs), bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}%)")
+    # the 32-wide form at HAT-M's heads, the same block: its time beside
+    times = {}
+    for label, c, nh in (("32-wide, HAT-M's heads of 30", C, NH), ("64-wide, ATD's 35", AC, ANH)):
+        for dtype in (None, torch.bfloat16):
+            q, t, d = hd64_inputs(gen, 4, atd, c, nh, dtype=dtype)
+            hd = c // nh
+            with torch.no_grad():
+                f = time_ms(lambda: wa.fused_window_mhsa(q, t, nh, hd, AWS), iters=10, warmup=2)
+            bwd = wa.fused_window_mhsa_backward(q, t, d, nh, hd, AWS)
+            del bwd
+            b_ = time_ms(lambda: wa.fused_window_mhsa_backward(q, t, d, nh, hd, AWS), iters=10,
+                         warmup=2)
+            times[(label, dtype)] = (f, b_)
+            say(f"[atd kernels] {label} (B=4, 48x48, K=4) {'bf16' if dtype else 'fp32'}: #3 "
+                f"{f:.4f} ms, #8 {b_:.4f} ms")
+    mlp_half_case("atd kernels", "srformer_light's MLP half", (16, FID_LQ, FID_LQ), 60, 120, 16,
+                  gen)
+    mlp_half_case("atd kernels", "srformer's MLP half", (16, FID_LQ, FID_LQ), 180, 360, 24, gen)
+    torch.cuda.empty_cache()
+    return res
+
+
+def forward_device_ms(net, x, calls: int = 2) -> tuple[float, int]:
+    """(device ms, kernel launches) of one forward of `net` on x
+    (torch.profiler over `calls` forwards after one warm-up; a forward that
+    copies from the host, as PSA's and the plain branch's masks do, cannot be
+    captured in a CUDA graph)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                net(x)
+            torch.cuda.synchronize()
+    events = device_events(prof)
+    check_retired("srformer atd serve", events)
+    total = sum(e.self_device_time_total for e in events)
+    if total == 0:
+        fail("[srformer atd serve] the profiler recorded no device time")
+    return total / 1e3 / calls, sum(e.count for e in events) // calls
+
+
+def phase_srformer_atd_serve(seed: int) -> dict[str, int]:
+    """64. `test.run` on seeded srformer, srformer_light, atd and atd_light
+    at 4x, full width and depth, on the 4 images (three 128x128 LR, one
+    100x120: the reflect pad): PNGs and finite PSNR/SSIM, and their kernels'
+    launches (#2 once a block for SRFormer, #3 once a block for ATD: 36 in
+    one atd forward, on the 64-wide form); each 128x128 forward's device ms.
+    Returns atd's serving counts."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+
+    hr_dir, lr_dir = make_dataset(OUT / "data", seed)
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
+    atd_counts: dict[str, int] = {}
+    for network, label, per_image in SRF1_SERVE:
+        net = build_network({"type": network, "scale": 4}).init_weights(
+            torch.Generator().manual_seed(seed))
+        weights = OUT / f"{network}_x4_seeded.pth"
+        torch.save(net.state_dict(), weights)
+        served = serve(f"{network}_x4", weights, hr_dir, lr_dir, seed, {}, network)
+        check_counts(f"{label} serving", served["counts"],
+                     {k: v * N_IMAGES for k, v in per_image.items()})
+        if network == "atd":
+            atd_counts = served["counts"]
+        weights.unlink()
+        net = net.cuda().eval()
+        reset_counts()
+        with torch.inference_mode():
+            out = net(x)
+        torch.cuda.synchronize()
+        check_counts(f"{label} one 128x128 forward", read_counts(), per_image)
+        if out.shape != (1, 3, 512, 512) or not bool(torch.isfinite(out).all()):
+            fail(f"{label} forward: bad output {tuple(out.shape)}")
+        ms, launches = forward_device_ms(net, x)
+        say(f"[srformer atd serve] {label} 4x: one 128x128 forward {ms:.3f} device ms over "
+            f"{launches} launches (fp32; {sum(p.numel() for p in net.parameters()):,d} "
+            f"parameters), {per_image} of the port's kernels")
+        del net
+        torch.cuda.empty_cache()
+    return atd_counts
+
+
+def module_fwd_bwd_ms(fn, leaves, calls: int = 3) -> float:
+    """Device ms of one forward and backward of `fn()`, its output's
+    gradient all ones, into `leaves` (torch.profiler over `calls` calls
+    after two warm-ups: a module of many small launches is host-bound, so
+    CUDA events around it would time the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def once():
+        out = fn()
+        if leaves:
+            torch.autograd.grad(out, leaves, torch.ones_like(out))
+
+    for _ in range(2):
+        once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            once()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / calls
+
+
+def phase_srformer_atd_train(seed: int) -> dict[str, int]:
+    """65. `train.run` of srformer_fidelity.yml and atd_fidelity.yml as
+    shipped (bf16; batch 16 and 4 of 48x48 LR; L1 + MS-SSIM; AdamW, EMA
+    0.999; their validation through the fp32 twin), six steps each: ms and
+    images/s a step, launches (36 + 36 a step of #2/#7's bf16 forms for
+    SRFormer, of #3/#8's 64-wide bf16 forms for ATD; none of the fp32
+    forms), peak memory, the validation's PSNR/SSIM, the EMA checkpoint
+    served; then one step profiled (device ms, busy share) and the share of
+    it that SRFormer's PSA (36 blocks) and ATD's category attention and sort
+    (36 layers) take, timed alone in bf16 at the step's shapes. Returns
+    atd's run's counts."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network_cast
+    from trainner_redux_tpu_torch.archs.atd_arch import category_order
+    from trainner_redux_tpu_torch.archs.swinir_arch import window_partition
+
+    counts = {}
+    for template, network, label, per_step, per_image in SRF1_ATD_RUNS:
+        tag = f"{network} bf16 train"
+        hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+        val_hr, val_lr = make_dataset(OUT / "data", seed)
+        opt = fidelity_options(f"{network}_x4_fidelity_bf16", hr_dir, lr_dir, seed,
+                               (val_hr, val_lr), template=template)
+        opt.train.total_iter = SIX_STEPS
+        batch = opt.datasets["train"].batch_size_per_gpu
+        serving = {k: v * N_IMAGES for k, v in per_image.items()}
+        counts[network] = phase_train(
+            seed, network, f"{label} bf16 ({template.name})", tag, per_step=per_step,
+            serve_want=serving, lq=FID_LQ, losses=FID_LOSSES, opt=opt,
+            more_launches=lambda s=serving: s, check=bf16_train_check(tag), batch_size=batch,
+            steps=SIX_STEPS)
+        dev_ms, step_ms = phase_bf16_profile(seed, template, f"{network}_x4_bf16_profile",
+                                             per_step, f"{network} bf16 profile",
+                                             f"profile_{network}_bf16_train.txt", batch)
+        # the plain modules' share, timed alone in bf16 at the step's shapes
+        net = build_network_cast({"type": network, "scale": 4}, torch.bfloat16).cuda().train()
+        gen = torch.Generator().manual_seed(seed)
+        if network == "srformer":
+            blk = net.layers[0].residual_group.blocks[1]  # shifted, as every second block
+            x = torch.randn(batch, FID_LQ, FID_LQ, 180, generator=gen).cuda().bfloat16()
+            xw = window_partition(x, 24).requires_grad_()
+            from trainner_redux_tpu_torch.archs.srformer_arch import _psa_mask
+
+            mask = torch.from_numpy(_psa_mask(FID_LQ, FID_LQ, 24, 12)).cuda()
+            ms = module_fwd_bwd_ms(lambda: blk.attn(xw, mask), [xw, *blk.attn.parameters()])
+            what = "PSA (q, kv, the permuted attention, proj), forward and backward"
+        else:
+            layer = net.layers[0].layers[0]
+            x = torch.randn(batch, FID_LQ * FID_LQ, AC, generator=gen).cuda().bfloat16()
+            td = torch.randn(batch, 128, AC, generator=gen).cuda().bfloat16()
+            xg = x.requires_grad_()
+            _, sim = layer.attn_atd(x, td)
+            sim = sim.detach()
+            ms = module_fwd_bwd_ms(lambda: layer.attn_aca(xg, sim),
+                                   [xg, *layer.attn_aca.parameters()])
+            sort_ms = module_fwd_bwd_ms(lambda: category_order(sim)[1].float(), [])
+            what = (f"the category attention (sort {sort_ms:.3f} ms of it: argmax, stable "
+                    "argsort, inverse), forward and backward")
+        say(f"[{tag}] {what}: {ms:.3f} ms a block alone, x 36 = {36 * ms:.1f} ms, "
+            f"{100 * 36 * ms / dev_ms:.1f}% of the step's {dev_ms:.1f} device ms "
+            f"(step {step_ms:.1f} ms on the host clock)")
+        del net
+        torch.cuda.empty_cache()
+    return counts["atd"]
+
+
+def phase_srformer_atd_templates(seed: int) -> None:
+    """66. Six bf16 steps each of srformer_light_fidelity.yml (#2/#7's bf16
+    forms at C 60, 24 + 24 a step), atd_light_fidelity.yml (#3/#8's bf16
+    forms, 32-wide, 24 + 24) and atd_gan.yml (DUnet in bf16; #3/#8's 64-wide
+    bf16 forms, 36 + 36), as shipped: every log finite."""
+    import yaml
+
+    for template, per_step in (
+            (SRF1_TEMPLATES / "srformer_light_fidelity.yml",
+             {"fused_ln_mlp_bf16": 24, "fused_ln_mlp_backward_bf16": 24}),
+            (ATD_TEMPLATES / "atd_light_fidelity.yml",
+             {"fused_window_mhsa_bf16": 24, "fused_window_mhsa_backward_bf16": 24})):
+        n = yaml.safe_load(template.read_text())["datasets"]["train"]["batch_size_per_gpu"]
+        six_bf16_steps(f"{template.stem} bf16", fidelity_options(
+            f"{template.stem}_six", OUT, OUT, seed, template=template),
+            gan_batch(seed, n, FID_LQ), per_step)
+    gan_vgg_line("atd_gan bf16")
+    gan = gan_options("atd_gan_bf16_six", OUT, OUT, seed, template=ATD_TEMPLATES / "atd_gan.yml",
+                      as_shipped=True)
+    six_bf16_steps("atd_gan bf16", gan,
+                   gan_batch(seed, gan.datasets["train"].batch_size_per_gpu, FID_LQ), ATD_STEP)
+
+
+def phase_atd_fp32(seed: int) -> dict[str, int]:
+    """67. fp32: `train.run` of atd (batch 4 of 48x48 LR, L1) for FP32_STEPS
+    steps, 36 + 36 launches a step of #3/#8's 64-wide fp32 forms; one fp32
+    step of atd_light (TF32 off, 4 crops) on the card against the same step
+    on the CPU from the same weights and batch (loss BRANCH_LOSS_TOL
+    relative, each gradient BRANCH_GRAD_TOL of its largest). The categories
+    of every layer are compared between the two and those that differ
+    printed: the two sum in other orders, so a token whose top two sims lie
+    within rounding takes one category on the card and another on the CPU,
+    and then attends in another group. As `KinkPins` does at a ReLU's kink,
+    the card's step takes the CPU's category there, and fails if the card's
+    sim at that category lies further than CATEGORY_PIN_TOL from its own
+    largest. A gradient below NEAR_NULL of its layer's largest is held
+    against the layer's largest (`train_branches`' rule for a zero true
+    gradient). Then two 3-step bf16 runs of atd_light_fidelity.yml with
+    `deterministic: true`, bit for bit. Returns the fp32 run's counts."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import atd_arch
+    from trainner_redux_tpu_torch.models import build_model
+
+    tag = "atd fp32"
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    opt = train_options("atd_x4_train", hr_dir, lr_dir, seed, "atd", FID_LQ, ("l1loss",),
+                        FP32_STEPS)
+    opt.datasets["train"].batch_size_per_gpu = ATD_B
+    fp32_step = {"fused_window_mhsa": 36, "fused_window_mhsa_backward": 36}
+    counts = phase_train(seed, "atd", "ATD fp32", tag, per_step=fp32_step,
+                         serve_want={"fused_window_mhsa": 36 * N_IMAGES}, lq=FID_LQ, opt=opt,
+                         batch_size=ATD_B, steps=FP32_STEPS)
+
+    # the CPU's step first, its categories recorded; then the card's, each
+    # category that differs at a near-tie pinned to the CPU's
+    light = ATD_TEMPLATES / "atd_light_fidelity.yml"
+    opt = fidelity_options("atd_light_x4_fp32_step", OUT, OUT, seed, template=light,
+                           compute_dtype="float32")
+    batch = gan_batch(seed, CPU_STEP_BATCH, FID_LQ)
+    real, cpu_cats, differ = atd_arch.category_order, [], []
+    pinned = {"tokens": 0, "gap": 0.0}
+
+    def recorded(sim):
+        out = real(sim)
+        cpu_cats.append(out[0].clone())
+        return out
+
+    def pinned_to_cpu(sim):
+        cat, order, inv = real(sim)
+        want = cpu_cats[len(differ)].to(sim.device)
+        moved = cat != want
+        differ.append(int(moved.sum()))
+        if not bool(moved.any()):
+            return cat, order, inv
+        gap = (sim.gather(-1, cat[..., None]) - sim.gather(-1, want[..., None]))[..., 0][moved]
+        pinned["tokens"] += differ[-1]
+        pinned["gap"] = max(pinned["gap"], float(gap.max()))
+        return want, *atd_arch.sort_by_category(want)
+
+    steps = {}
+    try:
+        for device, order_fn in (("cpu", recorded), ("cuda", pinned_to_cpu)):
+            atd_arch.category_order = order_fn
+            model = build_model(opt, device=device)
+            model.feed_data(batch)
+            model.optimize_parameters(1)
+            steps[device] = (float(model.log_dict["l_g_total"]),
+                             {k: p.grad.detach().cpu() for k, p in model.net_g.named_parameters()})
+    finally:
+        atd_arch.category_order = real
+    (loss_card, g_card), (loss_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+
+    def layer_of(name: str) -> str:
+        """`layers.g.layers.j` of an ATD layer's parameter, else the name."""
+        parts = name.split(".")
+        return ".".join(parts[:4]) if parts[:1] == ["layers"] and parts[2:3] == ["layers"] else name
+
+    layer_max: dict[str, float] = {}
+    for k, g in g_cpu.items():
+        layer_max[layer_of(k)] = max(layer_max.get(layer_of(k), 0.0), g.abs().max().item())
+    worst, near_null = (0.0, ""), []
+    for k, g in g_cpu.items():
+        ref = g.abs().max().item()
+        if ref < NEAR_NULL * layer_max[layer_of(k)]:
+            near_null.append(k)
+            ref = layer_max[layer_of(k)]
+        worst = max(worst, ((g_card[k] - g).abs().max().item() / max(ref, 1e-30), k))
+    say(f"[{tag}] one fp32 step of atd_light (TF32 off, {CPU_STEP_BATCH} crops) on the card "
+        f"against the CPU: loss {loss_card:.6f} against {loss_cpu:.6f} ({rel:.2e} relative, "
+        f"limit {BRANCH_LOSS_TOL:g}); the farthest of {len(g_cpu)} gradients {worst[0]:.2e} of "
+        f"its largest ({worst[1]}; limit {BRANCH_GRAD_TOL:g}; {len(near_null)} gradients below "
+        f"{NEAR_NULL:g} of their layer's largest held against that: "
+        f"{', '.join(sorted({k.split('.', 4)[-1] for k in near_null})) or 'none'}); "
+        f"categories that differ between "
+        f"the two, of {cpu_cats[0].numel()} tokens a layer: "
+        + ", ".join(f"{n}" for n in differ)
+        + f" in layers 0-{len(differ) - 1}; {pinned['tokens']} tokens pinned to the CPU's "
+        f"category, the card's sim there within {pinned['gap']:.3g} of its largest (limit "
+        f"{CATEGORY_PIN_TOL:g})")
+    if len(differ) != len(cpu_cats) or not pinned["gap"] <= CATEGORY_PIN_TOL:
+        fail(f"{tag}: a category differs between the card and the CPU away from a near-tie")
+    if not rel <= BRANCH_LOSS_TOL or not worst[0] <= BRANCH_GRAD_TOL:
+        fail(f"{tag}: the card's fp32 step is off the CPU's")
+
+    opt = fidelity_options("atd_light_x4_deterministic", OUT, OUT, seed, template=light,
+                           deterministic=True)
+    n = opt.datasets["train"].batch_size_per_gpu
+    batches = [gan_batch(seed + i, n, FID_LQ) for i in range(3)]
+    runs = []
+    for _ in range(2):
+        model = build_model(opt, device="cuda")
+        for i, b in enumerate(batches):
+            model.feed_data(b)
+            model.optimize_parameters(i + 1)
+        runs.append(([float(v) for v in model.log_dict.values()],
+                     [p.detach().clone() for p in model.net_g.parameters()]))
+    (logs_a, params_a), (logs_b, params_b) = runs
+    if logs_a != logs_b or not all(torch.equal(a, b) for a, b in zip(params_a, params_b)):
+        fail(f"{tag}: two deterministic 3-step bf16 runs of atd_light differ")
+    say(f"[{tag}] two 3-step bf16 runs of atd_light with deterministic: true: bit for bit in "
+        f"all {len(logs_a)} logs and {len(params_a)} parameters")
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -5369,6 +5947,16 @@ def main() -> None:
     timed("span_s train", phase_span_s_train, seed)
     timed("conv templates", phase_conv_templates, seed)
     timed("conv bench", phase_conv_bench, seed)
+    kernels.update(timed("atd kernels", phase_atd_kernels))
+    atd_serve = timed("srformer atd serve", phase_srformer_atd_serve, seed)
+    launches["fused_window_mhsa_hd64"] = atd_serve["fused_window_mhsa"]
+    atd_bf16 = timed("srformer atd train", phase_srformer_atd_train, seed)
+    launches.update(fused_window_mhsa_bf16_hd64=atd_bf16["fused_window_mhsa_bf16"],
+                    fused_window_mhsa_backward_bf16_hd64=atd_bf16[
+                        "fused_window_mhsa_backward_bf16"])
+    timed("srformer atd templates", phase_srformer_atd_templates, seed)
+    atd_fp32 = timed("atd fp32", phase_atd_fp32, seed)
+    launches["fused_window_mhsa_backward_hd64"] = atd_fp32["fused_window_mhsa_backward"]
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

@@ -1539,3 +1539,102 @@ def test_bf16_postnorm_forms_refuse_what_they_do_not_take(cuda):
             v2.cos_attn_bf16_smem_bytes(c))
         assert max(lib_v2.trr_pn_mlp_bf16_smem_bytes(c, hidden),
                    lib_tr.trr_atb_bf16_smem_bytes()) == v2.pn_mlp_bf16_smem_bytes(c, hidden)
+
+
+# #3/#8's 64-wide form: (window, C, heads, (B, H, W)): ATD's training block
+# (C 210, heads of 35: a head every 35 elements of a qkv row), heads of 64
+# (C 384), heads of 35 at 8x8 windows and at dat_s's 8x16 rectangles
+HD64_WINDOWS = [((16, 16), 210, 6, (B, 48, 48)), ((16, 16), 384, 6, (B, 32, 48)),
+                ((8, 8), 210, 6, (B, 32, 48)), ((8, 16), 105, 3, (B, 32, 48))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("window", "c", "nh", "shape"), HD64_WINDOWS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_hd64_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype):
+    """#3 and #8 at heads of 33 to 64 channels (rows padded to 64) against
+    their plain versions through the autograd Functions, fp32 within TOL
+    and bf16 as the 32-wide bf16 forms are held; each counted once under
+    its own name; two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _bf16_window_case(cuda, window, kinds, c, nh, shape, seed=c + kinds)
+    bf16 = dtype == "bf16"
+    if not bf16:
+        qkv, dout = qkv.float(), dout.float()
+    hd = c // nh
+    assert 32 < hd <= 64 and wa.rect_mhsa_fits(*shape[1:], *window, c, nh)
+    square = window[0] == window[1]
+    win = window[:1] if square else window
+    if square:
+        fwd, bwd = ((wa.fused_window_mhsa_bf16, wa.fused_window_mhsa_backward_bf16) if bf16
+                    else (wa.fused_window_mhsa, wa.fused_window_mhsa_backward))
+        entry = wa.fused_window_mhsa
+        ref = wa.fused_window_mhsa_bf16_reference if bf16 else wa.fused_window_mhsa_reference
+        bref = (wa.fused_window_mhsa_bwd_bf16_reference if bf16
+                else wa.fused_window_mhsa_bwd_reference)
+    else:
+        fwd, bwd = ((wa.fused_rect_mhsa_bf16, wa.fused_rect_mhsa_backward_bf16) if bf16
+                    else (wa.fused_rect_mhsa, wa.fused_rect_mhsa_backward))
+        entry = wa.fused_rect_mhsa
+        ref = wa.fused_rect_mhsa_bf16_reference if bf16 else wa.fused_rect_mhsa_reference
+        bref = (wa.fused_rect_mhsa_bwd_bf16_reference if bf16
+                else wa.fused_rect_mhsa_bwd_reference)
+    n0 = (fwd.launches, bwd.launches)
+    tq = qkv.clone().requires_grad_()
+    tb = bias.clone().requires_grad_()
+    out = entry(tq, tb, nh, hd, *win)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    want = ref(qkv, bias, nh, hd, *win)
+    if bf16:
+        _assert_bf16_close("out", out.detach(), want)
+    else:
+        assert (out.detach() - want).abs().max().item() <= TOL
+    tol = BF16_TOL if bf16 else TOL
+    for name, g, w in zip(("dqkv", "dbias"), (tq.grad, tb.grad),
+                          bref(qkv, bias, dout, nh, hd, *win)):
+        assert g.dtype == w.dtype, name
+        assert (g.float() - w.float()).abs().max().item() <= tol * w.float().abs().max(), name
+    with torch.no_grad():
+        runs = [(entry(qkv, bias, nh, hd, *win), *bwd(qkv, bias, dout, nh, hd, *win))
+                for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_hd64_shared_memory_plans_match_the_source(cuda):
+    """The 64-wide plans, the source's and the Python side's, at heads of 35
+    and 64 in every window form; a head of 65 has none."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    lib = cuda_build.library("window_attention")
+    for c, nh in ((210, 6), (384, 6), (105, 3)):
+        for window in list(RECT) + [(8, 8), (16, 16)]:
+            assert lib.trr_rect_mhsa_smem_bytes(c, nh, *window) == wa.rect_mhsa_smem_bytes(
+                c, nh, *window) <= wa.SMEM_LIMIT
+            assert lib.trr_rect_mhsa_bwd_smem_bytes(c, nh, *window) == (
+                wa.rect_mhsa_bwd_smem_bytes(c, nh, *window)) <= wa.SMEM_LIMIT
+    assert lib.trr_rect_mhsa_smem_bytes(390, 6, 16, 16) == 0
+
+
+@pytest.mark.cuda
+def test_hd64_wrappers_refuse_heads_past_64(cuda):
+    """Heads of 65 channels are outside every form: a bf16 or fp32 qkv
+    raises, naming the limits, and nothing launches or falls back."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _bf16_window_case(cuda, (16, 16), 1, 390, 6, (1, 32, 32))
+    forms = (wa.fused_window_mhsa, wa.fused_window_mhsa_bf16, wa.fused_window_mhsa_backward,
+             wa.fused_window_mhsa_backward_bf16)
+    n0 = [f.launches for f in forms]
+    with pytest.raises(ValueError, match="at most 64 channels"), torch.no_grad():
+        wa.fused_window_mhsa(qkv, bias, 6, 65, 16)
+    with pytest.raises(ValueError, match="at most 64 channels"):
+        wa.fused_window_mhsa_backward(qkv.float(), bias, dout.float(), 6, 65, 16)
+    assert [f.launches for f in forms] == n0

@@ -67,7 +67,9 @@ PRESETS = {"span": "SPAN", "span_s": "SPAN", "span_f32": "SPAN", "span_f64": "SP
            "spanplus_s": "SpanPlus", "spanplus_st": "SpanPlus", "spanplus_sts": "SpanPlus",
            "spanc": "SpanC", "spanpp": "SpanC", "compact": "SRVGGNetCompact",
            "ultracompact": "SRVGGNetCompact", "superultracompact": "SRVGGNetCompact",
-           "srvggnetcompact": "SRVGGNetCompact", "esrgan": "RRDBNet", "esrgan_lite": "RRDBNet"}
+           "srvggnetcompact": "SRVGGNetCompact", "esrgan": "RRDBNet", "esrgan_lite": "RRDBNet",
+           "srformer": "SRFormer", "srformer_light": "SRFormer", "atd": "ATD",
+           "atd_light": "ATD"}
 # the golden fixtures' configs (tests/test_utils/test_golden_parity.py, FLAX_OPTS)
 GOLDEN_NETS = {
     "span": {"type": "span", "scale": 2, "feature_channels": 16},
@@ -126,6 +128,14 @@ def to_port_grads(tree, arch: str, keys) -> dict[str, np.ndarray]:
             state_dict_from_jax(JaxBaseModel.flatten_params(tree), arch, keys=keys).items()}
 
 
+def param_grads(net: torch.nn.Module) -> dict[str, np.ndarray]:
+    """Each parameter's gradient, zeros where autograd left none (a
+    parameter the loss does not reach, as ATD's last dictionary refresh):
+    jax.grad's zero, which the port's SRModel also steps with."""
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+            for k, p in net.named_parameters()}
+
+
 def check_fp32(net_opt: dict, arch: str, scale: int, h: int, w: int) -> None:
     """Train and eval forwards and the train-mode L1 gradients, fp32."""
     flat, net = shared_params(net_opt, scale, arch)
@@ -153,7 +163,7 @@ def check_fp32(net_opt: dict, arch: str, scale: int, h: int, w: int) -> None:
         assert err <= FWD_TOL * top, f"train={train}: max|diff| {err:.3g} vs max {top:.3g}"
 
     want_g = to_port_grads(jgrads, arch, net.state_dict().keys())
-    got_g = {k: p.grad.numpy() for k, p in net.named_parameters()}
+    got_g = param_grads(net)
     assert got_g.keys() == want_g.keys()
     for k, g in got_g.items():
         err, top = np.abs(g - want_g[k]).max(), np.abs(want_g[k]).max()
@@ -186,8 +196,7 @@ def check_bf16(net_opt: dict, arch: str, scale: int, h: int = 16, w: int = 16) -
         out = net(nchw(lr))
         assert out.dtype == torch.float32
         (out * nchw(wout)).sum().backward()
-        results[dtype] = (out.detach().permute(0, 2, 3, 1).numpy(),
-                          {k: p.grad.numpy() for k, p in net.named_parameters()}, net)
+        results[dtype] = (out.detach().permute(0, 2, 3, 1).numpy(), param_grads(net), net)
     got, got_g, net = results[torch.bfloat16]
     want = np.asarray(want)
     err, top = np.abs(got - want).max(), np.abs(want).max()

@@ -86,7 +86,8 @@ def test_window_mhsa_gate(monkeypatch):
     assert not twa.fused_window_mhsa_supported(20, 128, 8, 180, 6)  # not window-aligned
     assert not twa.fused_window_mhsa_supported(512, 512, 32, 180, 6)  # n=1024: no room
     assert twa.fused_window_mhsa_supported(64, 64, 16, 180, 6)  # HAT-M
-    assert not twa.fused_window_mhsa_supported(64, 64, 16, 240, 6)  # heads of 40
+    assert twa.fused_window_mhsa_supported(64, 64, 16, 240, 6)  # heads of 40: 64-wide rows
+    assert not twa.fused_window_mhsa_supported(64, 64, 16, 390, 6)  # heads of 65
     assert not twa.fused_window_mhsa_supported(48, 48, 12, 180, 6)  # 12x12 windows
     monkeypatch.setenv("TRAINNER_FUSED_ATTN", "0")
     assert not twa.fused_window_mhsa_supported(128, 128, 8, 180, 6)
@@ -223,7 +224,8 @@ def test_rect_mhsa_gate(monkeypatch):
     assert twa.fused_rect_mhsa_supported(64, 64, 8, 32, 30, 3)  # dat_light: heads of 10
     assert not twa.fused_rect_mhsa_supported(48, 64, 32, 8, 90, 3)  # H not a multiple of 32
     assert not twa.fused_rect_mhsa_supported(64, 64, 2, 4, 8, 1)  # n = 8
-    assert not twa.fused_rect_mhsa_supported(64, 64, 8, 32, 120, 3)  # heads of 40
+    assert twa.fused_rect_mhsa_supported(64, 64, 8, 32, 120, 3)  # heads of 40: 64-wide rows
+    assert not twa.fused_rect_mhsa_supported(64, 64, 8, 32, 195, 3)  # heads of 65
     assert not twa.fused_rect_mhsa_supported(64, 64, 16, 32, 90, 3)  # n = 512
     monkeypatch.setenv("TRAINNER_FUSED_ATTN", "0")
     assert not twa.fused_rect_mhsa_supported(64, 64, 8, 32, 90, 3)

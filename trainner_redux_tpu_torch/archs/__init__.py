@@ -1,8 +1,8 @@
 """Architectures of the port: registration + build_network.
 
 Parity: the JAX package's archs/__init__.py, without its directory scan:
-only the ported archs (the transformers SwinIR, HAT, DAT, Swin2SR and
-SRFormerV2; the conv families SPAN, SPANF, SPANPlus, SpanC, Compact
+only the ported archs (the transformers SwinIR, HAT, DAT, Swin2SR,
+SRFormerV2, SRFormer and ATD; the conv families SPAN, SPANF, SPANPlus, SpanC, Compact
 (SRVGGNetCompact) and ESRGAN (RRDBNet); the DUnet discriminator) are
 imported and registered, and
 `build_network` resolves a type in SPANDREL_REGISTRY, then ARCH_REGISTRY,
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Any
 
+from trainner_redux_tpu_torch.archs import atd_arch  # noqa: F401 (registers atd*)
 from trainner_redux_tpu_torch.archs import dat_arch  # noqa: F401 (registers dat*)
 from trainner_redux_tpu_torch.archs import dunet_arch  # noqa: F401 (registers dunet)
 from trainner_redux_tpu_torch.archs import hat_arch  # noqa: F401 (registers hat*)
@@ -21,6 +22,7 @@ from trainner_redux_tpu_torch.archs import span_arch  # noqa: F401 (registers sp
 from trainner_redux_tpu_torch.archs import spanf_arch  # noqa: F401 (registers spanf)
 from trainner_redux_tpu_torch.archs import spanplus_arch  # noqa: F401 (registers spanplus*)
 from trainner_redux_tpu_torch.archs import spanpp_arch  # noqa: F401 (registers spanc, spanpp)
+from trainner_redux_tpu_torch.archs import srformer_arch  # noqa: F401 (registers srformer*)
 from trainner_redux_tpu_torch.archs import srformerv2_arch  # noqa: F401 (registers srformerv2)
 from trainner_redux_tpu_torch.archs import srvgg_arch  # noqa: F401 (registers *compact)
 from trainner_redux_tpu_torch.archs import swin2sr_arch  # noqa: F401 (registers swin2sr_*)
@@ -50,7 +52,7 @@ def build_network_cast(opt: dict[str, Any], dtype):
     torch.float32) passed as `dtype`, as the JAX package's
     `build_network_cast` passes it to every flax arch (parameters stay
     fp32); an options dict that names its own dtype keeps it. SwinIR, HAT,
-    DAT, SRFormerV2, Swin2SR and the conv families (SPAN, SPANF, SPANPlus,
+    DAT, SRFormerV2, Swin2SR, SRFormer, ATD and the conv families (SPAN, SPANF, SPANPlus,
     SpanC, Compact, ESRGAN) take it as their training compute dtype, DUnet
     as its own."""
     return build_network({"dtype": dtype, **opt})

@@ -20,7 +20,12 @@
 // transposed, warp w taking the (key tile, channel half) units w, w +
 // warps, ..., whose sums a kernel carries across its row blocks. Rows of q,
 // k, v and dA are padded with zeros to 32 channels, kHeadLd floats apart
-// (36: the row fragments' loads hit 32 banks).
+// (36: the row fragments' loads hit 32 banks). #3 and #8 also take heads of
+// 33 to 64 channels (ATD's 35): their kernels' HD template parameter pads
+// the rows to 64 channels, head_ld(64) = 68 floats apart (again 4 past a
+// multiple of 32 banks), on plans of their own (attn_plan(n, 64)); the
+// padded lanes are zeros in q, k, v and dA, so they add nothing to any
+// product.
 //
 // The bf16 forms (attn_rows_fwd_bf16_kernel, with P as the bf16 training
 // block's #4 stage and without it as #3's bf16 form and #1's bf16 stage;
@@ -45,19 +50,24 @@ namespace trr {
 
 constexpr int kHeadLd = 36;
 
+// Floats between two staged head rows of HD (32 or 64) channels.
+__host__ __device__ constexpr int head_ld(int HD) { return HD + 4; }
+
 __host__ __device__ constexpr int attn_tc_threads(int RB, int KS = 2) {
   return 32 * KS * (RB / 16);
 }
 
-template <int N, int RB, int KS = 2, bool BF = false>
+template <int N, int RB, int KS = 2, bool BF = false, int HD = 32>
 struct AttnWarps {
   static constexpr int NTH = attn_tc_threads(RB, KS), NW = NTH / 32;
-  static constexpr int LD = kHeadLd, LP = N + 4, PART = N / KS, NT = PART / 8;
-  static constexpr int CW = 32 / KS, CT = CW / 8;  // output channels of a warp, in tiles of 8
-  static constexpr int UNITS = 2 * (N / 16) / NW;
+  static constexpr int LD = head_ld(HD), LP = N + 4, PART = N / KS, NT = PART / 8;
+  static constexpr int CW = HD / KS, CT = CW / 8;  // output channels of a warp, in tiles of 8
+  static constexpr int CU = HD / 16;               // 16-channel units of a key tile
+  static constexpr int UNITS = CU * (N / 16) / NW;
+  static_assert(HD == 32 || HD == 64, "rows of 32 or 64 channels");
   static_assert(RB % 16 == 0 && N % RB == 0 && PART % 8 == 0 && CW % 8 == 0,
                 "the tiles must split evenly");
-  static_assert(2 * (N / 16) == UNITS * NW, "dK and dV units must share out evenly");
+  static_assert(CU * (N / 16) == UNITS * NW, "dK and dV units must share out evenly");
 
   int warp, g, q4, row0, part, col0;
 
@@ -77,31 +87,32 @@ struct AttnWarps {
   __device__ int o_row(int e) const { return row0 + g + 8 * (e / 2); }
   __device__ int o_chan(int j, int e) const { return CW * part + 8 * j + 2 * q4 + e % 2; }
   // Element e of tile j of this warp's dV / dK unit u.
-  __device__ int u_key(int u, int e) const { return 16 * ((warp + NW * u) / 2) + g + 8 * (e / 2); }
+  __device__ int u_key(int u, int e) const { return 16 * ((warp + NW * u) / CU) + g + 8 * (e / 2); }
   __device__ int u_chan(int u, int j, int e) const {
-    return 16 * ((warp + NW * u) % 2) + 8 * j + 2 * q4 + e % 2;
+    return 16 * ((warp + NW * u) % CU) + 8 * j + 2 * q4 + e % 2;
   }
 
-  // o = Y X^T for this warp's rows and part of the keys, over the 32
+  // o = Y X^T for this warp's rows and part of the keys, over the HD
   // channels: Y the (RB, LD) rows (q or dA), X the (N, LD) rows (k or v).
-  // With four parts (16 warps, 128 registers a thread) the channel steps
-  // stay a loop: unrolled, ptxas spilled at n 256.
+  // With four or eight parts (16 warps, 128 registers a thread), and at 64
+  // channels, the channel steps stay a loop: unrolled, ptxas spilled at n
+  // 256 (and, in bf16, at n 128 with 64 channels).
   __device__ void rows_by_channels(const float* Y, const float* X, float (&o)[NT][4]) const {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
     if constexpr (BF) {
-#pragma unroll
-      for (int k0 = 0; k0 < 32; k0 += 16) {
+#pragma unroll(HD == 64 ? 1 : 2)
+      for (int k0 = 0; k0 < HD; k0 += 16) {
         MmaABf a;
         mma_load_a_bf16<false>(a, Y + row0 * LD + k0, LD);
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma1_bf16<true>(o[j], a, X + (col0 + 8 * j) * LD + k0, LD);
       }
     } else {
-#pragma unroll(KS == 4 ? 1 : 4)
-      for (int k0 = 0; k0 < 32; k0 += 8) {
+#pragma unroll(KS >= 4 || HD == 64 ? 1 : 4)
+      for (int k0 = 0; k0 < HD; k0 += 8) {
         MmaA a;
         mma_load_a<false>(a, Y + row0 * LD + k0, LD);
 #pragma unroll
@@ -136,14 +147,14 @@ struct AttnWarps {
     }
   }
 
-  // acc[u] += pt^T Y for this warp's (key tile, channel half) units over the
+  // acc[u] += pt^T Y for this warp's (key tile, 16 channels) units over the
   // RB rows of the block: Y the (RB, LD) rows (dA or q).
   __device__ void keys_by_rows(const float* pt, const float* Y, float (&acc)[UNITS][2][4]) const {
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
-      const int unit = warp + NW * u, kt = unit / 2, ch = unit % 2;
+      const int unit = warp + NW * u, kt = unit / CU, ch = unit % CU;
       if constexpr (BF) {
-#pragma unroll 2
+#pragma unroll(HD == 64 ? 1 : 2)
         for (int k0 = 0; k0 < RB; k0 += 16) {
           MmaABf a;
           mma_load_a_bf16<true>(a, pt + k0 * LP + 16 * kt, LP);
@@ -152,7 +163,7 @@ struct AttnWarps {
             mma1_bf16<false>(acc[u][j], a, Y + k0 * LD + 16 * ch + 8 * j, LD);
         }
       } else {
-#pragma unroll 2
+#pragma unroll(HD == 64 ? 1 : 2)
         for (int k0 = 0; k0 < RB; k0 += 8) {
           MmaA a;
           mma_load_a<true>(a, pt + k0 * LP + 16 * kt, LP);
@@ -232,35 +243,43 @@ struct AttnWarps {
   }
 };
 
-// dst[r * kHeadLd + d] = row(r)[d] for d < hd, else 0, for the ROWS rows
-// (NTH threads; each thread's loads issued before its stores; a warp holds
-// a whole row at each step, a channel a lane). NORM, SwinV2's cosine
-// attention: each row divided by max(|row|, 1e-12), its L2 norm over hd
-// (the JAX package's _norm_rows, torch's F.normalize; the zero padding adds
-// nothing), and, where inv is not null, the inverse norm to inv[r].
-template <int ROWS, int NTH, bool NORM = false, class Row>
+// dst[r * head_ld(HD) + d] = row(r)[d] for d < hd, else 0, for the ROWS
+// rows of HD (32 or 64) channels (NTH threads; each thread's loads issued
+// before its stores; HD / 32 warps hold a row at each step, a channel a
+// lane; scalar loads, so a head may start at any element of its token's
+// row; at HD 64 in batches of 8 elements a thread, which keeps the loads'
+// addresses out of the way of the registers the kernels hold). NORM,
+// SwinV2's cosine attention (HD 32): each row divided by
+// max(|row|, 1e-12), its L2 norm over hd (the JAX package's _norm_rows,
+// torch's F.normalize; the zero padding adds nothing), and, where inv is
+// not null, the inverse norm to inv[r].
+template <int ROWS, int NTH, bool NORM = false, int HD = 32, class Row>
 __device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row,
                                                 float* inv = nullptr) {  // row(r): float or bf16
-  static_assert(ROWS * 32 % NTH == 0 && NTH % 32 == 0, "the rows must split evenly");
-  constexpr int PER = ROWS * 32 / NTH;
-  float v[PER];
+  static_assert(ROWS * HD % NTH == 0 && NTH % 32 == 0, "the rows must split evenly");
+  static_assert(!NORM || HD == 32, "the cosine rows are a warp each");
+  constexpr int PER = ROWS * HD / NTH, CH = HD == 64 && PER > 8 ? 8 : PER;
+#pragma unroll 1  // a batch's loads are not hoisted above the last batch's stores
+  for (int i0 = 0; i0 < PER; i0 += CH) {
+    float v[CH];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int e = threadIdx.x + i * NTH, d = e % 32;
-    v[i] = d < hd ? ldg_f(row(e / 32) + d) : 0.f;
-  }
-  if constexpr (NORM) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const float iv = 1.f / fmaxf(sqrtf(warp_sum(v[i] * v[i])), 1e-12f);
-      v[i] *= iv;
-      if (inv != nullptr && threadIdx.x % 32 == 0) inv[(threadIdx.x + i * NTH) / 32] = iv;
+    for (int i = 0; i < CH; ++i) {
+      const int e = threadIdx.x + (i0 + i) * NTH, d = e % HD;
+      v[i] = d < hd ? ldg_f(row(e / HD) + d) : 0.f;
     }
-  }
+    if constexpr (NORM) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int e = threadIdx.x + i * NTH;
-    dst[(e / 32) * kHeadLd + e % 32] = v[i];
+      for (int i = 0; i < CH; ++i) {
+        const float iv = 1.f / fmaxf(sqrtf(warp_sum(v[i] * v[i])), 1e-12f);
+        v[i] *= iv;
+        if (inv != nullptr && threadIdx.x % 32 == 0) inv[(threadIdx.x + (i0 + i) * NTH) / 32] = iv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int e = threadIdx.x + (i0 + i) * NTH;
+      dst[(e / HD) * head_ld(HD) + e % HD] = v[i];
+    }
   }
 }
 
@@ -288,15 +307,16 @@ __device__ __forceinline__ void store_table_rows(T* __restrict__ dst, const floa
         reinterpret_cast<const float4*>(pt + (e / Q) * (N + 4))[e % Q]);
 }
 
-// row(r)[d] = src[r * kHeadLd + d] for d < hd, for the ROWS rows (NTH
-// threads; a warp writes a row's hd entries at once; row(r) float or bf16).
-template <int ROWS, int NTH, class Row>
+// row(r)[d] = src[r * head_ld(HD) + d] for d < hd, for the ROWS rows of HD
+// channels (NTH threads; HD / 32 warps write a row's hd entries at once,
+// scalar stores at any offset; row(r) float or bf16).
+template <int ROWS, int NTH, int HD = 32, class Row>
 __device__ __forceinline__ void store_head_rows(const float* src, int hd, Row row) {
-  static_assert(ROWS * 32 % NTH == 0, "the rows must split evenly");
+  static_assert(ROWS * HD % NTH == 0, "the rows must split evenly");
 #pragma unroll 4
-  for (int i = 0; i < ROWS * 32 / NTH; ++i) {
-    const int e = threadIdx.x + i * NTH, d = e % 32;
-    if (d < hd) st_f(row(e / 32) + d, src[(e / 32) * kHeadLd + d]);
+  for (int i = 0; i < ROWS * HD / NTH; ++i) {
+    const int e = threadIdx.x + i * NTH, d = e % HD;
+    if (d < hd) st_f(row(e / HD) + d, src[(e / HD) * head_ld(HD) + d]);
   }
 }
 
@@ -310,20 +330,29 @@ __device__ __forceinline__ long long roll_token(int b, int wi, int wj, int r, in
   return ((long long)b * H + y) * W + x;
 }
 
-// Shared memory of attn_rows_fwd_tc_kernel<N, RB, KS>, in floats: k and v
-// (N, 36), this row block's q and att rows (RB, 36), the P rows (RB, N + 4),
-// two (KS, RB) exchanges of the key parts' row max and row sum, and the
-// window's N token indices.
-__host__ __device__ constexpr int attn_rows_fwd_tc_smem_floats(int N, int RB, int KS) {
-  return 2 * N * kHeadLd + 2 * RB * kHeadLd + RB * (N + 4) + 2 * KS * RB + N;
+// Shared memory of attn_rows_fwd_tc_kernel<N, RB, KS, COS, HD>, in floats:
+// k and v (N, head_ld(HD)), this row block's q and att rows (RB,
+// head_ld(HD)), the P rows (RB, N + 4), two (KS, RB) exchanges of the key
+// parts' row max and row sum, and the window's N token indices.
+__host__ __device__ constexpr int attn_rows_fwd_tc_smem_floats(int N, int RB, int KS,
+                                                               int HD = 32) {
+  return 2 * N * head_ld(HD) + 2 * RB * head_ld(HD) + RB * (N + 4) + 2 * KS * RB + N;
 }
 
 // Blocks a SM of the forward: three at n 64 (55,552 B of shared memory
 // each; 85 registers a thread), two of at most 8 warps (n 144: 85,056 B;
 // n 128: 64,512 B), else one (n 256: 16 warps, 161,792 B; two would cap a
-// thread at 64 registers).
-__host__ __device__ constexpr int attn_fwd_blocks(int N, int threads) {
-  return N <= 64 ? 3 : threads <= 256 ? 2 : 1;
+// thread at 64 registers). Rows of 64 channels: two at n 64 (88,320 B),
+// else one of 8 warps, whose threads may hold up to 255 registers (n 128:
+// 105,472 B; n 256: 192,000 B).
+__host__ __device__ constexpr int attn_fwd_blocks(int N, int threads, int HD = 32) {
+  return HD == 64 ? (N <= 64 ? 2 : 1) : N <= 64 ? 3 : threads <= 256 ? 2 : 1;
+}
+
+// Blocks a SM of the backward: two of at most 8 warps, else one; rows of 64
+// channels past n 64 one (their dK units take a thread past 128 registers).
+__host__ __device__ constexpr int attn_bwd_blocks(int N, int threads, int HD = 32) {
+  return HD == 64 && N > 64 ? 1 : threads <= 256 ? 2 : 1;
 }
 
 // One block per (wr x wc window of the map rolled by (-shift, -shift),
@@ -345,15 +374,16 @@ __host__ __device__ constexpr int attn_fwd_blocks(int N, int threads) {
 // temps[h] (already exponentiated), in place of `scale`. T: the type of
 // qkv, att and P (float, or bf16 in attn_rows_fwd_bf16_kernel). SP false:
 // no P is stored whatever `P` holds (#3's bf16 form, a template flag: no
-// test of a null pointer in the row loop).
-template <int N, int RB, int KS, bool COS, typename T, bool SP = true>
+// test of a null pointer in the row loop). HD: the staged rows' channels,
+// 32, or 64 for #3's heads of 33 to 64 channels.
+template <int N, int RB, int KS, bool COS, typename T, bool SP = true, int HD = 32>
 __device__ __forceinline__ void attn_rows_fwd_body(const T* __restrict__ qkv,
                                                    const float* __restrict__ bias,
                                                    T* __restrict__ att, T* __restrict__ P, int H,
                                                    int W, int C, int nh, int wr, int wc, int kinds,
                                                    int shift, float scale,
                                                    const float* __restrict__ temps) {
-  using AW = AttnWarps<N, RB, KS, std::is_same<T, bf16>::value>;
+  using AW = AttnWarps<N, RB, KS, std::is_same<T, bf16>::value, HD>;
   constexpr int NTH = AW::NTH, LD = AW::LD, CT = AW::CT;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
@@ -375,14 +405,14 @@ __device__ __forceinline__ void attn_rows_fwd_body(const T* __restrict__ qkv,
   const size_t head = (size_t)blockIdx.x * N * N;  // (b, win, h) of P, in the grid's order
   if constexpr (COS) scale = __ldg(temps + h);
   __syncthreads();
-  stage_head_rows<N, NTH, COS>(ks, hd,
-                               [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
-  stage_head_rows<N, NTH>(vs, hd,
-                          [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+  stage_head_rows<N, NTH, COS, HD>(
+      ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
+  stage_head_rows<N, NTH, false, HD>(
+      vs, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
   for (int r0 = 0; r0 < N; r0 += RB) {
     const int* rt = tok + r0;  // this row block's tokens
-    stage_head_rows<RB, NTH, COS>(qs, hd,
-                                  [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_head_rows<RB, NTH, COS, HD>(
+        qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
     stage_table_rows<RB, N, NTH>(pt, table + (size_t)r0 * N);  // the bias rows, for S
     __syncthreads();  // q and the bias rows (and, the first time, k and v) staged
     aw.softmax_rows(qs, ks, pt, red, scale);
@@ -395,30 +425,31 @@ __device__ __forceinline__ void attn_rows_fwd_body(const T* __restrict__ qkv,
 #pragma unroll
       for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
     __syncthreads();  // att whole; q and the tile are rewritten by the next row block
-    store_head_rows<RB, NTH>(oa, hd, [&](int r) { return att + (long long)rt[r] * C + h * hd; });
+    store_head_rows<RB, NTH, HD>(oa, hd,
+                                 [&](int r) { return att + (long long)rt[r] * C + h * hd; });
   }
 }
 
-template <int N, int RB, int KS, bool COS = false>
+template <int N, int RB, int KS, bool COS = false, int HD = 32>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
-                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
+                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS), HD))
     attn_rows_fwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                             float* __restrict__ att, float* __restrict__ P, int H, int W, int C,
                             int nh, int wr, int wc, int kinds, int shift, float scale,
                             const float* __restrict__ temps) {
-  attn_rows_fwd_body<N, RB, KS, COS, float>(qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift,
-                                            scale, temps);
+  attn_rows_fwd_body<N, RB, KS, COS, float, true, HD>(qkv, bias, att, P, H, W, C, nh, wr, wc,
+                                                      kinds, shift, scale, temps);
 }
 
 // The bf16 form: qkv, att and P in bf16; SP false, #3's: no P.
-template <int N, int RB, int KS, bool SP = true>
+template <int N, int RB, int KS, bool SP = true, int HD = 32>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
-                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS)))
+                                  attn_fwd_blocks(N, attn_tc_threads(RB, KS), HD))
     attn_rows_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                               bf16* __restrict__ att, bf16* __restrict__ P, int H, int W, int C,
                               int nh, int wr, int wc, int kinds, int shift, float scale) {
-  attn_rows_fwd_body<N, RB, KS, false, bf16, SP>(qkv, bias, att, P, H, W, C, nh, wr, wc, kinds,
-                                                 shift, scale, nullptr);
+  attn_rows_fwd_body<N, RB, KS, false, bf16, SP, HD>(qkv, bias, att, P, H, W, C, nh, wr, wc,
+                                                     kinds, shift, scale, nullptr);
 }
 
 // The bf16 cosine form (#11's bf16 stage and #12's bf16 forward stage):
@@ -435,14 +466,15 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                                    kinds, shift, 0.f, temps);
 }
 
-// Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT, SAVED>, in
-// floats: k and v (N, 36), this row block's q and dA (RB, 36), the P / dS
-// rows (RB, N + 4), the (KS, RB) exchanges of the key parts' row max and row
-// sum (not SAVED) and rowsum(P dP), its att (ATT) and dq rows (RB, 36) on
-// their way out, and the window's N token indices.
+// Shared memory of attn_rows_bwd_tc_kernel<N, RB, KS, ATT, SAVED, HD>, in
+// floats: k and v (N, head_ld(HD)), this row block's q and dA (RB,
+// head_ld(HD)), the P / dS rows (RB, N + 4), the (KS, RB) exchanges of the
+// key parts' row max and row sum (not SAVED) and rowsum(P dP), its att (ATT)
+// and dq rows (RB, head_ld(HD)) on their way out, and the window's N token
+// indices.
 __host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, int KS, bool ATT,
-                                                               bool SAVED = false) {
-  return 2 * N * kHeadLd + (ATT ? 4 : 3) * RB * kHeadLd + RB * (N + 4) +
+                                                               bool SAVED = false, int HD = 32) {
+  return 2 * N * head_ld(HD) + (ATT ? 4 : 3) * RB * head_ld(HD) + RB * (N + 4) +
          (SAVED ? 1 : 3) * KS * RB + N;
 }
 
@@ -476,8 +508,14 @@ __host__ __device__ constexpr int attn_rows_bwd_tc_smem_floats(int N, int RB, in
 //
 // T: the type of qkv, datt, dqkv, att and a saved P (float, or bf16 in
 // attn_rows_bwd_bf16_kernel, where the tile holds bf16(scale dS), as the JAX
-// kernel rounds it, and dS still goes out unscaled in fp32).
-template <int N, int RB, int KS, bool ATT, bool SAVED, typename T>
+// kernel rounds it, and dS still goes out unscaled in fp32). HD: the staged
+// rows' channels, 32, or 64 for #8's heads of 33 to 64 channels. At 64,
+// where a thread would hold more than two 16-channel units each of dK and
+// dV (n 128 and 256: eight, 64 floats each beside S and dP), dV takes a
+// pass of its own over the row blocks first (S, the softmax, dV += P^T dA,
+// dV out from its fragments), and the pass above then leaves dV out: one
+// more S = q k^T and softmax a row block.
+template <int N, int RB, int KS, bool ATT, bool SAVED, typename T, int HD = 32>
 __device__ __forceinline__ void attn_rows_bwd_body(
     const T* __restrict__ qkv, const std::conditional_t<SAVED, T, float>* __restrict__ table,
     const T* __restrict__ datt, T* __restrict__ dqkv, T* __restrict__ att,
@@ -485,9 +523,11 @@ __device__ __forceinline__ void attn_rows_bwd_body(
     float scale) {
   static_assert(!(ATT && SAVED), "the saved-P form writes no att");
   constexpr bool BF = std::is_same<T, bf16>::value;
-  using AW = AttnWarps<N, RB, KS, BF>;
+  using AW = AttnWarps<N, RB, KS, BF, HD>;
   constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, CT = AW::CT;
   constexpr int UNITS = AW::UNITS, X = KS * RB, EX = SAVED ? 1 : 3;
+  constexpr bool SPLIT = HD == 64 && UNITS > 2;  // dV in a pass of its own
+  static_assert(!SPLIT || !(ATT || SAVED), "the dV pass is #8's alone");
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / wc, nwh = H / wr;
@@ -511,21 +551,64 @@ __device__ __forceinline__ void attn_rows_bwd_body(
   const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
   if constexpr (SAVED) tile_src += head;
   __syncthreads();
-  stage_head_rows<N, NTH>(ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
-  stage_head_rows<N, NTH>(vs, hd,
-                          [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
-  float dk[UNITS][2][4], dv[UNITS][2][4];
+  stage_head_rows<N, NTH, false, HD>(
+      ks, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + C + h * hd; });
+  stage_head_rows<N, NTH, false, HD>(
+      vs, hd, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+  if constexpr (SPLIT) {  // dV += P^T dA over the row blocks, then out from the fragments
+    float dv0[UNITS][2][4];
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv0[u][j][e] = 0.f;
+    for (int r0 = 0; r0 < N; r0 += RB) {
+      const int* rt = tok + r0;
+      stage_head_rows<RB, NTH, false, HD>(
+          qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+      stage_head_rows<RB, NTH, false, HD>(
+          das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
+      stage_table_rows<RB, N, NTH>(pt, tile_src + (size_t)r0 * N);
+      __syncthreads();  // q, dA and the bias rows (and, the first time, k and v) staged
+      aw.softmax_rows(qs, ks, pt, red, scale);
+      __syncthreads();  // P is whole
+      aw.keys_by_rows(pt, das, dv0);
+      __syncthreads();  // q, dA and the tile are rewritten by the next row block
+    }
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = aw.u_chan(u, j, e);
+          if (d < hd)
+            st_f(dqkv + (long long)tok[aw.u_key(u, e)] * C3 + 2 * C + h * hd + d, dv0[u][j][e]);
+        }
+  }
+  float dk[UNITS][2][4], dv[SPLIT ? 1 : UNITS][2][4];
 #pragma unroll
   for (int u = 0; u < UNITS; ++u)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dk[u][j][e] = dv[u][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dk[u][j][e] = 0.f;
+  if constexpr (!SPLIT) {
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv[u][j][e] = 0.f;
+  }
 
   for (int r0 = 0; r0 < N; r0 += RB) {
     const int* rt = tok + r0;  // this row block's tokens
-    stage_head_rows<RB, NTH>(qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
-    stage_head_rows<RB, NTH>(das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
+    stage_head_rows<RB, NTH, false, HD>(
+        qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_head_rows<RB, NTH, false, HD>(
+        das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
     stage_table_rows<RB, N, NTH>(pt, tile_src + (size_t)r0 * N);  // the bias rows for S, or P
     __syncthreads();  // q, dA and the tile's rows (and, the first time, k and v) staged
     if constexpr (!SAVED) {
@@ -540,7 +623,7 @@ __device__ __forceinline__ void attn_rows_bwd_body(
 #pragma unroll
         for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
     }
-    aw.keys_by_rows(pt, das, dv);  // dV += P^T dA
+    if constexpr (!SPLIT) aw.keys_by_rows(pt, das, dv);  // dV += P^T dA
     {  // dP = dA v^T, then dS = P (dP - rowsum(P dP)) in place of P, read back
       float dp[NT][4];
       aw.rows_by_channels(das, vs, dp);
@@ -578,8 +661,10 @@ __device__ __forceinline__ void attn_rows_bwd_body(
     aw.keys_by_rows(pt, qs, dk);  // dK += dS^T q (scaled once, at the end)
     __syncthreads();  // q, dA and the tile are rewritten by the next row block; dq (att) whole
     if constexpr (ATT)
-      store_head_rows<RB, NTH>(oa, hd, [&](int r) { return att + (long long)rt[r] * C + h * hd; });
-    store_head_rows<RB, NTH>(oq, hd, [&](int r) { return dqkv + (long long)rt[r] * C3 + h * hd; });
+      store_head_rows<RB, NTH, HD>(oa, hd,
+                                   [&](int r) { return att + (long long)rt[r] * C + h * hd; });
+    store_head_rows<RB, NTH, HD>(oq, hd,
+                                 [&](int r) { return dqkv + (long long)rt[r] * C3 + h * hd; });
   }
   // dK and dV to the rooms of k and v, then out
 #pragma unroll
@@ -590,23 +675,25 @@ __device__ __forceinline__ void attn_rows_bwd_body(
       for (int e = 0; e < 4; ++e) {
         const int i = aw.u_key(u, e) * LD + aw.u_chan(u, j, e);
         ks[i] = (BF ? 1.f : scale) * dk[u][j][e];
-        vs[i] = dv[u][j][e];
+        if constexpr (!SPLIT) vs[i] = dv[u][j][e];
       }
   __syncthreads();
-  store_head_rows<N, NTH>(ks, hd,
-                          [&](int r) { return dqkv + (long long)tok[r] * C3 + C + h * hd; });
-  store_head_rows<N, NTH>(vs, hd,
-                          [&](int r) { return dqkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
+  store_head_rows<N, NTH, HD>(ks, hd,
+                              [&](int r) { return dqkv + (long long)tok[r] * C3 + C + h * hd; });
+  if constexpr (!SPLIT)
+    store_head_rows<N, NTH, HD>(
+        vs, hd, [&](int r) { return dqkv + (long long)tok[r] * C3 + 2 * C + h * hd; });
 }
 
-template <int N, int RB, int KS, bool ATT, bool SAVED = false>
-__global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+template <int N, int RB, int KS, bool ATT, bool SAVED = false, int HD = 32>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS),
+                                  attn_bwd_blocks(N, attn_tc_threads(RB, KS), HD))
     attn_rows_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ table,
                             const float* __restrict__ datt, float* __restrict__ dqkv,
                             float* __restrict__ att, float* __restrict__ dS, int H, int W, int C,
                             int nh, int wr, int wc, int kinds, int shift, float scale) {
-  attn_rows_bwd_body<N, RB, KS, ATT, SAVED, float>(qkv, table, datt, dqkv, att, dS, H, W, C, nh,
-                                                   wr, wc, kinds, shift, scale);
+  attn_rows_bwd_body<N, RB, KS, ATT, SAVED, float, HD>(qkv, table, datt, dqkv, att, dS, H, W, C,
+                                                       nh, wr, wc, kinds, shift, scale);
 }
 
 // The bf16 form of the saved-P backward: qkv, P, datt and dqkv in bf16.
@@ -627,81 +714,89 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
 // ATT one block a SM: the att product's fragments take the (144, 48, 2)
 // plan past the 168 registers a thread that two blocks of 192 threads
 // leave (ptxas spilled 40 bytes there).
-template <int N, int RB, int KS, bool ATT>
+template <int N, int RB, int KS, bool ATT, int HD = 32>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
-                                  !ATT && attn_tc_threads(RB, KS) <= 256 ? 2 : 1)
+                                  ATT ? 1 : attn_bwd_blocks(N, attn_tc_threads(RB, KS), HD))
     attn_rows_bwd_recompute_bf16_kernel(const bf16* __restrict__ qkv,
                                         const float* __restrict__ bias,
                                         const bf16* __restrict__ datt, bf16* __restrict__ dqkv,
                                         bf16* __restrict__ att, float* __restrict__ dS, int H,
                                         int W, int C, int nh, int wr, int wc, int kinds,
                                         int shift, float scale) {
-  attn_rows_bwd_body<N, RB, KS, ATT, false, bf16>(qkv, bias, datt, dqkv, att, dS, H, W, C, nh,
-                                                  wr, wc, kinds, shift, scale);
+  attn_rows_bwd_body<N, RB, KS, ATT, false, bf16, HD>(qkv, bias, datt, dqkv, att, dS, H, W, C,
+                                                      nh, wr, wc, kinds, shift, scale);
 }
 
 // The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
 // takes it: four key parts a row tile at n 256 (rows of 64, 16 warps: a
 // thread's S fragments stay at 32 floats) and n 128 (rows of 32, 8 warps;
 // rows of 64 in two parts spilled at 128 registers), two parts at n 144
-// (rows of 48) and 64 (rows of 64); {0, 0} for another n.
+// (rows of 48) and 64 (rows of 64); {0, 0} for another n. Rows of 64
+// channels (hd 64, #3 and #8 only): at n 256 rows of 32 in four key parts
+// (8 warps: rows of 64 need 243,712 B of shared memory in the forward, past
+// a block's 232,448), one block a SM whose threads may hold 255 registers
+// (a thread of 16 warps, at most 128, spilled); n 128 and 64 keep their
+// plans.
 struct AttnPlan {
   int rb, ks;
 };
-__host__ __device__ constexpr AttnPlan attn_plan(int n) {
-  return n == 256   ? AttnPlan{64, 4}
+__host__ __device__ constexpr AttnPlan attn_plan(int n, int hd = 32) {
+  return n == 256   ? (hd == 64 ? AttnPlan{32, 4} : AttnPlan{64, 4})
          : n == 144 ? AttnPlan{48, 2}
          : n == 128 ? AttnPlan{32, 4}
          : n == 64  ? AttnPlan{64, 2}
                     : AttnPlan{0, 0};
 }
 
-// attn_rows_fwd_tc_kernel at windows of N tokens; COS, the cosine form, with
-// the heads' temperatures `temps` (nh).
-template <int N, bool COS = false>
+// attn_rows_fwd_tc_kernel at windows of N tokens and rows of HD channels;
+// COS, the cosine form, with the heads' temperatures `temps` (nh).
+template <int N, bool COS = false, int HD = 32>
 cudaError_t attn_rows_fwd_tc(const float* qkv, const float* bias, float* att, float* P, int B,
                              int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
                              float scale, cudaStream_t stream, const float* temps = nullptr) {
-  constexpr AttnPlan plan = attn_plan(N);
-  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
-  const cudaError_t err = set_smem(attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks, COS>, floats);
+  constexpr AttnPlan plan = attn_plan(N, HD);
+  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks, HD);
+  const cudaError_t err =
+      set_smem(attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks, COS, HD>, floats);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
-  attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks, COS>
+  attn_rows_fwd_tc_kernel<N, plan.rb, plan.ks, COS, HD>
       <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale, temps);
   return cudaGetLastError();
 }
 
-// attn_rows_bwd_tc_kernel at windows of N tokens; `table` the kind table, or,
-// SAVED, the forward's P.
-template <int N, bool ATT, bool SAVED = false>
+// attn_rows_bwd_tc_kernel at windows of N tokens and rows of HD channels;
+// `table` the kind table, or, SAVED, the forward's P.
+template <int N, bool ATT, bool SAVED = false, int HD = 32>
 cudaError_t attn_rows_bwd_tc(const float* qkv, const float* table, const float* datt, float* dqkv,
                              float* att, float* dS, int B, int H, int W, int C, int nh, int wr,
                              int wc, int kinds, int shift, float scale, cudaStream_t stream) {
-  constexpr AttnPlan plan = attn_plan(N);
-  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT, SAVED);
+  constexpr AttnPlan plan = attn_plan(N, HD);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT, SAVED, HD);
   const cudaError_t err =
-      set_smem(attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED>, floats);
+      set_smem(attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED, HD>, floats);
   if (err != cudaSuccess) return err;
   const dim3 grid(nh, (H / wr) * (W / wc), B);
-  attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED>
+  attn_rows_bwd_tc_kernel<N, plan.rb, plan.ks, ATT, SAVED, HD>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, table, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }
 
-// attn_rows_fwd_bf16_kernel at windows of N tokens; SP false: no P.
-template <int N, bool SP = true>
+// attn_rows_fwd_bf16_kernel at windows of N tokens and rows of HD
+// channels; SP false: no P.
+template <int N, bool SP = true, int HD = 32>
 cudaError_t attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att, bf16* P, int B,
                                int H, int W, int C, int nh, int wr, int wc, int kinds, int shift,
                                float scale, cudaStream_t stream) {
-  constexpr AttnPlan plan = attn_plan(N);
-  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks);
-  const cudaError_t err = set_smem(attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP>, floats);
+  constexpr AttnPlan plan = attn_plan(N, HD);
+  constexpr int floats = attn_rows_fwd_tc_smem_floats(N, plan.rb, plan.ks, HD);
+  const cudaError_t err =
+      set_smem(attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP, HD>, floats);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
-  attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP>
+  attn_rows_fwd_bf16_kernel<N, plan.rb, plan.ks, SP, HD>
       <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, bias, att, P, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
@@ -724,20 +819,21 @@ cudaError_t cos_attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att
   return cudaGetLastError();
 }
 
-// attn_rows_bwd_recompute_bf16_kernel at windows of N tokens: ATT false,
-// #8's bf16 form (att unused); ATT true, #6's bf16 stage, writing att.
-template <int N, bool ATT = false>
+// attn_rows_bwd_recompute_bf16_kernel at windows of N tokens and rows of HD
+// channels: ATT false, #8's bf16 form (att unused); ATT true, #6's bf16
+// stage, writing att.
+template <int N, bool ATT = false, int HD = 32>
 cudaError_t attn_rows_bwd_recompute_bf16(const bf16* qkv, const float* bias, const bf16* datt,
                                          bf16* dqkv, bf16* att, float* dS, int B, int H, int W,
                                          int C, int nh, int wr, int wc, int kinds, int shift,
                                          float scale, cudaStream_t stream) {
-  constexpr AttnPlan plan = attn_plan(N);
-  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT);
+  constexpr AttnPlan plan = attn_plan(N, HD);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT, false, HD);
   const cudaError_t err =
-      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT>, floats);
+      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT, HD>, floats);
   if (err != cudaSuccess) return err;
   const dim3 grid(nh, (H / wr) * (W / wc), B);
-  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT>
+  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT, HD>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, bias, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();

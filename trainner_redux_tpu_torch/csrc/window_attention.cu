@@ -48,6 +48,16 @@
 // The kernels take no shift: the caller rolls qkv and the output, as the
 // JAX package's contract has it.
 //
+// Heads of 33 to 64 channels (ATD's 35) take the same kernels with their
+// rows padded to 64 channels (tc_attn.cuh's HD = 64): a 64-wide q, k, v and
+// dO row, 68 floats apart in shared memory, zeros past the head. At n 256
+// the query rows go in blocks of 32 (at 64 rows the forward would need
+// 243,712 B, past a block's 232,448), 8 warps and one block a SM, whose
+// threads hold up to 255 registers; the backward takes dV in a pass of its
+// own (tc_attn.cuh's attn_rows_bwd_body). A head
+// may start at any element of its token's 3C row (C 210: every 35 floats),
+// so the rows are read and written an element a lane, as at 32.
+//
 // The bf16 forms (trr_*_mhsa_fwd_bf16, trr_*_mhsa_bwd_bf16): the JAX kernels
 // compute in qkv's dtype, so a bf16 training step (HAT, DAT, SwinIR-L) runs
 // #3 and #8 on bf16 qkv, dout and dqkv with the fp32 kind table, dS and
@@ -61,23 +71,54 @@
 // (about 50 and 95 MB: 15 and 28 us): bytes bound both, and the window
 // attention's issue rate holds them (the fp32 forms reach 12-13% of their
 // 3xTF32 bound).
+#include <type_traits>
+
 #include "tc_attn.cuh"
+
+namespace {
+
+// The padded head width of a head of hd channels: 32, 64, or 0 past 64.
+int head_width(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : 0; }
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<N>, Int<HD>) for a window of n tokens (64, 128 or 256) and heads of
+// hd channels (at most 64); cudaErrorInvalidValue for anything else.
+template <class F>
+cudaError_t dispatch(int n, int hd, F f) {
+  const int hw = head_width(hd);
+  if (hw == 32) {
+    if (n == 64) return f(Int<64>(), Int<32>());
+    if (n == 128) return f(Int<128>(), Int<32>());
+    if (n == 256) return f(Int<256>(), Int<32>());
+  } else if (hw == 64) {
+    if (n == 64) return f(Int<64>(), Int<64>());
+    if (n == 128) return f(Int<128>(), Int<64>());
+    if (n == 256) return f(Int<256>(), Int<64>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 extern "C" {
 
 // Shared memory of the forward at windows of wr x wc tokens (n 64, 128 or
-// 256), or 0 for another n.
+// 256) and heads of C / nh channels (at most 64), or 0 for another n.
 size_t trr_rect_mhsa_smem_bytes(int C, int nh, int wr, int wc) {
-  const int n = wr * wc;
-  if (n != 64 && n != 128 && n != 256) return 0;
-  const trr::AttnPlan plan = trr::attn_plan(n);
-  return (size_t)trr::attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks) * sizeof(float);
+  const int n = wr * wc, hw = head_width(C / nh);
+  if ((n != 64 && n != 128 && n != 256) || hw == 0) return 0;
+  const trr::AttnPlan plan = trr::attn_plan(n, hw);
+  return (size_t)trr::attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks, hw) * sizeof(float);
 }
 
 size_t trr_rect_mhsa_bwd_smem_bytes(int C, int nh, int wr, int wc) {
-  const int n = wr * wc;
-  const trr::AttnPlan plan = trr::attn_plan(n);
-  return (size_t)trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false) * sizeof(float);
+  const int n = wr * wc, hw = head_width(C / nh);
+  if ((n != 64 && n != 128 && n != 256) || hw == 0) return 0;
+  const trr::AttnPlan plan = trr::attn_plan(n, hw);
+  return (size_t)trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false, false, hw) *
+         sizeof(float);
 }
 
 size_t trr_window_mhsa_smem_bytes(int C, int nh, int ws) {
@@ -90,25 +131,15 @@ size_t trr_window_mhsa_bwd_smem_bytes(int C, int nh, int ws) {
 
 // qkv (B, H, W, 3C), out (B, H, W, C), bias (kinds, nh, n, n), windows of
 // wr rows and wc columns, n = wr * wc: 64, 128 or 256. H is a multiple of
-// wr, W of wc; C / nh <= 32.
+// wr, W of wc; C / nh <= 64.
 int trr_rect_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, int H, int W,
                       int C, int nh, int kinds, int wr, int wc, float scale,
                       cudaStream_t stream) {
-  const int n = wr * wc;
-  cudaError_t err;
-  if (n == 64) {
-    err = trr::attn_rows_fwd_tc<64>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc, kinds, 0,
-                                    scale, stream);
-  } else if (n == 128) {
-    err = trr::attn_rows_fwd_tc<128>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc, kinds, 0,
-                                     scale, stream);
-  } else if (n == 256) {
-    err = trr::attn_rows_fwd_tc<256>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc, kinds, 0,
-                                     scale, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)dispatch(wr * wc, C / nh, [&](auto n_, auto hd_) {
+    constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
+    return trr::attn_rows_fwd_tc<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
+                                               kinds, 0, scale, stream);
+  });
 }
 
 // Square ws x ws windows: ws 8 or 16.
@@ -125,19 +156,11 @@ int trr_rect_mhsa_bwd(const float* qkv, const float* bias, const float* dout, fl
                       float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
                       int wr, int wc, float scale, cudaStream_t stream) {
   const int n = wr * wc;
-  cudaError_t err;
-  if (n == 64) {
-    err = trr::attn_rows_bwd_tc<64, false>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C, nh, wr,
-                                           wc, kinds, 0, scale, stream);
-  } else if (n == 128) {
-    err = trr::attn_rows_bwd_tc<128, false>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C, nh,
-                                            wr, wc, kinds, 0, scale, stream);
-  } else if (n == 256) {
-    err = trr::attn_rows_bwd_tc<256, false>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C, nh,
-                                            wr, wc, kinds, 0, scale, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
+    constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
+    return trr::attn_rows_bwd_tc<N, false, false, HD>(qkv, bias, dout, dqkv, nullptr, dS, B, H,
+                                                      W, C, nh, wr, wc, kinds, 0, scale, stream);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);
 }
@@ -156,21 +179,11 @@ int trr_window_mhsa_bwd(const float* qkv, const float* bias, const float* dout, 
 int trr_rect_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16* out, int B, int H,
                            int W, int C, int nh, int kinds, int wr, int wc, float scale,
                            cudaStream_t stream) {
-  const int n = wr * wc;
-  cudaError_t err;
-  if (n == 64) {
-    err = trr::attn_rows_fwd_bf16<64, false>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
-                                             kinds, 0, scale, stream);
-  } else if (n == 128) {
-    err = trr::attn_rows_fwd_bf16<128, false>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
-                                              kinds, 0, scale, stream);
-  } else if (n == 256) {
-    err = trr::attn_rows_fwd_bf16<256, false>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
-                                              kinds, 0, scale, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)dispatch(wr * wc, C / nh, [&](auto n_, auto hd_) {
+    constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
+    return trr::attn_rows_fwd_bf16<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
+                                                 kinds, 0, scale, stream);
+  });
 }
 
 int trr_window_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16* out, int B,
@@ -186,19 +199,12 @@ int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::b
                            trr::bf16* dqkv, float* dS, float* dbias, int B, int H, int W, int C,
                            int nh, int kinds, int wr, int wc, float scale, cudaStream_t stream) {
   const int n = wr * wc;
-  cudaError_t err;
-  if (n == 64) {
-    err = trr::attn_rows_bwd_recompute_bf16<64>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C,
-                                                nh, wr, wc, kinds, 0, scale, stream);
-  } else if (n == 128) {
-    err = trr::attn_rows_bwd_recompute_bf16<128>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C,
-                                                 nh, wr, wc, kinds, 0, scale, stream);
-  } else if (n == 256) {
-    err = trr::attn_rows_bwd_recompute_bf16<256>(qkv, bias, dout, dqkv, nullptr, dS, B, H, W, C,
-                                                 nh, wr, wc, kinds, 0, scale, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
+    constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
+    return trr::attn_rows_bwd_recompute_bf16<N, false, HD>(qkv, bias, dout, dqkv, nullptr, dS, B,
+                                                           H, W, C, nh, wr, wc, kinds, 0, scale,
+                                                           stream);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);
 }

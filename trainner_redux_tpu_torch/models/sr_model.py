@@ -670,7 +670,9 @@ class SRModel(BaseModel):
         """Load weights into `net`: a JAX-framework safetensors (metadata
         `framework: trainner_redux_tpu`, through the weight bridge), a
         torch-layout safetensors, or a .pth/.pt pickle (an upstream
-        Swin2SR's q_bias / v_bias packed into the port's qkv bias; either
+        Swin2SR's q_bias / v_bias packed into the port's qkv bias; an
+        upstream ATD's shared wqkv, container and dictionary names as the
+        JAX `_convert_atd` reads them (`canonical_atd_keys`); either
         torch spectral-norm API's keys; the folded `eval_conv` /
         `conv_3x3_rep` copies of upstream SPAN, SPANPlus and SpanC dropped).
         A JAX-framework file holds parameters only: the net keeps its
@@ -695,6 +697,8 @@ class SRModel(BaseModel):
         flat = torch_compat.drop_recomputed_buffers(torch_compat.load_torch_state_dict(path))
         flat = torch_compat.drop_folded_copies(flat, net.state_dict().keys())
         flat = torch_compat.canonical_spectral_keys(torch_compat.pack_qkv_bias(flat))
+        if type(net).__name__ == "ATD":
+            flat = torch_compat.canonical_atd_keys(flat)
         sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in flat.items()}
         self._merge_params(net, sd, strict, path)
 

@@ -21,7 +21,10 @@ forward, #8 backward), each counted on its own:
 - `fused_rect_mhsa(qkv, bias, nh, hd, h_sp, w_sp)`: DAT's rectangles of
   h_sp rows and w_sp columns, n = 128 (8x16, 16x8) or 256 (8x32, 32x8).
 
-Heads of at most 32 channels. Both are torch.autograd.Functions: on a
+Heads of at most 64 channels: a head of 33 to 64 (ATD's 35) takes the
+kernels' 64-wide form, its rows padded to 64 channels on plans of their
+own (`TC_ATTN_PLANS_64`); heads of at most 32 the 32-wide form. Both are
+torch.autograd.Functions: on a
 CUDA tensor the forward launches the forward kernel and the backward the
 backward kernel (`csrc/tc_attn.cuh`'s tensor-core window attention, 3xTF32
 on mma.sync: the forward is the pre-LN block forwards', the backward
@@ -62,42 +65,62 @@ V_LD = 32
 # 16-row tile, each over its part of the keys)
 HEAD_LD = 36
 TC_ATTN_PLANS = {256: (64, 4), 144: (48, 2), 128: (32, 4), 64: (64, 2)}
+# #3 and #8 at heads of 33 to 64 channels: rows padded to 64 channels, 68
+# floats apart, and at n 256 rows of 32 (rows of 64 would need 243,712 B in
+# the forward), one block of 8 warps a SM; tc_attn.cuh's attn_plan(n, 64)
+HD_MAX = 64
+TC_ATTN_PLANS_64 = {256: (32, 4), 128: (32, 4), 64: (64, 2)}
+
+
+def head_width(head_dim: int) -> int:
+    """The channels a head's staged rows pad to: 32, or 64 for a head of 33
+    to 64 channels (#3 and #8 only)."""
+    return 32 if head_dim <= 32 else HD_MAX
+
+
+def tc_attn_plan(n: int, head_dim: int = 32) -> tuple[int, int]:
+    """(query rows of a thread block, warps a 16-row tile) at windows of n
+    tokens and heads of head_dim channels."""
+    return (TC_ATTN_PLANS if head_width(head_dim) == 32 else TC_ATTN_PLANS_64)[n]
 
 
 def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
     """Shared memory of the forward kernel (#3: the tensor-core window
-    attention forward, any head dim up to 32) for windows of wr rows and wc
-    columns."""
-    return attn_fwd_tc_smem_bytes(wr * wc)
+    attention forward, heads of up to 64 channels) for windows of wr rows
+    and wc columns."""
+    return attn_fwd_tc_smem_bytes(wr * wc, channels // num_heads)
 
 
-def attn_fwd_tc_smem_bytes(n: int) -> int:
+def attn_fwd_tc_smem_bytes(n: int, head_dim: int = 32) -> int:
     """Shared memory of the tensor-core window-attention forward
-    (csrc/tc_attn.cuh) at windows of n tokens: k and v of the window and q
-    and att of a row block, rows HEAD_LD apart, the (rows, n + 4) P tile, two
-    (parts, rows) exchanges of the key parts' row max and sum, and the n
+    (csrc/tc_attn.cuh) at windows of n tokens and heads of head_dim
+    channels: k and v of the window and q and att of a row block, rows
+    head_width + 4 floats apart (HEAD_LD at 32), the (rows, n + 4) P tile,
+    two (parts, rows) exchanges of the key parts' row max and sum, and the n
     token indices."""
-    rb, ks = TC_ATTN_PLANS[n]
-    return 4 * (2 * n * HEAD_LD + 2 * rb * HEAD_LD + rb * (n + 4) + 2 * ks * rb + n)
+    rb, ks = tc_attn_plan(n, head_dim)
+    ld = head_width(head_dim) + 4
+    return 4 * (2 * n * ld + 2 * rb * ld + rb * (n + 4) + 2 * ks * rb + n)
 
 
-def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False) -> int:
+def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False, head_dim: int = 32) -> int:
     """Shared memory of the tensor-core window-attention backward
-    (csrc/tc_attn.cuh) at windows of n tokens: k and v of the window and q
-    and dA of a row block, rows HEAD_LD apart, the (rows, n + 4) P / dS
-    tile, three (parts, rows) exchanges of the key parts' row sums (one,
-    rowsum(P dP), in the `saved`-P form, #10's), the row block's dq rows
-    (and, with `att`, #6's att rows) on their way out, and the n token
-    indices."""
-    rb, ks = TC_ATTN_PLANS[n]
-    return 4 * (2 * n * HEAD_LD + (4 if att else 3) * rb * HEAD_LD + rb * (n + 4)
+    (csrc/tc_attn.cuh) at windows of n tokens and heads of head_dim
+    channels: k and v of the window and q and dA of a row block, rows
+    head_width + 4 floats apart, the (rows, n + 4) P / dS tile, three
+    (parts, rows) exchanges of the key parts' row sums (one, rowsum(P dP),
+    in the `saved`-P form, #10's), the row block's dq rows (and, with `att`,
+    #6's att rows) on their way out, and the n token indices."""
+    rb, ks = tc_attn_plan(n, head_dim)
+    ld = head_width(head_dim) + 4
+    return 4 * (2 * n * ld + (4 if att else 3) * rb * ld + rb * (n + 4)
                 + (1 if saved else 3) * ks * rb + n)
 
 
 def rect_mhsa_bwd_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
     """Shared memory of the backward kernel (#8: the tensor-core window
-    attention without an att output; any head dim up to 32)."""
-    return attn_bwd_tc_smem_bytes(wr * wc, att=False)
+    attention without an att output; heads of up to 64 channels)."""
+    return attn_bwd_tc_smem_bytes(wr * wc, att=False, head_dim=channels // num_heads)
 
 
 def window_mhsa_smem_bytes(channels: int, num_heads: int, window_size: int = WINDOW) -> int:
@@ -111,7 +134,9 @@ def window_mhsa_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) 
 
 
 def heads_fit(window_size: int, channels: int, num_heads: int) -> bool:
-    """8x8 windows and heads of at most 32 channels: the block kernels' tiles."""
+    """8x8 windows and heads of at most 32 channels: the block kernels'
+    tiles (Swin2SR's #11-#14, whose window attention keeps the 32-wide
+    rows; the 64-wide form is #3 and #8's alone)."""
     return (
         window_size == WINDOW
         and channels % num_heads == 0
@@ -121,19 +146,20 @@ def heads_fit(window_size: int, channels: int, num_heads: int) -> bool:
 
 def rect_mhsa_fits(h: int, w: int, wr: int, wc: int, channels: int, num_heads: int) -> bool:
     """The window kernels' limits: 8x8 windows or windows of 128 or 256
-    tokens, H a multiple of wr and W of wc, heads of at most 32 channels, and
-    the forward's and backward's shared-memory plans within one thread
-    block's."""
+    tokens, H a multiple of wr and W of wc, heads of at most 64 channels
+    (HD_MAX; 33 to 64 on the 64-wide form), and the forward's and
+    backward's shared-memory plans within one thread block's."""
     if not (wr == wc == WINDOW or wr * wc in RECT_TOKENS) or h % wr or w % wc:
         return False
-    if channels % num_heads or channels // num_heads > V_LD:
+    if channels % num_heads or channels // num_heads > HD_MAX:
         return False
     return max(rect_mhsa_smem_bytes(channels, num_heads, wr, wc),
                rect_mhsa_bwd_smem_bytes(channels, num_heads, wr, wc)) <= SMEM_LIMIT
 
 
 def window_mhsa_fits(h: int, w: int, window_size: int, channels: int, num_heads: int) -> bool:
-    """`rect_mhsa_fits` for square windows: 8x8 or 16x16."""
+    """`rect_mhsa_fits` for square windows: 8x8 or 16x16, heads of up to
+    64 channels."""
     return window_size in WINDOWS and rect_mhsa_fits(h, w, window_size, window_size, channels,
                                                      num_heads)
 
@@ -371,7 +397,8 @@ def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc,
     if not rect_mhsa_fits(hh, ww, wr, wc, c, num_heads):
         raise ValueError(
             f"{name}: H={hh}, W={ww}, C={c}, heads={num_heads}, windows {wr}x{wc} "
-            "is outside the kernels' limits"
+            f"is outside the kernels' limits (windows of 64, 128 or 256 tokens dividing the "
+            f"map, heads of at most {HD_MAX} channels)"
         )
     if b * hh * ww * 3 * c >= 2**31:
         raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")

@@ -134,9 +134,14 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
                              log_file=osp.join(opt.path.log or ".", f"train_{opt.name}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
-    if opt.logger and (opt.logger.use_tb_logger or opt.logger.wandb):
-        logger.warning("tensorboard and wandb logging are not ported to torch yet; "
-                       "training logs to the console and the log file only")
+    if opt.logger and opt.logger.wandb:
+        logger.warning("wandb logging is not ported to torch yet; training logs to the "
+                       "console, the log file and, with use_tb_logger, TensorBoard only")
+    tb_logger = None
+    if opt.logger and opt.logger.use_tb_logger and "debug" not in opt.name:
+        from trainner_redux_tpu_torch.utils.logger import init_tb_logger
+
+        tb_logger = init_tb_logger(osp.join(opt.root_path or REPO_ROOT, "tb_logger", opt.name))
     for note in torch_only_notes(opt):
         print(note, flush=True)
 
@@ -149,7 +154,7 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
         start_epoch, current_iter = meta["epoch"], meta["iter"]
         logger.info(f"Resuming training from epoch {start_epoch}, iter {current_iter}.")
 
-    msg_logger = MessageLogger(opt)
+    msg_logger = MessageLogger(opt, tb_logger)
     interrupted = {"flag": False}
 
     def _sigint(_sig, _frame):
@@ -202,7 +207,7 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
                     model.save(epoch, current_iter)
                 if opt.val and opt.val.val_enabled and every(opt.val.val_freq):
                     for val_loader in val_loaders:
-                        model.validation(val_loader, current_iter, None, opt.val.save_img)
+                        model.validation(val_loader, current_iter, tb_logger, opt.val.save_img)
             epoch += 1
     except KeyboardInterrupt:
         logger.warning("KeyboardInterrupt: saving before exit.")
@@ -224,7 +229,9 @@ def run(opt: ReduxOptions, device=None, opt_file: str | None = None):
     model.save(epoch, current_iter)
     if opt.val and opt.val.val_enabled:
         for val_loader in val_loaders:
-            model.validation(val_loader, current_iter, None, opt.val.save_img)
+            model.validation(val_loader, current_iter, tb_logger, opt.val.save_img)
+    if tb_logger is not None:
+        tb_logger.close()
     return model
 
 

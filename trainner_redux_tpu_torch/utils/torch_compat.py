@@ -1,9 +1,9 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2, DUnet, SPAN, SPANF,
-SpanPlus, SpanC, SRVGGNetCompact and RRDBNet parts of the JAX package's
-utils/torch_compat.py:
+Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2, SRFormer, ATD, DUnet,
+SPAN, SPANF, SpanPlus, SpanC, SRVGGNetCompact and RRDBNet parts of the JAX
+package's utils/torch_compat.py:
 
 - `canonicalize_state_dict`: unwrap `params_ema` / `params` / `state_dict`
   nesting and strip DDP's `module.` prefix (upstream's key canonicalization);
@@ -13,7 +13,9 @@ utils/torch_compat.py:
   (`.`-joined flax keys, as `BaseModel.flatten_params` gives them) as the
   port's state dict. For SwinIR it is the JAX `_export_swinir` mapping,
   extended to the 3conv residual connection and every upsampler; for HAT
-  the JAX `_export_hat` mapping; for DAT, Swin2SR and SRFormerV2 the
+  the JAX `_export_hat` mapping; for SRFormer the JAX `_export_srformer`
+  mapping; for ATD the JAX `_export_atd` layout with the window and
+  category attentions' qkv Linears apart; for DAT, Swin2SR and SRFormerV2 the
   inverse of the JAX `_convert_dat`, `_convert_swin2sr` and
   `_convert_srformerv2` (the JAX package has no exporter for them); for
   DUnet the inverse of the JAX `_convert_dunet`, the `spectral`
@@ -29,6 +31,9 @@ utils/torch_compat.py:
 - `canonical_spectral_keys`: either torch spectral-norm API's keys (the
   legacy `weight_orig` / `weight_u` / `weight_v`, or the parametrization's)
   as the port's `parametrizations.weight.original` / `.0._u` / `.0._v`;
+- `canonical_atd_keys`: an upstream ATD checkpoint (one shared `wqkv`, the
+  `residual_group` container, `td` or `token_dict`) in the port's keys, as
+  the JAX `_convert_atd` reads it; `norm3` is refused;
 - `pack_qkv_bias`: upstream Swin2SR's `attn.q_bias` / `attn.v_bias` as the
   port's one `attn.qkv.bias` = [q, 0, v], as the JAX `_convert_swin2sr`
   packs them.
@@ -304,6 +309,68 @@ def _srformerv2_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     return _swinir_key(re.sub(r"^upsample\.conv\.", "upsample_direct.conv.", k), v)
 
 
+def _srformer_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax SRFormer key -> (torch key, array in torch layout): the JAX
+    `_export_srformer` mapping, through SwinIR's (the blocks' `fc1` / `fc2`
+    are upstream's `mlp.fc1` / `mlp.fc2`)."""
+    k = re.sub(r"^layers_(\d+)_blocks_(\d+)\.fc([12])\.", r"layers_\1.blocks_\2.mlp_fc\3.", k)
+    k = re.sub(r"^layers_(\d+)_(blocks_\d+|conv)\.", r"layers_\1.\2.", k)
+    return _swinir_key(re.sub(r"^up_direct\.conv\.", "upsample_direct.conv.", k), v)
+
+
+def _atd_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax ATD key -> (torch key, array in torch layout): the JAX
+    `_export_atd` layout with `attn_win.qkv` and `attn_aca.qkv` apart (the
+    JAX tree keeps two, where upstream shares one `wqkv`)."""
+    if m := re.fullmatch(r"groups_(\d+)\.token_dict", k):
+        return f"layers.{m[1]}.td", v
+    if m := re.fullmatch(r"groups_(\d+)\.layers_(\d+)\.(.+)", k):
+        pre, rest = f"layers.{m[1]}.layers.{m[2]}", m[3]
+        if rest in ("attn_win.relative_position_bias_table", "attn_atd.scale", "sigma"):
+            return f"{pre}.{rest}", v
+        if m2 := re.fullmatch(r"convffn\.dwconv\.conv\.(kernel|bias)", rest):
+            return (f"{pre}.convffn.dwconv.{_weight_or_bias(m2[1])}",
+                    conv_w_inv(v) if m2[1] == "kernel" else v)
+        inner, kind = rest.rsplit(".", 1)
+        if inner not in ("norm1", "norm2", "attn_win.qkv", "attn_win.proj", "attn_aca.qkv",
+                         "attn_aca.proj", "attn_atd.wq", "attn_atd.wk", "attn_atd.wv",
+                         "convffn.fc1", "convffn.fc2"):
+            raise KeyError(f"no torch counterpart for ATD key '{k}'")
+        return f"{pre}.{inner}.{_weight_or_bias(kind)}", linear_w(v) if kind == "kernel" else v
+    k = re.sub(r"^groups_(\d+)\.conv\.", r"layers_\1.conv.", k)
+    return _swinir_key(re.sub(r"^up_direct\.conv\.", "upsample_direct.conv.", k), v)
+
+
+def canonical_atd_keys(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """An upstream ATD state dict in the port's keys, as the JAX
+    `_convert_atd` reads it: the shared `wqkv` copied into `attn_win.qkv`
+    and `attn_aca.qkv`, the `layers.{g}.residual_group.` container as
+    `layers.{g}.`, the dictionary `td` or `token_dict` as `td`, the ConvFFN's
+    `dwconv.depthwise_conv.0` as `dwconv`, `attn_atd.scale` as its first
+    entry and `sigma` as a column. A checkpoint with `norm3` raises, as the
+    JAX converter does."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if ".norm3." in k:
+            raise NotImplementedError(
+                f"ATD checkpoint carries norm3 ({k}): a separate norm for the dictionary "
+                "attention, which the ATD layer (as the JAX package's) does not have; it "
+                "normalizes all three branches with norm1")
+        k = re.sub(r"^layers\.(\d+)\.residual_group\.", r"layers.\1.", k)
+        k = re.sub(r"^(layers\.\d+)\.token_dict$", r"\1.td", k)
+        k = k.replace(".convffn.dwconv.depthwise_conv.0.", ".convffn.dwconv.")
+        if m := re.fullmatch(r"(layers\.\d+\.layers\.\d+)\.wqkv\.(weight|bias)", k):
+            out[f"{m[1]}.attn_win.qkv.{m[2]}"] = v
+            out[f"{m[1]}.attn_aca.qkv.{m[2]}"] = v.copy()
+            continue
+        if k.endswith(".attn_atd.scale"):
+            v = v.reshape(-1)[:1]
+        elif k.endswith(".sigma"):
+            v = v.reshape(-1, 1)
+        out[k] = v
+    return out
+
+
 def canonical_spectral_keys(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Spectral-norm keys of either torch API as the port's parametrization
     keys; other keys come back as they are."""
@@ -470,7 +537,8 @@ def _last_index(out: dict[str, np.ndarray], prefix: str, step: int = 2) -> dict:
 
 
 _KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key,
-             "srformerv2": _srformerv2_key, "span": _span_key, "spanf": _spanf_key,
+             "srformerv2": _srformerv2_key, "srformer": _srformer_key, "atd": _atd_key,
+             "span": _span_key, "spanf": _spanf_key,
              "spanplus": _spanplus_key, "spanc": _spanc_key, "srvggnetcompact": _srvgg_key,
              "rrdbnet": _rrdbnet_key}
 
