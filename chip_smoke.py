@@ -12,7 +12,10 @@ trained as their templates ship, and two of the JAX bench's workloads
 (esrgan_gan with hsluv and cosim; span_s from the device-memory cache);
 then SRFormer and ATD (srformer, srformer_light, atd, atd_light) served
 and trained as their templates ship, on #2/#7 and on #3/#8's 64-wide form
-(atd's heads of 35).
+(atd's heads of 35); then DRCT (drct, drct_l, drct_xl) served and trained
+as its templates ship, on #3/#8 at all three head widths (its heads of 122
+and 77 on the 128-wide form) and #2/#7 (rows of 276 and 308: #7's split
+rows stage).
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -264,7 +267,8 @@ failure:
              batch 8 of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, their
              validation), TRAIN_STEPS steps each, counting a step's bf16 launches (HAT-M
              36 + 36 #3/#8 and 42 + 42 #2/#7; DAT 36 + 36 rect #3/#8;
-             SwinIR-L 54 + 54 #3/#8 at ws 8) and none of any fp32 training
+             SwinIR-L 54 + 54 #3/#8 at ws 8 and 54 + 54 #2/#7 at C 240,
+             its unfused branch's MLP halves) and none of any fp32 training
              form; every log finite; the validation through the fp32 twin
              (PSNR/SSIM); the EMA checkpoint served with the strict load.
 49. hat / dat bf16 profile and branches - phases 43 and 44 for HAT-M and
@@ -389,6 +393,49 @@ failure:
              against the CPU (BRANCH_LOSS_TOL, BRANCH_GRAD_TOL), each
              layer's categories compared; two 3-step `deterministic: true`
              bf16 runs of atd_light_fidelity.yml bit for bit.
+
+68. drct kernels - #3 and #8's 128-wide form (heads of 65 to 128 channels:
+             two 64-channel halves, csrc/tc_attn.cuh's attn_rows_*_wide
+             kernels), fp32 and bf16, at drct's swin_3 block (B=8, 48x48, C
+             244, 2 heads of 122, ws 16) K=1 and K=4 and its swin_5 block (C
+             308, 4 heads of 77) K=4: each against its plain version and
+             float64, two runs bit for bit, timed beside the bound and SDPA
+             (bf16: and the fp32 form), split by stage at K=4 (the wide
+             kernels must launch); the 32- and 64-wide forms timed beside
+             at swin_1's and swin_2's heads (30, 53) on the same block. #2
+             and #7 at swin_5's MLP half (C 308, hidden 308) and swin_4's (C
+             276, hidden 276), fp32 and bf16: against their plain versions,
+             two runs bit for bit, timed, #7 split by stage (its split rows
+             stage's ln_bwd_rows_kernel must launch).
+69. drct serve - `test.run` on seeded drct (one 128x128 LR and one 100x120:
+             the reflect pad), drct_l and drct_xl (one 128x128 LR each) 4x,
+             full width and depth: PNGs, PSNR/SSIM, launches (#3 and #2 once
+             a block: 30, 60 and 70 a forward; 2 a group of them on the
+             128-wide form); each 128x128 forward's device ms, the 32-, 64-
+             and 128-wide #3 kernels named in its profile.
+70. drct train - `train.run` of drct_fidelity.yml as shipped (bf16, batch
+             8 of 48x48 LR, L1 + MS-SSIM, its validation through the fp32
+             twin), TRAIN_STEPS steps: ms and images/s a step, 30 + 30
+             launches a step of #3/#8's and of #2/#7's bf16 forms (12 + 12
+             on the 128-wide form, 12 of #7 on its split rows stage), peak
+             memory, PSNR/SSIM, the EMA checkpoint served; one step
+             profiled (device ms, busy share, the hand-written kernels
+             against the rest; the bf16 wide kernels and ln_bwd_rows_kernel
+             must launch).
+71. drct templates - six bf16 steps each of drct_gan.yml (DUnet in bf16),
+             drct_l_fidelity.yml and drct_otf.yml less its MS-SSIM, four of
+             drct_xl_fidelity.yml, as shipped: every log finite, launches
+             counted, the new forms' among them; one more drct_l step
+             profiled, the new forms' kernels named in it.
+72. drct fp32 - one fp32 step (TF32 off, L1) of a one-group drct (embed
+             180: heads of 30, 53, 122, 46, 77; rows of 180-308) on 2
+             crops of 32x32 LR on the card against the same step on the CPU
+             from the same weights and batch (BRANCH_LOSS_TOL relative, each
+             gradient BRANCH_GRAD_TOL of its largest; a gradient below
+             NEAR_NULL of its block's largest held against that), every
+             fp32 form launched (the 128-wide #3/#8, #7's split rows stage);
+             a LeakyReLU input that lies within KINK_TOL of its largest
+             |value| from 0 takes the CPU's side, at most KINK_MAX.
 
 Each phase prints its seconds, and the run its total. Then one JSON line
 of kernel records and, last, the device JSON line.
@@ -522,6 +569,13 @@ REPLACES = {
     "fused_window_mhsa_backward_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
     "fused_window_mhsa_bf16_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
     "fused_window_mhsa_backward_bf16_hd64": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_window_mhsa_hd128": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward_hd128": "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_window_mhsa_bf16_hd128": "trainner_redux_tpu/ops/pallas/window_attention.py:337",
+    "fused_window_mhsa_backward_bf16_hd128":
+        "trainner_redux_tpu/ops/pallas/window_attention.py:371",
+    "fused_ln_mlp_backward_c320": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
+    "fused_ln_mlp_backward_bf16_c320": "trainner_redux_tpu/ops/pallas/fused_block.py:415",
 }
 SOURCES = {
     "fused_attn_block": "trainner_redux_tpu_torch/csrc/fused_block.cu",
@@ -567,6 +621,12 @@ SOURCES = {
     "fused_window_mhsa_backward_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_window_mhsa_bf16_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
     "fused_window_mhsa_backward_bf16_hd64": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_hd128": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_hd128": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_bf16_hd128": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_bf16_hd128": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_ln_mlp_backward_c320": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
+    "fused_ln_mlp_backward_bf16_c320": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
 }
 # the kernel records of the JSON line; "fused_window_mhsa_ws16" is the
 # window wrapper's 16x16 kernel, counted by that wrapper in HAT's runs, and
@@ -584,7 +644,13 @@ SOURCES = {
 # the "_hd64" records are #3/#8's 64-wide form (heads of 33 to 64 channels,
 # atd's 35), counted by the window wrappers in atd's runs: fp32 #3 in its
 # serving (phase 64), fp32 #8 in its fp32 train.run (phase 67), the bf16
-# forms in atd_fidelity.yml's run (phase 65)
+# forms in atd_fidelity.yml's run (phase 65); the "_hd128" records are
+# #3/#8's 128-wide form (heads of 65 to 128, drct's 122 and 77) and the
+# "_c320" ones #7 on its split rows stage (rows of 257-320, drct's 276 and
+# 308), counted by the wrappers' form counts (`read_form_counts`): fp32 #3 in
+# drct's serving (phase 69), fp32 #8 and #7 in the one-group drct's fp32
+# step on the card (phase 72), the bf16 forms in drct_fidelity.yml's run
+# (phase 70)
 KERNELS = tuple(SOURCES)
 SERVING = ("fused_attn_block", "fused_ln_mlp", "fused_window_mhsa")
 # operands of the training block, in fused_swin_block_train's order
@@ -790,8 +856,15 @@ def stage_of(kernel: str) -> str:
     run the same stages under `_bf16_` names, their epilogue mode the second
     template argument of linear_bf16_kernel and rows_bf16_kernel (1 in #12's
     and #14's bf16 dx); #11's and #13's bf16 post-norm row pass is
-    postnorm_rows_bf16_kernel."""
+    postnorm_rows_bf16_kernel. #3/#8's 128-wide form (heads of 65-128) is
+    attn_rows_fwd_wide_kernel / attn_rows_bwd_wide_kernel in both types;
+    #7's split rows stage (rows of 257-320) stores dy on rows_kernel's (or
+    rows_bf16_kernel's) mode 0, then ln_bwd_rows_kernel takes the LN
+    backward."""
     for part, stage in (("postnorm_rows_bf16_kernel", "post-norm rows"),
+                        ("attn_rows_fwd_wide_kernel", "window attention forward"),
+                        ("attn_rows_bwd_wide_kernel", "window attention"),
+                        ("ln_bwd_rows_kernel", "dy and the LN backward"),
                         ("ln_rows_bf16_kernel", "LN rows"),
                         ("mlp_hidden_bf16_kernel", "fc1 and dh"),
                         ("attn_rows_fwd_bf16_kernel", "window attention forward"),
@@ -839,6 +912,10 @@ STAGES_5 = {"LN rows": 2, "fc1 and dh": 1, "dy and the LN backward": 2, "datt": 
             "bias table": 2}
 STAGES_7 = {"LN rows": 1, "fc1 and dh": 1, "dy and the LN backward": 1, "weight gradients": 2,
             "partial sums": 3}
+# #7 at rows of 257-320 channels: its split rows stage's two dy products
+# (rows_kernel's store mode, which `stage_of` calls "datt") and the LN rows
+STAGES_7_SPLIT = {"LN rows": 1, "fc1 and dh": 1, "datt": 2, "dy and the LN backward": 1,
+                  "weight gradients": 2, "partial sums": 3}
 STAGES_6 = {"LN rows": 1, "x W + b": 1, "datt": 1, "window attention": 1,
             "dy and the LN backward": 1, "weight gradients": 2, "partial sums": 3,
             "bias table": 2}
@@ -881,6 +958,14 @@ ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}, false, 32>"
 COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true, 32>"
 ATTN_FWD_64 = "attn_rows_fwd_tc_kernel<256, 32, 4, false, 64>"
 ATTN_BWD_64 = "attn_rows_bwd_tc_kernel<256, 32, 4, false, false, 64>"
+# #3/#8's 128-wide form at n 256 (heads of 65-128: two 64-channel halves),
+# fp32 and bf16, and #7's split rows stage's LN rows
+ATTN_FWD_128 = "attn_rows_fwd_wide_kernel<256, 64, 2, float>"
+ATTN_BWD_128 = "attn_rows_bwd_wide_kernel<256, 32, 4, float>"
+ATTN_FWD_128_BF = "attn_rows_fwd_wide_kernel<256, 64, 2, __nv_bfloat16>"
+ATTN_BWD_128_BF = "attn_rows_bwd_wide_kernel<256, 32, 4, __nv_bfloat16>"
+LN_BWD_ROWS = "ln_bwd_rows_kernel<float"
+LN_BWD_ROWS_BF = "ln_bwd_rows_kernel<__nv_bfloat16"
 # #10's window attention: the saved-P form of the tensor-core backward
 # (<n, rows, key parts, att, saved, row width>) at 8x8 and 12x12 windows
 SAVED_BWD = {n: f"attn_rows_bwd_tc_kernel<{n}, {rb}, {ks}, false, true, 32>"
@@ -1184,10 +1269,25 @@ def check_counts(what: str, counts: dict[str, int], want: dict[str, int]) -> Non
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        for form in FORM_COUNTERS:
+            if hasattr(fn, form):
+                setattr(fn, form, 0)
 
 
 def read_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+# the wrappers' counts of one form apart (each added to where the wrapper
+# counts that form's launch): #3/#8's 128-wide form, #7 on rows of 257-320
+FORM_COUNTERS = {"launches_hd128": "_hd128", "launches_c320": "_c320"}
+
+
+def read_form_counts() -> dict[str, int]:
+    """`name` + suffix -> that form's launches, for the wrappers that count
+    one (fused_window_mhsa_hd128, fused_ln_mlp_backward_bf16_c320, ...)."""
+    return {name + suffix: getattr(fn, form) for name, fn in _wrappers().items()
+            for form, suffix in FORM_COUNTERS.items() if hasattr(fn, form)}
 
 
 def make_dataset(root: Path, seed: int,
@@ -1251,8 +1351,9 @@ def smoke_options(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: in
 
 
 def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: dict,
-          network: str = "swinir_m", scale: int = 4) -> dict:
-    """One run of the serving entry point with kernel counts read around it."""
+          network: str = "swinir_m", scale: int = 4, images: int = N_IMAGES) -> dict:
+    """One run of the serving entry point with kernel counts read around it
+    (`images` LR images in `lr_dir`; the new forms' counts under "forms")."""
     import math
 
     import torch
@@ -1266,6 +1367,7 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
         model = port_test.run(opt)
         torch.cuda.synchronize()
         counts = read_counts()
+        forms = read_form_counts()
         secs = time.perf_counter() - t0
     pngs = sorted((Path(opt.path.visualization) / "smoke").glob("*.png"))
     metrics = getattr(model, "metric_results", {})
@@ -1273,11 +1375,11 @@ def serve(name: str, weights: Path, hr_dir: Path, lr_dir: Path, seed: int, env: 
         f"psnr {metrics.get('psnr', float('nan')):.4f} "
         f"ssim {metrics.get('ssim', float('nan')):.4f}, "
         f"launches {counts}")
-    if len(pngs) != N_IMAGES:
-        fail(f"{name}: {len(pngs)} PNGs written, expected {N_IMAGES}")
+    if len(pngs) != images:
+        fail(f"{name}: {len(pngs)} PNGs written, expected {images}")
     if not all(math.isfinite(metrics.get(k, float("nan"))) for k in ("psnr", "ssim")):
         fail(f"{name}: PSNR/SSIM not logged or not finite: {metrics}")
-    return {"counts": counts, "metrics": metrics}
+    return {"counts": counts, "metrics": metrics, "forms": forms}
 
 
 def check_serving_counts(what: str, c: dict[str, int]) -> None:
@@ -3922,12 +4024,15 @@ def check_finite_logs(tag: str, model, step: int) -> None:
 def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
                        name: str = "swinir_m_x4_bf16_profile",
                        per_step: dict[str, int] = BF16_TRAIN_STEP, tag: str = "bf16 train profile",
-                       file: str = "profile_bf16_train.txt", batch_size: int = TB) -> None:
+                       file: str = "profile_bf16_train.txt", batch_size: int = TB,
+                       kernels: tuple[str, ...] = ()) -> None:
     """43 (and 49, 51). Device time by kernel of one bf16 step of
     `template`'s run (after two warm-up steps; `batch_size` 48x48 LR crops),
     its busy share and launches (`per_step` and no others), the bf16 forms'
-    stages summed; the table to chip_smoke/`file`. The logs of the warm-up,
-    profiled and last steps must be finite."""
+    stages summed, the hand-written kernels' time against the rest; the
+    table to chip_smoke/`file`. The logs of the warm-up, profiled and last
+    steps must be finite; a profiled kernel's name must hold each of
+    `kernels`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3968,10 +4073,15 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
     torch.cuda.synchronize()
     step = (time.perf_counter() - t0) / 3
     check_finite_logs(tag, model, 6)
+    check_profiled(tag, "the step", events, kernels)
     by_stage: dict[str, float] = {}
     for e in events:
-        st = stage_of(e.key) if "trr::" in e.key and "bf16" in e.key else "other"
+        bf = "bf16" in e.key or "bfloat16" in e.key
+        st = stage_of(e.key) if "trr::" in e.key and bf else "other"
         by_stage[st] = by_stage.get(st, 0.0) + e.self_device_time_total / 1e3
+    own = sum(e.self_device_time_total for e in events if "trr::" in e.key) / 1e3
+    say(f"[{tag}] the hand-written kernels {own:.3f} ms of the step's device time, the rest "
+        f"{total / 1e3 - own:.3f} ms")
     say(f"[{tag}] device time per step {total / 1e3:.3f} ms over "
         f"{sum(e.count for e in events)} kernel launches; step {step * 1e3:.1f} ms without the "
         f"profiler (the card busy {total / 1e6 / step:.1%} of it); max_memory_allocated "
@@ -4310,13 +4420,19 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
                 bwd_flops, bwd_bytes, max(e[0] for e in bwd_err), max(e[1] for e in bwd_err))
     if split is not None:
         rb, ks = wa.tc_attn_plan(n, hd)
-        plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
+        if wa.head_width(hd) == wa.HD_MAX:  # the 128-wide form's kernels
+            brb, bks = wa.tc_attn_plan(n, hd, backward=True)
+            fwd_name = f"attn_rows_fwd_wide_kernel<{n}, {rb}, {ks}, __nv_bfloat16>"
+            bwd_name = f"attn_rows_bwd_wide_kernel<{n}, {brb}, {bks}, __nv_bfloat16>"
+        else:
+            plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
+            fwd_name = f"attn_rows_fwd_bf16_kernel<{plan}>"
+            bwd_name = f"attn_rows_bwd_recompute_bf16_kernel<{plan}>"
         stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win), fwd_flops,
-                    fwd_bytes, res[names[0]]["ms"], STAGES_3,
-                    kernels=(f"attn_rows_fwd_bf16_kernel<{plan}>",), bf16=True)
+                    fwd_bytes, res[names[0]]["ms"], STAGES_3, kernels=(fwd_name,), bf16=True)
         stage_split(tag, f"{names[1]} {label}", lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
-                    bwd_flops, bwd_bytes, res[names[1]]["ms"], split,
-                    kernels=(f"attn_rows_bwd_recompute_bf16_kernel<{plan}>",), bf16=True)
+                    bwd_flops, bwd_bytes, res[names[1]]["ms"], split, kernels=(bwd_name,),
+                    bf16=True)
 
 
 def mlp_f64(x, g, be, w1, b1, w2, b2, s):
@@ -4466,9 +4582,13 @@ BF16_RUNS = {
     "dat": (TEMPLATES / "DAT" / "dat_fidelity.yml", "dat", "DAT",
             {"fused_rect_mhsa_bf16": DAT_RECT, "fused_rect_mhsa_backward_bf16": DAT_RECT},
             {"fused_rect_mhsa": DAT_RECT}),
+    # SwinIR-L trains on SwinBlock's unfused branch: #3/#8, and its MLP
+    # halves on #2/#7 (C 240 / hidden 480)
     "swinir_l": (TEMPLATES / "SwinIR" / "swinir_l_fidelity.yml", "swinir_l", "SwinIR-L",
                  {"fused_window_mhsa_bf16": SWINIR_L_BLOCKS,
-                  "fused_window_mhsa_backward_bf16": SWINIR_L_BLOCKS},
+                  "fused_window_mhsa_backward_bf16": SWINIR_L_BLOCKS,
+                  "fused_ln_mlp_bf16": SWINIR_L_BLOCKS,
+                  "fused_ln_mlp_backward_bf16": SWINIR_L_BLOCKS},
                  {"fused_attn_block": SWINIR_L_BLOCKS, "fused_ln_mlp": SWINIR_L_BLOCKS}),
 }
 
@@ -4907,11 +5027,14 @@ def phase_swin2sr_bf16_train(seed: int) -> dict[str, int]:
     return counts
 
 
-def six_bf16_steps(tag: str, opt, batch, per_step: dict[str, int]) -> None:
-    """Six steps of `opt`'s model from `batch` (for OTF, raw GT and kernels
-    that `feed_data` degrades): the model computes in bf16, every log of
-    every step is finite, and each step launches `per_step` of the
-    hand-written training kernels (OTF's #15 launches counted apart)."""
+def six_bf16_steps(tag: str, opt, batch, per_step: dict[str, int], steps: int = 6,
+                   forms: dict[str, int] | None = None, kernels: tuple[str, ...] = ()) -> None:
+    """Six (or `steps`) steps of `opt`'s model from `batch` (for OTF, raw GT
+    and kernels that `feed_data` degrades): the model computes in bf16,
+    every log of every step is finite, and each step launches `per_step` of
+    the hand-written training kernels (OTF's #15 launches counted apart) and
+    `forms` of the forms the wrappers count apart; with `kernels`, one more
+    step profiled must name each of them."""
     import math
 
     import torch
@@ -4925,19 +5048,31 @@ def six_bf16_steps(tag: str, opt, batch, per_step: dict[str, int]) -> None:
     reset_counts()
     t0 = time.perf_counter()
     logs = []
-    for i in range(6):
+    for i in range(steps):
         model.feed_data(batch)
         model.optimize_parameters(i + 1)
         logs.append({k: float(v) for k, v in model.log_dict.items()})
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / 6 * 1e3
+    ms = (time.perf_counter() - t0) / steps * 1e3
     bad = [(i + 1, k) for i, log in enumerate(logs) for k, v in log.items() if not math.isfinite(v)]
     if bad:
         fail(f"[{tag}] logs not finite at (step, key) {bad}")
     counts = read_counts()
     jpeg = counts.pop("jpeg_block_transform")
-    check_counts(f"{tag} six steps", counts, {k: 6 * v for k, v in per_step.items()})
-    say(f"[{tag}] six bf16 steps, {ms:.1f} ms a step (host clock, the model's build left "
+    check_counts(f"{tag} {steps} steps", counts, {k: steps * v for k, v in per_step.items()})
+    if forms is not None:
+        got = {k: v for k, v in read_form_counts().items() if k in forms}
+        if got != {k: steps * v for k, v in forms.items()}:
+            fail(f"[{tag}] the forms' launches {got}, expected {forms} a step")
+    if kernels:
+        from torch.profiler import ProfilerActivity, profile
+
+        model.feed_data(batch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.optimize_parameters(steps + 1)
+            torch.cuda.synchronize()
+        check_profiled(tag, "a profiled step after them", device_events(prof), kernels)
+    say(f"[{tag}] {steps} bf16 steps, {ms:.1f} ms a step (host clock, the model's build left "
         "out), "
         f"every log finite; l_g_total {logs[0]['l_g_total']:.5f} -> {logs[-1]['l_g_total']:.5f}; "
         f"{jpeg} #15 launches; max_memory_allocated "
@@ -5356,10 +5491,12 @@ def hd64_inputs(gen, kinds: int, shape, c: int, nh: int, ws: int = AWS, dtype=No
 
 
 def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int, nh: int,
-                   kinds: int, gen, split: bool) -> None:
-    """#3 and #8 in fp32 at one block: `window_attention_cases`' checks
-    (plain versions, SDPA, float64, two runs bit for bit), recorded under
-    `names`; `split`: both stage splits, the 64-wide kernels among them."""
+                   kinds: int, gen, split: bool, tag: str = "atd kernels",
+                   kernels: tuple[str, str] = (ATTN_FWD_64, ATTN_BWD_64)) -> None:
+    """#3 and #8 in fp32 at one block (16x16 windows): `window_attention_cases`'
+    checks (plain versions, SDPA, float64, two runs bit for bit), recorded
+    under `names`; `split`: both stage splits, the form's `kernels` (the
+    64-wide ones unless said) among them."""
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     qkv, bias, dout = inputs = hd64_inputs(gen, kinds, shape, c, nh)
@@ -5368,18 +5505,18 @@ def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int,
            lambda: wa.fused_window_mhsa_reference(qkv, bias, nh, hd, AWS),
            lambda: wa.fused_window_mhsa_backward(qkv, bias, dout, nh, hd, AWS),
            lambda: wa.fused_window_mhsa_bwd_reference(qkv, bias, dout, nh, hd, AWS))
-    cases = window_attention_cases("atd kernels", "fused_window_mhsa", label, ops, inputs, AWS,
+    cases = window_attention_cases(tag, "fused_window_mhsa", label, ops, inputs, AWS,
                                    AWS, kinds, nh, hd)
     for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
-        record_kernel(res, "atd kernels", names[name != "fused_window_mhsa"], label, kern, plain,
+        record_kernel(res, tag, names[name != "fused_window_mhsa"], label, kern, plain,
                       lib, flops, nb, err, note)
     if split:
         _, _, _, flops, nb, _, _ = cases["fused_window_mhsa"]
-        stage_split("atd kernels", f"{names[0]} {label}", ops[0], flops, nb, res[names[0]]["ms"],
-                    STAGES_3, kernels=(ATTN_FWD_64,))
+        stage_split(tag, f"{names[0]} {label}", ops[0], flops, nb, res[names[0]]["ms"],
+                    STAGES_3, kernels=kernels[:1])
         _, _, _, flops, nb, _, _ = cases["fused_window_mhsa_backward"]
-        stage_split("atd kernels", f"{names[1]} {label}", ops[2], flops, nb, res[names[1]]["ms"],
-                    STAGES_8, kernels=(ATTN_BWD_64,))
+        stage_split(tag, f"{names[1]} {label}", ops[2], flops, nb, res[names[1]]["ms"],
+                    STAGES_8, kernels=kernels[1:])
 
 
 def mlp_half_case(tag: str, label: str, shape, c: int, hidden: int, rows: int, gen) -> None:
@@ -5508,11 +5645,13 @@ def phase_atd_kernels() -> dict:
     return res
 
 
-def forward_device_ms(net, x, calls: int = 2) -> tuple[float, int]:
+def forward_device_ms(net, x, calls: int = 2, tag: str = "srformer atd serve",
+                      kernels: tuple[str, ...] = ()) -> tuple[float, int]:
     """(device ms, kernel launches) of one forward of `net` on x
     (torch.profiler over `calls` forwards after one warm-up; a forward that
     copies from the host, as PSA's and the plain branch's masks do, cannot be
-    captured in a CUDA graph)."""
+    captured in a CUDA graph); fails unless a profiled kernel's name holds
+    each of `kernels`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5524,11 +5663,21 @@ def forward_device_ms(net, x, calls: int = 2) -> tuple[float, int]:
                 net(x)
             torch.cuda.synchronize()
     events = device_events(prof)
-    check_retired("srformer atd serve", events)
+    check_retired(tag, events)
     total = sum(e.self_device_time_total for e in events)
     if total == 0:
-        fail("[srformer atd serve] the profiler recorded no device time")
+        fail(f"[{tag}] the profiler recorded no device time")
+    check_profiled(tag, "one forward", events, kernels)
     return total / 1e3 / calls, sum(e.count for e in events) // calls
+
+
+def check_profiled(tag: str, what: str, events, kernels: tuple[str, ...]) -> None:
+    """Fail unless a profiled kernel's name holds each of `kernels`."""
+    missing = [k for k in kernels if not any(k in e.key for e in events)]
+    if missing:
+        fail(f"[{tag}] {what}: no profiled kernel is {', '.join(missing)}")
+    if kernels:
+        say(f"[{tag}] {what} launched " + ", ".join(kernels))
 
 
 def phase_srformer_atd_serve(seed: int) -> dict[str, int]:
@@ -5811,6 +5960,333 @@ def phase_atd_fp32(seed: int) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 68-72. DRCT: #3/#8's 128-wide form and #7 at rows of up to 320
+# ---------------------------------------------------------------------------
+
+# drct's residual dense group: (C, heads, hidden) of its five Swin blocks
+# (heads of 30, 53, 122, 46 and 77 channels; ws 16); swin_3 and swin_5 run
+# #3/#8's 128-wide form, swin_4 and swin_5 #7's split rows stage
+DRCT_BLOCKS = ((180, 6, 360), (212, 4, 424), (244, 2, 488), (276, 6, 276), (308, 4, 308))
+DRCT_GROUPS = {"drct": 6, "drct_l": 12, "drct_xl": 14}
+DRCT_B = 8  # the templates' batch of 48x48 LR crops
+DRCT_TEMPLATES = TEMPLATES / "DRCT"
+# the new forms' kernels that every DRCT training phase's profile must name
+DRCT_BF16_KERNELS = (ATTN_FWD_128_BF, ATTN_BWD_128_BF, LN_BWD_ROWS_BF)
+DRCT_FP32_KERNELS = (ATTN_FWD_128, ATTN_BWD_128, LN_BWD_ROWS)
+
+
+def drct_step(network: str = "drct") -> dict[str, int]:
+    """A bf16 step's launches: #3/#8 and #2/#7 once a block."""
+    n = 5 * DRCT_GROUPS[network]
+    return {k: n for k in ("fused_window_mhsa_bf16", "fused_window_mhsa_backward_bf16",
+                           "fused_ln_mlp_bf16", "fused_ln_mlp_backward_bf16")}
+
+
+def drct_forms(network: str = "drct", bf16: bool = True) -> dict[str, int]:
+    """A step's (bf16) or a forward's (fp32, no backward) launches of the new
+    forms: two blocks a group on the 128-wide #3/#8, two on #7's split rows
+    stage."""
+    n = 2 * DRCT_GROUPS[network]
+    if not bf16:
+        return {"fused_window_mhsa_hd128": n}
+    return {"fused_window_mhsa_bf16_hd128": n, "fused_window_mhsa_backward_bf16_hd128": n,
+            "fused_ln_mlp_backward_bf16_c320": n}
+
+
+def mlp_c320_record(res: dict, tag: str, label: str, shape, c: int, hidden: int, gen) -> None:
+    """#7 at rows of 257-320 channels, fp32 and bf16 (`mlp_half_case`'s
+    checks first): its time beside its plain version's and the bound,
+    recorded as fused_ln_mlp_backward_c320 / _bf16_c320, and split by stage
+    (the split rows stage: two dy products, then ln_bwd_rows_kernel)."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    mlp_half_case(tag, label, shape, c, hidden, 16, gen)
+    dev = torch.device("cuda")
+    b = shape[0]
+    x32, p, _, _ = block_inputs(gen, 1, dev, shape=shape, widths=(c, 4, 16, hidden))
+    s = torch.full((b,), 1.0 / 0.9, device=dev)
+    params = [p[k] for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    dout32 = torch.randn(*shape, c, generator=gen).to(dev)
+    tokens = b * shape[1] * shape[2]
+    for dtype, name in (("fp32", "fused_ln_mlp_backward_c320"),
+                        ("bf16", "fused_ln_mlp_backward_bf16_c320")):
+        bf = dtype == "bf16"
+        x, dout = (x32.bfloat16(), dout32.bfloat16()) if bf else (x32, dout32)
+        kern = fb.fused_ln_mlp_backward_bf16 if bf else fb.fused_ln_mlp_backward
+        plain = fb.fused_ln_mlp_bwd_bf16_reference if bf else fb.fused_ln_mlp_bwd_reference
+        grads = kern(x, *params, s, dout, 16)
+        want = plain(x, *params, s, dout, 16)
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+        flops, nb = 10 * tokens * c * hidden, nbytes(x, *params, s, dout, *grads)
+        ms = time_ms(lambda: kern(x, *params, s, dout, 16), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: plain(x, *params, s, dout, 16), iters=5, warmup=1)
+        bms, by = bound(flops, nb, PEAK_BF16 if bf else PEAK_FP32)
+        say(f"[{tag}] {name} {label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library n/a, bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nb / 1e6:.2f} MB; {'bf16' if bf else 'fp32'}), {100 * bms / ms:.1f}% of it")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bms, "bound_by": by}
+        stage_split(tag, f"{name} {label}", lambda: kern(x, *params, s, dout, 16), flops, nb, ms,
+                    STAGES_7_SPLIT, kernels=(LN_BWD_ROWS_BF if bf else LN_BWD_ROWS,), bf16=bf)
+
+
+def phase_drct_kernels() -> dict:
+    """68. #3 and #8's 128-wide form at drct's swin_3 and swin_5 blocks, fp32
+    and bf16, the 32- and 64-wide forms timed beside; #2/#7 at swin_4's and
+    swin_5's MLP halves (see the module doc)."""
+    import torch
+
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    tag = "drct kernels"
+    gen = torch.Generator().manual_seed(68)
+    res: dict[str, dict] = {}
+    other: dict[str, dict] = {}  # cases timed but not the JSON line's
+    blk = (DRCT_B, FID_LQ, FID_LQ)
+    names = ("fused_window_mhsa_hd128", "fused_window_mhsa_backward_hd128")
+    bf_names = ("fused_window_mhsa_bf16_hd128", "fused_window_mhsa_backward_bf16_hd128")
+    c3, nh3, _ = DRCT_BLOCKS[2]
+    c5, nh5, _ = DRCT_BLOCKS[4]
+    hd64_fp32_case(other, names, f"swin_5 (C {c5}, heads of 77) K=4", blk, c5, nh5, 4, gen,
+                   False, tag)
+    bf16_window_case(other, bf_names, f"drct swin_5 (C {c5}, heads of 77) K=4", blk, AWS, AWS, 4,
+                     nh5, c5 // nh5, (AWS // 2, AWS // 2), gen, None)
+    for kinds in (4, 1):  # the JSON line reports K=1, the unshifted blocks'
+        hd64_fp32_case(res, names, f"swin_3 (C {c3}, heads of 122) K={kinds}", blk, c3, nh3,
+                       kinds, gen, kinds == 4, tag, (ATTN_FWD_128, ATTN_BWD_128))
+        bf16_window_case(res, bf_names, f"drct swin_3 (C {c3}, heads of 122) K={kinds}", blk,
+                         AWS, AWS, kinds, nh3, c3 // nh3, (AWS // 2, AWS // 2), gen,
+                         STAGES_8 if kinds == 4 else None)
+    # the three widths of #3/#8 on the same block (K=4), fp32 and bf16
+    for label, (c, nh, _) in (("32-wide, swin_1's heads of 30", DRCT_BLOCKS[0]),
+                              ("64-wide, swin_2's heads of 53", DRCT_BLOCKS[1]),
+                              ("128-wide, swin_3's heads of 122", DRCT_BLOCKS[2])):
+        for dtype in (None, torch.bfloat16):
+            q, t, d = hd64_inputs(gen, 4, blk, c, nh, dtype=dtype)
+            hd = c // nh
+            with torch.no_grad():
+                f = time_ms(lambda: wa.fused_window_mhsa(q, t, nh, hd, AWS), iters=10, warmup=2)
+            b_ = time_ms(lambda: wa.fused_window_mhsa_backward(q, t, d, nh, hd, AWS), iters=10,
+                         warmup=2)
+            say(f"[{tag}] {label} (B=8, 48x48, K=4) {'bf16' if dtype else 'fp32'}: #3 "
+                f"{f:.4f} ms, #8 {b_:.4f} ms")
+    mlp_c320_record(res, tag, "swin_5's MLP half", blk, c5, DRCT_BLOCKS[4][2], gen)
+    mlp_half_case(tag, "swin_4's MLP half", blk, DRCT_BLOCKS[3][0], DRCT_BLOCKS[3][2], 16, gen)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_drct_serve(seed: int) -> dict[str, int]:
+    """69. `test.run` on seeded drct (a 128x128 and a 100x120 LR), drct_l and
+    drct_xl (a 128x128 LR) at 4x: launches of #3 and #2 (once a block) and
+    of the 128-wide #3 (two blocks a group); each 128x128 forward's device
+    ms, with the three #3 widths' kernels in its profile. Returns drct's
+    form counts."""
+    import torch
+
+    from trainner_redux_tpu_torch.archs import build_network
+
+    tag = "drct serve"
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(seed)).cuda()
+    drct_forms_served: dict[str, int] = {}
+    for network, sizes in (("drct", ((128, 128), (100, 120))), ("drct_l", ((128, 128),)),
+                           ("drct_xl", ((128, 128),))):
+        label = network.replace("drct", "DRCT").replace("_l", "-L").replace("_xl", "-XL")
+        hr_dir, lr_dir = make_dataset(OUT / f"{network}_data", seed, sizes)
+        net = build_network({"type": network, "scale": 4}).init_weights(
+            torch.Generator().manual_seed(seed))
+        weights = OUT / f"{network}_x4_seeded.pth"
+        torch.save(net.state_dict(), weights)
+        served = serve(f"{network}_x4", weights, hr_dir, lr_dir, seed, {}, network,
+                       images=len(sizes))
+        blocks = 5 * DRCT_GROUPS[network]
+        per_run = blocks * len(sizes)
+        check_counts(f"{label} serving", served["counts"],
+                     {"fused_window_mhsa": per_run, "fused_ln_mlp": per_run})
+        wide = {k: v * len(sizes) for k, v in drct_forms(network, bf16=False).items()}
+        if served["forms"]["fused_window_mhsa_hd128"] != wide["fused_window_mhsa_hd128"]:
+            fail(f"[{tag}] {label}: {served['forms']} of the forms, expected {wide}")
+        if network == "drct":
+            drct_forms_served = served["forms"]
+        weights.unlink()
+        shutil.rmtree(OUT / f"{network}_data", ignore_errors=True)
+        net = net.cuda().eval()
+        ms, launches = forward_device_ms(net, x, tag=tag, kernels=(
+            ATTN_FWD[256], ATTN_FWD_64, ATTN_FWD_128, "ln_rows_kernel", "linear_kernel"))
+        with torch.inference_mode():
+            out = net(x)
+        if out.shape != (1, 3, 512, 512) or not bool(torch.isfinite(out).all()):
+            fail(f"[{tag}] {label} forward: bad output {tuple(out.shape)}")
+        say(f"[{tag}] {label} 4x: one 128x128 forward {ms:.3f} device ms over {launches} "
+            f"launches (fp32; {sum(p.numel() for p in net.parameters()):,d} parameters); "
+            f"{blocks} #3 and {blocks} #2 launches an image, "
+            f"{wide['fused_window_mhsa_hd128'] // len(sizes)} of #3 on the 128-wide form")
+        del net
+        torch.cuda.empty_cache()
+    return drct_forms_served
+
+
+def phase_drct_train(seed: int) -> dict[str, int]:
+    """70. `train.run` of drct_fidelity.yml as shipped, TRAIN_STEPS bf16
+    steps, and one step profiled (see the module doc). Returns the run's
+    form counts."""
+    template = DRCT_TEMPLATES / "drct_fidelity.yml"
+    tag = "drct bf16 train"
+    hr_dir, lr_dir = make_dataset(OUT / "train_data", seed, ((128, 128),) * 16)
+    val_hr, val_lr = make_dataset(OUT / "data", seed)
+    opt = fidelity_options("drct_x4_fidelity_bf16", hr_dir, lr_dir, seed, (val_hr, val_lr),
+                           template=template)
+    serving = {"fused_window_mhsa": 30 * N_IMAGES, "fused_ln_mlp": 30 * N_IMAGES}
+    forms: dict[str, int] = {}
+
+    def run_launches():  # read after the run, before the EMA checkpoint is served
+        forms.update(read_form_counts())
+        return serving
+
+    phase_train(seed, "drct", f"DRCT bf16 ({template.name})", tag, per_step=drct_step(),
+                serve_want=serving, lq=FID_LQ, losses=FID_LOSSES, opt=opt,
+                more_launches=run_launches, check=bf16_train_check(tag), batch_size=DRCT_B)
+    want = {k: v * TRAIN_STEPS for k, v in drct_forms().items()}
+    # the validation's fp32 twin
+    want["fused_window_mhsa_hd128"] = drct_forms(bf16=False)["fused_window_mhsa_hd128"] * N_IMAGES
+    got = {k: forms.get(k, -1) for k in want}
+    if got != want:
+        fail(f"[{tag}] the new forms' launches {got}, expected {want}")
+    say(f"[{tag}] the new forms' launches over the run: {got}")
+    dev_ms, step_ms = phase_bf16_profile(
+        seed, template, "drct_x4_bf16_profile", drct_step(), "drct bf16 profile",
+        "profile_drct_bf16_train.txt", DRCT_B,
+        kernels=DRCT_BF16_KERNELS)
+    say(f"[{tag}] profiled step: {dev_ms:.3f} device ms, {step_ms:.1f} ms on the host clock")
+    return forms
+
+
+def phase_drct_templates(seed: int) -> None:
+    """71. drct_gan.yml, drct_l_fidelity.yml and drct_otf.yml less its
+    MS-SSIM six bf16 steps each, drct_xl_fidelity.yml four, as shipped: the
+    wrappers' counts of the new forms each step, and one more drct_l step
+    profiled, naming them (a profiled DRCT step costs some 10 s of the
+    host's time, so one template's)."""
+    gan_vgg_line("drct_gan bf16")
+    gan = gan_options("drct_gan_bf16_six", OUT, OUT, seed,
+                      template=DRCT_TEMPLATES / "drct_gan.yml", as_shipped=True)
+    six_bf16_steps("drct_gan bf16", gan,
+                   gan_batch(seed, gan.datasets["train"].batch_size_per_gpu, FID_LQ),
+                   drct_step(), forms=drct_forms())
+    for network, steps in (("drct_l", 6), ("drct_xl", 4)):
+        template = DRCT_TEMPLATES / f"{network}_fidelity.yml"
+        opt = fidelity_options(f"{network}_x4_bf16_six", OUT, OUT, seed, template=template)
+        six_bf16_steps(f"{template.stem} bf16", opt,
+                       gan_batch(seed, opt.datasets["train"].batch_size_per_gpu, FID_LQ),
+                       drct_step(network), steps=steps, forms=drct_forms(network),
+                       kernels=DRCT_BF16_KERNELS if network == "drct_l" else ())
+    hr_dir, _ = make_dataset(OUT / "otf_data", seed, ((128, 128),) * 16)
+    otf = otf_bf16_options("drct_x4_otf_bf16_six", hr_dir, seed,
+                           template=DRCT_TEMPLATES / "drct_otf.yml")
+    six_bf16_steps("drct_otf bf16", otf, otf_batch(otf, seed), drct_step(), forms=drct_forms())
+    shutil.rmtree(OUT / "otf_data")
+
+
+def phase_drct_fp32(seed: int) -> dict[str, int]:
+    """72. One fp32 step of a one-group drct on the card against the CPU
+    (see the module doc). Returns the card step's form counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trainner_redux_tpu_torch.archs import arch_util, drct_arch
+    from trainner_redux_tpu_torch.models import build_model
+
+    tag = "drct fp32"
+    opt = train_options("drct_one_group_fp32_step", OUT, OUT, seed, "drct", 32, ("l1loss",), 1,
+                        network_g={"type": "drct", "num_heads": [6], "depths": [6]})
+    opt.datasets["train"].batch_size_per_gpu = 2
+    batch = gan_batch(seed, 2, 32)
+    real = arch_util.leaky_relu
+    cpu_inputs: list = []
+    kinks = {"pinned": 0, "share": 0.0, "calls": 0}
+
+    def recorded(x, slope):
+        cpu_inputs.append(x.detach().clone())
+        return real(x, slope)
+
+    def pinned(x, slope):
+        xp = cpu_inputs[kinks["calls"]].to(x.device)
+        kinks["calls"] += 1
+        side = xp > 0
+        moved = side != (x > 0)
+        if bool(moved.any()):
+            share = max((x.detach()[moved].abs().max() / x.detach().abs().max()).item(),
+                        (xp[moved].abs().max() / xp.abs().max()).item())
+            if not share <= KINK_TOL:
+                fail(f"[{tag}] a LeakyReLU input differs in sign between the card and the CPU "
+                     f"at {share:.3g} of its largest |value|")
+            kinks["pinned"] += int(moved.sum())
+            kinks["share"] = max(kinks["share"], share)
+        return torch.where(side, x, arch_util.scale_by(x, slope))
+
+    steps = {}
+    try:
+        for device, fn in (("cpu", recorded), ("cuda", pinned)):
+            arch_util.leaky_relu = drct_arch.leaky_relu = fn
+            model = build_model(opt, device=device)
+            reset_counts()
+            model.feed_data(batch)
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                  if device == "cuda" else nullcontext()) as prof:
+                model.optimize_parameters(1)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                counts, forms = read_counts(), read_form_counts()
+                check_profiled(tag, "the card's step", device_events(prof), DRCT_FP32_KERNELS)
+            steps[device] = (float(model.log_dict["l_g_total"]),
+                             {k: p.grad.detach().cpu() for k, p in model.net_g.named_parameters()})
+    finally:
+        arch_util.leaky_relu = drct_arch.leaky_relu = real
+    want = {k: 5 for k in ("fused_window_mhsa", "fused_window_mhsa_backward", "fused_ln_mlp",
+                           "fused_ln_mlp_backward")}
+    check_counts(f"{tag} card step", counts, want)
+    wide = {"fused_window_mhsa_hd128": 2, "fused_window_mhsa_backward_hd128": 2,
+            "fused_ln_mlp_backward_c320": 2}
+    if {k: forms[k] for k in wide} != wide:
+        fail(f"[{tag}] the new fp32 forms' launches {forms}, expected {wide}")
+    (loss_card, g_card), (loss_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+
+    def block_of(name: str) -> str:
+        """`layers.0.swinK` / `layers.0.adjustK` of a group's parameter, else
+        the name."""
+        parts = name.split(".")
+        return ".".join(parts[:3]) if parts[0] == "layers" else name
+
+    block_max: dict[str, float] = {}
+    for k, g in g_cpu.items():
+        block_max[block_of(k)] = max(block_max.get(block_of(k), 0.0), g.abs().max().item())
+    worst, near_null = (0.0, ""), []
+    for k, g in g_cpu.items():
+        ref = g.abs().max().item()
+        if ref < NEAR_NULL * block_max[block_of(k)]:
+            near_null.append(k)
+            ref = block_max[block_of(k)]
+        worst = max(worst, ((g_card[k] - g).abs().max().item() / max(ref, 1e-30), k))
+    say(f"[{tag}] one fp32 step of a one-group drct (embed 180, 2 crops of 32x32 LR, TF32 off) "
+        f"on the card against the CPU: loss {loss_card:.6f} against {loss_cpu:.6f} ({rel:.2e} "
+        f"relative, limit {BRANCH_LOSS_TOL:g}); the farthest of {len(g_cpu)} gradients "
+        f"{worst[0]:.2e} of its largest ({worst[1]}; limit {BRANCH_GRAD_TOL:g}; "
+        f"{len(near_null)} below {NEAR_NULL:g} of their block's largest held against that); "
+        f"{kinks['pinned']} LeakyReLU inputs pinned to the CPU's side (within "
+        f"{kinks['share']:.3g} of their largest); card launches {counts}, forms {wide}")
+    if kinks["pinned"] > KINK_MAX:
+        fail(f"[{tag}] {kinks['pinned']} LeakyReLU inputs pinned, more than {KINK_MAX}")
+    if not rel <= BRANCH_LOSS_TOL or not worst[0] <= BRANCH_GRAD_TOL:
+        fail(f"[{tag}] the card's fp32 step is off the CPU's")
+    del model
+    torch.cuda.empty_cache()
+    return forms
+
+
 def timed(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -5924,7 +6400,8 @@ def main() -> None:
     fam = {f: timed(f"{f} bf16 train", phase_bf16_family_train, seed, f) for f in BF16_RUNS}
     launches.update({k: fam["hat"][k] for k in BF16_RUNS["hat"][3]})
     launches.update({k: fam["dat"][k] for k in BF16_RUNS["dat"][3]})
-    launches.update({f"{k}_ws8": fam["swinir_l"][k] for k in BF16_RUNS["swinir_l"][3]})
+    launches.update({f"{k}_ws8": fam["swinir_l"][k] for k in ("fused_window_mhsa_bf16",
+                                                              "fused_window_mhsa_backward_bf16")})
     for f in ("hat", "dat"):
         timed(f"{f} bf16 profile and branches", phase_bf16_family_profile_branches, seed, f)
     kernels.update(timed("srformerv2 bf16 kernels", phase_srformerv2_bf16_kernels))
@@ -5957,6 +6434,14 @@ def main() -> None:
     timed("srformer atd templates", phase_srformer_atd_templates, seed)
     atd_fp32 = timed("atd fp32", phase_atd_fp32, seed)
     launches["fused_window_mhsa_backward_hd64"] = atd_fp32["fused_window_mhsa_backward"]
+    kernels.update(timed("drct kernels", phase_drct_kernels))
+    launches["fused_window_mhsa_hd128"] = timed("drct serve", phase_drct_serve, seed)[
+        "fused_window_mhsa_hd128"]
+    drct_forms_run = timed("drct train", phase_drct_train, seed)
+    launches.update({k: drct_forms_run[k] for k in drct_forms()})
+    timed("drct templates", phase_drct_templates, seed)
+    launches.update({k: v for k, v in timed("drct fp32", phase_drct_fp32, seed).items()
+                     if k in ("fused_window_mhsa_backward_hd128", "fused_ln_mlp_backward_c320")})
     say(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
 
     records = []

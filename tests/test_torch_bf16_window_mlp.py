@@ -175,13 +175,14 @@ def test_bf16_ln_mlp_matches_jax_vjp():
 
 
 def test_bf16_ln_mlp_limits():
-    """The bf16 MLP forms take the rows the fp32 backward takes: at most 256
-    channels (one 256-column rows tile), C and hidden multiples of 4: HAT's
-    C 144 and 180 and SRFormerV2's C 240 / hidden 480; wider or ragged rows
-    are refused (the wrappers raise on them on the card), never run in
-    fp32."""
+    """The bf16 MLP forms take the rows the fp32 backward takes: at most 320
+    channels (one rows tile up to 256, the split rows stage past it), C and
+    hidden multiples of 4: HAT's C 144 and 180, SRFormerV2's C 240 / hidden
+    480 and DRCT's C 276 and 308; wider or ragged rows are refused (the
+    wrappers raise on them on the card), never run in fp32."""
     assert tfb.ln_mlp_bwd_fits(180, 360) and tfb.ln_mlp_bwd_fits(144, 288)
     assert tfb.ln_mlp_bwd_fits(240, 480)
-    assert not tfb.ln_mlp_bwd_fits(260, 520)
+    assert tfb.ln_mlp_bwd_fits(260, 520) and tfb.ln_mlp_bwd_fits(308, 308)
+    assert not tfb.ln_mlp_bwd_fits(324, 324)
     assert not tfb.ln_mlp_bwd_fits(182, 360)
     assert not tfb.ln_mlp_bwd_fits(180, 362)

@@ -33,6 +33,9 @@ rect windows), of #2/#7 (HAT-M's MLP half) and of #1/#6 (SRFormerV2's Swin
 blocks at 12x12 windows, K=1 and K=4 shifted), each twice bit for bit; and
 of #11-#14 (Swin2SR's post-norm halves at SwinIR-M's widths, K=1 and K=4
 shifted, the MLP half also at Swin2SR-L's C 240 and Swin2SR-S's C 60).
+#3/#8's 64-wide form (ATD's heads of 35, heads of 64) and 128-wide form
+(DRCT's heads of 122 and 77, heads of 128), and #2/#7 at rows of 257-320
+channels (DRCT's C 276 and 308: #7's split rows stage), fp32 and bf16.
 """
 
 import numpy as np
@@ -424,10 +427,11 @@ def test_fp32_kernels_refuse_bf16(cuda):
         wa.fused_window_mhsa_bf16(p["qkv"], p["bias"], NH, HD, WS)
     with pytest.raises(TypeError, match="float32"):
         fb._attn_block_train_fwd_cuda(x, *attn, NH, HD, WS, 1e-5, 0)
-    wide = torch.zeros(1, 8, 8, 260, device=cuda, dtype=torch.bfloat16)
-    mlp = [torch.ones(260, device=cuda), torch.zeros(260, device=cuda),
-           torch.zeros(260, 520, device=cuda), torch.zeros(520, device=cuda),
-           torch.zeros(520, 260, device=cuda), torch.zeros(260, device=cuda),
+    # rows past the MLP half's 320 channels (MLP_ROWS_MAX_C)
+    wide = torch.zeros(1, 8, 8, 324, device=cuda, dtype=torch.bfloat16)
+    mlp = [torch.ones(324, device=cuda), torch.zeros(324, device=cuda),
+           torch.zeros(324, 648, device=cuda), torch.zeros(648, device=cuda),
+           torch.zeros(648, 324, device=cuda), torch.zeros(324, device=cuda),
            torch.ones(1, device=cuda)]
     with pytest.raises(ValueError, match="bf16 kernels' limits"), torch.no_grad():
         fb.fused_ln_mlp(wide, *mlp, 8)
@@ -1558,6 +1562,32 @@ def test_hd64_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype)
     their plain versions through the autograd Functions, fp32 within TOL
     and bf16 as the 32-wide bf16 forms are held; each counted once under
     its own name; two runs bit for bit."""
+    _wide_window_case(cuda, window, c, nh, shape, kinds, dtype, 64)
+
+
+# #3/#8's 128-wide form: drct's swin_3 block (C 244, 2 heads of 122: a head
+# every 122 elements of a qkv row) and swin_5 block (C 308, 4 heads of 77),
+# heads of 128 (C 256), heads of 77 at 8x8 windows and at 8x16 rectangles
+HD128_WINDOWS = [((16, 16), 244, 2, (B, 48, 48)), ((16, 16), 308, 4, (B, 48, 48)),
+                 ((16, 16), 256, 2, (B, 32, 48)), ((8, 8), 154, 2, (B, 32, 48)),
+                 ((8, 16), 154, 2, (B, 32, 48))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("window", "c", "nh", "shape"), HD128_WINDOWS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_hd128_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype):
+    """#3 and #8 at heads of 65 to 128 channels (the 128-wide form: two
+    64-channel halves) against their plain versions through the autograd
+    Functions, as the 64-wide form is held; each counted once under its own
+    name and as a 128-wide launch; two runs bit for bit."""
+    _wide_window_case(cuda, window, c, nh, shape, kinds, dtype, 128)
+
+
+def _wide_window_case(cuda, window, c, nh, shape, kinds, dtype, width):
+    """One case of the 64- or 128-wide form (`width`, the padded head)."""
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     qkv, bias, dout = _bf16_window_case(cuda, window, kinds, c, nh, shape, seed=c + kinds)
@@ -1565,7 +1595,8 @@ def test_hd64_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype)
     if not bf16:
         qkv, dout = qkv.float(), dout.float()
     hd = c // nh
-    assert 32 < hd <= 64 and wa.rect_mhsa_fits(*shape[1:], *window, c, nh)
+    assert width // 2 < hd <= width and wa.head_width(hd) == width
+    assert wa.rect_mhsa_fits(*shape[1:], *window, c, nh)
     square = window[0] == window[1]
     win = window[:1] if square else window
     if square:
@@ -1582,13 +1613,15 @@ def test_hd64_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype)
         ref = wa.fused_rect_mhsa_bf16_reference if bf16 else wa.fused_rect_mhsa_reference
         bref = (wa.fused_rect_mhsa_bwd_bf16_reference if bf16
                 else wa.fused_rect_mhsa_bwd_reference)
-    n0 = (fwd.launches, bwd.launches)
+    n0 = (fwd.launches, bwd.launches, fwd.launches_hd128, bwd.launches_hd128)
     tq = qkv.clone().requires_grad_()
     tb = bias.clone().requires_grad_()
     out = entry(tq, tb, nh, hd, *win)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert (fwd.launches, bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    wide = int(width == 128)
+    assert (fwd.launches, bwd.launches, fwd.launches_hd128, bwd.launches_hd128) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + wide, n0[3] + wide)
     want = ref(qkv, bias, nh, hd, *win)
     if bf16:
         _assert_bf16_close("out", out.detach(), want)
@@ -1607,9 +1640,75 @@ def test_hd64_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize(("c", "hidden"), [(276, 276), (308, 308), (260, 520)])
+def test_ln_mlp_at_c320_kernels(cuda, c, hidden, dtype):
+    """#2 and #7 at rows of 257-320 channels (DRCT's swin_4 and swin_5 MLP
+    halves; #7 on its split rows stage), fp32 and bf16, against their plain
+    versions through the autograd Function, fp32 within TOL and bf16 as the
+    bf16 forms are held; #7 counted as a C320 launch; two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator().manual_seed(c + hidden)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    bf16 = dtype == "bf16"
+    x = randn(B, 48, 48, c)
+    dout = randn(B, 48, 48, c)
+    if bf16:
+        x, dout = x.bfloat16(), dout.bfloat16()
+    s = torch.tensor([1.0, 0.8], device=cuda)
+    params = [(1.0 + randn(c, scale=0.1)), randn(c, scale=0.1), randn(c, hidden, scale=c**-0.5),
+              randn(hidden, scale=0.1), randn(hidden, c, scale=hidden**-0.5), randn(c, scale=0.1)]
+    params = [t.requires_grad_() for t in params]
+    bwd = fb.fused_ln_mlp_backward_bf16 if bf16 else fb.fused_ln_mlp_backward
+    assert fb.fused_mlp_supported(48, 48, 16, c, hidden, train=True)
+    n0 = (bwd.launches, bwd.launches_c320)
+    tx = x.clone().requires_grad_()
+    out = fb.fused_ln_mlp(tx, *params, s, 16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (bwd.launches, bwd.launches_c320) == (n0[0] + 1, n0[1] + 1)
+    plain = [t.detach() for t in params]
+    ref = fb.fused_ln_mlp_bf16_reference if bf16 else fb.fused_ln_mlp_reference
+    bref = fb.fused_ln_mlp_bwd_bf16_reference if bf16 else fb.fused_ln_mlp_bwd_reference
+    want_out = ref(x, *plain, s, 16)
+    if bf16:
+        _assert_bf16_close("out", out.detach(), want_out)
+    else:
+        assert (out.detach() - want_out).abs().max().item() <= TOL
+    tol = BF16_TOL if bf16 else TOL
+    for i, (g, w) in enumerate(zip((tx.grad, *(t.grad for t in params)),
+                                   bref(x, *plain, s, dout, 16))):
+        assert g.dtype == w.dtype, i
+        assert (g.float() - w.float()).abs().max().item() <= tol * w.float().abs().max(), i
+    runs = [bwd(x, *plain, s, dout, 16) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_hd128_shared_memory_plans_match_the_source(cuda):
+    """The 128-wide plans, the source's and the Python side's, at heads of
+    77, 122 and 128 in every window form, within one block's."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    lib = cuda_build.library("window_attention")
+    for c, nh in ((244, 2), (308, 4), (256, 2)):
+        for window in list(RECT) + [(8, 8), (16, 16)]:
+            assert lib.trr_rect_mhsa_smem_bytes(c, nh, *window) == wa.rect_mhsa_smem_bytes(
+                c, nh, *window) <= wa.SMEM_LIMIT
+            assert lib.trr_rect_mhsa_bwd_smem_bytes(c, nh, *window) == (
+                wa.rect_mhsa_bwd_smem_bytes(c, nh, *window)) <= wa.SMEM_LIMIT
+
+
+@pytest.mark.cuda
 def test_hd64_shared_memory_plans_match_the_source(cuda):
     """The 64-wide plans, the source's and the Python side's, at heads of 35
-    and 64 in every window form; a head of 65 has none."""
+    and 64 in every window form; a head of 129 has none."""
     from trainner_redux_tpu_torch.ops import cuda_build
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
@@ -1620,21 +1719,22 @@ def test_hd64_shared_memory_plans_match_the_source(cuda):
                 c, nh, *window) <= wa.SMEM_LIMIT
             assert lib.trr_rect_mhsa_bwd_smem_bytes(c, nh, *window) == (
                 wa.rect_mhsa_bwd_smem_bytes(c, nh, *window)) <= wa.SMEM_LIMIT
-    assert lib.trr_rect_mhsa_smem_bytes(390, 6, 16, 16) == 0
+    assert lib.trr_rect_mhsa_smem_bytes(774, 6, 16, 16) == 0
 
 
 @pytest.mark.cuda
 def test_hd64_wrappers_refuse_heads_past_64(cuda):
-    """Heads of 65 channels are outside every form: a bf16 or fp32 qkv
-    raises, naming the limits, and nothing launches or falls back."""
+    """Heads of 129 channels are outside every form (past 64 the 128-wide
+    form takes them): a bf16 or fp32 qkv raises, naming the limits, and
+    nothing launches or falls back."""
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
-    qkv, bias, dout = _bf16_window_case(cuda, (16, 16), 1, 390, 6, (1, 32, 32))
+    qkv, bias, dout = _bf16_window_case(cuda, (16, 16), 1, 774, 6, (1, 32, 32))
     forms = (wa.fused_window_mhsa, wa.fused_window_mhsa_bf16, wa.fused_window_mhsa_backward,
              wa.fused_window_mhsa_backward_bf16)
     n0 = [f.launches for f in forms]
-    with pytest.raises(ValueError, match="at most 64 channels"), torch.no_grad():
-        wa.fused_window_mhsa(qkv, bias, 6, 65, 16)
-    with pytest.raises(ValueError, match="at most 64 channels"):
-        wa.fused_window_mhsa_backward(qkv.float(), bias, dout.float(), 6, 65, 16)
+    with pytest.raises(ValueError, match="at most 128 channels"), torch.no_grad():
+        wa.fused_window_mhsa(qkv, bias, 6, 129, 16)
+    with pytest.raises(ValueError, match="at most 128 channels"):
+        wa.fused_window_mhsa_backward(qkv.float(), bias, dout.float(), 6, 129, 16)
     assert [f.launches for f in forms] == n0

@@ -195,7 +195,10 @@ def test_fused_mlp_gate(monkeypatch):
     # ...and train, on the backward's two-pass plan
     assert tfb.fused_mlp_supported(64, 64, 8, 240, 480, train=True)
     assert tfb.fused_mlp_supported(64, 64, 8, 300, 300)  # C 300, hidden 300 serve...
-    assert not tfb.fused_mlp_supported(64, 64, 8, 300, 300, train=True)  # ...not train
+    # ...and train, on the split rows stage (rows of up to 320 channels)
+    assert tfb.fused_mlp_supported(64, 64, 8, 300, 300, train=True)
+    assert tfb.fused_mlp_supported(64, 64, 8, 324, 324)  # C 324 serves...
+    assert not tfb.fused_mlp_supported(64, 64, 8, 324, 324, train=True)  # ...not train
     assert not tfb.fused_mlp_supported(60, 64, 16, 180, 360)  # H not a multiple of rows
     monkeypatch.setenv("TRAINNER_FUSED_BLOCK", "0")
     assert not tfb.fused_mlp_supported(64, 64, 16, 180, 360)

@@ -69,7 +69,7 @@ PRESETS = {"span": "SPAN", "span_s": "SPAN", "span_f32": "SPAN", "span_f64": "SP
            "ultracompact": "SRVGGNetCompact", "superultracompact": "SRVGGNetCompact",
            "srvggnetcompact": "SRVGGNetCompact", "esrgan": "RRDBNet", "esrgan_lite": "RRDBNet",
            "srformer": "SRFormer", "srformer_light": "SRFormer", "atd": "ATD",
-           "atd_light": "ATD"}
+           "atd_light": "ATD", "drct": "DRCT", "drct_l": "DRCT", "drct_xl": "DRCT"}
 # the golden fixtures' configs (tests/test_utils/test_golden_parity.py, FLAX_OPTS)
 GOLDEN_NETS = {
     "span": {"type": "span", "scale": 2, "feature_channels": 16},

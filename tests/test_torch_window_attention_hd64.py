@@ -9,9 +9,10 @@ channels, on the CPU, where the port's wrappers run their plain versions:
   fp32; heads of 64 at K=4, of 35 at 16x16 K=1 and K=4) by
   tests/test_torch_bf16_window_mlp.py's rule;
 - the gates: `window_mhsa_fits` and `rect_mhsa_fits` take heads of up to 64
-  channels and not 65, at shared-memory plans computed from the head
-  width (`TC_ATTN_PLANS_64`), while `heads_fit`, the block kernels' gate,
-  stays at 32;
+  channels on the 64-wide form (and past 64 the 128-wide form,
+  tests/test_torch_window_attention_hd128.py), at shared-memory plans
+  computed from the head width (`TC_ATTN_PLANS_64`), while `heads_fit`, the
+  block kernels' gate, stays at 32;
 - the routing: every transformer preset the port had before (SwinIR, HAT,
   DAT, Swin2SR, SRFormerV2) has heads of at most 32 channels, so the wider
   gate changes none of their branches; `atd`'s window attention (heads of
@@ -85,10 +86,11 @@ def test_hd64_plain_versions_match_jax_vjp(ws, hd, kinds, dtype):
 def test_gates_take_heads_of_up_to_64():
     for hd in range(1, 70):
         c = 6 * hd
-        assert twa.window_mhsa_fits(48, 48, 16, c, 6) == (hd <= 64), hd
-        assert twa.window_mhsa_fits(64, 64, 8, c, 6) == (hd <= 64), hd
+        assert twa.window_mhsa_fits(48, 48, 16, c, 6), hd  # past 64: the 128-wide form
+        assert twa.window_mhsa_fits(64, 64, 8, c, 6), hd
         for window in ((8, 32), (32, 8), (8, 16), (16, 8)):
-            assert twa.rect_mhsa_fits(64, 64, *window, c, 6) == (hd <= 64), (hd, window)
+            assert twa.rect_mhsa_fits(64, 64, *window, c, 6), (hd, window)
+        assert twa.head_width(hd) == (32 if hd <= 32 else 64 if hd <= 64 else 128), hd
         assert twa.heads_fit(8, c, 6) == (hd <= 32), hd  # the block kernels keep 32
     assert twa.fused_window_mhsa_supported(48, 48, 16, 210, 6)  # atd's training block
     assert twa.head_width(35) == twa.head_width(64) == 64 and twa.head_width(30) == 32

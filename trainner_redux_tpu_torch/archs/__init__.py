@@ -2,7 +2,7 @@
 
 Parity: the JAX package's archs/__init__.py, without its directory scan:
 only the ported archs (the transformers SwinIR, HAT, DAT, Swin2SR,
-SRFormerV2, SRFormer and ATD; the conv families SPAN, SPANF, SPANPlus, SpanC, Compact
+SRFormerV2, SRFormer, ATD and DRCT; the conv families SPAN, SPANF, SPANPlus, SpanC, Compact
 (SRVGGNetCompact) and ESRGAN (RRDBNet); the DUnet discriminator) are
 imported and registered, and
 `build_network` resolves a type in SPANDREL_REGISTRY, then ARCH_REGISTRY,
@@ -15,6 +15,7 @@ from typing import Any
 
 from trainner_redux_tpu_torch.archs import atd_arch  # noqa: F401 (registers atd*)
 from trainner_redux_tpu_torch.archs import dat_arch  # noqa: F401 (registers dat*)
+from trainner_redux_tpu_torch.archs import drct_arch  # noqa: F401 (registers drct*)
 from trainner_redux_tpu_torch.archs import dunet_arch  # noqa: F401 (registers dunet)
 from trainner_redux_tpu_torch.archs import hat_arch  # noqa: F401 (registers hat*)
 from trainner_redux_tpu_torch.archs import rrdbnet_arch  # noqa: F401 (registers esrgan*)
@@ -52,7 +53,7 @@ def build_network_cast(opt: dict[str, Any], dtype):
     torch.float32) passed as `dtype`, as the JAX package's
     `build_network_cast` passes it to every flax arch (parameters stay
     fp32); an options dict that names its own dtype keeps it. SwinIR, HAT,
-    DAT, SRFormerV2, Swin2SR, SRFormer, ATD and the conv families (SPAN, SPANF, SPANPlus,
+    DAT, SRFormerV2, Swin2SR, SRFormer, ATD, DRCT and the conv families (SPAN, SPANF, SPANPlus,
     SpanC, Compact, ESRGAN) take it as their training compute dtype, DUnet
     as its own."""
     return build_network({"dtype": dtype, **opt})

@@ -14,9 +14,12 @@ chosen as in the JAX package:
 - fused (default): in training `fused_swin_block_train`, the whole block
   as one autograd Function with kernels both ways; at eval
   `fused_attn_block` then `fused_ln_mlp`, two forward-only kernels;
-- unfused (`TRAINNER_FUSED_BLOCK=0`, and in training any block too large
-  for the training kernels, as SwinIR-L's C 240): LayerNorms, Linears and
-  MLP in PyTorch around `fused_window_mhsa`, whose kernels run both ways;
+- unfused (`TRAINNER_FUSED_BLOCK=0`, and any block outside the fused
+  kernels: in training SwinIR-L's C 240, DRCT's 16x16 windows): norm1 and
+  the qkv and proj Linears in PyTorch around `fused_window_mhsa`, whose
+  kernels run both ways, then the MLP half on `fused_ln_mlp` (#2/#7)
+  wherever `fused_mlp_supported` takes it (not under
+  `TRAINNER_FUSED_BLOCK=0`), else norm2 and the MLP in PyTorch;
 - plain (`TRAINNER_FUSED_ATTN=0`): window partition and PyTorch attention
   with the per-window mask, no kernel at all.
 
@@ -60,6 +63,7 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     fused_attn_block,
     fused_block_supported,
     fused_ln_mlp,
+    fused_mlp_supported,
     fused_swin_block_train,
     swin_block_train_fits,
 )
@@ -265,6 +269,13 @@ class SwinBlock(nn.Module):
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = shortcut + droppath(x, s1)
+        if fused_mlp_supported(h, w, ws, c, hidden, self.training):
+            # the MLP half on #2/#7, with the s2 drawn above
+            return fused_ln_mlp(
+                x.contiguous(), self.norm2.weight, self.norm2.bias,
+                self.mlp.fc1.weight.t().contiguous(), self.mlp.fc1.bias,
+                self.mlp.fc2.weight.t().contiguous(), self.mlp.fc2.bias, s2, ws, 1e-5,
+            )
         y = self.mlp(in_dtype(self.norm2, x))
         return (x + droppath(y, s2)).contiguous()
 

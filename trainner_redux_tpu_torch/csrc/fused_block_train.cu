@@ -46,7 +46,11 @@
 //      shared dy tile, a warp's 16 rows four at a time: dz = dout +
 //      LN2'(dy2), dzp = s1 dz, the block's partial sums of dg2 and dbe2. A
 //      stage: a (128, 16) token chunk and a raw (BN, 16) chunk of w1 as it
-//      lies (K-major); 176,192 B at C 180, 221,248 B at C 240.
+//      lies (K-major); 176,192 B at C 180, 221,248 B at C 240. #7 at rows
+//      of 257-320 channels (DRCT's C 276 and 308) splits this stage
+//      (tc_rows_bf16.cuh's ln_bwd_rows_kernel): dy = dh w1^T to device
+//      memory on two rows_kernel<192, kRowsStore> launches (columns 0-159,
+//      then the rest), then the LN backward over whole rows from there.
 //   4. rows_kernel<BN, kRowsStore>: datt = dzp wp^T (#5 only).
 //   5. the window attention as #10 runs it at 8x8 (#5 only): linear_kernel
 //      recomputes qkv = y wq + bq (the forward's own product, bit for bit),
@@ -383,18 +387,31 @@ int trr_swin_block_fwd(const float* x, const float* g1, const float* be1, const 
 // w1 (C, hidden), b1 (hidden), w2 (hidden, C) as the forward takes them;
 // s (B). Scratch: y, dm (T, C), stats (T, 2), hg, dh (T, hidden), ln_part
 // (ceil(T / 128), 2C), part (the largest trr_weight_grad_part_floats of
-// the two gradients). Writes dx, dln = dg | dbe (2C), d1 = dw1 | db1
-// (C * hidden + hidden) and d2 = dw2 | db2 (hidden * C + C).
+// the two gradients), dyw (T * C floats; only for C > 256, else null: the
+// split rows stage's dy). Writes dx, dln = dg | dbe (2C), d1 = dw1 | db1
+// (C * hidden + hidden) and d2 = dw2 | db2 (hidden * C + C). C <= 320.
 int trr_ln_mlp_bwd(const float* x, const float* dout, const float* g, const float* be,
                    const float* w1, const float* b1, const float* w2, const float* s, float* y,
                    float* stats, float* dm, float* hg, float* dh, float* ln_part, float* part,
-                   float* dx, float* dln, float* d1, float* d2, int B, int H, int W, int C,
-                   int hidden, float eps, cudaStream_t stream) {
+                   float* dyw, float* dx, float* dln, float* d1, float* d2, int B, int H, int W,
+                   int C, int hidden, float eps, cudaStream_t stream) {
   const long long T = (long long)B * H * W, hw = (long long)H * W;
   TRR_TRY(trr::ln_rows(x, g, be, y, stats, dout, s, dm, T, hw, C, eps, stream));
   TRR_TRY(trr::mlp_hidden(y, dm, w1, b1, w2, hg, dh, T, C, hidden, stream));
-  TRR_TRY(trr::rows<trr::kRowsLn>(dh, w1, T, hidden, C, x, stats, g, dout, nullptr, hw, dx,
-                                  nullptr, ln_part, stream));
+  if (C <= trr::kRowsMaxC) {
+    TRR_TRY(trr::rows<trr::kRowsLn>(dh, w1, T, hidden, C, x, stats, g, dout, nullptr, hw, dx,
+                                    nullptr, ln_part, stream));
+  } else {  // the split rows stage (tc_rows_bf16.cuh): dy to dyw in two parts, then the LN rows
+    if (C > trr::kRowsWideMaxC || dyw == nullptr) return (int)cudaErrorInvalidValue;
+    const int c0 = trr::kRowsHalf;
+    TRR_TRY(trr::rows<trr::kRowsStore>(dh, w1, T, hidden, c0, nullptr, nullptr, nullptr, nullptr,
+                                       nullptr, hw, dyw, nullptr, nullptr, stream));
+    TRR_TRY(trr::rows<trr::kRowsStore>(dh, w1 + (size_t)c0 * hidden, T, hidden, C - c0, nullptr,
+                                       nullptr, nullptr, nullptr, nullptr, hw, dyw + T * c0,
+                                       nullptr, nullptr, stream));
+    TRR_TRY(trr::ln_bwd_rows(dyw, c0, T, C, x, stats, g, dout, (const float*)nullptr, hw, dx,
+                             (float*)nullptr, ln_part, stream));
+  }
   TRR_TRY(trr::weight_grad(hg, dm, T, hidden, C, part, d2, stream));
   TRR_TRY(trr::weight_grad(y, dh, T, C, hidden, part, d1, stream));
   return (int)trr::sum_rows(ln_part, (int)((T + trr::kTcRows - 1) / trr::kTcRows), 2LL * C, dln,
@@ -598,21 +615,35 @@ int trr_ln_mlp_fwd_bf16(const trr::bf16* x, const float* g, const float* be, con
 // The bf16 MLP backward (#7's bf16 form): x, dout, dx (B, H, W, C) bf16; w1,
 // w2 bf16 and g, be, b1, s fp32 as trr_ln_mlp_fwd_bf16 takes them. Scratch:
 // y, dm (T, C) bf16, stats (T, 2), hg, dh (T, hidden) bf16, dh32 (T,
-// hidden) fp32, ln_part and part as trr_ln_mlp_bwd's. Writes dx and the fp32
+// hidden) fp32, ln_part, part and dyw as trr_ln_mlp_bwd's. Writes dx and the fp32
 // dln = dg | dbe, d1 = dw1 | db1 and d2 = dw2 | db2, whose bias sums add
 // the fp32 dm = s dout and dh.
 int trr_ln_mlp_bwd_bf16(const trr::bf16* x, const trr::bf16* dout, const float* g,
                         const float* be, const trr::bf16* w1, const float* b1,
                         const trr::bf16* w2, const float* s, trr::bf16* y, float* stats,
                         trr::bf16* dm, trr::bf16* hg, trr::bf16* dh, float* dh32, float* ln_part,
-                        float* part, trr::bf16* dx, float* dln, float* d1, float* d2, int B,
-                        int H, int W, int C, int hidden, float eps, cudaStream_t stream) {
+                        float* part, float* dyw, trr::bf16* dx, float* dln, float* d1, float* d2,
+                        int B, int H, int W, int C, int hidden, float eps, cudaStream_t stream) {
   using trr::bf16;
   const long long T = (long long)B * H * W, hw = (long long)H * W;
   TRR_TRY(trr::ln_rows_bf16(x, g, be, y, stats, dout, s, dm, T, hw, C, eps, stream));
   TRR_TRY(trr::mlp_hidden_bf16(y, dm, w1, b1, w2, hg, dh, dh32, T, C, hidden, stream));
-  TRR_TRY((trr::rows_bf16<trr::kRowsLn, bf16, bf16>(dh, w1, T, hidden, C, x, stats, g, dout,
-                                                   nullptr, hw, dx, nullptr, ln_part, stream)));
+  if (C <= trr::kRowsMaxC) {
+    TRR_TRY((trr::rows_bf16<trr::kRowsLn, bf16, bf16>(dh, w1, T, hidden, C, x, stats, g, dout,
+                                                     nullptr, hw, dx, nullptr, ln_part,
+                                                     stream)));
+  } else {  // the split rows stage: dy (fp32) to dyw in two parts, then the LN rows
+    if (C > trr::kRowsWideMaxC || dyw == nullptr) return (int)cudaErrorInvalidValue;
+    const int c0 = trr::kRowsHalf;
+    TRR_TRY((trr::rows_bf16<trr::kRowsStore, float, float>(
+        dh, w1, T, hidden, c0, nullptr, nullptr, nullptr, nullptr, nullptr, hw, dyw, nullptr,
+        nullptr, stream)));
+    TRR_TRY((trr::rows_bf16<trr::kRowsStore, float, float>(
+        dh, w1 + (size_t)c0 * hidden, T, hidden, C - c0, nullptr, nullptr, nullptr, nullptr,
+        nullptr, hw, dyw + T * c0, nullptr, nullptr, stream)));
+    TRR_TRY(trr::ln_bwd_rows(dyw, c0, T, C, x, stats, g, dout, (const float*)nullptr, hw, dx,
+                             (bf16*)nullptr, ln_part, stream));
+  }
   TRR_TRY(trr::weight_grad_bf16(hg, dm, T, hidden, C, nullptr, dout, s, hw, part, d2, stream));
   TRR_TRY(trr::weight_grad_bf16(y, dh, T, C, hidden, dh32, nullptr, nullptr, hw, part, d1,
                                 stream));

@@ -59,6 +59,7 @@ __host__ __device__ constexpr int attn_tc_threads(int RB, int KS = 2) {
 
 template <int N, int RB, int KS = 2, bool BF = false, int HD = 32>
 struct AttnWarps {
+  static constexpr int N_ = N, RB_ = RB;
   static constexpr int NTH = attn_tc_threads(RB, KS), NW = NTH / 32;
   static constexpr int LD = head_ld(HD), LP = N + 4, PART = N / KS, NT = PART / 8;
   static constexpr int CW = HD / KS, CT = CW / 8;  // output channels of a warp, in tiles of 8
@@ -93,15 +94,19 @@ struct AttnWarps {
   }
 
   // o = Y X^T for this warp's rows and part of the keys, over the HD
-  // channels: Y the (RB, LD) rows (q or dA), X the (N, LD) rows (k or v).
-  // With four or eight parts (16 warps, 128 registers a thread), and at 64
-  // channels, the channel steps stay a loop: unrolled, ptxas spilled at n
-  // 256 (and, in bf16, at n 128 with 64 channels).
+  // channels: Y the (RB, LD) rows (q or dA), X the (N, LD) rows (k or v);
+  // ACC: o += Y X^T (the 128-wide form's second 64-channel half). With four
+  // or eight parts (16 warps, 128 registers a thread), and at 64 channels,
+  // the channel steps stay a loop: unrolled, ptxas spilled at n 256 (and, in
+  // bf16, at n 128 with 64 channels).
+  template <bool ACC = false>
   __device__ void rows_by_channels(const float* Y, const float* X, float (&o)[NT][4]) const {
+    if constexpr (!ACC) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    }
     if constexpr (BF) {
 #pragma unroll(HD == 64 ? 1 : 2)
       for (int k0 = 0; k0 < HD; k0 += 16) {
@@ -213,6 +218,12 @@ struct AttnWarps {
                                float scale) const {
     float p[NT][4];
     rows_by_channels(qs, ks, p);
+    softmax_frags(p, pt, red, scale);
+  }
+
+  // softmax_rows from S already in this warp's fragments p (the 128-wide
+  // form sums S over its two 64-channel halves first).
+  __device__ void softmax_frags(float (&p)[NT][4], float* pt, float* red, float scale) const {
     float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -247,18 +258,19 @@ struct AttnWarps {
 // rows of HD (32 or 64) channels (NTH threads; each thread's loads issued
 // before its stores; HD / 32 warps hold a row at each step, a channel a
 // lane; scalar loads, so a head may start at any element of its token's
-// row; at HD 64 in batches of 8 elements a thread, which keeps the loads'
-// addresses out of the way of the registers the kernels hold). NORM,
+// row; at HD 64 in batches of BATCH (8) elements a thread, which keeps the
+// loads' addresses out of the way of the registers the kernels hold; the
+// 128-wide form's halves take 16). NORM,
 // SwinV2's cosine attention (HD 32): each row divided by
 // max(|row|, 1e-12), its L2 norm over hd (the JAX package's _norm_rows,
 // torch's F.normalize; the zero padding adds nothing), and, where inv is
 // not null, the inverse norm to inv[r].
-template <int ROWS, int NTH, bool NORM = false, int HD = 32, class Row>
+template <int ROWS, int NTH, bool NORM = false, int HD = 32, int BATCH = 8, class Row>
 __device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row,
                                                 float* inv = nullptr) {  // row(r): float or bf16
   static_assert(ROWS * HD % NTH == 0 && NTH % 32 == 0, "the rows must split evenly");
   static_assert(!NORM || HD == 32, "the cosine rows are a warp each");
-  constexpr int PER = ROWS * HD / NTH, CH = HD == 64 && PER > 8 ? 8 : PER;
+  constexpr int PER = ROWS * HD / NTH, CH = HD == 64 && PER > BATCH ? BATCH : PER;
 #pragma unroll 1  // a batch's loads are not hoisted above the last batch's stores
   for (int i0 = 0; i0 < PER; i0 += CH) {
     float v[CH];
@@ -727,6 +739,263 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                                       nh, wr, wc, kinds, shift, scale);
 }
 
+// The 128-wide form of #3 and #8 (heads of 65 to 128 channels: DRCT's 122
+// and 77). k and v of a whole 128-wide head would take 2 N head_ld(128) =
+// 270,336 B of fp32 rows at n 256, past a block's 232,448, so the head goes
+// in two 64-channel halves, each staged in turn into one (N, head_ld(64))
+// room with the 64-wide form's helpers (AttnWarps<.., 64>) on a plan of its
+// own (attn_plan(n, 128): rows of 64 in two key parts, 8 warps, one block a
+// SM with up to 255 registers a thread). The products that sum over the channels take both
+// halves in turn into the same fragments: S = q k^T (rows_by_channels, the
+// second half with ACC) and, in the backward, dP = dA v^T; the products
+// whose outputs are channels go a half at a time: att = P v, dQ = dS k, and
+// dK += dS^T q and dV += P^T dA, whose sums over the row blocks stay in
+// registers, in passes of their own over the row blocks, one an output half
+// (dV's two, then dK's two with dQ), each recomputing S and the softmax (and
+// dP for dK): what keeps a thread's registers at the 64-wide form's. The
+// second half holds hd - 64 channels and is zero past them. T: float (3xTF32
+// on mma.sync m16n8k8) or bf16 (m16n8k16, fp32 sums, P and bf16(scale dS)
+// rounded as the fragments load, as the 64-wide bf16 forms). Grids and
+// outputs as attn_rows_fwd_tc_kernel's (no shift, no P) and
+// attn_rows_bwd_tc_kernel's (no att, no saved P): the same bias-kind
+// reduction of dS follows.
+
+// Loads a thread keeps in flight as the 128-wide forward stages a half
+// (the 64-wide form's 8 left it waiting on L2 for most of its staging); the
+// backward, whose dK or dV sums hold 64 more floats a thread, keeps 8
+// (16 spilled there).
+constexpr int kWideBatch = 16, kWideBwdBatch = 8;
+
+// Shared memory of attn_rows_fwd_wide_kernel, in floats: the (N, head_ld(64))
+// room of a k or v half, this row block's q and att halves (RB,
+// head_ld(64)), the P rows (RB, N + 4), two (KS, RB) exchanges of the key
+// parts' row max and row sum, and the window's N token indices.
+__host__ __device__ constexpr int attn_wide_fwd_smem_floats(int N, int RB, int KS) {
+  return N * head_ld(64) + 2 * RB * head_ld(64) + RB * (N + 4) + 2 * KS * RB + N;
+}
+
+// Shared memory of attn_rows_bwd_wide_kernel, in floats: the room of a k,
+// v, dk or dv half, this row block's q, dA and dq halves, the P / dS rows,
+// three (KS, RB) exchanges and the N token indices.
+__host__ __device__ constexpr int attn_wide_bwd_smem_floats(int N, int RB, int KS) {
+  return N * head_ld(64) + 3 * RB * head_ld(64) + RB * (N + 4) + 3 * KS * RB + N;
+}
+
+// S = q k^T of the row block of tokens rt over both halves of head h, into
+// this warp's fragments s, the bias rows of `table` staged into pt (the
+// caller's softmax_frags reads them). xs and qs are rewritten; holds block
+// barriers and ends with one.
+template <int BATCH, class AW, typename T>
+__device__ __forceinline__ void wide_scores(const AW& aw, float (&s)[AW::NT][4],
+                                            const T* __restrict__ qkv, const int* tok,
+                                            const int* rt, const float* table, float* xs,
+                                            float* qs, float* pt, int C, int h, int hd) {
+  constexpr int N = AW::N_, RB = AW::RB_, NTH = AW::NTH;
+  const long long C3 = 3LL * C;
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    const int off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
+    stage_head_rows<N, NTH, false, 64, BATCH>(
+        xs, n_c, [&](int r) { return qkv + tok[r] * C3 + C + off; });
+    stage_head_rows<RB, NTH, false, 64, BATCH>(
+        qs, n_c, [&](int r) { return qkv + rt[r] * C3 + off; });
+    if (c == 0) stage_table_rows<RB, N, NTH>(pt, table);
+    __syncthreads();  // the halves (and the bias rows) staged
+    if (c == 0)
+      aw.rows_by_channels(qs, xs, s);
+    else
+      aw.template rows_by_channels<true>(qs, xs, s);
+    __syncthreads();  // every warp is done with the halves
+  }
+}
+
+// The 128-wide #3: one block per (window, head), the heads fastest, as
+// attn_rows_fwd_tc_kernel; per row block S over both halves, the softmax to
+// the P tile, then att = P v a half at a time (v's half staged, P v, out a
+// head row at a time).
+template <int N, int RB, int KS, typename T>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), 1)
+    attn_rows_fwd_wide_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                              T* __restrict__ att, int H, int W, int C, int nh, int wr, int wc,
+                              int kinds, float scale) {
+  using AW = AttnWarps<N, RB, KS, std::is_same<T, bf16>::value, 64>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, CT = AW::CT, NT = AW::NT;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / wc, nwh = H / wr;
+  const int h = (int)(blockIdx.x % nh), win = (int)(blockIdx.x / nh % (nwh * nww));
+  const int b = (int)(blockIdx.x / nh / (nwh * nww));
+  const int wi = win / nww, wj = win % nww;
+  const AW aw;
+  float* xs = smem;              // (N, LD) a 64-channel half of k, then of v
+  float* qs = xs + N * LD;       // (RB, LD) a half of this row block's q
+  float* oa = qs + RB * LD;      // (RB, LD) a half of its att
+  float* pt = oa + RB * LD;      // (RB, LP): the bias rows, then P
+  float* red = pt + RB * AW::LP;  // (2, KS, RB): each part's row max and row sum
+  int* tok = reinterpret_cast<int*>(red + 2 * KS * RB);  // (N) the window's tokens
+  for (int r = threadIdx.x; r < N; r += NTH)
+    tok[r] = (int)roll_token(b, wi, wj, r, H, W, wr, wc, 0);
+  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
+  __syncthreads();
+  for (int r0 = 0; r0 < N; r0 += RB) {
+    const int* rt = tok + r0;  // this row block's tokens
+    float s[NT][4];
+    wide_scores<kWideBatch>(aw, s, qkv, tok, rt, table + (size_t)r0 * N, xs, qs, pt, C, h, hd);
+    aw.softmax_frags(s, pt, red, scale);
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c) {  // att = P v, a half at a time
+      const int off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
+      stage_head_rows<N, NTH, false, 64, kWideBatch>(
+          xs, n_c, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + off; });
+      __syncthreads();  // v's half staged (and, the first time, P whole)
+      float o[CT][4];
+      aw.rows_by_keys(pt, xs, o);
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
+      __syncthreads();  // att's half whole; xs and the tile free
+      store_head_rows<RB, NTH, 64>(oa, n_c,
+                                   [&](int r) { return att + (long long)rt[r] * C + off; });
+    }
+  }
+}
+
+// The 128-wide #8: one block per (window, head) on attn_rows_bwd_tc_kernel's
+// grid. Four passes over the row blocks, each recomputing S and the softmax:
+// dV's first half, dV's second (dV += P^T dA), then for each half dK += dS^T
+// q with dQ = scale dS k of every row block, dP = dA v^T and dS = P (dP -
+// rowsum(P dP)) recomputed (dS to its buffer in the first). dK and dV leave
+// through the room of the halves, a head row at a time.
+template <int N, int RB, int KS, typename T>
+__global__ void __launch_bounds__(attn_tc_threads(RB, KS), 1)
+    attn_rows_bwd_wide_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                              const T* __restrict__ datt, T* __restrict__ dqkv,
+                              float* __restrict__ dS, int H, int W, int C, int nh, int wr, int wc,
+                              int kinds, float scale) {
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  using AW = AttnWarps<N, RB, KS, BF, 64>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, CT = AW::CT;
+  constexpr int UNITS = AW::UNITS, X = KS * RB;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / wc, nwh = H / wr;
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const AW aw;
+  float* xs = smem;              // (N, LD) a half of k or v, and of dk or dv on their way out
+  float* qs = xs + N * LD;       // (RB, LD) a half of this row block's q
+  float* das = qs + RB * LD;     // (RB, LD) a half of its datt
+  float* oq = das + RB * LD;     // (RB, LD) a half of its dq
+  float* pt = oq + RB * LD;      // (RB, LP): the bias rows, P, then dS
+  float* red = pt + RB * LP;     // (3, KS, RB): each part's row max, row sum, rowsum(P dP)
+  int* tok = reinterpret_cast<int*>(red + 3 * X);  // (N) the window's tokens
+  for (int r = threadIdx.x; r < N; r += NTH)
+    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, 0);
+  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
+  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < 4; ++pass) {
+    const bool dv_pass = pass < 2;
+    const int c = pass % 2, off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
+    float acc[UNITS][2][4];  // dV's or dK's half, over the row blocks
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
+    for (int r0 = 0; r0 < N; r0 += RB) {
+      const int* rt = tok + r0;  // this row block's tokens
+      {
+        float s[NT][4];
+        wide_scores<kWideBwdBatch>(aw, s, qkv, tok, rt, table + (size_t)r0 * N, xs, qs, pt, C,
+                                   h, hd);
+        aw.softmax_frags(s, pt, red, scale);  // P to the tile
+      }
+      if (dv_pass) {  // dV's half += P^T dA's half
+        stage_head_rows<RB, NTH, false, 64, kWideBwdBatch>(
+            das, n_c, [&](int r) { return datt + (long long)rt[r] * C + off; });
+        __syncthreads();  // dA's half staged, P whole
+        aw.keys_by_rows(pt, das, acc);
+        __syncthreads();  // the tile and dA are rewritten by the next row block
+        continue;
+      }
+      float dp[NT][4];  // dP = dA v^T over both halves
+#pragma unroll 1
+      for (int cc = 0; cc < 2; ++cc) {
+        const int o2 = h * hd + 64 * cc, m_c = cc ? hd - 64 : 64;
+        stage_head_rows<N, NTH, false, 64, kWideBwdBatch>(
+            xs, m_c, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + o2; });
+        stage_head_rows<RB, NTH, false, 64, kWideBwdBatch>(
+            das, m_c, [&](int r) { return datt + (long long)rt[r] * C + o2; });
+        __syncthreads();  // v's and dA's halves staged (and, the first time, P whole)
+        if (cc == 0)
+          aw.rows_by_channels(das, xs, dp);
+        else
+          aw.template rows_by_channels<true>(das, xs, dp);
+        __syncthreads();  // every warp is done with the halves
+      }
+      {  // dS = P (dP - rowsum(P dP)) in place of P (bf16: scale dS, rounded as it loads)
+        float delta[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float2 pv = *aw.at(pt, i, j);
+            delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
+            delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
+          }
+        aw.row_total(red + 2 * X, delta, false);  // its barrier: every warp is done reading P
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float2 pv = *aw.at(pt, i, j);
+            const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
+                                         pv.y * (dp[j][2 * i + 1] - delta[i]));
+            *aw.at(pt, i, j) = BF ? make_float2(scale * v.x, scale * v.y) : v;
+            if (c == 0)
+              *reinterpret_cast<float2*>(dS + head + (size_t)(r0 + aw.s_row(i)) * N +
+                                         aw.s_col(j)) = v;
+          }
+      }
+      stage_head_rows<N, NTH, false, 64, kWideBwdBatch>(
+          xs, n_c, [&](int r) { return qkv + (long long)tok[r] * C3 + C + off; });
+      stage_head_rows<RB, NTH, false, 64, kWideBwdBatch>(
+          qs, n_c, [&](int r) { return qkv + (long long)rt[r] * C3 + off; });
+      __syncthreads();  // dS whole; k's and q's halves staged
+      {  // dQ's half = scale dS k's half
+        float o[CT][4];
+        aw.rows_by_keys(pt, xs, o);
+#pragma unroll
+        for (int j = 0; j < CT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = (BF ? 1.f : scale) * o[j][e];
+      }
+      aw.keys_by_rows(pt, qs, acc);  // dK's half += dS^T q's half (scaled at the end)
+      __syncthreads();  // dq's half whole; the halves and the tile are rewritten next
+      store_head_rows<RB, NTH, 64>(oq, n_c,
+                                   [&](int r) { return dqkv + (long long)rt[r] * C3 + off; });
+    }
+    // the half to the room of the halves, then out: dv (k's place + C) or dk
+    const float mul = dv_pass || BF ? 1.f : scale;
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xs[aw.u_key(u, e) * LD + aw.u_chan(u, j, e)] = mul * acc[u][j][e];
+    __syncthreads();
+    store_head_rows<N, NTH, 64>(xs, n_c, [&](int r) {
+      return dqkv + (long long)tok[r] * C3 + (dv_pass ? 2 * C : C) + off;
+    });
+    __syncthreads();  // xs is rewritten by the next pass
+  }
+}
+
 // The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
 // takes it: four key parts a row tile at n 256 (rows of 64, 16 warps: a
 // thread's S fragments stay at 32 floats) and n 128 (rows of 32, 8 warps;
@@ -736,17 +1005,27 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
 // (8 warps: rows of 64 need 243,712 B of shared memory in the forward, past
 // a block's 232,448), one block a SM whose threads may hold 255 registers
 // (a thread of 16 warps, at most 128, spilled); n 128 and 64 keep their
-// plans.
+// plans. The 128-wide forward (hd 128: heads of 65 to 128 channels in two
+// 64-channel halves) takes rows of 64 in two key parts at every n (8
+// warps, one block a SM: its rooms hold one 64-channel half of k or v, so
+// rows of 64 fit, 173,056 B at n 256, and halve the restaging of k and v
+// against rows of 32); its backward, attn_wide_bwd_plan.
 struct AttnPlan {
   int rb, ks;
 };
 __host__ __device__ constexpr AttnPlan attn_plan(int n, int hd = 32) {
-  return n == 256   ? (hd == 64 ? AttnPlan{32, 4} : AttnPlan{64, 4})
+  return hd == 128  ? AttnPlan{64, 2}
+         : n == 256 ? (hd == 64 ? AttnPlan{32, 4} : AttnPlan{64, 4})
          : n == 144 ? AttnPlan{48, 2}
          : n == 128 ? AttnPlan{32, 4}
          : n == 64  ? AttnPlan{64, 2}
                     : AttnPlan{0, 0};
 }
+
+// The 128-wide backward's plan: the 64-wide plans (rows of 32 in four key
+// parts at n 256 and 128): with rows of 64 in two parts its S or dP
+// fragments (64 floats) beside its dK or dV sums (64) spilled.
+__host__ __device__ constexpr AttnPlan attn_wide_bwd_plan(int n) { return attn_plan(n, 64); }
 
 // attn_rows_fwd_tc_kernel at windows of N tokens and rows of HD channels;
 // COS, the cosine form, with the heads' temperatures `temps` (nh).
@@ -853,6 +1132,39 @@ cudaError_t attn_rows_bwd_saved_bf16(const bf16* qkv, const bf16* P, const bf16*
   attn_rows_bwd_bf16_kernel<N, plan.rb, plan.ks>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
           qkv, P, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
+  return cudaGetLastError();
+}
+
+// attn_rows_fwd_wide_kernel at windows of N tokens (the 128-wide #3).
+template <int N, typename T>
+cudaError_t attn_rows_fwd_wide(const T* qkv, const float* bias, T* att, int B, int H, int W,
+                               int C, int nh, int wr, int wc, int kinds, float scale,
+                               cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N, 128);
+  constexpr int floats = attn_wide_fwd_smem_floats(N, plan.rb, plan.ks);
+  const cudaError_t err = set_smem(attn_rows_fwd_wide_kernel<N, plan.rb, plan.ks, T>, floats);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
+  attn_rows_fwd_wide_kernel<N, plan.rb, plan.ks, T>
+      <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, att, H, W, C, nh, wr, wc, kinds, scale);
+  return cudaGetLastError();
+}
+
+// attn_rows_bwd_wide_kernel at windows of N tokens (the 128-wide #8), on
+// the 64-wide plans (attn_wide_bwd_plan).
+template <int N, typename T>
+cudaError_t attn_rows_bwd_wide(const T* qkv, const float* bias, const T* datt, T* dqkv, float* dS,
+                               int B, int H, int W, int C, int nh, int wr, int wc, int kinds,
+                               float scale, cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_wide_bwd_plan(N);
+  constexpr int floats = attn_wide_bwd_smem_floats(N, plan.rb, plan.ks);
+  const cudaError_t err = set_smem(attn_rows_bwd_wide_kernel<N, plan.rb, plan.ks, T>, floats);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nh, (H / wr) * (W / wc), B);
+  attn_rows_bwd_wide_kernel<N, plan.rb, plan.ks, T>
+      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
+          qkv, bias, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, scale);
   return cudaGetLastError();
 }
 

@@ -22,7 +22,8 @@
 // Every LayerNorm statistic, softmax, gelu and sum of a row is fp32. 256
 // threads, two warpgroups of 64 rows, one block a SM, as the fp32 forms.
 // Rows of C <= 192 channels in the whole block (the training gate's), of
-// C <= 256 in the MLP half alone (#7's bf16 form: a 256-column rows tile),
+// C <= 256 in the MLP half alone on a 256-column rows tile, and of C <= 320
+// there on the split rows stage (ln_bwd_rows_kernel, #7 and its bf16 form),
 // every width a multiple of 4: rows move 8 bytes (4 bf16) at a time.
 #pragma once
 
@@ -430,6 +431,142 @@ __global__ void __launch_bounds__(kThreads, 1)
       ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
     }
   }
+}
+
+// Rows past one rows tile (kRowsMaxC < C <= kRowsWideMaxC: DRCT's MLP
+// halves at C 276 and 308, #7 and its bf16 form). A 128-token tile of dy
+// that spans such a row would hold C / 2 fp32 accumulators a thread (160
+// at C 320, beside 3xTF32's split A fragments: past the 255 registers a
+// thread may hold) and its fp32 dy tile (164 KB at C 320) would leave no
+// room for the operand ring. So the rows stage splits: dy = A W^T goes to
+// device memory in two column parts of at most kRowsHalf (rows_kernel or
+// rows_bf16_kernel with kRowsStore, fp32 out, on W's rows 0..c0 and c0..C),
+// and ln_bwd_rows_kernel below takes the LayerNorm backward over whole
+// rows from there, as rows_kernel's kRowsLn epilogue does from its shared
+// tile: the row sums of a row in one warp, the column sums of dg and dbe
+// per 128 tokens in the block's partial sums, no atomics.
+constexpr int kRowsMaxC = 256;       // channels of a row one rows tile spans
+constexpr int kRowsHalf = 160;       // columns of the split stage's first part
+constexpr int kRowsWideMaxC = 320;   // channels of a row the split stage takes
+
+// Per 128 tokens t0..: the LayerNorm backward of rows of C <= kRowsWideMaxC
+// channels (a multiple of 4) from dy in two parts, dy0 (T, c0) and dy1 (T,
+// C - c0), fp32: out = dres + inv (dy g - mean(dy g) - xn mean(dy g xn))
+// with xn = (xln - mean) inv from stats (T, 2), rounded where OT is bf16;
+// outs = s[t / hw] out when not null; the block's partial sums of dg = sum
+// dy xn (first C) and dbe = sum dy (next C) to ln_part[blockIdx.x]. Each
+// warp walks its 16 rows two at a time (the loads of two rows, three
+// 16-byte pieces a lane of each of dy, xln and dres, in flight together);
+// the arithmetic is the kRowsLn epilogues' (rows_kernel, rows_bf16_kernel).
+// XT, RT, OT: the types of xln, dres and out (float or bf16).
+template <typename XT, typename RT, typename OT>
+__global__ void __launch_bounds__(kThreads)
+    ln_bwd_rows_kernel(const float* __restrict__ dy0, const float* __restrict__ dy1, int c0,
+                       long long T, int C, const XT* __restrict__ xln,
+                       const float* __restrict__ stats, const float* __restrict__ g,
+                       const RT* __restrict__ dres, const float* __restrict__ s, long long hw,
+                       OT* __restrict__ out, OT* __restrict__ outs, float* __restrict__ ln_part) {
+  constexpr int V = (kRowsWideMaxC + 127) / 128;  // 16-byte pieces of a row a lane
+  __shared__ __align__(16) float colred[kWarps * 2 * kRowsWideMaxC];  // [warp][dg | dbe][C]
+  const long long t0 = (long long)blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = C / 4, q0 = c0 / 4;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 gv[V], cg[V], cb[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    gv[v] = lane + 32 * v < n4 ? ldg4(g + 4 * (lane + 32 * v)) : zero4;
+    cg[v] = cb[v] = zero4;
+  }
+  constexpr int U = 2;  // rows a warp takes at once
+  for (int r0 = 16 * warp; r0 < 16 * warp + 16; r0 += U) {
+    float4 xv[U][V], rv[U][V], dv[U][V];
+    float mean[U], inv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long t = t0 + r0 + u;
+      const bool ok = t < T;
+      mean[u] = ok ? __ldg(stats + 2 * t) : 0.f;
+      inv[u] = ok ? __ldg(stats + 2 * t + 1) : 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int c4 = lane + 32 * v;
+        const bool in = ok && c4 < n4;
+        xv[u][v] = in ? ldg4(xln + t * C + 4 * c4) : zero4;
+        rv[u][v] = in ? ldg4(dres + t * C + 4 * c4) : zero4;
+        dv[u][v] = !in        ? zero4
+                   : c4 < q0 ? ldg4(dy0 + t * c0 + 4 * c4)
+                              : ldg4(dy1 + t * (C - c0) + 4 * (c4 - q0));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long t = t0 + r0 + u;
+      float4 xn[V];
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float4 d = dv[u][v];
+        xn[v] = make_float4((xv[u][v].x - mean[u]) * inv[u], (xv[u][v].y - mean[u]) * inv[u],
+                            (xv[u][v].z - mean[u]) * inv[u], (xv[u][v].w - mean[u]) * inv[u]);
+        const float4 e = make_float4(d.x * gv[v].x, d.y * gv[v].y, d.z * gv[v].z, d.w * gv[v].w);
+        sa += (e.x + e.y) + (e.z + e.w);
+        sb += (e.x * xn[v].x + e.y * xn[v].y) + (e.z * xn[v].z + e.w * xn[v].w);
+        cg[v] = make_float4(fmaf(d.x, xn[v].x, cg[v].x), fmaf(d.y, xn[v].y, cg[v].y),
+                            fmaf(d.z, xn[v].z, cg[v].z), fmaf(d.w, xn[v].w, cg[v].w));
+        cb[v] = make_float4(cb[v].x + d.x, cb[v].y + d.y, cb[v].z + d.z, cb[v].w + d.w);
+      }
+      const float ma = warp_sum(sa) / C, mb = warp_sum(sb) / C;
+      if (t >= T) continue;
+      const float sc = outs != nullptr ? __ldg(s + t / hw) : 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int c4 = lane + 32 * v;
+        if (c4 >= n4) continue;
+        const float4 d = dv[u][v];
+        const float4 dx = make_float4(
+            rv[u][v].x + inv[u] * (d.x * gv[v].x - ma - xn[v].x * mb),
+            rv[u][v].y + inv[u] * (d.y * gv[v].y - ma - xn[v].y * mb),
+            rv[u][v].z + inv[u] * (d.z * gv[v].z - ma - xn[v].z * mb),
+            rv[u][v].w + inv[u] * (d.w * gv[v].w - ma - xn[v].w * mb));
+        st4(out + t * C + 4 * c4, dx);
+        if (outs != nullptr)
+          st4(outs + t * C + 4 * c4, make_float4(sc * dx.x, sc * dx.y, sc * dx.z, sc * dx.w));
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c4 = lane + 32 * v;
+    if (c4 < n4) {
+      reinterpret_cast<float4*>(colred + 2 * warp * C)[c4] = cg[v];
+      reinterpret_cast<float4*>(colred + (2 * warp + 1) * C)[c4] = cb[v];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float dg = 0.f, db = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      dg += colred[2 * w * C + c];
+      db += colred[(2 * w + 1) * C + c];
+    }
+    ln_part[(size_t)blockIdx.x * 2 * C + c] = dg;
+    ln_part[(size_t)blockIdx.x * 2 * C + C + c] = db;
+  }
+}
+
+// ln_bwd_rows_kernel over the T rows, dy (T * C floats) holding dy0 (T, c0)
+// and then dy1 (T, C - c0).
+template <typename XT, typename RT, typename OT>
+inline cudaError_t ln_bwd_rows(const float* dy, int c0, long long T, int C, const XT* xln,
+                               const float* stats, const float* g, const RT* dres,
+                               const float* s, long long hw, OT* out, OT* outs, float* ln_part,
+                               cudaStream_t stream) {
+  if (C > kRowsWideMaxC || C % 4 || c0 % 4 || c0 >= C) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((T + kTcRows - 1) / kTcRows);
+  ln_bwd_rows_kernel<XT, RT, OT><<<blocks, kThreads, 0, stream>>>(
+      dy, dy + T * c0, c0, T, C, xln, stats, g, dres, s, hw, out, outs, ln_part);
+  return cudaGetLastError();
 }
 
 inline cudaError_t ln_rows_bf16(const bf16* x, const float* g, const float* be, bf16* y,

@@ -58,6 +58,22 @@
 // may start at any element of its token's 3C row (C 210: every 35 floats),
 // so the rows are read and written an element a lane, as at 32.
 //
+// Heads of 65 to 128 channels (DRCT's 122 at C 244 and 77 at C 308) take
+// the 128-wide form, tc_attn.cuh's attn_rows_fwd_wide_kernel and
+// attn_rows_bwd_wide_kernel (fp32 and bf16): k and v of a whole 128-wide
+// head would need 270,336 B of fp32 rows at n 256, so the head goes in two
+// 64-channel halves staged in turn into one room (8 warps, one block a SM;
+// the forward on rows of 64, the backward on the 64-wide plans). S = q k^T
+// and dP = dA v^T sum both halves into the same fragments; att = P v and
+// dQ = dS k go a half at a time; dV and dK, whose sums over the row blocks
+// stay in registers, take a pass over the row blocks for each half (four
+// passes, each recomputing S and the softmax). Its bound at drct's swin_3 block (B 8, 48x48, C 244,
+// 2 heads of 122): 4.6 GFLOP forward and 11.5 backward (five products),
+// against 72 and 127 MB of fp32 inputs and outputs; 3xTF32 triples the
+// operations on the tensor cores, so operations bound both in fp32, and
+// the form's extra passes (S and the softmax four times, dP twice, in the
+// backward) add to the time what they add to the work.
+//
 // The bf16 forms (trr_*_mhsa_fwd_bf16, trr_*_mhsa_bwd_bf16): the JAX kernels
 // compute in qkv's dtype, so a bf16 training step (HAT, DAT, SwinIR-L) runs
 // #3 and #8 on bf16 qkv, dout and dqkv with the fp32 kind table, dS and
@@ -77,14 +93,15 @@
 
 namespace {
 
-// The padded head width of a head of hd channels: 32, 64, or 0 past 64.
-int head_width(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : 0; }
+// The padded head width of a head of hd channels: 32, 64, 128 (two halves
+// of 64), or 0 past 128.
+int head_width(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0; }
 
 template <int V>
 using Int = std::integral_constant<int, V>;
 
 // f(Int<N>, Int<HD>) for a window of n tokens (64, 128 or 256) and heads of
-// hd channels (at most 64); cudaErrorInvalidValue for anything else.
+// hd channels (at most 128); cudaErrorInvalidValue for anything else.
 template <class F>
 cudaError_t dispatch(int n, int hd, F f) {
   const int hw = head_width(hd);
@@ -96,6 +113,10 @@ cudaError_t dispatch(int n, int hd, F f) {
     if (n == 64) return f(Int<64>(), Int<64>());
     if (n == 128) return f(Int<128>(), Int<64>());
     if (n == 256) return f(Int<256>(), Int<64>());
+  } else if (hw == 128) {
+    if (n == 64) return f(Int<64>(), Int<128>());
+    if (n == 128) return f(Int<128>(), Int<128>());
+    if (n == 256) return f(Int<256>(), Int<128>());
   }
   return cudaErrorInvalidValue;
 }
@@ -105,20 +126,24 @@ cudaError_t dispatch(int n, int hd, F f) {
 extern "C" {
 
 // Shared memory of the forward at windows of wr x wc tokens (n 64, 128 or
-// 256) and heads of C / nh channels (at most 64), or 0 for another n.
+// 256) and heads of C / nh channels (at most 128), or 0 for another n.
 size_t trr_rect_mhsa_smem_bytes(int C, int nh, int wr, int wc) {
   const int n = wr * wc, hw = head_width(C / nh);
   if ((n != 64 && n != 128 && n != 256) || hw == 0) return 0;
   const trr::AttnPlan plan = trr::attn_plan(n, hw);
-  return (size_t)trr::attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks, hw) * sizeof(float);
+  const int floats = hw == 128 ? trr::attn_wide_fwd_smem_floats(n, plan.rb, plan.ks)
+                               : trr::attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks, hw);
+  return (size_t)floats * sizeof(float);
 }
 
 size_t trr_rect_mhsa_bwd_smem_bytes(int C, int nh, int wr, int wc) {
   const int n = wr * wc, hw = head_width(C / nh);
   if ((n != 64 && n != 128 && n != 256) || hw == 0) return 0;
-  const trr::AttnPlan plan = trr::attn_plan(n, hw);
-  return (size_t)trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false, false, hw) *
-         sizeof(float);
+  const trr::AttnPlan plan = hw == 128 ? trr::attn_wide_bwd_plan(n) : trr::attn_plan(n, hw);
+  const int floats =
+      hw == 128 ? trr::attn_wide_bwd_smem_floats(n, plan.rb, plan.ks)
+                : trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false, false, hw);
+  return (size_t)floats * sizeof(float);
 }
 
 size_t trr_window_mhsa_smem_bytes(int C, int nh, int ws) {
@@ -137,8 +162,12 @@ int trr_rect_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, in
                       cudaStream_t stream) {
   return (int)dispatch(wr * wc, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
-    return trr::attn_rows_fwd_tc<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
-                                               kinds, 0, scale, stream);
+    if constexpr (HD == 128)
+      return trr::attn_rows_fwd_wide<N>(qkv, bias, out, B, H, W, C, nh, wr, wc, kinds, scale,
+                                        stream);
+    else
+      return trr::attn_rows_fwd_tc<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
+                                                 kinds, 0, scale, stream);
   });
 }
 
@@ -158,8 +187,13 @@ int trr_rect_mhsa_bwd(const float* qkv, const float* bias, const float* dout, fl
   const int n = wr * wc;
   const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
-    return trr::attn_rows_bwd_tc<N, false, false, HD>(qkv, bias, dout, dqkv, nullptr, dS, B, H,
-                                                      W, C, nh, wr, wc, kinds, 0, scale, stream);
+    if constexpr (HD == 128)
+      return trr::attn_rows_bwd_wide<N>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr, wc, kinds,
+                                        scale, stream);
+    else
+      return trr::attn_rows_bwd_tc<N, false, false, HD>(qkv, bias, dout, dqkv, nullptr, dS, B, H,
+                                                        W, C, nh, wr, wc, kinds, 0, scale,
+                                                        stream);
   });
   if (err != cudaSuccess) return (int)err;
   return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);
@@ -181,8 +215,12 @@ int trr_rect_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16* o
                            cudaStream_t stream) {
   return (int)dispatch(wr * wc, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
-    return trr::attn_rows_fwd_bf16<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
-                                                 kinds, 0, scale, stream);
+    if constexpr (HD == 128)
+      return trr::attn_rows_fwd_wide<N>(qkv, bias, out, B, H, W, C, nh, wr, wc, kinds, scale,
+                                        stream);
+    else
+      return trr::attn_rows_fwd_bf16<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr,
+                                                   wc, kinds, 0, scale, stream);
   });
 }
 
@@ -201,9 +239,13 @@ int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::b
   const int n = wr * wc;
   const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
-    return trr::attn_rows_bwd_recompute_bf16<N, false, HD>(qkv, bias, dout, dqkv, nullptr, dS, B,
-                                                           H, W, C, nh, wr, wc, kinds, 0, scale,
-                                                           stream);
+    if constexpr (HD == 128)
+      return trr::attn_rows_bwd_wide<N>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr, wc, kinds,
+                                        scale, stream);
+    else
+      return trr::attn_rows_bwd_recompute_bf16<N, false, HD>(qkv, bias, dout, dqkv, nullptr, dS,
+                                                             B, H, W, C, nh, wr, wc, kinds, 0,
+                                                             scale, stream);
   });
   if (err != cudaSuccess) return (int)err;
   return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);

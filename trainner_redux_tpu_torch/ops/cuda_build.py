@@ -65,9 +65,9 @@ SIGNATURES = {
         "trr_swin_block_bwd_bf16": ([_P] * 41 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_block_fwd_bf16": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_attn_block_bwd_bf16": ([_P] * 24 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_ln_mlp_bwd": ([_P] * 19 + [_I] * 5 + [_F, _P], _I),
+        "trr_ln_mlp_bwd": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
         "trr_ln_mlp_fwd_bf16": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
-        "trr_ln_mlp_bwd_bf16": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
+        "trr_ln_mlp_bwd_bf16": ([_P] * 21 + [_I] * 5 + [_F, _P], _I),
         "trr_weight_grad": ([_P] * 2 + [_I] * 3 + [_P] * 3, _I),
         "trr_weight_grad_bf16": ([_P] * 2 + [_I] * 3 + [_P] * 5, _I),
         "trr_weight_grad_part_floats": ([_I] * 3, ctypes.c_size_t),

@@ -37,7 +37,9 @@ too; its backwards (`csrc/attn_block_staged.cu`) and its training form take
 both, the whole training block (#4/#5) 8x8 only. The cyclic shift of a
 shifted block is either done by the caller (roll x, unroll z; the JAX
 package's contract) or, with `shift=s`, by the kernels' indexing. The MLP
-half is per-token and needs no roll.
+half is per-token and needs no roll; its backward takes rows of up to
+MLP_ROWS_MAX_C (320) channels, past ROWS_MAX_C (256) on a split rows stage
+(DRCT's C 276 and 308), counted apart as `launches_c320`.
 
 For a CUDA tensor each wrapper launches its kernel in
 `csrc/fused_block.cu`, `csrc/attn_block_staged.cu` or
@@ -77,6 +79,12 @@ from trainner_redux_tpu_torch.ops.window_attention import (
 TC_STAGES, TC_K, TC_LD, TC_SPLIT, TC_ROWS = 4, 16, 20, 3, 128
 ATB_K, ATB_STAGES = 32, 3
 ROWS_MAX_C, LN_MAX_C = 256, 512
+# the MLP half's backward (#7, fp32 and bf16) also takes rows of up to
+# MLP_ROWS_MAX_C channels (DRCT's 276 and 308): past ROWS_MAX_C its rows
+# stage splits into products of ROWS_HALF and C - ROWS_HALF columns into a
+# (T, C) fp32 scratch, then the LN backward over whole rows
+# (csrc/tc_rows_bf16.cuh ln_bwd_rows_kernel)
+MLP_ROWS_MAX_C, ROWS_HALF = 320, 160
 # the whole block's backward (#5) is held to the widths checked on the card
 SWIN_BLOCK_MAX_C = 192
 # the windows the attention half takes (csrc/attn_block_staged.cu), and its
@@ -295,13 +303,15 @@ def attn_block_bf16_fits(h, w, window_size, channels, num_heads) -> bool:
 
 def ln_mlp_bwd_fits(channels: int, hidden: int) -> bool:
     """The MLP half's backward (#7, csrc/fused_block_train.cu): a row of at
-    most ROWS_MAX_C channels (one rows_kernel tile spans it, for the LN
-    backward's row sums), C and hidden in multiples of 4 (16-byte copies),
-    and each kernel's plan within one thread block's shared memory."""
-    if not tc_rows_fit(channels) or hidden % 4:
+    most MLP_ROWS_MAX_C channels (up to ROWS_MAX_C one rows_kernel tile
+    spans it, for the LN backward's row sums; past it the split rows stage,
+    its products at most ROWS_HALF columns wide, the LN backward a row a
+    warp), C and hidden in multiples of 4 (16-byte copies), and each
+    kernel's plan within one thread block's shared memory."""
+    if channels > MLP_ROWS_MAX_C or channels % 4 or hidden % 4:
         return False
-    return max(rows_smem_bytes(channels), mlp_hidden_smem_bytes(),
-               weight_grad_smem_bytes()) <= SMEM_LIMIT
+    rows = rows_smem_bytes(channels if channels <= ROWS_MAX_C else ROWS_HALF)
+    return max(rows, mlp_hidden_smem_bytes(), weight_grad_smem_bytes()) <= SMEM_LIMIT
 
 
 def fused_mlp_supported(h: int, w: int, rows: int, channels: int, hidden: int,
@@ -505,17 +515,29 @@ def fused_ln_mlp_backward(x, g, be, w1, b1, w2, b2, s, dout, window_size, eps=1e
     part = new(max(_part_floats(T, hidden, c), _part_floats(T, c, hidden)))
     dx, dln = torch.empty_like(x), new(2 * c)
     d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
+    dyw = _split_rows_scratch(T, c, dev)
     fused_ln_mlp_backward.launches += 1
+    fused_ln_mlp_backward.launches_c320 += c > ROWS_MAX_C
     _launch(
         "fused_block_train", "trr_ln_mlp_bwd", dev,
         *(t.data_ptr() for t in (x, dout, g, be, w1, b1, w2, s, y, stats, dm, hg, dh, ln_part,
-                                 part, dx, dln, d1, d2)),
+                                 part)),
+        None if dyw is None else dyw.data_ptr(), *(t.data_ptr() for t in (dx, dln, d1, d2)),
         b, hh, ww, c, hidden, eps,
     )
     return (dx, *dln.split(c), *_split_grad(d1, c, hidden), *_split_grad(d2, hidden, c))
 
 
 fused_ln_mlp_backward.launches = 0
+fused_ln_mlp_backward.launches_c320 = 0
+
+
+def _split_rows_scratch(tokens: int, c: int, device) -> torch.Tensor | None:
+    """The split rows stage's fp32 dy (tokens * c floats) where the rows are
+    wider than ROWS_MAX_C, else None (a null pointer: the one-tile stage)."""
+    if c <= ROWS_MAX_C:
+        return None
+    return torch.empty(tokens * c, device=device, dtype=torch.float32)
 
 
 class _LnMlp(torch.autograd.Function):
@@ -1072,14 +1094,15 @@ def _check_ln_mlp_bf16(name, x, g, be, w1, b1, w2, b2, s, window_size, dout=None
     """Limits, shapes, types and placement of the bf16 MLP half's operands
     (x and dout bf16, the parameters and s fp32); returns w1 and w2 cast to
     bf16. The bf16 forms take the rows the fp32 backward takes
-    (`ln_mlp_bwd_fits`: one rows tile of at most ROWS_MAX_C channels spans a
-    row, C and hidden multiples of 4; their plans fit at every such width)."""
+    (`ln_mlp_bwd_fits`: rows of at most MLP_ROWS_MAX_C channels, on one rows
+    tile up to ROWS_MAX_C and on the split rows stage past it, C and hidden
+    multiples of 4; their plans fit at every such width)."""
     b, hh, ww, c = x.shape
     hidden = w1.shape[1]
     if not (ln_mlp_fits(hh, window_size, c) and ln_mlp_bwd_fits(c, hidden)):
         raise ValueError(
             f"{name}: H={hh}, C={c}, hidden={hidden}, ws={window_size} is outside the bf16 "
-            f"kernels' limits (C <= {ROWS_MAX_C}, C and hidden multiples of 4)")
+            f"kernels' limits (C <= {MLP_ROWS_MAX_C}, C and hidden multiples of 4)")
     if b * hh * ww * hidden >= 2**31:
         raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
     for k, t, shape in _mlp_operands(x, g, be, w1, b1, w2, b2, s):
@@ -1142,11 +1165,14 @@ def fused_ln_mlp_backward_bf16(x, g, be, w1, b1, w2, b2, s, dout, window_size, e
     part = new(max(_part_floats(T, hidden, c), _part_floats(T, c, hidden)))
     dx, dln = torch.empty_like(x), new(2 * c)
     d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
+    dyw = _split_rows_scratch(T, c, dev)
     fused_ln_mlp_backward_bf16.launches += 1
+    fused_ln_mlp_backward_bf16.launches_c320 += c > ROWS_MAX_C
     _launch(
         "fused_block_train", "trr_ln_mlp_bwd_bf16", dev,
         *(t.data_ptr() for t in (x, dout, g, be, w1h, b1, w2h, s, y, stats, dm, hg, dh, dh32,
-                                 ln_part, part, dx, dln, d1, d2)),
+                                 ln_part, part)),
+        None if dyw is None else dyw.data_ptr(), *(t.data_ptr() for t in (dx, dln, d1, d2)),
         b, hh, ww, c, hidden, eps,
     )
     return (dx, *dln.split(c), *_split_grad(d1, c, hidden), *_split_grad(d2, hidden, c))
@@ -1154,6 +1180,7 @@ def fused_ln_mlp_backward_bf16(x, g, be, w1, b1, w2, b2, s, dout, window_size, e
 
 fused_ln_mlp_bf16.launches = 0
 fused_ln_mlp_backward_bf16.launches = 0
+fused_ln_mlp_backward_bf16.launches_c320 = 0
 
 
 def _qkv_bf16_rows(t, g, be, wq, bq, b, hh, ww, num_heads, ws, eps):

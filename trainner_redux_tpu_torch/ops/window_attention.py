@@ -21,9 +21,13 @@ forward, #8 backward), each counted on its own:
 - `fused_rect_mhsa(qkv, bias, nh, hd, h_sp, w_sp)`: DAT's rectangles of
   h_sp rows and w_sp columns, n = 128 (8x16, 16x8) or 256 (8x32, 32x8).
 
-Heads of at most 64 channels: a head of 33 to 64 (ATD's 35) takes the
-kernels' 64-wide form, its rows padded to 64 channels on plans of their
-own (`TC_ATTN_PLANS_64`); heads of at most 32 the 32-wide form. Both are
+Heads of at most 128 channels: a head of 65 to 128 (DRCT's 122 and 77)
+takes the kernels' 128-wide form, the head in two 64-channel halves staged
+in turn (`TC_ATTN_PLANS_128`); a head of 33 to 64 (ATD's 35, DRCT's 53 and
+46) the 64-wide form, its rows padded to 64 channels on plans of their own
+(`TC_ATTN_PLANS_64`); heads of at most 32 the 32-wide form. Every form
+lands on the same wrappers, and the wrappers count the 128-wide form's
+launches apart too (`launches_hd128`). Both entries are
 torch.autograd.Functions: on a
 CUDA tensor the forward launches the forward kernel and the backward the
 backward kernel (`csrc/tc_attn.cuh`'s tensor-core window attention, 3xTF32
@@ -68,25 +72,36 @@ TC_ATTN_PLANS = {256: (64, 4), 144: (48, 2), 128: (32, 4), 64: (64, 2)}
 # #3 and #8 at heads of 33 to 64 channels: rows padded to 64 channels, 68
 # floats apart, and at n 256 rows of 32 (rows of 64 would need 243,712 B in
 # the forward), one block of 8 warps a SM; tc_attn.cuh's attn_plan(n, 64)
-HD_MAX = 64
 TC_ATTN_PLANS_64 = {256: (32, 4), 128: (32, 4), 64: (64, 2)}
+# #3 and #8 at heads of 65 to 128 channels: the head in two 64-channel
+# halves, each staged in turn into one (n, 68) room (k and v of a whole
+# 128-wide head would need 270,336 B in fp32), one block of 8 warps a SM;
+# the forward on rows of 64 in two key parts at every n (tc_attn.cuh's
+# attn_plan(n, 128)), the backward on the 64-wide plans (attn_wide_bwd_plan)
+HD_MAX = 128
+TC_ATTN_PLANS_128 = {256: (64, 2), 128: (64, 2), 64: (64, 2)}
 
 
 def head_width(head_dim: int) -> int:
-    """The channels a head's staged rows pad to: 32, or 64 for a head of 33
-    to 64 channels (#3 and #8 only)."""
-    return 32 if head_dim <= 32 else HD_MAX
+    """The channels a head's staged rows pad to: 32, 64 for a head of 33 to
+    64 channels, or 128 (two 64-channel halves) for one of 65 to 128 (#3
+    and #8 only)."""
+    return 32 if head_dim <= 32 else 64 if head_dim <= 64 else HD_MAX
 
 
-def tc_attn_plan(n: int, head_dim: int = 32) -> tuple[int, int]:
+def tc_attn_plan(n: int, head_dim: int = 32, backward: bool = False) -> tuple[int, int]:
     """(query rows of a thread block, warps a 16-row tile) at windows of n
-    tokens and heads of head_dim channels."""
-    return (TC_ATTN_PLANS if head_width(head_dim) == 32 else TC_ATTN_PLANS_64)[n]
+    tokens and heads of head_dim channels (`backward`: #8's, which at heads
+    past 64 is the 64-wide plan)."""
+    width = head_width(head_dim)
+    if backward and width == HD_MAX:
+        width = 64
+    return {32: TC_ATTN_PLANS, 64: TC_ATTN_PLANS_64, 128: TC_ATTN_PLANS_128}[width][n]
 
 
 def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
     """Shared memory of the forward kernel (#3: the tensor-core window
-    attention forward, heads of up to 64 channels) for windows of wr rows
+    attention forward, heads of up to 128 channels) for windows of wr rows
     and wc columns."""
     return attn_fwd_tc_smem_bytes(wr * wc, channels // num_heads)
 
@@ -99,6 +114,9 @@ def attn_fwd_tc_smem_bytes(n: int, head_dim: int = 32) -> int:
     two (parts, rows) exchanges of the key parts' row max and sum, and the n
     token indices."""
     rb, ks = tc_attn_plan(n, head_dim)
+    if head_width(head_dim) == HD_MAX:
+        # one (n, 68) room for a k or v half, q and att halves of a row block
+        return 4 * (n * 68 + 2 * rb * 68 + rb * (n + 4) + 2 * ks * rb + n)
     ld = head_width(head_dim) + 4
     return 4 * (2 * n * ld + 2 * rb * ld + rb * (n + 4) + 2 * ks * rb + n)
 
@@ -111,7 +129,11 @@ def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False, head_dim: int
     (parts, rows) exchanges of the key parts' row sums (one, rowsum(P dP),
     in the `saved`-P form, #10's), the row block's dq rows (and, with `att`,
     #6's att rows) on their way out, and the n token indices."""
-    rb, ks = tc_attn_plan(n, head_dim)
+    rb, ks = tc_attn_plan(n, head_dim, backward=True)
+    if head_width(head_dim) == HD_MAX:
+        # #8's 128-wide form (no att, no saved P): one (n, 68) room for a
+        # k, v, dk or dv half; q, dA and dq halves of a row block
+        return 4 * (n * 68 + 3 * rb * 68 + rb * (n + 4) + 3 * ks * rb + n)
     ld = head_width(head_dim) + 4
     return 4 * (2 * n * ld + (4 if att else 3) * rb * ld + rb * (n + 4)
                 + (1 if saved else 3) * ks * rb + n)
@@ -119,7 +141,7 @@ def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False, head_dim: int
 
 def rect_mhsa_bwd_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
     """Shared memory of the backward kernel (#8: the tensor-core window
-    attention without an att output; heads of up to 64 channels)."""
+    attention without an att output; heads of up to 128 channels)."""
     return attn_bwd_tc_smem_bytes(wr * wc, att=False, head_dim=channels // num_heads)
 
 
@@ -146,9 +168,10 @@ def heads_fit(window_size: int, channels: int, num_heads: int) -> bool:
 
 def rect_mhsa_fits(h: int, w: int, wr: int, wc: int, channels: int, num_heads: int) -> bool:
     """The window kernels' limits: 8x8 windows or windows of 128 or 256
-    tokens, H a multiple of wr and W of wc, heads of at most 64 channels
-    (HD_MAX; 33 to 64 on the 64-wide form), and the forward's and
-    backward's shared-memory plans within one thread block's."""
+    tokens, H a multiple of wr and W of wc, heads of at most 128 channels
+    (HD_MAX; 33 to 64 on the 64-wide form, 65 to 128 on the 128-wide one),
+    and the forward's and backward's shared-memory plans within one thread
+    block's."""
     if not (wr == wc == WINDOW or wr * wc in RECT_TOKENS) or h % wr or w % wc:
         return False
     if channels % num_heads or channels // num_heads > HD_MAX:
@@ -159,7 +182,7 @@ def rect_mhsa_fits(h: int, w: int, wr: int, wc: int, channels: int, num_heads: i
 
 def window_mhsa_fits(h: int, w: int, window_size: int, channels: int, num_heads: int) -> bool:
     """`rect_mhsa_fits` for square windows: 8x8 or 16x16, heads of up to
-    64 channels."""
+    128 channels."""
     return window_size in WINDOWS and rect_mhsa_fits(h, w, window_size, window_size, channels,
                                                      num_heads)
 
@@ -420,6 +443,7 @@ def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc, bf16=False):
     fn = lib.trr_rect_mhsa_fwd_bf16 if bf16 else lib.trr_rect_mhsa_fwd
     with torch.cuda.device(qkv.device):
         counted.launches += 1
+        counted.launches_hd128 += head_width(head_dim) == HD_MAX
         status = fn(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
             b, hh, ww, c, num_heads, bias.shape[0], wr, wc, head_dim**-0.5,
@@ -451,6 +475,7 @@ def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc, bf16=F
     fn = lib.trr_rect_mhsa_bwd_bf16 if bf16 else lib.trr_rect_mhsa_bwd
     with torch.cuda.device(qkv.device):
         counted.launches += 1
+        counted.launches_hd128 += head_width(head_dim) == HD_MAX
         status = fn(
             qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
             dbias.data_ptr(), b, hh, ww, c, num_heads, kinds, wr, wc, head_dim**-0.5,
@@ -491,6 +516,8 @@ def fused_rect_mhsa_backward(qkv, bias, dout, num_heads, head_dim, h_sp, w_sp):
 
 fused_window_mhsa_backward.launches = 0
 fused_rect_mhsa_backward.launches = 0
+fused_window_mhsa_backward.launches_hd128 = 0
+fused_rect_mhsa_backward.launches_hd128 = 0
 
 
 def fused_window_mhsa_bf16(qkv, bias, num_heads, head_dim, window_size):
@@ -541,6 +568,10 @@ fused_window_mhsa_bf16.launches = 0
 fused_rect_mhsa_bf16.launches = 0
 fused_window_mhsa_backward_bf16.launches = 0
 fused_rect_mhsa_backward_bf16.launches = 0
+fused_window_mhsa_bf16.launches_hd128 = 0
+fused_rect_mhsa_bf16.launches_hd128 = 0
+fused_window_mhsa_backward_bf16.launches_hd128 = 0
+fused_rect_mhsa_backward_bf16.launches_hd128 = 0
 
 
 class _WindowMhsa(torch.autograd.Function):
@@ -608,3 +639,6 @@ def fused_rect_mhsa(qkv, bias, num_heads, head_dim, h_sp, w_sp):
 
 fused_window_mhsa.launches = 0
 fused_rect_mhsa.launches = 0
+fused_window_mhsa.launches_hd128 = 0
+fused_rect_mhsa.launches_hd128 = 0
+

@@ -1,7 +1,7 @@
 """The weight bridge: checkpoints of either framework into the port's
 modules, which use the official torch key names.
 
-Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2, SRFormer, ATD, DUnet,
+Port of the SwinIR, HAT, DAT, Swin2SR, SRFormerV2, SRFormer, ATD, DRCT, DUnet,
 SPAN, SPANF, SpanPlus, SpanC, SRVGGNetCompact and RRDBNet parts of the JAX
 package's utils/torch_compat.py:
 
@@ -15,9 +15,10 @@ package's utils/torch_compat.py:
   extended to the 3conv residual connection and every upsampler; for HAT
   the JAX `_export_hat` mapping; for SRFormer the JAX `_export_srformer`
   mapping; for ATD the JAX `_export_atd` layout with the window and
-  category attentions' qkv Linears apart; for DAT, Swin2SR and SRFormerV2 the
-  inverse of the JAX `_convert_dat`, `_convert_swin2sr` and
-  `_convert_srformerv2` (the JAX package has no exporter for them); for
+  category attentions' qkv Linears apart; for DAT, Swin2SR, SRFormerV2 and
+  DRCT the inverse of the JAX `_convert_dat`, `_convert_swin2sr`,
+  `_convert_srformerv2` and `_convert_drct` (the JAX package has no
+  exporter for them); for
   DUnet the inverse of the JAX `_convert_dunet`, the `spectral`
   collection's u and v included (as `__spectral__.<module>.u` / `.v`); for
   the conv families the inverse of `_convert_span`, `_convert_spanf`,
@@ -341,6 +342,26 @@ def _atd_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
     return _swinir_key(re.sub(r"^up_direct\.conv\.", "upsample_direct.conv.", k), v)
 
 
+def _drct_key(k: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    """One flax DRCT key -> (torch key, array in torch layout): the inverse
+    of the JAX `_convert_drct` (`layers_i.swin_k.*` as upstream's
+    `layers.i.swinK.*`, `layers_i.adjust_k` as `layers.i.adjustK`), the
+    norms and the other convolutions named as in SwinIR."""
+    if m := re.fullmatch(r"layers_(\d+)\.swin_(\d)\.(.+)", k):
+        pre, rest = f"layers.{m[1]}.swin{m[2]}", m[3]
+        if rest == "attn.relative_position_bias_table":
+            return f"{pre}.{rest}", v
+        inner, kind = rest.rsplit(".", 1)
+        if inner not in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp_fc1", "mlp_fc2"):
+            raise KeyError(f"no torch counterpart for DRCT key '{k}'")
+        inner = inner.replace("mlp_fc", "mlp.fc")
+        return f"{pre}.{inner}.{_weight_or_bias(kind)}", linear_w(v) if kind == "kernel" else v
+    if m := re.fullmatch(r"layers_(\d+)\.adjust_(\d)\.conv\.(kernel|bias)", k):
+        return (f"layers.{m[1]}.adjust{m[2]}.{_weight_or_bias(m[3])}",
+                conv_w_inv(v) if m[3] == "kernel" else v)
+    return _swinir_key(k, v)
+
+
 def canonical_atd_keys(sd: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """An upstream ATD state dict in the port's keys, as the JAX
     `_convert_atd` reads it: the shared `wqkv` copied into `attn_win.qkv`
@@ -538,6 +559,7 @@ def _last_index(out: dict[str, np.ndarray], prefix: str, step: int = 2) -> dict:
 
 _KEY_MAPS = {"swinir": _swinir_key, "hat": _hat_key, "dat": _dat_key, "swin2sr": _swin2sr_key,
              "srformerv2": _srformerv2_key, "srformer": _srformer_key, "atd": _atd_key,
+             "drct": _drct_key,
              "span": _span_key, "spanf": _spanf_key,
              "spanplus": _spanplus_key, "spanc": _spanc_key, "srvggnetcompact": _srvgg_key,
              "rrdbnet": _rrdbnet_key}
