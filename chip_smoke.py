@@ -395,13 +395,15 @@ failure:
              bf16 runs of atd_light_fidelity.yml bit for bit.
 
 68. drct kernels - #3 and #8's 128-wide form (heads of 65 to 128 channels:
-             two 64-channel halves, csrc/tc_attn.cuh's attn_rows_*_wide
-             kernels), fp32 and bf16, at drct's swin_3 block (B=8, 48x48, C
-             244, 2 heads of 122, ws 16) K=1 and K=4 and its swin_5 block (C
-             308, 4 heads of 77) K=4: each against its plain version and
-             float64, two runs bit for bit, timed beside the bound and SDPA
-             (bf16: and the fp32 form), split by stage at K=4 (the wide
-             kernels must launch); the 32- and 64-wide forms timed beside
+             csrc/tc_attn.cuh's attn_rows_fwd_wide_kernel, two 64-channel
+             halves; #8's row pass attn_wide_bwd_rows_kernel and key pass
+             attn_wide_bwd_keys_kernel), fp32 and bf16, at drct's swin_3
+             block (B=8, 48x48, C 244, 2 heads of 122, ws 16) K=1 and K=4
+             and its swin_5 block (C 308, 4 heads of 77) K=4: each against
+             its plain version and float64, two runs bit for bit, timed
+             beside the bound and SDPA (bf16: and the fp32 form); #8 split
+             by stage (row pass, key pass, bias table) at all three, #3 at
+             swin_3 K=4 (the wide kernels must launch); the 32- and 64-wide forms timed beside
              at swin_1's and swin_2's heads (30, 53) on the same block. #2
              and #7 at swin_5's MLP half (C 308, hidden 308) and swin_4's (C
              276, hidden 276), fp32 and bf16: against their plain versions,
@@ -420,8 +422,8 @@ failure:
              on the 128-wide form, 12 of #7 on its split rows stage), peak
              memory, PSNR/SSIM, the EMA checkpoint served; one step
              profiled (device ms, busy share, the hand-written kernels
-             against the rest; the bf16 wide kernels and ln_bwd_rows_kernel
-             must launch).
+             against the rest, the 128-wide #8's and #3's device ms; the
+             bf16 wide kernels and ln_bwd_rows_kernel must launch).
 71. drct templates - six bf16 steps each of drct_gan.yml (DUnet in bf16),
              drct_l_fidelity.yml and drct_otf.yml less its MS-SSIM, four of
              drct_xl_fidelity.yml, as shipped: every log finite, launches
@@ -857,13 +859,15 @@ def stage_of(kernel: str) -> str:
     template argument of linear_bf16_kernel and rows_bf16_kernel (1 in #12's
     and #14's bf16 dx); #11's and #13's bf16 post-norm row pass is
     postnorm_rows_bf16_kernel. #3/#8's 128-wide form (heads of 65-128) is
-    attn_rows_fwd_wide_kernel / attn_rows_bwd_wide_kernel in both types;
+    attn_rows_fwd_wide_kernel, and #8's attn_wide_bwd_rows_kernel (the row
+    pass) and attn_wide_bwd_keys_kernel (the key pass), in both types;
     #7's split rows stage (rows of 257-320) stores dy on rows_kernel's (or
     rows_bf16_kernel's) mode 0, then ln_bwd_rows_kernel takes the LN
     backward."""
     for part, stage in (("postnorm_rows_bf16_kernel", "post-norm rows"),
                         ("attn_rows_fwd_wide_kernel", "window attention forward"),
-                        ("attn_rows_bwd_wide_kernel", "window attention"),
+                        ("attn_wide_bwd_rows_kernel", "row pass"),
+                        ("attn_wide_bwd_keys_kernel", "key pass"),
                         ("ln_bwd_rows_kernel", "dy and the LN backward"),
                         ("ln_rows_bf16_kernel", "LN rows"),
                         ("mlp_hidden_bf16_kernel", "fc1 and dh"),
@@ -923,6 +927,15 @@ STAGES_12 = {"x W + b": 2, "window attention forward": 1, "post-norm LN backward
              "window attention": 1, "dx = dout + A W^T": 1, "weight gradients": 2,
              "partial sums": 4, "bias table": 2}
 STAGES_8 = {"window attention": 1, "bias table": 1}  # HAT-M's ws 16
+
+
+def stages_8_wide(b: int, nwin: int, nh: int, n: int = 256) -> dict[str, int]:
+    """The 128-wide #8's stages a call: its row pass, its key pass and the
+    bias table, which takes one pass where fewer than two groups of 16
+    windows are there or a window kind's table alone fills the card
+    (common.cuh's launch_dbias), else two."""
+    one = b * nwin // 16 < 2 or nh * n * n >= 1 << 18
+    return {"row pass": 1, "key pass": 1, "bias table": 1 if one else 2}
 STAGES_8_RECT = {"window attention": 1, "bias table": 2}  # DAT's 8x32, 3 heads
 STAGES_14 = {"x W + b": 2, "post-norm LN backward": 1, "fc1 and dh": 1, "dx = dout + A W^T": 1,
              "weight gradients": 2, "partial sums": 3}
@@ -959,11 +972,15 @@ COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true, 32>"
 ATTN_FWD_64 = "attn_rows_fwd_tc_kernel<256, 32, 4, false, 64>"
 ATTN_BWD_64 = "attn_rows_bwd_tc_kernel<256, 32, 4, false, false, 64>"
 # #3/#8's 128-wide form at n 256 (heads of 65-128: two 64-channel halves),
-# fp32 and bf16, and #7's split rows stage's LN rows
+# fp32 and bf16: #3's kernel, #8's row pass (<n, rows, key parts, type>) and
+# key pass (<n, keys, rows, key parts, type>); and #7's split rows stage's LN
+# rows
 ATTN_FWD_128 = "attn_rows_fwd_wide_kernel<256, 64, 2, float>"
-ATTN_BWD_128 = "attn_rows_bwd_wide_kernel<256, 32, 4, float>"
+ATTN_BWD_128 = ("attn_wide_bwd_rows_kernel<256, 64, 2, float>",
+                "attn_wide_bwd_keys_kernel<256, 64, 32, 4, float>")
 ATTN_FWD_128_BF = "attn_rows_fwd_wide_kernel<256, 64, 2, __nv_bfloat16>"
-ATTN_BWD_128_BF = "attn_rows_bwd_wide_kernel<256, 32, 4, __nv_bfloat16>"
+ATTN_BWD_128_BF = ("attn_wide_bwd_rows_kernel<256, 64, 2, __nv_bfloat16>",
+                   "attn_wide_bwd_keys_kernel<256, 64, 32, 4, __nv_bfloat16>")
 LN_BWD_ROWS = "ln_bwd_rows_kernel<float"
 LN_BWD_ROWS_BF = "ln_bwd_rows_kernel<__nv_bfloat16"
 # #10's window attention: the saved-P form of the tensor-core backward
@@ -4025,14 +4042,16 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
                        name: str = "swinir_m_x4_bf16_profile",
                        per_step: dict[str, int] = BF16_TRAIN_STEP, tag: str = "bf16 train profile",
                        file: str = "profile_bf16_train.txt", batch_size: int = TB,
-                       kernels: tuple[str, ...] = ()) -> None:
+                       kernels: tuple[str, ...] = (),
+                       sums: dict[str, tuple[str, ...]] | None = None) -> None:
     """43 (and 49, 51). Device time by kernel of one bf16 step of
     `template`'s run (after two warm-up steps; `batch_size` 48x48 LR crops),
     its busy share and launches (`per_step` and no others), the bf16 forms'
-    stages summed, the hand-written kernels' time against the rest; the
-    table to chip_smoke/`file`. The logs of the warm-up, profiled and last
-    steps must be finite; a profiled kernel's name must hold each of
-    `kernels`."""
+    stages summed, the hand-written kernels' time against the rest, and each
+    of `sums`' labels with the time of the kernels whose names hold one of
+    its names; the table to chip_smoke/`file`. The logs of the warm-up,
+    profiled and last steps must be finite; a profiled kernel's name must
+    hold each of `kernels`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4082,6 +4101,11 @@ def phase_bf16_profile(seed: int, template: Path = FIDELITY_TEMPLATE,
     own = sum(e.self_device_time_total for e in events if "trr::" in e.key) / 1e3
     say(f"[{tag}] the hand-written kernels {own:.3f} ms of the step's device time, the rest "
         f"{total / 1e3 - own:.3f} ms")
+    for label, parts in (sums or {}).items():
+        mine = [e for e in events if any(p in e.key for p in parts)]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        say(f"[{tag}] {label}: {ms:.3f} device ms a step over {sum(e.count for e in mine)} "
+            f"launches, {100 * ms / (total / 1e3):.1f}% of the step's")
     say(f"[{tag}] device time per step {total / 1e3:.3f} ms over "
         f"{sum(e.count for e in events)} kernel launches; step {step * 1e3:.1f} ms without the "
         f"profiler (the card busy {total / 1e6 / step:.1%} of it); max_memory_allocated "
@@ -4329,14 +4353,16 @@ def bf16_record(res: dict, tag: str, name: str, label: str, kern, plain, fp32, l
 
 
 def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: int, wc: int,
-                     kinds: int, nh: int, hd: int, shift_hw, gen, split: dict | None) -> None:
+                     kinds: int, nh: int, hd: int, shift_hw, gen, split: dict | None,
+                     fwd_split: bool = True) -> None:
     """#3's and #8's bf16 forms at one block: bf16 qkv and dout, the fp32
     kind table (with the shift masks of `shift_hw` at K=4); each output and
     gradient against its bf16 plain version (`check_bf16`) and, with the
     plain version, against float64 of the same bf16 inputs; two runs of each
     bit for bit; timed beside the fp32 forms and bf16 SDPA with a float mask
     (forward, and forward and backward); `split`, the backward's stages a
-    call: both stage splits."""
+    call: the backward's stage split, and the forward's unless not
+    `fwd_split`."""
     import torch
     import torch.nn.functional as F
 
@@ -4421,17 +4447,20 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
     if split is not None:
         rb, ks = wa.tc_attn_plan(n, hd)
         if wa.head_width(hd) == wa.HD_MAX:  # the 128-wide form's kernels
-            brb, bks = wa.tc_attn_plan(n, hd, backward=True)
+            kb, kr, kks = wa.TC_ATTN_KEY_PLAN_128
             fwd_name = f"attn_rows_fwd_wide_kernel<{n}, {rb}, {ks}, __nv_bfloat16>"
-            bwd_name = f"attn_rows_bwd_wide_kernel<{n}, {brb}, {bks}, __nv_bfloat16>"
+            bwd_names = (f"attn_wide_bwd_rows_kernel<{n}, {rb}, {ks}, __nv_bfloat16>",
+                         f"attn_wide_bwd_keys_kernel<{n}, {kb}, {kr}, {kks}, __nv_bfloat16>")
         else:
             plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
             fwd_name = f"attn_rows_fwd_bf16_kernel<{plan}>"
-            bwd_name = f"attn_rows_bwd_recompute_bf16_kernel<{plan}>"
-        stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win), fwd_flops,
-                    fwd_bytes, res[names[0]]["ms"], STAGES_3, kernels=(fwd_name,), bf16=True)
+            bwd_names = (f"attn_rows_bwd_recompute_bf16_kernel<{plan}>",)
+        if fwd_split:
+            stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win),
+                        fwd_flops, fwd_bytes, res[names[0]]["ms"], STAGES_3,
+                        kernels=(fwd_name,), bf16=True)
         stage_split(tag, f"{names[1]} {label}", lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
-                    bwd_flops, bwd_bytes, res[names[1]]["ms"], split, kernels=(bwd_name,),
+                    bwd_flops, bwd_bytes, res[names[1]]["ms"], split, kernels=bwd_names,
                     bf16=True)
 
 
@@ -5492,11 +5521,13 @@ def hd64_inputs(gen, kinds: int, shape, c: int, nh: int, ws: int = AWS, dtype=No
 
 def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int, nh: int,
                    kinds: int, gen, split: bool, tag: str = "atd kernels",
-                   kernels: tuple[str, str] = (ATTN_FWD_64, ATTN_BWD_64)) -> None:
+                   kernels: tuple[str, ...] = (ATTN_FWD_64, ATTN_BWD_64),
+                   bwd_stages: dict[str, int] = STAGES_8, fwd_split: bool = True) -> None:
     """#3 and #8 in fp32 at one block (16x16 windows): `window_attention_cases`'
     checks (plain versions, SDPA, float64, two runs bit for bit), recorded
-    under `names`; `split`: both stage splits, the form's `kernels` (the
-    64-wide ones unless said) among them."""
+    under `names`; `split`: #8's stage split (its stages a call
+    `bwd_stages`) and, unless not `fwd_split`, #3's, the form's `kernels`
+    (#3's, then #8's; the 64-wide ones unless said) among them."""
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     qkv, bias, dout = inputs = hd64_inputs(gen, kinds, shape, c, nh)
@@ -5510,13 +5541,14 @@ def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int,
     for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
         record_kernel(res, tag, names[name != "fused_window_mhsa"], label, kern, plain,
                       lib, flops, nb, err, note)
-    if split:
+    if split and fwd_split:
         _, _, _, flops, nb, _, _ = cases["fused_window_mhsa"]
         stage_split(tag, f"{names[0]} {label}", ops[0], flops, nb, res[names[0]]["ms"],
                     STAGES_3, kernels=kernels[:1])
+    if split:
         _, _, _, flops, nb, _, _ = cases["fused_window_mhsa_backward"]
         stage_split(tag, f"{names[1]} {label}", ops[2], flops, nb, res[names[1]]["ms"],
-                    STAGES_8, kernels=kernels[1:])
+                    bwd_stages, kernels=kernels[1:])
 
 
 def mlp_half_case(tag: str, label: str, shape, c: int, hidden: int, rows: int, gen) -> None:
@@ -5972,8 +6004,8 @@ DRCT_GROUPS = {"drct": 6, "drct_l": 12, "drct_xl": 14}
 DRCT_B = 8  # the templates' batch of 48x48 LR crops
 DRCT_TEMPLATES = TEMPLATES / "DRCT"
 # the new forms' kernels that every DRCT training phase's profile must name
-DRCT_BF16_KERNELS = (ATTN_FWD_128_BF, ATTN_BWD_128_BF, LN_BWD_ROWS_BF)
-DRCT_FP32_KERNELS = (ATTN_FWD_128, ATTN_BWD_128, LN_BWD_ROWS)
+DRCT_BF16_KERNELS = (ATTN_FWD_128_BF, *ATTN_BWD_128_BF, LN_BWD_ROWS_BF)
+DRCT_FP32_KERNELS = (ATTN_FWD_128, *ATTN_BWD_128, LN_BWD_ROWS)
 
 
 def drct_step(network: str = "drct") -> dict[str, int]:
@@ -6050,16 +6082,22 @@ def phase_drct_kernels() -> dict:
     bf_names = ("fused_window_mhsa_bf16_hd128", "fused_window_mhsa_backward_bf16_hd128")
     c3, nh3, _ = DRCT_BLOCKS[2]
     c5, nh5, _ = DRCT_BLOCKS[4]
+    nwin = (FID_LQ // AWS) ** 2
+    # #8's stage split (row pass, key pass, bias table) at every case; #3's at
+    # swin_3 K=4
     hd64_fp32_case(other, names, f"swin_5 (C {c5}, heads of 77) K=4", blk, c5, nh5, 4, gen,
-                   False, tag)
+                   True, tag, (ATTN_FWD_128, *ATTN_BWD_128), stages_8_wide(DRCT_B, nwin, nh5),
+                   fwd_split=False)
     bf16_window_case(other, bf_names, f"drct swin_5 (C {c5}, heads of 77) K=4", blk, AWS, AWS, 4,
-                     nh5, c5 // nh5, (AWS // 2, AWS // 2), gen, None)
+                     nh5, c5 // nh5, (AWS // 2, AWS // 2), gen, stages_8_wide(DRCT_B, nwin, nh5),
+                     fwd_split=False)
     for kinds in (4, 1):  # the JSON line reports K=1, the unshifted blocks'
         hd64_fp32_case(res, names, f"swin_3 (C {c3}, heads of 122) K={kinds}", blk, c3, nh3,
-                       kinds, gen, kinds == 4, tag, (ATTN_FWD_128, ATTN_BWD_128))
+                       kinds, gen, True, tag, (ATTN_FWD_128, *ATTN_BWD_128),
+                       stages_8_wide(DRCT_B, nwin, nh3), fwd_split=kinds == 4)
         bf16_window_case(res, bf_names, f"drct swin_3 (C {c3}, heads of 122) K={kinds}", blk,
                          AWS, AWS, kinds, nh3, c3 // nh3, (AWS // 2, AWS // 2), gen,
-                         STAGES_8 if kinds == 4 else None)
+                         stages_8_wide(DRCT_B, nwin, nh3), fwd_split=kinds == 4)
     # the three widths of #3/#8 on the same block (K=4), fp32 and bf16
     for label, (c, nh, _) in (("32-wide, swin_1's heads of 30", DRCT_BLOCKS[0]),
                               ("64-wide, swin_2's heads of 53", DRCT_BLOCKS[1]),
@@ -6159,7 +6197,9 @@ def phase_drct_train(seed: int) -> dict[str, int]:
     dev_ms, step_ms = phase_bf16_profile(
         seed, template, "drct_x4_bf16_profile", drct_step(), "drct bf16 profile",
         "profile_drct_bf16_train.txt", DRCT_B,
-        kernels=DRCT_BF16_KERNELS)
+        kernels=DRCT_BF16_KERNELS,
+        sums={"the 128-wide #8 (row and key passes)": ATTN_BWD_128_BF,
+              "the 128-wide #3": (ATTN_FWD_128_BF,)})
     say(f"[{tag}] profiled step: {dev_ms:.3f} device ms, {step_ms:.1f} ms on the host clock")
     return forms
 

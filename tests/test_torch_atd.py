@@ -48,6 +48,7 @@ from tests.test_torch_span import (
     nchw,
     shared_params,
 )
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.archs import build_network as jax_build_network
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax

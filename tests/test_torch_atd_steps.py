@@ -20,6 +20,7 @@ import torch
 from tests.test_torch_atd import LIGHT
 from tests.test_torch_srformer import three_steps_match_jax
 from tests.test_torch_train import dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 TRAIN = Path(__file__).resolve().parent.parent / "configs" / "_templates" / "train"
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from tests.test_torch_bf16_gan import hold_to_fp32
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.models.base_model import BaseModel as JBase
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
 

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import _config, _opts, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 OUT_TOL = 2e-2  # of the largest |output|
 GRAD_RATIO, GRAD_SLACK = 2.0, 1e-2  # port's bf16 error <= RATIO x flax's + SLACK x block's largest

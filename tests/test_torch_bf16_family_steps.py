@@ -20,6 +20,7 @@ import torch
 
 from tests.test_torch_bf16_families import NETS, _jax_flat
 from tests.test_torch_train import _config, _opts
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 LOSS_RTOL = 5e-3
 LR = 2e-4  # the steps' AdamW learning rate (test_torch_train's config)

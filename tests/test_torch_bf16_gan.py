@@ -32,6 +32,7 @@ from tests.test_torch_gan_train import (  # noqa: F401 (fixtures)
     jax_weights,
 )
 from tests.test_torch_train import _opts, _to_port, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.models.base_model import BaseModel as JBase
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
 

@@ -24,6 +24,7 @@ from tests.test_torch_realesrgan import (  # noqa: F401 (fixtures)
     otf_config,
 )
 from tests.test_torch_train import _opts
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 
 def test_one_bf16_otf_gan_step_matches_jax(gt_root, jax_weights4, tmp_path,  # noqa: F811

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from tests.test_torch_train import dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 LOSS_RTOL = 5e-3
 LR = 2e-4  # the steps' AdamW learning rate (tests/test_torch_train.py's config)

@@ -6,6 +6,7 @@ that each file stays within about a minute and a half on the CPU.
 """
 
 from tests.test_torch_bf16_family_steps import dataset, three_bf16_steps  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 
 def test_three_bf16_swinir_l_steps_match_jax(dataset, tmp_path, monkeypatch):  # noqa: F811

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import _config, _opts, _to_port
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 SMALL = {"type": "swinir_m", "embed_dim": 32, "depths": [2, 2], "num_heads": [2, 2],
          "drop_path_rate": 0}

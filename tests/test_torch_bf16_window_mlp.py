@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.ops.pallas import fused_block as jfb
 from trainner_redux_tpu.ops.pallas import window_attention as jwa
 from trainner_redux_tpu_torch.ops import fused_block as tfb

@@ -21,6 +21,7 @@ import torch
 from tests.test_torch_dat import _config as dat_config
 from tests.test_torch_dat import _jax_flat, _to_port
 from tests.test_torch_train import _config, _opts, _yaml, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 STAT_TOL = 1e-5
 

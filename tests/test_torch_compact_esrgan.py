@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from tests.test_torch_span import check_bf16, check_fp32, check_golden, check_preset
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu_torch.archs import build_network
 
 COMPACT = {"type": "compact", "num_feat": 8, "num_conv": 2}

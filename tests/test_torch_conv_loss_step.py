@@ -11,6 +11,7 @@ where the JAX hsluv gradient is NaN; tests/test_torch_conv_losses.py).
 import numpy as np
 
 from tests.test_torch_train import dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 # the esrgan_gan workload's hsluv and cosim (bench.py), beside L1
 GAN_PAIR_LOSSES = [{"type": "l1loss", "loss_weight": 1.0},

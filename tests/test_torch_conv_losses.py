@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 VALUE_TOL = 1e-5
 GRAD_TOL = 1e-5  # of the largest |gradient|
 GREY = (1, 5, 5)  # (image, row, column) of the grey pixel

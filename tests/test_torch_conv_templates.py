@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 TRAIN = Path(__file__).resolve().parent.parent / "configs" / "_templates" / "train"
 FAMILIES = ("SPAN", "SPANF", "SPANPlus", "SpanC", "Compact", "ESRGAN")
 TEMPLATES = sorted(str(p.relative_to(TRAIN)) for f in FAMILIES for p in (TRAIN / f).glob("*.yml"))

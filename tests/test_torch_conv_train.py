@@ -21,6 +21,7 @@ import pytest
 
 from tests.test_torch_span import shared_params
 from tests.test_torch_train import _opts, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
 

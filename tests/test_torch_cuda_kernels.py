@@ -1567,10 +1567,13 @@ def test_hd64_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype)
 
 # #3/#8's 128-wide form: drct's swin_3 block (C 244, 2 heads of 122: a head
 # every 122 elements of a qkv row) and swin_5 block (C 308, 4 heads of 77),
-# heads of 128 (C 256), heads of 77 at 8x8 windows and at 8x16 rectangles
+# heads of 128 (C 256), heads of 77 at 8x8 windows and at 8x16 rectangles,
+# and a grid that nothing divides evenly: one sample of 3 x 5 windows and 3
+# heads of 77, so #8's passes take 15 x 12 blocks (row blocks, key blocks
+# and heads) over an odd count of windows and heads
 HD128_WINDOWS = [((16, 16), 244, 2, (B, 48, 48)), ((16, 16), 308, 4, (B, 48, 48)),
                  ((16, 16), 256, 2, (B, 32, 48)), ((8, 8), 154, 2, (B, 32, 48)),
-                 ((8, 16), 154, 2, (B, 32, 48))]
+                 ((8, 16), 154, 2, (B, 32, 48)), ((16, 16), 231, 3, (1, 48, 80))]
 
 
 @pytest.mark.cuda
@@ -1692,11 +1695,19 @@ def test_ln_mlp_at_c320_kernels(cuda, c, hidden, dtype):
 @pytest.mark.cuda
 def test_hd128_shared_memory_plans_match_the_source(cuda):
     """The 128-wide plans, the source's and the Python side's, at heads of
-    77, 122 and 128 in every window form, within one block's."""
+    77, 122 and 128 in every window form, within one block's; #8's row pass
+    and key pass each, the key pass within the half of an SM's that two
+    blocks a SM leave each."""
     from trainner_redux_tpu_torch.ops import cuda_build
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     lib = cuda_build.library("window_attention")
+    for n in (64, 128, 256):
+        rows, keys = wa.wide_bwd_smem_bytes(n)
+        assert (lib.trr_wide_bwd_smem_bytes(n, 0), lib.trr_wide_bwd_smem_bytes(n, 1)) == (
+            rows, keys)
+        assert rows <= wa.SMEM_LIMIT and 2 * (keys + 1024) <= 233_472
+    assert lib.trr_wide_bwd_smem_bytes(144, 0) == 0
     for c, nh in ((244, 2), (308, 4), (256, 2)):
         for window in list(RECT) + [(8, 8), (16, 16)]:
             assert lib.trr_rect_mhsa_smem_bytes(c, nh, *window) == wa.rect_mhsa_smem_bytes(

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import _opts, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.archs import build_network as jax_build_network
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu_torch.archs import build_network
@@ -45,6 +46,8 @@ from trainner_redux_tpu_torch.utils.torch_compat import (
     state_dict_from_jax,
 )
 
+# its limits were set at torch's default thread count (tests/torch_threads.py)
+TORCH_DEFAULT_THREADS = ("test_three_steps_match_jax",)
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 TINY = {"type": "dat", "embed_dim": 96, "depth": [2, 2], "num_heads": [4, 4],

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 TOL = 1e-5
 JPEG_TOL = 1e-4
 B, H, W = 2, 24, 24

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import _yaml
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 LQ, SCALE, BATCH = 8, 2, 6
 SIZES = [(24, 20), (16, 30), (20, 20)]  # LR (h, w) of the three sources

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 BLOCK_TOL = 1e-3
 JPEG_TOL = 1e-4
 

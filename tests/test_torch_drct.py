@@ -36,6 +36,7 @@ from tests.test_torch_span import (
     check_preset,
     shared_params,
 )
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
 
 # the golden fixture's config (tests/test_utils/test_golden_parity.py)

@@ -19,6 +19,7 @@ import torch
 
 from tests.test_torch_drct import GOLDEN
 from tests.test_torch_span import check_bf16
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 TRAIN = Path(__file__).resolve().parent.parent / "configs" / "_templates" / "train"
 TEMPLATES = sorted(p.name for p in (TRAIN / "DRCT").glob("*.yml"))

@@ -7,6 +7,7 @@
 from tests.test_torch_drct import GOLDEN
 from tests.test_torch_srformer import three_steps_match_jax
 from tests.test_torch_train import dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 
 def test_three_steps_match_jax(dataset, tmp_path, monkeypatch):  # noqa: F811

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.archs import build_network as jax_build_network
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu_torch.archs import arch_util as port_util

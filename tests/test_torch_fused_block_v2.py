@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.ops.pallas import fused_block_v2 as jv2
 from trainner_redux_tpu.ops.pallas.window_attention import shift_mask_kinds
 from trainner_redux_tpu_torch.ops import fused_block_v2 as tv2

@@ -29,6 +29,7 @@ from tests.test_torch_realesrgan import (  # noqa: F401 (fixtures)
     otf_config,
 )
 from tests.test_torch_train import _opts, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 
 def test_three_gan_steps_with_accum_match_jax(dataset, jax_weights, tmp_path,  # noqa: F811

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 
 def _close(got, want, what: str, tol: float = 1e-5) -> None:
     got, want = np.asarray(got), np.asarray(want)

@@ -37,8 +37,11 @@ import torch
 import yaml
 
 from tests.test_torch_train import _config, _opts, _to_port, _yaml, dataset  # noqa: F401
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
 
+# its limits were set at torch's default thread count (tests/torch_threads.py)
+TORCH_DEFAULT_THREADS = ("test_three_gan_steps_match_jax",)
 REPO = Path(__file__).resolve().parent.parent
 DUNET = {"type": "dunet", "num_feat": 16}
 # the perceptual loss at its two shallow default taps: the deeper ones, at a

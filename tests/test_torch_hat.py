@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import _opts, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.archs import build_network as jax_build_network
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu.utils.torch_compat import export_torch_state_dict

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from tests.test_torch_bf16_window_mlp import _assert_grad_close, _assert_out_close, _bf16
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.ops.pallas import fused_block as jfb
 from trainner_redux_tpu_torch.ops import fused_block as tfb
 

@@ -24,6 +24,7 @@ import torch
 
 from tests.test_torch_realesrgan import DETERMINISTIC, gt_root, otf_config  # noqa: F401
 from tests.test_torch_train import _opts
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 LQ_TOL = 1 / 255
 KEYS = ("gt", "kernel1", "kernel2", "sinc_kernel")

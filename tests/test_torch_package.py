@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "trainner_redux_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "trainner_redux_tpu"}

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import NET, _opts, _to_port
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 SEED = 3
 # every gate at 0 or 1, every range one point, one resize mode and one codec:

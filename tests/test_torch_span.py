@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from tests.test_torch_bf16_gan import hold_to_fp32
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.archs import build_network as jax_build_network
 from trainner_redux_tpu.archs import build_network_cast as jax_build_cast
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel

@@ -14,6 +14,7 @@ import pytest
 
 from tests.test_torch_span import GOLDEN_ARCH, GOLDEN_NETS, NETS, check_bf16, check_fp32, \
     check_golden, check_preset
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 
 
 @pytest.mark.parametrize("preset", ["spanc", "spanpp"])

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 NET = {"type": "swinir_s", "embed_dim": 24, "depths": [2, 2], "num_heads": [3, 3]}
 

@@ -20,6 +20,7 @@ import torch
 
 from tests.test_torch_srformerv2 import TINY, _jax_flat
 from tests.test_torch_train import _opts, dataset  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu_torch.utils.torch_compat import state_dict_from_jax
 

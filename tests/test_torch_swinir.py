@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.archs.swinir_arch import SwinIR as JaxSwinIR
 from trainner_redux_tpu.models.base_model import BaseModel as JaxBaseModel
 from trainner_redux_tpu.utils.torch_compat import export_torch_state_dict

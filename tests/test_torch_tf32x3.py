@@ -41,6 +41,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 C, HIDDEN, C_SRF, HIDDEN_SRF, T = 180, 360, 240, 480, 128
 K_STEP = 8  # the depth of one mma.sync.m16n8k8
 

@@ -32,6 +32,8 @@ import pytest
 import torch
 import yaml
 
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
+
 NET = {"type": "swinir_m", "embed_dim": 24, "depths": [2, 2], "num_heads": [3, 3],
        "drop_path_rate": 0}
 

@@ -9,10 +9,19 @@ CPU, where the port's wrappers run their plain versions:
   1e-4 of each largest; in bf16 (qkv and dout rounded to bf16, the kind
   table fp32; heads of 122 at K=4, of 77 at K=1) by
   tests/test_torch_bf16_window_mlp.py's rule;
+- #8's 128-wide schedule, blocked as its kernels block it (a row pass over
+  row blocks, S and dP summed over two 64-channel halves, dS and each row's
+  max and inverse sum saved; a key pass over key blocks and row blocks, P
+  recomputed from them), in PyTorch against `jax.vjp` of the JAX package's
+  window MHSA (its plain reference at square windows, the Pallas kernel in
+  interpret mode at 8x16 rectangles) at heads of 77, 122 and 128 and
+  windows of 64, 128 and 256 tokens, K=1 and K=4: dqkv and dbias within
+  1e-4 of each largest;
 - the gates: `window_mhsa_fits` and `rect_mhsa_fits` take heads of 65 to
   128 channels and not 129, on the 128-wide plans (`TC_ATTN_PLANS_128`:
-  one (n, 68) room for a half of k or v), while `heads_fit`, the block
-  kernels' gate, stays at 32;
+  one (n, 68) room for a half of k or v; #8's key pass
+  `TC_ATTN_KEY_PLAN_128`), while `heads_fit`, the block kernels' gate,
+  stays at 32;
 - the routing: every preset the port had before this form has heads of at
   most 64 channels (SRFormer's here; the others in
   tests/test_torch_window_attention_hd64.py), so none changes branch; every
@@ -20,6 +29,8 @@ CPU, where the port's wrappers run their plain versions:
   and 77) takes the kernels at the templates' 48x48 crops and at a 128x128
   image.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +40,7 @@ import torch
 
 from tests.test_torch_bf16_window_mlp import _assert_grad_close, _assert_out_close, _bf16
 from tests.test_torch_window_attention_hd64 import _head_dims
+from tests.torch_threads import torch_one_thread  # noqa: F401 (a fixture)
 from trainner_redux_tpu.ops.pallas import window_attention as jwa
 from trainner_redux_tpu_torch.ops import window_attention as twa
 
@@ -36,6 +48,28 @@ TOL = 1e-4  # of each tensor's largest magnitude
 NH = 2
 # (window size, head dim) -> (B, H, W)
 CASES = {(16, 122): (1, 32, 32), (16, 77): (1, 32, 32), (8, 122): (1, 16, 16)}
+
+
+def _vjp(fn, qkv, bias, dout):
+    """(out, *grads) of `fn` (a window MHSA of (qkv, bias)) through jax.vjp
+    for the output gradient dout."""
+    out, vjp = jax.vjp(fn, qkv, bias)
+    return (out, *vjp(dout))
+
+
+@functools.cache
+def _jax_vjp(fn):
+    """`_vjp` of `fn` jitted, once for each shape (K=1 and K=4 share the
+    compiled function); fp32 only: jitted whole, XLA on the CPU may keep
+    fp32 where an eager bf16 run rounds."""
+    return jax.jit(functools.partial(_vjp, fn))
+
+
+@functools.cache
+def _window_mhsa(hd: int, ws: int):
+    """The JAX package's fused_window_mhsa, the Pallas kernel in interpret
+    mode, at NH heads of hd channels."""
+    return lambda q, t: jwa.fused_window_mhsa(q, t, NH, hd, ws, True)
 
 
 def _inputs(ws: int, hd: int, kinds: int, bf16: bool):
@@ -59,10 +93,9 @@ def test_hd128_plain_versions_match_jax_vjp(ws, hd, kinds, dtype):
     bf16 = dtype == "bf16"
     qkv, bias, dout = _inputs(ws, hd, kinds, bf16)
     jdt = jnp.bfloat16 if bf16 else jnp.float32
-    want, vjp = jax.vjp(lambda q, t: jwa.fused_window_mhsa(q, t, NH, hd, ws, True),
-                        jnp.asarray(qkv, jdt), jnp.asarray(bias))
-    want_dqkv, want_dbias = (np.asarray(g, np.float32) for g in vjp(jnp.asarray(dout, jdt)))
-    want = np.asarray(want, np.float32)
+    run = functools.partial(_vjp, _window_mhsa(hd, ws)) if bf16 else _jax_vjp(_window_mhsa(hd, ws))
+    want, want_dqkv, want_dbias = (np.asarray(g, np.float32) for g in run(
+        jnp.asarray(qkv, jdt), jnp.asarray(bias), jnp.asarray(dout, jdt)))
 
     tdt = torch.bfloat16 if bf16 else torch.float32
     tq = torch.from_numpy(qkv).to(tdt).requires_grad_()
@@ -87,6 +120,101 @@ def test_hd128_plain_versions_match_jax_vjp(ws, hd, kinds, dtype):
         assert err <= TOL * top, f"{name}: max|diff| {err:.3g} vs max {top:.3g}"
 
 
+# #8's blocked schedule: (head dim, window (rows, columns)) -> map (H, W),
+# two windows a side (K=4: every kind once), B=1, two heads
+BLOCKED = {(hd, win): (2 * win[0], 2 * win[1]) for hd in (77, 122, 128)
+           for win in ((8, 8), (8, 16), (16, 16))}
+
+
+def _blocked_wide_bwd(qkv, bias, dout, num_heads, head_dim, wr, wc):
+    """(dqkv, dbias) of the window MHSA as the 128-wide #8's two kernels
+    block it, in fp32: the row pass over row blocks (`tc_attn_plan`), S and
+    dP summed over the head's two 64-channel halves, the softmax's max and
+    inverse sum kept for each row, dS kept, dQ = scale dS k a half at a
+    time; then the key pass over key blocks and, in each, row blocks
+    (`TC_ATTN_KEY_PLAN_128`), P recomputed from S, the bias and the kept
+    stats, dV = P^T dA and dK = scale dS^T q summed over the row blocks;
+    dbias the kept dS summed over the windows by kind."""
+    b, hh, ww, _ = qkv.shape
+    n, scale = wr * wc, head_dim**-0.5
+    q, k, v = (twa._window_heads(t, num_heads, wr, wc) for t in qkv.chunk(3, dim=-1))
+    da = twa._window_heads(dout, num_heads, wr, wc)
+    kind = twa.window_kinds(hh // wr, ww // wc, bias.shape[0])
+    table = bias[kind]  # (windows, heads, n, n)
+    halves = (slice(0, 64), slice(64, head_dim))
+    rb, _ = twa.tc_attn_plan(n, head_dim)
+    kb, r, _ = twa.TC_ATTN_KEY_PLAN_128
+    ds = torch.empty(*q.shape[:-1], n)
+    m, inv = (torch.empty(*q.shape[:-1], 1) for _ in range(2))
+    dq = torch.empty_like(q)
+    for r0 in range(0, n, rb):  # the row pass
+        rows = slice(r0, r0 + rb)
+        s = sum(q[..., rows, c] @ k[..., c].transpose(-1, -2) for c in halves)
+        s = s * scale + table[:, :, rows]
+        m[..., rows, :] = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m[..., rows, :])
+        inv[..., rows, :] = 1 / e.sum(-1, keepdim=True)
+        p = e * inv[..., rows, :]
+        dp = sum(da[..., rows, c] @ v[..., c].transpose(-1, -2) for c in halves)
+        ds[..., rows, :] = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq[..., rows, :] = torch.cat([ds[..., rows, :] @ k[..., c] for c in halves], -1) * scale
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, n, kb):  # the key pass
+        keys = slice(k0, k0 + kb)
+        dk_sum, dv_sum = torch.zeros_like(k[..., keys, :]), torch.zeros_like(v[..., keys, :])
+        for r0 in range(0, n, r):
+            rows = slice(r0, r0 + r)
+            s = q[..., rows, :] @ k[..., keys, :].transpose(-1, -2) * scale
+            p = torch.exp(s + table[:, :, rows, keys] - m[..., rows, :]) * inv[..., rows, :]
+            dv_sum += p.transpose(-1, -2) @ da[..., rows, :]
+            dk_sum += ds[..., rows, keys].transpose(-1, -2) @ q[..., rows, :]
+        dk[..., keys, :], dv[..., keys, :] = dk_sum * scale, dv_sum
+    dbias = torch.zeros(bias.shape).index_add_(0, kind, ds.sum(0))
+    dqkv = torch.cat([t.transpose(2, 3).flatten(-2) for t in (dq, dk, dv)], dim=-1)
+    return twa.rect_reverse(dqkv, hh, ww, wr, wc), dbias
+
+
+@functools.cache
+def _reference(hd: int, ws: int):
+    """The JAX package's plain window MHSA (a table a window)."""
+    return lambda q, t: jwa.reference_window_mhsa(q, t, NH, hd, ws)
+
+
+@functools.cache
+def _rect_mhsa(hd: int, wr: int, wc: int):
+    """The JAX package's fused_rect_mhsa, the Pallas kernel in interpret
+    mode."""
+    return lambda q, t: jwa.fused_rect_mhsa(q, t, NH, hd, wr, wc, True)
+
+
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("hd", "win"), list(BLOCKED),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_blocked_wide_schedule_matches_jax_vjp(hd, win, kinds):
+    wr, wc = win
+    hh, ww = BLOCKED[hd, win]
+    rng = np.random.default_rng(hd + 7 * wr + wc + kinds)
+    c, n = NH * hd, wr * wc
+    qkv = rng.standard_normal((1, hh, ww, 3 * c)).astype(np.float32)
+    rel = (rng.standard_normal((NH, n, n)) * 0.3).astype(np.float32)
+    masks = jwa.rect_shift_mask_kinds(wr, wc, wr // 2, wc // 2)[:, None] if kinds == 4 else 0.0
+    bias = np.ascontiguousarray(rel[None] + masks, dtype=np.float32)
+    dout = rng.standard_normal((1, hh, ww, c)).astype(np.float32)
+    if wr == wc:  # the JAX package's plain reference, on each window's table
+        kind = np.asarray(twa.window_kinds(hh // wr, ww // wc, kinds))
+        _, want_dqkv, per_window = (np.asarray(g) for g in _jax_vjp(_reference(hd, wr))(
+            jnp.asarray(qkv), jnp.asarray(bias[kind]), jnp.asarray(dout)))
+        want_dbias = np.zeros_like(bias)
+        np.add.at(want_dbias, kind, per_window)
+    else:  # the Pallas kernel in interpret mode
+        _, want_dqkv, want_dbias = (np.asarray(g) for g in _jax_vjp(_rect_mhsa(hd, wr, wc))(
+            jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(dout)))
+    got = _blocked_wide_bwd(*(torch.from_numpy(a) for a in (qkv, bias, dout)), NH, hd, wr, wc)
+    for name, g, w in zip(("dqkv", "dbias"), got, (want_dqkv, want_dbias)):
+        err, top = np.abs(g.numpy() - w).max(), np.abs(w).max()
+        assert err <= TOL * top, f"{name}: max|diff| {err:.3g} vs max {top:.3g}"
+
+
 def test_gates_take_heads_of_up_to_128():
     for hd in list(range(60, 70)) + list(range(120, 134)):
         c = 2 * hd
@@ -102,21 +230,27 @@ def test_gates_take_heads_of_up_to_128():
 
 def test_hd128_plans():
     """The 128-wide plans: one (n, 68) room for a half of k or v (a whole
-    128-wide head's k and v would need 270,336 B at n 256); the forward on
-    rows of 64 in two key parts (173,056 B at n 256), the backward on the
-    64-wide plans (rows of 32 in four parts: 131,584 B); the 32- and 64-wide
-    plans unchanged."""
+    128-wide head's k and v would need 270,336 B at n 256); the forward and
+    #8's row pass on rows of 64 in two key parts (173,056 B and 190,976 B at
+    n 256); #8's key pass on blocks of 64 keys whose whole k rows stay
+    staged, rows of 32 in four key parts (86,016 B at n 256, two blocks a
+    SM); the backward's size the larger of its passes'; the 32- and
+    64-wide plans unchanged."""
     assert 4 * 2 * 256 * (128 + 4) == 270_336 > twa.SMEM_LIMIT
     assert twa.tc_attn_plan(256, 122) == twa.tc_attn_plan(64, 77) == (64, 2)
-    assert twa.tc_attn_plan(256, 122, backward=True) == twa.tc_attn_plan(256, 35) == (32, 4)
+    assert twa.tc_attn_plan(256, 35) == (32, 4)
     assert twa.tc_attn_plan(256, 30) == (64, 4)
+    assert twa.TC_ATTN_KEY_PLAN_128 == (64, 32, 4)
     assert twa.window_mhsa_smem_bytes(244, 2, 16) == 173_056
-    assert twa.window_mhsa_bwd_smem_bytes(244, 2, 16) == 131_584
+    assert twa.wide_bwd_smem_bytes(256) == (190_976, 86_016)
+    assert twa.window_mhsa_bwd_smem_bytes(244, 2, 16) == 190_976
     assert twa.window_mhsa_smem_bytes(210, 6, 16) == 192_000  # ATD's, as before
     assert twa.window_mhsa_smem_bytes(180, 6, 16) == 161_792  # HAT-M's, as before
     for n in (64, 128, 256):
-        assert max(twa.attn_fwd_tc_smem_bytes(n, 122),
-                   twa.attn_bwd_tc_smem_bytes(n, att=False, head_dim=77)) <= twa.SMEM_LIMIT
+        rows, keys = twa.wide_bwd_smem_bytes(n)
+        assert max(twa.attn_fwd_tc_smem_bytes(n, 122), rows) <= twa.SMEM_LIMIT
+        assert twa.attn_bwd_tc_smem_bytes(n, att=False, head_dim=77) == rows > keys
+        assert 2 * (keys + 1024) <= 233_472  # two key-pass blocks a SM
 
 
 @pytest.mark.parametrize("preset", ["srformer", "srformer_light"])

@@ -25,7 +25,8 @@
 // the rows to 64 channels, head_ld(64) = 68 floats apart (again 4 past a
 // multiple of 32 banks), on plans of their own (attn_plan(n, 64)); the
 // padded lanes are zeros in q, k, v and dA, so they add nothing to any
-// product.
+// product. #8's 128-wide key pass stages whole heads of 65 to 128 channels
+// the same way, padded to 128, head_ld(128) = 132 floats apart.
 //
 // The bf16 forms (attn_rows_fwd_bf16_kernel, with P as the bf16 training
 // block's #4 stage and without it as #3's bf16 form and #1's bf16 stage;
@@ -50,7 +51,7 @@ namespace trr {
 
 constexpr int kHeadLd = 36;
 
-// Floats between two staged head rows of HD (32 or 64) channels.
+// Floats between two staged head rows of HD (32, 64 or 128) channels.
 __host__ __device__ constexpr int head_ld(int HD) { return HD + 4; }
 
 __host__ __device__ constexpr int attn_tc_threads(int RB, int KS = 2) {
@@ -65,7 +66,7 @@ struct AttnWarps {
   static constexpr int CW = HD / KS, CT = CW / 8;  // output channels of a warp, in tiles of 8
   static constexpr int CU = HD / 16;               // 16-channel units of a key tile
   static constexpr int UNITS = CU * (N / 16) / NW;
-  static_assert(HD == 32 || HD == 64, "rows of 32 or 64 channels");
+  static_assert(HD == 32 || HD == 64 || HD == 128, "rows of 32, 64 or 128 channels");
   static_assert(RB % 16 == 0 && N % RB == 0 && PART % 8 == 0 && CW % 8 == 0,
                 "the tiles must split evenly");
   static_assert(CU * (N / 16) == UNITS * NW, "dK and dV units must share out evenly");
@@ -96,9 +97,9 @@ struct AttnWarps {
   // o = Y X^T for this warp's rows and part of the keys, over the HD
   // channels: Y the (RB, LD) rows (q or dA), X the (N, LD) rows (k or v);
   // ACC: o += Y X^T (the 128-wide form's second 64-channel half). With four
-  // or eight parts (16 warps, 128 registers a thread), and at 64 channels,
-  // the channel steps stay a loop: unrolled, ptxas spilled at n 256 (and, in
-  // bf16, at n 128 with 64 channels).
+  // or eight parts (16 warps, 128 registers a thread), and at 64 or 128
+  // channels, the channel steps stay a loop: unrolled, ptxas spilled at n
+  // 256 (and, in bf16, at n 128 with 64 channels).
   template <bool ACC = false>
   __device__ void rows_by_channels(const float* Y, const float* X, float (&o)[NT][4]) const {
     if constexpr (!ACC) {
@@ -108,7 +109,7 @@ struct AttnWarps {
         for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
     }
     if constexpr (BF) {
-#pragma unroll(HD == 64 ? 1 : 2)
+#pragma unroll(HD >= 64 ? 1 : 2)
       for (int k0 = 0; k0 < HD; k0 += 16) {
         MmaABf a;
         mma_load_a_bf16<false>(a, Y + row0 * LD + k0, LD);
@@ -116,7 +117,7 @@ struct AttnWarps {
         for (int j = 0; j < NT; ++j) mma1_bf16<true>(o[j], a, X + (col0 + 8 * j) * LD + k0, LD);
       }
     } else {
-#pragma unroll(KS >= 4 || HD == 64 ? 1 : 4)
+#pragma unroll(KS >= 4 || HD >= 64 ? 1 : 4)
       for (int k0 = 0; k0 < HD; k0 += 8) {
         MmaA a;
         mma_load_a<false>(a, Y + row0 * LD + k0, LD);
@@ -159,7 +160,7 @@ struct AttnWarps {
     for (int u = 0; u < UNITS; ++u) {
       const int unit = warp + NW * u, kt = unit / CU, ch = unit % CU;
       if constexpr (BF) {
-#pragma unroll(HD == 64 ? 1 : 2)
+#pragma unroll(HD >= 64 ? 1 : 2)
         for (int k0 = 0; k0 < RB; k0 += 16) {
           MmaABf a;
           mma_load_a_bf16<true>(a, pt + k0 * LP + 16 * kt, LP);
@@ -168,7 +169,7 @@ struct AttnWarps {
             mma1_bf16<false>(acc[u][j], a, Y + k0 * LD + 16 * ch + 8 * j, LD);
         }
       } else {
-#pragma unroll(HD == 64 ? 1 : 2)
+#pragma unroll(HD >= 64 ? 1 : 2)
         for (int k0 = 0; k0 < RB; k0 += 8) {
           MmaA a;
           mma_load_a<true>(a, pt + k0 * LP + 16 * kt, LP);
@@ -222,8 +223,12 @@ struct AttnWarps {
   }
 
   // softmax_rows from S already in this warp's fragments p (the 128-wide
-  // form sums S over its two 64-channel halves first).
-  __device__ void softmax_frags(float (&p)[NT][4], float* pt, float* red, float scale) const {
+  // form sums S over its two 64-channel halves first). STATS: each row's
+  // max and inverse sum also to stats[row of the block] (the 128-wide #8's
+  // row pass, from which its key pass recomputes P).
+  template <bool STATS = false>
+  __device__ void softmax_frags(float (&p)[NT][4], float* pt, float* red, float scale,
+                                float2* stats = nullptr) const {
     float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -251,16 +256,21 @@ struct AttnWarps {
         const float inv = 1.f / sum[i];
         *at(pt, i, j) = make_float2(p[j][2 * i] * inv, p[j][2 * i + 1] * inv);
       }
+    if constexpr (STATS) {
+      if (part == 0 && q4 == 0)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) stats[s_row(i)] = make_float2(m[i], 1.f / sum[i]);
+    }
   }
 };
 
 // dst[r * head_ld(HD) + d] = row(r)[d] for d < hd, else 0, for the ROWS
-// rows of HD (32 or 64) channels (NTH threads; each thread's loads issued
+// rows of HD (32, 64 or 128) channels (NTH threads; each thread's loads issued
 // before its stores; HD / 32 warps hold a row at each step, a channel a
 // lane; scalar loads, so a head may start at any element of its token's
-// row; at HD 64 in batches of BATCH (8) elements a thread, which keeps the
-// loads' addresses out of the way of the registers the kernels hold; the
-// 128-wide form's halves take 16). NORM,
+// row; at HD 64 and 128 in batches of BATCH (8) elements a thread, which
+// keeps the loads' addresses out of the way of the registers the kernels
+// hold; the 128-wide forward's and #8's row pass's halves take 16). NORM,
 // SwinV2's cosine attention (HD 32): each row divided by
 // max(|row|, 1e-12), its L2 norm over hd (the JAX package's _norm_rows,
 // torch's F.normalize; the zero padding adds nothing), and, where inv is
@@ -270,7 +280,7 @@ __device__ __forceinline__ void stage_head_rows(float* dst, int hd, Row row,
                                                 float* inv = nullptr) {  // row(r): float or bf16
   static_assert(ROWS * HD % NTH == 0 && NTH % 32 == 0, "the rows must split evenly");
   static_assert(!NORM || HD == 32, "the cosine rows are a warp each");
-  constexpr int PER = ROWS * HD / NTH, CH = HD == 64 && PER > BATCH ? BATCH : PER;
+  constexpr int PER = ROWS * HD / NTH, CH = HD >= 64 && PER > BATCH ? BATCH : PER;
 #pragma unroll 1  // a batch's loads are not hoisted above the last batch's stores
   for (int i0 = 0; i0 < PER; i0 += CH) {
     float v[CH];
@@ -741,29 +751,48 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
 
 // The 128-wide form of #3 and #8 (heads of 65 to 128 channels: DRCT's 122
 // and 77). k and v of a whole 128-wide head would take 2 N head_ld(128) =
-// 270,336 B of fp32 rows at n 256, past a block's 232,448, so the head goes
-// in two 64-channel halves, each staged in turn into one (N, head_ld(64))
-// room with the 64-wide form's helpers (AttnWarps<.., 64>) on a plan of its
-// own (attn_plan(n, 128): rows of 64 in two key parts, 8 warps, one block a
-// SM with up to 255 registers a thread). The products that sum over the channels take both
-// halves in turn into the same fragments: S = q k^T (rows_by_channels, the
-// second half with ACC) and, in the backward, dP = dA v^T; the products
-// whose outputs are channels go a half at a time: att = P v, dQ = dS k, and
-// dK += dS^T q and dV += P^T dA, whose sums over the row blocks stay in
-// registers, in passes of their own over the row blocks, one an output half
-// (dV's two, then dK's two with dQ), each recomputing S and the softmax (and
-// dP for dK): what keeps a thread's registers at the 64-wide form's. The
-// second half holds hd - 64 channels and is zero past them. T: float (3xTF32
-// on mma.sync m16n8k8) or bf16 (m16n8k16, fp32 sums, P and bf16(scale dS)
-// rounded as the fragments load, as the 64-wide bf16 forms). Grids and
-// outputs as attn_rows_fwd_tc_kernel's (no shift, no P) and
-// attn_rows_bwd_tc_kernel's (no att, no saved P): the same bias-kind
-// reduction of dS follows.
+// 270,336 B of fp32 rows at n 256, past a block's 232,448, so the forward
+// and #8's row pass take the head in two 64-channel halves, each staged in
+// turn into one (N, head_ld(64)) room with the 64-wide form's helpers
+// (AttnWarps<.., 64>) on a plan of their own (attn_plan(n, 128): rows of 64
+// in two key parts, 8 warps, one block a SM with up to 255 registers a
+// thread). The products that sum over the channels take both halves in turn
+// into the same fragments: S = q k^T (rows_by_channels, the second half with
+// ACC) and dP = dA v^T; the products whose outputs are channels go a half at
+// a time: att = P v and dQ = dS k. The second half holds hd - 64 channels and
+// is zero past them.
+//
+// #8 is two kernels, each doing its products once (five of the function's,
+// and S once more):
+//   - the row pass (attn_wide_bwd_rows_kernel): one block per (window, head,
+//     row block of 64). S over both halves, the softmax (each row's max and
+//     inverse sum to a (B, H/wr, W/wc, nh, N) float2 scratch), dP = dA v^T
+//     over both halves, dS = P (dP - rowsum(P dP)) to the dS buffer (which
+//     the bias-kind reduction sums), dQ = scale dS k a half at a time. The
+//     sums over the keys stay inside the block.
+//   - the key pass (attn_wide_bwd_keys_kernel): one block per (window, head,
+//     block of KB keys), whose k rows stay staged whole (HD 128: the key
+//     block's 64 rows take 33,792 B) while it walks the row blocks of R rows:
+//     q and dA rows staged whole, S = q k^T of the block's keys recomputed and
+//     P = exp(S scale + bias - max) / sum from the row pass's stats (the same
+//     products in the same order as the row pass's, so the same P), dS read
+//     back from the buffer (L2-resident: 37.7 MB at drct's swin_3 block), dV
+//     += P^T dA and dK += dS^T q in registers. The sums over the rows stay
+//     inside the block.
+// No atomics: every output element is written by one block, its sums in a
+// fixed order, so two runs are bit-identical. The grids grow with the row
+// and key blocks (at drct's swin_3 block, 144 (window, head) pairs: 576
+// blocks a pass), which fills the card's waves where one block a (window,
+// head) left a second wave of 12. T: float (3xTF32 on mma.sync m16n8k8) or
+// bf16 (m16n8k16, fp32 sums, P and bf16(scale dS) rounded as the fragments
+// load, as the 64-wide bf16 forms). Grids and outputs as
+// attn_rows_fwd_tc_kernel's (no shift, no P) and attn_rows_bwd_tc_kernel's
+// (no att, no saved P): the same bias-kind reduction of dS follows.
 
-// Loads a thread keeps in flight as the 128-wide forward stages a half
-// (the 64-wide form's 8 left it waiting on L2 for most of its staging); the
-// backward, whose dK or dV sums hold 64 more floats a thread, keeps 8
-// (16 spilled there).
+// Loads a thread keeps in flight as the 128-wide forward and #8's row pass
+// stage a half (the 64-wide form's 8 left it waiting on L2 for most of its
+// staging); the key pass, whose dK and dV sums hold 64 floats a thread under
+// a cap of 128 registers (two blocks a SM), keeps 8.
 constexpr int kWideBatch = 16, kWideBwdBatch = 8;
 
 // Shared memory of attn_rows_fwd_wide_kernel, in floats: the (N, head_ld(64))
@@ -774,11 +803,34 @@ __host__ __device__ constexpr int attn_wide_fwd_smem_floats(int N, int RB, int K
   return N * head_ld(64) + 2 * RB * head_ld(64) + RB * (N + 4) + 2 * KS * RB + N;
 }
 
-// Shared memory of attn_rows_bwd_wide_kernel, in floats: the room of a k,
-// v, dk or dv half, this row block's q, dA and dq halves, the P / dS rows,
-// three (KS, RB) exchanges and the N token indices.
-__host__ __device__ constexpr int attn_wide_bwd_smem_floats(int N, int RB, int KS) {
+// Shared memory of attn_wide_bwd_rows_kernel, in floats: the room of a k or
+// v half, this row block's q, dA and dq halves, the P / dS rows, three (KS,
+// RB) exchanges and the N token indices.
+__host__ __device__ constexpr int attn_wide_rows_smem_floats(int N, int RB, int KS) {
   return N * head_ld(64) + 3 * RB * head_ld(64) + RB * (N + 4) + 3 * KS * RB + N;
+}
+
+// Shared memory of attn_wide_bwd_keys_kernel, in floats: the key block's k
+// rows (KB, head_ld(128)), which take its dk on the way out, a row block's q
+// and dA rows (R, head_ld(128)) each, which together take its dv, the P and
+// dS tiles (R, KB + 4), and the window's N token indices.
+__host__ __device__ constexpr int attn_wide_keys_smem_floats(int N, int KB, int R) {
+  return KB * head_ld(128) + 2 * R * head_ld(128) + 2 * R * (KB + 4) + N;
+}
+
+// The ROWS x COLS block at src (row stride ld) into the (ROWS, COLS + 4)
+// tile pt, each entry times mul, 4 entries a copy (NTH threads).
+template <int ROWS, int COLS, int NTH>
+__device__ __forceinline__ void stage_block_rows(float* pt, const float* __restrict__ src,
+                                                 int ld, float mul) {
+  constexpr int Q = COLS / 4;
+  static_assert(COLS % 4 == 0, "rows of 4-entry pieces");
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * Q; e += NTH) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(src + (size_t)(e / Q) * ld) + e % Q);
+    v.x *= mul, v.y *= mul, v.z *= mul, v.w *= mul;
+    reinterpret_cast<float4*>(pt + (e / Q) * (COLS + 4))[e % Q] = v;
+  }
 }
 
 // S = q k^T of the row block of tokens rt over both halves of head h, into
@@ -861,139 +913,202 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), 1)
   }
 }
 
-// The 128-wide #8: one block per (window, head) on attn_rows_bwd_tc_kernel's
-// grid. Four passes over the row blocks, each recomputing S and the softmax:
-// dV's first half, dV's second (dV += P^T dA), then for each half dK += dS^T
-// q with dQ = scale dS k of every row block, dP = dA v^T and dS = P (dP -
-// rowsum(P dP)) recomputed (dS to its buffer in the first). dK and dV leave
-// through the room of the halves, a head row at a time.
+// The 128-wide #8's row pass: one block per (window, head, row block of
+// RB), the row blocks fastest (grid (nh N / RB, windows, B)): S over both
+// halves and the softmax (each row's max and inverse sum to `stats`), dP =
+// dA v^T over both halves, dS = P (dP - rowsum(P dP)) in place of P and to
+// its buffer (bf16: scale dS in the tile, rounded as it loads), then dQ =
+// scale dS k a half at a time, out through shared memory a head row at a
+// time.
 template <int N, int RB, int KS, typename T>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS), 1)
-    attn_rows_bwd_wide_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+    attn_wide_bwd_rows_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                               const T* __restrict__ datt, T* __restrict__ dqkv,
-                              float* __restrict__ dS, int H, int W, int C, int nh, int wr, int wc,
-                              int kinds, float scale) {
+                              float* __restrict__ dS, float2* __restrict__ stats, int H, int W,
+                              int C, int nh, int wr, int wc, int kinds, float scale) {
   constexpr bool BF = std::is_same<T, bf16>::value;
   using AW = AttnWarps<N, RB, KS, BF, 64>;
-  constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, CT = AW::CT;
-  constexpr int UNITS = AW::UNITS, X = KS * RB;
+  constexpr int NTH = AW::NTH, LD = AW::LD, NT = AW::NT, CT = AW::CT, X = KS * RB;
   extern __shared__ __align__(16) float smem[];
   const int hd = C / nh, C3 = 3 * C;
   const int nww = W / wc, nwh = H / wr;
-  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww, h = blockIdx.x;
+  const int r0 = RB * (blockIdx.x % (N / RB)), h = blockIdx.x / (N / RB);
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww;
   const AW aw;
-  float* xs = smem;              // (N, LD) a half of k or v, and of dk or dv on their way out
+  float* xs = smem;              // (N, LD) a half of k or v
   float* qs = xs + N * LD;       // (RB, LD) a half of this row block's q
   float* das = qs + RB * LD;     // (RB, LD) a half of its datt
   float* oq = das + RB * LD;     // (RB, LD) a half of its dq
   float* pt = oq + RB * LD;      // (RB, LP): the bias rows, P, then dS
-  float* red = pt + RB * LP;     // (3, KS, RB): each part's row max, row sum, rowsum(P dP)
+  float* red = pt + RB * AW::LP;  // (3, KS, RB): each part's row max, row sum, rowsum(P dP)
   int* tok = reinterpret_cast<int*>(red + 3 * X);  // (N) the window's tokens
   for (int r = threadIdx.x; r < N; r += NTH)
     tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, 0);
   const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
-  const size_t head = (((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h) * N * N;
+  const size_t rows = ((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h;  // (b, win, h)
+  const int* rt = tok + r0;  // this row block's tokens
   __syncthreads();
-#pragma unroll 1
-  for (int pass = 0; pass < 4; ++pass) {
-    const bool dv_pass = pass < 2;
-    const int c = pass % 2, off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
-    float acc[UNITS][2][4];  // dV's or dK's half, over the row blocks
-#pragma unroll
-    for (int u = 0; u < UNITS; ++u)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
-    for (int r0 = 0; r0 < N; r0 += RB) {
-      const int* rt = tok + r0;  // this row block's tokens
-      {
-        float s[NT][4];
-        wide_scores<kWideBwdBatch>(aw, s, qkv, tok, rt, table + (size_t)r0 * N, xs, qs, pt, C,
-                                   h, hd);
-        aw.softmax_frags(s, pt, red, scale);  // P to the tile
-      }
-      if (dv_pass) {  // dV's half += P^T dA's half
-        stage_head_rows<RB, NTH, false, 64, kWideBwdBatch>(
-            das, n_c, [&](int r) { return datt + (long long)rt[r] * C + off; });
-        __syncthreads();  // dA's half staged, P whole
-        aw.keys_by_rows(pt, das, acc);
-        __syncthreads();  // the tile and dA are rewritten by the next row block
-        continue;
-      }
-      float dp[NT][4];  // dP = dA v^T over both halves
-#pragma unroll 1
-      for (int cc = 0; cc < 2; ++cc) {
-        const int o2 = h * hd + 64 * cc, m_c = cc ? hd - 64 : 64;
-        stage_head_rows<N, NTH, false, 64, kWideBwdBatch>(
-            xs, m_c, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + o2; });
-        stage_head_rows<RB, NTH, false, 64, kWideBwdBatch>(
-            das, m_c, [&](int r) { return datt + (long long)rt[r] * C + o2; });
-        __syncthreads();  // v's and dA's halves staged (and, the first time, P whole)
-        if (cc == 0)
-          aw.rows_by_channels(das, xs, dp);
-        else
-          aw.template rows_by_channels<true>(das, xs, dp);
-        __syncthreads();  // every warp is done with the halves
-      }
-      {  // dS = P (dP - rowsum(P dP)) in place of P (bf16: scale dS, rounded as it loads)
-        float delta[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float2 pv = *aw.at(pt, i, j);
-            delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
-            delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
-          }
-        aw.row_total(red + 2 * X, delta, false);  // its barrier: every warp is done reading P
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float2 pv = *aw.at(pt, i, j);
-            const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
-                                         pv.y * (dp[j][2 * i + 1] - delta[i]));
-            *aw.at(pt, i, j) = BF ? make_float2(scale * v.x, scale * v.y) : v;
-            if (c == 0)
-              *reinterpret_cast<float2*>(dS + head + (size_t)(r0 + aw.s_row(i)) * N +
-                                         aw.s_col(j)) = v;
-          }
-      }
-      stage_head_rows<N, NTH, false, 64, kWideBwdBatch>(
-          xs, n_c, [&](int r) { return qkv + (long long)tok[r] * C3 + C + off; });
-      stage_head_rows<RB, NTH, false, 64, kWideBwdBatch>(
-          qs, n_c, [&](int r) { return qkv + (long long)rt[r] * C3 + off; });
-      __syncthreads();  // dS whole; k's and q's halves staged
-      {  // dQ's half = scale dS k's half
-        float o[CT][4];
-        aw.rows_by_keys(pt, xs, o);
-#pragma unroll
-        for (int j = 0; j < CT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = (BF ? 1.f : scale) * o[j][e];
-      }
-      aw.keys_by_rows(pt, qs, acc);  // dK's half += dS^T q's half (scaled at the end)
-      __syncthreads();  // dq's half whole; the halves and the tile are rewritten next
-      store_head_rows<RB, NTH, 64>(oq, n_c,
-                                   [&](int r) { return dqkv + (long long)rt[r] * C3 + off; });
-    }
-    // the half to the room of the halves, then out: dv (k's place + C) or dk
-    const float mul = dv_pass || BF ? 1.f : scale;
-#pragma unroll
-    for (int u = 0; u < UNITS; ++u)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          xs[aw.u_key(u, e) * LD + aw.u_chan(u, j, e)] = mul * acc[u][j][e];
-    __syncthreads();
-    store_head_rows<N, NTH, 64>(xs, n_c, [&](int r) {
-      return dqkv + (long long)tok[r] * C3 + (dv_pass ? 2 * C : C) + off;
-    });
-    __syncthreads();  // xs is rewritten by the next pass
+  {
+    float s[NT][4];
+    wide_scores<kWideBatch>(aw, s, qkv, tok, rt, table + (size_t)r0 * N, xs, qs, pt, C, h, hd);
+    aw.template softmax_frags<true>(s, pt, red, scale, stats + rows * N + r0);  // P to the tile
   }
+  float dp[NT][4];  // dP = dA v^T over both halves
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    const int off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
+    stage_head_rows<N, NTH, false, 64, kWideBatch>(
+        xs, n_c, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + off; });
+    stage_head_rows<RB, NTH, false, 64, kWideBatch>(
+        das, n_c, [&](int r) { return datt + (long long)rt[r] * C + off; });
+    __syncthreads();  // v's and dA's halves staged (and, the first time, P whole)
+    if (c == 0)
+      aw.rows_by_channels(das, xs, dp);
+    else
+      aw.template rows_by_channels<true>(das, xs, dp);
+    __syncthreads();  // every warp is done with the halves
+  }
+  {  // dS = P (dP - rowsum(P dP)) in place of P and to its buffer
+    float delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 pv = *aw.at(pt, i, j);
+        delta[i] = fmaf(pv.x, dp[j][2 * i], delta[i]);
+        delta[i] = fmaf(pv.y, dp[j][2 * i + 1], delta[i]);
+      }
+    aw.row_total(red + 2 * X, delta, false);  // its barrier: every warp is done reading P
+    float* ds = dS + (rows * N + r0) * N;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 pv = *aw.at(pt, i, j);
+        const float2 v = make_float2(pv.x * (dp[j][2 * i] - delta[i]),
+                                     pv.y * (dp[j][2 * i + 1] - delta[i]));
+        *aw.at(pt, i, j) = BF ? make_float2(scale * v.x, scale * v.y) : v;
+        *reinterpret_cast<float2*>(ds + (size_t)aw.s_row(i) * N + aw.s_col(j)) = v;
+      }
+  }
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {  // dQ = scale dS k, a half at a time
+    const int off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
+    stage_head_rows<N, NTH, false, 64, kWideBatch>(
+        xs, n_c, [&](int r) { return qkv + (long long)tok[r] * C3 + C + off; });
+    __syncthreads();  // k's half staged (and, the first time, dS whole)
+    float o[CT][4];
+    aw.rows_by_keys(pt, xs, o);
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oq[aw.o_row(e) * LD + aw.o_chan(j, e)] = (BF ? 1.f : scale) * o[j][e];
+    __syncthreads();  // dq's half whole; xs free
+    store_head_rows<RB, NTH, 64>(oq, n_c,
+                                 [&](int r) { return dqkv + (long long)rt[r] * C3 + off; });
+  }
+}
+
+// The 128-wide #8's key pass: one block per (window, head, block of KB
+// keys), the key blocks fastest (grid (nh N / KB, windows, B)), on
+// AttnWarps<KB, R, KS, .., 128>: the key block's k rows staged whole once;
+// per row block of R rows, q and dA staged whole and dS's (R, KB) block from
+// the row pass's buffer (bf16: scale dS), S = q k^T, P from the row pass's
+// stats and the bias rows (loaded while the block stages), then dV += P^T dA
+// and dK += dS^T q in registers across the row blocks; dK (scaled) and dV
+// leave through the rooms of k and of q and dA, a head row at a time.
+template <int N, int KB, int R, int KS, typename T>
+__global__ void __launch_bounds__(attn_tc_threads(R, KS), 2)
+    attn_wide_bwd_keys_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                              const T* __restrict__ datt, T* __restrict__ dqkv,
+                              const float* __restrict__ dS, const float2* __restrict__ stats,
+                              int H, int W, int C, int nh, int wr, int wc, int kinds,
+                              float scale) {
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  using AW = AttnWarps<KB, R, KS, BF, 128>;
+  constexpr int NTH = AW::NTH, LD = AW::LD, LP = AW::LP, NT = AW::NT, UNITS = AW::UNITS;
+  static_assert(N % KB == 0 && N % R == 0 && KB <= 2 * R, "the key and row blocks must fit");
+  extern __shared__ __align__(16) float smem[];
+  const int hd = C / nh, C3 = 3 * C;
+  const int nww = W / wc, nwh = H / wr;
+  const int k0 = KB * (blockIdx.x % (N / KB)), h = blockIdx.x / (N / KB);
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww;
+  const AW aw;
+  float* ks = smem;            // (KB, LD) the key block's k, then its dk
+  float* qs = ks + KB * LD;    // (R, LD) a row block's q; with das, the key block's dv
+  float* das = qs + R * LD;    // (R, LD) its datt
+  float* pt = das + R * LD;    // (R, LP) its P at the block's keys
+  float* dst = pt + R * LP;    // (R, LP) its dS there (bf16: scale dS)
+  int* tok = reinterpret_cast<int*>(dst + R * LP);  // (N) the window's tokens
+  for (int r = threadIdx.x; r < N; r += NTH)
+    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, 0);
+  const size_t rows = ((size_t)blockIdx.z * nwh * nww + blockIdx.y) * nh + h;  // (b, win, h)
+  const float* table =
+      bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N + k0;
+  const float* ds = dS + rows * N * N + k0;
+  const float2* st = stats + rows * N;
+  __syncthreads();
+  stage_head_rows<KB, NTH, false, 128, kWideBwdBatch>(
+      ks, hd, [&](int r) { return qkv + (long long)tok[k0 + r] * C3 + C + h * hd; });
+  float dv[UNITS][2][4], dk[UNITS][2][4];
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[u][j][e] = dk[u][j][e] = 0.f;
+  for (int r0 = 0; r0 < N; r0 += R) {
+    const int* rt = tok + r0;  // this row block's tokens
+    stage_head_rows<R, NTH, false, 128, kWideBwdBatch>(
+        qs, hd, [&](int r) { return qkv + (long long)rt[r] * C3 + h * hd; });
+    stage_head_rows<R, NTH, false, 128, kWideBwdBatch>(
+        das, hd, [&](int r) { return datt + (long long)rt[r] * C + h * hd; });
+    stage_block_rows<R, KB, NTH>(dst, ds + (size_t)r0 * N, N, BF ? scale : 1.f);
+    float2 bb[NT][2], ms[2];  // this thread's bias pairs and its rows' max and inverse sum
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + aw.s_row(i);
+      ms[i] = __ldg(st + r);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        bb[j][i] = __ldg(reinterpret_cast<const float2*>(table + (size_t)r * N + aw.s_col(j)));
+    }
+    __syncthreads();  // q, dA and dS's block (and, the first time, k) staged
+    {  // P = exp(S scale + bias - max) / sum, as the row pass's softmax_frags
+      float p[NT][4];
+      aw.rows_by_channels(qs, ks, p);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          p[j][2 * i] = p[j][2 * i] * scale + bb[j][i].x;
+          p[j][2 * i + 1] = p[j][2 * i + 1] * scale + bb[j][i].y;
+          *aw.at(pt, i, j) = make_float2(expf(p[j][2 * i] - ms[i].x) * ms[i].y,
+                                         expf(p[j][2 * i + 1] - ms[i].x) * ms[i].y);
+        }
+    }
+    __syncthreads();  // P is whole
+    aw.keys_by_rows(pt, das, dv);  // dV += P^T dA
+    aw.keys_by_rows(dst, qs, dk);  // dK += dS^T q (scaled once, at the end)
+    __syncthreads();  // q, dA and the tiles are rewritten by the next row block
+  }
+  float* dvs = qs;  // (KB, LD) over the rooms of q and dA
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = aw.u_key(u, e) * LD + aw.u_chan(u, j, e);
+        ks[i] = (BF ? 1.f : scale) * dk[u][j][e];
+        dvs[i] = dv[u][j][e];
+      }
+  __syncthreads();
+  store_head_rows<KB, NTH, 128>(
+      ks, hd, [&](int r) { return dqkv + (long long)tok[k0 + r] * C3 + C + h * hd; });
+  store_head_rows<KB, NTH, 128>(
+      dvs, hd, [&](int r) { return dqkv + (long long)tok[k0 + r] * C3 + 2 * C + h * hd; });
 }
 
 // The plan (N, RB, KS) of a window of n tokens, as attn_rows_bwd_tc_kernel
@@ -1009,7 +1124,8 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), 1)
 // 64-channel halves) takes rows of 64 in two key parts at every n (8
 // warps, one block a SM: its rooms hold one 64-channel half of k or v, so
 // rows of 64 fit, 173,056 B at n 256, and halve the restaging of k and v
-// against rows of 32); its backward, attn_wide_bwd_plan.
+// against rows of 32), and so does #8's row pass (190,976 B at n 256); #8's
+// key pass, WideKeyPlan.
 struct AttnPlan {
   int rb, ks;
 };
@@ -1022,10 +1138,13 @@ __host__ __device__ constexpr AttnPlan attn_plan(int n, int hd = 32) {
                     : AttnPlan{0, 0};
 }
 
-// The 128-wide backward's plan: the 64-wide plans (rows of 32 in four key
-// parts at n 256 and 128): with rows of 64 in two parts its S or dP
-// fragments (64 floats) beside its dK or dV sums (64) spilled.
-__host__ __device__ constexpr AttnPlan attn_wide_bwd_plan(int n) { return attn_plan(n, 64); }
+// The 128-wide #8's key pass at every n: blocks of 64 keys, rows of 32 in
+// four key parts (8 warps; a thread's dK and dV sums 32 floats each, its S
+// fragments 8), 86,016 B of shared memory at n 256, two blocks a SM.
+struct WideKeyPlan {
+  int kb, r, ks;
+};
+constexpr WideKeyPlan kWideKeyPlan{64, 32, 4};
 
 // attn_rows_fwd_tc_kernel at windows of N tokens and rows of HD channels;
 // COS, the cosine form, with the heads' temperatures `temps` (nh).
@@ -1151,20 +1270,33 @@ cudaError_t attn_rows_fwd_wide(const T* qkv, const float* bias, T* att, int B, i
   return cudaGetLastError();
 }
 
-// attn_rows_bwd_wide_kernel at windows of N tokens (the 128-wide #8), on
-// the 64-wide plans (attn_wide_bwd_plan).
+// The 128-wide #8 at windows of N tokens: the row pass
+// (attn_wide_bwd_rows_kernel on attn_plan(N, 128)), then the key pass
+// (attn_wide_bwd_keys_kernel on kWideKeyPlan), which reads the row pass's
+// dS and stats (B, H/wr, W/wc, nh, N) scratch.
 template <int N, typename T>
 cudaError_t attn_rows_bwd_wide(const T* qkv, const float* bias, const T* datt, T* dqkv, float* dS,
-                               int B, int H, int W, int C, int nh, int wr, int wc, int kinds,
-                               float scale, cudaStream_t stream) {
-  constexpr AttnPlan plan = attn_wide_bwd_plan(N);
-  constexpr int floats = attn_wide_bwd_smem_floats(N, plan.rb, plan.ks);
-  const cudaError_t err = set_smem(attn_rows_bwd_wide_kernel<N, plan.rb, plan.ks, T>, floats);
+                               float2* stats, int B, int H, int W, int C, int nh, int wr, int wc,
+                               int kinds, float scale, cudaStream_t stream) {
+  constexpr AttnPlan plan = attn_plan(N, 128);
+  constexpr WideKeyPlan kp = kWideKeyPlan;
+  constexpr int rows_floats = attn_wide_rows_smem_floats(N, plan.rb, plan.ks);
+  constexpr int keys_floats = attn_wide_keys_smem_floats(N, kp.kb, kp.r);
+  cudaError_t err = set_smem(attn_wide_bwd_rows_kernel<N, plan.rb, plan.ks, T>, rows_floats);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nh, (H / wr) * (W / wc), B);
-  attn_rows_bwd_wide_kernel<N, plan.rb, plan.ks, T>
-      <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
-          qkv, bias, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, scale);
+  err = set_smem(attn_wide_bwd_keys_kernel<N, kp.kb, kp.r, kp.ks, T>, keys_floats);
+  if (err != cudaSuccess) return err;
+  const int windows = (H / wr) * (W / wc);
+  attn_wide_bwd_rows_kernel<N, plan.rb, plan.ks, T>
+      <<<dim3(nh * (N / plan.rb), windows, B), attn_tc_threads(plan.rb, plan.ks),
+         rows_floats * sizeof(float), stream>>>(qkv, bias, datt, dqkv, dS, stats, H, W, C, nh,
+                                                wr, wc, kinds, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_wide_bwd_keys_kernel<N, kp.kb, kp.r, kp.ks, T>
+      <<<dim3(nh * (N / kp.kb), windows, B), attn_tc_threads(kp.r, kp.ks),
+         keys_floats * sizeof(float), stream>>>(qkv, bias, datt, dqkv, dS, stats, H, W, C, nh,
+                                                wr, wc, kinds, scale);
   return cudaGetLastError();
 }
 

@@ -59,20 +59,24 @@
 // so the rows are read and written an element a lane, as at 32.
 //
 // Heads of 65 to 128 channels (DRCT's 122 at C 244 and 77 at C 308) take
-// the 128-wide form, tc_attn.cuh's attn_rows_fwd_wide_kernel and
-// attn_rows_bwd_wide_kernel (fp32 and bf16): k and v of a whole 128-wide
-// head would need 270,336 B of fp32 rows at n 256, so the head goes in two
-// 64-channel halves staged in turn into one room (8 warps, one block a SM;
-// the forward on rows of 64, the backward on the 64-wide plans). S = q k^T
-// and dP = dA v^T sum both halves into the same fragments; att = P v and
-// dQ = dS k go a half at a time; dV and dK, whose sums over the row blocks
-// stay in registers, take a pass over the row blocks for each half (four
-// passes, each recomputing S and the softmax). Its bound at drct's swin_3 block (B 8, 48x48, C 244,
-// 2 heads of 122): 4.6 GFLOP forward and 11.5 backward (five products),
-// against 72 and 127 MB of fp32 inputs and outputs; 3xTF32 triples the
-// operations on the tensor cores, so operations bound both in fp32, and
-// the form's extra passes (S and the softmax four times, dP twice, in the
-// backward) add to the time what they add to the work.
+// the 128-wide form (fp32 and bf16): k and v of a whole 128-wide head would
+// need 270,336 B of fp32 rows at n 256. The forward,
+// tc_attn.cuh's attn_rows_fwd_wide_kernel, stages the head in two 64-channel
+// halves in turn into one room (rows of 64, 8 warps, one block a SM): S =
+// q k^T sums both halves into the same fragments, att = P v goes a half at a
+// time. The backward is two launches, each product done once (S twice):
+// attn_wide_bwd_rows_kernel, one block per (window, head, row block of 64)
+// on the forward's plan, computes S, the softmax (each row's max and
+// inverse sum to a stats scratch), dP = dA v^T, dS (to its buffer) and dQ =
+// scale dS k; attn_wide_bwd_keys_kernel, one block per (window, head, block
+// of 64 keys) with the block's k rows staged whole, walks the row blocks
+// (32 rows) recomputing S and P from the stats and reading dS back (the
+// buffer stays in L2), and sums dV = P^T dA and dK = scale dS^T q in
+// registers; two blocks a SM. Every sum stays in one block: no atomics.
+// Its bound at drct's swin_3 block (B 8, 48x48, C 244, 2 heads of 122): 4.6
+// GFLOP forward and 11.5 backward (five products), against 72 and 127 MB of
+// fp32 inputs and outputs; 3xTF32 triples the operations on the tensor
+// cores, so operations bound both in fp32.
 //
 // The bf16 forms (trr_*_mhsa_fwd_bf16, trr_*_mhsa_bwd_bf16): the JAX kernels
 // compute in qkv's dtype, so a bf16 training step (HAT, DAT, SwinIR-L) runs
@@ -87,6 +91,7 @@
 // (about 50 and 95 MB: 15 and 28 us): bytes bound both, and the window
 // attention's issue rate holds them (the fp32 forms reach 12-13% of their
 // 3xTF32 bound).
+#include <algorithm>
 #include <type_traits>
 
 #include "tc_attn.cuh"
@@ -136,13 +141,25 @@ size_t trr_rect_mhsa_smem_bytes(int C, int nh, int wr, int wc) {
   return (size_t)floats * sizeof(float);
 }
 
+// Shared memory of the 128-wide backward's row pass (pass 0) and key pass
+// (pass 1) at windows of n tokens (64, 128 or 256), or 0 for another n.
+size_t trr_wide_bwd_smem_bytes(int n, int pass) {
+  if (n != 64 && n != 128 && n != 256) return 0;
+  const trr::AttnPlan plan = trr::attn_plan(n, 128);
+  const trr::WideKeyPlan kp = trr::kWideKeyPlan;
+  const int floats = pass == 0 ? trr::attn_wide_rows_smem_floats(n, plan.rb, plan.ks)
+                               : trr::attn_wide_keys_smem_floats(n, kp.kb, kp.r);
+  return (size_t)floats * sizeof(float);
+}
+
+// The backward's shared memory: at heads past 64, the larger of its two
+// passes'.
 size_t trr_rect_mhsa_bwd_smem_bytes(int C, int nh, int wr, int wc) {
   const int n = wr * wc, hw = head_width(C / nh);
   if ((n != 64 && n != 128 && n != 256) || hw == 0) return 0;
-  const trr::AttnPlan plan = hw == 128 ? trr::attn_wide_bwd_plan(n) : trr::attn_plan(n, hw);
-  const int floats =
-      hw == 128 ? trr::attn_wide_bwd_smem_floats(n, plan.rb, plan.ks)
-                : trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false, false, hw);
+  if (hw == 128) return std::max(trr_wide_bwd_smem_bytes(n, 0), trr_wide_bwd_smem_bytes(n, 1));
+  const trr::AttnPlan plan = trr::attn_plan(n, hw);
+  const int floats = trr::attn_rows_bwd_tc_smem_floats(n, plan.rb, plan.ks, false, false, hw);
   return (size_t)floats * sizeof(float);
 }
 
@@ -180,16 +197,20 @@ int trr_window_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, 
 
 // The backward: qkv, bias as in the forward, dout (B, H, W, C); writes
 // dqkv (B, H, W, 3C), dS (B, H/wr, W/wc, nh, n, n) scratch and
-// dbias (kinds, nh, n, n). n = wr * wc is 64, 128 or 256.
+// dbias (kinds, nh, n, n). n = wr * wc is 64, 128 or 256. stats: at heads
+// of 65 to 128 channels, a (B, H/wr, W/wc, nh, n, 2) scratch (each row's
+// softmax max and inverse sum, from the row pass to the key pass); unused
+// (may be null) at narrower heads.
 int trr_rect_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
-                      float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
-                      int wr, int wc, float scale, cudaStream_t stream) {
+                      float* dS, float* stats, float* dbias, int B, int H, int W, int C, int nh,
+                      int kinds, int wr, int wc, float scale, cudaStream_t stream) {
   const int n = wr * wc;
   const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
     if constexpr (HD == 128)
-      return trr::attn_rows_bwd_wide<N>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr, wc, kinds,
-                                        scale, stream);
+      return trr::attn_rows_bwd_wide<N>(qkv, bias, dout, dqkv, dS,
+                                        reinterpret_cast<float2*>(stats), B, H, W, C, nh, wr, wc,
+                                        kinds, scale, stream);
     else
       return trr::attn_rows_bwd_tc<N, false, false, HD>(qkv, bias, dout, dqkv, nullptr, dS, B, H,
                                                         W, C, nh, wr, wc, kinds, 0, scale,
@@ -201,11 +222,11 @@ int trr_rect_mhsa_bwd(const float* qkv, const float* bias, const float* dout, fl
 
 // Square ws x ws windows: ws 8 or 16.
 int trr_window_mhsa_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
-                        float* dS, float* dbias, int B, int H, int W, int C, int nh, int kinds,
-                        int ws, float scale, cudaStream_t stream) {
+                        float* dS, float* stats, float* dbias, int B, int H, int W, int C, int nh,
+                        int kinds, int ws, float scale, cudaStream_t stream) {
   if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
-  return trr_rect_mhsa_bwd(qkv, bias, dout, dqkv, dS, dbias, B, H, W, C, nh, kinds, ws, ws,
-                           scale, stream);
+  return trr_rect_mhsa_bwd(qkv, bias, dout, dqkv, dS, stats, dbias, B, H, W, C, nh, kinds, ws,
+                           ws, scale, stream);
 }
 
 // The bf16 forward (#3's bf16 form): qkv (B, H, W, 3C) and out (B, H, W,
@@ -232,16 +253,18 @@ int trr_window_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16*
 }
 
 // The bf16 backward (#8's bf16 form): qkv, dout and dqkv bf16; bias, the dS
-// scratch and dbias fp32, shaped as trr_rect_mhsa_bwd's.
+// and stats scratch and dbias fp32, shaped as trr_rect_mhsa_bwd's.
 int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::bf16* dout,
-                           trr::bf16* dqkv, float* dS, float* dbias, int B, int H, int W, int C,
-                           int nh, int kinds, int wr, int wc, float scale, cudaStream_t stream) {
+                           trr::bf16* dqkv, float* dS, float* stats, float* dbias, int B, int H,
+                           int W, int C, int nh, int kinds, int wr, int wc, float scale,
+                           cudaStream_t stream) {
   const int n = wr * wc;
   const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
     if constexpr (HD == 128)
-      return trr::attn_rows_bwd_wide<N>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh, wr, wc, kinds,
-                                        scale, stream);
+      return trr::attn_rows_bwd_wide<N>(qkv, bias, dout, dqkv, dS,
+                                        reinterpret_cast<float2*>(stats), B, H, W, C, nh, wr, wc,
+                                        kinds, scale, stream);
     else
       return trr::attn_rows_bwd_recompute_bf16<N, false, HD>(qkv, bias, dout, dqkv, nullptr, dS,
                                                              B, H, W, C, nh, wr, wc, kinds, 0,
@@ -252,11 +275,12 @@ int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::b
 }
 
 int trr_window_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::bf16* dout,
-                             trr::bf16* dqkv, float* dS, float* dbias, int B, int H, int W, int C,
-                             int nh, int kinds, int ws, float scale, cudaStream_t stream) {
+                             trr::bf16* dqkv, float* dS, float* stats, float* dbias, int B, int H,
+                             int W, int C, int nh, int kinds, int ws, float scale,
+                             cudaStream_t stream) {
   if (ws != 8 && ws != 16) return (int)cudaErrorInvalidValue;
-  return trr_rect_mhsa_bwd_bf16(qkv, bias, dout, dqkv, dS, dbias, B, H, W, C, nh, kinds, ws, ws,
-                                scale, stream);
+  return trr_rect_mhsa_bwd_bf16(qkv, bias, dout, dqkv, dS, stats, dbias, B, H, W, C, nh, kinds,
+                                ws, ws, scale, stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,8 @@ forward, #8 backward), each counted on its own:
 
 Heads of at most 128 channels: a head of 65 to 128 (DRCT's 122 and 77)
 takes the kernels' 128-wide form, the head in two 64-channel halves staged
-in turn (`TC_ATTN_PLANS_128`); a head of 33 to 64 (ATD's 35, DRCT's 53 and
+in turn (`TC_ATTN_PLANS_128`), its backward a row pass and a key pass
+(`TC_ATTN_KEY_PLAN_128`); a head of 33 to 64 (ATD's 35, DRCT's 53 and
 46) the 64-wide form, its rows padded to 64 channels on plans of their own
 (`TC_ATTN_PLANS_64`); heads of at most 32 the 32-wide form. Every form
 lands on the same wrappers, and the wrappers count the 128-wide form's
@@ -76,10 +77,14 @@ TC_ATTN_PLANS_64 = {256: (32, 4), 128: (32, 4), 64: (64, 2)}
 # #3 and #8 at heads of 65 to 128 channels: the head in two 64-channel
 # halves, each staged in turn into one (n, 68) room (k and v of a whole
 # 128-wide head would need 270,336 B in fp32), one block of 8 warps a SM;
-# the forward on rows of 64 in two key parts at every n (tc_attn.cuh's
-# attn_plan(n, 128)), the backward on the 64-wide plans (attn_wide_bwd_plan)
+# the forward and #8's row pass (one block per window, head and row block)
+# on rows of 64 in two key parts at every n (tc_attn.cuh's attn_plan(n,
+# 128)); #8's key pass (one block per window, head and block of keys) on
+# blocks of 64 keys whose k rows stay staged whole, rows of 32 in four key
+# parts, two blocks a SM (tc_attn.cuh's kWideKeyPlan: keys, rows, parts)
 HD_MAX = 128
 TC_ATTN_PLANS_128 = {256: (64, 2), 128: (64, 2), 64: (64, 2)}
+TC_ATTN_KEY_PLAN_128 = (64, 32, 4)
 
 
 def head_width(head_dim: int) -> int:
@@ -89,14 +94,12 @@ def head_width(head_dim: int) -> int:
     return 32 if head_dim <= 32 else 64 if head_dim <= 64 else HD_MAX
 
 
-def tc_attn_plan(n: int, head_dim: int = 32, backward: bool = False) -> tuple[int, int]:
+def tc_attn_plan(n: int, head_dim: int = 32) -> tuple[int, int]:
     """(query rows of a thread block, warps a 16-row tile) at windows of n
-    tokens and heads of head_dim channels (`backward`: #8's, which at heads
-    past 64 is the 64-wide plan)."""
-    width = head_width(head_dim)
-    if backward and width == HD_MAX:
-        width = 64
-    return {32: TC_ATTN_PLANS, 64: TC_ATTN_PLANS_64, 128: TC_ATTN_PLANS_128}[width][n]
+    tokens and heads of head_dim channels, #3's and #8's (at heads past 64,
+    #8's row pass; its key pass takes `TC_ATTN_KEY_PLAN_128`)."""
+    return {32: TC_ATTN_PLANS, 64: TC_ATTN_PLANS_64, 128: TC_ATTN_PLANS_128}[
+        head_width(head_dim)][n]
 
 
 def rect_mhsa_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
@@ -129,14 +132,27 @@ def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False, head_dim: int
     (parts, rows) exchanges of the key parts' row sums (one, rowsum(P dP),
     in the `saved`-P form, #10's), the row block's dq rows (and, with `att`,
     #6's att rows) on their way out, and the n token indices."""
-    rb, ks = tc_attn_plan(n, head_dim, backward=True)
+    rb, ks = tc_attn_plan(n, head_dim)
     if head_width(head_dim) == HD_MAX:
-        # #8's 128-wide form (no att, no saved P): one (n, 68) room for a
-        # k, v, dk or dv half; q, dA and dq halves of a row block
-        return 4 * (n * 68 + 3 * rb * 68 + rb * (n + 4) + 3 * ks * rb + n)
+        # #8's 128-wide form (no att, no saved P): the larger of its passes'
+        return max(wide_bwd_smem_bytes(n))
     ld = head_width(head_dim) + 4
     return 4 * (2 * n * ld + (4 if att else 3) * rb * ld + rb * (n + 4)
                 + (1 if saved else 3) * ks * rb + n)
+
+
+def wide_bwd_smem_bytes(n: int) -> tuple[int, int]:
+    """Shared memory of the 128-wide #8's two passes at windows of n tokens
+    (csrc/tc_attn.cuh): the row pass's one (n, 68) room for a k or v half,
+    q, dA and dq halves of a row block, the (rows, n + 4) P / dS tile, three
+    (parts, rows) exchanges and the n token indices; the key pass's whole k
+    rows of its key block (keys, 132), q and dA rows of a row block (rows,
+    132) each, the P and dS tiles (rows, keys + 4) and the n token
+    indices."""
+    rb, ks = TC_ATTN_PLANS_128[n]
+    kb, r, _ = TC_ATTN_KEY_PLAN_128
+    return (4 * (n * 68 + 3 * rb * 68 + rb * (n + 4) + 3 * ks * rb + n),
+            4 * (kb * 132 + 2 * r * 132 + 2 * r * (kb + 4) + n))
 
 
 def rect_mhsa_bwd_smem_bytes(channels: int, num_heads: int, wr: int, wc: int) -> int:
@@ -467,6 +483,11 @@ def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc, bf16=F
     # dS of every window and head, which the bias-kind reduction sums
     ds = torch.empty((b, hh // wr, ww // wc, num_heads, n, n), device=qkv.device,
                      dtype=torch.float32)
+    # the 128-wide form's softmax max and inverse sum of every row, from its
+    # row pass to its key pass
+    wide = head_width(head_dim) == HD_MAX
+    stats = torch.empty((b, hh // wr, ww // wc, num_heads, n, 2) if wide else (0,),
+                        device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:
         return dqkv, dbias.zero_()
     from trainner_redux_tpu_torch.ops import cuda_build
@@ -475,10 +496,11 @@ def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc, bf16=F
     fn = lib.trr_rect_mhsa_bwd_bf16 if bf16 else lib.trr_rect_mhsa_bwd
     with torch.cuda.device(qkv.device):
         counted.launches += 1
-        counted.launches_hd128 += head_width(head_dim) == HD_MAX
+        counted.launches_hd128 += wide
         status = fn(
             qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
-            dbias.data_ptr(), b, hh, ww, c, num_heads, kinds, wr, wc, head_dim**-0.5,
+            stats.data_ptr(), dbias.data_ptr(), b, hh, ww, c, num_heads, kinds, wr, wc,
+            head_dim**-0.5,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(status, name)
