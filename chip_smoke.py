@@ -395,16 +395,18 @@ failure:
              bf16 runs of atd_light_fidelity.yml bit for bit.
 
 68. drct kernels - #3 and #8's 128-wide form (heads of 65 to 128 channels:
-             csrc/tc_attn.cuh's attn_rows_fwd_wide_kernel, two 64-channel
-             halves; #8's row pass attn_wide_bwd_rows_kernel and key pass
-             attn_wide_bwd_keys_kernel), fp32 and bf16, at drct's swin_3
-             block (B=8, 48x48, C 244, 2 heads of 122, ws 16) K=1 and K=4
-             and its swin_5 block (C 308, 4 heads of 77) K=4: each against
-             its plain version and float64, two runs bit for bit, timed
-             beside the bound and SDPA (bf16: and the fp32 form); #8 split
-             by stage (row pass, key pass, bias table) at all three, #3 at
-             swin_3 K=4 (the wide kernels must launch); the 32- and 64-wide forms timed beside
-             at swin_1's and swin_2's heads (30, 53) on the same block. #2
+             csrc/tc_attn.cuh's attn_wide_fwd_kernel, k and v streamed in
+             tiles of 64 keys; #8's row pass attn_wide_bwd_rows_kernel and
+             key pass attn_wide_bwd_keys_kernel), fp32 and bf16, at drct's
+             swin_3 block (B=8, 48x48, C 244, 2 heads of 122, ws 16) K=1
+             and K=4 and its swin_5 block (C 308, 4 heads of 77) K=4: each
+             against its plain version and float64, two runs bit for bit,
+             timed beside the bound and SDPA (bf16: and the fp32 form); #3
+             and #8 split by stage (#8: row pass, key pass, bias table) at
+             all three (the wide kernels must launch); #3 in fp32 at DRCT's
+             serving shape (B=1, 128x128 LR) beside SDPA's forward; the 32-
+             and 64-wide forms timed beside at swin_1's and swin_2's heads
+             (30, 53) on the same block. #2
              and #7 at swin_5's MLP half (C 308, hidden 308) and swin_4's (C
              276, hidden 276), fp32 and bf16: against their plain versions,
              two runs bit for bit, timed, #7 split by stage (its split rows
@@ -487,12 +489,17 @@ JPEG_TOL = 1e-3
 N_IMAGES = 4
 BLOCKS = 36
 # the template and OTF train.run phases (30 until PR 22, cut to make room
-# for phases 63-67)
-TRAIN_STEPS = 12
+# for phases 63-67; 12 until PR 25, cut to keep the run under 1,100 s on a
+# slow host)
+TRAIN_STEPS = 8
 # the fp32 train.run phases 8, 13, 18, 23, 32, 38 and 67 (30 until PR 21, 6
 # until PR 22)
 FP32_STEPS = 4
 TRAIN_WARMUP = 5  # steps left out of the per-step median
+# the logger's print_freq in every train.run phase (10 until PR 25, when no
+# run reached step 10 any more): each run, the shortest of FP32_STEPS, logs
+# through MessageLogger on the card, outside the profiled windows
+PRINT_FREQ = 4
 
 # HAT-M's block: the same widths, 16x16 windows (n = 256), 42 MLP halves
 HWS = 16
@@ -859,13 +866,13 @@ def stage_of(kernel: str) -> str:
     template argument of linear_bf16_kernel and rows_bf16_kernel (1 in #12's
     and #14's bf16 dx); #11's and #13's bf16 post-norm row pass is
     postnorm_rows_bf16_kernel. #3/#8's 128-wide form (heads of 65-128) is
-    attn_rows_fwd_wide_kernel, and #8's attn_wide_bwd_rows_kernel (the row
+    attn_wide_fwd_kernel, and #8's attn_wide_bwd_rows_kernel (the row
     pass) and attn_wide_bwd_keys_kernel (the key pass), in both types;
     #7's split rows stage (rows of 257-320) stores dy on rows_kernel's (or
     rows_bf16_kernel's) mode 0, then ln_bwd_rows_kernel takes the LN
     backward."""
     for part, stage in (("postnorm_rows_bf16_kernel", "post-norm rows"),
-                        ("attn_rows_fwd_wide_kernel", "window attention forward"),
+                        ("attn_wide_fwd_kernel", "window attention forward"),
                         ("attn_wide_bwd_rows_kernel", "row pass"),
                         ("attn_wide_bwd_keys_kernel", "key pass"),
                         ("ln_bwd_rows_kernel", "dy and the LN backward"),
@@ -971,14 +978,14 @@ ATTN_FWD = {n: f"attn_rows_fwd_tc_kernel<{n}, {rb}, {ks}, false, 32>"
 COS_ATTN_FWD = "attn_rows_fwd_tc_kernel<64, 64, 2, true, 32>"
 ATTN_FWD_64 = "attn_rows_fwd_tc_kernel<256, 32, 4, false, 64>"
 ATTN_BWD_64 = "attn_rows_bwd_tc_kernel<256, 32, 4, false, false, 64>"
-# #3/#8's 128-wide form at n 256 (heads of 65-128: two 64-channel halves),
-# fp32 and bf16: #3's kernel, #8's row pass (<n, rows, key parts, type>) and
-# key pass (<n, keys, rows, key parts, type>); and #7's split rows stage's LN
-# rows
-ATTN_FWD_128 = "attn_rows_fwd_wide_kernel<256, 64, 2, float>"
+# #3/#8's 128-wide form at n 256 (heads of 65-128), fp32 and bf16: #3's
+# kernel (<n, rows, keys a tile, type>), #8's row pass (<n, rows, key parts,
+# type>) and key pass (<n, keys, rows, key parts, type>); and #7's split
+# rows stage's LN rows
+ATTN_FWD_128 = "attn_wide_fwd_kernel<256, 64, 64, float>"
 ATTN_BWD_128 = ("attn_wide_bwd_rows_kernel<256, 64, 2, float>",
                 "attn_wide_bwd_keys_kernel<256, 64, 32, 4, float>")
-ATTN_FWD_128_BF = "attn_rows_fwd_wide_kernel<256, 64, 2, __nv_bfloat16>"
+ATTN_FWD_128_BF = "attn_wide_fwd_kernel<256, 64, 64, __nv_bfloat16>"
 ATTN_BWD_128_BF = ("attn_wide_bwd_rows_kernel<256, 64, 2, __nv_bfloat16>",
                    "attn_wide_bwd_keys_kernel<256, 64, 32, 4, __nv_bfloat16>")
 LN_BWD_ROWS = "ln_bwd_rows_kernel<float"
@@ -1676,7 +1683,8 @@ def train_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, network: str
             "optim_g": {"type": "AdamW", "lr": 2e-4, "betas": [0.9, 0.99]},
             "losses": [{"type": t, "loss_weight": 1.0} for t in losses],
         },
-        "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False},
+        "logger": {"print_freq": PRINT_FREQ, "save_checkpoint_freq": 1000,
+                   "use_tb_logger": False},
         **extra,
     }
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
@@ -2776,7 +2784,8 @@ def otf_options(name: str, hr_dir: Path, seed: int, **degrade):
                           "gamma": 0.5},
             "losses": [{"type": t, "loss_weight": 1.0} for t in OTF_LOSSES],
         },
-        "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False},
+        "logger": {"print_freq": PRINT_FREQ, "save_checkpoint_freq": 1000,
+                   "use_tb_logger": False},
     }
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
@@ -3374,7 +3383,8 @@ def gan_options(name: str, hr_dir: Path, lr_dir: Path, seed: int,
                                  "num_worker_per_gpu": 4}}
     raw["train"]["total_iter"] = steps
     raw["val"]["val_enabled"] = False
-    raw["logger"] = {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}
+    raw["logger"] = {"print_freq": PRINT_FREQ, "save_checkpoint_freq": 1000,
+                     "use_tb_logger": False}
     raw.update(extra)
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
@@ -3985,7 +3995,7 @@ def fidelity_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, val_dirs=
     else:
         raw["val"]["val_enabled"] = False
     raw["train"]["total_iter"] = TRAIN_STEPS
-    raw["logger"].update(print_freq=10, save_checkpoint_freq=1000)
+    raw["logger"].update(print_freq=PRINT_FREQ, save_checkpoint_freq=1000)
     raw.update(extra)
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
@@ -4353,16 +4363,14 @@ def bf16_record(res: dict, tag: str, name: str, label: str, kern, plain, fp32, l
 
 
 def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: int, wc: int,
-                     kinds: int, nh: int, hd: int, shift_hw, gen, split: dict | None,
-                     fwd_split: bool = True) -> None:
+                     kinds: int, nh: int, hd: int, shift_hw, gen, split: dict | None) -> None:
     """#3's and #8's bf16 forms at one block: bf16 qkv and dout, the fp32
     kind table (with the shift masks of `shift_hw` at K=4); each output and
     gradient against its bf16 plain version (`check_bf16`) and, with the
     plain version, against float64 of the same bf16 inputs; two runs of each
     bit for bit; timed beside the fp32 forms and bf16 SDPA with a float mask
     (forward, and forward and backward); `split`, the backward's stages a
-    call: the backward's stage split, and the forward's unless not
-    `fwd_split`."""
+    call: the backward's stage split, and the forward's."""
     import torch
     import torch.nn.functional as F
 
@@ -4448,17 +4456,17 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
         rb, ks = wa.tc_attn_plan(n, hd)
         if wa.head_width(hd) == wa.HD_MAX:  # the 128-wide form's kernels
             kb, kr, kks = wa.TC_ATTN_KEY_PLAN_128
-            fwd_name = f"attn_rows_fwd_wide_kernel<{n}, {rb}, {ks}, __nv_bfloat16>"
+            fb, fk = wa.TC_ATTN_FWD_PLAN_128
+            fwd_name = f"attn_wide_fwd_kernel<{n}, {fb}, {fk}, __nv_bfloat16>"
             bwd_names = (f"attn_wide_bwd_rows_kernel<{n}, {rb}, {ks}, __nv_bfloat16>",
                          f"attn_wide_bwd_keys_kernel<{n}, {kb}, {kr}, {kks}, __nv_bfloat16>")
         else:
             plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
             fwd_name = f"attn_rows_fwd_bf16_kernel<{plan}>"
             bwd_names = (f"attn_rows_bwd_recompute_bf16_kernel<{plan}>",)
-        if fwd_split:
-            stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win),
-                        fwd_flops, fwd_bytes, res[names[0]]["ms"], STAGES_3,
-                        kernels=(fwd_name,), bf16=True)
+        stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win),
+                    fwd_flops, fwd_bytes, res[names[0]]["ms"], STAGES_3, kernels=(fwd_name,),
+                    bf16=True)
         stage_split(tag, f"{names[1]} {label}", lambda: bwd_k(qkv, bias, dout, nh, hd, *win),
                     bwd_flops, bwd_bytes, res[names[1]]["ms"], split, kernels=bwd_names,
                     bf16=True)
@@ -4835,7 +4843,8 @@ def otf_bf16_options(name: str, hr_dir: Path, seed: int, template: Path = OTF_BF
     raw["train"]["losses"] = [lo for lo in raw["train"]["losses"] if lo["type"] != "mssimloss"]
     raw["train"]["total_iter"] = TRAIN_STEPS
     raw["val"]["val_enabled"] = False
-    raw["logger"] = {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}
+    raw["logger"] = {"print_freq": PRINT_FREQ, "save_checkpoint_freq": 1000,
+                     "use_tb_logger": False}
     raw.update(extra)
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
 
@@ -5332,7 +5341,8 @@ def bench_options(name: str, hr_dir: Path, lr_dir: Path, seed: int, workload: st
                "dataroot_lq": str(lr_dir), "io_backend": {"type": "disk"}, "lq_size": BENCH_LQ,
                "batch_size_per_gpu": 8 if gan else CONV_BATCH, "num_worker_per_gpu": 4, **ds}},
            "train": {**train, **({"optim_d": ESRGAN_GAN_OPTIM_D} if gan else {})},
-           "logger": {"print_freq": 10, "save_checkpoint_freq": 1000, "use_tb_logger": False}}
+           "logger": {"print_freq": PRINT_FREQ, "save_checkpoint_freq": 1000,
+                      "use_tb_logger": False}}
     if gan:
         raw["network_d"] = {"type": "dunet"}
     return resolve_options(decode(raw, ReduxOptions), str(OUT), is_train=True)
@@ -5522,12 +5532,12 @@ def hd64_inputs(gen, kinds: int, shape, c: int, nh: int, ws: int = AWS, dtype=No
 def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int, nh: int,
                    kinds: int, gen, split: bool, tag: str = "atd kernels",
                    kernels: tuple[str, ...] = (ATTN_FWD_64, ATTN_BWD_64),
-                   bwd_stages: dict[str, int] = STAGES_8, fwd_split: bool = True) -> None:
+                   bwd_stages: dict[str, int] = STAGES_8) -> None:
     """#3 and #8 in fp32 at one block (16x16 windows): `window_attention_cases`'
     checks (plain versions, SDPA, float64, two runs bit for bit), recorded
     under `names`; `split`: #8's stage split (its stages a call
-    `bwd_stages`) and, unless not `fwd_split`, #3's, the form's `kernels`
-    (#3's, then #8's; the 64-wide ones unless said) among them."""
+    `bwd_stages`) and #3's, the form's `kernels` (#3's, then #8's; the
+    64-wide ones unless said) among them."""
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
     qkv, bias, dout = inputs = hd64_inputs(gen, kinds, shape, c, nh)
@@ -5541,7 +5551,7 @@ def hd64_fp32_case(res: dict, names: tuple[str, str], label: str, shape, c: int,
     for name, (kern, plain, lib, flops, nb, err, note) in cases.items():
         record_kernel(res, tag, names[name != "fused_window_mhsa"], label, kern, plain,
                       lib, flops, nb, err, note)
-    if split and fwd_split:
+    if split:
         _, _, _, flops, nb, _, _ = cases["fused_window_mhsa"]
         stage_split(tag, f"{names[0]} {label}", ops[0], flops, nb, res[names[0]]["ms"],
                     STAGES_3, kernels=kernels[:1])
@@ -6067,9 +6077,10 @@ def mlp_c320_record(res: dict, tag: str, label: str, shape, c: int, hidden: int,
 
 def phase_drct_kernels() -> dict:
     """68. #3 and #8's 128-wide form at drct's swin_3 and swin_5 blocks, fp32
-    and bf16, the 32- and 64-wide forms timed beside; #2/#7 at swin_4's and
-    swin_5's MLP halves (see the module doc)."""
+    and bf16, the 32- and 64-wide forms timed beside; #3 at DRCT's serving
+    shape; #2/#7 at swin_4's and swin_5's MLP halves (see the module doc)."""
     import torch
+    import torch.nn.functional as F
 
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
@@ -6083,21 +6094,37 @@ def phase_drct_kernels() -> dict:
     c3, nh3, _ = DRCT_BLOCKS[2]
     c5, nh5, _ = DRCT_BLOCKS[4]
     nwin = (FID_LQ // AWS) ** 2
-    # #8's stage split (row pass, key pass, bias table) at every case; #3's at
-    # swin_3 K=4
+    # #3's stage split and #8's (row pass, key pass, bias table) at every case
     hd64_fp32_case(other, names, f"swin_5 (C {c5}, heads of 77) K=4", blk, c5, nh5, 4, gen,
-                   True, tag, (ATTN_FWD_128, *ATTN_BWD_128), stages_8_wide(DRCT_B, nwin, nh5),
-                   fwd_split=False)
+                   True, tag, (ATTN_FWD_128, *ATTN_BWD_128), stages_8_wide(DRCT_B, nwin, nh5))
     bf16_window_case(other, bf_names, f"drct swin_5 (C {c5}, heads of 77) K=4", blk, AWS, AWS, 4,
-                     nh5, c5 // nh5, (AWS // 2, AWS // 2), gen, stages_8_wide(DRCT_B, nwin, nh5),
-                     fwd_split=False)
+                     nh5, c5 // nh5, (AWS // 2, AWS // 2), gen, stages_8_wide(DRCT_B, nwin, nh5))
     for kinds in (4, 1):  # the JSON line reports K=1, the unshifted blocks'
         hd64_fp32_case(res, names, f"swin_3 (C {c3}, heads of 122) K={kinds}", blk, c3, nh3,
                        kinds, gen, True, tag, (ATTN_FWD_128, *ATTN_BWD_128),
-                       stages_8_wide(DRCT_B, nwin, nh3), fwd_split=kinds == 4)
+                       stages_8_wide(DRCT_B, nwin, nh3))
         bf16_window_case(res, bf_names, f"drct swin_3 (C {c3}, heads of 122) K={kinds}", blk,
                          AWS, AWS, kinds, nh3, c3 // nh3, (AWS // 2, AWS // 2), gen,
-                         stages_8_wide(DRCT_B, nwin, nh3), fwd_split=kinds == 4)
+                         stages_8_wide(DRCT_B, nwin, nh3))
+    # #3's fp32 form at DRCT's serving shape (one 128x128 LR), SDPA's forward
+    # beside (float mask)
+    for label, (c, nh, _) in (("swin_3", DRCT_BLOCKS[2]), ("swin_5", DRCT_BLOCKS[4])):
+        q, t, _ = hd64_inputs(gen, 4, (1, 128, 128), c, nh)
+        hd = c // nh
+        qw, kw, vw, mask = sdpa_windows(q, t, AWS, AWS, 4, nh, hd)
+        with torch.no_grad():
+            want = wa.fused_window_mhsa_reference(q, t, nh, hd, AWS)
+            err = (wa.fused_window_mhsa(q, t, nh, hd, AWS) - want).abs().max().item()
+            if not err <= KERNEL_TOL:
+                fail(f"[{tag}] #3 at DRCT's serving shape ({label}): {err:.3g} off its plain "
+                     "version")
+            f = time_ms(lambda: wa.fused_window_mhsa(q, t, nh, hd, AWS), iters=20)
+            fg = graph_ms(lambda: wa.fused_window_mhsa(q, t, nh, hd, AWS))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qw, kw, vw, attn_mask=mask),
+                          iters=20)
+        say(f"[{tag}] #3 fp32 at DRCT's serving shape ({label}: C {c}, heads of {hd}; B=1, "
+            f"128x128 LR, K=4): max_abs_err {err:.3g}, kernel {f:.4f} ms ({fg:.4f} by CUDA "
+            f"graphs), SDPA forward {lib:.4f} ms")
     # the three widths of #3/#8 on the same block (K=4), fp32 and bf16
     for label, (c, nh, _) in (("32-wide, swin_1's heads of 30", DRCT_BLOCKS[0]),
                               ("64-wide, swin_2's heads of 53", DRCT_BLOCKS[1]),

@@ -1582,11 +1582,29 @@ HD128_WINDOWS = [((16, 16), 244, 2, (B, 48, 48)), ((16, 16), 308, 4, (B, 48, 48)
 @pytest.mark.parametrize(("window", "c", "nh", "shape"), HD128_WINDOWS,
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_hd128_window_attention_kernels(cuda, window, c, nh, shape, kinds, dtype):
-    """#3 and #8 at heads of 65 to 128 channels (the 128-wide form: two
-    64-channel halves) against their plain versions through the autograd
+    """#3 and #8 at heads of 65 to 128 channels (the 128-wide form: #3's k
+    and v streamed in tiles of keys, #8 a row pass on two 64-channel halves
+    and a key pass) against their plain versions through the autograd
     Functions, as the 64-wide form is held; each counted once under its own
-    name and as a 128-wide launch; two runs bit for bit."""
+    name and as a 128-wide launch; two runs bit for bit; #3's bf16 form
+    against float64 at most F64_RATIO times its plain version's error plus
+    F64_FLOOR of the largest."""
     _wide_window_case(cuda, window, c, nh, shape, kinds, dtype, 128)
+
+
+F64_RATIO, F64_FLOOR = 1.5, 1e-5  # PERF.md §2's bf16 forms against float64
+
+
+def _window_mhsa_f64(qkv, bias, nh, hd, wr, wc):
+    """#3's function in float64 on the same (bf16) inputs."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    _, hh, ww, _ = qkv.shape
+    q, k, v = (wa.rect_partition(t.double(), wr, wc).unflatten(-1, (nh, hd)).transpose(2, 3)
+               for t in qkv.chunk(3, dim=-1))
+    kind = wa.window_kinds(hh // wr, ww // wc, bias.shape[0], device=bias.device)
+    p = torch.softmax(q @ k.transpose(-1, -2) * hd**-0.5 + bias.double()[kind], dim=-1)
+    return wa.rect_reverse((p @ v).transpose(2, 3).flatten(-2), hh, ww, wr, wc)
 
 
 def _wide_window_case(cuda, window, c, nh, shape, kinds, dtype, width):
@@ -1630,6 +1648,10 @@ def _wide_window_case(cuda, window, c, nh, shape, kinds, dtype, width):
         _assert_bf16_close("out", out.detach(), want)
     else:
         assert (out.detach() - want).abs().max().item() <= TOL
+    if bf16 and width == 128:
+        exact = _window_mhsa_f64(qkv, bias, nh, hd, *window)
+        ke, pe = ((t.double() - exact).abs().max().item() for t in (out.detach(), want))
+        assert ke <= F64_RATIO * pe + F64_FLOOR * exact.abs().max().item(), (ke, pe)
     tol = BF16_TOL if bf16 else TOL
     for name, g, w in zip(("dqkv", "dbias"), (tq.grad, tb.grad),
                           bref(qkv, bias, dout, nh, hd, *win)):
@@ -1697,7 +1719,8 @@ def test_hd128_shared_memory_plans_match_the_source(cuda):
     """The 128-wide plans, the source's and the Python side's, at heads of
     77, 122 and 128 in every window form, within one block's; #8's row pass
     and key pass each, the key pass within the half of an SM's that two
-    blocks a SM leave each."""
+    blocks a SM leave each; #3's fp32 and bf16 forms each, within the share
+    of an SM's that the blocks a SM its plan assumes leave each."""
     from trainner_redux_tpu_torch.ops import cuda_build
     from trainner_redux_tpu_torch.ops import window_attention as wa
 
@@ -1707,13 +1730,32 @@ def test_hd128_shared_memory_plans_match_the_source(cuda):
         assert (lib.trr_wide_bwd_smem_bytes(n, 0), lib.trr_wide_bwd_smem_bytes(n, 1)) == (
             rows, keys)
         assert rows <= wa.SMEM_LIMIT and 2 * (keys + 1024) <= 233_472
-    assert lib.trr_wide_bwd_smem_bytes(144, 0) == 0
+        for bf16, blocks in wa.WIDE_FWD_BLOCKS.items():
+            fwd = wa.wide_fwd_smem_bytes(n, bf16)
+            assert lib.trr_wide_fwd_smem_bytes(n, int(bf16)) == fwd
+            assert blocks * (fwd + 1024) <= 233_472
+    assert lib.trr_wide_bwd_smem_bytes(144, 0) == lib.trr_wide_fwd_smem_bytes(144, 0) == 0
     for c, nh in ((244, 2), (308, 4), (256, 2)):
         for window in list(RECT) + [(8, 8), (16, 16)]:
             assert lib.trr_rect_mhsa_smem_bytes(c, nh, *window) == wa.rect_mhsa_smem_bytes(
                 c, nh, *window) <= wa.SMEM_LIMIT
             assert lib.trr_rect_mhsa_bwd_smem_bytes(c, nh, *window) == (
                 wa.rect_mhsa_bwd_smem_bytes(c, nh, *window)) <= wa.SMEM_LIMIT
+
+
+@pytest.mark.cuda
+def test_hd128_forward_refuses_a_grid_past_its_launch_limit(cuda):
+    """The 128-wide #3 takes an image's windows on its grid's y: 65,536
+    windows (8x8 at C 154, heads of 77) are refused by the gate, which names
+    the limit, and nothing launches."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    bias = torch.zeros((1, 2, 64, 64), device=cuda)
+    qkv = torch.empty((1, 2048, 2048, 3 * 154), device=cuda)
+    before = wa.fused_window_mhsa.launches
+    with pytest.raises(ValueError, match="at most 65535"), torch.no_grad():
+        wa.fused_window_mhsa(qkv, bias, 2, 77, 8)
+    assert wa.fused_window_mhsa.launches == before
 
 
 @pytest.mark.cuda

@@ -9,6 +9,14 @@ CPU, where the port's wrappers run their plain versions:
   1e-4 of each largest; in bf16 (qkv and dout rounded to bf16, the kind
   table fp32; heads of 122 at K=4, of 77 at K=1) by
   tests/test_torch_bf16_window_mlp.py's rule;
+- #3's 128-wide schedule, blocked as its kernel blocks it (row blocks of
+  `TC_ATTN_FWD_PLAN_128`, S a key tile at a time over the head's 8-channel
+  k-steps into a (rows, n) tile over the bias rows, the exact softmax of
+  whole rows, P v summed tile by tile), in PyTorch against the JAX
+  package's window MHSA (its plain reference at square windows, the Pallas
+  kernel in interpret mode at 8x16 rectangles) at heads of 77, 122 and 128 and
+  windows of 64, 128 and 256 tokens, K=1 and K=4: the output within 1e-4
+  of its largest;
 - #8's 128-wide schedule, blocked as its kernels block it (a row pass over
   row blocks, S and dP summed over two 64-channel halves, dS and each row's
   max and inverse sum saved; a key pass over key blocks and row blocks, P
@@ -18,10 +26,11 @@ CPU, where the port's wrappers run their plain versions:
   windows of 64, 128 and 256 tokens, K=1 and K=4: dqkv and dbias within
   1e-4 of each largest;
 - the gates: `window_mhsa_fits` and `rect_mhsa_fits` take heads of 65 to
-  128 channels and not 129, on the 128-wide plans (`TC_ATTN_PLANS_128`:
-  one (n, 68) room for a half of k or v; #8's key pass
-  `TC_ATTN_KEY_PLAN_128`), while `heads_fit`, the block kernels' gate,
-  stays at 32;
+  128 channels and not 129, on the 128-wide plans (the forward's
+  `TC_ATTN_FWD_PLAN_128`: two buffers of a key tile's whole head rows;
+  #8's row pass `TC_ATTN_PLANS_128`: one (n, 68) room for a half of k or
+  v; its key pass `TC_ATTN_KEY_PLAN_128`), while `heads_fit`, the block
+  kernels' gate, stays at 32;
 - the routing: every preset the port had before this form has heads of at
   most 64 channels (SRFormer's here; the others in
   tests/test_torch_window_attention_hd64.py), so none changes branch; every
@@ -174,6 +183,48 @@ def _blocked_wide_bwd(qkv, bias, dout, num_heads, head_dim, wr, wc):
     return twa.rect_reverse(dqkv, hh, ww, wr, wc), dbias
 
 
+def _blocked_wide_fwd(qkv, bias, num_heads, head_dim, wr, wc):
+    """The window MHSA as the 128-wide #3's kernel blocks it, in fp32: row
+    blocks of `TC_ATTN_FWD_PLAN_128`'s rows; per row block, S = q k^T a key
+    tile at a time, summed over the head's channels in k-steps of 8 (the
+    last zero past the head), scaled and added to the block's bias rows in
+    a (rows, n) tile; the softmax of whole rows (max, exp, sum, times the
+    inverse sum); att = P v summed over the key tiles in order. (On the
+    card a head row may sit a few channels into its first k-step, where
+    the copies start; zeros fill the rest, so only the sums' order moves.)"""
+    _, hh, ww, _ = qkv.shape
+    n, scale = wr * wc, head_dim**-0.5
+    q, k, v = (twa._window_heads(t, num_heads, wr, wc) for t in qkv.chunk(3, dim=-1))
+    table = bias[twa.window_kinds(hh // wr, ww // wc, bias.shape[0])]  # (windows, heads, n, n)
+    rb, kt = twa.TC_ATTN_FWD_PLAN_128
+    steps = [slice(c, c + 8) for c in range(0, head_dim, 8)]
+    out = torch.empty_like(q)
+    for r0 in range(0, n, rb):
+        rows = slice(r0, r0 + rb)
+        s = table[:, :, rows].clone().expand(*q.shape[:3], rb, n).clone()
+        for k0 in range(0, n, kt):
+            keys = slice(k0, k0 + kt)
+            prod = sum(q[..., rows, c] @ k[..., keys, c].transpose(-1, -2) for c in steps)
+            s[..., keys] = prod * scale + s[..., keys]
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e * (1 / e.sum(-1, keepdim=True))
+        out[..., rows, :] = sum(p[..., k0:k0 + kt] @ v[..., k0:k0 + kt, :]
+                                for k0 in range(0, n, kt))
+    return twa.rect_reverse(out.transpose(2, 3).flatten(-2), hh, ww, wr, wc)
+
+
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("hd", "win"), list(BLOCKED),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_blocked_wide_forward_matches_jax(hd, win, kinds):
+    wr, wc = win
+    qkv, bias, dout = _blocked_inputs(hd, win, kinds)
+    want = _jax_window_vjp(hd, win, kinds, qkv, bias, dout)[0]
+    got = _blocked_wide_fwd(torch.from_numpy(qkv), torch.from_numpy(bias), NH, hd, wr, wc)
+    err, top = np.abs(got.numpy() - want).max(), np.abs(want).max()
+    assert err <= TOL * top, f"out: max|diff| {err:.3g} vs max {top:.3g}"
+
+
 @functools.cache
 def _reference(hd: int, ws: int):
     """The JAX package's plain window MHSA (a table a window)."""
@@ -187,10 +238,8 @@ def _rect_mhsa(hd: int, wr: int, wc: int):
     return lambda q, t: jwa.fused_rect_mhsa(q, t, NH, hd, wr, wc, True)
 
 
-@pytest.mark.parametrize("kinds", [1, 4])
-@pytest.mark.parametrize(("hd", "win"), list(BLOCKED),
-                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
-def test_blocked_wide_schedule_matches_jax_vjp(hd, win, kinds):
+def _blocked_inputs(hd: int, win: tuple[int, int], kinds: int):
+    """qkv, the kind table and dout of a `BLOCKED` case, from its seed."""
     wr, wc = win
     hh, ww = BLOCKED[hd, win]
     rng = np.random.default_rng(hd + 7 * wr + wc + kinds)
@@ -200,15 +249,33 @@ def test_blocked_wide_schedule_matches_jax_vjp(hd, win, kinds):
     masks = jwa.rect_shift_mask_kinds(wr, wc, wr // 2, wc // 2)[:, None] if kinds == 4 else 0.0
     bias = np.ascontiguousarray(rel[None] + masks, dtype=np.float32)
     dout = rng.standard_normal((1, hh, ww, c)).astype(np.float32)
-    if wr == wc:  # the JAX package's plain reference, on each window's table
+    return qkv, bias, dout
+
+
+def _jax_window_vjp(hd, win, kinds, qkv, bias, dout):
+    """(out, dqkv, dbias) of the JAX package's window MHSA through jax.vjp:
+    its plain reference on each window's table at square windows, the
+    Pallas kernel in interpret mode at rectangles (jitted once a shape)."""
+    wr, wc = win
+    hh, ww = qkv.shape[1:3]
+    if wr == wc:
         kind = np.asarray(twa.window_kinds(hh // wr, ww // wc, kinds))
-        _, want_dqkv, per_window = (np.asarray(g) for g in _jax_vjp(_reference(hd, wr))(
+        out, dqkv, per_window = (np.asarray(g) for g in _jax_vjp(_reference(hd, wr))(
             jnp.asarray(qkv), jnp.asarray(bias[kind]), jnp.asarray(dout)))
-        want_dbias = np.zeros_like(bias)
-        np.add.at(want_dbias, kind, per_window)
-    else:  # the Pallas kernel in interpret mode
-        _, want_dqkv, want_dbias = (np.asarray(g) for g in _jax_vjp(_rect_mhsa(hd, wr, wc))(
-            jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(dout)))
+        dbias = np.zeros_like(bias)
+        np.add.at(dbias, kind, per_window)
+        return out, dqkv, dbias
+    return tuple(np.asarray(g) for g in _jax_vjp(_rect_mhsa(hd, wr, wc))(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(dout)))
+
+
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("hd", "win"), list(BLOCKED),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_blocked_wide_schedule_matches_jax_vjp(hd, win, kinds):
+    wr, wc = win
+    qkv, bias, dout = _blocked_inputs(hd, win, kinds)
+    _, want_dqkv, want_dbias = _jax_window_vjp(hd, win, kinds, qkv, bias, dout)
     got = _blocked_wide_bwd(*(torch.from_numpy(a) for a in (qkv, bias, dout)), NH, hd, wr, wc)
     for name, g, w in zip(("dqkv", "dbias"), got, (want_dqkv, want_dbias)):
         err, top = np.abs(g.numpy() - w).max(), np.abs(w).max()
@@ -229,19 +296,23 @@ def test_gates_take_heads_of_up_to_128():
 
 
 def test_hd128_plans():
-    """The 128-wide plans: one (n, 68) room for a half of k or v (a whole
-    128-wide head's k and v would need 270,336 B at n 256); the forward and
-    #8's row pass on rows of 64 in two key parts (173,056 B and 190,976 B at
-    n 256); #8's key pass on blocks of 64 keys whose whole k rows stay
-    staged, rows of 32 in four key parts (86,016 B at n 256, two blocks a
-    SM); the backward's size the larger of its passes'; the 32- and
-    64-wide plans unchanged."""
+    """The 128-wide plans: a whole 128-wide head's k and v would need
+    270,336 B at n 256. The forward streams them in tiles of 64 keys, a
+    block per row block of 64 (two buffers of whole head rows beside the
+    (64, n + 4) S / P tile: 135,168 B at n 256 in fp32, one block a SM;
+    102,400 B in bf16, two); #8's row pass on rows of 64 in two key parts
+    (one (n, 68) room for a half of k or v, 190,976 B at n 256); its key pass
+    on blocks of 64 keys whose whole k rows stay staged, rows of 32 in four
+    key parts (86,016 B at n 256, two blocks a SM); the backward's size the
+    larger of its passes'; the 32- and 64-wide plans unchanged."""
     assert 4 * 2 * 256 * (128 + 4) == 270_336 > twa.SMEM_LIMIT
     assert twa.tc_attn_plan(256, 122) == twa.tc_attn_plan(64, 77) == (64, 2)
     assert twa.tc_attn_plan(256, 35) == (32, 4)
     assert twa.tc_attn_plan(256, 30) == (64, 4)
     assert twa.TC_ATTN_KEY_PLAN_128 == (64, 32, 4)
-    assert twa.window_mhsa_smem_bytes(244, 2, 16) == 173_056
+    assert twa.TC_ATTN_FWD_PLAN_128 == (64, 64)
+    assert twa.window_mhsa_smem_bytes(244, 2, 16) == twa.wide_fwd_smem_bytes(256) == 135_168
+    assert twa.wide_fwd_smem_bytes(256, bf16=True) == 102_400
     assert twa.wide_bwd_smem_bytes(256) == (190_976, 86_016)
     assert twa.window_mhsa_bwd_smem_bytes(244, 2, 16) == 190_976
     assert twa.window_mhsa_smem_bytes(210, 6, 16) == 192_000  # ATD's, as before
@@ -251,6 +322,9 @@ def test_hd128_plans():
         assert max(twa.attn_fwd_tc_smem_bytes(n, 122), rows) <= twa.SMEM_LIMIT
         assert twa.attn_bwd_tc_smem_bytes(n, att=False, head_dim=77) == rows > keys
         assert 2 * (keys + 1024) <= 233_472  # two key-pass blocks a SM
+        for bf16, blocks in twa.WIDE_FWD_BLOCKS.items():  # the forward's blocks a SM fit
+            assert blocks * (twa.wide_fwd_smem_bytes(n, bf16) + 1024) <= 233_472
+    assert 2 * (twa.wide_fwd_smem_bytes(256) + 1024) > 233_472  # hence one fp32 block a SM
 
 
 @pytest.mark.parametrize("preset", ["srformer", "srformer_light"])

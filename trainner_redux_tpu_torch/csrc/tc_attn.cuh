@@ -751,16 +751,16 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
 
 // The 128-wide form of #3 and #8 (heads of 65 to 128 channels: DRCT's 122
 // and 77). k and v of a whole 128-wide head would take 2 N head_ld(128) =
-// 270,336 B of fp32 rows at n 256, past a block's 232,448, so the forward
-// and #8's row pass take the head in two 64-channel halves, each staged in
-// turn into one (N, head_ld(64)) room with the 64-wide form's helpers
-// (AttnWarps<.., 64>) on a plan of their own (attn_plan(n, 128): rows of 64
-// in two key parts, 8 warps, one block a SM with up to 255 registers a
-// thread). The products that sum over the channels take both halves in turn
-// into the same fragments: S = q k^T (rows_by_channels, the second half with
-// ACC) and dP = dA v^T; the products whose outputs are channels go a half at
-// a time: att = P v and dQ = dS k. The second half holds hd - 64 channels and
-// is zero past them.
+// 270,336 B of fp32 rows at n 256, past a block's 232,448. #8's row pass
+// takes the head in two 64-channel halves, each staged in turn into one (N,
+// head_ld(64)) room with the 64-wide form's helpers (AttnWarps<.., 64>) on
+// a plan of its own (attn_plan(n, 128): rows of 64 in two key parts, 8
+// warps, one block a SM with up to 255 registers a thread): S = q k^T and
+// dP = dA v^T take both halves in turn into the same fragments
+// (rows_by_channels, the second half with ACC), dQ = dS k goes a half at a
+// time; the second half holds hd - 64 channels and is zero past them. The
+// forward (attn_wide_fwd_kernel, below #8's kernels) streams k and v of the
+// whole head in tiles of keys instead.
 //
 // #8 is two kernels, each doing its products once (five of the function's,
 // and S once more):
@@ -789,19 +789,11 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
 // attn_rows_fwd_tc_kernel's (no shift, no P) and attn_rows_bwd_tc_kernel's
 // (no att, no saved P): the same bias-kind reduction of dS follows.
 
-// Loads a thread keeps in flight as the 128-wide forward and #8's row pass
-// stage a half (the 64-wide form's 8 left it waiting on L2 for most of its
-// staging); the key pass, whose dK and dV sums hold 64 floats a thread under
-// a cap of 128 registers (two blocks a SM), keeps 8.
+// Loads a thread keeps in flight as #8's row pass stages a half (the
+// 64-wide form's 8 left it waiting on L2 for most of its staging); the key
+// pass, whose dK and dV sums hold 64 floats a thread under a cap of 128
+// registers (two blocks a SM), keeps 8.
 constexpr int kWideBatch = 16, kWideBwdBatch = 8;
-
-// Shared memory of attn_rows_fwd_wide_kernel, in floats: the (N, head_ld(64))
-// room of a k or v half, this row block's q and att halves (RB,
-// head_ld(64)), the P rows (RB, N + 4), two (KS, RB) exchanges of the key
-// parts' row max and row sum, and the window's N token indices.
-__host__ __device__ constexpr int attn_wide_fwd_smem_floats(int N, int RB, int KS) {
-  return N * head_ld(64) + 2 * RB * head_ld(64) + RB * (N + 4) + 2 * KS * RB + N;
-}
 
 // Shared memory of attn_wide_bwd_rows_kernel, in floats: the room of a k or
 // v half, this row block's q, dA and dq halves, the P / dS rows, three (KS,
@@ -858,58 +850,6 @@ __device__ __forceinline__ void wide_scores(const AW& aw, float (&s)[AW::NT][4],
     else
       aw.template rows_by_channels<true>(qs, xs, s);
     __syncthreads();  // every warp is done with the halves
-  }
-}
-
-// The 128-wide #3: one block per (window, head), the heads fastest, as
-// attn_rows_fwd_tc_kernel; per row block S over both halves, the softmax to
-// the P tile, then att = P v a half at a time (v's half staged, P v, out a
-// head row at a time).
-template <int N, int RB, int KS, typename T>
-__global__ void __launch_bounds__(attn_tc_threads(RB, KS), 1)
-    attn_rows_fwd_wide_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                              T* __restrict__ att, int H, int W, int C, int nh, int wr, int wc,
-                              int kinds, float scale) {
-  using AW = AttnWarps<N, RB, KS, std::is_same<T, bf16>::value, 64>;
-  constexpr int NTH = AW::NTH, LD = AW::LD, CT = AW::CT, NT = AW::NT;
-  extern __shared__ __align__(16) float smem[];
-  const int hd = C / nh, C3 = 3 * C;
-  const int nww = W / wc, nwh = H / wr;
-  const int h = (int)(blockIdx.x % nh), win = (int)(blockIdx.x / nh % (nwh * nww));
-  const int b = (int)(blockIdx.x / nh / (nwh * nww));
-  const int wi = win / nww, wj = win % nww;
-  const AW aw;
-  float* xs = smem;              // (N, LD) a 64-channel half of k, then of v
-  float* qs = xs + N * LD;       // (RB, LD) a half of this row block's q
-  float* oa = qs + RB * LD;      // (RB, LD) a half of its att
-  float* pt = oa + RB * LD;      // (RB, LP): the bias rows, then P
-  float* red = pt + RB * AW::LP;  // (2, KS, RB): each part's row max and row sum
-  int* tok = reinterpret_cast<int*>(red + 2 * KS * RB);  // (N) the window's tokens
-  for (int r = threadIdx.x; r < N; r += NTH)
-    tok[r] = (int)roll_token(b, wi, wj, r, H, W, wr, wc, 0);
-  const float* table = bias + ((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N * N;
-  __syncthreads();
-  for (int r0 = 0; r0 < N; r0 += RB) {
-    const int* rt = tok + r0;  // this row block's tokens
-    float s[NT][4];
-    wide_scores<kWideBatch>(aw, s, qkv, tok, rt, table + (size_t)r0 * N, xs, qs, pt, C, h, hd);
-    aw.softmax_frags(s, pt, red, scale);
-#pragma unroll 1
-    for (int c = 0; c < 2; ++c) {  // att = P v, a half at a time
-      const int off = h * hd + 64 * c, n_c = c ? hd - 64 : 64;
-      stage_head_rows<N, NTH, false, 64, kWideBatch>(
-          xs, n_c, [&](int r) { return qkv + (long long)tok[r] * C3 + 2 * C + off; });
-      __syncthreads();  // v's half staged (and, the first time, P whole)
-      float o[CT][4];
-      aw.rows_by_keys(pt, xs, o);
-#pragma unroll
-      for (int j = 0; j < CT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oa[aw.o_row(e) * LD + aw.o_chan(j, e)] = o[j][e];
-      __syncthreads();  // att's half whole; xs and the tile free
-      store_head_rows<RB, NTH, 64>(oa, n_c,
-                                   [&](int r) { return att + (long long)rt[r] * C + off; });
-    }
   }
 }
 
@@ -1120,12 +1060,11 @@ __global__ void __launch_bounds__(attn_tc_threads(R, KS), 2)
 // (8 warps: rows of 64 need 243,712 B of shared memory in the forward, past
 // a block's 232,448), one block a SM whose threads may hold 255 registers
 // (a thread of 16 warps, at most 128, spilled); n 128 and 64 keep their
-// plans. The 128-wide forward (hd 128: heads of 65 to 128 channels in two
-// 64-channel halves) takes rows of 64 in two key parts at every n (8
-// warps, one block a SM: its rooms hold one 64-channel half of k or v, so
-// rows of 64 fit, 173,056 B at n 256, and halve the restaging of k and v
-// against rows of 32), and so does #8's row pass (190,976 B at n 256); #8's
-// key pass, WideKeyPlan.
+// plans. #8's 128-wide row pass (hd 128: heads of 65 to 128 channels in
+// two 64-channel halves) takes rows of 64 in two key parts at every n (8
+// warps, one block a SM: its rooms hold one 64-channel half of k or v,
+// 190,976 B at n 256); #8's key pass, WideKeyPlan; the 128-wide forward,
+// WideFwdPlan.
 struct AttnPlan {
   int rb, ks;
 };
@@ -1145,6 +1084,386 @@ struct WideKeyPlan {
   int kb, r, ks;
 };
 constexpr WideKeyPlan kWideKeyPlan{64, 32, 4};
+
+// ---------------------------------------------------------------------------
+// The 128-wide #3 (attn_wide_fwd_kernel): one block per (window, head, row
+// block of RB rows), the row blocks fastest (grid (nh N / RB, windows, B)),
+// 8 warps, each a (16-row tile, key part) in S and a (16-row tile, every
+// other 8-channel tile) in att = P v. The block's q rows are staged once and
+// each warp holds its tile's in registers over the head's channels; k, then
+// v, stream through two shared buffers in tiles of KT keys whose rows hold
+// the whole head (fp32 132 floats apart; bf16 stays bf16, 136 elements
+// apart), the next tile's cp.async copies in flight while the warps
+// multiply this one (one barrier a tile), so k and v are read once a block
+// (the row blocks of a (window, head) read the same rows, from L2). The
+// softmax stays exact, as the JAX kernel's: S = q k^T scale + bias of every
+// key goes into the (RB, N + 4) fp32 tile over the bias rows staged there
+// first, each warp then takes whole rows (max, exp, sum by warp shuffles in
+// a fixed order) and writes P (fp32) or bf16(P) (bf16, over the row's first
+// half), and att = P v sums tile by tile in registers, out through a buffer
+// a head row at a time. Products: 3xTF32 mma.sync m16n8k8 (fp32), or
+// m16n8k16 with fp32 sums (bf16: q and k fragments straight from the bf16
+// rows, v's through ldmatrix.trans, bf16(P) from the tile), on the k-steps
+// and channel tiles that hold the head (77 channels: 80 of 128). A head
+// may start at any element of its token's row (DRCT's heads of 122 at C
+// 244: every 488 B in fp32, 244 B in bf16), and a copy a channel would
+// make most of the block's copies: the copies are of `unit` elements, the
+// widest 16-, 8- or 4-byte copy that qkv's base and C allow
+// (wide_fwd_unit), each row from the copy boundary at or before the head,
+// so channel c lands at c + p, p = h hd mod unit for q, k and v alike, the
+// p elements before zeroed (they add nothing to S) and att read back from
+// c + p; unit 0, a bf16 qkv at an odd C,
+// copies element by element, not overlapped. No atomics, one launch: two
+// runs are bit-identical.
+// ---------------------------------------------------------------------------
+
+// The 128-wide forward's plan: query rows of a block, keys of a staged tile.
+struct WideFwdPlan {
+  int rb, kt;
+};
+constexpr WideFwdPlan kWideFwdPlan{64, 64};
+constexpr int kWideFwdThreads = 256;
+
+// Elements between two staged head rows of the 128-wide forward: fp32 132,
+// bf16 136 (16-byte rows 4 banks apart: the fragments' loads hit 32 banks).
+__host__ __device__ constexpr int wide_fwd_ld(bool bf) { return bf ? 136 : 132; }
+
+// Shared memory of attn_wide_fwd_kernel, in bytes: two buffers of KT head
+// rows (q's RB rows in the second at the start, att's on the way out in the
+// first), the (RB, N + 4) fp32 S / P tile and the window's N token indices:
+// 135,168 B in fp32 at n 256, 102,400 B in bf16.
+__host__ __device__ constexpr int attn_wide_fwd_smem_bytes(int N, int RB, int KT, bool bf) {
+  return 2 * KT * wide_fwd_ld(bf) * (bf ? 2 : 4) + 4 * RB * (N + 4) + 4 * N;
+}
+
+// Blocks a SM of the 128-wide forward: fp32 one (a thread holds its q rows,
+// 64 floats, under a cap of 255 registers), bf16 two (32 words of q pairs
+// under a cap of 128).
+__host__ __device__ constexpr int attn_wide_fwd_blocks(bool bf) { return bf ? 2 : 1; }
+
+// `ub` bytes (4, 8 or 16) from src to dst, of which the first `bytes` are
+// read and the rest are zero.
+__device__ __forceinline__ void cp_async_unit(void* dst, const void* src, int ub, int bytes) {
+  if (ub == 16)
+    cp_async16(static_cast<float*>(dst), static_cast<const float*>(src), bytes);
+  else if (ub == 8)
+    cp_async8(dst, src, bytes);
+  else
+    cp_async4(static_cast<float*>(dst), static_cast<const float*>(src), bytes);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The B fragment of m16n8k16 for the 16 x 8 block of a row-major bf16
+// matrix (16 rows of k, 8 columns of n) whose row k0 + i starts at
+// rows[i * ld]: lanes 0-15 name the rows.
+__device__ __forceinline__ void ldmatrix_b_trans(uint32_t& b0, uint32_t& b1, const bf16* rows,
+                                                 int ld) {
+  const bf16* row = rows + (threadIdx.x & 15) * ld;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// How a block of the 128-wide forward stages its head's rows: `unit`
+// elements a copy (0: element by element), `units` copies a row from the
+// copy boundary p elements before the head, of which the last reads `last`
+// bytes; channel c of the head at c + p of a staged row; hd the head's
+// channels.
+struct WideRows {
+  int unit, units, last, p, hd;
+};
+
+// ROWS head rows into dst (row stride LD): row r from the token tok[r],
+// `off` elements into its 3C row (off counts the p elements before the
+// head); warp w takes the rows w, w + 8, .., lane l the copies l, l + 32,
+// .. of a row (cp.async, not waited for; unit 0: plain loads and stores).
+template <int ROWS, int LD, typename T>
+__device__ __forceinline__ void wide_stage(T* dst, const T* __restrict__ qkv, const int* tok,
+                                           long long c3, int off, const WideRows& w) {
+  constexpr int NW = kWideFwdThreads / 32;
+  const int lane = threadIdx.x % 32, ub = w.unit * (int)sizeof(T);
+#pragma unroll 1
+  for (int r = threadIdx.x / 32; r < ROWS; r += NW) {
+    const T* src = qkv + tok[r] * c3 + off;
+    T* d = dst + r * LD;
+    if (w.unit == 0) {
+      for (int c = lane; c < w.hd; c += 32) d[c] = src[c];
+    } else {
+      for (int u = lane; u < w.units; u += 32)
+        cp_async_unit(d + u * w.unit, src + u * w.unit, ub, u == w.units - 1 ? w.last : ub);
+    }
+  }
+}
+
+// The p elements before channel 0 of the rows that this warp staged into
+// dst, zero: its lane 0 copied them (the row's first copy), and zeroes them
+// after its own copies landed.
+template <int ROWS, int LD, typename T>
+__device__ __forceinline__ void wide_zero_lead(T* dst, const WideRows& w) {
+  if (w.p == 0 || threadIdx.x % 32 != 0) return;
+  for (int r = threadIdx.x / 32; r < ROWS; r += kWideFwdThreads / 32)
+    for (int c = 0; c < w.p; ++c) st_f(dst + r * LD + c, 0.f);
+}
+
+// d[j] += A B_j over one k-step of 8 in 3xTF32 for j < nj, B_j's two
+// values of this thread b[j]: mma3's products in mma3's order for each
+// d[j] (lo*hi, hi*lo, hi*hi), the J accumulators' chains interleaved.
+template <int J>
+__device__ __forceinline__ void mma3_tiles(float (&d)[J][4], const MmaA& a,
+                                           const float (&b)[J][2], int nj = J) {
+  uint32_t h[J][2], l[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) split_tf32_trunc(b[j][e], h[j][e], l[j][e]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < nj) mma_tf32(d[j], a.l, h[j][0], h[j][1]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < nj) mma_tf32(d[j], a.h, l[j][0], l[j][1]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < nj) mma_tf32(d[j], a.h, h[j][0], h[j][1]);
+}
+
+// The softmax of the RB rows of pt (N + 4 floats apart) in place, a warp a
+// row: P in fp32, or (BF) bf16(P) over the first half of the row's bytes.
+template <int N, int RB, bool BF>
+__device__ __forceinline__ void wide_softmax(float* pt) {
+  constexpr int LP = N + 4, PER = N / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int r = threadIdx.x / 32; r < RB; r += kWideFwdThreads / 32) {
+    float* row = pt + r * LP;
+    float v[PER], m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      v[i] = row[lane + 32 * i];
+      m = fmaxf(m, v[i]);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      v[i] = expf(v[i] - m);
+      sum += v[i];
+    }
+    const float inv = 1.f / warp_sum(sum);
+    if constexpr (BF) {
+      __syncwarp();  // the row read whole before its first half takes bf16(P)
+      bf16* pb = reinterpret_cast<bf16*>(row);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) pb[lane + 32 * i] = f2bf(v[i] * inv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) row[lane + 32 * i] = v[i] * inv;
+    }
+  }
+}
+
+// From qkv (T, 3C) and the kind table (kinds, nh, N, N), in x's frame:
+// this head's softmax(q k^T scale + bias) v into att (T, C), for windows of
+// N tokens, wr x wc, no shift; `unit` as wide_fwd_unit gives it.
+template <int N, int RB, int KT, typename T>
+__global__ void __launch_bounds__(kWideFwdThreads,
+                                  attn_wide_fwd_blocks(std::is_same<T, bf16>::value))
+    attn_wide_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                         T* __restrict__ att, int H, int W, int C, int nh, int wr, int wc,
+                         int kinds, float scale, int unit) {
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  constexpr int NW = kWideFwdThreads / 32, LD = wide_fwd_ld(BF), LP = N + 4;
+  constexpr int KSTEP = BF ? 16 : 8, QS = 128 / KSTEP;  // k-steps of a whole head
+  constexpr int NKT = N / KT, TILES = 2 * NKT;           // k's tiles, then v's
+  constexpr int NT = KT / 16;  // a warp's 8-key tiles of S in a key tile (two key parts)
+  constexpr int CT = 8;        // a warp's 8-channel tiles of att (every other one of 16)
+  static_assert(RB == 8 * NW && KT >= RB && N % KT == 0 && KT % 32 == 0,
+                "8 warps, two a 16-row tile; q and att fit a buffer");
+  extern __shared__ __align__(16) float smem[];
+  T* bufs = reinterpret_cast<T*>(smem);                      // two (KT, LD) buffers
+  float* pt = reinterpret_cast<float*>(bufs + 2 * KT * LD);  // (RB, LP): bias rows, S, P
+  int* tok = reinterpret_cast<int*>(pt + RB * LP);           // (N) the window's tokens
+  const int hd = C / nh;
+  const long long C3 = 3LL * C;
+  const int nww = W / wc, nwh = H / wr;
+  const int r0 = RB * (blockIdx.x % (N / RB)), h = blockIdx.x / (N / RB);
+  const int wi = blockIdx.y / nww, wj = blockIdx.y % nww;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q4 = lane % 4;
+  const int row0 = 16 * (warp / 2), part = warp % 2;
+  WideRows w;
+  w.unit = unit;
+  w.hd = hd;
+  w.p = unit ? h * hd % unit : 0;
+  const int span = hd + w.p;  // channels of a staged row, the p before the head's included
+  w.units = unit ? (span + unit - 1) / unit : 0;
+  w.last = unit ? (span - (w.units - 1) * unit) * (int)sizeof(T) : 0;
+  const int nks = (span + KSTEP - 1) / KSTEP, nct = (span + 7) / 8;
+  const int nj = (nct - part + 1) / 2;  // this warp's channel tiles 2 j + part of att
+  const int off = h * hd - w.p;
+  {  // zeros from the copied channels to the last k-step's, in both buffers (never copied over)
+    const int z0 = unit ? w.units * unit : hd, zw = nks * KSTEP - z0;
+    for (int e = threadIdx.x; e < 2 * KT * zw; e += kWideFwdThreads)
+      st_f(bufs + (e / zw) * LD + z0 + e % zw, 0.f);
+  }
+  for (int r = threadIdx.x; r < N; r += kWideFwdThreads)
+    tok[r] = (int)roll_token(blockIdx.z, wi, wj, r, H, W, wr, wc, 0);
+  const float* table =
+      bias + (((size_t)window_kind(kinds, wi, wj, nwh, nww) * nh + h) * N + r0) * N;
+  __syncthreads();  // the tokens
+  for (int e = threadIdx.x; e < RB * (N / 4); e += kWideFwdThreads)  // the bias rows
+    cp_async_unit(pt + (e / (N / 4)) * LP + 4 * (e % (N / 4)), table + 4 * e, 16, 16);
+  T* qs = bufs + KT * LD;
+  wide_stage<RB, LD>(qs, qkv, tok + r0, C3, off, w);  // q, into the second buffer
+  wide_stage<KT, LD>(bufs, qkv, tok, C3, C + off, w);  // k's first tile
+  cp_async_commit();
+  auto stage_tile = [&](int i) {  // tile i (k's, then v's) into buffer i % 2
+    T* dst = bufs + (i % 2) * KT * LD;
+    if (i < NKT)
+      wide_stage<KT, LD>(dst, qkv, tok + i * KT, C3, C + off, w);
+    else
+      wide_stage<KT, LD>(dst, qkv, tok + (i - NKT) * KT, C3, 2 * C + off, w);
+    cp_async_commit();
+  };
+  auto landed = [&](int i) {  // tile i (and, the first time, q and the bias rows) staged
+    cp_async_wait_all();
+    wide_zero_lead<KT, LD>(bufs + (i % 2) * KT * LD, w);
+    if (i == 0) wide_zero_lead<RB, LD>(qs, w);
+    __syncthreads();
+  };
+  uint32_t qa[QS][4];  // this warp's q rows: fp32 values, or bf16 pairs
+  landed(0);
+#pragma unroll
+  for (int st = 0; st < QS; ++st) {
+    if constexpr (BF) {
+      const bf16* x = qs + (row0 + g) * LD + 16 * st + 2 * q4;
+      qa[st][0] = *reinterpret_cast<const uint32_t*>(x);
+      qa[st][1] = *reinterpret_cast<const uint32_t*>(x + 8 * LD);
+      qa[st][2] = *reinterpret_cast<const uint32_t*>(x + 8);
+      qa[st][3] = *reinterpret_cast<const uint32_t*>(x + 8 * LD + 8);
+    } else {
+      const float* x = qs + (row0 + g) * LD + 8 * st + q4;
+      qa[st][0] = __float_as_uint(x[0]);
+      qa[st][1] = __float_as_uint(x[8 * LD]);
+      qa[st][2] = __float_as_uint(x[4]);
+      qa[st][3] = __float_as_uint(x[8 * LD + 4]);
+    }
+  }
+  __syncthreads();  // every warp holds its q rows: the second buffer is free
+#pragma unroll 1
+  for (int i = 0; i < NKT; ++i) {  // S = q k^T scale + bias, a key tile at a time
+    if (i > 0) landed(i);
+    stage_tile(i + 1);
+    const T* ks = bufs + (i % 2) * KT * LD + part * (KT / 2) * LD;  // this warp's keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < QS; ++st) {
+      if (st >= nks) continue;  // (no break: the loop stays unrolled, qa in registers)
+      if constexpr (BF) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const bf16* x = ks + (8 * j + g) * LD + 16 * st + 2 * q4;
+          mma_bf16(s[j], qa[st], *reinterpret_cast<const uint32_t*>(x),
+                   *reinterpret_cast<const uint32_t*>(x + 8));
+        }
+      } else {
+        MmaA a;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32_trunc(__uint_as_float(qa[st][e]), a.h[e], a.l[e]);
+        float b[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float* x = ks + (8 * j + g) * LD + 8 * st + q4;
+          b[j][0] = x[0];
+          b[j][1] = x[4];
+        }
+        mma3_tiles(s, a, b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float2* d = reinterpret_cast<float2*>(pt + (row0 + g + 8 * e) * LP + i * KT +
+                                              part * (KT / 2) + 8 * j + 2 * q4);
+        const float2 b = *d;
+        *d = make_float2(s[j][2 * e] * scale + b.x, s[j][2 * e + 1] * scale + b.y);
+      }
+  }
+  float o[CT][4];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll 1
+  for (int i = NKT; i < TILES; ++i) {  // att = P v, a key tile at a time
+    landed(i);  // and every warp done with S
+    if (i + 1 < TILES) stage_tile(i + 1);
+    if (i == NKT) {
+      wide_softmax<N, RB, BF>(pt);
+      __syncthreads();  // P whole
+    }
+    const T* vs = bufs + (i % 2) * KT * LD;
+    const int k0 = (i - NKT) * KT;
+#pragma unroll 2
+    for (int kk = 0; kk < KT; kk += KSTEP) {
+      if constexpr (BF) {
+        const bf16* x = reinterpret_cast<const bf16*>(pt) + (row0 + g) * 2 * LP + k0 + kk + 2 * q4;
+        const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(x),
+                               *reinterpret_cast<const uint32_t*>(x + 16 * LP),
+                               *reinterpret_cast<const uint32_t*>(x + 8),
+                               *reinterpret_cast<const uint32_t*>(x + 16 * LP + 8)};
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          if (j < nj) {
+            uint32_t b0, b1;
+            ldmatrix_b_trans(b0, b1, vs + kk * LD + 8 * (2 * j + part), LD);
+            mma_bf16(o[j], a, b0, b1);
+          }
+        }
+      } else {
+        MmaA a;
+        mma_load_a<false>(a, pt + row0 * LP + k0 + kk, LP);
+        float b[CT][2];
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const float* x = vs + (kk + q4) * LD + 8 * (2 * j + part) + g;
+          b[j][0] = j < nj ? x[0] : 0.f;
+          b[j][1] = j < nj ? x[4 * LD] : 0.f;
+        }
+        mma3_tiles(o, a, b, nj);
+      }
+    }
+  }
+  // att through the first buffer (free since the barrier of the last tile,
+  // which is in the second), out a head row at a time
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    if (j < nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st_f(bufs + (row0 + g + 8 * (e / 2)) * LD + 8 * (2 * j + part) + 2 * q4 + e % 2,
+             o[j][e]);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int r = warp; r < RB; r += NW) {
+    T* dst = att + (long long)tok[r0 + r] * C + h * hd;
+    const T* src = bufs + r * LD + w.p;
+    for (int c = lane; c < hd; c += 32) dst[c] = src[c];
+  }
+}
 
 // attn_rows_fwd_tc_kernel at windows of N tokens and rows of HD channels;
 // COS, the cosine form, with the heads' temperatures `temps` (nh).
@@ -1254,19 +1573,39 @@ cudaError_t attn_rows_bwd_saved_bf16(const bf16* qkv, const bf16* P, const bf16*
   return cudaGetLastError();
 }
 
-// attn_rows_fwd_wide_kernel at windows of N tokens (the 128-wide #3).
+// The copy unit (elements) of attn_wide_fwd_kernel's staging: the widest
+// 16-, 8- or 4-byte copy that qkv's base and C allow (every head row then
+// starts p = h hd mod unit elements past a copy's start, the same p for
+// q, k and v) and whose staged rows, p elements longer, still fit the
+// head's k-steps (128 channels); else (a bf16 qkv at an odd C) 0, element
+// by element.
+template <typename T>
+int wide_fwd_unit(const T* qkv, int C, int nh) {
+  constexpr int KSTEP = std::is_same<T, bf16>::value ? 16 : 8;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(qkv);
+  const int hd = C / nh;
+  for (int a = 16 / (int)sizeof(T); a * (int)sizeof(T) >= 4; a /= 2) {
+    if (C % a != 0 || base % (a * sizeof(T)) != 0) continue;
+    int fits = 1;
+    for (int h = 0; h < nh; ++h) fits &= (hd + h * hd % a + KSTEP - 1) / KSTEP * KSTEP <= 128;
+    if (fits) return a;
+  }
+  return 0;
+}
+
+// attn_wide_fwd_kernel at windows of N tokens (the 128-wide #3), on
+// kWideFwdPlan.
 template <int N, typename T>
-cudaError_t attn_rows_fwd_wide(const T* qkv, const float* bias, T* att, int B, int H, int W,
-                               int C, int nh, int wr, int wc, int kinds, float scale,
-                               cudaStream_t stream) {
-  constexpr AttnPlan plan = attn_plan(N, 128);
-  constexpr int floats = attn_wide_fwd_smem_floats(N, plan.rb, plan.ks);
-  const cudaError_t err = set_smem(attn_rows_fwd_wide_kernel<N, plan.rb, plan.ks, T>, floats);
+cudaError_t attn_wide_fwd(const T* qkv, const float* bias, T* att, int B, int H, int W, int C,
+                          int nh, int wr, int wc, int kinds, float scale, cudaStream_t stream) {
+  constexpr WideFwdPlan plan = kWideFwdPlan;
+  constexpr int bytes =
+      attn_wide_fwd_smem_bytes(N, plan.rb, plan.kt, std::is_same<T, bf16>::value);
+  const cudaError_t err = set_smem(attn_wide_fwd_kernel<N, plan.rb, plan.kt, T>, bytes / 4);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)B * (unsigned)((H / wr) * (W / wc)) * (unsigned)nh;
-  attn_rows_fwd_wide_kernel<N, plan.rb, plan.ks, T>
-      <<<blocks, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
-          qkv, bias, att, H, W, C, nh, wr, wc, kinds, scale);
+  attn_wide_fwd_kernel<N, plan.rb, plan.kt, T>
+      <<<dim3(nh * (N / plan.rb), (H / wr) * (W / wc), B), kWideFwdThreads, bytes, stream>>>(
+          qkv, bias, att, H, W, C, nh, wr, wc, kinds, scale, wide_fwd_unit(qkv, C, nh));
   return cudaGetLastError();
 }
 

@@ -60,13 +60,17 @@
 //
 // Heads of 65 to 128 channels (DRCT's 122 at C 244 and 77 at C 308) take
 // the 128-wide form (fp32 and bf16): k and v of a whole 128-wide head would
-// need 270,336 B of fp32 rows at n 256. The forward,
-// tc_attn.cuh's attn_rows_fwd_wide_kernel, stages the head in two 64-channel
-// halves in turn into one room (rows of 64, 8 warps, one block a SM): S =
-// q k^T sums both halves into the same fragments, att = P v goes a half at a
-// time. The backward is two launches, each product done once (S twice):
+// need 270,336 B of fp32 rows at n 256. The forward, tc_attn.cuh's
+// attn_wide_fwd_kernel, takes one block per (window, head, row block of 64)
+// and streams k, then v, through two buffers in tiles of 64 keys of whole
+// head rows (cp.async, the next tile in flight while the tensor cores take
+// this one; bf16 rows stay bf16): S scale + bias of every key into a (64, n
+// + 4) fp32 tile, the exact softmax a warp a row, att = P v tile by tile in
+// registers; one block a SM in fp32 (135,168 B at n 256), two in bf16
+// (102,400 B). The backward is two launches, each product done once (S
+// twice):
 // attn_wide_bwd_rows_kernel, one block per (window, head, row block of 64)
-// on the forward's plan, computes S, the softmax (each row's max and
+// (the head in two 64-channel halves), computes S, the softmax (each row's max and
 // inverse sum to a stats scratch), dP = dA v^T, dS (to its buffer) and dQ =
 // scale dS k; attn_wide_bwd_keys_kernel, one block per (window, head, block
 // of 64 keys) with the block's k rows staged whole, walks the row blocks
@@ -130,15 +134,23 @@ cudaError_t dispatch(int n, int hd, F f) {
 
 extern "C" {
 
-// Shared memory of the forward at windows of wr x wc tokens (n 64, 128 or
-// 256) and heads of C / nh channels (at most 128), or 0 for another n.
+// Shared memory of the 128-wide forward at windows of n tokens (64, 128 or
+// 256), fp32 or (bf16 non-zero) its bf16 form, or 0 for another n.
+size_t trr_wide_fwd_smem_bytes(int n, int bf16) {
+  if (n != 64 && n != 128 && n != 256) return 0;
+  return (size_t)trr::attn_wide_fwd_smem_bytes(n, trr::kWideFwdPlan.rb, trr::kWideFwdPlan.kt,
+                                               bf16 != 0);
+}
+
+// Shared memory of the forward (at heads past 64 its fp32 form's, the
+// larger) at windows of wr x wc tokens (n 64, 128 or 256) and heads of C /
+// nh channels (at most 128), or 0 for another n.
 size_t trr_rect_mhsa_smem_bytes(int C, int nh, int wr, int wc) {
   const int n = wr * wc, hw = head_width(C / nh);
   if ((n != 64 && n != 128 && n != 256) || hw == 0) return 0;
+  if (hw == 128) return trr_wide_fwd_smem_bytes(n, 0);
   const trr::AttnPlan plan = trr::attn_plan(n, hw);
-  const int floats = hw == 128 ? trr::attn_wide_fwd_smem_floats(n, plan.rb, plan.ks)
-                               : trr::attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks, hw);
-  return (size_t)floats * sizeof(float);
+  return (size_t)trr::attn_rows_fwd_tc_smem_floats(n, plan.rb, plan.ks, hw) * sizeof(float);
 }
 
 // Shared memory of the 128-wide backward's row pass (pass 0) and key pass
@@ -180,8 +192,7 @@ int trr_rect_mhsa_fwd(const float* qkv, const float* bias, float* out, int B, in
   return (int)dispatch(wr * wc, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
     if constexpr (HD == 128)
-      return trr::attn_rows_fwd_wide<N>(qkv, bias, out, B, H, W, C, nh, wr, wc, kinds, scale,
-                                        stream);
+      return trr::attn_wide_fwd<N>(qkv, bias, out, B, H, W, C, nh, wr, wc, kinds, scale, stream);
     else
       return trr::attn_rows_fwd_tc<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr, wc,
                                                  kinds, 0, scale, stream);
@@ -237,8 +248,7 @@ int trr_rect_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16* o
   return (int)dispatch(wr * wc, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
     if constexpr (HD == 128)
-      return trr::attn_rows_fwd_wide<N>(qkv, bias, out, B, H, W, C, nh, wr, wc, kinds, scale,
-                                        stream);
+      return trr::attn_wide_fwd<N>(qkv, bias, out, B, H, W, C, nh, wr, wc, kinds, scale, stream);
     else
       return trr::attn_rows_fwd_bf16<N, false, HD>(qkv, bias, out, nullptr, B, H, W, C, nh, wr,
                                                    wc, kinds, 0, scale, stream);

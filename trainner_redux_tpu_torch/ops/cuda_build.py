@@ -113,6 +113,7 @@ SIGNATURES = {
         "trr_rect_mhsa_smem_bytes": ([_I] * 4, ctypes.c_size_t),
         "trr_rect_mhsa_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
         "trr_wide_bwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+        "trr_wide_fwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
         "trr_window_mhsa_fwd_bf16": ([_P] * 3 + [_I] * 7 + [_F, _P], _I),
         "trr_window_mhsa_bwd_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
         "trr_rect_mhsa_fwd_bf16": ([_P] * 3 + [_I] * 8 + [_F, _P], _I),

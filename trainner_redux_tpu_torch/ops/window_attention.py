@@ -22,8 +22,10 @@ forward, #8 backward), each counted on its own:
   h_sp rows and w_sp columns, n = 128 (8x16, 16x8) or 256 (8x32, 32x8).
 
 Heads of at most 128 channels: a head of 65 to 128 (DRCT's 122 and 77)
-takes the kernels' 128-wide form, the head in two 64-channel halves staged
-in turn (`TC_ATTN_PLANS_128`), its backward a row pass and a key pass
+takes the kernels' 128-wide form: its forward streams k and v of the whole
+head through shared memory in tiles of keys, a block per window, head and
+row block (`TC_ATTN_FWD_PLAN_128`), its backward a row pass, the head in
+two 64-channel halves staged in turn (`TC_ATTN_PLANS_128`), and a key pass
 (`TC_ATTN_KEY_PLAN_128`); a head of 33 to 64 (ATD's 35, DRCT's 53 and
 46) the 64-wide form, its rows padded to 64 channels on plans of their own
 (`TC_ATTN_PLANS_64`); heads of at most 32 the 32-wide form. Every form
@@ -74,17 +76,28 @@ TC_ATTN_PLANS = {256: (64, 4), 144: (48, 2), 128: (32, 4), 64: (64, 2)}
 # floats apart, and at n 256 rows of 32 (rows of 64 would need 243,712 B in
 # the forward), one block of 8 warps a SM; tc_attn.cuh's attn_plan(n, 64)
 TC_ATTN_PLANS_64 = {256: (32, 4), 128: (32, 4), 64: (64, 2)}
-# #3 and #8 at heads of 65 to 128 channels: the head in two 64-channel
-# halves, each staged in turn into one (n, 68) room (k and v of a whole
-# 128-wide head would need 270,336 B in fp32), one block of 8 warps a SM;
-# the forward and #8's row pass (one block per window, head and row block)
-# on rows of 64 in two key parts at every n (tc_attn.cuh's attn_plan(n,
-# 128)); #8's key pass (one block per window, head and block of keys) on
-# blocks of 64 keys whose k rows stay staged whole, rows of 32 in four key
-# parts, two blocks a SM (tc_attn.cuh's kWideKeyPlan: keys, rows, parts)
+# #3 and #8 at heads of 65 to 128 channels. #8's row pass (one block per
+# window, head and row block) takes the head in two 64-channel halves, each
+# staged in turn into one (n, 68) room (k and v of a whole 128-wide head
+# would need 270,336 B in fp32), on rows of 64 in two key parts at every n,
+# one block of 8 warps a SM (tc_attn.cuh's attn_plan(n, 128)); #8's key
+# pass (one block per window, head and block of keys) on blocks of 64 keys
+# whose k rows stay staged whole, rows of 32 in four key parts, two blocks a
+# SM (tc_attn.cuh's kWideKeyPlan: keys, rows, parts). #3 (one block per
+# window, head and row block, 8 warps) streams k, then v, through two
+# buffers of a tile of keys each, whole head rows (fp32 132 floats apart,
+# bf16 136 elements), beside the (rows, n + 4) fp32 S / P tile: one block a
+# SM in fp32, two in bf16 (tc_attn.cuh's kWideFwdPlan: rows, keys a tile)
 HD_MAX = 128
 TC_ATTN_PLANS_128 = {256: (64, 2), 128: (64, 2), 64: (64, 2)}
 TC_ATTN_KEY_PLAN_128 = (64, 32, 4)
+TC_ATTN_FWD_PLAN_128 = (64, 64)
+# the 128-wide #3's layout by type (fp32, bf16): elements between two staged
+# head rows (tc_attn.cuh's wide_fwd_ld), bytes an element, and blocks a SM
+# (attn_wide_fwd_blocks, its __launch_bounds__)
+WIDE_FWD_LD = {False: 132, True: 136}
+WIDE_FWD_ELEMENT_BYTES = {False: 4, True: 2}
+WIDE_FWD_BLOCKS = {False: 1, True: 2}
 
 
 def head_width(head_dim: int) -> int:
@@ -97,7 +110,8 @@ def head_width(head_dim: int) -> int:
 def tc_attn_plan(n: int, head_dim: int = 32) -> tuple[int, int]:
     """(query rows of a thread block, warps a 16-row tile) at windows of n
     tokens and heads of head_dim channels, #3's and #8's (at heads past 64,
-    #8's row pass; its key pass takes `TC_ATTN_KEY_PLAN_128`)."""
+    #8's row pass; its key pass takes `TC_ATTN_KEY_PLAN_128`, the forward
+    `TC_ATTN_FWD_PLAN_128`)."""
     return {32: TC_ATTN_PLANS, 64: TC_ATTN_PLANS_64, 128: TC_ATTN_PLANS_128}[
         head_width(head_dim)][n]
 
@@ -115,13 +129,23 @@ def attn_fwd_tc_smem_bytes(n: int, head_dim: int = 32) -> int:
     channels: k and v of the window and q and att of a row block, rows
     head_width + 4 floats apart (HEAD_LD at 32), the (rows, n + 4) P tile,
     two (parts, rows) exchanges of the key parts' row max and sum, and the n
-    token indices."""
-    rb, ks = tc_attn_plan(n, head_dim)
+    token indices; at heads past 64, the 128-wide form's fp32 size (its
+    bf16 form's is smaller: `wide_fwd_smem_bytes`)."""
     if head_width(head_dim) == HD_MAX:
-        # one (n, 68) room for a k or v half, q and att halves of a row block
-        return 4 * (n * 68 + 2 * rb * 68 + rb * (n + 4) + 2 * ks * rb + n)
+        return wide_fwd_smem_bytes(n)
+    rb, ks = tc_attn_plan(n, head_dim)
     ld = head_width(head_dim) + 4
     return 4 * (2 * n * ld + 2 * rb * ld + rb * (n + 4) + 2 * ks * rb + n)
+
+
+def wide_fwd_smem_bytes(n: int, bf16: bool = False) -> int:
+    """Shared memory of the 128-wide #3 at windows of n tokens
+    (csrc/tc_attn.cuh's attn_wide_fwd_smem_bytes): two buffers of a tile of
+    keys' whole head rows (`WIDE_FWD_LD` elements apart), the (rows, n + 4)
+    fp32 S / P tile and the n token indices."""
+    rb, kt = TC_ATTN_FWD_PLAN_128
+    row = WIDE_FWD_LD[bf16] * WIDE_FWD_ELEMENT_BYTES[bf16]
+    return 2 * kt * row + 4 * rb * (n + 4) + 4 * n
 
 
 def attn_bwd_tc_smem_bytes(n: int, att: bool, saved: bool = False, head_dim: int = 32) -> int:
@@ -425,8 +449,16 @@ def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
+# the largest y and z of a launch grid: the kernels that take the windows of
+# an image on y and the images on z (every backward, and the 128-wide
+# forward) take at most this many of each
+GRID_YZ_MAX = 65535
+
+
 def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc,
-                         dtype=torch.float32):
+                         dtype=torch.float32, grid_yz=True):
+    """Refuse, with its limits, a call outside the kernels' gate; `grid_yz`:
+    the launch puts windows on the grid's y and images on its z."""
     b, hh, ww, c3 = qkv.shape
     c, n, kinds = num_heads * head_dim, wr * wc, bias.shape[0]
     if c3 != 3 * c or kinds not in (1, 4):
@@ -441,13 +473,18 @@ def _check_window_shapes(name, qkv, bias, num_heads, head_dim, wr, wc,
         )
     if b * hh * ww * 3 * c >= 2**31:
         raise ValueError(f"{name}: {b * hh * ww} tokens are more than the kernels index")
+    windows = (hh // wr) * (ww // wc)
+    if grid_yz and max(b, windows) > GRID_YZ_MAX:
+        raise ValueError(f"{name}: {b} images of {windows} windows is outside the kernel's "
+                         f"launch grid (at most {GRID_YZ_MAX} of each)")
 
 
 def _mhsa_fwd_cuda(counted, qkv, bias, num_heads, head_dim, wr, wc, bf16=False):
     """Launch the forward kernel (`bf16`: its bf16 form), one count on the
     wrapper `counted`."""
     dtype = torch.bfloat16 if bf16 else torch.float32
-    _check_window_shapes(counted.__name__, qkv, bias, num_heads, head_dim, wr, wc, dtype)
+    _check_window_shapes(counted.__name__, qkv, bias, num_heads, head_dim, wr, wc, dtype,
+                         grid_yz=head_width(head_dim) == HD_MAX)
     b, hh, ww, _ = qkv.shape
     c = num_heads * head_dim
     out = torch.empty((b, hh, ww, c), device=qkv.device, dtype=qkv.dtype)
