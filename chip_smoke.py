@@ -870,7 +870,13 @@ def stage_of(kernel: str) -> str:
     pass) and attn_wide_bwd_keys_kernel (the key pass), in both types;
     #7's split rows stage (rows of 257-320) stores dy on rows_kernel's (or
     rows_bf16_kernel's) mode 0, then ln_bwd_rows_kernel takes the LN
-    backward."""
+    backward. The bf16 forms of #5, #6, #7, #12 and #14 take their weight
+    gradients on csrc/wgrad_bf16.cuh's stage: wg_bf16_kernel (the products;
+    B's column sums where B is the bias sums' source), wg_colsum_kernel
+    (every other source's bias sums: "bias sums"), wg_sum_kernel (the
+    partial sums in order); #6's bf16 window attention is
+    attn_group_bwd_bf16_kernel (csrc/attn_group_bf16.cuh), its dbias the
+    groups' sums added by dbias_group_sum_kernel."""
     for part, stage in (("postnorm_rows_bf16_kernel", "post-norm rows"),
                         ("attn_wide_fwd_kernel", "window attention forward"),
                         ("attn_wide_bwd_rows_kernel", "row pass"),
@@ -881,7 +887,10 @@ def stage_of(kernel: str) -> str:
                         ("attn_rows_fwd_bf16_kernel", "window attention forward"),
                         ("attn_rows_bwd_bf16_kernel", "window attention"),
                         ("attn_rows_bwd_recompute_bf16_kernel", "window attention"),
-                        ("atb_bf16_kernel", "weight gradients")):
+                        ("attn_group_bwd_bf16_kernel", "window attention"),
+                        ("dbias_group_sum_kernel", "bias table"),
+                        ("wg_bf16_kernel", "weight gradients"),
+                        ("wg_colsum_kernel", "bias sums"), ("wg_sum_kernel", "partial sums")):
         if part in kernel:
             return stage
     for part, modes in (("linear_bf16_kernel<", {"2": "x + s (A W + b)"}),
@@ -946,6 +955,17 @@ def stages_8_wide(b: int, nwin: int, nh: int, n: int = 256) -> dict[str, int]:
 STAGES_8_RECT = {"window attention": 1, "bias table": 2}  # DAT's 8x32, 3 heads
 STAGES_14 = {"x W + b": 2, "post-norm LN backward": 1, "fc1 and dh": 1, "dx = dout + A W^T": 1,
              "weight gradients": 2, "partial sums": 3}
+# the bf16 forms: their weight gradients' bias sums of a source other than
+# B (s2 dout, dh, s1 dz; s dout; dproj; dm, dh) on wg_colsum_kernel, and
+# #6's dbias one sum over the window attention's groups
+STAGES_5_BF16 = {**STAGES_5, "bias sums": 3}
+STAGES_6_BF16 = {**STAGES_6, "bias sums": 1, "bias table": 1}
+STAGES_7_BF16 = {**STAGES_7, "bias sums": 2}
+STAGES_7_SPLIT_BF16 = {**STAGES_7_SPLIT, "bias sums": 2}
+STAGES_12_BF16 = {**STAGES_12, "bias sums": 1}
+STAGES_14_BF16 = {**STAGES_14, "bias sums": 2}
+# the kernels of the bf16 weight gradients (csrc/wgrad_bf16.cuh)
+WG_BF16 = ("wg_bf16_kernel", "wg_colsum_kernel", "wg_sum_kernel")
 # the pre-LN forwards (csrc/block_fwd.cuh): #1 and #9 at 8x8 and 12x12 (LN1,
 # qkv, the window attention, proj + residual), #2 (LN2, fc1 + gelu, fc2 +
 # residual) and #4 (both halves); #3, the window attention alone
@@ -3962,7 +3982,7 @@ def phase_bf16_kernels() -> dict:
                     kernels=("attn_rows_fwd_bf16_kernel", "linear_bf16_kernel"), bf16=True)
         stage_split("bf16 kernels", f"fused_swin_block_train_backward_bf16 {label}", bwd,
                     bwd_flops, bwd_bytes, res["fused_swin_block_train_backward_bf16"]["ms"],
-                    STAGES_5, kernels=("attn_rows_bwd_bf16_kernel", "atb_bf16_kernel"),
+                    STAGES_5_BF16, kernels=("attn_rows_bwd_bf16_kernel", *WG_BF16),
                     bf16=True)
     return res
 
@@ -4463,7 +4483,8 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
         else:
             plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
             fwd_name = f"attn_rows_fwd_bf16_kernel<{plan}>"
-            bwd_names = (f"attn_rows_bwd_recompute_bf16_kernel<{plan}>",)
+            bwd_names = (f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}, "
+                         f"{wa.head_width(hd)}>",)
         stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win),
                     fwd_flops, fwd_bytes, res[names[0]]["ms"], STAGES_3, kernels=(fwd_name,),
                     bf16=True)
@@ -4571,8 +4592,8 @@ def phase_bf16_window_kernels() -> dict:
                 res["fused_ln_mlp_bf16"]["ms"], STAGES_2,
                 kernels=("ln_rows_bf16_kernel", "linear_bf16_kernel"), bf16=True)
     stage_split(tag, "fused_ln_mlp_backward_bf16 HAT-M", bwd, 10 * T * C * HIDDEN, bwd_bytes,
-                res["fused_ln_mlp_backward_bf16"]["ms"], STAGES_7,
-                kernels=("mlp_hidden_bf16_kernel", "rows_bf16_kernel", "atb_bf16_kernel"),
+                res["fused_ln_mlp_backward_bf16"]["ms"], STAGES_7_BF16,
+                kernels=("mlp_hidden_bf16_kernel", "rows_bf16_kernel", *WG_BF16),
                 bf16=True)
 
     # the MLP half at SRFormerV2's block (C 240, hidden 480: the 256-column
@@ -4696,8 +4717,9 @@ def phase_srformerv2_bf16_kernels() -> dict:
     bf16 inputs (wq and wp rounded to bf16, as the forms take them;
     `bf16_f64_check`); two runs of each bit for bit; times beside the plain
     versions' and the fp32 forms' (#1 at 12x12, #6), the bf16 bound and its
-    share; at K=1 both split by stage (#6's window attention must be the
-    recompute kernel that writes att)."""
+    share; at K=1 both split by stage (#6's must run attn_group_bwd_bf16_kernel,
+    the window attention over groups of windows that sums dbias in the
+    block, dbias_group_sum_kernel and the bf16 weight-gradient stage)."""
     import torch
 
     from trainner_redux_tpu_torch.ops import fused_block as fb
@@ -4774,9 +4796,9 @@ def phase_srformerv2_bf16_kernels() -> dict:
                         kernels=("ln_rows_bf16_kernel", "linear_bf16_kernel",
                                  "attn_rows_fwd_bf16_kernel<144, 48, 2, false, 32>"), bf16=True)
             stage_split(tag, f"fused_attn_block_backward_bf16 {label}", bwd, bwd_flops, bwd_bytes,
-                        res["fused_attn_block_backward_bf16"]["ms"], STAGES_6,
-                        kernels=("attn_rows_bwd_recompute_bf16_kernel<144, 48, 2, true, 32>",
-                                 "atb_bf16_kernel", "rows_bf16_kernel"), bf16=True)
+                        res["fused_attn_block_backward_bf16"]["ms"], STAGES_6_BF16,
+                        kernels=("attn_group_bwd_bf16_kernel", "dbias_group_sum_kernel",
+                                 *WG_BF16, "rows_bf16_kernel"), bf16=True)
         torch.cuda.empty_cache()
     return res
 
@@ -4914,12 +4936,12 @@ S2_BF16_BLOCKS = (("Swin2SR-S", (60, 6, WS, 120), (4,), False),
 S2_BF16_KERNELS = {
     "fused_cos_attn_block": (STAGES_11, ("linear_bf16_kernel", "cos_attn_rows_fwd_bf16_kernel",
                                          "postnorm_rows_bf16_kernel")),
-    "fused_cos_attn_block_backward": (STAGES_12, (
+    "fused_cos_attn_block_backward": (STAGES_12_BF16, (
         "cos_attn_rows_fwd_bf16_kernel", "postnorm_ln_rows_kernel<__nv_bfloat16>",
-        "cos_attn_bwd_tc_kernel<__nv_bfloat16>", "atb_bf16_kernel", "rows_bf16_kernel")),
+        "cos_attn_bwd_tc_kernel<__nv_bfloat16>", *WG_BF16, "rows_bf16_kernel")),
     "fused_postnorm_mlp": (STAGES_13, ("linear_bf16_kernel", "postnorm_rows_bf16_kernel")),
-    "fused_postnorm_mlp_backward": (STAGES_14, (
-        "postnorm_ln_rows_kernel<__nv_bfloat16>", "mlp_hidden_bf16_kernel", "atb_bf16_kernel",
+    "fused_postnorm_mlp_backward": (STAGES_14_BF16, (
+        "postnorm_ln_rows_kernel<__nv_bfloat16>", "mlp_hidden_bf16_kernel", *WG_BF16,
         "rows_bf16_kernel")),
 }
 
@@ -6072,7 +6094,8 @@ def mlp_c320_record(res: dict, tag: str, label: str, shape, c: int, hidden: int,
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      "bound_ms": bms, "bound_by": by}
         stage_split(tag, f"{name} {label}", lambda: kern(x, *params, s, dout, 16), flops, nb, ms,
-                    STAGES_7_SPLIT, kernels=(LN_BWD_ROWS_BF if bf else LN_BWD_ROWS,), bf16=bf)
+                    STAGES_7_SPLIT_BF16 if bf else STAGES_7_SPLIT,
+                    kernels=(LN_BWD_ROWS_BF, *WG_BF16) if bf else (LN_BWD_ROWS,), bf16=bf)
 
 
 def phase_drct_kernels() -> dict:

@@ -128,9 +128,11 @@ def test_bf16_attn_half_matches_jax_vjp(kinds):
 
 def test_bf16_attn_half_gate_and_plans():
     """The bf16 forms take SRFormerV2's 12x12 blocks (C 240, 8 heads of 30:
-    every plan within one thread block's 232,448 bytes) and nothing else:
+    every plan within one thread block's 232,448 bytes, the largest #6's
+    window attention over groups of windows, 218,880) and nothing else:
     8x8 windows, heads of 40 channels and rows over 256 channels are out."""
     assert tfb.attn_block_bf16_fits(72, 72, 12, 240, 8)
+    assert tfb.attn_block_bf16_smem_bytes(240) == tfb.attn_group_smem_bytes() == 218_880
     assert tfb.attn_block_bf16_smem_bytes(240) <= 232_448
     assert not tfb.attn_block_bf16_fits(64, 64, 8, 180, 6)
     assert not tfb.attn_block_bf16_fits(72, 72, 12, 240, 6)

@@ -180,8 +180,17 @@ def test_shared_memory_plans_match_the_sources(cuda):
         assert lib_fb.trr_ln_mlp_smem_bytes(c) == fb.ln_mlp_smem_bytes(c)
     assert lib_tr.trr_hidden_smem_bytes() == fb.mlp_hidden_smem_bytes()
     assert lib_tr.trr_atb_smem_bytes() == fb.weight_grad_smem_bytes()
-    assert max(lib_tr.trr_hidden_bf16_smem_bytes(), lib_tr.trr_atb_bf16_smem_bytes()) <= (
-        wa.SMEM_LIMIT)
+    assert lib_tr.trr_hidden_bf16_smem_bytes() <= wa.SMEM_LIMIT
+    for n in (60, 120, 180, 240, 276, 308, 360, 480, 540, 552, 616, 720):  # the bf16 weight gradients
+        assert lib_tr.trr_weight_grad_bf16_smem_bytes(n) == fb.weight_grad_bf16_smem_bytes(n)
+        assert fb.weight_grad_bf16_smem_bytes(n) <= wa.SMEM_LIMIT
+        for t, m in ((82_944, 240), (32_768, 360), (960, 180), (40, 616)):
+            assert lib_tr.trr_weight_grad_bf16_part_floats(t, m, n) == (
+                fb.weight_grad_bf16_part_floats(t, m, n))
+    for b, h, w, nh, kinds in ((16, 72, 72, 8, 4), (16, 72, 72, 8, 1), (1, 48, 60, 8, 4),
+                               (2, 12, 12, 6, 4)):  # #6's bf16 window attention, its groups
+        groups = len(fb.attn_dbias_groups(b, h // 12, w // 12, kinds))
+        assert lib_tr.trr_attn_group_part_floats(b, h, w, nh, kinds) == groups * nh * 144 * 144
     for c in (240, 180, 60, 256):  # the bf16 attention half (#1/#6) at 12x12 windows
         assert lib_tr.trr_attn_block_bf16_smem_bytes(c) == fb.attn_block_bf16_smem_bytes(c)
         assert fb.attn_block_bf16_smem_bytes(c) <= wa.SMEM_LIMIT
@@ -1141,13 +1150,15 @@ def test_fused_attn_block_ws12_kernels(cuda, kinds, shift):
 @pytest.mark.cuda
 @pytest.mark.parametrize(("kinds", "shift", "shape"), [
     (1, 0, (SB, SH, SW)), (4, SWS // 2, (SB, SH, SW)), (1, 0, (1, 24, 36)),
+    (1, 0, (1, 48, 60)), (4, SWS // 2, (1, 48, 60)),
 ])
 def test_bf16_attn_block_ws12_kernels(cuda, kinds, shift, shape):
     """#1's and #6's bf16 forms at SRFormerV2's block (bf16 x and dout, fp32
     parameters) through the autograd Function against their bf16 plain
     versions, each counted once under its own name and no fp32 form
-    launched; the tokens of (1, 24, 36) fill no whole 128-token tile; two
-    runs bit for bit."""
+    launched; the tokens of (1, 24, 36) fill no whole 128-token tile; the 20
+    windows of (1, 48, 60) fill no whole group of #6's window attention (K=1:
+    8, 8, 4; K=4: 12 interior windows, 3, 4 and 1); two runs bit for bit."""
     from trainner_redux_tpu_torch.ops import fused_block as fb
 
     p = _ws12_inputs(cuda, kinds)
@@ -1179,6 +1190,83 @@ def test_bf16_attn_block_ws12_kernels(cuda, kinds, shift, shape):
             for _ in range(2)]
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("c", "nh"), [(60, 2), (60, 4)])
+def test_bf16_attn_block_ws12_at_other_widths(cuda, c, nh):
+    """#6's bf16 form where its window attention cannot take the 16-byte
+    pieces around each head: C 60 (no multiple of 8) with heads of 30
+    (4-byte copies straight into the rooms) and of 15 (an odd head: element
+    by element), K=4 shifted by 6 at 20 windows, against its bf16 plain
+    version; two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops.window_attention import shift_mask_kinds
+
+    gen = torch.Generator().manual_seed(c + nh)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    n, hd, shift = SWS * SWS, c // nh, SWS // 2
+    masks = torch.from_numpy(shift_mask_kinds(SWS, shift)).to(cuda)
+    bias = (randn(nh, n, n, scale=0.5)[None] + masks[:, None]).contiguous()
+    x, dout = randn(1, 48, 60, c).bfloat16(), randn(1, 48, 60, c).bfloat16()
+    params = [1.0 + randn(c, scale=0.1), randn(c, scale=0.1), randn(c, 3 * c, scale=c**-0.5),
+              randn(3 * c, scale=0.1), randn(c, c, scale=c**-0.5), randn(c, scale=0.1)]
+    s = torch.tensor([0.8], device=cuda)
+    runs = [fb.fused_attn_block_backward_bf16(x, *params, bias, s, dout, nh, hd, SWS, 1e-5, shift)
+            for _ in range(2)]
+    want = fb.fused_attn_block_bwd_bf16_reference(x, *params, bias, s, dout, nh, hd, SWS, 1e-5,
+                                                  shift)
+    for name, g, wt, g2 in zip(ATTN_NAMES, runs[0], want, runs[1]):
+        assert g.dtype == wt.dtype and g.shape == wt.shape, name
+        err, top = (g.float() - wt.float()).abs().max().item(), wt.float().abs().max().item()
+        assert err <= BF16_TOL * top, f"{name}: {err:.3g} of {top:.3g}"
+        assert torch.equal(g, g2), name
+
+
+# The bf16 weight gradients (csrc/wgrad_bf16.cuh) at each caller's (M, N):
+# #5's four at SwinIR-M's block, #6's two at SRFormerV2's, #7's at C 180 /
+# hidden 360, C 240 / 480 and DRCT's C 276 / 552 and C 308 (hidden 308 and
+# 616), #12's and #14's at Swin2SR-M's and -L's (the same pairs); a ragged T
+# (960 tokens) and a T below one 64-token chunk
+WG_SHAPES = [(4096, m, n) for m, n in (
+    (360, 180), (180, 360), (180, 180), (180, 540), (240, 240), (240, 720), (480, 240),
+    (240, 480), (552, 276), (276, 552), (308, 308), (616, 308), (308, 616))] + [
+    (t, m, n) for t in (960, 40) for m, n in ((180, 540), (240, 720), (276, 552))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["b", "fp32"])
+@pytest.mark.parametrize(("t", "m", "n"), WG_SHAPES)
+def test_weight_grad_bf16_kernel(cuda, t, m, n, source):
+    """The bf16 weight-gradient stage (A^T B and the bias sums: of B
+    itself, or of an fp32 source) against float64: each at most 1.5x the
+    error of the plain bf16 version (the fp32 product of the same bf16
+    values) plus 1e-5 of the largest magnitude; two runs bit for bit."""
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+    from trainner_redux_tpu_torch.ops import fused_block_v2 as v2
+
+    gen = torch.Generator().manual_seed(t + m + n)
+    a = torch.randn(t, m, generator=gen).to(cuda).bfloat16()
+    src = torch.randn(t, n, generator=gen).to(cuda)
+    b = src.bfloat16()
+    kw = {"sums_bf16": b} if source == "b" else {"sums_f32": src}
+    runs = [v2._weight_grad_bf16(a, b, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    dw, db = runs[0]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    exact_w = a.double().T @ b.double()
+    exact_b = (b if source == "b" else src).double().sum(0)
+    plain_w = a.float().T @ b.float()
+    plain_b = (b.float() if source == "b" else src).sum(0)
+    for name, got, plain, exact in (("dW", dw, plain_w, exact_w), ("db", db, plain_b, exact_b)):
+        top = exact.abs().max().item()
+        err = (got.double() - exact).abs().max().item()
+        perr = (plain.double() - exact).abs().max().item()
+        assert err <= 1.5 * perr + 1e-5 * top, f"{name}: {err:.3g} vs plain {perr:.3g} of {top:.3g}"
+    assert fb.weight_grad_bf16_plan(t, m, n)["chunk"] % fb.WG_K == 0
 
 
 @pytest.mark.cuda
@@ -1539,10 +1627,11 @@ def test_bf16_postnorm_forms_refuse_what_they_do_not_take(cuda):
     assert [f.launches for f in forms] == n0
     lib_v2, lib_tr = cuda_build.library("fused_block_v2"), cuda_build.library("fused_block_train")
     for c, hidden in ((180, 360), (240, 480), (60, 120)):
-        assert max(lib_v2.trr_cos_attn_bf16_smem_bytes(c), lib_tr.trr_atb_bf16_smem_bytes()) == (
+        wg = lib_tr.trr_weight_grad_bf16_smem_bytes
+        assert max(lib_v2.trr_cos_attn_bf16_smem_bytes(c), wg(3 * c), wg(c)) == (
             v2.cos_attn_bf16_smem_bytes(c))
-        assert max(lib_v2.trr_pn_mlp_bf16_smem_bytes(c, hidden),
-                   lib_tr.trr_atb_bf16_smem_bytes()) == v2.pn_mlp_bf16_smem_bytes(c, hidden)
+        assert max(lib_v2.trr_pn_mlp_bf16_smem_bytes(c, hidden), wg(c), wg(hidden)) == (
+            v2.pn_mlp_bf16_smem_bytes(c, hidden))
 
 
 # #3/#8's 64-wide form: (window, C, heads, (B, H, W)): ATD's training block

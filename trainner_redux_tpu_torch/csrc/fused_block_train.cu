@@ -77,7 +77,8 @@
 // scales in fp32. The same launches on bf16 stages: tc_rows_bf16.cuh's
 // per-token kernels on the bf16 wgmma engine (tc_gemm_bf16.cuh: m64nNk16,
 // fp32 sums, no hi/lo split), the window attention on tc_attn.cuh's bf16
-// forms (mma.sync m16n8k16), the weight gradients on atb_bf16_kernel below;
+// forms (mma.sync m16n8k16), the weight gradients on wgrad_bf16.cuh's stage
+// (both operands MN-major from shared memory into wgmma, 64-token chunks);
 // every statistic, softmax, gelu, weight gradient and bias or LayerNorm
 // gradient in fp32, the activations rounded to bf16 where the JAX kernel
 // rounds them. Their bound: the bf16 tensor cores (989 TFLOP/s) take #5's
@@ -91,18 +92,19 @@
 // on their own at n 144 (attn_plan's (48, 2)): LN1 rows, qkv, the window
 // attention without P, proj with the residual (four launches); then LN1 rows
 // with dzp = bf16(s dout), datt = bf16(dzp wp^T), qkv, the recompute window
-// attention, which rebuilds P in fp32 and writes att = bf16(bf16(P) v) for
-// dwp besides dq | dk | dv and dS (attn_rows_bwd_recompute_bf16_kernel with
-// ATT), dy and the LN1 backward to dx = bf16(dout + LN1'(dy)), the two
-// weight gradients, the LN partial sums and dbias. Nothing is saved between
+// attention over groups of windows of one kind (attn_group_bf16.cuh), which
+// rebuilds P in fp32, writes att = bf16(bf16(P) v) for dwp besides dq | dk |
+// dv and sums dS into each group's dbias in the kernel, dy and the LN1
+// backward to dx = bf16(dout + LN1'(dy)), the two weight gradients, the LN
+// partial sums and the groups' dbias sums by kind. Nothing is saved between
 // them, as the JAX kernel saves nothing. Their bound at SRFormerV2's block
 // (B 16, 72x72, C 240, 8 heads of 30: T 82,944): 49.7 GFLOP forward and
 // 139.5 backward (qkv and the softmax rebuilt, att recomputed for dwp), 50
 // and 141 us on the bf16 tensor cores, above what their inputs and outputs
 // take at 3.35 TB/s (40 MB a bf16 (T, C) tensor: some 24 and 36 us). The
-// stages pass their intermediates through device memory, the recompute
-// attention's dS (382 MB in fp32) the largest, read once by the kind
-// reduction: what the design does is keep #4/#5's stages, right first.
+// stages pass their intermediates through device memory; the window
+// attention writes no per-window dS (382 MB in fp32 before), only the
+// groups' dbias sums (48 MB).
 //
 // The MLP half alone in bf16 (trr_ln_mlp_fwd_bf16, #2's bf16 form; and
 // trr_ln_mlp_bwd_bf16, #7's, ops/pallas/fused_block.py:196-254: HAT's HABs
@@ -112,9 +114,11 @@
 // the two weight gradients and the LN partial sums. Its bound at HAT-M's
 // block (T 32,768, C 180, hidden 360): 8.5 and 21.2 GFLOP, 9 and 21 us on
 // the bf16 tensor cores, against some 24 and 36 MB of rows (7 and 11 us).
+#include "attn_group_bf16.cuh"
 #include "block_fwd.cuh"
 #include "tc_rows.cuh"
 #include "tc_rows_bf16.cuh"
+#include "wgrad_bf16.cuh"
 
 namespace trr {
 
@@ -237,118 +241,6 @@ inline cudaError_t weight_grad(const float* A, const float* B, long long T, int 
     if (err != cudaSuccess) return err;
     atb_kernel<false><<<grid, kThreads, smem, stream>>>(A, B, T, M, N, chunk, part);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
-}
-
-// atb_bf16_kernel: the core-tile buffers of a (128, 32) chunk, then a ring
-// of two (kAtbK, 128 + 8) bf16 token-major chunks a stage and the chunk's
-// (kAtbK, 128 + 4) rows of the bias sums' source (fp32, or bf16 in the
-// first half of each row).
-constexpr int kAtbLdBf = kTcRows + 8;
-constexpr int kAtbSumLd = kTcRows + 4;
-__host__ __device__ inline int atb_bf16_smem_bytes() {
-  return core_words(kTcRows, kAtbK) * 4 +
-         Ring<kAtbStages>::bytes(kAtbK * kAtbLdBf + kAtbK * kAtbSumLd);
-}
-
-// atb_kernel's bf16 form: part[z] = A^T B over the tokens [z*chunk,
-// (z+1)*chunk) in fp32 from A (T, M) and B (T, N) in bf16 (M and N
-// multiples of 4), then the column sums of the fp32 values B was rounded
-// from, as the JAX kernel sums its bias gradients: of sf (T, N) fp32, or of
-// sb (T, N) bf16, each row times ss[t / hw] where ss is not null (times 1,
-// exactly, where it is null). The blocks of the first row of output tiles
-// stage the source's rows with the chunk's operands and sum them while the
-// chunk's wgmmas run.
-__global__ void __launch_bounds__(kThreads, 1)
-    atb_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, long long T, int M,
-                    int N, long long chunk, const float* __restrict__ sf,
-                    const bf16* __restrict__ sb, const float* __restrict__ ss, long long hw,
-                    float* __restrict__ part) {
-  constexpr int BN = kTcRows;
-  extern __shared__ __align__(16) float smem[];
-  uint32_t* core = reinterpret_cast<uint32_t*>(smem);
-  Ring<kAtbStages> ring;
-  ring.init(smem + core_words(BN, kAtbK), kAtbK * kAtbLdBf + kAtbK * kAtbSumLd);
-  const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcRows;
-  const long long tb = (long long)blockIdx.z * chunk;
-  const long long te = min(T, tb + chunk);
-  const int n = n0 + (int)threadIdx.x;
-  const bool stage_sums = blockIdx.x == 0;
-  const bool sums = stage_sums && threadIdx.x < kTcRows && n < N;
-  float colsum = 0.f;
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  AFragBf<kAtbK> af[2];
-  ring.run(
-      (int)((te - tb + kAtbK - 1) / kAtbK),
-      [&](int j, float* stage) {
-        bf16* st = reinterpret_cast<bf16*>(stage);
-        load_tile_bf16<kAtbK, kTcRows>(st, kAtbLdBf, A, M, tb + j * kAtbK, te, m0, M);
-        load_tile_bf16<kAtbK, kTcRows>(st + kAtbK * kAtbLdBf, kAtbLdBf, B, N, tb + j * kAtbK, te,
-                                       n0, N);
-        if (stage_sums) {
-          float* side = stage + kAtbK * kAtbLdBf;
-          if (sf != nullptr)
-            load_tile<kAtbK, kTcRows>(side, kAtbSumLd, sf, N, tb + j * kAtbK, te, n0, N);
-          else
-            load_tile_bf16<kAtbK, kTcRows>(reinterpret_cast<bf16*>(side), 2 * kAtbSumLd, sb, N,
-                                           tb + j * kAtbK, te, n0, N);
-        }
-      },
-      [&](int j, const float* stage) {
-        const bf16* st = reinterpret_cast<const bf16*>(stage);
-        wgmma_bf16_chunk<BN, kAtbK, false, false>(acc, st, kAtbLdBf, 16 * (threadIdx.x / 32),
-                                                  st + kAtbK * kAtbLdBf, kAtbLdBf, core, j, af);
-        if (sums) {  // the staged rows of the source, in token order
-          const float* side = stage + kAtbK * kAtbLdBf;
-          const long long t0 = tb + (long long)j * kAtbK;
-          const int cnt = (int)min((long long)kAtbK, te - t0);
-          // the sample of each token, found once a chunk: a row's scale
-          long long sample = ss != nullptr ? t0 / hw : 0, next = (sample + 1) * hw;
-          float sc = ss != nullptr ? __ldg(ss + sample) : 1.f;
-#pragma unroll 8
-          for (int k = 0; k < cnt; ++k) {
-            if (ss != nullptr && t0 + k == next) {
-              ++sample;
-              next += hw;
-              sc = __ldg(ss + sample);
-            }
-            const float v = sf != nullptr
-                                ? side[k * kAtbSumLd + threadIdx.x]
-                                : bf2f(reinterpret_cast<const bf16*>(side)[2 * k * kAtbSumLd +
-                                                                           threadIdx.x]);
-            colsum += sc * v;
-          }
-        }
-      });
-  wgmma_wait_all();
-  fence_operands(acc);
-  const size_t base = (size_t)blockIdx.z * ((size_t)M * N + N);
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int m = m0 + acc_row(i), c = n0 + acc_col(i);
-    if (m < M && c < N) part[base + (size_t)m * N + c] = acc[i];
-  }
-  if (sums) part[base + (size_t)M * N + n] = colsum;
-}
-
-// out (M*N + N) = (A^T B, the column sums of sf or sb (times ss)) over T
-// tokens in bf16, through `part` (atb_part_floats(T, M, N) floats).
-inline cudaError_t weight_grad_bf16(const bf16* A, const bf16* B, long long T, int M, int N,
-                                    const float* sf, const bf16* sb, const float* ss,
-                                    long long hw, float* part, float* out, cudaStream_t stream) {
-  if (M % 4 || N % 4) return cudaErrorInvalidValue;
-  const long long chunk = atb_chunk(T, M, N);
-  const dim3 grid((M + kTcRows - 1) / kTcRows, (N + kTcRows - 1) / kTcRows,
-                  (unsigned)((T + chunk - 1) / chunk));
-  const int smem = atb_bf16_smem_bytes();
-  cudaError_t err =
-      cudaFuncSetAttribute(atb_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  atb_bf16_kernel<<<grid, kThreads, smem, stream>>>(A, B, T, M, N, chunk, sf, sb, ss, hw, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_rows(part, (int)grid.z, (long long)M * N + N, out, stream);
@@ -494,7 +386,8 @@ int trr_swin_block_fwd_bf16(const trr::bf16* x, const float* g1, const float* be
 // trr_swin_block_fwd_bf16 takes them. Scratch: y, y2, dm, dzp, datt (T, C)
 // bf16, dz (T, C) fp32, stats1, stats2 (T, 2), hg, dh (T, hidden) bf16 and
 // dh32 (T, hidden) fp32, qkv, dqkv (T, 3C) bf16, dS fp32 shaped as P,
-// ln_part and part as trr_swin_block_bwd's. Writes dx (bf16) and the fp32
+// ln_part as trr_swin_block_bwd's, part the largest
+// trr_weight_grad_bf16_part_floats of the four gradients. Writes dx (bf16) and the fp32
 // gradients as trr_swin_block_bwd does.
 int trr_swin_block_bwd_bf16(const trr::bf16* x, const trr::bf16* z, const trr::bf16* dout,
                             const trr::bf16* P, const trr::bf16* att, const float* g1,
@@ -564,8 +457,9 @@ int trr_attn_block_fwd_bf16(const trr::bf16* x, const float* g, const float* be,
 // The bf16 recompute backward (#6's bf16 form) at 12x12 windows: x, dout
 // (B, H, W, C) bf16 and the operands as trr_attn_block_fwd_bf16 takes them.
 // Scratch: y, dzp, datt, att (T, C) bf16, stats (T, 2), qkv, dqkv (T, 3C)
-// bf16, dS (B, H/12, W/12, nh, 144, 144) fp32, ln_part (ceil(T / 128), 2C),
-// part (the larger trr_weight_grad_part_floats of dwq and dwp). Writes dx
+// bf16, dS the groups' dbias sums (trr_attn_group_part_floats), ln_part
+// (ceil(T / 128), 2C), part (the larger trr_weight_grad_bf16_part_floats of
+// dwq and dwp). Writes dx
 // (bf16), dln = dg | dbe, dq = dwq | dbq, dp = dwp | dbp and dbias (kinds,
 // nh, 144, 144) in fp32; dbp sums the fp32 s dout, dbq the bf16 dqkv.
 int trr_attn_block_bwd_bf16(const trr::bf16* x, const float* g, const float* be,
@@ -585,16 +479,14 @@ int trr_attn_block_bwd_bf16(const trr::bf16* x, const float* g, const float* be,
                                                        nullptr, nullptr, nullptr, hw, datt,
                                                        nullptr, nullptr, stream)));
   TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
-  TRR_TRY((trr::attn_rows_bwd_recompute_bf16<144, true>(qkv, bias, datt, dqkv, att, dS, B, H, W,
-                                                        C, nh, 12, 12, kinds, shift, scale,
-                                                        stream)));
+  TRR_TRY(trr::attn_group_bwd_bf16(qkv, bias, datt, dqkv, att, dS, dbias, B, H, W, C, nh, kinds,
+                                   shift, scale, stream));
   TRR_TRY((trr::rows_bf16<trr::kRowsLn, bf16, bf16>(dqkv, wq, T, 3 * C, C, x, stats, g, dout,
                                                    nullptr, hw, dx, nullptr, ln_part, stream)));
   TRR_TRY(trr::sum_rows(ln_part, nblk, 2LL * C, dln, stream));
   TRR_TRY(trr::weight_grad_bf16(att, dzp, T, C, C, nullptr, dout, s, hw, part, dp, stream));
-  TRR_TRY(trr::weight_grad_bf16(y, dqkv, T, C, 3 * C, nullptr, dqkv, nullptr, hw, part, dq,
-                                stream));
-  return (int)trr::launch_dbias(dS, B, H / 12, W / 12, nh, kinds, 144 * 144, dbias, stream);
+  return (int)trr::weight_grad_bf16(y, dqkv, T, C, 3 * C, nullptr, dqkv, nullptr, hw, part, dq,
+                                    stream);
 }
 
 // The bf16 MLP half (#2's bf16 form): x, out (B, H, W, C) bf16; w1 (C,
@@ -615,7 +507,8 @@ int trr_ln_mlp_fwd_bf16(const trr::bf16* x, const float* g, const float* be, con
 // The bf16 MLP backward (#7's bf16 form): x, dout, dx (B, H, W, C) bf16; w1,
 // w2 bf16 and g, be, b1, s fp32 as trr_ln_mlp_fwd_bf16 takes them. Scratch:
 // y, dm (T, C) bf16, stats (T, 2), hg, dh (T, hidden) bf16, dh32 (T,
-// hidden) fp32, ln_part, part and dyw as trr_ln_mlp_bwd's. Writes dx and the fp32
+// hidden) fp32, ln_part and dyw as trr_ln_mlp_bwd's, part the larger
+// trr_weight_grad_bf16_part_floats of the two gradients. Writes dx and the fp32
 // dln = dg | dbe, d1 = dw1 | db1 and d2 = dw2 | db2, whose bias sums add
 // the fp32 dm = s dout and dh.
 int trr_ln_mlp_bwd_bf16(const trr::bf16* x, const trr::bf16* dout, const float* g,
@@ -656,7 +549,15 @@ size_t trr_linear_bf16_smem_bytes(int N) {
 }
 size_t trr_rows_bf16_smem_bytes(int C) { return (size_t)trr::rows_bf16_smem_bytes(C); }
 size_t trr_hidden_bf16_smem_bytes() { return (size_t)trr::hidden_bf16_smem_bytes(); }
-size_t trr_atb_bf16_smem_bytes() { return (size_t)trr::atb_bf16_smem_bytes(); }
+size_t trr_weight_grad_bf16_smem_bytes(int N) {
+  return (size_t)trr::wg_bf16_smem_bytes(trr::wg_cols(N));
+}
+size_t trr_weight_grad_bf16_part_floats(int T, int M, int N) {
+  return (size_t)trr::wg_part_floats(T, M, N);
+}
+size_t trr_attn_group_part_floats(int B, int H, int W, int nh, int kinds) {
+  return (size_t)trr::attn_group_part_floats(B, H, W, nh, kinds);
+}
 
 // The largest shared memory of the bf16 attention half's kernels (#1 and
 // #6's bf16 forms) at 12x12 windows and rows of C channels.
@@ -664,9 +565,10 @@ size_t trr_attn_block_bf16_smem_bytes(int C) {
   const trr::AttnPlan plan = trr::attn_plan(144);
   return (size_t)std::max(
       {trr::wg_bf16_bytes(trr::linear_cols(3 * C)), trr::wg_bf16_bytes(trr::linear_cols(C)),
-       trr::rows_bf16_smem_bytes(C), trr::atb_bf16_smem_bytes(),
+       trr::rows_bf16_smem_bytes(C), trr::wg_bf16_smem_bytes(trr::wg_cols(3 * C)),
+       trr::wg_bf16_smem_bytes(trr::wg_cols(C)),
        trr::attn_rows_fwd_tc_smem_floats(144, plan.rb, plan.ks) * (int)sizeof(float),
-       trr::attn_rows_bwd_tc_smem_floats(144, plan.rb, plan.ks, true) * (int)sizeof(float)});
+       trr::attn_group_smem_bytes()});
 }
 
 // out (M*N + N) = (A^T B, column sums of B) of A (T, M) and B (T, N), through
@@ -678,8 +580,9 @@ int trr_weight_grad(const float* A, const float* B, int T, int M, int N, float* 
 
 // out (M*N + N) = (A^T B, the column sums of sf or, where sf is null, of sb)
 // of A (T, M) and B (T, N) bf16, sf (T, N) fp32 or sb (T, N) bf16, through
-// part (trr_weight_grad_part_floats(T, M, N) floats): the bf16 post-norm
-// halves' weight gradients (#12 and #14's bf16 forms, fused_block_v2.cu).
+// part (trr_weight_grad_bf16_part_floats(T, M, N) floats): the bf16
+// post-norm halves' weight gradients (#12 and #14's bf16 forms,
+// fused_block_v2.cu), and the stage alone for its tests.
 int trr_weight_grad_bf16(const trr::bf16* A, const trr::bf16* B, int T, int M, int N,
                          const float* sf, const trr::bf16* sb, float* part, float* out,
                          cudaStream_t stream) {

@@ -118,8 +118,8 @@ inline cudaError_t cos_window_attention(const bf16* qkv, const float* scale, con
 }
 
 // The bf16 forms' largest shared memory, in bytes, of their kernels in this
-// file and the headers (the weight gradients' atb_bf16_kernel is
-// fused_block_train.cu's): the products at the tiles of rows of 3C, C and
+// file and the headers (the weight gradients' stage is
+// fused_block_train.cu's, wgrad_bf16.cuh): the products at the tiles of rows of 3C, C and
 // hidden, rows_bf16_kernel over a row of C, mlp_hidden_bf16_kernel, the
 // cosine window attention forward and its backward stage.
 inline int cos_attn_bf16_smem_bytes(int C) {
@@ -510,7 +510,8 @@ int trr_pn_mlp_bwd(const float* x, const float* dout, const float* w1, const flo
 // statistics, norms, softmax, gelu and every bias or LayerNorm gradient in
 // fp32. The products run on tc_rows_bf16.cuh's kernels (bf16 wgmma, fp32
 // sums), the window attention on mma.sync m16n8k16; the weight gradients
-// are the wrappers' atb_bf16_kernel calls (fused_block_train.cu). Their
+// are the wrappers' calls of wgrad_bf16.cuh's stage (trr_weight_grad_bf16,
+// fused_block_train.cu). Their
 // bound at Swin2SR-M's block (T 18,432, C 180): 5.6 and 17 GFLOP (the
 // attention half), 4.8 and 14 (the MLP half), 6-17 us on the bf16 tensor
 // cores, against 6.6 MB a bf16 (T, C) activation: both halves lie near the

@@ -31,8 +31,8 @@
 // The bf16 forms (attn_rows_fwd_bf16_kernel, with P as the bf16 training
 // block's #4 stage and without it as #3's bf16 form and #1's bf16 stage;
 // attn_rows_bwd_bf16_kernel, the saved-P backward of #5's stage;
-// attn_rows_bwd_recompute_bf16_kernel, #8's bf16 form and, writing att too,
-// #6's bf16 stage, which recompute P from the bias table;
+// attn_rows_bwd_recompute_bf16_kernel, #8's bf16 form, which recomputes P
+// from the bias table (#6's bf16 stage is attn_group_bf16.cuh's);
 // cos_attn_rows_fwd_bf16_kernel, #11's cosine stage in bf16) read and write
 // bf16 rows and P and keep the same fp32 tiles in shared memory; each
 // product runs on mma.sync m16n8k16 bf16 with fp32 sums (tc_gemm_bf16.cuh),
@@ -729,24 +729,20 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
                                                    wr, wc, kinds, shift, scale);
 }
 
-// The bf16 recompute backward: qkv, datt and dqkv in bf16, the kind table
-// and dS in fp32. P is recomputed in fp32 from q, k and the table; dV takes
-// bf16(P), dS the fp32 P. ATT false, #8's bf16 form; ATT true, #6's bf16
-// stage: att = bf16(bf16(P) v) into att (T, C) as well, for its dwp. With
-// ATT one block a SM: the att product's fragments take the (144, 48, 2)
-// plan past the 168 registers a thread that two blocks of 192 threads
-// leave (ptxas spilled 40 bytes there).
-template <int N, int RB, int KS, bool ATT, int HD = 32>
+// The bf16 recompute backward (#8's bf16 form): qkv, datt and dqkv in bf16,
+// the kind table and dS in fp32. P is recomputed in fp32 from q, k and the
+// table; dV takes bf16(P), dS the fp32 P. (#6's bf16 stage, which writes att
+// too, is attn_group_bf16.cuh's.)
+template <int N, int RB, int KS, int HD = 32>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
-                                  ATT ? 1 : attn_bwd_blocks(N, attn_tc_threads(RB, KS), HD))
+                                  attn_bwd_blocks(N, attn_tc_threads(RB, KS), HD))
     attn_rows_bwd_recompute_bf16_kernel(const bf16* __restrict__ qkv,
                                         const float* __restrict__ bias,
                                         const bf16* __restrict__ datt, bf16* __restrict__ dqkv,
-                                        bf16* __restrict__ att, float* __restrict__ dS, int H,
-                                        int W, int C, int nh, int wr, int wc, int kinds,
-                                        int shift, float scale) {
-  attn_rows_bwd_body<N, RB, KS, ATT, false, bf16, HD>(qkv, bias, datt, dqkv, att, dS, H, W, C,
-                                                      nh, wr, wc, kinds, shift, scale);
+                                        float* __restrict__ dS, int H, int W, int C, int nh,
+                                        int wr, int wc, int kinds, int shift, float scale) {
+  attn_rows_bwd_body<N, RB, KS, false, false, bf16, HD>(qkv, bias, datt, dqkv, nullptr, dS, H, W,
+                                                        C, nh, wr, wc, kinds, shift, scale);
 }
 
 // The 128-wide form of #3 and #8 (heads of 65 to 128 channels: DRCT's 122
@@ -1536,23 +1532,22 @@ cudaError_t cos_attn_rows_fwd_bf16(const bf16* qkv, const float* bias, bf16* att
   return cudaGetLastError();
 }
 
-// attn_rows_bwd_recompute_bf16_kernel at windows of N tokens and rows of HD
-// channels: ATT false, #8's bf16 form (att unused); ATT true, #6's bf16
-// stage, writing att.
-template <int N, bool ATT = false, int HD = 32>
+// attn_rows_bwd_recompute_bf16_kernel (#8's bf16 form) at windows of N
+// tokens and rows of HD channels.
+template <int N, int HD = 32>
 cudaError_t attn_rows_bwd_recompute_bf16(const bf16* qkv, const float* bias, const bf16* datt,
-                                         bf16* dqkv, bf16* att, float* dS, int B, int H, int W,
-                                         int C, int nh, int wr, int wc, int kinds, int shift,
-                                         float scale, cudaStream_t stream) {
+                                         bf16* dqkv, float* dS, int B, int H, int W, int C,
+                                         int nh, int wr, int wc, int kinds, int shift, float scale,
+                                         cudaStream_t stream) {
   constexpr AttnPlan plan = attn_plan(N, HD);
-  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, ATT, false, HD);
+  constexpr int floats = attn_rows_bwd_tc_smem_floats(N, plan.rb, plan.ks, false, false, HD);
   const cudaError_t err =
-      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT, HD>, floats);
+      set_smem(attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, HD>, floats);
   if (err != cudaSuccess) return err;
   const dim3 grid(nh, (H / wr) * (W / wc), B);
-  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, ATT, HD>
+  attn_rows_bwd_recompute_bf16_kernel<N, plan.rb, plan.ks, HD>
       <<<grid, attn_tc_threads(plan.rb, plan.ks), floats * sizeof(float), stream>>>(
-          qkv, bias, datt, dqkv, att, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
+          qkv, bias, datt, dqkv, dS, H, W, C, nh, wr, wc, kinds, shift, scale);
   return cudaGetLastError();
 }
 

@@ -19,11 +19,11 @@
 // matrices next along K are 128 bytes apart (LBO) and the 8-row groups kc *
 // 16 bytes (SBO), the same bytes as the tf32 form's [n / 8][kc / 4][8][4]
 // floats. Each chunk of B is staged raw as the matrix lies (a weight (N, K)
-// for dX = dY W^T, w1 (K, N) for h = y W, an activation (tokens, N) for the
-// weight gradients A^T B), then copied into its core-matrix tile, the
-// transpose taken on the way where B lies N-major, as the tf32 form splits
-// it. A goes to registers from the staged [row][k] (or, for A^T, [k][row])
-// chunk.
+// for dX = dY W^T, w1 (K, N) for h = y W), then copied into its core-matrix
+// tile, the transpose taken on the way where B lies N-major, as the tf32
+// form splits it. A goes to registers from the staged [row][k] chunk. (The
+// weight gradients A^T B read both operands MN-major from shared memory:
+// wgrad_bf16.cuh.)
 //
 // Feeding and warps: those of tc_gemm.cuh (its Ring, its mbarriers, two
 // warpgroups of 64 rows a 128-row block tile, three core-tile buffers and
@@ -224,10 +224,8 @@ __device__ __forceinline__ void bf16_to_core(const bf16* raw, int ldb, uint32_t*
   }
 }
 
-// 32-bit words of the kSplitBufs core-tile buffers of an (N, kc) chunk.
-__host__ __device__ constexpr int core_words(int n, int kc = kBfK) {
-  return kSplitBufs * n * kc / 2;
-}
+// 32-bit words of the kSplitBufs core-tile buffers of an (N, kBfK) chunk.
+__host__ __device__ constexpr int core_words(int n) { return kSplitBufs * n * kBfK / 2; }
 
 // A chunk's A fragments: the registers a running wgmma group reads, so two
 // sets alternate and each stays alive until its group is known to be done.
@@ -244,36 +242,28 @@ __device__ __forceinline__ void keep(AFragBf<KC>& f) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f.a[s][e]));
 }
 
-// This warp's 16 rows of a staged A chunk (from row ar of As, [row][k]
-// (A_ROWK, row stride lda, even) or [k][row]) into the fragments f.
-template <int KC, bool A_ROWK>
+// This warp's 16 rows of a staged A chunk (from row ar of As, [row][k], row
+// stride lda, even) into the fragments f.
+template <int KC>
 __device__ __forceinline__ void load_a_frag_bf16(AFragBf<KC>& f, const bf16* As, int lda,
                                                  int ar) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int s = 0; s < KC / 16; ++s) {
-    if constexpr (A_ROWK) {
-      const bf16* a = As + (ar + g) * lda + 16 * s + 2 * q;
-      f.a[s][0] = *reinterpret_cast<const uint32_t*>(a);
-      f.a[s][1] = *reinterpret_cast<const uint32_t*>(a + 8 * lda);
-      f.a[s][2] = *reinterpret_cast<const uint32_t*>(a + 8);
-      f.a[s][3] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + 8);
-    } else {
-      const bf16* a = As + (16 * s + 2 * q) * lda + ar + g;
-      f.a[s][0] = pack_bf16(a[0], a[lda]);
-      f.a[s][1] = pack_bf16(a[8], a[lda + 8]);
-      f.a[s][2] = pack_bf16(a[8 * lda], a[9 * lda]);
-      f.a[s][3] = pack_bf16(a[8 * lda + 8], a[9 * lda + 8]);
-    }
+    const bf16* a = As + (ar + g) * lda + 16 * s + 2 * q;
+    f.a[s][0] = *reinterpret_cast<const uint32_t*>(a);
+    f.a[s][1] = *reinterpret_cast<const uint32_t*>(a + 8 * lda);
+    f.a[s][2] = *reinterpret_cast<const uint32_t*>(a + 8);
+    f.a[s][3] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + 8);
   }
 }
 
-template <int N, int KC, bool A_ROWK, bool B_KMAJOR>
+template <int N, int KC, bool B_KMAJOR>
 __device__ __forceinline__ void wgmma_bf16_step(float (&acc)[N / 2], const bf16* As, int lda,
                                                 int ar, const bf16* raw, int ldb, uint32_t* cb,
                                                 AFragBf<KC>& cur, AFragBf<KC>& prev) {
   bf16_to_core<N, KC, B_KMAJOR>(raw, ldb, cb);
-  load_a_frag_bf16<KC, A_ROWK>(cur, As, lda, ar);
+  load_a_frag_bf16<KC>(cur, As, lda, ar);
   fence_proxy_async();
   __syncthreads();  // cb is whole
   wgmma_fence();
@@ -290,15 +280,15 @@ __device__ __forceinline__ void wgmma_bf16_step(float (&acc)[N / 2], const bf16*
 // tc_gemm.cuh's wgmma_chunk: A the warp's 16 rows from row ar of the
 // staged As, B the staged chunk `raw` copied into core-tile buffer j %
 // kSplitBufs of `core`. wgmma_wait_all() before the accumulators are read.
-template <int N, int KC, bool A_ROWK, bool B_KMAJOR>
+template <int N, int KC, bool B_KMAJOR>
 __device__ __forceinline__ void wgmma_bf16_chunk(float (&acc)[N / 2], const bf16* As, int lda,
                                                  int ar, const bf16* raw, int ldb,
                                                  uint32_t* core, int j, AFragBf<KC> (&af)[2]) {
   uint32_t* cb = core + (j % kSplitBufs) * N * KC / 2;
   if (j & 1)
-    wgmma_bf16_step<N, KC, A_ROWK, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[1], af[0]);
+    wgmma_bf16_step<N, KC, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[1], af[0]);
   else
-    wgmma_bf16_step<N, KC, A_ROWK, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[0], af[1]);
+    wgmma_bf16_step<N, KC, B_KMAJOR>(acc, As, lda, ar, raw, ldb, cb, af[0], af[1]);
 }
 
 // ---------------------------------------------------------------------------

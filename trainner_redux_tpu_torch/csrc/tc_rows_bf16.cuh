@@ -71,9 +71,9 @@ template <int BN, bool B_KMAJOR>
 __device__ __forceinline__ void use_wg_stage_bf16(float (&acc)[BN / 2], const float* stage,
                                                   uint32_t* core, int j, AFragBf<> (&af)[2]) {
   const bf16* st = reinterpret_cast<const bf16*>(stage);
-  wgmma_bf16_chunk<BN, kBfK, true, B_KMAJOR>(acc, st, kBfLd, 16 * (threadIdx.x / 32),
-                                             st + kTcRows * kBfLd, B_KMAJOR ? kBfLd : BN + 8,
-                                             core, j, af);
+  wgmma_bf16_chunk<BN, kBfK, B_KMAJOR>(acc, st, kBfLd, 16 * (threadIdx.x / 32),
+                                       st + kTcRows * kBfLd, B_KMAJOR ? kBfLd : BN + 8, core, j,
+                                       af);
 }
 
 // acc (this warpgroup's 64 x BN of the block tile) = A W over K: A (T, K)

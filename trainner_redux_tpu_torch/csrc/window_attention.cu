@@ -276,9 +276,8 @@ int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::b
                                         reinterpret_cast<float2*>(stats), B, H, W, C, nh, wr, wc,
                                         kinds, scale, stream);
     else
-      return trr::attn_rows_bwd_recompute_bf16<N, false, HD>(qkv, bias, dout, dqkv, nullptr, dS,
-                                                             B, H, W, C, nh, wr, wc, kinds, 0,
-                                                             scale, stream);
+      return trr::attn_rows_bwd_recompute_bf16<N, HD>(qkv, bias, dout, dqkv, dS, B, H, W, C, nh,
+                                                      wr, wc, kinds, 0, scale, stream);
   });
   if (err != cudaSuccess) return (int)err;
   return (int)trr::launch_dbias(dS, B, H / wr, W / wc, nh, kinds, n * n, dbias, stream);

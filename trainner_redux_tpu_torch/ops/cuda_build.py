@@ -33,7 +33,7 @@ SOURCES = {
     "window_attention": "window_attention.cu",
 }
 HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh", "tc_rows.cuh", "tc_attn.cuh",
-           "tc_gemm_bf16.cuh", "tc_rows_bf16.cuh")
+           "tc_gemm_bf16.cuh", "tc_rows_bf16.cuh", "wgrad_bf16.cuh", "attn_group_bf16.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -80,7 +80,9 @@ SIGNATURES = {
         "trr_linear_bf16_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_rows_bf16_smem_bytes": ([_I], ctypes.c_size_t),
         "trr_hidden_bf16_smem_bytes": ([], ctypes.c_size_t),
-        "trr_atb_bf16_smem_bytes": ([], ctypes.c_size_t),
+        "trr_weight_grad_bf16_smem_bytes": ([_I], ctypes.c_size_t),
+        "trr_weight_grad_bf16_part_floats": ([_I] * 3, ctypes.c_size_t),
+        "trr_attn_group_part_floats": ([_I] * 5, ctypes.c_size_t),
         "trr_attn_block_bf16_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "fused_block_v2": {

@@ -94,6 +94,16 @@ BF16_ATTN_WINDOW = 12
 # the bf16 engine (csrc/tc_gemm_bf16.cuh): chunks BF_K bf16 deep, staged
 # [row][k] rows BF_LD bf16 apart
 BF_K, BF_LD = 32, 40
+# the bf16 weight gradients (csrc/wgrad_bf16.cuh): chunks of WG_K tokens on a
+# ring of WG_STAGES stages, block tiles of WG_ROWS rows of M by one of
+# WG_COLS columns of N, token ranges for a wave of WG_WAVE_BLOCKS blocks,
+# the separate bias-sum sources in partial rows of WG_SUM_TOKENS tokens
+WG_K, WG_STAGES, WG_ROWS, WG_WAVE_BLOCKS, WG_SUM_TOKENS = 64, 4, 128, 132, 512
+WG_COLS = (64, 128, 192, 256)
+# #6's bf16 window attention (csrc/attn_group_bf16.cuh): GROUP_WINDOWS
+# windows of one kind a block, GROUP_THREADS threads, head rows GROUP_LD
+# bf16 apart, P / dS rows GROUP_LP apart, at n GROUP_N
+GROUP_N, GROUP_WINDOWS, GROUP_THREADS, GROUP_LD, GROUP_LP = 144, 8, 288, 40, 152
 
 
 def attn_block_smem_bytes(channels: int, window_size: int = WINDOW) -> int:
@@ -248,9 +258,9 @@ def weight_grad_smem_bytes() -> int:
             + _ring_bytes(2 * ATB_K * (TC_ROWS + 8), ATB_STAGES))
 
 
-def _core_bytes(cols: int, depth: int = BF_K) -> int:
-    """The TC_SPLIT core-tile buffers of a bf16 (cols, depth) chunk."""
-    return 4 * TC_SPLIT * cols * depth // 2
+def _core_bytes(cols: int) -> int:
+    """The TC_SPLIT core-tile buffers of a bf16 (cols, BF_K) chunk."""
+    return 4 * TC_SPLIT * cols * BF_K // 2
 
 
 def wg_bf16_bytes(cols: int) -> int:
@@ -268,24 +278,83 @@ def rows_bf16_smem_bytes(channels: int) -> int:
     return max(wg_bf16_bytes(cols), 4 * (TC_ROWS * (cols + 8) + 2 * 8 * channels))
 
 
-def weight_grad_bf16_smem_bytes() -> int:
-    """Shared memory of atb_bf16_kernel: the core-tile buffers of a (128,
-    32) chunk, then a 3-stage ring of a (32, 128 + 8) bf16 chunk pair and the
-    chunk's (32, 128 + 4) rows of the bias sums' source a stage."""
-    return (_core_bytes(TC_ROWS, ATB_K)
-            + _ring_bytes(ATB_K * (TC_ROWS + 8) + ATB_K * (TC_ROWS + 4), ATB_STAGES))
+def weight_grad_bf16_cols(n: int) -> int:
+    """Columns of a wg_bf16_kernel tile over N (csrc/wgrad_bf16.cuh
+    wg_cols): the one of WG_COLS whose tiles copy the fewest bytes a chunk,
+    n-tiles x (WG_ROWS + BN), the wider at a tie."""
+    return min(reversed(WG_COLS), key=lambda bn: -(-n // bn) * (WG_ROWS + bn))
+
+
+def weight_grad_bf16_smem_bytes(n: int) -> int:
+    """Shared memory of wg_bf16_kernel over N columns: a ring of WG_STAGES
+    stages of a (WG_K, WG_ROWS) A tile and a (WG_K, BN) B tile in bf16."""
+    return _ring_bytes(WG_K * (WG_ROWS + weight_grad_bf16_cols(n)) // 2, WG_STAGES)
+
+
+def weight_grad_bf16_plan(t: int, m: int, n: int) -> dict:
+    """How wg_bf16_kernel cuts a (T, M)^T (T, N) product (csrc/wgrad_bf16.cuh
+    wg_plan): tile columns bn, m and n tiles, the tokens of a range (a
+    multiple of WG_K, ranges enough for one wave of WG_WAVE_BLOCKS blocks)
+    and the ranges z."""
+    bn = weight_grad_bf16_cols(n)
+    nm, nn = -(-m // WG_ROWS), -(-n // bn)
+    want = 1 if nm * nn >= WG_WAVE_BLOCKS else WG_WAVE_BLOCKS // (nm * nn)
+    chunk = max(-(-(-(-t // want)) // WG_K) * WG_K, WG_K)
+    return {"bn": bn, "nm": nm, "nn": nn, "chunk": chunk, "z": -(-t // chunk)}
+
+
+def weight_grad_bf16_sum_rows(t: int, plan: dict, from_b: bool) -> int:
+    """Partial rows of a product's bias sums: a (range, m-tile) row each
+    where B is the source, else one a WG_SUM_TOKENS tokens."""
+    return plan["z"] * plan["nm"] if from_b else -(-t // WG_SUM_TOKENS)
+
+
+def weight_grad_bf16_part_floats(t: int, m: int, n: int) -> int:
+    """Floats of a bf16 weight gradient's partial sums, either source of its
+    bias sums (csrc/wgrad_bf16.cuh wg_part_floats)."""
+    plan = weight_grad_bf16_plan(t, m, n)
+    rows = max(weight_grad_bf16_sum_rows(t, plan, True), weight_grad_bf16_sum_rows(t, plan, False))
+    return plan["z"] * m * n + rows * n
+
+
+def attn_group_smem_bytes() -> int:
+    """Shared memory of #6's bf16 window attention (csrc/attn_group_bf16.cuh
+    attn_group_bwd_bf16_kernel): the threads' dbias sums (n * n fp32), two
+    windows' rooms of n bf16 head rows each of q, k, v and dA, and the bf16
+    P / dS tile."""
+    n = GROUP_N
+    return 4 * n * n + 2 * 2 * 4 * n * GROUP_LD + 2 * n * GROUP_LP
+
+
+def attn_dbias_groups(b: int, nwh: int, nww: int, kinds: int) -> list:
+    """The groups of windows that #6's bf16 window attention walks, in
+    group order: (kind, [(sample, window row, window column), ...]) with
+    each kind's windows in (sample, row, column) order, GROUP_WINDOWS a
+    group, the last group of a kind taking the rest (csrc/attn_group_bf16.cuh
+    attn_groups)."""
+    groups = []
+    for kind in range(kinds):
+        rows = nwh if kinds == 1 else 1 if kind & 2 else nwh - 1
+        cols = nww if kinds == 1 else 1 if kind & 1 else nww - 1
+        wins = []
+        for m in range(b * rows * cols):
+            r = m % (rows * cols)
+            wi = nwh - 1 if kinds == 4 and kind & 2 else r // cols
+            wj = nww - 1 if kinds == 4 and kind & 1 else r % cols
+            wins.append((m // (rows * cols), wi, wj))
+        groups += [(kind, wins[i:i + GROUP_WINDOWS]) for i in range(0, len(wins), GROUP_WINDOWS)]
+    return groups
 
 
 def attn_block_bf16_smem_bytes(channels: int) -> int:
     """The largest shared memory of the bf16 attention half's kernels (#1 and
     #6's bf16 forms) at 12x12 windows: qkv and proj on linear_bf16_kernel,
-    datt and the LN1 backward on rows_bf16_kernel, the weight gradients, and
-    the window attention's forward and its recompute backward with att
-    rows (n 144)."""
+    datt and the LN1 backward on rows_bf16_kernel, the two weight gradients,
+    the window attention's forward and #6's (n 144)."""
     return max(wg_bf16_bytes(residual_tile_cols(3 * channels)),
                wg_bf16_bytes(residual_tile_cols(channels)), rows_bf16_smem_bytes(channels),
-               weight_grad_bf16_smem_bytes(), attn_fwd_tc_smem_bytes(BF16_ATTN_WINDOW**2),
-               attn_rows_bwd_tc_smem_bytes(BF16_ATTN_WINDOW))
+               weight_grad_bf16_smem_bytes(3 * channels), weight_grad_bf16_smem_bytes(channels),
+               attn_fwd_tc_smem_bytes(BF16_ATTN_WINDOW**2), attn_group_smem_bytes())
 
 
 def attn_block_bf16_fits(h, w, window_size, channels, num_heads) -> bool:
@@ -391,6 +460,14 @@ def _part_floats(t: int, m: int, n: int) -> int:
     from trainner_redux_tpu_torch.ops import cuda_build
 
     return cuda_build.library("fused_block_train").trr_weight_grad_part_floats(t, m, n)
+
+
+def _part_floats_bf16(t: int, m: int, n: int) -> int:
+    """Floats of the partial sums of one bf16 weight gradient
+    (csrc/wgrad_bf16.cuh)."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+
+    return cuda_build.library("fused_block_train").trr_weight_grad_bf16_part_floats(t, m, n)
 
 
 def _split_grad(buf, m: int, n: int):
@@ -1162,7 +1239,7 @@ def fused_ln_mlp_backward_bf16(x, g, be, w1, b1, w2, b2, s, dout, window_size, e
     hg, dh = new(T, hidden, dtype=torch.bfloat16), new(T, hidden, dtype=torch.bfloat16)
     stats, dh32 = new(T, 2), new(T, hidden)
     ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
-    part = new(max(_part_floats(T, hidden, c), _part_floats(T, c, hidden)))
+    part = new(max(_part_floats_bf16(T, hidden, c), _part_floats_bf16(T, c, hidden)))
     dx, dln = torch.empty_like(x), new(2 * c)
     d1, d2 = new(c * hidden + hidden), new(hidden * c + c)
     dyw = _split_rows_scratch(T, c, dev)
@@ -1322,6 +1399,14 @@ def fused_attn_block_bwd_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, dout,
     return (dx.to(torch.bfloat16), *grads)
 
 
+def _group_part_floats(b: int, hh: int, ww: int, num_heads: int, kinds: int) -> int:
+    """Floats of the groups' dbias sums of #6's bf16 window attention."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+
+    return cuda_build.library("fused_block_train").trr_attn_group_part_floats(
+        b, hh, ww, num_heads, kinds)
+
+
 def _check_attn_bf16(name, x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim, window_size,
                      shift, dout=None):
     """Limits, shapes, types and placement of the bf16 attention half's
@@ -1379,9 +1464,10 @@ def fused_attn_block_backward_bf16(x, g, be, wq, bq, wp, bp, bias, s, dout, num_
     """#6's bf16 form at 12x12 windows: dx (bf16) and the fp32 gradients of
     g, be, wq, bq, wp, bp and the kind table from the bf16 x and dout, as
     `fused_attn_block_bwd_bf16_reference` computes them. On a CUDA tensor it
-    launches `trr_attn_block_bwd_bf16` (one counted call: the recompute
-    window attention writing att, the per-token stages, two weight
-    gradients, dbias); on a CPU tensor it runs the plain version."""
+    launches `trr_attn_block_bwd_bf16` (one counted call: the per-token
+    stages, the recompute window attention over groups of windows of one
+    kind, writing att and summing dbias in the kernel, two weight
+    gradients); on a CPU tensor it runs the plain version."""
     if x.device.type == "cpu":
         return fused_attn_block_bwd_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, dout,
                                                    num_heads, head_dim, window_size, eps, shift)
@@ -1396,9 +1482,9 @@ def fused_attn_block_backward_bf16(x, g, be, wq, bq, wp, bp, bias, s, dout, num_
 
     y, dzp, datt, att = (new(T, c, dtype=torch.bfloat16) for _ in range(4))
     qkv, dqkv = new(T, 3 * c, dtype=torch.bfloat16), new(T, 3 * c, dtype=torch.bfloat16)
-    stats, ds = new(T, 2), new(b, hh // ws, ww // ws, num_heads, n, n)
+    stats, ds = new(T, 2), new(_group_part_floats(b, hh, ww, num_heads, kinds))
     ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
-    part = new(max(_part_floats(T, c, c), _part_floats(T, c, 3 * c)))
+    part = new(max(_part_floats_bf16(T, c, c), _part_floats_bf16(T, c, 3 * c)))
     dx, dln, dbias = torch.empty_like(x), new(2 * c), new(kinds, num_heads, n, n)
     dq, dp = new(c * 3 * c + 3 * c), new(c * c + c)
     fused_attn_block_backward_bf16.launches += 1
@@ -1630,7 +1716,7 @@ def fused_swin_block_train_backward_bf16(x, g1, be1, wq, bq, wp, bp, g2, be2, w1
     qkv, dqkv = half(T, 3 * c), half(T, 3 * c)
     ds, dx = new(*P.shape), torch.empty_like(x)
     ln_part = new(math.ceil(T / TC_ROWS), 2 * c)
-    part = new(max(_part_floats(T, m, k)
+    part = new(max(_part_floats_bf16(T, m, k)
                    for m, k in ((hidden, c), (c, hidden), (c, c), (c, 3 * c))))
     dln1, dln2, dbias = new(2 * c), new(2 * c), new(kinds, num_heads, n, n)
     dq, dp = new(c * 3 * c + 3 * c), new(c * c + c)

@@ -60,6 +60,7 @@ from trainner_redux_tpu_torch.ops.fused_block import (
     _ln_parts,
     _merge_heads,
     _part_floats,
+    _part_floats_bf16,
     _roll,
     _row_scale,
     _split_grad,
@@ -167,12 +168,13 @@ def pn_mlp_fits(h, window_size, channels, hidden, train=False) -> bool:
 def cos_attn_bf16_smem_bytes(channels: int) -> int:
     """The largest shared memory of the bf16 attention half's kernels (#11
     and #12's bf16 forms): qkv and proj on linear_bf16_kernel, datt and dx on
-    rows_bf16_kernel, the weight gradients on atb_bf16_kernel, the cosine
-    window attention's forward and its backward stage (the fp32 plans: their
-    tiles are fp32 in either form)."""
+    rows_bf16_kernel, the weight gradients (dwq over 3C columns, dwp over C:
+    csrc/wgrad_bf16.cuh), the cosine window attention's forward and its
+    backward stage (the fp32 plans: their tiles are fp32 in either form)."""
     return max(wg_bf16_bytes(residual_tile_cols(3 * channels)),
                wg_bf16_bytes(residual_tile_cols(channels)), rows_bf16_smem_bytes(channels),
-               weight_grad_bf16_smem_bytes(), attn_fwd_tc_smem_bytes(TILE),
+               weight_grad_bf16_smem_bytes(3 * channels), weight_grad_bf16_smem_bytes(channels),
+               attn_fwd_tc_smem_bytes(TILE),
                cos_attn_bwd_smem_bytes())
 
 
@@ -183,7 +185,8 @@ def pn_mlp_bf16_smem_bytes(channels: int, hidden: int) -> int:
     buffers), dx on rows_bf16_kernel, the weight gradients."""
     return max(wg_bf16_bytes(residual_tile_cols(hidden)),
                wg_bf16_bytes(residual_tile_cols(channels)), 4 * TC_ROWS * 128 + wg_bf16_bytes(128),
-               rows_bf16_smem_bytes(channels), weight_grad_bf16_smem_bytes())
+               rows_bf16_smem_bytes(channels), weight_grad_bf16_smem_bytes(channels),
+               weight_grad_bf16_smem_bytes(hidden))
 
 
 def cos_attn_bf16_fits(h, w, window_size, channels, num_heads) -> bool:
@@ -687,10 +690,10 @@ def fused_cos_attn_block_bf16(x, wq, bq, scale, wp, bp, g, be, bias, s, num_head
 def _weight_grad_bf16(a, bmat, sums_f32=None, sums_bf16=None):
     """(A^T B, column sums of the fp32 rows B was rounded from: sums_f32, or
     the bf16 sums_bf16) over the T rows of a (T, M) and bmat (T, N) bf16, on
-    the bf16 tensor cores (atb_bf16_kernel), partial sums added in a fixed
-    order."""
+    the bf16 tensor cores (csrc/wgrad_bf16.cuh), partial sums added in a
+    fixed order."""
     t, m, nn = a.shape[0], a.shape[1], bmat.shape[1]
-    part = torch.empty(_part_floats(t, m, nn), device=a.device, dtype=torch.float32)
+    part = torch.empty(_part_floats_bf16(t, m, nn), device=a.device, dtype=torch.float32)
     out = torch.empty(m * nn + nn, device=a.device, dtype=torch.float32)
     _launch("fused_block_train", "trr_weight_grad_bf16", a.device, a.data_ptr(), bmat.data_ptr(),
             t, m, nn, 0 if sums_f32 is None else sums_f32.data_ptr(),
