@@ -259,9 +259,13 @@ failure:
              it, against float64 of the same bf16 inputs (F64_RATIO,
              F64_FLOOR); two runs of each bit for bit; times beside the fp32
              forms', bf16 SDPA with a float mask (#3/#8) and the bf16 bound
-             with its share; the stage splits at HAT-M's K=4, SwinIR-L's K=4,
-             DAT's 8x32 K=4 and the MLP half; the MLP half also at
-             SRFormerV2's C 240 / hidden 480 (B=8, 72x72), checked and timed.
+             with its share; the stage splits at every K=4 shape (#8 bf16
+             on csrc/attn_group_bf16.cuh: its row pass, key pass and group
+             sums at n 256, its whole-window kernel and group sums at n 64
+             and 128, each by name) and of the MLP half; #8 bf16's peak
+             memory within its outputs and grouped scratch (no per-window
+             dS); the MLP half also at SRFormerV2's C 240 / hidden 480 (B=8,
+             72x72), checked and timed.
 46-48. hat / dat / swinir_l bf16 train - `train.run` of hat_m_fidelity.yml,
              dat_fidelity.yml and swinir_l_fidelity.yml as shipped (bf16,
              batch 8 of 48x48 LR, L1 + MS-SSIM, AdamW 2e-4, EMA 0.999, their
@@ -278,6 +282,8 @@ failure:
              kernels (the losses within BF16_BRANCH_LOSS_TOL, the gradients'
              L2 distance from fp32 within BF16_BRANCH_RATIO of the plain
              versions'); two deterministic bf16 steps twice, bit for bit.
+             The profiled step must run #8 bf16's row and key passes and
+             group sums, whose device ms it sums.
 
 50. srformerv2 bf16 kernels - the bf16 forms of #1 and #6 (12x12
              windows, csrc/fused_block_train.cu's trr_attn_block_fwd_bf16 /
@@ -286,13 +292,16 @@ failure:
              6, on bf16 x and dout with fp32 parameters: against their bf16
              plain versions and float64 (phase 45's limits), two runs bit for
              bit, timed beside the fp32 forms with the bf16 bound; split by
-             stage at K=1.
+             stage at K=1 (#1's window attention attn_group_fwd_bf16_kernel,
+             over groups of windows of one kind, its products
+             linear_tma_bf16_kernel, TMA-fed).
 51. srformerv2 bf16 train - `train.run` of srformerv2_fidelity.yml as
              shipped (bf16, batch 16 of 48x48 LR, L1 + MS-SSIM, its
              validation), TRAIN_STEPS steps, counting 18 + 18 launches a step of
              #1/#6's bf16 forms and of #2/#7's and none of any fp32 training
              form; the fp32 twin's validation; the EMA checkpoint served;
-             then one step profiled (device ms, busy share, peak memory).
+             then one step profiled (device ms, busy share, peak memory,
+             #1's and #6's window attention summed).
 52. bf16 gan - `train.run` of swinir_m_gan.yml as shipped (bf16: G on
              #4/#5's bf16 forms, DUnet in bf16), TRAIN_STEPS steps with phase 38's
              checks; its step profiled into the G and D steps (phase 39's);
@@ -613,11 +622,11 @@ SOURCES = {
     "fused_swin_block_train_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_swin_block_train_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_window_mhsa_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
-    "fused_window_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/attn_group_bf16.cuh",
     "fused_window_mhsa_bf16_ws8": "trainner_redux_tpu_torch/csrc/window_attention.cu",
-    "fused_window_mhsa_backward_bf16_ws8": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_window_mhsa_backward_bf16_ws8": "trainner_redux_tpu_torch/csrc/attn_group_bf16.cuh",
     "fused_rect_mhsa_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
-    "fused_rect_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/window_attention.cu",
+    "fused_rect_mhsa_backward_bf16": "trainner_redux_tpu_torch/csrc/attn_group_bf16.cuh",
     "fused_ln_mlp_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_ln_mlp_backward_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
     "fused_attn_block_bf16": "trainner_redux_tpu_torch/csrc/fused_block_train.cu",
@@ -876,7 +885,13 @@ def stage_of(kernel: str) -> str:
     (every other source's bias sums: "bias sums"), wg_sum_kernel (the
     partial sums in order); #6's bf16 window attention is
     attn_group_bwd_bf16_kernel (csrc/attn_group_bf16.cuh), its dbias the
-    groups' sums added by dbias_group_sum_kernel."""
+    groups' sums added by dbias_group_sum_kernel; #8's bf16 form at heads of
+    up to 32 (csrc/attn_group_bf16.cuh) attn_window_bwd_bf16_kernel at n 64
+    and 128 and, at n 256, attn_group_rows_bf16_kernel (its row pass) and
+    attn_group_keys_bf16_kernel (its key pass), with the same group sums;
+    #1's bf16 window attention attn_group_fwd_bf16_kernel and its qkv and
+    proj linear_tma_bf16_kernel (csrc/linear_tma_bf16.cuh, its epilogue
+    mode the template argument)."""
     for part, stage in (("postnorm_rows_bf16_kernel", "post-norm rows"),
                         ("attn_wide_fwd_kernel", "window attention forward"),
                         ("attn_wide_bwd_rows_kernel", "row pass"),
@@ -888,11 +903,18 @@ def stage_of(kernel: str) -> str:
                         ("attn_rows_bwd_bf16_kernel", "window attention"),
                         ("attn_rows_bwd_recompute_bf16_kernel", "window attention"),
                         ("attn_group_bwd_bf16_kernel", "window attention"),
+                        ("attn_window_bwd_bf16_kernel", "window attention"),
+                        ("attn_group_rows_bf16_kernel", "row pass"),
+                        ("attn_group_keys_bf16_kernel", "key pass"),
+                        ("attn_group_fwd_bf16_kernel", "window attention forward"),
                         ("dbias_group_sum_kernel", "bias table"),
                         ("wg_bf16_kernel", "weight gradients"),
                         ("wg_colsum_kernel", "bias sums"), ("wg_sum_kernel", "partial sums")):
         if part in kernel:
             return stage
+    if "linear_tma_bf16_kernel<" in kernel:  # #1 bf16's products: its epilogue mode
+        mode = kernel.split("linear_tma_bf16_kernel<", 1)[1].split(">", 1)[0].strip()
+        return "x + s (A W + b)" if mode == "2" else "x W + b"
     for part, modes in (("linear_bf16_kernel<", {"2": "x + s (A W + b)"}),
                         ("rows_bf16_kernel<", {"0": "datt", "1": "dx = dout + A W^T",
                                                "2": "dy and the LN backward"})):
@@ -953,6 +975,14 @@ def stages_8_wide(b: int, nwin: int, nh: int, n: int = 256) -> dict[str, int]:
     one = b * nwin // 16 < 2 or nh * n * n >= 1 << 18
     return {"row pass": 1, "key pass": 1, "bias table": 1 if one else 2}
 STAGES_8_RECT = {"window attention": 1, "bias table": 2}  # DAT's 8x32, 3 heads
+# #8's bf16 form at heads of up to 32 (csrc/attn_group_bf16.cuh): its row
+# pass, key pass and group sums at n 256, its whole-window kernel and group
+# sums at n 64 and 128, and those kernels by name
+STAGES_8_PASSES = {"row pass": 1, "key pass": 1, "bias table": 1}
+STAGES_8_WHOLE = {"window attention": 1, "bias table": 1}
+GROUP_BWD_256 = ("attn_group_rows_bf16_kernel", "attn_group_keys_bf16_kernel",
+                 "dbias_group_sum_kernel")
+GROUP_BWD_WHOLE = ("attn_window_bwd_bf16_kernel", "dbias_group_sum_kernel")
 STAGES_14 = {"x W + b": 2, "post-norm LN backward": 1, "fc1 and dh": 1, "dx = dout + A W^T": 1,
              "weight gradients": 2, "partial sums": 3}
 # the bf16 forms: their weight gradients' bias sums of a source other than
@@ -4390,7 +4420,10 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
     plain version, against float64 of the same bf16 inputs; two runs of each
     bit for bit; timed beside the fp32 forms and bf16 SDPA with a float mask
     (forward, and forward and backward); `split`, the backward's stages a
-    call: the backward's stage split, and the forward's."""
+    call: the backward's stage split, and the forward's. #8's bf16 form at
+    heads of up to 32 allocates no per-window dS: the call's peak memory
+    above its inputs stays within its outputs and grouped scratch (the
+    groups' dbias sums, the row stats)."""
     import torch
     import torch.nn.functional as F
 
@@ -4430,6 +4463,22 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 - report and fail the phase
         fail(f"{names[0]} {label}: {e}")
+    if wa.window_bwd_grouped(hd, wr, wc):  # no per-window dS: the peak within the scratch
+        part, stats = wa.window_bwd_scratch_floats(b, h, w, nh, kinds, wr, wc)
+        own = nbytes(*grads) + 4 * (part + stats)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bwd_k(qkv, bias, dout, nh, hd, *win)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        dS = 4 * b * (h // wr) * (w // wc) * nh * n * n
+        if extra > own + (1 << 21):
+            fail(f"{names[1]} {label}: the call's peak {extra} bytes past its outputs and scratch "
+                 f"({own})")
+        say(f"[{tag}] {names[1]} {label}: peak {extra / 1e6:.1f} MB above the inputs (outputs "
+            f"and grouped scratch {own / 1e6:.1f} MB; a per-window dS would be {dS / 1e6:.1f} "
+            "MB)")
     want, plain_grads = fwd_p(qkv, bias, nh, hd, *win), bwd_p(qkv, bias, dout, nh, hd, *win)
     fwd_err = check_bf16(tag, f"{names[0]} {label} out", got, want)
     bwd_err = [check_bf16(tag, f"{names[1]} {label} {part}", g, p_)
@@ -4483,8 +4532,11 @@ def bf16_window_case(res: dict, names: tuple[str, str], label: str, shape, wr: i
         else:
             plan = f"{n}, {rb}, {ks}, false, {wa.head_width(hd)}"
             fwd_name = f"attn_rows_fwd_bf16_kernel<{plan}>"
-            bwd_names = (f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}, "
-                         f"{wa.head_width(hd)}>",)
+            if wa.window_bwd_grouped(hd, wr, wc):  # csrc/attn_group_bf16.cuh
+                bwd_names = GROUP_BWD_256 if n == wa.PASS_N else GROUP_BWD_WHOLE
+            else:
+                bwd_names = (f"attn_rows_bwd_recompute_bf16_kernel<{n}, {rb}, {ks}, "
+                             f"{wa.head_width(hd)}>",)
         stage_split(tag, f"{names[0]} {label}", lambda: fwd_k(qkv, bias, nh, hd, *win),
                     fwd_flops, fwd_bytes, res[names[0]]["ms"], STAGES_3, kernels=(fwd_name,),
                     bf16=True)
@@ -4505,9 +4557,9 @@ def mlp_f64(x, g, be, w1, b1, w2, b2, s):
 
 def phase_bf16_window_kernels() -> dict:
     """45. The bf16 forms of #3/#8 and #2/#7 at each bf16 path's shapes (see
-    the module doc): HAT-M's block, DAT's branches, SwinIR-L's block; the
-    MLP half at HAT-M's block with DropPath scales holding 0 and 1/0.9, and
-    at SRFormerV2's C 240 / hidden 480."""
+    the module doc): HAT-M's block, DAT's branches, SwinIR-L's block, each
+    K=4 case split by stage; the MLP half at HAT-M's block with DropPath
+    scales holding 0 and 1/0.9, and at SRFormerV2's C 240 / hidden 480."""
     import torch
 
     from trainner_redux_tpu_torch.ops import fused_block as fb
@@ -4521,12 +4573,12 @@ def phase_bf16_window_kernels() -> dict:
     for kinds in (1, 4):
         bf16_window_case(res, ("fused_window_mhsa_bf16", "fused_window_mhsa_backward_bf16"),
                          f"HAT-M ws 16 K={kinds}", hat, HWS, HWS, kinds, NH, HD,
-                         (HWS // 2, HWS // 2), gen, STAGES_8 if kinds == 4 else None)
+                         (HWS // 2, HWS // 2), gen, STAGES_8_PASSES if kinds == 4 else None)
     # SwinIR-L: ws 8 at C 240
     for kinds in (1, 4):
         bf16_window_case(res, ("fused_window_mhsa_bf16_ws8", "fused_window_mhsa_backward_bf16_ws8"),
                          f"SwinIR-L ws 8 C 240 K={kinds}", hat, WS, WS, kinds, SLNH, SLHD,
-                         (WS // 2, WS // 2), gen, STAGES_8_RECT if kinds == 4 else None)
+                         (WS // 2, WS // 2), gen, STAGES_8_WHOLE if kinds == 4 else None)
     # DAT: its 90-channel branches at the crop's qkv padded to 64x64, and
     # dat_s's 8x16 at 48x48 (the JSON line's case: 8x32, K=4)
     for (wr, wc), kinds, size in (((32, 8), 4, TH), ((8, 16), 4, FID_LQ), ((8, 32), 1, TH),
@@ -4534,7 +4586,8 @@ def phase_bf16_window_kernels() -> dict:
         bf16_window_case(res, ("fused_rect_mhsa_bf16", "fused_rect_mhsa_backward_bf16"),
                          f"DAT {wr}x{wc} K={kinds}", (TB, size, size), wr, wc, kinds, DNH, DHD,
                          DAT_WINDOWS[(wr, wc)], gen,
-                         STAGES_8_RECT if (wr, wc, kinds) == (8, 32, 4) else None)
+                         None if kinds == 1 else STAGES_8_PASSES if wr * wc == 256
+                         else STAGES_8_WHOLE)
 
     # the MLP half (#2, #7) at HAT-M's block
     x32, p, _, _ = block_inputs(gen, 1, dev, shape=hat)
@@ -4679,7 +4732,9 @@ def phase_bf16_family_profile_branches(seed: int, family: str) -> None:
     bf16 steps twice, bit for bit)."""
     template, network, label, per_step, per_image = BF16_RUNS[family]
     phase_bf16_profile(seed, template, f"{network}_x4_bf16_profile", per_step,
-                       f"{family} bf16 profile", f"profile_{family}_bf16_train.txt")
+                       f"{family} bf16 profile", f"profile_{family}_bf16_train.txt",
+                       kernels=GROUP_BWD_256,
+                       sums={"#8 bf16 (row pass, key pass, group sums)": GROUP_BWD_256})
     fp32_step = {k.removesuffix("_bf16"): v for k, v in per_step.items()}
     phase_bf16_branches(seed, network, label, template, f"{family} bf16 branches", per_step,
                         fp32_step, tensor_check=False)
@@ -4717,9 +4772,12 @@ def phase_srformerv2_bf16_kernels() -> dict:
     bf16 inputs (wq and wp rounded to bf16, as the forms take them;
     `bf16_f64_check`); two runs of each bit for bit; times beside the plain
     versions' and the fp32 forms' (#1 at 12x12, #6), the bf16 bound and its
-    share; at K=1 both split by stage (#6's must run attn_group_bwd_bf16_kernel,
-    the window attention over groups of windows that sums dbias in the
-    block, dbias_group_sum_kernel and the bf16 weight-gradient stage)."""
+    share; at K=1 both split by stage (#1 must run its products on
+    linear_tma_bf16_kernel and its window attention on
+    attn_group_fwd_bf16_kernel, over groups of windows of one kind; #6's
+    attn_group_bwd_bf16_kernel, the window attention over groups of windows
+    that sums dbias in the block, dbias_group_sum_kernel and the bf16
+    weight-gradient stage)."""
     import torch
 
     from trainner_redux_tpu_torch.ops import fused_block as fb
@@ -4793,8 +4851,8 @@ def phase_srformerv2_bf16_kernels() -> dict:
         if kinds == 1:
             stage_split(tag, f"fused_attn_block_bf16 {label}", fwd, fwd_flops, fwd_bytes,
                         res["fused_attn_block_bf16"]["ms"], STAGES_1,
-                        kernels=("ln_rows_bf16_kernel", "linear_bf16_kernel",
-                                 "attn_rows_fwd_bf16_kernel<144, 48, 2, false, 32>"), bf16=True)
+                        kernels=("ln_rows_bf16_kernel", "linear_tma_bf16_kernel",
+                                 "attn_group_fwd_bf16_kernel"), bf16=True)
             stage_split(tag, f"fused_attn_block_backward_bf16 {label}", bwd, bwd_flops, bwd_bytes,
                         res["fused_attn_block_backward_bf16"]["ms"], STAGES_6_BF16,
                         kernels=("attn_group_bwd_bf16_kernel", "dbias_group_sum_kernel",
@@ -4823,7 +4881,9 @@ def phase_srformerv2_bf16_train(seed: int) -> dict[str, int]:
                          batch_size=SRF_BF16_B)
     phase_bf16_profile(seed, template, "srformerv2_x4_bf16_profile", per_step,
                        "srformerv2 bf16 profile", "profile_srformerv2_bf16_train.txt",
-                       batch_size=SRF_BF16_B)
+                       batch_size=SRF_BF16_B, kernels=("attn_group_fwd_bf16_kernel",),
+                       sums={"#1 bf16's window attention": ("attn_group_fwd_bf16_kernel",),
+                             "#6 bf16's window attention": ("attn_group_bwd_bf16_kernel",)})
     return counts
 
 
@@ -6036,7 +6096,7 @@ DRCT_GROUPS = {"drct": 6, "drct_l": 12, "drct_xl": 14}
 DRCT_B = 8  # the templates' batch of 48x48 LR crops
 DRCT_TEMPLATES = TEMPLATES / "DRCT"
 # the new forms' kernels that every DRCT training phase's profile must name
-DRCT_BF16_KERNELS = (ATTN_FWD_128_BF, *ATTN_BWD_128_BF, LN_BWD_ROWS_BF)
+DRCT_BF16_KERNELS = (ATTN_FWD_128_BF, *ATTN_BWD_128_BF, LN_BWD_ROWS_BF, *GROUP_BWD_256)
 DRCT_FP32_KERNELS = (ATTN_FWD_128, *ATTN_BWD_128, LN_BWD_ROWS)
 
 
@@ -6249,7 +6309,8 @@ def phase_drct_train(seed: int) -> dict[str, int]:
         "profile_drct_bf16_train.txt", DRCT_B,
         kernels=DRCT_BF16_KERNELS,
         sums={"the 128-wide #8 (row and key passes)": ATTN_BWD_128_BF,
-              "the 128-wide #3": (ATTN_FWD_128_BF,)})
+              "the 128-wide #3": (ATTN_FWD_128_BF,),
+              "the 32-wide #8 bf16 (swin_1: row pass, key pass, group sums)": GROUP_BWD_256})
     say(f"[{tag}] profiled step: {dev_ms:.3f} device ms, {step_ms:.1f} ms on the host clock")
     return forms
 

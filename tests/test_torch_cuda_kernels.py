@@ -36,6 +36,11 @@ shifted, the MLP half also at Swin2SR-L's C 240 and Swin2SR-S's C 60).
 #3/#8's 64-wide form (ATD's heads of 35, heads of 64) and 128-wide form
 (DRCT's heads of 122 and 77, heads of 128), and #2/#7 at rows of 257-320
 channels (DRCT's C 276 and 308: #7's split rows stage), fp32 and bf16.
+#8's bf16 form at heads of up to 32 on csrc/attn_group_bf16.cuh's grouped
+kernels at the main paths' blocks and at ragged groups, twice bit for bit,
+with no per-window dS allocated; #1 bf16's window attention (the grouped
+forward) and its products on csrc/linear_tma_bf16.cuh run in the ws12
+tests above, C 60 there on the products' former stage.
 """
 
 import numpy as np
@@ -1880,3 +1885,120 @@ def test_hd64_wrappers_refuse_heads_past_64(cuda):
     with pytest.raises(ValueError, match="at most 128 channels"):
         wa.fused_window_mhsa_backward(qkv.float(), bias, dout.float(), 6, 129, 16)
     assert [f.launches for f in forms] == n0
+
+
+# #8's bf16 form at heads of up to 32 on csrc/attn_group_bf16.cuh's kernels
+# (a block per head and group of windows of one kind, dbias summed in the
+# kernel): the main paths' blocks, HAT-M's (B 8, 48x48, 16x16: the row and
+# key passes), SwinIR-L's (8x8 at C 240), DAT's 90-channel branch (B 8,
+# 64x64, 8x32 and 32x8; 48x48, 8x16), and blocks whose kinds hold windows
+# no multiple of a group (B 3, 80x48 at 16x16: 15 windows a sample; B 1,
+# 40x56 at 8x8)
+GROUPED_BWD = [((16, 16), C, NH, (8, 48, 48)), ((8, 8), 240, 8, (8, 48, 48)),
+               ((8, 32), RC, RNH, (8, 64, 64)), ((32, 8), RC, RNH, (8, 64, 64)),
+               ((8, 16), RC, RNH, (8, 48, 48)), ((16, 16), C, NH, (3, 80, 48)),
+               ((8, 8), 240, 8, (1, 40, 56))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [1, 4])
+@pytest.mark.parametrize(("window", "c", "nh", "shape"), GROUPED_BWD,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_bf16_window_backward_grouped(cuda, window, c, nh, shape, kinds):
+    """#8's bf16 form against its bf16 plain version, twice bit for bit,
+    with no per-window dS allocated: the call's peak memory above its
+    inputs stays within dqkv, dbias and the grouped scratch (the groups'
+    dbias sums, the row stats), whose sums are smaller than the dS of every
+    window and head wherever a group holds more than one window; the grids'
+    groups as the Python mirror plans them."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, dout = _bf16_window_case(cuda, window, kinds, c, nh, shape, seed=7)
+    hd, (wr, wc), (b, h, w) = c // nh, window, shape
+    assert wa.window_bwd_grouped(hd, wr, wc)
+    lib = cuda_build.library("window_attention")
+    for pass_ in (0, 1):
+        assert lib.trr_rect_mhsa_bwd_bf16_group_windows(b, h, w, nh, kinds, wr, wc, pass_) == (
+            wa.window_bwd_group_windows(b, h, w, nh, kinds, wr, wc, pass_))
+    part, stats = wa.window_bwd_scratch_floats(b, h, w, nh, kinds, wr, wc)
+    assert [lib.trr_rect_mhsa_bwd_bf16_scratch_floats(b, h, w, nh, kinds, wr, wc, i)
+            for i in (0, 1)] == [part, stats]
+    bwd = wa.fused_rect_mhsa_backward_bf16
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = bwd(qkv, bias, dout, nh, hd, wr, wc)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    ds_bytes = 4 * b * (h // wr) * (w // wc) * nh * (wr * wc) ** 2
+    own = 2 * qkv.numel() + 4 * bias.numel() + 4 * (part + stats)
+    assert extra <= own + (1 << 21), (extra, own, ds_bytes)
+    if wa.window_bwd_group_windows(b, h, w, nh, kinds, wr, wc) > 1:
+        assert 4 * part < ds_bytes
+    want = wa.fused_rect_mhsa_bwd_bf16_reference(qkv, bias, dout, nh, hd, wr, wc)
+    _assert_bf16_close("dqkv", got[0], want[0])
+    top = want[1].abs().max().item()
+    assert (got[1] - want[1]).abs().max().item() <= BF16_TOL * top
+    again = bwd(qkv, bias, dout, nh, hd, wr, wc)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_window_backward_grouped_rule(cuda):
+    """The grouped kernels' shape rule: heads of up to 32 at the windows of
+    GROUP_BWD_WINDOWS; heads of 35 keep tc_attn.cuh's 64-wide backward and
+    its per-window dS; both against their bf16 plain versions."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    assert [wa.window_bwd_grouped(30, *win) for win in ((16, 16), (8, 32), (8, 8), (16, 8))] == [
+        True] * 4
+    assert not wa.window_bwd_grouped(35, 16, 16) and not wa.window_bwd_grouped(30, 4, 32)
+    qkv, bias, dout = _bf16_window_case(cuda, (16, 16), 4, 210, 6, (2, 32, 32), seed=3)
+    got = wa.fused_window_mhsa_backward_bf16(qkv, bias, dout, 6, 35, 16)
+    want = wa.fused_window_mhsa_bwd_bf16_reference(qkv, bias, dout, 6, 35, 16)
+    _assert_bf16_close("dqkv", got[0], want[0])
+    assert (got[1] - want[1]).abs().max().item() <= BF16_TOL * want[1].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bf16_window_backward_grouped_unaligned(cuda):
+    """The grouped #8 where no cp.async piece fits (a qkv 2 bytes off a
+    4-byte boundary: element by element) and at 4-byte pieces of an odd
+    head (C 60, heads of 15): against the bf16 plain version."""
+    from trainner_redux_tpu_torch.ops import window_attention as wa
+
+    for c, nh, offset in ((RC, RNH, 1), (60, 4, 0)):
+        qkv, bias, dout = _bf16_window_case(cuda, (8, 32), 4, c, nh, (2, 32, 64), seed=5)
+        if offset:
+            flat = torch.empty(qkv.numel() + offset, device=cuda, dtype=qkv.dtype)
+            qkv = flat[offset:].view(qkv.shape).copy_(qkv)
+        got = wa.fused_rect_mhsa_backward_bf16(qkv, bias, dout, nh, c // nh, 8, 32)
+        want = wa.fused_rect_mhsa_bwd_bf16_reference(qkv, bias, dout, nh, c // nh, 8, 32)
+        _assert_bf16_close(f"dqkv C {c}", got[0], want[0])
+        assert (got[1] - want[1]).abs().max().item() <= BF16_TOL * want[1].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bf16_attn_block_products_rule(cuda):
+    """#1 bf16's products take the TMA-fed stage at rows of C a multiple of
+    8 up to 256 (SRFormerV2's 240), and linear_bf16_kernel elsewhere (C 60):
+    both forms against the bf16 plain version."""
+    from trainner_redux_tpu_torch.ops import cuda_build
+    from trainner_redux_tpu_torch.ops import fused_block as fb
+
+    lib = cuda_build.library("fused_block_train")
+    assert [lib.trr_attn_block_fwd_bf16_tma(c) for c in (240, 180, 256, 60, 264)] == [
+        1, 0, 1, 0, 0]
+    gen = torch.Generator().manual_seed(11)
+    for c, nh in ((SC, SNH), (60, 2)):
+        x = torch.randn(1, 24, 36, c, generator=gen).to(cuda).bfloat16()
+        params = [torch.randn(*shape, generator=gen).to(cuda) * scale
+                  for shape, scale in (((c,), 0.1), ((c,), 0.1), ((c, 3 * c), c**-0.5),
+                                       ((3 * c,), 0.1), ((c, c), c**-0.5), ((c,), 0.1))]
+        params[0] = params[0] + 1.0
+        bias = (torch.randn(1, nh, 144, 144, generator=gen) * 0.3).to(cuda)
+        s = torch.full((1,), 0.8, device=cuda)
+        got = fb.fused_attn_block_bf16(x, *params, bias, s, nh, c // nh, 12)
+        want = fb.fused_attn_block_bf16_reference(x, *params, bias, s, nh, c // nh, 12)
+        _assert_bf16_close(f"z C {c}", got, want)

@@ -89,8 +89,10 @@
 // #1's bf16 form, fused_block.py:693, _attn_block_fwd_kernel :468-511; and
 // trr_attn_block_bwd_bf16, #6's, :729, _attn_block_bwd_kernel :513-634:
 // SRFormerV2's Swin blocks in a bf16 step) is #4's and #5's attention stages
-// on their own at n 144 (attn_plan's (48, 2)): LN1 rows, qkv, the window
-// attention without P, proj with the residual (four launches); then LN1 rows
+// on their own at n 144: LN1 rows, qkv, the window attention over groups of
+// windows of one kind (attn_group_bf16.cuh's attn_group_fwd_bf16_kernel:
+// fp32 P in registers, bf16(P) packed straight into the A fragments of P
+// v), proj with the residual (four launches); then LN1 rows
 // with dzp = bf16(s dout), datt = bf16(dzp wp^T), qkv, the recompute window
 // attention over groups of windows of one kind (attn_group_bf16.cuh), which
 // rebuilds P in fp32, writes att = bf16(bf16(P) v) for dwp besides dq | dk |
@@ -116,6 +118,7 @@
 // the bf16 tensor cores, against some 24 and 36 MB of rows (7 and 11 us).
 #include "attn_group_bf16.cuh"
 #include "block_fwd.cuh"
+#include "linear_tma_bf16.cuh"
 #include "tc_rows.cuh"
 #include "tc_rows_bf16.cuh"
 #include "wgrad_bf16.cuh"
@@ -435,23 +438,40 @@ int trr_swin_block_bwd_bf16(const trr::bf16* x, const trr::bf16* z, const trr::b
 }
 
 // The bf16 attention half (#1's bf16 form) at 12x12 windows: x, z (B, H, W,
-// C) bf16; wq (C, 3C), wp (C, C) bf16; g, be, bq, bp, bias (kinds, nh, 144,
-// 144), s (B) fp32; scratch y, att (T, C) and qkv (T, 3C) bf16. The windows
-// are those of x rolled by (-shift, -shift), z comes back in x's frame.
+// C) bf16; wq (C, 3C), wp (C, C) bf16 and their transposes wqt (3C, C), wpt
+// (C, C); g, be, bq, bp, bias (kinds, nh, 144, 144), s (B) fp32; scratch y,
+// att (T, C) and qkv (T, 3C) bf16. The windows are those of x rolled by
+// (-shift, -shift), z comes back in x's frame. The products run on
+// linear_tma_bf16_kernel where linear_tma_fits (C a multiple of 8, at most
+// 256; x, z and the operands 16-byte aligned), else on linear_bf16_kernel.
 int trr_attn_block_fwd_bf16(const trr::bf16* x, const float* g, const float* be,
-                            const trr::bf16* wq, const float* bq, const trr::bf16* wp,
-                            const float* bp, const float* bias, const float* s, trr::bf16* y,
-                            trr::bf16* qkv, trr::bf16* att, trr::bf16* z, int B, int H, int W,
-                            int C, int nh, int ws, int kinds, int shift, float eps, float scale,
+                            const trr::bf16* wq, const trr::bf16* wqt, const float* bq,
+                            const trr::bf16* wp, const trr::bf16* wpt, const float* bp,
+                            const float* bias, const float* s, trr::bf16* y, trr::bf16* qkv,
+                            trr::bf16* att, trr::bf16* z, int B, int H, int W, int C, int nh,
+                            int ws, int kinds, int shift, float eps, float scale,
                             cudaStream_t stream) {
   if (ws != 12) return (int)cudaErrorInvalidValue;
   const long long T = (long long)B * H * W, hw = (long long)H * W;
+  const bool tma = trr::linear_tma_fits(y, wqt, qkv, nullptr, C, 3 * C) &&
+                   trr::linear_tma_fits(att, wpt, z, x, C, C);
   TRR_TRY(trr::ln_rows_bf16(x, g, be, y, nullptr, nullptr, nullptr, nullptr, T, hw, C, eps,
                             stream));
-  TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
-  TRR_TRY((trr::attn_rows_fwd_bf16<144, false>(qkv, bias, att, nullptr, B, H, W, C, nh, 12, 12,
-                                               kinds, shift, scale, stream)));
+  if (tma)
+    TRR_TRY(trr::linear_tma_bf16(y, wqt, bq, qkv, T, C, 3 * C, stream));
+  else
+    TRR_TRY(trr::linear_bf16(y, wq, bq, qkv, T, C, 3 * C, stream));
+  TRR_TRY(trr::attn_group_fwd_bf16(qkv, bias, att, B, H, W, C, nh, kinds, shift, scale, stream));
+  if (tma)
+    return (int)trr::linear_tma_bf16<trr::kLinearResidual>(att, wpt, bp, z, T, C, C, stream, x,
+                                                           s, hw);
   return (int)trr::linear_bf16<trr::kLinearResidual>(att, wp, bp, z, T, C, C, stream, x, s, hw);
+}
+
+// Whether #1's bf16 form runs its products on linear_tma_bf16_kernel at
+// rows of C channels (16-byte aligned operands).
+int trr_attn_block_fwd_bf16_tma(int C) {
+  return trr::linear_tma_fits(nullptr, nullptr, nullptr, nullptr, C, 3 * C);
 }
 
 // The bf16 recompute backward (#6's bf16 form) at 12x12 windows: x, dout
@@ -562,13 +582,12 @@ size_t trr_attn_group_part_floats(int B, int H, int W, int nh, int kinds) {
 // The largest shared memory of the bf16 attention half's kernels (#1 and
 // #6's bf16 forms) at 12x12 windows and rows of C channels.
 size_t trr_attn_block_bf16_smem_bytes(int C) {
-  const trr::AttnPlan plan = trr::attn_plan(144);
   return (size_t)std::max(
       {trr::wg_bf16_bytes(trr::linear_cols(3 * C)), trr::wg_bf16_bytes(trr::linear_cols(C)),
        trr::rows_bf16_smem_bytes(C), trr::wg_bf16_smem_bytes(trr::wg_cols(3 * C)),
        trr::wg_bf16_smem_bytes(trr::wg_cols(C)),
-       trr::attn_rows_fwd_tc_smem_floats(144, plan.rb, plan.ks) * (int)sizeof(float),
-       trr::attn_group_smem_bytes()});
+       trr::attn_group_fwd_smem_bytes(), trr::attn_group_smem_bytes(),
+       trr::linear_tma_smem_bytes()});
 }
 
 // out (M*N + N) = (A^T B, column sums of B) of A (T, M) and B (T, N), through

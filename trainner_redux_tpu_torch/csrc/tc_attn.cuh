@@ -29,10 +29,11 @@
 // the same way, padded to 128, head_ld(128) = 132 floats apart.
 //
 // The bf16 forms (attn_rows_fwd_bf16_kernel, with P as the bf16 training
-// block's #4 stage and without it as #3's bf16 form and #1's bf16 stage;
-// attn_rows_bwd_bf16_kernel, the saved-P backward of #5's stage;
-// attn_rows_bwd_recompute_bf16_kernel, #8's bf16 form, which recomputes P
-// from the bias table (#6's bf16 stage is attn_group_bf16.cuh's);
+// block's #4 stage and without it as #3's bf16 form; attn_rows_bwd_bf16_kernel,
+// the saved-P backward of #5's stage; attn_rows_bwd_recompute_bf16_kernel,
+// #8's bf16 form at heads of 33-64 channels, which recomputes P from the bias
+// table (#1's and #6's bf16 stages and #8's bf16 form at heads of up to 32
+// are attn_group_bf16.cuh's);
 // cos_attn_rows_fwd_bf16_kernel, #11's cosine stage in bf16) read and write
 // bf16 rows and P and keep the same fp32 tiles in shared memory; each
 // product runs on mma.sync m16n8k16 bf16 with fp32 sums (tc_gemm_bf16.cuh),
@@ -729,10 +730,11 @@ __global__ void __launch_bounds__(attn_tc_threads(RB, KS), attn_tc_threads(RB, K
                                                    wr, wc, kinds, shift, scale);
 }
 
-// The bf16 recompute backward (#8's bf16 form): qkv, datt and dqkv in bf16,
-// the kind table and dS in fp32. P is recomputed in fp32 from q, k and the
-// table; dV takes bf16(P), dS the fp32 P. (#6's bf16 stage, which writes att
-// too, is attn_group_bf16.cuh's.)
+// The bf16 recompute backward (#8's bf16 form at heads of 33-64 channels):
+// qkv, datt and dqkv in bf16, the kind table and dS in fp32. P is recomputed
+// in fp32 from q, k and the table; dV takes bf16(P), dS the fp32 P. (#6's
+// bf16 stage and #8's bf16 form at heads of up to 32 are
+// attn_group_bf16.cuh's.)
 template <int N, int RB, int KS, int HD = 32>
 __global__ void __launch_bounds__(attn_tc_threads(RB, KS),
                                   attn_bwd_blocks(N, attn_tc_threads(RB, KS), HD))

@@ -94,10 +94,15 @@
 // its backward (15.10) in 15.3, below what their bytes take at 3.35 TB/s
 // (about 50 and 95 MB: 15 and 28 us): bytes bound both, and the window
 // attention's issue rate holds them (the fp32 forms reach 12-13% of their
-// 3xTF32 bound).
+// 3xTF32 bound). #8's bf16 form at heads of up to 32 channels is
+// attn_group_bf16.cuh's (window_bwd_bf16): a block per head and group of
+// windows of one kind, bf16 rows in shared memory, dbias summed inside the
+// kernel, so no per-window dS reaches device memory: one launch at n 64
+// and 128, a row pass and a key pass at n 256, then the groups' sums.
 #include <algorithm>
 #include <type_traits>
 
+#include "attn_group_bf16.cuh"
 #include "tc_attn.cuh"
 
 namespace {
@@ -262,13 +267,36 @@ int trr_window_mhsa_fwd_bf16(const trr::bf16* qkv, const float* bias, trr::bf16*
   return trr_rect_mhsa_fwd_bf16(qkv, bias, out, B, H, W, C, nh, kinds, ws, ws, scale, stream);
 }
 
-// The bf16 backward (#8's bf16 form): qkv, dout and dqkv bf16; bias, the dS
-// and stats scratch and dbias fp32, shaped as trr_rect_mhsa_bwd's.
+// Floats of the bf16 backward's scratch at heads of up to 32 channels
+// (attn_group_bf16.cuh): the groups' dbias sums (which 0), the row stats
+// at n 256 (which 1).
+size_t trr_rect_mhsa_bwd_bf16_scratch_floats(int B, int H, int W, int nh, int kinds, int wr,
+                                             int wc, int which) {
+  return (size_t)trr::window_bwd_scratch_floats(B, H, W, nh, kinds, wr, wc, which);
+}
+
+// Windows a group of the bf16 backward's grids at heads of up to 32
+// channels: pass 0 the one launch at n 64 and 128, or the row pass at n
+// 256; pass 1 the key pass.
+int trr_rect_mhsa_bwd_bf16_group_windows(int B, int H, int W, int nh, int kinds, int wr, int wc,
+                                         int pass) {
+  return trr::window_bwd_group_windows(B, H, W, nh, kinds, wr, wc, pass);
+}
+
+// The bf16 backward (#8's bf16 form): qkv, dout and dqkv bf16; bias and
+// dbias fp32. At heads of up to 32 channels and the windows of
+// window_bwd_grouped, attn_group_bf16.cuh's kernels (dbias summed in the
+// kernel over groups of windows): dS is the groups' sums and stats the row
+// stats (trr_rect_mhsa_bwd_bf16_scratch_floats); other heads and windows
+// take tc_attn.cuh's kernels with dS and stats shaped as trr_rect_mhsa_bwd's.
 int trr_rect_mhsa_bwd_bf16(const trr::bf16* qkv, const float* bias, const trr::bf16* dout,
                            trr::bf16* dqkv, float* dS, float* stats, float* dbias, int B, int H,
                            int W, int C, int nh, int kinds, int wr, int wc, float scale,
                            cudaStream_t stream) {
   const int n = wr * wc;
+  if (head_width(C / nh) == 32 && trr::window_bwd_grouped(wr, wc))
+    return (int)trr::window_bwd_bf16(qkv, bias, dout, dqkv, dS, stats, dbias, B, H, W, C, nh,
+                                     kinds, wr, wc, scale, stream);
   const cudaError_t err = dispatch(n, C / nh, [&](auto n_, auto hd_) {
     constexpr int N = decltype(n_)::value, HD = decltype(hd_)::value;
     if constexpr (HD == 128)

@@ -33,7 +33,8 @@ SOURCES = {
     "window_attention": "window_attention.cu",
 }
 HEADERS = ("common.cuh", "block_fwd.cuh", "tc_gemm.cuh", "tc_rows.cuh", "tc_attn.cuh",
-           "tc_gemm_bf16.cuh", "tc_rows_bf16.cuh", "wgrad_bf16.cuh", "attn_group_bf16.cuh")
+           "tc_gemm_bf16.cuh", "tc_rows_bf16.cuh", "wgrad_bf16.cuh", "attn_group_bf16.cuh",
+           "linear_tma_bf16.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -63,7 +64,8 @@ SIGNATURES = {
         "trr_swin_block_bwd": ([_P] * 40 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_swin_block_fwd_bf16": ([_P] * 23 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_swin_block_bwd_bf16": ([_P] * 41 + [_I] * 8 + [_F, _F, _P], _I),
-        "trr_attn_block_fwd_bf16": ([_P] * 13 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_fwd_bf16": ([_P] * 15 + [_I] * 8 + [_F, _F, _P], _I),
+        "trr_attn_block_fwd_bf16_tma": ([_I], _I),
         "trr_attn_block_bwd_bf16": ([_P] * 24 + [_I] * 8 + [_F, _F, _P], _I),
         "trr_ln_mlp_bwd": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
         "trr_ln_mlp_fwd_bf16": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
@@ -120,6 +122,8 @@ SIGNATURES = {
         "trr_window_mhsa_bwd_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
         "trr_rect_mhsa_fwd_bf16": ([_P] * 3 + [_I] * 8 + [_F, _P], _I),
         "trr_rect_mhsa_bwd_bf16": ([_P] * 7 + [_I] * 8 + [_F, _P], _I),
+        "trr_rect_mhsa_bwd_bf16_scratch_floats": ([_I] * 8, ctypes.c_size_t),
+        "trr_rect_mhsa_bwd_bf16_group_windows": ([_I] * 8, _I),
     },
 }
 

@@ -67,6 +67,7 @@ from trainner_redux_tpu_torch.ops.window_attention import (
     attn_bwd_tc_smem_bytes,
     attn_fwd_tc_smem_bytes,
     fused_window_mhsa_reference,
+    kind_windows,
     window_kinds,
 )
 
@@ -104,6 +105,9 @@ WG_COLS = (64, 128, 192, 256)
 # windows of one kind a block, GROUP_THREADS threads, head rows GROUP_LD
 # bf16 apart, P / dS rows GROUP_LP apart, at n GROUP_N
 GROUP_N, GROUP_WINDOWS, GROUP_THREADS, GROUP_LD, GROUP_LP = 144, 8, 288, 40, 152
+# #1's bf16 window attention (attn_group_fwd_bf16_kernel): blocks a SM, and
+# so the group size that fills two waves (window_attention.group_windows)
+GROUP_FWD_BLOCKS = 1
 
 
 def attn_block_smem_bytes(channels: int, window_size: int = WINDOW) -> int:
@@ -326,23 +330,32 @@ def attn_group_smem_bytes() -> int:
     return 4 * n * n + 2 * 2 * 4 * n * GROUP_LD + 2 * n * GROUP_LP
 
 
-def attn_dbias_groups(b: int, nwh: int, nww: int, kinds: int) -> list:
-    """The groups of windows that #6's bf16 window attention walks, in
+def attn_group_fwd_smem_bytes() -> int:
+    """Shared memory of #1's bf16 window attention (csrc/attn_group_bf16.cuh
+    attn_group_fwd_bf16_kernel): two windows' rooms of n bf16 head rows
+    each of q, k and v, a byte a staged row."""
+    return 2 * 2 * 3 * GROUP_N * GROUP_LD + 3 * GROUP_N
+
+
+def linear_tma_smem_bytes() -> int:
+    """Shared memory of #1 bf16's TMA-fed products (csrc/linear_tma_bf16.cuh):
+    1,024 bytes of alignment slack, the resident (128, 256) W^T tile and
+    four (128, 64) A chunks in bf16, the (128, 136) bf16 epilogue tile, nine
+    mbarriers."""
+    return 1024 + (256 // 64 + 4) * 128 * 64 * 2 + 2 * 128 * 136 + 8 * (2 * 4 + 1)
+
+
+def attn_dbias_groups(b: int, nwh: int, nww: int, kinds: int,
+                      windows: int = GROUP_WINDOWS) -> list:
+    """The groups of windows that the grouped bf16 window attention walks
+    (#6's, GROUP_WINDOWS a group; #1's and #8's, `windows` a group), in
     group order: (kind, [(sample, window row, window column), ...]) with
-    each kind's windows in (sample, row, column) order, GROUP_WINDOWS a
-    group, the last group of a kind taking the rest (csrc/attn_group_bf16.cuh
-    attn_groups)."""
+    each kind's windows in (sample, row, column) order, the last group of a
+    kind taking the rest (csrc/attn_group_bf16.cuh attn_groups)."""
     groups = []
     for kind in range(kinds):
-        rows = nwh if kinds == 1 else 1 if kind & 2 else nwh - 1
-        cols = nww if kinds == 1 else 1 if kind & 1 else nww - 1
-        wins = []
-        for m in range(b * rows * cols):
-            r = m % (rows * cols)
-            wi = nwh - 1 if kinds == 4 and kind & 2 else r // cols
-            wj = nww - 1 if kinds == 4 and kind & 1 else r % cols
-            wins.append((m // (rows * cols), wi, wj))
-        groups += [(kind, wins[i:i + GROUP_WINDOWS]) for i in range(0, len(wins), GROUP_WINDOWS)]
+        wins = kind_windows(b, nwh, nww, kinds, kind)
+        groups += [(kind, wins[i:i + windows]) for i in range(0, len(wins), windows)]
     return groups
 
 
@@ -354,7 +367,7 @@ def attn_block_bf16_smem_bytes(channels: int) -> int:
     return max(wg_bf16_bytes(residual_tile_cols(3 * channels)),
                wg_bf16_bytes(residual_tile_cols(channels)), rows_bf16_smem_bytes(channels),
                weight_grad_bf16_smem_bytes(3 * channels), weight_grad_bf16_smem_bytes(channels),
-               attn_fwd_tc_smem_bytes(BF16_ATTN_WINDOW**2), attn_group_smem_bytes())
+               attn_group_fwd_smem_bytes(), attn_group_smem_bytes(), linear_tma_smem_bytes())
 
 
 def attn_block_bf16_fits(h, w, window_size, channels, num_heads) -> bool:
@@ -1433,9 +1446,11 @@ def fused_attn_block_bf16(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim
                           eps=1e-5, shift=0):
     """#1's bf16 form at 12x12 windows: z (B, H, W, C) bf16 of a bf16 x from
     the fp32 parameters, as `fused_attn_block_bf16_reference` computes it.
-    On a CUDA tensor it casts wq and wp to bf16 and launches
-    `trr_attn_block_fwd_bf16` (one counted call, four launches: #4's
-    attention stages at n 144); on a CPU tensor it runs the plain version.
+    On a CUDA tensor it casts wq and wp to bf16 (and hands their
+    transposes, the K-major operands of the TMA-fed products) and launches
+    `trr_attn_block_fwd_bf16` (one counted call, four launches: the LN
+    rows, qkv, the window attention over groups of one kind's windows,
+    proj with the residual); on a CPU tensor it runs the plain version.
     Outside `attn_block_bf16_fits` a CUDA tensor raises."""
     if x.device.type == "cpu":
         return fused_attn_block_bf16_reference(x, g, be, wq, bq, wp, bp, bias, s, num_heads,
@@ -1450,10 +1465,12 @@ def fused_attn_block_bf16(x, g, be, wq, bq, wp, bp, bias, s, num_heads, head_dim
     T = b * hh * ww  # the stages pass LN1(x), qkv and att through (T, C), (T, 3C), (T, C)
     y, qkv, att = (torch.empty((T, k), device=x.device, dtype=torch.bfloat16)
                    for k in (c, 3 * c, c))
+    # the products' K-major weights (W^T) for the TMA-fed stage
+    wqt, wpt = wq.t().contiguous(), wp.t().contiguous()
     fused_attn_block_bf16.launches += 1
     _launch(
         "fused_block_train", "trr_attn_block_fwd_bf16", x.device,
-        *(t.data_ptr() for t in (x, g, be, wq, bq, wp, bp, bias, s, y, qkv, att, z)),
+        *(t.data_ptr() for t in (x, g, be, wq, wqt, bq, wp, wpt, bp, bias, s, y, qkv, att, z)),
         b, hh, ww, c, num_heads, window_size, bias.shape[0], shift, eps, head_dim**-0.5,
     )
     return z

@@ -46,7 +46,12 @@ forms, computing as the JAX kernels do in qkv's dtype (bf16 mma.sync, fp32
 sums and softmax, P and bf16(scale dS) rounded as operands, the outputs
 rounded to bf16; the kind table, dS and dbias fp32), counted on their own:
 `fused_window_mhsa_bf16`, `fused_rect_mhsa_bf16` and their `_backward_bf16`
-wrappers, whose plain versions are the `*_bf16_reference` functions.
+wrappers, whose plain versions are the `*_bf16_reference` functions. The
+bf16 backward at heads of up to 32 channels and the windows of
+`GROUP_BWD_WINDOWS` (`window_bwd_grouped`) runs csrc/attn_group_bf16.cuh's
+grouped kernels, which sum dbias inside the kernel over groups of one
+kind's windows and allocate the groups' sums and the row stats
+(`window_bwd_scratch_floats`) in place of a per-window dS.
 """
 
 from __future__ import annotations
@@ -98,6 +103,19 @@ TC_ATTN_FWD_PLAN_128 = (64, 64)
 WIDE_FWD_LD = {False: 132, True: 136}
 WIDE_FWD_ELEMENT_BYTES = {False: 4, True: 2}
 WIDE_FWD_BLOCKS = {False: 1, True: 2}
+# #8's bf16 form at heads of up to 32 channels (csrc/attn_group_bf16.cuh):
+# a block per head and group of windows of one kind, dbias summed in the
+# kernel. At most GROUP_MAX_WINDOWS windows a group, the most whose grid
+# fills two waves of GROUP_SMS SMs; at n 64 and 128 one launch
+# (GROUP_BWD_BLOCKS blocks a SM), at n 256 a row pass and a key pass over
+# blocks of PASS_ROWS rows or keys (ROW_PASS_THREADS and PASS_THREADS
+# threads; ROW_PASS_BLOCKS and KEY_PASS_BLOCKS blocks a SM). Staged head
+# rows GROUP_LD bf16 apart.
+GROUP_BWD_WINDOWS = ((8, 8), (8, 16), (16, 8), (16, 16), (8, 32), (32, 8))
+GROUP_MAX_WINDOWS, GROUP_SMS, GROUP_LD = 8, 132, 40
+GROUP_BWD_BLOCKS = {64: 3, 128: 1, 144: 1}
+PASS_N, PASS_ROWS, PASS_THREADS, ROW_PASS_THREADS = 256, 64, 128, 256
+ROW_PASS_BLOCKS, KEY_PASS_BLOCKS = 1, 2
 
 
 def head_width(head_dim: int) -> int:
@@ -193,6 +211,89 @@ def window_mhsa_smem_bytes(channels: int, num_heads: int, window_size: int = WIN
 def window_mhsa_bwd_smem_bytes(channels: int, num_heads: int, window_size: int) -> int:
     """Shared memory of the backward kernel at square windows."""
     return rect_mhsa_bwd_smem_bytes(channels, num_heads, window_size, window_size)
+
+
+def window_bwd_grouped(head_dim: int, wr: int, wc: int) -> bool:
+    """#8's bf16 form takes csrc/attn_group_bf16.cuh's kernels at heads of
+    up to 32 channels and the windows of GROUP_BWD_WINDOWS (the stated
+    shape rule of window_bwd_grouped); tc_attn.cuh's take the rest."""
+    return head_width(head_dim) == 32 and (wr, wc) in GROUP_BWD_WINDOWS
+
+
+def kind_windows(b: int, nwh: int, nww: int, kinds: int, kind: int) -> list:
+    """The windows of one bias kind in (sample, window row, window column)
+    order (csrc/attn_group_bf16.cuh kind_grid)."""
+    rows = nwh if kinds == 1 else 1 if kind & 2 else nwh - 1
+    cols = nww if kinds == 1 else 1 if kind & 1 else nww - 1
+    wins = []
+    for m in range(b * rows * cols):
+        r = m % (rows * cols)
+        wi = nwh - 1 if kinds == 4 and kind & 2 else r // cols
+        wj = nww - 1 if kinds == 4 and kind & 1 else r % cols
+        wins.append((m // (rows * cols), wi, wj))
+    return wins
+
+
+def group_offsets(b: int, nwh: int, nww: int, kinds: int, windows: int) -> list[int]:
+    """goff of csrc/attn_group_bf16.cuh attn_groups: the first group of
+    each kind, then the total, `windows` windows a group."""
+    goff = [0]
+    for kind in range(4):
+        count = len(kind_windows(b, nwh, nww, kinds, kind)) if kind < kinds else 0
+        goff.append(goff[-1] + -(-count // windows))
+    return goff
+
+
+def group_windows(b: int, nwh: int, nww: int, kinds: int, per_group: int, per_sm: int) -> int:
+    """Windows a group: the most, up to GROUP_MAX_WINDOWS, whose grid of
+    `per_group` blocks a group fills two waves of `per_sm` blocks a SM; 1
+    if none does (group_windows)."""
+    for gw in range(GROUP_MAX_WINDOWS, 1, -1):
+        if group_offsets(b, nwh, nww, kinds, gw)[4] * per_group >= 2 * GROUP_SMS * per_sm:
+            return gw
+    return 1
+
+
+def window_bwd_group_windows(b, hh, ww, num_heads, kinds, wr, wc, pass_: int = 0) -> int:
+    """Windows a group of #8's grouped bf16 grids: pass 0 the one launch at
+    n 64 and 128, or the row pass at n 256; pass 1 the key pass."""
+    n, nwh, nww = wr * wc, hh // wr, ww // wc
+    if n == PASS_N:
+        return group_windows(b, nwh, nww, kinds, num_heads * (PASS_N // PASS_ROWS),
+                             KEY_PASS_BLOCKS if pass_ else ROW_PASS_BLOCKS)
+    return group_windows(b, nwh, nww, kinds, num_heads, GROUP_BWD_BLOCKS[n])
+
+
+def window_bwd_scratch_floats(b, hh, ww, num_heads, kinds, wr, wc) -> tuple[int, int]:
+    """Floats of #8's grouped bf16 scratch: the groups' dbias sums (groups,
+    nh, n, n) and, at n 256, the row stats (B, nwh, nww, nh, n, 4)."""
+    n, nwh, nww = wr * wc, hh // wr, ww // wc
+    gw = window_bwd_group_windows(b, hh, ww, num_heads, kinds, wr, wc)
+    groups = group_offsets(b, nwh, nww, kinds, gw)[4]
+    return groups * num_heads * n * n, (4 * b * nwh * nww * num_heads * n if n == PASS_N else 0)
+
+
+def window_bwd_smem_bytes(n: int) -> int:
+    """Shared memory of csrc/attn_group_bf16.cuh's attn_window_bwd_bf16_kernel
+    (#8 at n 64 and 128): the (n, n) fp32 dbias sums, two windows' rooms of
+    q, k, v and dA (n rows each), the (n, n + 8) bf16 P / dS tile, and a
+    byte a staged row."""
+    return 4 * n * n + 2 * 2 * 4 * n * GROUP_LD + 2 * n * (n + 8) + 4 * n
+
+
+def rows_pass_smem_bytes() -> int:
+    """The row pass's: the (64, 256) fp32 sums, two windows' rooms of 64 q
+    and dA and 256 k and v rows, the key halves' (3, 2, 64) row values and
+    (64, 32) dq sums, a byte a staged row."""
+    return (4 * PASS_ROWS * PASS_N + 2 * 2 * (2 * PASS_ROWS + 2 * PASS_N) * GROUP_LD
+            + 4 * (3 * 2 * PASS_ROWS + 32 * PASS_ROWS) + 2 * PASS_ROWS + 2 * PASS_N)
+
+
+def keys_pass_smem_bytes() -> int:
+    """The key pass's: two windows' rooms of 256 q and dA and 64 k and v
+    rows, two windows' row stats (float4), a byte a staged row."""
+    return (2 * 2 * (2 * PASS_N + 2 * PASS_ROWS) * GROUP_LD + 2 * 16 * PASS_N + 2 * PASS_N
+            + 2 * PASS_ROWS)
 
 
 def heads_fit(window_size: int, channels: int, num_heads: int) -> bool:
@@ -517,19 +618,29 @@ def _mhsa_bwd_cuda(counted, qkv, bias, dout, num_heads, head_dim, wr, wc, bf16=F
     _check_cuda("dout", dout, (b, hh, ww, c), qkv.device, dtype)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
-    # dS of every window and head, which the bias-kind reduction sums
-    ds = torch.empty((b, hh // wr, ww // wc, num_heads, n, n), device=qkv.device,
-                     dtype=torch.float32)
-    # the 128-wide form's softmax max and inverse sum of every row, from its
-    # row pass to its key pass
-    wide = head_width(head_dim) == HD_MAX
-    stats = torch.empty((b, hh // wr, ww // wc, num_heads, n, 2) if wide else (0,),
-                        device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:
         return dqkv, dbias.zero_()
     from trainner_redux_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("window_attention")
+    wide = head_width(head_dim) == HD_MAX
+    if bf16 and window_bwd_grouped(head_dim, wr, wc):
+        # the groups' dbias sums and, at n 256, each row's softmax stats
+        # (csrc/attn_group_bf16.cuh): no per-window dS
+        if b * (hh // wr) * (ww // wc) > GRID_YZ_MAX:
+            raise ValueError(f"{name}: {b * (hh // wr) * (ww // wc)} windows is outside the "
+                             f"kernel's launch grid (at most {GRID_YZ_MAX} groups)")
+        ds, stats = (torch.empty((lib.trr_rect_mhsa_bwd_bf16_scratch_floats(
+            b, hh, ww, num_heads, kinds, wr, wc, which),), device=qkv.device,
+            dtype=torch.float32) for which in (0, 1))
+    else:
+        # dS of every window and head, which the bias-kind reduction sums
+        ds = torch.empty((b, hh // wr, ww // wc, num_heads, n, n), device=qkv.device,
+                         dtype=torch.float32)
+        # the 128-wide form's softmax max and inverse sum of every row, from
+        # its row pass to its key pass
+        stats = torch.empty((b, hh // wr, ww // wc, num_heads, n, 2) if wide else (0,),
+                            device=qkv.device, dtype=torch.float32)
     fn = lib.trr_rect_mhsa_bwd_bf16 if bf16 else lib.trr_rect_mhsa_bwd
     with torch.cuda.device(qkv.device):
         counted.launches += 1
